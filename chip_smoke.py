@@ -10,52 +10,77 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
 1. The card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions.
 2. Build the port's CUDA kernels from ``deepspeed_tpu_torch/csrc`` into
-   ``build/deepspeed_tpu_torch/`` (printed: the build seconds and
-   ptxas' register/shared-memory report).
-3. Hold each kernel against its plain PyTorch version on the card at the
-   serving path's gpt2-small shapes, in bf16: LayerNorm (rows 8 and 32 x
-   768, with and without the residual), bias+GELU (rows 8 and 32 x 3072),
-   paged attention (decode Q=8 K=1, verify K=4, prefill K=32; ragged
-   contexts up to 1024 and a dead stream). One JSON line per shape with
-   the kernel's, the plain version's and a library call's time (CUDA
-   events), the least time the card could take (``bound_ms``) and the
-   largest error.
+   ``build/deepspeed_tpu_torch/`` (one nvcc per source, in parallel;
+   printed: the build seconds and ptxas' register/shared-memory report).
+3. Hold each kernel against its plain PyTorch version on the card: the
+   serving kernels at the serving path's gpt2-small shapes (LayerNorm
+   rows 8 and 32 x 768, bias+GELU rows 8 and 32 x 3072, paged attention
+   decode/verify/prefill), then every kernel of the training path at its
+   gpt2-small training shapes (micro-batch 8 x 1024 = 8192 rows, bf16):
+   LayerNorm forward and backward (8192 x 768, with and without the
+   residual), bias+GELU forward and backward (8192 x 3072), the grad sum
+   of squares and the fused Adam step over the 124M-element fp32
+   parameter group, the latter for each flag set the engine uses. One
+   JSON line per shape: the kernel's, the plain version's and a library
+   call's time (CUDA events), the least time the card could take
+   (``bound_ms``) and the largest error.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
    then the same stream with ``spec_k: 3``. Each serve is its own path:
    the launch counters are zeroed just before it and read just after it,
-   and every kernel must have launched in it. Then the exact launches
-   of one step of each attention mode (chunked prefill, decode, verify),
-   and the engine's prefill logits against the plain ``gpt2_apply`` on
-   the card (tolerance and equal argmax).
-5. The ``{"kernels": [...]}`` summary line, then the result line
+   and every serving kernel must have launched in it. Then the exact
+   launches of one step of each attention mode and the engine's prefill
+   logits against the plain ``gpt2_apply`` on the card.
+5. Train gpt2-small through ``initialize`` → ``train_batch``: bf16 with
+   fp32 masters, AdamW, WarmupLR, clip 1.0, gas 2 x micro-batch 8 x
+   1024, dropout 0.1, on a seeded learnable token stream. First one
+   step's loss and grad norm against a plain-autograd step on the card
+   (plain LayerNorm/GELU, same params, batch and dropout masks); then
+   the main path, 30 steps, read on its own: every loss finite, the last
+   5 below the first 5, and exactly the expected launches per step of
+   every training kernel. Step time p50, tokens/s and model TFLOP/s;
+   then three profiled steps (device time by kernel group, idle share)
+   and one step under CUDA's sync debug mode (the host syncs it makes).
+   Then the fp16 path (dynamic loss scale from 2^32: skipped steps, then
+   taken ones) and the master-free bf16 path (stochastic rounding), each
+   read on its own.
+6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.inference import InferenceEngine, \
     shared_prefix_requests
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
-    gpt2_init
+    gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
+from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
+from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops.fused_update import tree_flatten, \
+    tree_unflatten
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W): HBM
-# bytes/s and the bf16 rate. Every input here is bf16, so the operations
-# term of a bound is priced at the bf16 rate, whatever precision a kernel
-# chooses to compute in.
+# bytes/s, the bf16 rate and the fp32 rate outside the tensor cores. The
+# operations term of a bound is priced at the rate of the inputs' type:
+# bf16 for the serving kernels and the LayerNorm/GELU kernels, fp32 for
+# the grad norm and the Adam step, whose inputs are fp32.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 # Kernel against its plain version: both accumulate in fp32 and round once
 # to bf16, so they may differ by a rounding step. Allowed: 2 bf16 ulp of
 # the larger magnitude, floored at 1e-5 (GELU's cancelling tail; see the
@@ -66,6 +91,18 @@ ULP_FLOOR = 1e-5
 # 2 bf16 ulp of the largest logit), and the argmax must be equal.
 LOGIT_TOL = 0.0625
 SEED = 0
+# The training main path: gpt2-small, micro-batch 8 x 1024 tokens (the
+# kernels' rows), gas 2.
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_GAS = 8, 1024, 2
+TRAIN_ROWS = TRAIN_MICRO * TRAIN_SEQ
+TRAIN_STEPS = 30
+# The kernel-path training step against the plain-autograd step on the
+# card (bf16 compute, fp32 masters, same params, batch and dropout
+# masks). The two differ only in where the LayerNorm/GELU forward and
+# backward round to bf16.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_NORM_RTOL = 2e-2
+SERVE_KERNELS = ("fused_layer_norm", "fused_bias_gelu", "paged_attention")
 
 
 def emit(obj):
@@ -86,9 +123,9 @@ def time_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -106,7 +143,7 @@ def bf16_ulp_excess(a, b):
 # --------------------------------------------------------------------- #
 def check_layer_norm(dev, gen):
     H, dt, out = 768, torch.bfloat16, []
-    for rows in (8, 32):
+    for rows in (8, 32, TRAIN_ROWS):
         x = torch.randn(rows, H, device=dev, generator=gen).to(dt)
         d = torch.randn(rows, H, device=dev, generator=gen).to(dt)
         sc = 1 + 0.1 * torch.randn(H, device=dev, generator=gen)
@@ -147,7 +184,7 @@ def check_layer_norm(dev, gen):
 
 def check_bias_gelu(dev, gen):
     Fw, dt, out = 3072, torch.bfloat16, []
-    for rows in (8, 32):
+    for rows in (8, 32, TRAIN_ROWS):
         y = (3 * torch.randn(rows, Fw, device=dev, generator=gen)).to(dt)
         b = torch.randn(Fw, device=dev, generator=gen)
         g = fe.fused_bias_gelu(y, b)
@@ -294,8 +331,8 @@ def serve_gpt2_small(dev):
         rep = reports[k]
         assert rep["completed"] == 16 and rep["unfinished"] == 0, \
             (k, rep["completed"], rep["unfinished"])
-        assert all(n > 0 for name, n in counts[k].items()
-                   if name != "fused_residual_layer_norm"), (k, counts[k])
+        assert all(counts[k][name] > 0 for name in SERVE_KERNELS), \
+            (k, counts[k])
         emit({"serve": {"spec_k": k, "requests": 16,
                         "completed": rep["completed"],
                         "ttft_ms_p50": rep["ttft_ms"]["p50"],
@@ -330,9 +367,10 @@ def serve_gpt2_small(dev):
         return out, ops.launch_counts()
 
     def per_step(n):
-        return {"fused_layer_norm": n * (2 * L + 1),
-                "fused_residual_layer_norm": 0, "fused_bias_gelu": n * L,
-                "paged_attention": n * L}
+        c = {name: 0 for name in ops.launch_counts()}
+        c.update({"fused_layer_norm": n * (2 * L + 1),
+                  "fused_bias_gelu": n * L, "paged_attention": n * L})
+        return c
 
     steps = {}
     eng = engines[0]
@@ -366,6 +404,472 @@ def serve_gpt2_small(dev):
     return counts, reports
 
 
+# --------------------------------------------------------------------- #
+# Phase 3b: the training kernels at gpt2-small training shapes
+# --------------------------------------------------------------------- #
+# Flag sets of the fused Adam step the engine runs, with a scalar row
+# [neg_lr, bc1, bc2, coeff, inv, skip]: (name, param dtype, cast dtype,
+# flags, scalars).
+ADAM_FLAG_SETS = (
+    ("fp32_adamw_clip", torch.float32, None,
+     dict(wd=0.01, coupled=False, use_inv=False, use_coeff=True, sr=False),
+     [-6e-4, 0.271, 0.00299, 0.37, 1.0, 0.0]),
+    ("fp32_adam_coupled_clip", torch.float32, None,
+     dict(wd=0.01, coupled=True, use_inv=False, use_coeff=True, sr=False),
+     [-6e-4, 0.271, 0.00299, 0.37, 1.0, 0.0]),
+    ("fp16_cast_inv_scale_skip", torch.float32, torch.float16,
+     dict(wd=0.01, coupled=False, use_inv=True, use_coeff=True, sr=False),
+     [-6e-4, 0.1, 0.001, 0.5, 2.0 ** -16, 1.0]),
+    ("bf16_cast_cache", torch.float32, torch.bfloat16,
+     dict(wd=0.01, coupled=False, use_inv=False, use_coeff=True, sr=False),
+     [-6e-4, 0.19, 0.001999, 0.9, 1.0, 0.0]),
+    ("master_free_sr", torch.bfloat16, None,
+     dict(wd=0.01, coupled=False, use_inv=False, use_coeff=True, sr=True),
+     [-6e-4, 0.271, 0.00299, 0.8, 1.0, 0.0]),
+)
+
+
+def _native_ln_bwd_inputs(s, sc, bi):
+    """The mean/rstd that ``native_layer_norm_backward`` takes, computed
+    outside the library call's timing."""
+    _, mean, rstd = torch.ops.aten.native_layer_norm(
+        s, [s.shape[-1]], sc.to(s.dtype), bi.to(s.dtype), 1e-5)
+    return mean, rstd
+
+
+def check_layer_norm_backward(dev, gen):
+    H, dt, out = 768, torch.bfloat16, []
+    s = (2 * torch.randn(TRAIN_ROWS, H, device=dev, generator=gen)
+         + 0.5).to(dt)
+    dy = torch.randn(TRAIN_ROWS, H, device=dev, generator=gen).to(dt)
+    gs = torch.randn(TRAIN_ROWS, H, device=dev, generator=gen).to(dt)
+    sc = 1 + 0.1 * torch.randn(H, device=dev, generator=gen)
+    bi = 0.1 * torch.randn(H, device=dev, generator=gen)
+    mean, rstd = _native_ln_bwd_inputs(s, sc, bi)
+    for resid in (False, True):
+        g = gs if resid else None
+        dx, dsc, dbi = fe.layer_norm_backward(s, sc, dy, g)
+        rdx, rdsc, rdbi = fe.ln_backward_plain(s, sc, dy, g)
+        torch.cuda.synchronize()
+        ulps = bf16_ulp_excess(dx, rdx)
+        assert ulps <= 1.0, f"layer_norm_backward: {ulps} x 2 ulp"
+        rel = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+                  for a, b in ((dsc, rdsc), (dbi, rdbi)))
+        assert rel <= 1e-4, f"layer_norm_backward dscale/dbias: {rel}"
+        n_io = (4 if resid else 3) * TRAIN_ROWS * H * 2
+        b_ms, b_by = bound(n_io + 3 * H * 4, 12 * TRAIN_ROWS * H)
+        lib = None if resid else time_ms(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, s, [H], mean, rstd, sc.to(dt), bi.to(dt),
+                [True, True, True]))
+        rec = {"kernel": "layer_norm_backward", "residual": resid,
+               "shape": [TRAIN_ROWS, H], "dtype": "bf16",
+               "kernel_ms": time_ms(
+                   lambda: fe.layer_norm_backward(s, sc, dy, g)),
+               "plain_ms": time_ms(
+                   lambda: fe.ln_backward_plain(s, sc, dy, g), iters=20),
+               "library_ms": lib,
+               "library": None if resid
+               else "torch.ops.aten.native_layer_norm_backward",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_err": float((dx.float() - rdx.float()).abs().max()),
+               "max_err_in_2ulp": ulps, "dscale_dbias_max_rel": rel}
+        emit(rec)
+        out.append(rec)
+    return out
+
+
+def check_bias_gelu_backward(dev, gen):
+    Fw, dt = 3072, torch.bfloat16
+    y = (3 * torch.randn(TRAIN_ROWS, Fw, device=dev, generator=gen)).to(dt)
+    b = torch.randn(Fw, device=dev, generator=gen)
+    g = torch.randn(TRAIN_ROWS, Fw, device=dev, generator=gen).to(dt)
+    dz, db = fe.bias_gelu_backward(y, b, g)
+    rdz, rdb = fe.bias_gelu_backward_plain(y, b, g)
+    torch.cuda.synchronize()
+    ulps = bf16_ulp_excess(dz, rdz)
+    assert ulps <= 1.0, f"bias_gelu_backward: {ulps} x 2 ulp"
+    rel = float(((db - rdb).abs() / rdb.abs().clamp_min(1.0)).max())
+    assert rel <= 1e-4, f"bias_gelu_backward dbias: {rel}"
+    b_ms, b_by = bound(3 * TRAIN_ROWS * Fw * 2 + 2 * Fw * 4,
+                       20 * TRAIN_ROWS * Fw)
+    rec = {"kernel": "bias_gelu_backward", "shape": [TRAIN_ROWS, Fw],
+           "dtype": "bf16",
+           "kernel_ms": time_ms(lambda: fe.bias_gelu_backward(y, b, g)),
+           "plain_ms": time_ms(lambda: fe.bias_gelu_backward_plain(y, b, g),
+                               iters=20),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "max_err": float((dz.float() - rdz.float()).abs().max()),
+           "max_err_in_2ulp": ulps, "dbias_max_rel": rel}
+    emit(rec)
+    return [rec]
+
+
+def check_sqnorm(dev, gen, n):
+    g = 1e-3 * torch.randn(n, device=dev, generator=gen)
+    got, want = fu.sqnorm(g), fu.sqnorm_plain(g)
+    torch.cuda.synchronize()
+    rel = abs(float(got) - float(want)) / float(want)
+    assert rel <= 1e-5, f"sqnorm: relative {rel}"
+    b_ms, b_by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+    rec = {"kernel": "sqnorm", "shape": [n], "dtype": "fp32",
+           "kernel_ms": time_ms(lambda: fu.sqnorm(g)),
+           "plain_ms": time_ms(lambda: fu.sqnorm_plain(g), iters=20),
+           "library_ms": time_ms(lambda: torch.linalg.vector_norm(g)),
+           "library": "torch.linalg.vector_norm",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "max_err": abs(float(got) - float(want)), "max_rel_err": rel}
+    emit(rec)
+    return [rec]
+
+
+def check_fused_adam(dev, gen, n):
+    """Each flag set over an n-element group: bit-equal to the plain
+    version (both round op by op); timed in place."""
+    out = []
+    for name, p_dt, c_dt, flags, sc in ADAM_FLAG_SETS:
+        g = 0.05 * torch.randn(n, device=dev, generator=gen)
+        if flags["use_inv"]:
+            g = g * 2.0 ** 16
+        p = (0.2 * torch.randn(n, device=dev, generator=gen)).to(p_dt)
+        m = 0.01 * torch.randn(n, device=dev, generator=gen)
+        v = 1e-4 * torch.rand(n, device=dev, generator=gen)
+        scalars = torch.tensor(sc + [0.0, 0.0], device=dev)
+        seed = torch.tensor([123456789, 4096], dtype=torch.int32,
+                            device=dev)
+        cast = None if c_dt is None else torch.empty(n, dtype=c_dt,
+                                                     device=dev)
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, one_pass=True, **flags)
+        ref = fu.fused_adam_plain(g, p, m, v, scalars, seed, cast_dtype=c_dt,
+                                  **kw)
+        p0 = p.clone()
+        fu.fused_adam_apply(g, p, m, v, scalars, seed, cast_out=cast, **kw)
+        torch.cuda.synchronize()
+        outs = [(p, ref[0]), (m, ref[1]), (v, ref[2])] + \
+            ([] if cast is None else [(cast, ref[3])])
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in outs)
+        assert all(torch.equal(a, b) for a, b in outs), (name, err)
+        if sc[5] > 0:
+            assert torch.equal(p, p0), name
+        del ref
+        p_b = p.element_size()
+        nbytes = n * (4 + p_b + 8 + p_b + 8 +
+                      (0 if cast is None else cast.element_size()))
+        b_ms, b_by = bound(nbytes, 20 * n, FP32_FLOPS_PER_S)
+        lib = None
+        if p_dt == torch.float32:
+            steps = [torch.tensor(3.0, device=dev)]
+            fused = torch._fused_adam_ if flags["coupled"] \
+                else torch._fused_adamw_
+            lib = time_ms(lambda: fused(
+                [p], [g], [m], [v], [], steps, lr=6e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+                maximize=False))
+        rec = {"kernel": "fused_adam", "flags": name, "shape": [n],
+               "param_dtype": str(p_dt).replace("torch.", ""),
+               "kernel_ms": time_ms(lambda: fu.fused_adam_apply(
+                   g, p, m, v, scalars, seed, cast_out=cast, **kw)),
+               "plain_ms": time_ms(lambda: fu.fused_adam_plain(
+                   g, p, m, v, scalars, seed, cast_dtype=c_dt, **kw),
+                   iters=5, warmup=2),
+               "library_ms": lib,
+               "library": None if lib is None else
+               ("torch._fused_adam_" if flags["coupled"]
+                else "torch._fused_adamw_") + " (no cast copy, no skip)",
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "max_err": err}
+        emit(rec)
+        out.append(rec)
+        del g, p, m, v, cast
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# Phase 5: the training main path at gpt2-small
+# --------------------------------------------------------------------- #
+def token_stream(cfg, steps, seed=SEED):
+    """Seeded learnable batches [gas*micro, S+1]: a Markov chain over a
+    1024-token subset of the vocab that follows a fixed successor map
+    with probability 0.9."""
+    rng = np.random.default_rng(seed)
+    n = min(1024, cfg.vocab_size // 2)
+    vocab = rng.choice(cfg.vocab_size, n, replace=False)
+    succ = rng.permutation(n)
+    B = TRAIN_GAS * TRAIN_MICRO
+    out = []
+    for _ in range(steps):
+        seq = np.empty((B, TRAIN_SEQ + 1), np.int64)
+        cur = rng.integers(0, n, B)
+        for t in range(TRAIN_SEQ + 1):
+            seq[:, t] = cur
+            jump = rng.random(B) < 0.1
+            cur = np.where(jump, rng.integers(0, n, B), succ[cur])
+        out.append(torch.from_numpy(vocab[seq]))
+    return out
+
+
+def train_config(precision, steps):
+    ds = {"train_batch_size": TRAIN_GAS * TRAIN_MICRO,
+          "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "optimizer": {"type": "AdamW", "params": {
+              "lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.01}},
+          "scheduler": {"type": "WarmupLR", "params": {
+              "warmup_num_steps": 10, "warmup_max_lr": 6e-4,
+              "warmup_type": "linear"}}}
+    if precision == "fp16":
+        ds["fp16"] = {"enabled": True, "initial_scale_power": 32}
+    else:
+        ds["bf16"] = {"enabled": True,
+                      "stochastic_rounding": precision == "master_free"}
+    return ds
+
+
+def per_train_step(cfg):
+    L = cfg.num_layers
+    c = {name: 0 for name in ops.launch_counts()}
+    c.update({"fused_layer_norm": TRAIN_GAS * (L + 1),
+              "fused_residual_layer_norm": TRAIN_GAS * L,
+              "fused_bias_gelu": TRAIN_GAS * L,
+              "layer_norm_backward": TRAIN_GAS * (2 * L + 1),
+              "bias_gelu_backward": TRAIN_GAS * L,
+              "sqnorm": 1, "fused_adam_apply": 1})
+    return c
+
+
+def make_engine(cfg, precision, seed=SEED):
+    dev = torch.device("cuda")
+    params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg), model_params=params,
+        config=train_config(precision, TRAIN_STEPS), rng=seed)
+    return eng
+
+
+def plain_reference_step(eng, cfg, batch):
+    """One step's mean loss and global grad norm by plain autograd
+    (plain LayerNorm/GELU) on the engine's bf16 params, its batch split
+    and a copy of its generator (the same dropout masks)."""
+    gen = torch.Generator(device=eng.device)
+    gen.set_state(eng.generator.get_state())
+    cast, spec = tree_flatten(eng.state.cast_params)
+    leaves = [t.detach().clone().requires_grad_() for t in cast]
+    tree = tree_unflatten(spec, leaves)
+    loss_fn = gpt2_loss_fn(cfg, ops=PLAIN_OPS)
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+           for t in leaves]
+    mean = 0.0
+    for mb in batch.to(eng.device).chunk(TRAIN_GAS):
+        loss = loss_fn(tree, mb, gen)
+        grads = torch.autograd.grad(loss.float() / TRAIN_GAS, leaves)
+        for a, g in zip(acc, grads):
+            a.add_(g)
+        mean += float(loss.detach()) / TRAIN_GAS
+    norm = float(torch.sqrt(sum(torch.sum(a * a) for a in acc)))
+    return mean, norm
+
+
+def profile_train_steps(eng, batches):
+    """Device time by kernel group over a few train steps
+    (torch.profiler), with the window's wall (ended by a sync)."""
+    groups = (("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
+              ("port_kernels", ("ln_fwd_kernel", "ln_bwd_kernel",
+                                "bias_gelu", "sqnorm_kernel",
+                                "fused_adam_kernel")),
+              ("softmax", ("softmax",)),
+              ("dropout_rand", ("philox", "uniform", "random")),
+              ("index_and_copy", ("index", "copy", "gather", "scatter",
+                                  "cat", "embedding")),
+              ("reduce", ("reduce",)))
+
+    def group(name):
+        low = name.lower()
+        for g, keys in groups:
+            if any(k in low for k in keys):
+                return g
+        return "other_elementwise"
+
+    def device_us(evt):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(evt, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            eng.train_batch(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(batches)
+    per, top, port = {}, {}, {}
+    launches = 0
+    for evt in prof.key_averages():
+        us = device_us(evt)
+        if us > 0 and "cuda" in str(getattr(evt, "device_type", "")).lower():
+            ms = us / 1e3 / len(batches)
+            g = group(evt.key)
+            per[g] = per.get(g, 0.0) + ms
+            top[evt.key[:80]] = (ms, evt.count / len(batches))
+            launches += evt.count
+            if g == "port_kernels":
+                # e.g. "ln_fwd_kernel<__nv_bfloat16, true>": the device
+                # time of one launch, free of the host's enqueue cost
+                # that CUDA events around a launch loop include.
+                m = re.search(r"(ln_fwd|ln_bwd|bias_gelu|bias_gelu_bwd|"
+                              r"sqnorm|fused_adam)_kernel(<[^()]*>)?",
+                              evt.key)
+                port[m.group(0) if m else evt.key[:80]] = \
+                    us / evt.count / 1e3
+    busy = sum(per.values())
+    return {"steps": len(batches), "wall_ms_per_step_profiled": wall,
+            "device_busy_ms_per_step": busy,
+            "device_ms_per_step_by_group": dict(sorted(
+                per.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms_and_launches_per_step": sorted(
+                ([k, v[0], v[1]] for k, v in top.items()),
+                key=lambda r: -r[1])[:15],
+            "port_kernel_device_ms_per_launch": port,
+            "kernel_launches_per_step": launches / len(batches),
+            "device_idle_share": (1 - busy / wall) if busy > 0 else None}
+
+
+def count_host_syncs(eng, batches):
+    """Train steps under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    operations that made the host wait for the card, which the engine's
+    step is written to have none of."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for b in batches:
+                eng.train_batch(b)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [str(w.message).splitlines()[0][:200] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return {"steps": len(batches), "host_syncs": len(syncs),
+            "first": syncs[:3]}
+
+
+def run_path(eng, batches):
+    """Drive ``train_batch`` over ``batches`` as one path: counts zeroed
+    just before, read just after. Returns (losses, metrics per step,
+    step ms by CUDA events, counts)."""
+    starts = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    losses, metrics = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b, st, en in zip(batches, starts, ends):
+        st.record()
+        losses.append(eng.train_batch(b))
+        en.record()
+        metrics.append(eng.last_metrics)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
+    return [float(l) for l in losses], metrics, ms, counts
+
+
+def train_gpt2_small(dev, smi):
+    cfg = GPT2_CONFIGS["gpt2-small"]          # dropout 0.1, bf16 compute
+    batches = token_stream(cfg, TRAIN_STEPS + 4)
+    tokens_per_step = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    flops_per_token = gpt2_flops_per_token(cfg, TRAIN_SEQ)
+    expect = per_train_step(cfg)
+    counts, out = {}, {}
+
+    # bf16 with fp32 masters: yardstick step, then the main path.
+    eng = make_engine(cfg, "bf16")
+    ref_loss, ref_norm = plain_reference_step(eng, cfg, batches[0])
+    torch.cuda.synchronize()
+    losses, metrics, ms, counts["train"] = run_path(
+        eng, batches[:TRAIN_STEPS])
+    k_norm = float(metrics[0]["grad_norm"])
+    check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
+             "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL,
+             "grad_norm_kernel": k_norm, "grad_norm_plain": ref_norm,
+             "grad_norm_rel": abs(k_norm - ref_norm) / ref_norm,
+             "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL}
+    emit({"train_step_vs_plain_autograd": check})
+    assert check["loss_rel"] <= TRAIN_LOSS_RTOL, check
+    assert check["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL, check
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    assert last < first, (first, last)
+    want = {k: TRAIN_STEPS * v for k, v in expect.items()}
+    assert counts["train"] == want, (counts["train"], want)
+    step_ms = float(np.median(ms[3:]))
+    tok_s = tokens_per_step / (step_ms / 1e3)
+    out["train"] = {
+        "model": "gpt2-small", "precision": "bf16, fp32 masters",
+        "batch": [TRAIN_GAS, TRAIN_MICRO, TRAIN_SEQ], "steps": TRAIN_STEPS,
+        "dropout": cfg.hidden_dropout, "losses": losses,
+        "loss_first5_mean": first, "loss_last5_mean": last,
+        "grad_norm_last": float(metrics[-1]["grad_norm"]),
+        "launches_per_step": expect,
+        "step_ms_p50": step_ms, "step_ms_all": ms, "tokens_per_s": tok_s,
+        "model_tflops_per_s": flops_per_token * tok_s / 1e12,
+        "flops_per_token": flops_per_token,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": smi}
+    emit({"train_path": out["train"]})
+    prof = profile_train_steps(eng, batches[TRAIN_STEPS:TRAIN_STEPS + 3])
+    prof["card"] = smi
+    emit({"train_profile": prof})
+    syncs = count_host_syncs(eng, batches[TRAIN_STEPS + 3:TRAIN_STEPS + 4])
+    emit({"train_host_syncs": syncs})
+    assert syncs["host_syncs"] == 0, syncs
+    del eng
+    torch.cuda.empty_cache()
+
+    # fp16, dynamic loss scale from 2^32: skipped steps, then taken ones.
+    eng = make_engine(cfg, "fp16")
+    fp16_batches = batches[:TRAIN_STEPS + 4]
+    losses, metrics, ms, counts["train_fp16"] = run_path(eng, fp16_batches)
+    skipped = int(eng.state.skipped_steps)
+    taken = int(eng.state.step)
+    scales = [float(m["loss_scale"]) for m in metrics]
+    emit({"train_fp16_path": {"steps": len(fp16_batches),
+                              "skipped": skipped, "taken": taken,
+                              "loss_scales": scales, "losses": losses,
+                              "step_ms_p50": float(np.median(ms)),
+                              "card": smi}})
+    assert skipped > 0 and taken > 0, (skipped, taken)
+    assert all(math.isfinite(l) for l in losses), losses
+    assert counts["train_fp16"] == {k: len(fp16_batches) * v
+                                    for k, v in expect.items()}
+    del eng
+    torch.cuda.empty_cache()
+
+    # master-free bf16: bf16 params, stochastic rounding in the kernel.
+    eng = make_engine(cfg, "master_free")
+    assert all(t.dtype == torch.bfloat16
+               for t in tree_flatten(eng.state.params)[0])
+    mf_batches = batches[:5]
+    losses, metrics, ms, counts["train_master_free"] = run_path(
+        eng, mf_batches)
+    emit({"train_master_free_path": {"steps": len(mf_batches),
+                                     "losses": losses,
+                                     "step_ms_p50": float(np.median(ms)),
+                                     "card": smi}})
+    assert all(math.isfinite(l) for l in losses), losses
+    assert counts["train_master_free"] == {k: len(mf_batches) * v
+                                           for k, v in expect.items()}
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -381,7 +885,8 @@ def main():
           "python": sys.version.split()[0], "device": name,
           "peaks_used": {"card": "H100 SXM",
                          "hbm_bytes_per_s": HBM_BYTES_PER_S,
-                         "bf16_flops_per_s": BF16_FLOPS_PER_S}})
+                         "bf16_flops_per_s": BF16_FLOPS_PER_S,
+                         "fp32_flops_per_s": FP32_FLOPS_PER_S}})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -394,38 +899,54 @@ def main():
     ln = check_layer_norm(dev, gen)
     gelu = check_bias_gelu(dev, gen)
     attn = check_paged_attention(dev, gen)
+    n_params = gpt2_num_params(GPT2_CONFIGS["gpt2-small"])
+    ln_bwd = check_layer_norm_backward(dev, gen)
+    gelu_bwd = check_bias_gelu_backward(dev, gen)
+    sq = check_sqnorm(dev, gen, n_params)
+    adam = check_fused_adam(dev, gen, n_params)
     torch.cuda.synchronize()
 
-    counts, _ = serve_gpt2_small(dev)
+    serve_counts, _ = serve_gpt2_small(dev)
     torch.cuda.synchronize()
+    counts = {f"spec_k={k}": c for k, c in serve_counts.items()}
+    counts.update(train_gpt2_small(dev, smi))
 
-    def summary(name, source, replaces, wrappers, rec, errs):
-        by_path = {f"spec_k={k}": sum(c[w] for w in wrappers)
-                   for k, c in counts.items()}
+    def summary(name, source, replaces, wrappers, rec, recs):
+        by_path = {path: sum(c[w] for w in wrappers)
+                   for path, c in counts.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
-                "max_abs_err": max(errs), "ms": rec["kernel_ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]}
+                "max_abs_err": max(r["max_err"] for r in recs),
+                "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"], "shape": rec["shape"],
+                "ms_by_shape": [[r["shape"], r.get("residual", r.get(
+                    "flags")), r["kernel_ms"]] for r in recs]}
 
+    fe_src = "deepspeed_tpu_torch/csrc/fused_elementwise.cu"
+    fu_src = "deepspeed_tpu_torch/csrc/fused_update.cu"
+    ref = "deepspeed_tpu/ops/"
+    train_ln = [r for r in ln if r["shape"][0] == TRAIN_ROWS]
+    train_gelu = [r for r in gelu if r["shape"][0] == TRAIN_ROWS]
     kernels = [
-        summary("layer_norm_fwd", "deepspeed_tpu_torch/csrc/"
-                "fused_elementwise.cu",
-                "deepspeed_tpu/ops/fused_elementwise.py:187",
+        summary("layer_norm_fwd", fe_src, ref + "fused_elementwise.py:187",
                 ("fused_layer_norm", "fused_residual_layer_norm"),
-                ln[0], [r["max_err"] for r in ln]),
-        summary("bias_gelu_fwd", "deepspeed_tpu_torch/csrc/"
-                "fused_elementwise.cu",
-                "deepspeed_tpu/ops/fused_elementwise.py:392",
-                ("fused_bias_gelu",), gelu[0],
-                [r["max_err"] for r in gelu]),
+                train_ln[0], ln),
+        summary("layer_norm_bwd", fe_src, ref + "fused_elementwise.py:212",
+                ("layer_norm_backward",), ln_bwd[0], ln_bwd),
+        summary("bias_gelu_fwd", fe_src, ref + "fused_elementwise.py:392",
+                ("fused_bias_gelu",), train_gelu[0], gelu),
+        summary("bias_gelu_bwd", fe_src, ref + "fused_elementwise.py:398",
+                ("bias_gelu_backward",), gelu_bwd[0], gelu_bwd),
+        summary("sqnorm", fu_src, ref + "fused_update.py:257", ("sqnorm",),
+                sq[0], sq),
+        summary("fused_adam", fu_src, ref + "fused_update.py:267",
+                ("fused_adam_apply",), [r for r in adam if r["flags"] ==
+                                        "bf16_cast_cache"][0], adam),
         summary("paged_attention", "deepspeed_tpu_torch/csrc/"
-                "paged_attention.cu",
-                "deepspeed_tpu/ops/paged_attention.py:126",
-                ("paged_attention",), attn[0],
-                [r["max_err"] for r in attn]),
+                "paged_attention.cu", ref + "paged_attention.py:126",
+                ("paged_attention",), attn[0], attn),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

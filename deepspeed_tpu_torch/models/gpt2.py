@@ -1,22 +1,26 @@
 """GPT-2 causal language model family (port of
-``deepspeed_tpu/models/gpt2.py``, forward only).
+``deepspeed_tpu/models/gpt2.py``).
 
 token+position embeddings → N pre-LN blocks → final LN → tied-embedding
-logits. ``gpt2_apply`` is the plain full-sequence forward on the
-reference ops: the CPU tests hold it against the JAX ``gpt2_apply``, and
-``chip_smoke.py`` holds the serving engine's logits against it on the
-card.
+logits → next-token cross-entropy. ``gpt2_loss_fn`` is the training
+loss the engine differentiates (kernel-backed elementwise ops, chunked
+cross-entropy head); ``gpt2_apply`` is the plain full-sequence forward
+on the reference ops: the CPU tests hold it against the JAX
+``gpt2_apply``, and ``chip_smoke.py`` holds the serving engine's logits
+against it on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from ..ops.cross_entropy import chunked_softmax_xent
 from ..utils.device import resolve_device
-from .transformer import (TransformerConfig, init_block_params, layer_norm,
-                          layer_slice, transformer_block)
+from .transformer import (PLAIN_OPS, ElementwiseOps, TransformerConfig,
+                          apply_blocks, check_trainable, elementwise_ops,
+                          init_block_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,27 +70,78 @@ def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
 
 
 def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
-                cfg: GPT2Config) -> torch.Tensor:
-    """tokens [B, S] → final hidden states [B, S, H] (post ln_f)."""
-    if not cfg.pre_layer_norm or not cfg.causal:
-        raise NotImplementedError("the port implements the GPT-2 block "
-                                  "(pre-LN, causal)")
+                cfg: GPT2Config, rng: Optional[torch.Generator] = None,
+                deterministic: bool = True,
+                attention_fn: Optional[Callable] = None,
+                ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+    """tokens [B, S] → final hidden states [B, S, H] (post ln_f).
+    ``ops`` defaults to the ones ``cfg.fused_kernels`` selects."""
+    ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens] + \
         params["wpe"].to(cfg.dtype)[None, :S]
-    blocks = params["blocks"]
-    for i in range(blocks["ln1_scale"].shape[0]):
-        x = transformer_block(layer_slice(blocks, i), x, cfg)
-    return layer_norm(x, params["ln_f_scale"], params["ln_f_bias"],
-                      cfg.layer_norm_eps)
+    x = apply_blocks(params["blocks"], x, cfg, rng=rng,
+                     deterministic=deterministic, attention_fn=attention_fn,
+                     ops=ops)
+    return ops.ln(x, params["ln_f_scale"], params["ln_f_bias"],
+                  cfg.layer_norm_eps)
 
 
 def gpt2_apply(params: Dict[str, Any], tokens: torch.Tensor,
                cfg: GPT2Config) -> torch.Tensor:
-    """tokens [B, S] int → logits [B, S, V] in the compute dtype."""
-    x = gpt2_hidden(params, tokens, cfg)
+    """tokens [B, S] int → logits [B, S, V] in the compute dtype, on the
+    plain reference ops, deterministic."""
+    x = gpt2_hidden(params, tokens, cfg, ops=PLAIN_OPS)
     return torch.matmul(x, params["wte"].to(cfg.dtype).T)
 
 
+def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
+                 ops: Optional[ElementwiseOps] = None) -> Callable:
+    """Returns ``loss_fn(params, batch, rng)`` for the engine.
+
+    batch: tokens [B, S+1] (inputs ``[:, :-1]``, targets ``[:, 1:]``) or
+    a ``(tokens, targets)`` pair; rng: a ``torch.Generator`` on the
+    batch's device for dropout, or None. The head is the chunked
+    cross-entropy (``ops/cross_entropy.py``), so the [tokens, vocab]
+    logits never exist at once. ``attention_fn`` defaults to
+    ``dense_attention``, the only attention the port has yet; ``ops``
+    defaults to the kernels (``PLAIN_OPS`` gives the plain-autograd
+    reference)."""
+    check_trainable(cfg)
+
+    def loss_fn(params, batch, rng=None):
+        if isinstance(batch, (tuple, list)):
+            tokens, targets = batch[0], batch[1]
+        else:
+            tokens, targets = batch[:, :-1], batch[:, 1:]
+        x = gpt2_hidden(params, tokens, cfg, rng=rng, deterministic=False,
+                        attention_fn=attention_fn, ops=ops)
+        B, S = tokens.shape
+        return chunked_softmax_xent(x.reshape(B * S, -1),
+                                    params["wte"].to(cfg.dtype),
+                                    targets.reshape(-1))
+    loss_fn.cfg = cfg
+    return loss_fn
+
+
+def gpt2_num_params(cfg: GPT2Config) -> int:
+    H, L, F, V, S = (cfg.hidden_size, cfg.num_layers, cfg.ffn_size,
+                     cfg.vocab_size, cfg.max_seq_length)
+    per_block = 4 * H + 3 * H * H + 3 * H + H * H + H + 2 * H * F + F + H
+    return V * H + S * H + L * per_block + 2 * H
+
+
+def gpt2_flops_per_token(cfg: GPT2Config,
+                         seq_len: Optional[int] = None) -> float:
+    """Training FLOPs/token = 6·N_matmul + the attention term (PaLM
+    appendix B counting); N_matmul includes the tied unembedding."""
+    S = seq_len or cfg.max_seq_length
+    H, L = cfg.hidden_size, cfg.num_layers
+    n = gpt2_num_params(cfg) - cfg.vocab_size * H - cfg.max_seq_length * H
+    n += cfg.vocab_size * H    # tied unembedding matmul
+    return 6.0 * n + 12.0 * L * H * S
+
+
 __all__ = ["GPT2Config", "GPT2_CONFIGS", "gpt2_init", "gpt2_hidden",
-           "gpt2_apply"]
+           "gpt2_apply", "gpt2_loss_fn", "gpt2_num_params",
+           "gpt2_flops_per_token"]

@@ -1,5 +1,6 @@
 """Transformer building blocks (port of
-``deepspeed_tpu/models/transformer.py``, the parts serving needs).
+``deepspeed_tpu/models/transformer.py``: the serving ops and the dense
+training block).
 
 Params are plain dicts of tensors; per-layer tensors are STACKED on a
 leading layer axis ``[L, ...]`` and matmul kernels are stored ``[in,
@@ -7,26 +8,32 @@ out]`` and applied as ``x @ W`` — the JAX layout, so the converter maps
 trees one to one. Softmax and LayerNorm statistics run in fp32; matmuls
 run in the compute dtype with ``torch.matmul``.
 
-``layer_norm`` / ``gelu`` / ``dense_attention`` are the plain reference
-ops (the full-sequence ``gpt2_apply`` uses them); ``layer_norm_fn`` and
-``gelu_dense_fn`` return the kernel-backed ops of the serving path.
+The elementwise ops of a block come in two sets (``ElementwiseOps``):
+``KERNEL_OPS``, the differentiable kernel-backed ops (their plain
+versions run for CPU tensors), which the model runs; and ``PLAIN_OPS``,
+plain PyTorch differentiated by autograd — the reference that
+``gpt2_apply`` and the card's yardstick step use. ``elementwise_ops``
+resolves ``TransformerConfig.fused_kernels``: on a CUDA device the port
+has only the kernels, so ``False`` raises there.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops.fused_elementwise import (fused_bias_gelu, fused_layer_norm,
-                                     gelu_tanh, layer_norm_plain)
+from ..ops.fused_elementwise import (bias_gelu_plain, fused_bias_gelu,
+                                     fused_layer_norm,
+                                     fused_residual_layer_norm, gelu_tanh,
+                                     layer_norm_plain)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Shared transformer hyperparameters (the JAX config's serving
-    subset; dropout, remat, scan and MoE knobs belong to training)."""
+    """Shared transformer hyperparameters (the JAX config's dense-model
+    subset; scan, MoE and segment-embedding knobs are not ported)."""
     hidden_size: int = 768
     num_heads: int = 12
     num_layers: int = 12
@@ -34,13 +41,19 @@ class TransformerConfig:
     max_seq_length: int = 1024
     vocab_size: int = 50257
     pre_layer_norm: bool = True
+    hidden_dropout: float = 0.1
+    attn_dropout: float = 0.1
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    # "none" only: activation recomputation is not ported yet.
+    remat_policy: str = "none"
     causal: bool = False
     dtype: Any = torch.bfloat16
-    # The fused kernels knob: "auto"/True run the kernels on CUDA; False
-    # has no CUDA path in the port (the serving engine raises). On the
-    # CPU the kernels' plain versions run whatever it says.
+    # False only: the port's GELU kernels are the tanh form.
+    gelu_exact: bool = False
+    # The fused kernels knob: "auto"/True run the kernels; False has no
+    # CUDA path in the port (the engines raise). On the CPU the kernels'
+    # plain versions run whatever it says.
     fused_kernels: Any = "auto"
 
     @property
@@ -51,6 +64,22 @@ class TransformerConfig:
     def head_dim(self) -> int:
         assert self.hidden_size % self.num_heads == 0
         return self.hidden_size // self.num_heads
+
+
+def check_trainable(cfg: TransformerConfig) -> None:
+    """Raise for the model knobs the port's training path does not run."""
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: activation recomputation "
+            "is not ported yet (ROADMAP slice 6: remat and progressive "
+            "layer drop)")
+    if cfg.gelu_exact:
+        raise NotImplementedError(
+            "gelu_exact=True: the port's GELU kernels are the tanh form "
+            "(ROADMAP slice 6: BERT and module injection)")
+    if not (cfg.pre_layer_norm and cfg.causal):
+        raise NotImplementedError("the port implements the GPT-2 block "
+                                  "(pre-LN, causal)")
 
 
 # --------------------------------------------------------------------- #
@@ -74,23 +103,79 @@ def dense(x: torch.Tensor, kernel: torch.Tensor,
 gelu = gelu_tanh
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from ``generator`` (which
+    must live on x's device); the identity when deterministic, at rate 0
+    or without a generator, as in the JAX package."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> torch.Tensor:
-    """Reference attention: QK^T → scale → mask → fp32 softmax → AV.
-    q, k, v: [B, S, nH, D]."""
+                    mask: Optional[torch.Tensor] = None,
+                    causal: bool = False, attn_dropout: float = 0.0,
+                    rng: Optional[torch.Generator] = None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """Reference attention: QK^T → scale → mask → fp32 softmax →
+    dropout → AV. q, k, v: [B, S, nH, D]; ``mask`` additive, broadcast
+    to [B, 1, S, S]. The two products are plain ``torch.einsum``s in the
+    compute dtype (the JAX package leaves them to XLA)."""
     dh = q.shape[-1]
     s = torch.einsum("bsnd,btnd->bnst", q, k).float() / math.sqrt(dh)
     if causal:
         S, T = s.shape[-2], s.shape[-1]
         cmask = torch.ones(S, T, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~cmask, -1e9)
+    if mask is not None:
+        s = s + mask.float()
     w = torch.softmax(s, dim=-1)
+    w = dropout(w, attn_dropout, rng, deterministic)
     return torch.einsum("bnst,btnd->bsnd", w.to(v.dtype), v)
 
 
 # --------------------------------------------------------------------- #
-# Kernel-backed ops of the serving path
+# The block's elementwise ops
 # --------------------------------------------------------------------- #
+class ElementwiseOps(NamedTuple):
+    """``ln(x, scale, bias) -> y``; ``res_ln(x, delta, scale, bias, eps)
+    -> (s, y)`` with ``s = x + delta``; ``gelu_up(h, kernel, bias) ->
+    gelu(h @ kernel + bias)``. Each takes ``eps`` where it normalizes."""
+    ln: Callable
+    res_ln: Callable
+    gelu_up: Callable
+
+
+KERNEL_OPS = ElementwiseOps(
+    ln=fused_layer_norm, res_ln=fused_residual_layer_norm,
+    gelu_up=lambda h, kernel, bias: fused_bias_gelu(
+        torch.matmul(h, kernel.to(h.dtype)), bias))
+
+PLAIN_OPS = ElementwiseOps(
+    ln=lambda x, scale, bias, eps: layer_norm_plain(x, None, scale, bias,
+                                                    eps)[1],
+    res_ln=layer_norm_plain,
+    gelu_up=lambda h, kernel, bias: bias_gelu_plain(
+        torch.matmul(h, kernel.to(h.dtype)), bias))
+
+
+def elementwise_ops(cfg: TransformerConfig,
+                    device: torch.device) -> ElementwiseOps:
+    """The ops ``cfg.fused_kernels`` selects on ``device``."""
+    if cfg.fused_kernels is False:
+        if device.type == "cuda":
+            raise NotImplementedError(
+                "fused_kernels=False has no CUDA path in the port — the "
+                "LayerNorm and GELU run as its kernels there (ROADMAP: not "
+                "planned)")
+        return PLAIN_OPS
+    return KERNEL_OPS
+
+
 def layer_norm_fn(cfg: TransformerConfig) -> Callable:
     """``(x, scale, bias) -> y`` through the LayerNorm kernel (its plain
     version for CPU tensors)."""
@@ -101,10 +186,12 @@ def layer_norm_fn(cfg: TransformerConfig) -> Callable:
 def gelu_dense_fn(cfg: TransformerConfig) -> Callable:
     """``(h, kernel, bias) -> gelu(h @ kernel + bias)``: the matmul stays
     with ``torch.matmul``, the bias+GELU epilogue is one kernel pass."""
-    return lambda h, kernel, bias: fused_bias_gelu(
-        torch.matmul(h, kernel.to(h.dtype)), bias)
+    return KERNEL_OPS.gelu_up
 
 
+# --------------------------------------------------------------------- #
+# Params and the block
+# --------------------------------------------------------------------- #
 def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
                       device: torch.device) -> Dict[str, torch.Tensor]:
     """STACKED block params ([L, ...] on every tensor), fp32, the tree of
@@ -143,21 +230,62 @@ def layer_slice(stacked: Dict[str, torch.Tensor], i: int
 
 
 def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                      cfg: TransformerConfig) -> torch.Tensor:
-    """One pre-LN block on the plain reference ops, deterministic:
-    x [B, S, H] → [B, S, H]."""
+                      cfg: TransformerConfig,
+                      rng: Optional[torch.Generator] = None,
+                      deterministic: bool = True,
+                      attention_fn: Optional[Callable] = None,
+                      ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+    """One pre-LN block (params WITHOUT the layer axis): x [B, S, H] →
+    [B, S, H]. The attention residual is fused into ln2 (``res_ln``), as
+    in the JAX block. ``rng`` drives the attention and hidden dropout
+    (ignored when deterministic); ``ops`` defaults to the ones
+    ``cfg.fused_kernels`` selects."""
+    if not (cfg.pre_layer_norm and cfg.causal):
+        raise NotImplementedError("the port implements the GPT-2 block "
+                                  "(pre-LN, causal)")
+    ops = ops or elementwise_ops(cfg, x.device)
+    attention_fn = attention_fn or dense_attention
+    eps = cfg.layer_norm_eps
     B, S, H = x.shape
     nH, dH = cfg.num_heads, cfg.head_dim
-    h = layer_norm(x, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
+
+    h = ops.ln(x, p["ln1_scale"], p["ln1_bias"], eps)
     q, k, v = dense(h, p["qkv_kernel"], p["qkv_bias"]).split(H, dim=-1)
-    attn = dense_attention(q.reshape(B, S, nH, dH), k.reshape(B, S, nH, dH),
-                           v.reshape(B, S, nH, dH), cfg.causal)
-    x = x + dense(attn.reshape(B, S, H), p["proj_kernel"], p["proj_bias"])
-    h = layer_norm(x, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
-    h = gelu(dense(h, p["fc_kernel"], p["fc_bias"]))
-    return x + dense(h, p["fc_out_kernel"], p["fc_out_bias"])
+    attn = attention_fn(q.reshape(B, S, nH, dH), k.reshape(B, S, nH, dH),
+                        v.reshape(B, S, nH, dH), mask=None,
+                        causal=cfg.causal, attn_dropout=cfg.attn_dropout,
+                        rng=rng, deterministic=deterministic)
+    attn = dense(attn.reshape(B, S, H), p["proj_kernel"], p["proj_bias"])
+    attn = dropout(attn, cfg.hidden_dropout, rng, deterministic)
+    # Fused residual-add + the FFN's LN: x continues the residual stream
+    # from s, h feeds the FFN.
+    x, h = ops.res_ln(x, attn, p["ln2_scale"], p["ln2_bias"], eps)
+    h = ops.gelu_up(h, p["fc_kernel"], p["fc_bias"])
+    h = dense(h, p["fc_out_kernel"], p["fc_out_bias"])
+    h = dropout(h, cfg.hidden_dropout, rng, deterministic)
+    return x + h
 
 
-__all__ = ["TransformerConfig", "layer_norm", "dense", "gelu",
-           "dense_attention", "layer_norm_fn", "gelu_dense_fn",
-           "init_block_params", "layer_slice", "transformer_block"]
+def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg: TransformerConfig,
+                 rng: Optional[torch.Generator] = None,
+                 deterministic: bool = True,
+                 attention_fn: Optional[Callable] = None,
+                 ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+    """All L layers as a Python loop over the stacked leading axis (the
+    JAX ``scan_layers=False`` program). Each stacked tensor is unbound
+    once, so its gradient comes back as one stack, not as L scatters."""
+    per_layer = {name: t.unbind(0) for name, t in stacked.items()}
+    for i in range(stacked["ln1_scale"].shape[0]):
+        x = transformer_block({n: t[i] for n, t in per_layer.items()}, x,
+                              cfg, rng=rng,
+                              deterministic=deterministic,
+                              attention_fn=attention_fn, ops=ops)
+    return x
+
+
+__all__ = ["TransformerConfig", "check_trainable", "layer_norm", "dense",
+           "gelu", "dropout", "dense_attention", "ElementwiseOps",
+           "KERNEL_OPS", "PLAIN_OPS", "elementwise_ops", "layer_norm_fn",
+           "gelu_dense_fn", "init_block_params", "layer_slice",
+           "transformer_block", "apply_blocks"]

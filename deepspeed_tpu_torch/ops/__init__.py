@@ -3,12 +3,16 @@
 Importing this package builds nothing: ``op_builder`` compiles
 ``csrc/*.cu`` at the first kernel launch.
 """
-from . import fused_elementwise, paged_attention
+from . import fused_elementwise, fused_update, paged_attention
 
 # The kernel wrappers whose ``.launches`` count a run's kernel launches.
 KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
                    fused_elementwise.fused_residual_layer_norm,
                    fused_elementwise.fused_bias_gelu,
+                   fused_elementwise.layer_norm_backward,
+                   fused_elementwise.bias_gelu_backward,
+                   fused_update.sqnorm,
+                   fused_update.fused_adam_apply,
                    paged_attention.paged_attention)
 
 

@@ -1,16 +1,23 @@
-"""The ``inference`` block of the ds_config (port of
-``deepspeed_tpu/runtime/config.py::InferenceConfig``).
+"""The ds_config (port of ``deepspeed_tpu/runtime/config.py``):
+``DeepSpeedConfig`` for training and the ``inference`` block.
 
 Same keys, defaults and validation errors as the JAX package, so one
-ds_config dict drives either engine. The ``slo`` block parses and
-validates but the port does not act on it yet.
+ds_config dict drives either engine. The port parses the keys of its
+one-card training path (the batch triple, precision, optimizer,
+scheduler, clipping, ZeRO) and, for the blocks of features it does not
+run yet, just enough to tell whether they are enabled:
+``DeepSpeedConfig.unported_features()`` names them, and the engine
+raises ``NotImplementedError`` for each. The ``inference.slo`` block
+parses and validates but the port does not act on it yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 from . import config_utils
+from .zero.config import ZeroConfig
 from .. import constants as C
+from ..utils.logging import logger
 
 
 class DeepSpeedConfigError(Exception):
@@ -152,3 +159,233 @@ class InferenceConfig:
             raise DeepSpeedConfigError(
                 f"{C.INFERENCE}.{C.INFERENCE_PAGED_KERNEL} must be true, "
                 f"false, or \"auto\", got {self.paged_kernel!r}")
+
+
+class DeepSpeedConfig:
+    """The training ds_config: a JSON path or a parsed dict.
+
+    ``world_size`` is the number of data-parallel replicas the batch
+    triple is solved for (default 1: the port runs on one card)."""
+
+    def __init__(self, config: Union[str, Dict[str, Any]],
+                 world_size: Optional[int] = None):
+        if isinstance(config, dict):
+            self._param_dict = config
+        else:
+            self._param_dict = config_utils.load_config_json(config)
+        self.world_size = 1 if world_size is None else world_size
+        d = self._param_dict
+        if d.get(C.ELASTICITY, {}).get(C.ENABLED, C.ENABLED_DEFAULT):
+            raise NotImplementedError(
+                "elasticity is not ported yet (ROADMAP slice 6: observability "
+                "and tooling): it "
+                "rewrites the batch triple before the solver runs")
+        self._initialize_params(d)
+        self._configure_train_batch_size()
+        self._do_sanity_check()
+
+    def _initialize_params(self, d: Dict[str, Any]) -> None:
+        get = config_utils.get_scalar_param
+        self.train_batch_size = get(d, C.TRAIN_BATCH_SIZE,
+                                    C.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = get(
+            d, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+        self.gradient_accumulation_steps = get(
+            d, C.GRADIENT_ACCUMULATION_STEPS,
+            C.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = get(d, C.STEPS_PER_PRINT,
+                                   C.STEPS_PER_PRINT_DEFAULT)
+        self.prescale_gradients = get(d, C.PRESCALE_GRADIENTS,
+                                      C.PRESCALE_GRADIENTS_DEFAULT)
+        self.gradient_predivide_factor = get(
+            d, C.GRADIENT_PREDIVIDE_FACTOR,
+            C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
+        self.sparse_gradients_enabled = get(d, C.SPARSE_GRADIENTS,
+                                            C.SPARSE_GRADIENTS_DEFAULT)
+
+        self.zero_config = ZeroConfig(d)
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_enabled = self.zero_optimization_stage > 0
+
+        fp16 = d.get(C.FP16, {})
+        self.fp16_enabled = get(fp16, C.FP16_ENABLED, C.FP16_ENABLED_DEFAULT)
+        self.fp16_loss_scale = get(fp16, C.FP16_LOSS_SCALE,
+                                   C.FP16_LOSS_SCALE_DEFAULT)
+        self.fp16_initial_scale_power = get(
+            fp16, C.FP16_INITIAL_SCALE_POWER,
+            C.FP16_INITIAL_SCALE_POWER_DEFAULT)
+        self.fp16_loss_scale_window = get(fp16, C.FP16_LOSS_SCALE_WINDOW,
+                                          C.FP16_LOSS_SCALE_WINDOW_DEFAULT)
+        self.fp16_hysteresis = get(fp16, C.FP16_HYSTERESIS,
+                                   C.FP16_HYSTERESIS_DEFAULT)
+        self.fp16_min_loss_scale = get(fp16, C.FP16_MIN_LOSS_SCALE,
+                                       C.FP16_MIN_LOSS_SCALE_DEFAULT)
+
+        bf16 = d.get(C.BF16, {})
+        self.bf16_enabled = get(bf16, C.BF16_ENABLED, C.BF16_ENABLED_DEFAULT)
+        self.bf16_stochastic_rounding = get(
+            bf16, C.BF16_STOCHASTIC_ROUNDING,
+            C.BF16_STOCHASTIC_ROUNDING_DEFAULT)
+
+        amp = d.get(C.AMP, {})
+        self.amp_enabled = get(amp, C.AMP_ENABLED, C.AMP_ENABLED_DEFAULT)
+        self.amp_params = {k: v for k, v in amp.items()
+                           if k != C.AMP_ENABLED}
+        # amp maps onto the bf16 mixed-precision path, as in the JAX
+        # package; with fp16 it raises instead of guessing.
+        if self.amp_enabled:
+            if self.fp16_enabled:
+                raise DeepSpeedConfigError(
+                    "amp and fp16 cannot both be enabled: on TPU amp maps "
+                    "to the bf16 mixed-precision path — pick `bf16` (or "
+                    "`amp` alone) or `fp16`")
+            if not self.bf16_enabled:
+                self.bf16_enabled = True
+                logger.info("amp: enabled -> mapped to the bf16 "
+                            "mixed-precision path")
+
+        self.gradient_clipping = get(d, C.GRADIENT_CLIPPING,
+                                     C.GRADIENT_CLIPPING_DEFAULT)
+
+        optimizer = d.get(C.OPTIMIZER)
+        if optimizer is not None:
+            self.optimizer_name = optimizer.get(C.TYPE,
+                                                C.OPTIMIZER_TYPE_DEFAULT)
+            if self.optimizer_name is not None:
+                self.optimizer_name = self.optimizer_name.lower()
+            self.optimizer_params = optimizer.get(C.OPTIMIZER_PARAMS, {})
+            self.optimizer_legacy_fusion = optimizer.get(
+                C.LEGACY_FUSION, C.LEGACY_FUSION_DEFAULT)
+        else:
+            self.optimizer_name = None
+            self.optimizer_params = {}
+            self.optimizer_legacy_fusion = False
+        self.optimizer_fused = bool((self.optimizer_params or {}).get(
+            C.OPTIMIZER_FUSED, C.OPTIMIZER_FUSED_DEFAULT))
+
+        scheduler = d.get(C.SCHEDULER)
+        if scheduler is not None:
+            self.scheduler_name = scheduler.get(C.TYPE,
+                                                C.SCHEDULER_TYPE_DEFAULT)
+            self.scheduler_params = scheduler.get(C.SCHEDULER_PARAMS, {})
+        else:
+            self.scheduler_name = None
+            self.scheduler_params = {}
+
+        self.wall_clock_breakdown = get(d, C.WALL_CLOCK_BREAKDOWN,
+                                        C.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = get(d, C.MEMORY_BREAKDOWN,
+                                    C.MEMORY_BREAKDOWN_DEFAULT)
+        self.inference_config = InferenceConfig(d)
+
+    def _configure_train_batch_size(self) -> None:
+        """Solve train_batch = micro_batch * grad_accum * world."""
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        world = self.world_size
+
+        if train_batch is not None and micro_batch is not None and \
+                grad_acc is not None:
+            pass  # all set; verified in sanity check
+        elif train_batch is not None and micro_batch is not None:
+            grad_acc = train_batch // micro_batch
+            grad_acc //= world
+            self.gradient_accumulation_steps = grad_acc
+        elif train_batch is not None and grad_acc is not None:
+            micro_batch = train_batch // world
+            micro_batch //= grad_acc
+            self.train_micro_batch_size_per_gpu = micro_batch
+        elif micro_batch is not None and grad_acc is not None:
+            self.train_batch_size = micro_batch * grad_acc * world
+        elif train_batch is not None:
+            self.gradient_accumulation_steps = 1
+            self.train_micro_batch_size_per_gpu = train_batch // world
+        elif micro_batch is not None:
+            self.gradient_accumulation_steps = 1
+            self.train_batch_size = micro_batch * world
+        # else: all None → sanity check raises
+
+    def _batch_assertion(self) -> None:
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+        assert train_batch > 0, \
+            f"Train batch size: {train_batch} has to be greater than 0"
+        assert micro_batch > 0, (f"Micro batch size per device: "
+                                 f"{micro_batch} has to be greater than 0")
+        assert grad_acc > 0, (f"Gradient accumulation steps: {grad_acc} "
+                              "has to be greater than 0")
+        assert train_batch == micro_batch * grad_acc * self.world_size, (
+            f"Check batch related parameters. train_batch_size is not "
+            f"equal to micro_batch_per_gpu * gradient_acc_step * "
+            f"world_size {train_batch} != {micro_batch} * {grad_acc} * "
+            f"{self.world_size}")
+
+    def _do_sanity_check(self) -> None:
+        if self.train_batch_size is None and \
+                self.train_micro_batch_size_per_gpu is None:
+            raise DeepSpeedConfigError(
+                f"Either {C.TRAIN_BATCH_SIZE} or "
+                f"{C.TRAIN_MICRO_BATCH_SIZE_PER_GPU} must be set in the "
+                "DeepSpeed config")
+        self._batch_assertion()
+        if self.fp16_enabled and self.bf16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if self.bf16_stochastic_rounding and not self.bf16_enabled:
+            raise DeepSpeedConfigError(
+                "bf16.stochastic_rounding requires bf16.enabled (it is the "
+                "master-free bf16 update mode)")
+        if self.zero_enabled and \
+                self.zero_optimization_stage > C.MAX_STAGE_ZERO_OPTIMIZATION:
+            raise DeepSpeedConfigError(
+                f"ZeRO stage {self.zero_optimization_stage} > max "
+                f"{C.MAX_STAGE_ZERO_OPTIMIZATION}")
+
+    def unported_features(self) -> List[Tuple[str, str]]:
+        """``(feature, the ROADMAP slice that brings it)`` for every
+        enabled block the port does not run yet."""
+        d = self._param_dict
+        mesh = d.get(C.MESH, {})
+        ckpt = d.get(C.CHECKPOINT, {})
+        checks = [
+            (self.zero_optimization_stage >= 3, "zero_optimization.stage 3",
+             "slice 6: dp and ZeRO-1/2/3"),
+            (bool(self.zero_config.cpu_offload),
+             "zero_optimization.cpu_offload", "slice 6: ZeRO-Offload"),
+            (bool(self.sparse_gradients_enabled), "sparse_gradients",
+             "slice 6: parallel axes and comm extras"),
+            (self.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER,
+             "OnebitAdam", "slice 6: parallel axes and comm extras"),
+            (bool(d.get(C.PROGRESSIVE_LAYER_DROP, {}).get(
+                C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)),
+             "progressive_layer_drop", "slice 6: remat and progressive layer drop"),
+            ((d.get(C.PIPELINE, {}).get(C.PIPELINE_STAGES) or 1) > 1 or
+             (mesh.get(C.MESH_PIPE_PARALLEL_SIZE) or 1) > 1,
+             "pipeline parallelism", "slice 6: parallel axes and comm extras"),
+            ((mesh.get(C.MESH_MODEL_PARALLEL_SIZE) or 1) > 1 or
+             (mesh.get(C.MESH_SEQUENCE_PARALLEL_SIZE) or 1) > 1,
+             "tensor/sequence parallelism",
+             "slice 6: parallel axes and comm extras"),
+            ((d.get(C.MOE, {}).get(C.MOE_NUM_EXPERTS) or 0) > 0,
+             "moe", "slice 4: MoE (K9)"),
+            (bool(ckpt.get(C.CHECKPOINT_ASYNC, C.CHECKPOINT_ASYNC_DEFAULT))
+             or (ckpt.get(C.CHECKPOINT_SNAPSHOT_EVERY) or 0) > 0,
+             "checkpoint (async / snapshot_every)", "slice 6: checkpointing"),
+            (bool(d.get(C.FLOPS_PROFILER, {}).get(
+                C.FLOPS_PROFILER_ENABLED, C.FLOPS_PROFILER_ENABLED_DEFAULT)),
+             "flops_profiler", "slice 6: observability and tooling"),
+            (bool(d.get(C.TELEMETRY, {}).get(
+                C.TELEMETRY_ENABLED, C.TELEMETRY_ENABLED_DEFAULT)),
+             "telemetry", "slice 6: observability and tooling"),
+        ]
+        return [(name, where) for on, name, where in checks if on]
+
+    @property
+    def precision_dtype(self) -> str:
+        if self.bf16_enabled:
+            return "bfloat16"
+        if self.fp16_enabled:
+            return "float16"
+        return "float32"

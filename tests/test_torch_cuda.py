@@ -5,10 +5,15 @@ it, apart from the JAX tests' conftest:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: LayerNorm/GELU fp32 1e-5, bf16 2 ulp (tests/torch_cases.py);
-paged attention atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the
-engine's kernel path against its CPU plain path on gpt2-tiny in fp32:
-logits atol 1e-4 and equal greedy streams.
+Tolerances: LayerNorm/GELU forward and backward fp32 1e-5, bf16/fp16 2
+ulp floored at 1e-5 (tests/torch_cases.py), dscale/dbias 1e-5; the grad
+sum of squares relative 1e-5 (two fp32 summation orders); the fused
+Adam step bit-equal to its plain version (both round op by op), and
+the stochastic rounding equal element for element; paged attention
+atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the serving engine's
+kernel path against its CPU plain path on gpt2-tiny in fp32: logits atol
+1e-4 and equal greedy streams; two gpt2-tiny fp32 training steps on the
+card against the CPU: losses and grad norms within 1e-4 relative.
 """
 import dataclasses
 
@@ -16,16 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.inference import InferenceEngine, \
     shared_prefix_requests
-from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_init
+from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_init, \
+    gpt2_loss_fn
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
+from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import paged_attention as pa
-from torch_cases import PAGED_CASES, assert_close, paged_case
+from torch_cases import (ADAM_CASES, PAGED_CASES, adam_case, assert_close,
+                         paged_case, ulps)
 
 pytestmark = pytest.mark.cuda
-DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "fp16": torch.float16}
 CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
 
 
@@ -134,8 +144,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fe.fused_layer_norm(x[:, ::2], torch.ones(128, device=dev),
                             torch.zeros(128, device=dev))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fe.fused_bias_gelu(x.half(), torch.zeros(256, device=dev))
+    with pytest.raises(TypeError, match="float16"):
+        fe.fused_bias_gelu(x.double(), torch.zeros(256, device=dev))
 
 
 def _engine(params, device, **inf):
@@ -190,4 +200,152 @@ def test_decode_step_launch_counts(dev):
     L = CFG32.num_layers
     assert ops.launch_counts() == {
         "fused_layer_norm": 2 * L + 1, "fused_residual_layer_norm": 0,
-        "fused_bias_gelu": L, "paged_attention": L}
+        "fused_bias_gelu": L, "layer_norm_backward": 0,
+        "bias_gelu_backward": 0, "sqnorm": 0, "fused_adam_apply": 0,
+        "paged_attention": L}
+
+
+# --------------------------------------------------------------------- #
+# Training kernels: LayerNorm / GELU backward, grad norm, fused Adam
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("gs", [False, True])
+@pytest.mark.parametrize("H", [128, 200, 768, 1600])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_layer_norm_backward_kernel_matches_plain(dev, H, dtype_name, gs):
+    dt = DTYPES[dtype_name]
+    g = torch.Generator(device=dev).manual_seed(H + gs)
+    s = (2 * torch.randn(600, H, device=dev, generator=g) + 0.5).to(dt)
+    dy = torch.randn(600, H, device=dev, generator=g).to(dt)
+    res = torch.randn(600, H, device=dev, generator=g).to(dt) if gs \
+        else None
+    sc = 1 + 0.1 * torch.randn(H, device=dev, generator=g)
+    before = fe.layer_norm_backward.launches
+    dx, dsc, dbi = fe.layer_norm_backward(s, sc, dy, res)
+    torch.cuda.synchronize()
+    assert fe.layer_norm_backward.launches == before + 1
+    rdx, rdsc, rdbi = fe.ln_backward_plain(s, sc, dy, res)
+    assert dx.dtype == dt and dsc.dtype == torch.float32
+    assert_close(_np(dx), _np(rdx), dtype_name)
+    for a, b in ((dsc, rdsc), (dbi, rdbi)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("F", [200, 3072])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_bias_gelu_backward_kernel_matches_plain(dev, F, dtype_name):
+    dt = DTYPES[dtype_name]
+    g = torch.Generator(device=dev).manual_seed(F)
+    y = (3 * torch.randn(300, F, device=dev, generator=g)).to(dt)
+    b = torch.randn(F, device=dev, generator=g)
+    gr = torch.randn(300, F, device=dev, generator=g).to(dt)
+    before = fe.bias_gelu_backward.launches
+    dz, db = fe.bias_gelu_backward(y, b, gr)
+    torch.cuda.synchronize()
+    assert fe.bias_gelu_backward.launches == before + 1
+    rdz, rdb = fe.bias_gelu_backward_plain(y, b, gr)
+    assert_close(_np(dz), _np(rdz), dtype_name)
+    np.testing.assert_allclose(_np(db), _np(rdb), rtol=1e-5, atol=1e-5)
+
+
+def test_autograd_functions_run_the_backward_kernels(dev):
+    """Gradients through the kernel-backed autograd Functions equal
+    plain autograd through the reference ops (fp32, rtol 1e-4)."""
+    from deepspeed_tpu_torch.models.transformer import KERNEL_OPS, PLAIN_OPS
+    g = torch.Generator(device=dev).manual_seed(3)
+    mk = lambda *shape: torch.randn(*shape, device=dev, generator=g)  # noqa: E731
+    x, d, w1 = mk(4, 9, 256), mk(4, 9, 256), mk(4, 9, 256)
+    sc, bi, w2 = 1 + 0.1 * mk(256), 0.1 * mk(256), mk(4, 9, 512)
+    kern, fb = mk(256, 512) * 0.05, mk(512)
+    grads = []
+    for ops_ in (KERNEL_OPS, PLAIN_OPS):
+        leaves = [t.clone().requires_grad_() for t in (x, d, sc, bi, fb)]
+        s, y = ops_.res_ln(*leaves[:4], 1e-5)
+        y = ops_.ln(y, leaves[2], leaves[3], 1e-5)
+        z = ops_.gelu_up(y, kern, leaves[4])
+        ((s * w1).sum() + (z * w2).sum()).backward()
+        grads.append([t.grad for t in leaves])
+        if ops_ is KERNEL_OPS:
+            torch.cuda.synchronize()
+            counts = (fe.layer_norm_backward.launches,
+                      fe.bias_gelu_backward.launches)
+    assert counts[0] >= 2 and counts[1] >= 1
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4099, (1 << 20) + 3])
+def test_sqnorm_kernel_matches_plain(dev, n):
+    g = torch.randn(n, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    before = fu.sqnorm.launches
+    got = fu.sqnorm(g)
+    torch.cuda.synchronize()
+    assert fu.sqnorm.launches == before + 1
+    np.testing.assert_allclose(float(got), float(fu.sqnorm_plain(g)),
+                               rtol=1e-5)
+    g[n // 2] = float("inf")
+    assert not torch.isfinite(fu.sqnorm(g))
+
+
+@pytest.mark.parametrize("name", sorted(ADAM_CASES))
+def test_fused_adam_kernel_matches_plain(dev, name):
+    p_dt, c_dt, kw, _ = ADAM_CASES[name]
+    g, p, m, v, scalars, seed = (torch.from_numpy(a).to(dev)
+                                 for a in adam_case(name, 100003))
+    p = p.to(getattr(torch, p_dt))
+    cast = None if c_dt is None else torch.empty(
+        p.shape, dtype=getattr(torch, c_dt), device=dev)
+    ref = fu.fused_adam_plain(g, p, m, v, scalars, seed, b1=0.9, b2=0.999,
+                              eps=1e-8, cast_dtype=None if cast is None
+                              else cast.dtype, **kw)
+    p0, m0, v0 = p.clone(), m.clone(), v.clone()
+    before = fu.fused_adam_apply.launches
+    fu.fused_adam_apply(g, p, m, v, scalars, seed, b1=0.9, b2=0.999,
+                        eps=1e-8, cast_out=cast, **kw)
+    torch.cuda.synchronize()
+    assert fu.fused_adam_apply.launches == before + 1
+    if scalars[5] > 0:                       # forced skip: nothing moves
+        assert torch.equal(p, p0) and torch.equal(m, m0) and \
+            torch.equal(v, v0)
+    for got, want in ((p, ref[0]), (m, ref[1]), (v, ref[2])):
+        assert torch.equal(got, want), (name, float(
+            ulps(_np(got), _np(want), "fp32").max()))
+    if cast is not None:
+        assert torch.equal(cast, ref[3])
+
+
+def test_train_batch_on_the_card_matches_the_cpu(dev):
+    """Two gpt2-tiny fp32 steps (gas 2, AdamW, clip) on the card and on
+    the CPU from the same params and batches; each step launches exactly
+    its kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(CFG32, hidden_dropout=0.0, attn_dropout=0.0)
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ds = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    batches = np.random.default_rng(0).integers(0, 512, (2, 4, 33))
+    out = {}
+    for device in ("cpu", dev):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(cfg), model_params=params, config=ds,
+            device=device)
+        hist = []
+        for b in batches:
+            ops.reset_launch_counts()
+            loss = eng.train_batch(b)
+            hist.append((float(loss), float(eng.last_metrics["grad_norm"]),
+                         ops.launch_counts()))
+        out[str(device)] = hist
+    L = cfg.num_layers
+    for (lc, nc, cc), (lg, ng, cg) in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(lg, lc, rtol=1e-4)
+        np.testing.assert_allclose(ng, nc, rtol=1e-4)
+        assert sum(cc.values()) == 0
+        assert cg == {"fused_layer_norm": 2 * (L + 1),
+                      "fused_residual_layer_norm": 2 * L,
+                      "fused_bias_gelu": 2 * L,
+                      "layer_norm_backward": 2 * (2 * L + 1),
+                      "bias_gelu_backward": 2 * L, "sqnorm": 1,
+                      "fused_adam_apply": 1, "paged_attention": 0}

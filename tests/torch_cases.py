@@ -52,17 +52,72 @@ PAGED_CASES = {
 }
 
 
+FRACTION_BITS = {"bf16": 7, "fp16": 10, "fp32": 23}
+
+
+def ulps(a, b, dtype_name):
+    """|a - b| in ulp of the larger magnitude in ``dtype_name``."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-38)))
+                  - FRACTION_BITS[dtype_name])
+    return np.abs(a - b) / ulp
+
+
 def assert_close(a, b, dtype_name):
-    """fp32: atol = rtol = 1e-5. bf16: |a - b| <= 2 ulp of the larger
-    magnitude (7 fraction bits), floored at the fp32 tolerance — GELU's
-    1 + tanh(u) cancels for large negative inputs, where the outputs are
-    tiny and two fp32 tanh implementations (~1e-7 absolute apart) are
-    many bf16 ulp apart."""
+    """fp32: atol = rtol = 1e-5. bf16 / fp16: |a - b| <= 2 ulp of the
+    larger magnitude, floored at the fp32 tolerance — GELU's 1 + tanh(u)
+    cancels for large negative inputs, where the outputs are tiny and two
+    fp32 tanh implementations (~1e-7 absolute apart) are many bf16 ulp
+    apart."""
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
     if dtype_name == "fp32":
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
         return
     mag = np.maximum(np.abs(a), np.abs(b))
-    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30)))
+                  - FRACTION_BITS[dtype_name])
     bad = np.abs(a - b) > np.maximum(2 * ulp, 1e-5)
-    assert not bad.any(), f"{bad.sum()} elements beyond 2 bf16 ulp"
+    assert not bad.any(), f"{bad.sum()} elements beyond 2 {dtype_name} ulp"
+
+
+# Flag sets of the fused Adam step (K6) that the engine uses:
+# (name, param dtype, cast dtype, kwargs of fused_adam_plain, scalars).
+# scalars = [neg_lr, bc1, bc2, coeff, inv, skip, 0, 0].
+ADAM_CASES = {
+    "fp32_adamw_clip": ("float32", None, dict(
+        wd=0.01, coupled=False, use_inv=False, use_coeff=True,
+        one_pass=True, sr=False), [-1e-3, 0.271, 0.00299, 0.37, 1.0, 0.0]),
+    "fp32_adam_coupled_clip": ("float32", None, dict(
+        wd=0.01, coupled=True, use_inv=False, use_coeff=True,
+        one_pass=True, sr=False), [-1e-3, 0.271, 0.00299, 0.37, 1.0, 0.0]),
+    "fp16_inv_scale_skip": ("float32", "float16", dict(
+        wd=0.01, coupled=False, use_inv=True, use_coeff=True,
+        one_pass=True, sr=False),
+        [-1e-3, 0.1, 0.001, 0.5, 2.0 ** -12, 1.0]),
+    "fp16_inv_scale_taken": ("float32", "float16", dict(
+        wd=0.0, coupled=False, use_inv=True, use_coeff=False,
+        one_pass=True, sr=False),
+        [-1e-3, 0.1, 0.001, 1.0, 2.0 ** -12, 0.0]),
+    "bf16_cast_cache": ("float32", "bfloat16", dict(
+        wd=0.01, coupled=False, use_inv=False, use_coeff=True,
+        one_pass=True, sr=False), [-3e-4, 0.19, 0.001999, 0.9, 1.0, 0.0]),
+    "master_free_sr": ("bfloat16", None, dict(
+        wd=0.01, coupled=False, use_inv=False, use_coeff=True,
+        one_pass=True, sr=True), [-1e-3, 0.271, 0.00299, 0.8, 1.0, 0.0]),
+}
+ADAM_SEED = (123456789, 4096)
+
+
+def adam_case(name, n, seed=0):
+    """numpy inputs of an ADAM_CASES flag set: g, p (fp32 values of the
+    param dtype), m, v (v >= 0), scalars [8] fp32, seed [2] int32."""
+    p_dt, _, _, sc = ADAM_CASES[name]
+    rng = np.random.default_rng(seed)
+    scale = 2.0 ** 12 if "fp16" in name else 1.0
+    g = (rng.standard_normal(n) * 0.05 * scale).astype(np.float32)
+    p = rng.standard_normal(n).astype(np.float32) * 0.2
+    m = (rng.standard_normal(n) * 0.01).astype(np.float32)
+    v = (rng.random(n) * 1e-4).astype(np.float32)
+    scalars = np.array(sc + [0.0, 0.0], np.float32)
+    return g, p, m, v, scalars, np.array(ADAM_SEED, np.int32)
