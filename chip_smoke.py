@@ -20,30 +20,41 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    LayerNorm forward and backward (8192 x 768, with and without the
    residual), bias+GELU forward and backward (8192 x 3072), the grad sum
    of squares and the fused Adam step over the 124M-element fp32
-   parameter group, the latter for each flag set the engine uses. One
+   parameter group, the latter for each flag set the engine uses; then
+   the flash attention kernels (bf16, 12 heads of 64, causal): the
+   forward and the fused backward at the training shape (8 x 1024), the
+   forward and the split dq / dk-dv backward at sequence 768, each with
+   dropout 0 and 0.1, and the forward at the whole-prompt prefill shape
+   (1 x 1024), each also launched twice and compared bit for bit. One
    JSON line per shape: the kernel's, the plain version's and a library
    call's time (CUDA events), the least time the card could take
    (``bound_ms``) and the largest error.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
-   then the same stream with ``spec_k: 3``. Each serve is its own path:
-   the launch counters are zeroed just before it and read just after it,
-   and every serving kernel must have launched in it. Then the exact
-   launches of one step of each attention mode and the engine's prefill
-   logits against the plain ``gpt2_apply`` on the card.
+   then the same stream with ``spec_k: 3``, then with whole-prompt
+   prefill (``prefill_chunk: 0``, the flash forward). Each serve is its
+   own path: the launch counters are zeroed just before it and read just
+   after it, and every serving kernel must have launched in it. Every
+   token each serve emitted is held against the plain ``gpt2_apply``
+   teacher-forced over the same history (``check_streams``). Then the
+   exact launches of one step of each attention mode, and the chunked
+   and the whole-prompt engines' prefill logits against the plain
+   ``gpt2_apply`` on the card.
 5. Train gpt2-small through ``initialize`` → ``train_batch``: bf16 with
    fp32 masters, AdamW, WarmupLR, clip 1.0, gas 2 x micro-batch 8 x
    1024, dropout 0.1, on a seeded learnable token stream. First one
    step's loss and grad norm against a plain-autograd step on the card
-   (plain LayerNorm/GELU, same params, batch and dropout masks); then
+   (plain LayerNorm/GELU, the flash forward's plain version, same params,
+   batch and dropout masks); then
    the main path, 30 steps, read on its own: every loss finite, the last
    5 below the first 5, and exactly the expected launches per step of
    every training kernel. Step time p50, tokens/s and model TFLOP/s;
    then three profiled steps (device time by kernel group, idle share)
    and one step under CUDA's sync debug mode (the host syncs it makes).
    Then the fp16 path (dynamic loss scale from 2^32: skipped steps, then
-   taken ones) and the master-free bf16 path (stochastic rounding), each
-   read on its own.
+   taken ones), the master-free bf16 path (stochastic rounding) and a
+   bf16 path at sequence 768 (the split flash backward), each read on its
+   own.
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +77,7 @@ from deepspeed_tpu_torch.inference import InferenceEngine, \
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
     gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
 from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
+from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import op_builder
@@ -90,6 +102,10 @@ ULP_FLOOR = 1e-5
 # about twice the largest difference measured on the H100 (0.03125, i.e.
 # 2 bf16 ulp of the largest logit), and the argmax must be equal.
 LOGIT_TOL = 0.0625
+# A served token's reference margin (check_streams): an engine whose
+# logits lie within LOGIT_TOL of the reference's picks a token whose
+# reference logit trails the reference's largest by at most twice that.
+PICK_MARGIN_TOL = 2 * LOGIT_TOL
 SEED = 0
 # The training main path: gpt2-small, micro-batch 8 x 1024 tokens (the
 # kernels' rows), gas 2.
@@ -98,11 +114,28 @@ TRAIN_ROWS = TRAIN_MICRO * TRAIN_SEQ
 TRAIN_STEPS = 30
 # The kernel-path training step against the plain-autograd step on the
 # card (bf16 compute, fp32 masters, same params, batch and dropout
-# masks). The two differ only in where the LayerNorm/GELU forward and
-# backward round to bf16.
+# masks). The two differ in where the LayerNorm/GELU forward and backward
+# round to bf16, and in where the attention rounds p to bf16 (the flash
+# kernels' online softmax against the plain whole-row formula).
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_NORM_RTOL = 2e-2
 SERVE_KERNELS = ("fused_layer_norm", "fused_bias_gelu", "paged_attention")
+# The second training path: sequence 768 takes the split flash backward.
+SPLIT_SEQ, SPLIT_STEPS = 768, 5
+# Flash kernels against their plain versions (bf16): both round p and ds
+# to bf16 at the same points, but the kernel's online softmax does so at
+# running maxima over 64-column tiles and the plain version at the row
+# maximum, and the sums run in other orders. Outputs within this fraction
+# of their largest magnitude (2 bf16 ulp of it); lse (fp32) absolute.
+FLASH_REL_TOL = 2.0 ** -7
+FLASH_LSE_TOL = 1e-4
+FLASH_SEED = 20240917
+# (case, batch, sequence, dropout): 12 heads of 64, causal, bf16.
+FLASH_CASES = (("train", TRAIN_MICRO, TRAIN_SEQ, 0.0),
+               ("train", TRAIN_MICRO, TRAIN_SEQ, 0.1),
+               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.0),
+               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.1),
+               ("prefill", 1, 1024, 0.0))
 
 
 def emit(obj):
@@ -302,6 +335,64 @@ def check_paged_attention(dev, gen):
 # --------------------------------------------------------------------- #
 # Phase 4: the serving main path at gpt2-small
 # --------------------------------------------------------------------- #
+def check_streams(cfg, params, dev, requests, reports):
+    """Every token of every serve against the plain ``gpt2_apply``,
+    teacher-forced over the request's prompt and the tokens the engine
+    emitted before it: the reference's largest logit less its logit of
+    the engine's pick (0 where the pick is its argmax). The engines'
+    logits lie within LOGIT_TOL of gpt2_apply's, so a greedy pick may
+    trail the reference's argmax by at most PICK_MARGIN_TOL; more is a
+    wrong token. Where a serve's stream leaves the chunked spec_k=0 one,
+    the reference at the first differing position (same context on both
+    sides) gives both picks' margins and its top-2 gap: a near-tie split
+    by rounding, or a fault."""
+    def teacher_forced(req, toks):
+        seq = np.concatenate([req.prompt, toks[:-1]]).astype(np.int64)
+        with torch.no_grad():
+            logits = gpt2_apply(params, torch.from_numpy(seq).to(dev)[None],
+                                cfg)[0, len(req.prompt) - 1:].float()
+        picked = torch.tensor(toks, device=dev)
+        return logits, logits.amax(-1) - logits.gather(
+            1, picked[:, None])[:, 0]
+
+    chunked = {}                               # rid -> (tokens, logits)
+    for k, rep in reports.items():
+        n, at_argmax, worst, diverged = 0, 0, 0.0, []
+        for req, rec in zip(requests, rep["requests"]):
+            assert rec["rid"] == req.rid, (k, rec["rid"], req.rid)
+            toks = rec["tokens"]
+            logits, margin = teacher_forced(req, toks)
+            n += len(toks)
+            at_argmax += int((margin == 0).sum())
+            worst = max(worst, float(margin.max()))
+            if k == 0:
+                chunked[req.rid] = (toks, logits)
+                continue
+            base, base_logits = chunked[req.rid]
+            j = next((i for i, (a, b) in enumerate(zip(base, toks))
+                      if a != b), None)
+            if j is None:
+                continue
+            row = base_logits[j]
+            top2 = row.topk(2).values
+            diverged.append({
+                "rid": req.rid, "position": j,
+                "picks_chunked_and_this": [base[j], toks[j]],
+                "ref_margins": [float(row.max() - row[base[j]]),
+                                float(row.max() - row[toks[j]])],
+                "ref_top2_gap": float(top2[0] - top2[1])})
+        rec = {"path": k, "tokens": n, "picks_at_ref_argmax": at_argmax,
+               "max_pick_margin": worst, "tol": PICK_MARGIN_TOL}
+        if k != 0:
+            rec.update({"streams_equal_chunked_spec0":
+                        f"{len(requests) - len(diverged)}/{len(requests)}",
+                        "first_divergences": diverged})
+        emit({"serve_streams_vs_gpt2_apply": rec})
+        assert worst <= PICK_MARGIN_TOL, rec
+        assert all(max(d["ref_margins"]) <= PICK_MARGIN_TOL
+                   for d in diverged), rec
+
+
 def serve_gpt2_small(dev):
     cfg = GPT2_CONFIGS["gpt2-small"]                 # bf16 compute
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -311,8 +402,12 @@ def serve_gpt2_small(dev):
     reqs = lambda: shared_prefix_requests(  # noqa: E731
         16, prefix_len=64, tail_len=(16, 48), max_new_tokens=32,
         vocab_size=cfg.vocab_size, seed=SEED)
+    # Paths: chunked prefill with spec_k 0 and 3, and whole-prompt
+    # prefill (the flash forward, one admission at a time, no sharing).
+    paths = {0: dict(spec_k=0), 3: dict(spec_k=3),
+             "whole": dict(spec_k=0, prefill_chunk=0)}
     engines = {k: InferenceEngine(cfg, params, {"inference": dict(
-        base, spec_k=k)}) for k in (0, 3)}
+        base, **inf)}) for k, inf in paths.items()}
     for eng in engines.values():                     # warm-up, not counted
         eng.serve(shared_prefix_requests(
             2, prefix_len=16, tail_len=(4, 8), max_new_tokens=4,
@@ -333,7 +428,12 @@ def serve_gpt2_small(dev):
             (k, rep["completed"], rep["unfinished"])
         assert all(counts[k][name] > 0 for name in SERVE_KERNELS), \
             (k, counts[k])
-        emit({"serve": {"spec_k": k, "requests": 16,
+        L = cfg.num_layers
+        assert counts[k]["flash_attention_fwd"] == \
+            (16 * L if k == "whole" else 0), (k, counts[k])
+        emit({"serve": {"path": k, "spec_k": paths[k]["spec_k"],
+                        "prefill_chunk": paths[k].get("prefill_chunk", 32),
+                        "requests": 16,
                         "completed": rep["completed"],
                         "ttft_ms_p50": rep["ttft_ms"]["p50"],
                         "tpot_ms_p50": rep["tpot_ms"]["p50"],
@@ -345,10 +445,7 @@ def serve_gpt2_small(dev):
                         "spec": rep.get("spec"),
                         "launches": counts[k]}})
 
-    plain = [r["tokens"] for r in reports[0]["requests"]]
-    spec = [r["tokens"] for r in reports[3]["requests"]]
-    same = sum(a == b for a, b in zip(plain, spec))
-    emit({"serve_streams_equal_spec_vs_plain": f"{same}/16"})
+    check_streams(cfg, engines[0]._params, dev, reqs(), reports)
 
     # Launches of one step of each attention mode: chunked prefill (K=32),
     # plain decode (K=1) and speculative verify (K=4). Each chunk or step
@@ -366,28 +463,40 @@ def serve_gpt2_small(dev):
         torch.cuda.synchronize()
         return out, ops.launch_counts()
 
-    def per_step(n):
+    def per_step(n, attend="paged_attention"):
         c = {name: 0 for name in ops.launch_counts()}
         c.update({"fused_layer_norm": n * (2 * L + 1),
-                  "fused_bias_gelu": n * L, "paged_attention": n * L})
+                  "fused_bias_gelu": n * L, attend: n * L})
         return c
 
+    ref = gpt2_apply(engines[0]._params, torch.from_numpy(prompt).long()
+                     .to(dev)[None], cfg)[0, -1].float().cpu().numpy()
+
+    def check_logits(name, logits):
+        err = float(np.abs(logits - ref).max())
+        argmax_equal = int(np.argmax(logits)) == int(np.argmax(ref))
+        emit({f"{name}_logits_vs_gpt2_apply": {
+            "max_abs_err": err, "tol": LOGIT_TOL,
+            "ref_max_abs": float(np.abs(ref).max()),
+            "argmax_equal": argmax_equal}})
+        assert np.isfinite(logits).all() and \
+            logits.shape == (cfg.vocab_size,)
+        assert err <= LOGIT_TOL, (name, err)
+        assert argmax_equal, (name, int(np.argmax(logits)),
+                              int(np.argmax(ref)))
+
     steps = {}
+    eng = engines["whole"]
+    (_, logits), steps["prefill_whole_prompt"] = one_step(
+        lambda: eng.prefill(prompt, slot=0, return_logits=True,
+                            max_new_tokens=4))
+    check_logits("whole_prompt_prefill", logits)
+    eng.release_slot(0)
     eng = engines[0]
     (tok, logits), steps["prefill_prefix_hit"] = one_step(
         lambda: eng.prefill(prompt, slot=0, return_logits=True,
                             max_new_tokens=4))
-    ref = gpt2_apply(eng._params, torch.from_numpy(prompt).long()
-                     .to(dev)[None], cfg)[0, -1].float().cpu().numpy()
-    err = float(np.abs(logits - ref).max())
-    argmax_equal = int(np.argmax(logits)) == int(np.argmax(ref))
-    emit({"prefill_logits_vs_gpt2_apply": {
-        "max_abs_err": err, "tol": LOGIT_TOL,
-        "ref_max_abs": float(np.abs(ref).max()),
-        "argmax_equal": argmax_equal}})
-    assert np.isfinite(logits).all() and logits.shape == (cfg.vocab_size,)
-    assert err <= LOGIT_TOL, err
-    assert argmax_equal, (int(np.argmax(logits)), int(np.argmax(ref)))
+    check_logits("prefill", logits)
     eng.activate_slot(0, len(prompt), tok)
     _, steps["decode"] = one_step(eng.decode_once)
     eng.release_slot(0)
@@ -401,6 +510,8 @@ def serve_gpt2_small(dev):
     for name, n in (("prefill_prefix_hit", 2), ("decode", 1),
                     ("verify_k4", 1)):
         assert steps[name] == per_step(n), (name, steps[name])
+    assert steps["prefill_whole_prompt"] == per_step(
+        1, "flash_attention_fwd"), steps["prefill_whole_prompt"]
     return counts, reports
 
 
@@ -585,10 +696,121 @@ def check_fused_adam(dev, gen, n):
     return out
 
 
+def _rel_err(a, b):
+    """Largest |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max() /
+                 b.float().abs().max().clamp_min(1e-30))
+
+
+def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
+                  kern, plain, lib, lib_name, **extra):
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert max(errs) <= FLASH_REL_TOL, (kernel, case, drop, errs)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    assert same, (kernel, case, drop, "two launches differ")
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {"kernel": kernel, "case": case,
+           "shape": {"batch": B, "heads": 12, "seq": S, "head_dim": 64,
+                     "causal": True},
+           "dtype": "bf16", "dropout": drop,
+           "kernel_ms": time_ms(kern, iters=20, warmup=3),
+           "plain_ms": time_ms(plain, iters=3, warmup=1),
+           "library_ms": None if lib is None else time_ms(lib, iters=20,
+                                                          warmup=3),
+           "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops,
+           "max_err": max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want)),
+           "max_rel_err": max(errs), "rel_tol": FLASH_REL_TOL,
+           "bit_equal_across_launches": same, **extra}
+    emit(rec)
+    return rec
+
+
+def check_flash(dev, gen):
+    """K1, K2a, K2b and K2c against their plain versions at the shapes
+    the training and whole-prompt prefill paths give them. Inputs are
+    the strided split of one [B, S, 3H] projection, as the model's. The
+    bound's operations are the matmul FLOPs over the (q, k) pairs the
+    causal rule keeps, at the bf16 rate; its bytes read each input and
+    write each output once."""
+    nH, D, dt, out = 12, 64, torch.bfloat16, []
+    scale = D ** -0.5
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    for case, B, S, drop in FLASH_CASES:
+        qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
+        q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
+        do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
+        BH, N = B * nH, B * nH * S * D
+        pairs = BH * S * (S + 1) // 2
+        # The library call's inputs, laid out and built outside its timing.
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdo = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                                  dropout_p=drop)
+
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, True, scale, drop,  # noqa: E731
+                                             seed)
+        o, lse = fwd()
+        want = fa.flash_fwd_plain(q, k, v, True, scale, drop, seed)
+        again = fwd()
+        torch.cuda.synchronize()
+        lse_err = float((lse - want[1]).abs().max())
+        assert lse_err <= FLASH_LSE_TOL, (case, drop, lse_err)
+        with torch.no_grad():
+            out.append(_flash_record(
+                "flash_attention_fwd", case, B, S, drop, (o, lse), want,
+                again, 4 * N * 2 + BH * S * 4, 4 * D * pairs, fwd,
+                lambda: fa.flash_fwd_plain(q, k, v, True, scale, drop, seed),
+                sdpa, "F.scaled_dot_product_attention(is_causal=True)",
+                lse_max_abs_err=lse_err))
+        del want, again
+        if case == "prefill":
+            continue
+        delta = fa.flash_delta(do, o)
+        args = (q, k, v, do, lse, delta, True, scale, drop, seed)
+        want = fa.flash_bwd_plain(*args)
+        lib_out = sdpa()
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (sq, sk, sv), sdo, retain_graph=True)
+        plain = lambda: fa.flash_bwd_plain(*args)  # noqa: E731
+        lse_delta = 2 * BH * S * 4
+        if fa.use_fused_bwd(S, S):
+            kern = lambda: fa.flash_attention_bwd_fused(*args)  # noqa: E731
+            out.append(_flash_record(
+                "flash_attention_bwd_fused", case, B, S, drop, kern(), want,
+                kern(), 7 * N * 2 + lse_delta, 10 * D * pairs, kern, plain,
+                lib_bwd, "F.scaled_dot_product_attention backward "
+                "(torch.autograd.grad)"))
+        else:
+            # No library call computes dq alone or dk/dv alone: each of the
+            # pair carries the library's whole backward (dq, dk and dv) as
+            # library_ms_pair, to set against the pair's summed kernel ms.
+            kq = lambda: (fa.flash_attention_bwd_dq(*args),)  # noqa: E731
+            kkv = lambda: fa.flash_attention_bwd_dkv(*args)  # noqa: E731
+            pair = {"library_ms_pair": time_ms(lib_bwd, iters=20, warmup=3),
+                    "library_pair": "F.scaled_dot_product_attention "
+                    "backward (torch.autograd.grad): dq, dk and dv"}
+            out.append(_flash_record(
+                "flash_attention_bwd_dq", case, B, S, drop, kq(), want[:1],
+                kq(), 5 * N * 2 + lse_delta, 6 * D * pairs, kq, plain, None,
+                None, **pair))
+            out.append(_flash_record(
+                "flash_attention_bwd_dkv", case, B, S, drop, kkv(), want[1:],
+                kkv(), 6 * N * 2 + lse_delta, 8 * D * pairs, kkv, plain,
+                None, None, **pair))
+        del want, lib_out, sq, sk, sv
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------- #
 # Phase 5: the training main path at gpt2-small
 # --------------------------------------------------------------------- #
-def token_stream(cfg, steps, seed=SEED):
+def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ):
     """Seeded learnable batches [gas*micro, S+1]: a Markov chain over a
     1024-token subset of the vocab that follows a fixed successor map
     with probability 0.9."""
@@ -599,13 +821,13 @@ def token_stream(cfg, steps, seed=SEED):
     B = TRAIN_GAS * TRAIN_MICRO
     out = []
     for _ in range(steps):
-        seq = np.empty((B, TRAIN_SEQ + 1), np.int64)
+        toks = np.empty((B, seq + 1), np.int64)
         cur = rng.integers(0, n, B)
-        for t in range(TRAIN_SEQ + 1):
-            seq[:, t] = cur
+        for t in range(seq + 1):
+            toks[:, t] = cur
             jump = rng.random(B) < 0.1
             cur = np.where(jump, rng.integers(0, n, B), succ[cur])
-        out.append(torch.from_numpy(vocab[seq]))
+        out.append(torch.from_numpy(vocab[toks]))
     return out
 
 
@@ -626,7 +848,10 @@ def train_config(precision, steps):
     return ds
 
 
-def per_train_step(cfg):
+def per_train_step(cfg, seq=TRAIN_SEQ):
+    """Launches of one train step: per micro-batch and layer one flash
+    forward and, by the JAX rule, the fused backward (S = 1024) or the
+    dq + dk/dv pair (S = 768)."""
     L = cfg.num_layers
     c = {name: 0 for name in ops.launch_counts()}
     c.update({"fused_layer_norm": TRAIN_GAS * (L + 1),
@@ -634,7 +859,11 @@ def per_train_step(cfg):
               "fused_bias_gelu": TRAIN_GAS * L,
               "layer_norm_backward": TRAIN_GAS * (2 * L + 1),
               "bias_gelu_backward": TRAIN_GAS * L,
-              "sqnorm": 1, "fused_adam_apply": 1})
+              "sqnorm": 1, "fused_adam_apply": 1,
+              "flash_attention_fwd": TRAIN_GAS * L})
+    bwd = ("flash_attention_bwd_fused",) if fa.use_fused_bwd(seq, seq) \
+        else ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    c.update({name: TRAIN_GAS * L for name in bwd})
     return c
 
 
@@ -649,14 +878,16 @@ def make_engine(cfg, precision, seed=SEED):
 
 def plain_reference_step(eng, cfg, batch):
     """One step's mean loss and global grad norm by plain autograd
-    (plain LayerNorm/GELU) on the engine's bf16 params, its batch split
-    and a copy of its generator (the same dropout masks)."""
+    (plain LayerNorm/GELU, and the flash forward's plain version, which
+    draws the same attention seeds) on the engine's bf16 params, its
+    batch split and a copy of its generator (the same dropout masks)."""
     gen = torch.Generator(device=eng.device)
     gen.set_state(eng.generator.get_state())
     cast, spec = tree_flatten(eng.state.cast_params)
     leaves = [t.detach().clone().requires_grad_() for t in cast]
     tree = tree_unflatten(spec, leaves)
-    loss_fn = gpt2_loss_fn(cfg, ops=PLAIN_OPS)
+    loss_fn = gpt2_loss_fn(cfg, attention_fn=fa.flash_attention_plain,
+                           ops=PLAIN_OPS)
     acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
            for t in leaves]
     mean = 0.0
@@ -673,7 +904,8 @@ def plain_reference_step(eng, cfg, batch):
 def profile_train_steps(eng, batches):
     """Device time by kernel group over a few train steps
     (torch.profiler), with the window's wall (ended by a sync)."""
-    groups = (("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
+    groups = (("flash", ("flash_",)),
+              ("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
               ("port_kernels", ("ln_fwd_kernel", "ln_bwd_kernel",
                                 "bias_gelu", "sqnorm_kernel",
                                 "fused_adam_kernel")),
@@ -716,12 +948,14 @@ def profile_train_steps(eng, batches):
             per[g] = per.get(g, 0.0) + ms
             top[evt.key[:80]] = (ms, evt.count / len(batches))
             launches += evt.count
-            if g == "port_kernels":
+            if g in ("port_kernels", "flash"):
                 # e.g. "ln_fwd_kernel<__nv_bfloat16, true>": the device
                 # time of one launch, free of the host's enqueue cost
                 # that CUDA events around a launch loop include.
                 m = re.search(r"(ln_fwd|ln_bwd|bias_gelu|bias_gelu_bwd|"
-                              r"sqnorm|fused_adam)_kernel(<[^()]*>)?",
+                              r"sqnorm|fused_adam|flash_fwd|flash_bwd_dq|"
+                              r"flash_bwd_dkv|flash_bwd_fused)"
+                              r"_kernel(<[^()]*>)?",
                               evt.key)
                 port[m.group(0) if m else evt.key[:80]] = \
                     us / evt.count / 1e3
@@ -790,6 +1024,8 @@ def train_gpt2_small(dev, smi):
     eng = make_engine(cfg, "bf16")
     ref_loss, ref_norm = plain_reference_step(eng, cfg, batches[0])
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     losses, metrics, ms, counts["train"] = run_path(
         eng, batches[:TRAIN_STEPS])
     k_norm = float(metrics[0]["grad_norm"])
@@ -820,6 +1056,7 @@ def train_gpt2_small(dev, smi):
         "model_tflops_per_s": flops_per_token * tok_s / 1e12,
         "flops_per_token": flops_per_token,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_of": "the 30 steps (reset after the yardstick)",
         "card": smi}
     emit({"train_path": out["train"]})
     prof = profile_train_steps(eng, batches[TRAIN_STEPS:TRAIN_STEPS + 3])
@@ -866,6 +1103,25 @@ def train_gpt2_small(dev, smi):
                                            for k, v in expect.items()}
     del eng
     torch.cuda.empty_cache()
+
+    # bf16 at sequence 768: the split flash backward (dq + dk/dv).
+    eng = make_engine(cfg, "bf16")
+    split_batches = token_stream(cfg, SPLIT_STEPS, seq=SPLIT_SEQ)
+    losses, metrics, ms, counts["train_s768"] = run_path(eng, split_batches)
+    expect_split = per_train_step(cfg, SPLIT_SEQ)
+    step_ms = float(np.median(ms[1:]))
+    emit({"train_s768_path": {
+        "batch": [TRAIN_GAS, TRAIN_MICRO, SPLIT_SEQ], "steps": SPLIT_STEPS,
+        "losses": losses, "launches_per_step": expect_split,
+        "step_ms_p50": step_ms, "step_ms_all": ms,
+        "tokens_per_s": TRAIN_GAS * TRAIN_MICRO * SPLIT_SEQ / (step_ms / 1e3),
+        "card": smi}})
+    assert all(math.isfinite(l) for l in losses), losses
+    assert counts["train_s768"] == {k: SPLIT_STEPS * v
+                                    for k, v in expect_split.items()}, \
+        counts["train_s768"]
+    del eng
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -880,9 +1136,9 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0], "device": name,
+          "python": sys.version.split()[0], "device": device_name,
           "peaks_used": {"card": "H100 SXM",
                          "hbm_bytes_per_s": HBM_BYTES_PER_S,
                          "bf16_flops_per_s": BF16_FLOPS_PER_S,
@@ -904,16 +1160,20 @@ def main():
     gelu_bwd = check_bias_gelu_backward(dev, gen)
     sq = check_sqnorm(dev, gen, n_params)
     adam = check_fused_adam(dev, gen, n_params)
+    flash = check_flash(dev, gen)
     torch.cuda.synchronize()
 
     serve_counts, _ = serve_gpt2_small(dev)
     torch.cuda.synchronize()
-    counts = {f"spec_k={k}": c for k, c in serve_counts.items()}
+    counts = {"whole_prompt" if k == "whole" else f"spec_k={k}": c
+              for k, c in serve_counts.items()}
     counts.update(train_gpt2_small(dev, smi))
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
                    for path, c in counts.items()}
+        pair = {k: rec[k] for k in ("library_ms_pair", "library_pair")
+                if k in rec}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -922,7 +1182,8 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "shape": rec["shape"],
                 "ms_by_shape": [[r["shape"], r.get("residual", r.get(
-                    "flags")), r["kernel_ms"]] for r in recs]}
+                    "flags", r.get("dropout"))), r["kernel_ms"]]
+                    for r in recs], **pair}
 
     fe_src = "deepspeed_tpu_torch/csrc/fused_elementwise.cu"
     fu_src = "deepspeed_tpu_torch/csrc/fused_update.cu"
@@ -948,9 +1209,22 @@ def main():
                 "paged_attention.cu", ref + "paged_attention.py:126",
                 ("paged_attention",), attn[0], attn),
     ]
+    # Flash rows: the main training path's record (dropout 0.1) first.
+    fl_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    for wrapper, line, case in (
+            ("flash_attention_fwd", 167, "train"),
+            ("flash_attention_bwd_dq", 378, "train_split"),
+            ("flash_attention_bwd_dkv", 425, "train_split"),
+            ("flash_attention_bwd_fused", 482, "train")):
+        recs = [r for r in flash if r["kernel"] == wrapper]
+        main_rec = [r for r in recs if r["case"] == case and
+                    r["dropout"] > 0][0]
+        kernels.append(summary(wrapper, fl_src,
+                               ref + f"flash_attention.py:{line}",
+                               (wrapper,), main_rec, recs))
     print(smi, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

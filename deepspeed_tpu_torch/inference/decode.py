@@ -1,10 +1,13 @@
 """Incremental GPT-2 forward paths against the paged block pool: decode,
-the speculative verify step and chunked prefill (port of the paged half
-of ``deepspeed_tpu/inference/decode.py``).
+the speculative verify step, chunked prefill and whole-prompt prefill
+(port of the paged half of ``deepspeed_tpu/inference/decode.py``).
 
-Every layer keeps the JAX order: write the new tokens' K/V rows through
-the block table, then attend inclusively — each query row sees its own
-position. The attend is the paged-attention kernel; LayerNorm and the
+The incremental paths keep the JAX order in every layer: write the new
+tokens' K/V rows through the block table, then attend inclusively — each
+query row sees its own position — with the paged-attention kernel.
+Whole-prompt prefill instead runs the padded prompt through causal
+``auto_attention`` (the flash forward kernel on a CUDA device) and
+writes each layer's K/V through the slot's table. LayerNorm and the
 FFN's bias+GELU are the fused kernels; the QKV, projection, FFN and
 tied-unembedding matmuls stay with ``torch.matmul``.
 
@@ -18,7 +21,7 @@ device needs once per call.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +30,7 @@ from .kv_cache import (DEAD_BLOCK, WritePlan, positions_to_blocks,
 from ..models.gpt2 import GPT2Config
 from ..models.transformer import (dense, gelu_dense_fn, layer_norm_fn,
                                   layer_slice)
+from ..ops.flash_attention import auto_attention
 from ..ops.paged_attention import paged_attention
 
 
@@ -171,6 +175,48 @@ def gpt2_prefill_chunk_paged(params: Dict[str, Any], kc: torch.Tensor,
     return torch.matmul(h_last, params["wte"].to(cfg.dtype).T).float()
 
 
+def gpt2_prefill_full_paged(params: Dict[str, Any], kc: torch.Tensor,
+                            vc: torch.Tensor, tokens, bt_rows, last_idx: int,
+                            cfg: GPT2Config,
+                            attention_fn: Optional[Callable] = None
+                            ) -> torch.Tensor:
+    """Whole-prompt single-shot prefill (``prefill_chunk: 0``) into the
+    block pool.
+
+    tokens: [T], the prompt padded to the slot's capacity; bt_rows:
+    [G, J] — the slot's table row in its own group, DEAD_BLOCK rows
+    elsewhere. The whole sequence goes through ``attention_fn`` (default
+    ``auto_attention``) causally, so the padding never reaches a real
+    position; each layer's K/V rows are written through the table in
+    place (positions past the slot's blocks land nowhere). Returns the
+    fp32 logits [V] at position ``last_idx``."""
+    _check_cfg(cfg)
+    attention_fn = attention_fn or auto_attention
+    tokens, bt = _host(tokens), _host(bt_rows)
+    T = tokens.shape[0]
+    G, J = bt.shape
+    nH, D = cfg.num_heads, cfg.head_dim
+    dev = params["wte"].device
+    blk, off = positions_to_blocks(bt[:, None, :].expand(G, T, J),
+                                   torch.arange(T).expand(G, T), kc.shape[4])
+    plan = write_plan(blk, off, kc.shape[2]).to(dev)
+    x = (params["wte"].to(cfg.dtype)[tokens.to(dev)] +
+         params["wpe"].to(cfg.dtype)[:T])[None]              # [1, T, H]
+    blocks = params["blocks"]
+    for i in range(kc.shape[0]):
+        p = layer_slice(blocks, i)
+        q, k, v = _qkv(p, x, cfg)                             # [1, T, nH, D]
+        write_rows_planned(kc[i], k.expand(G, T, nH, D), plan)
+        write_rows_planned(vc[i], v.expand(G, T, nH, D), plan)
+        attn = attention_fn(q, k, v, mask=None, causal=True,
+                            deterministic=True)
+        attn = attn.reshape(x.shape).to(x.dtype)
+        x = _ffn(p, x + dense(attn, p["proj_kernel"], p["proj_bias"]), cfg)
+    h_last = layer_norm_fn(cfg)(x[0, int(last_idx)][None],
+                                params["ln_f_scale"], params["ln_f_bias"])
+    return torch.matmul(h_last, params["wte"].to(cfg.dtype).T).float()[0]
+
+
 def spec_accept(logits: torch.Tensor, tokens: torch.Tensor,
                 generator: torch.Generator, temperature: float
                 ) -> torch.Tensor:
@@ -207,4 +253,5 @@ def sample_tokens(logits: torch.Tensor, generator: torch.Generator,
 
 
 __all__ = ["gpt2_decode_paged", "gpt2_verify_paged",
-           "gpt2_prefill_chunk_paged", "spec_accept", "sample_tokens"]
+           "gpt2_prefill_chunk_paged", "gpt2_prefill_full_paged",
+           "spec_accept", "sample_tokens"]

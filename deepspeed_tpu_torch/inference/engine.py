@@ -2,11 +2,15 @@
 paged KV cache (port of ``deepspeed_tpu/inference/engine.py``, the paged
 and chunked-prefill path).
 
-- Three device operations serve everything: ``prefill_many`` (chunked
-  prefill through ``decode.gpt2_prefill_chunk_paged``), ``decode_once``
-  (one token for every slot) and, with ``spec_k > 0``,
-  ``spec_decode_once`` (draft-then-verify). All of them run the port's
-  kernels on a CUDA device: paged attention, LayerNorm, bias+GELU.
+- Three device operations serve everything: prefill — chunked
+  (``prefill_many`` through ``decode.gpt2_prefill_chunk_paged``) or, with
+  ``prefill_chunk: 0``, whole-prompt (``prefill`` through
+  ``decode.gpt2_prefill_full_paged``, one admission at a time and no
+  prefix sharing, as in the JAX engine) — ``decode_once`` (one token for
+  every slot) and, with ``spec_k > 0``, ``spec_decode_once``
+  (draft-then-verify). All of them run the port's kernels on a CUDA
+  device: paged attention (flash attention for whole-prompt prefill),
+  LayerNorm, bias+GELU.
 - The block pool (``kv_cache``) is allocated once and updated in place.
   One GPU means one pool group (dp = 1, mp = 1).
 - Host-side per-slot counters (lengths, active, last token) and the
@@ -17,10 +21,9 @@ and chunked-prefill path).
 - ``ServingAggregator`` accounts TTFT/TPOT/occupancy/tokens per second on
   host clocks.
 
-Not ported: the slot-major layout (``block_size: 0``), whole-prompt
-prefill (``prefill_chunk: 0``), weight quantization, dp/mp meshes, the
-replica router, telemetry and SLO overlays, and
-``from_train_checkpoint``. Each of those configurations raises
+Not ported: the slot-major layout (``block_size: 0``), weight
+quantization, dp/mp meshes, the replica router, telemetry and SLO
+overlays, and ``from_train_checkpoint``. Each of those configurations raises
 ``NotImplementedError``; so do ``paged_kernel: false`` and
 ``fused_kernels: False`` on a CUDA device, where the port has only its
 kernels.
@@ -94,11 +97,7 @@ class InferenceEngine:
                 f"inference.max_seq_len={self.max_len} exceeds the model's "
                 f"position table ({model_cfg.max_seq_length})")
         self.prefill_chunk = int(self.icfg.prefill_chunk)
-        if self.prefill_chunk == 0:
-            raise NotImplementedError(
-                "inference.prefill_chunk: 0 (whole-prompt prefill) is not "
-                "ported; use chunked prefill")
-        if self.max_len % self.prefill_chunk:
+        if self.prefill_chunk and self.max_len % self.prefill_chunk:
             raise ValueError(
                 f"inference.prefill_chunk={self.prefill_chunk} must divide "
                 f"the cache capacity ({self.max_len}) — padded prompts "
@@ -154,12 +153,14 @@ class InferenceEngine:
         self._held = set()               # acquired, not yet activated
         self.serving = ServingAggregator(self.max_slots,
                                          label=self.replica or None)
+        prefill = f"chunk {self.prefill_chunk}" if self.prefill_chunk \
+            else "whole-prompt"
         log_dist(
             f"InferenceEngine initialized: {model_cfg.name} on "
             f"{self.device}, slots={self.max_slots}, cache=paged "
             f"bs={self.block_size} x{self.num_blocks} blocks "
             f"({self.cache_spec.nbytes() / 2 ** 20:.1f} MiB K+V), prefill="
-            f"chunk {self.prefill_chunk}, spec_k={self.spec_k}", ranks=[0])
+            f"{prefill}, spec_k={self.spec_k}", ranks=[0])
 
     # ------------------------------------------------------------------ #
     # Slot lifecycle (host counters + block accounting — no device work)
@@ -226,13 +227,15 @@ class InferenceEngine:
         engine cannot admit it now: a group must cover the request's
         worst-case block need, and among admissible groups the one
         holding the longest cached prefix wins (ties toward the most
-        available blocks). ``activate_slot``/``release_slot`` end the
+        available blocks). Whole-prompt prefill shares no prefix, so it
+        counts no match. ``activate_slot``/``release_slot`` end the
         hold."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         free = [s for s in range(self.max_slots)
                 if not self.active[s] and s not in self._held]
         if not free:
             return None
+        share = self.prefill_chunk > 0
         Sg = self.cache_spec.slots_per_group
         first_free: Dict[int, int] = {}
         for s in free:
@@ -243,10 +246,11 @@ class InferenceEngine:
         best = best_key = None
         for g, s in first_free.items():
             if not self.allocator.can_admit(g, prompt, int(max_new_tokens),
-                                            self.spec_k):
+                                            self.spec_k, share=share):
                 continue
-            key = (len(self.allocator.match_prefix(g, prompt)[0]),
-                   self.allocator.available(g))
+            matched = len(self.allocator.match_prefix(g, prompt)[0]) \
+                if share else 0
+            key = (matched, self.allocator.available(g))
             if best_key is None or key > best_key:
                 best, best_key = s, key
         if best is not None:
@@ -263,9 +267,53 @@ class InferenceEngine:
         """Prefill one prompt into ``slot`` and sample its first output
         token. Returns (token, final-position fp32 logits [V] when asked).
         The caller activates the slot."""
+        if self.prefill_chunk == 0:
+            return self._prefill_whole(prompt, slot, temperature,
+                                       return_logits, max_new_tokens)
         return self.prefill_many(
             [(slot, prompt, int(max_new_tokens or 0))], temperature,
             return_logits=return_logits)[0]
+
+    def _check_prompt(self, prompt) -> np.ndarray:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] < 1:
+            raise ValueError("empty prompt")
+        if prompt.shape[0] >= self.max_len:
+            raise ValueError(
+                f"prompt length {prompt.shape[0]} leaves no room to "
+                f"generate in a {self.max_len}-token slot")
+        return prompt
+
+    def _prefill_whole(self, prompt, slot: int, temperature: float,
+                       return_logits: bool, max_new_tokens: Optional[int]
+                       ) -> Tuple[int, Optional[np.ndarray]]:
+        """Whole-prompt prefill (``prefill_chunk: 0``): admit through the
+        allocator with no prefix sharing, then run the prompt padded to
+        the slot's capacity in one causal pass."""
+        prompt = self._check_prompt(prompt)
+        plen = int(prompt.shape[0])
+        J = self.cache_spec.max_blocks_per_slot
+        group = slot // self.cache_spec.slots_per_group
+        plan = self.allocator.admit_prompt(
+            slot, group, prompt, int(max_new_tokens or 0), self.spec_k,
+            share=False)
+        row = np.full(J, kv_cache.DEAD_BLOCK, np.int32)
+        row[:len(plan.table)] = plan.table
+        self.block_tables[slot] = row
+        padded = np.zeros(self.max_len, np.int32)
+        padded[:plen] = prompt
+        bt_rows = np.full((self.dp, J), kv_cache.DEAD_BLOCK, np.int32)
+        bt_rows[group] = row
+        logits = decode_mod.gpt2_prefill_full_paged(
+            self._params, self.cache["k"], self.cache["v"],
+            torch.from_numpy(padded), torch.from_numpy(bt_rows), plen - 1,
+            self.model_cfg)
+        tok = int(decode_mod.sample_tokens(logits, self.generator,
+                                           temperature))    # the host fetch
+        if self.drafter is not None:
+            self.drafter.begin(slot, prompt)
+        self.serving.note_admit(plen, 0)
+        return tok, logits.cpu().numpy() if return_logits else None
 
     def prefill_many(self, admissions: Sequence[Tuple[int, Any, int]],
                      temperature: float = 0.0, return_logits: bool = False
@@ -278,7 +326,11 @@ class InferenceEngine:
         re-prefills), an exactly-matched chain forks its final block
         copy-on-write, and ``max_new_tokens`` books the worst-case
         reservation. Returns [(first token, logits | None)] in admission
-        order."""
+        order. Chunked prefill only: a whole-prompt engine admits one
+        prompt at a time through ``prefill``."""
+        if self.prefill_chunk == 0:
+            raise RuntimeError("prefill_many needs chunked prefill; with "
+                               "prefill_chunk: 0 admit through prefill()")
         G = self.dp
         J = self.cache_spec.max_blocks_per_slot
         Sg = self.cache_spec.slots_per_group
@@ -287,14 +339,8 @@ class InferenceEngine:
         seen_groups = set()
         copies = []
         for slot, prompt, max_new in admissions:
-            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            prompt = self._check_prompt(prompt)
             plen = int(prompt.shape[0])
-            if plen < 1:
-                raise ValueError("empty prompt")
-            if plen >= self.max_len:
-                raise ValueError(
-                    f"prompt length {plen} leaves no room to generate in a "
-                    f"{self.max_len}-token slot")
             group = slot // Sg
             if group in seen_groups:
                 raise ValueError(

@@ -169,9 +169,12 @@ class ContinuousBatchingScheduler:
                 req = pending.popleft()
                 req.t_arrival = t0 + req.arrival_s
                 queue.append(req)
-            # 2. admissions, FCFS, in one-slot-per-group batches: when
-            # the head of the queue cannot be admitted (no slot, or the
-            # pool cannot cover its worst case) everything behind waits.
+            # 2. admissions, FCFS: when the head of the queue cannot be
+            # admitted (no slot, or the pool cannot cover its worst case)
+            # everything behind waits. Chunked prefill admits in
+            # one-slot-per-group batches (``prefill_many``); whole-prompt
+            # prefill admits one request at a time (``prefill``).
+            batched = eng.prefill_chunk > 0
             while queue:
                 batch = []
                 used: set = set()
@@ -189,11 +192,18 @@ class ContinuousBatchingScheduler:
                     req.t_admit = time.perf_counter()
                     used.add(eng.group_of(slot))
                     batch.append((req, slot))
+                    if not batched:
+                        break
                 if not batch:
                     break
-                results = eng.prefill_many(
-                    [(slot, req.prompt, req.max_new_tokens)
-                     for req, slot in batch], self.temperature)
+                if batched:
+                    results = eng.prefill_many(
+                        [(slot, req.prompt, req.max_new_tokens)
+                         for req, slot in batch], self.temperature)
+                else:
+                    req, slot = batch[0]
+                    results = [eng.prefill(req.prompt, slot, self.temperature,
+                                           max_new_tokens=req.max_new_tokens)]
                 t_now = time.perf_counter()
                 for (req, slot), (tok, _) in zip(batch, results):
                     req.slot = slot

@@ -5,9 +5,9 @@ token+position embeddings → N pre-LN blocks → final LN → tied-embedding
 logits → next-token cross-entropy. ``gpt2_loss_fn`` is the training
 loss the engine differentiates (kernel-backed elementwise ops, chunked
 cross-entropy head); ``gpt2_apply`` is the plain full-sequence forward
-on the reference ops: the CPU tests hold it against the JAX
-``gpt2_apply``, and ``chip_smoke.py`` holds the serving engine's logits
-against it on the card.
+on the reference ops and ``dense_attention``: the CPU tests hold it
+against the JAX ``gpt2_apply``, and ``chip_smoke.py`` holds the serving
+engine's logits against it on the card.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ import torch
 from ..ops.cross_entropy import chunked_softmax_xent
 from ..utils.device import resolve_device
 from .transformer import (PLAIN_OPS, ElementwiseOps, TransformerConfig,
-                          apply_blocks, check_trainable, elementwise_ops,
-                          init_block_params)
+                          apply_blocks, check_trainable, dense_attention,
+                          elementwise_ops, init_block_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +75,9 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                 attention_fn: Optional[Callable] = None,
                 ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
     """tokens [B, S] → final hidden states [B, S, H] (post ln_f).
-    ``ops`` defaults to the ones ``cfg.fused_kernels`` selects."""
+    ``attention_fn`` defaults to ``auto_attention`` (the flash kernels on
+    a CUDA device, dense attention on the CPU); ``ops`` defaults to the
+    ones ``cfg.fused_kernels`` selects."""
     ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens] + \
@@ -90,8 +92,9 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
 def gpt2_apply(params: Dict[str, Any], tokens: torch.Tensor,
                cfg: GPT2Config) -> torch.Tensor:
     """tokens [B, S] int → logits [B, S, V] in the compute dtype, on the
-    plain reference ops, deterministic."""
-    x = gpt2_hidden(params, tokens, cfg, ops=PLAIN_OPS)
+    plain reference ops and dense attention, deterministic."""
+    x = gpt2_hidden(params, tokens, cfg, attention_fn=dense_attention,
+                    ops=PLAIN_OPS)
     return torch.matmul(x, params["wte"].to(cfg.dtype).T)
 
 
@@ -104,9 +107,10 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
     batch's device for dropout, or None. The head is the chunked
     cross-entropy (``ops/cross_entropy.py``), so the [tokens, vocab]
     logits never exist at once. ``attention_fn`` defaults to
-    ``dense_attention``, the only attention the port has yet; ``ops``
-    defaults to the kernels (``PLAIN_OPS`` gives the plain-autograd
-    reference)."""
+    ``auto_attention`` (the flash kernels on a CUDA device, dense
+    attention on the CPU); ``ops`` defaults to the kernels. ``PLAIN_OPS``
+    with ``flash_attention_plain`` gives the plain-autograd reference of
+    the same step."""
     check_trainable(cfg)
 
     def loss_fn(params, batch, rng=None):

@@ -1,6 +1,7 @@
 """Transformer building blocks (port of
 ``deepspeed_tpu/models/transformer.py``: the serving ops and the dense
-training block).
+training block, whose attention defaults to ``auto_attention`` — the
+flash kernels on a CUDA device, ``dense_attention`` on the CPU).
 
 Params are plain dicts of tensors; per-layer tensors are STACKED on a
 leading layer axis ``[L, ...]`` and matmul kernels are stored ``[in,
@@ -24,6 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from ..ops.flash_attention import auto_attention
 from ..ops.fused_elementwise import (bias_gelu_plain, fused_bias_gelu,
                                      fused_layer_norm,
                                      fused_residual_layer_norm, gelu_tanh,
@@ -238,13 +240,14 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """One pre-LN block (params WITHOUT the layer axis): x [B, S, H] →
     [B, S, H]. The attention residual is fused into ln2 (``res_ln``), as
     in the JAX block. ``rng`` drives the attention and hidden dropout
-    (ignored when deterministic); ``ops`` defaults to the ones
-    ``cfg.fused_kernels`` selects."""
+    (ignored when deterministic); ``attention_fn`` defaults to
+    ``auto_attention``; ``ops`` defaults to the ones ``cfg.fused_kernels``
+    selects."""
     if not (cfg.pre_layer_norm and cfg.causal):
         raise NotImplementedError("the port implements the GPT-2 block "
                                   "(pre-LN, causal)")
     ops = ops or elementwise_ops(cfg, x.device)
-    attention_fn = attention_fn or dense_attention
+    attention_fn = attention_fn or auto_attention
     eps = cfg.layer_norm_eps
     B, S, H = x.shape
     nH, dH = cfg.num_heads, cfg.head_dim

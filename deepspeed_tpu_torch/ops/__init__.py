@@ -3,7 +3,8 @@
 Importing this package builds nothing: ``op_builder`` compiles
 ``csrc/*.cu`` at the first kernel launch.
 """
-from . import fused_elementwise, fused_update, paged_attention
+from . import flash_attention, fused_elementwise, fused_update, \
+    paged_attention
 
 # The kernel wrappers whose ``.launches`` count a run's kernel launches.
 KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
@@ -13,7 +14,11 @@ KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
                    fused_elementwise.bias_gelu_backward,
                    fused_update.sqnorm,
                    fused_update.fused_adam_apply,
-                   paged_attention.paged_attention)
+                   paged_attention.paged_attention,
+                   flash_attention.flash_attention_fwd,
+                   flash_attention.flash_attention_bwd_dq,
+                   flash_attention.flash_attention_bwd_dkv,
+                   flash_attention.flash_attention_bwd_fused)
 
 
 def reset_launch_counts() -> None:

@@ -202,7 +202,9 @@ def test_decode_step_launch_counts(dev):
         "fused_layer_norm": 2 * L + 1, "fused_residual_layer_norm": 0,
         "fused_bias_gelu": L, "layer_norm_backward": 0,
         "bias_gelu_backward": 0, "sqnorm": 0, "fused_adam_apply": 0,
-        "paged_attention": L}
+        "paged_attention": L, "flash_attention_fwd": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+        "flash_attention_bwd_fused": 0}
 
 
 # --------------------------------------------------------------------- #
@@ -348,4 +350,122 @@ def test_train_batch_on_the_card_matches_the_cpu(dev):
                       "fused_bias_gelu": 2 * L,
                       "layer_norm_backward": 2 * (2 * L + 1),
                       "bias_gelu_backward": 2 * L, "sqnorm": 1,
-                      "fused_adam_apply": 1, "paged_attention": 0}
+                      "fused_adam_apply": 1, "paged_attention": 0,
+                      # S = 32 is not a multiple of 128: dense attention
+                      "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                      "flash_attention_bwd_dkv": 0,
+                      "flash_attention_bwd_fused": 0}
+
+
+# --------------------------------------------------------------------- #
+# Flash attention: K1, K2a, K2b, K2c
+# --------------------------------------------------------------------- #
+# Kernel against plain: both round p and ds to the input type at the
+# same points but at different running maxima (the kernel's online
+# softmax over 64-column tiles, the plain whole-row formula) and sum in
+# other orders; outputs within this fraction of their largest magnitude.
+FLASH_REL = {"fp32": 1e-5, "bf16": 2.0 ** -7, "fp16": 2.0 ** -9}
+
+
+def _flash_inputs(dev, dt, B, S, nH, D, seed):
+    """q, k, v as the strided split of one [B, S, 3*nH*D] projection, as
+    the model hands them over; dO contiguous."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=g).to(dt)
+    q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, dim=-1))
+    do = torch.randn(B, S, nH, D, device=dev, generator=g).to(dt)
+    return q, k, v, do
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() /
+                 b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype_name, D", [("fp32", 32), ("bf16", 64),
+                                           ("bf16", 48), ("fp16", 128)])
+def test_flash_kernels_match_plain_and_repeat_bit_equal(dev, dtype_name, D,
+                                                        causal, drop):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype_name]
+    q, k, v, do = _flash_inputs(dev, dt, 2, 256, 3, D, D + causal)
+    seed = torch.tensor(-123456789, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    tol = FLASH_REL[dtype_name]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, drop, seed)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, causal, scale, drop, seed)
+    assert _rel(o, ro) <= tol
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    delta = fa.flash_delta(do, o)
+    args = (q, k, v, do, lse, delta, causal, scale, drop, seed)
+    want = fa.flash_bwd_plain(*args)
+    got = {"fused": fa.flash_attention_bwd_fused(*args),
+           "split": (fa.flash_attention_bwd_dq(*args),
+                     *fa.flash_attention_bwd_dkv(*args))}
+    for name, grads in got.items():
+        for gk, gw in zip(grads, want):
+            assert gk.dtype == dt and gk.is_contiguous()
+            assert _rel(gk, gw) <= tol, name
+    again = (fa.flash_attention_fwd(q, k, v, causal, scale, drop, seed)[0],
+             *fa.flash_attention_bwd_fused(*args),
+             fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args))
+    first = (o, *got["fused"], *got["split"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("S, kernels", [
+    (128, {"flash_attention_fwd": 1, "flash_attention_bwd_fused": 1}),
+    (384, {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+           "flash_attention_bwd_dkv": 1})])
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev, S,
+                                                              kernels):
+    """fp32 causal flash attention with dropout through autograd: the
+    card's kernels against the CPU's plain versions, same int32 seed; the
+    fused rule picks the kernels."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = np.random.default_rng(S).standard_normal((4, 2, S, 2, 32)) \
+        .astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_()
+                  for a in x[:3]]
+        seed = torch.tensor(987654, dtype=torch.int32, device=device)
+        ops.reset_launch_counts()
+        o = fa.flash(*leaves, seed, 32 ** -0.5, True, 0.1)
+        o.backward(torch.from_numpy(x[3]).to(device))
+        torch.cuda.synchronize()
+        out[str(device)] = ([_np(o.detach())] + [_np(t.grad) for t in leaves],
+                            {n: c for n, c in ops.launch_counts().items()
+                             if c})
+    assert out["cpu"][1] == {} and out["cuda"][1] == kernels
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(),
+                                   rtol=0)
+
+
+def test_whole_prompt_serve_on_the_card_matches_the_cpu(dev):
+    """prefill_chunk: 0 at max_seq_len 128: the card prefills through the
+    flash forward (one launch per layer and admission), the CPU through
+    dense attention; greedy streams equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = gpt2_init(CFG32, torch.Generator().manual_seed(1), "cpu")
+    streams = []
+    for device in ("cpu", dev):
+        eng = _engine(params, device, prefill_chunk=0, max_seq_len=128)
+        ops.reset_launch_counts()
+        rep = eng.serve(shared_prefix_requests(6, prefix_len=16,
+                                               tail_len=(0, 6),
+                                               max_new_tokens=5, seed=0))
+        assert rep["completed"] == 6
+        streams.append([r["tokens"] for r in rep["requests"]])
+        if device != "cpu":
+            c = ops.launch_counts()
+            assert c["flash_attention_fwd"] == 6 * CFG32.num_layers
+            assert c["paged_attention"] > 0
+    assert streams[0] == streams[1]

@@ -70,12 +70,12 @@ def test_op_builder_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_op_builder_sources_cover_the_kernels():
     names = {p.name for p in op_builder.sources()}
-    assert {"fused_elementwise.cu", "paged_attention.cu"} <= names
+    assert {"flash_attention.cu", "fused_elementwise.cu", "fused_update.cu",
+            "paged_attention.cu"} <= names
 
 
 @pytest.mark.parametrize("inference, match", [
     ({"block_size": 0}, "slot-major"),
-    ({"prefill_chunk": 0}, "whole-prompt"),
     ({"quantize": "int8"}, "not ported"),
     ({"quantize": "bf16"}, "not ported"),
 ])
@@ -84,6 +84,21 @@ def test_engine_refuses_unported_layouts(inference, match):
     with pytest.raises(NotImplementedError, match=match):
         InferenceEngine(CFG32, params, config={"inference": inference},
                         device="cpu")
+
+
+def test_engine_builds_whole_prompt_prefill():
+    params = gpt2_init(CFG32, torch.Generator().manual_seed(0), "cpu")
+    eng = InferenceEngine(CFG32, params, config={"inference": {
+        "prefill_chunk": 0, "max_seq_len": 128}}, device="cpu")
+    assert eng.prefill_chunk == 0 and eng.max_len == 128
+
+
+def test_flash_layout_mode_raises_naming_slice_4():
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    q = torch.zeros(1, 128, 2, 32)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        flash_attention(q, q, q, causal=True,
+                        layout=torch.ones(2, 1, 1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("inference, fused", [

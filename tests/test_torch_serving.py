@@ -7,7 +7,12 @@ port's paged-attention function itself is held against the JAX kernel
 in tests/test_torch_paged_attention.py. Per-step prefill and decode
 logits agree within atol 1e-4; greedy token streams through ``serve()``
 are EQUAL; and in the port ``spec_k: 3`` gives the same greedy streams
-as ``spec_k: 0``.
+as ``spec_k: 0``. The same holds for whole-prompt prefill
+(``prefill_chunk: 0``: both engines share no prefix and, on the CPU,
+attend densely at max_seq_len 64). ``gpt2_prefill_full_paged`` itself,
+with flash attention on both sides (the JAX Pallas forward in interpret
+mode, the port's plain version) at T = 128, gives logits within atol
+1e-4 and written K/V pools within atol 1e-5.
 """
 import dataclasses
 
@@ -18,14 +23,18 @@ import pytest
 import torch
 
 from deepspeed_tpu.inference import InferenceEngine as JEngine
+from deepspeed_tpu.inference import decode as jdecode
 from deepspeed_tpu.inference import scheduler as jsched
 from deepspeed_tpu.models.gpt2 import GPT2_CONFIGS as JCONFIGS
 from deepspeed_tpu.models.gpt2 import gpt2_init as jgpt2_init
+from deepspeed_tpu.ops.flash_attention import flash_attention as jflash
 from deepspeed_tpu.parallel.topology import build_mesh
 from deepspeed_tpu_torch.inference import InferenceEngine as TEngine
+from deepspeed_tpu_torch.inference import decode as tdecode
 from deepspeed_tpu_torch.inference import scheduler as tsched
 from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention as tflash
 
 JCFG = dataclasses.replace(JCONFIGS["gpt2-tiny"], dtype=jnp.float32)
 TCFG = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
@@ -153,3 +162,86 @@ def test_spec_k3_streams_equal_plain(stream, params_np, port_results):
     rep, toks = _serve(eng, tsched, stream)
     assert toks == port_results[stream][1]
     assert rep["spec"]["proposed"] > 0
+
+
+# --------------------------------------------------------------------- #
+# Whole-prompt prefill (prefill_chunk: 0)
+# --------------------------------------------------------------------- #
+WHOLE = {"prefill_chunk": 0}
+
+
+@pytest.fixture(scope="module")
+def jax_whole(params_np):
+    eng = JEngine(JCFG, jax.tree_util.tree_map(jnp.asarray, params_np),
+                  config={"inference": dict(INF, paged_kernel=False,
+                                            **WHOLE)},
+                  mesh=build_mesh(devices=jax.devices()[:1]))
+    out = {"steps": _drive(eng)}
+    for s in (0, 1):
+        eng.release_slot(s)
+    for stream in STREAMS:
+        out[stream] = _serve(eng, jsched, stream)
+    eng.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_whole(params_np):
+    eng = _port_engine(params_np, **WHOLE)
+    out = {"steps": _drive(eng)}
+    for s in (0, 1):
+        eng.release_slot(s)
+    for stream in STREAMS:
+        out[stream] = _serve(eng, tsched, stream)
+    return out
+
+
+def test_whole_prompt_step_logits_match_jax(jax_whole, port_whole):
+    (jl, jt), (tl, tt) = jax_whole["steps"], port_whole["steps"]
+    assert tt == jt
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("stream", sorted(STREAMS))
+def test_whole_prompt_serve_streams_equal_jax(stream, jax_whole, port_whole,
+                                              port_results):
+    (jrep, jtoks), (trep, ttoks) = jax_whole[stream], port_whole[stream]
+    assert trep["completed"] == jrep["completed"] == len(ttoks)
+    assert ttoks == jtoks == port_results[stream][1]
+    for key in ("decode_tokens", "prefill_tokens", "iterations"):
+        assert trep[key] == jrep[key], key
+    assert trep["prefix"]["hit_rate"] == 0       # no sharing on this path
+
+
+def test_whole_prompt_engine_refuses_batched_admission(params_np):
+    eng = _port_engine(params_np, **WHOLE)
+    with pytest.raises(RuntimeError, match="chunked prefill"):
+        eng.prefill_many([(0, _prompt(5, 0), 4)])
+
+
+def test_prefill_full_paged_with_flash_matches_jax(params_np):
+    """T = 128 through flash attention on both sides; the prompt's K/V
+    land in the slot's (scattered) blocks, the padding's past the table
+    nowhere."""
+    L, bs, nB, J = JCFG.num_layers, 8, 20, 16
+    shape = (L, 1, nB, JCFG.num_heads, bs, JCFG.head_dim)
+    plen = 37
+    table = np.full((1, J), -1, np.int32)
+    table[0, :5] = [13, 2, 19, 7, 0]
+    tokens = np.zeros(128, np.int32)
+    tokens[:plen] = _prompt(plen, 4)
+    jp = jax.tree_util.tree_map(jnp.asarray, params_np)
+    jl, jk, jv = jdecode.gpt2_prefill_full_paged(
+        jp, jnp.zeros(shape), jnp.zeros(shape), jnp.asarray(tokens),
+        jnp.asarray(table), jnp.int32(plen - 1), JCFG, attention_fn=jflash)
+    kc, vc = torch.zeros(shape), torch.zeros(shape)
+    tl = tdecode.gpt2_prefill_full_paged(
+        convert.from_jax_params(params_np), kc, vc, torch.from_numpy(tokens),
+        torch.from_numpy(table), plen - 1, TCFG, attention_fn=tflash)
+    assert tl.shape == (TCFG.vocab_size,) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    for t, j in ((kc, jk), (vc, jv)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=0)
+    assert float(kc[:, 0, 1].abs().sum()) == 0   # an unowned block

@@ -4,12 +4,15 @@ the chunked cross-entropy head, the GPT-2 loss and its gradients, and
 on a one-device mesh, from the same parameters (``models/convert.py``).
 
 Both sides: dropout 0, ``attention_fn=dense_attention`` on the JAX side
-(the port's only attention), fused AdamW, WarmupLR, gradient clipping
-1.0, gas 2, 5 steps. Tolerances:
+(the port's CPU default, ``auto_attention``, is dense attention), fused
+AdamW, WarmupLR, gradient clipping 1.0, gas 2, 5 steps. Tolerances:
 
 - chunked CE: loss and both gradients within 1e-5 (fp32);
 - GPT-2 loss within 1e-5 relative, every gradient within 1e-5 of the
-  largest gradient of its leaf (fp32);
+  largest gradient of its leaf (fp32), with dense attention and — at
+  S = 128 — with flash attention on both sides (the JAX Pallas kernels in
+  interpret mode, the port's plain versions through its autograd
+  Function; measured gaps in ROADMAP §3);
 - fp32 engine, JAX kernels on (Pallas interpret): every step's loss
   within 1e-5 relative, final params within 1e-5 absolute (lr 1e-4);
 - fp16 engine from initial_scale_power 32: skipped-step count and
@@ -36,12 +39,14 @@ import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu.models.transformer import dense_attention as jdense
+from deepspeed_tpu.ops.flash_attention import flash_attention as jflash
 from deepspeed_tpu.ops import cross_entropy as jce
 from deepspeed_tpu.ops.fused_update import leaf_moment_views
 from deepspeed_tpu.parallel.topology import build_mesh
 from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops import cross_entropy as tce
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention as tflash
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten
 
 STEPS = 5
@@ -151,26 +156,37 @@ def test_chunked_cross_entropy_matches_jax():
     assert tce.pick_chunks(8192, 50304) == jce.pick_chunks(8192, 50304) == 4
 
 
-def test_gpt2_loss_and_grads_match_jax(params_np):
+def _loss_and_grads_match(params_np, batch, jattn, tattn):
     tcfg, jcfg = _cfgs("fp32")
-    batch = _batches()[0]
     jl, jg = jax.value_and_grad(
-        lambda p: jgpt2.gpt2_loss_fn(jcfg, attention_fn=jdense)(
+        lambda p: jgpt2.gpt2_loss_fn(jcfg, attention_fn=jattn)(
             p, jnp.asarray(batch), None))(
         jax.tree_util.tree_map(jnp.asarray, params_np))
     tp = convert.from_jax_params(params_np)
     leaves, _ = tree_flatten(tp)
     for t in leaves:
         t.requires_grad_()
-    loss = tgpt2.gpt2_loss_fn(tcfg)(tp, torch.from_numpy(batch), None)
+    loss = tgpt2.gpt2_loss_fn(tcfg, attention_fn=tattn)(
+        tp, torch.from_numpy(batch), None)
     grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     for g, jgl in zip(grads, jax.tree_util.tree_leaves(jg)):
         jgl = np.asarray(jgl)
         np.testing.assert_allclose(g.numpy(), jgl,
                                    atol=1e-5 * np.abs(jgl).max())
+
+
+def test_gpt2_loss_and_grads_match_jax(params_np):
+    _loss_and_grads_match(params_np, _batches()[0], jdense, None)
     assert tgpt2.gpt2_flops_per_token(tgpt2.GPT2_CONFIGS["gpt2-small"]) == \
         jgpt2.gpt2_flops_per_token(jgpt2.GPT2_CONFIGS["gpt2-small"])
+
+
+def test_gpt2_loss_and_grads_with_flash_match_jax(params_np):
+    """S = 128: the flash path on both sides (fused backward)."""
+    batch = np.random.default_rng(0).integers(0, 512, (2, 129)) \
+        .astype(np.int32)
+    _loss_and_grads_match(params_np, batch, jflash, tflash)
 
 
 def test_fp32_train_batch_matches_jax_engine(fp32_runs):
