@@ -25,10 +25,16 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    forward and the fused backward at the training shape (8 x 1024), the
    forward and the split dq / dk-dv backward at sequence 768, each with
    dropout 0 and 0.1, and the forward at the whole-prompt prefill shape
-   (1 x 1024), each also launched twice and compared bit for bit. One
-   JSON line per shape: the kernel's, the plain version's and a library
-   call's time (CUDA events), the least time the card could take
-   (``bound_ms``) and the largest error.
+   (1 x 1024), each also launched twice and compared bit for bit; then
+   the block-sparse kernels (``check_sparse``): K7, K8b, K8c and K8a at
+   the sparse path's shape (2 x 4096, 12 heads of 64, bf16, the Fixed
+   layout, causal) at tile (1, 1) with dropout 0 and 0.1 and at the
+   JAX-picked super-tile (2, 8), and on a BigBird layout (bidirectional,
+   random blocks, a layout per head) at 2 x 2048; the layout-gated K1,
+   K2a, K2b at the path's shape, and the dense causal K1 at 2 x 4096.
+   One JSON line per shape: the kernel's, the plain version's and a
+   library call's time (CUDA events), the least time the card could
+   take (``bound_ms``, over the (q, k) pairs kept) and the largest error.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
    then the same stream with ``spec_k: 3``, then with whole-prompt
@@ -55,11 +61,25 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    taken ones), the master-free bf16 path (stochastic rounding) and a
    bf16 path at sequence 768 (the split flash backward), each read on its
    own.
+5b. Train gpt2-small at sequence 4096 (gas 2 x micro-batch 2) with the
+   ds_config's block-sparse attention (Fixed unidirectional, block 128)
+   as the model's ``attention_fn``: one step against a plain-autograd
+   yardstick (the attention recomputed per layer by
+   ``torch.utils.checkpoint``), then ``train_sparse`` (the LUT kernels
+   K7/K8b/K8c, 12 steps: losses finite and falling, exact launches, step
+   ms, tokens/s, peak memory, a profile), ``train_sparse_fused``
+   (``DS_SPARSE_FUSED_BWD=1``, K8a, 3 steps), ``train_sparse_gated`` (the
+   layout as a CUDA tensor, the gated K1/K2a/K2b, 3 steps; first loss
+   within 2e-3 of train_sparse's) and ``train_flash_s4096`` (dense causal
+   flash, 5 steps), each read on its own.
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
+import os
+import random
 import re
 import subprocess
 import sys
@@ -82,8 +102,12 @@ from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops import sparse_flash as sf
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten, \
     tree_unflatten
+from deepspeed_tpu_torch.ops.sparse_attention import \
+    BigBirdSparsityConfig, SparseSelfAttention, sparse_attention
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W): HBM
 # bytes/s, the bf16 rate and the fp32 rate outside the tensor cores. The
@@ -136,6 +160,20 @@ FLASH_CASES = (("train", TRAIN_MICRO, TRAIN_SEQ, 0.0),
                ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.0),
                ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.1),
                ("prefill", 1, 1024, 0.0))
+# Block-sparse attention (slice 4): gpt2-small at sequence 4096, gas 2 x
+# micro-batch 2 (16384 tokens a step, as the main path), with the
+# ds_config's Fixed unidirectional layout of 128-blocks: 192 live blocks
+# a head of 528 causal ones, the LUT route, pick_tile (2, 8).
+SPARSE_SEQ, SPARSE_MICRO = 4096, 2
+SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
+                  "num_global_blocks": 1, "attention": "unidirectional"}
+SPARSE_STEPS, SPARSE_SIDE_STEPS, FLASH_S4096_STEPS = 12, 3, 5
+# The BigBird kernel check (bidirectional, random blocks, a layout per
+# head): batch and sequence.
+BIGBIRD_B, BIGBIRD_SEQ = 2, 2048
+# The gated path's first loss against the LUT path's, same state, batch
+# and dropout masks: the same function, tiles visited in another order.
+GATED_LOSS_TOL = 2e-3
 
 
 def emit(obj):
@@ -703,7 +741,7 @@ def _rel_err(a, b):
 
 
 def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
-                  kern, plain, lib, lib_name, **extra):
+                  kern, plain, lib, lib_name, causal=True, **extra):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) <= FLASH_REL_TOL, (kernel, case, drop, errs)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -711,7 +749,7 @@ def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
     b_ms, b_by = bound(nbytes, flops)
     rec = {"kernel": kernel, "case": case,
            "shape": {"batch": B, "heads": 12, "seq": S, "head_dim": 64,
-                     "causal": True},
+                     "causal": causal},
            "dtype": "bf16", "dropout": drop,
            "kernel_ms": time_ms(kern, iters=20, warmup=3),
            "plain_ms": time_ms(plain, iters=3, warmup=1),
@@ -807,10 +845,154 @@ def check_flash(dev, gen):
     return out
 
 
+def sparse_layout(nH, S):
+    """The ds_config section's layout, through the port's config
+    normalizer and SparseSelfAttention's layout cache."""
+    section = DeepSpeedConfig({"train_batch_size": 1, "sparse_attention":
+                               SPARSE_SECTION}).sparse_attention
+    return SparseSelfAttention.from_config(section, nH).get_layout(S)
+
+
+def check_sparse(dev, gen):
+    """K7, K8b, K8c and K8a against their plain versions (the flash plain
+    versions over the layout's element mask): at the sparse path's shape
+    (2 x 4096, the Fixed layout, causal) at tile (1, 1) with dropout 0
+    and 0.1 and at the JAX-picked super-tile with dropout 0.1, and on a
+    BigBird layout (bidirectional, random blocks, a layout per head) at
+    2 x 2048; then the layout-gated K1, K2a, K2b (the Fixed layout as a
+    CUDA tensor) at the path's shape, and the dense causal K1 at 2 x
+    4096 beside them. Each launched twice and compared bit for bit. The
+    bound counts the (q, k) pairs that the layout and the causal rule
+    keep; the library yardstick is F.scaled_dot_product_attention with
+    the boolean element mask at dropout 0, and its backward alone."""
+    nH, D, dt, out = 12, 64, torch.bfloat16, []
+    scale = D ** -0.5
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    fixed = sparse_layout(nH, SPARSE_SEQ)
+    random.seed(SEED)
+    bigbird = BigBirdSparsityConfig(
+        num_heads=nH, block=128, num_random_blocks=1,
+        different_layout_per_head=True).make_layout(BIGBIRD_SEQ)
+    pick = sf.pick_tile(fixed)
+    cases = (("sparse_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.0,
+              (1, 1)),
+             ("sparse_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.1,
+              (1, 1)),
+             ("sparse_path_supertile", fixed, SPARSE_MICRO, SPARSE_SEQ, True,
+              0.1, pick),
+             ("sparse_bigbird", bigbird, BIGBIRD_B, BIGBIRD_SEQ, False, 0.1,
+              (1, 1)),
+             ("gated_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.0, None),
+             ("gated_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.1, None),
+             ("dense_causal_s4096", None, SPARSE_MICRO, SPARSE_SEQ, True, 0.1,
+              None))
+    for case, lay, B, S, causal, drop, tile in cases:
+        qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
+        q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
+        do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
+        BH, N = B * nH, B * nH * S * D
+        keep = None if lay is None else \
+            fa.layout_element_mask(lay, S, causal, dev)
+        pairs = B * (int(keep.sum()) if keep is not None
+                     else nH * S * (S + 1) // 2)
+        lse_delta = 2 * BH * S * 4
+        extra = {"layout": None if lay is None else
+                 ("bigbird" if lay is bigbird else "fixed"),
+                 "kept_pairs": pairs, "causal": causal}
+        if tile is not None:
+            extra["tile_qwiden_widen"] = list(tile)
+        # The library call's inputs, laid out and built outside its timing.
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdo = do.transpose(1, 2).contiguous()
+        mask = None if keep is None else keep[None]
+
+        def sdpa():
+            if mask is None:
+                return F.scaled_dot_product_attention(
+                    sq, sk, sv, is_causal=True, dropout_p=drop)
+            return F.scaled_dot_product_attention(sq, sk, sv,
+                                                  attn_mask=mask)
+        lib_name = "F.scaled_dot_product_attention(is_causal=True)" \
+            if mask is None else ("F.scaled_dot_product_attention(attn_mask="
+                                  "layout and causal element mask), "
+                                  "dropout 0")
+        if case.startswith("sparse"):
+            qw, w = tile
+            fwd = lambda: sf.sparse_flash_fwd(q, k, v, lay, causal, scale,  # noqa: E731
+                                              drop, seed, w, qw)
+            plain = lambda: sf.sparse_fwd_plain(q, k, v, lay, causal,  # noqa: E731
+                                                scale, drop, seed)
+            name = "sparse_flash_fwd"
+        else:
+            glay = None if lay is None else \
+                torch.from_numpy(lay).to(dev, torch.int32)
+            fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, scale,  # noqa: E731
+                                                 drop, seed, glay)
+            plain = lambda: fa.flash_fwd_plain(q, k, v, causal, scale,  # noqa: E731
+                                               drop, seed, glay)
+            name = "flash_attention_fwd"
+        o, lse = fwd()
+        want = plain()
+        again = fwd()
+        torch.cuda.synchronize()
+        lse_err = float((lse - want[1]).abs().max())
+        assert lse_err <= FLASH_LSE_TOL, (case, drop, lse_err)
+        with torch.no_grad():
+            out.append(_flash_record(
+                name, case, B, S, drop, (o, lse), want, again,
+                4 * N * 2 + BH * S * 4, 4 * D * pairs, fwd, plain, sdpa,
+                lib_name, lse_max_abs_err=lse_err, **extra))
+        del want, again
+        if case == "dense_causal_s4096":
+            continue
+        delta = fa.flash_delta(do, o)
+        if case.startswith("sparse"):
+            args = (q, k, v, do, lse, delta, lay, causal, scale, drop, seed,
+                    w, qw)
+            plain_b = lambda: sf.sparse_bwd_plain(*args[:11])  # noqa: E731
+            kq = lambda: (sf.sparse_flash_bwd_dq(*args),)  # noqa: E731
+            kkv = lambda: sf.sparse_flash_bwd_dkv(*args)  # noqa: E731
+            names = ("sparse_flash_bwd_dq", "sparse_flash_bwd_dkv")
+        else:
+            args = (q, k, v, do, lse, delta, causal, scale, drop, seed, glay)
+            plain_b = lambda: fa.flash_bwd_plain(*args)  # noqa: E731
+            kq = lambda: (fa.flash_attention_bwd_dq(*args),)  # noqa: E731
+            kkv = lambda: fa.flash_attention_bwd_dkv(*args)  # noqa: E731
+            names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+        want = plain_b()
+        lib_out = sdpa()
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (sq, sk, sv), sdo, retain_graph=True)
+        pair = {"library_ms_pair": time_ms(lib_bwd, iters=20, warmup=3),
+                "library_pair": "the library's backward alone "
+                "(torch.autograd.grad over a built graph): dq, dk and dv"}
+        out.append(_flash_record(
+            names[0], case, B, S, drop, kq(), want[:1], kq(),
+            5 * N * 2 + lse_delta, 6 * D * pairs, kq, plain_b, None, None,
+            **pair, **extra))
+        out.append(_flash_record(
+            names[1], case, B, S, drop, kkv(), want[1:], kkv(),
+            6 * N * 2 + lse_delta, 8 * D * pairs, kkv, plain_b, None, None,
+            **pair, **extra))
+        if case.startswith("sparse"):
+            kf = lambda: sf.sparse_flash_bwd_fused(*args)  # noqa: E731
+            plan = sf.sparse_plan(lay, S, dt, causal, dev, w, qw)
+            ws = BH * plan.slots_per_head * plan.tile * D * 4
+            out.append(_flash_record(
+                "sparse_flash_bwd_fused", case, B, S, drop, kf(), want, kf(),
+                7 * N * 2 + lse_delta, 10 * D * pairs, kf, plain_b, lib_bwd,
+                "the library's backward alone (torch.autograd.grad over a "
+                "built graph)", dq_partials_workspace_bytes=ws, **extra))
+        del want, lib_out, sq, sk, sv, keep, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------- #
 # Phase 5: the training main path at gpt2-small
 # --------------------------------------------------------------------- #
-def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ):
+def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ, micro=TRAIN_MICRO):
     """Seeded learnable batches [gas*micro, S+1]: a Markov chain over a
     1024-token subset of the vocab that follows a fixed successor map
     with probability 0.9."""
@@ -818,7 +1000,7 @@ def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ):
     n = min(1024, cfg.vocab_size // 2)
     vocab = rng.choice(cfg.vocab_size, n, replace=False)
     succ = rng.permutation(n)
-    B = TRAIN_GAS * TRAIN_MICRO
+    B = TRAIN_GAS * micro
     out = []
     for _ in range(steps):
         toks = np.empty((B, seq + 1), np.int64)
@@ -831,9 +1013,9 @@ def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ):
     return out
 
 
-def train_config(precision, steps):
-    ds = {"train_batch_size": TRAIN_GAS * TRAIN_MICRO,
-          "train_micro_batch_size_per_gpu": TRAIN_MICRO,
+def train_config(precision, steps, micro=TRAIN_MICRO):
+    ds = {"train_batch_size": TRAIN_GAS * micro,
+          "train_micro_batch_size_per_gpu": micro,
           "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
           "optimizer": {"type": "AdamW", "params": {
               "lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.01}},
@@ -867,18 +1049,22 @@ def per_train_step(cfg, seq=TRAIN_SEQ):
     return c
 
 
-def make_engine(cfg, precision, seed=SEED):
+def make_engine(cfg, precision, seed=SEED, attention_fn=None,
+                micro=TRAIN_MICRO, extra=None):
     dev = torch.device("cuda")
     params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(seed))
     eng, *_ = deepspeed_tpu_torch.initialize(
-        model=gpt2_loss_fn(cfg), model_params=params,
-        config=train_config(precision, TRAIN_STEPS), rng=seed)
+        model=gpt2_loss_fn(cfg, attention_fn=attention_fn),
+        model_params=params,
+        config=dict(train_config(precision, TRAIN_STEPS, micro),
+                    **(extra or {})), rng=seed)
     return eng
 
 
-def plain_reference_step(eng, cfg, batch):
+def plain_reference_step(eng, cfg, batch,
+                         attention_fn=fa.flash_attention_plain):
     """One step's mean loss and global grad norm by plain autograd
-    (plain LayerNorm/GELU, and the flash forward's plain version, which
+    (plain LayerNorm/GELU, and the attention's plain version, which
     draws the same attention seeds) on the engine's bf16 params, its
     batch split and a copy of its generator (the same dropout masks)."""
     gen = torch.Generator(device=eng.device)
@@ -886,8 +1072,7 @@ def plain_reference_step(eng, cfg, batch):
     cast, spec = tree_flatten(eng.state.cast_params)
     leaves = [t.detach().clone().requires_grad_() for t in cast]
     tree = tree_unflatten(spec, leaves)
-    loss_fn = gpt2_loss_fn(cfg, attention_fn=fa.flash_attention_plain,
-                           ops=PLAIN_OPS)
+    loss_fn = gpt2_loss_fn(cfg, attention_fn=attention_fn, ops=PLAIN_OPS)
     acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
            for t in leaves]
     mean = 0.0
@@ -904,7 +1089,8 @@ def plain_reference_step(eng, cfg, batch):
 def profile_train_steps(eng, batches):
     """Device time by kernel group over a few train steps
     (torch.profiler), with the window's wall (ended by a sync)."""
-    groups = (("flash", ("flash_",)),
+    groups = (("sparse", ("sparse_",)),
+              ("flash", ("flash_",)),
               ("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
               ("port_kernels", ("ln_fwd_kernel", "ln_bwd_kernel",
                                 "bias_gelu", "sqnorm_kernel",
@@ -948,13 +1134,15 @@ def profile_train_steps(eng, batches):
             per[g] = per.get(g, 0.0) + ms
             top[evt.key[:80]] = (ms, evt.count / len(batches))
             launches += evt.count
-            if g in ("port_kernels", "flash"):
+            if g in ("port_kernels", "flash", "sparse"):
                 # e.g. "ln_fwd_kernel<__nv_bfloat16, true>": the device
                 # time of one launch, free of the host's enqueue cost
                 # that CUDA events around a launch loop include.
                 m = re.search(r"(ln_fwd|ln_bwd|bias_gelu|bias_gelu_bwd|"
                               r"sqnorm|fused_adam|flash_fwd|flash_bwd_dq|"
-                              r"flash_bwd_dkv|flash_bwd_fused)"
+                              r"flash_bwd_dkv|flash_bwd_fused|sparse_fwd|"
+                              r"sparse_dq|sparse_dkv|sparse_fused_bwd|"
+                              r"sparse_dq_reduce)"
                               r"_kernel(<[^()]*>)?",
                               evt.key)
                 port[m.group(0) if m else evt.key[:80]] = \
@@ -1126,6 +1314,199 @@ def train_gpt2_small(dev, smi):
 
 
 
+# --------------------------------------------------------------------- #
+# Phase 5b: the block-sparse paths at gpt2-small, sequence 4096
+# --------------------------------------------------------------------- #
+def sparse_attention_fn(layout):
+    """The ``attention_fn`` closure the JAX package builds from a
+    SparsityConfig (``sparse_attention_utils``): ``sparse_attention``
+    over ``layout`` — a host array takes the LUT kernels, a CUDA tensor
+    the layout-gated ones."""
+    def fn(q, k, v, mask=None, causal=False, attn_dropout=0.0, rng=None,
+           deterministic=True):
+        return sparse_attention(q, k, v, layout, causal=causal, mask=mask,
+                                attn_dropout=attn_dropout, rng=rng,
+                                deterministic=deterministic)
+    return fn
+
+
+def sparse_plain_fn(layout):
+    """The yardstick's sparse attention: the kernel path's seed draw,
+    then the flash forward's plain version over the layout's element
+    mask, recomputed in the backward (``torch.utils.checkpoint``; the
+    seed is drawn outside it, so the recompute sees the same masks) so
+    that no ``[B*nH, S, S]`` tensor outlives its layer: 12 layers of
+    them at 2 x 4096 would not fit the card."""
+    def fn(q, k, v, mask=None, causal=False, attn_dropout=0.0, rng=None,
+           deterministic=True):
+        drop = fa._dropout_rate(attn_dropout, rng, deterministic)
+        seed = fa.draw_seed(rng, q.device) if drop > 0.0 else None
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        return torch.utils.checkpoint.checkpoint(
+            lambda a, b, c: fa.flash_fwd_plain(a, b, c, causal, scale, drop,
+                                               seed, layout)[0],
+            q, k, v, use_reentrant=False)
+    return fn
+
+
+def per_sparse_step(cfg, route):
+    """Launches of one train step at sequence 4096: per micro-batch and
+    layer one attention forward and its backward — K7 + K8b/K8c (the
+    LUT route), K7 + K8a (DS_SPARSE_FUSED_BWD=1), the gated K1 + K2a/K2b,
+    or dense causal flash (K1 + K2a/K2b: one 1024-block does not cover
+    4096, so the JAX rule takes the split backward)."""
+    c = per_train_step(cfg, SPARSE_SEQ)
+    if route == "flash":
+        return c
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_fused"):
+        c[name] = 0
+    n = TRAIN_GAS * cfg.num_layers
+    names = {"lut": ("sparse_flash_fwd", "sparse_flash_bwd_dq",
+                     "sparse_flash_bwd_dkv"),
+             "fused": ("sparse_flash_fwd", "sparse_flash_bwd_fused"),
+             "gated": ("flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv")}[route]
+    c.update({name: n for name in names})
+    return c
+
+
+def train_sparse(dev, smi):
+    """gpt2-small at sequence 4096 through ``initialize`` → ``train_batch``
+    with the ds_config's sparse attention: a yardstick step against plain
+    autograd, then the paths, each read on its own — train_sparse (LUT
+    kernels, 12 steps), train_sparse_fused (DS_SPARSE_FUSED_BWD=1, 3
+    steps), train_sparse_gated (the layout as a CUDA tensor, 3 steps) —
+    and train_flash_s4096 (dense causal flash, 5 steps) beside them."""
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-small"],
+                              max_seq_length=SPARSE_SEQ)
+    layout = sparse_layout(cfg.num_heads, SPARSE_SEQ)
+    extra = {"sparse_attention": SPARSE_SECTION}
+    batches = token_stream(cfg, SPARSE_STEPS, seq=SPARSE_SEQ,
+                           micro=SPARSE_MICRO)
+    tokens_per_step = TRAIN_GAS * SPARSE_MICRO * SPARSE_SEQ
+    L, H, S = cfg.num_layers, cfg.hidden_size, SPARSE_SEQ
+    keys_per_query = float(fa.layout_element_mask(layout, S, True, dev)
+                           .sum()) / (cfg.num_heads * S)
+    flops_dense = gpt2_flops_per_token(cfg, S)
+    flops_sparse = flops_dense - 12.0 * L * H * (S - keys_per_query)
+    counts, out = {}, {}
+
+    def engine(attention_fn, with_section=True):
+        return make_engine(cfg, "bf16", attention_fn=attention_fn,
+                           micro=SPARSE_MICRO,
+                           extra=extra if with_section else None)
+
+    def finish(eng):
+        del eng
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # LUT route: yardstick step, then the main sparse path.
+    eng = engine(sparse_attention_fn(layout))
+    assert eng.config.sparse_attention["block"] == 128, \
+        eng.config.sparse_attention
+    ref_loss, ref_norm = plain_reference_step(eng, cfg, batches[0],
+                                              sparse_plain_fn(layout))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, metrics, ms, counts["train_sparse"] = run_path(eng, batches)
+    k_norm = float(metrics[0]["grad_norm"])
+    check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
+             "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL,
+             "grad_norm_kernel": k_norm, "grad_norm_plain": ref_norm,
+             "grad_norm_rel": abs(k_norm - ref_norm) / ref_norm,
+             "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL}
+    emit({"train_sparse_step_vs_plain_autograd": check})
+    assert check["loss_rel"] <= TRAIN_LOSS_RTOL, check
+    assert check["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL, check
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    assert last < first, (first, last)
+    expect = per_sparse_step(cfg, "lut")
+    assert counts["train_sparse"] == {k: SPARSE_STEPS * v
+                                      for k, v in expect.items()}, \
+        counts["train_sparse"]
+    step_ms = float(np.median(ms[3:]))
+    tok_s = tokens_per_step / (step_ms / 1e3)
+    out["sparse"] = {
+        "model": "gpt2-small, max_seq_length 4096",
+        "sparse_attention": eng.config.sparse_attention,
+        "layout_live_blocks_per_head": int((layout[0] != 0).sum()),
+        "tile_qwiden_widen": list(sf.pick_tile(layout)),
+        "precision": "bf16, fp32 masters",
+        "batch": [TRAIN_GAS, SPARSE_MICRO, SPARSE_SEQ],
+        "steps": SPARSE_STEPS, "dropout": cfg.hidden_dropout,
+        "losses": losses, "loss_first4_mean": first,
+        "loss_last4_mean": last, "launches_per_step": expect,
+        "step_ms_p50": step_ms, "step_ms_all": ms, "tokens_per_s": tok_s,
+        "model_tflops_per_s": flops_dense * tok_s / 1e12,
+        "flops_per_token": flops_dense,
+        "model_tflops_per_s_kept_pairs": flops_sparse * tok_s / 1e12,
+        "flops_per_token_kept_pairs": flops_sparse,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_of": "the 12 steps (reset after the yardstick)",
+        "card": smi}
+    emit({"train_sparse_path": out["sparse"]})
+    prof = profile_train_steps(eng, batches[:2])
+    prof["card"] = smi
+    emit({"train_sparse_profile": prof})
+    finish(eng)
+
+    # The fused backward (K8a), from the same state and batches.
+    os.environ["DS_SPARSE_FUSED_BWD"] = "1"
+    try:
+        eng = engine(sparse_attention_fn(layout))
+        f_losses, _, f_ms, counts["train_sparse_fused"] = run_path(
+            eng, batches[:SPARSE_SIDE_STEPS])
+    finally:
+        del os.environ["DS_SPARSE_FUSED_BWD"]
+    finish(eng)
+
+    # The layout as a CUDA tensor: the gated K1/K2a/K2b.
+    eng = engine(sparse_attention_fn(torch.from_numpy(layout).to(
+        dev, torch.int32)))
+    g_losses, _, g_ms, counts["train_sparse_gated"] = run_path(
+        eng, batches[:SPARSE_SIDE_STEPS])
+    finish(eng)
+
+    # Dense causal flash at the same shape, beside them.
+    eng = engine(None, with_section=False)
+    d_losses, _, d_ms, counts["train_flash_s4096"] = run_path(
+        eng, batches[:FLASH_S4096_STEPS])
+    d_prof = profile_train_steps(eng, batches[:2])
+    d_prof["card"] = smi
+    finish(eng)
+
+    side = {}
+    for path, ls, t, route in (("train_sparse_fused", f_losses, f_ms, "fused"),
+                               ("train_sparse_gated", g_losses, g_ms,
+                                "gated"),
+                               ("train_flash_s4096", d_losses, d_ms, "flash")):
+        want = per_sparse_step(cfg, route)
+        side[path] = {"steps": len(ls), "losses": ls,
+                      "first_loss_rel_to_train_sparse":
+                      abs(ls[0] - losses[0]) / abs(losses[0]),
+                      "step_ms_p50": float(np.median(t[1:])),
+                      "step_ms_all": t, "launches_per_step": want,
+                      "card": smi}
+        assert all(math.isfinite(l) for l in ls), (path, ls)
+        assert counts[path] == {k: len(ls) * v for k, v in want.items()}, \
+            (path, counts[path])
+    side["train_flash_s4096"]["profile"] = d_prof
+    emit({"train_sparse_side_paths": side,
+          "step_ms_p50_sparse_vs_flash": [
+              step_ms, side["train_flash_s4096"]["step_ms_p50"]]})
+    # The same function from the same state, batch and masks: the gated
+    # and the fused paths' first losses against the LUT path's.
+    for path in ("train_sparse_fused", "train_sparse_gated"):
+        rel = side[path]["first_loss_rel_to_train_sparse"]
+        assert rel <= GATED_LOSS_TOL, (path, rel)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1146,7 +1527,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     op_builder.load(verbose=True)
     emit({"build_s": time.perf_counter() - t0,
           "library": str(op_builder.build())})
@@ -1161,6 +1542,7 @@ def main():
     sq = check_sqnorm(dev, gen, n_params)
     adam = check_fused_adam(dev, gen, n_params)
     flash = check_flash(dev, gen)
+    sparse = check_sparse(dev, gen)
     torch.cuda.synchronize()
 
     serve_counts, _ = serve_gpt2_small(dev)
@@ -1168,6 +1550,7 @@ def main():
     counts = {"whole_prompt" if k == "whole" else f"spec_k={k}": c
               for k, c in serve_counts.items()}
     counts.update(train_gpt2_small(dev, smi))
+    counts.update(train_sparse(dev, smi))
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
@@ -1182,7 +1565,8 @@ def main():
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "shape": rec["shape"],
                 "ms_by_shape": [[r["shape"], r.get("residual", r.get(
-                    "flags", r.get("dropout"))), r["kernel_ms"]]
+                    "flags", r.get("dropout"))), r["kernel_ms"]] +
+                    ([r["case"], r["max_err"]] if "case" in r else [])
                     for r in recs], **pair}
 
     fe_src = "deepspeed_tpu_torch/csrc/fused_elementwise.cu"
@@ -1211,17 +1595,31 @@ def main():
     ]
     # Flash rows: the main training path's record (dropout 0.1) first.
     fl_src = "deepspeed_tpu_torch/csrc/flash_attention.cu"
+    # (the gated mode's and the dense 2 x 4096 records join ms_by_shape)
     for wrapper, line, case in (
             ("flash_attention_fwd", 167, "train"),
             ("flash_attention_bwd_dq", 378, "train_split"),
             ("flash_attention_bwd_dkv", 425, "train_split"),
             ("flash_attention_bwd_fused", 482, "train")):
-        recs = [r for r in flash if r["kernel"] == wrapper]
+        recs = [r for r in flash + sparse if r["kernel"] == wrapper]
         main_rec = [r for r in recs if r["case"] == case and
                     r["dropout"] > 0][0]
         kernels.append(summary(wrapper, fl_src,
                                ref + f"flash_attention.py:{line}",
                                (wrapper,), main_rec, recs))
+    # Sparse rows: the path's record (JAX-picked super-tile, dropout 0.1).
+    for wrapper, line in (("sparse_flash_fwd", 114),
+                          ("sparse_flash_bwd_dq", 171),
+                          ("sparse_flash_bwd_dkv", 294),
+                          ("sparse_flash_bwd_fused", 219)):
+        recs = [r for r in sparse if r["kernel"] == wrapper]
+        main_rec = [r for r in recs
+                    if r["case"] == "sparse_path_supertile"][0]
+        kernels.append(summary(wrapper, "deepspeed_tpu_torch/csrc/"
+                               "sparse_flash.cu",
+                               ref + f"sparse_flash.py:{line}", (wrapper,),
+                               main_rec, recs))
+    emit({"smoke_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,

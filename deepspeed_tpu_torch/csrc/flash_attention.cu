@@ -6,8 +6,12 @@
 //   _bwd_dq_kernel    (K2a) -> flash_bwd_dq_kernel
 //   _bwd_dkv_kernel   (K2b) -> flash_bwd_dkv_kernel
 //   _bwd_fused_kernel (K2c) -> flash_bwd_fused_kernel
-// The layout-gated (block-sparse) mode of those kernels is not here: it
-// serves only the sparse attention, which is ported with K7/K8.
+// K1, K2a and K2b also run the layout-gated (block-sparse) mode of the
+// TPU kernels: with a layout (int32 [nH, nb, nb], a block of S/nb
+// elements a side), a tile pair whose enclosing layout block is 0 is
+// skipped. The sparse attention takes that mode for a layout it cannot
+// read on the host (a device tensor) or whose lookup tables do not fit;
+// the fused K2c takes no layout, as in the JAX package.
 //
 // Layouts. q, k, v are read through strides straight from the model's
 // [B, S, nH, D] views (the split of the fused QKV projection): element
@@ -23,7 +27,8 @@
 // of q/k/v/o, so the tensor-core rate bounds them, and the exponentials
 // (~50 M per pass, on the SFUs) take about as long as the products.
 //
-// Design. The TPU grid walks k-blocks sequentially and carries the
+// Design (the tile steps live in flash_tiles.cuh, shared with the sparse
+// kernels). The TPU grid walks k-blocks sequentially and carries the
 // softmax state in VMEM scratch; CUDA blocks run in no order, so each
 // block owns one q-tile (forward, dq) or one k-tile (dk/dv) and loops
 // over the other axis itself, only as far as the causal diagonal. Tiles
@@ -41,323 +46,43 @@
 // workspace only this block touches, then casts it. No kernel uses
 // atomics, so two launches on the same inputs give the same bits. This
 // is the simple form: no TMA, no wgmma, no software pipelining.
-#include <cstdint>
-#include <type_traits>
-
-#include <mma.h>
-
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 using namespace dstt;
+using namespace dstt::flash;
 
 namespace {
 
-constexpr int kThreads = 128;       // forward, dq, dk/dv
 constexpr int kFusedThreads = 256;  // fused backward: one block per head
-constexpr int kMaxSmem = 227 * 1024;
 
+// Whether the layout gate lets the (q-tile qt, k-tile kt) pair of head bh
+// run (always, ungated).
 template <typename T>
-constexpr bool kScalar = std::is_same<T, float>::value;
-
-// Tile edge (query rows = key columns per tile).
-template <typename T>
-constexpr int kTile = kScalar<T> ? 32 : 64;
-
-// Row pitch of a [tile][tile] score tile and of a [tile][D] tile, in
-// elements: multiples of 8, as wmma wants for 16-bit and fp32 tiles.
-template <typename T>
-constexpr int kLds = kTile<T> + 8;
-__host__ __device__ constexpr int ldd(int D) { return D + 8; }
-
-__host__ __device__ constexpr size_t rup(size_t x) {
-  return (x + 127) & ~static_cast<size_t>(127);
+__device__ __forceinline__ bool gate_open(const Args& a, int bh, int qt,
+                                          int kt) {
+  if (a.layout == nullptr) return true;
+  const int per = a.lay_block / kTile<T>;
+  const int h = bh % a.nH;
+  return a.layout[(static_cast<long long>(h) * a.lay_nb + qt / per) *
+                      a.lay_nb + kt / per] != 0;
 }
-
-// Bump allocator over the block's dynamic shared memory (128-byte
-// aligned pieces, as wmma's 32-byte pointer alignment needs).
-struct Carve {
-  unsigned char* p;
-  template <typename U>
-  __device__ U* take(size_t n) {
-    U* r = reinterpret_cast<U*>(p);
-    p += rup(n * sizeof(U));
-    return r;
-  }
-};
-
-// The regenerable dropout decision of _dropout_keep: murmur3 finalizer
-// over qpos * 0x9E3779B9 + kpos + (seed ^ bh * 0x85EBCA6B), uint32
-// wraparound; keep iff the top 24 bits as a [0, 1) float >= rate.
-__device__ __forceinline__ bool keep_elem(uint32_t stream, uint32_t qpos,
-                                          uint32_t kpos, float rate) {
-  uint32_t x = qpos * 0x9E3779B9u + kpos;
-  x += stream;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  const float u = static_cast<float>(static_cast<int>(x >> 8)) *
-                  (1.0f / 16777216.0f);
-  return u >= rate;
-}
-
-__device__ __forceinline__ uint32_t hash_stream(const int* seed, int bh,
-                                                bool drop) {
-  return drop ? (static_cast<uint32_t>(seed[0]) ^
-                 (static_cast<uint32_t>(bh) * 0x85EBCA6Bu))
-              : 0u;
-}
-
-// C[M][N] (fp32, pitch ldc) = (acc ? C : 0) + op(A) * op(B), op(A) M x K
-// and op(B) K x N. A is stored [M][K] (pitch lda), or [K][M] when TA; B
-// is stored [K][N], or [N][K] when TB. M, N, K are multiples of 16. The
-// whole block calls it; each warp owns 16 x 16 output tiles. C may be in
-// shared or global memory.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
-                                        int ldb, float* C, int ldc, int M,
-                                        int N, int K, bool acc) {
-  if constexpr (kScalar<T>) {
-    for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
-      const int i = idx / N;
-      const int j = idx - i * N;
-      float s = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < K; ++kk) {
-        const float a = TA ? A[kk * lda + i] : A[i * lda + kk];
-        const float b = TB ? B[j * ldb + kk] : B[kk * ldb + j];
-        s = fmaf(a, b, s);
-      }
-      C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
-    }
-  } else {
-    using namespace nvcuda;
-    using LA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
-    using LB = std::conditional_t<TB, wmma::col_major, wmma::row_major>;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const int nt = N / 16;
-    for (int f = warp; f < (M / 16) * nt; f += nwarps) {
-      const int i = (f / nt) * 16;
-      const int j = (f - (f / nt) * nt) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (acc)
-        wmma::load_matrix_sync(c, C + i * ldc + j, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> b;
-        wmma::load_matrix_sync(a, TA ? A + kk * lda + i : A + i * lda + kk,
-                               lda);
-        wmma::load_matrix_sync(b, TB ? B + j * ldb + kk : B + kk * ldb + j,
-                               ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + i * ldc + j, c, ldc, wmma::mem_row_major);
-    }
-  }
-}
-
-// R rows of D elements from global (row stride `stride` elements) into
-// shared memory (pitch ld), 16 bytes per thread and step.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long stride, int R, int D) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = D / V;
-  for (int idx = threadIdx.x; idx < R * per_row; idx += blockDim.x) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * V;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c);
-  }
-}
-
-__device__ __forceinline__ void fill(float* p, int n, float v) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = v;
-}
-
-// Shared bytes of each kernel (host and device agree on the carve-up).
-template <typename T>
-size_t fwd_smem(int D) {
-  constexpr int t = kTile<T>, ls = kLds<T>;
-  return 3 * rup(t * ldd(D) * sizeof(T)) + rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : rup(t * ls * sizeof(T))) +
-         rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
-}
-
-template <typename T>
-size_t dq_smem(int D) {
-  constexpr int t = kTile<T>, ls = kLds<T>;
-  return 4 * rup(t * ldd(D) * sizeof(T)) + 2 * rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : rup(t * ls * sizeof(T))) +
-         rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
-}
-
-template <typename T>
-size_t dkv_smem(int D) {  // also the fused backward's
-  constexpr int t = kTile<T>, ls = kLds<T>;
-  return 4 * rup(t * ldd(D) * sizeof(T)) + 2 * rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : 2 * rup(t * ls * sizeof(T))) +
-         2 * rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
-}
-
-// Common launch arguments.
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  long long sB, sS, sH;  // q/k/v strides (elements)
-  const void* dout;      // contiguous [B, S, nH, D]
-  float* lse;            // [B*nH, S]
-  const float* delta;    // [B*nH, S]
-  void* o;               // forward output
-  void* dq;
-  void* dk;
-  void* dv;
-  float* dq_ws;          // fused: fp32 [B*nH, S, D]
-  const int* seed;
-  int nH, S, D;
-  float scale, rate, inv_keep;
-  int causal;
-};
-
-// Offsets of one (b, n) head: strided q/k/v, contiguous [B, S, nH, D].
-struct Head {
-  long long in, out;
-  long long out_stride;
-  __device__ Head(const Args& a, int bh) {
-    const int b = bh / a.nH;
-    const int n = bh - b * a.nH;
-    in = static_cast<long long>(b) * a.sB + static_cast<long long>(n) * a.sH;
-    out = (static_cast<long long>(b) * a.S * a.nH + n) * a.D;
-    out_stride = static_cast<long long>(a.nH) * a.D;
-  }
-};
 
 // --------------------------------------------------------------------- //
 // K1: forward
 // --------------------------------------------------------------------- //
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
-  constexpr int t = kTile<T>, LS = kLds<T>;
-  const int D = a.D, LD = ldd(D);
+  constexpr int t = kTile<T>;
   // Long causal rows first: q-tiles run in reverse launch order.
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(t * LD);
-  T* Ks = cv.take<T>(t * LD);
-  T* Vs = cv.take<T>(t * LD);
-  float* Ss = cv.take<float>(t * LS);
-  T* Ps;
-  if constexpr (kScalar<T>) Ps = reinterpret_cast<T*>(Ss);
-  else Ps = cv.take<T>(t * LS);
-  float* acc = cv.take<float>(t * LD);
-  float* m_s = cv.take<float>(t);
-  float* l_s = cv.take<float>(t);
-
-  const Head h(a, bh);
-  const T* q = static_cast<const T*>(a.q) + h.in;
-  const T* k = static_cast<const T*>(a.k) + h.in;
-  const T* v = static_cast<const T*>(a.v) + h.in;
-  const bool drop = a.rate > 0.f;
-  const uint32_t stream = hash_stream(a.seed, bh, drop);
-
-  load_rows(Qs, LD, q + static_cast<long long>(qi) * t * a.sS, a.sS, t, D);
-  fill(acc, t * LD, 0.f);
-  for (int r = threadIdx.x; r < t; r += blockDim.x) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
+  FwdTiles<T> sm(smem, a.D);
+  const HeadPtrs<T> hp(a, bh);
+  sm.begin(hp, qi, a.D);
   const int nk = a.causal ? qi + 1 : a.S / t;
-  for (int kj = 0; kj < nk; ++kj) {
-    __syncthreads();  // the last tile's readers of K, V and P are done
-    const long long off = static_cast<long long>(kj) * t * a.sS;
-    load_rows(Ks, LD, k + off, a.sS, t, D);
-    load_rows(Vs, LD, v + off, a.sS, t, D);
-    __syncthreads();
-    tile_mm<T, false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
-    __syncthreads();
-    // Online softmax, one warp per row: m_new, alpha, l += sum(p) of the
-    // undropped p, then the dropped p rounded to T for the PV product.
-    for (int r = warp; r < t; r += nwarps) {
-      const int qpos = qi * t + r;
-      float sv[t / 32];
-      float mx = kNegInf;
-#pragma unroll
-      for (int u = 0; u < t / 32; ++u) {
-        const int c = lane + 32 * u;
-        float x = Ss[r * LS + c] * a.scale;
-        if (a.causal && kj * t + c > qpos) x = kNegInf;
-        sv[u] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < t / 32; ++u) {
-        const int c = lane + 32 * u;
-        float p = expf(sv[u] - m_new);
-        psum += p;
-        if (drop)
-          p = keep_elem(stream, qpos, kj * t + c, a.rate) ? p * a.inv_keep
-                                                          : 0.f;
-        Ps[r * LS + c] = from_f32<T>(p);
-      }
-      psum = warp_sum(psum);
-      for (int d = lane; d < D; d += 32) acc[r * LD + d] *= alpha;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + psum;
-      }
-    }
-    __syncthreads();
-    tile_mm<T, false, false>(Ps, LS, Vs, LD, acc, LD, t, D, t, true);
-  }
-  __syncthreads();
-  T* o = static_cast<T*>(a.o) + h.out;
-  for (int idx = threadIdx.x; idx < t * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const float l = l_s[r];
-    o[static_cast<long long>(qi * t + r) * h.out_stride + d] =
-        from_f32<T>(acc[r * LD + d] / (l == 0.f ? 1.f : l));
-  }
-  for (int r = threadIdx.x; r < t; r += blockDim.x) {
-    const float l = l_s[r];
-    a.lse[static_cast<long long>(bh) * a.S + qi * t + r] =
-        m_s[r] + logf(l == 0.f ? 1.f : l);
-  }
-}
-
-// The backward's per-element step, in the (q row, k column) orientation:
-// p from the saved lse, the dropout mask applied to p (for dv) and to dp,
-// ds = p * (dp - delta) * scale. Returns (p_drop, ds).
-struct Grad {
-  float pd, ds;
-};
-__device__ __forceinline__ Grad grad_elem(const Args& a, uint32_t stream,
-                                          bool drop, int qpos, int kpos,
-                                          float s, float dp, float lse,
-                                          float delta) {
-  s *= a.scale;
-  if (a.causal && kpos > qpos) s = kNegInf;
-  const float p = expf(s - lse);
-  float pd = p;
-  if (drop) {
-    const bool keep = keep_elem(stream, qpos, kpos, a.rate);
-    pd = keep ? p * a.inv_keep : 0.f;
-    dp = keep ? dp * a.inv_keep : 0.f;
-  }
-  return {pd, p * (dp - delta) * a.scale};
+  for (int kj = 0; kj < nk; ++kj)
+    if (gate_open<T>(a, bh, qi, kj)) sm.step(a, hp, qi, kj);
+  sm.end(a, hp, qi);
 }
 
 // --------------------------------------------------------------------- //
@@ -365,69 +90,16 @@ __device__ __forceinline__ Grad grad_elem(const Args& a, uint32_t stream,
 // --------------------------------------------------------------------- //
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  constexpr int t = kTile<T>, LS = kLds<T>;
-  const int D = a.D, LD = ldd(D);
+  constexpr int t = kTile<T>;
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(t * LD);
-  T* dOs = cv.take<T>(t * LD);
-  T* Ks = cv.take<T>(t * LD);
-  T* Vs = cv.take<T>(t * LD);
-  float* Ss = cv.take<float>(t * LS);
-  float* dPs = cv.take<float>(t * LS);
-  T* dSs;
-  if constexpr (kScalar<T>) dSs = reinterpret_cast<T*>(dPs);
-  else dSs = cv.take<T>(t * LS);
-  float* dQ = cv.take<float>(t * LD);
-  float* lse_s = cv.take<float>(t);
-  float* delta_s = cv.take<float>(t);
-
-  const Head h(a, bh);
-  const T* q = static_cast<const T*>(a.q) + h.in;
-  const T* k = static_cast<const T*>(a.k) + h.in;
-  const T* v = static_cast<const T*>(a.v) + h.in;
-  const T* dout = static_cast<const T*>(a.dout) + h.out;
-  const bool drop = a.rate > 0.f;
-  const uint32_t stream = hash_stream(a.seed, bh, drop);
-
-  load_rows(Qs, LD, q + static_cast<long long>(qi) * t * a.sS, a.sS, t, D);
-  load_rows(dOs, LD, dout + static_cast<long long>(qi) * t * h.out_stride,
-            h.out_stride, t, D);
-  fill(dQ, t * LD, 0.f);
-  for (int r = threadIdx.x; r < t; r += blockDim.x) {
-    lse_s[r] = a.lse[static_cast<long long>(bh) * a.S + qi * t + r];
-    delta_s[r] = a.delta[static_cast<long long>(bh) * a.S + qi * t + r];
-  }
+  DqTiles<T> sm(smem, a.D);
+  const HeadPtrs<T> hp(a, bh);
+  sm.begin(hp, qi, a.D);
   const int nk = a.causal ? qi + 1 : a.S / t;
-  for (int kj = 0; kj < nk; ++kj) {
-    __syncthreads();
-    const long long off = static_cast<long long>(kj) * t * a.sS;
-    load_rows(Ks, LD, k + off, a.sS, t, D);
-    load_rows(Vs, LD, v + off, a.sS, t, D);
-    __syncthreads();
-    tile_mm<T, false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
-    tile_mm<T, false, true>(dOs, LD, Vs, LD, dPs, LS, t, t, D, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < t * t; idx += blockDim.x) {
-      const int r = idx / t;
-      const int c = idx - r * t;
-      const Grad g = grad_elem(a, stream, drop, qi * t + r, kj * t + c,
-                               Ss[r * LS + c], dPs[r * LS + c], lse_s[r],
-                               delta_s[r]);
-      dSs[r * LS + c] = from_f32<T>(g.ds);
-    }
-    __syncthreads();
-    tile_mm<T, false, false>(dSs, LS, Ks, LD, dQ, LD, t, D, t, true);
-  }
-  __syncthreads();
-  T* dq = static_cast<T*>(a.dq) + h.out;
-  for (int idx = threadIdx.x; idx < t * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    dq[static_cast<long long>(qi * t + r) * h.out_stride + d] =
-        from_f32<T>(dQ[r * LD + d]);
-  }
+  for (int kj = 0; kj < nk; ++kj)
+    if (gate_open<T>(a, bh, qi, kj)) sm.step(a, hp, qi, kj);
+  sm.end(a, hp, qi);
 }
 
 // --------------------------------------------------------------------- //
@@ -435,81 +107,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 // --------------------------------------------------------------------- //
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
-  constexpr int t = kTile<T>, LS = kLds<T>;
-  const int D = a.D, LD = ldd(D);
+  constexpr int t = kTile<T>;
   const int kj = blockIdx.y, bh = blockIdx.x;  // k-tile 0 has most work
   extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Ks = cv.take<T>(t * LD);
-  T* Vs = cv.take<T>(t * LD);
-  T* Qs = cv.take<T>(t * LD);
-  T* dOs = cv.take<T>(t * LD);
-  float* S2 = cv.take<float>(t * LS);
-  float* dP2 = cv.take<float>(t * LS);
-  T* P2d;
-  T* dS2;
-  if constexpr (kScalar<T>) {
-    P2d = reinterpret_cast<T*>(S2);
-    dS2 = reinterpret_cast<T*>(dP2);
-  } else {
-    P2d = cv.take<T>(t * LS);
-    dS2 = cv.take<T>(t * LS);
-  }
-  float* dK = cv.take<float>(t * LD);
-  float* dV = cv.take<float>(t * LD);
-  float* lse_s = cv.take<float>(t);
-  float* delta_s = cv.take<float>(t);
-
-  const Head h(a, bh);
-  const T* q = static_cast<const T*>(a.q) + h.in;
-  const T* k = static_cast<const T*>(a.k) + h.in;
-  const T* v = static_cast<const T*>(a.v) + h.in;
-  const T* dout = static_cast<const T*>(a.dout) + h.out;
-  const bool drop = a.rate > 0.f;
-  const uint32_t stream = hash_stream(a.seed, bh, drop);
-
-  const long long koff = static_cast<long long>(kj) * t * a.sS;
-  load_rows(Ks, LD, k + koff, a.sS, t, D);
-  load_rows(Vs, LD, v + koff, a.sS, t, D);
-  fill(dK, t * LD, 0.f);
-  fill(dV, t * LD, 0.f);
+  DkvTiles<T> sm(smem, a.D);
+  const HeadPtrs<T> hp(a, bh);
+  sm.begin(hp, kj, a.D);
   const int nq = a.S / t;
-  for (int qi = a.causal ? kj : 0; qi < nq; ++qi) {
-    __syncthreads();
-    load_rows(Qs, LD, q + static_cast<long long>(qi) * t * a.sS, a.sS, t, D);
-    load_rows(dOs, LD, dout + static_cast<long long>(qi) * t * h.out_stride,
-              h.out_stride, t, D);
-    for (int c = threadIdx.x; c < t; c += blockDim.x) {
-      lse_s[c] = a.lse[static_cast<long long>(bh) * a.S + qi * t + c];
-      delta_s[c] = a.delta[static_cast<long long>(bh) * a.S + qi * t + c];
-    }
-    __syncthreads();
-    tile_mm<T, false, true>(Ks, LD, Qs, LD, S2, LS, t, t, D, false);
-    tile_mm<T, false, true>(Vs, LD, dOs, LD, dP2, LS, t, t, D, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < t * t; idx += blockDim.x) {
-      const int r = idx / t;  // key row
-      const int c = idx - r * t;  // query column
-      const Grad g = grad_elem(a, stream, drop, qi * t + c, kj * t + r,
-                               S2[r * LS + c], dP2[r * LS + c], lse_s[c],
-                               delta_s[c]);
-      P2d[r * LS + c] = from_f32<T>(g.pd);
-      dS2[r * LS + c] = from_f32<T>(g.ds);
-    }
-    __syncthreads();
-    tile_mm<T, false, false>(P2d, LS, dOs, LD, dV, LD, t, D, t, true);
-    tile_mm<T, false, false>(dS2, LS, Qs, LD, dK, LD, t, D, t, true);
-  }
-  __syncthreads();
-  T* dk = static_cast<T*>(a.dk) + h.out;
-  T* dv = static_cast<T*>(a.dv) + h.out;
-  for (int idx = threadIdx.x; idx < t * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const long long o = static_cast<long long>(kj * t + r) * h.out_stride + d;
-    dk[o] = from_f32<T>(dK[r * LD + d]);
-    dv[o] = from_f32<T>(dV[r * LD + d]);
-  }
+  for (int qi = a.causal ? kj : 0; qi < nq; ++qi)
+    if (gate_open<T>(a, bh, qi, kj)) sm.step(a, hp, qi, kj, nullptr);
+  sm.end(a, hp, kj);
 }
 
 // --------------------------------------------------------------------- //
@@ -644,13 +251,12 @@ cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t st) {
       threads = kFusedThreads;
       break;
   }
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  if (a.layout != nullptr &&
+      (kind == kFused || a.lay_block % kTile<T> != 0 ||
+       static_cast<long long>(a.lay_nb) * a.lay_block != a.S))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -681,9 +287,13 @@ int dispatch(Kind kind, Args& a, int B, int dtype, void* stream) {
 }
 
 Args make_args(const void* q, const void* k, const void* v, long long sB,
-               long long sS, long long sH, const void* seed, int nH, int S,
+               long long sS, long long sH, const void* seed,
+               const void* layout, int lay_nb, int lay_block, int nH, int S,
                int D, float scale, float rate, float inv_keep, int causal) {
   Args a{};
+  a.layout = static_cast<const int*>(layout);
+  a.lay_nb = lay_nb;
+  a.lay_block = lay_block;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -705,12 +315,13 @@ Args make_args(const void* q, const void* k, const void* v, long long sB,
 
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
                               long long sB, long long sS, long long sH,
-                              void* o, void* lse, const void* seed, int B,
-                              int nH, int S, int D, float scale, float rate,
+                              void* o, void* lse, const void* seed,
+                              const void* layout, int lay_nb, int lay_block,
+                              int B, int nH, int S, int D, float scale, float rate,
                               float inv_keep, int causal, int dtype,
                               void* stream) {
-  Args a = make_args(q, k, v, sB, sS, sH, seed, nH, S, D, scale, rate,
-                     inv_keep, causal);
+  Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
+                     nH, S, D, scale, rate, inv_keep, causal);
   a.o = o;
   a.lse = static_cast<float*>(lse);
   return dispatch(kFwd, a, B, dtype, stream);
@@ -720,12 +331,14 @@ extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  long long sB, long long sS, long long sH,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq,
-                                 const void* seed, int B, int nH, int S,
+                                 const void* seed, const void* layout,
+                                 int lay_nb, int lay_block, int B, int nH,
+                                 int S,
                                  int D, float scale, float rate,
                                  float inv_keep, int causal, int dtype,
                                  void* stream) {
-  Args a = make_args(q, k, v, sB, sS, sH, seed, nH, S, D, scale, rate,
-                     inv_keep, causal);
+  Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
+                     nH, S, D, scale, rate, inv_keep, causal);
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);
@@ -737,12 +350,13 @@ extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, long long sB, long long sS,
                                   long long sH, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dk, void* dv, const void* seed, int B,
-                                  int nH, int S, int D, float scale,
+                                  void* dk, void* dv, const void* seed,
+                                  const void* layout, int lay_nb,
+                                  int lay_block, int B, int nH, int S, int D, float scale,
                                   float rate, float inv_keep, int causal,
                                   int dtype, void* stream) {
-  Args a = make_args(q, k, v, sB, sS, sH, seed, nH, S, D, scale, rate,
-                     inv_keep, causal);
+  Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
+                     nH, S, D, scale, rate, inv_keep, causal);
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);
@@ -760,8 +374,8 @@ extern "C" int dstt_flash_bwd_fused(const void* q, const void* k,
                                     int B, int nH, int S, int D, float scale,
                                     float rate, float inv_keep, int causal,
                                     int dtype, void* stream) {
-  Args a = make_args(q, k, v, sB, sS, sH, seed, nH, S, D, scale, rate,
-                     inv_keep, causal);
+  Args a = make_args(q, k, v, sB, sS, sH, seed, nullptr, 0, 0, nH, S, D,
+                     scale, rate, inv_keep, causal);
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);

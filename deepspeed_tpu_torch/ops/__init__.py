@@ -4,7 +4,7 @@ Importing this package builds nothing: ``op_builder`` compiles
 ``csrc/*.cu`` at the first kernel launch.
 """
 from . import flash_attention, fused_elementwise, fused_update, \
-    paged_attention
+    paged_attention, sparse_flash
 
 # The kernel wrappers whose ``.launches`` count a run's kernel launches.
 KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
@@ -18,7 +18,11 @@ KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
                    flash_attention.flash_attention_fwd,
                    flash_attention.flash_attention_bwd_dq,
                    flash_attention.flash_attention_bwd_dkv,
-                   flash_attention.flash_attention_bwd_fused)
+                   flash_attention.flash_attention_bwd_fused,
+                   sparse_flash.sparse_flash_fwd,
+                   sparse_flash.sparse_flash_bwd_dq,
+                   sparse_flash.sparse_flash_bwd_dkv,
+                   sparse_flash.sparse_flash_bwd_fused)
 
 
 def reset_launch_counts() -> None:

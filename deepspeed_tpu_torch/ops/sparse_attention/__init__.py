@@ -1,0 +1,20 @@
+"""Block-sparse attention (port of ``deepspeed_tpu/ops/sparse_attention``).
+
+The layout generators are plain numpy; the attention runs the LUT
+kernels of ``ops/sparse_flash.py`` or the layout-gated flash kernels
+(``ops/flash_attention.py``). ``SparseAttentionUtils`` (the HF module
+swap) is not ported yet.
+"""
+from .sparsity_config import (SparsityConfig, DenseSparsityConfig,
+                              FixedSparsityConfig, VariableSparsityConfig,
+                              BigBirdSparsityConfig, BSLongformerSparsityConfig)
+from .sparse_self_attention import SparseSelfAttention, sparse_attention
+from .config_factory import (normalize_sparse_attention,
+                             sparsity_config_from_dict)
+
+__all__ = [
+    "SparsityConfig", "DenseSparsityConfig", "FixedSparsityConfig",
+    "VariableSparsityConfig", "BigBirdSparsityConfig",
+    "BSLongformerSparsityConfig", "SparseSelfAttention", "sparse_attention",
+    "normalize_sparse_attention", "sparsity_config_from_dict",
+]

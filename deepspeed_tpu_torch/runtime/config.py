@@ -4,7 +4,8 @@
 Same keys, defaults and validation errors as the JAX package, so one
 ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
-scheduler, clipping, ZeRO) and, for the blocks of features it does not
+scheduler, clipping, ZeRO, the ``sparse_attention`` section) and, for
+the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
 raises ``NotImplementedError`` for each. The ``inference.slo`` block
@@ -277,6 +278,13 @@ class DeepSpeedConfig:
                                         C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = get(d, C.MEMORY_BREAKDOWN,
                                     C.MEMORY_BREAKDOWN_DEFAULT)
+        # Mode-specific defaults filled, unknown modes and keys rejected at
+        # config time, as in the JAX package; sparsity_config_from_dict()
+        # turns the dict into the layout object the attention consumes.
+        from ..ops.sparse_attention.config_factory import \
+            normalize_sparse_attention
+        self.sparse_attention = normalize_sparse_attention(
+            d.get(C.SPARSE_ATTENTION))
         self.inference_config = InferenceConfig(d)
 
     def _configure_train_batch_size(self) -> None:

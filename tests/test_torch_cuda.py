@@ -10,7 +10,10 @@ ulp floored at 1e-5 (tests/torch_cases.py), dscale/dbias 1e-5; the grad
 sum of squares relative 1e-5 (two fp32 summation orders); the fused
 Adam step bit-equal to its plain version (both round op by op), and
 the stochastic rounding equal element for element; paged attention
-atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the serving engine's
+atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the flash kernels
+(ungated and layout-gated) and the sparse LUT kernels within 1e-5 (fp32),
+2**-7 (bf16) or 2**-9 (fp16) of each output's largest magnitude and
+bit-equal across two launches; the serving engine's
 kernel path against its CPU plain path on gpt2-tiny in fp32: logits atol
 1e-4 and equal greedy streams; two gpt2-tiny fp32 training steps on the
 card against the CPU: losses and grad norms within 1e-4 relative.
@@ -34,6 +37,8 @@ from torch_cases import (ADAM_CASES, PAGED_CASES, adam_case, assert_close,
                          paged_case, ulps)
 
 pytestmark = pytest.mark.cuda
+SPARSE_ZERO = {"sparse_flash_fwd": 0, "sparse_flash_bwd_dq": 0,
+               "sparse_flash_bwd_dkv": 0, "sparse_flash_bwd_fused": 0}
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
           "fp16": torch.float16}
 CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
@@ -204,7 +209,7 @@ def test_decode_step_launch_counts(dev):
         "bias_gelu_backward": 0, "sqnorm": 0, "fused_adam_apply": 0,
         "paged_attention": L, "flash_attention_fwd": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-        "flash_attention_bwd_fused": 0}
+        "flash_attention_bwd_fused": 0, **SPARSE_ZERO}
 
 
 # --------------------------------------------------------------------- #
@@ -354,7 +359,7 @@ def test_train_batch_on_the_card_matches_the_cpu(dev):
                       # S = 32 is not a multiple of 128: dense attention
                       "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                       "flash_attention_bwd_dkv": 0,
-                      "flash_attention_bwd_fused": 0}
+                      "flash_attention_bwd_fused": 0, **SPARSE_ZERO}
 
 
 # --------------------------------------------------------------------- #
@@ -469,3 +474,156 @@ def test_whole_prompt_serve_on_the_card_matches_the_cpu(dev):
             assert c["flash_attention_fwd"] == 6 * CFG32.num_layers
             assert c["paged_attention"] > 0
     assert streams[0] == streams[1]
+
+
+# --------------------------------------------------------------------- #
+# Block-sparse attention: K7, K8a, K8b, K8c and the gated K1/K2a/K2b
+# --------------------------------------------------------------------- #
+def _layouts(nH, S, kind, seed=0):
+    import random
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    random.seed(seed)
+    if kind == "fixed":
+        return sa.FixedSparsityConfig(num_heads=nH, block=128,
+                                      num_local_blocks=2,
+                                      attention="unidirectional"
+                                      ).make_layout(S)
+    return sa.BigBirdSparsityConfig(num_heads=nH, block=128,
+                                    num_random_blocks=1,
+                                    different_layout_per_head=True
+                                    ).make_layout(S)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("kind, causal, tile", [
+    ("fixed", True, (1, 1)), ("fixed", True, (2, 2)),
+    ("bigbird", False, (1, 2)), ("bigbird", True, (2, 1))])
+@pytest.mark.parametrize("dtype_name, D", [("fp32", 32), ("bf16", 64),
+                                           ("fp16", 128)])
+def test_sparse_kernels_match_plain_and_repeat_bit_equal(
+        dev, dtype_name, D, kind, causal, tile, drop):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_flash as sf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype_name]
+    S, nH = 512, 3
+    q, k, v, do = _flash_inputs(dev, dt, 2, S, nH, D, D + causal)
+    lay = _layouts(nH, S, kind)
+    seed = torch.tensor(-123456789, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    tol = FLASH_REL[dtype_name]
+    qw, w = tile
+    o, lse = sf.sparse_flash_fwd(q, k, v, lay, causal, scale, drop, seed, w,
+                                 qw)
+    ro, rlse = sf.sparse_fwd_plain(q, k, v, lay, causal, scale, drop, seed)
+    assert _rel(o, ro) <= tol
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    delta = fa.flash_delta(do, o)
+    args = (q, k, v, do, lse, delta, lay, causal, scale, drop, seed, w, qw)
+    want = sf.sparse_bwd_plain(*args[:11])
+    got = {"fused": sf.sparse_flash_bwd_fused(*args),
+           "split": (sf.sparse_flash_bwd_dq(*args),
+                     *sf.sparse_flash_bwd_dkv(*args))}
+    for name, grads in got.items():
+        for gk, gw in zip(grads, want):
+            assert gk.dtype == dt and gk.is_contiguous()
+            assert _rel(gk, gw) <= tol, name
+    again = (sf.sparse_flash_fwd(q, k, v, lay, causal, scale, drop, seed, w,
+                                 qw)[0],
+             *sf.sparse_flash_bwd_fused(*args), sf.sparse_flash_bwd_dq(*args),
+             *sf.sparse_flash_bwd_dkv(*args))
+    first = (o, *got["fused"], *got["split"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("causal, drop", [(True, 0.1), (False, 0.0)])
+@pytest.mark.parametrize("dtype_name, D", [("fp32", 32), ("bf16", 64)])
+def test_gated_flash_kernels_match_plain_and_repeat_bit_equal(
+        dev, dtype_name, D, causal, drop):
+    """K1, K2a, K2b with a layout on the card (an empty k-column too)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype_name]
+    S, nH = 512, 3
+    q, k, v, do = _flash_inputs(dev, dt, 2, S, nH, D, D + 7)
+    lay = torch.from_numpy(_layouts(nH, S, "bigbird", 1)).to(
+        dev, torch.int32)
+    lay[:, :, 2] = 0
+    seed = torch.tensor(97531, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    tol = FLASH_REL[dtype_name]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, drop, seed, lay)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, causal, scale, drop, seed, lay)
+    assert _rel(o, ro) <= tol
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    delta = fa.flash_delta(do, o)
+    args = (q, k, v, do, lse, delta, causal, scale, drop, seed, lay)
+    want = fa.flash_bwd_plain(*args)
+    got = (fa.flash_attention_bwd_dq(*args),
+           *fa.flash_attention_bwd_dkv(*args))
+    for gk, gw in zip(got, want):
+        assert _rel(gk, gw) <= tol
+    assert not got[1][:, 256:384].any() and not got[2][:, 256:384].any()
+    again = (fa.flash_attention_fwd(q, k, v, causal, scale, drop, seed,
+                                    lay)[0],
+             fa.flash_attention_bwd_dq(*args),
+             *fa.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((o, *got), again))
+    with pytest.raises(ValueError, match="multiples"):
+        fa.flash_attention_fwd(q, k, v, causal, scale, drop, seed,
+                               torch.ones(nH, 32, 32, dtype=torch.int32,
+                                          device=dev))
+
+
+@pytest.mark.parametrize("route, env, kernels", [
+    ("lut", "0", {"sparse_flash_fwd": 1, "sparse_flash_bwd_dq": 1,
+                  "sparse_flash_bwd_dkv": 1}),
+    ("lut", "1", {"sparse_flash_fwd": 1, "sparse_flash_bwd_fused": 1}),
+    ("gated", "0", {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                    "flash_attention_bwd_dkv": 1})])
+def test_sparse_attention_autograd_on_the_card_matches_the_cpu(
+        dev, monkeypatch, route, env, kernels):
+    """fp32 causal sparse attention with dropout through autograd: the
+    LUT kernels (the split pair, or the fused backward with
+    DS_SPARSE_FUSED_BWD=1) or the gated ones on the card against the
+    CPU's plain versions, same int32 seed; ``flash_attention`` routes a
+    host layout to the LUT kernels and a CUDA one to the gated mode."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_flash as sf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setenv("DS_SPARSE_FUSED_BWD", env)
+    S = 512
+    x = np.random.default_rng(5).standard_normal((4, 2, S, 2, 32)) \
+        .astype(np.float32)
+    lay = _layouts(2, S, "fixed")
+    out = {}
+    for device in ("cpu", dev):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_()
+                  for a in x[:3]]
+        seed = torch.tensor(987654, dtype=torch.int32, device=device)
+        ops.reset_launch_counts()
+        if route == "lut":
+            o = sf.sparse_flash_attention(*leaves, lay, causal=True,
+                                          scale=32 ** -0.5, seed=seed,
+                                          dropout=0.1)
+        else:
+            o = fa.flash_sparse(*leaves, torch.from_numpy(lay).to(
+                device, torch.int32), seed, 32 ** -0.5, True, 0.1)
+        o.backward(torch.from_numpy(x[3]).to(device))
+        torch.cuda.synchronize()
+        out[str(device)] = ([_np(o.detach())] + [_np(t.grad) for t in leaves],
+                            {n: c for n, c in ops.launch_counts().items()
+                             if c})
+    assert out["cpu"][1] == {} and out["cuda"][1] == kernels
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_allclose(a, b, atol=1e-5 * np.abs(b).max(),
+                                   rtol=0)
+    q = torch.from_numpy(x[0]).to(dev)
+    ops.reset_launch_counts()
+    fa.flash_attention(q, q, q, causal=True, layout=torch.from_numpy(lay)
+                       .to(dev) if route == "gated" else lay)
+    torch.cuda.synchronize()
+    first = "flash_attention_fwd" if route == "gated" else "sparse_flash_fwd"
+    assert {n: c for n, c in ops.launch_counts().items() if c} == {first: 1}

@@ -71,7 +71,7 @@ def test_op_builder_raises_without_nvcc(monkeypatch, tmp_path):
 def test_op_builder_sources_cover_the_kernels():
     names = {p.name for p in op_builder.sources()}
     assert {"flash_attention.cu", "fused_elementwise.cu", "fused_update.cu",
-            "paged_attention.cu"} <= names
+            "paged_attention.cu", "sparse_flash.cu"} <= names
 
 
 @pytest.mark.parametrize("inference, match", [
@@ -93,12 +93,15 @@ def test_engine_builds_whole_prompt_prefill():
     assert eng.prefill_chunk == 0 and eng.max_len == 128
 
 
-def test_flash_layout_mode_raises_naming_slice_4():
+def test_flash_layout_mode_routes_and_runs():
+    """The block-sparse layout mode runs: an all-ones 128-block layout
+    takes the LUT path and equals causal flash attention."""
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention
-    q = torch.zeros(1, 128, 2, 32)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        flash_attention(q, q, q, causal=True,
-                        layout=torch.ones(2, 1, 1, dtype=torch.int32))
+    q = torch.randn(1, 256, 2, 32, generator=torch.Generator().manual_seed(0))
+    got = flash_attention(q, q, q, causal=True,
+                          layout=torch.ones(2, 2, 2, dtype=torch.int32))
+    torch.testing.assert_close(got, flash_attention(q, q, q, causal=True),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("inference, fused", [

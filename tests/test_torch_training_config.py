@@ -121,6 +121,43 @@ def test_config_parity(i):
     assert _parse(tconfig, d, world) == _parse(jconfig, d, world)
 
 
+SPARSE_SECTIONS = [
+    None,
+    {},
+    {"mode": "nonsense"},
+    {"mode": "fixed", "block": 128},
+    {"mode": "fixed", "block": 128, "num_local_blocks": 4,
+     "num_global_blocks": 1, "attention": "unidirectional"},
+    {"mode": "fixed", "num_random_blocks": 2},
+    {"mode": "dense", "block": 64},
+    {"mode": "dense", "different_layout_per_head": True},
+    {"mode": "variable", "local_window_blocks": [2, 4],
+     "global_block_end_indices": [2]},
+    {"mode": "bigbird", "num_random_blocks": 2,
+     "different_layout_per_head": True},
+    {"mode": "bigbird", "attention": "unidirectional"},
+    {"mode": "bslongformer", "global_block_indices": [0, 4]},
+    {"mode": "bslongformer", "bogus": 1},
+]
+
+
+@pytest.mark.parametrize("i", range(len(SPARSE_SECTIONS)))
+def test_sparse_attention_section_parity(i):
+    """The ``sparse_attention`` section: the same normalized dict (mode
+    defaults filled in) or the same error as the JAX package's."""
+    d = {"train_batch_size": 8}
+    if SPARSE_SECTIONS[i] is not None:
+        d["sparse_attention"] = SPARSE_SECTIONS[i]
+
+    def parse(mod):
+        try:
+            return ("ok", mod.DeepSpeedConfig(
+                json.loads(json.dumps(d))).sparse_attention)
+        except Exception as e:                  # noqa: BLE001
+            return ("error", type(e).__name__, str(e))
+    assert parse(tconfig) == parse(jconfig)
+
+
 def test_duplicate_keys_rejected_alike(tmp_path):
     p = tmp_path / "ds.json"
     p.write_text('{"train_batch_size": 8, "train_batch_size": 16}')
