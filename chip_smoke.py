@@ -31,8 +31,13 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    layout, causal) at tile (1, 1) with dropout 0 and 0.1 and at the
    JAX-picked super-tile (2, 8), and on a BigBird layout (bidirectional,
    random blocks, a layout per head) at 2 x 2048; the layout-gated K1,
-   K2a, K2b at the path's shape, and the dense causal K1 at 2 x 4096.
-   One JSON line per shape: the kernel's, the plain version's and a
+   K2a, K2b at the path's shape, and the dense causal K1 at 2 x 4096;
+   then the grouped GEMM (K9, ``check_grouped_gemm``) at the seven
+   shapes of one MoE layer and micro-batch on the MoE path (8 experts,
+   capacity 2560, 768 x 3072, bf16: the forward's up- and down-projection,
+   the backward's recompute and its four products on transposed views),
+   and the up-projection in fp32 and fp16, each launched twice and
+   compared bit for bit. One JSON line per shape: the kernel's, the plain version's and a
    library call's time (CUDA events), the least time the card could
    take (``bound_ms``, over the (q, k) pairs kept) and the largest error.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
@@ -72,6 +77,14 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    layout as a CUDA tensor, the gated K1/K2a/K2b, 3 steps; first loss
    within 2e-3 of train_sparse's) and ``train_flash_s4096`` (dense causal
    flash, 5 steps), each read on its own.
+5c. Train gpt2-small with an 8-expert top-2 MoE FFN (capacity factor
+   1.25) in every block, the ds_config ``moe`` block building the model's
+   ``MoEConfig``, at the main path's recipe: a yardstick step against
+   plain autograd (the grouped FFN's plain version), ``train_moe`` (12
+   bf16 steps: losses finite and falling, exactly 168 K9 launches a step
+   and no bias+GELU kernel, step ms, tokens/s, TFLOP/s by the routed
+   count, peak memory, drop fraction), 2 profiled steps (K9's share of
+   device time) and ``train_moe_fp16`` (3 steps), each read on its own.
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -97,9 +110,11 @@ from deepspeed_tpu_torch.inference import InferenceEngine, \
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
     gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
 from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
+from deepspeed_tpu_torch.moe import MoEConfig
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
+from deepspeed_tpu_torch.ops import grouped_gemm as gg
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import sparse_flash as sf
@@ -174,6 +189,13 @@ BIGBIRD_B, BIGBIRD_SEQ = 2, 2048
 # The gated path's first loss against the LUT path's, same state, batch
 # and dropout masks: the same function, tiles visited in another order.
 GATED_LOSS_TOL = 2e-3
+FRACTION_BITS = {"bf16": 7, "fp16": 10}
+# MoE at expert-parallel size 1 (slice 4b): gpt2-small with 8 experts,
+# top-2, capacity factor 1.25 on every block (the repo's MoE tutorial,
+# docs/tutorials/moe.md); a micro-batch of 8 x 1024 routes 8192 tokens,
+# so each expert has C = ceil(1.25 * 2 * 8192 / 8) = 2560 slots.
+MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_CAPACITY = 8, 2, 1.25, 2560
+MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 
 
 def emit(obj):
@@ -200,12 +222,13 @@ def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bf16_ulp_excess(a, b):
-    """Largest |a - b| in units of 2 bf16 ulp of the larger magnitude,
-    floored at ULP_FLOOR; at most 1.0 passes."""
+def bf16_ulp_excess(a, b, bits=7):
+    """Largest |a - b| in units of 2 ulp (of a type with ``bits``
+    fraction bits: bf16 7, fp16 10) of the larger magnitude, floored at
+    ULP_FLOOR; at most 1.0 passes."""
     a, b = a.float(), b.float()
     mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - bits)
     return float(((a - b).abs() / torch.clamp_min(2 * ulp, ULP_FLOOR)).max())
 
 
@@ -989,6 +1012,135 @@ def check_sparse(dev, gen):
     return out
 
 
+def _gg_within(a, b, dtype_name, terms):
+    """Largest |a - b| in units of the tolerance (at most 1.0 passes).
+    The kernel and the plain version both sum the K products in fp32, in
+    other orders, so they may differ by that sum's rounding noise, which
+    scales with the products' magnitudes and not with the result's:
+    ``terms`` is Σ_k |a_k·b_k| per element. Allowed: fp32 1e-5 absolute
+    and relative, or 2^-20 of ``terms``; bf16/fp16 2 ulp of the larger
+    magnitude, floored at ULP_FLOOR, or 2^-16 of ``terms`` (a bf16 ulp
+    of the sum's own scale is 2^-8 of it)."""
+    a, b, terms = a.float(), b.float(), terms.float()
+    if dtype_name == "fp32":
+        tol = torch.maximum(1e-5 + 1e-5 * b.abs(), terms * 2.0 ** -20)
+    else:
+        mag = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) -
+                         FRACTION_BITS[dtype_name])
+        tol = torch.maximum(torch.clamp_min(2 * ulp, ULP_FLOOR),
+                            terms * 2.0 ** -16)
+    return float(((a - b).abs() / tol).max())
+
+
+def _gg_cases(dev, gen):
+    """K9's seven launches in one MoE layer and micro-batch at the path's
+    shapes (8 experts, capacity 2560, hidden 768, FFN 3072), as (case, a,
+    b, bias, act): the forward's two, then the backward's recompute of
+    the pre-activation and its four products on swapped operands (views,
+    no copies). bf16, and the up-projection also in fp32 and fp16."""
+    small = GPT2_CONFIGS["gpt2-small"]
+    E, C, H, Fw = MOE_EXPERTS, MOE_CAPACITY, small.hidden_size, \
+        small.ffn_size
+    cases = []
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
+        def r(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, device=dev,
+                                        generator=gen)).to(dt)
+        x = r(E, C, H)
+        w1 = r(E, H, Fw, scale=H ** -0.5)
+        # the biases as the path hands them over: cast to the compute
+        # dtype, read as fp32
+        b1 = r(E, Fw, scale=0.1).float()
+        if dt != torch.bfloat16:
+            cases.append(("fwd_up", x, w1, b1, "gelu_tanh"))
+            continue
+        h, dy, dz = r(E, C, Fw), r(E, C, H), r(E, C, Fw, scale=0.1)
+        w2 = r(E, Fw, H, scale=Fw ** -0.5)
+        b2 = r(E, H, scale=0.1).float()
+        sw = lambda t: t.transpose(1, 2)  # noqa: E731
+        cases += [("fwd_up", x, w1, b1, "gelu_tanh"),
+                  ("fwd_down", h, w2, b2, None),
+                  ("bwd_z1", x, w1, b1, None),
+                  ("bwd_dh", dy, sw(w2), None, None),
+                  ("bwd_dw2", sw(h), dy, None, None),
+                  ("bwd_dw1", sw(x), dz, None, None),
+                  ("bwd_dx", dz, sw(w1), None, None)]
+    return cases
+
+
+def check_grouped_gemm(dev, gen):
+    """K9 against its plain version at the MoE path's shapes: the
+    pre-activation z = round(a @ b + bias) within the tolerance
+    (``_gg_within``: 2 ulp, or the fp32 sums' order noise), and with an
+    activation the output within 2 ulp of the plain epilogue of the
+    kernel's own z (a z one rounding step apart moves a GELU output by
+    the curve's slope, many ulp of a small output; the direct error is
+    recorded too); two launches bit-equal.
+    The library yardstick is ``torch.bmm``, ``torch.baddbmm`` with the
+    bias, and for the up-projection ``torch.baddbmm`` then ``F.gelu``
+    (two calls)."""
+    out = []
+    for case, a, b, bias, act in _gg_cases(dev, gen):
+        dt = a.dtype
+        name = {torch.bfloat16: "bf16", torch.float16: "fp16",
+                torch.float32: "fp32"}[dt]
+        E, M, K = a.shape
+        N = b.shape[2]
+        got = gg.grouped_matmul(a, b, bias, act)
+        again = gg.grouped_matmul(a, b, bias, act)
+        z = gg.grouped_matmul(a, b, bias) if act else got
+        z_ref = gg.grouped_matmul_plain(a, b, bias)
+        want = gg.grouped_matmul_plain(a, b, bias, act) if act else z_ref
+        terms = torch.matmul(a.float().abs(), b.float().abs())
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (case, name, "two launches differ")
+        within = _gg_within(z, z_ref, name, terms)
+        if act:
+            epi = fe.gelu_f32(z.float(), act == "gelu_exact").to(dt)
+            within = max(within, _gg_within(got, epi, name,
+                                            torch.zeros_like(terms)))
+        assert within <= 1.0, (case, name, within)
+        isz = a.element_size()
+        nbytes = (E * M * K + E * K * N + E * M * N) * isz + \
+            (0 if bias is None else E * N * 4)
+        flops = 2.0 * E * M * K * N
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S
+                           if dt == torch.float32 else BF16_FLOPS_PER_S)
+        bias_dt = None if bias is None else bias.to(dt)[:, None, :]
+        if act:
+            lib = lambda: F.gelu(torch.baddbmm(bias_dt, a, b),  # noqa: E731
+                                 approximate="tanh")
+            lib_name = "torch.baddbmm + F.gelu(approximate='tanh') " \
+                "(two calls)"
+        elif bias is not None:
+            lib = lambda: torch.baddbmm(bias_dt, a, b)  # noqa: E731
+            lib_name = "torch.baddbmm"
+        else:
+            lib = lambda: torch.bmm(a, b)  # noqa: E731
+            lib_name = "torch.bmm"
+        rec = {"kernel": "grouped_gemm", "case": case, "dtype": name,
+               "shape": [E, M, K, N], "act": act, "bias": bias is not None,
+               "strides": {"a": list(a.stride()), "b": list(b.stride())},
+               "kernel_ms": time_ms(
+                   lambda: gg.grouped_matmul(a, b, bias, act), iters=20,
+                   warmup=3),
+               "plain_ms": time_ms(
+                   lambda: gg.grouped_matmul_plain(a, b, bias, act), iters=5,
+                   warmup=1),
+               "library_ms": time_ms(lib, iters=20, warmup=3),
+               "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+               "flops": flops, "bytes": nbytes,
+               "max_err": float((got.float() - want.float()).abs().max()),
+               "max_err_z": float((z.float() - z_ref.float()).abs().max()),
+               "max_err_in_tol": within, "bit_equal_relaunch": True}
+        emit(rec)
+        out.append(rec)
+        del got, again, z, z_ref, want, terms
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------- #
 # Phase 5: the training main path at gpt2-small
 # --------------------------------------------------------------------- #
@@ -1078,6 +1230,8 @@ def plain_reference_step(eng, cfg, batch,
     mean = 0.0
     for mb in batch.to(eng.device).chunk(TRAIN_GAS):
         loss = loss_fn(tree, mb, gen)
+        if isinstance(loss, tuple):            # (loss, {"moe": stats})
+            loss = loss[0]
         grads = torch.autograd.grad(loss.float() / TRAIN_GAS, leaves)
         for a, g in zip(acc, grads):
             a.add_(g)
@@ -1091,6 +1245,7 @@ def profile_train_steps(eng, batches):
     (torch.profiler), with the window's wall (ended by a sync)."""
     groups = (("sparse", ("sparse_",)),
               ("flash", ("flash_",)),
+              ("grouped_gemm", ("grouped_gemm",)),
               ("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
               ("port_kernels", ("ln_fwd_kernel", "ln_bwd_kernel",
                                 "bias_gelu", "sqnorm_kernel",
@@ -1134,7 +1289,7 @@ def profile_train_steps(eng, batches):
             per[g] = per.get(g, 0.0) + ms
             top[evt.key[:80]] = (ms, evt.count / len(batches))
             launches += evt.count
-            if g in ("port_kernels", "flash", "sparse"):
+            if g in ("port_kernels", "flash", "sparse", "grouped_gemm"):
                 # e.g. "ln_fwd_kernel<__nv_bfloat16, true>": the device
                 # time of one launch, free of the host's enqueue cost
                 # that CUDA events around a launch loop include.
@@ -1142,7 +1297,8 @@ def profile_train_steps(eng, batches):
                               r"sqnorm|fused_adam|flash_fwd|flash_bwd_dq|"
                               r"flash_bwd_dkv|flash_bwd_fused|sparse_fwd|"
                               r"sparse_dq|sparse_dkv|sparse_fused_bwd|"
-                              r"sparse_dq_reduce)"
+                              r"sparse_dq_reduce|grouped_gemm|"
+                              r"grouped_gemm_f32)"
                               r"_kernel(<[^()]*>)?",
                               evt.key)
                 port[m.group(0) if m else evt.key[:80]] = \
@@ -1507,6 +1663,145 @@ def train_sparse(dev, smi):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# Phase 5c: MoE at expert-parallel size 1, gpt2-small 8 experts top-2
+# --------------------------------------------------------------------- #
+def moe_block():
+    return {"num_experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+            "capacity_factor": MOE_CF}
+
+
+def per_moe_step(cfg):
+    """Launches of one MoE train step: the dense step's, with every FFN
+    an expert FFN — seven K9 per layer and micro-batch (two forward, the
+    backward's recompute and four products) and no bias+GELU kernel."""
+    c = per_train_step(cfg)
+    c.update({"fused_bias_gelu": 0, "bias_gelu_backward": 0,
+              "grouped_matmul": 7 * TRAIN_GAS * cfg.num_layers})
+    return c
+
+
+def moe_flops_per_token(cfg, seq=TRAIN_SEQ):
+    """The routed count: ``gpt2_flops_per_token`` (one dense FFN a
+    token) plus the second expert's FFN, 12·L·H·F·(k−1), plus the
+    router, 6·L·H·E. Capacity padding and dropped tokens do not count."""
+    L, H = cfg.num_layers, cfg.hidden_size
+    return gpt2_flops_per_token(cfg, seq) + \
+        12.0 * L * H * cfg.ffn_size * (MOE_TOP_K - 1) + \
+        6.0 * L * H * MOE_EXPERTS
+
+
+def train_moe(dev, smi):
+    """gpt2-small with an 8-expert top-2 MoE FFN in every block (the
+    ds_config ``moe`` block → ``MoEConfig.from_ds_config``), through
+    ``initialize`` → ``train_batch``: a yardstick step against plain
+    autograd (plain LayerNorm/GELU, the plain flash forward, the grouped
+    FFN's plain version), then ``train_moe`` (bf16 with fp32 masters, 12
+    steps: losses finite and falling, exact launches, step ms, tokens/s,
+    peak memory, drop fraction), a profile of 2 steps (K9's share of
+    device time), and ``train_moe_fp16`` (3 steps, loss scale from
+    2^16), each read on its own."""
+    extra = {"moe": moe_block()}
+    ds_moe = DeepSpeedConfig(dict(train_config("bf16", MOE_STEPS),
+                                  **extra)).moe_config
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-small"],
+                              moe=MoEConfig.from_ds_config(ds_moe))
+    batches = token_stream(cfg, MOE_STEPS + MOE_PROFILE_STEPS)
+    tokens_per_step = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    flops_per_token = moe_flops_per_token(cfg)
+    expect = per_moe_step(cfg)
+    L, H, Fw = cfg.num_layers, cfg.hidden_size, cfg.ffn_size
+    k9_flops_per_step = expect["grouped_matmul"] * 2.0 * MOE_EXPERTS * \
+        MOE_CAPACITY * H * Fw
+    counts = {}
+
+    eng = make_engine(cfg, "bf16", extra=extra)
+    n_params = sum(t.numel() for t in tree_flatten(eng.state.params)[0])
+    ref_loss, ref_norm = plain_reference_step(eng, cfg, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, metrics, ms, counts["train_moe"] = run_path(
+        eng, batches[:MOE_STEPS])
+    k_norm = float(metrics[0]["grad_norm"])
+    check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
+             "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL,
+             "grad_norm_kernel": k_norm, "grad_norm_plain": ref_norm,
+             "grad_norm_rel": abs(k_norm - ref_norm) / ref_norm,
+             "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL}
+    emit({"train_moe_step_vs_plain_autograd": check})
+    assert check["loss_rel"] <= TRAIN_LOSS_RTOL, check
+    assert check["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL, check
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    assert last < first, (first, last)
+    assert counts["train_moe"] == {k: MOE_STEPS * v
+                                   for k, v in expect.items()}, \
+        counts["train_moe"]
+    drops = [float(m["moe_drop_fraction"]) for m in metrics]
+    tokens = metrics[-1]["moe_expert_tokens"].tolist()
+    assert abs(sum(tokens) - MOE_TOP_K * TRAIN_MICRO * TRAIN_SEQ) < 1e-3, \
+        tokens
+    step_ms = float(np.median(ms[3:]))
+    tok_s = tokens_per_step / (step_ms / 1e3)
+    path = {
+        "model": "gpt2-small, 8 experts top-2, capacity factor 1.25, "
+                 "moe_layer_freq 1", "parameters": n_params,
+        "precision": "bf16, fp32 masters",
+        "batch": [TRAIN_GAS, TRAIN_MICRO, TRAIN_SEQ],
+        "capacity_per_expert": MOE_CAPACITY, "steps": MOE_STEPS,
+        "dropout": cfg.hidden_dropout, "losses": losses,
+        "loss_first4_mean": first, "loss_last4_mean": last,
+        "drop_fraction": drops, "expert_tokens_last_step": tokens,
+        "aux_loss_last": float(metrics[-1]["moe_aux_loss"]),
+        "z_loss_last": float(metrics[-1]["moe_z_loss"]),
+        "launches_per_step": expect, "step_ms_p50": step_ms,
+        "step_ms_all": ms, "tokens_per_s": tok_s,
+        "model_tflops_per_s_routed": flops_per_token * tok_s / 1e12,
+        "flops_per_token_routed": flops_per_token,
+        "k9_flops_per_step": k9_flops_per_step,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_memory_of": "the 12 steps (reset after the yardstick)",
+        "card": smi}
+    emit({"train_moe_path": path})
+    prof = profile_train_steps(eng, batches[MOE_STEPS:])
+    k9_ms = prof["device_ms_per_step_by_group"].get("grouped_gemm", 0.0)
+    busy = prof["device_busy_ms_per_step"]
+    prof.update(card=smi, k9_device_ms_per_step=k9_ms,
+                k9_share_of_device_time=k9_ms / busy,
+                k9_tflops_per_s=k9_flops_per_step / (k9_ms / 1e3) / 1e12
+                if k9_ms > 0 else None)
+    emit({"train_moe_profile": prof})
+    assert k9_ms > 0, prof
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # fp16: the model computes in its config's dtype (the ds_config's
+    # fp16 block sets the params' cast and the loss scale), so the model
+    # is made fp16 too and K9 runs in half precision on the path; loss
+    # scale from 2^16.
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    eng = make_engine(cfg16, "fp16", extra=dict(
+        extra, fp16={"enabled": True, "initial_scale_power": 16}))
+    f_losses, f_metrics, f_ms, counts["train_moe_fp16"] = run_path(
+        eng, batches[:MOE_FP16_STEPS])
+    emit({"train_moe_fp16_path": {
+        "steps": MOE_FP16_STEPS, "model_dtype": str(cfg16.dtype),
+        "losses": f_losses,
+        "skipped": int(eng.state.skipped_steps),
+        "loss_scales": [float(m["loss_scale"]) for m in f_metrics],
+        "step_ms_all": f_ms, "card": smi}})
+    assert all(math.isfinite(l) for l in f_losses), f_losses
+    assert counts["train_moe_fp16"] == {k: MOE_FP16_STEPS * v
+                                        for k, v in expect.items()}
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1543,6 +1838,7 @@ def main():
     adam = check_fused_adam(dev, gen, n_params)
     flash = check_flash(dev, gen)
     sparse = check_sparse(dev, gen)
+    grouped = check_grouped_gemm(dev, gen)
     torch.cuda.synchronize()
 
     serve_counts, _ = serve_gpt2_small(dev)
@@ -1551,6 +1847,7 @@ def main():
               for k, c in serve_counts.items()}
     counts.update(train_gpt2_small(dev, smi))
     counts.update(train_sparse(dev, smi))
+    counts.update(train_moe(dev, smi))
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
@@ -1619,6 +1916,17 @@ def main():
                                "sparse_flash.cu",
                                ref + f"sparse_flash.py:{line}", (wrapper,),
                                main_rec, recs))
+    # K9: the up-projection (bias + GELU, bf16) as the row's record; the
+    # seven path shapes, fp32 and fp16 join ms_by_shape.
+    main_gg = [r for r in grouped if r["case"] == "fwd_up" and
+               r["dtype"] == "bf16"][0]
+    row = summary("grouped_gemm", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                  ref + "grouped_gemm.py:132", ("grouped_matmul",), main_gg,
+                  grouped)
+    row["ms_per_moe_layer_and_micro_batch"] = sum(
+        r["kernel_ms"] for r in grouped if r["dtype"] == "bf16")
+    kernels.append(row)
+    assert len(kernels) == 16, [k["name"] for k in kernels]
     emit({"smoke_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

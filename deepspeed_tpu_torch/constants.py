@@ -169,6 +169,34 @@ ZERO_MAX_ELEMENTS_PER_COMM = "max_elements_per_comm"
 ZERO_MAX_ELEMENTS_PER_COMM_DEFAULT = 500_000_000
 
 #############################################
+# MoE (moe/): the ``moe`` block. The engine reads it for the metrics
+# schema; the model side is TransformerConfig.moe (moe.MoEConfig, built
+# with MoEConfig.from_ds_config). The port runs expert_parallel_size 1.
+#############################################
+MOE = "moe"
+# 0 = MoE disabled (the block is inert).
+MOE_NUM_EXPERTS = "num_experts"
+MOE_NUM_EXPERTS_DEFAULT = 0
+# Router top-k (1 or 2).
+MOE_TOP_K = "top_k"
+MOE_TOP_K_DEFAULT = 2
+# Per-expert slot count C = ceil(capacity_factor * k * T / E); tokens
+# beyond capacity drop to the residual path.
+MOE_CAPACITY_FACTOR = "capacity_factor"
+MOE_CAPACITY_FACTOR_DEFAULT = 1.25
+MOE_AUX_LOSS_WEIGHT = "aux_loss_weight"
+MOE_AUX_LOSS_WEIGHT_DEFAULT = 1e-2
+MOE_Z_LOSS_WEIGHT = "z_loss_weight"
+MOE_Z_LOSS_WEIGHT_DEFAULT = 1e-3
+MOE_EXPERT_PARALLEL_SIZE = "expert_parallel_size"
+MOE_EXPERT_PARALLEL_SIZE_DEFAULT = 1
+# Parsed for ds_config parity: the port's expert FFN always runs as its
+# grouped GEMM (the kernel on a CUDA device, its plain versions on the
+# CPU); False has no CUDA path and raises there.
+MOE_GROUPED_GEMM = "grouped_gemm"
+MOE_GROUPED_GEMM_DEFAULT = "auto"
+
+#############################################
 # Blocks of features the port does not run yet. They parse to the JAX
 # package's values; the engine raises NotImplementedError when one is
 # enabled (DeepSpeedConfig.unported_features).
@@ -179,9 +207,6 @@ PLD_ENABLED_DEFAULT = False
 PIPELINE = "pipeline"
 PIPELINE_STAGES = "stages"
 PIPELINE_STAGES_DEFAULT = None
-MOE = "moe"
-MOE_NUM_EXPERTS = "num_experts"
-MOE_NUM_EXPERTS_DEFAULT = 0
 MESH = "mesh"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_PIPE_PARALLEL_SIZE = "pipe_parallel_size"

@@ -39,6 +39,10 @@ def _check_cfg(cfg: GPT2Config) -> None:
         raise NotImplementedError(
             "the incremental decode path implements the GPT-2 block "
             "(pre-LN, causal)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "the decode path has no MoE blocks (nor does the JAX "
+            "package's inference engine)")
 
 
 def _host(t) -> torch.Tensor:

@@ -4,7 +4,8 @@
 token+position embeddings → N pre-LN blocks → final LN → tied-embedding
 logits → next-token cross-entropy. ``gpt2_loss_fn`` is the training
 loss the engine differentiates (kernel-backed elementwise ops, chunked
-cross-entropy head); ``gpt2_apply`` is the plain full-sequence forward
+cross-entropy head; with ``cfg.moe`` plus the weighted MoE aux and
+z losses); ``gpt2_apply`` is the plain full-sequence forward
 on the reference ops and ``dense_attention``: the CPU tests hold it
 against the JAX ``gpt2_apply``, and ``chip_smoke.py`` holds the serving
 engine's logits against it on the card.
@@ -73,20 +74,24 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                 cfg: GPT2Config, rng: Optional[torch.Generator] = None,
                 deterministic: bool = True,
                 attention_fn: Optional[Callable] = None,
-                ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+                ops: Optional[ElementwiseOps] = None,
+                with_moe_stats: bool = False):
     """tokens [B, S] → final hidden states [B, S, H] (post ln_f).
     ``attention_fn`` defaults to ``auto_attention`` (the flash kernels on
     a CUDA device, dense attention on the CPU); ``ops`` defaults to the
-    ones ``cfg.fused_kernels`` selects."""
+    ones ``cfg.fused_kernels`` selects. ``with_moe_stats=True`` returns
+    ``(hidden, moe_stats_or_None)``."""
     ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens] + \
         params["wpe"].to(cfg.dtype)[None, :S]
-    x = apply_blocks(params["blocks"], x, cfg, rng=rng,
-                     deterministic=deterministic, attention_fn=attention_fn,
-                     ops=ops)
-    return ops.ln(x, params["ln_f_scale"], params["ln_f_bias"],
-                  cfg.layer_norm_eps)
+    out = apply_blocks(params["blocks"], x, cfg, rng=rng,
+                       deterministic=deterministic,
+                       attention_fn=attention_fn, ops=ops)
+    x, moe_stats = out if cfg.moe is not None else (out, None)
+    h = ops.ln(x, params["ln_f_scale"], params["ln_f_bias"],
+               cfg.layer_norm_eps)
+    return (h, moe_stats) if with_moe_stats else h
 
 
 def gpt2_apply(params: Dict[str, Any], tokens: torch.Tensor,
@@ -110,7 +115,12 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
     ``auto_attention`` (the flash kernels on a CUDA device, dense
     attention on the CPU); ``ops`` defaults to the kernels. ``PLAIN_OPS``
     with ``flash_attention_plain`` gives the plain-autograd reference of
-    the same step."""
+    the same step.
+
+    With ``cfg.moe`` the loss gains ``aux_loss_weight * aux_loss +
+    z_loss_weight * z_loss`` (averaged over the MoE layers) and the fn
+    returns ``(loss, {"moe": stats})``; the engine turns the stats into
+    its ``moe_*`` metrics."""
     check_trainable(cfg)
 
     def loss_fn(params, batch, rng=None):
@@ -118,17 +128,27 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
             tokens, targets = batch[0], batch[1]
         else:
             tokens, targets = batch[:, :-1], batch[:, 1:]
-        x = gpt2_hidden(params, tokens, cfg, rng=rng, deterministic=False,
-                        attention_fn=attention_fn, ops=ops)
+        x, moe_stats = gpt2_hidden(params, tokens, cfg, rng=rng,
+                                   deterministic=False,
+                                   attention_fn=attention_fn, ops=ops,
+                                   with_moe_stats=True)
         B, S = tokens.shape
-        return chunked_softmax_xent(x.reshape(B * S, -1),
+        loss = chunked_softmax_xent(x.reshape(B * S, -1),
                                     params["wte"].to(cfg.dtype),
                                     targets.reshape(-1))
+        if moe_stats is None:
+            return loss
+        moe = cfg.moe
+        loss = loss + moe.aux_loss_weight * moe_stats["aux_loss"] \
+            + moe.z_loss_weight * moe_stats["z_loss"]
+        return loss, {"moe": moe_stats}
     loss_fn.cfg = cfg
     return loss_fn
 
 
 def gpt2_num_params(cfg: GPT2Config) -> int:
+    """The dense model's parameters (one FFN a block, as in the JAX
+    package: the expert FFNs of a MoE model are not counted)."""
     H, L, F, V, S = (cfg.hidden_size, cfg.num_layers, cfg.ffn_size,
                      cfg.vocab_size, cfg.max_seq_length)
     per_block = 4 * H + 3 * H * H + 3 * H + H * H + H + 2 * H * F + F + H

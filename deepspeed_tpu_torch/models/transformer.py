@@ -1,7 +1,9 @@
 """Transformer building blocks (port of
-``deepspeed_tpu/models/transformer.py``: the serving ops and the dense
+``deepspeed_tpu/models/transformer.py``: the serving ops and the
 training block, whose attention defaults to ``auto_attention`` — the
-flash kernels on a CUDA device, ``dense_attention`` on the CPU).
+flash kernels on a CUDA device, ``dense_attention`` on the CPU — and
+whose FFN is dense, or with ``TransformerConfig.moe`` the MoE FFN of
+``moe/layer.py`` on every ``moe_layer_freq``-th block).
 
 Params are plain dicts of tensors; per-layer tensors are STACKED on a
 leading layer axis ``[L, ...]`` and matmul kernels are stored ``[in,
@@ -13,7 +15,9 @@ The elementwise ops of a block come in two sets (``ElementwiseOps``):
 ``KERNEL_OPS``, the differentiable kernel-backed ops (their plain
 versions run for CPU tensors), which the model runs; and ``PLAIN_OPS``,
 plain PyTorch differentiated by autograd — the reference that
-``gpt2_apply`` and the card's yardstick step use. ``elementwise_ops``
+``gpt2_apply`` and the card's yardstick step use. Each set carries the
+grouped expert FFN of the MoE blocks too (``grouped_ffn`` and
+``grouped_ffn_plain``). ``elementwise_ops``
 resolves ``TransformerConfig.fused_kernels``: on a CUDA device the port
 has only the kernels, so ``False`` raises there.
 """
@@ -30,12 +34,16 @@ from ..ops.fused_elementwise import (bias_gelu_plain, fused_bias_gelu,
                                      fused_layer_norm,
                                      fused_residual_layer_norm, gelu_tanh,
                                      layer_norm_plain)
+from ..ops.grouped_gemm import grouped_ffn, grouped_ffn_plain
+from ..moe.layer import (EP_UNPORTED, MOE_PARAM_KEYS, aggregate_moe_stats,
+                         moe_ffn, moe_layer_indices)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """Shared transformer hyperparameters (the JAX config's dense-model
-    subset; scan, MoE and segment-embedding knobs are not ported)."""
+    """Shared transformer hyperparameters (the JAX config's subset; the
+    scan and segment-embedding knobs are not ported: the layers run as
+    the JAX ``scan_layers=False`` program)."""
     hidden_size: int = 768
     num_heads: int = 12
     num_layers: int = 12
@@ -57,6 +65,10 @@ class TransformerConfig:
     # CUDA path in the port (the engines raise). On the CPU the kernels'
     # plain versions run whatever it says.
     fused_kernels: Any = "auto"
+    # Mixture-of-Experts: a ``moe.MoEConfig`` swaps the dense FFN for the
+    # MoE FFN on every ``moe_layer_freq``-th block (freq 1 = every block).
+    moe: Any = None
+    moe_layer_freq: int = 1
 
     @property
     def ffn_size(self) -> int:
@@ -82,6 +94,8 @@ def check_trainable(cfg: TransformerConfig) -> None:
     if not (cfg.pre_layer_norm and cfg.causal):
         raise NotImplementedError("the port implements the GPT-2 block "
                                   "(pre-LN, causal)")
+    if cfg.moe is not None and cfg.moe.expert_parallel_size > 1:
+        raise NotImplementedError(EP_UNPORTED)
 
 
 # --------------------------------------------------------------------- #
@@ -146,23 +160,28 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class ElementwiseOps(NamedTuple):
     """``ln(x, scale, bias) -> y``; ``res_ln(x, delta, scale, bias, eps)
     -> (s, y)`` with ``s = x + delta``; ``gelu_up(h, kernel, bias) ->
-    gelu(h @ kernel + bias)``. Each takes ``eps`` where it normalizes."""
+    gelu(h @ kernel + bias)``. Each takes ``eps`` where it normalizes.
+    ``expert_ffn(x, w1, b1, w2, b2, exact)``: the MoE blocks' grouped
+    expert FFN where ``MoEConfig.grouped_gemm`` selects it."""
     ln: Callable
     res_ln: Callable
     gelu_up: Callable
+    expert_ffn: Callable
 
 
 KERNEL_OPS = ElementwiseOps(
     ln=fused_layer_norm, res_ln=fused_residual_layer_norm,
     gelu_up=lambda h, kernel, bias: fused_bias_gelu(
-        torch.matmul(h, kernel.to(h.dtype)), bias))
+        torch.matmul(h, kernel.to(h.dtype)), bias),
+    expert_ffn=grouped_ffn)
 
 PLAIN_OPS = ElementwiseOps(
     ln=lambda x, scale, bias, eps: layer_norm_plain(x, None, scale, bias,
                                                     eps)[1],
     res_ln=layer_norm_plain,
     gelu_up=lambda h, kernel, bias: bias_gelu_plain(
-        torch.matmul(h, kernel.to(h.dtype)), bias))
+        torch.matmul(h, kernel.to(h.dtype)), bias),
+    expert_ffn=grouped_ffn_plain)
 
 
 def elementwise_ops(cfg: TransformerConfig,
@@ -196,8 +215,11 @@ def gelu_dense_fn(cfg: TransformerConfig) -> Callable:
 # --------------------------------------------------------------------- #
 def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
                       device: torch.device) -> Dict[str, torch.Tensor]:
-    """STACKED block params ([L, ...] on every tensor), fp32, the tree of
-    the JAX ``init_block_params`` for a dense model."""
+    """STACKED block params, fp32, the tree of the JAX
+    ``init_block_params``: [L, ...] for the attention and LayerNorm
+    tensors; with ``cfg.moe`` the FFN tensors split into a dense stack
+    ([n_dense, ...]) and an expert stack ([n_moe, E, ...]), each
+    covering only its own layers."""
     L, H, F = cfg.num_layers, cfg.hidden_size, cfg.ffn_size
     std = cfg.initializer_range
     proj_std = std / math.sqrt(2.0 * L)
@@ -212,17 +234,39 @@ def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, device=device, dtype=torch.float32)
 
-    return {
+    n_moe = 0 if cfg.moe is None else \
+        len(moe_layer_indices(L, cfg.moe_layer_freq))
+    if cfg.moe is not None and n_moe == 0:
+        raise ValueError(
+            f"cfg.moe is set but moe_layer_freq={cfg.moe_layer_freq} "
+            f"selects no MoE layer out of {L} — use freq <= num_layers "
+            "or drop cfg.moe")
+    n_dense = L - n_moe
+    params = {
         "ln1_scale": ones((L, H)), "ln1_bias": zeros((L, H)),
         "qkv_kernel": norm((L, H, 3 * H), std),
         "qkv_bias": zeros((L, 3 * H)),
         "proj_kernel": norm((L, H, H), proj_std),
         "proj_bias": zeros((L, H)),
         "ln2_scale": ones((L, H)), "ln2_bias": zeros((L, H)),
-        "fc_kernel": norm((L, H, F), std), "fc_bias": zeros((L, F)),
-        "fc_out_kernel": norm((L, F, H), proj_std),
-        "fc_out_bias": zeros((L, H)),
     }
+    if n_dense > 0:
+        params.update({
+            "fc_kernel": norm((n_dense, H, F), std),
+            "fc_bias": zeros((n_dense, F)),
+            "fc_out_kernel": norm((n_dense, F, H), proj_std),
+            "fc_out_bias": zeros((n_dense, H)),
+        })
+    if n_moe > 0:
+        E = cfg.moe.num_experts
+        params.update({
+            "router_kernel": norm((n_moe, H, E), std),
+            "moe_fc_kernel": norm((n_moe, E, H, F), std),
+            "moe_fc_bias": zeros((n_moe, E, F)),
+            "moe_out_kernel": norm((n_moe, E, F, H), proj_std),
+            "moe_out_bias": zeros((n_moe, E, H)),
+        })
+    return params
 
 
 def layer_slice(stacked: Dict[str, torch.Tensor], i: int
@@ -236,13 +280,15 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                       rng: Optional[torch.Generator] = None,
                       deterministic: bool = True,
                       attention_fn: Optional[Callable] = None,
-                      ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+                      ops: Optional[ElementwiseOps] = None):
     """One pre-LN block (params WITHOUT the layer axis): x [B, S, H] →
     [B, S, H]. The attention residual is fused into ln2 (``res_ln``), as
     in the JAX block. ``rng`` drives the attention and hidden dropout
     (ignored when deterministic); ``attention_fn`` defaults to
     ``auto_attention``; ``ops`` defaults to the ones ``cfg.fused_kernels``
-    selects."""
+    selects. With ``cfg.moe`` the FFN is the MoE FFN wherever ``p``
+    carries the expert tensors, and the block returns ``(x,
+    moe_stats_or_None)``."""
     if not (cfg.pre_layer_norm and cfg.causal):
         raise NotImplementedError("the port implements the GPT-2 block "
                                   "(pre-LN, causal)")
@@ -263,9 +309,15 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     # Fused residual-add + the FFN's LN: x continues the residual stream
     # from s, h feeds the FFN.
     x, h = ops.res_ln(x, attn, p["ln2_scale"], p["ln2_bias"], eps)
-    h = ops.gelu_up(h, p["fc_kernel"], p["fc_bias"])
-    h = dense(h, p["fc_out_kernel"], p["fc_out_bias"])
+    moe_stats = None
+    if "moe_fc_kernel" in p:
+        h, moe_stats = moe_ffn(p, h, cfg, expert_ffn=ops.expert_ffn)
+    else:
+        h = ops.gelu_up(h, p["fc_kernel"], p["fc_bias"])
+        h = dense(h, p["fc_out_kernel"], p["fc_out_bias"])
     h = dropout(h, cfg.hidden_dropout, rng, deterministic)
+    if cfg.moe is not None:
+        return x + h, moe_stats
     return x + h
 
 
@@ -274,17 +326,47 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                  rng: Optional[torch.Generator] = None,
                  deterministic: bool = True,
                  attention_fn: Optional[Callable] = None,
-                 ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+                 ops: Optional[ElementwiseOps] = None):
     """All L layers as a Python loop over the stacked leading axis (the
     JAX ``scan_layers=False`` program). Each stacked tensor is unbound
-    once, so its gradient comes back as one stack, not as L scatters."""
+    once, so its gradient comes back as one stack, not as L scatters.
+    With ``cfg.moe`` the dense and expert FFN stacks cover different
+    layers, each indexed at its own position, and the return value is
+    ``(x, moe_stats)``: the MoE layers' stats averaged over them."""
+    L = stacked["ln1_scale"].shape[0]
     per_layer = {name: t.unbind(0) for name, t in stacked.items()}
-    for i in range(stacked["ln1_scale"].shape[0]):
-        x = transformer_block({n: t[i] for n, t in per_layer.items()}, x,
-                              cfg, rng=rng,
-                              deterministic=deterministic,
-                              attention_fn=attention_fn, ops=ops)
-    return x
+    moe_layers = [] if cfg.moe is None else \
+        moe_layer_indices(L, cfg.moe_layer_freq)
+    if cfg.moe is not None and not moe_layers:
+        raise ValueError(
+            f"cfg.moe is set but moe_layer_freq={cfg.moe_layer_freq} "
+            f"selects no MoE layer out of {L}")
+    moe_pos = {li: j for j, li in enumerate(moe_layers)}
+    dense_pos = {li: j for j, li in enumerate(
+        i for i in range(L) if i not in moe_pos)}
+    ffn_keys = MOE_PARAM_KEYS | {"fc_kernel", "fc_bias", "fc_out_kernel",
+                                 "fc_out_bias"}
+    stats = []
+    for i in range(L):
+        p_i = {}
+        for name, t in per_layer.items():
+            if name not in ffn_keys:
+                p_i[name] = t[i]
+            elif name in MOE_PARAM_KEYS:
+                if i in moe_pos:
+                    p_i[name] = t[moe_pos[i]]
+            elif i in dense_pos:
+                p_i[name] = t[dense_pos[i]]
+        out = transformer_block(p_i, x, cfg, rng=rng,
+                                deterministic=deterministic,
+                                attention_fn=attention_fn, ops=ops)
+        if cfg.moe is None:
+            x = out
+            continue
+        x, st = out
+        if st is not None:
+            stats.append(st)
+    return x if cfg.moe is None else (x, aggregate_moe_stats(stats))
 
 
 __all__ = ["TransformerConfig", "check_trainable", "layer_norm", "dense",

@@ -4,7 +4,7 @@ Importing this package builds nothing: ``op_builder`` compiles
 ``csrc/*.cu`` at the first kernel launch.
 """
 from . import flash_attention, fused_elementwise, fused_update, \
-    paged_attention, sparse_flash
+    grouped_gemm, paged_attention, sparse_flash
 
 # The kernel wrappers whose ``.launches`` count a run's kernel launches.
 KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
@@ -22,7 +22,8 @@ KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
                    sparse_flash.sparse_flash_fwd,
                    sparse_flash.sparse_flash_bwd_dq,
                    sparse_flash.sparse_flash_bwd_dkv,
-                   sparse_flash.sparse_flash_bwd_fused)
+                   sparse_flash.sparse_flash_bwd_fused,
+                   grouped_gemm.grouped_matmul)
 
 
 def reset_launch_counts() -> None:

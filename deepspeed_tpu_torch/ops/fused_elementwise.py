@@ -105,6 +105,14 @@ def gelu_tanh(z: torch.Tensor) -> torch.Tensor:
     return 0.5 * z * (1.0 + torch.tanh(u))
 
 
+def gelu_f32(z: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The JAX package's ``_gelu_f32``: the erf form (``exact``) or the
+    tanh form, in z's dtype."""
+    if exact:
+        return 0.5 * z * (1.0 + torch.erf(z / math.sqrt(2.0)))
+    return gelu_tanh(z)
+
+
 def _gelu_input(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``z = y + b`` rounded to y's storage dtype, widened back."""
     acc = _acc(y.dtype)
@@ -372,4 +380,4 @@ fused_bias_gelu.launches = 0
 __all__ = ["fused_layer_norm", "fused_residual_layer_norm",
            "fused_bias_gelu", "layer_norm_backward", "bias_gelu_backward",
            "layer_norm_plain", "ln_backward_plain", "bias_gelu_plain",
-           "bias_gelu_backward_plain", "gelu_tanh"]
+           "bias_gelu_backward_plain", "gelu_tanh", "gelu_f32"]

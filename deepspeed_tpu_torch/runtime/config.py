@@ -4,7 +4,8 @@
 Same keys, defaults and validation errors as the JAX package, so one
 ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
-scheduler, clipping, ZeRO, the ``sparse_attention`` section) and, for
+scheduler, clipping, ZeRO, the ``sparse_attention`` section, the
+``moe`` block) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
@@ -162,6 +163,78 @@ class InferenceConfig:
                 f"false, or \"auto\", got {self.paged_kernel!r}")
 
 
+class MoeConfig:
+    """The ``moe`` block. ``num_experts == 0`` (the default) leaves it
+    inert. The engine reads it for the MoE metrics; build the model's
+    ``TransformerConfig.moe`` from it with ``MoEConfig.from_ds_config``.
+    Same validation and messages as the JAX package's ``MoeConfig``."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.MOE, {})
+        get = config_utils.get_scalar_param
+        self.num_experts = get(d, C.MOE_NUM_EXPERTS,
+                               C.MOE_NUM_EXPERTS_DEFAULT)
+        self.top_k = get(d, C.MOE_TOP_K, C.MOE_TOP_K_DEFAULT)
+        self.capacity_factor = get(d, C.MOE_CAPACITY_FACTOR,
+                                   C.MOE_CAPACITY_FACTOR_DEFAULT)
+        self.aux_loss_weight = get(d, C.MOE_AUX_LOSS_WEIGHT,
+                                   C.MOE_AUX_LOSS_WEIGHT_DEFAULT)
+        self.z_loss_weight = get(d, C.MOE_Z_LOSS_WEIGHT,
+                                 C.MOE_Z_LOSS_WEIGHT_DEFAULT)
+        self.expert_parallel_size = get(d, C.MOE_EXPERT_PARALLEL_SIZE,
+                                        C.MOE_EXPERT_PARALLEL_SIZE_DEFAULT)
+        self.grouped_gemm = get(d, C.MOE_GROUPED_GEMM,
+                                C.MOE_GROUPED_GEMM_DEFAULT)
+        self._validate()
+
+    def _validate(self) -> None:
+        blk = C.MOE
+        if not isinstance(self.num_experts, int) or self.num_experts < 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_NUM_EXPERTS} must be a non-negative int "
+                f"(0 = disabled), got {self.num_experts!r}")
+        if not isinstance(self.expert_parallel_size, int) or \
+                self.expert_parallel_size < 1:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_EXPERT_PARALLEL_SIZE} must be a positive "
+                f"int, got {self.expert_parallel_size!r}")
+        if self.grouped_gemm not in (True, False, "auto"):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_GROUPED_GEMM} must be true/false/"
+                f"\"auto\", got {self.grouped_gemm!r}")
+        if self.num_experts == 0:
+            if self.expert_parallel_size > 1:
+                raise DeepSpeedConfigError(
+                    f"{blk}.{C.MOE_EXPERT_PARALLEL_SIZE} > 1 needs "
+                    f"{C.MOE_NUM_EXPERTS} > 0")
+            return
+        if self.top_k not in (1, 2):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_TOP_K} must be 1 or 2, got {self.top_k!r}")
+        if self.top_k > self.num_experts:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_TOP_K}={self.top_k} exceeds "
+                f"{C.MOE_NUM_EXPERTS}={self.num_experts}")
+        cf = self.capacity_factor
+        if isinstance(cf, bool) or not isinstance(cf, (int, float)) or \
+                not cf > 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_CAPACITY_FACTOR} must be a positive "
+                f"number (inf = never drop), got {cf!r}")
+        for name, v in ((C.MOE_AUX_LOSS_WEIGHT, self.aux_loss_weight),
+                        (C.MOE_Z_LOSS_WEIGHT, self.z_loss_weight)):
+            if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                    or v < 0:
+                raise DeepSpeedConfigError(
+                    f"{blk}.{name} must be a non-negative number, "
+                    f"got {v!r}")
+        if self.num_experts % self.expert_parallel_size != 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.MOE_NUM_EXPERTS}={self.num_experts} not "
+                f"divisible by {C.MOE_EXPERT_PARALLEL_SIZE}="
+                f"{self.expert_parallel_size}")
+
+
 class DeepSpeedConfig:
     """The training ds_config: a JSON path or a parsed dict.
 
@@ -286,6 +359,7 @@ class DeepSpeedConfig:
         self.sparse_attention = normalize_sparse_attention(
             d.get(C.SPARSE_ATTENTION))
         self.inference_config = InferenceConfig(d)
+        self.moe_config = MoeConfig(d)
 
     def _configure_train_batch_size(self) -> None:
         """Solve train_batch = micro_batch * grad_accum * world."""
@@ -376,8 +450,9 @@ class DeepSpeedConfig:
              (mesh.get(C.MESH_SEQUENCE_PARALLEL_SIZE) or 1) > 1,
              "tensor/sequence parallelism",
              "slice 6: parallel axes and comm extras"),
-            ((d.get(C.MOE, {}).get(C.MOE_NUM_EXPERTS) or 0) > 0,
-             "moe", "slice 4: MoE (K9)"),
+            (self.moe_config.expert_parallel_size > 1,
+             "moe.expert_parallel_size > 1",
+             "slice 6: parallel axes and comm extras"),
             (bool(ckpt.get(C.CHECKPOINT_ASYNC, C.CHECKPOINT_ASYNC_DEFAULT))
              or (ckpt.get(C.CHECKPOINT_SNAPSHOT_EVERY) or 0) > 0,
              "checkpoint (async / snapshot_every)", "slice 6: checkpointing"),

@@ -10,7 +10,10 @@ clip coefficient, Adam, overflow skip and the cast-copy refresh); then
 the overflow bookkeeping and the dynamic loss scale. Every quantity of
 the step stays a device tensor, so an iteration issues no host sync:
 ``train_batch`` returns the loss as a 0-dim tensor and the metrics dict
-(``last_metrics``) holds tensors.
+(``last_metrics``) holds tensors. With a ``moe`` block the loss_fn's MoE
+stats, averaged over the micro-batches, join the metrics as
+``moe_expert_tokens``, ``moe_drop_fraction``, ``moe_aux_loss`` and
+``moe_z_loss``.
 
 State. The parameters live in one contiguous flat buffer per dtype
 group (fp32 masters, or bf16 with ``bf16.stochastic_rounding``), each
@@ -26,11 +29,12 @@ buffers, never accumulated by autograd in a bf16 ``.grad``.
 What the port does not run yet raises ``NotImplementedError`` at
 construction, naming the ROADMAP slice that brings it: more than one
 card, ZeRO stage 3, ZeRO-Offload, the pipeline and the other parallel
-axes, OnebitAdam and sparse gradients, MoE, remat and progressive layer
-drop, checkpoint saving and loading, the ``forward/backward/step`` trio,
-client optimizer objects, optimizers other than Adam/AdamW, and the
-unfused paths (``optimizer.params.fused: false``, and
-``fused_kernels=False`` on CUDA).
+axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
+remat and progressive layer drop, checkpoint saving and loading, the
+``forward/backward/step`` trio, client optimizer objects, optimizers
+other than Adam/AdamW, and the unfused paths
+(``optimizer.params.fused: false``, and ``fused_kernels=False`` on
+CUDA).
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from .fp16.loss_scaler import LossScaleState, update_loss_scale
 from .lr_schedules import get_lr_schedule
 from .. import constants as C
 from ..models.transformer import check_trainable
+from ..ops.grouped_gemm import check_grouped_gemm
 from ..ops.fused_update import (FlatGroup, FusedAdamState, float_groups,
                                 tree_flatten, tree_unflatten)
 from ..ops.optimizers import build_optimizer
@@ -143,6 +148,10 @@ class DeepSpeedEngine:
             else DeepSpeedConfig(config, world_size=1)
         for feature, where in self.config.unported_features():
             raise _unported(feature, where)
+        # The `moe` block promises the moe_* metrics. The model is built
+        # apart (TransformerConfig.moe); a block with no MoE stats from
+        # the loss_fn behind it raises at the first step.
+        self._moe_metrics = self.config.moe_config.num_experts > 0
         if optimizer is not None:
             raise _unported("a client optimizer object (the port builds its "
                             "fused Adam from the ds_config)",
@@ -154,6 +163,14 @@ class DeepSpeedEngine:
         cfg = getattr(self.loss_fn, "cfg", None)
         if cfg is not None:
             check_trainable(cfg)
+            # (check_trainable and unported_features refuse an
+            # expert_parallel_size other than 1 on either side, so the
+            # block's and the model's cannot disagree.)
+            model_moe = getattr(cfg, "moe", None)
+            if model_moe is not None:
+                # grouped_gemm=False has no CUDA path: raise here, before
+                # anything touches the device.
+                check_grouped_gemm(model_moe.grouped_gemm, self.device)
             if self.device.type == "cuda" and cfg.fused_kernels is False:
                 raise NotImplementedError(
                     "fused_kernels=False has no CUDA path in the port — the "
@@ -451,8 +468,20 @@ class DeepSpeedEngine:
         params = tree_unflatten(self._treedef, leaves)
         scaled_loss = _make_raw_scaled_loss(self.loss_fn, gas)
         mean_loss = None
+        moe_sum: Dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro_batches):
-            scaled, (raw, _) = scaled_loss(params, mb, self.generator, scale)
+            scaled, (raw, aux) = scaled_loss(params, mb, self.generator,
+                                             scale)
+            if self._moe_metrics:
+                if not (isinstance(aux, dict) and "moe" in aux):
+                    raise ValueError(
+                        "ds_config has a `moe` block but the model's "
+                        "loss_fn returned no moe stats — build the model "
+                        "with TransformerConfig.moe (deepspeed_tpu_torch."
+                        "moe.MoEConfig) or drop the block")
+                for name, v in aux["moe"].items():
+                    v = v.detach().float()
+                    moe_sum[name] = v if i == 0 else moe_sum[name] + v
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
             with torch.no_grad():
                 # fp32 accumulation: each micro-batch's grads (in the
@@ -487,9 +516,15 @@ class DeepSpeedEngine:
             self.state = st.replace(
                 opt_state=opt_state,
                 **_overflow_resolution(st, overflow, **self._scaler_kw))
-        return {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
-                "loss_scale": scale, "overflow": overflow,
-                "skipped_steps": self.state.skipped_steps}
+        metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
+                   "loss_scale": scale, "overflow": overflow,
+                   "skipped_steps": self.state.skipped_steps}
+        if moe_sum:
+            # The mean over the micro-batches, as the JAX engine's.
+            for name in ("expert_tokens", "drop_fraction", "aux_loss",
+                         "z_loss"):
+                metrics[f"moe_{name}"] = moe_sum[name] / gas
+        return metrics
 
     def _maybe_log(self, metrics: Dict[str, torch.Tensor]) -> None:
         spp = self.steps_per_print()

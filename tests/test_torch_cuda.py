@@ -16,7 +16,15 @@ atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the flash kernels
 bit-equal across two launches; the serving engine's
 kernel path against its CPU plain path on gpt2-tiny in fp32: logits atol
 1e-4 and equal greedy streams; two gpt2-tiny fp32 training steps on the
-card against the CPU: losses and grad norms within 1e-4 relative.
+card against the CPU: losses and grad norms within 1e-4 relative; the
+grouped GEMM (K9): its pre-activation within the LayerNorm tolerances of
+the plain version, a GELU output within them of the plain epilogue of
+the kernel's own pre-activation, bit-equal across two launches and
+across strided, unaligned and contiguous views of the same operands;
+the grouped FFN forward and backward on the card against the CPU within
+1e-5 (fp32) or 2**-7 (bf16) of each leaf's largest magnitude; two
+gpt2-tiny fp32 MoE steps as the dense ones, with equal expert token
+counts and drop fractions.
 """
 import dataclasses
 
@@ -32,6 +40,7 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_init, \
     gpt2_loss_fn
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
+from deepspeed_tpu_torch.ops import grouped_gemm as gg
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from torch_cases import (ADAM_CASES, PAGED_CASES, adam_case, assert_close,
                          paged_case, ulps)
@@ -209,7 +218,8 @@ def test_decode_step_launch_counts(dev):
         "bias_gelu_backward": 0, "sqnorm": 0, "fused_adam_apply": 0,
         "paged_attention": L, "flash_attention_fwd": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-        "flash_attention_bwd_fused": 0, **SPARSE_ZERO}
+        "flash_attention_bwd_fused": 0, "grouped_matmul": 0,
+        **SPARSE_ZERO}
 
 
 # --------------------------------------------------------------------- #
@@ -359,7 +369,8 @@ def test_train_batch_on_the_card_matches_the_cpu(dev):
                       # S = 32 is not a multiple of 128: dense attention
                       "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
                       "flash_attention_bwd_dkv": 0,
-                      "flash_attention_bwd_fused": 0, **SPARSE_ZERO}
+                      "flash_attention_bwd_fused": 0, "grouped_matmul": 0,
+                      **SPARSE_ZERO}
 
 
 # --------------------------------------------------------------------- #
@@ -627,3 +638,153 @@ def test_sparse_attention_autograd_on_the_card_matches_the_cpu(
     torch.cuda.synchronize()
     first = "flash_attention_fwd" if route == "gated" else "sparse_flash_fwd"
     assert {n: c for n, c in ops.launch_counts().items() if c} == {first: 1}
+
+
+# --------------------------------------------------------------------- #
+# The grouped GEMM (K9) and the MoE path
+# --------------------------------------------------------------------- #
+# (E, M, K, N): a capacity of 40 and odd widths; several 128-tiles each
+# way with ragged edges; K not a multiple of the 32-deep K tile.
+GG_SHAPES = [(3, 40, 200, 136), (2, 260, 96, 300)]
+
+
+def _gg_inputs(dev, dt, E, M, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(E, M, K, device=dev, generator=g).to(dt)
+    b = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dt)
+    bias = torch.randn(E, N, device=dev, generator=g)
+    return a, b, bias
+
+
+@pytest.mark.parametrize("shape", GG_SHAPES)
+@pytest.mark.parametrize("act", [None, "gelu_tanh", "gelu_exact"])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_grouped_gemm_kernel_matches_plain_and_repeats(dev, dtype_name, act,
+                                                       shape):
+    """Against the plain version: the pre-activation z within the
+    tolerance; with an activation, the output against the plain epilogue
+    of the kernel's own z (a z one rounding step apart moves a GELU
+    output by its slope, many ulp of a small output). Two launches give
+    the same bits; transposed, unaligned and non-unit-stride views of
+    the same values give the same bits as contiguous operands."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype_name]
+    a, b, bias = _gg_inputs(dev, dt, *shape, seed=len(str(act)))
+    got = gg.grouped_matmul(a, b, bias, act)
+    again = gg.grouped_matmul(a, b, bias, act)
+    z = gg.grouped_matmul(a, b, bias)
+    z_ref = gg.grouped_matmul_plain(a, b, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (shape[0], shape[1], shape[3])
+    assert torch.equal(got, again)
+    assert_close(_np(z), _np(z_ref), dtype_name)
+    if act is None:
+        assert torch.equal(got, z)
+    else:
+        epi = fe.gelu_f32(z.float(), act == "gelu_exact").to(dt)
+        assert_close(_np(got), _np(epi), dtype_name)
+        if dtype_name == "fp32":
+            assert_close(_np(got), _np(gg.grouped_matmul_plain(
+                a, b, bias, act)), "fp32")
+    # the same values through other strides
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)       # M stride 1
+    bt = b.transpose(1, 2).contiguous().transpose(1, 2)       # K stride 1
+    wide = torch.zeros(a.shape[:2] + (2 * a.shape[2],), dtype=dt, device=dev)
+    wide[..., ::2] = a                                       # K stride 2
+    off = torch.zeros(a.shape[:2] + (a.shape[2] + 1,), dtype=dt, device=dev)
+    off[..., 1:] = a                                         # unaligned
+    for a2, b2 in ((at, b), (a, bt), (at, bt), (wide[..., ::2], b),
+                   (off[..., 1:], b)):
+        assert torch.equal(gg.grouped_matmul(a2, b2, bias, act), got)
+    # a bias 4 bytes off 16-byte alignment takes the scalar epilogue
+    bias_off = torch.empty(bias.numel() + 1, device=dev)[1:].view(
+        bias.shape).copy_(bias)
+    assert torch.equal(gg.grouped_matmul(a, b, bias_off, act), got)
+    assert torch.equal(gg.grouped_matmul(a, b, None, act),
+                       gg.grouped_matmul(a, b, torch.zeros_like(bias), act))
+
+
+def test_grouped_gemm_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    a = torch.randn(2, 8, 16, device=dev)
+    b = torch.randn(2, 16, 4, device=dev)
+    with pytest.raises(TypeError, match="one dtype"):
+        gg.grouped_matmul(a, b.bfloat16())
+    with pytest.raises(ValueError, match="different devices"):
+        gg.grouped_matmul(a, b.cpu())
+    with pytest.raises(TypeError, match="one dtype"):
+        gg.grouped_matmul(a.double(), b.double())
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+def test_grouped_ffn_on_the_card_matches_the_cpu(dev, dtype_name, exact):
+    """Forward and backward on the card (seven K9 launches) against the
+    plain versions on the CPU: fp32 within 1e-5, bf16 within 2^-7 of each
+    leaf's largest magnitude."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype_name]
+    rng = np.random.default_rng(7)
+    E, C, H, F = 4, 40, 64, 200
+    arrs = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in (
+        ((E, C, H), 1.0), ((E, H, F), H ** -0.5), ((E, F), 0.1),
+        ((E, F, H), F ** -0.5), ((E, H), 0.1), ((E, C, H), 1.0))]
+    out = {}
+    for device in ("cpu", dev):
+        leaves = [torch.from_numpy(x).to(device, dt).requires_grad_()
+                  for x in arrs[:5]]
+        ops.reset_launch_counts()
+        y = gg.grouped_ffn(*leaves, exact)
+        grads = torch.autograd.grad(y, leaves,
+                                    torch.from_numpy(arrs[5]).to(device, dt))
+        torch.cuda.synchronize()
+        out[str(device)] = ([_np(y.detach())] + [_np(t) for t in grads],
+                            ops.launch_counts()["grouped_matmul"])
+    assert out["cpu"][1] == 0 and out["cuda"][1] == 7
+    tol = 1e-5 if dtype_name == "fp32" else 2.0 ** -7
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_allclose(a, b, atol=tol * np.abs(b).max(), rtol=0)
+
+
+def test_moe_train_batch_on_the_card_matches_the_cpu(dev):
+    """Two gpt2-tiny fp32 MoE steps (8 experts, top-2, gas 2) on the card
+    and on the CPU (grouped_gemm True there: the plain versions) from the
+    same params and batches: losses, grad norms and the moe metrics; the
+    card launches 7 K9 a MoE layer and micro-batch, and no bias+GELU."""
+    from deepspeed_tpu_torch.moe import MoEConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe = {"num_experts": 8, "top_k": 2, "capacity_factor": 1.25}
+    ds = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}},
+          "moe": moe}
+    batches = np.random.default_rng(0).integers(0, 512, (2, 4, 33))
+    out = {}
+    for device, grouped in (("cpu", True), (dev, "auto")):
+        cfg = dataclasses.replace(
+            CFG32, hidden_dropout=0.0, attn_dropout=0.0,
+            moe=MoEConfig(grouped_gemm=grouped, **moe))
+        params = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(cfg), model_params=params,
+            config=dict(ds, moe=dict(moe, grouped_gemm=grouped)),
+            device=device)
+        hist = []
+        for b in batches:
+            ops.reset_launch_counts()
+            loss = eng.train_batch(b)
+            m = eng.last_metrics
+            hist.append((float(loss), float(m["grad_norm"]),
+                         m["moe_expert_tokens"].cpu().numpy(),
+                         float(m["moe_drop_fraction"]),
+                         ops.launch_counts()))
+        out[str(device)] = hist
+    L = CFG32.num_layers
+    for c, g in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose(g[0], c[0], rtol=1e-4)
+        np.testing.assert_allclose(g[1], c[1], rtol=1e-4)
+        np.testing.assert_array_equal(g[2], c[2])
+        assert g[3] == c[3]
+        assert sum(c[4].values()) == 0
+        assert g[4]["grouped_matmul"] == 7 * L * 2
+        assert g[4]["fused_bias_gelu"] == g[4]["bias_gelu_backward"] == 0

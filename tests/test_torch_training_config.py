@@ -357,7 +357,7 @@ def test_initialize_without_cuda_or_device_raises(monkeypatch):
     ({"sparse_gradients": True}, "sparse_gradients"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"mesh": {"model_parallel_size": 2}}, "tensor/sequence"),
-    ({"moe": {"num_experts": 4}}, "moe"),
+    ({"moe": {"num_experts": 4, "expert_parallel_size": 2}}, "moe"),
     ({"progressive_layer_drop": {"enabled": True}},
      "progressive_layer_drop"),
     ({"checkpoint": {"async": True}}, "checkpoint"),
