@@ -11,11 +11,15 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    versions.
 2. Build the port's CUDA kernels from ``deepspeed_tpu_torch/csrc`` into
    ``build/deepspeed_tpu_torch/`` (one nvcc per source, in parallel;
-   printed: the build seconds and ptxas' register/shared-memory report).
+   printed: the build seconds and ptxas' register/shared-memory report,
+   and on the build line the registers and spills of the paged-attention
+   and flash-forward kernels with their dynamic shared memory).
 3. Hold each kernel against its plain PyTorch version on the card: the
    serving kernels at the serving path's gpt2-small shapes (LayerNorm
    rows 8 and 32 x 768, bias+GELU rows 8 and 32 x 3072, paged attention
-   decode/verify/prefill), then every kernel of the training path at its
+   decode/verify/prefill and the serving decode step's shape, each
+   launched twice and compared bit for bit, timed also by the card's own
+   time and with a cold L2), then every kernel of the training path at its
    gpt2-small training shapes (micro-batch 8 x 1024 = 8192 rows, bf16):
    LayerNorm forward and backward (8192 x 768, with and without the
    residual), bias+GELU forward and backward (8192 x 3072), the grad sum
@@ -25,7 +29,8 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    forward and the fused backward at the training shape (8 x 1024), the
    forward and the split dq / dk-dv backward at sequence 768, each with
    dropout 0 and 0.1, and the forward at the whole-prompt prefill shape
-   (1 x 1024), each also launched twice and compared bit for bit; then
+   (1 x 1024), each also launched twice and compared bit for bit (the
+   8 x 1024 forward also timed with a cold L2); then
    the block-sparse kernels (``check_sparse``): K7, K8b, K8c and K8a at
    the sparse path's shape (2 x 4096, 12 heads of 64, bf16, the Fixed
    layout, causal) at tile (1, 1) with dropout 0 and 0.1 and at the
@@ -88,7 +93,9 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -198,6 +205,58 @@ MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_CAPACITY = 8, 2, 1.25, 2560
 MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 
 
+# Kernels whose ptxas report (registers, spills, static shared memory) the
+# build line carries: the paged attention (K10) and the forward tile (K1,
+# and K7 on the same tile) of the main paths.
+PTXAS_KERNELS = ("paged_attn_mma_kernel", "paged_attn_fma_kernel",
+                 "paged_combine_kernel", "flash_fwd_kernel",
+                 "sparse_fwd_kernel")
+
+
+def ptxas_summary(log):
+    """{kernel<template args>: registers, spill bytes, static smem} from
+    ``nvcc -Xptxas -v`` output, for PTXAS_KERNELS."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = [n for n in PTXAS_KERNELS if n in m.group(1)]
+            name = None
+            if k:
+                targs = m.group(1).split(k[0], 1)[1]
+                name = k[0] + re.sub(r"^I|EE.*$|E?Ev.*$", "", targs)
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+            name = None
+    return out
+
+
+def dynamic_smem_bytes():
+    """Dynamic shared memory of one block at the main paths' shapes (bf16,
+    head dim 64), by the carve-ups in csrc/: the forward tile's Q + two
+    (K, V) buffers of 64 rows at pitch 72 (flash_tiles.cuh fwd_smem), and
+    K10's three-stage ring of K and V (64 rows at pitch 72) with live
+    flags, 16 Q rows and the block ids of one split (paged_attention.cu
+    smem_bytes; decode, 64 table entries over 3 splits)."""
+    fwd = 4 * 64 * 72 * 2
+    ring = 3 * (2 * 64 * 72 * 2 + 64 * 4)
+    k10 = ring + 16 * 72 * 2 + -(-64 // pa.paged_splits(8, 12, 64, 1)) * 4
+    return {"flash_fwd_kernel<bf16, 64>": fwd,
+            "paged_attn_mma_kernel<bf16, 64>, decode": k10}
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -214,6 +273,58 @@ def time_ms(fn, iters=100, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_of(fn, n=20):
+    """``fn`` called ``n`` times, captured in one CUDA graph; returns its
+    replay. A replay runs the launches with no Python between them."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return g.replay
+
+
+def device_ms(fn, n=20, reps=10):
+    """Device time of one call: CUDA events around replays of a graph of
+    ``n`` calls. Where the host takes longer to issue a call than the
+    card to run it, ``time_ms`` reads the host; this reads the card."""
+    replay = graph_of(fn, n)
+    replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def cold_ms(fn, iters=20):
+    """One call with a cold L2: a 64 MB buffer (more than the 50 MB L2)
+    is written before each call, and CUDA events bracket the call alone
+    (a one-call graph replay, so the host's issue time stays out)."""
+    replay = graph_of(fn, 1)
+    flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                        device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for i, (a, b) in enumerate(pairs):
+        flush.fill_(float(i))
+        a.record()
+        replay()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
@@ -352,10 +463,20 @@ def _sdpa_inputs(q, pk, pv, bt, pos):
 
 
 def check_paged_attention(dev, gen):
+    """K10 at decode, verify and chunked-prefill shapes and at the serving
+    smoke's own decode step (8 slots near context 128, J = 64). Times:
+    ``kernel_ms`` CUDA events around the Python loop of wrapper calls (as
+    every kernel here; below the host's issue time it reads the host),
+    ``device_ms`` the card's time per call (graph replay), ``cold_ms``
+    one call after a 64 MB write (each layer's pool slice, 25 MB here, is
+    read once per step, so warm repeats understate it); the library's
+    ``device_ms`` likewise."""
     cases = {
         "decode": dict(contexts=[1024, 700, 333, 129, 64, 17, 1, 0], K=1),
         "verify": dict(contexts=[1021, 650, 300, 100, 48, 16, 5, 0], K=4),
         "prefill": dict(contexts=[993], K=32),
+        "serve_decode": dict(contexts=[128, 131, 126, 140, 120, 133, 129,
+                                       127], K=1),
     }
     out = []
     for name, spec in cases.items():
@@ -372,19 +493,29 @@ def check_paged_attention(dev, gen):
                 assert bool((o[0, s] == 0).all()), "dead stream not zero"
         nbytes, flops = _attn_work(q, pk, bt, pos)
         b_ms, b_by = bound(nbytes, flops)
+        again = pa.paged_attention(q, pk, pv, bt, pos, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(o, again), f"paged {name}: two launches differ"
         sq, sk, sv, mask = _sdpa_inputs(q, pk, pv, bt, pos)
+        kern = lambda: pa.paged_attention(q, pk, pv, bt, pos, scale)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, sk, sv, attn_mask=mask, scale=scale)
+        G, Q, K = pos.shape
         rec = {"kernel": "paged_attention", "case": name,
                "shape": {"streams": len(spec["contexts"]), "K": spec["K"],
                          "heads": 12, "head_dim": 64, "block_size": 16,
                          "contexts": spec["contexts"]},
                "dtype": "bf16",
-               "kernel_ms": time_ms(lambda: pa.paged_attention(
-                   q, pk, pv, bt, pos, scale)),
+               "splits": pa.paged_splits(G * Q, 12, bt.shape[-1], K),
+               "kernel_ms": time_ms(kern),
+               "device_ms": device_ms(kern), "cold_ms": cold_ms(kern),
                "plain_ms": time_ms(lambda: pa.paged_attention_plain(
                    q, pk, pv, bt, pos, scale), iters=20),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   sq, sk, sv, attn_mask=mask, scale=scale)),
+               "library_ms": time_ms(lib),
+               "library_device_ms": device_ms(lib),
+               "library_cold_ms": cold_ms(lib),
                "library": "F.scaled_dot_product_attention (pre-gathered)",
+               "bit_equal_across_launches": True,
                "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "flops": flops, "max_err": err,
                "max_err_in_2ulp": ulps}
@@ -764,7 +895,8 @@ def _rel_err(a, b):
 
 
 def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
-                  kern, plain, lib, lib_name, causal=True, **extra):
+                  kern, plain, lib, lib_name, causal=True, cold=False,
+                  **extra):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) <= FLASH_REL_TOL, (kernel, case, drop, errs)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -784,6 +916,9 @@ def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
                           for a, b in zip(got, want)),
            "max_rel_err": max(errs), "rel_tol": FLASH_REL_TOL,
            "bit_equal_across_launches": same, **extra}
+    if cold:  # one launch after a 64 MB write, beside the warm mean
+        rec["cold_ms"] = cold_ms(kern)
+        rec["library_cold_ms"] = None if lib is None else cold_ms(lib)
     emit(rec)
     return rec
 
@@ -827,7 +962,7 @@ def check_flash(dev, gen):
                 again, 4 * N * 2 + BH * S * 4, 4 * D * pairs, fwd,
                 lambda: fa.flash_fwd_plain(q, k, v, True, scale, drop, seed),
                 sdpa, "F.scaled_dot_product_attention(is_causal=True)",
-                lse_max_abs_err=lse_err))
+                cold=case == "train", lse_max_abs_err=lse_err))
         del want, again
         if case == "prefill":
             continue
@@ -1823,9 +1958,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = t0 = time.perf_counter()
-    op_builder.load(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        op_builder.load(verbose=True)
+    print(log.getvalue(), end="", flush=True)
     emit({"build_s": time.perf_counter() - t0,
-          "library": str(op_builder.build())})
+          "library": str(op_builder.build()),
+          "ptxas": ptxas_summary(log.getvalue()),
+          "dynamic_smem_bytes": dynamic_smem_bytes()})
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     ln = check_layer_norm(dev, gen)
@@ -1861,6 +2001,9 @@ def main():
                 "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "shape": rec["shape"],
+                **{k: rec[k] for k in ("device_ms", "cold_ms",
+                                       "library_device_ms",
+                                       "library_cold_ms") if k in rec},
                 "ms_by_shape": [[r["shape"], r.get("residual", r.get(
                     "flags", r.get("dropout"))), r["kernel_ms"]] +
                     ([r["case"], r["max_err"]] if "case" in r else [])

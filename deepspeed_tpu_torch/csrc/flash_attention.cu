@@ -32,20 +32,23 @@
 // softmax state in VMEM scratch; CUDA blocks run in no order, so each
 // block owns one q-tile (forward, dq) or one k-tile (dk/dv) and loops
 // over the other axis itself, only as far as the causal diagonal. Tiles
-// are 64 x 64 for bf16/fp16 (32 x 32 for fp32) and staged in shared
-// memory; the products run on tensor cores through nvcuda::wmma
-// m16n16k16 (bf16/fp16 in, fp32 accumulate) and, for fp32 inputs, as
-// plain fp32 FMAs (true fp32, no TF32). Scores, probabilities and
-// accumulators stay fp32 in shared memory; P and dS are rounded to the
-// input type exactly where the TPU kernels round them (before PV, before
-// the dq/dk products; l sums the undropped p; a kept element is scaled
-// by the fp32 constant 1/(1-rate)). Masked scores are -1e30, as in the
-// TPU kernels. The fused backward runs one block per (batch, head): it
-// walks k-tiles outward and q-tiles inward from the diagonal, keeps the
-// k-tile's dk/dv in shared memory and adds each tile's dq into an fp32
-// workspace only this block touches, then casts it. No kernel uses
-// atomics, so two launches on the same inputs give the same bits. This
-// is the simple form: no TMA, no wgmma, no software pipelining.
+// are 64 x 64 for bf16/fp16 (32 x 32 for fp32). The forward (K1) is
+// register-resident, the FlashAttention-2 form on mma.sync: each warp
+// owns 16 q rows, S, P and O stay in registers (m16n8k16 from ldmatrix
+// fragments, fp32 accumulate), K and V come through a cp.async double
+// buffer with one barrier per k-tile, and only the diagonal tile is
+// masked (FwdTiles). The backward passes stage their tiles in shared
+// memory and run the products through nvcuda::wmma m16n16k16; fp32
+// inputs run plain fp32 FMAs (true fp32, no TF32) in both directions.
+// P and dS are rounded to the input type exactly where the TPU kernels
+// round them (before PV, before the dq/dk products; l sums the undropped
+// p; a kept element is scaled by the fp32 constant 1/(1-rate)). Masked
+// scores are -1e30, as in the TPU kernels. The fused backward runs one
+// block per (batch, head): it walks k-tiles outward and q-tiles inward
+// from the diagonal, keeps the k-tile's dk/dv in shared memory and adds
+// each tile's dq into an fp32 workspace only this block touches, then
+// casts it. No kernel uses atomics, so two launches on the same inputs
+// give the same bits. No TMA and no wgmma yet.
 #include "flash_tiles.cuh"
 
 using namespace dstt;
@@ -70,13 +73,14 @@ __device__ __forceinline__ bool gate_open(const Args& a, int bh, int qt,
 // --------------------------------------------------------------------- //
 // K1: forward
 // --------------------------------------------------------------------- //
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(DP))
+flash_fwd_kernel(Args a) {
   constexpr int t = kTile<T>;
   // Long causal rows first: q-tiles run in reverse launch order.
   const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
-  FwdTiles<T> sm(smem, a.D);
+  FwdOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, qi, a.D);
   const int nk = a.causal ? qi + 1 : a.S / t;
@@ -233,7 +237,13 @@ cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t st) {
   int threads = kThreads;
   switch (kind) {
     case kFwd:
-      kern = flash_fwd_kernel<T>;
+      // DP: the head dim's register width (the fp32 scalar tile has none)
+      if constexpr (kScalar<T>)
+        kern = flash_fwd_kernel<T, 128>;
+      else
+        kern = dpad(a.D) == 128 ? flash_fwd_kernel<T, 128>
+               : dpad(a.D) == 64 ? flash_fwd_kernel<T, 64>
+                                 : flash_fwd_kernel<T, 32>;
       smem = fwd_smem<T>(a.D);
       break;
     case kDq:

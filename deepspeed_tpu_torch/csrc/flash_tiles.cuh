@@ -19,6 +19,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace dstt {
 namespace flash {
@@ -38,6 +39,11 @@ constexpr int kTile = kScalar<T> ? 32 : 64;
 template <typename T>
 constexpr int kLds = kTile<T> + 8;
 __host__ __device__ constexpr int ldd(int D) { return D + 8; }
+
+// DP, the forward tile's register width for a head dim: 32, 64 or 128.
+__host__ __device__ constexpr int dpad(int D) {
+  return D <= 32 ? 32 : (D <= 64 ? 64 : 128);
+}
 
 __host__ __device__ constexpr size_t rup(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
@@ -153,8 +159,9 @@ __device__ __forceinline__ void fill(float* p, int n, float v) {
 template <typename T>
 size_t fwd_smem(int D) {
   constexpr int t = kTile<T>, ls = kLds<T>;
+  if constexpr (!kScalar<T>)  // 2 x (K, V), rows padded to dpad(D) + 8
+    return 4 * t * (dpad(D) + 8) * sizeof(T);
   return 3 * rup(t * ldd(D) * sizeof(T)) + rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : rup(t * ls * sizeof(T))) +
          rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
 }
 
@@ -264,9 +271,229 @@ __device__ __forceinline__ Grad grad_elem(const Args& a, uint32_t stream,
 
 // --------------------------------------------------------------------- //
 // The forward over one q-tile: begin, one step per visited k-tile, end.
+//
+// bf16/fp16 (FwdTiles): register-resident, the FlashAttention-2 form on
+// mma.sync. Each of the four warps owns 16 of the 64 q rows; its Q
+// fragments are loaded once with ldmatrix; S = QK^T (m16n8k16, fp32 accumulate)
+// stays in registers, the online softmax runs there with quad shuffles,
+// exponentials are 2^x on the SFU over scores scaled by log2(e), dropout
+// is decided per element from the fragment's (row, column), and
+// P is rounded to T in registers and used directly as the A operand of
+// PV (the m16n8 accumulator layout is the m16n8k16 A layout). O stays in
+// fp32 registers. K and V come through a cp.async double buffer, V read
+// with ldmatrix.trans; rows are padded by 16 bytes so ldmatrix is
+// conflict-free. The pipeline runs one tile behind the caller: step(kt)
+// waits for the previous tile's copies, issues kt's copies into the other
+// buffer, then computes the previous tile while they land; end computes
+// the last one. One barrier per k-tile; Q lands in the second buffer and
+// is read into registers before that buffer is first filled. Only the
+// diagonal tile is masked; the dropout and plain softmax are separate
+// code paths. DP is the head dim rounded up to 32, 64 or 128: the register
+// arrays, the row pitch and the copy mapping (each thread issues its
+// tile's 16-byte copies at fixed offsets) are compile-time, and columns
+// D..DP-1 of the shared tiles are zero, so no fragment loop has a
+// run-time guard (a guard per fragment compiles to a branch per
+// ldmatrix + mma pair, which serialises them).
 // --------------------------------------------------------------------- //
-template <typename T>
+template <typename T, int DP>
 struct FwdTiles {
+  static constexpr int t = 64;
+  // Row pitch: DP + 8 elements; columns D..DP-1 stay zero (begin), so the
+  // fragment loops run over DP with no run-time guard.
+  static constexpr int LD = DP + 8;
+  // cp.async mapping: thread -> (row r0 + i * kRowStep, 16-byte chunk cc).
+  static constexpr int kCpr = DP / 8;
+  static constexpr int kRowStep = kThreads / kCpr;
+  T* buf;  // [2 slots][K, V][t][LD]
+  int n, pending;
+  bool cact;
+  int soff;
+  long long goff;
+  float m[2], l[2];  // rows g, g + 8; m in log2 units (score * log2(e))
+  float acc[DP / 8][4];
+  uint32_t qa[DP / 16][4];
+
+  __device__ FwdTiles(unsigned char* smem, int) {
+    buf = reinterpret_cast<T*>(smem);
+  }
+  __device__ T* slot(int i) { return buf + i * 2 * t * LD; }
+
+  // The t rows of a tile from global (row stride `stride`) into shared
+  // memory as cp.async 16-byte copies.
+  __device__ __forceinline__ void copy_tile(T* dst, const T* src,
+                                            long long stride) {
+    if (!cact) return;
+#pragma unroll
+    for (int i = 0; i < t / kRowStep; ++i)
+      tc::cp_async16(dst + soff + i * kRowStep * LD,
+                     src + goff + i * kRowStep * stride, true);
+  }
+
+  __device__ __forceinline__ void begin(const HeadPtrs<T>& hp, int qt,
+                                        int D) {
+    const int cc = threadIdx.x % kCpr, r0 = threadIdx.x / kCpr;
+    cact = cc * 8 < D;
+    soff = r0 * LD + cc * 8;
+    goff = r0 * hp.sS + cc * 8;
+    if (D < DP)  // zero the padding columns of all four tiles
+      for (int idx = threadIdx.x; idx < 4 * t * (DP - D); idx += kThreads) {
+        const int r = idx / (DP - D);
+        buf[r * LD + D + (idx - r * (DP - D))] = from_f32<T>(0.f);
+      }
+    copy_tile(slot(1), hp.q + static_cast<long long>(qt) * t * hp.sS, hp.sS);
+    tc::cp_async_commit();
+    n = 0;
+    pending = -1;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const Args& a, const HeadPtrs<T>& hp,
+                                       int qt, int kt) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile n-1 (or Q) landed; tile n-2's readers done
+    if (n == 0) {
+      const T* qs = slot(1) + warp * 16 * LD;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::ldsm_x4(qa[kk], qs + ((mi & 1) * 8 + r8) * LD + kk * 16 +
+                                (mi >> 1) * 8);
+    }
+    T* dst = slot(n & 1);
+    const long long off = static_cast<long long>(kt) * t * hp.sS;
+    copy_tile(dst, hp.k + off, hp.sS);
+    copy_tile(dst + t * LD, hp.v + off, hp.sS);
+    tc::cp_async_commit();
+    if (pending >= 0) compute_any(a, hp, qt);
+    pending = kt;
+    ++n;
+  }
+
+  __device__ __forceinline__ void compute_any(const Args& a,
+                                              const HeadPtrs<T>& hp, int qt) {
+    if (hp.drop)
+      compute<true>(a, hp, qt, pending, slot((n - 1) & 1));
+    else
+      compute<false>(a, hp, qt, pending, slot((n - 1) & 1));
+  }
+
+  // Online softmax and PV over k-tile kt staged at ks (V follows it).
+  template <bool kDrop>
+  __device__ __forceinline__ void compute(const Args& a, const HeadPtrs<T>& hp,
+                                          int qt, int kt, const T* ks) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+    const T* vs = ks + t * LD;
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t b[4];
+        tc::ldsm_x4(b, ks + (16 * j + (mi >> 1) * 8 + r8) * LD + kk * 16 +
+                           (mi & 1) * 8);
+        tc::mma16816<T>(sc[2 * j], qa[kk], b[0], b[1]);
+        tc::mma16816<T>(sc[2 * j + 1], qa[kk], b[2], b[3]);
+      }
+    const bool diag = a.causal && kt == qt;
+    const float scale2 = a.scale * tc::kLog2e;  // exp(x) = 2^(x log2 e)
+    uint32_t pa[4][4];  // P as A fragments, one per 16 keys
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = qt * t + warp * 16 + g + 8 * rr;
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[i][2 * rr + e] * scale2;
+          if (diag && kt * t + i * 8 + 2 * tig + e > qpos) x = kNegInf;
+          sc[i][2 * rr + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = tc::quad_max(mx);
+      const float m_new = fmaxf(m[rr], mx);
+      const float alpha = tc::exp2_approx(m[rr] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float pe[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[i][2 * rr + e];
+          float p = x == kNegInf ? 0.f : tc::exp2_approx(x - m_new);
+          psum += p;
+          if constexpr (kDrop)
+            p = keep_elem(hp.stream, qpos, kt * t + i * 8 + 2 * tig + e,
+                          a.rate)
+                    ? p * a.inv_keep
+                    : 0.f;
+          pe[e] = p;
+        }
+        // keys 16j + 2tig (i = 2j) and 16j + 8 + 2tig (i = 2j + 1)
+        pa[i >> 1][(i & 1) * 2 + rr] = tc::pack2<T>(pe[0], pe[1]);
+      }
+      psum = tc::quad_sum(psum);
+      m[rr] = m_new;
+      l[rr] = l[rr] * alpha + psum;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        acc[i][2 * rr] *= alpha;
+        acc[i][2 * rr + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int n2 = 0; n2 < DP / 16; ++n2) {
+        uint32_t b[4];
+        tc::ldsm_x4_t(b, vs + (16 * j + (mi & 1) * 8 + r8) * LD + n2 * 16 +
+                             (mi >> 1) * 8);
+        tc::mma16816<T>(acc[2 * n2], pa[j], b[0], b[1]);
+        tc::mma16816<T>(acc[2 * n2 + 1], pa[j], b[2], b[3]);
+      }
+  }
+
+  // o = acc / l (0 for a row that saw no key), lse = m + log(l).
+  __device__ __forceinline__ void end(const Args& a, const HeadPtrs<T>& hp,
+                                      int qt) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    tc::cp_async_wait<0>();
+    if (pending >= 0) {
+      __syncthreads();
+      compute_any(a, hp, qt);
+    }
+    T* o = static_cast<T*>(a.o) + hp.out;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = qt * t + warp * 16 + g + 8 * rr;
+      const float lr = l[rr] == 0.f ? 1.f : l[rr];
+      const float inv = 1.f / lr;
+      T* orow = o + static_cast<long long>(row) * hp.out_stride;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i)
+        if (i * 8 < a.D)
+          *reinterpret_cast<uint32_t*>(orow + i * 8 + 2 * tig) =
+              tc::pack2<T>(acc[i][2 * rr] * inv, acc[i][2 * rr + 1] * inv);
+      if (tig == 0)
+        hp.lse[row] =
+            m[rr] == kNegInf ? kNegInf : m[rr] * tc::kLn2 + logf(lr);
+    }
+  }
+};
+
+// fp32: 32 x 32 tiles of scalar FMAs (no TF32), scores and accumulator
+// in shared memory.
+template <typename T>
+struct FwdTilesScalar {
   T* Qs;
   T* Ks;
   T* Vs;
@@ -275,7 +502,7 @@ struct FwdTiles {
   float* acc;
   float* m_s;
   float* l_s;
-  __device__ FwdTiles(unsigned char* smem, int D) {
+  __device__ FwdTilesScalar(unsigned char* smem, int D) {
     constexpr int t = kTile<T>, LS = kLds<T>;
     const int LD = ldd(D);
     Carve cv{smem};
@@ -283,8 +510,7 @@ struct FwdTiles {
     Ks = cv.take<T>(t * LD);
     Vs = cv.take<T>(t * LD);
     Ss = cv.take<float>(t * LS);
-    if constexpr (kScalar<T>) Ps = reinterpret_cast<T*>(Ss);
-    else Ps = cv.take<T>(t * LS);
+    Ps = reinterpret_cast<T*>(Ss);
     acc = cv.take<float>(t * LD);
     m_s = cv.take<float>(t);
     l_s = cv.take<float>(t);
@@ -373,6 +599,20 @@ struct FwdTiles {
     }
   }
 };
+
+
+// The forward tile of a type: FwdTiles for bf16/fp16, FwdTilesScalar for
+// fp32 (DP unused).
+template <typename T, int DP>
+using FwdOf = std::conditional_t<kScalar<T>, FwdTilesScalar<T>,
+                                 FwdTiles<T, DP>>;
+
+
+// Blocks per SM the forward kernels are compiled for (registers capped
+// at 65536 / (128 * this)): 4 up to DP 64, 3 at DP 128.
+__host__ __device__ constexpr int fwd_min_blocks(int DP) {
+  return DP == 128 ? 3 : 4;
+}
 
 // --------------------------------------------------------------------- //
 // dq over one q-tile: begin, one step per visited k-tile, end.

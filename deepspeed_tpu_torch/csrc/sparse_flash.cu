@@ -34,7 +34,8 @@
 // causal diagonal is skipped. The tile steps (online softmax, dq, dk/dv)
 // are the flash kernels' (flash_tiles.cuh), so numerics, rounding points,
 // the dropout hash and the -1e30 masking are the same; a masked element
-// has probability exactly 0, so a row with no kept key gives zeros. The
+// has probability exactly 0, so a row with no kept key gives zeros; the
+// forward (K7) runs the flash forward's register-resident tile. The
 // fused backward writes each visited (q-tile, k-tile) pair's fp32 dq
 // partial to its own slot of a workspace (slots numbered column-major);
 // sparse_dq_reduce_kernel then sums a q-tile's slots in k order. No
@@ -117,12 +118,12 @@ __device__ __forceinline__ void for_col(const Args& a, const Luts& L, int h,
 }
 
 // K7: forward over the live blocks of one q-tile's row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, fwd_min_blocks(DP))
 sparse_fwd_kernel(Args a, Luts L) {
   const int qt = blockIdx.y, bh = blockIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
-  FwdTiles<T> sm(smem, a.D);
+  FwdOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, qt, a.D);
   for_row<T>(a, L, bh % a.nH, qt, [&](int kt) { sm.step(a, hp, qt, kt); });
@@ -213,7 +214,13 @@ cudaError_t launch(Kind kind, const Args& a, const Luts& L, int B,
   size_t smem;
   switch (kind) {
     case kFwd:
-      kern = sparse_fwd_kernel<T>;
+      // DP: the head dim's register width (the fp32 scalar tile has none)
+      if constexpr (kScalar<T>)
+        kern = sparse_fwd_kernel<T, 128>;
+      else
+        kern = dpad(a.D) == 128 ? sparse_fwd_kernel<T, 128>
+               : dpad(a.D) == 64 ? sparse_fwd_kernel<T, 64>
+                                 : sparse_fwd_kernel<T, 32>;
       smem = fwd_smem<T>(a.D);
       break;
     case kDq:

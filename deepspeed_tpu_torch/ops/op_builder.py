@@ -48,8 +48,8 @@ _SIGNATURES = {
     "dstt_sqnorm": ([_P, _L, _P, _P], _I),
     "dstt_fused_adam": ([_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _P], _I),
-    "dstt_paged_attention": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _I, _P], _I),
+    "dstt_paged_attention": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P],
+                             _I),
     "dstt_flash_fwd": ([_P] * 3 + [_L] * 3 + [_P] * 3 + [_P, _I, _I] +
                        [_I] * 4 + [_F] * 3 + [_I, _I, _P], _I),
     "dstt_flash_bwd_dq": ([_P] * 3 + [_L] * 3 + [_P] * 5 + [_P, _I, _I] +

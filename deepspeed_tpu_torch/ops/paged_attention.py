@@ -12,7 +12,12 @@ inclusive last attendable position.
 ``paged_attention`` launches the kernel for CUDA tensors and runs
 ``paged_attention_plain`` — the same function written with a gather
 through the table and a masked fp32 softmax — for CPU tensors. Its
-launches are counted in ``paged_attention.launches``.
+calls are counted in ``paged_attention.launches`` (one per layer and
+step). The kernel splits each stream's live table entries over
+``paged_splits`` blocks (flash-decoding); with more than one split, one
+call launches two kernels — the attention, writing fp32 partials to a
+workspace the wrapper allocates, and the merge of the splits in split
+order.
 """
 from __future__ import annotations
 
@@ -31,6 +36,26 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DTYPE_PAIRS = {(torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.bfloat16)}
+# Blocks the split aims for: two per SM of an H100 (132 SMs).
+TARGET_BLOCKS = 2 * 132
+# Query rows one kernel block takes (one m16 tensor-core tile).
+ROWS_PER_BLOCK = 16
+
+
+def paged_splits(streams: int, num_heads: int, table_width: int,
+                 rows: int) -> int:
+    """How many blocks share one (stream, head, 16-row group)'s live
+    table entries, from static shapes only: enough for about
+    ``TARGET_BLOCKS`` blocks in all, at most one per table entry."""
+    groups = streams * num_heads * -(-rows // ROWS_PER_BLOCK)
+    return max(1, min(table_width, -(-TARGET_BLOCKS // groups)))
+
+
+def paged_split_range(nlive: int, nsplit: int, i: int):
+    """Table entries ``[b0, b1)`` of split ``i`` (the kernel's rule): an
+    even share of the stream's ``nlive`` live entries, non-empty for
+    every split whenever ``nlive >= nsplit``."""
+    return i * nlive // nsplit, (i + 1) * nlive // nsplit
 
 
 # --------------------------------------------------------------------- #
@@ -152,6 +177,9 @@ def _check_args(q, pool_k, pool_v, block_tables, positions) -> None:
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
+        if t.is_floating_point() and t.data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} must be 16-byte "
+                             "aligned")
     if (q.dtype, pool_k.dtype) not in _DTYPE_PAIRS or \
             pool_v.dtype != pool_k.dtype:
         raise TypeError(f"paged_attention: q {q.dtype}, pools "
@@ -181,11 +209,18 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     B, bs = pool_k.shape[1], pool_k.shape[3]
     J = block_tables.shape[-1]
     out = torch.empty_like(q)
+    nsplit = paged_splits(G * Q, nH, J, K)
+    # Partials of the splits: m and l per (split, stream, head, row), then
+    # the fp32 accumulator rows.
+    ws = None if nsplit == 1 else torch.empty(
+        nsplit * G * Q * nH * K * (D + 2), dtype=torch.float32,
+        device=q.device)
     rc = op_builder.load().dstt_paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        G * Q, K, nH, D, G, B, bs, J, float(scale), _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[pool_k.dtype], op_builder.stream_ptr(q.device))
+        0 if ws is None else ws.data_ptr(), G * Q, K, nH, D, G, B, bs, J,
+        float(scale), _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype],
+        nsplit, op_builder.stream_ptr(q.device))
     op_builder.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out
@@ -195,5 +230,6 @@ paged_attention.launches = 0
 
 
 __all__ = ["paged_attention", "paged_attention_plain", "live_block_counts",
+           "paged_splits", "paged_split_range",
            "attend_flops_per_token", "attend_hbm_bytes_per_token",
            "NEG_INF", "HEAD_DIMS"]

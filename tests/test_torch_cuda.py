@@ -42,8 +42,9 @@ from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import grouped_gemm as gg
 from deepspeed_tpu_torch.ops import paged_attention as pa
-from torch_cases import (ADAM_CASES, PAGED_CASES, adam_case, assert_close,
-                         paged_case, ulps)
+from torch_cases import (ADAM_CASES, PAGED_CASES, PAGED_SPLIT_CASES,
+                         adam_case, assert_close, paged_case,
+                         paged_split_case, ulps)
 
 pytestmark = pytest.mark.cuda
 SPARSE_ZERO = {"sparse_flash_fwd": 0, "sparse_flash_bwd_dq": 0,
@@ -134,6 +135,50 @@ def test_paged_attention_ignores_unnamed_and_masked_garbage(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("D", pa.HEAD_DIMS)
+@pytest.mark.parametrize("q_dt, kv_dt", [("fp32", "fp32"), ("bf16", "bf16"),
+                                         ("fp32", "bf16")])
+@pytest.mark.parametrize("name", sorted(PAGED_SPLIT_CASES))
+def test_paged_attention_splits_match_plain_and_repeat_bit_equal(
+        dev, name, q_dt, kv_dt, D):
+    """The split kernel (several blocks per stream and head, merged in
+    split order) against the plain version: fp32 queries atol/rtol 2e-5,
+    bf16 queries 2 bf16 ulp; dead streams and rows that attend nothing
+    exactly 0; two launches bit-equal."""
+    spec = PAGED_SPLIT_CASES[name]
+    c = paged_split_case(sum(map(ord, name)) + D, D=D, **spec)
+    q = torch.from_numpy(c["q"]).to(dev, DTYPES[q_dt])
+    kv = [torch.from_numpy(c[k]).to(dev, DTYPES[kv_dt]) for k in "kv"]
+    bt, pos = (torch.from_numpy(c[k]).to(dev) for k in ("bt", "pos"))
+    G, Q, K, nH, _ = q.shape
+    assert pa.paged_splits(G * Q, nH, bt.shape[-1], K) > 1
+    before = pa.paged_attention.launches
+    out = pa.paged_attention(q, *kv, bt, pos, c["scale"])
+    again = pa.paged_attention(q, *kv, bt, pos, c["scale"])
+    ref = pa.paged_attention_plain(q, *kv, bt, pos, c["scale"])
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 2
+    assert torch.equal(out, again)
+    if q_dt == "fp32":
+        np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+    else:
+        assert_close(_np(out), _np(ref), "bf16")
+    assert (_np(out)[c["bt"][..., 0] < 0] == 0).all()
+    assert (_np(out)[c["pos"] < 0] == 0).all()
+    for s, rows in spec.get("rows", {}).items():
+        # The row at position 2 alone: every split past the first adds an
+        # exact 0, so it equals the same row run as a one-row stream.
+        g, sq = divmod(s, Q)
+        k = rows.index(2)
+        one = pa.paged_attention(q[g:g + 1, sq:sq + 1, k:k + 1].contiguous(),
+                                 *[t[g:g + 1].contiguous() for t in kv],
+                                 bt[g:g + 1, sq:sq + 1].contiguous(),
+                                 pos[g:g + 1, sq:sq + 1, k:k + 1].contiguous(),
+                                 c["scale"])
+        torch.cuda.synchronize()
+        assert torch.equal(one[0, 0, 0], out[g, sq, k])
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -432,6 +477,46 @@ def test_flash_kernels_match_plain_and_repeat_bit_equal(dev, dtype_name, D,
     first = (o, *got["fused"], *got["split"])
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype_name", ["bf16", "fp16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [128, 384, 768, 1024])
+def test_flash_forward_tile_matches_plain_and_repeats(dev, S, D, dtype_name,
+                                                      causal, drop, gated):
+    """The register-resident forward tile (K1) over the sequence lengths
+    of the training, split-backward and prefill paths, every head-dim
+    width, causal or not, with and without dropout, ungated or gated by a
+    layout of 128-blocks: o within 2**-7 (bf16) or 2**-9 (fp16) of its
+    largest magnitude, lse within 1e-4, two launches bit-equal."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    dt = DTYPES[dtype_name]
+    q, k, v, _ = _flash_inputs(dev, dt, 2, S, 2, D, S + D + causal)
+    seed = torch.tensor(24681357, dtype=torch.int32, device=dev)
+    lay = None
+    if gated:
+        # A random layout of 128-blocks, its diagonal kept, one k-column
+        # closed where there are three or more.
+        nb = S // 128
+        keep = np.random.default_rng(S + D).random((2, nb, nb)) < 0.6
+        keep[:, np.arange(nb), np.arange(nb)] = True
+        if nb >= 3:
+            keep[:, 1:, 1] = False
+        lay = torch.from_numpy(keep.astype(np.int32)).to(dev)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, D ** -0.5, drop, seed,
+                                    lay)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, D ** -0.5, drop, seed,
+                                      lay)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, causal, D ** -0.5, drop, seed, lay)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 2
+    assert _rel(o, ro) <= FLASH_REL[dtype_name]
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("S, kernels", [

@@ -98,6 +98,58 @@ def test_live_block_counts_match_jax_rule():
     assert n.tolist() == [[2, 0, 4]]
 
 
+def _serving_shapes():
+    """(streams, heads, table width, rows) of every paged-attention call
+    the serving paths make: decode (K = 1) and verify (K = spec_k + 1)
+    over max_slots streams, chunked prefill (K = the chunk) over one
+    stream a group, for each GPT-2 config's heads, max_len and block
+    size."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS
+    heads = sorted({c.num_heads for c in GPT2_CONFIGS.values()})
+    for max_len in (128, 256, 512, 1024, 2048):
+        for bs in (2 ** i for i in range(12) if 2 ** i <= max_len):
+            J = max_len // bs
+            chunks = [c for c in (8, 16, 32, 64, 128, 256) if max_len % c == 0]
+            for nH in heads:
+                for slots in range(1, 65):
+                    for K in [1] + [k + 1 for k in range(1, 9)]:
+                        yield slots, nH, J, K
+                for K in chunks:
+                    yield 1, nH, J, K
+
+
+def test_split_count_covers_every_serving_shape():
+    """The kernel's split count (host side, static shapes only) is at
+    least 1 and at most the table width, reaches the target block count
+    unless the table is narrower, and its shares of the live entries
+    (``paged_split_range``, the kernel's rule) tile [0, nlive) in order,
+    each non-empty whenever nlive >= the split count."""
+    seen = set()
+    for shape in _serving_shapes():
+        if shape in seen:
+            continue
+        seen.add(shape)
+        GQ, nH, J, K = shape
+        ns = tpa.paged_splits(GQ, nH, J, K)
+        blocks = GQ * nH * -(-K // tpa.ROWS_PER_BLOCK)
+        assert 1 <= ns <= J
+        assert ns == J or ns * blocks >= tpa.TARGET_BLOCKS
+        for nlive in {0, 1, ns, ns + 1, (ns + J) // 2, J}:
+            if nlive > J:
+                continue
+            shares = [tpa.paged_split_range(nlive, ns, i) for i in range(ns)]
+            assert shares[0][0] == 0 and shares[-1][1] == nlive
+            assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+            if nlive >= ns:
+                assert all(b1 > b0 for b0, b1 in shares)
+    assert len(seen) > 1000
+    # chip_smoke's cases and the serving smoke's decode: 3 splits at 8
+    # streams of 12 heads, 11 for one 32-row chunk.
+    assert tpa.paged_splits(8, 12, 64, 1) == 3
+    assert tpa.paged_splits(8, 12, 64, 4) == 3
+    assert tpa.paged_splits(1, 12, 64, 32) == 11
+
+
 def test_cost_model_matches_jax():
     for kw in (dict(context=1), dict(context=17), dict(context=1024),
                dict(pool_blocks=64)):

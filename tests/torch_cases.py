@@ -52,6 +52,42 @@ PAGED_CASES = {
 }
 
 
+# Paged-attention cases that split each stream's live table entries over
+# many kernel blocks (ops/paged_attention.paged_splits): contexts that
+# straddle split boundaries, table widths the split count does not
+# divide, streams whose live entries leave all splits but a few empty,
+# dead streams, and rows given their own positions (``rows``: stream
+# index -> positions) — a row of position -1 attends nothing, and a row
+# at position 2 beside rows hundreds of keys on gets nothing from every
+# split but the first.
+PAGED_SPLIT_CASES = {
+    # 44 splits over 50 entries: one stream fills the table, one lives in
+    # 5 entries, one is dead
+    "decode_splits": dict(lengths=[[400, 37, 0]], K=1, nH=2, B=60, bs=8,
+                          J=50),
+    # 21 splits over 21 entries, two groups, a dead stream
+    "verify_splits": dict(lengths=[[161, 9], [0, 100]], K=4, nH=2, B=40,
+                          bs=8, J=21, rows={0: [2, 150, -1, 163],
+                                            1: [2, 150, -1, 151]}),
+    # a 32-row chunk in two row groups over 19 splits of 16-key blocks
+    "prefill_splits": dict(lengths=[[250]], K=32, nH=3, B=24, bs=16, J=19),
+    # one entry live of 37: every split but one empty
+    "one_live_entry": dict(lengths=[[3, 0, 5, 2]], K=1, nH=2, B=12, bs=16,
+                           J=37),
+}
+
+
+def paged_split_case(seed, lengths, rows=None, **kw):
+    """``paged_case`` with the positions of some streams' rows replaced:
+    ``rows[s]`` (flat stream index over groups) gives that stream's K
+    positions."""
+    c = paged_case(seed, lengths, **kw)
+    G, Q = c["bt"].shape[:2]
+    for s, p in (rows or {}).items():
+        c["pos"][s // Q, s % Q] = p
+    return c
+
+
 FRACTION_BITS = {"bf16": 7, "fp16": 10, "fp32": 23}
 
 
