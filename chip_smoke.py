@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    ``build/deepspeed_tpu_torch/`` (one nvcc per source, in parallel;
    printed: the build seconds and ptxas' register/shared-memory report,
    and on the build line the registers and spills of the paged-attention
-   and flash-forward kernels with their dynamic shared memory).
+   and flash forward and backward kernels with their dynamic shared
+   memory).
 3. Hold each kernel against its plain PyTorch version on the card: the
    serving kernels at the serving path's gpt2-small shapes (LayerNorm
    rows 8 and 32 x 768, bias+GELU rows 8 and 32 x 3072, paged attention
@@ -27,10 +28,12 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    parameter group, the latter for each flag set the engine uses; then
    the flash attention kernels (bf16, 12 heads of 64, causal): the
    forward and the fused backward at the training shape (8 x 1024), the
-   forward and the split dq / dk-dv backward at sequence 768, each with
-   dropout 0 and 0.1, and the forward at the whole-prompt prefill shape
-   (1 x 1024), each also launched twice and compared bit for bit (the
-   8 x 1024 forward also timed with a cold L2); then
+   forward and the split dq / dk-dv backward at sequence 768 and at the
+   dense causal step's 2 x 4096, each with dropout 0 and 0.1, and the
+   forward at the whole-prompt prefill shape (1 x 1024), each also
+   launched twice and compared bit for bit (the 8 x 1024 forward also
+   timed with a cold L2, the backward kernels also by the card's own
+   time, graph replay, and with a cold L2); then
    the block-sparse kernels (``check_sparse``): K7, K8b, K8c and K8a at
    the sparse path's shape (2 x 4096, 12 heads of 64, bf16, the Fixed
    layout, causal) at tile (1, 1) with dropout 0 and 0.1 and at the
@@ -176,17 +179,21 @@ SPLIT_SEQ, SPLIT_STEPS = 768, 5
 FLASH_REL_TOL = 2.0 ** -7
 FLASH_LSE_TOL = 1e-4
 FLASH_SEED = 20240917
-# (case, batch, sequence, dropout): 12 heads of 64, causal, bf16.
-FLASH_CASES = (("train", TRAIN_MICRO, TRAIN_SEQ, 0.0),
-               ("train", TRAIN_MICRO, TRAIN_SEQ, 0.1),
-               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.0),
-               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.1),
-               ("prefill", 1, 1024, 0.0))
 # Block-sparse attention (slice 4): gpt2-small at sequence 4096, gas 2 x
 # micro-batch 2 (16384 tokens a step, as the main path), with the
 # ds_config's Fixed unidirectional layout of 128-blocks: 192 live blocks
 # a head of 528 causal ones, the LUT route, pick_tile (2, 8).
 SPARSE_SEQ, SPARSE_MICRO = 4096, 2
+# (case, batch, sequence, dropout): 12 heads of 64, causal, bf16. At
+# 2 x 4096 (the dense causal step of the sparse phase) the backward is
+# the split pair.
+FLASH_CASES = (("train", TRAIN_MICRO, TRAIN_SEQ, 0.0),
+               ("train", TRAIN_MICRO, TRAIN_SEQ, 0.1),
+               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.0),
+               ("train_split", TRAIN_MICRO, SPLIT_SEQ, 0.1),
+               ("train_s4096", SPARSE_MICRO, SPARSE_SEQ, 0.0),
+               ("train_s4096", SPARSE_MICRO, SPARSE_SEQ, 0.1),
+               ("prefill", 1, 1024, 0.0))
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1, "attention": "unidirectional"}
 SPARSE_STEPS, SPARSE_SIDE_STEPS, FLASH_S4096_STEPS = 12, 3, 5
@@ -206,11 +213,15 @@ MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 
 
 # Kernels whose ptxas report (registers, spills, static shared memory) the
-# build line carries: the paged attention (K10) and the forward tile (K1,
-# and K7 on the same tile) of the main paths.
+# build line carries: the paged attention (K10), the forward tile (K1,
+# and K7 on the same tile) and the backward tiles (K2a-K2c, and K8a-K8c
+# on the same tiles) of the main paths.
 PTXAS_KERNELS = ("paged_attn_mma_kernel", "paged_attn_fma_kernel",
                  "paged_combine_kernel", "flash_fwd_kernel",
-                 "sparse_fwd_kernel")
+                 "sparse_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
+                 "sparse_dq_kernel", "sparse_dkv_kernel",
+                 "sparse_fused_bwd_kernel")
 
 
 def ptxas_summary(log):
@@ -246,14 +257,23 @@ def ptxas_summary(log):
 def dynamic_smem_bytes():
     """Dynamic shared memory of one block at the main paths' shapes (bf16,
     head dim 64), by the carve-ups in csrc/: the forward tile's Q + two
-    (K, V) buffers of 64 rows at pitch 72 (flash_tiles.cuh fwd_smem), and
-    K10's three-stage ring of K and V (64 rows at pitch 72) with live
-    flags, 16 Q rows and the block ids of one split (paged_attention.cu
-    smem_bytes; decode, 64 table entries over 3 splits)."""
-    fwd = 4 * 64 * 72 * 2
-    ring = 3 * (2 * 64 * 72 * 2 + 64 * 4)
+    (K, V) buffers of 64 rows at pitch 72 (flash_tiles.cuh fwd_smem); the
+    dq tile's two (K, V) buffers (dq_smem); the dk/dv tile's K, V and two
+    (Q, dO) buffers with two (lse, delta) rows, and with the staged dS^T
+    (64 x 72) of the sparse fused pass (dkv_smem), the fused K2c taking
+    the larger of the dq and dk/dv tiles; and K10's three-stage ring of K
+    and V (64 rows at pitch 72) with live flags, 16 Q rows and the block
+    ids of one split (paged_attention.cu smem_bytes; decode, 64 table
+    entries over 3 splits)."""
+    tile = 64 * 72 * 2
+    dkv = 6 * tile + 4 * 64 * 4
+    ring = 3 * (2 * tile + 64 * 4)
     k10 = ring + 16 * 72 * 2 + -(-64 // pa.paged_splits(8, 12, 64, 1)) * 4
-    return {"flash_fwd_kernel<bf16, 64>": fwd,
+    return {"flash_fwd_kernel<bf16, 64>": 4 * tile,
+            "flash_bwd_dq_kernel<bf16, 64>": 4 * tile,
+            "flash_bwd_dkv_kernel<bf16, 64>": dkv,
+            "flash_bwd_fused_kernel<bf16, 64>": max(4 * tile, dkv),
+            "sparse_fused_bwd_kernel<bf16, 64>": dkv + tile,
             "paged_attn_mma_kernel<bf16, 64>, decode": k10}
 
 
@@ -896,7 +916,7 @@ def _rel_err(a, b):
 
 def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
                   kern, plain, lib, lib_name, causal=True, cold=False,
-                  **extra):
+                  device=False, **extra):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) <= FLASH_REL_TOL, (kernel, case, drop, errs)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -916,8 +936,14 @@ def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
                           for a, b in zip(got, want)),
            "max_rel_err": max(errs), "rel_tol": FLASH_REL_TOL,
            "bit_equal_across_launches": same, **extra}
-    if cold:  # one launch after a 64 MB write, beside the warm mean
+    # The kernel's own time a call (graph replay; the library's backward,
+    # an autograd call, is not captured) and one launch after a 64 MB
+    # write, beside the warm mean.
+    if device:
+        rec["device_ms"] = device_ms(kern)
+    if cold or device:
         rec["cold_ms"] = cold_ms(kern)
+    if cold:
         rec["library_cold_ms"] = None if lib is None else cold_ms(lib)
     emit(rec)
     return rec
@@ -980,7 +1006,7 @@ def check_flash(dev, gen):
                 "flash_attention_bwd_fused", case, B, S, drop, kern(), want,
                 kern(), 7 * N * 2 + lse_delta, 10 * D * pairs, kern, plain,
                 lib_bwd, "F.scaled_dot_product_attention backward "
-                "(torch.autograd.grad)"))
+                "(torch.autograd.grad)", device=True))
         else:
             # No library call computes dq alone or dk/dv alone: each of the
             # pair carries the library's whole backward (dq, dk and dv) as
@@ -993,11 +1019,11 @@ def check_flash(dev, gen):
             out.append(_flash_record(
                 "flash_attention_bwd_dq", case, B, S, drop, kq(), want[:1],
                 kq(), 5 * N * 2 + lse_delta, 6 * D * pairs, kq, plain, None,
-                None, **pair))
+                None, device=True, **pair))
             out.append(_flash_record(
                 "flash_attention_bwd_dkv", case, B, S, drop, kkv(), want[1:],
                 kkv(), 6 * N * 2 + lse_delta, 8 * D * pairs, kkv, plain,
-                None, None, **pair))
+                None, None, device=True, **pair))
         del want, lib_out, sq, sk, sv
         torch.cuda.empty_cache()
     return out

@@ -32,31 +32,34 @@
 // softmax state in VMEM scratch; CUDA blocks run in no order, so each
 // block owns one q-tile (forward, dq) or one k-tile (dk/dv) and loops
 // over the other axis itself, only as far as the causal diagonal. Tiles
-// are 64 x 64 for bf16/fp16 (32 x 32 for fp32). The forward (K1) is
-// register-resident, the FlashAttention-2 form on mma.sync: each warp
-// owns 16 q rows, S, P and O stay in registers (m16n8k16 from ldmatrix
-// fragments, fp32 accumulate), K and V come through a cp.async double
-// buffer with one barrier per k-tile, and only the diagonal tile is
-// masked (FwdTiles). The backward passes stage their tiles in shared
-// memory and run the products through nvcuda::wmma m16n16k16; fp32
-// inputs run plain fp32 FMAs (true fp32, no TF32) in both directions.
-// P and dS are rounded to the input type exactly where the TPU kernels
-// round them (before PV, before the dq/dk products; l sums the undropped
-// p; a kept element is scaled by the fp32 constant 1/(1-rate)). Masked
-// scores are -1e30, as in the TPU kernels. The fused backward runs one
-// block per (batch, head): it walks k-tiles outward and q-tiles inward
-// from the diagonal, keeps the k-tile's dk/dv in shared memory and adds
-// each tile's dq into an fp32 workspace only this block touches, then
-// casts it. No kernel uses atomics, so two launches on the same inputs
-// give the same bits. No TMA and no wgmma yet.
+// are 64 x 64 for bf16/fp16 (32 x 32 for fp32). bf16/fp16 tiles are
+// register-resident, the FlashAttention-2 form on mma.sync: each of the
+// four warps owns 16 rows, scores, P, dS and the fp32 accumulators stay
+// in registers (m16n8k16 from ldmatrix fragments), the streamed operand
+// comes through a cp.async double buffer with one barrier per tile, and
+// only the diagonal tile is masked. fp32 inputs run scalar fp32 FMAs
+// (true fp32, no TF32) in shared memory. P and dS are rounded to the
+// input type exactly where the TPU kernels round them (before PV, before
+// the dq/dk products; l sums the undropped p; a kept element is scaled by
+// the fp32 constant 1/(1-rate)). Masked scores are -1e30, as in the TPU
+// kernels.
+//
+// The fused backward (K2c) is one launch with two block roles over a grid
+// of (batch x head, 2 x S/64): an even block computes dk, dv of one
+// k-tile (the dk/dv pass of K2b), an odd block dq of one q-tile (K2a's
+// pass, which replays s and dp: 14*D matmul FLOPs a kept pair where a
+// single pass adding dq partials needs 10*D). In return the grid fills
+// the card many times over and dq needs no workspace and no second pass
+// over a cross-block sum; roles interleave with the heaviest tiles first
+// (k-tile 0 and the last q-tile under the causal rule). No kernel uses
+// atomics, so two launches on the same inputs give the same bits. No TMA
+// and no wgmma yet.
 #include "flash_tiles.cuh"
 
 using namespace dstt;
 using namespace dstt::flash;
 
 namespace {
-
-constexpr int kFusedThreads = 256;  // fused backward: one block per head
 
 // Whether the layout gate lets the (q-tile qt, k-tile kt) pair of head bh
 // run (always, ungated).
@@ -90,184 +93,112 @@ flash_fwd_kernel(Args a) {
 }
 
 // --------------------------------------------------------------------- //
-// K2a: dq over q rows
+// The backward's two roles: dq of q-tile qi over its k-tiles, and dk, dv
+// of k-tile kj over its q-tiles (only as far as the causal diagonal;
+// tile pairs the layout gate closes are skipped).
 // --------------------------------------------------------------------- //
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  constexpr int t = kTile<T>;
-  const int qi = gridDim.y - 1 - blockIdx.y, bh = blockIdx.x;
-  extern __shared__ __align__(128) unsigned char smem[];
-  DqTiles<T> sm(smem, a.D);
+template <typename T, int DP>
+__device__ __forceinline__ void dq_tile(const Args& a, int bh, int qi,
+                                        unsigned char* smem) {
+  DqOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, qi, a.D);
-  const int nk = a.causal ? qi + 1 : a.S / t;
+  const int nk = a.causal ? qi + 1 : a.S / kTile<T>;
   for (int kj = 0; kj < nk; ++kj)
     if (gate_open<T>(a, bh, qi, kj)) sm.step(a, hp, qi, kj);
   sm.end(a, hp, qi);
 }
 
-// --------------------------------------------------------------------- //
-// K2b: dk and dv over k columns (transposed tiles: rows are keys)
-// --------------------------------------------------------------------- //
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
-  constexpr int t = kTile<T>;
-  const int kj = blockIdx.y, bh = blockIdx.x;  // k-tile 0 has most work
-  extern __shared__ __align__(128) unsigned char smem[];
-  DkvTiles<T> sm(smem, a.D);
+template <typename T, int DP>
+__device__ __forceinline__ void dkv_tile(const Args& a, int bh, int kj,
+                                         unsigned char* smem) {
+  DkvOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, kj, a.D);
-  const int nq = a.S / t;
-  for (int qi = a.causal ? kj : 0; qi < nq; ++qi)
+  for (int qi = a.causal ? kj : 0; qi < a.S / kTile<T>; ++qi)
     if (gate_open<T>(a, bh, qi, kj)) sm.step(a, hp, qi, kj, nullptr);
   sm.end(a, hp, kj);
 }
 
-// --------------------------------------------------------------------- //
-// K2c: fused whole-sequence backward, one block per (batch, head)
-// --------------------------------------------------------------------- //
-template <typename T>
-__global__ void __launch_bounds__(kFusedThreads)
-flash_bwd_fused_kernel(Args a) {
-  constexpr int t = kTile<T>, LS = kLds<T>;
-  const int D = a.D, LD = ldd(D);
-  const int bh = blockIdx.x;
+// K2a: dq, one block per q-tile, long causal rows first.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
+flash_bwd_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Ks = cv.take<T>(t * LD);
-  T* Vs = cv.take<T>(t * LD);
-  T* Qs = cv.take<T>(t * LD);
-  T* dOs = cv.take<T>(t * LD);
-  float* Ss = cv.take<float>(t * LS);
-  float* dPs = cv.take<float>(t * LS);
-  T* Pd;
-  T* dSs;
-  if constexpr (kScalar<T>) {
-    Pd = reinterpret_cast<T*>(Ss);
-    dSs = reinterpret_cast<T*>(dPs);
-  } else {
-    Pd = cv.take<T>(t * LS);
-    dSs = cv.take<T>(t * LS);
-  }
-  float* dK = cv.take<float>(t * LD);
-  float* dV = cv.take<float>(t * LD);
-  float* lse_s = cv.take<float>(t);
-  float* delta_s = cv.take<float>(t);
+  dq_tile<T, DP>(a, blockIdx.x, gridDim.y - 1 - blockIdx.y, smem);
+}
 
-  const Head h(a, bh);
-  const T* q = static_cast<const T*>(a.q) + h.in;
-  const T* k = static_cast<const T*>(a.k) + h.in;
-  const T* v = static_cast<const T*>(a.v) + h.in;
-  const T* dout = static_cast<const T*>(a.dout) + h.out;
-  float* ws = a.dq_ws + static_cast<long long>(bh) * a.S * D;
-  const bool drop = a.rate > 0.f;
-  const uint32_t stream = hash_stream(a.seed, bh, drop);
-  const int n = a.S / t;
-  T* dk = static_cast<T*>(a.dk) + h.out;
-  T* dv = static_cast<T*>(a.dv) + h.out;
+// K2b: dk and dv, one block per k-tile (k-tile 0 has the most work).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
+flash_bwd_dkv_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dkv_tile<T, DP>(a, blockIdx.x, blockIdx.y, smem);
+}
 
-  for (int kj = 0; kj < n; ++kj) {
-    __syncthreads();
-    const long long koff = static_cast<long long>(kj) * t * a.sS;
-    load_rows(Ks, LD, k + koff, a.sS, t, D);
-    load_rows(Vs, LD, v + koff, a.sS, t, D);
-    fill(dK, t * LD, 0.f);
-    fill(dV, t * LD, 0.f);
-    for (int qi = a.causal ? kj : 0; qi < n; ++qi) {
-      __syncthreads();
-      load_rows(Qs, LD, q + static_cast<long long>(qi) * t * a.sS, a.sS, t,
-                D);
-      load_rows(dOs, LD,
-                dout + static_cast<long long>(qi) * t * h.out_stride,
-                h.out_stride, t, D);
-      for (int r = threadIdx.x; r < t; r += blockDim.x) {
-        lse_s[r] = a.lse[static_cast<long long>(bh) * a.S + qi * t + r];
-        delta_s[r] = a.delta[static_cast<long long>(bh) * a.S + qi * t + r];
-      }
-      __syncthreads();
-      tile_mm<T, false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
-      tile_mm<T, false, true>(dOs, LD, Vs, LD, dPs, LS, t, t, D, false);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < t * t; idx += blockDim.x) {
-        const int r = idx / t;
-        const int c = idx - r * t;
-        const Grad g = grad_elem(a, stream, drop, qi * t + r, kj * t + c,
-                                 Ss[r * LS + c], dPs[r * LS + c], lse_s[r],
-                                 delta_s[r]);
-        Pd[r * LS + c] = from_f32<T>(g.pd);
-        dSs[r * LS + c] = from_f32<T>(g.ds);
-      }
-      __syncthreads();
-      // dv += p_drop^T dO, dk += dS^T Q, dq(tile qi) += dS K. The first
-      // k-tile (kj = 0) reaches every q-tile, so it initialises dq.
-      tile_mm<T, true, false>(Pd, LS, dOs, LD, dV, LD, t, D, t, true);
-      tile_mm<T, true, false>(dSs, LS, Qs, LD, dK, LD, t, D, t, true);
-      tile_mm<T, false, false>(dSs, LS, Ks, LD,
-                               ws + static_cast<long long>(qi) * t * D, D, t,
-                               D, t, kj > 0);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < t * D; idx += blockDim.x) {
-      const int r = idx / D;
-      const int d = idx - r * D;
-      const long long o =
-          static_cast<long long>(kj * t + r) * h.out_stride + d;
-      dk[o] = from_f32<T>(dK[r * LD + d]);
-      dv[o] = from_f32<T>(dV[r * LD + d]);
-    }
-  }
-  __syncthreads();  // every dq tile is final (block-local global writes)
-  T* dq = static_cast<T*>(a.dq) + h.out;
-  for (int idx = threadIdx.x; idx < a.S * D; idx += blockDim.x) {
-    const int s = idx / D;
-    const int d = idx - s * D;
-    dq[static_cast<long long>(s) * h.out_stride + d] = from_f32<T>(ws[idx]);
-  }
+// K2c: both roles in one launch; blockIdx.y even: dk, dv of k-tile y/2,
+// odd: dq of q-tile n-1-y/2, so the heaviest tiles of both come first.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
+flash_bwd_fused_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int y = blockIdx.y, n = a.S / kTile<T>;
+  if (y & 1)
+    dq_tile<T, DP>(a, blockIdx.x, n - 1 - (y >> 1), smem);
+  else
+    dkv_tile<T, DP>(a, blockIdx.x, y >> 1, smem);
 }
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3 };
 
-template <typename T>
-cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t st) {
-  const int bh = B * a.nH;
-  const int nt = a.S / kTile<T>;
-  void (*kern)(Args);
-  size_t smem;
-  dim3 grid(bh, nt);
-  int threads = kThreads;
+// The kernel of `kind` at head-dim register width DP, and its dynamic
+// shared memory.
+template <typename T, int DP>
+void kernel_of(Kind kind, const Args& a, void (*&kern)(Args), size_t& smem) {
   switch (kind) {
     case kFwd:
-      // DP: the head dim's register width (the fp32 scalar tile has none)
-      if constexpr (kScalar<T>)
-        kern = flash_fwd_kernel<T, 128>;
-      else
-        kern = dpad(a.D) == 128 ? flash_fwd_kernel<T, 128>
-               : dpad(a.D) == 64 ? flash_fwd_kernel<T, 64>
-                                 : flash_fwd_kernel<T, 32>;
+      kern = flash_fwd_kernel<T, DP>;
       smem = fwd_smem<T>(a.D);
       break;
     case kDq:
-      kern = flash_bwd_dq_kernel<T>;
+      kern = flash_bwd_dq_kernel<T, DP>;
       smem = dq_smem<T>(a.D);
       break;
     case kDkv:
-      kern = flash_bwd_dkv_kernel<T>;
-      smem = dkv_smem<T>(a.D);
+      kern = flash_bwd_dkv_kernel<T, DP>;
+      smem = dkv_smem<T>(a.D, false);
       break;
-    default:
-      kern = flash_bwd_fused_kernel<T>;
-      smem = dkv_smem<T>(a.D);
-      grid = dim3(bh);
-      threads = kFusedThreads;
+    default: {
+      kern = flash_bwd_fused_kernel<T, DP>;
+      const size_t dq = dq_smem<T>(a.D), dkv = dkv_smem<T>(a.D, false);
+      smem = dq > dkv ? dq : dkv;
       break;
+    }
   }
+}
+
+template <typename T>
+cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t st) {
+  const int nt = a.S / kTile<T>;
+  void (*kern)(Args);
+  size_t smem;
+  // DP: the head dim's register width (the fp32 scalar tiles have none)
+  if constexpr (kScalar<T>)
+    kernel_of<T, 128>(kind, a, kern, smem);
+  else if (dpad(a.D) == 128)
+    kernel_of<T, 128>(kind, a, kern, smem);
+  else if (dpad(a.D) == 64)
+    kernel_of<T, 64>(kind, a, kern, smem);
+  else
+    kernel_of<T, 32>(kind, a, kern, smem);
   if (a.layout != nullptr &&
       (kind == kFused || a.lay_block % kTile<T> != 0 ||
        static_cast<long long>(a.lay_nb) * a.lay_block != a.S))
     return cudaErrorInvalidValue;
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, threads, smem, st>>>(a);
+  const dim3 grid(B * a.nH, kind == kFused ? 2 * nt : nt);
+  kern<<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -380,7 +311,7 @@ extern "C" int dstt_flash_bwd_fused(const void* q, const void* k,
                                     long long sS, long long sH,
                                     const void* dout, const void* lse,
                                     const void* delta, void* dq, void* dk,
-                                    void* dv, void* dq_ws, const void* seed,
+                                    void* dv, const void* seed,
                                     int B, int nH, int S, int D, float scale,
                                     float rate, float inv_keep, int causal,
                                     int dtype, void* stream) {
@@ -392,6 +323,5 @@ extern "C" int dstt_flash_bwd_fused(const void* q, const void* k,
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.dq_ws = static_cast<float*>(dq_ws);
   return dispatch(kFused, a, B, dtype, stream);
 }

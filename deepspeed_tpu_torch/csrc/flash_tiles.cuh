@@ -1,10 +1,17 @@
 // Tile code shared by the flash attention kernels (flash_attention.cu) and
 // the block-sparse ones (sparse_flash.cu): the tile sizes and shared-memory
-// carve-up, the dropout hash, the tensor-core tile product, and one step
-// of each pass over a (q-tile, k-tile) pair — the forward's online softmax,
-// the dq pass and the dk/dv pass. A kernel decides which pairs it visits
-// (the causal diagonal, a layout gate, a block-sparse lookup table) and
-// calls the steps in a fixed order, so two launches give the same bits.
+// carve-up, the dropout hash, and one step of each pass over a (q-tile,
+// k-tile) pair — the forward's online softmax, the dq pass and the dk/dv
+// pass. A kernel decides which pairs it visits (the causal diagonal, a
+// layout gate, a block-sparse lookup table) and calls the steps in a fixed
+// order, so two launches give the same bits.
+//
+// Two forms of each pass: bf16/fp16 tiles are register-resident (64 x 64,
+// mma.sync m16n8k16 from ldmatrix fragments, fp32 accumulate, operands
+// streamed through a cp.async double buffer; FwdTiles, DqTiles, DkvTiles);
+// fp32 tiles are 32 x 32 scalar FMAs in shared memory (true fp32, no TF32;
+// FwdTilesScalar, DqTilesScalar, DkvTilesScalar). FwdOf, DqOf and DkvOf
+// pick the form of a type.
 //
 // Numerics (the TPU kernels'): fp32 scores (q.k) * scale; a masked element
 // (causal) has score -1e30 and probability exactly 0; the softmax
@@ -15,8 +22,6 @@
 
 #include <cstdint>
 #include <type_traits>
-
-#include <mma.h>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -34,13 +39,13 @@ constexpr bool kScalar = std::is_same<T, float>::value;
 template <typename T>
 constexpr int kTile = kScalar<T> ? 32 : 64;
 
-// Row pitch of a [tile][tile] score tile and of a [tile][D] tile, in
-// elements: multiples of 8, as wmma wants for 16-bit and fp32 tiles.
+// Row pitch of the scalar tiles' [tile][tile] score tile and [tile][D]
+// tiles, in elements (padded by 8 against bank conflicts).
 template <typename T>
 constexpr int kLds = kTile<T> + 8;
 __host__ __device__ constexpr int ldd(int D) { return D + 8; }
 
-// DP, the forward tile's register width for a head dim: 32, 64 or 128.
+// DP, the register tiles' width for a head dim: 32, 64 or 128.
 __host__ __device__ constexpr int dpad(int D) {
   return D <= 32 ? 32 : (D <= 64 ? 64 : 128);
 }
@@ -50,7 +55,7 @@ __host__ __device__ constexpr size_t rup(size_t x) {
 }
 
 // Bump allocator over the block's dynamic shared memory (128-byte
-// aligned pieces, as wmma's 32-byte pointer alignment needs).
+// aligned pieces, so every 16-byte vector access is aligned).
 struct Carve {
   unsigned char* p;
   template <typename U>
@@ -63,9 +68,16 @@ struct Carve {
 
 // The regenerable dropout decision of _dropout_keep: murmur3 finalizer
 // over qpos * 0x9E3779B9 + kpos + (seed ^ bh * 0x85EBCA6B), uint32
-// wraparound; keep iff the top 24 bits as a [0, 1) float >= rate.
+// wraparound; keep iff the top 24 bits as a [0, 1) float, (x >> 8) *
+// 2^-24, are >= rate. Both sides are exact in fp32, so the test is the
+// integer one (x >> 8) >= ceil(rate * 2^24) = keep_min (keep_threshold),
+// the same bits with no conversion per element.
+__device__ __forceinline__ uint32_t keep_threshold(float rate) {
+  return static_cast<uint32_t>(ceilf(rate * 16777216.0f));
+}
+
 __device__ __forceinline__ bool keep_elem(uint32_t stream, uint32_t qpos,
-                                          uint32_t kpos, float rate) {
+                                          uint32_t kpos, uint32_t keep_min) {
   uint32_t x = qpos * 0x9E3779B9u + kpos;
   x += stream;
   x ^= x >> 16;
@@ -73,9 +85,7 @@ __device__ __forceinline__ bool keep_elem(uint32_t stream, uint32_t qpos,
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
-  const float u = static_cast<float>(static_cast<int>(x >> 8)) *
-                  (1.0f / 16777216.0f);
-  return u >= rate;
+  return (x >> 8) >= keep_min;
 }
 
 __device__ __forceinline__ uint32_t hash_stream(const int* seed, int bh,
@@ -85,54 +95,26 @@ __device__ __forceinline__ uint32_t hash_stream(const int* seed, int bh,
               : 0u;
 }
 
-// C[M][N] (fp32, pitch ldc) = (acc ? C : 0) + op(A) * op(B), op(A) M x K
-// and op(B) K x N. A is stored [M][K] (pitch lda), or [K][M] when TA; B
-// is stored [K][N], or [N][K] when TB. M, N, K are multiples of 16. The
-// whole block calls it; each warp owns 16 x 16 output tiles. C may be in
-// shared or global memory.
-template <typename T, bool TA, bool TB>
-__device__ __forceinline__ void tile_mm(const T* A, int lda, const T* B,
-                                        int ldb, float* C, int ldc, int M,
-                                        int N, int K, bool acc) {
-  if constexpr (kScalar<T>) {
-    for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
-      const int i = idx / N;
-      const int j = idx - i * N;
-      float s = 0.f;
+// C[M][N] (pitch ldc) = (acc ? C : 0) + op(A) * op(B) in fp32 FMAs (the
+// scalar tiles), op(A) M x K and op(B) K x N. A is stored [M][K] (pitch
+// lda), or [K][M] when TA; B is stored [K][N], or [N][K] when TB. The
+// whole block calls it. C may be in shared or global memory.
+template <bool TA, bool TB>
+__device__ __forceinline__ void tile_mm(const float* A, int lda,
+                                        const float* B, int ldb, float* C,
+                                        int ldc, int M, int N, int K,
+                                        bool acc) {
+  for (int idx = threadIdx.x; idx < M * N; idx += blockDim.x) {
+    const int i = idx / N;
+    const int j = idx - i * N;
+    float s = 0.f;
 #pragma unroll 8
-      for (int kk = 0; kk < K; ++kk) {
-        const float a = TA ? A[kk * lda + i] : A[i * lda + kk];
-        const float b = TB ? B[j * ldb + kk] : B[kk * ldb + j];
-        s = fmaf(a, b, s);
-      }
-      C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
+    for (int kk = 0; kk < K; ++kk) {
+      const float a = TA ? A[kk * lda + i] : A[i * lda + kk];
+      const float b = TB ? B[j * ldb + kk] : B[kk * ldb + j];
+      s = fmaf(a, b, s);
     }
-  } else {
-    using namespace nvcuda;
-    using LA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
-    using LB = std::conditional_t<TB, wmma::col_major, wmma::row_major>;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const int nt = N / 16;
-    for (int f = warp; f < (M / 16) * nt; f += nwarps) {
-      const int i = (f / nt) * 16;
-      const int j = (f - (f / nt) * nt) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (acc)
-        wmma::load_matrix_sync(c, C + i * ldc + j, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> b;
-        wmma::load_matrix_sync(a, TA ? A + kk * lda + i : A + i * lda + kk,
-                               lda);
-        wmma::load_matrix_sync(b, TB ? B + j * ldb + kk : B + kk * ldb + j,
-                               ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + i * ldc + j, c, ldc, wmma::mem_row_major);
-    }
+    C[i * ldc + j] = acc ? C[i * ldc + j] + s : s;
   }
 }
 
@@ -168,16 +150,20 @@ size_t fwd_smem(int D) {
 template <typename T>
 size_t dq_smem(int D) {
   constexpr int t = kTile<T>, ls = kLds<T>;
+  if constexpr (!kScalar<T>)  // 2 x (K, V); Q and dO land in the second
+    return 4 * t * (dpad(D) + 8) * sizeof(T);
   return 4 * rup(t * ldd(D) * sizeof(T)) + 2 * rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : rup(t * ls * sizeof(T))) +
          rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
 }
 
+// part: the step also writes the dq partial (the sparse fused backward).
 template <typename T>
-size_t dkv_smem(int D) {  // also the fused backwards'
+size_t dkv_smem(int D, bool part) {
   constexpr int t = kTile<T>, ls = kLds<T>;
+  if constexpr (!kScalar<T>)  // K, V, 2 x (Q, dO, lse, delta), dS^T
+    return 6 * t * (dpad(D) + 8) * sizeof(T) + 4 * t * sizeof(float) +
+           (part ? t * (t + 8) * sizeof(T) : 0);
   return 4 * rup(t * ldd(D) * sizeof(T)) + 2 * rup(t * ls * sizeof(float)) +
-         (kScalar<T> ? 0 : 2 * rup(t * ls * sizeof(T))) +
          2 * rup(t * ldd(D) * sizeof(float)) + 2 * rup(t * sizeof(float));
 }
 
@@ -194,7 +180,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  float* dq_ws;          // fused backwards: fp32 dq workspace
+  float* dq_ws;          // sparse fused backward: fp32 dq partials
   const int* seed;
   // Layout gate (flash kernels): int32 [nH, nb, nb], nullptr = ungated;
   // element (h, i, j) gates the (q-block i, k-block j) pair of lay_block
@@ -230,7 +216,7 @@ struct HeadPtrs {
   float* lse;          // this head's row of [B*nH, S]
   const float* delta;
   bool drop;
-  uint32_t stream;
+  uint32_t stream, keep_min;
   __device__ HeadPtrs(const Args& a, int bh) {
     const Head h(a, bh);
     q = static_cast<const T*>(a.q) + h.in;
@@ -244,6 +230,7 @@ struct HeadPtrs {
     delta = a.delta ? a.delta + static_cast<long long>(bh) * a.S : nullptr;
     drop = a.rate > 0.f;
     stream = hash_stream(a.seed, bh, drop);
+    keep_min = keep_threshold(a.rate);
   }
 };
 
@@ -255,19 +242,53 @@ struct Grad {
   float pd, ds;
 };
 __device__ __forceinline__ Grad grad_elem(const Args& a, uint32_t stream,
-                                          bool drop, int qpos, int kpos,
-                                          float s, float dp, float lse,
-                                          float delta) {
+                                          uint32_t keep_min, bool drop,
+                                          int qpos, int kpos, float s,
+                                          float dp, float lse, float delta) {
   const bool masked = a.causal && kpos > qpos;
   const float p = masked ? 0.f : expf(s * a.scale - lse);
   float pd = p;
   if (drop) {
-    const bool keep = keep_elem(stream, qpos, kpos, a.rate);
+    const bool keep = keep_elem(stream, qpos, kpos, keep_min);
     pd = keep ? p * a.inv_keep : 0.f;
     dp = keep ? dp * a.inv_keep : 0.f;
   }
   return {pd, p * (dp - delta) * a.scale};
 }
+
+// cp.async copies of 64-row tiles at pitch DP + 8: thread -> (rows
+// r0 + i * kRowStep, 16-byte chunk cc); chunks at or past D are skipped
+// (those columns stay zero).
+template <typename T, int DP>
+struct TileCopy {
+  static constexpr int t = 64;
+  static constexpr int LD = DP + 8;
+  static constexpr int kCpr = DP / 8;
+  static constexpr int kRowStep = kThreads / kCpr;
+  int r0, cc;
+  bool act;
+  __device__ void init(int D) {
+    cc = threadIdx.x % kCpr;
+    r0 = threadIdx.x / kCpr;
+    act = cc * 8 < D;
+  }
+  __device__ __forceinline__ void copy(T* dst, const T* src,
+                                       long long stride) const {
+    if (!act) return;
+#pragma unroll
+    for (int i = 0; i < t / kRowStep; ++i)
+      tc::cp_async16(dst + (r0 + i * kRowStep) * LD + cc * 8,
+                     src + (r0 + i * kRowStep) * stride + cc * 8, true);
+  }
+  // Zero columns D..DP-1 of n consecutive tiles from base.
+  __device__ static void zero_pad(T* base, int n, int D) {
+    if (D == DP) return;
+    for (int idx = threadIdx.x; idx < n * t * (DP - D); idx += kThreads) {
+      const int r = idx / (DP - D);
+      base[r * LD + D + (idx - r * (DP - D))] = from_f32<T>(0.f);
+    }
+  }
+};
 
 // --------------------------------------------------------------------- //
 // The forward over one q-tile: begin, one step per visited k-tile, end.
@@ -301,14 +322,9 @@ struct FwdTiles {
   // Row pitch: DP + 8 elements; columns D..DP-1 stay zero (begin), so the
   // fragment loops run over DP with no run-time guard.
   static constexpr int LD = DP + 8;
-  // cp.async mapping: thread -> (row r0 + i * kRowStep, 16-byte chunk cc).
-  static constexpr int kCpr = DP / 8;
-  static constexpr int kRowStep = kThreads / kCpr;
   T* buf;  // [2 slots][K, V][t][LD]
+  TileCopy<T, DP> cp;
   int n, pending;
-  bool cact;
-  int soff;
-  long long goff;
   float m[2], l[2];  // rows g, g + 8; m in log2 units (score * log2(e))
   float acc[DP / 8][4];
   uint32_t qa[DP / 16][4];
@@ -318,29 +334,11 @@ struct FwdTiles {
   }
   __device__ T* slot(int i) { return buf + i * 2 * t * LD; }
 
-  // The t rows of a tile from global (row stride `stride`) into shared
-  // memory as cp.async 16-byte copies.
-  __device__ __forceinline__ void copy_tile(T* dst, const T* src,
-                                            long long stride) {
-    if (!cact) return;
-#pragma unroll
-    for (int i = 0; i < t / kRowStep; ++i)
-      tc::cp_async16(dst + soff + i * kRowStep * LD,
-                     src + goff + i * kRowStep * stride, true);
-  }
-
   __device__ __forceinline__ void begin(const HeadPtrs<T>& hp, int qt,
                                         int D) {
-    const int cc = threadIdx.x % kCpr, r0 = threadIdx.x / kCpr;
-    cact = cc * 8 < D;
-    soff = r0 * LD + cc * 8;
-    goff = r0 * hp.sS + cc * 8;
-    if (D < DP)  // zero the padding columns of all four tiles
-      for (int idx = threadIdx.x; idx < 4 * t * (DP - D); idx += kThreads) {
-        const int r = idx / (DP - D);
-        buf[r * LD + D + (idx - r * (DP - D))] = from_f32<T>(0.f);
-      }
-    copy_tile(slot(1), hp.q + static_cast<long long>(qt) * t * hp.sS, hp.sS);
+    cp.init(D);
+    TileCopy<T, DP>::zero_pad(buf, 4, D);
+    cp.copy(slot(1), hp.q + static_cast<long long>(qt) * t * hp.sS, hp.sS);
     tc::cp_async_commit();
     n = 0;
     pending = -1;
@@ -350,7 +348,6 @@ struct FwdTiles {
     for (int i = 0; i < DP / 8; ++i)
       acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   }
-
   __device__ __forceinline__ void step(const Args& a, const HeadPtrs<T>& hp,
                                        int qt, int kt) {
     const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
@@ -366,8 +363,8 @@ struct FwdTiles {
     }
     T* dst = slot(n & 1);
     const long long off = static_cast<long long>(kt) * t * hp.sS;
-    copy_tile(dst, hp.k + off, hp.sS);
-    copy_tile(dst + t * LD, hp.v + off, hp.sS);
+    cp.copy(dst, hp.k + off, hp.sS);
+    cp.copy(dst + t * LD, hp.v + off, hp.sS);
     tc::cp_async_commit();
     if (pending >= 0) compute_any(a, hp, qt);
     pending = kt;
@@ -432,7 +429,7 @@ struct FwdTiles {
           psum += p;
           if constexpr (kDrop)
             p = keep_elem(hp.stream, qpos, kt * t + i * 8 + 2 * tig + e,
-                          a.rate)
+                          hp.keep_min)
                     ? p * a.inv_keep
                     : 0.f;
           pe[e] = p;
@@ -540,7 +537,7 @@ struct FwdTilesScalar {
     load_rows(Ks, LD, hp.k + off, hp.sS, t, D);
     load_rows(Vs, LD, hp.v + off, hp.sS, t, D);
     __syncthreads();
-    tile_mm<T, false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
+    tile_mm<false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
     __syncthreads();
     for (int r = warp; r < t; r += nwarps) {
       const int qpos = qt * t + r;
@@ -565,8 +562,9 @@ struct FwdTilesScalar {
         float p = sv[u] == kNegInf ? 0.f : expf(sv[u] - m_new);
         psum += p;
         if (hp.drop)
-          p = keep_elem(hp.stream, qpos, kt * t + c, a.rate) ? p * a.inv_keep
-                                                             : 0.f;
+          p = keep_elem(hp.stream, qpos, kt * t + c, hp.keep_min)
+                  ? p * a.inv_keep
+                  : 0.f;
         Ps[r * LS + c] = from_f32<T>(p);
       }
       psum = warp_sum(psum);
@@ -577,7 +575,7 @@ struct FwdTilesScalar {
       }
     }
     __syncthreads();
-    tile_mm<T, false, false>(Ps, LS, Vs, LD, acc, LD, t, D, t, true);
+    tile_mm<false, false>(Ps, LS, Vs, LD, acc, LD, t, D, t, true);
   }
 
   // o = acc / l (0 for a row that saw no key), lse = m + log(l).
@@ -615,21 +613,460 @@ __host__ __device__ constexpr int fwd_min_blocks(int DP) {
 }
 
 // --------------------------------------------------------------------- //
-// dq over one q-tile: begin, one step per visited k-tile, end.
+// The backward: dq over one q-tile (DqTiles) and dk, dv over one k-tile
+// (DkvTiles); each is begin, one step per visited tile of the other
+// axis, end.
+//
+// bf16/fp16: register-resident, on the forward's primitives. Both replay
+// p = exp(s * scale - lse) from the saved lse (2^x on the SFU over
+// log2(e)-scaled values), apply the dropout keep of the fragment's
+// (qpos, kpos) and form ds = p * (dp - delta) * scale in registers; only
+// the diagonal tile is masked, and the dropout and plain forms are two
+// code paths. P_drop and dS are rounded to T in registers and become A
+// operands directly (the m16n8 C layout is the m16n8k16 A layout). The
+// streamed operand comes through a cp.async double buffer with one
+// barrier per step, one tile behind the caller (as FwdTiles streams K
+// and V); the resident operand is copied once at begin. Columns D..DP-1
+// of every shared tile are zero, so no fragment loop has a run-time
+// guard. Per step a pass runs over its 64 streamed rows in chunks of NC
+// (64; 32 at DP 128, where the fp32 accumulators take 64 registers), so
+// the chunk's score and dp tiles stay within the register budget.
+//
+// DqTiles (the dq role): each of the four warps owns 16 q rows; its Q
+// and dO fragments are loaded once; S = Q K^T and dP = dO V^T with K and
+// V as non-transposed B operands, then dQ += dS K with K through
+// ldmatrix.trans; dQ stays in fp32 registers until end. K and V stream.
+//
+// DkvTiles (the dk/dv role, key-row orientation): each warp owns 16 keys;
+// S^T = K Q^T and dP^T = V dO^T with the warp's K and V rows as A
+// fragments (ldmatrix from the resident tiles) and Q and dO as
+// non-transposed B operands; lse and delta are per column. Then
+// dV += P_drop^T dO and dK += dS^T Q with Q and dO through
+// ldmatrix.trans; dK and dV stay in fp32 registers. Q, dO and the
+// q-tile's lse and delta stream. With dq_part (the sparse fused
+// backward) a step also writes the q-tile's fp32 dq partial dS K: dS^T is
+// staged in shared memory as T, and after a barrier each warp multiplies
+// 16 of its q rows (A through ldmatrix.trans) by the resident K.
 // --------------------------------------------------------------------- //
-template <typename T>
+
+// Blocks per SM the backward kernels are compiled for (registers capped
+// at 65536 / (128 * this)).
+__host__ __device__ constexpr int bwd_min_blocks(int DP) { return 2; }
+
+// The row chunk a backward step works on at once.
+__host__ __device__ constexpr int bwd_chunk(int DP) {
+  return DP == 128 ? 32 : 64;
+}
+
+template <typename T, int DP>
 struct DqTiles {
+  static constexpr int t = 64;
+  static constexpr int LD = DP + 8;
+  static constexpr int NC = bwd_chunk(DP);  // keys per chunk
+  T* buf;  // [2 slots][K, V][t][LD]; Q, dO land in slot 1 (begin)
+  TileCopy<T, DP> cp;
+  int n, pending;
+  float lse2[2], dlt[2];  // rows g, g + 8: lse * log2(e), delta
+  float acc[DP / 8][4];   // dQ
+  uint32_t qa[DP / 16][4], da[DP / 16][4];  // Q, dO A fragments
+
+  __device__ DqTiles(unsigned char* smem, int) {
+    buf = reinterpret_cast<T*>(smem);
+  }
+  __device__ T* slot(int i) { return buf + i * 2 * t * LD; }
+
+  __device__ __forceinline__ void begin(const HeadPtrs<T>& hp, int qt,
+                                        int D) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    cp.init(D);
+    TileCopy<T, DP>::zero_pad(buf, 4, D);
+    cp.copy(slot(1), hp.q + static_cast<long long>(qt) * t * hp.sS, hp.sS);
+    cp.copy(slot(1) + t * LD,
+            hp.dout + static_cast<long long>(qt) * t * hp.out_stride,
+            hp.out_stride);
+    tc::cp_async_commit();
+    n = 0;
+    pending = -1;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = qt * t + warp * 16 + (lane >> 2) + 8 * rr;
+      lse2[rr] = hp.lse[row] * tc::kLog2e;
+      dlt[rr] = hp.delta[row];
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const Args& a, const HeadPtrs<T>& hp,
+                                       int qt, int kt) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile n-1 (or Q, dO) landed; tile n-2's readers done
+    if (n == 0) {
+      const T* qs = slot(1) + warp * 16 * LD;
+      const int off = ((mi & 1) * 8 + r8) * LD + (mi >> 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        tc::ldsm_x4(qa[kk], qs + off + kk * 16);
+        tc::ldsm_x4(da[kk], qs + t * LD + off + kk * 16);
+      }
+    }
+    T* dst = slot(n & 1);
+    const long long off = static_cast<long long>(kt) * t * hp.sS;
+    cp.copy(dst, hp.k + off, hp.sS);
+    cp.copy(dst + t * LD, hp.v + off, hp.sS);
+    tc::cp_async_commit();
+    if (pending >= 0) compute_any(a, hp, qt);
+    pending = kt;
+    ++n;
+  }
+
+  __device__ __forceinline__ void compute_any(const Args& a,
+                                              const HeadPtrs<T>& hp, int qt) {
+    if (hp.drop)
+      compute<true>(a, hp, qt, pending, slot((n - 1) & 1));
+    else
+      compute<false>(a, hp, qt, pending, slot((n - 1) & 1));
+  }
+
+  // dQ += dS K over k-tile kt staged at ks (V follows it).
+  template <bool kDrop>
+  __device__ __forceinline__ void compute(const Args& a, const HeadPtrs<T>& hp,
+                                          int qt, int kt, const T* ks) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+    const T* vs = ks + t * LD;
+    const bool diag = a.causal && kt == qt;
+    const float scale2 = a.scale * tc::kLog2e;
+#pragma unroll
+    for (int h = 0; h < t / NC; ++h) {
+      float sc[NC / 8][4], dp[NC / 8][4];
+#pragma unroll
+      for (int i = 0; i < NC / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j)
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int off = (h * NC + 16 * j + (mi >> 1) * 8 + r8) * LD +
+                          kk * 16 + (mi & 1) * 8;
+          uint32_t b[4];
+          tc::ldsm_x4(b, ks + off);
+          tc::mma16816<T>(sc[2 * j], qa[kk], b[0], b[1]);
+          tc::mma16816<T>(sc[2 * j + 1], qa[kk], b[2], b[3]);
+          tc::ldsm_x4(b, vs + off);
+          tc::mma16816<T>(dp[2 * j], da[kk], b[0], b[1]);
+          tc::mma16816<T>(dp[2 * j + 1], da[kk], b[2], b[3]);
+        }
+      uint32_t sa[NC / 16][4];  // dS as A fragments, one per 16 keys
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int qpos = qt * t + warp * 16 + g + 8 * rr;
+#pragma unroll
+        for (int i = 0; i < NC / 8; ++i) {
+          float de[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = kt * t + h * NC + i * 8 + 2 * tig + e;
+            float p = diag && kpos > qpos
+                          ? 0.f
+                          : tc::exp2_approx(sc[i][2 * rr + e] * scale2 -
+                                            lse2[rr]);
+            float d = dp[i][2 * rr + e];
+            if constexpr (kDrop)
+              d = keep_elem(hp.stream, qpos, kpos, hp.keep_min)
+                      ? d * a.inv_keep
+                      : 0.f;
+            de[e] = p * (d - dlt[rr]) * a.scale;
+          }
+          sa[i >> 1][(i & 1) * 2 + rr] = tc::pack2<T>(de[0], de[1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j)
+#pragma unroll
+        for (int n2 = 0; n2 < DP / 16; ++n2) {
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, ks + (h * NC + 16 * j + (mi & 1) * 8 + r8) * LD +
+                               n2 * 16 + (mi >> 1) * 8);
+          tc::mma16816<T>(acc[2 * n2], sa[j], b[0], b[1]);
+          tc::mma16816<T>(acc[2 * n2 + 1], sa[j], b[2], b[3]);
+        }
+    }
+  }
+
+  __device__ __forceinline__ void end(const Args& a, const HeadPtrs<T>& hp,
+                                      int qt) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    tc::cp_async_wait<0>();
+    if (pending >= 0) {
+      __syncthreads();
+      compute_any(a, hp, qt);
+    }
+    T* dq = static_cast<T*>(a.dq) + hp.out;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      T* row = dq + static_cast<long long>(qt * t + warp * 16 + g + 8 * rr) *
+                        hp.out_stride;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i)
+        if (i * 8 < a.D)
+          *reinterpret_cast<uint32_t*>(row + i * 8 + 2 * tig) =
+              tc::pack2<T>(acc[i][2 * rr], acc[i][2 * rr + 1]);
+    }
+  }
+};
+
+template <typename T, int DP>
+struct DkvTiles {
+  static constexpr int t = 64;
+  static constexpr int LD = DP + 8;
+  static constexpr int LDS = t + 8;         // pitch of the staged dS^T
+  static constexpr int NC = bwd_chunk(DP);  // queries per chunk
+  T* ks;     // [t][LD] K, then V
+  T* buf;    // [2 slots][Q, dO][t][LD]
+  float* ld; // [2 slots][lse, delta][t]
+  T* dst;    // [t][LDS] dS^T (dq partials only)
+  TileCopy<T, DP> cp;
+  int n, pending;
+  float* pending_part;
+  float dk[DP / 8][4], dv[DP / 8][4];
+
+  __device__ DkvTiles(unsigned char* smem, int) {
+    ks = reinterpret_cast<T*>(smem);
+    buf = ks + 2 * t * LD;
+    ld = reinterpret_cast<float*>(buf + 4 * t * LD);
+    dst = reinterpret_cast<T*>(ld + 4 * t);
+  }
+  __device__ T* slot(int i) { return buf + i * 2 * t * LD; }
+
+  __device__ __forceinline__ void begin(const HeadPtrs<T>& hp, int kt,
+                                        int D) {
+    cp.init(D);
+    TileCopy<T, DP>::zero_pad(ks, 6, D);
+    const long long off = static_cast<long long>(kt) * t * hp.sS;
+    cp.copy(ks, hp.k + off, hp.sS);
+    cp.copy(ks + t * LD, hp.v + off, hp.sS);
+    tc::cp_async_commit();
+    n = 0;
+    pending = -1;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const Args& a, const HeadPtrs<T>& hp,
+                                       int qt, int kt, float* dq_part) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile n-1 (or K, V) landed; tile n-2's readers done
+    T* d = slot(n & 1);
+    cp.copy(d, hp.q + static_cast<long long>(qt) * t * hp.sS, hp.sS);
+    cp.copy(d + t * LD,
+            hp.dout + static_cast<long long>(qt) * t * hp.out_stride,
+            hp.out_stride);
+    if (threadIdx.x < 32) {  // lse, then delta: 16 x 16 bytes each
+      const int c = (threadIdx.x & 15) * 4;
+      const float* src = threadIdx.x < 16 ? hp.lse : hp.delta;
+      tc::cp_async16(ld + (n & 1) * 2 * t + (threadIdx.x >> 4) * t + c,
+                     src + qt * t + c, true);
+    }
+    tc::cp_async_commit();
+    if (pending >= 0) compute_any(a, hp, kt);
+    pending = qt;
+    pending_part = dq_part;
+    ++n;
+  }
+
+  __device__ __forceinline__ void compute_any(const Args& a,
+                                              const HeadPtrs<T>& hp, int kt) {
+    const int s = (n - 1) & 1;
+    if (hp.drop)
+      compute<true>(a, hp, pending, kt, slot(s), ld + s * 2 * t,
+                    pending_part);
+    else
+      compute<false>(a, hp, pending, kt, slot(s), ld + s * 2 * t,
+                     pending_part);
+  }
+
+  // dV += P_drop^T dO, dK += dS^T Q over q-tile qt staged at qs (dO
+  // follows it; its lse and delta at lsd).
+  template <bool kDrop>
+  __device__ __forceinline__ void compute(const Args& a, const HeadPtrs<T>& hp,
+                                          int qt, int kt, const T* qs,
+                                          const float* lsd, float* part) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+    const T* dos = qs + t * LD;
+    const T* vs = ks + t * LD;
+    const bool diag = a.causal && kt == qt;
+    const float scale2 = a.scale * tc::kLog2e;
+    const int aoff = (warp * 16 + (mi & 1) * 8 + r8) * LD + (mi >> 1) * 8;
+#pragma unroll
+    for (int h = 0; h < t / NC; ++h) {
+      float sc[NC / 8][4], dp[NC / 8][4];
+#pragma unroll
+      for (int i = 0; i < NC / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        tc::ldsm_x4(ka, ks + aoff + kk * 16);
+        tc::ldsm_x4(va, vs + aoff + kk * 16);
+#pragma unroll
+        for (int j = 0; j < NC / 16; ++j) {
+          const int off = (h * NC + 16 * j + (mi >> 1) * 8 + r8) * LD +
+                          kk * 16 + (mi & 1) * 8;
+          uint32_t b[4];
+          tc::ldsm_x4(b, qs + off);
+          tc::mma16816<T>(sc[2 * j], ka, b[0], b[1]);
+          tc::mma16816<T>(sc[2 * j + 1], ka, b[2], b[3]);
+          tc::ldsm_x4(b, dos + off);
+          tc::mma16816<T>(dp[2 * j], va, b[0], b[1]);
+          tc::mma16816<T>(dp[2 * j + 1], va, b[2], b[3]);
+        }
+      }
+      uint32_t pa[NC / 16][4], sa[NC / 16][4];  // P_drop^T, dS^T
+#pragma unroll
+      for (int i = 0; i < NC / 8; ++i) {
+        float pe[2][2], de[2][2];  // [rr][e]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = h * NC + i * 8 + 2 * tig + e;  // query in the tile
+          const int qpos = qt * t + c;
+          const float l2 = lsd[c] * tc::kLog2e, dl = lsd[t + c];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int kpos = kt * t + warp * 16 + g + 8 * rr;
+            const float p = diag && kpos > qpos
+                                ? 0.f
+                                : tc::exp2_approx(sc[i][2 * rr + e] * scale2 -
+                                                  l2);
+            float pd = p, d = dp[i][2 * rr + e];
+            if constexpr (kDrop) {
+              const bool keep =
+                  keep_elem(hp.stream, qpos, kpos, hp.keep_min);
+              pd = keep ? p * a.inv_keep : 0.f;
+              d = keep ? d * a.inv_keep : 0.f;
+            }
+            pe[rr][e] = pd;
+            de[rr][e] = p * (d - dl) * a.scale;
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          pa[i >> 1][(i & 1) * 2 + rr] = tc::pack2<T>(pe[rr][0], pe[rr][1]);
+          sa[i >> 1][(i & 1) * 2 + rr] = tc::pack2<T>(de[rr][0], de[rr][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NC / 16; ++j)
+#pragma unroll
+        for (int n2 = 0; n2 < DP / 16; ++n2) {
+          const int off = (h * NC + 16 * j + (mi & 1) * 8 + r8) * LD +
+                          n2 * 16 + (mi >> 1) * 8;
+          uint32_t b[4];
+          tc::ldsm_x4_t(b, dos + off);
+          tc::mma16816<T>(dv[2 * n2], pa[j], b[0], b[1]);
+          tc::mma16816<T>(dv[2 * n2 + 1], pa[j], b[2], b[3]);
+          tc::ldsm_x4_t(b, qs + off);
+          tc::mma16816<T>(dk[2 * n2], sa[j], b[0], b[1]);
+          tc::mma16816<T>(dk[2 * n2 + 1], sa[j], b[2], b[3]);
+        }
+      if (part != nullptr)  // stage dS^T: rows are keys
+#pragma unroll
+        for (int j = 0; j < NC / 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            *reinterpret_cast<uint32_t*>(
+                dst + (warp * 16 + g + 8 * (r & 1)) * LDS + h * NC + 16 * j +
+                8 * (r >> 1) + 2 * tig) = sa[j][r];
+    }
+    if (part != nullptr) dq_partial(a, part);
+  }
+
+  // part[q][d] (fp32, pitch D) = (dS K)[q][d] for the warp's 16 q rows.
+  __device__ __forceinline__ void dq_partial(const Args& a, float* part) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r8 = lane & 7;
+    const int warp = threadIdx.x >> 5, g = lane >> 2, tig = lane & 3;
+    __syncthreads();  // every warp's dS^T rows are staged
+    uint32_t sa[t / 16][4];  // dS A fragments (q x key), 16 keys each
+#pragma unroll
+    for (int kk = 0; kk < t / 16; ++kk)
+      tc::ldsm_x4_t(sa[kk], dst + (kk * 16 + (mi >> 1) * 8 + r8) * LDS +
+                                warp * 16 + (mi & 1) * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < DP / 16; ++n2) {
+      float c[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < t / 16; ++kk) {
+        uint32_t b[4];
+        tc::ldsm_x4_t(b, ks + (kk * 16 + (mi & 1) * 8 + r8) * LD + n2 * 16 +
+                             (mi >> 1) * 8);
+        tc::mma16816<T>(c[0], sa[kk], b[0], b[1]);
+        tc::mma16816<T>(c[1], sa[kk], b[2], b[3]);
+      }
+      if (n2 * 16 < a.D)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+            *reinterpret_cast<float2*>(
+                part + (warp * 16 + g + 8 * rr) * a.D + n2 * 16 + 8 * x +
+                2 * tig) = make_float2(c[x][2 * rr], c[x][2 * rr + 1]);
+    }
+  }
+
+  __device__ __forceinline__ void end(const Args& a, const HeadPtrs<T>& hp,
+                                      int kt) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, tig = lane & 3;
+    tc::cp_async_wait<0>();
+    if (pending >= 0) {
+      __syncthreads();
+      compute_any(a, hp, kt);
+    }
+    T* dkp = static_cast<T*>(a.dk) + hp.out;
+    T* dvp = static_cast<T*>(a.dv) + hp.out;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long long row =
+          static_cast<long long>(kt * t + warp * 16 + g + 8 * rr) *
+          hp.out_stride;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i)
+        if (i * 8 < a.D) {
+          *reinterpret_cast<uint32_t*>(dkp + row + i * 8 + 2 * tig) =
+              tc::pack2<T>(dk[i][2 * rr], dk[i][2 * rr + 1]);
+          *reinterpret_cast<uint32_t*>(dvp + row + i * 8 + 2 * tig) =
+              tc::pack2<T>(dv[i][2 * rr], dv[i][2 * rr + 1]);
+        }
+    }
+  }
+};
+
+// fp32: 32 x 32 tiles of scalar FMAs (no TF32), with the scores, dS and
+// the accumulators in shared memory; the per-element step is grad_elem.
+// dq over one q-tile.
+template <typename T>
+struct DqTilesScalar {
+  static_assert(kScalar<T>, "the scalar tiles are fp32");
   T* Qs;
   T* dOs;
   T* Ks;
   T* Vs;
   float* Ss;
   float* dPs;
-  T* dSs;
+  float* dSs;
   float* dQ;
   float* lse_s;
   float* delta_s;
-  __device__ DqTiles(unsigned char* smem, int D) {
+  __device__ DqTilesScalar(unsigned char* smem, int D) {
     constexpr int t = kTile<T>, LS = kLds<T>;
     const int LD = ldd(D);
     Carve cv{smem};
@@ -639,8 +1076,7 @@ struct DqTiles {
     Vs = cv.take<T>(t * LD);
     Ss = cv.take<float>(t * LS);
     dPs = cv.take<float>(t * LS);
-    if constexpr (kScalar<T>) dSs = reinterpret_cast<T*>(dPs);
-    else dSs = cv.take<T>(t * LS);
+    dSs = dPs;  // each dS overwrites the dP it was made from
     dQ = cv.take<float>(t * LD);
     lse_s = cv.take<float>(t);
     delta_s = cv.take<float>(t);
@@ -669,19 +1105,19 @@ struct DqTiles {
     load_rows(Ks, LD, hp.k + off, hp.sS, t, D);
     load_rows(Vs, LD, hp.v + off, hp.sS, t, D);
     __syncthreads();
-    tile_mm<T, false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
-    tile_mm<T, false, true>(dOs, LD, Vs, LD, dPs, LS, t, t, D, false);
+    tile_mm<false, true>(Qs, LD, Ks, LD, Ss, LS, t, t, D, false);
+    tile_mm<false, true>(dOs, LD, Vs, LD, dPs, LS, t, t, D, false);
     __syncthreads();
     for (int idx = threadIdx.x; idx < t * t; idx += blockDim.x) {
       const int r = idx / t;
       const int c = idx - r * t;
-      const Grad g = grad_elem(a, hp.stream, hp.drop, qt * t + r, kt * t + c,
-                               Ss[r * LS + c], dPs[r * LS + c], lse_s[r],
-                               delta_s[r]);
+      const Grad g = grad_elem(a, hp.stream, hp.keep_min, hp.drop,
+                               qt * t + r, kt * t + c, Ss[r * LS + c],
+                               dPs[r * LS + c], lse_s[r], delta_s[r]);
       dSs[r * LS + c] = from_f32<T>(g.ds);
     }
     __syncthreads();
-    tile_mm<T, false, false>(dSs, LS, Ks, LD, dQ, LD, t, D, t, true);
+    tile_mm<false, false>(dSs, LS, Ks, LD, dQ, LD, t, D, t, true);
   }
 
   __device__ void end(const Args& a, const HeadPtrs<T>& hp, int qt) {
@@ -698,26 +1134,25 @@ struct DqTiles {
   }
 };
 
-// --------------------------------------------------------------------- //
-// dk, dv over one k-tile (transposed tiles: rows are keys): begin, one
-// step per visited q-tile, end. A step may also write the q-tile's dq
-// partial dS^T K (fp32, [t][D]) to global memory (the fused backward).
-// --------------------------------------------------------------------- //
+// dk, dv over one k-tile (transposed tiles: rows are keys). A step may
+// also write the q-tile's dq partial dS K (fp32, [t][D]) to global
+// memory (the sparse fused backward).
 template <typename T>
-struct DkvTiles {
+struct DkvTilesScalar {
+  static_assert(kScalar<T>, "the scalar tiles are fp32");
   T* Ks;
   T* Vs;
   T* Qs;
   T* dOs;
   float* S2;
   float* dP2;
-  T* P2d;
-  T* dS2;
+  float* P2d;
+  float* dS2;
   float* dK;
   float* dV;
   float* lse_s;
   float* delta_s;
-  __device__ DkvTiles(unsigned char* smem, int D) {
+  __device__ DkvTilesScalar(unsigned char* smem, int D) {
     constexpr int t = kTile<T>, LS = kLds<T>;
     const int LD = ldd(D);
     Carve cv{smem};
@@ -727,13 +1162,8 @@ struct DkvTiles {
     dOs = cv.take<T>(t * LD);
     S2 = cv.take<float>(t * LS);
     dP2 = cv.take<float>(t * LS);
-    if constexpr (kScalar<T>) {
-      P2d = reinterpret_cast<T*>(S2);
-      dS2 = reinterpret_cast<T*>(dP2);
-    } else {
-      P2d = cv.take<T>(t * LS);
-      dS2 = cv.take<T>(t * LS);
-    }
+    P2d = S2;  // each element overwrites the s and dp it was made from
+    dS2 = dP2;
     dK = cv.take<float>(t * LD);
     dV = cv.take<float>(t * LD);
     lse_s = cv.take<float>(t);
@@ -764,23 +1194,23 @@ struct DkvTiles {
       delta_s[c] = hp.delta[qt * t + c];
     }
     __syncthreads();
-    tile_mm<T, false, true>(Ks, LD, Qs, LD, S2, LS, t, t, D, false);
-    tile_mm<T, false, true>(Vs, LD, dOs, LD, dP2, LS, t, t, D, false);
+    tile_mm<false, true>(Ks, LD, Qs, LD, S2, LS, t, t, D, false);
+    tile_mm<false, true>(Vs, LD, dOs, LD, dP2, LS, t, t, D, false);
     __syncthreads();
     for (int idx = threadIdx.x; idx < t * t; idx += blockDim.x) {
       const int r = idx / t;      // key row
       const int c = idx - r * t;  // query column
-      const Grad g = grad_elem(a, hp.stream, hp.drop, qt * t + c, kt * t + r,
-                               S2[r * LS + c], dP2[r * LS + c], lse_s[c],
-                               delta_s[c]);
+      const Grad g = grad_elem(a, hp.stream, hp.keep_min, hp.drop,
+                               qt * t + c, kt * t + r, S2[r * LS + c],
+                               dP2[r * LS + c], lse_s[c], delta_s[c]);
       P2d[r * LS + c] = from_f32<T>(g.pd);
       dS2[r * LS + c] = from_f32<T>(g.ds);
     }
     __syncthreads();
-    tile_mm<T, false, false>(P2d, LS, dOs, LD, dV, LD, t, D, t, true);
-    tile_mm<T, false, false>(dS2, LS, Qs, LD, dK, LD, t, D, t, true);
+    tile_mm<false, false>(P2d, LS, dOs, LD, dV, LD, t, D, t, true);
+    tile_mm<false, false>(dS2, LS, Qs, LD, dK, LD, t, D, t, true);
     if (dq_part != nullptr)
-      tile_mm<T, true, false>(dS2, LS, Ks, LD, dq_part, D, t, D, t, false);
+      tile_mm<true, false>(dS2, LS, Ks, LD, dq_part, D, t, D, t, false);
   }
 
   __device__ void end(const Args& a, const HeadPtrs<T>& hp, int kt) {
@@ -799,6 +1229,15 @@ struct DkvTiles {
     }
   }
 };
+
+// The backward tiles of a type: register-resident for bf16/fp16, scalar
+// for fp32 (DP unused).
+template <typename T, int DP>
+using DqOf = std::conditional_t<kScalar<T>, DqTilesScalar<T>,
+                                DqTiles<T, DP>>;
+template <typename T, int DP>
+using DkvOf = std::conditional_t<kScalar<T>, DkvTilesScalar<T>,
+                                 DkvTiles<T, DP>>;
 
 // Allow `kern` `smem` bytes of dynamic shared memory (opt-in above 48 KB).
 template <typename K>

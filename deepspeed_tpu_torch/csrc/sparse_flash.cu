@@ -39,7 +39,10 @@
 // fused backward writes each visited (q-tile, k-tile) pair's fp32 dq
 // partial to its own slot of a workspace (slots numbered column-major);
 // sparse_dq_reduce_kernel then sums a q-tile's slots in k order. No
-// atomics: two launches give the same bits. Simple form: no TMA, no wgmma.
+// atomics: two launches give the same bits. The backward kernels run the
+// flash backward's register-resident tiles (bf16/fp16) with no change to
+// their LUT walks; the fused pass's dq partial stages dS^T in shared
+// memory (DkvTiles). No TMA, no wgmma.
 #include "flash_tiles.cuh"
 
 using namespace dstt;
@@ -131,12 +134,12 @@ sparse_fwd_kernel(Args a, Luts L) {
 }
 
 // K8b: dq over the live blocks of one q-tile's row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
 sparse_dq_kernel(Args a, Luts L) {
   const int qt = blockIdx.y, bh = blockIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
-  DqTiles<T> sm(smem, a.D);
+  DqOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, qt, a.D);
   for_row<T>(a, L, bh % a.nH, qt, [&](int kt) { sm.step(a, hp, qt, kt); });
@@ -144,12 +147,12 @@ sparse_dq_kernel(Args a, Luts L) {
 }
 
 // K8c: dk, dv over the live blocks of one k-tile's column.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
 sparse_dkv_kernel(Args a, Luts L) {
   const int kt = blockIdx.y, bh = blockIdx.x;
   extern __shared__ __align__(128) unsigned char smem[];
-  DkvTiles<T> sm(smem, a.D);
+  DkvOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   sm.begin(hp, kt, a.D);
   for_col<T>(a, L, bh % a.nH, kt,
@@ -159,13 +162,13 @@ sparse_dkv_kernel(Args a, Luts L) {
 
 // K8a, pass 1: dk, dv as K8c, and each visited pair's dq partial dS^T K
 // into its own fp32 slot of the workspace.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(DP))
 sparse_fused_bwd_kernel(Args a, Luts L) {
   constexpr int t = kTile<T>;
   const int kt = blockIdx.y, bh = blockIdx.x, h = bh % a.nH;
   extern __shared__ __align__(128) unsigned char smem[];
-  DkvTiles<T> sm(smem, a.D);
+  DkvOf<T, DP> sm(smem, a.D);
   const HeadPtrs<T> hp(a, bh);
   float* ws = a.dq_ws + static_cast<long long>(bh) * L.slots_per_bh * t * a.D;
   int slot = L.slot_base[h * (a.S / t) + kt];
@@ -202,6 +205,31 @@ sparse_dq_reduce_kernel(Args a, Luts L) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2, kFused = 3 };
 
+// The kernel of `kind` at head-dim register width DP, and its dynamic
+// shared memory.
+template <typename T, int DP>
+void kernel_of(Kind kind, const Args& a, void (*&kern)(Args, Luts),
+               size_t& smem) {
+  switch (kind) {
+    case kFwd:
+      kern = sparse_fwd_kernel<T, DP>;
+      smem = fwd_smem<T>(a.D);
+      break;
+    case kDq:
+      kern = sparse_dq_kernel<T, DP>;
+      smem = dq_smem<T>(a.D);
+      break;
+    case kDkv:
+      kern = sparse_dkv_kernel<T, DP>;
+      smem = dkv_smem<T>(a.D, false);
+      break;
+    default:
+      kern = sparse_fused_bwd_kernel<T, DP>;
+      smem = dkv_smem<T>(a.D, true);
+      break;
+  }
+}
+
 template <typename T>
 cudaError_t launch(Kind kind, const Args& a, const Luts& L, int B,
                    cudaStream_t st) {
@@ -212,30 +240,15 @@ cudaError_t launch(Kind kind, const Args& a, const Luts& L, int B,
   const dim3 grid(B * a.nH, a.S / t);
   void (*kern)(Args, Luts);
   size_t smem;
-  switch (kind) {
-    case kFwd:
-      // DP: the head dim's register width (the fp32 scalar tile has none)
-      if constexpr (kScalar<T>)
-        kern = sparse_fwd_kernel<T, 128>;
-      else
-        kern = dpad(a.D) == 128 ? sparse_fwd_kernel<T, 128>
-               : dpad(a.D) == 64 ? sparse_fwd_kernel<T, 64>
-                                 : sparse_fwd_kernel<T, 32>;
-      smem = fwd_smem<T>(a.D);
-      break;
-    case kDq:
-      kern = sparse_dq_kernel<T>;
-      smem = dq_smem<T>(a.D);
-      break;
-    case kDkv:
-      kern = sparse_dkv_kernel<T>;
-      smem = dkv_smem<T>(a.D);
-      break;
-    default:
-      kern = sparse_fused_bwd_kernel<T>;
-      smem = dkv_smem<T>(a.D);
-      break;
-  }
+  // DP: the head dim's register width (the fp32 scalar tiles have none)
+  if constexpr (kScalar<T>)
+    kernel_of<T, 128>(kind, a, kern, smem);
+  else if (dpad(a.D) == 128)
+    kernel_of<T, 128>(kind, a, kern, smem);
+  else if (dpad(a.D) == 64)
+    kernel_of<T, 64>(kind, a, kern, smem);
+  else
+    kernel_of<T, 32>(kind, a, kern, smem);
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, smem, st>>>(a, L);

@@ -282,9 +282,11 @@ def _check(name: str, q, k, v, seed, dropout: float, *rest) -> None:
         raise ValueError(f"{name}: q, k and v must share strides, with a "
                          "unit last stride and 16-byte aligned rows")
     for t in rest:
-        if t.device != q.device or not t.is_contiguous():
+        if t.device != q.device or not t.is_contiguous() or \
+                t.data_ptr() % 16:
             raise ValueError(f"{name}: every other operand must be a "
-                             f"contiguous tensor on {q.device}")
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
     if dropout > 0.0 and (seed is None or seed.device != q.device or
                           seed.dtype != torch.int32):
         raise ValueError(f"{name}: dropout needs an int32 seed tensor on "
@@ -391,22 +393,20 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal: bool,
                               scale: float, dropout: float = 0.0, seed=None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """K2c: (dq, dk, dv) from one softmax replay per tile. Uses an fp32
-    ``[B*nH, S, D]`` dq workspace."""
+    """K2c: (dq, dk, dv) in one launch, with a block per k-tile for dk,
+    dv and a block per q-tile for dq (no workspace)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale,
                                dropout, seed)
     _check("flash_attention_bwd_fused", q, k, v, seed, dropout, do, lse,
            delta)
-    B, S, nH, D = q.shape
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    ws = torch.empty((B * nH, S, D), dtype=torch.float32, device=q.device)
     strides, seed_p, tail = _common(q, seed, dropout, causal, scale)
     rc = op_builder.load().dstt_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), ws.data_ptr(), seed_p, *tail)
+        dv.data_ptr(), seed_p, *tail)
     op_builder.check(rc, "flash_attention_bwd_fused")
     flash_attention_bwd_fused.launches += 1
     return dq, dk, dv

@@ -11,9 +11,10 @@ sum of squares relative 1e-5 (two fp32 summation orders); the fused
 Adam step bit-equal to its plain version (both round op by op), and
 the stochastic rounding equal element for element; paged attention
 atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the flash kernels
-(ungated and layout-gated) and the sparse LUT kernels within 1e-5 (fp32),
-2**-7 (bf16) or 2**-9 (fp16) of each output's largest magnitude and
-bit-equal across two launches; the serving engine's
+(ungated and layout-gated; the forward and backward tiles at every head
+dim and the training sequences) and the sparse LUT kernels within 1e-5
+(fp32), 2**-7 (bf16) or 2**-9 (fp16) of each output's largest magnitude
+and bit-equal across two launches; the serving engine's
 kernel path against its CPU plain path on gpt2-tiny in fp32: logits atol
 1e-4 and equal greedy streams; two gpt2-tiny fp32 training steps on the
 card against the CPU: losses and grad norms within 1e-4 relative; the
@@ -517,6 +518,58 @@ def test_flash_forward_tile_matches_plain_and_repeats(dev, S, D, dtype_name,
     assert _rel(o, ro) <= FLASH_REL[dtype_name]
     torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype_name", ["bf16", "fp16"])
+@pytest.mark.parametrize("D", [32, 48, 64, 128])
+@pytest.mark.parametrize("S", [128, 384, 768, 1024])
+def test_flash_backward_tiles_match_plain_and_repeat(dev, S, D, dtype_name,
+                                                     causal, drop, gated):
+    """The register-resident backward tiles: K2c (ungated cases) and the
+    K2a + K2b pair (ungated, or gated by a layout of 128-blocks) over the
+    sequence lengths of the training and split-backward paths, every
+    head-dim width (48 padded to 64), causal or not, with and without
+    dropout: dq, dk, dv within 2**-7 (bf16) or 2**-9 (fp16) of their
+    largest magnitude of flash_bwd_plain's, two launches bit-equal."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    dt = DTYPES[dtype_name]
+    q, k, v, do = _flash_inputs(dev, dt, 2, S, 2, D, S + D + causal + 1)
+    seed = torch.tensor(13579, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    lay = None
+    if gated:
+        nb = S // 128
+        keep = np.random.default_rng(S + D + 1).random((2, nb, nb)) < 0.6
+        keep[:, np.arange(nb), np.arange(nb)] = True
+        if nb >= 3:
+            keep[:, 1:, 1] = False
+        lay = torch.from_numpy(keep.astype(np.int32)).to(dev)
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, scale, drop, seed, lay)
+    delta = fa.flash_delta(do, o)
+    args = (q, k, v, do, lse, delta, causal, scale, drop, seed)
+    want = fa.flash_bwd_plain(*args, layout=lay)
+    ops.reset_launch_counts()
+
+    def pair():
+        return (fa.flash_attention_bwd_dq(*args, lay),
+                *fa.flash_attention_bwd_dkv(*args, lay))
+    runs = {"pair": pair} if gated else \
+        {"pair": pair, "fused": lambda: fa.flash_attention_bwd_fused(*args)}
+    for name, fn in runs.items():
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        for gk, gw in zip(got, want):
+            assert gk.dtype == dt and gk.is_contiguous()
+            assert _rel(gk, gw) <= FLASH_REL[dtype_name], name
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    assert counts == dict({"flash_attention_bwd_dq": 2,
+                           "flash_attention_bwd_dkv": 2},
+                          **({} if gated else
+                             {"flash_attention_bwd_fused": 2}))
 
 
 @pytest.mark.parametrize("S, kernels", [

@@ -16,7 +16,8 @@ Tolerances:
   formula, so p rounds to bf16 at different running maxima), lse within
   1e-5.
 S = 128 takes the fused backward (K2c) on both sides, S = 384 the split
-dq + dk/dv kernels (K2a/K2b) with 128-blocks on the JAX side.
+dq + dk/dv kernels (K2a/K2b) with 128-blocks on the JAX side; head dim
+32 in every combination, and 64 (the training width) in the causal ones.
 """
 import math
 
@@ -31,7 +32,7 @@ from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.models.transformer import dense_attention
 from deepspeed_tpu_torch.ops import flash_attention as tf
 
-B, NH, D = 1, 2, 32
+B, NH = 1, 2
 SEED = -987654321
 REL_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 LSE_TOL = 1e-5
@@ -54,6 +55,19 @@ def test_dropout_keep_bit_equal_jax(seed, bh, qi, kj, transposed):
         assert 0.02 < 1 - got.mean() < 0.7
 
 
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5, 1e-7, 0.123456789,
+                                  0.9999999])
+def test_integer_keep_threshold_is_the_float_test(rate):
+    """The kernels keep an element iff (x >> 8) >= ceil(rate * 2**24) in
+    fp32 (csrc/flash_tiles.cuh keep_threshold); for every 24-bit value
+    that is the JAX test (x >> 8) * 2**-24 >= float32(rate)."""
+    m = np.arange(2 ** 24, dtype=np.int64)
+    r = np.float32(rate)
+    u = m.astype(np.float32) * np.float32(1.0 / 16777216.0)
+    threshold = int(np.ceil(r * np.float32(16777216.0)))
+    np.testing.assert_array_equal(m >= threshold, u >= r)
+
+
 def test_full_grid_mask_is_the_tiles_mask():
     """The plain versions' whole-grid mask equals the per-tile masks the
     kernels regenerate, head by head."""
@@ -65,6 +79,8 @@ def test_full_grid_mask_is_the_tiles_mask():
 
 
 def _jax_flash(q, k, v, do, S, causal, drop, dt):
+    D = q.shape[-1]
+
     def bh(x):
         return jnp.asarray(x, JDT[dt]).transpose(0, 2, 1, 3).reshape(
             B * NH, S, D)
@@ -82,11 +98,18 @@ def _jax_flash(q, k, v, do, S, causal, drop, dt):
     return [back(o)] + [back(g) for g in grads], np.asarray(lse)[:, 0]
 
 
-@pytest.mark.parametrize("dt", ["fp32", "bf16"])
-@pytest.mark.parametrize("drop", [0.0, 0.1])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [128, 384])
-def test_flash_forward_and_grads_match_jax(S, causal, drop, dt):
+# (S, causal, dropout, dtype, head_dim): every combination at head dim 32,
+# and the causal ones at the training width, 64.
+_JAX_CASES = [
+    pytest.param(S, causal, drop, dt, 32, id=f"{S}-{causal}-{drop}-{dt}")
+    for dt in ("fp32", "bf16") for drop in (0.0, 0.1)
+    for causal in (True, False) for S in (128, 384)] + [
+    pytest.param(S, True, drop, dt, 64, id=f"{S}-True-{drop}-{dt}-d64")
+    for dt in ("fp32", "bf16") for drop in (0.0, 0.1) for S in (128, 384)]
+
+
+@pytest.mark.parametrize("S, causal, drop, dt, D", _JAX_CASES)
+def test_flash_forward_and_grads_match_jax(S, causal, drop, dt, D):
     rng = np.random.default_rng(S + causal)
     q, k, v, do = (rng.standard_normal((B, S, NH, D)).astype(np.float32)
                    for _ in range(4))

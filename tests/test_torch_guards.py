@@ -1,11 +1,14 @@
 """Guards on the PyTorch port's boundaries: it imports no JAX and nothing
 of the JAX package, its entry points refuse to run without CUDA unless a
-device is given, building its kernels raises without nvcc, the engine
-refuses configurations it has no CUDA path for, and the ``inference``
-config parses and rejects exactly as the JAX package's does."""
+device is given, building its kernels raises without nvcc, the ctypes
+signatures match the kernels' C entry points, the flash kernels use
+neither ``nvcuda::wmma`` nor atomics, the engine refuses configurations
+it has no CUDA path for, and the ``inference`` config parses and rejects
+exactly as the JAX package's does."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -75,6 +78,41 @@ def test_op_builder_sources_cover_the_kernels():
     assert {"flash_attention.cu", "fused_elementwise.cu", "fused_update.cu",
             "grouped_gemm.cu", "paged_attention.cu",
             "sparse_flash.cu"} <= names
+
+
+def _c_entry_points():
+    """{name: number of parameters} of every ``extern "C"`` function in
+    csrc/ (the kernels compile only on the card, so a ctypes signature
+    that drifts from its C definition shows nowhere else)."""
+    out = {}
+    for src in sorted((PKG / "csrc").glob("*.cu")):
+        for m in re.finditer(r'extern "C"[^(]*?\b(dstt_\w+)\(([^)]*)\)',
+                             src.read_text()):
+            out[m.group(1)] = len([a for a in m.group(2).split(",")
+                                   if a.strip()])
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(op_builder._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    entries = _c_entry_points()
+    assert name in entries
+    assert len(op_builder._SIGNATURES[name][0]) == entries[name]
+
+
+def test_flash_kernels_use_mma_sync_and_no_wmma_or_atomics():
+    """The flash and sparse tiles run on mma.sync from ldmatrix fragments
+    (csrc/mma.cuh); no nvcuda::wmma, and no atomics, so two launches give
+    the same bits."""
+    csrc = PKG / "csrc"
+    for name in ("flash_tiles.cuh", "flash_attention.cu", "sparse_flash.cu"):
+        text = (csrc / name).read_text()
+        assert "nvcuda" not in text and "<mma.h>" not in text, name
+        assert not re.search(r"\batomic\w*\(", text), name
+    tiles = (csrc / "flash_tiles.cuh").read_text()
+    for struct in ("FwdTiles", "DqTiles", "DkvTiles"):
+        body = tiles.split(f"struct {struct} {{", 1)[1].split("\n};", 1)[0]
+        assert "tc::ldsm_x4" in body and "tc::mma16816" in body, struct
 
 
 @pytest.mark.parametrize("inference, match", [
