@@ -45,9 +45,13 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    capacity 2560, 768 x 3072, bf16: the forward's up- and down-projection,
    the backward's recompute and its four products on transposed views),
    and the up-projection in fp32 and fp16, each launched twice and
-   compared bit for bit. One JSON line per shape: the kernel's, the plain version's and a
-   library call's time (CUDA events), the least time the card could
-   take (``bound_ms``, over the (q, k) pairs kept) and the largest error.
+   compared bit for bit, with its route (``_gg_plan``: the operands'
+   majors, the tile, no staged copy) and also timed by the card's own
+   time (graph replay), with a cold L2 and on the host's clock (the
+   wrapper's Python a call). One JSON line per shape: the kernel's, the
+   plain version's and a library call's time (CUDA events), the least
+   time the card could take (``bound_ms``, over the (q, k) pairs kept)
+   and the largest error.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
    then the same stream with ``spec_k: 3``, then with whole-prompt
@@ -89,10 +93,12 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    1.25) in every block, the ds_config ``moe`` block building the model's
    ``MoEConfig``, at the main path's recipe: a yardstick step against
    plain autograd (the grouped FFN's plain version), ``train_moe`` (12
-   bf16 steps: losses finite and falling, exactly 168 K9 launches a step
-   and no bias+GELU kernel, step ms, tokens/s, TFLOP/s by the routed
-   count, peak memory, drop fraction), 2 profiled steps (K9's share of
-   device time) and ``train_moe_fp16`` (3 steps), each read on its own.
+   bf16 steps: losses finite and falling, exactly 168 K9 launches a step,
+   no staged K9 operand and no bias+GELU kernel, step ms, tokens/s,
+   TFLOP/s by the routed count, peak memory, drop fraction), 2 profiled
+   steps (K9's share of device time, the step's idle share) and
+   ``train_moe_fp16`` (3 steps: finite, the last below the first, no
+   staged operand), each read on its own.
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -214,14 +220,15 @@ MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 
 # Kernels whose ptxas report (registers, spills, static shared memory) the
 # build line carries: the paged attention (K10), the forward tile (K1,
-# and K7 on the same tile) and the backward tiles (K2a-K2c, and K8a-K8c
-# on the same tiles) of the main paths.
+# and K7 on the same tile), the backward tiles (K2a-K2c, and K8a-K8c
+# on the same tiles) of the main paths, and the grouped GEMM (K9).
 PTXAS_KERNELS = ("paged_attn_mma_kernel", "paged_attn_fma_kernel",
                  "paged_combine_kernel", "flash_fwd_kernel",
                  "sparse_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
                  "sparse_dq_kernel", "sparse_dkv_kernel",
-                 "sparse_fused_bwd_kernel")
+                 "sparse_fused_bwd_kernel", "grouped_gemm_wgmma_kernel",
+                 "grouped_gemm_f32_kernel")
 
 
 def ptxas_summary(log):
@@ -264,7 +271,10 @@ def dynamic_smem_bytes():
     the larger of the dq and dk/dv tiles; and K10's three-stage ring of K
     and V (64 rows at pitch 72) with live flags, 16 Q rows and the block
     ids of one split (paged_attention.cu smem_bytes; decode, 64 table
-    entries over 3 splits)."""
+    entries over 3 splits); and K9's ring at each tile: stages of a
+    128 x 64 A tile and a BN x 64 B tile, 1 KB of alignment slack and
+    two 8-byte barriers a stage (grouped_gemm.cu Ring: 3 stages at BN
+    128, two blocks an SM; 4 at BN 256)."""
     tile = 64 * 72 * 2
     dkv = 6 * tile + 4 * 64 * 4
     ring = 3 * (2 * tile + 64 * 4)
@@ -274,7 +284,10 @@ def dynamic_smem_bytes():
             "flash_bwd_dkv_kernel<bf16, 64>": dkv,
             "flash_bwd_fused_kernel<bf16, 64>": max(4 * tile, dkv),
             "sparse_fused_bwd_kernel<bf16, 64>": dkv + tile,
-            "paged_attn_mma_kernel<bf16, 64>, decode": k10}
+            "paged_attn_mma_kernel<bf16, 64>, decode": k10,
+            **{f"grouped_gemm_wgmma_kernel<bf16, {bn}>":
+               stages * (128 + bn) * 64 * 2 + 1024 + 16 * stages
+               for bn, stages in ((128, 3), (256, 4))}}
 
 
 def emit(obj):
@@ -1230,6 +1243,20 @@ def _gg_cases(dev, gen):
     return cases
 
 
+def host_ms(fn, iters=50):
+    """The host's time to issue one call: a loop of ``iters`` calls on
+    the host clock, read before the card is waited for (the launch queue
+    holds them all)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def check_grouped_gemm(dev, gen):
     """K9 against its plain version at the MoE path's shapes: the
     pre-activation z = round(a @ b + bias) within the tolerance
@@ -1237,17 +1264,26 @@ def check_grouped_gemm(dev, gen):
     activation the output within 2 ulp of the plain epilogue of the
     kernel's own z (a z one rounding step apart moves a GELU output by
     the curve's slope, many ulp of a small output; the direct error is
-    recorded too); two launches bit-equal.
+    recorded too); two launches bit-equal; no operand staged.
+    Each record carries the route (``gg._gg_plan``: majors, tile), the
+    event-timed mean of warm calls (``kernel_ms``, which includes the
+    wrapper's Python where that is the longer), the card's own time a
+    call (``device_ms``, graph replay), one call with a cold L2
+    (``cold_ms``) and the wrapper's host time a call (``host_ms``: the
+    plan and the tensor maps' encoding included).
     The library yardstick is ``torch.bmm``, ``torch.baddbmm`` with the
     bias, and for the up-projection ``torch.baddbmm`` then ``F.gelu``
     (two calls)."""
     out = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for case, a, b, bias, act in _gg_cases(dev, gen):
         dt = a.dtype
         name = {torch.bfloat16: "bf16", torch.float16: "fp16",
                 torch.float32: "fp32"}[dt]
         E, M, K = a.shape
         N = b.shape[2]
+        plan = gg._gg_plan(a, b, act, sms)
+        ops.reset_launch_counts()
         got = gg.grouped_matmul(a, b, bias, act)
         again = gg.grouped_matmul(a, b, bias, act)
         z = gg.grouped_matmul(a, b, bias) if act else got
@@ -1255,7 +1291,9 @@ def check_grouped_gemm(dev, gen):
         want = gg.grouped_matmul_plain(a, b, bias, act) if act else z_ref
         terms = torch.matmul(a.float().abs(), b.float().abs())
         torch.cuda.synchronize()
+        staged = gg.grouped_matmul.staged
         assert torch.equal(got, again), (case, name, "two launches differ")
+        assert staged == 0 and not plan.staged, (case, name, plan)
         within = _gg_within(z, z_ref, name, terms)
         if act:
             epi = fe.gelu_f32(z.float(), act == "gelu_exact").to(dt)
@@ -1280,16 +1318,20 @@ def check_grouped_gemm(dev, gen):
         else:
             lib = lambda: torch.bmm(a, b)  # noqa: E731
             lib_name = "torch.bmm"
+        kern = lambda: gg.grouped_matmul(a, b, bias, act)  # noqa: E731
         rec = {"kernel": "grouped_gemm", "case": case, "dtype": name,
                "shape": [E, M, K, N], "act": act, "bias": bias is not None,
                "strides": {"a": list(a.stride()), "b": list(b.stride())},
-               "kernel_ms": time_ms(
-                   lambda: gg.grouped_matmul(a, b, bias, act), iters=20,
-                   warmup=3),
+               "route": plan.route, "majors": [plan.a_major, plan.b_major],
+               "tile": list(plan.tile), "staged": staged,
+               "kernel_ms": time_ms(kern, iters=20, warmup=3),
+               "device_ms": device_ms(kern), "cold_ms": cold_ms(kern),
+               "host_ms": host_ms(kern),
                "plain_ms": time_ms(
                    lambda: gg.grouped_matmul_plain(a, b, bias, act), iters=5,
                    warmup=1),
                "library_ms": time_ms(lib, iters=20, warmup=3),
+               "library_device_ms": device_ms(lib),
                "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
                "flops": flops, "bytes": nbytes,
                "max_err": float((got.float() - want.float()).abs().max()),
@@ -1458,7 +1500,7 @@ def profile_train_steps(eng, batches):
                               r"sqnorm|fused_adam|flash_fwd|flash_bwd_dq|"
                               r"flash_bwd_dkv|flash_bwd_fused|sparse_fwd|"
                               r"sparse_dq|sparse_dkv|sparse_fused_bwd|"
-                              r"sparse_dq_reduce|grouped_gemm|"
+                              r"sparse_dq_reduce|grouped_gemm_wgmma|"
                               r"grouped_gemm_f32)"
                               r"_kernel(<[^()]*>)?",
                               evt.key)
@@ -1884,6 +1926,7 @@ def train_moe(dev, smi):
     torch.cuda.reset_peak_memory_stats()
     losses, metrics, ms, counts["train_moe"] = run_path(
         eng, batches[:MOE_STEPS])
+    staged = gg.grouped_matmul.staged
     k_norm = float(metrics[0]["grad_norm"])
     check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
              "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
@@ -1900,6 +1943,7 @@ def train_moe(dev, smi):
     assert counts["train_moe"] == {k: MOE_STEPS * v
                                    for k, v in expect.items()}, \
         counts["train_moe"]
+    assert staged == 0, staged
     drops = [float(m["moe_drop_fraction"]) for m in metrics]
     tokens = metrics[-1]["moe_expert_tokens"].tolist()
     assert abs(sum(tokens) - MOE_TOP_K * TRAIN_MICRO * TRAIN_SEQ) < 1e-3, \
@@ -1917,7 +1961,8 @@ def train_moe(dev, smi):
         "drop_fraction": drops, "expert_tokens_last_step": tokens,
         "aux_loss_last": float(metrics[-1]["moe_aux_loss"]),
         "z_loss_last": float(metrics[-1]["moe_z_loss"]),
-        "launches_per_step": expect, "step_ms_p50": step_ms,
+        "launches_per_step": expect, "k9_staged_copies": staged,
+        "step_ms_p50": step_ms,
         "step_ms_all": ms, "tokens_per_s": tok_s,
         "model_tflops_per_s_routed": flops_per_token * tok_s / 1e12,
         "flops_per_token_routed": flops_per_token,
@@ -1929,8 +1974,11 @@ def train_moe(dev, smi):
     prof = profile_train_steps(eng, batches[MOE_STEPS:])
     k9_ms = prof["device_ms_per_step_by_group"].get("grouped_gemm", 0.0)
     busy = prof["device_busy_ms_per_step"]
+    # the profiled wall carries the profiler's cost; the unprofiled
+    # steps' p50 against the same device busy gives the step's idle share
     prof.update(card=smi, k9_device_ms_per_step=k9_ms,
                 k9_share_of_device_time=k9_ms / busy,
+                idle_share_of_step_p50=1 - busy / step_ms,
                 k9_tflops_per_s=k9_flops_per_step / (k9_ms / 1e3) / 1e12
                 if k9_ms > 0 else None)
     emit({"train_moe_profile": prof})
@@ -1948,13 +1996,16 @@ def train_moe(dev, smi):
         extra, fp16={"enabled": True, "initial_scale_power": 16}))
     f_losses, f_metrics, f_ms, counts["train_moe_fp16"] = run_path(
         eng, batches[:MOE_FP16_STEPS])
+    staged = gg.grouped_matmul.staged
     emit({"train_moe_fp16_path": {
         "steps": MOE_FP16_STEPS, "model_dtype": str(cfg16.dtype),
         "losses": f_losses,
         "skipped": int(eng.state.skipped_steps),
         "loss_scales": [float(m["loss_scale"]) for m in f_metrics],
-        "step_ms_all": f_ms, "card": smi}})
+        "step_ms_all": f_ms, "k9_staged_copies": staged, "card": smi}})
     assert all(math.isfinite(l) for l in f_losses), f_losses
+    assert f_losses[-1] < f_losses[0], f_losses
+    assert staged == 0, staged
     assert counts["train_moe_fp16"] == {k: MOE_FP16_STEPS * v
                                         for k, v in expect.items()}
     del eng

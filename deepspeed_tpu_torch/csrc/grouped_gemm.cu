@@ -9,50 +9,65 @@
 // 2*E*M*K*N = 96.6 GFLOP, 98 us at 989 TFLOP/s, against 63-126 MB of
 // operands and output, 19-38 us at 3.35 TB/s.
 //
-// Design. The TPU kernel pads every operand to 128 lanes and runs a grid
-// of (expert, row block, column block) steps, each one MXU dot over the
-// whole (padded) K. Here one block owns a 128 x 128 output tile of one
-// expert and loops over K in 32-deep tiles:
-// - Operands are read through their strides (each operand's own expert,
-//   row and column strides), so the backward's swapped operands (w2^T,
-//   h^T, x^T, w1^T) need no copy. The dimension with stride 1 is loaded
-//   16 bytes a thread into shared memory, which holds the tile in that
-//   orientation; the tensor-core fragments then read it row- or
-//   column-major (four template variants). An operand with no unit
-//   stride, or one not 16-byte aligned, is loaded element by element.
-// - Ragged edges (M, K, N not multiples of the tile, a capacity of 40)
-//   are loaded as zeros, which gives the sums the TPU kernel's zero
-//   padding gives, and masked at the store.
-// - bf16 and fp16: nvcuda::wmma 16x16x16 tiles with fp32 accumulators;
-//   8 warps, each 64 x 32 of the output. The next K tile is fetched into
-//   registers while the tensor cores work on the current one (two
-//   shared-memory stages, one barrier per K tile).
-// - fp32: fp32 FMA on a 64 x 64 tile (4 x 4 per thread), no TF32.
+// Design (bf16 and fp16). The TPU kernel pads every operand to 128 lanes
+// and runs a grid of (expert, row block, column block) steps, each one
+// MXU dot over the whole (padded) K. Here one block owns a 128 x BN
+// output tile of one expert (BN 128 or 256, picked by the wrapper) and
+// walks K in 64-deep steps through a ring of shared-memory stages:
+// - Loads: TMA. Each operand is a 3-D tensor map (fast dim with stride 1,
+//   slow dim, expert), encoded on the host at each call; boxes are 64
+//   elements (128 bytes) along the fast dim with the 128-byte swizzle.
+//   Either dim of a and of b may be the fast one (the backward's swapped
+//   operands w2^T, h^T, x^T, w1^T are views, not copies): the tile lands
+//   K-major or MN-major and wgmma reads it through its transpose bits.
+//   Boxes past the tensor's edge arrive as zeros, which gives the sums
+//   the TPU kernel's zero padding gives (a capacity of 40, K = 200). An
+//   operand TMA cannot describe is copied by the wrapper first
+//   (ops/grouped_gemm.py::_gg_plan).
+// - Pipeline: a ring of S stages, each with a full and an empty
+//   mbarrier. Warpgroups 0 and 1 consume, each owning 64 rows: per stage
+//   four wgmma.mma_async m64nBNk16 from shared-memory descriptors, one
+//   group kept in flight, the previous stage released after
+//   wgmma.wait_group. One thread of the producer after them issues the
+//   stage's boxes. BN 256: 4 stages (192 KB), one block an SM, a
+//   producer warpgroup that gives its registers to the consumers
+//   (setmaxnreg). BN 128: 3 stages (96 KB), a producer warp, two blocks
+//   an SM, so that one block's epilogue overlaps the other's loads and
+//   products.
 // - Epilogue (the TPU kernel's): z = round(acc + bias) to the storage
 //   type; with an activation, round(gelu(z)) evaluated in fp32 on the
-//   rounded z (tanh form, or erf for gelu_exact). Each lane writes 8
-//   neighbouring outputs of a row with one 16-byte store where N is a
-//   multiple of 8.
-// - No split-K and no atomics: each output element is one thread's fixed
-//   sequence of products, so two launches give the same bits.
-// wgmma, TMA and a pipelined, persistent schedule are later work.
+//   rounded z (tanh form, or erf for gelu_exact). The accumulators'
+//   z go through the idle ring in shared memory, so that each lane then
+//   writes 8 neighbouring outputs of a row with one 16-byte store where
+//   N is a multiple of 8 (else element by element with masks), and the
+//   activation runs in a short loop rather than unrolled over every
+//   accumulator (that code outgrew the instruction cache).
+// - No split-K and no atomics: each output element is one fixed sequence
+//   of k16 products in k order, whatever the operands' layout or the
+//   tile, so two launches give the same bits.
+// A persistent schedule that overlaps one tile's epilogue with the next
+// tile's loads is later work.
+//
+// fp32 (off the MoE path): fp32 FMA on a 64 x 64 tile (4 x 4 per thread),
+// no TF32, operands read through their strides.
 #include <cstdint>
-#include <type_traits>
 
-#include <mma.h>
+#include <cuda.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace dstt;
 
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;       // 8 warps: 2 (rows) x 4 (columns)
-constexpr int kPad = 8;             // shared-memory row padding, elements
-constexpr int kVec = 8;             // 16-bit elements in one 16-byte load
+constexpr int kBM = 128;            // rows of a block's tile
+constexpr int kBK = 64;             // k of a stage: 128 bytes of 16-bit
+constexpr int kConsumers = 256;     // two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kBox = 64;            // elements along a box's fast dim
+constexpr int kBoxBytes = kBox * kBox * 2;   // one 64 x 64 box, 8 KB
+constexpr int kATileBytes = kBM * kBK * 2;   // 16 KB
 
 constexpr int kFBM = 64;            // fp32 tile
 constexpr int kFBN = 64;
@@ -65,6 +80,27 @@ constexpr int kActExact = 2;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
 constexpr float kSqrt2 = 1.4142135623730951f;
+
+// The block's shape at each tile width. BN 256: 128 fp32 accumulators a
+// consumer thread, so one block an SM; a producer warpgroup that hands
+// registers to the consumers (setmaxnreg) and a 4-stage ring (192 KB).
+// BN 128: 64 accumulators fit two blocks an SM (96 registers a thread of
+// the 112 that 288 threads twice leave), one block's epilogue then
+// overlapping the other's main loop; a producer warp and a 3-stage ring
+// (96 KB) each.
+template <int BN>
+struct Ring {
+  static constexpr bool kWide = BN == 256;
+  static constexpr int kBBytes = BN * kBK * 2;
+  static constexpr int kStageBytes = kATileBytes + kBBytes;
+  static constexpr int kStages = kWide ? 4 : 3;
+  static constexpr int kBlocksPerSM = kWide ? 1 : 2;
+  static constexpr int kThreads = kConsumers + (kWide ? 128 : 32);
+  // the ring, 1 KB of slack to align it to the 128-byte swizzle's 1 KB
+  // pattern, and a full and an empty barrier a stage
+  static constexpr int kSmemBytes =
+      kStages * kStageBytes + 1024 + 2 * kStages * 8;
+};
 
 // _gelu_f32 of the TPU package, in fp32 (no fast-math).
 __device__ __forceinline__ float gelu(float z, int act) {
@@ -86,207 +122,180 @@ __device__ __forceinline__ uint32_t bits16(__half v) {
   return __half_as_ushort(v);
 }
 
-// One operand tile of a 16-bit type, R rows along the operand's slow
-// dimension by C elements along its fast one, staged in registers and
-// stored to shared memory at pitch C + kPad. Element (r, c) is
-// src[r * s_slow + c * s_fast] where r < r_ext and c < c_ext, else 0.
-template <int R, int C>
-struct TileLoad {
-  static constexpr int kPerRow = C / kVec;
-  static constexpr int kN = R * kPerRow / kThreads;
-  static_assert(kN * kThreads == R * kPerRow, "tile not a multiple");
-  uint4 reg[kN];
+template <typename T>
+__device__ __forceinline__ T from_bits(uint32_t v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_bits(uint32_t v) {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(v & 0xFFFFu));
+}
+template <>
+__device__ __forceinline__ __half from_bits(uint32_t v) {
+  return __ushort_as_half(static_cast<unsigned short>(v & 0xFFFFu));
+}
 
-  __device__ __forceinline__ void fetch(const uint16_t* src,
-                                        long long s_slow, long long s_fast,
-                                        int r_ext, int c_ext, bool vec) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int v = threadIdx.x + i * kThreads;
-      const int r = v / kPerRow;
-      const int c = (v - r * kPerRow) * kVec;
-      if (vec && r < r_ext && c + kVec <= c_ext) {
-        reg[i] = *reinterpret_cast<const uint4*>(src + r * s_slow + c);
-      } else {
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-        if (r < r_ext) {
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            if (c + j < c_ext) {
-              const uint32_t bits = src[r * s_slow + (c + j) * s_fast];
-              w[j >> 1] |= bits << (16 * (j & 1));
-            }
-          }
-        }
-        reg[i] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(uint16_t* dst) const {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int v = threadIdx.x + i * kThreads;
-      const int r = v / kPerRow;
-      const int c = (v - r * kPerRow) * kVec;
-      *reinterpret_cast<uint4*>(dst + r * (C + kPad) + c) = reg[i];
-    }
-  }
-};
-
-// bf16/fp16. TA: a's stride-1 dimension is M (tile stored [BK][BM],
-// read column-major), else K ([BM][BK], row-major). TB: b's stride-1
-// dimension is K ([BN][BK], column-major), else N ([BK][BN], row-major).
-template <typename T, bool TA, bool TB>
-__global__ void __launch_bounds__(kThreads)
-grouped_gemm_kernel(const T* __restrict__ a, long long sae, long long sam,
-                    long long sak, const T* __restrict__ b, long long sbe,
-                    long long sbk, long long sbn,
-                    const float* __restrict__ bias, T* __restrict__ out,
-                    int M, int K, int N, int act, bool vec_a, bool vec_b,
-                    bool vec_o) {
-  using namespace nvcuda;
-  using LA = std::conditional_t<TA, wmma::col_major, wmma::row_major>;
-  using LB = std::conditional_t<TB, wmma::col_major, wmma::row_major>;
-  constexpr int AR = TA ? kBK : kBM, AC = TA ? kBM : kBK;
-  constexpr int BR = TB ? kBN : kBK, BC = TB ? kBK : kBN;
-  constexpr int kAElems = AR * (AC + kPad);
-  constexpr int kStage = kAElems + BR * (BC + kPad);
-  constexpr int kScratch = (kThreads / 32) * 256 * sizeof(float);
-  constexpr int kSmem = 2 * kStage * sizeof(T) > kScratch
-                            ? 2 * kStage * sizeof(T) : kScratch;
-  // Two stages of (A tile, B tile); the epilogue reuses the space as one
-  // 16 x 16 fp32 scratch tile per warp. Every piece starts at a multiple
-  // of 32 bytes, as wmma wants.
-  __shared__ __align__(128) unsigned char smem[kSmem];
-  uint16_t* stage0 = reinterpret_cast<uint16_t*>(smem);
+// bf16/fp16 on TMA + wgmma. AM: a's fast dim is M (a M-major), else K.
+// BK: b's fast dim is K (b K-major), else N.
+template <typename T, int BN, bool AM, bool BK>
+__global__ void __launch_bounds__(Ring<BN>::kThreads, Ring<BN>::kBlocksPerSM)
+grouped_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b,
+                          const float* __restrict__ bias,
+                          T* __restrict__ out, int M, int K, int N, int act,
+                          int vec_o) {
+  using R = Ring<BN>;
+  constexpr int S = R::kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (hop::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + S * R::kStageBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (S + s); };
 
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 64;
-  const int wn = (warp & 3) * 32;
-  const uint16_t* ae = reinterpret_cast<const uint16_t*>(a) + e * sae +
-                       m0 * sam;
-  const uint16_t* be = reinterpret_cast<const uint16_t*>(b) + e * sbe +
-                       n0 * sbn;
-
-  TileLoad<AR, AC> la;
-  TileLoad<BR, BC> lb;
-  auto fetch = [&](int k0) {
-    if (TA)
-      la.fetch(ae + k0 * sak, sak, sam, K - k0, M - m0, vec_a);
-    else
-      la.fetch(ae + k0 * sak, sam, sak, M - m0, K - k0, vec_a);
-    if (TB)
-      lb.fetch(be + k0 * sbk, sbn, sbk, N - n0, K - k0, vec_b);
-    else
-      lb.fetch(be + k0 * sbk, sbk, sbn, K - k0, N - n0, vec_b);
-  };
-  auto put = [&](int s) {
-    la.store(stage0 + s * kStage);
-    lb.store(stage0 + s * kStage + kAElems);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
+  const int n0 = blockIdx.x * BN;
   const int nk = (K + kBK - 1) / kBK;
-  if (nk > 0) {
-    fetch(0);
-    put(0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(full(s), 1);
+      hop::mbar_init(empty(s), kConsumerWarps);
+    }
+    hop::mbar_fence_init();
   }
   __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * kBK);
-    const T* sa = reinterpret_cast<const T*>(stage0 + cur * kStage);
-    const T* sb = reinterpret_cast<const T*>(stage0 + cur * kStage +
-                                             kAElems);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16;
-        if (TA)
-          wmma::load_matrix_sync(fa[i], sa + kk * (AC + kPad) + r, AC + kPad);
-        else
-          wmma::load_matrix_sync(fa[i], sa + r * (AC + kPad) + kk, AC + kPad);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = wn + j * 16;
-        if (TB)
-          wmma::load_matrix_sync(fb[j], sb + c * (BC + kPad) + kk, BC + kPad);
-        else
-          wmma::load_matrix_sync(fb[j], sb + kk * (BC + kPad) + c, BC + kPad);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) put(cur ^ 1);
-    __syncthreads();
-  }
 
-  // Epilogue: each warp's fragments through its scratch tile; a lane
-  // writes 8 consecutive columns of one row.
-  float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
-  const int r = lane >> 1;
-  const int c0 = (lane & 1) * 8;
-  const float* be_bias = bias != nullptr
-                             ? bias + static_cast<long long>(e) * N : nullptr;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm + i * 16 + r;
-      const int gn0 = n0 + wn + j * 16 + c0;
-      if (gm < M) {
-        T* orow = out + (static_cast<long long>(e) * M + gm) * N;
-        const float* v = scratch + r * 16 + c0;
-        if (vec_o && gn0 + 8 <= N) {
-          // 8 outputs in one 16-byte store (vec_o: N a multiple of 8 and
-          // the bias 16-byte aligned, so rows and bias runs are too).
-          float bv[8];
-          if (be_bias != nullptr) {
-            const float4 b0 = *reinterpret_cast<const float4*>(be_bias + gn0);
-            const float4 b1 =
-                *reinterpret_cast<const float4*>(be_bias + gn0 + 4);
-            bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-            bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-          }
-          uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            w[q >> 1] |= bits16(epilogue<T>(
-                             v[q], be_bias != nullptr ? bv + q : nullptr,
-                             act))
-                         << (16 * (q & 1));
-          *reinterpret_cast<uint4*>(orow + gn0) =
-              make_uint4(w[0], w[1], w[2], w[3]);
+  if (threadIdx.x >= kConsumers) {
+    // Producer, after the consumer warpgroups (wgmma wants each on a
+    // 4-warp boundary): one thread keeps the ring full.
+    if constexpr (R::kWide) hop::regs_dec<40>();
+    if (threadIdx.x == kConsumers) {
+      hop::tma_prefetch(&map_a);
+      hop::tma_prefetch(&map_b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % S;
+        hop::mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        hop::mbar_expect_tx(full(s), R::kStageBytes);
+        const uint32_t sa = ring + s * R::kStageBytes;
+        const uint32_t sb = sa + kATileBytes;
+        const int k0 = kt * kBK;
+        if (AM) {
+          hop::tma_load_3d(sa, &map_a, full(s), m0, k0, e);
+          hop::tma_load_3d(sa + kBoxBytes, &map_a, full(s), m0 + kBox, k0,
+                           e);
+        } else {
+          hop::tma_load_3d(sa, &map_a, full(s), k0, m0, e);
+        }
+        if (BK) {
+          hop::tma_load_3d(sb, &map_b, full(s), k0, n0, e);
         } else {
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            const int gn = gn0 + q;
-            if (gn < N)
-              orow[gn] = epilogue<T>(
-                  v[q], be_bias != nullptr ? be_bias + gn : nullptr, act);
-          }
+          for (int j = 0; j < BN / kBox; ++j)
+            hop::tma_load_3d(sb + j * kBoxBytes, &map_b, full(s),
+                             n0 + j * kBox, k0, e);
         }
       }
-      __syncwarp();
+    }
+  } else {
+    // Consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of the tile.
+    if constexpr (R::kWide) hop::regs_inc<232>();
+    const int cw = threadIdx.x >> 7;
+    hop::Acc<BN> acc;  // written first by the first product (acc_in 0)
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % S;
+      hop::mbar_wait(full(s), (kt / S) & 1);
+      // Both A layouts put rows 64 cw.. at 8 KB cw: the second half of a
+      // K-major 128-row box, or the second 64-wide M-major box.
+      const uint32_t sa = ring + s * R::kStageBytes + cw * kBoxBytes;
+      const uint32_t sb = ring + s * R::kStageBytes + kATileBytes;
+      hop::fence_acc(acc);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // K-major: the next 16 k are 32 bytes on within each 128-byte row.
+        // MN-major: 16 rows of 128 bytes on, two 8-row groups 1 KB apart.
+        const uint64_t da =
+            AM ? hop::smem_desc(sa + kk * 2048, kBoxBytes, 1024)
+               : hop::smem_desc(sa + kk * 32, 16, 1024);
+        const uint64_t db =
+            BK ? hop::smem_desc(sb + kk * 32, 16, 1024)
+               : hop::smem_desc(sb + kk * 2048, kBoxBytes, 1024);
+        hop::mma_async<AM ? 1 : 0, BK ? 0 : 1>(acc, T(), da, db,
+                                                kt > 0 || kk > 0);
+      }
+      hop::wgmma_commit();
+      hop::fence_acc(acc);
+      // The group before this one is done: its stage can be refilled.
+      hop::wgmma_wait<1>();
+      if (kt > 0 && (threadIdx.x & 31) == 0)
+        hop::mbar_arrive(empty((kt - 1) % S));
+    }
+    hop::wgmma_wait<0>();
+    hop::fence_acc(acc);
+    if (nk == 0) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc.d[i] = 0.f;
+    }
+
+    // Epilogue, in two passes through the ring, which no load or product
+    // reads any more once both warpgroups are here. (1) Each warp rounds
+    // z = acc + bias to T into its own 16 rows of shared memory (pitch BN
+    // + 8 elements: the quad's pairs of 8 rows land on distinct banks).
+    // (2) Each lane takes 8 neighbouring z of a row, applies the
+    // activation and writes them with one 16-byte store where N is a
+    // multiple of 8 (else element by element, masked). Both passes are
+    // short loops, so the code stays in the instruction cache.
+    hop::bar_sync(1, kConsumers);
+    constexpr int kPitch = BN + 8;
+    const int t = threadIdx.x & 127;
+    const int w = t >> 5, lane = t & 31, q = lane & 3;
+    T* stage =
+        reinterpret_cast<T*>(smem_raw + (ring - hop::smem_u32(smem_raw))) +
+        (4 * cw + w) * 16 * kPitch;
+    const float* eb =
+        bias != nullptr ? bias + static_cast<long long>(e) * N : nullptr;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float b0 = eb != nullptr && n0 + c < N ? __ldg(eb + n0 + c) : 0.f;
+      const float b1 =
+          eb != nullptr && n0 + c + 1 < N ? __ldg(eb + n0 + c + 1) : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* d = acc.d + 4 * j + 2 * h;
+        const T z0 = from_f32<T>(eb != nullptr ? d[0] + b0 : d[0]);
+        const T z1 = from_f32<T>(eb != nullptr ? d[1] + b1 : d[1]);
+        *reinterpret_cast<uint32_t*>(stage + ((lane >> 2) + 8 * h) * kPitch +
+                                     c) = bits16(z0) | bits16(z1) << 16;
+      }
+    }
+    __syncwarp();
+    constexpr int kLanesPerRow = BN / 8;
+    constexpr int kRowsPerPass = 32 / kLanesPerRow;
+    const int cl = lane % kLanesPerRow;
+    const int col = n0 + 8 * cl;
+    T* oe = out + static_cast<long long>(e) * M * N;
+#pragma unroll 1
+    for (int r = lane / kLanesPerRow; r < 16; r += kRowsPerPass) {
+      const int row = m0 + 64 * cw + 16 * w + r;
+      if (row >= M || col >= N) continue;
+      uint4 v = *reinterpret_cast<const uint4*>(stage + r * kPitch + 8 * cl);
+      uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+      if (act != kActNone) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const T lo = from_f32<T>(gelu(to_f32(from_bits<T>(u[i])), act));
+          const T hi = from_f32<T>(gelu(to_f32(from_bits<T>(u[i] >> 16)), act));
+          u[i] = bits16(lo) | bits16(hi) << 16;
+        }
+      }
+      T* orow = oe + static_cast<long long>(row) * N + col;
+      if (vec_o) {
+        *reinterpret_cast<uint4*>(orow) = v;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (col + i < N) orow[i] = from_bits<T>(u[i >> 1] >> (16 * (i & 1)));
+      }
     }
   }
 }
@@ -365,78 +374,154 @@ grouped_gemm_f32_kernel(const float* __restrict__ a, long long sae,
   }
 }
 
-// 16-byte loads along the stride-1 dimension need that dimension's
-// stride to be 1, the other two strides to be multiples of 8 elements
-// and the base 16-byte aligned.
-bool vec_ok(const void* p, long long unit, long long s1, long long s2) {
-  return unit == 1 && s1 % kVec == 0 && s2 % kVec == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime
+// so that the library links no -lcuda.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static const EncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeFn>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-template <typename T>
-void launch_16(const void* a, long long sae, long long sam, long long sak,
-               const void* b, long long sbe, long long sbk, long long sbn,
-               const float* bias, void* out, int E, int M, int K, int N,
-               int act, cudaStream_t st) {
-  const bool ta = sam == 1 && sak != 1;
-  const bool tb = sbk == 1 && sbn != 1;
-  const bool va = ta ? vec_ok(a, sam, sae, sak) : vec_ok(a, sak, sae, sam);
-  const bool vb = tb ? vec_ok(b, sbk, sbe, sbn) : vec_ok(b, sbn, sbe, sbk);
-  const bool vo = N % kVec == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, E);
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  T* po = static_cast<T*>(out);
-#define DSTT_GG_LAUNCH(TA_, TB_)                                             \
-  grouped_gemm_kernel<T, TA_, TB_><<<grid, kThreads, 0, st>>>(              \
-      pa, sae, sam, sak, pb, sbe, sbk, sbn, bias, po, M, K, N, act, va, vb, \
-      vo)
-  if (ta && tb)
-    DSTT_GG_LAUNCH(true, true);
-  else if (ta)
-    DSTT_GG_LAUNCH(true, false);
-  else if (tb)
-    DSTT_GG_LAUNCH(false, true);
-  else
-    DSTT_GG_LAUNCH(false, false);
-#undef DSTT_GG_LAUNCH
+// A 3-D map of a 16-bit operand: dims (fast, slow, experts), the fast
+// dim's stride 1, the others' in elements; boxes of 64 x box_slow x 1 with
+// the 128-byte swizzle, zeros past the edges. False where TMA cannot
+// describe the operand (the wrapper's _gg_plan stages such an operand).
+bool make_map(CUtensorMap* map, const void* base, int dtype, long long fast,
+              long long slow, long long experts, long long s_slow,
+              long long s_e, int box_slow) {
+  const EncodeFn encode = encode_fn();
+  if (encode == nullptr) return false;
+  // A dim of size 1 is never stepped along: give it a valid stride.
+  if (slow == 1) s_slow = (fast + 7) / 8 * 8;
+  if (experts == 1) s_e = slow * s_slow;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(fast),
+                              static_cast<cuuint64_t>(slow),
+                              static_cast<cuuint64_t>(experts)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(s_slow) * 2,
+                                 static_cast<cuuint64_t>(s_e) * 2};
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || s_slow <= 0 ||
+      s_e <= 0 || strides[0] % 16 != 0 || strides[1] % 16 != 0)
+    return false;
+  const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(box_slow), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map,
+                dtype == kBFloat16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int BN, bool AM, bool BK>
+cudaError_t launch_tc(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                      const float* bias, void* out, int E, int M, int K,
+                      int N, int act, cudaStream_t st) {
+  auto kernel = grouped_gemm_wgmma_kernel<T, BN, AM, BK>;
+  constexpr int smem = Ring<BN>::kSmemBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int vec_o =
+      N % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, E);
+  kernel<<<grid, Ring<BN>::kThreads, smem, st>>>(map_a, map_b, bias,
+                                       static_cast<T*>(out), M, K, N, act,
+                                       vec_o);
+  return cudaGetLastError();
+}
+
+template <typename T, int BN, typename... Args>
+cudaError_t launch_majors(bool am, bool bk, Args... args) {
+  if (am && bk) return launch_tc<T, BN, true, true>(args...);
+  if (am) return launch_tc<T, BN, true, false>(args...);
+  if (bk) return launch_tc<T, BN, false, true>(args...);
+  return launch_tc<T, BN, false, false>(args...);
+}
+
+template <typename T, typename... Args>
+cudaError_t launch_16(bool am, bool bk, int bn, Args... args) {
+  return bn == 256 ? launch_majors<T, 256>(am, bk, args...)
+                   : launch_majors<T, 128>(am, bk, args...);
 }
 
 }  // namespace
 
-// a: [E, M, K] with element strides (sae, sam, sak); b: [E, K, N] with
-// (sbe, sbk, sbn); bias: [E, N] fp32 contiguous or null; out: [E, M, N]
-// contiguous, of a's dtype. act: 0 none, 1 gelu_tanh, 2 gelu_exact.
-extern "C" int dstt_grouped_gemm(const void* a, long long sae, long long sam,
-                                 long long sak, const void* b, long long sbe,
-                                 long long sbk, long long sbn,
+// bf16/fp16 (K9 on the MoE path). a: [E, M, K] with expert stride sae and
+// slow stride sa_slow (elements); a_mn: a's fast (stride-1) dim is M, else
+// K. b: [E, K, N] likewise, b_k: b's fast dim is K, else N. bias: [E, N]
+// fp32 contiguous or null; out: [E, M, N] contiguous, of a's dtype.
+// act: 0 none, 1 gelu_tanh, 2 gelu_exact; bn: the tile's width, 128 or
+// 256. Operands TMA cannot describe return cudaErrorInvalidValue (the
+// wrapper stages them).
+extern "C" int dstt_grouped_gemm(const void* a, long long sae,
+                                 long long sa_slow, int a_mn, const void* b,
+                                 long long sbe, long long sb_slow, int b_k,
                                  const void* bias, void* out, int E, int M,
-                                 int K, int N, int act, int dtype,
+                                 int K, int N, int act, int dtype, int bn,
                                  void* stream) {
   if (E <= 0 || M <= 0 || N <= 0) return cudaSuccess;
-  if (K < 0 || act < kActNone || act > kActExact || E > 65535)
+  if (K < 0 || act < kActNone || act > kActExact || E > 65535 ||
+      (M + kBM - 1) / kBM > 65535 || (bn != 128 && bn != 256) ||
+      (dtype != kBFloat16 && dtype != kFloat16))
     return cudaErrorInvalidValue;
+  const long long k = K > 0 ? K : 1;  // K = 0 loads nothing
+  CUtensorMap ma, mb;
+  const bool ok_a =
+      a_mn ? make_map(&ma, a, dtype, M, k, E, sa_slow, sae, kBox)
+           : make_map(&ma, a, dtype, k, M, E, sa_slow, sae, kBM);
+  const bool ok_b =
+      b_k ? make_map(&mb, b, dtype, k, N, E, sb_slow, sbe, bn)
+          : make_map(&mb, b, dtype, N, k, E, sb_slow, sbe, kBox);
+  if (!ok_a || !ok_b) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
-  if (dtype == kFloat32) {
-    if ((M + kFBM - 1) / kFBM > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM, E);
-    grouped_gemm_f32_kernel<<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(a), sae, sam, sak,
-        static_cast<const float*>(b), sbe, sbk, sbn, bf,
-        static_cast<float*>(out), M, K, N, act);
-  } else if ((M + kBM - 1) / kBM > 65535) {
+  if (dtype == kBFloat16)
+    return launch_16<__nv_bfloat16>(a_mn, b_k, bn, ma, mb, bf, out, E, M, K,
+                                    N, act, st);
+  return launch_16<__half>(a_mn, b_k, bn, ma, mb, bf, out, E, M, K, N, act,
+                           st);
+}
+
+// fp32: a [E, M, K] with element strides (sae, sam, sak); b [E, K, N] with
+// (sbe, sbk, sbn); bias and out as above.
+extern "C" int dstt_grouped_gemm_f32(const void* a, long long sae,
+                                     long long sam, long long sak,
+                                     const void* b, long long sbe,
+                                     long long sbk, long long sbn,
+                                     const void* bias, void* out, int E,
+                                     int M, int K, int N, int act,
+                                     void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0) return cudaSuccess;
+  if (K < 0 || act < kActNone || act > kActExact || E > 65535 ||
+      (M + kFBM - 1) / kFBM > 65535)
     return cudaErrorInvalidValue;
-  } else if (dtype == kBFloat16) {
-    launch_16<__nv_bfloat16>(a, sae, sam, sak, b, sbe, sbk, sbn, bf, out, E,
-                             M, K, N, act, st);
-  } else if (dtype == kFloat16) {
-    launch_16<__half>(a, sae, sam, sak, b, sbe, sbk, sbn, bf, out, E, M, K,
-                      N, act, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM, E);
+  grouped_gemm_f32_kernel<<<grid, kFThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), sae, sam, sak,
+      static_cast<const float*>(b), sbe, sbk, sbn,
+      static_cast<const float*>(bias), static_cast<float*>(out), M, K, N,
+      act);
   return cudaGetLastError();
 }

@@ -27,8 +27,11 @@ KERNEL_WRAPPERS = (fused_elementwise.fused_layer_norm,
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launch count, and the grouped GEMM's count of
+    staged operand copies."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    grouped_gemm.grouped_matmul.staged = 0
 
 
 def launch_counts() -> dict:

@@ -7,10 +7,16 @@ bound and design.
 
 - ``grouped_matmul(a [E,M,K], b [E,K,N], bias [E,N]?, act?)`` — the
   kernel wrapper: ``out[e] = act(a[e] @ b[e] + bias[e])``. For a CUDA
-  tensor it launches the kernel (operands read through their strides,
-  so transposed views need no copy) and counts the launch in
+  tensor it launches the kernel and counts the launch in
   ``grouped_matmul.launches``; for a CPU tensor it runs
-  ``grouped_matmul_plain``, the same arithmetic in PyTorch.
+  ``grouped_matmul_plain``, the same arithmetic in PyTorch. bf16/fp16
+  take the TMA + wgmma kernel: ``_gg_plan`` reads which dimension of
+  each operand has stride 1 (so the backward's transposed views need no
+  copy) and picks the tile; an operand TMA cannot describe (no unit
+  stride, an unaligned base, a stride not a multiple of 16 bytes) is
+  copied into a contiguous buffer first, counted in
+  ``grouped_matmul.staged``. fp32 takes a SIMT kernel that reads any
+  strides.
 - ``grouped_ffn(x, w1, b1, w2, b2, exact)`` — the expert FFN
   ``gelu(x @ w1 + b1) @ w2 + b2`` per expert as two grouped GEMMs, a
   ``torch.autograd.Function`` whose backward mirrors the JAX custom VJP:
@@ -29,7 +35,9 @@ rounded once at the output.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +47,14 @@ from .fused_elementwise import gelu_f32
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {None: 0, "gelu_tanh": 1, "gelu_exact": 2}
+# The wgmma kernel's tiles: BM rows by BN columns, and the blocks of each
+# that share an SM (csrc/grouped_gemm.cu, Ring).
+GG_BM = 128
+GG_TILES = (128, 256)
+GG_BLOCKS_PER_SM = {128: 2, 256: 1}
+# The SIMT kernel's tile (fp32).
+GG_F32_TILE = (64, 64)
+H100_SMS = 132
 
 
 def check_grouped_gemm(flag="auto", device="cpu") -> None:
@@ -88,15 +104,122 @@ def grouped_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return z
 
 
+@dataclasses.dataclass(frozen=True)
+class GGPlan:
+    """How ``grouped_matmul`` runs K9 on a CUDA device.
+
+    ``route``: "wgmma" (bf16/fp16, the TMA + wgmma kernel) or "simt"
+    (fp32). ``a_major``: the dimension of ``a`` with stride 1 as the
+    kernel reads it, "K" or "M"; ``b_major``: "N" or "K" (after staging).
+    ``tile``: (BM, BN). ``staged``: the operands, of "a" and "b", that
+    TMA cannot describe; the wrapper copies each into a contiguous buffer
+    with rows padded to 8 elements (K-major a, N-major b) and runs the
+    same kernel on it."""
+    route: str
+    a_major: str
+    b_major: str
+    tile: Tuple[int, int]
+    staged: Tuple[str, ...]
+
+
+def _tma_ok(t: torch.Tensor, fast: int) -> bool:
+    """Whether TMA can read the 3-D ``t`` with dim ``fast`` along a box's
+    128-byte rows: stride 1 there, a 16-byte aligned base, and every other
+    dim of more than one element at a positive stride that is a multiple
+    of 16 bytes (a dim of size 1 is never stepped along)."""
+    if t.stride(fast) != 1 or t.data_ptr() % 16:
+        return False
+    isz = t.element_size()
+    return all(t.shape[d] == 1 or (t.stride(d) > 0 and
+                                   t.stride(d) * isz % 16 == 0)
+               for d in range(3) if d != fast)
+
+
+def _gg_tile(E: int, M: int, N: int, act: Optional[str] = None,
+             sms: int = H100_SMS) -> int:
+    """BN of the wgmma tile for an [E, M, N] output. With an activation,
+    128: the GELU epilogue is long, and the second block an SM runs its
+    products meanwhile. Else the one whose blocks fill the card's block
+    slots (``sms`` multiprocessors times the blocks an SM holds) with the
+    larger share of useful outputs over the waves they take; 256 on a
+    tie, where its wider tile reads each operand fewer times. (At the
+    MoE path's seven shapes on an H100 80GB HBM3 at 700 W,
+    ``profile_torch_moe.py --parts tiles`` read BN 256 at 0.162-0.192 ms
+    without an activation, 8-17% under BN 128, and 0.290 against 0.263
+    with GELU.)"""
+    if act is not None:
+        return 128
+
+    def useful(bn):
+        slots = sms * GG_BLOCKS_PER_SM[bn]
+        tiles = E * -(-M // GG_BM) * -(-N // bn)
+        waves = -(-tiles // slots)
+        return E * M * N / (waves * slots * GG_BM * bn)
+    return 256 if useful(256) >= useful(128) else 128
+
+
+def _gg_plan(a: torch.Tensor, b: torch.Tensor, act: Optional[str] = None,
+             sms: int = H100_SMS) -> GGPlan:
+    """The route, majors, tile and staged operands of ``grouped_matmul(a,
+    b, act=act)`` on a CUDA device; reads shapes, strides, dtypes and
+    base addresses only (meta or CPU tensors answer too). A K-major
+    ``a`` and an N-major ``b`` are taken where both majors are
+    possible."""
+    E, M, K = a.shape
+    N = b.shape[2]
+    if a.dtype == torch.float32:
+        # the SIMT kernel walks the dim of stride 1 when only one has it
+        a_major = "M" if a.stride(1) == 1 != a.stride(2) else "K"
+        b_major = "K" if b.stride(1) == 1 != b.stride(2) else "N"
+        return GGPlan("simt", a_major, b_major, GG_F32_TILE, ())
+    staged = []
+    if _tma_ok(a, 2):
+        a_major = "K"
+    elif _tma_ok(a, 1):
+        a_major = "M"
+    else:
+        a_major = "K"
+        staged.append("a")
+    if _tma_ok(b, 2):
+        b_major = "N"
+    elif _tma_ok(b, 1):
+        b_major = "K"
+    else:
+        b_major = "N"
+        staged.append("b")
+    return GGPlan("wgmma", a_major, b_major,
+                  (GG_BM, _gg_tile(E, M, N, act, sms)), tuple(staged))
+
+
+def _stage(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [E, R, C] copied into a contiguous buffer whose rows are
+    padded to a multiple of 8 elements (16 bytes), viewed back as [E, R,
+    C]: the same values with C at stride 1."""
+    E, R, C = t.shape
+    buf = torch.empty((E, R, -(-C // 8) * 8), dtype=t.dtype, device=t.device)
+    view = buf[..., :C]
+    view.copy_(t)
+    grouped_matmul.staged += 1
+    return view
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
-                   act: Optional[str] = None) -> torch.Tensor:
+                   act: Optional[str] = None,
+                   _tile: Optional[int] = None) -> torch.Tensor:
     """K9: ``out[e] = act(a[e] @ b[e] + bias[e])`` for every expert e.
 
     ``a`` [E, M, K] and ``b`` [E, K, N] of one dtype (fp32, bf16 or
     fp16), any strides; ``bias`` [E, N] (read as fp32) or None; ``act``
     None, "gelu_tanh" or "gelu_exact". The output is contiguous, in
-    ``a.dtype``."""
+    ``a.dtype``. ``_tile`` (bf16/fp16 on the card: 128 or 256) overrides
+    the plan's BN, for tests and probes (as the JAX ``_grouped_matmul``'s
+    ``_tile``); the bits do not depend on it."""
     if a.device.type == "cpu":
         return grouped_matmul_plain(a, b, bias, act)
     _check_shapes(a, b, bias, act)
@@ -109,6 +232,9 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"grouped_matmul: the kernel takes a and b of one "
                         f"dtype out of float32, bfloat16, float16; got "
                         f"{a.dtype} and {b.dtype}")
+    if _tile not in (None, *GG_TILES):
+        raise ValueError(f"grouped_matmul: _tile must be None or one of "
+                         f"{GG_TILES}, got {_tile!r}")
     E, M, K = a.shape
     N = b.shape[2]
     bias32 = None if bias is None else \
@@ -117,17 +243,34 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = op_builder.load()
-    rc = lib.dstt_grouped_gemm(
-        a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
-        None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
-        E, M, K, N, _ACT_CODES[act], _DTYPE_CODES[a.dtype],
-        op_builder.stream_ptr(dev))
+    bias_ptr = None if bias32 is None else bias32.data_ptr()
+    stream = op_builder.stream_ptr(dev)
+    if a.dtype == torch.float32:
+        rc = lib.dstt_grouped_gemm_f32(
+            a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(), bias_ptr,
+            out.data_ptr(), E, M, K, N, _ACT_CODES[act], stream)
+    else:
+        plan = _gg_plan(a, b, act, _sm_count(
+            dev.index if dev.index is not None
+            else torch.cuda.current_device()))
+        if "a" in plan.staged:
+            a = _stage(a)
+        if "b" in plan.staged:
+            b = _stage(b)
+        a_mn, b_k = plan.a_major == "M", plan.b_major == "K"
+        rc = lib.dstt_grouped_gemm(
+            a.data_ptr(), a.stride(0), a.stride(2 if a_mn else 1), int(a_mn),
+            b.data_ptr(), b.stride(0), b.stride(2 if b_k else 1), int(b_k),
+            bias_ptr, out.data_ptr(), E, M, K, N, _ACT_CODES[act],
+            _DTYPE_CODES[a.dtype], plan.tile[1] if _tile is None else _tile,
+            stream)
     op_builder.check(rc, "grouped_matmul")
     grouped_matmul.launches += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.staged = 0
 
 
 def _act_name(exact: bool) -> str:

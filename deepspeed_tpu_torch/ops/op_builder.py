@@ -61,8 +61,10 @@ _SIGNATURES = {
     "dstt_sparse_flash": ([_I] + [_P] * 3 + [_L] * 3 + [_P] * 12 + [_I] +
                           [_P] * 3 + [_I] + [_P] * 3 + [_I] * 9 + [_F] * 3 +
                           [_I, _I, _P], _I),
-    "dstt_grouped_gemm": ([_P, _L, _L, _L, _P, _L, _L, _L, _P, _P] +
-                          [_I] * 6 + [_P], _I),
+    "dstt_grouped_gemm": ([_P, _L, _L, _I, _P, _L, _L, _I, _P, _P] +
+                          [_I] * 7 + [_P], _I),
+    "dstt_grouped_gemm_f32": ([_P, _L, _L, _L, _P, _L, _L, _L, _P, _P] +
+                              [_I] * 5 + [_P], _I),
     "dstt_error_string": ([_I], ctypes.c_char_p),
 }
 

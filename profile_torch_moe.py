@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Two readings of the MoE training path on one card, in one process.
+"""Readings of K9 and the MoE training path on one card, in one process.
 
-    python3 profile_torch_moe.py
+    python3 profile_torch_moe.py [--parts dtype,tiles,sass,moe]
 
-1. K9 (``ops/grouped_gemm.py``, ``csrc/grouped_gemm.cu``) by dtype: at
-   the seven shapes of one MoE layer and micro-batch (chip_smoke.py's
-   ``_gg_cases``: 8 experts, capacity 2560, hidden 768, FFN 3072, the
-   backward's operands as transposed views), bf16 and fp16 on the same
-   values (drawn in fp32 from one seed, cast to each), read in the order
-   bf16, fp16, fp16, bf16. Each reading: 20 warm launches, then about a
-   second of launches between CUDA events; while the card works through
-   them, ``nvidia-smi`` reads its SM clock and power draw. ``torch.bmm``
-   on the same operands in both dtypes is the control. Then the
-   instruction mix of each K9 instantiation in the built library
-   (``cuobjdump -sass``: all instructions, HMMA, shared-memory and
-   generic loads, ``MOVM`` transposes, stores, barriers).
-2. The drop fraction: chip_smoke.py's ``train_moe`` recipe (gpt2-small,
-   8 experts top-2 in every block, gas 2 x 8 x 1024) for 12 steps three
-   ways, from one seed and one token stream: bf16 with K9 (the main
-   path), bf16 with the expert FFN's plain version (``grouped_ffn_plain``
-   in place of the kernel), and fp32 with K9 (model and ds_config). Each prints its losses,
-   drop fractions, aux and z losses per step.
+Parts (all by default, in this order):
+
+- ``dtype``: K9 (``ops/grouped_gemm.py``, ``csrc/grouped_gemm.cu``) by
+  dtype at the seven shapes of one MoE layer and micro-batch
+  (chip_smoke.py's ``_gg_cases``: 8 experts, capacity 2560, hidden 768,
+  FFN 3072, the backward's operands as transposed views), bf16 and fp16
+  on the same values (drawn in fp32 from one seed, cast to each), read
+  in the order bf16, fp16, fp16, bf16 at the plan's tile. Each reading:
+  20 warm launches, then about a second of launches between CUDA
+  events; while the card works through them, ``nvidia-smi`` reads its
+  SM clock and power draw. ``torch.bmm`` on the same operands in both
+  dtypes is the control.
+- ``tiles``: the same seven shapes in bf16 at both wgmma tiles (BN 128
+  and 256), read in the order 128, 256, 256, 128, each beside the plan's
+  pick (``_gg_plan``) and the block count of each tile.
+- ``sass``: the instruction mix of each K9 instantiation in the built
+  library (``cuobjdump -sass``): all instructions, HGMMA (wgmma), UTMALDG
+  (TMA loads), the barrier and shared-memory traffic, stores.
+- ``moe``: the drop fraction: chip_smoke.py's ``train_moe`` recipe
+  (gpt2-small, 8 experts top-2 in every block, gas 2 x 8 x 1024) for 12
+  steps three ways, from one seed and one token stream: bf16 with K9
+  (the main path), bf16 with the expert FFN's plain version
+  (``grouped_ffn_plain`` in place of the kernel), and fp32 with K9
+  (model and ds_config). Each prints its losses, drop fractions, aux and
+  z losses and step ms per step.
 
 One JSON line per reading, then a summary line. Needs a CUDA device.
 """
+import argparse
 import dataclasses
 import re
 import subprocess
@@ -139,6 +147,35 @@ def k9_by_dtype(dev, smi):
     return out
 
 
+def k9_by_tile(dev, smi):
+    """The seven bf16 shapes at both tiles, in the order 128, 256, 256,
+    128."""
+    out = []
+    for case, a, b, bias, act in gg_cases(dev):
+        aa, bb = cast_view(a, torch.bfloat16), cast_view(b, torch.bfloat16)
+        E, M, K = aa.shape
+        N = bb.shape[2]
+        plan = gg._gg_plan(aa, bb, act)
+        rec = {"case": case, "shape": [E, M, K, N], "act": act,
+               "bias": bias is not None, "majors": [plan.a_major,
+                                                    plan.b_major],
+               "plan_tile": list(plan.tile), "card": smi}
+        for turn, bn in enumerate((128, 256, 256, 128)):
+            rec[f"bn{bn}_{turn}"] = reading(
+                lambda: gg.grouped_matmul(aa, bb, bias, act, bn))
+        for bn in (128, 256):
+            ms = [rec[f"bn{bn}_{i}"]["ms"] for i in range(4)
+                  if f"bn{bn}_{i}" in rec]
+            rec[f"bn{bn}_ms"] = float(np.mean(ms))
+            tiles = E * -(-M // 128) * -(-N // bn)
+            rec[f"bn{bn}_blocks"] = tiles
+        rec["faster"] = 128 if rec["bn128_ms"] < rec["bn256_ms"] else 256
+        cs.emit({"k9_tile": rec})
+        out.append(rec)
+    torch.cuda.empty_cache()
+    return out
+
+
 def k9_sass():
     """Instruction counts of each grouped-GEMM instantiation."""
     lib = op_builder.build()
@@ -162,8 +199,9 @@ def k9_sass():
         if m:
             funcs[name]["all"] += 1
             op = m.group(1)
-            if op in ("HMMA", "LD", "LDS", "LDSM", "MOVM", "STS", "BAR",
-                      "LDG", "STG", "F2F", "F2FP", "MUFU"):
+            if op in ("HGMMA", "UTMALDG", "SYNCS", "WARPGROUP", "HMMA",
+                      "LD", "LDS", "LDSM", "STS", "BAR", "LDG", "STG",
+                      "SHFL", "F2FP", "MUFU"):
                 funcs[name][op + (m.group(2) or "")] += 1
     rec = {name: dict(sorted(c.items())) for name, c in funcs.items()}
     cs.emit({"k9_sass": rec})
@@ -211,6 +249,9 @@ def train_turn(cfg, precision, expert, batches, smi, dev):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="dtype,tiles,sass,moe")
+    parts = ap.parse_args().parts.split(",")
     if not torch.cuda.is_available():
         print("profile_torch_moe: no CUDA device is available",
               file=sys.stderr)
@@ -221,30 +262,45 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     op_builder.load()
-    dtype = k9_by_dtype(dev, smi)
-    sass = k9_sass()
-    cfg = moe_cfg()
-    batches = cs.token_stream(cfg, STEPS)
-    turns = [train_turn(cfg, p, e, batches, smi, dev)
-             for p, e in (("bf16", "kernel"), ("bf16", "plain"),
-                          ("fp32", "kernel"))]
-    base = turns[0]["drop_fraction"]
-    cs.emit({"summary": {
-        "k9_bf16_over_fp16": {r["case"]: r["k9_bf16_over_fp16"]
-                              for r in dtype},
-        "bmm_bf16_over_fp16": {r["case"]: r["bmm_bf16_over_fp16"]
-                               for r in dtype},
-        "k9_sass_loads_and_hmma": {
+    summary = {"card": smi}
+    if "dtype" in parts:
+        dtype = k9_by_dtype(dev, smi)
+        summary["k9_bf16_over_fp16"] = {r["case"]: r["k9_bf16_over_fp16"]
+                                        for r in dtype}
+        summary["bmm_bf16_over_fp16"] = {
+            r["case"]: r["bmm_bf16_over_fp16"] for r in dtype}
+        summary["k9_bf16_ms"] = {r["case"]: float(np.mean(
+            [r["k9_0_bfloat16"]["ms"], r["k9_3_bfloat16"]["ms"]]))
+            for r in dtype}
+        summary["bmm_bf16_ms"] = {r["case"]: r["bmm_bfloat16"]["ms"]
+                                  for r in dtype}
+    if "tiles" in parts:
+        tiles = k9_by_tile(dev, smi)
+        summary["k9_bf16_ms_by_tile"] = {
+            r["case"]: {"128": r["bn128_ms"], "256": r["bn256_ms"],
+                        "plan": r["plan_tile"][1]} for r in tiles}
+    if "sass" in parts:
+        sass = k9_sass()
+        summary["k9_sass_mma_and_loads"] = {
             n: {k: v for k, v in c.items()
-                if k.startswith(("HMMA", "LD", "MOVM", "all"))}
-            for n, c in sass.items()},
-        "drop_fraction": {f"{t['precision']}_{t['expert_ffn']}":
-                          t["drop_fraction"] for t in turns},
-        "drop_fraction_max_abs_diff_vs_bf16_kernel": {
+                if k.startswith(("HGMMA", "UTMALDG", "HMMA", "LD", "all"))}
+            for n, c in sass.items()}
+    if "moe" in parts:
+        cfg = moe_cfg()
+        batches = cs.token_stream(cfg, STEPS)
+        turns = [train_turn(cfg, p, e, batches, smi, dev)
+                 for p, e in (("bf16", "kernel"), ("bf16", "plain"),
+                              ("fp32", "kernel"))]
+        base = turns[0]["drop_fraction"]
+        summary["drop_fraction"] = {f"{t['precision']}_{t['expert_ffn']}":
+                                    t["drop_fraction"] for t in turns}
+        summary["drop_fraction_max_abs_diff_vs_bf16_kernel"] = {
             f"{t['precision']}_{t['expert_ffn']}":
                 float(np.max(np.abs(np.subtract(t["drop_fraction"], base))))
-            for t in turns[1:]},
-        "card": smi}})
+            for t in turns[1:]}
+        summary["step_ms_p50"] = {f"{t['precision']}_{t['expert_ffn']}":
+                                  t["step_ms_p50"] for t in turns}
+    cs.emit({"summary": summary})
     return 0
 
 

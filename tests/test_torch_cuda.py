@@ -782,8 +782,9 @@ def test_sparse_attention_autograd_on_the_card_matches_the_cpu(
 # The grouped GEMM (K9) and the MoE path
 # --------------------------------------------------------------------- #
 # (E, M, K, N): a capacity of 40 and odd widths; several 128-tiles each
-# way with ragged edges; K not a multiple of the 32-deep K tile.
-GG_SHAPES = [(3, 40, 200, 136), (2, 260, 96, 300)]
+# way with ragged edges; K not a multiple of the 64-deep K step; several
+# K steps with a K tail and N past two 256-wide tiles.
+GG_SHAPES = [(3, 40, 200, 136), (2, 260, 96, 300), (2, 300, 264, 520)]
 
 
 def _gg_inputs(dev, dt, E, M, K, N, seed):
@@ -804,7 +805,8 @@ def test_grouped_gemm_kernel_matches_plain_and_repeats(dev, dtype_name, act,
     of the kernel's own z (a z one rounding step apart moves a GELU
     output by its slope, many ulp of a small output). Two launches give
     the same bits; transposed, unaligned and non-unit-stride views of
-    the same values give the same bits as contiguous operands."""
+    the same values give the same bits as contiguous operands, and so do
+    both wgmma tiles (BN 128 and 256), on every layout."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = DTYPES[dtype_name]
     a, b, bias = _gg_inputs(dev, dt, *shape, seed=len(str(act)))
@@ -834,12 +836,47 @@ def test_grouped_gemm_kernel_matches_plain_and_repeats(dev, dtype_name, act,
     for a2, b2 in ((at, b), (a, bt), (at, bt), (wide[..., ::2], b),
                    (off[..., 1:], b)):
         assert torch.equal(gg.grouped_matmul(a2, b2, bias, act), got)
-    # a bias 4 bytes off 16-byte alignment takes the scalar epilogue
+        for tile in gg.GG_TILES if dtype_name != "fp32" else ():
+            assert torch.equal(gg.grouped_matmul(a2, b2, bias, act, tile),
+                               got), (tile, a2.stride(), b2.stride())
+    # a bias 4 bytes off 16-byte alignment reads the same values
     bias_off = torch.empty(bias.numel() + 1, device=dev)[1:].view(
         bias.shape).copy_(bias)
     assert torch.equal(gg.grouped_matmul(a, b, bias_off, act), got)
     assert torch.equal(gg.grouped_matmul(a, b, None, act),
                        gg.grouped_matmul(a, b, torch.zeros_like(bias), act))
+
+
+@pytest.mark.parametrize("dtype_name", ["bf16", "fp16"])
+def test_grouped_gemm_stages_only_what_tma_cannot_read(dev, dtype_name):
+    """Contiguous operands with 16-byte aligned rows, and the transposed
+    views of such, run with no copy; an unaligned view of a, a K stride
+    of 2 and b's 600-byte rows (N = 300) each stage their operand once,
+    and every form gives the same bits."""
+    dt = DTYPES[dtype_name]
+    E, M, K, N = 2, 72, 200, 136
+    a, b, bias = _gg_inputs(dev, dt, E, M, K, N, seed=5)
+    ops.reset_launch_counts()
+    got = gg.grouped_matmul(a, b, bias, "gelu_tanh")
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)
+    bt = b.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(gg.grouped_matmul(at, bt, bias, "gelu_tanh"), got)
+    assert gg.grouped_matmul.staged == 0
+    off = torch.zeros(E, M, K + 1, dtype=dt, device=dev)
+    off[..., 1:] = a
+    wide = torch.zeros(E, M, 2 * K, dtype=dt, device=dev)
+    wide[..., ::2] = a
+    for a2 in (off[..., 1:], wide[..., ::2]):
+        ops.reset_launch_counts()
+        assert torch.equal(gg.grouped_matmul(a2, b, bias, "gelu_tanh"), got)
+        assert gg.grouped_matmul.staged == 1
+    a3, b3, _ = _gg_inputs(dev, dt, E, M, K, 300, seed=6)
+    ops.reset_launch_counts()
+    want = gg.grouped_matmul_plain(a3, b3)
+    z = gg.grouped_matmul(a3, b3)
+    assert gg.grouped_matmul.staged == 1
+    assert_close(_np(z), _np(want), dtype_name)
+    assert ops.launch_counts()["grouped_matmul"] == 1
 
 
 def test_grouped_gemm_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -851,6 +888,8 @@ def test_grouped_gemm_wrapper_rejects_what_the_kernel_does_not_take(dev):
         gg.grouped_matmul(a, b.cpu())
     with pytest.raises(TypeError, match="one dtype"):
         gg.grouped_matmul(a.double(), b.double())
+    with pytest.raises(ValueError, match="tile"):
+        gg.grouped_matmul(a.bfloat16(), b.bfloat16(), _tile=64)
 
 
 @pytest.mark.parametrize("exact", [False, True])

@@ -168,3 +168,128 @@ def test_grouped_matmul_rejects_bad_operands():
         tgg.grouped_matmul(a, torch.zeros(2, 8, 4))
     with pytest.raises(ValueError, match="bias"):
         tgg.grouped_matmul(a, torch.zeros(2, 16, 4), bias=torch.zeros(4))
+
+
+# ------------------------------------------------------------------ #
+# The card route (``_gg_plan``): read from shapes, strides and base
+# addresses alone, so it is held here on meta and CPU tensors.
+# ------------------------------------------------------------------ #
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+def _sw(t):
+    return t.transpose(1, 2)
+
+
+# The seven K9 launches of one MoE layer and micro-batch on the card's
+# path (8 experts, capacity 2560, hidden 768, FFN 3072): (a, b) as the
+# forward and grouped_ffn's backward hand them over, and the plan each
+# must get: (a major, b major, BN).
+def _moe_cases(dtype=torch.bfloat16):
+    E, C, H, F = 8, 2560, 768, 3072
+    x, w1, h = _meta(E, C, H, dtype=dtype), _meta(E, H, F, dtype=dtype), \
+        _meta(E, C, F, dtype=dtype)
+    w2, dy, dz = _meta(E, F, H, dtype=dtype), _meta(E, C, H, dtype=dtype), \
+        _meta(E, C, F, dtype=dtype)
+    return {"fwd_up": (x, w1, "gelu_tanh", ("K", "N", 128)),
+            "fwd_down": (h, w2, None, ("K", "N", 256)),
+            "bwd_z1": (x, w1, None, ("K", "N", 256)),
+            "bwd_dh": (dy, _sw(w2), None, ("K", "K", 256)),
+            "bwd_dw2": (_sw(h), dy, None, ("M", "N", 256)),
+            "bwd_dw1": (_sw(x), dz, None, ("M", "N", 256)),
+            "bwd_dx": (dz, _sw(w1), None, ("K", "K", 256))}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(_moe_cases()))
+def test_gg_plan_at_the_moe_path_shapes(case, dtype):
+    """Every launch of the MoE path reads its operands in place (the
+    backward's transposed views by the kernel's other major) with the
+    tile rule's BN, and stages nothing."""
+    a, b, act, (am, bm, bn) = _moe_cases(dtype)[case]
+    plan = tgg._gg_plan(a, b, act)
+    assert plan == tgg.GGPlan("wgmma", am, bm, (128, bn), ())
+
+
+def _views(E, M, K, N, dtype=torch.bfloat16):
+    """The operand forms of tests/test_torch_cuda.py's K9 card test on
+    small CPU tensors: contiguous, transposed (the other dim at stride
+    1), a K stride of 2, and a base 2 bytes off alignment."""
+    a = torch.zeros(E, M, K, dtype=dtype)
+    b = torch.zeros(E, K, N, dtype=dtype)
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)
+    bt = b.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros(E, M, 2 * K, dtype=dtype)[..., ::2]
+    off = torch.zeros(E, M, K + 1, dtype=dtype)[..., 1:]
+    return {"a": a, "b": b, "at": at, "bt": bt, "wide": wide, "off": off}
+
+
+# (shape, a form, b form) -> (a major, b major, staged). Rows of 2 * K or
+# 2 * N bytes must be multiples of 16: K 200, 96, 264 and N 136, 520 are;
+# N 300 (600 bytes) is not, and neither is M 260 or 300 as the stride of
+# a transposed a.
+STAGING = [
+    ((3, 40, 200, 136), "a", "b", ("K", "N", ())),
+    ((3, 40, 200, 136), "at", "b", ("M", "N", ())),
+    ((3, 40, 200, 136), "a", "bt", ("K", "K", ())),
+    ((3, 40, 200, 136), "at", "bt", ("M", "K", ())),
+    ((3, 40, 200, 136), "wide", "b", ("K", "N", ("a",))),
+    ((3, 40, 200, 136), "off", "b", ("K", "N", ("a",))),
+    ((2, 260, 96, 300), "a", "b", ("K", "N", ("b",))),
+    ((2, 260, 96, 300), "at", "b", ("K", "N", ("a", "b"))),
+    ((2, 260, 96, 300), "a", "bt", ("K", "K", ())),
+    ((2, 260, 96, 300), "off", "bt", ("K", "K", ("a",))),
+    ((2, 300, 264, 520), "a", "b", ("K", "N", ())),
+    ((2, 300, 264, 520), "at", "bt", ("K", "K", ("a",))),
+    ((2, 300, 264, 520), "wide", "bt", ("K", "K", ("a",))),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("i", range(len(STAGING)))
+def test_gg_plan_stages_exactly_what_tma_cannot_read(i, dtype):
+    shape, fa, fb, (am, bm, staged) = STAGING[i]
+    v = _views(*shape, dtype=dtype)
+    plan = tgg._gg_plan(v[fa], v[fb])
+    assert (plan.route, plan.a_major, plan.b_major, plan.staged) == \
+        ("wgmma", am, bm, staged)
+    # staging lays a out K-major and b N-major with 16-byte rows, which
+    # the plan then reads with no copy
+    a2 = tgg._stage(v[fa]) if "a" in staged else v[fa]
+    b2 = tgg._stage(v[fb]) if "b" in staged else v[fb]
+    assert tgg._gg_plan(a2, b2).staged == ()
+    assert torch.equal(a2, v[fa]) and torch.equal(b2, v[fb])
+
+
+def test_gg_plan_ignores_the_stride_of_a_dim_of_one():
+    """A dim of size 1 is never stepped along, so its stride does not
+    stage the operand; the same stride on two experts does (54 bytes)."""
+    b = torch.zeros(1, 16, 8, dtype=torch.bfloat16)
+    base = torch.zeros(1000, dtype=torch.bfloat16)
+    one = base.as_strided((1, 3, 8), (27, 8, 1))
+    two = base.as_strided((2, 3, 8), (27, 8, 1))
+    assert tgg._gg_plan(one, b[:, :8]).staged == ()
+    assert tgg._gg_plan(two, torch.zeros(2, 8, 8,
+                                         dtype=torch.bfloat16)).staged == \
+        ("a",)
+
+
+def test_gg_plan_fp32_reads_any_strides():
+    """fp32 takes the SIMT kernel, which reads through any strides."""
+    v = _views(2, 260, 96, 300, dtype=torch.float32)
+    plan = tgg._gg_plan(v["wide"], v["bt"])
+    assert plan == tgg.GGPlan("simt", "K", "K", tgg.GG_F32_TILE, ())
+
+
+@pytest.mark.parametrize("E, M, N, act, bn", [
+    (8, 2560, 3072, "gelu_tanh", 128),  # up-projection: GELU epilogue
+    (8, 2560, 3072, "gelu_exact", 128),
+    (8, 2560, 3072, None, 256),    # recompute: 1920 vs 3840 tiles, 15 waves
+    (8, 2560, 768, None, 256),     # down-projection: 4 waves either way
+    (8, 3072, 768, None, 256),     # dw2: 5 waves either way
+    (3, 40, 136, None, 256),       # one wave either way: a tie
+    (8, 2560, 300, None, 128),     # 2 waves at 128, 3 at 256
+])
+def test_gg_tile_rule(E, M, N, act, bn):
+    assert tgg._gg_tile(E, M, N, act, 132) == bn

@@ -1,8 +1,9 @@
 """Guards on the PyTorch port's boundaries: it imports no JAX and nothing
 of the JAX package, its entry points refuse to run without CUDA unless a
 device is given, building its kernels raises without nvcc, the ctypes
-signatures match the kernels' C entry points, the flash kernels use
-neither ``nvcuda::wmma`` nor atomics, the engine refuses configurations
+signatures match the kernels' C entry points, the flash kernels and
+the grouped GEMM use neither ``nvcuda::wmma`` nor atomics (the grouped
+GEMM runs on TMA and ``wgmma``), the engine refuses configurations
 it has no CUDA path for, and the ``inference`` config parses and rejects
 exactly as the JAX package's does."""
 import ast
@@ -113,6 +114,26 @@ def test_flash_kernels_use_mma_sync_and_no_wmma_or_atomics():
     for struct in ("FwdTiles", "DqTiles", "DkvTiles"):
         body = tiles.split(f"struct {struct} {{", 1)[1].split("\n};", 1)[0]
         assert "tc::ldsm_x4" in body and "tc::mma16816" in body, struct
+
+
+def test_grouped_gemm_kernel_uses_tma_and_wgmma_and_no_wmma_or_atomics():
+    """K9's bf16/fp16 kernel loads through TMA into an mbarrier ring and
+    multiplies with wgmma.mma_async (the PTX wrappers of csrc/wgmma.cuh);
+    no nvcuda::wmma and no atomics, so two launches give the same bits."""
+    csrc = PKG / "csrc"
+    gg = (csrc / "grouped_gemm.cu").read_text()
+    hop = (csrc / "wgmma.cuh").read_text()
+    for text in (gg, hop):
+        assert "nvcuda" not in text and "<mma.h>" not in text
+        assert not re.search(r"\batomic\w*\(", text)
+    assert '#include "wgmma.cuh"' in gg
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                "mbarrier.try_wait", "setmaxnreg"):
+        assert ptx in hop, ptx
+    kernel = gg.split("grouped_gemm_wgmma_kernel(", 1)[1].split("\n}\n", 1)[0]
+    for call in ("hop::tma_load_3d", "hop::mbar_wait", "hop::mbar_arrive",
+                 "hop::mma_async", "hop::wgmma_wait", "hop::regs_dec"):
+        assert call in kernel, call
 
 
 @pytest.mark.parametrize("inference, match", [
