@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    time and with a cold L2), then every kernel of the training path at its
    gpt2-small training shapes (micro-batch 8 x 1024 = 8192 rows, bf16):
    LayerNorm forward and backward (8192 x 768, with and without the
-   residual), bias+GELU forward and backward (8192 x 3072), the grad sum
+   residual; the backward launched twice and compared bit for bit),
+   bias+GELU forward and backward (8192 x 3072, the tanh and the erf
+   form, each launched twice and compared bit for bit), each of these
+   also timed by the card's own time (graph replay) and with a cold L2,
+   as are the library calls beside them, the grad sum
    of squares and the fused Adam step over the 124M-element fp32
    parameter group, the latter for each flag set the engine uses; then
    the flash attention kernels (bf16, 12 heads of 64, causal): the
@@ -75,9 +79,11 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    then three profiled steps (device time by kernel group, idle share)
    and one step under CUDA's sync debug mode (the host syncs it makes).
    Then the fp16 path (dynamic loss scale from 2^32: skipped steps, then
-   taken ones), the master-free bf16 path (stochastic rounding) and a
-   bf16 path at sequence 768 (the split flash backward), each read on its
-   own.
+   taken ones), the master-free bf16 path (stochastic rounding), a bf16
+   path at sequence 768 (the split flash backward) and
+   ``train_gelu_exact`` (``gelu_exact=True``, the erf form of K4f/K4b:
+   its first loss against a plain-autograd step, 5 steps, finite losses,
+   exact launches), each read on its own.
 5b. Train gpt2-small at sequence 4096 (gas 2 x micro-batch 2) with the
    ds_config's block-sparse attention (Fixed unidirectional, block 128)
    as the model's ``attention_fn``: one step against a plain-autograd
@@ -177,6 +183,8 @@ TRAIN_GRAD_NORM_RTOL = 2e-2
 SERVE_KERNELS = ("fused_layer_norm", "fused_bias_gelu", "paged_attention")
 # The second training path: sequence 768 takes the split flash backward.
 SPLIT_SEQ, SPLIT_STEPS = 768, 5
+# The gelu_exact path: the main path's recipe with the erf form of GELU.
+GELU_EXACT_STEPS = 5
 # Flash kernels against their plain versions (bf16): both round p and ds
 # to bf16 at the same points, but the kernel's online softmax does so at
 # running maxima over 64-column tiles and the plain version at the row
@@ -221,14 +229,16 @@ MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 # Kernels whose ptxas report (registers, spills, static shared memory) the
 # build line carries: the paged attention (K10), the forward tile (K1,
 # and K7 on the same tile), the backward tiles (K2a-K2c, and K8a-K8c
-# on the same tiles) of the main paths, and the grouped GEMM (K9).
+# on the same tiles) of the main paths, the grouped GEMM (K9), and the
+# LayerNorm backward (K3b) and bias+GELU (K4f, K4b) instances.
 PTXAS_KERNELS = ("paged_attn_mma_kernel", "paged_attn_fma_kernel",
                  "paged_combine_kernel", "flash_fwd_kernel",
                  "sparse_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
                  "sparse_dq_kernel", "sparse_dkv_kernel",
                  "sparse_fused_bwd_kernel", "grouped_gemm_wgmma_kernel",
-                 "grouped_gemm_f32_kernel")
+                 "grouped_gemm_f32_kernel", "ln_bwd_kernel",
+                 "bias_gelu_kernel", "bias_gelu_bwd_kernel")
 
 
 def ptxas_summary(log):
@@ -379,6 +389,20 @@ def bf16_ulp_excess(a, b, bits=7):
 # --------------------------------------------------------------------- #
 # Phase 3: kernels against their plain versions
 # --------------------------------------------------------------------- #
+def kernel_times(fn):
+    """A wrapper's time three ways: CUDA events around a loop of calls
+    (``kernel_ms``, the host's issue time included), graph replay
+    (``device_ms``, the card's alone) and one call after a 64 MB write
+    (``cold_ms``, the L2 cold, as inside a training step)."""
+    return {"kernel_ms": time_ms(fn), "device_ms": device_ms(fn),
+            "cold_ms": cold_ms(fn)}
+
+
+def library_times(fn):
+    return {"library_ms": time_ms(fn), "library_device_ms": device_ms(fn),
+            "library_cold_ms": cold_ms(fn)}
+
+
 def check_layer_norm(dev, gen):
     H, dt, out = 768, torch.bfloat16, []
     for rows in (8, 32, TRAIN_ROWS):
@@ -396,21 +420,23 @@ def check_layer_norm(dev, gen):
         assert torch.equal(s, s_ref), "residual sum not bit-equal"
         err = float(max((y.float() - y_ref.float()).abs().max(),
                         (yr.float() - yr_ref.float()).abs().max()))
+        # The library call's parameters in its dtype, cast outside its
+        # timing.
+        sc_t, bi_t = sc.to(dt), bi.to(dt)
         for resid in (False, True):
             if resid:
                 kern = lambda: fe.fused_residual_layer_norm(x, d, sc, bi)  # noqa: E731
                 plain = lambda: fe.layer_norm_plain(x, d, sc, bi)  # noqa: E731
-                lib = lambda: F.layer_norm(x + d, (H,), sc.to(dt), bi.to(dt))  # noqa: E731
+                lib = lambda: F.layer_norm(x + d, (H,), sc_t, bi_t)  # noqa: E731
             else:
                 kern = lambda: fe.fused_layer_norm(x, sc, bi)  # noqa: E731
                 plain = lambda: fe.layer_norm_plain(x, None, sc, bi)  # noqa: E731
-                lib = lambda: F.layer_norm(x, (H,), sc.to(dt), bi.to(dt))  # noqa: E731
+                lib = lambda: F.layer_norm(x, (H,), sc_t, bi_t)  # noqa: E731
             n_io = (4 if resid else 2) * rows * H * x.element_size()
             b_ms, b_by = bound(n_io + 2 * H * 4, 8 * rows * H)
             rec = {"kernel": "layer_norm", "residual": resid,
-                   "shape": [rows, H], "dtype": "bf16",
-                   "kernel_ms": time_ms(kern), "plain_ms": time_ms(plain),
-                   "library_ms": time_ms(lib),
+                   "shape": [rows, H], "dtype": "bf16", **kernel_times(kern),
+                   "plain_ms": time_ms(plain), **library_times(lib),
                    "library": "x + d, F.layer_norm" if resid
                    else "F.layer_norm",
                    "bound_ms": b_ms, "bound_by": b_by,
@@ -421,25 +447,35 @@ def check_layer_norm(dev, gen):
 
 
 def check_bias_gelu(dev, gen):
+    """K4f in the tanh form (the main path's first) and the erf form:
+    within 2 bf16 ulp of its plain version and bit-equal across two
+    launches."""
     Fw, dt, out = 3072, torch.bfloat16, []
     for rows in (8, 32, TRAIN_ROWS):
         y = (3 * torch.randn(rows, Fw, device=dev, generator=gen)).to(dt)
         b = torch.randn(Fw, device=dev, generator=gen)
-        g = fe.fused_bias_gelu(y, b)
-        g_ref = fe.bias_gelu_plain(y, b)
-        torch.cuda.synchronize()
-        ulps = bf16_ulp_excess(g, g_ref)
-        assert ulps <= 1.0, f"bias_gelu rows={rows}: {ulps} x 2 ulp"
-        b_ms, b_by = bound(2 * rows * Fw * y.element_size() + Fw * 4,
-                           12 * rows * Fw)
-        rec = {"kernel": "bias_gelu", "shape": [rows, Fw], "dtype": "bf16",
-               "kernel_ms": time_ms(lambda: fe.fused_bias_gelu(y, b)),
-               "plain_ms": time_ms(lambda: fe.bias_gelu_plain(y, b)),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               "max_err": float((g.float() - g_ref.float()).abs().max()),
-               "max_err_in_2ulp": ulps}
-        emit(rec)
-        out.append(rec)
+        for exact in (False, True):
+            g = fe.fused_bias_gelu(y, b, exact)
+            again = fe.fused_bias_gelu(y, b, exact)
+            g_ref = fe.bias_gelu_plain(y, b, exact)
+            torch.cuda.synchronize()
+            ulps = bf16_ulp_excess(g, g_ref)
+            assert ulps <= 1.0, \
+                f"bias_gelu rows={rows} exact={exact}: {ulps} x 2 ulp"
+            assert torch.equal(g, again), \
+                f"bias_gelu rows={rows} exact={exact}: not bit-equal"
+            b_ms, b_by = bound(2 * rows * Fw * y.element_size() + Fw * 4,
+                               12 * rows * Fw)
+            rec = {"kernel": "bias_gelu", "exact": exact,
+                   "shape": [rows, Fw], "dtype": "bf16",
+                   **kernel_times(lambda: fe.fused_bias_gelu(y, b, exact)),
+                   "plain_ms": time_ms(
+                       lambda: fe.bias_gelu_plain(y, b, exact)),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "max_err": float((g.float() - g_ref.float()).abs().max()),
+                   "max_err_in_2ulp": ulps, "bit_equal_repeat": True}
+            emit(rec)
+            out.append(rec)
     return out
 
 
@@ -782,9 +818,12 @@ def check_layer_norm_backward(dev, gen):
     sc = 1 + 0.1 * torch.randn(H, device=dev, generator=gen)
     bi = 0.1 * torch.randn(H, device=dev, generator=gen)
     mean, rstd = _native_ln_bwd_inputs(s, sc, bi)
+    # The library call's parameters in its dtype, cast outside its timing.
+    sc_t, bi_t = sc.to(dt), bi.to(dt)
     for resid in (False, True):
         g = gs if resid else None
         dx, dsc, dbi = fe.layer_norm_backward(s, sc, dy, g)
+        again = fe.layer_norm_backward(s, sc, dy, g)
         rdx, rdsc, rdbi = fe.ln_backward_plain(s, sc, dy, g)
         torch.cuda.synchronize()
         ulps = bf16_ulp_excess(dx, rdx)
@@ -792,53 +831,63 @@ def check_layer_norm_backward(dev, gen):
         rel = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
                   for a, b in ((dsc, rdsc), (dbi, rdbi)))
         assert rel <= 1e-4, f"layer_norm_backward dscale/dbias: {rel}"
+        assert all(torch.equal(a, b) for a, b in
+                   zip((dx, dsc, dbi), again)), \
+            f"layer_norm_backward residual={resid}: not bit-equal"
         n_io = (4 if resid else 3) * TRAIN_ROWS * H * 2
         b_ms, b_by = bound(n_io + 3 * H * 4, 12 * TRAIN_ROWS * H)
-        lib = None if resid else time_ms(
+        lib = {"library_ms": None} if resid else library_times(
             lambda: torch.ops.aten.native_layer_norm_backward(
-                dy, s, [H], mean, rstd, sc.to(dt), bi.to(dt),
-                [True, True, True]))
+                dy, s, [H], mean, rstd, sc_t, bi_t, [True, True, True]))
         rec = {"kernel": "layer_norm_backward", "residual": resid,
                "shape": [TRAIN_ROWS, H], "dtype": "bf16",
-               "kernel_ms": time_ms(
-                   lambda: fe.layer_norm_backward(s, sc, dy, g)),
+               **kernel_times(lambda: fe.layer_norm_backward(s, sc, dy, g)),
                "plain_ms": time_ms(
                    lambda: fe.ln_backward_plain(s, sc, dy, g), iters=20),
-               "library_ms": lib,
+               **lib,
                "library": None if resid
                else "torch.ops.aten.native_layer_norm_backward",
                "bound_ms": b_ms, "bound_by": b_by,
                "max_err": float((dx.float() - rdx.float()).abs().max()),
-               "max_err_in_2ulp": ulps, "dscale_dbias_max_rel": rel}
+               "max_err_in_2ulp": ulps, "dscale_dbias_max_rel": rel,
+               "bit_equal_repeat": True}
         emit(rec)
         out.append(rec)
     return out
 
 
 def check_bias_gelu_backward(dev, gen):
-    Fw, dt = 3072, torch.bfloat16
+    """K4b in the tanh form (the main path's, first) and the erf form."""
+    Fw, dt, out = 3072, torch.bfloat16, []
     y = (3 * torch.randn(TRAIN_ROWS, Fw, device=dev, generator=gen)).to(dt)
     b = torch.randn(Fw, device=dev, generator=gen)
     g = torch.randn(TRAIN_ROWS, Fw, device=dev, generator=gen).to(dt)
-    dz, db = fe.bias_gelu_backward(y, b, g)
-    rdz, rdb = fe.bias_gelu_backward_plain(y, b, g)
-    torch.cuda.synchronize()
-    ulps = bf16_ulp_excess(dz, rdz)
-    assert ulps <= 1.0, f"bias_gelu_backward: {ulps} x 2 ulp"
-    rel = float(((db - rdb).abs() / rdb.abs().clamp_min(1.0)).max())
-    assert rel <= 1e-4, f"bias_gelu_backward dbias: {rel}"
-    b_ms, b_by = bound(3 * TRAIN_ROWS * Fw * 2 + 2 * Fw * 4,
-                       20 * TRAIN_ROWS * Fw)
-    rec = {"kernel": "bias_gelu_backward", "shape": [TRAIN_ROWS, Fw],
-           "dtype": "bf16",
-           "kernel_ms": time_ms(lambda: fe.bias_gelu_backward(y, b, g)),
-           "plain_ms": time_ms(lambda: fe.bias_gelu_backward_plain(y, b, g),
-                               iters=20),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "max_err": float((dz.float() - rdz.float()).abs().max()),
-           "max_err_in_2ulp": ulps, "dbias_max_rel": rel}
-    emit(rec)
-    return [rec]
+    for exact in (False, True):
+        dz, db = fe.bias_gelu_backward(y, b, g, exact)
+        again = fe.bias_gelu_backward(y, b, g, exact)
+        rdz, rdb = fe.bias_gelu_backward_plain(y, b, g, exact)
+        torch.cuda.synchronize()
+        ulps = bf16_ulp_excess(dz, rdz)
+        assert ulps <= 1.0, f"bias_gelu_backward exact={exact}: {ulps}"
+        rel = float(((db - rdb).abs() / rdb.abs().clamp_min(1.0)).max())
+        assert rel <= 1e-4, f"bias_gelu_backward dbias: {rel}"
+        assert torch.equal(dz, again[0]) and torch.equal(db, again[1]), \
+            f"bias_gelu_backward exact={exact}: not bit-equal"
+        b_ms, b_by = bound(3 * TRAIN_ROWS * Fw * 2 + 2 * Fw * 4,
+                           20 * TRAIN_ROWS * Fw)
+        rec = {"kernel": "bias_gelu_backward", "exact": exact,
+               "shape": [TRAIN_ROWS, Fw], "dtype": "bf16",
+               **kernel_times(lambda: fe.bias_gelu_backward(y, b, g, exact)),
+               "plain_ms": time_ms(
+                   lambda: fe.bias_gelu_backward_plain(y, b, g, exact),
+                   iters=20),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "max_err": float((dz.float() - rdz.float()).abs().max()),
+               "max_err_in_2ulp": ulps, "dbias_max_rel": rel,
+               "bit_equal_repeat": True}
+        emit(rec)
+        out.append(rec)
+    return out
 
 
 def check_sqnorm(dev, gen, n):
@@ -1450,7 +1499,7 @@ def profile_train_steps(eng, batches):
               ("flash", ("flash_",)),
               ("grouped_gemm", ("grouped_gemm",)),
               ("gemm", ("gemm", "cutlass", "nvjet", "sm90_", "cublas")),
-              ("port_kernels", ("ln_fwd_kernel", "ln_bwd_kernel",
+              ("port_kernels", ("ln_fwd_kernel", "ln_bwd_",
                                 "bias_gelu", "sqnorm_kernel",
                                 "fused_adam_kernel")),
               ("softmax", ("softmax",)),
@@ -1496,7 +1545,8 @@ def profile_train_steps(eng, batches):
                 # e.g. "ln_fwd_kernel<__nv_bfloat16, true>": the device
                 # time of one launch, free of the host's enqueue cost
                 # that CUDA events around a launch loop include.
-                m = re.search(r"(ln_fwd|ln_bwd|bias_gelu|bias_gelu_bwd|"
+                m = re.search(r"(ln_fwd|ln_bwd_colsum|ln_bwd|bias_gelu|"
+                              r"bias_gelu_bwd|"
                               r"sqnorm|fused_adam|flash_fwd|flash_bwd_dq|"
                               r"flash_bwd_dkv|flash_bwd_fused|sparse_fwd|"
                               r"sparse_dq|sparse_dkv|sparse_fused_bwd|"
@@ -1667,6 +1717,28 @@ def train_gpt2_small(dev, smi):
     assert counts["train_s768"] == {k: SPLIT_STEPS * v
                                     for k, v in expect_split.items()}, \
         counts["train_s768"]
+    del eng
+    torch.cuda.empty_cache()
+
+    # gelu_exact: the main path's recipe with the erf form of GELU in
+    # K4f/K4b; a yardstick step against plain autograd first.
+    cfg_x = dataclasses.replace(cfg, gelu_exact=True)
+    eng = make_engine(cfg_x, "bf16")
+    ref_loss, _ = plain_reference_step(eng, cfg_x, batches[0])
+    losses, metrics, ms, counts["train_gelu_exact"] = run_path(
+        eng, batches[:GELU_EXACT_STEPS])
+    check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
+             "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL}
+    emit({"train_gelu_exact_path": {
+        "steps": GELU_EXACT_STEPS, "losses": losses,
+        "step_vs_plain_autograd": check,
+        "step_ms_p50": float(np.median(ms[1:])), "card": smi}})
+    assert check["loss_rel"] <= TRAIN_LOSS_RTOL, check
+    assert all(math.isfinite(l) for l in losses), losses
+    assert counts["train_gelu_exact"] == {
+        k: GELU_EXACT_STEPS * v for k, v in expect.items()}, \
+        counts["train_gelu_exact"]
     del eng
     torch.cuda.empty_cache()
     return counts
@@ -2082,7 +2154,8 @@ def main():
                                        "library_device_ms",
                                        "library_cold_ms") if k in rec},
                 "ms_by_shape": [[r["shape"], r.get("residual", r.get(
-                    "flags", r.get("dropout"))), r["kernel_ms"]] +
+                    "flags", r.get("dropout", r.get("exact")))),
+                    r["kernel_ms"]] +
                     ([r["case"], r["max_err"]] if "case" in r else [])
                     for r in recs], **pair}
 

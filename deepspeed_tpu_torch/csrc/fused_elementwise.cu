@@ -12,44 +12,97 @@
 // writes rows*H (twice each with the residual: x and delta in, s and y
 // out); its backward reads s and dy (and gs) and writes dx. bias+GELU
 // reads and writes rows*F forward; backward reads y and g and writes dz.
-// The arithmetic is a few fp32 operations per element, far below the
-// card's rate.
+// The arithmetic is a few fp32 operations per element (a few tens for
+// the GELU curve), below the card's rate.
 //
 // Design. The TPU kernels lane-pad H to 128 and mask the pad columns;
-// here a block owns a row, threads stride over its columns, and the
-// ragged edge needs no padding.
-// - LN forward: the row is staged once in shared memory as fp32 so the
-//   two statistics passes (mean, then the centered variance, exactly as
-//   the reference computes them) and the output pass read it from
-//   shared memory instead of device memory. The residual sum is rounded
-//   to the storage dtype BEFORE the statistics read it, which keeps `s`
-//   bit-equal to the unfused `x + delta`.
-// - LN backward: mean and rstd are recomputed from `s` in the block (two
-//   passes, as the forward), never saved. Each thread keeps its own
-//   columns of s and dy in registers (at most kLnBwdCols per thread, so
-//   H <= 2048), dx = (dxhat - m1 - xhat*m2)*rstd (+ gs) is rounded once.
-//   The TPU grid carries per-block dscale/dbias partials that are summed
-//   outside the kernel; here a block walks rows blockIdx.x,
-//   blockIdx.x + gridDim.x, ... and accumulates its columns' partial
-//   sums in registers, in a fixed order, then writes one [H] partial
-//   row: no atomics, so dscale/dbias do not depend on scheduling.
+// here the ragged edge needs no padding.
+// - LN forward: a block owns a row; the row is staged once in shared
+//   memory as fp32 so the two statistics passes (mean, then the centered
+//   variance, exactly as the reference computes them) and the output
+//   pass read it from shared memory instead of device memory. The
+//   residual sum is rounded to the storage dtype BEFORE the statistics
+//   read it, which keeps `s` bit-equal to the unfused `x + delta`.
+// - LN backward: a warp owns a row at a time; its lanes hold the row in
+//   16-byte vectors (8 bf16/fp16 or 4 fp32 a lane a vector, kNv vectors
+//   a lane, lane l holding vectors l, l + 32, ...), so the four row
+//   statistics (mean, centred variance, m1, m2; mean and rstd recomputed
+//   from `s` as the forward computes them, never saved) are a tree over
+//   the lane's values and warp shuffles: no shared memory and no barrier
+//   in the row loop. The grid is persistent and fixed by the row count
+//   alone (at most kLnBwdMaxBlocks blocks of kLnBwdWarps warps; warp w
+//   of block b takes rows b*kLnBwdWarps + w + k*stride), so the
+//   row-to-warp map, and with it every sum, is the same on every launch.
+//   Each warp streams its rows through a ring of kStages rows in shared
+//   memory (cp.async, each lane copying and reading back only its own
+//   vectors), so two rows of `s`, `dy` and `gs` are in flight while one
+//   reduces; the scale and the per-lane dscale/dbias sums live in
+//   registers. Rows wider than H 1024 (16-bit; 512 for fp32) keep the
+//   scale and the sums in shared memory instead and load a row at a
+//   time. At the end a block adds its warps' sums as a tree in fp64 and
+//   writes one partial row; a second kernel of the same call adds the
+//   partial rows in fp64 and block order and rounds once. No atomics:
+//   dscale/dbias are bit-repeatable, and their sum over the rows rounds
+//   about once. A width-1 instance (a lane holds single elements, the
+//   next row prefetched into registers) serves H that is not a multiple
+//   of the vector width and pointers that are not 16-byte aligned.
 // - GELU rounds z = y + b to the storage dtype first, then evaluates the
-//   tanh form (and its derivative) in fp32 with tanhf, no fast-math, as
-//   the TPU kernels do. The backward gives each thread one column and a
-//   run of rows: its loads are coalesced across the warp, and its dbias
-//   partial is a register sum over its rows.
+//   tanh form or the erf form (kExact; `gelu_exact`) and its derivative
+//   in fp32 with tanhf / erff / expf, no fast-math, as the TPU kernels
+//   do. The forward gives each thread one 16-byte column vector and a
+//   run of rows (a 2-D grid: column vectors x row runs), with
+//   kGeluUnroll rows' loads in flight; the bias of its columns is loaded
+//   once into registers, so no element pays a division or a modulo for
+//   its column. A width-1 instance serves ragged F and unaligned
+//   pointers. The backward gives each thread one column and a run of
+//   rows: its loads are coalesced across the warp, and its dbias partial
+//   is a register sum over its rows.
+#include <stdint.h>
+#include <string.h>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace dstt;
 
 namespace {
 
+// Build settings, each at the value that read fastest on an H100 among
+// the variants that profile_torch_elementwise.py builds: K3b's warps a
+// block, blocks an SM and ring depth (rows a warp stages in shared
+// memory; 1 keeps the next row in registers instead); K4f's rows a
+// thread and rows in flight.
+#ifndef DSTT_LN_BWD_WARPS
+#define DSTT_LN_BWD_WARPS 8
+#endif
+#ifndef DSTT_LN_BWD_BLOCKS_PER_SM
+#define DSTT_LN_BWD_BLOCKS_PER_SM 1
+#endif
+#ifndef DSTT_LN_BWD_STAGES
+#define DSTT_LN_BWD_STAGES 3
+#endif
+#ifndef DSTT_GELU_ROWS
+#define DSTT_GELU_ROWS 4
+#endif
+#ifndef DSTT_GELU_UNROLL
+#define DSTT_GELU_UNROLL 4
+#endif
+
 constexpr int kLnThreads = 256;
-constexpr int kGeluThreads = 256;
 constexpr int kMaxLnSmem = 48 * 1024;
-constexpr int kLnBwdThreads = 256;
-constexpr int kLnBwdCols = 8;                       // H <= 2048
-constexpr int kLnBwdMaxBlocks = 132 * 4;
+constexpr int kLnBwdWarps = DSTT_LN_BWD_WARPS;
+constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
+// Blocks an SM that the rows up to H 1024 are built for (the register
+// cap of their launch bounds), and the grid: that many blocks for each
+// of an H100's 132 SMs, fixed here and never queried, so the partition
+// of rows over warps depends on the shape alone.
+constexpr int kLnBwdMinBlocks = DSTT_LN_BWD_BLOCKS_PER_SM;
+constexpr int kLnBwdMaxBlocks = 132 * kLnBwdMinBlocks;
+constexpr int kLnBwdMaxH = 2048;
+constexpr int kGeluThreads = 128;
+// Rows a K4f thread walks on the training path, and rows in flight.
+constexpr int kGeluRows = DSTT_GELU_ROWS;
+constexpr int kGeluUnroll = DSTT_GELU_UNROLL;
 constexpr int kGeluBwdThreads = 256;
 constexpr int kGeluBwdRowSplits = 128;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
@@ -57,6 +110,76 @@ constexpr float kGeluC = 0.044715f;
 // 3 * 0.044715 folded in double, as the reference's Python expression
 // folds it before the fp32 multiply.
 constexpr float kGelu3C = static_cast<float>(3.0 * 0.044715);
+constexpr float kSqrt2 = 1.4142135623730951f;
+constexpr float kSqrt2Pi = 2.5066282746310002f;
+
+// kEpv elements of T, moved as one 16-byte access (or one element for the
+// width-1 instances).
+template <typename T, int kEpv>
+struct alignas(sizeof(T) * kEpv) Pack {
+  T e[kEpv];
+};
+
+template <typename T, int kEpv>
+__device__ __forceinline__ Pack<T, kEpv> load_pack(const T* p) {
+  static_assert(kEpv == 1 || sizeof(T) * kEpv == 16, "16-byte packs");
+  Pack<T, kEpv> r;
+  if constexpr (kEpv == 1) {
+    r.e[0] = *p;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    memcpy(&r, &u, 16);
+  }
+  return r;
+}
+
+template <typename T, int kEpv>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, kEpv>& v) {
+  if constexpr (kEpv == 1) {
+    *p = v.e[0];
+  } else {
+    uint4 u;
+    memcpy(&u, &v, 16);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
+// _gelu_f32 / _dgelu_f32 of the TPU package, in fp32.
+template <bool kExact>
+__device__ __forceinline__ float gelu_f32(float z) {
+  if constexpr (kExact) {
+    return 0.5f * z * (1.f + erff(z / kSqrt2));
+  } else {
+    const float u = kSqrt2OverPi * (z + kGeluC * z * z * z);
+    return 0.5f * z * (1.f + tanhf(u));
+  }
+}
+
+template <bool kExact>
+__device__ __forceinline__ float dgelu_f32(float z) {
+  if constexpr (kExact) {
+    const float phi = expf(-0.5f * z * z) / kSqrt2Pi;
+    return 0.5f * (1.f + erff(z / kSqrt2)) + z * phi;
+  } else {
+    const float u = kSqrt2OverPi * (z + kGeluC * z * z * z);
+    const float t = tanhf(u);
+    const float du = kSqrt2OverPi * (1.f + kGelu3C * z * z);
+    return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+  }
+}
+
+// z = y + b rounded to the storage dtype, widened back.
+template <typename T>
+__device__ __forceinline__ float gelu_input(T y, float b) {
+  return to_f32(from_f32<T>(to_f32(y) + b));
+}
+
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
 
 template <typename T, bool kResid>
 __global__ void __launch_bounds__(kLnThreads)
@@ -93,96 +216,424 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
   }
 }
 
-template <typename T, bool kGs>
-__global__ void __launch_bounds__(kLnBwdThreads)
+// Sums v[0..N) as a balanced tree (N a compile-time count): a lane's
+// share of a row sum rounds about as often as a tree over the whole row.
+template <typename F, int N>
+__device__ __forceinline__ F tree_sum(F (&v)[N]) {
+#pragma unroll
+  for (int w = 1; w < N; w *= 2) {
+#pragma unroll
+    for (int j = 0; j + w < N; j += 2 * w) v[j] += v[j + w];
+  }
+  return v[0];
+}
+
+// The lane's shares of two row sums over its valid vectors j: f(j, a, b)
+// fills a[e] and b[e] for the vector's elements e; a tree over each
+// vector, then over the vectors.
+template <int kNv, int kEpv, typename Fn>
+__device__ __forceinline__ void lane_sum2(int lane, int nvec, Fn f,
+                                          float& sum_a, float& sum_b) {
+  float pa[kNv], pb[kNv];
+#pragma unroll
+  for (int j = 0; j < kNv; ++j) {
+    pa[j] = pb[j] = 0.f;
+    if (j * 32 + lane < nvec) {
+      float ea[kEpv], eb[kEpv];
+      f(j, ea, eb);
+      pa[j] = tree_sum(ea);
+      pb[j] = tree_sum(eb);
+    }
+  }
+  sum_a = tree_sum(pa);
+  sum_b = tree_sum(pb);
+}
+
+// One row sum: lane_sum2 with f(j, a) filling a alone.
+template <int kNv, int kEpv, typename Fn>
+__device__ __forceinline__ float lane_sum(int lane, int nvec, Fn f) {
+  float sum, unused;
+  lane_sum2<kNv, kEpv>(
+      lane, nvec,
+      [&](int j, float (&ea)[kEpv], float (&eb)[kEpv]) {
+        f(j, ea);
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) eb[e] = 0.f;
+      },
+      sum, unused);
+  return sum;
+}
+
+// Loads the lane's vectors of one row of `src` (row offset `base`);
+// vectors past the row's end read as zeros.
+template <typename T, int kNv, int kEpv>
+__device__ __forceinline__ void load_row(Pack<T, kEpv> (&dst)[kNv],
+                                         const T* __restrict__ src,
+                                         long long base, int lane,
+                                         int nvec) {
+#pragma unroll
+  for (int j = 0; j < kNv; ++j) {
+    const int v = j * 32 + lane;
+    if (v < nvec) {
+      dst[j] = load_pack<T, kEpv>(src + base + v * kEpv);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) dst[j].e[e] = from_f32<T>(0.f);
+    }
+  }
+}
+
+// Rows a K3b warp loads ahead of the one it reduces, plus one: none for
+// the wide rows, the ring for 16-byte vectors, else one row in registers.
+template <typename T, int kEpv, bool kWide>
+__host__ __device__ constexpr int ln_bwd_stages() {
+  return kWide ? 0 : (sizeof(T) * kEpv == 16 ? DSTT_LN_BWD_STAGES : 1);
+}
+
+// K3b. kNv vectors of kEpv elements a lane (kNv * kEpv * 32 >= H).
+// Rows up to H 1024 (16-bit; 512 for fp32 and width 1) keep the scale
+// and the per-lane dscale/dbias sums in registers, and load ahead:
+// the 16-byte instances stage rows through a ring of kStages rows a warp
+// in shared memory with cp.async, kStages - 1 rows ahead (each lane
+// copies and reads back only its own vectors, so the ring needs no
+// barrier), the width-1 instances the next row's `s` and `dy` into
+// registers. kWide rows keep the scale and the sums (a slice a warp) in
+// shared memory and hold no row in registers: each pass reads the
+// lane's vectors again from device memory (the L1).
+// Dynamic shared memory: with kWide the scale [H] and the warps' sums
+// [kLnBwdWarps][2][H] of floats; otherwise the ring
+// [kLnBwdWarps][kStages][s, dy (, gs)][H] of T, which the warps' sums
+// overlay at the end.
+template <typename T, bool kGs, int kNv, int kEpv, bool kWide>
+__global__ void __launch_bounds__(kLnBwdThreads, kWide ? 1 : kLnBwdMinBlocks)
 ln_bwd_kernel(const T* __restrict__ s, const float* __restrict__ scale,
               const T* __restrict__ dy, const T* __restrict__ gs,
-              T* __restrict__ dx, float* __restrict__ dscale_part,
-              float* __restrict__ dbias_part, int rows, int H, float eps) {
-  __shared__ float red[32];
-  float acc_dsc[kLnBwdCols], acc_dbi[kLnBwdCols];
-#pragma unroll
-  for (int j = 0; j < kLnBwdCols; ++j) acc_dsc[j] = acc_dbi[j] = 0.f;
+              T* __restrict__ dx, double* __restrict__ part, int rows, int H,
+              float eps) {
+  using P = Pack<T, kEpv>;
+  constexpr int kCols = kNv * kEpv;
+  constexpr int kStages = ln_bwd_stages<T, kEpv, kWide>();
+  constexpr bool kRing = kStages >= 2;
+  constexpr int kArr = kGs ? 3 : 2;
+  static_assert(!kRing || sizeof(T) * kEpv == 16, "the ring moves 16 bytes");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nvec = H / kEpv;
+  const float fH = static_cast<float>(H);
 
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const long long base = static_cast<long long>(r) * H;
-    float sv[kLnBwdCols], dv[kLnBwdCols];
-    float sum = 0.f;
+  float* sc_sm = smem;                                   // kWide: [H]
+  // The warps' sums [kLnBwdWarps][2][H]: through the loop with kWide, at
+  // the end (over the dead ring) otherwise.
+  float* slots = smem + (kWide ? H : 0);
+  float* acc_sm = slots + warp * 2 * H;
+  const size_t row_bytes = static_cast<size_t>(H) * sizeof(T);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(slots) +
+                        static_cast<size_t>(warp) * kStages * kArr *
+                            row_bytes;
+  float sc[kWide ? 1 : kCols];
+  float acc_s[kWide ? 1 : kCols], acc_b[kWide ? 1 : kCols];
+  if constexpr (kWide) {
+    for (int c = threadIdx.x; c < H; c += blockDim.x) sc_sm[c] = scale[c];
+    for (int c = lane; c < 2 * H; c += 32) acc_sm[c] = 0.f;
+    __syncthreads();
+  } else {
 #pragma unroll
-    for (int j = 0; j < kLnBwdCols; ++j) {
-      const int c = threadIdx.x + j * kLnBwdThreads;
-      sv[j] = dv[j] = 0.f;
-      if (c < H) {
-        sv[j] = to_f32(s[base + c]);
-        dv[j] = to_f32(dy[base + c]);
-        sum += sv[j];
-      }
-    }
-    // Statistics exactly as the forward computes them.
-    const float mean = block_sum(sum, red) / static_cast<float>(H);
-    float sq = 0.f;
+    for (int j = 0; j < kNv; ++j) {
+      const int v = j * 32 + lane;
 #pragma unroll
-    for (int j = 0; j < kLnBwdCols; ++j) {
-      if (threadIdx.x + j * kLnBwdThreads < H) {
-        const float c = sv[j] - mean;
-        sq += c * c;
-      }
-    }
-    const float var = block_sum(sq, red) / static_cast<float>(H);
-    const float rstd = 1.f / sqrtf(var + eps);
-    float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kLnBwdCols; ++j) {
-      const int c = threadIdx.x + j * kLnBwdThreads;
-      if (c < H) {
-        const float xhat = (sv[j] - mean) * rstd;
-        const float dxhat = dv[j] * scale[c];
-        p1 += dxhat;
-        p2 += dxhat * xhat;
-      }
-    }
-    const float m1 = block_sum(p1, red) / static_cast<float>(H);
-    const float m2 = block_sum(p2, red) / static_cast<float>(H);
-#pragma unroll
-    for (int j = 0; j < kLnBwdCols; ++j) {
-      const int c = threadIdx.x + j * kLnBwdThreads;
-      if (c < H) {
-        const float xhat = (sv[j] - mean) * rstd;
-        const float dxhat = dv[j] * scale[c];
-        float g = (dxhat - m1 - xhat * m2) * rstd;
-        if (kGs) g += to_f32(gs[base + c]);
-        dx[base + c] = from_f32<T>(g);
-        acc_dsc[j] += dv[j] * xhat;
-        acc_dbi[j] += dv[j];
+      for (int e = 0; e < kEpv; ++e) {
+        sc[j * kEpv + e] = v < nvec ? scale[v * kEpv + e] : 0.f;
+        acc_s[j * kEpv + e] = acc_b[j * kEpv + e] = 0.f;
       }
     }
   }
-  const long long pbase = static_cast<long long>(blockIdx.x) * H;
-#pragma unroll
-  for (int j = 0; j < kLnBwdCols; ++j) {
-    const int c = threadIdx.x + j * kLnBwdThreads;
-    if (c < H) {
-      dscale_part[pbase + c] = acc_dsc[j];
-      dbias_part[pbase + c] = acc_dbi[j];
+  auto scale_at = [&](int j, int e) {
+    if constexpr (kWide) {
+      return sc_sm[(j * 32 + lane) * kEpv + e];
+    } else {
+      return sc[j * kEpv + e];
     }
+  };
+  // The ring: stage t holds one row of s, dy (and gs).
+  auto issue = [&](int row, int t) {
+    if (row < rows) {
+      const long long base = static_cast<long long>(row) * H;
+      unsigned char* st = ring + static_cast<size_t>(t) * kArr * row_bytes;
+#pragma unroll
+      for (int j = 0; j < kNv; ++j) {
+        const int v = j * 32 + lane;
+        if (v < nvec) {
+          tc::cp_async16(st + v * 16, s + base + v * kEpv, true);
+          tc::cp_async16(st + row_bytes + v * 16, dy + base + v * kEpv, true);
+          if constexpr (kGs)
+            tc::cp_async16(st + 2 * row_bytes + v * 16, gs + base + v * kEpv,
+                           true);
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+  auto read_stage = [&](P (&dst)[kNv], int t, int a) {
+    const unsigned char* st =
+        ring + (static_cast<size_t>(t) * kArr + a) * row_bytes;
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int v = j * 32 + lane;
+      if (v < nvec) {
+        dst[j] = *reinterpret_cast<const P*>(st + v * 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) dst[j].e[e] = from_f32<T>(0.f);
+      }
+    }
+  };
+
+  constexpr bool kReload = kStages == 0;
+  const int stride = gridDim.x * kLnBwdWarps;
+  int r = blockIdx.x * kLnBwdWarps + warp;
+  P cs[kReload ? 1 : kNv], cd[kReload ? 1 : kNv];
+  if constexpr (kRing) {
+#pragma unroll
+    for (int t = 0; t + 1 < kStages; ++t) issue(r + t * stride, t);
+  } else if constexpr (!kReload) {
+    if (r < rows) {
+      load_row<T, kNv, kEpv>(cs, s, static_cast<long long>(r) * H, lane,
+                             nvec);
+      load_row<T, kNv, kEpv>(cd, dy, static_cast<long long>(r) * H, lane,
+                             nvec);
+    }
+  }
+  for (int k = 0; r < rows; r += stride, ++k) {
+    const long long base = static_cast<long long>(r) * H;
+    const long long nbase = base + static_cast<long long>(stride) * H;
+    const bool more = r + stride < rows;
+    P ns[kStages == 1 ? kNv : 1], nd[kStages == 1 ? kNv : 1];
+    P cg[kGs && !kReload ? kNv : 1];
+    if constexpr (kRing) {
+      // Refill the stage the previous row was read from, then wait for
+      // this row's.
+      issue(r + (kStages - 1) * stride, (k + kStages - 1) % kStages);
+      tc::cp_async_wait<kStages - 1>();
+      const int t = k % kStages;
+      read_stage(cs, t, 0);
+      read_stage(cd, t, 1);
+      if constexpr (kGs) read_stage(cg, t, 2);
+    } else if constexpr (kStages == 1) {
+      if (more) {
+        load_row<T, kNv, kEpv>(ns, s, nbase, lane, nvec);
+        load_row<T, kNv, kEpv>(nd, dy, nbase, lane, nvec);
+      }
+      if constexpr (kGs) load_row<T, kNv, kEpv>(cg, gs, base, lane, nvec);
+    }
+    // The lane's vector j of this row's s and dy (valid vectors only).
+    auto s_pack = [&](int j) {
+      if constexpr (kReload) {
+        return load_pack<T, kEpv>(s + base + (j * 32 + lane) * kEpv);
+      } else {
+        return cs[j];
+      }
+    };
+    auto d_pack = [&](int j) {
+      if constexpr (kReload) {
+        return load_pack<T, kEpv>(dy + base + (j * 32 + lane) * kEpv);
+      } else {
+        return cd[j];
+      }
+    };
+
+    // Statistics as the forward computes them: the mean, then the
+    // centred variance.
+    const float mean =
+        warp_sum(lane_sum<kNv, kEpv>(lane, nvec,
+                                     [&](int j, float (&a)[kEpv]) {
+                                       const P ps = s_pack(j);
+#pragma unroll
+                                       for (int e = 0; e < kEpv; ++e)
+                                         a[e] = to_f32(ps.e[e]);
+                                     })) /
+        fH;
+    const float var =
+        warp_sum(lane_sum<kNv, kEpv>(lane, nvec,
+                                     [&](int j, float (&a)[kEpv]) {
+                                       const P ps = s_pack(j);
+#pragma unroll
+                                       for (int e = 0; e < kEpv; ++e) {
+                                         const float c =
+                                             to_f32(ps.e[e]) - mean;
+                                         a[e] = c * c;
+                                       }
+                                     })) /
+        fH;
+    const float rstd = 1.f / sqrtf(var + eps);
+    float p1, p2;
+    lane_sum2<kNv, kEpv>(
+        lane, nvec,
+        [&](int j, float (&a)[kEpv], float (&b)[kEpv]) {
+          const P ps = s_pack(j), pd = d_pack(j);
+#pragma unroll
+          for (int e = 0; e < kEpv; ++e) {
+            const float xhat = (to_f32(ps.e[e]) - mean) * rstd;
+            a[e] = to_f32(pd.e[e]) * scale_at(j, e);
+            b[e] = a[e] * xhat;
+          }
+        },
+        p1, p2);
+    warp_sum2(p1, p2);
+    const float m1 = p1 / fH;
+    const float m2 = p2 / fH;
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int v = j * 32 + lane;
+      if (v < nvec) {
+        const P ps = s_pack(j), pd = d_pack(j);
+        P pg;
+        if constexpr (kGs) {
+          if constexpr (kReload) {
+            pg = load_pack<T, kEpv>(gs + base + v * kEpv);
+          } else {
+            pg = cg[j];
+          }
+        }
+        P o;
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) {
+          const float dv = to_f32(pd.e[e]);
+          const float xhat = (to_f32(ps.e[e]) - mean) * rstd;
+          float g = (dv * scale_at(j, e) - m1 - xhat * m2) * rstd;
+          if constexpr (kGs) g += to_f32(pg.e[e]);
+          o.e[e] = from_f32<T>(g);
+          if constexpr (kWide) {
+            acc_sm[v * kEpv + e] += dv * xhat;
+            acc_sm[H + v * kEpv + e] += dv;
+          } else {
+            acc_s[j * kEpv + e] += dv * xhat;
+            acc_b[j * kEpv + e] += dv;
+          }
+        }
+        store_pack<T, kEpv>(dx + base + v * kEpv, o);
+      }
+    }
+    if constexpr (kStages == 1) {
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < kNv; ++j) {
+          cs[j] = ns[j];
+          cd[j] = nd[j];
+        }
+      }
+    }
+  }
+  if constexpr (kRing) tc::cp_async_wait<0>();
+
+  // The block's partial row [2][H] of part [2][gridDim.x][H]: its warps'
+  // fp32 sums added as a tree in warp order, in fp64, so that the sum
+  // over the rows rounds about once, not once a warp and a block.
+  if constexpr (!kWide) {
+    __syncthreads();  // every warp is done with its ring
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int v = j * 32 + lane;
+      if (v < nvec) {
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) {
+          acc_sm[v * kEpv + e] = acc_s[j * kEpv + e];
+          acc_sm[H + v * kEpv + e] = acc_b[j * kEpv + e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const long long pbase = static_cast<long long>(blockIdx.x) * H;
+  const long long half = static_cast<long long>(gridDim.x) * H;
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    double ds[kLnBwdWarps], db[kLnBwdWarps];
+#pragma unroll
+    for (int w = 0; w < kLnBwdWarps; ++w) {
+      ds[w] = slots[w * 2 * H + c];
+      db[w] = slots[w * 2 * H + H + c];
+    }
+    part[pbase + c] = tree_sum(ds);
+    part[half + pbase + c] = tree_sum(db);
   }
 }
 
-template <typename T>
+// K3b's second pass: out[i] for i = a*H + c (a = 0 dscale, 1 dbias) is
+// the sum over blocks b of part[a][b][c], in fp64 and a fixed order,
+// rounded once to fp32. A block takes 32 consecutive i; its warp w sums
+// the blocks b = w, w + 8, ... in order, and the eight warps' sums add
+// as a tree.
+constexpr int kColsumWarps = 8;
+__global__ void __launch_bounds__(32 * kColsumWarps)
+ln_bwd_colsum_kernel(const double* __restrict__ part, float* __restrict__ out,
+                     int blocks, int H) {
+  extern __shared__ double colsum_red[];  // [kColsumWarps][32]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  double acc = 0.0;
+  if (i < 2 * H) {
+    const int a = i / H;
+    const double* p =
+        part + static_cast<long long>(a) * blocks * H + (i - a * H);
+    for (int b = warp; b < blocks; b += kColsumWarps)
+      acc += p[static_cast<long long>(b) * H];
+  }
+  colsum_red[warp * 32 + lane] = acc;
+  __syncthreads();
+  if (warp == 0 && i < 2 * H) {
+    double v[kColsumWarps];
+#pragma unroll
+    for (int w = 0; w < kColsumWarps; ++w) v[w] = colsum_red[w * 32 + lane];
+    out[i] = static_cast<float>(tree_sum(v));
+  }
+}
+
+// K4f. Thread x of block (bx, by) owns column vector bx*blockDim.x + x
+// (kEpv columns) of rows [by*rows_per_block, +rows_per_block).
+template <typename T, int kEpv, bool kExact>
 __global__ void __launch_bounds__(kGeluThreads)
 bias_gelu_kernel(const T* __restrict__ y, const float* __restrict__ b,
-                 T* __restrict__ out, long long n, int F) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float z = to_f32(from_f32<T>(to_f32(y[i]) + b[i % F]));
-    const float u = kSqrt2OverPi * (z + kGeluC * z * z * z);
-    out[i] = from_f32<T>(0.5f * z * (1.f + tanhf(u)));
+                 T* __restrict__ out, int rows, int F, int rows_per_block) {
+  using P = Pack<T, kEpv>;
+  const int nvec = F / kEpv;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= nvec) return;
+  const int r0 = blockIdx.y * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  float bc[kEpv];
+#pragma unroll
+  for (int e = 0; e < kEpv; ++e) bc[e] = b[v * kEpv + e];
+  const long long pitch = F;
+  const T* yp = y + v * kEpv;
+  T* op = out + v * kEpv;
+  int r = r0;
+  for (; r + kGeluUnroll <= r1; r += kGeluUnroll) {
+    P in[kGeluUnroll];
+#pragma unroll
+    for (int u = 0; u < kGeluUnroll; ++u)
+      in[u] = load_pack<T, kEpv>(yp + (r + u) * pitch);
+#pragma unroll
+    for (int u = 0; u < kGeluUnroll; ++u) {
+      P o;
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e)
+        o.e[e] = from_f32<T>(gelu_f32<kExact>(gelu_input(in[u].e[e], bc[e])));
+      store_pack<T, kEpv>(op + (r + u) * pitch, o);
+    }
+  }
+  for (; r < r1; ++r) {
+    const P in = load_pack<T, kEpv>(yp + r * pitch);
+    P o;
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e)
+      o.e[e] = from_f32<T>(gelu_f32<kExact>(gelu_input(in.e[e], bc[e])));
+    store_pack<T, kEpv>(op + r * pitch, o);
   }
 }
 
-template <typename T>
+template <typename T, bool kExact>
 __global__ void __launch_bounds__(kGeluBwdThreads)
 bias_gelu_bwd_kernel(const T* __restrict__ y, const float* __restrict__ b,
                      const T* __restrict__ g, T* __restrict__ dz_out,
@@ -196,16 +647,15 @@ bias_gelu_bwd_kernel(const T* __restrict__ y, const float* __restrict__ b,
   float acc = 0.f;
   for (int r = r0; r < r1; ++r) {
     const long long i = static_cast<long long>(r) * F + c;
-    const float z = to_f32(from_f32<T>(to_f32(y[i]) + bc));
-    const float u = kSqrt2OverPi * (z + kGeluC * z * z * z);
-    const float t = tanhf(u);
-    const float du = kSqrt2OverPi * (1.f + kGelu3C * z * z);
-    const float dg = 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
-    const float dz = to_f32(g[i]) * dg;
+    const float dz = to_f32(g[i]) * dgelu_f32<kExact>(gelu_input(y[i], bc));
     dz_out[i] = from_f32<T>(dz);
     acc += dz;
   }
   db_part[static_cast<long long>(blockIdx.y) * F + c] = acc;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 template <typename T>
@@ -224,40 +674,143 @@ void launch_ln(const void* x, const void* d, const float* scale,
   }
 }
 
+// Arguments of one K3b launch.
+struct LnBwdArgs {
+  const void *s, *dy, *gs;
+  const float* scale;
+  void* dx;
+  double* part;
+  float* out;
+  int rows, H, blocks;
+  float eps;
+  cudaStream_t st;
+};
+
+template <typename T, bool kGs, int kNv, int kEpv, bool kWide>
+cudaError_t launch_ln_bwd_inst(const LnBwdArgs& a) {
+  constexpr int kStages = ln_bwd_stages<T, kEpv, kWide>();
+  const size_t H = static_cast<size_t>(a.H);
+  const size_t ring = kStages >= 2 ? static_cast<size_t>(kLnBwdWarps) *
+                                         kStages * (kGs ? 3 : 2) * H *
+                                         sizeof(T)
+                                   : 0;
+  const size_t slots = static_cast<size_t>(kLnBwdWarps) * 2 * H * 4;
+  const size_t smem = kWide ? H * 4 + slots : (ring > slots ? ring : slots);
+  auto kern = ln_bwd_kernel<T, kGs, kNv, kEpv, kWide>;
+  // The largest dynamic shared memory this instance was opened for.
+  static size_t opened = kMaxLnSmem;
+  if (smem > opened) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    opened = smem;
+  }
+  kern<<<a.blocks, kLnBwdThreads, smem, a.st>>>(
+      static_cast<const T*>(a.s), a.scale, static_cast<const T*>(a.dy),
+      static_cast<const T*>(a.gs), static_cast<T*>(a.dx), a.part, a.rows,
+      a.H, a.eps);
+  ln_bwd_colsum_kernel<<<(2 * a.H + 31) / 32, 32 * kColsumWarps,
+                         kColsumWarps * 32 * sizeof(double), a.st>>>(
+      a.part, a.out, a.blocks, a.H);
+  return cudaGetLastError();
+}
+
+// The instance for H: 16-byte vectors where H is a multiple of the
+// vector width and every row pointer is 16-byte aligned, else width 1;
+// the fewest vectors a lane that cover the row. Rows past 32 bytes a
+// lane of fp32 (H 512; the width-1 instance 512 too) or 64 of 16-bit
+// values (H 1024) are wide: no prefetch, the scale and sums in shared
+// memory.
+template <typename T, bool kGs>
+cudaError_t launch_ln_bwd(const LnBwdArgs& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = a.H % kVec == 0 && aligned16(a.s) && aligned16(a.dy) &&
+                   aligned16(a.dx) && (a.gs == nullptr || aligned16(a.gs));
+  if (vec) {
+    const int nv = (a.H / kVec + 31) / 32;
+    if constexpr (kVec == 8) {
+      if (nv <= 1) return launch_ln_bwd_inst<T, kGs, 1, 8, false>(a);
+      if (nv <= 2) return launch_ln_bwd_inst<T, kGs, 2, 8, false>(a);
+      if (nv <= 3) return launch_ln_bwd_inst<T, kGs, 3, 8, false>(a);
+      if (nv <= 4) return launch_ln_bwd_inst<T, kGs, 4, 8, false>(a);
+      return launch_ln_bwd_inst<T, kGs, 8, 8, true>(a);
+    } else {
+      if (nv <= 2) return launch_ln_bwd_inst<T, kGs, 2, 4, false>(a);
+      if (nv <= 4) return launch_ln_bwd_inst<T, kGs, 4, 4, false>(a);
+      if (nv <= 8) return launch_ln_bwd_inst<T, kGs, 8, 4, true>(a);
+      return launch_ln_bwd_inst<T, kGs, 16, 4, true>(a);
+    }
+  }
+  const int nv = (a.H + 31) / 32;
+  if (nv <= 8) return launch_ln_bwd_inst<T, kGs, 8, 1, false>(a);
+  if (nv <= 16) return launch_ln_bwd_inst<T, kGs, 16, 1, false>(a);
+  return launch_ln_bwd_inst<T, kGs, 64, 1, true>(a);
+}
+
 template <typename T>
-void launch_ln_bwd(const void* s, const float* scale, const void* dy,
-                   const void* gs, void* dx, float* dsc, float* dbi,
-                   int rows, int H, int blocks, float eps, cudaStream_t st) {
-  if (gs != nullptr) {
-    ln_bwd_kernel<T, true><<<blocks, kLnBwdThreads, 0, st>>>(
-        static_cast<const T*>(s), scale, static_cast<const T*>(dy),
-        static_cast<const T*>(gs), static_cast<T*>(dx), dsc, dbi, rows, H,
-        eps);
+cudaError_t launch_ln_bwd(const LnBwdArgs& a) {
+  return a.gs != nullptr ? launch_ln_bwd<T, true>(a)
+                         : launch_ln_bwd<T, false>(a);
+}
+
+template <typename T, int kEpv, bool kExact>
+void launch_gelu_inst(const void* y, const float* b, void* out, int rows,
+                      int F, cudaStream_t st) {
+  const int nvec = F / kEpv;
+  // Runs of kGeluRows rows on the training path's thousands of rows,
+  // runs of kGeluUnroll on a serving step's few rows (more blocks), and
+  // longer runs where grid.y would pass its 65535.
+  int per = rows >= 2048 ? kGeluRows : kGeluUnroll;
+  if ((rows + per - 1) / per > 65535) per = (rows + 65534) / 65535;
+  const int threads = nvec < kGeluThreads ? (nvec + 31) / 32 * 32
+                                          : kGeluThreads;
+  dim3 grid((nvec + threads - 1) / threads, (rows + per - 1) / per);
+  bias_gelu_kernel<T, kEpv, kExact><<<grid, threads, 0, st>>>(
+      static_cast<const T*>(y), b, static_cast<T*>(out), rows, F, per);
+}
+
+template <typename T, bool kExact>
+void launch_gelu(const void* y, const float* b, void* out, int rows, int F,
+                 cudaStream_t st) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (F % kVec == 0 && aligned16(y) && aligned16(out)) {
+    launch_gelu_inst<T, kVec, kExact>(y, b, out, rows, F, st);
   } else {
-    ln_bwd_kernel<T, false><<<blocks, kLnBwdThreads, 0, st>>>(
-        static_cast<const T*>(s), scale, static_cast<const T*>(dy), nullptr,
-        static_cast<T*>(dx), dsc, dbi, rows, H, eps);
+    launch_gelu_inst<T, 1, kExact>(y, b, out, rows, F, st);
   }
 }
 
 template <typename T>
-void launch_gelu(const void* y, const float* b, void* out, long long n,
-                 int F, cudaStream_t st) {
-  long long blocks = (n + kGeluThreads - 1) / kGeluThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond this
-  bias_gelu_kernel<T><<<static_cast<int>(blocks), kGeluThreads, 0, st>>>(
-      static_cast<const T*>(y), b, static_cast<T*>(out), n, F);
+void launch_gelu(const void* y, const float* b, void* out, int rows, int F,
+                 int exact, cudaStream_t st) {
+  if (exact) {
+    launch_gelu<T, true>(y, b, out, rows, F, st);
+  } else {
+    launch_gelu<T, false>(y, b, out, rows, F, st);
+  }
 }
 
-template <typename T>
+template <typename T, bool kExact>
 void launch_gelu_bwd(const void* y, const float* b, const void* g, void* dz,
                      float* db_part, int rows, int F, int splits,
                      cudaStream_t st) {
   const int per = (rows + splits - 1) / splits;
   dim3 grid((F + kGeluBwdThreads - 1) / kGeluBwdThreads, splits);
-  bias_gelu_bwd_kernel<T><<<grid, kGeluBwdThreads, 0, st>>>(
+  bias_gelu_bwd_kernel<T, kExact><<<grid, kGeluBwdThreads, 0, st>>>(
       static_cast<const T*>(y), b, static_cast<const T*>(g),
       static_cast<T*>(dz), db_part, rows, F, per);
+}
+
+template <typename T>
+void launch_gelu_bwd(const void* y, const float* b, const void* g, void* dz,
+                     float* db_part, int rows, int F, int splits, int exact,
+                     cudaStream_t st) {
+  if (exact) {
+    launch_gelu_bwd<T, true>(y, b, g, dz, db_part, rows, F, splits, st);
+  } else {
+    launch_gelu_bwd<T, false>(y, b, g, dz, db_part, rows, F, splits, st);
+  }
 }
 
 }  // namespace
@@ -287,55 +840,50 @@ extern "C" int dstt_layer_norm(const void* x, const void* d,
   return cudaGetLastError();
 }
 
-// Number of blocks (= rows of the dscale/dbias partials) that
-// dstt_layer_norm_bwd launches for `rows` rows.
+// Number of blocks (= partial dscale/dbias rows) that
+// dstt_layer_norm_bwd launches for `rows` rows: a warp a row up to
+// kLnBwdMaxBlocks blocks.
 extern "C" int dstt_layer_norm_bwd_blocks(int rows) {
-  return rows < kLnBwdMaxBlocks ? rows : kLnBwdMaxBlocks;
+  const int blocks = (rows + kLnBwdWarps - 1) / kLnBwdWarps;
+  return blocks < kLnBwdMaxBlocks ? blocks : kLnBwdMaxBlocks;
 }
 
-// s, dy, gs (nullable), dx: [rows, H] contiguous in `dtype`; scale: [H]
-// fp32; dscale_part, dbias_part: [dstt_layer_norm_bwd_blocks(rows), H]
-// fp32, every element written.
+// s, dy, gs (nullable), dx: [rows, H] contiguous in `dtype`, rows >= 1;
+// scale: [H] fp32; part: [2, dstt_layer_norm_bwd_blocks(rows), H] fp64
+// scratch (the blocks' partial dscale and dbias rows); out: [2, H] fp32,
+// dscale then dbias. Two launches: the rows, then the partials' sum.
 extern "C" int dstt_layer_norm_bwd(const void* s, const void* scale,
                                    const void* dy, const void* gs, void* dx,
-                                   void* dscale_part, void* dbias_part,
-                                   int rows, int H, float eps, int dtype,
-                                   void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (H <= 0 || H > kLnBwdCols * kLnBwdThreads) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = dstt_layer_norm_bwd_blocks(rows);
-  const float* sc = static_cast<const float*>(scale);
-  float* dsc = static_cast<float*>(dscale_part);
-  float* dbi = static_cast<float*>(dbias_part);
-  if (dtype == kFloat32) {
-    launch_ln_bwd<float>(s, sc, dy, gs, dx, dsc, dbi, rows, H, blocks, eps,
-                         st);
-  } else if (dtype == kBFloat16) {
-    launch_ln_bwd<__nv_bfloat16>(s, sc, dy, gs, dx, dsc, dbi, rows, H,
-                                 blocks, eps, st);
-  } else if (dtype == kFloat16) {
-    launch_ln_bwd<__half>(s, sc, dy, gs, dx, dsc, dbi, rows, H, blocks, eps,
-                          st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+                                   void* part, void* out, int rows, int H,
+                                   float eps, int dtype, void* stream) {
+  if (rows <= 0 || H <= 0 || H > kLnBwdMaxH) return cudaErrorInvalidValue;
+  const LnBwdArgs a{s, dy, gs, static_cast<const float*>(scale), dx,
+                    static_cast<double*>(part), static_cast<float*>(out),
+                    rows, H, dstt_layer_norm_bwd_blocks(rows), eps,
+                    static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return launch_ln_bwd<float>(a);
+  if (dtype == kBFloat16) return launch_ln_bwd<__nv_bfloat16>(a);
+  if (dtype == kFloat16) return launch_ln_bwd<__half>(a);
+  return cudaErrorInvalidValue;
 }
 
-// y, out: [n / F, F] contiguous in `dtype`; b: [F] fp32.
+// y, out: [n / F, F] contiguous in `dtype`; b: [F] fp32; exact: 1 for
+// the erf form, 0 for the tanh form.
 extern "C" int dstt_bias_gelu(const void* y, const void* b, void* out,
-                              long long n, int F, int dtype, void* stream) {
+                              long long n, int F, int exact, int dtype,
+                              void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (F <= 0 || n % F != 0) return cudaErrorInvalidValue;
+  if (F <= 0 || n % F != 0 || n / F > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int rows = static_cast<int>(n / F);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(b);
   if (dtype == kFloat32) {
-    launch_gelu<float>(y, bf, out, n, F, st);
+    launch_gelu<float>(y, bf, out, rows, F, exact, st);
   } else if (dtype == kBFloat16) {
-    launch_gelu<__nv_bfloat16>(y, bf, out, n, F, st);
+    launch_gelu<__nv_bfloat16>(y, bf, out, rows, F, exact, st);
   } else if (dtype == kFloat16) {
-    launch_gelu<__half>(y, bf, out, n, F, st);
+    launch_gelu<__half>(y, bf, out, rows, F, exact, st);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -349,10 +897,12 @@ extern "C" int dstt_bias_gelu_bwd_splits(int rows) {
 }
 
 // y, g, dz: [rows, F] contiguous in `dtype`; b: [F] fp32; db_part:
-// [dstt_bias_gelu_bwd_splits(rows), F] fp32, every element written.
+// [dstt_bias_gelu_bwd_splits(rows), F] fp32, every element written;
+// exact: 1 for the erf form's derivative, 0 for the tanh form's.
 extern "C" int dstt_bias_gelu_bwd(const void* y, const void* b,
                                   const void* g, void* dz, void* db_part,
-                                  int rows, int F, int dtype, void* stream) {
+                                  int rows, int F, int exact, int dtype,
+                                  void* stream) {
   if (rows <= 0) return cudaSuccess;
   if (F <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -360,11 +910,12 @@ extern "C" int dstt_bias_gelu_bwd(const void* y, const void* b,
   const float* bf = static_cast<const float*>(b);
   float* dbp = static_cast<float*>(db_part);
   if (dtype == kFloat32) {
-    launch_gelu_bwd<float>(y, bf, g, dz, dbp, rows, F, splits, st);
+    launch_gelu_bwd<float>(y, bf, g, dz, dbp, rows, F, splits, exact, st);
   } else if (dtype == kBFloat16) {
-    launch_gelu_bwd<__nv_bfloat16>(y, bf, g, dz, dbp, rows, F, splits, st);
+    launch_gelu_bwd<__nv_bfloat16>(y, bf, g, dz, dbp, rows, F, splits,
+                                   exact, st);
   } else if (dtype == kFloat16) {
-    launch_gelu_bwd<__half>(y, bf, g, dz, dbp, rows, F, splits, st);
+    launch_gelu_bwd<__half>(y, bf, g, dz, dbp, rows, F, splits, exact, st);
   } else {
     return cudaErrorInvalidValue;
   }

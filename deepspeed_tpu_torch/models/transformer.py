@@ -59,7 +59,8 @@ class TransformerConfig:
     remat_policy: str = "none"
     causal: bool = False
     dtype: Any = torch.bfloat16
-    # False only: the port's GELU kernels are the tanh form.
+    # The erf form of GELU (True) or the tanh form (False), in the dense
+    # FFN's bias+GELU kernels and the MoE experts' grouped GEMM alike.
     gelu_exact: bool = False
     # The fused kernels knob: "auto"/True run the kernels; False has no
     # CUDA path in the port (the engines raise). On the CPU the kernels'
@@ -87,10 +88,6 @@ def check_trainable(cfg: TransformerConfig) -> None:
             f"remat_policy={cfg.remat_policy!r}: activation recomputation "
             "is not ported yet (ROADMAP slice 6: remat and progressive "
             "layer drop)")
-    if cfg.gelu_exact:
-        raise NotImplementedError(
-            "gelu_exact=True: the port's GELU kernels are the tanh form "
-            "(ROADMAP slice 6: BERT and module injection)")
     if not (cfg.pre_layer_norm and cfg.causal):
         raise NotImplementedError("the port implements the GPT-2 block "
                                   "(pre-LN, causal)")
@@ -159,8 +156,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------------- #
 class ElementwiseOps(NamedTuple):
     """``ln(x, scale, bias) -> y``; ``res_ln(x, delta, scale, bias, eps)
-    -> (s, y)`` with ``s = x + delta``; ``gelu_up(h, kernel, bias) ->
-    gelu(h @ kernel + bias)``. Each takes ``eps`` where it normalizes.
+    -> (s, y)`` with ``s = x + delta``; ``gelu_up(h, kernel, bias, exact)
+    -> gelu(h @ kernel + bias)`` (the erf form where ``exact``, else the
+    tanh form). Each takes ``eps`` where it normalizes.
     ``expert_ffn(x, w1, b1, w2, b2, exact)``: the MoE blocks' grouped
     expert FFN where ``MoEConfig.grouped_gemm`` selects it."""
     ln: Callable
@@ -171,16 +169,16 @@ class ElementwiseOps(NamedTuple):
 
 KERNEL_OPS = ElementwiseOps(
     ln=fused_layer_norm, res_ln=fused_residual_layer_norm,
-    gelu_up=lambda h, kernel, bias: fused_bias_gelu(
-        torch.matmul(h, kernel.to(h.dtype)), bias),
+    gelu_up=lambda h, kernel, bias, exact=False: fused_bias_gelu(
+        torch.matmul(h, kernel.to(h.dtype)), bias, exact),
     expert_ffn=grouped_ffn)
 
 PLAIN_OPS = ElementwiseOps(
     ln=lambda x, scale, bias, eps: layer_norm_plain(x, None, scale, bias,
                                                     eps)[1],
     res_ln=layer_norm_plain,
-    gelu_up=lambda h, kernel, bias: bias_gelu_plain(
-        torch.matmul(h, kernel.to(h.dtype)), bias),
+    gelu_up=lambda h, kernel, bias, exact=False: bias_gelu_plain(
+        torch.matmul(h, kernel.to(h.dtype)), bias, exact),
     expert_ffn=grouped_ffn_plain)
 
 
@@ -206,8 +204,10 @@ def layer_norm_fn(cfg: TransformerConfig) -> Callable:
 
 def gelu_dense_fn(cfg: TransformerConfig) -> Callable:
     """``(h, kernel, bias) -> gelu(h @ kernel + bias)``: the matmul stays
-    with ``torch.matmul``, the bias+GELU epilogue is one kernel pass."""
-    return KERNEL_OPS.gelu_up
+    with ``torch.matmul``, the bias+GELU epilogue is one kernel pass in
+    the form ``cfg.gelu_exact`` selects."""
+    return lambda h, kernel, bias: KERNEL_OPS.gelu_up(h, kernel, bias,
+                                                      cfg.gelu_exact)
 
 
 # --------------------------------------------------------------------- #
@@ -313,7 +313,7 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if "moe_fc_kernel" in p:
         h, moe_stats = moe_ffn(p, h, cfg, expert_ffn=ops.expert_ffn)
     else:
-        h = ops.gelu_up(h, p["fc_kernel"], p["fc_bias"])
+        h = ops.gelu_up(h, p["fc_kernel"], p["fc_bias"], cfg.gelu_exact)
         h = dense(h, p["fc_out_kernel"], p["fc_out_bias"])
     h = dropout(h, cfg.hidden_dropout, rng, deterministic)
     if cfg.moe is not None:

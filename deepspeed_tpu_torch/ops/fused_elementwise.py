@@ -31,8 +31,9 @@ Numerics contract (the JAX module's): statistics and the GELU curve in
 fp32 (fp64 for fp64 inputs, which ``gradcheck`` uses); the residual sum
 is rounded to the storage dtype before the statistics read it, so ``s``
 is bit-equal to the unfused ``x + delta``; bias+GELU rounds ``y + b`` to
-the storage dtype, then applies the tanh form and rounds once at the
-output. dscale/dbias come back in the parameter's dtype.
+the storage dtype, then applies the tanh form (or, with ``exact``, the
+erf form) and rounds once at the output. dscale/dbias come back in the
+parameter's dtype.
 """
 from __future__ import annotations
 
@@ -119,20 +120,30 @@ def _gelu_input(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return (y.to(acc) + bias.to(acc)).to(y.dtype).to(acc)
 
 
-def bias_gelu_plain(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    return gelu_tanh(_gelu_input(y, bias)).to(y.dtype)
+def dgelu_f32(z: torch.Tensor, exact: bool) -> torch.Tensor:
+    """The JAX package's ``_dgelu_f32``: the derivative of the erf form
+    (``exact``) or of the tanh form, in z's dtype."""
+    if exact:
+        phi = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+        return 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0))) + z * phi
+    u = _SQRT_2_OVER_PI * (z + _GELU_C * z * z * z)
+    t = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * z * z)
+    return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+
+
+def bias_gelu_plain(y: torch.Tensor, bias: torch.Tensor,
+                    exact: bool = False) -> torch.Tensor:
+    return gelu_f32(_gelu_input(y, bias), exact).to(y.dtype)
 
 
 def bias_gelu_backward_plain(y: torch.Tensor, bias: torch.Tensor,
-                             g: torch.Tensor
+                             g: torch.Tensor, exact: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``dz = g * gelu'(z)`` with z recomputed from the saved matmul
     output; ``dbias`` = the column sum of dz. Returns ``(dz, dbias)``."""
     z = _gelu_input(y, bias)
-    u = _SQRT_2_OVER_PI * (z + _GELU_C * z * z * z)
-    t = torch.tanh(u)
-    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * z * z)
-    dz = g.to(z.dtype) * (0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du)
+    dz = g.to(z.dtype) * dgelu_f32(z, exact)
     F = y.shape[-1]
     return dz.to(y.dtype), dz.reshape(-1, F).sum(0).to(bias.dtype)
 
@@ -204,8 +215,8 @@ def layer_norm_backward(s: torch.Tensor, scale: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3b: ``(ds, dscale, dbias)`` — the LayerNorm input gradient plus
     the residual cotangent ``gs`` (None without a residual), and the
-    parameter gradients summed from the kernel's per-block partials with
-    one ``torch.sum`` each (outside the kernel, as in the JAX path)."""
+    parameter gradients, which the kernel's call sums from its per-block
+    partials in a second launch (block order: bit-repeatable)."""
     if s.device.type == "cpu":
         return ln_backward_plain(s, scale, dy, gs, eps)
     _check_cuda("layer_norm_backward", s, dy, *(() if gs is None else (gs,)))
@@ -218,36 +229,40 @@ def layer_norm_backward(s: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"layer_norm_backward: the kernel takes H <= 2048, "
                          f"got {H}")
     sc = _vec32(scale, H, s.device, "layer_norm_backward scale")
+    dx = torch.empty_like(s)
+    if rows == 0:
+        zeros = torch.zeros(H, dtype=scale.dtype, device=s.device)
+        return dx, zeros, zeros.clone()
     lib = op_builder.load()
     blocks = lib.dstt_layer_norm_bwd_blocks(rows)
-    dx = torch.empty_like(s)
-    parts = torch.empty((2, max(blocks, 1), H), dtype=torch.float32,
-                        device=s.device)
+    parts = torch.empty((2, blocks, H), dtype=torch.float64, device=s.device)
+    out = torch.empty((2, H), dtype=torch.float32, device=s.device)
     rc = lib.dstt_layer_norm_bwd(
         s.data_ptr(), sc.data_ptr(), dy.data_ptr(),
         None if gs is None else gs.data_ptr(), dx.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), rows, H, float(eps),
+        parts.data_ptr(), out.data_ptr(), rows, H, float(eps),
         _DTYPE_CODES[s.dtype], op_builder.stream_ptr(s.device))
     op_builder.check(rc, "layer_norm_backward")
     layer_norm_backward.launches += 1
-    dsc_dbi = torch.sum(parts[:, :blocks], dim=1).to(scale.dtype)
+    dsc_dbi = out.to(scale.dtype)
     return dx, dsc_dbi[0], dsc_dbi[1]
 
 
 layer_norm_backward.launches = 0
 
 
-def _bias_gelu_forward(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """K4f: ``gelu(y + bias)``."""
+def _bias_gelu_forward(y: torch.Tensor, bias: torch.Tensor,
+                       exact: bool = False) -> torch.Tensor:
+    """K4f: ``gelu(y + bias)``, the erf form where ``exact``."""
     if y.device.type == "cpu":
-        return bias_gelu_plain(y, bias)
+        return bias_gelu_plain(y, bias, exact)
     _check_cuda("bias_gelu", y)
     F = y.shape[-1]
     b = _vec32(bias, F, y.device, "bias_gelu bias")
     out = torch.empty_like(y)
     lib = op_builder.load()
     rc = lib.dstt_bias_gelu(y.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            y.numel(), F, _DTYPE_CODES[y.dtype],
+                            y.numel(), F, int(exact), _DTYPE_CODES[y.dtype],
                             op_builder.stream_ptr(y.device))
     op_builder.check(rc, "bias_gelu")
     fused_bias_gelu.launches += 1
@@ -255,12 +270,13 @@ def _bias_gelu_forward(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 
 def bias_gelu_backward(y: torch.Tensor, bias: torch.Tensor,
-                       g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4b: ``(dz, dbias)`` with ``dz = g * gelu'(round(y + b))``; dbias
-    summed from the kernel's per-row-split partials with one
-    ``torch.sum``."""
+                       g: torch.Tensor, exact: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4b: ``(dz, dbias)`` with ``dz = g * gelu'(round(y + b))`` (the
+    erf form's derivative where ``exact``); dbias summed from the
+    kernel's per-row-split partials with one ``torch.sum``."""
     if y.device.type == "cpu":
-        return bias_gelu_backward_plain(y, bias, g)
+        return bias_gelu_backward_plain(y, bias, g, exact)
     _check_cuda("bias_gelu_backward", y, g)
     if g.shape != y.shape:
         raise ValueError("bias_gelu_backward: y and g must have one shape")
@@ -274,7 +290,7 @@ def bias_gelu_backward(y: torch.Tensor, bias: torch.Tensor,
                        device=y.device)
     rc = lib.dstt_bias_gelu_bwd(y.data_ptr(), b.data_ptr(), g.data_ptr(),
                                 dz.data_ptr(), part.data_ptr(), rows, F,
-                                _DTYPE_CODES[y.dtype],
+                                int(exact), _DTYPE_CODES[y.dtype],
                                 op_builder.stream_ptr(y.device))
     op_builder.check(rc, "bias_gelu_backward")
     bias_gelu_backward.launches += 1
@@ -323,15 +339,17 @@ class _ResidualLayerNorm(torch.autograd.Function):
 
 class _BiasGelu(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, bias):
-        out = _bias_gelu_forward(y, bias)
+    def forward(ctx, y, bias, exact):
+        out = _bias_gelu_forward(y, bias, exact)
         ctx.save_for_backward(y, bias)
+        ctx.exact = exact
         return out
 
     @staticmethod
     def backward(ctx, g):
         y, bias = ctx.saved_tensors
-        return bias_gelu_backward(y, bias, g.contiguous())
+        return (*bias_gelu_backward(y, bias, g.contiguous(), ctx.exact),
+                None)
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -366,12 +384,14 @@ def fused_residual_layer_norm(x: torch.Tensor, delta: torch.Tensor,
 fused_residual_layer_norm.launches = 0
 
 
-def fused_bias_gelu(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``gelu(y + bias)`` (tanh form) in one pass — the FFN
-    up-projection epilogue; ``y`` is the raw matmul output."""
+def fused_bias_gelu(y: torch.Tensor, bias: torch.Tensor,
+                    exact: bool = False) -> torch.Tensor:
+    """``gelu(y + bias)`` in one pass — the FFN up-projection epilogue;
+    ``y`` is the raw matmul output. ``exact`` selects the erf form; the
+    default is the tanh form (GPT-2's gelu_new)."""
     if _needs_grad(y, bias):
-        return _BiasGelu.apply(y, bias)
-    return _bias_gelu_forward(y, bias)
+        return _BiasGelu.apply(y, bias, exact)
+    return _bias_gelu_forward(y, bias, exact)
 
 
 fused_bias_gelu.launches = 0
@@ -380,4 +400,5 @@ fused_bias_gelu.launches = 0
 __all__ = ["fused_layer_norm", "fused_residual_layer_norm",
            "fused_bias_gelu", "layer_norm_backward", "bias_gelu_backward",
            "layer_norm_plain", "ln_backward_plain", "bias_gelu_plain",
-           "bias_gelu_backward_plain", "gelu_tanh", "gelu_f32"]
+           "bias_gelu_backward_plain", "gelu_tanh", "gelu_f32",
+           "dgelu_f32"]

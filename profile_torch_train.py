@@ -16,19 +16,36 @@ device time by kernel group of three profiled steps (torch.profiler).
 ``attention_fn`` — the port's attention before the flash kernels;
 "flash" is the default, ``auto_attention``. One JSON line per turn, then
 a summary line. Needs a CUDA device.
+
+    python3 profile_torch_train.py --parts elementwise [--label NAME]
+
+reads instead the LayerNorm and bias+GELU kernels (K3f, K3b, K4f, K4b)
+at the training shapes (8192 rows of 768 or 3072, bf16) three ways each
+(CUDA events around a loop of wrapper calls, graph replay, and one call
+after a 64 MB write that leaves the L2 cold), beside
+``F.layer_norm`` and ``native_layer_norm_backward`` read the same ways,
+then one flash turn of the training step (step p50, device busy, and the
+in-step device time of each port kernel a launch). It uses only what
+every checkout since the kernels' first port has, so a copy of this file
+run from the root of an earlier checkout (``git archive`` into the
+git-ignored ``runs/``) reads that checkout's kernels on the same card:
+run parent, change, change, parent in one call.
 """
+import argparse
 import json
 import subprocess
 import sys
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import chip_smoke as cs
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_init, \
     gpt2_loss_fn
 from deepspeed_tpu_torch.models.transformer import dense_attention
+from deepspeed_tpu_torch.ops import fused_elementwise as fe
 
 STEPS = 12
 
@@ -59,7 +76,51 @@ def run_turn(cfg, attention, batches, prof_batches):
                 "wall_ms_per_step_profiled", "device_busy_ms_per_step",
                 "device_ms_per_step_by_group", "device_idle_share",
                 "kernel_launches_per_step",
-                "top_kernels_ms_and_launches_per_step")}}
+                "top_kernels_ms_and_launches_per_step",
+                "port_kernel_device_ms_per_launch")}}
+
+
+def elementwise_kernels():
+    """K3f, K3b, K4f and K4b at the training shapes, and the library
+    calls beside them: {name: {kernel_ms, device_ms, cold_ms}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    H, Fw, R, dt = 768, 3072, cs.TRAIN_ROWS, torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    x = (2 * rnd(R, H) + 0.5).to(dt)
+    d, dy, gs = (rnd(R, H).to(dt) for _ in range(3))
+    sc, bi = 1 + 0.1 * rnd(H), 0.1 * rnd(H)
+    y, b, g = (3 * rnd(R, Fw)).to(dt), rnd(Fw), rnd(R, Fw).to(dt)
+    mean, rstd = cs._native_ln_bwd_inputs(x, sc, bi)
+    sc_t, bi_t = sc.to(dt), bi.to(dt)
+    fns = {
+        "K3f": lambda: fe.fused_layer_norm(x, sc, bi),
+        "K3f_residual": lambda: fe.fused_residual_layer_norm(x, d, sc, bi),
+        "K3b": lambda: fe.layer_norm_backward(x, sc, dy, None),
+        "K3b_residual": lambda: fe.layer_norm_backward(x, sc, dy, gs),
+        "K4f": lambda: fe.fused_bias_gelu(y, b),
+        "K4b": lambda: fe.bias_gelu_backward(y, b, g),
+        "F.layer_norm": lambda: F.layer_norm(x, (H,), sc_t, bi_t),
+        "native_layer_norm_backward":
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [H], mean, rstd, sc_t, bi_t, [True, True, True]),
+    }
+    return {name: {"kernel_ms": cs.time_ms(fn), "device_ms": cs.device_ms(fn),
+                   "cold_ms": cs.cold_ms(fn)} for name, fn in fns.items()}
+
+
+def elementwise(smi, label):
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    batches = cs.token_stream(cfg, STEPS + 3)
+    rec = {"label": label, "card": smi, "shapes": {
+        "rows": cs.TRAIN_ROWS, "H": 768, "F": 3072, "dtype": "bf16"},
+        "kernels": elementwise_kernels()}
+    rec["flash_step"] = run_turn(cfg, "flash", batches[:STEPS],
+                                 batches[STEPS:])
+    cs.emit({"elementwise": rec})
 
 
 def main():
@@ -73,6 +134,14 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parts", default="attention",
+                    choices=("attention", "elementwise"))
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    if args.parts == "elementwise":
+        elementwise(smi, args.label)
+        return 0
     cfg = GPT2_CONFIGS["gpt2-small"]
     batches = cs.token_stream(cfg, STEPS + 3)
     turns = []

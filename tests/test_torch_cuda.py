@@ -6,7 +6,10 @@ it, apart from the JAX tests' conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: LayerNorm/GELU forward and backward fp32 1e-5, bf16/fp16 2
-ulp floored at 1e-5 (tests/torch_cases.py), dscale/dbias 1e-5; the grad
+ulp floored at 1e-5 (tests/torch_cases.py), dscale/dbias 1e-5, both GELU
+forms, and K3b, K4f and K4b bit-equal across two launches (where the
+sums run over thousands of rows, dscale/dbias within 1e-5 plus 2**-20
+of the column's sum of magnitudes: fp32 sums in two orders); the grad
 sum of squares relative 1e-5 (two fp32 summation orders); the fused
 Adam step bit-equal to its plain version (both round op by op), and
 the stochastic rounding equal element for element; paged attention
@@ -44,8 +47,9 @@ from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import grouped_gemm as gg
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from torch_cases import (ADAM_CASES, PAGED_CASES, PAGED_SPLIT_CASES,
-                         adam_case, assert_close, paged_case,
-                         paged_split_case, ulps)
+                         adam_case, assert_close, assert_column_sums_close,
+                         ln_sum_magnitudes, paged_case, paged_split_case,
+                         ulps)
 
 pytestmark = pytest.mark.cuda
 SPARSE_ZERO = {"sparse_flash_fwd": 0, "sparse_flash_bwd_dq": 0,
@@ -206,6 +210,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
                             torch.zeros(128, device=dev))
     with pytest.raises(TypeError, match="float16"):
         fe.fused_bias_gelu(x.double(), torch.zeros(256, device=dev))
+    wide = torch.randn(4, 2049, device=dev)
+    with pytest.raises(ValueError, match="H <= 2048"):
+        fe.layer_norm_backward(wide, torch.ones(2049, device=dev), wide,
+                               None)
 
 
 def _engine(params, device, **inf):
@@ -308,6 +316,82 @@ def test_bias_gelu_backward_kernel_matches_plain(dev, F, dtype_name):
     rdz, rdb = fe.bias_gelu_backward_plain(y, b, gr)
     assert_close(_np(dz), _np(rdz), dtype_name)
     np.testing.assert_allclose(_np(db), _np(rdb), rtol=1e-5, atol=1e-5)
+
+
+def _shifted(t, shift):
+    """``t``'s values in a contiguous view ``shift`` elements into a larger
+    buffer: for shift 1 the rows start off a 16-byte boundary, which the
+    kernels take through their width-1 instances."""
+    if not shift:
+        return t
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    v = buf[shift:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("gs", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 8191])
+@pytest.mark.parametrize("H", [72, 128, 197, 200, 768, 1600, 2048])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_layer_norm_backward_kernel_edges_repeat_bit_equal(
+        dev, dtype_name, H, rows, gs, shift):
+    """K3b at every instance (16-byte vectors, the wide rows above H 1024,
+    the width-1 instance for H 197 and for unaligned rows), rows fewer
+    than a block's warps and more than the grid's: within the plain
+    version's tolerances, and bit-equal across two launches (the
+    row-to-warp map is fixed by the shape)."""
+    dt = DTYPES[dtype_name]
+    g = torch.Generator(device=dev).manual_seed(H * 7 + rows + gs)
+    mk = lambda: torch.randn(rows, H, device=dev, generator=g)  # noqa: E731
+    s = _shifted((2 * mk() + 0.5).to(dt), shift)
+    dy = _shifted(mk().to(dt), shift)
+    res = _shifted(mk().to(dt), shift) if gs else None
+    sc = 1 + 0.1 * torch.randn(H, device=dev, generator=g)
+    first = fe.layer_norm_backward(s, sc, dy, res)
+    again = fe.layer_norm_backward(s, sc, dy, res)
+    torch.cuda.synchronize()
+    rdx, rdsc, rdbi = fe.ln_backward_plain(s, sc, dy, res)
+    assert_close(_np(first[0]), _np(rdx), dtype_name)
+    for a, b, m in zip(first[1:], (rdsc, rdbi),
+                       ln_sum_magnitudes(_np(s), _np(dy))):
+        assert_column_sums_close(_np(a), _np(b), m)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 8191])
+@pytest.mark.parametrize("F", [72, 197, 200, 3072])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_bias_gelu_kernels_both_forms_edges_repeat_bit_equal(
+        dev, dtype_name, F, rows, exact, shift):
+    """K4f (16-byte vectors, and the width-1 instance for F 197 and for
+    unaligned rows) and K4b in the tanh and the erf form: within the
+    plain versions' tolerances, bit-equal across two launches."""
+    dt = DTYPES[dtype_name]
+    g = torch.Generator(device=dev).manual_seed(F * 3 + rows + exact)
+    y = _shifted((3 * torch.randn(rows, F, device=dev, generator=g)).to(dt),
+                 shift)
+    b = torch.randn(F, device=dev, generator=g)
+    gr = _shifted(torch.randn(rows, F, device=dev, generator=g).to(dt),
+                  shift)
+    before = (fe.fused_bias_gelu.launches, fe.bias_gelu_backward.launches)
+    out = fe.fused_bias_gelu(y, b, exact)
+    out2 = fe.fused_bias_gelu(y, b, exact)
+    dz, db = fe.bias_gelu_backward(y, b, gr, exact)
+    dz2, db2 = fe.bias_gelu_backward(y, b, gr, exact)
+    torch.cuda.synchronize()
+    assert (fe.fused_bias_gelu.launches, fe.bias_gelu_backward.launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert_close(_np(out), _np(fe.bias_gelu_plain(y, b, exact)), dtype_name)
+    rdz, rdb = fe.bias_gelu_backward_plain(y, b, gr, exact)
+    assert_close(_np(dz), _np(rdz), dtype_name)
+    assert_column_sums_close(_np(db), _np(rdb), np.abs(_np(rdz)).sum(0))
+    assert torch.equal(out, out2) and torch.equal(dz, dz2) and \
+        torch.equal(db, db2)
 
 
 def test_autograd_functions_run_the_backward_kernels(dev):

@@ -7,7 +7,9 @@ port's paged-attention function itself is held against the JAX kernel
 in tests/test_torch_paged_attention.py. Per-step prefill and decode
 logits agree within atol 1e-4; greedy token streams through ``serve()``
 are EQUAL; and in the port ``spec_k: 3`` gives the same greedy streams
-as ``spec_k: 0``. The same holds for whole-prompt prefill
+as ``spec_k: 0``. With ``gelu_exact`` (the erf form) the step logits
+agree within 1e-4 too, and the MLP up-projection within 2e-6 (+ 1e-6
+relative) of JAX's ``gelu_dense_fn``. The same holds for whole-prompt prefill
 (``prefill_chunk: 0``: both engines share no prefix and, on the CPU,
 attend densely at max_seq_len 64). ``gpt2_prefill_full_paged`` itself,
 with flash attention on both sides (the JAX Pallas forward in interpret
@@ -27,6 +29,7 @@ from deepspeed_tpu.inference import decode as jdecode
 from deepspeed_tpu.inference import scheduler as jsched
 from deepspeed_tpu.models.gpt2 import GPT2_CONFIGS as JCONFIGS
 from deepspeed_tpu.models.gpt2 import gpt2_init as jgpt2_init
+from deepspeed_tpu.models import transformer as jtr
 from deepspeed_tpu.ops.flash_attention import flash_attention as jflash
 from deepspeed_tpu.parallel.topology import build_mesh
 from deepspeed_tpu_torch.inference import InferenceEngine as TEngine
@@ -136,6 +139,46 @@ def test_step_logits_match_jax(jax_results, port_results):
     for a, b in zip(tl, jl):
         assert a.shape == b.shape and a.dtype == np.float32
         np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+
+
+def test_step_logits_match_jax_gelu_exact(params_np):
+    """``gelu_exact=True`` (the erf form) in both engines: the per-step
+    prefill and decode logits within ATOL and the same greedy tokens."""
+    jcfg = dataclasses.replace(JCFG, gelu_exact=True)
+    tcfg = dataclasses.replace(TCFG, gelu_exact=True)
+    jeng = JEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, params_np),
+                   config={"inference": dict(INF, paged_kernel=False)},
+                   mesh=build_mesh(devices=jax.devices()[:1]))
+    jl, jt = _drive(jeng)
+    jeng.close()
+    teng = TEngine(tcfg, convert.from_jax_params(params_np),
+                   config={"inference": INF}, device="cpu")
+    tl, tt = _drive(teng)
+    assert tt == jt
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_gelu_dense_fn_exact_matches_jax(params_np, fused):
+    """The block's MLP up-projection, ``gelu_dense_fn(cfg)`` with
+    ``gelu_exact=True``, against JAX's (``jax.nn.gelu(approximate=
+    False)``, or the Pallas kernel in interpret mode where ``fused``)
+    within 2e-6 absolute plus 1e-6 relative: XLA's fp32 erf (see
+    test_torch_fused_elementwise.py) and two fp32 matmul orders (1.9e-6
+    apart at |out| 5.6, where the tanh form reads 4.7e-4 apart)."""
+    jcfg = dataclasses.replace(JCFG, gelu_exact=True, fused_kernels=fused)
+    tcfg = dataclasses.replace(TCFG, gelu_exact=True)
+    blk = params_np["blocks"]
+    h = np.random.default_rng(5).standard_normal(
+        (3, 7, JCFG.hidden_size)).astype(np.float32)
+    kern, bias = blk["fc_kernel"][0], blk["fc_bias"][0] + 0.5
+    ref = np.asarray(jtr.gelu_dense_fn(jcfg)(
+        jnp.asarray(h), jnp.asarray(kern), jnp.asarray(bias)))
+    out = tdecode.gelu_dense_fn(tcfg)(
+        torch.from_numpy(h), torch.from_numpy(kern), torch.from_numpy(bias))
+    assert np.abs(ref).max() > 1.0
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("stream", sorted(STREAMS))

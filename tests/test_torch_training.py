@@ -15,6 +15,7 @@ AdamW, WarmupLR, gradient clipping 1.0, gas 2, 5 steps. Tolerances:
   Function; measured gaps in ROADMAP §3);
 - fp32 engine, JAX kernels on (Pallas interpret): every step's loss
   within 1e-5 relative, final params within 1e-5 absolute (lr 1e-4);
+  the same over 3 steps with ``gelu_exact=True`` (the erf form);
 - fp16 engine from initial_scale_power 32: skipped-step count and
   loss-scale sequence equal, losses within 1e-3 relative;
 - bf16 engine with fp32 masters: losses within 1e-2 relative;
@@ -198,6 +199,31 @@ def test_fp32_train_batch_matches_jax_engine(fp32_runs):
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
                                    atol=1e-5)
     assert int(eng.state.step) == STEPS and eng.global_steps == STEPS
+
+
+def test_fp32_train_batch_gelu_exact_matches_jax_engine(params_np):
+    """``gelu_exact=True`` (the erf form; JAX kernels on, Pallas
+    interpret) for 3 steps: losses within 1e-5 relative, final params
+    within 1e-5."""
+    tcfg, jcfg = (dataclasses.replace(c, gelu_exact=True)
+                  for c in _cfgs("fp32"))
+    batches = _batches()[:3]
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jgpt2.gpt2_loss_fn(jcfg, attention_fn=jdense),
+        model_params=jax.tree_util.tree_map(jnp.asarray, params_np),
+        config=_ds("fp32"), mesh=build_mesh(devices=jax.devices()[:1]))
+    jl = [float(jeng.train_batch(b)) for b in batches]
+    teng, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt2.gpt2_loss_fn(tcfg),
+        model_params=convert.from_jax_params(params_np),
+        config=_ds("fp32"), device="cpu")
+    tl = [float(teng.train_batch(b)) for b in batches]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for t, j in zip(tree_flatten(teng.state.params)[0],
+                    jax.tree_util.tree_leaves(
+                        jax.device_get(jeng.state.params))):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   atol=1e-5)
 
 
 def test_fp16_skips_and_loss_scales_match_jax(params_np):

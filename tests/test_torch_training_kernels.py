@@ -69,8 +69,13 @@ def test_layer_norm_backward_matches_jax(dtype_name, H, gs):
 
 
 @pytest.mark.parametrize("F", [128, 200, 3072])
-@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
-def test_bias_gelu_backward_matches_jax(dtype_name, F):
+@pytest.mark.parametrize(
+    "dtype_name, exact", [("fp32", False), ("bf16", False), ("fp32", True),
+                          ("bf16", True)],
+    ids=["fp32", "bf16", "fp32-exact", "bf16-exact"])
+def test_bias_gelu_backward_matches_jax(dtype_name, exact, F):
+    """Both GELU forms; the erf form's fp32 dz within 2e-6 (XLA's fp32
+    erf and exp against torch's, see test_torch_fused_elementwise.py)."""
     tdt, jdt = DTYPES[dtype_name]
     rng = np.random.default_rng(F)
     y = (rng.standard_normal((6, F)) * 3).astype(np.float32)
@@ -78,11 +83,14 @@ def test_bias_gelu_backward_matches_jax(dtype_name, F):
     g = rng.standard_normal((6, F)).astype(np.float32)
     dz, db = tfe.bias_gelu_backward(torch.from_numpy(y).to(tdt),
                                     torch.from_numpy(b),
-                                    torch.from_numpy(g).to(tdt))
+                                    torch.from_numpy(g).to(tdt), exact)
     jdz, jdb = jfe._fbg_bwd_impl(jnp.asarray(y, jdt), jnp.asarray(b),
-                                 jnp.asarray(g, jdt), False)
+                                 jnp.asarray(g, jdt), exact)
     assert dz.dtype == tdt
-    assert_close(_np(dz), _np(jdz), dtype_name)
+    if exact and dtype_name == "fp32":
+        np.testing.assert_allclose(_np(dz), _np(jdz), atol=2e-6, rtol=0)
+    else:
+        assert_close(_np(dz), _np(jdz), dtype_name)
     np.testing.assert_allclose(_np(db), _np(jdb), rtol=1e-5, atol=1e-5)
 
 
@@ -94,7 +102,7 @@ def _gradcheck(fn, *shapes, seed=0):
 
 
 @pytest.mark.parametrize("op", ["layer_norm", "residual_layer_norm",
-                                "bias_gelu"])
+                                "bias_gelu", "bias_gelu_exact"])
 def test_autograd_functions_pass_gradcheck_fp64(op):
     if op == "layer_norm":
         _gradcheck(lambda x, s, b: tfe.fused_layer_norm(x, s, b),
@@ -103,7 +111,9 @@ def test_autograd_functions_pass_gradcheck_fp64(op):
         _gradcheck(lambda x, d, s, b: tfe.fused_residual_layer_norm(
             x, d, s, b), (3, 8), (3, 8), (8,), (8,))
     else:
-        _gradcheck(lambda y, b: tfe.fused_bias_gelu(y, b), (3, 4, 8), (8,))
+        exact = op == "bias_gelu_exact"
+        _gradcheck(lambda y, b: tfe.fused_bias_gelu(y, b, exact), (3, 4, 8),
+                   (8,))
 
 
 def test_residual_layer_norm_gives_both_inputs_one_cotangent():

@@ -117,6 +117,25 @@ def assert_close(a, b, dtype_name):
     assert not bad.any(), f"{bad.sum()} elements beyond 2 {dtype_name} ulp"
 
 
+def assert_column_sums_close(a, b, magnitudes):
+    """Column sums of fp32 terms taken in two orders (a kernel's per-warp
+    and per-block partials against one reduction): within 1e-5 plus
+    2**-20 of the column's sum of |term| (``magnitudes``), the error of
+    fp32 sums that grows with the number of rows summed."""
+    a, b, m = (np.asarray(t, np.float64) for t in (a, b, magnitudes))
+    bad = np.abs(a - b) > 1e-5 + 2.0 ** -20 * m
+    assert not bad.any(), f"{bad.sum()} column sums beyond tolerance"
+
+
+def ln_sum_magnitudes(s, dy, eps=1e-5):
+    """Per column, the sums of |dy * xhat| and |dy| over the rows (numpy
+    arrays [rows, H]): the magnitudes behind dscale and dbias."""
+    s, dy = np.asarray(s, np.float64), np.asarray(dy, np.float64)
+    c = s - s.mean(-1, keepdims=True)
+    xhat = c / np.sqrt((c * c).mean(-1, keepdims=True) + eps)
+    return np.abs(dy * xhat).sum(0), np.abs(dy).sum(0)
+
+
 # Flag sets of the fused Adam step (K6) that the engine uses:
 # (name, param dtype, cast dtype, kwargs of fused_adam_plain, scalars).
 # scalars = [neg_lr, bc1, bc2, coeff, inv, skip, 0, 0].
