@@ -17,46 +17,55 @@
 //
 // Design. The TPU kernels lane-pad H to 128 and mask the pad columns;
 // here the ragged edge needs no padding.
-// - LN forward: a block owns a row; the row is staged once in shared
-//   memory as fp32 so the two statistics passes (mean, then the centered
-//   variance, exactly as the reference computes them) and the output
-//   pass read it from shared memory instead of device memory. The
-//   residual sum is rounded to the storage dtype BEFORE the statistics
-//   read it, which keeps `s` bit-equal to the unfused `x + delta`.
-// - LN backward: a warp owns a row at a time; its lanes hold the row in
-//   16-byte vectors (8 bf16/fp16 or 4 fp32 a lane a vector, kNv vectors
-//   a lane, lane l holding vectors l, l + 32, ...), so the four row
-//   statistics (mean, centred variance, m1, m2; mean and rstd recomputed
-//   from `s` as the forward computes them, never saved) are a tree over
-//   the lane's values and warp shuffles: no shared memory and no barrier
-//   in the row loop. The grid is persistent and fixed by the row count
-//   alone (at most kLnBwdMaxBlocks blocks of kLnBwdWarps warps; warp w
-//   of block b takes rows b*kLnBwdWarps + w + k*stride), so the
-//   row-to-warp map, and with it every sum, is the same on every launch.
-//   Each warp streams its rows through a ring of kStages rows in shared
-//   memory (cp.async, each lane copying and reading back only its own
-//   vectors), so two rows of `s`, `dy` and `gs` are in flight while one
-//   reduces; the scale and the per-lane dscale/dbias sums live in
-//   registers. Rows wider than H 1024 (16-bit; 512 for fp32) keep the
-//   scale and the sums in shared memory instead and load a row at a
-//   time. At the end a block adds its warps' sums as a tree in fp64 and
-//   writes one partial row; a second kernel of the same call adds the
-//   partial rows in fp64 and block order and rounds once. No atomics:
-//   dscale/dbias are bit-repeatable, and their sum over the rows rounds
-//   about once. A width-1 instance (a lane holds single elements, the
-//   next row prefetched into registers) serves H that is not a multiple
-//   of the vector width and pointers that are not 16-byte aligned.
+// - LayerNorm (both directions): a warp owns a row at a time; its lanes
+//   hold the row in 16-byte vectors (8 bf16/fp16 or 4 fp32 a lane a
+//   vector, kNv vectors a lane, lane l holding vectors l, l + 32, ...),
+//   so the row statistics (the mean, then the centred variance, exactly
+//   as the reference computes them) are a tree over the lane's values
+//   and warp shuffles: no shared memory and no barrier on the row path.
+//   The grid is persistent and fixed by the row count alone (at most
+//   132 times the blocks an SM of the instance; warp w of block b takes
+//   rows b*kWarps + w + k*stride), so the row-to-warp map, and with it
+//   every sum, is the same on every launch. Each warp streams its rows
+//   through a ring of kStages rows in shared memory (cp.async, each lane
+//   copying and reading back only its own vectors), so the next rows
+//   are in flight while one reduces; the scale (and the forward's bias,
+//   the backward's dscale/dbias sums) live in registers. A width-1
+//   instance (a lane holds single elements, the next row prefetched into
+//   registers) serves H that is not a multiple of the vector width and
+//   pointers that are not 16-byte aligned.
+// - LN forward: the residual sum is rounded to the storage dtype BEFORE
+//   the statistics read it, which keeps `s` bit-equal to the unfused
+//   `x + delta`; `s` is stored as its own vectors. Rows wider than H
+//   1024 (16-bit; 512 for fp32 and width 1) read their vectors again
+//   from device memory (the L1) in each of the three passes, with the
+//   scale and bias read there too; with the residual a pass recomputes
+//   `s` from x and delta (the same bits) rather than reading back what
+//   it stored. Any H.
+// - LN backward: mean and rstd are recomputed from `s` as the forward
+//   computes them, never saved; four row sums (mean, variance, m1, m2).
+//   Rows wider than H 1024 (16-bit; 512 for fp32) keep the scale and the
+//   sums in shared memory instead and load a row at a time. At the end
+//   a block adds its warps' sums as a tree in fp64 and writes one
+//   partial row; a second kernel of the same call adds the partial rows
+//   in fp64 and block order and rounds once. No atomics: dscale/dbias
+//   are bit-repeatable, and their sum over the rows rounds about once.
 // - GELU rounds z = y + b to the storage dtype first, then evaluates the
 //   tanh form or the erf form (kExact; `gelu_exact`) and its derivative
 //   in fp32 with tanhf / erff / expf, no fast-math, as the TPU kernels
-//   do. The forward gives each thread one 16-byte column vector and a
-//   run of rows (a 2-D grid: column vectors x row runs), with
-//   kGeluUnroll rows' loads in flight; the bias of its columns is loaded
-//   once into registers, so no element pays a division or a modulo for
-//   its column. A width-1 instance serves ragged F and unaligned
-//   pointers. The backward gives each thread one column and a run of
-//   rows: its loads are coalesced across the warp, and its dbias partial
-//   is a register sum over its rows.
+//   do. Both directions give each thread one 16-byte column vector and a
+//   run of rows (a 2-D grid: column vectors x row runs), with kUnroll
+//   rows' loads in flight; the bias of its columns is loaded once into
+//   registers, so no element pays a division or a modulo for its
+//   column. A width-1 instance serves ragged F and unaligned pointers.
+//   The backward's runs are longer (kGeluBwdRows rows), its next batch
+//   of rows loads while one computes, and its 16-bit values convert in
+//   pairs; a thread keeps the dbias sums of its columns in registers,
+//   kGeluBwdSplit threads of a block walk adjacent runs of one column
+//   vector and the block adds their sums into one partial row, and a
+//   second kernel of the same call sums the partial rows in fp64 and
+//   run order, rounding once. The erf form's derivative multiplies by
+//   1/sqrt(2) and 1/sqrt(2 pi) where the reference divides.
 #include <stdint.h>
 #include <string.h>
 
@@ -68,10 +77,21 @@ using namespace dstt;
 namespace {
 
 // Build settings, each at the value that read fastest on an H100 among
-// the variants that profile_torch_elementwise.py builds: K3b's warps a
-// block, blocks an SM and ring depth (rows a warp stages in shared
-// memory; 1 keeps the next row in registers instead); K4f's rows a
-// thread and rows in flight.
+// the variants that profile_torch_elementwise.py builds: K3f's and K3b's
+// warps a block, blocks an SM and ring depth (rows a warp stages in
+// shared memory; 1 keeps the next row in registers instead); K4f's rows
+// a thread and rows in flight; K4b's rows a thread, threads a column
+// vector and rows in flight (the fastest over its tanh and erf forms
+// together).
+#ifndef DSTT_LN_FWD_WARPS
+#define DSTT_LN_FWD_WARPS 8
+#endif
+#ifndef DSTT_LN_FWD_BLOCKS_PER_SM
+#define DSTT_LN_FWD_BLOCKS_PER_SM 2
+#endif
+#ifndef DSTT_LN_FWD_STAGES
+#define DSTT_LN_FWD_STAGES 3
+#endif
 #ifndef DSTT_LN_BWD_WARPS
 #define DSTT_LN_BWD_WARPS 8
 #endif
@@ -87,9 +107,20 @@ namespace {
 #ifndef DSTT_GELU_UNROLL
 #define DSTT_GELU_UNROLL 4
 #endif
+#ifndef DSTT_GELU_BWD_ROWS
+#define DSTT_GELU_BWD_ROWS 32
+#endif
+#ifndef DSTT_GELU_BWD_SPLIT
+#define DSTT_GELU_BWD_SPLIT 2
+#endif
+#ifndef DSTT_GELU_BWD_UNROLL
+#define DSTT_GELU_BWD_UNROLL 4
+#endif
 
-constexpr int kLnThreads = 256;
 constexpr int kMaxLnSmem = 48 * 1024;
+constexpr int kLnFwdWarps = DSTT_LN_FWD_WARPS;
+constexpr int kLnFwdThreads = 32 * kLnFwdWarps;
+constexpr int kLnFwdStages = DSTT_LN_FWD_STAGES;
 constexpr int kLnBwdWarps = DSTT_LN_BWD_WARPS;
 constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
 // Blocks an SM that the rows up to H 1024 are built for (the register
@@ -103,15 +134,28 @@ constexpr int kGeluThreads = 128;
 // Rows a K4f thread walks on the training path, and rows in flight.
 constexpr int kGeluRows = DSTT_GELU_ROWS;
 constexpr int kGeluUnroll = DSTT_GELU_UNROLL;
-constexpr int kGeluBwdThreads = 256;
-constexpr int kGeluBwdRowSplits = 128;
+// K4b: rows a thread walks; threads a block that walk one column
+// vector's adjacent runs (the block adds their dbias partials into one
+// partial row of kGeluBwdRows * kGeluBwdSplit rows); rows a batch (one
+// batch loads while the one before it computes).
+constexpr int kGeluBwdRows = DSTT_GELU_BWD_ROWS;
+constexpr int kGeluBwdSplit = DSTT_GELU_BWD_SPLIT;
+constexpr int kGeluBwdUnroll = DSTT_GELU_BWD_UNROLL;
 constexpr float kSqrt2OverPi = 0.7978845608028654f;
 constexpr float kGeluC = 0.044715f;
-// 3 * 0.044715 folded in double, as the reference's Python expression
-// folds it before the fp32 multiply.
-constexpr float kGelu3C = static_cast<float>(3.0 * 0.044715);
+// sqrt(2/pi) * 0.044715 and sqrt(2/pi) * 3 * 0.044715, folded in double:
+// the tanh form's derivative evaluates u and du as one FMA each.
+constexpr float kSqrt2OverPiC =
+    static_cast<float>(0.7978845608028654 * 0.044715);
+constexpr float kSqrt2OverPi3C =
+    static_cast<float>(0.7978845608028654 * 3.0 * 0.044715);
 constexpr float kSqrt2 = 1.4142135623730951f;
-constexpr float kSqrt2Pi = 2.5066282746310002f;
+// 1/sqrt(2) and 1/sqrt(2 pi), rounded once from double: the erf form's
+// derivative multiplies by them where the forward divides by sqrt(2)
+// (an IEEE division is a dozen instructions; the product is within an
+// fp32 ulp of the quotient, far inside the 2-ulp check).
+constexpr float kInvSqrt2 = 0.7071067811865476f;
+constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
 // kEpv elements of T, moved as one 16-byte access (or one element for the
 // width-1 instances).
@@ -144,6 +188,28 @@ __device__ __forceinline__ void store_pack(T* p, const Pack<T, kEpv>& v) {
   }
 }
 
+// kEpv consecutive floats of a parameter vector, as 16-byte loads where
+// `vec16` says the vector's base is 16-byte aligned (p is then too).
+template <int kEpv>
+__device__ __forceinline__ void load_f32(float (&dst)[kEpv], const float* p,
+                                         bool vec16) {
+  if constexpr (kEpv % 4 == 0) {
+    if (vec16) {
+#pragma unroll
+      for (int q = 0; q < kEpv / 4; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(p)[q];
+        dst[4 * q] = f.x;
+        dst[4 * q + 1] = f.y;
+        dst[4 * q + 2] = f.z;
+        dst[4 * q + 3] = f.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kEpv; ++e) dst[e] = p[e];
+}
+
 // _gelu_f32 / _dgelu_f32 of the TPU package, in fp32.
 template <bool kExact>
 __device__ __forceinline__ float gelu_f32(float z) {
@@ -155,16 +221,54 @@ __device__ __forceinline__ float gelu_f32(float z) {
   }
 }
 
+// The derivative, in an FMA-friendly order: within a few fp32 ulps of
+// the reference's expression (the 2-ulp check on the rounded dz and the
+// fp32 1e-5 are three orders wider).
 template <bool kExact>
 __device__ __forceinline__ float dgelu_f32(float z) {
   if constexpr (kExact) {
-    const float phi = expf(-0.5f * z * z) / kSqrt2Pi;
-    return 0.5f * (1.f + erff(z / kSqrt2)) + z * phi;
+    const float phi = expf(-0.5f * z * z) * kInvSqrt2Pi;
+    return fmaf(z, phi, fmaf(0.5f, erff(z * kInvSqrt2), 0.5f));
   } else {
-    const float u = kSqrt2OverPi * (z + kGeluC * z * z * z);
-    const float t = tanhf(u);
-    const float du = kSqrt2OverPi * (1.f + kGelu3C * z * z);
-    return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+    // u = sqrt(2/pi) (z + c z^3), du = sqrt(2/pi) (1 + 3c z^2);
+    // 0.5 (1 + t) + 0.5 z (1 - t^2) du.
+    const float z2 = z * z;
+    const float t = tanhf(z * fmaf(kSqrt2OverPiC, z2, kSqrt2OverPi));
+    const float du = fmaf(kSqrt2OverPi3C, z2, kSqrt2OverPi);
+    return fmaf(0.5f * (z * du), fmaf(-t, t, 1.f), fmaf(0.5f, t, 0.5f));
+  }
+}
+
+// Two fp32 values rounded to the 16-bit type T (to nearest even) as one
+// 32-bit pair, lo in the low half: a single conversion instruction.
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
+  uint32_t w;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    memcpy(&w, &v, 4);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    memcpy(&w, &v, 4);
+  }
+  return w;
+}
+
+// A pair of the 16-bit type T widened to fp32 (for bf16 a shift and a
+// mask).
+template <typename T>
+__device__ __forceinline__ void unpack_pair(uint32_t w, float& lo,
+                                            float& hi) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t l = w << 16, h = w & 0xffff0000u;
+    memcpy(&lo, &l, 4);
+    memcpy(&hi, &h, 4);
+  } else {
+    __half a, b;
+    memcpy(&a, &w, 2);
+    memcpy(&b, reinterpret_cast<const char*>(&w) + 2, 2);
+    lo = __half2float(a);
+    hi = __half2float(b);
   }
 }
 
@@ -178,41 +282,6 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
   for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, o);
     b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-}
-
-template <typename T, bool kResid>
-__global__ void __launch_bounds__(kLnThreads)
-ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
-              const float* __restrict__ scale,
-              const float* __restrict__ bias, T* __restrict__ s_out,
-              T* __restrict__ y_out, int H, float eps) {
-  extern __shared__ float smem[];
-  float* row = smem;      // [H] the (residual-summed) row in fp32
-  float* red = smem + H;  // [32] reduction scratch
-  const long long base = static_cast<long long>(blockIdx.x) * H;
-
-  float sum = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    float v = to_f32(x[base + i]);
-    if (kResid) {
-      const T sv = from_f32<T>(v + to_f32(d[base + i]));
-      s_out[base + i] = sv;
-      v = to_f32(sv);
-    }
-    row[i] = v;
-    sum += v;
-  }
-  const float mean = block_sum(sum, red) / static_cast<float>(H);
-  float sq = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float c = row[i] - mean;
-    sq += c * c;
-  }
-  const float var = block_sum(sq, red) / static_cast<float>(H);
-  const float rstd = 1.f / sqrtf(var + eps);
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    y_out[base + i] = from_f32<T>((row[i] - mean) * rstd * scale[i] + bias[i]);
   }
 }
 
@@ -281,6 +350,251 @@ __device__ __forceinline__ void load_row(Pack<T, kEpv> (&dst)[kNv],
       for (int e = 0; e < kEpv; ++e) dst[j].e[e] = from_f32<T>(0.f);
     }
   }
+}
+
+// Rows a K3f warp loads ahead of the one it normalizes, plus one: none
+// for the wide rows, the ring for 16-byte vectors, else one row in
+// registers.
+template <typename T, int kEpv, bool kWide>
+__host__ __device__ constexpr int ln_fwd_stages() {
+  return kWide ? 0 : (sizeof(T) * kEpv == 16 ? kLnFwdStages : 1);
+}
+
+// Blocks an SM a K3f instance is built for (the register cap of its
+// launch bounds, and 132 times it the grid): the setting's count for the
+// wide rows and for 16-byte vectors where a lane holds at most 24
+// columns (H 768 of 16-bit values, the main path), else one, which
+// leaves the wider rows' values, scale and bias (and the width-1
+// instances' prefetched row) room in registers.
+template <int kNv, int kEpv, bool kWide>
+__host__ __device__ constexpr int ln_fwd_min_blocks() {
+  return kWide || (kEpv > 1 && kNv * kEpv <= 24) ? DSTT_LN_FWD_BLOCKS_PER_SM
+                                                 : 1;
+}
+
+// K3f. kNv vectors of kEpv elements a lane (kNv * kEpv * 32 >= H) hold
+// the row as fp32 in registers, with the scale and bias of the lane's
+// columns loaded once; the 16-byte instances stage x (and delta) through
+// a ring of kStages rows a warp in shared memory with cp.async, kStages
+// - 1 rows ahead (each lane copies and reads back only its own vectors,
+// so the ring needs no barrier), the width-1 instances the next row
+// into registers. kWide rows hold nothing in registers: each of the
+// three passes reads the lane's vectors again from device memory.
+// Warps a block: blockDim.x / 32 (fewer than kLnFwdWarps for few rows).
+// Dynamic shared memory: the ring [warps][kStages][x (, delta)][H] of T.
+template <typename T, bool kResid, int kNv, int kEpv, bool kWide>
+__global__ void __launch_bounds__(kLnFwdThreads,
+                                  ln_fwd_min_blocks<kNv, kEpv, kWide>())
+ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ d,
+              const float* __restrict__ scale,
+              const float* __restrict__ bias, T* __restrict__ s_out,
+              T* __restrict__ y_out, int rows, int H, float eps) {
+  using P = Pack<T, kEpv>;
+  constexpr int kCols = kNv * kEpv;
+  constexpr int kStages = ln_fwd_stages<T, kEpv, kWide>();
+  constexpr bool kRing = kStages >= 2;
+  constexpr int kArr = kResid ? 2 : 1;
+  static_assert(!kRing || sizeof(T) * kEpv == 16, "the ring moves 16 bytes");
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int nvec = H / kEpv;
+  const float fH = static_cast<float>(H);
+  const bool sb16 = ((reinterpret_cast<uintptr_t>(scale) |
+                      reinterpret_cast<uintptr_t>(bias)) & 15u) == 0;
+  const size_t row_bytes = static_cast<size_t>(H) * sizeof(T);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4) +
+                        static_cast<size_t>(warp) * kStages * kArr *
+                            row_bytes;
+  float sc[kWide ? 1 : kCols], bi[kWide ? 1 : kCols];
+  if constexpr (!kWide) {
+#pragma unroll
+    for (int j = 0; j < kNv; ++j) {
+      const int v = j * 32 + lane;
+      float a[kEpv], c[kEpv];
+      if (v < nvec) {
+        load_f32<kEpv>(a, scale + v * kEpv, sb16);
+        load_f32<kEpv>(c, bias + v * kEpv, sb16);
+      }
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) {
+        sc[j * kEpv + e] = v < nvec ? a[e] : 0.f;
+        bi[j * kEpv + e] = v < nvec ? c[e] : 0.f;
+      }
+    }
+  }
+  // The ring: stage t holds one row of x (and delta).
+  auto issue = [&](int row, int t) {
+    if (row < rows) {
+      const long long base = static_cast<long long>(row) * H;
+      unsigned char* st = ring + static_cast<size_t>(t) * kArr * row_bytes;
+#pragma unroll
+      for (int j = 0; j < kNv; ++j) {
+        const int v = j * 32 + lane;
+        if (v < nvec) {
+          tc::cp_async16(st + v * 16, x + base + v * kEpv, true);
+          if constexpr (kResid)
+            tc::cp_async16(st + row_bytes + v * 16, d + base + v * kEpv,
+                           true);
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+  // s = round(x + delta) (or x) of one vector, as fp32 in a[].
+  auto s_of = [&](const P& px, const P& pd, float(&a)[kEpv]) {
+    P ps = px;
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) {
+      if constexpr (kResid)
+        ps.e[e] = from_f32<T>(to_f32(px.e[e]) + to_f32(pd.e[e]));
+      a[e] = to_f32(ps.e[e]);
+    }
+    return ps;
+  };
+
+  const int stride = gridDim.x * warps;
+  int r = blockIdx.x * warps + warp;
+  P cx[kStages == 1 ? kNv : 1], cd[kStages == 1 ? kNv : 1];
+  if constexpr (kRing) {
+#pragma unroll
+    for (int t = 0; t + 1 < kStages; ++t) issue(r + t * stride, t);
+  } else if constexpr (kStages == 1) {
+    if (r < rows) {
+      load_row<T, kNv, kEpv>(cx, x, static_cast<long long>(r) * H, lane,
+                             nvec);
+      if constexpr (kResid)
+        load_row<T, kNv, kEpv>(cd, d, static_cast<long long>(r) * H, lane,
+                               nvec);
+    }
+  }
+  for (int k = 0; r < rows; r += stride, ++k) {
+    const long long base = static_cast<long long>(r) * H;
+    if constexpr (kWide) {
+      // Three passes over the lane's vectors v = lane, lane + 32, ...
+      auto s_at = [&](int v, float(&a)[kEpv]) {
+        const P px = load_pack<T, kEpv>(x + base + v * kEpv);
+        P pd;
+        if constexpr (kResid) pd = load_pack<T, kEpv>(d + base + v * kEpv);
+        return s_of(px, pd, a);
+      };
+      float sum = 0.f;
+      for (int v = lane; v < nvec; v += 32) {
+        float a[kEpv];
+        const P ps = s_at(v, a);
+        if constexpr (kResid) store_pack<T, kEpv>(s_out + base + v * kEpv, ps);
+        sum += tree_sum(a);
+      }
+      const float mean = warp_sum(sum) / fH;
+      float sq = 0.f;
+      for (int v = lane; v < nvec; v += 32) {
+        float a[kEpv];
+        s_at(v, a);
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) {
+          const float c = a[e] - mean;
+          a[e] = c * c;
+        }
+        sq += tree_sum(a);
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(sq) / fH + eps);
+      for (int v = lane; v < nvec; v += 32) {
+        float a[kEpv], vs[kEpv], vb[kEpv];
+        s_at(v, a);
+        load_f32<kEpv>(vs, scale + v * kEpv, sb16);
+        load_f32<kEpv>(vb, bias + v * kEpv, sb16);
+        P o;
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e)
+          o.e[e] = from_f32<T>((a[e] - mean) * rstd * vs[e] + vb[e]);
+        store_pack<T, kEpv>(y_out + base + v * kEpv, o);
+      }
+    } else {
+      const long long nbase = base + static_cast<long long>(stride) * H;
+      const bool more = r + stride < rows;
+      P nx[kStages == 1 ? kNv : 1], nd[kStages == 1 ? kNv : 1];
+      const unsigned char* st = ring;
+      if constexpr (kRing) {
+        // Refill the stage the previous row was read from, then wait for
+        // this row's.
+        issue(r + (kStages - 1) * stride, (k + kStages - 1) % kStages);
+        tc::cp_async_wait<kStages - 1>();
+        st = ring + static_cast<size_t>(k % kStages) * kArr * row_bytes;
+      } else if (more) {
+        load_row<T, kNv, kEpv>(nx, x, nbase, lane, nvec);
+        if constexpr (kResid) load_row<T, kNv, kEpv>(nd, d, nbase, lane, nvec);
+      }
+      // The row as fp32, each vector read from the ring (or the
+      // registers) as it is used; `s` stored as it is formed.
+      float sv[kCols];
+#pragma unroll
+      for (int j = 0; j < kNv; ++j) {
+        const int v = j * 32 + lane;
+        float a[kEpv];
+        P px, pd;
+        if constexpr (kRing) {
+          if (v < nvec) {
+            px = *reinterpret_cast<const P*>(st + v * 16);
+            if constexpr (kResid)
+              pd = *reinterpret_cast<const P*>(st + row_bytes + v * 16);
+          }
+        } else {
+          px = cx[j];
+          pd = cd[j];
+        }
+        const P ps = s_of(px, pd, a);
+#pragma unroll
+        for (int e = 0; e < kEpv; ++e) sv[j * kEpv + e] = a[e];
+        if constexpr (kResid) {
+          if (v < nvec) store_pack<T, kEpv>(s_out + base + v * kEpv, ps);
+        }
+      }
+      const float mean =
+          warp_sum(lane_sum<kNv, kEpv>(lane, nvec,
+                                       [&](int j, float(&a)[kEpv]) {
+#pragma unroll
+                                         for (int e = 0; e < kEpv; ++e)
+                                           a[e] = sv[j * kEpv + e];
+                                       })) /
+          fH;
+      const float var =
+          warp_sum(lane_sum<kNv, kEpv>(lane, nvec,
+                                       [&](int j, float(&a)[kEpv]) {
+#pragma unroll
+                                         for (int e = 0; e < kEpv; ++e) {
+                                           const float c =
+                                               sv[j * kEpv + e] - mean;
+                                           a[e] = c * c;
+                                         }
+                                       })) /
+          fH;
+      const float rstd = 1.f / sqrtf(var + eps);
+#pragma unroll
+      for (int j = 0; j < kNv; ++j) {
+        const int v = j * 32 + lane;
+        if (v < nvec) {
+          P o;
+#pragma unroll
+          for (int e = 0; e < kEpv; ++e) {
+            const int c = j * kEpv + e;
+            o.e[e] = from_f32<T>((sv[c] - mean) * rstd * sc[c] + bi[c]);
+          }
+          store_pack<T, kEpv>(y_out + base + v * kEpv, o);
+        }
+      }
+      if constexpr (kStages == 1) {
+        if (more) {
+#pragma unroll
+          for (int j = 0; j < kNv; ++j) {
+            cx[j] = nx[j];
+            cd[j] = nd[j];
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kRing) tc::cp_async_wait<0>();
 }
 
 // Rows a K3b warp loads ahead of the one it reduces, plus one: none for
@@ -559,35 +873,42 @@ ln_bwd_kernel(const T* __restrict__ s, const float* __restrict__ scale,
   }
 }
 
-// K3b's second pass: out[i] for i = a*H + c (a = 0 dscale, 1 dbias) is
-// the sum over blocks b of part[a][b][c], in fp64 and a fixed order,
-// rounded once to fp32. A block takes 32 consecutive i; its warp w sums
-// the blocks b = w, w + 8, ... in order, and the eight warps' sums add
-// as a tree.
+// The second pass of K3b and K4b: out[i] for i = a*H + c (a < n / H;
+// K3b: a = 0 dscale, 1 dbias) is the sum over blocks b of part[a][b][c],
+// in fp64 and a fixed order, rounded once to fp32. A block takes 32
+// consecutive i; its warp w sums the blocks b = w, w + 8, ... in order,
+// and the eight warps' sums add as a tree. `red`: [kColsumWarps][32]
+// doubles of shared memory.
 constexpr int kColsumWarps = 8;
-__global__ void __launch_bounds__(32 * kColsumWarps)
-ln_bwd_colsum_kernel(const double* __restrict__ part, float* __restrict__ out,
-                     int blocks, int H) {
-  extern __shared__ double colsum_red[];  // [kColsumWarps][32]
+template <typename F>
+__device__ __forceinline__ void colsum(const F* __restrict__ part,
+                                       float* __restrict__ out, int blocks,
+                                       int H, int n, double* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + lane;
   double acc = 0.0;
-  if (i < 2 * H) {
+  if (i < n) {
     const int a = i / H;
-    const double* p =
-        part + static_cast<long long>(a) * blocks * H + (i - a * H);
+    const F* p = part + static_cast<long long>(a) * blocks * H + (i - a * H);
     for (int b = warp; b < blocks; b += kColsumWarps)
-      acc += p[static_cast<long long>(b) * H];
+      acc += static_cast<double>(p[static_cast<long long>(b) * H]);
   }
-  colsum_red[warp * 32 + lane] = acc;
+  red[warp * 32 + lane] = acc;
   __syncthreads();
-  if (warp == 0 && i < 2 * H) {
+  if (warp == 0 && i < n) {
     double v[kColsumWarps];
 #pragma unroll
-    for (int w = 0; w < kColsumWarps; ++w) v[w] = colsum_red[w * 32 + lane];
+    for (int w = 0; w < kColsumWarps; ++w) v[w] = red[w * 32 + lane];
     out[i] = static_cast<float>(tree_sum(v));
   }
+}
+
+__global__ void __launch_bounds__(32 * kColsumWarps)
+ln_bwd_colsum_kernel(const double* __restrict__ part, float* __restrict__ out,
+                     int blocks, int H) {
+  extern __shared__ double colsum_red[];
+  colsum(part, out, blocks, H, 2 * H, colsum_red);
 }
 
 // K4f. Thread x of block (bx, by) owns column vector bx*blockDim.x + x
@@ -633,45 +954,212 @@ bias_gelu_kernel(const T* __restrict__ y, const float* __restrict__ b,
   }
 }
 
-template <typename T, bool kExact>
-__global__ void __launch_bounds__(kGeluBwdThreads)
+// K4b. Thread (x, y) of block (bx, by), a block of blockDim.x x
+// kGeluBwdSplit threads, owns column vector bx*blockDim.x + x (kEpv
+// columns) of rows [r0 + y*rows_per_thread, +rows_per_thread), r0 =
+// by*rows_per_thread*kGeluBwdSplit: dz for each, and the sum of its dz
+// (unrounded, fp32, row order). The block adds its kGeluBwdSplit sums in
+// y order into the partial dbias row part[by][column]. Dynamic shared
+// memory: [kGeluBwdSplit][blockDim.x][kEpv] floats.
+// One block an SM in the launch bounds: without it ptxas caps the main
+// instances at 128 registers (two blocks an SM) and spills, which read
+// slower on an H100 than one block at up to 255 (0.0625 against 0.0598
+// ms, the tanh form at 8192 x 3072).
+template <typename T, int kEpv, bool kExact>
+__global__ void __launch_bounds__(kGeluThreads * kGeluBwdSplit, 1)
 bias_gelu_bwd_kernel(const T* __restrict__ y, const float* __restrict__ b,
                      const T* __restrict__ g, T* __restrict__ dz_out,
-                     float* __restrict__ db_part, int rows, int F,
-                     int rows_per_split) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= F) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(rows, r0 + rows_per_split);
-  const float bc = b[c];
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const long long i = static_cast<long long>(r) * F + c;
-    const float dz = to_f32(g[i]) * dgelu_f32<kExact>(gelu_input(y[i], bc));
-    dz_out[i] = from_f32<T>(dz);
-    acc += dz;
+                     float* __restrict__ part, int rows, int F,
+                     int rows_per_thread) {
+  using P = Pack<T, kEpv>;
+  constexpr int kU = kGeluBwdUnroll;
+  extern __shared__ float4 smem4[];
+  const int nvec = F / kEpv;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = v < nvec;
+  const int r0 =
+      (blockIdx.y * kGeluBwdSplit + threadIdx.y) * rows_per_thread;
+  const int r1 = live ? min(rows, r0 + rows_per_thread) : r0;
+  float bc[kEpv], acc[kEpv];
+#pragma unroll
+  for (int e = 0; e < kEpv; ++e) {
+    bc[e] = live ? b[v * kEpv + e] : 0.f;
+    acc[e] = 0.f;
   }
-  db_part[static_cast<long long>(blockIdx.y) * F + c] = acc;
+  const long long pitch = F;
+  const T* yp = y + v * kEpv;
+  const T* gp = g + v * kEpv;
+  T* dp = dz_out + v * kEpv;
+  // dz of one row's vector; the 16-bit types convert in pairs (y and g
+  // widened, z = round(y + b), the rounded dz), each pair one register.
+  auto row = [&](const P& py, const P& pg, long long off) {
+    P o;
+    if constexpr (sizeof(T) == 2 && kEpv % 2 == 0) {
+      uint32_t wy[kEpv / 2], wg[kEpv / 2], wo[kEpv / 2];
+      memcpy(wy, &py, sizeof(P));
+      memcpy(wg, &pg, sizeof(P));
+#pragma unroll
+      for (int q = 0; q < kEpv / 2; ++q) {
+        float y0, y1, z0, z1, g0, g1;
+        unpack_pair<T>(wy[q], y0, y1);
+        unpack_pair<T>(pack_pair<T>(y0 + bc[2 * q], y1 + bc[2 * q + 1]), z0,
+                       z1);
+        unpack_pair<T>(wg[q], g0, g1);
+        const float d0 = g0 * dgelu_f32<kExact>(z0);
+        const float d1 = g1 * dgelu_f32<kExact>(z1);
+        wo[q] = pack_pair<T>(d0, d1);
+        acc[2 * q] += d0;
+        acc[2 * q + 1] += d1;
+      }
+      memcpy(&o, wo, sizeof(P));
+    } else {
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) {
+        const float dz =
+            to_f32(pg.e[e]) * dgelu_f32<kExact>(gelu_input(py.e[e], bc[e]));
+        o.e[e] = from_f32<T>(dz);
+        acc[e] += dz;
+      }
+    }
+    store_pack<T, kEpv>(dp + off, o);
+  };
+  // Batches of kU rows: the next batch loads while this one computes.
+  const int batches = (r1 - r0) / kU;
+  P cy[kU], cg[kU];
+  auto load = [&](P(&dy)[kU], P(&dg)[kU], int rb) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      dy[u] = load_pack<T, kEpv>(yp + (rb + u) * pitch);
+      dg[u] = load_pack<T, kEpv>(gp + (rb + u) * pitch);
+    }
+  };
+  if (batches > 0) load(cy, cg, r0);
+  for (int k = 0; k < batches; ++k) {
+    const int rb = r0 + k * kU;
+    P ny[kU], ng[kU];
+    if (k + 1 < batches) load(ny, ng, rb + kU);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) row(cy[u], cg[u], (rb + u) * pitch);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      cy[u] = ny[u];
+      cg[u] = ng[u];
+    }
+  }
+  for (int r = r0 + batches * kU; r < r1; ++r)
+    row(load_pack<T, kEpv>(yp + r * pitch), load_pack<T, kEpv>(gp + r * pitch),
+        r * pitch);
+  if constexpr (kGeluBwdSplit > 1) {
+    float* red = reinterpret_cast<float*>(smem4);
+    float* mine = red + (threadIdx.y * blockDim.x + threadIdx.x) * kEpv;
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) mine[e] = acc[e];
+    __syncthreads();
+    if (threadIdx.y != 0) return;
+#pragma unroll
+    for (int e = 0; e < kEpv; ++e) acc[e] = 0.f;
+    for (int s = 0; s < kGeluBwdSplit; ++s) {
+      const float* theirs = red + (s * blockDim.x + threadIdx.x) * kEpv;
+#pragma unroll
+      for (int e = 0; e < kEpv; ++e) acc[e] += theirs[e];
+    }
+  }
+  if (!live) return;
+  float* pp = part + static_cast<long long>(blockIdx.y) * F + v * kEpv;
+#pragma unroll
+  for (int e = 0; e < kEpv; ++e) pp[e] = acc[e];
+}
+
+__global__ void __launch_bounds__(32 * kColsumWarps)
+bias_gelu_bwd_colsum_kernel(const float* __restrict__ part,
+                            float* __restrict__ out, int blocks, int F) {
+  extern __shared__ double colsum_red[];
+  colsum(part, out, blocks, F, F, colsum_red);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename T>
-void launch_ln(const void* x, const void* d, const float* scale,
-               const float* bias, void* s, void* y, int rows, int H,
-               float eps, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(H + 32) * sizeof(float);
-  if (d != nullptr) {
-    ln_fwd_kernel<T, true><<<rows, kLnThreads, smem, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(d), scale, bias,
-        static_cast<T*>(s), static_cast<T*>(y), H, eps);
-  } else {
-    ln_fwd_kernel<T, false><<<rows, kLnThreads, smem, st>>>(
-        static_cast<const T*>(x), nullptr, scale, bias, nullptr,
-        static_cast<T*>(y), H, eps);
+// Arguments of one K3f launch.
+struct LnFwdArgs {
+  const void *x, *d;
+  const float *scale, *bias;
+  void *s, *y;
+  int rows, H;
+  float eps;
+  cudaStream_t st;
+};
+
+template <typename T, bool kResid, int kNv, int kEpv, bool kWide>
+cudaError_t launch_ln_inst(const LnFwdArgs& a) {
+  constexpr int kStages = ln_fwd_stages<T, kEpv, kWide>();
+  constexpr int kBlocksPerSm = ln_fwd_min_blocks<kNv, kEpv, kWide>();
+  // A warp a row over at most kBlocksPerSm blocks for each of an H100's
+  // 132 SMs (fixed here, never queried): kLnFwdWarps warps a block, or
+  // fewer where the rows are too few to give every block its warps (a
+  // decode step's 8 rows run as 8 blocks of one warp).
+  const int cap = 132 * kBlocksPerSm;
+  const int need = (a.rows + cap - 1) / cap;
+  const int warps = need < kLnFwdWarps ? need : kLnFwdWarps;
+  const int want = (a.rows + warps - 1) / warps;
+  const int blocks = want < cap ? want : cap;
+  const size_t smem = kStages >= 2 ? static_cast<size_t>(warps) * kStages *
+                                         (kResid ? 2 : 1) *
+                                         static_cast<size_t>(a.H) *
+                                         sizeof(T)
+                                   : 0;
+  auto kern = ln_fwd_kernel<T, kResid, kNv, kEpv, kWide>;
+  // The largest dynamic shared memory this instance was opened for.
+  static size_t opened = kMaxLnSmem;
+  if (smem > opened) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    opened = smem;
   }
+  kern<<<blocks, 32 * warps, smem, a.st>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.d), a.scale,
+      a.bias, static_cast<T*>(a.s), static_cast<T*>(a.y), a.rows, a.H,
+      a.eps);
+  return cudaGetLastError();
+}
+
+// The instance for H: 16-byte vectors where H is a multiple of the
+// vector width and every row pointer is 16-byte aligned, else width 1;
+// the fewest vectors a lane that cover the row. Rows past 32 bytes a
+// lane of fp32 (H 512; the width-1 instance 512 too) or 64 of 16-bit
+// values (H 1024) are wide: three passes over device memory.
+template <typename T, bool kResid>
+cudaError_t launch_ln(const LnFwdArgs& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = a.H % kVec == 0 && aligned16(a.x) && aligned16(a.y) &&
+                   (!kResid || (aligned16(a.d) && aligned16(a.s)));
+  if (vec) {
+    const int nv = (a.H / kVec + 31) / 32;
+    if constexpr (kVec == 8) {
+      if (nv <= 1) return launch_ln_inst<T, kResid, 1, 8, false>(a);
+      if (nv <= 2) return launch_ln_inst<T, kResid, 2, 8, false>(a);
+      if (nv <= 3) return launch_ln_inst<T, kResid, 3, 8, false>(a);
+      if (nv <= 4) return launch_ln_inst<T, kResid, 4, 8, false>(a);
+      return launch_ln_inst<T, kResid, 1, 8, true>(a);
+    } else {
+      if (nv <= 1) return launch_ln_inst<T, kResid, 1, 4, false>(a);
+      if (nv <= 2) return launch_ln_inst<T, kResid, 2, 4, false>(a);
+      if (nv <= 4) return launch_ln_inst<T, kResid, 4, 4, false>(a);
+      return launch_ln_inst<T, kResid, 1, 4, true>(a);
+    }
+  }
+  const int nv = (a.H + 31) / 32;
+  if (nv <= 8) return launch_ln_inst<T, kResid, 8, 1, false>(a);
+  if (nv <= 16) return launch_ln_inst<T, kResid, 16, 1, false>(a);
+  return launch_ln_inst<T, kResid, 1, 1, true>(a);
+}
+
+template <typename T>
+cudaError_t launch_ln(const LnFwdArgs& a) {
+  return a.d != nullptr ? launch_ln<T, true>(a) : launch_ln<T, false>(a);
 }
 
 // Arguments of one K3b launch.
@@ -791,25 +1279,56 @@ void launch_gelu(const void* y, const float* b, void* out, int rows, int F,
   }
 }
 
+// Rows a K4b thread walks for `rows` rows: kGeluBwdRows, or more where
+// grid.y would pass its 65535.
+int gelu_bwd_rows_per_thread(int rows) {
+  constexpr int kMaxBlockRows = 65535 * kGeluBwdSplit;
+  const int per = (rows + kMaxBlockRows - 1) / kMaxBlockRows;
+  return per > kGeluBwdRows ? per : kGeluBwdRows;
+}
+
+// Arguments of one K4b launch.
+struct GeluBwdArgs {
+  const void *y, *g;
+  const float* b;
+  void* dz;
+  float *part, *dbias;
+  int rows, F;
+  cudaStream_t st;
+};
+
+template <typename T, int kEpv, bool kExact>
+void launch_gelu_bwd_inst(const GeluBwdArgs& a) {
+  const int nvec = a.F / kEpv;
+  const int per = gelu_bwd_rows_per_thread(a.rows);
+  const int tx = nvec < kGeluThreads ? (nvec + 31) / 32 * 32 : kGeluThreads;
+  const dim3 threads(tx, kGeluBwdSplit);
+  const dim3 grid((nvec + tx - 1) / tx,
+                  (a.rows + per * kGeluBwdSplit - 1) / (per * kGeluBwdSplit));
+  const size_t smem =
+      kGeluBwdSplit > 1 ? sizeof(float) * kGeluBwdSplit * tx * kEpv : 0;
+  bias_gelu_bwd_kernel<T, kEpv, kExact><<<grid, threads, smem, a.st>>>(
+      static_cast<const T*>(a.y), a.b, static_cast<const T*>(a.g),
+      static_cast<T*>(a.dz), a.part, a.rows, a.F, per);
+}
+
 template <typename T, bool kExact>
-void launch_gelu_bwd(const void* y, const float* b, const void* g, void* dz,
-                     float* db_part, int rows, int F, int splits,
-                     cudaStream_t st) {
-  const int per = (rows + splits - 1) / splits;
-  dim3 grid((F + kGeluBwdThreads - 1) / kGeluBwdThreads, splits);
-  bias_gelu_bwd_kernel<T, kExact><<<grid, kGeluBwdThreads, 0, st>>>(
-      static_cast<const T*>(y), b, static_cast<const T*>(g),
-      static_cast<T*>(dz), db_part, rows, F, per);
+void launch_gelu_bwd(const GeluBwdArgs& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (a.F % kVec == 0 && aligned16(a.y) && aligned16(a.g) &&
+      aligned16(a.dz)) {
+    launch_gelu_bwd_inst<T, kVec, kExact>(a);
+  } else {
+    launch_gelu_bwd_inst<T, 1, kExact>(a);
+  }
 }
 
 template <typename T>
-void launch_gelu_bwd(const void* y, const float* b, const void* g, void* dz,
-                     float* db_part, int rows, int F, int splits, int exact,
-                     cudaStream_t st) {
+void launch_gelu_bwd(const GeluBwdArgs& a, int exact) {
   if (exact) {
-    launch_gelu_bwd<T, true>(y, b, g, dz, db_part, rows, F, splits, st);
+    launch_gelu_bwd<T, true>(a);
   } else {
-    launch_gelu_bwd<T, false>(y, b, g, dz, db_part, rows, F, splits, st);
+    launch_gelu_bwd<T, false>(a);
   }
 }
 
@@ -822,22 +1341,15 @@ extern "C" int dstt_layer_norm(const void* x, const void* d,
                                void* s, void* y, int rows, int H, float eps,
                                int dtype, void* stream) {
   if (rows <= 0) return cudaSuccess;
-  if (H <= 0 || static_cast<size_t>(H + 32) * sizeof(float) > kMaxLnSmem)
-    return cudaErrorInvalidValue;
+  if (H <= 0) return cudaErrorInvalidValue;
   if ((d == nullptr) != (s == nullptr)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  if (dtype == kFloat32) {
-    launch_ln<float>(x, d, sc, bi, s, y, rows, H, eps, st);
-  } else if (dtype == kBFloat16) {
-    launch_ln<__nv_bfloat16>(x, d, sc, bi, s, y, rows, H, eps, st);
-  } else if (dtype == kFloat16) {
-    launch_ln<__half>(x, d, sc, bi, s, y, rows, H, eps, st);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const LnFwdArgs a{x, d, static_cast<const float*>(scale),
+                    static_cast<const float*>(bias), s, y, rows, H, eps,
+                    static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return launch_ln<float>(a);
+  if (dtype == kBFloat16) return launch_ln<__nv_bfloat16>(a);
+  if (dtype == kFloat16) return launch_ln<__half>(a);
+  return cudaErrorInvalidValue;
 }
 
 // Number of blocks (= partial dscale/dbias rows) that
@@ -890,34 +1402,40 @@ extern "C" int dstt_bias_gelu(const void* y, const void* b, void* out,
   return cudaGetLastError();
 }
 
-// Number of row splits (= rows of the dbias partials) that
+// Number of row runs (= rows of the dbias partials) that
 // dstt_bias_gelu_bwd launches for `rows` rows.
 extern "C" int dstt_bias_gelu_bwd_splits(int rows) {
-  return rows < kGeluBwdRowSplits ? rows : kGeluBwdRowSplits;
+  if (rows <= 0) return 0;
+  const int per = gelu_bwd_rows_per_thread(rows) * kGeluBwdSplit;
+  return (rows + per - 1) / per;
 }
 
-// y, g, dz: [rows, F] contiguous in `dtype`; b: [F] fp32; db_part:
-// [dstt_bias_gelu_bwd_splits(rows), F] fp32, every element written;
-// exact: 1 for the erf form's derivative, 0 for the tanh form's.
+// y, g, dz: [rows, F] contiguous in `dtype`; b: [F] fp32; part:
+// [dstt_bias_gelu_bwd_splits(rows), F] fp32 scratch (the runs' partial
+// dbias rows); dbias: [F] fp32 output; exact: 1 for the erf form's
+// derivative, 0 for the tanh form's. Two launches: the rows, then the
+// partials' sum (zeros for no rows).
 extern "C" int dstt_bias_gelu_bwd(const void* y, const void* b,
-                                  const void* g, void* dz, void* db_part,
-                                  int rows, int F, int exact, int dtype,
-                                  void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (F <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int splits = dstt_bias_gelu_bwd_splits(rows);
-  const float* bf = static_cast<const float*>(b);
-  float* dbp = static_cast<float*>(db_part);
-  if (dtype == kFloat32) {
-    launch_gelu_bwd<float>(y, bf, g, dz, dbp, rows, F, splits, exact, st);
-  } else if (dtype == kBFloat16) {
-    launch_gelu_bwd<__nv_bfloat16>(y, bf, g, dz, dbp, rows, F, splits,
-                                   exact, st);
-  } else if (dtype == kFloat16) {
-    launch_gelu_bwd<__half>(y, bf, g, dz, dbp, rows, F, splits, exact, st);
-  } else {
+                                  const void* g, void* dz, void* part,
+                                  void* dbias, int rows, int F, int exact,
+                                  int dtype, void* stream) {
+  if (rows < 0 || F <= 0) return cudaErrorInvalidValue;
+  if (dtype != kFloat32 && dtype != kBFloat16 && dtype != kFloat16)
     return cudaErrorInvalidValue;
+  const GeluBwdArgs a{y, g, static_cast<const float*>(b), dz,
+                      static_cast<float*>(part), static_cast<float*>(dbias),
+                      rows, F, static_cast<cudaStream_t>(stream)};
+  if (rows > 0) {
+    if (dtype == kFloat32) {
+      launch_gelu_bwd<float>(a, exact);
+    } else if (dtype == kBFloat16) {
+      launch_gelu_bwd<__nv_bfloat16>(a, exact);
+    } else {
+      launch_gelu_bwd<__half>(a, exact);
+    }
   }
+  bias_gelu_bwd_colsum_kernel<<<(F + 31) / 32, 32 * kColsumWarps,
+                                kColsumWarps * 32 * sizeof(double), a.st>>>(
+      a.part, a.dbias, dstt_bias_gelu_bwd_splits(rows), F);
   return cudaGetLastError();
 }

@@ -273,8 +273,9 @@ def bias_gelu_backward(y: torch.Tensor, bias: torch.Tensor,
                        g: torch.Tensor, exact: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4b: ``(dz, dbias)`` with ``dz = g * gelu'(round(y + b))`` (the
-    erf form's derivative where ``exact``); dbias summed from the
-    kernel's per-row-split partials with one ``torch.sum``."""
+    erf form's derivative where ``exact``); dbias, which the kernel's
+    call sums from its per-row-run partials in a second launch (run
+    order: bit-repeatable)."""
     if y.device.type == "cpu":
         return bias_gelu_backward_plain(y, bias, g, exact)
     _check_cuda("bias_gelu_backward", y, g)
@@ -288,13 +289,15 @@ def bias_gelu_backward(y: torch.Tensor, bias: torch.Tensor,
     dz = torch.empty_like(y)
     part = torch.empty((max(splits, 1), F), dtype=torch.float32,
                        device=y.device)
+    dbias = torch.empty(F, dtype=torch.float32, device=y.device)
     rc = lib.dstt_bias_gelu_bwd(y.data_ptr(), b.data_ptr(), g.data_ptr(),
-                                dz.data_ptr(), part.data_ptr(), rows, F,
-                                int(exact), _DTYPE_CODES[y.dtype],
+                                dz.data_ptr(), part.data_ptr(),
+                                dbias.data_ptr(), rows, F, int(exact),
+                                _DTYPE_CODES[y.dtype],
                                 op_builder.stream_ptr(y.device))
     op_builder.check(rc, "bias_gelu_backward")
     bias_gelu_backward.launches += 1
-    return dz, torch.sum(part[:splits], dim=0).to(bias.dtype)
+    return dz, dbias.to(bias.dtype)
 
 
 bias_gelu_backward.launches = 0

@@ -43,7 +43,8 @@ _SIGNATURES = {
                              _P], _I),
     "dstt_bias_gelu": ([_P, _P, _P, _L, _I, _I, _I, _P], _I),
     "dstt_bias_gelu_bwd_splits": ([_I], _I),
-    "dstt_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "dstt_bias_gelu_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                           _I),
     "dstt_sqnorm_blocks": ([_L], _I),
     "dstt_sqnorm": ([_P, _L, _P, _P], _I),
     "dstt_fused_adam": ([_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,

@@ -19,19 +19,22 @@ a summary line. Needs a CUDA device.
 
     python3 profile_torch_train.py --parts elementwise [--label NAME]
 
-reads instead the LayerNorm and bias+GELU kernels (K3f, K3b, K4f, K4b)
-at the training shapes (8192 rows of 768 or 3072, bf16) three ways each
-(CUDA events around a loop of wrapper calls, graph replay, and one call
-after a 64 MB write that leaves the L2 cold), beside
-``F.layer_norm`` and ``native_layer_norm_backward`` read the same ways,
-then one flash turn of the training step (step p50, device busy, and the
-in-step device time of each port kernel a launch). It uses only what
-every checkout since the kernels' first port has, so a copy of this file
+reads instead the LayerNorm and bias+GELU kernels (K3f, K3b, K4f, K4b;
+K4f and K4b in both forms) at the training shapes (8192 rows of 768 or
+3072, bf16), and K3f at a decode step's 8 rows, three ways each (CUDA
+events around a loop of wrapper calls, graph replay, and one call after
+a 64 MB write that leaves the L2 cold), beside ``F.layer_norm``,
+``native_layer_norm_backward`` and ``aten.gelu_backward`` (dz alone)
+read the same ways, then one flash turn of the training step and one of
+its ``gelu_exact`` variant (step p50, device busy, and the in-step
+device time of each port kernel a launch). It uses only what
+every checkout since the erf form's port has, so a copy of this file
 run from the root of an earlier checkout (``git archive`` into the
 git-ignored ``runs/``) reads that checkout's kernels on the same card:
 run parent, change, change, parent in one call.
 """
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -81,8 +84,9 @@ def run_turn(cfg, attention, batches, prof_batches):
 
 
 def elementwise_kernels():
-    """K3f, K3b, K4f and K4b at the training shapes, and the library
-    calls beside them: {name: {kernel_ms, device_ms, cold_ms}}."""
+    """K3f, K3b, K4f and K4b at the training shapes (and K3f at 8 rows),
+    and the library calls beside them: {name: {kernel_ms, device_ms,
+    cold_ms}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     H, Fw, R, dt = 768, 3072, cs.TRAIN_ROWS, torch.bfloat16
@@ -96,14 +100,28 @@ def elementwise_kernels():
     y, b, g = (3 * rnd(R, Fw)).to(dt), rnd(Fw), rnd(R, Fw).to(dt)
     mean, rstd = cs._native_ln_bwd_inputs(x, sc, bi)
     sc_t, bi_t = sc.to(dt), bi.to(dt)
+    x8, d8 = x[:8].clone(), d[:8].clone()
+    z = (y.float() + b).to(dt)
     fns = {
         "K3f": lambda: fe.fused_layer_norm(x, sc, bi),
         "K3f_residual": lambda: fe.fused_residual_layer_norm(x, d, sc, bi),
+        "K3f_8rows": lambda: fe.fused_layer_norm(x8, sc, bi),
+        "K3f_8rows_residual":
+            lambda: fe.fused_residual_layer_norm(x8, d8, sc, bi),
         "K3b": lambda: fe.layer_norm_backward(x, sc, dy, None),
         "K3b_residual": lambda: fe.layer_norm_backward(x, sc, dy, gs),
         "K4f": lambda: fe.fused_bias_gelu(y, b),
+        "K4f_exact": lambda: fe.fused_bias_gelu(y, b, True),
         "K4b": lambda: fe.bias_gelu_backward(y, b, g),
+        "K4b_exact": lambda: fe.bias_gelu_backward(y, b, g, True),
         "F.layer_norm": lambda: F.layer_norm(x, (H,), sc_t, bi_t),
+        "F.layer_norm_8rows": lambda: F.layer_norm(x8, (H,), sc_t, bi_t),
+        "x + d, F.layer_norm":
+            lambda: F.layer_norm(x + d, (H,), sc_t, bi_t),
+        "aten.gelu_backward_tanh": lambda: torch.ops.aten.gelu_backward(
+            g, z, approximate="tanh"),
+        "aten.gelu_backward_erf": lambda: torch.ops.aten.gelu_backward(
+            g, z, approximate="none"),
         "native_layer_norm_backward":
             lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [H], mean, rstd, sc_t, bi_t, [True, True, True]),
@@ -120,6 +138,9 @@ def elementwise(smi, label):
         "kernels": elementwise_kernels()}
     rec["flash_step"] = run_turn(cfg, "flash", batches[:STEPS],
                                  batches[STEPS:])
+    rec["gelu_exact_step"] = run_turn(
+        dataclasses.replace(cfg, gelu_exact=True), "flash",
+        batches[:STEPS], batches[STEPS:])
     cs.emit({"elementwise": rec})
 
 

@@ -7,7 +7,8 @@ it, apart from the JAX tests' conftest:
 
 Tolerances: LayerNorm/GELU forward and backward fp32 1e-5, bf16/fp16 2
 ulp floored at 1e-5 (tests/torch_cases.py), dscale/dbias 1e-5, both GELU
-forms, and K3b, K4f and K4b bit-equal across two launches (where the
+forms, the residual sum bit-equal to ``x + d``, and K3f, K3b, K4f and
+K4b bit-equal across two launches (where the
 sums run over thousands of rows, dscale/dbias within 1e-5 plus 2**-20
 of the column's sum of magnitudes: fp32 sums in two orders); the grad
 sum of squares relative 1e-5 (two fp32 summation orders); the fused
@@ -70,23 +71,38 @@ def _np(t):
     return t.float().cpu().numpy()
 
 
-@pytest.mark.parametrize("H", [128, 768, 1600])
-@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("H", [128, 197, 768, 1600, 4096, 12256])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
 def test_layer_norm_kernels_match_plain(dev, H, dtype_name):
+    """K3f without and with the residual at 33 rows: the 16-byte
+    instances (H 128, 768), the width-1 one (H 197), the wide rows (H
+    1600 up to 12256; fp32 from H 768): within the plain version's
+    tolerances, ``s`` bit-equal to ``x + d``, each bit-equal across two
+    launches, one launch counted a call."""
     dt = DTYPES[dtype_name]
     g = torch.Generator(device=dev).manual_seed(H)
     x = (2 * torch.randn(33, H, device=dev, generator=g) + 0.5).to(dt)
     d = torch.randn(33, H, device=dev, generator=g).to(dt)
     sc = 1 + 0.1 * torch.randn(H, device=dev, generator=g)
     bi = 0.1 * torch.randn(H, device=dev, generator=g)
+    before = (fe.fused_layer_norm.launches,
+              fe.fused_residual_layer_norm.launches)
     y = fe.fused_layer_norm(x, sc, bi)
     s, yr = fe.fused_residual_layer_norm(x, d, sc, bi)
+    y2 = fe.fused_layer_norm(x, sc, bi)
+    s2, yr2 = fe.fused_residual_layer_norm(x, d, sc, bi)
     s_ref, yr_ref = fe.layer_norm_plain(x, d, sc, bi)
     torch.cuda.synchronize()
+    assert (fe.fused_layer_norm.launches,
+            fe.fused_residual_layer_norm.launches) == \
+        (before[0] + 2, before[1] + 2)
     assert torch.equal(s, s_ref)                  # residual sum bit-equal
+    assert torch.equal(s, x + d)
     assert_close(_np(y), _np(fe.layer_norm_plain(x, None, sc, bi)[1]),
                  dtype_name)
     assert_close(_np(yr), _np(yr_ref), dtype_name)
+    assert torch.equal(y, y2) and torch.equal(s, s2) and \
+        torch.equal(yr, yr2)
 
 
 @pytest.mark.parametrize("F", [512, 3072])
@@ -301,21 +317,28 @@ def test_layer_norm_backward_kernel_matches_plain(dev, H, dtype_name, gs):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("F", [200, 3072])
+@pytest.mark.parametrize("F", [197, 200, 512, 3072])
 @pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
 def test_bias_gelu_backward_kernel_matches_plain(dev, F, dtype_name):
+    """K4b in the tanh and the erf form at 300 rows (five runs of rows,
+    the last one short): the 16-byte instance, and the width-1 one for F
+    197; dz within the plain version's tolerances, dbias within 1e-5,
+    both bit-equal across two launches, one launch counted a call."""
     dt = DTYPES[dtype_name]
     g = torch.Generator(device=dev).manual_seed(F)
     y = (3 * torch.randn(300, F, device=dev, generator=g)).to(dt)
     b = torch.randn(F, device=dev, generator=g)
     gr = torch.randn(300, F, device=dev, generator=g).to(dt)
-    before = fe.bias_gelu_backward.launches
-    dz, db = fe.bias_gelu_backward(y, b, gr)
-    torch.cuda.synchronize()
-    assert fe.bias_gelu_backward.launches == before + 1
-    rdz, rdb = fe.bias_gelu_backward_plain(y, b, gr)
-    assert_close(_np(dz), _np(rdz), dtype_name)
-    np.testing.assert_allclose(_np(db), _np(rdb), rtol=1e-5, atol=1e-5)
+    for exact in (False, True):
+        before = fe.bias_gelu_backward.launches
+        dz, db = fe.bias_gelu_backward(y, b, gr, exact)
+        dz2, db2 = fe.bias_gelu_backward(y, b, gr, exact)
+        torch.cuda.synchronize()
+        assert fe.bias_gelu_backward.launches == before + 2
+        rdz, rdb = fe.bias_gelu_backward_plain(y, b, gr, exact)
+        assert_close(_np(dz), _np(rdz), dtype_name)
+        np.testing.assert_allclose(_np(db), _np(rdb), rtol=1e-5, atol=1e-5)
+        assert torch.equal(dz, dz2) and torch.equal(db, db2)
 
 
 def _shifted(t, shift):
@@ -362,15 +385,51 @@ def test_layer_norm_backward_kernel_edges_repeat_bit_equal(
 
 
 @pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("resid", [False, True])
+@pytest.mark.parametrize("rows", [1, 8, 33, 2113])
+@pytest.mark.parametrize("H", [72, 128, 197, 768, 1024, 1600, 4096, 12256])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
+def test_layer_norm_kernel_edges_repeat_bit_equal(dev, dtype_name, H, rows,
+                                                  resid, shift):
+    """K3f at every instance (16-byte vectors up to H 1024, 512 in fp32;
+    the wide rows above; the width-1 instance for H 197 and for rows that
+    start off a 16-byte boundary), rows fewer than a block's warps and
+    more than the grid's (each warp walks its ring past its last row):
+    within the plain version's tolerances, ``s`` bit-equal to ``x + d``,
+    bit-equal across two launches."""
+    dt = DTYPES[dtype_name]
+    g = torch.Generator(device=dev).manual_seed(H * 5 + rows + resid)
+    x = _shifted((2 * torch.randn(rows, H, device=dev, generator=g)
+                  + 0.5).to(dt), shift)
+    d = _shifted(torch.randn(rows, H, device=dev, generator=g).to(dt),
+                 shift) if resid else None
+    sc = 1 + 0.1 * torch.randn(H, device=dev, generator=g)
+    bi = 0.1 * torch.randn(H, device=dev, generator=g)
+    if resid:
+        first = fe.fused_residual_layer_norm(x, d, sc, bi)
+        again = fe.fused_residual_layer_norm(x, d, sc, bi)
+    else:
+        first = (x, fe.fused_layer_norm(x, sc, bi))
+        again = (x, fe.fused_layer_norm(x, sc, bi))
+    torch.cuda.synchronize()
+    s_ref, y_ref = fe.layer_norm_plain(x, d, sc, bi)
+    assert torch.equal(first[0], s_ref)
+    assert_close(_np(first[1]), _np(y_ref), dtype_name)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
 @pytest.mark.parametrize("exact", [False, True])
-@pytest.mark.parametrize("rows", [1, 7, 8191])
-@pytest.mark.parametrize("F", [72, 197, 200, 3072])
+@pytest.mark.parametrize("rows", [1, 7, 2113, 8191])
+@pytest.mark.parametrize("F", [72, 197, 200, 512, 3072])
 @pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
 def test_bias_gelu_kernels_both_forms_edges_repeat_bit_equal(
         dev, dtype_name, F, rows, exact, shift):
-    """K4f (16-byte vectors, and the width-1 instance for F 197 and for
-    unaligned rows) and K4b in the tanh and the erf form: within the
-    plain versions' tolerances, bit-equal across two launches."""
+    """K4f and K4b (16-byte vectors, and the width-1 instances for F 197
+    and for unaligned rows; K4b's runs of rows and their partial sums
+    from one run to 129) in the tanh and the erf form: within the plain
+    versions' tolerances, bit-equal across two launches."""
     dt = DTYPES[dtype_name]
     g = torch.Generator(device=dev).manual_seed(F * 3 + rows + exact)
     y = _shifted((3 * torch.randn(rows, F, device=dev, generator=g)).to(dt),

@@ -2,9 +2,12 @@
 (deepspeed_tpu_torch/ops/fused_elementwise.py) against the JAX fused
 Pallas kernels (interpret mode on the CPU) and the jnp references.
 
-Tolerances: fp32 1e-5; bf16 at most 2 bf16 ulp (the JAX module's own
-contract); the residual sum ``s`` bit-equal. The CUDA kernels against
-these plain versions are in tests/test_torch_cuda.py.
+Tolerances: fp32 1e-5; bf16 and fp16 at most 2 ulp (the JAX module's
+own contract); the residual sum ``s`` bit-equal. The LayerNorm cases
+include the shapes by which the CUDA kernel picks its instance: H 197
+(no 16-byte vector divides it: the width-1 instance) and fp16 (eight
+elements a vector, as bf16). The CUDA kernels against these plain
+versions are in tests/test_torch_cuda.py.
 """
 import jax
 import jax.numpy as jnp
@@ -18,7 +21,8 @@ from deepspeed_tpu_torch.ops import fused_elementwise as tfe
 from torch_cases import assert_close
 
 DTYPES = {"fp32": (torch.float32, jnp.float32),
-          "bf16": (torch.bfloat16, jnp.bfloat16)}
+          "bf16": (torch.bfloat16, jnp.bfloat16),
+          "fp16": (torch.float16, jnp.float16)}
 ROWS = 6
 
 
@@ -41,8 +45,8 @@ def _assert_close(a, b, dtype_name):
     assert_close(_to_np(a), _to_np(b), dtype_name)
 
 
-@pytest.mark.parametrize("H", [128, 768, 1600])
-@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("H", [128, 197, 768, 1600])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
 def test_layer_norm(H, dtype_name):
     tdt, jdt = DTYPES[dtype_name]
     x, _, scale, bias = _inputs(H, H)
@@ -57,8 +61,8 @@ def test_layer_norm(H, dtype_name):
                                       jnp.asarray(bias)), dtype_name)
 
 
-@pytest.mark.parametrize("H", [128, 768, 1600])
-@pytest.mark.parametrize("dtype_name", ["fp32", "bf16"])
+@pytest.mark.parametrize("H", [128, 197, 768, 1600])
+@pytest.mark.parametrize("dtype_name", ["fp32", "bf16", "fp16"])
 def test_residual_layer_norm(H, dtype_name):
     tdt, jdt = DTYPES[dtype_name]
     x, d, scale, bias = _inputs(H + 1, H)

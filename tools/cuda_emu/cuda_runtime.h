@@ -30,6 +30,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local int emu_tid;  // x + y * blockDim.x
 inline dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
@@ -62,8 +63,8 @@ struct EmuBlock {
 inline thread_local EmuBlock* emu_blk;
 
 inline unsigned char* emu_smem() { return emu_blk->smem; }
-inline int emu_lane() { return threadIdx.x & 31; }
-inline int emu_warp() { return threadIdx.x >> 5; }
+inline int emu_lane() { return emu_tid & 31; }
+inline int emu_warp() { return emu_tid >> 5; }
 inline void emu_wsync() { emu_blk->wbar[emu_warp()]->arrive_and_wait(); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 
@@ -82,8 +83,9 @@ inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 // kern<<<grid, threads, smem, stream>>>(args) becomes
 // emu_launch(grid, threads, smem, [=] { kern(args); }).
 template <class F>
-void emu_launch(dim3 grid, int threads, size_t smem, F f) {
-  blockDim = dim3(threads);
+void emu_launch(dim3 grid, dim3 block, size_t smem, F f) {
+  const int threads = block.x * block.y;
+  blockDim = block;
   gridDim = grid;
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -98,7 +100,8 @@ void emu_launch(dim3 grid, int threads, size_t smem, F f) {
       std::vector<std::thread> ts;
       for (int t = 0; t < threads; ++t)
         ts.emplace_back([=] {
-          threadIdx = dim3(t);
+          threadIdx = dim3(t % block.x, t / block.x);
+          emu_tid = t;
           blockIdx = dim3(bx, by);
           emu_blk = blk;
           f();

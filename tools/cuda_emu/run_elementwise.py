@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Run the fused elementwise kernels (LayerNorm backward K3b, bias+GELU
-forward K4f and backward K4b) on the CPU, in a warp emulation, against
-their plain PyTorch versions.
+"""Run the fused elementwise kernels (LayerNorm forward K3f and backward
+K3b, bias+GELU forward K4f and backward K4b) on the CPU, in a warp
+emulation, against their plain PyTorch versions.
 
     python3 tools/cuda_emu/run_elementwise.py [--quick] [-DNAME=VALUE ...]
 
@@ -11,19 +11,22 @@ stand-in headers beside this script (a thread per CUDA thread; barriers
 for ``__syncthreads`` and the warp shuffles), each ``<<<...>>>`` launch
 rewritten as ``emu_launch``, into ``build/cuda_emu/libemu_elementwise.so``,
 and calls the C entry points with ``ctypes`` on CPU tensors. Each case is
-held against ``ln_backward_plain`` / ``bias_gelu_plain`` /
-``bias_gelu_backward_plain`` within the card tests' tolerances (fp32 1e-5;
-bf16 and fp16 2 ulp floored at 1e-5; dscale/dbias and dbias within 1e-5
-plus 2**-20 of the column's sum of magnitudes)
-and must be bit-equal across two launches: every dtype, H from 72 to
-2048 (the vector instances, the wide ones above H 1024, and the width-1
-instance for H 197 and for rows that start off a 16-byte boundary), rows
-1, 7, 37 and 2113 (more rows than the grid has warps), with and without
-the residual cotangent, both GELU forms. ``-D`` arguments reach the
-compiler (the build settings of ``profile_torch_elementwise.py``'s
-variants, e.g. ``-DDSTT_LN_BWD_STAGES=1``). It checks the kernels'
-layouts, edges and the row-to-warp walk before a card call; it says
-nothing of speed. About 20 s to build and 4-7 min for all cases.
+held against ``layer_norm_plain`` / ``ln_backward_plain`` /
+``bias_gelu_plain`` / ``bias_gelu_backward_plain`` within the card tests'
+tolerances (fp32 1e-5; bf16 and fp16 2 ulp floored at 1e-5; dscale/dbias
+and dbias within 1e-5 plus 2**-20 of the column's sum of magnitudes),
+the residual sum ``s`` bit-equal to ``x + delta``, and every output must
+be bit-equal across two launches: every dtype, H from 72 to 2048 (the
+vector instances, the wide ones above H 1024, and the width-1 instance
+for H 197 and for rows that start off a 16-byte boundary; the forward
+also at H 4096 and 12256), rows 1, 7, 37 and 2113 (more rows than the
+grid has warps), with and without the residual (cotangent), both GELU
+forms (F 72 to 3072, the backward's runs of rows at rows 2113).
+``-D`` arguments reach the compiler (the build settings of
+``profile_torch_elementwise.py``'s variants, e.g.
+``-DDSTT_LN_FWD_STAGES=1``). It checks the kernels' layouts, edges and
+the row-to-warp walk before a card call; it says nothing of speed.
+About 20 s to build and 6-10 min for all cases.
 """
 import ctypes
 import subprocess
@@ -46,7 +49,8 @@ OUT = REPO / "build" / "cuda_emu"
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
           "fp32": torch.float32}
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-ENTRIES = ("dstt_layer_norm_bwd", "dstt_layer_norm_bwd_blocks",
+ENTRIES = ("dstt_layer_norm", "dstt_layer_norm_bwd",
+           "dstt_layer_norm_bwd_blocks",
            "dstt_bias_gelu", "dstt_bias_gelu_bwd",
            "dstt_bias_gelu_bwd_splits")
 SMEM = {"extern __shared__ float4 smem4[];":
@@ -165,6 +169,37 @@ def offset(t, shift):
     return v
 
 
+def ln_fwd(lib, x, d, sc, bi, shift):
+    rows, H = x.shape
+    y = offset(torch.empty_like(x), shift)
+    s = offset(torch.empty_like(x), shift) if d is not None else None
+    rc = lib.dstt_layer_norm(
+        x.data_ptr(), None if d is None else d.data_ptr(), sc.data_ptr(),
+        bi.data_ptr(), None if s is None else s.data_ptr(), y.data_ptr(),
+        rows, H, 1e-5, CODES[x.dtype], None)
+    assert rc == 0, rc
+    return None if s is None else s.clone(), y.clone()
+
+
+def ln_fwd_case(lib, dtn, H, rows, resid, shift=0):
+    dt = DTYPES[dtn]
+    g = torch.Generator().manual_seed(H * 17 + rows + resid)
+    x = offset((2 * torch.randn(rows, H, generator=g) + 0.5).to(dt), shift)
+    d = offset(torch.randn(rows, H, generator=g).to(dt), shift) \
+        if resid else None
+    sc = 1 + 0.1 * torch.randn(H, generator=g)
+    bi = 0.1 * torch.randn(H, generator=g)
+    rs, ry = fe.layer_norm_plain(x, d, sc, bi)
+    s, y = ln_fwd(lib, x, d, sc, bi, shift)
+    s2, y2 = ln_fwd(lib, x, d, sc, bi, shift)
+    ok = close(y, ry, dtn) and torch.equal(y, y2)
+    if resid:
+        ok = ok and torch.equal(s, rs) and torch.equal(s, s2)
+    print(("ok  " if ok else "FAIL"), f"ln_fwd {dtn} H={H} rows={rows} "
+          f"resid={resid} shift={shift}", flush=True)
+    return ok
+
+
 def ln_bwd(lib, s, sc, dy, gs, shift):
     rows, H = s.shape
     blocks = lib.dstt_layer_norm_bwd_blocks(rows)
@@ -219,11 +254,13 @@ def gelu_case(lib, dtn, F, rows, exact, shift=0):
         splits = lib.dstt_bias_gelu_bwd_splits(rows)
         dz = offset(torch.empty_like(y), shift)
         part = torch.empty((splits, F))
+        db = torch.empty(F)
         rc = lib.dstt_bias_gelu_bwd(y.data_ptr(), b.data_ptr(), gr.data_ptr(),
-                                    dz.data_ptr(), part.data_ptr(), rows, F,
-                                    int(exact), CODES[dt], None)
+                                    dz.data_ptr(), part.data_ptr(),
+                                    db.data_ptr(), rows, F, int(exact),
+                                    CODES[dt], None)
         assert rc == 0, rc
-        return dz.clone(), part.sum(0)
+        return dz.clone(), db
 
     out, out2 = fwd(), fwd()
     (dz, db), (dz2, db2) = bwd(), bwd()
@@ -244,9 +281,24 @@ def main():
     print(f"built in {time.perf_counter() - t0:.0f} s", flush=True)
     oks = []
     if "--quick" in sys.argv[1:]:
+        oks.append(ln_fwd_case(lib, "bf16", 768, 37, True))
         oks.append(ln_case(lib, "bf16", 768, 37, True))
         oks.append(gelu_case(lib, "bf16", 3072, 7, True))
     else:
+        for dtn in ("bf16", "fp16", "fp32"):
+            for H in (72, 128, 197, 200, 768, 1024, 1600, 2048):
+                for rows, resid in ((1, False), (7, True), (37, False),
+                                    (37, True)):
+                    oks.append(ln_fwd_case(lib, dtn, H, rows, resid))
+            for H in (4096, 12256):
+                oks.append(ln_fwd_case(lib, dtn, H, 7, True))
+            oks.append(ln_fwd_case(lib, dtn, 768, 37, True, shift=1))
+            oks.append(ln_fwd_case(lib, dtn, 1600, 7, False, shift=1))
+            # More rows than warps: each warp walks several rows, through
+            # its ring and past its end.
+            oks.append(ln_fwd_case(lib, dtn, 768, 2113, True))
+            oks.append(ln_fwd_case(lib, dtn, 768, 2113, False))
+            oks.append(ln_fwd_case(lib, dtn, 200, 2113, True))
         for dtn in ("bf16", "fp16", "fp32"):
             for H in (72, 128, 197, 200, 768, 1024, 1600, 2048):
                 for rows, with_gs in ((1, False), (7, True), (37, False),
@@ -262,6 +314,9 @@ def main():
                     for exact in (False, True):
                         oks.append(gelu_case(lib, dtn, F, rows, exact))
             oks.append(gelu_case(lib, dtn, 3072, 37, True, shift=1))
+            # Several runs of rows a thread, the last one short.
+            oks.append(gelu_case(lib, dtn, 200, 2113, False))
+            oks.append(gelu_case(lib, dtn, 197, 2113, True))
     print(f"{sum(oks)} of {len(oks)} cases ok in "
           f"{time.perf_counter() - t0:.0f} s")
     return 0 if all(oks) else 1
