@@ -105,19 +105,40 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    steps (K9's share of device time, the step's idle share) and
    ``train_moe_fp16`` (3 steps: finite, the last below the first, no
    staged operand), each read on its own.
+5d. ``train_checkpoint``: save, resume and serve from a checkpoint at
+   the main path's recipe (gpt2-small, gas 2 x 8 x 1024, dropout 0.1,
+   WarmupLR), the files in a ``tempfile.mkdtemp()`` directory that the
+   phase removes. bf16 with fp32 masters: engine A trains 3 steps, saves
+   (sync), trains 3 more; engine B, from another init seed, loads
+   ``latest`` and trains the same 3 (``train_resume``, read on its own):
+   its losses, loss scales, skips and final flat buffers (params, cast
+   copy, moments, scalars) equal A's bit for bit. A's step 6 saved with
+   ``checkpoint.async`` writes the bytes of a sync save of the same
+   state. The same resume on the fp16 recipe from initial_scale_power
+   19 (``train_resume_fp16``: taken and skipped steps; equal scales
+   and skips). Then ``InferenceEngine.from_train_checkpoint`` on A's
+   step-6 tag serves the shared-prefix requests
+   (``serve_from_checkpoint``, read on its own) and gives the greedy
+   tokens, and prefill logits, of an engine built from A's params in
+   memory, bit for bit. Printed: the sync save's ms, the async save's
+   exposed snapshot ms, the background write's s, the load's ms and the
+   bytes written.
 6. The ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
+import filecmp
 import io
 import json
 import math
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -144,6 +165,7 @@ from deepspeed_tpu_torch.ops.fused_update import tree_flatten, \
     tree_unflatten
 from deepspeed_tpu_torch.ops.sparse_attention import \
     BigBirdSparsityConfig, SparseSelfAttention, sparse_attention
+from deepspeed_tpu_torch.runtime.async_ckpt import AsyncCheckpointer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W): HBM
@@ -224,6 +246,13 @@ FRACTION_BITS = {"bf16": 7, "fp16": 10}
 # so each expert has C = ceil(1.25 * 2 * 8192 / 8) = 2560 slots.
 MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_CAPACITY = 8, 2, 1.25, 2560
 MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
+# train_checkpoint: steps before the save and after it. The fp16 resume
+# starts from 2^19, near the edge where the recipe's early steps
+# overflow (the main fp16 path, from 2^32, first took a step at 2^17),
+# so its steps hold taken and skipped ones and the resume carries the
+# hysteresis.
+CKPT_STEPS = 3
+CKPT_FP16_SCALE_POWER = 19
 
 
 # Kernels whose ptxas report (registers, spills, static shared memory) the
@@ -1478,14 +1507,16 @@ def per_train_step(cfg, seq=TRAIN_SEQ):
 
 
 def make_engine(cfg, precision, seed=SEED, attention_fn=None,
-                micro=TRAIN_MICRO, extra=None):
+                micro=TRAIN_MICRO, extra=None, rng=None):
+    """An engine with params from ``seed``; its random stream's base
+    seed is ``rng`` (default: ``seed``)."""
     dev = torch.device("cuda")
     params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(seed))
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=gpt2_loss_fn(cfg, attention_fn=attention_fn),
         model_params=params,
         config=dict(train_config(precision, TRAIN_STEPS, micro),
-                    **(extra or {})), rng=seed)
+                    **(extra or {})), rng=seed if rng is None else rng)
     return eng
 
 
@@ -1494,9 +1525,8 @@ def plain_reference_step(eng, cfg, batch,
     """One step's mean loss and global grad norm by plain autograd
     (plain LayerNorm/GELU, and the attention's plain version, which
     draws the same attention seeds) on the engine's bf16 params, its
-    batch split and a copy of its generator (the same dropout masks)."""
-    gen = torch.Generator(device=eng.device)
-    gen.set_state(eng.generator.get_state())
+    batch split and its next step's generator (the same dropout masks)."""
+    gen = eng.step_generator()
     cast, spec = tree_flatten(eng.state.cast_params)
     leaves = [t.detach().clone().requires_grad_() for t in cast]
     tree = tree_unflatten(spec, leaves)
@@ -1767,6 +1797,177 @@ def train_gpt2_small(dev, smi):
     torch.cuda.empty_cache()
     return counts
 
+
+
+# --------------------------------------------------------------------- #
+# Phase 5d: checkpointing at gpt2-small
+# --------------------------------------------------------------------- #
+def flat_state(eng):
+    """Copies of everything a step carries: the flat params, the cast
+    copy, the moments and the scalars."""
+    st = eng.state
+    out = [g.param for g in eng._groups]
+    out += [g.cast for g in eng._groups if g.cast is not None]
+    out += list(st.opt_state.m) + list(st.opt_state.v)
+    out += [st.step, st.loss_scale, st.growth_count, st.hysteresis,
+            st.skipped_steps, st.opt_state.count]
+    return [t.detach().clone() for t in out]
+
+
+def tag_bytes(path):
+    return {fn: os.path.getsize(os.path.join(path, fn))
+            for fn in sorted(os.listdir(path))}
+
+
+def ckpt_history(losses, metrics):
+    """(loss, the step's loss scale, skipped steps after it) a step."""
+    return [(float(l), float(m["loss_scale"]), int(m["skipped_steps"]))
+            for l, m in zip(losses, metrics)]
+
+
+def ckpt_steps(eng, batches):
+    losses, metrics = [], []
+    for b in batches:
+        losses.append(eng.train_batch(b))
+        metrics.append(eng.last_metrics)
+    return ckpt_history(losses, metrics)
+
+
+def ckpt_resume(cfg, precision, batches, root, path_name, counts,
+                extra=None):
+    """A: CKPT_STEPS steps, a sync save, CKPT_STEPS more. B (params from
+    another seed, the same base seed): load ``latest``, the same steps
+    as one path. Returns A and the record; asserts bit equality."""
+    d = os.path.join(root, precision)
+    a = make_engine(cfg, precision, extra=extra)
+    hist_a = ckpt_steps(a, batches[:CKPT_STEPS])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.save_checkpoint(d)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    tag = os.path.join(d, f"global_step{CKPT_STEPS}")
+    nbytes = sum(tag_bytes(tag).values())
+    hist_a += ckpt_steps(a, batches[CKPT_STEPS:2 * CKPT_STEPS])
+    want = flat_state(a)
+
+    b = make_engine(cfg, precision, seed=SEED + 1, extra=extra, rng=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, _ = b.load_checkpoint(d)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    assert path is not None and b.global_steps == CKPT_STEPS, path
+    losses, metrics, _, counts[path_name] = run_path(
+        b, batches[CKPT_STEPS:2 * CKPT_STEPS])
+    hist_b = ckpt_history(losses, metrics)
+    got = flat_state(b)
+    del b
+    shutil.rmtree(d)
+    equal = [bool(torch.equal(x, y)) for x, y in zip(want, got)]
+    rec = {"precision": precision, "steps": [CKPT_STEPS, CKPT_STEPS],
+           "history_a": hist_a, "history_resumed": hist_b,
+           "resumed_equal_bitwise": hist_b == hist_a[CKPT_STEPS:],
+           "flat_buffers_equal": f"{sum(equal)}/{len(equal)}",
+           "sync_save_ms": save_ms, "load_ms": load_ms,
+           "bytes_written": nbytes}
+    assert rec["resumed_equal_bitwise"], rec
+    assert all(equal), rec
+    want_counts = {k: CKPT_STEPS * v for k, v in per_train_step(cfg).items()}
+    assert counts[path_name] == want_counts, (counts[path_name], want_counts)
+    return a, rec
+
+
+def train_checkpoint(dev, smi):
+    """Save, resume and serve from a checkpoint at gpt2-small."""
+    cfg = GPT2_CONFIGS["gpt2-small"]          # dropout 0.1, bf16 compute
+    batches = token_stream(cfg, 2 * CKPT_STEPS, seed=SEED + 5)
+    counts, out = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        a, out["bf16"] = ckpt_resume(cfg, "bf16", batches, root,
+                                     "train_resume", counts)
+
+        # A's step 6, async and sync: the same bytes.
+        a._async_ckpt = AsyncCheckpointer(writer_timeout_s=600.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.save_checkpoint(os.path.join(root, "async"), tag="step6")
+        exposed_ms = (time.perf_counter() - t0) * 1e3
+        assert a._async_ckpt.wait(timeout=600.0)
+        assert a._async_ckpt.last_error is None, a._async_ckpt.last_error
+        write_s = a._async_ckpt.write_wall_s
+        a._async_ckpt.close()
+        a._async_ckpt = None
+        t0 = time.perf_counter()
+        a.save_checkpoint(os.path.join(root, "sync"), tag="step6")
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        ta, ts = (os.path.join(root, k, "step6") for k in ("async", "sync"))
+        files = tag_bytes(ts)
+        same = sorted(os.listdir(ta)) == sorted(files) and all(
+            filecmp.cmp(os.path.join(ta, fn), os.path.join(ts, fn),
+                        shallow=False) for fn in files)
+        out["async"] = {"exposed_snapshot_ms": exposed_ms,
+                        "background_write_s": write_s,
+                        "sync_save_ms": sync_ms,
+                        "bytes_written": sum(files.values()),
+                        "files": files, "async_equals_sync_bytes": same}
+        shutil.rmtree(os.path.join(root, "async"))
+        assert same, out["async"]
+
+        # Serving from A's step-6 tag against A's params in memory.
+        base = {"max_slots": 8, "max_seq_len": 1024, "block_size": 16,
+                "prefill_chunk": 32}
+        reqs = lambda: shared_prefix_requests(  # noqa: E731
+            16, prefix_len=64, tail_len=(16, 48), max_new_tokens=32,
+            vocab_size=cfg.vocab_size, seed=SEED)
+        leaves, spec = tree_flatten(a.state.params)
+        mem = InferenceEngine(cfg, tree_unflatten(
+            spec, [t.detach().clone() for t in leaves]), {"inference": base})
+        del a
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ck = InferenceEngine.from_train_checkpoint(
+            os.path.join(root, "sync"), cfg, {"inference": base},
+            tag="step6")
+        torch.cuda.synchronize()
+        serve_load_ms = (time.perf_counter() - t0) * 1e3
+        want = mem.serve(reqs())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = ck.serve(reqs())
+        torch.cuda.synchronize()
+        counts["serve_from_checkpoint"] = ops.launch_counts()
+        assert got["completed"] == 16 and got["unfinished"] == 0, got
+        assert all(counts["serve_from_checkpoint"][k] > 0
+                   for k in SERVE_KERNELS), counts["serve_from_checkpoint"]
+        streams_equal = [g["tokens"] == w["tokens"] for g, w in
+                         zip(got["requests"], want["requests"])]
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, 100).astype(np.int32)
+        _, lg_ck = ck.prefill(prompt, slot=0, return_logits=True)
+        _, lg_mem = mem.prefill(prompt, slot=0, return_logits=True)
+        logits_equal = bool(np.array_equal(np.asarray(lg_ck),
+                                           np.asarray(lg_mem)))
+        out["serve"] = {"requests": 16, "load_ms": serve_load_ms,
+                        "streams_equal": f"{sum(streams_equal)}/16",
+                        "prefill_logits_equal": logits_equal,
+                        "tokens_per_s": got["tokens_per_s"],
+                        "launches": counts["serve_from_checkpoint"]}
+        assert all(streams_equal) and logits_equal, out["serve"]
+        del mem, ck
+        torch.cuda.empty_cache()
+
+        # fp16: skipped then taken steps across the save.
+        _, out["fp16"] = ckpt_resume(
+            cfg, "fp16", batches, root, "train_resume_fp16", counts,
+            extra={"fp16": {"enabled": True,
+                            "initial_scale_power": CKPT_FP16_SCALE_POWER}})
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["card"] = smi
+    emit({"train_checkpoint": out})
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -2161,6 +2362,7 @@ def main():
     counts.update(train_gpt2_small(dev, smi))
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
+    counts.update(train_checkpoint(dev, smi))
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)

@@ -211,11 +211,6 @@ MESH = "mesh"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_PIPE_PARALLEL_SIZE = "pipe_parallel_size"
 MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
-CHECKPOINT = "checkpoint"
-CHECKPOINT_ASYNC = "async"
-CHECKPOINT_ASYNC_DEFAULT = False
-CHECKPOINT_SNAPSHOT_EVERY = "snapshot_every"
-CHECKPOINT_SNAPSHOT_EVERY_DEFAULT = 0
 ELASTICITY = "elasticity"
 ENABLED = "enabled"
 ENABLED_DEFAULT = False
@@ -225,6 +220,43 @@ FLOPS_PROFILER_ENABLED_DEFAULT = False
 TELEMETRY = "telemetry"
 TELEMETRY_ENABLED = "enabled"
 TELEMETRY_ENABLED_DEFAULT = False
+
+#############################################
+# Checkpoint (runtime/async_ckpt.py and the engine's save/load): the
+# JAX package's keys, defaults and on-disk layout.
+#############################################
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+# save_checkpoint() takes the in-step-window snapshot (the state copied
+# to host memory) and hands serialization and the two-phase atomic
+# commit to a background writer thread.
+CHECKPOINT_ASYNC = "async"
+CHECKPOINT_ASYNC_DEFAULT = False
+# Auto-save cadence: > 0 saves a checkpoint (tag global_stepN) into
+# `save_dir` every N completed steps from inside train_batch.
+CHECKPOINT_SNAPSHOT_EVERY = "snapshot_every"
+CHECKPOINT_SNAPSHOT_EVERY_DEFAULT = 0
+# Directory for auto-saves and the SIGTERM final save. Required when
+# snapshot_every > 0; enables the preemption handler when set.
+CHECKPOINT_SAVE_DIR = "save_dir"
+CHECKPOINT_SAVE_DIR_DEFAULT = ""
+# SIGTERM handler: a final snapshot+commit when one isn't already in
+# flight, then the signal goes on to the previous handler.
+CHECKPOINT_PREEMPT_SAVE = "preempt_save"
+CHECKPOINT_PREEMPT_SAVE_DEFAULT = True
+# Snapshots allowed in the writer queue before the next save blocks
+# (each is a full host copy of the state), and the watchdog timeout of
+# each background write.
+CHECKPOINT_MAX_PENDING = "max_pending_snapshots"
+CHECKPOINT_MAX_PENDING_DEFAULT = 1
+CHECKPOINT_WRITER_TIMEOUT_S = "writer_timeout_s"
+CHECKPOINT_WRITER_TIMEOUT_S_DEFAULT = 300.0
+# fsync blobs and directories at commit (durability across machine
+# crashes; a process kill never needs it).
+CHECKPOINT_FSYNC = "fsync"
+CHECKPOINT_FSYNC_DEFAULT = False
 
 #############################################
 # Serving tier (deepspeed_tpu_torch/inference/)

@@ -21,15 +21,20 @@ and chunked-prefill path).
 - ``ServingAggregator`` accounts TTFT/TPOT/occupancy/tokens per second on
   host clocks.
 
+``from_train_checkpoint`` builds the engine from a training
+checkpoint's model file (the port's or the JAX engine's: the same
+files, runtime/flax_msgpack.py).
+
 Not ported: the slot-major layout (``block_size: 0``), weight
-quantization, dp/mp meshes, the replica router, telemetry and SLO
-overlays, and ``from_train_checkpoint``. Each of those configurations raises
+quantization, dp/mp meshes, the replica router, and telemetry and SLO
+overlays. Each of those configurations raises
 ``NotImplementedError``; so do ``paged_kernel: false`` and
 ``fused_kernels: False`` on a CUDA device, where the port has only its
 kernels.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -40,10 +45,11 @@ from . import decode as decode_mod
 from . import kv_cache
 from .quantize import check_quantize, resolve_kv_dtype
 from .spec import NGramDrafter
-from ..models.gpt2 import GPT2Config
+from ..models.gpt2 import GPT2Config, gpt2_init
 from ..monitor.serving import ServingAggregator
 from ..runtime.config import InferenceConfig
 from ..runtime.config_utils import load_config_json
+from ..runtime.flax_msgpack import msgpack_restore
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 
@@ -523,6 +529,64 @@ class InferenceEngine:
         sched = ContinuousBatchingScheduler(self, temperature=temperature,
                                             **kwargs)
         return sched.serve(requests)
+
+    # ------------------------------------------------------------------ #
+    # Training-checkpoint handoff
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def from_train_checkpoint(cls, load_dir: str, model_cfg: GPT2Config,
+                              config: Union[None, str, Dict[str, Any]] = None,
+                              tag: Optional[str] = None,
+                              device: Optional[Union[str, torch.device]]
+                              = None, seed: int = 17) -> "InferenceEngine":
+        """A serving engine from a training engine's checkpoint directory
+        (the tag ``latest`` names, or ``tag``): its
+        ``mp_rank_00_model_states.msgpack``, written by the port's or
+        the JAX engine. Every leaf of the GPT-2 tree for ``model_cfg``
+        must be there with its shape (the tree is made on the meta
+        device: no init runs)."""
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.isfile(latest):
+                raise FileNotFoundError(f"no 'latest' pointer in {load_dir}")
+            with open(latest) as f:
+                tag = f.read().strip()
+        path = os.path.join(load_dir, str(tag))
+        model_file = os.path.join(path, "mp_rank_00_model_states.msgpack")
+        if not os.path.isfile(model_file):
+            raise NotImplementedError(
+                f"{model_file} not found — TP-sharded (mp_rank_XX) "
+                "checkpoints need assembly (ROADMAP slice 6: parallel axes "
+                "and comm extras); load them through the training engine "
+                "and pass raw params instead")
+        with open(model_file, "rb") as f:
+            blob = msgpack_restore(f.read())
+        if not (isinstance(blob, dict) and "module" in blob):
+            raise ValueError(f"{model_file} holds no 'module' tree")
+        template = gpt2_init(model_cfg, torch.Generator(), "meta")
+
+        def fill(want, got, at):
+            if isinstance(want, dict):
+                if not isinstance(got, dict):
+                    raise ValueError(f"{model_file}: {at or 'module'} is "
+                                     "not a subtree")
+                missing = sorted(set(want) - set(got))
+                if missing:
+                    raise ValueError(f"{model_file}: {at or 'module'} lacks "
+                                     f"{missing}")
+                return {k: fill(v, got[k], f"{at}{k}/")
+                        for k, v in want.items()}
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(
+                    f"{model_file}: {at[:-1]} has shape {tuple(got.shape)}, "
+                    f"{model_cfg.name} needs {tuple(want.shape)}")
+            if isinstance(got, torch.Tensor):
+                return got
+            return torch.from_numpy(np.array(got, copy=True))
+        params = fill(template, blob["module"], "")
+        log_dist(f"serving from training checkpoint {path}", ranks=[0])
+        return cls(model_cfg, params, config=config, device=device,
+                   seed=seed)
 
 
 __all__ = ["InferenceEngine", "prepare_params"]

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.fused_update import FusedAdamState, tree_flatten
+from ..ops.fused_update import FusedAdamState, dtype_name, tree_flatten
 
 # The JAX layout's constants (deepspeed_tpu/ops/fused_update.py: _V and
 # _ROW_QUANTUM = 8 * _W) for a one-device engine.
@@ -50,15 +50,25 @@ def to_jax_params(state: Dict[str, Any]) -> Dict[str, Any]:
     return state.detach().cpu().numpy().copy()
 
 
-def _groups(np_params: Any) -> List[List[np.ndarray]]:
-    """The params' float leaves grouped by dtype, groups sorted by dtype
-    name, leaves in tree order — both packages' group order."""
-    leaves, _ = tree_flatten(np_params)
-    groups: Dict[str, List[np.ndarray]] = {}
+def _group_sizes(params: Any) -> List[List[int]]:
+    """The sizes of the params' float leaves grouped by dtype, groups
+    sorted by dtype name, leaves in tree order — both packages' group
+    order. Leaves are numpy arrays or torch tensors; a torch leaf never
+    goes through numpy, which has no bfloat16 of its own."""
+    leaves, _ = tree_flatten(params)
+    groups: Dict[str, List[int]] = {}
     for leaf in leaves:
-        a = np.asarray(leaf)
-        if np.issubdtype(a.dtype, np.floating) or a.dtype.name == "bfloat16":
-            groups.setdefault(a.dtype.name, []).append(a)
+        if isinstance(leaf, torch.Tensor):
+            if not leaf.is_floating_point():
+                continue
+            name, n = dtype_name(leaf.dtype), leaf.numel()
+        else:
+            a = np.asarray(leaf)
+            if not (np.issubdtype(a.dtype, np.floating) or
+                    a.dtype.name == "bfloat16"):
+                continue
+            name, n = a.dtype.name, int(a.size)
+        groups.setdefault(name, []).append(n)
     return [groups[k] for k in sorted(groups)]
 
 
@@ -97,9 +107,10 @@ def from_jax_fused_adam_state(count: Any, m: Sequence[np.ndarray],
                               shards: int = JAX_VIRTUAL_SHARDS
                               ) -> FusedAdamState:
     """A JAX ``FusedAdamState`` (``count``, ``m``/``v`` group buffers as
-    numpy, of a one-device engine) → the port's ``FusedAdamState`` with
-    numpy buffers in the port's layout, for ``np_params``'s tree."""
-    sizes = [[a.size for a in grp] for grp in _groups(np_params)]
+    numpy, of an engine with ``shards`` virtual shards: 8, or dp above
+    8) → the port's ``FusedAdamState`` with numpy buffers in the port's
+    layout, for ``np_params``'s tree (numpy arrays or torch tensors)."""
+    sizes = _group_sizes(np_params)
     return FusedAdamState(
         count=np.int32(np.asarray(count)),
         m=tuple(_from_jax_buffer(b, s, shards) for b, s in zip(m, sizes)),
@@ -112,7 +123,7 @@ def to_jax_fused_adam_state(state: FusedAdamState, np_params: Any,
                                        Tuple[np.ndarray, ...]]:
     """The port's ``FusedAdamState`` (tensors or numpy) → ``(count, m,
     v)`` numpy buffers in the JAX V-interleaved layout."""
-    sizes = [[a.size for a in grp] for grp in _groups(np_params)]
+    sizes = _group_sizes(np_params)
 
     def host(x):
         return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \

@@ -5,7 +5,7 @@ Same keys, defaults and validation errors as the JAX package, so one
 ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
 scheduler, clipping, ZeRO, the ``sparse_attention`` section, the
-``moe`` block) and, for
+``moe`` block, the ``checkpoint`` block) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
@@ -235,6 +235,71 @@ class MoeConfig:
                 f"{self.expert_parallel_size}")
 
 
+class CheckpointConfig:
+    """The ``checkpoint`` block (runtime/async_ckpt.py + the engine's
+    save/load paths): async snapshot-to-host saving, the auto-save
+    cadence, and the preemption (SIGTERM) final-save handler. Same
+    defaults and errors as the JAX package's ``CheckpointConfig``. Tag
+    validation stays on the DeepSpeedConfig top level for
+    compatibility."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.CHECKPOINT, {})
+        get = config_utils.get_scalar_param
+        self.async_save = get(d, C.CHECKPOINT_ASYNC,
+                              C.CHECKPOINT_ASYNC_DEFAULT)
+        self.snapshot_every = get(d, C.CHECKPOINT_SNAPSHOT_EVERY,
+                                  C.CHECKPOINT_SNAPSHOT_EVERY_DEFAULT)
+        self.save_dir = get(d, C.CHECKPOINT_SAVE_DIR,
+                            C.CHECKPOINT_SAVE_DIR_DEFAULT)
+        self.preempt_save = get(d, C.CHECKPOINT_PREEMPT_SAVE,
+                                C.CHECKPOINT_PREEMPT_SAVE_DEFAULT)
+        self.max_pending_snapshots = get(d, C.CHECKPOINT_MAX_PENDING,
+                                         C.CHECKPOINT_MAX_PENDING_DEFAULT)
+        self.writer_timeout_s = get(d, C.CHECKPOINT_WRITER_TIMEOUT_S,
+                                    C.CHECKPOINT_WRITER_TIMEOUT_S_DEFAULT)
+        self.fsync = get(d, C.CHECKPOINT_FSYNC, C.CHECKPOINT_FSYNC_DEFAULT)
+        self._validate()
+
+    def _validate(self) -> None:
+        blk = C.CHECKPOINT
+        for name, v in ((C.CHECKPOINT_ASYNC, self.async_save),
+                        (C.CHECKPOINT_PREEMPT_SAVE, self.preempt_save),
+                        (C.CHECKPOINT_FSYNC, self.fsync)):
+            if not isinstance(v, bool):
+                raise DeepSpeedConfigError(
+                    f"{blk}.{name} must be a bool, got {v!r}")
+        if not isinstance(self.snapshot_every, int) or \
+                isinstance(self.snapshot_every, bool) or \
+                self.snapshot_every < 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.CHECKPOINT_SNAPSHOT_EVERY} must be a "
+                f"non-negative int (0 = no auto-save), got "
+                f"{self.snapshot_every!r}")
+        if not isinstance(self.save_dir, str):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.CHECKPOINT_SAVE_DIR} must be a string path, "
+                f"got {self.save_dir!r}")
+        if self.snapshot_every > 0 and not self.save_dir:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.CHECKPOINT_SNAPSHOT_EVERY} > 0 needs "
+                f"{blk}.{C.CHECKPOINT_SAVE_DIR}: auto-saves have to land "
+                "somewhere")
+        if not isinstance(self.max_pending_snapshots, int) or \
+                isinstance(self.max_pending_snapshots, bool) or \
+                self.max_pending_snapshots < 1:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.CHECKPOINT_MAX_PENDING} must be an int >= 1 "
+                f"(each pending snapshot is a full host state copy), got "
+                f"{self.max_pending_snapshots!r}")
+        if not isinstance(self.writer_timeout_s, (int, float)) or \
+                isinstance(self.writer_timeout_s, bool) or \
+                self.writer_timeout_s <= 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.CHECKPOINT_WRITER_TIMEOUT_S} must be a "
+                f"positive number, got {self.writer_timeout_s!r}")
+
+
 class DeepSpeedConfig:
     """The training ds_config: a JSON path or a parsed dict.
 
@@ -361,6 +426,19 @@ class DeepSpeedConfig:
         self.inference_config = InferenceConfig(d)
         self.moe_config = MoeConfig(d)
 
+        ckpt = d.get(C.CHECKPOINT, {})
+        self.checkpoint_config = CheckpointConfig(d)
+        self.checkpoint_tag_validation_mode = get(
+            ckpt, C.CHECKPOINT_TAG_VALIDATION,
+            C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+        if isinstance(self.checkpoint_tag_validation_mode, str):
+            self.checkpoint_tag_validation_mode = \
+                self.checkpoint_tag_validation_mode.capitalize()
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_tag_validation_mode != "Ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_tag_validation_mode == "Fail"
+
     def _configure_train_batch_size(self) -> None:
         """Solve train_batch = micro_batch * grad_accum * world."""
         train_batch = self.train_batch_size
@@ -430,7 +508,6 @@ class DeepSpeedConfig:
         enabled block the port does not run yet."""
         d = self._param_dict
         mesh = d.get(C.MESH, {})
-        ckpt = d.get(C.CHECKPOINT, {})
         checks = [
             (self.zero_optimization_stage >= 3, "zero_optimization.stage 3",
              "slice 6: dp and ZeRO-1/2/3"),
@@ -453,9 +530,6 @@ class DeepSpeedConfig:
             (self.moe_config.expert_parallel_size > 1,
              "moe.expert_parallel_size > 1",
              "slice 6: parallel axes and comm extras"),
-            (bool(ckpt.get(C.CHECKPOINT_ASYNC, C.CHECKPOINT_ASYNC_DEFAULT))
-             or (ckpt.get(C.CHECKPOINT_SNAPSHOT_EVERY) or 0) > 0,
-             "checkpoint (async / snapshot_every)", "slice 6: checkpointing"),
             (bool(d.get(C.FLOPS_PROFILER, {}).get(
                 C.FLOPS_PROFILER_ENABLED, C.FLOPS_PROFILER_ENABLED_DEFAULT)),
              "flops_profiler", "slice 6: observability and tooling"),

@@ -26,37 +26,124 @@ the views of that copy (the parameters themselves in fp32 and
 master-free runs); each micro-batch's gradients are added into the fp32
 buffers, never accumulated by autograd in a bf16 ``.grad``.
 
+Random stream. Each step draws its dropout masks and its stochastic-
+rounding seed from a generator derived from the engine's base seed and
+the step (``step_generator``), as the JAX engine folds the step into
+its base key, so a run resumed from a checkpoint draws what a run that
+never stopped would have drawn.
+
+Checkpoints (``save_checkpoint``, ``load_checkpoint``, the
+``checkpoint`` block's async saving, auto-save and SIGTERM save) are
+the JAX package's files, read and written in both directions: the
+model file ``mp_rank_00_model_states.msgpack`` (``{"module": params}``,
+the fp32 masters, or bf16 without masters), the optimizer file
+``zero_pp_rank_0_mp_rank_00_optim_states.msgpack`` (the Adam count and
+moments in the JAX V-interleaved layout, ``models/convert.py``, and the
+loss-scale scalars), ``engine_meta.json`` (the counters, the seal of
+the two-phase commit) and ``latest`` (runtime/async_ckpt.py). A JAX
+save from several dp ranks loads by joining its optimizer shards.
+
 What the port does not run yet raises ``NotImplementedError`` at
 construction, naming the ROADMAP slice that brings it: more than one
 card, ZeRO stage 3, ZeRO-Offload, the pipeline and the other parallel
 axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
-remat and progressive layer drop, checkpoint saving and loading, the
-``forward/backward/step`` trio, client optimizer objects, optimizers
-other than Adam/AdamW, and the unfused paths
+remat and progressive layer drop, the ``forward/backward/step`` trio,
+client optimizer objects, optimizers other than Adam/AdamW, and the
+unfused paths
 (``optimizer.params.fused: false``, and ``fused_kernels=False`` on
 CUDA).
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .async_ckpt import (AsyncCheckpointer, CheckpointSnapshot,
+                         LATEST_FILE, META_FILE, PreemptSaver,
+                         commit_snapshot, crash_point, is_complete)
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, update_loss_scale
+from .flax_msgpack import msgpack_restore, msgpack_serialize
 from .lr_schedules import get_lr_schedule
 from .. import constants as C
+from ..models import convert
 from ..models.transformer import check_trainable
 from ..ops.grouped_gemm import check_grouped_gemm
 from ..ops.fused_update import (FlatGroup, FusedAdamState, float_groups,
                                 tree_flatten, tree_unflatten)
 from ..ops.optimizers import build_optimizer
 from ..utils.device import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
+
+
+MODEL_FILE = "mp_rank_00_model_states.msgpack"
+OPTIM_FILE_FMT = "zero_pp_rank_0_mp_rank_00_optim_states.msgpack"
+OPTIM_SHARD_FMT = "zero_pp_rank_{}_mp_rank_00_optim_states.msgpack"
+# engine_meta.json's marker of the V-interleaved moment layout.
+FUSED_MOMENT_LAYOUT = 2
+# What the JAX engine folds into a step's key for its stochastic-
+# rounding key (0x5352, "SR").
+_SR_FOLD = 0x5352
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 64-bit seed for ``data`` under ``seed`` (the splitmix64 mix of
+    the pair): the port's counterpart of ``jax.random.fold_in``."""
+    z = (int(seed) ^ ((int(data) + 1) * 0x9E3779B97F4A7C15)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def _int32(x: int) -> int:
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
+    """The leaves' key paths ("blocks/qkv_kernel") in ``tree_flatten``
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def _host_copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Whole host copies of device tensors: into pinned memory by
+    asynchronous copies and ONE wait on the card (the port's
+    counterpart of the JAX engine's one batched ``device_get``); plain
+    clones for CPU tensors. A copy, never a view: the fused step
+    rewrites the flat buffers in place."""
+    if not any(t.device.type == "cuda" for t in tensors):
+        return [t.detach().clone() for t in tensors]
+    out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+           for t in tensors]
+    for o, t in zip(out, tensors):
+        o.copy_(t.detach(), non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return out
+
+
+def _as_tensor(x: Any) -> torch.Tensor:
+    """A tensor over ``x`` (a read-only numpy array, as a decoded file
+    gives, is copied first)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
 class EngineState:
@@ -227,10 +314,12 @@ class DeepSpeedEngine:
         param_views: List[Any] = [None] * n
         grad_views: List[Any] = [None] * n
         cast_views: List[Any] = [None] * n
+        self._group_leaves: List[List[int]] = []
         for dt, idxs in float_groups(masters):
             grp = FlatGroup([masters[i] for i in idxs], dt, self.device,
                             cast_dtype)
             self._groups.append(grp)
+            self._group_leaves.append(idxs)
             for i, pv, gv in zip(idxs, grp.views(grp.param),
                                  grp.views(grp.grad)):
                 param_views[i], grad_views[i] = pv, gv
@@ -266,12 +355,13 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
+        self.skipped_steps = 0     # refreshed by a snapshot or a load
 
+        # The base seed of the per-step random stream (step_generator).
         if isinstance(rng, torch.Generator):
-            self.generator = rng
+            self._base_seed = int(rng.initial_seed())
         else:
-            self.generator = torch.Generator(device=dev).manual_seed(
-                42 if rng is None else int(rng))
+            self._base_seed = 42 if rng is None else int(rng)
 
         self.collate_fn = collate_fn
         self.training_dataloader = self.deepspeed_io(training_data) \
@@ -283,6 +373,27 @@ class DeepSpeedEngine:
             start_step=2, steps_per_output=self.steps_per_print(),
             synchronized=self.wall_clock_breakdown())
         self.last_metrics: Optional[Dict[str, torch.Tensor]] = None
+
+        # Async / preemption-safe checkpointing (runtime/async_ckpt.py):
+        # the writer thread, the auto-save cadence and the SIGTERM
+        # final-save handler, all inert unless the `checkpoint` block
+        # opts in.
+        ckcfg = self.config.checkpoint_config
+        self._ckpt_dir = ckcfg.save_dir
+        self._ckpt_every = int(ckcfg.snapshot_every)
+        self._ckpt_max_pending = int(ckcfg.max_pending_snapshots)
+        self._ckpt_writer_timeout = float(ckcfg.writer_timeout_s)
+        self._ckpt_fsync = bool(ckcfg.fsync)
+        self._last_saved_step = -1
+        self._async_ckpt = None
+        self._preempt_saver = None
+        if ckcfg.async_save:
+            self._async_ckpt = AsyncCheckpointer(
+                writer_timeout_s=self._ckpt_writer_timeout,
+                dump_dir="./runs")
+        if self._ckpt_dir and ckcfg.preempt_save:
+            self._preempt_saver = PreemptSaver(self, self._ckpt_dir)
+            self._preempt_saver.install()
         log_dist(f"DeepSpeedEngine initialized: device={dev}, "
                  f"dtype={self.config.precision_dtype}, "
                  f"zero_stage={self.zero_optimization_stage()}", ranks=[0])
@@ -366,21 +477,37 @@ class DeepSpeedEngine:
         the initial one (tensors or numpy), ``opt_state`` moments in this
         engine's flat-group layout (``models/convert.py`` carries a JAX
         ``FusedAdamState`` there). The compute-dtype copy is re-derived
-        from the new parameters."""
-        leaves, _ = tree_flatten(params)
-        dev = self.device
+        from the new parameters. ``global_steps`` follows from ``step`` and
+        ``skipped_steps`` (``load_checkpoint`` takes the counters from the
+        checkpoint's meta instead)."""
+        self._write_params(tree_flatten(params)[0])
+        self._write_opt_state(opt_state, step, loss_scale, growth_count,
+                              hysteresis, skipped_steps)
+        self.global_steps = int(step) + int(skipped_steps)
+        self.skipped_steps = int(skipped_steps)
 
-        def tensor(x):
-            return x if isinstance(x, torch.Tensor) else \
-                torch.from_numpy(np.array(x, copy=True))
+    def _write_params(self, leaves: List[Any]) -> None:
+        """Copy new parameter leaves (tree order; None keeps a leaf)
+        into the flat masters and re-derive the compute-dtype copy."""
         with torch.no_grad():
             for pv, new in zip(tree_flatten(self.state.params)[0], leaves):
-                pv.copy_(tensor(new).to(dev, pv.dtype))
-            for gi, grp in enumerate(self._groups):
+                if new is not None:
+                    pv.copy_(_as_tensor(new).to(self.device, pv.dtype))
+            for grp in self._groups:
                 if grp.cast is not None:
                     grp.cast.copy_(grp.param)
-                self.state.opt_state.m[gi].copy_(tensor(opt_state.m[gi]))
-                self.state.opt_state.v[gi].copy_(tensor(opt_state.v[gi]))
+
+    def _write_opt_state(self, opt_state: FusedAdamState, step: int,
+                         loss_scale: Optional[float], growth_count: int,
+                         hysteresis: Optional[int],
+                         skipped_steps: int) -> None:
+        dev = self.device
+        with torch.no_grad():
+            for gi in range(len(self._groups)):
+                self.state.opt_state.m[gi].copy_(
+                    _as_tensor(opt_state.m[gi]))
+                self.state.opt_state.v[gi].copy_(
+                    _as_tensor(opt_state.v[gi]))
             sc = self._scaler_kw
             i32 = dict(dtype=torch.int32, device=dev)
             self.state = self.state.replace(
@@ -395,7 +522,6 @@ class DeepSpeedEngine:
                     sc["hysteresis_init"] if hysteresis is None
                     else int(hysteresis), **i32),
                 skipped_steps=torch.tensor(int(skipped_steps), **i32))
-        self.global_steps = int(step) + int(skipped_steps)
 
     # ------------------------------------------------------------------ #
     # Train / eval
@@ -447,7 +573,7 @@ class DeepSpeedEngine:
                 for xs in zip(*leaves)])
         micro_batches = self._split_micro_batches(self._to_device(batch))
         self.tput_timer.start()
-        metrics = self._train_step(micro_batches)
+        metrics = self._train_step(micro_batches, self.global_steps)
         self.global_steps += 1
         self.micro_steps += self.gradient_accumulation_steps()
         self.global_samples += self.train_batch_size()
@@ -457,11 +583,30 @@ class DeepSpeedEngine:
         self.tput_timer.stop()
         self.last_metrics = metrics
         self._maybe_log(metrics)
+        self._maybe_auto_save()
         return metrics["loss"]
 
-    def _train_step(self, micro_batches: List[Any]
+    def _maybe_auto_save(self) -> None:
+        """Auto-save (``checkpoint.snapshot_every``): tag global_stepN
+        into the configured save_dir."""
+        if self._ckpt_every > 0 and \
+                self.global_steps % self._ckpt_every == 0:
+            self.save_checkpoint(self._ckpt_dir)
+
+    def step_generator(self, step: Optional[int] = None) -> torch.Generator:
+        """The generator step ``step`` (default: the next one,
+        ``global_steps``) draws its dropout masks from: seeded with the
+        base seed folded with the step, as the JAX engine folds the step
+        into its base key. A fresh generator a step costs no host sync
+        and makes a resumed run draw what an uninterrupted one would."""
+        step = self.global_steps if step is None else int(step)
+        return torch.Generator(device=self.device).manual_seed(
+            fold_in(self._base_seed, step))
+
+    def _train_step(self, micro_batches: List[Any], step: int
                     ) -> Dict[str, torch.Tensor]:
         st = self.state
+        generator = self.step_generator(step)
         gas = len(micro_batches)
         scale = st.loss_scale
         leaves = self._loss_leaves
@@ -470,8 +615,7 @@ class DeepSpeedEngine:
         mean_loss = None
         moe_sum: Dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro_batches):
-            scaled, (raw, aux) = scaled_loss(params, mb, self.generator,
-                                             scale)
+            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale)
             if self._moe_metrics:
                 if not (isinstance(aux, dict) and "moe" in aux):
                     raise ValueError(
@@ -503,9 +647,11 @@ class DeepSpeedEngine:
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
-            sr_seed = torch.randint(
-                -2 ** 31, 2 ** 31 - 1, (), generator=self.generator,
-                device=self.device, dtype=torch.int32) \
+            # (a fill kernel, not a host-to-device copy: no host sync)
+            sr_seed = torch.full(
+                (), _int32(fold_in(fold_in(self._base_seed, step),
+                                   _SR_FOLD)),
+                dtype=torch.int32, device=self.device) \
                 if self._master_free else None
             opt_state, grad_norm, overflow = self.optimizer.step(
                 self._groups, st.opt_state, clip=clip,
@@ -545,10 +691,366 @@ class DeepSpeedEngine:
 
     backward = step = forward
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _unported("checkpoint save/load", "slice 6: checkpointing")
+    # ------------------------------------------------------------------ #
+    # Checkpointing (the JAX engine's files, runtime/async_ckpt.py)
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict[str, Any]] = None,
+                        save_latest: bool = True) -> bool:
+        """Save a checkpoint. With ``checkpoint.async`` the call returns
+        after the snapshot (the state copied whole to host memory, one
+        wait on the card) and a background thread serializes and
+        commits; otherwise the whole save runs inline. Both routes share
+        the snapshot and the two-phase commit, so the files are byte for
+        byte the same either way."""
+        if self._async_ckpt is not None:
+            return self._save_checkpoint_async(save_dir, tag, client_state,
+                                               save_latest)
+        return self._save_checkpoint(save_dir, tag, client_state,
+                                     save_latest)
 
-    load_checkpoint = save_checkpoint
+    def _save_checkpoint_async(self, save_dir: str, tag: Optional[str],
+                               client_state: Optional[Dict[str, Any]],
+                               save_latest: bool) -> bool:
+        err = self._async_ckpt.last_error
+        if err is not None:
+            # Surface a failed background write on the NEXT save, where
+            # a caller can react — not silently in a daemon thread.
+            self._async_ckpt.last_error = None
+            raise RuntimeError(
+                "a previous background checkpoint write failed "
+                f"({type(err).__name__}: {err}); the checkpoint it was "
+                "writing is lost (latest still names the prior one)") \
+                from err
+        # Bound host memory: each pending snapshot is a full host copy
+        # of the state. A writer still wedged after writer_timeout_s
+        # fails the save loudly rather than queueing another copy.
+        if not self._async_ckpt.wait_below(
+                self._ckpt_max_pending, timeout=self._ckpt_writer_timeout):
+            raise RuntimeError(
+                "checkpoint writer still busy after "
+                f"{self._ckpt_writer_timeout:.0f}s — refusing to queue "
+                "another full-state host snapshot past "
+                f"max_pending_snapshots={self._ckpt_max_pending} (see the "
+                "writer watchdog's stack dump)")
+        snap = self._snapshot_checkpoint(save_dir, tag, client_state,
+                                         save_latest)
+        crash_point("after_snapshot")
+        self._async_ckpt.submit(snap)
+        self._note_saved(save_dir, save_latest)
+        log_dist(f"checkpoint snapshot {snap.path} taken (background "
+                 "write queued)", ranks=[0])
+        return True
+
+    def _save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                         client_state: Optional[Dict[str, Any]] = None,
+                         save_latest: bool = True) -> bool:
+        """Synchronous save: snapshot + inline commit."""
+        snap = self._snapshot_checkpoint(save_dir, tag, client_state,
+                                         save_latest)
+        path = commit_snapshot(snap)
+        self._note_saved(save_dir, save_latest)
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+        return True
+
+    def _note_saved(self, save_dir: str, save_latest: bool) -> None:
+        """The last step whose state reached the auto-save dir's
+        ``latest`` — the preemption save's dedup key."""
+        if save_latest and self._ckpt_dir and \
+                os.path.abspath(save_dir) == os.path.abspath(self._ckpt_dir):
+            self._last_saved_step = self.global_steps
+
+    def _snapshot_checkpoint(self, save_dir: str, tag: Optional[str],
+                             client_state: Optional[Dict[str, Any]],
+                             save_latest: bool) -> CheckpointSnapshot:
+        """Capture the state into a host-side ``CheckpointSnapshot`` in
+        the JAX engine's layout at mp 1 and dp 1: the model file, one
+        optimizer file, and the meta. Each flat buffer (params, m, v)
+        is copied whole to host memory with the six scalars stacked into
+        one int32 tensor, behind one wait on the card; the moments'
+        conversion to the JAX layout and the msgpack encoding run in the
+        lazy blob builders, so the async writer pays for them."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        self._checkpoint_tag_validation(tag)
+        meta: Dict[str, Any] = {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            "dp_world_size": 1,
+            "ds_config_precision": self.config.precision_dtype,
+            "client_state": client_state or {},
+            "fused_moment_layout": FUSED_MOMENT_LAYOUT,
+        }
+        if self.lr_scheduler is not None and \
+                hasattr(self.lr_scheduler, "state_dict"):
+            meta["lr_scheduler"] = self.lr_scheduler.state_dict()
+
+        st = self.state
+        opt = st.opt_state
+        scalars = torch.stack([
+            opt.count.to(torch.int32), st.step.to(torch.int32),
+            st.loss_scale.to(torch.float32).view(torch.int32),
+            st.growth_count.to(torch.int32), st.hysteresis.to(torch.int32),
+            st.skipped_steps.to(torch.int32)])
+        G = len(self._groups)
+        host = _host_copies([g.param for g in self._groups] + list(opt.m) +
+                            list(opt.v) + [scalars])
+        sc = host[-1].numpy()
+        count, step_v, growth_v, hyst_v, skipped_v = (
+            np.array(sc[i]) for i in (0, 1, 3, 4, 5))
+        scale_v = np.array(sc[2:3].view(np.float32)[0])
+        self.skipped_steps = int(skipped_v)
+        meta["skipped_steps"] = self.skipped_steps
+
+        leaves: List[Any] = [None] * len(tree_flatten(st.params)[0])
+        for grp, idxs, hp in zip(self._groups, self._group_leaves, host):
+            for i, view in zip(idxs, grp.views(hp)):
+                leaves[i] = view
+        host_params = tree_unflatten(self._treedef, leaves)
+        host_m, host_v = host[G:2 * G], host[2 * G:3 * G]
+        meta["optim_shards"] = 1
+        meta["optim_shard_axes"] = [None] * (1 + 2 * G)
+
+        def model_blob(hp=host_params) -> bytes:
+            return msgpack_serialize({"module": hp})
+
+        def optim_blob(hp=host_params, hm=host_m, hv=host_v) -> bytes:
+            jcount, jm, jv = convert.to_jax_fused_adam_state(
+                FusedAdamState(count=count, m=hm, v=hv), hp)
+            blob: Dict[str, Any] = {"0": np.asarray(jcount)}
+            for i, buf in enumerate(list(jm) + list(jv)):
+                blob[str(i + 1)] = buf
+            blob["__scalars__"] = {
+                "step": step_v, "loss_scale": scale_v,
+                "growth_count": growth_v, "hysteresis": hyst_v,
+                "skipped": skipped_v}
+            return msgpack_serialize(blob)
+
+        return CheckpointSnapshot(
+            save_dir=save_dir, tag=str(tag), save_latest=save_latest,
+            meta=meta, blobs=[(MODEL_FILE, model_blob),
+                              (OPTIM_SHARD_FMT.format(0), optim_blob)],
+            is_writer=True, fsync=self._ckpt_fsync)
+
+    def preempt_save(self, reason: str = "SIGTERM") -> bool:
+        """Final snapshot+commit for a dying run — the PreemptSaver's
+        SIGTERM entry (callable directly). A background write in flight
+        is waited for instead (that commit is the final checkpoint); a
+        step already saved is not saved again. True when ``latest``
+        names a checkpoint of the current step on return."""
+        if not self._ckpt_dir:
+            return False
+        ck = self._async_ckpt
+        awaited_ok = True
+        if ck is not None and ck.in_flight:
+            awaited_ok = bool(ck.wait(timeout=self._ckpt_writer_timeout))
+        # _last_saved_step is stamped at SUBMIT time; trust it only when
+        # the writer committed.
+        write_failed = ck is not None and ck.last_error is not None
+        if awaited_ok and not write_failed and \
+                self._last_saved_step == self.global_steps:
+            return True
+        # Inline even under async: a queued write would die with the
+        # process.
+        snap = self._snapshot_checkpoint(self._ckpt_dir, None, None, True)
+        commit_snapshot(snap)
+        if write_failed:
+            # The inline commit superseded the lost write.
+            ck.last_error = None
+        self._last_saved_step = self.global_steps
+        log_dist(f"preemption save ({reason}): committed {snap.path}",
+                 ranks=[0])
+        return True
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True
+                        ) -> Tuple[Optional[str], Dict[str, Any]]:
+        """Load a checkpoint of the port or of the JAX engine (``tag``,
+        else the one ``latest`` names). Returns ``(path, client_state)``,
+        or ``(None, {})`` with the engine untouched when there is no
+        complete checkpoint to load (no ``latest``, a missing tag, a
+        torn tag without its ``engine_meta.json`` seal). Every file is
+        read and checked before any state changes. A save from several
+        dp ranks loads by joining its optimizer shards along the axes
+        its meta records. ``load_module_strict=False`` loads the saved
+        leaves whose path and shape match and keeps the others."""
+        if tag is None:
+            latest = os.path.join(load_dir, LATEST_FILE)
+            if not os.path.isfile(latest):
+                logger.warning(f"no 'latest' file at {load_dir}; nothing "
+                               "loaded")
+                return None, {}
+            with open(latest) as f:
+                tag = f.read().strip()
+        path = os.path.join(load_dir, str(tag))
+        if not os.path.isdir(path):
+            logger.warning(f"checkpoint {path} not found; nothing loaded")
+            return None, {}
+        if not is_complete(path):
+            logger.warning(
+                f"checkpoint {path} is INCOMPLETE (no engine_meta.json "
+                "completeness seal) — a torn/interrupted save; refusing "
+                "to load it")
+            return None, {}
+        with open(os.path.join(path, META_FILE)) as f:
+            meta = json.load(f)
+
+        if meta.get("pipeline_layer_files"):
+            raise _unported("a checkpoint with pipeline per-layer files",
+                            "slice 6: parallel axes and comm extras")
+        if meta.get("mp_shards"):
+            raise _unported(f"a tensor-parallel checkpoint "
+                            f"({meta['mp_shards']} mp_rank model files)",
+                            "slice 6: parallel axes and comm extras")
+        optim_file = os.path.join(path, OPTIM_FILE_FMT)
+        legacy_optim = None
+        if load_optimizer_states and not meta.get("optim_shards") and \
+                os.path.isfile(optim_file):
+            with open(optim_file, "rb") as f:
+                legacy_optim = msgpack_restore(f.read())
+            if isinstance(legacy_optim, dict) and "offload" in legacy_optim:
+                raise _unported("a ZeRO-Offload checkpoint (host optimizer "
+                                "state)", "slice 6: ZeRO-Offload")
+        if load_optimizer_states and \
+                int(meta.get("fused_moment_layout", 1)) != \
+                FUSED_MOMENT_LAYOUT:
+            # Refused before any state changes: the pre-layout-2 flat
+            # buffers can have the same size and would scramble moments
+            # across leaves.
+            raise ValueError(
+                f"checkpoint {path} stores fused optimizer moments in the "
+                "pre-V-interleaved flat layout (no fused_moment_layout=2 "
+                "in engine_meta.json); load with load_optimizer_states="
+                "False (params restore, moments re-initialize)")
+        if legacy_optim is not None:
+            raise ValueError(
+                f"{optim_file} has no shard map in engine_meta.json "
+                "(optim_shards) — restore the sidecar, or load with "
+                "load_optimizer_states=False")
+
+        model_file = os.path.join(path, MODEL_FILE)
+        if not os.path.isfile(model_file):
+            logger.warning(f"checkpoint {model_file} not found")
+            return None, {}
+        with open(model_file, "rb") as f:
+            probe = msgpack_restore(f.read())
+        if not (isinstance(probe, dict) and "module" in probe):
+            raise ValueError(
+                f"{model_file} is a SHARDED (mp_rank) model checkpoint but "
+                "engine_meta.json does not say so — restore the sidecar")
+        new_leaves = self._checkpoint_param_leaves(probe["module"],
+                                                   load_module_strict)
+
+        opt_update = None
+        if load_optimizer_states and meta.get("optim_shards"):
+            n = int(meta["optim_shards"])
+            blobs = self._read_shard_blobs(path, OPTIM_SHARD_FMT, n)
+            if blobs is None:
+                return None, {}
+            G = len(self._groups)
+            leaves = self._assemble_shards(blobs, meta["optim_shard_axes"],
+                                           1 + 2 * G)
+            shards = max(convert.JAX_VIRTUAL_SHARDS,
+                         int(meta.get("dp_world_size", 1)))
+            try:
+                opt_state = convert.from_jax_fused_adam_state(
+                    leaves[0], leaves[1:1 + G], leaves[1 + G:],
+                    self.state.params, shards=shards)
+            except ValueError as e:
+                raise ValueError(
+                    f"checkpoint {path}: the saved moment buffers do not "
+                    "fit this engine's parameter groups — the model or "
+                    f"its precision changed since the save ({e})") from e
+            sc = blobs[0]["__scalars__"]
+            opt_update = (opt_state, int(sc["step"]),
+                          float(sc["loss_scale"]), int(sc["growth_count"]),
+                          int(sc["hysteresis"]), int(sc["skipped"]))
+
+        # Every file read and checked: now the state changes.
+        self._write_params(new_leaves)
+        if opt_update is not None:
+            self._write_opt_state(*opt_update)
+        self.global_steps = int(meta.get("global_steps", 0))
+        self.global_samples = int(meta.get("global_samples", 0))
+        self.skipped_steps = int(meta.get("skipped_steps", 0))
+        self.micro_steps = self.global_steps * \
+            self.gradient_accumulation_steps()
+        if load_lr_scheduler_states and self.lr_scheduler is not None and \
+                "lr_scheduler" in meta and \
+                hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        log_dist(f"loaded checkpoint {path} at global_step="
+                 f"{self.global_steps}", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    def _checkpoint_param_leaves(self, saved: Any,
+                                 strict: bool) -> List[Any]:
+        """The saved module tree as this engine's leaves in tree order.
+        Strict: the paths and shapes must match exactly. Not strict: a
+        leaf whose path is missing or whose shape differs is None (the
+        current value stays)."""
+        cur = tree_flatten(self.state.params)[0]
+        cur_paths = _leaf_paths(self.state.params)
+        saved_by_path = dict(zip(_leaf_paths(saved),
+                                 tree_flatten(saved)[0]))
+        out: List[Any] = []
+        problems = []
+        for p, leaf in zip(cur_paths, cur):
+            val = saved_by_path.get(p)
+            if val is None:
+                problems.append(f"{p}: missing")
+            elif tuple(val.shape) != tuple(leaf.shape):
+                problems.append(f"{p}: saved {tuple(val.shape)} != "
+                                f"current {tuple(leaf.shape)}")
+                val = None
+            out.append(val)
+        extra = sorted(set(saved_by_path) - set(cur_paths))
+        problems += [f"{p}: not in this model" for p in extra]
+        if problems:
+            msg = "checkpoint module tree differs: " + "; ".join(problems)
+            if strict:
+                raise ValueError(msg + " (load_module_strict=False keeps "
+                                 "the current value of those leaves)")
+            logger.warning(msg + " — keeping the current values")
+        return out
+
+    @staticmethod
+    def _read_shard_blobs(path: str, fmt: str, n: int):
+        """Decode all ``n`` shard files once; None if any is missing."""
+        blobs = []
+        for r in range(n):
+            fp = os.path.join(path, fmt.format(r))
+            if not os.path.isfile(fp):
+                logger.warning(f"checkpoint shard {fp} not found")
+                return None
+            with open(fp, "rb") as f:
+                blobs.append(msgpack_restore(f.read()))
+        return blobs
+
+    @staticmethod
+    def _assemble_shards(blobs, axes, n_leaves: int) -> List[Any]:
+        """Join each leaf's shards along its recorded axis (a replicated
+        leaf comes from shard 0), as the JAX ``_assemble_shards``."""
+        if len(axes) != n_leaves:
+            raise ValueError(
+                f"checkpoint shard layout has {len(axes)} optimizer leaves "
+                f"but this engine has {n_leaves} — the optimizer/model "
+                "structure changed since this checkpoint was saved")
+        out = []
+        for i, ax in enumerate(axes):
+            if ax is None:
+                out.append(blobs[0][str(i)])
+            else:
+                out.append(np.concatenate([b[str(i)] for b in blobs],
+                                          axis=int(ax)))
+        return out
+
+    def _checkpoint_tag_validation(self, tag: str) -> None:
+        """The JAX engine's cross-host tag vote; the port runs one
+        process, where there is nothing to compare."""
 
 
 __all__ = ["DeepSpeedEngine", "EngineState"]

@@ -52,6 +52,14 @@ class _ScheduleBase:
             last_batch_iteration = self.last_batch_iteration + 1
         self.last_batch_iteration = last_batch_iteration
 
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint's ``engine_meta.json`` keeps of the
+        schedule (the JAX package's format)."""
+        return {"last_batch_iteration": self.last_batch_iteration}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.last_batch_iteration = sd["last_batch_iteration"]
+
 
 class LRRangeTest(_ScheduleBase):
     """lr(t) = min_lr * (1 + (t/step_size) * step_rate), continuous or

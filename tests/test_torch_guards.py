@@ -25,7 +25,8 @@ from deepspeed_tpu_torch.runtime import config as tconfig
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deepspeed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "deepspeed_tpu")
 CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
 
 

@@ -360,7 +360,7 @@ def test_initialize_without_cuda_or_device_raises(monkeypatch):
     ({"moe": {"num_experts": 4, "expert_parallel_size": 2}}, "moe"),
     ({"progressive_layer_drop": {"enabled": True}},
      "progressive_layer_drop"),
-    ({"checkpoint": {"async": True}}, "checkpoint"),
+    ({"telemetry": {"enabled": True}}, "telemetry"),
     ({"optimizer": {"type": "AdamW", "params": {"fused": False}}},
      "fused: false"),
     ({"optimizer": {"type": "SGD", "params": {}}}, "'sgd' is not ported"),
@@ -384,9 +384,6 @@ def test_unported_engine_paths_raise(monkeypatch):
     for call in (eng.forward, eng.backward, eng.step):
         with pytest.raises(NotImplementedError, match="forward/backward"):
             call()
-    for call in (eng.save_checkpoint, eng.load_checkpoint):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            call("ckpt")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="more than one card"):
         _init()
