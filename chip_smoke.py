@@ -29,7 +29,12 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    also timed by the card's own time (graph replay) and with a cold L2,
    as are the library calls beside them, the grad sum
    of squares and the fused Adam step over the 124M-element fp32
-   parameter group, the latter for each flag set the engine uses; then
+   parameter group, the latter for each flag set the engine uses, and
+   both in their shard-local mode (``check_fused_adam_sharded``: the
+   group in the V-interleaved layout split over dp 2, 4 and 8, each
+   rank's rows launched with its base, K6 joined bit-equal to one
+   whole-buffer launch in every flag set, K5's partials summed within
+   1e-6, each local launch timed); then
    the flash attention kernels (bf16, 12 heads of 64, causal): the
    forward and the fused backward at the training shape (8 x 1024), the
    forward and the split dq / dk-dv backward at sequence 768 and at the
@@ -123,8 +128,20 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    memory, bit for bit. Printed: the sync save's ms, the async save's
    exposed snapshot ms, the background write's s, the load's ms and the
    bytes written.
-6. The ``{"kernels": [...]}`` summary line, then the result line
-   ``{"ok": true, "device": {...}}``.
+5e. ``train_zero``: data parallelism and ZeRO stages 1, 2 and 3 at
+   gpt2-small (bf16 with fp32 masters, dropout 0, 5 steps a stage) as
+   two processes on the one card joined by gloo (this script again, as
+   ``--train-zero-rank R SPEC``), each rank on its 2 x 4 x 1024 rows of
+   the main path's global batch. Asserted: both ranks' params bit-equal,
+   stage 3 bit-equal to stage 2 (losses, params, moments), the first
+   loss within 2e-3 of the world-1 step on the same global batch, and
+   the launch counts (paths ``train_zero_s1`` .. ``_s3``, both ranks)
+   exactly the main path's a step and rank. Printed: each rank's step
+   p50 and peak memory (gloo stages every collective through host
+   memory, so those step times are the host's).
+6. The ``{"kernels": [...]}`` summary line (the sqnorm and fused_adam
+   rows also carry their shard-local launches by dp), then the result
+   line ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -1021,6 +1038,115 @@ def check_fused_adam(dev, gen, n):
         del g, p, m, v, cast
         torch.cuda.empty_cache()
     return out
+
+
+SHARD_DPS = (2, 4, 8)
+
+
+def gpt2_leaf_sizes(cfg):
+    """The sizes of the model's parameter leaves in tree order (one fp32
+    master group), from an init on the meta device."""
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "meta")
+    return [t.numel() for t in tree_flatten(params)[0]]
+
+
+def check_fused_adam_sharded(dev, gen, sizes):
+    """K5 and K6 in their shard-local mode at gpt2-small's group in the
+    V-interleaved layout (8 x Lpad elements): for dp 2, 4 and 8, the
+    launches over each rank's rows (K6 with the rank's base in the seed
+    row), joined, against one whole-buffer launch — K6 bit-equal in
+    every flag set, the K5 partials summed within 1e-6 relative — and
+    that whole launch bit-equal to the plain version on the same inputs
+    and seed row. Each
+    local launch is timed (rank 0's rows; every rank's are the same
+    size)."""
+    Lpad = fu._group_row_len(sizes, 8)
+    N = 8 * Lpad
+    sq_recs, adam_recs = [], []
+    g = 1e-3 * torch.randn(N, device=dev, generator=gen)
+    whole = float(fu.sqnorm(g))
+    for dp in SHARD_DPS:
+        n = N // dp
+        parts = sum(float(fu.sqnorm(g[d * n:(d + 1) * n]))
+                    for d in range(dp))
+        rel = abs(parts - whole) / whole
+        assert rel <= 1e-6, ("sqnorm shard-local", dp, rel)
+        b_ms, b_by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+        rec = {"kernel": "sqnorm", "mode": "shard_local", "dp": dp,
+               "shape": [n], "dtype": "fp32",
+               "kernel_ms": time_ms(lambda: fu.sqnorm(g[:n])),
+               "plain_ms": time_ms(lambda: fu.sqnorm_plain(g[:n]),
+                                   iters=20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_err": abs(parts - whole), "max_rel_err": rel}
+        emit(rec)
+        sq_recs.append(rec)
+    del g
+    for name, p_dt, c_dt, flags, sc in ADAM_FLAG_SETS:
+        g = 0.05 * torch.randn(N, device=dev, generator=gen)
+        if flags["use_inv"]:
+            g = g * 2.0 ** 16
+        p = (0.2 * torch.randn(N, device=dev, generator=gen)).to(p_dt)
+        m = 0.01 * torch.randn(N, device=dev, generator=gen)
+        v = 1e-4 * torch.rand(N, device=dev, generator=gen)
+        scalars = torch.tensor(sc + [0.0, 0.0], device=dev)
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, one_pass=True, **flags)
+
+        def seed_row(base):
+            return torch.tensor([123456789, fu._int32(base)],
+                                dtype=torch.int32, device=dev)
+
+        def state():
+            return [p.clone(), m.clone(), v.clone(),
+                    None if c_dt is None else
+                    torch.empty(N, dtype=c_dt, device=dev)]
+        W = state()
+        fu.fused_adam_apply(g, W[0], W[1], W[2], scalars, seed_row(0),
+                            cast_out=W[3], **kw)
+        # The whole launch against the plain version on these inputs:
+        # bit-equal, as check_fused_adam holds it (both round op by op).
+        ref = fu.fused_adam_plain(g, p, m, v, scalars, seed_row(0),
+                                  cast_dtype=c_dt, **kw)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(W, ref) if a is not None]
+        plain_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in pairs)
+        assert all(torch.equal(a, b) for a, b in pairs), \
+            ("fused_adam whole launch vs plain", name, plain_err)
+        del ref, pairs
+        for dp in SHARD_DPS:
+            n = N // dp
+            S = state()
+            for d in range(dp):
+                sl = slice(d * n, (d + 1) * n)
+                fu.fused_adam_apply(
+                    g[sl], S[0][sl], S[1][sl], S[2][sl], scalars,
+                    seed_row(d * n), cast_out=None if S[3] is None
+                    else S[3][sl], **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(S, W)
+                       if a is not None)
+            assert same, ("fused_adam shard-local", name, dp)
+            p_b = p.element_size()
+            nbytes = n * (4 + p_b + 8 + p_b + 8 +
+                          (0 if c_dt is None else S[3].element_size()))
+            b_ms, b_by = bound(nbytes, 20 * n, FP32_FLOPS_PER_S)
+            sr = seed_row(0)
+            rec = {"kernel": "fused_adam", "mode": "shard_local",
+                   "flags": name, "dp": dp, "shape": [n],
+                   "param_dtype": str(p_dt).replace("torch.", ""),
+                   "kernel_ms": time_ms(lambda: fu.fused_adam_apply(
+                       g[:n], S[0][:n], S[1][:n], S[2][:n], scalars, sr,
+                       cast_out=None if S[3] is None else S[3][:n], **kw)),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "bit_equal_to_whole_launch": True, "max_err": 0.0,
+                   "whole_launch_vs_plain_max_err": plain_err}
+            emit(rec)
+            adam_recs.append(rec)
+            del S
+        del g, p, m, v, W
+        torch.cuda.empty_cache()
+    return sq_recs, adam_recs
 
 
 def _rel_err(a, b):
@@ -1973,6 +2099,169 @@ def train_checkpoint(dev, smi):
 # --------------------------------------------------------------------- #
 # Phase 5b: the block-sparse paths at gpt2-small, sequence 4096
 # --------------------------------------------------------------------- #
+# --------------------------------------------------------------------- #
+# Phase 5e: data parallelism and ZeRO 1/2/3 (two ranks on the one card)
+# --------------------------------------------------------------------- #
+ZERO_DP, ZERO_STEPS, ZERO_STAGES = 2, 5, (1, 2, 3)
+
+
+def _zero_cfg():
+    # dropout 0: the ranks' own dropout streams would differ from the
+    # world-1 step's, which the first loss is held against.
+    return dataclasses.replace(GPT2_CONFIGS["gpt2-small"],
+                               hidden_dropout=0.0, attn_dropout=0.0)
+
+
+def _zero_rank_rows(batch, micro):
+    """Rank rows of a global batch, micro-step by micro-step (the JAX
+    engine's sharding): micro-step i, rank d → rows i*micro*dp + d*micro
+    onward."""
+    rank = deepspeed_tpu_torch.parallel.comm.get_rank()
+    return torch.cat([batch[i * micro * ZERO_DP + rank * micro:
+                            i * micro * ZERO_DP + (rank + 1) * micro]
+                      for i in range(TRAIN_GAS)])
+
+
+def train_zero_rank(rank, spec_path):
+    """One rank of ``train_zero`` (a child process): gloo on the shared
+    card, the train recipe at each ZeRO stage, results to a JSON file."""
+    import hashlib
+    import torch.distributed as dist
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo", store=dist.FileStore(spec["store"], ZERO_DP),
+        world_size=ZERO_DP, rank=rank, verbose=False)
+    op_builder.load()
+    cfg = _zero_cfg()
+    micro = TRAIN_MICRO // ZERO_DP
+    batches = [torch.from_numpy(b) for b in np.load(spec["batches"])]
+    local = [_zero_rank_rows(b, micro) for b in batches]
+    out = {}
+    for stage in ZERO_STAGES:
+        eng = make_engine(cfg, "bf16", micro=micro, extra={
+            "train_batch_size": TRAIN_GAS * micro * ZERO_DP,
+            "zero_optimization": {"stage": stage}})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, _, ms, counts = run_path(eng, local)
+        peak = torch.cuda.max_memory_allocated()
+        digest = hashlib.sha256()
+        for t in tree_flatten(eng.full_params())[0]:
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        m_digest = hashlib.sha256()
+        for t in list(eng.state.opt_state.m) + list(eng.state.opt_state.v):
+            m_digest.update(t.cpu().numpy().tobytes())
+        out[str(stage)] = {"losses": losses, "ms": ms, "counts": counts,
+                           "peak_bytes": peak,
+                           "params_sha256": digest.hexdigest(),
+                           "moments_sha256": m_digest.hexdigest()}
+        del eng
+        torch.cuda.empty_cache()
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_zero(dev, smi):
+    """Data parallelism and ZeRO stages 1, 2 and 3 at gpt2-small (the
+    train recipe, bf16 with fp32 masters, dropout 0, gas 2 x 4 x 1024 a
+    rank: the main path's global batch of 2 x 8 x 1024), as two
+    processes on the one card joined by gloo (NCCL refuses two ranks on
+    one device; gloo moves CUDA tensors through host memory). Each stage
+    runs 5 steps (paths ``train_zero_s1`` .. ``_s3``, the launches of
+    both ranks). Asserted: both ranks hold the same params bit for bit;
+    stage 3 gives stage 2's losses, params and moments bit for bit; the
+    first loss is within TRAIN_LOSS_RTOL of the world-1 step on the same
+    global batch; every launch count is exactly the main path's a step
+    and rank. Printed: each rank's step p50 and peak memory — the step
+    times include gloo's staging of every collective through the host,
+    so they are the host's, not what NCCL across cards would give."""
+    cfg = _zero_cfg()
+    batches = token_stream(cfg, ZERO_STEPS, seed=SEED + 5, seq=TRAIN_SEQ,
+                           micro=TRAIN_MICRO)
+    eng = make_engine(cfg, "bf16", micro=TRAIN_MICRO)
+    ref_loss = float(eng.train_batch(batches[0]))
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    try:
+        np.save(os.path.join(tmp, "batches.npy"),
+                np.stack([b.numpy() for b in batches]))
+        spec = {"store": os.path.join(tmp, "store"),
+                "batches": os.path.join(tmp, "batches.npy"),
+                "out": os.path.join(tmp, "rank{rank}.json")}
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(ZERO_DP)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--train-zero-rank",
+             str(r), os.path.join(tmp, "spec.json")], stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(ZERO_DP)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, lg in enumerate(logs):
+            lg.seek(0)
+            text = lg.read()
+            lg.close()
+            assert rcs[r] == 0, f"train_zero rank {r} failed:\n" + \
+                text[-6000:]
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(ZERO_DP):
+            with open(spec["out"].format(rank=r)) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    expect = per_train_step(cfg)
+    counts, rec = {}, {"wall_s": wall}
+    for stage in ZERO_STAGES:
+        st = [x[str(stage)] for x in res]
+        assert all(x["params_sha256"] == st[0]["params_sha256"]
+                   for x in st), ("ranks differ", stage)
+        assert all(x["losses"] == st[0]["losses"] for x in st), stage
+        assert all(math.isfinite(l) for l in st[0]["losses"]), stage
+        for x in st:
+            want = {k: ZERO_STEPS * v for k, v in expect.items()}
+            assert x["counts"] == want, (stage, x["counts"], want)
+        counts[f"train_zero_s{stage}"] = {
+            k: sum(x["counts"][k] for x in st) for k in st[0]["counts"]}
+        rec[f"stage{stage}"] = {
+            "losses": st[0]["losses"],
+            "step_ms_p50_by_rank": [float(np.median(x["ms"][1:]))
+                                    for x in st],
+            "peak_gb_by_rank": [x["peak_bytes"] / 1e9 for x in st]}
+    for x in res:
+        for key in ("losses", "params_sha256", "moments_sha256"):
+            assert x["2"][key] == x["3"][key], ("stage 3 != stage 2", key)
+    rel = abs(res[0]["1"]["losses"][0] - ref_loss) / abs(ref_loss)
+    rec.update({"first_loss_world1": ref_loss, "first_loss_rel": rel,
+                "first_loss_rtol": TRAIN_LOSS_RTOL,
+                "stage3_bit_equal_stage2": True, "ranks_bit_equal": True,
+                "model": "gpt2-small", "dp": ZERO_DP,
+                "precision": "bf16, fp32 masters",
+                "per_rank_batch": f"{TRAIN_GAS} x {TRAIN_MICRO // ZERO_DP} x "
+                                  f"{TRAIN_SEQ}",
+                "note": "two ranks share one card through gloo, which "
+                        "stages every collective through host memory: "
+                        "the step times are the host's",
+                "card": smi})
+    assert rel <= TRAIN_LOSS_RTOL, rec
+    emit({"train_zero": rec})
+    return counts
+
+
 def sparse_attention_fn(layout):
     """The ``attention_fn`` closure the JAX package builds from a
     SparsityConfig (``sparse_attention_utils``): ``sparse_attention``
@@ -2350,6 +2639,8 @@ def main():
     gelu_bwd = check_bias_gelu_backward(dev, gen)
     sq = check_sqnorm(dev, gen, n_params)
     adam = check_fused_adam(dev, gen, n_params)
+    sq_shard, adam_shard = check_fused_adam_sharded(
+        dev, gen, gpt2_leaf_sizes(GPT2_CONFIGS["gpt2-small"]))
     flash = check_flash(dev, gen)
     sparse = check_sparse(dev, gen)
     grouped = check_grouped_gemm(dev, gen)
@@ -2363,6 +2654,7 @@ def main():
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
     counts.update(train_checkpoint(dev, smi))
+    counts.update(train_zero(dev, smi))
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
@@ -2401,10 +2693,11 @@ def main():
         summary("bias_gelu_bwd", fe_src, ref + "fused_elementwise.py:398",
                 ("bias_gelu_backward",), gelu_bwd[0], gelu_bwd),
         summary("sqnorm", fu_src, ref + "fused_update.py:257", ("sqnorm",),
-                sq[0], sq),
+                sq[0], sq + sq_shard),
         summary("fused_adam", fu_src, ref + "fused_update.py:267",
                 ("fused_adam_apply",), [r for r in adam if r["flags"] ==
-                                        "bf16_cast_cache"][0], adam),
+                                        "bf16_cast_cache"][0],
+                adam + adam_shard),
         summary("paged_attention", "deepspeed_tpu_torch/csrc/"
                 "paged_attention.cu", ref + "paged_attention.py:126",
                 ("paged_attention",), attn[0], attn),
@@ -2445,6 +2738,13 @@ def main():
     row["ms_per_moe_layer_and_micro_batch"] = sum(
         r["kernel_ms"] for r in grouped if r["dtype"] == "bf16")
     kernels.append(row)
+    # The shard-local mode's local launches (a rank's rows) by dp.
+    for row, recs in ((kernels[4], sq_shard), (kernels[5], adam_shard)):
+        row["shard_local"] = [
+            {"dp": r["dp"], "flags": r.get("flags"), "shape": r["shape"],
+             "ms": r["kernel_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "max_abs_err": r["max_err"]}
+            for r in recs]
     assert len(kernels) == 16, [k["name"] for k in kernels]
     emit({"smoke_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
@@ -2455,4 +2755,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--train-zero-rank":
+        train_zero_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

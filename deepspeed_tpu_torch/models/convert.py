@@ -12,7 +12,10 @@ of V and reshaped ``[V, r]``, the leaves concatenated along axis 1, the
 row length padded to a multiple of 8 * 1024). The port keeps each group
 as the plain concatenation of its flattened leaves. Both packages order
 the leaves the same way (dict keys sorted) and group them by dtype
-name, so the conversion moves each leaf's slice of the buffer.
+name, so the conversion moves each leaf's slice of the buffer. Across dp
+ranks at ZeRO stage >= 1 the port itself holds the V-layout, a rank its
+rows (``jax_local_rows``): a JAX shard file's moment buffers are those
+rows as they are.
 
 The JAX side is given and returned as numpy arrays (``jax.device_get``
 of the tree), which keeps this module free of JAX. Round trips are
@@ -102,6 +105,32 @@ def _to_jax_buffer(flat: np.ndarray, sizes: Sequence[int],
     return b2.reshape(-1)
 
 
+def jax_local_rows(buf: np.ndarray, sizes: Sequence[int], shards: int,
+                   dp: int, rank: int) -> np.ndarray:
+    """Rank ``rank``'s rows ``[rank*V/dp, (rank+1)*V/dp)`` of a JAX
+    V-layout group buffer (``shards`` = V virtual shards): its ZeRO
+    shard, a contiguous 1/dp of the flat buffer."""
+    _, _, Lpad = _jax_row_layout(sizes, shards)
+    b = np.asarray(buf).reshape(-1)
+    if b.size != shards * Lpad or shards % dp:
+        raise ValueError(f"a buffer of {b.size} elements is not the "
+                         f"[{shards}, {Lpad}] V-layout of leaves {list(sizes)}"
+                         f" split over dp {dp}")
+    per = shards // dp
+    return b[rank * per * Lpad:(rank + 1) * per * Lpad]
+
+
+def relayout_jax_buffer(buf: np.ndarray, sizes: Sequence[int],
+                        from_shards: int, to_shards: int) -> np.ndarray:
+    """A JAX V-layout buffer of ``from_shards`` virtual shards in the
+    layout of ``to_shards`` (a save of more than 8 dp ranks, where V
+    widened to dp, loaded at V = 8)."""
+    if from_shards == to_shards:
+        return np.asarray(buf)
+    return _to_jax_buffer(_from_jax_buffer(buf, sizes, from_shards),
+                          sizes, to_shards)
+
+
 def from_jax_fused_adam_state(count: Any, m: Sequence[np.ndarray],
                               v: Sequence[np.ndarray], np_params: Any,
                               shards: int = JAX_VIRTUAL_SHARDS
@@ -136,4 +165,5 @@ def to_jax_fused_adam_state(state: FusedAdamState, np_params: Any,
 
 
 __all__ = ["from_jax_params", "to_jax_params", "from_jax_fused_adam_state",
-           "to_jax_fused_adam_state"]
+           "to_jax_fused_adam_state", "jax_local_rows",
+           "relayout_jax_buffer"]

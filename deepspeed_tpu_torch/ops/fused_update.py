@@ -24,20 +24,34 @@ optax's association order) and the one-pass region — norm → overflow
 vote → clip coefficient → skip select — with the step count held on
 overflow. All of it stays on the device: a step costs no host sync.
 
-Layout. The JAX module interleaves every leaf over V=8 virtual shards
-so that ZeRO can shard the buffers over dp. On one card the port keeps
-one contiguous flat buffer per dtype group (``FlatGroup``), with each
-parameter a view into it, so no step copies parameters into or out of
-the buffer. Groups follow ``_float_groups``: leaves grouped by dtype,
+Layouts. Groups follow ``_float_groups``: leaves grouped by dtype,
 groups sorted by dtype name, leaves in the order ``tree_flatten`` gives
-(dict keys sorted, as in JAX). ``models/convert.py`` carries moments
-between the two layouts.
+(dict keys sorted, as in JAX).
+
+- On one card (and at ZeRO stage 0) the port keeps one contiguous flat
+  buffer per dtype group (``FlatGroup``), with each parameter a view
+  into it, so no step copies parameters into or out of the buffer.
+  ``models/convert.py`` carries moments between this layout and JAX's.
+- Across dp ranks at ZeRO stage 1-3 the optimizer works in the JAX
+  module's V-interleaved layout (``virtual_shards``, ``_group_row_len``,
+  ``_flatten_group``, ``_unflatten_group``): each leaf padded to a
+  multiple of V = 8 and reshaped ``[V, r_leaf]``, the leaves side by
+  side in a ``[V, Lpad]`` buffer. Rank d of dp (dp dividing V) owns rows
+  ``[d*V/dp, (d+1)*V/dp)``, a contiguous 1/dp of the buffer, and in a
+  leaf's own flattened order its part of that leaf is also one range,
+  ``[d*(V/dp)*r_leaf, (d+1)*(V/dp)*r_leaf)`` of the padded leaf. A
+  ``ShardGroup`` holds a rank's rows; ``FusedAdam.step`` runs K5 and K6
+  on them (the shard-local mode): the sum of squares is all-reduced
+  over the ranks, and K6's stochastic-rounding index starts at the
+  rank's first element in the V-layout, so every element draws the
+  noise the JAX kernel draws for it.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, \
     Union
 
+import numpy as np
 import torch
 
 from . import op_builder
@@ -47,6 +61,12 @@ ScheduleOrFloat = Union[Callable, float]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _U32 = 0xFFFFFFFF
+
+# The JAX module's V-layout constants (deepspeed_tpu/ops/fused_update.py:
+# _V virtual shards, rows padded to whole (8, _W) fp32 tiles).
+_V = 8
+_W = 1024
+_ROW_QUANTUM = 8 * _W
 
 
 # --------------------------------------------------------------------- #
@@ -87,6 +107,11 @@ def tree_unflatten(spec: Any, leaves: List[Any]) -> Any:
     return build(spec)
 
 
+def _int32(x: int) -> int:
+    x &= _U32
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
 def dtype_name(dt: torch.dtype) -> str:
     return str(dt).replace("torch.", "")
 
@@ -105,12 +130,19 @@ class FlatGroup:
     """One dtype group of parameters as one contiguous flat buffer.
 
     ``param`` holds the parameters (``views()`` gives each leaf as a view
-    into it), ``grad`` the fp32 gradients (same offsets), and ``cast``,
+    into it), ``grad`` the fp32 gradients (same offsets; None when
+    ``grad=False``: the ZeRO-2 engine keeps only its reduce-scattered
+    rows, in a ShardGroup), and ``cast``,
     when the engine keeps one, the compute-dtype copy of the parameters
-    that the fused step rewrites in the same pass."""
+    that the fused step rewrites in the same pass. ``base`` is K6's
+    stochastic-rounding index of the first element (the group is
+    whole)."""
+
+    base = 0
 
     def __init__(self, leaves: List[torch.Tensor], dtype: torch.dtype,
-                 device: torch.device, cast_dtype: Optional[torch.dtype]):
+                 device: torch.device, cast_dtype: Optional[torch.dtype],
+                 grad: bool = True):
         self.dtype = dtype
         self.shapes = [tuple(t.shape) for t in leaves]
         self.sizes = [t.numel() for t in leaves]
@@ -121,7 +153,7 @@ class FlatGroup:
             for t, v in zip(leaves, self.views(self.param)):
                 v.copy_(t.detach())
         self.grad = torch.zeros(self.numel, dtype=torch.float32,
-                                device=device)
+                                device=device) if grad else None
         self.cast = None
         if cast_dtype is not None and cast_dtype != dtype:
             self.cast = self.param.to(cast_dtype)
@@ -129,6 +161,192 @@ class FlatGroup:
     def views(self, buf: torch.Tensor) -> List[torch.Tensor]:
         return [buf.narrow(0, o, n).view(s)
                 for o, n, s in zip(self.offsets, self.sizes, self.shapes)]
+
+
+# --------------------------------------------------------------------- #
+# The V-interleaved layout (ZeRO shard-local)
+# --------------------------------------------------------------------- #
+def virtual_shards(dp: int = 1) -> int:
+    return max(_V, int(dp))
+
+
+def _leaf_rows(n: int, shards: int) -> int:
+    """Per-virtual-shard row length of a leaf (leaf padded to V | n)."""
+    return -(-int(n) // shards)
+
+
+def _group_row_len(sizes: List[int], shards: int) -> int:
+    """Padded row length Lpad of a group buffer: the sum of the leaves'
+    rows, padded to a multiple of 8 * 1024."""
+    L = sum(_leaf_rows(n, shards) for n in sizes)
+    return max(_ROW_QUANTUM, -(-L // _ROW_QUANTUM) * _ROW_QUANTUM)
+
+
+def group_nbytes(sizes: List[int], shards: int = _V,
+                 itemsize: int = 4) -> int:
+    """Padded group-buffer bytes (one moment buffer)."""
+    return virtual_shards(shards) * _group_row_len(sizes, shards) * itemsize
+
+
+def _leaf_columns(sizes: List[int], shards: int) -> List[Tuple[int, int]]:
+    """``(column offset, r_leaf)`` of each leaf in the ``[V, Lpad]``
+    buffer."""
+    out, off = [], 0
+    for n in sizes:
+        r = _leaf_rows(n, shards)
+        out.append((off, r))
+        off += r
+    return out
+
+
+def _flatten_group(leaves: List[torch.Tensor], shards: int, Lpad: int,
+                   dtype: torch.dtype, rows: Optional[Tuple[int, int]] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Leaves → rows ``[r0, r1)`` (default all) of the ``[shards, Lpad]``
+    V-interleaved buffer, as a ``[r1 - r0, Lpad]`` tensor (``out`` when
+    given, written in place)."""
+    r0, r1 = (0, shards) if rows is None else rows
+    if out is None:
+        out = torch.empty((r1 - r0, Lpad), dtype=dtype,
+                          device=leaves[0].device if leaves else "cpu")
+    return _pack_rows(leaves, _leaf_columns([t.numel() for t in leaves],
+                                            shards), r0,
+                      out.view(r1 - r0, Lpad))
+
+
+def _pack_rows(leaves: List[Optional[torch.Tensor]],
+               columns: List[Tuple[int, int]], r0: int,
+               out: torch.Tensor) -> torch.Tensor:
+    """Leaves (None: zeros) → their rows ``[r0, r0 + R)`` in the
+    ``[R, Lpad]`` ``out``. A leaf's part of those rows is one range of
+    its flattened values, copied by at most two strided copies; the zero
+    padding is written where it falls, so ``out`` may be reused."""
+    end = 0
+    for leaf, (off, r) in zip(leaves, columns):
+        _pack_leaf(leaf, out[:, off:off + r], r0, r)
+        end = off + r
+    out[:, end:].zero_()
+    return out
+
+
+def _pack_leaf(leaf: Optional[torch.Tensor], blk: torch.Tensor, r0: int,
+               r: int) -> None:
+    """Write a leaf's rows ``[r0, r0 + R)`` into ``blk`` (``[R, r]``,
+    a strided view); None writes zeros."""
+    R = blk.shape[0]
+    if leaf is None:
+        blk.zero_()
+        return
+    flat = leaf.reshape(-1)
+    n = flat.numel()
+    lo, hi = min(r0 * r, n), min((r0 + R) * r, n)
+    k = hi - lo
+    full, rem = divmod(k, r)
+    if full:
+        blk[:full].copy_(flat[lo:lo + full * r].view(full, r))
+    if rem:
+        blk[full, :rem].copy_(flat[lo + full * r:hi])
+        blk[full, rem:].zero_()
+        full += 1
+    if full < R:
+        blk[full:].zero_()
+
+
+def _unflatten_group(buf: torch.Tensor, outs: List[torch.Tensor],
+                     shards: int, rows: Optional[Tuple[int, int]] = None
+                     ) -> List[torch.Tensor]:
+    """Rows ``[r0, r1)`` of a V-interleaved group buffer (``buf``,
+    ``[r1 - r0, Lpad]`` or flat) → each leaf's part of them, written
+    into ``outs`` (leaf-shaped, contiguous; cast to their dtype) in
+    place. With all rows this is the JAX ``_unflatten_group``."""
+    r0, r1 = (0, shards) if rows is None else rows
+    R = r1 - r0
+    buf = buf.view(R, -1)
+    for dst, (off, r) in zip(outs, _leaf_columns(
+            [t.numel() for t in outs], shards)):
+        flat = dst.view(-1)
+        n = flat.numel()
+        lo, hi = min(r0 * r, n), min(r1 * r, n)
+        full, rem = divmod(hi - lo, r)
+        blk = buf[:, off:off + r]
+        if full:
+            flat[lo:lo + full * r].view(full, r).copy_(blk[:full])
+        if rem:
+            flat[lo + full * r:hi].copy_(blk[full, :rem])
+    return outs
+
+
+def leaf_moment_views(state: "FusedAdamState", params: Any,
+                      shards: int = _V) -> Tuple[Any, Any]:
+    """Per-leaf copies of V-interleaved moment buffers (tests and
+    debugging): ``(m_tree, v_tree)`` shaped like ``params``' float
+    leaves (None at the other positions)."""
+    leaves, spec = tree_flatten(params)
+    shards = virtual_shards(shards)
+    m_out: List[Any] = [None] * len(leaves)
+    v_out: List[Any] = [None] * len(leaves)
+    for gi, (_, idxs) in enumerate(float_groups(leaves)):
+        sizes = [leaves[i].numel() for i in idxs]
+        Lpad = _group_row_len(sizes, shards)
+        for buf, dst in ((state.m[gi], m_out), (state.v[gi], v_out)):
+            outs = [torch.empty(leaves[i].shape, dtype=buf.dtype,
+                                device=buf.device) for i in idxs]
+            _unflatten_group(buf.view(shards, Lpad), outs, shards)
+            for i, t in zip(idxs, outs):
+                dst[i] = t
+    return tree_unflatten(spec, m_out), tree_unflatten(spec, v_out)
+
+
+class ShardGroup:
+    """One dtype group in the V-interleaved layout, as one rank holds it:
+    the rows ``plan`` names (``runtime/zero/partition.row_plan``: rank d
+    of dp owns ``[d*V/dp, (d+1)*V/dp)``) of the parameters (``param``,
+    the dtype of the group: fp32 masters or bf16 master-free) and of the
+    fp32 gradients (``grad``), each ``[V/dp * Lpad]`` flat. ``base`` is
+    the rank's first element in the whole ``[V * Lpad]`` buffer: K6's
+    stochastic-rounding index starts there."""
+
+    cast = None
+
+    def __init__(self, shapes: List[Tuple[int, ...]], dtype: torch.dtype,
+                 device: torch.device, plan: Any):
+        self.dtype = dtype
+        self.shapes = [tuple(s) for s in shapes]
+        self.sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+        self.shards = plan.shards
+        self.Lpad = _group_row_len(self.sizes, self.shards)
+        self.columns = _leaf_columns(self.sizes, self.shards)
+        self.rows_per_rank = plan.rows_per_rank
+        self.rows = (plan.row0, plan.row1)
+        self.numel = self.rows_per_rank * self.Lpad
+        self.base = plan.row0 * self.Lpad
+        self.param = torch.zeros(self.numel, dtype=dtype, device=device)
+        self.grad = torch.zeros(self.numel, dtype=torch.float32,
+                                device=device)
+
+    @property
+    def full_numel(self) -> int:
+        return self.shards * self.Lpad
+
+    def local_views(self, buf: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf's ``[V/dp, r_leaf]`` block of a local-rows buffer
+        (strided views)."""
+        b2 = buf.view(self.rows_per_rank, self.Lpad)
+        return [b2[:, off:off + r] for off, r in self.columns]
+
+    def pack(self, leaves: List[Optional[torch.Tensor]],
+             out: torch.Tensor, rows: Optional[Tuple[int, int]] = None
+             ) -> torch.Tensor:
+        """Leaves (None: zeros) → ``out``, rows ``rows`` (default this
+        rank's) of the V-layout; ``out`` is flat or 2-D."""
+        r0, r1 = self.rows if rows is None else rows
+        _pack_rows(leaves, self.columns, r0, out.view(r1 - r0, self.Lpad))
+        return out
+
+    def unpack(self, buf: torch.Tensor, outs: List[torch.Tensor]) -> None:
+        """The whole V-layout buffer → each leaf, in place into the
+        leaf-shaped ``outs``."""
+        _unflatten_group(buf, outs, self.shards)
 
 
 # --------------------------------------------------------------------- #
@@ -357,17 +575,22 @@ class FusedAdam:
         inv = one if inv_scale is None else inv_scale.to(f32)
         return torch.stack([neg_lr, bc1, bc2, inv])
 
-    def step(self, groups: List[FlatGroup], state: FusedAdamState, *,
+    def step(self, groups: List[Union[FlatGroup, ShardGroup]],
+             state: FusedAdamState, *,
              clip: float = 0.0, inv_scale: Optional[torch.Tensor] = None,
              fp16: bool = False, compute_norm: bool = True,
-             sr_seed: Optional[torch.Tensor] = None
+             sr_seed: Optional[torch.Tensor] = None,
+             norm_reduce: Optional[Callable[[torch.Tensor], Any]] = None
              ) -> Tuple[FusedAdamState, torch.Tensor, torch.Tensor]:
         """One-pass clipped update of every group, in place on the
         groups' params (and cast copies) and the state's moments.
         ``inv_scale`` unscales fp16 loss-scaled grads in the kernel;
         ``sr_seed`` (int32 0-dim) turns on stochastic rounding for bf16
-        groups. Returns ``(state, grad_norm, overflow)``; ``grad_norm``
-        is -1 when not computed."""
+        groups. ``ShardGroup``s run the shard-local mode: each rank's
+        rows, the sum of squares summed over the ranks by
+        ``norm_reduce`` (an in-place all-reduce), K6's noise index from
+        the group's ``base``. Returns ``(state, grad_norm, overflow)``;
+        ``grad_norm`` is -1 when not computed."""
         dev = state.count.device
         f32 = torch.float32
         base = self._base_scalars(state.count, inv_scale)
@@ -375,6 +598,8 @@ class FusedAdam:
             nsq = torch.zeros((), dtype=f32, device=dev)
             for grp in groups:
                 nsq = nsq + sqnorm(grp.grad)
+            if norm_reduce is not None:
+                norm_reduce(nsq)
             # norm of the UNSCALED grads: ||g*inv|| == inv * ||g||.
             grad_norm = torch.sqrt(nsq) * base[3]
         else:
@@ -394,11 +619,13 @@ class FusedAdam:
                                skip, zero, zero])
         for gi, grp in enumerate(groups):
             sr = sr_seed is not None and grp.dtype == torch.bfloat16
+            # [sr seed, the group's first element in the V-layout] (the
+            # JAX seed row: the base as an int32 that wraps as uint32).
             seed = torch.stack([
                 (sr_seed + gi) if sr_seed is not None else
                 torch.zeros((), dtype=torch.int32, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev)]).to(
-                    torch.int32)
+                torch.full((), _int32(grp.base), dtype=torch.int32,
+                           device=dev)]).to(torch.int32)
             fused_adam_apply(
                 grp.grad, grp.param, state.m[gi], state.v[gi], scalars, seed,
                 b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay,
@@ -409,6 +636,8 @@ class FusedAdam:
         return FusedAdamState(count, state.m, state.v), grad_norm, overflow
 
 
-__all__ = ["FusedAdam", "FusedAdamState", "FlatGroup", "float_groups",
+__all__ = ["FusedAdam", "FusedAdamState", "FlatGroup", "ShardGroup",
+           "virtual_shards", "group_nbytes", "leaf_moment_views",
+           "float_groups",
            "tree_flatten", "tree_unflatten", "sqnorm", "sqnorm_plain",
            "fused_adam_apply", "fused_adam_plain", "stochastic_round_bits"]

@@ -304,7 +304,8 @@ class DeepSpeedConfig:
     """The training ds_config: a JSON path or a parsed dict.
 
     ``world_size`` is the number of data-parallel replicas the batch
-    triple is solved for (default 1: the port runs on one card)."""
+    triple is solved for: by default the default process group's size
+    when one is initialized (``init_distributed``), else 1."""
 
     def __init__(self, config: Union[str, Dict[str, Any]],
                  world_size: Optional[int] = None):
@@ -312,7 +313,10 @@ class DeepSpeedConfig:
             self._param_dict = config
         else:
             self._param_dict = config_utils.load_config_json(config)
-        self.world_size = 1 if world_size is None else world_size
+        if world_size is None:
+            from ..parallel.topology import dp_world_size
+            world_size = dp_world_size()
+        self.world_size = world_size
         d = self._param_dict
         if d.get(C.ELASTICITY, {}).get(C.ENABLED, C.ENABLED_DEFAULT):
             raise NotImplementedError(
@@ -508,9 +512,29 @@ class DeepSpeedConfig:
         enabled block the port does not run yet."""
         d = self._param_dict
         mesh = d.get(C.MESH, {})
+        world = int(self.world_size)
         checks = [
-            (self.zero_optimization_stage >= 3, "zero_optimization.stage 3",
-             "slice 6: dp and ZeRO-1/2/3"),
+            # The fused optimizer's V-layout has 8 virtual shards; a dp
+            # that does not divide 8 (above 8 the JAX package widens V to
+            # dp, outside its own test envelope) has no port yet.
+            (world > 1 and 8 % world != 0,
+             f"a dp world of {world} (the fused optimizer's V-layout needs "
+             "dp to divide its 8 virtual shards; JAX widens V to dp above "
+             "8, outside its own test envelope)",
+             "queue 1: dp > 8"),
+            # The SIGTERM handler runs between any two bytecodes of the
+            # main thread, and the signal reaches the ranks at different
+            # moments: the save's gathers would pair with another rank's
+            # step collectives.
+            (world > 1 and bool(self.checkpoint_config.save_dir) and
+             bool(self.checkpoint_config.preempt_save),
+             "checkpoint.preempt_save at dp > 1 (the SIGTERM handler "
+             "cannot run the save's collectives safely; set "
+             "checkpoint.preempt_save to false)",
+             "queue 1: a collective preemption save"),
+            (world > 1 and self.moe_config.num_experts > 0,
+             "MoE at dp > 1", "slice 6: parallel axes and comm extras, "
+             "queue 1 item 8"),
             (bool(self.zero_config.cpu_offload),
              "zero_optimization.cpu_offload", "slice 6: ZeRO-Offload"),
             (bool(self.sparse_gradients_enabled), "sparse_gradients",

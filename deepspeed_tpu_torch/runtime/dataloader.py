@@ -2,9 +2,10 @@
 ``RepeatingLoader``, ``DeepSpeedDataLoader`` and ``ArrayDataset``.
 
 The loader yields batches as stacked numpy arrays (one process feeds
-the card); the engine moves a batch to the card in one copy. On one
-card the loader's data-parallel world is 1 and its rank 0, which is
-what it takes unless told otherwise.
+each card); the engine moves a batch to the card in one copy. Its
+data-parallel world and rank default to the default process group's (1
+and 0 without one), as the JAX loader's default to the process count
+and index.
 """
 from __future__ import annotations
 
@@ -63,8 +64,8 @@ class DeepSpeedDataLoader:
     def __init__(self, dataset: Any, batch_size: int,
                  collate_fn: Optional[Callable] = None,
                  shuffle: bool = False, seed: int = 0, drop_last: bool = True,
-                 data_parallel_world_size: int = 1,
-                 data_parallel_rank: int = 0):
+                 data_parallel_world_size: Optional[int] = None,
+                 data_parallel_rank: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or default_collate
@@ -72,8 +73,12 @@ class DeepSpeedDataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
-        self.dp_world = data_parallel_world_size
-        self.dp_rank = data_parallel_rank
+        from ..parallel import topology
+        self.dp_world = data_parallel_world_size \
+            if data_parallel_world_size is not None \
+            else topology.dp_world_size()
+        self.dp_rank = data_parallel_rank \
+            if data_parallel_rank is not None else topology.dp_rank()
         self.fetch_wait_s = 0.0
         self._len = self._shard_len() // batch_size if drop_last else \
             -(-self._shard_len() // batch_size)

@@ -1,4 +1,4 @@
-"""The training engine on one card (port of
+"""The training engine, on one card or one process per card (port of
 ``deepspeed_tpu/runtime/engine.py::DeepSpeedEngine``, its main path).
 
 ``train_batch`` runs one iteration: for each of the gas micro-batches
@@ -26,11 +26,40 @@ the views of that copy (the parameters themselves in fp32 and
 master-free runs); each micro-batch's gradients are added into the fp32
 buffers, never accumulated by autograd in a bf16 ``.grad``.
 
+Data parallelism and ZeRO. With a process group up
+(``init_distributed``), each rank trains on its own ``gas * micro``
+rows of the global batch and the engine syncs the grads by ZeRO stage,
+with explicit collectives (the JAX engine's explicit schedule,
+``_build_explicit_zero2_grads``):
+
+- stage 0: the natural flat grads all-reduced, the whole-buffer K5/K6
+  on every rank;
+- stage 1 (and stage 2 with ``reduce_scatter: false``): all-reduced,
+  then each rank updates its rows of the fused optimizer's V-layout
+  (``ops/fused_update.ShardGroup``: the shard-local K5/K6, the sum of
+  squares all-reduced, K6's noise index from the rank's base);
+- stage 2: each micro-step's grads packed into the V-layout in fp32 and
+  reduce-scattered, each rank accumulating its rows;
+- stage 3: each rank holds only its rows of the masters; every
+  micro-step gathers the leaves in the compute dtype
+  (``zero/stage3.gather_cast``), saved for the backward pass as
+  re-gathers, and the fp32 reduce-scatter is the gather's backward.
+
+At stages 1-2 the updated rows are all-gathered into the natural
+buffers the model views and the compute-dtype copy is re-cast from
+them. The loss of each rank is its own rows' mean, so the summed grads
+are dp times the global mean's: the kernel's unscale multiplies by
+1/dp as well (exact for dp a power of two). The reported loss is the
+global mean (one scalar all-reduce), and the fp16 overflow vote is
+global through the all-reduced norm. At dp 1 none of this runs: every
+stage is the one-card step.
+
 Random stream. Each step draws its dropout masks and its stochastic-
 rounding seed from a generator derived from the engine's base seed and
-the step (``step_generator``), as the JAX engine folds the step into
-its base key, so a run resumed from a checkpoint draws what a run that
-never stopped would have drawn.
+the step (``step_generator``; at dp > 1 the dropout stream is also
+folded with the rank), as the JAX engine folds the step into its base
+key, so a run resumed from a checkpoint draws what a run that never
+stopped would have drawn.
 
 Checkpoints (``save_checkpoint``, ``load_checkpoint``, the
 ``checkpoint`` block's async saving, auto-save and SIGTERM save) are
@@ -40,13 +69,16 @@ the fp32 masters, or bf16 without masters), the optimizer file
 ``zero_pp_rank_0_mp_rank_00_optim_states.msgpack`` (the Adam count and
 moments in the JAX V-interleaved layout, ``models/convert.py``, and the
 loss-scale scalars), ``engine_meta.json`` (the counters, the seal of
-the two-phase commit) and ``latest`` (runtime/async_ckpt.py). A JAX
-save from several dp ranks loads by joining its optimizer shards.
+the two-phase commit) and ``latest`` (runtime/async_ckpt.py). At dp > 1
+there is one optimizer file per rank (``zero_pp_rank_{d}``): at ZeRO
+stage >= 1 a rank's moment rows, gathered to rank 0, which writes
+alone. A save from any dp (of the port or of JAX) loads at any dp
+dividing 8 by joining the optimizer shards and taking this rank's rows.
 
 What the port does not run yet raises ``NotImplementedError`` at
-construction, naming the ROADMAP slice that brings it: more than one
-card, ZeRO stage 3, ZeRO-Offload, the pipeline and the other parallel
-axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
+construction, naming the ROADMAP slice that brings it: a dp that does
+not divide 8, MoE at dp > 1, ZeRO-Offload, the pipeline and the other
+parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
 remat and progressive layer drop, the ``forward/backward/step`` trio,
 client optimizer objects, optimizers other than Adam/AdamW, and the
 unfused paths
@@ -74,8 +106,13 @@ from .. import constants as C
 from ..models import convert
 from ..models.transformer import check_trainable
 from ..ops.grouped_gemm import check_grouped_gemm
-from ..ops.fused_update import (FlatGroup, FusedAdamState, float_groups,
-                                tree_flatten, tree_unflatten)
+from ..ops.fused_update import (FlatGroup, FusedAdamState, ShardGroup,
+                                _int32, float_groups, tree_flatten,
+                                tree_unflatten)
+from ..parallel import comm
+from ..parallel.topology import dp_rank, dp_world_size
+from .zero.partition import describe_sharding, row_plan
+from .zero.stage3 import _gather, gather_tree, regather_saved
 from ..ops.optimizers import build_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
@@ -100,11 +137,6 @@ def fold_in(seed: int, data: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return z ^ (z >> 31)
-
-
-def _int32(x: int) -> int:
-    x &= 0xFFFFFFFF
-    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
@@ -210,7 +242,8 @@ def _unported(feature: str, where: str) -> NotImplementedError:
 
 
 class DeepSpeedEngine:
-    """Config-driven training engine on one card."""
+    """Config-driven training engine: one card, or one process per card
+    over the default process group."""
 
     def __init__(self, args=None, model=None, optimizer=None,
                  model_params=None, training_data=None, lr_scheduler=None,
@@ -220,21 +253,40 @@ class DeepSpeedEngine:
                  rng: Union[int, torch.Generator, None] = None,
                  device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if mpu is not None:
-            world = max(world, int(mpu.get_data_parallel_world_size()))
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized():
-            world = max(world, torch.distributed.get_world_size())
-        if world > 1:
-            raise _unported(f"a world size of {world} (more than one card)",
-                            "slice 6: dp and ZeRO-1/2/3")
+        # One process per card: the dp world and rank are the default
+        # process group's (parallel/comm.init_distributed).
+        if comm.is_initialized():
+            self.dp, self.dp_rank = dp_world_size(), dp_rank()
+        else:
+            env_world = int(os.environ.get("WORLD_SIZE", "1"))
+            if env_world > 1:
+                raise RuntimeError(
+                    f"WORLD_SIZE={env_world} but no process group is "
+                    "initialized: call deepspeed_tpu_torch.init_distributed"
+                    "() in every process before initialize()")
+            self.dp, self.dp_rank = 1, 0
+        if mpu is not None and \
+                int(mpu.get_data_parallel_world_size()) != self.dp:
+            raise ValueError(
+                f"mpu says dp {mpu.get_data_parallel_world_size()} but the "
+                f"process group has {self.dp} ranks")
         if config is None:
             raise ValueError("DeepSpeed requires a config")
         self.config = config if isinstance(config, DeepSpeedConfig) \
-            else DeepSpeedConfig(config, world_size=1)
+            else DeepSpeedConfig(config, world_size=self.dp)
+        if self.config.world_size != self.dp:
+            raise ValueError(
+                f"the DeepSpeedConfig was solved for world_size "
+                f"{self.config.world_size}, the process group has {self.dp}")
         for feature, where in self.config.unported_features():
             raise _unported(feature, where)
+        # ZeRO across ranks (only at dp > 1: one card runs every stage as
+        # the contiguous one-card path, and stage 3 at dp 1 is stage 2).
+        stage = self.zero_optimization_stage() if self.dp > 1 else 0
+        self._shard_local = stage >= 1        # K5/K6 on this rank's rows
+        self._zero3 = stage >= 3              # params held as rows too
+        self._rs_grads = stage >= 3 or (
+            stage == 2 and bool(self.config.zero_config.reduce_scatter))
         # The `moe` block promises the moe_* metrics. The model is built
         # apart (TransformerConfig.moe); a block with no MoE stats from
         # the loss_fn behind it raises at the first step.
@@ -300,6 +352,10 @@ class DeepSpeedEngine:
             schedule_fn)
 
         # Flat parameter groups; leaves in tree order view into them.
+        # At ZeRO stage >= 1 across ranks each group is also held as this
+        # rank's rows of the V-interleaved layout (a ShardGroup: the
+        # masters the optimizer updates, the grads it reads); at stage 3
+        # only as those rows.
         leaves, self._treedef = tree_flatten(init_params)
         masters = []
         for leaf in leaves:
@@ -308,29 +364,54 @@ class DeepSpeedEngine:
                 raise TypeError("the port's engine trains floating-point "
                                 f"parameter trees, got a {t.dtype} leaf")
             masters.append(t.detach().to(self.device, master_dtype))
+        if self.dp > 1:
+            # Every rank starts from rank 0's parameters, as DeepSpeed's
+            # engine broadcasts its model (the JAX mesh replicates one).
+            for t in masters:
+                comm.broadcast(t, 0)
+        self._leaf_shapes = [tuple(t.shape) for t in masters]
         cast_dtype = self.compute_dtype if self._use_cast_cache else None
         self._groups: List[FlatGroup] = []
+        self._shards: List[ShardGroup] = []
         n = len(leaves)
         param_views: List[Any] = [None] * n
         grad_views: List[Any] = [None] * n
         cast_views: List[Any] = [None] * n
         self._group_leaves: List[List[int]] = []
+        plan = row_plan(self.dp, self.dp_rank)
         for dt, idxs in float_groups(masters):
-            grp = FlatGroup([masters[i] for i in idxs], dt, self.device,
-                            cast_dtype)
-            self._groups.append(grp)
             self._group_leaves.append(idxs)
-            for i, pv, gv in zip(idxs, grp.views(grp.param),
-                                 grp.views(grp.grad)):
-                param_views[i], grad_views[i] = pv, gv
+            if self._shard_local:
+                sg = ShardGroup([self._leaf_shapes[i] for i in idxs], dt,
+                                self.device, plan)
+                sg.pack([masters[i] for i in idxs], sg.param)
+                self._shards.append(sg)
+            if self._zero3:
+                for i, pv in zip(idxs, sg.local_views(sg.param)):
+                    param_views[i] = pv
+                continue
+            # (ZeRO-2 reduce-scatters into the ShardGroup's rows: no
+            # whole-group grad buffer)
+            grp = FlatGroup([masters[i] for i in idxs], dt, self.device,
+                            cast_dtype, grad=not self._rs_grads)
+            self._groups.append(grp)
+            for i, pv in zip(idxs, grp.views(grp.param)):
+                param_views[i] = pv
+            if grp.grad is not None:
+                for i, gv in zip(idxs, grp.views(grp.grad)):
+                    grad_views[i] = gv
             if grp.cast is not None:
                 for i, cv in zip(idxs, grp.views(grp.cast)):
                     cast_views[i] = cv
         del masters
         self._grad_views = grad_views
-        self._loss_leaves = [
+        self._loss_leaves = [] if self._zero3 else [
             (cv if cv is not None else pv).requires_grad_(True)
             for pv, cv in zip(param_views, cast_views)]
+        # The groups the fused step updates, and V-layout scratch
+        # buffers (by group and dtype) for packing and gathering.
+        self._opt_groups = self._shards or self._groups
+        self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
 
         sc = self._loss_scaler_config()
         self._scaler_kw = dict(
@@ -342,14 +423,14 @@ class DeepSpeedEngine:
         self.state = EngineState(
             step=torch.zeros((), **i32),
             params=tree_unflatten(self._treedef, param_views),
-            opt_state=self.optimizer.init(self._groups),
+            opt_state=self.optimizer.init(self._opt_groups),
             loss_scale=torch.tensor(sc["init_scale"], dtype=torch.float32,
                                     device=dev),
             growth_count=torch.zeros((), **i32),
             hysteresis=torch.tensor(sc["hysteresis"], **i32),
             skipped_steps=torch.zeros((), **i32),
             cast_params=tree_unflatten(self._treedef, cast_views)
-            if self._use_cast_cache else None)
+            if self._use_cast_cache and not self._zero3 else None)
 
         # Host-side counters.
         self.global_steps = 0
@@ -396,7 +477,12 @@ class DeepSpeedEngine:
             self._preempt_saver.install()
         log_dist(f"DeepSpeedEngine initialized: device={dev}, "
                  f"dtype={self.config.precision_dtype}, "
-                 f"zero_stage={self.zero_optimization_stage()}", ranks=[0])
+                 f"zero_stage={self.zero_optimization_stage()}, "
+                 f"dp={self.dp}", ranks=[0])
+        if self.dp > 1:
+            log_dist(describe_sharding(init_params, self.dp,
+                                       self.zero_optimization_stage()),
+                     ranks=[0])
 
     # ------------------------------------------------------------------ #
     # Construction helpers
@@ -463,7 +549,8 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None):
         return DeepSpeedDataLoader(
             dataset, batch_size or self.train_micro_batch_size_per_gpu(),
-            collate_fn=self.collate_fn)
+            collate_fn=self.collate_fn, data_parallel_world_size=self.dp,
+            data_parallel_rank=self.dp_rank)
 
     # ------------------------------------------------------------------ #
     # State import
@@ -476,7 +563,8 @@ class DeepSpeedEngine:
         """Replace the training state in place: ``params`` a tree like
         the initial one (tensors or numpy), ``opt_state`` moments in this
         engine's flat-group layout (``models/convert.py`` carries a JAX
-        ``FusedAdamState`` there). The compute-dtype copy is re-derived
+        ``FusedAdamState`` there; at ZeRO stage >= 1 across ranks, this
+        rank's rows of the V-layout). The compute-dtype copy is re-derived
         from the new parameters. ``global_steps`` follows from ``step`` and
         ``skipped_steps`` (``load_checkpoint`` takes the counters from the
         checkpoint's meta instead)."""
@@ -488,14 +576,44 @@ class DeepSpeedEngine:
 
     def _write_params(self, leaves: List[Any]) -> None:
         """Copy new parameter leaves (tree order; None keeps a leaf)
-        into the flat masters and re-derive the compute-dtype copy."""
+        into the flat masters (and this rank's V-layout rows) and
+        re-derive the compute-dtype copy."""
         with torch.no_grad():
+            if self._zero3:
+                if any(x is None for x in leaves):
+                    cur = tree_flatten(self.full_params())[0]
+                    leaves = [c if x is None else x
+                              for c, x in zip(cur, leaves)]
+                for sg, idxs in zip(self._shards, self._group_leaves):
+                    sg.pack([_as_tensor(leaves[i]).to(self.device, sg.dtype)
+                             for i in idxs], sg.param)
+                return
             for pv, new in zip(tree_flatten(self.state.params)[0], leaves):
                 if new is not None:
                     pv.copy_(_as_tensor(new).to(self.device, pv.dtype))
             for grp in self._groups:
                 if grp.cast is not None:
                     grp.cast.copy_(grp.param)
+            for grp, sg in zip(self._groups, self._shards):
+                sg.pack(grp.views(grp.param), sg.param)
+
+    def full_params(self) -> Any:
+        """The whole parameter tree: ``state.params`` itself, except at
+        ZeRO stage 3 across ranks, where each rank holds its rows and
+        this gathers the leaves (a collective: call it on every
+        rank)."""
+        if not self._zero3:
+            return self.state.params
+        out: List[Any] = [None] * len(self._leaf_shapes)
+        with torch.no_grad():
+            for sg, idxs in zip(self._shards, self._group_leaves):
+                full = comm.all_gather(sg.param)
+                leaves = [torch.empty(self._leaf_shapes[i], dtype=sg.dtype,
+                                      device=self.device) for i in idxs]
+                sg.unpack(full, leaves)
+                for i, t in zip(idxs, leaves):
+                    out[i] = t
+        return tree_unflatten(self._treedef, out)
 
     def _write_opt_state(self, opt_state: FusedAdamState, step: int,
                          loss_scale: Optional[float], growth_count: int,
@@ -503,7 +621,7 @@ class DeepSpeedEngine:
                          skipped_steps: int) -> None:
         dev = self.device
         with torch.no_grad():
-            for gi in range(len(self._groups)):
+            for gi in range(len(self._opt_groups)):
                 self.state.opt_state.m[gi].copy_(
                     _as_tensor(opt_state.m[gi]))
                 self.state.opt_state.v[gi].copy_(
@@ -597,11 +715,15 @@ class DeepSpeedEngine:
         """The generator step ``step`` (default: the next one,
         ``global_steps``) draws its dropout masks from: seeded with the
         base seed folded with the step, as the JAX engine folds the step
-        into its base key. A fresh generator a step costs no host sync
-        and makes a resumed run draw what an uninterrupted one would."""
+        into its base key, and at dp > 1 with the rank. A fresh generator
+        a step costs no host sync and makes a resumed run draw what an
+        uninterrupted one would."""
         step = self.global_steps if step is None else int(step)
-        return torch.Generator(device=self.device).manual_seed(
-            fold_in(self._base_seed, step))
+        seed = fold_in(self._base_seed, step)
+        if self.dp > 1:
+            # Each rank's own dropout stream (JAX: fold_in(key, rank)).
+            seed = fold_in(seed, self.dp_rank)
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def _train_step(self, micro_batches: List[Any], step: int
                     ) -> Dict[str, torch.Tensor]:
@@ -610,12 +732,18 @@ class DeepSpeedEngine:
         gas = len(micro_batches)
         scale = st.loss_scale
         leaves = self._loss_leaves
-        params = tree_unflatten(self._treedef, leaves)
+        params = None if self._zero3 else tree_unflatten(self._treedef,
+                                                         leaves)
         scaled_loss = _make_raw_scaled_loss(self.loss_fn, gas)
         mean_loss = None
         moe_sum: Dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro_batches):
-            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale)
+            if self._zero3:
+                scaled, raw, aux = self._zero3_micro_step(
+                    scaled_loss, mb, generator, scale, first=i == 0)
+            else:
+                scaled, (raw, aux) = scaled_loss(params, mb, generator,
+                                                 scale)
             if self._moe_metrics:
                 if not (isinstance(aux, dict) and "moe" in aux):
                     raise ValueError(
@@ -626,18 +754,24 @@ class DeepSpeedEngine:
                 for name, v in aux["moe"].items():
                     v = v.detach().float()
                     moe_sum[name] = v if i == 0 else moe_sum[name] + v
-            grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
-            with torch.no_grad():
-                # fp32 accumulation: each micro-batch's grads (in the
-                # compute dtype) are added into the fp32 flat buffers.
-                for gv, g in zip(self._grad_views, grads):
-                    if g is None:
-                        if i == 0:
-                            gv.zero_()
-                    elif i == 0:
-                        gv.copy_(g)
+            if not self._zero3:
+                grads = torch.autograd.grad(scaled, leaves,
+                                            allow_unused=True)
+                with torch.no_grad():
+                    if self._rs_grads:
+                        self._scatter_grads(grads, first=i == 0)
                     else:
-                        gv.add_(g)
+                        # fp32 accumulation: each micro-batch's grads (in
+                        # the compute dtype) are added into the fp32 flat
+                        # buffers.
+                        for gv, g in zip(self._grad_views, grads):
+                            if g is None:
+                                if i == 0:
+                                    gv.zero_()
+                            elif i == 0:
+                                gv.copy_(g)
+                            else:
+                                gv.add_(g)
             raw = raw.detach().float()
             if gas == 1:
                 mean_loss = raw
@@ -647,6 +781,18 @@ class DeepSpeedEngine:
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
+            inv_scale = (1.0 / scale) if fp16 else None
+            if self.dp > 1:
+                self._reduce_grads()
+                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+                # Each rank's loss is its own micro-batches' mean, so the
+                # summed grads are dp x the global mean's: the kernel
+                # multiplies by 1/dp with the unscale (exact for
+                # power-of-two dp and loss scales, like the JAX
+                # explicit path's (g * dp) / dp).
+                inv_scale = (torch.ones((), dtype=torch.float32,
+                                        device=self.device)
+                             if inv_scale is None else inv_scale) / self.dp
             # (a fill kernel, not a host-to-device copy: no host sync)
             sr_seed = torch.full(
                 (), _int32(fold_in(fold_in(self._base_seed, step),
@@ -654,10 +800,13 @@ class DeepSpeedEngine:
                 dtype=torch.int32, device=self.device) \
                 if self._master_free else None
             opt_state, grad_norm, overflow = self.optimizer.step(
-                self._groups, st.opt_state, clip=clip,
-                inv_scale=(1.0 / scale) if fp16 else None, fp16=fp16,
+                self._opt_groups, st.opt_state, clip=clip,
+                inv_scale=inv_scale, fp16=fp16,
                 compute_norm=bool(clip and clip > 0) or fp16,
-                sr_seed=sr_seed)
+                sr_seed=sr_seed,
+                norm_reduce=comm.all_reduce if self._shard_local else None)
+            if self._shard_local and not self._zero3:
+                self._gather_params()
             lr = self.optimizer.lr_at(st.step)
             self.state = st.replace(
                 opt_state=opt_state,
@@ -671,6 +820,96 @@ class DeepSpeedEngine:
                          "z_loss"):
                 metrics[f"moe_{name}"] = moe_sum[name] / gas
         return metrics
+
+    # ------------------------------------------------------------------ #
+    # Data parallelism and ZeRO (dp > 1)
+    # ------------------------------------------------------------------ #
+    def _scratch_buffer(self, gi: int, dtype: torch.dtype) -> torch.Tensor:
+        """A reusable ``[V * Lpad]`` buffer of group ``gi`` in ``dtype``
+        (packing and gathering the whole V-layout)."""
+        key = (gi, dtype)
+        buf = self._scratch.get(key)
+        if buf is None:
+            buf = torch.zeros(self._shards[gi].full_numel, dtype=dtype,
+                              device=self.device)
+            self._scratch[key] = buf
+        return buf
+
+    def _scatter_grads(self, grads, first: bool) -> None:
+        """ZeRO-2: pack one micro-step's grads into the V-layout in fp32
+        and reduce-scatter them; each rank adds its rows to its grads."""
+        for gi, (sg, idxs) in enumerate(zip(self._shards,
+                                            self._group_leaves)):
+            full = self._scratch_buffer(gi, torch.float32)
+            sg.pack([grads[i] for i in idxs], full, rows=(0, sg.shards))
+            if first:
+                comm.reduce_scatter(full, out=sg.grad)
+            else:
+                sg.grad.add_(comm.reduce_scatter(full))
+
+    def _reduce_grads(self) -> None:
+        """After the micro-steps: stage 0 all-reduces the natural grads;
+        stage 1 (and stage 2 with ``reduce_scatter: false``) all-reduces
+        them and keeps this rank's rows; stages 2-3 already hold their
+        reduced rows."""
+        if self._rs_grads:
+            return
+        for gi, grp in enumerate(self._groups):
+            comm.all_reduce(grp.grad)
+            if self._shard_local:
+                self._shards[gi].pack(grp.views(grp.grad),
+                                      self._shards[gi].grad)
+
+    def _gather_params(self) -> None:
+        """Stages 1-2: every rank's updated rows → the natural buffers
+        the model views, and the compute-dtype copy re-cast from them
+        (bit-equal to the kernel's cast of the same fp32 values)."""
+        for gi, (grp, sg) in enumerate(zip(self._groups, self._shards)):
+            full = comm.all_gather(sg.param,
+                                   out=self._scratch_buffer(gi, sg.dtype))
+            sg.unpack(full, grp.views(grp.param))
+            if grp.cast is not None:
+                grp.cast.copy_(grp.param)
+
+    def _zero3_micro_step(self, scaled_loss, mb, generator, scale,
+                          first: bool):
+        """Stage 3: one micro-step on parameters gathered from every
+        rank's rows (``gather_cast``), saved for the backward pass as
+        re-gathers; the gradient comes back as this rank's fp32 rows
+        and is added to its grads."""
+        inputs: List[torch.Tensor] = []
+        leaves: List[Any] = [None] * len(self._leaf_shapes)
+        regather: Dict[int, Any] = {}
+        dtype = self.compute_dtype
+        for sg, idxs in zip(self._shards, self._group_leaves):
+            parts = [v.detach().requires_grad_(True)
+                     for v in sg.local_views(sg.param)]
+            shapes = [self._leaf_shapes[i] for i in idxs]
+            for i, x, shape, leaf in zip(idxs, parts, shapes,
+                                         gather_tree(parts, shapes, dtype)):
+                leaves[i] = leaf
+                regather[i] = ((lambda x=x, shape=shape:
+                                _gather(x.detach(), shape, dtype)), leaf)
+            inputs += parts
+        params = tree_unflatten(self._treedef, leaves)
+        with regather_saved(regather):
+            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale)
+        del params, leaves, regather
+        grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
+        with torch.no_grad():
+            k = 0
+            for sg in self._shards:
+                for dst in sg.local_views(sg.grad):
+                    g = grads[k]
+                    k += 1
+                    if g is None:
+                        if first:
+                            dst.zero_()
+                    elif first:
+                        dst.copy_(g)
+                    else:
+                        dst.add_(g)
+        return scaled, raw, aux
 
     def _maybe_log(self, metrics: Dict[str, torch.Tensor]) -> None:
         spp = self.steps_per_print()
@@ -749,6 +988,8 @@ class DeepSpeedEngine:
         snap = self._snapshot_checkpoint(save_dir, tag, client_state,
                                          save_latest)
         path = commit_snapshot(snap)
+        if self.dp > 1:
+            comm.barrier()       # the other ranks wait for rank 0's commit
         self._note_saved(save_dir, save_latest)
         log_dist(f"saved checkpoint {path}", ranks=[0])
         return True
@@ -764,20 +1005,30 @@ class DeepSpeedEngine:
                              client_state: Optional[Dict[str, Any]],
                              save_latest: bool) -> CheckpointSnapshot:
         """Capture the state into a host-side ``CheckpointSnapshot`` in
-        the JAX engine's layout at mp 1 and dp 1: the model file, one
-        optimizer file, and the meta. Each flat buffer (params, m, v)
-        is copied whole to host memory with the six scalars stacked into
-        one int32 tensor, behind one wait on the card; the moments'
-        conversion to the JAX layout and the msgpack encoding run in the
-        lazy blob builders, so the async writer pays for them."""
+        the JAX engine's layout at mp 1: the model file, one optimizer
+        file per dp rank (``zero_pp_rank_{d}``), and the meta. Each flat
+        buffer (params, m, v) is copied whole to host memory with the six
+        scalars stacked into one int32 tensor, behind one wait on the
+        card; the moments' conversion to the JAX layout and the msgpack
+        encoding run in the lazy blob builders, so the async writer pays
+        for them.
+
+        Across dp ranks every rank calls this (it is collective): at
+        ZeRO stage >= 1 each rank's moment rows (and, at stage 3, its
+        parameter rows) are gathered to rank 0 here, on the calling
+        thread — never on the writer thread, where a collective would
+        interleave with the step's — and rank 0 alone writes. A rank's
+        rows of a moment buffer are the JAX engine's shard of it (the
+        flat axis split in dp parts), so they are written as they are."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._checkpoint_tag_validation(tag)
+        dp = self.dp
         meta: Dict[str, Any] = {
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "skipped_steps": self.skipped_steps,
-            "dp_world_size": 1,
+            "dp_world_size": dp,
             "ds_config_precision": self.config.precision_dtype,
             "client_state": client_state or {},
             "fused_moment_layout": FUSED_MOMENT_LAYOUT,
@@ -793,45 +1044,102 @@ class DeepSpeedEngine:
             st.loss_scale.to(torch.float32).view(torch.int32),
             st.growth_count.to(torch.int32), st.hysteresis.to(torch.int32),
             st.skipped_steps.to(torch.int32)])
-        G = len(self._groups)
-        host = _host_copies([g.param for g in self._groups] + list(opt.m) +
-                            list(opt.v) + [scalars])
+        G = len(self._opt_groups)
+        if self._shard_local:
+            # Every rank's rows on rank 0, rank order (collective).
+            rows = [comm.gather(b) for b in list(opt.m) + list(opt.v)]
+            if self._zero3:
+                rows += [comm.gather(sg.param) for sg in self._shards]
+            is_writer = self.dp_rank == 0
+            if not is_writer:
+                self.skipped_steps = int(st.skipped_steps)
+                return CheckpointSnapshot(
+                    save_dir=save_dir, tag=str(tag),
+                    save_latest=save_latest, meta=meta, blobs=[],
+                    is_writer=False, fsync=self._ckpt_fsync)
+            flat_rows = [t for per in rows for t in per]
+            natural = [] if self._zero3 else [g.param for g in self._groups]
+            host = _host_copies(natural + flat_rows + [scalars])
+            host_rows = [host[len(natural) + k * dp:
+                              len(natural) + (k + 1) * dp]
+                         for k in range(len(rows))]
+        else:
+            is_writer = self.dp_rank == 0
+            host = _host_copies([g.param for g in self._groups] +
+                                list(opt.m) + list(opt.v) + [scalars])
         sc = host[-1].numpy()
         count, step_v, growth_v, hyst_v, skipped_v = (
             np.array(sc[i]) for i in (0, 1, 3, 4, 5))
         scale_v = np.array(sc[2:3].view(np.float32)[0])
         self.skipped_steps = int(skipped_v)
         meta["skipped_steps"] = self.skipped_steps
+        scalars_blob = {"step": step_v, "loss_scale": scale_v,
+                        "growth_count": growth_v, "hysteresis": hyst_v,
+                        "skipped": skipped_v}
 
-        leaves: List[Any] = [None] * len(tree_flatten(st.params)[0])
-        for grp, idxs, hp in zip(self._groups, self._group_leaves, host):
-            for i, view in zip(idxs, grp.views(hp)):
-                leaves[i] = view
-        host_params = tree_unflatten(self._treedef, leaves)
-        host_m, host_v = host[G:2 * G], host[2 * G:3 * G]
-        meta["optim_shards"] = 1
-        meta["optim_shard_axes"] = [None] * (1 + 2 * G)
+        n_leaves = len(self._leaf_shapes)
+        if self._zero3:
+            def host_params_fn(prow=host_rows[2 * G:]) -> Any:
+                out: List[Any] = [None] * n_leaves
+                for sg, idxs, per in zip(self._shards, self._group_leaves,
+                                         prow):
+                    lv = [torch.empty(self._leaf_shapes[i], dtype=sg.dtype)
+                          for i in idxs]
+                    sg.unpack(torch.cat(per), lv)
+                    for i, t in zip(idxs, lv):
+                        out[i] = t
+                return tree_unflatten(self._treedef, out)
+        else:
+            leaves: List[Any] = [None] * n_leaves
+            for grp, idxs, hp in zip(self._groups, self._group_leaves, host):
+                for i, view in zip(idxs, grp.views(hp)):
+                    leaves[i] = view
+            host_params = tree_unflatten(self._treedef, leaves)
 
-        def model_blob(hp=host_params) -> bytes:
-            return msgpack_serialize({"module": hp})
+            def host_params_fn(hp=host_params) -> Any:
+                return hp
 
-        def optim_blob(hp=host_params, hm=host_m, hv=host_v) -> bytes:
-            jcount, jm, jv = convert.to_jax_fused_adam_state(
-                FusedAdamState(count=count, m=hm, v=hv), hp)
-            blob: Dict[str, Any] = {"0": np.asarray(jcount)}
-            for i, buf in enumerate(list(jm) + list(jv)):
-                blob[str(i + 1)] = buf
-            blob["__scalars__"] = {
-                "step": step_v, "loss_scale": scale_v,
-                "growth_count": growth_v, "hysteresis": hyst_v,
-                "skipped": skipped_v}
-            return msgpack_serialize(blob)
+        def model_blob() -> bytes:
+            return msgpack_serialize({"module": host_params_fn()})
 
+        blobs: List[Any] = [(MODEL_FILE, model_blob)]
+        meta["optim_shards"] = dp
+        if self._shard_local:
+            # The moments split along their flat axis, one file a rank.
+            meta["optim_shard_axes"] = [None] + [0] * (2 * G)
+
+            def optim_blob(r: int, hr=host_rows) -> bytes:
+                blob: Dict[str, Any] = {}
+                if r == 0:
+                    blob["0"] = np.asarray(count)
+                for k in range(2 * G):
+                    blob[str(k + 1)] = hr[k][r].numpy()
+                if r == 0:
+                    blob["__scalars__"] = scalars_blob
+                return msgpack_serialize(blob)
+        else:
+            # Whole (replicated) moments in shard 0, as the JAX engine
+            # writes an unsharded optimizer state at any dp.
+            meta["optim_shard_axes"] = [None] * (1 + 2 * G)
+            host_m, host_v = host[G:2 * G], host[2 * G:3 * G]
+
+            def optim_blob(r: int, hm=host_m, hv=host_v) -> bytes:
+                if r:
+                    return msgpack_serialize({})
+                jcount, jm, jv = convert.to_jax_fused_adam_state(
+                    FusedAdamState(count=count, m=hm, v=hv),
+                    host_params_fn())
+                blob: Dict[str, Any] = {"0": np.asarray(jcount)}
+                for i, buf in enumerate(list(jm) + list(jv)):
+                    blob[str(i + 1)] = buf
+                blob["__scalars__"] = scalars_blob
+                return msgpack_serialize(blob)
+        blobs += [(OPTIM_SHARD_FMT.format(r), lambda r=r: optim_blob(r))
+                  for r in range(dp)]
         return CheckpointSnapshot(
             save_dir=save_dir, tag=str(tag), save_latest=save_latest,
-            meta=meta, blobs=[(MODEL_FILE, model_blob),
-                              (OPTIM_SHARD_FMT.format(0), optim_blob)],
-            is_writer=True, fsync=self._ckpt_fsync)
+            meta=meta, blobs=blobs, is_writer=is_writer,
+            fsync=self._ckpt_fsync)
 
     def preempt_save(self, reason: str = "SIGTERM") -> bool:
         """Final snapshot+commit for a dying run — the PreemptSaver's
@@ -950,15 +1258,27 @@ class DeepSpeedEngine:
             blobs = self._read_shard_blobs(path, OPTIM_SHARD_FMT, n)
             if blobs is None:
                 return None, {}
-            G = len(self._groups)
+            G = len(self._opt_groups)
             leaves = self._assemble_shards(blobs, meta["optim_shard_axes"],
                                            1 + 2 * G)
             shards = max(convert.JAX_VIRTUAL_SHARDS,
                          int(meta.get("dp_world_size", 1)))
             try:
-                opt_state = convert.from_jax_fused_adam_state(
-                    leaves[0], leaves[1:1 + G], leaves[1 + G:],
-                    self.state.params, shards=shards)
+                if self._shard_local:
+                    # This rank's rows of the joined V-layout buffers.
+                    bufs = [convert.jax_local_rows(
+                        convert.relayout_jax_buffer(b, sg.sizes, shards,
+                                                    sg.shards),
+                        sg.sizes, sg.shards, self.dp, self.dp_rank)
+                        for b, sg in zip(leaves[1:],
+                                         self._shards + self._shards)]
+                    opt_state = FusedAdamState(
+                        count=np.int32(np.asarray(leaves[0])),
+                        m=tuple(bufs[:G]), v=tuple(bufs[G:]))
+                else:
+                    opt_state = convert.from_jax_fused_adam_state(
+                        leaves[0], leaves[1:1 + G], leaves[1 + G:],
+                        self.state.params, shards=shards)
             except ValueError as e:
                 raise ValueError(
                     f"checkpoint {path}: the saved moment buffers do not "
@@ -992,19 +1312,18 @@ class DeepSpeedEngine:
         Strict: the paths and shapes must match exactly. Not strict: a
         leaf whose path is missing or whose shape differs is None (the
         current value stays)."""
-        cur = tree_flatten(self.state.params)[0]
         cur_paths = _leaf_paths(self.state.params)
         saved_by_path = dict(zip(_leaf_paths(saved),
                                  tree_flatten(saved)[0]))
         out: List[Any] = []
         problems = []
-        for p, leaf in zip(cur_paths, cur):
+        for p, shape in zip(cur_paths, self._leaf_shapes):
             val = saved_by_path.get(p)
             if val is None:
                 problems.append(f"{p}: missing")
-            elif tuple(val.shape) != tuple(leaf.shape):
+            elif tuple(val.shape) != tuple(shape):
                 problems.append(f"{p}: saved {tuple(val.shape)} != "
-                                f"current {tuple(leaf.shape)}")
+                                f"current {tuple(shape)}")
                 val = None
             out.append(val)
         extra = sorted(set(saved_by_path) - set(cur_paths))
@@ -1049,8 +1368,8 @@ class DeepSpeedEngine:
         return out
 
     def _checkpoint_tag_validation(self, tag: str) -> None:
-        """The JAX engine's cross-host tag vote; the port runs one
-        process, where there is nothing to compare."""
+        """The JAX engine's cross-host tag vote: not ported (every rank
+        passes the same tag, or none, to ``save_checkpoint``)."""
 
 
 __all__ = ["DeepSpeedEngine", "EngineState"]

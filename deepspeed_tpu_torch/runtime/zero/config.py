@@ -2,9 +2,13 @@
 
 Same fields, defaults, legacy bool form and ``ValueError`` messages as
 the JAX package, so one ds_config dict parses to the same values in
-both. On one card stages 0, 1 and 2 are the same arithmetic (there is
-nothing to partition); the engine raises ``NotImplementedError`` for
-stage 3 and ``cpu_offload``, which the port does not run yet.
+both. On one card stages 0-3 are the same arithmetic (there is nothing
+to partition). Across ranks the engine runs each stage with explicit
+collectives (``runtime/engine.py``): ``grad_sync`` is parsed and
+validated as in JAX but the port has only the explicit schedule, and
+``reduce_scatter: false`` keeps stage-2 grads all-reduced. The per-layer
+prefetched scan that ``prefetch_depth`` tunes is not ported (stage 3
+gathers every leaf per micro-step); ``cpu_offload`` raises.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ sums run over thousands of rows, dscale/dbias within 1e-5 plus 2**-20
 of the column's sum of magnitudes: fp32 sums in two orders); the grad
 sum of squares relative 1e-5 (two fp32 summation orders); the fused
 Adam step bit-equal to its plain version (both round op by op), and
-the stochastic rounding equal element for element; paged attention
+the stochastic rounding equal element for element, and its shard-local
+launches (each rank's rows with its base) joined bit-equal to the
+whole-buffer launch; paged attention
 atol/rtol 2e-5 (fp32 queries, fp32 or bf16 pools); the flash kernels
 (ungated and layout-gated; the forward and backward tiles at every head
 dim and the training sequences) and the sparse LUT kernels within 1e-5
@@ -518,6 +520,43 @@ def test_fused_adam_kernel_matches_plain(dev, name):
             ulps(_np(got), _np(want), "fp32").max()))
     if cast is not None:
         assert torch.equal(cast, ref[3])
+
+
+@pytest.mark.parametrize("base0", [0, 2 ** 32 - 3 * 65536])
+@pytest.mark.parametrize("dp", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(ADAM_CASES))
+def test_fused_adam_shard_local_launches_join_to_the_whole(dev, name, dp,
+                                                           base0):
+    """K6's shard-local mode: each rank's rows of a V-layout buffer with
+    the rank's base in the seed row (wrapping as uint32 past 2^32),
+    joined, bit-equal to one launch over the whole buffer."""
+    p_dt, c_dt, kw, _ = ADAM_CASES[name]
+    n = 8 * 8192
+    g, p, m, v, scalars, _ = (torch.from_numpy(a).to(dev)
+                              for a in adam_case(name, n, seed=dp))
+    p = p.to(getattr(torch, p_dt))
+
+    def seed(base):
+        return torch.tensor([123456789, fu._int32(base)],
+                            dtype=torch.int32, device=dev)
+
+    def state():
+        return [p.clone(), m.clone(), v.clone(), None if c_dt is None
+                else torch.empty(n, dtype=getattr(torch, c_dt), device=dev)]
+    args = dict(b1=0.9, b2=0.999, eps=1e-8, **kw)
+    whole, parts = state(), state()
+    fu.fused_adam_apply(g, *whole[:3], scalars, seed(base0),
+                        cast_out=whole[3], **args)
+    k = n // dp
+    for d in range(dp):
+        sl = slice(d * k, (d + 1) * k)
+        fu.fused_adam_apply(g[sl], *(t[sl] for t in parts[:3]), scalars,
+                            seed(base0 + d * k), cast_out=None
+                            if parts[3] is None else parts[3][sl], **args)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, parts):
+        if a is not None:
+            assert torch.equal(a, b), (name, dp)
 
 
 def test_train_batch_on_the_card_matches_the_cpu(dev):

@@ -32,7 +32,9 @@ CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.inference, "
-            "deepspeed_tpu_torch.models.convert, deepspeed_tpu_torch.moe\n"
+            "deepspeed_tpu_torch.models.convert, deepspeed_tpu_torch.moe, "
+            "deepspeed_tpu_torch.runtime.zero.stage3\n"
+            "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -42,10 +44,11 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_module_imports_jax():
-    """No module of the package, and not chip_smoke.py, imports JAX or
-    the JAX package."""
+    """No module of the package, not chip_smoke.py and not the dp
+    tests' worker imports JAX or the JAX package."""
     offenders = []
-    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
+                 REPO / "tests" / "torch_dp_worker.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -1,0 +1,170 @@
+"""One rank of a data-parallel run of the port's training engine, for
+``tests/test_torch_dp*.py`` (not collected by pytest: no ``test_``
+prefix).
+
+It imports torch, numpy and the port only — never JAX, which a spawned
+child re-importing a test module would pull in. Usage::
+
+    python tests/torch_dp_worker.py SPEC.json RANK
+
+``SPEC.json`` holds ``world``, ``store`` (the path of a
+``torch.distributed.FileStore``: no TCP port, so parallel test workers
+cannot collide), ``params`` (an ``.npz`` of the initial parameters keyed
+by tree path), and ``jobs``, run in order on one gloo process group:
+
+- ``name``, ``precision`` (fp32, fp16, bf16, master_free), ``stage``,
+  optional ``micro`` (rows a rank's micro-step, default 2),
+  ``batches`` (an ``.npy`` of global batches ``[steps, gas*micro*world,
+  S+1]``; the rank takes its rows as the JAX engine shards them: micro
+  step i, rank d → rows ``i*micro*world + d*micro`` onward), optional
+  ``first``/``steps`` (which batches), ``zero`` (extra
+  ``zero_optimization`` keys), ``ds`` (extra top-level keys), ``load``
+  (a checkpoint dir to resume from), ``save`` (``{"dir", "after"}``:
+  a sync save after that many steps, ``"async": true`` for an async
+  one), ``perturb`` (ranks above 0 start from parameters moved by
+  0.01 * rank: the engine must broadcast rank 0's), ``out`` (the
+  ``.npz`` prefix of the results).
+
+Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
+the loss scale the step used, the skipped-step count and a digest of
+the full parameters; after the last step the full parameters (flat,
+tree order, fp32) and this rank's optimizer moment buffers.
+"""
+import dataclasses
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import deepspeed_tpu_torch  # noqa: E402
+from deepspeed_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
+from deepspeed_tpu_torch.ops.fused_update import tree_flatten  # noqa: E402
+
+MICRO, GAS = 2, 2
+DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
+          "bf16": torch.bfloat16, "master_free": torch.bfloat16}
+
+
+def ds_config(precision, world, stage, zero=None, extra=None, micro=MICRO):
+    """The ds_config of the dp tests (the JAX side builds the same)."""
+    ds = {"train_batch_size": micro * GAS * world,
+          "gradient_accumulation_steps": GAS,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-4, "weight_decay": 0.01}},
+          "scheduler": {"type": "WarmupLR", "params": {
+              "warmup_num_steps": 3, "warmup_max_lr": 1e-4}},
+          "zero_optimization": dict({"stage": stage}, **(zero or {}))}
+    if precision == "fp16":
+        ds["fp16"] = {"enabled": True, "initial_scale_power": 21}
+    if precision in ("bf16", "master_free"):
+        ds["bf16"] = {"enabled": True,
+                      "stochastic_rounding": precision == "master_free"}
+    ds.update(extra or {})
+    return ds
+
+
+def rank_rows(batch, world, rank, micro=MICRO):
+    """Rank ``rank``'s rows of a global batch, micro-step by micro-step."""
+    return np.concatenate([
+        batch[i * micro * world + rank * micro:
+              i * micro * world + (rank + 1) * micro] for i in range(GAS)])
+
+
+def load_params(path):
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = torch.from_numpy(z[key].copy())
+    return tree
+
+
+def shifted(tree, by):
+    if isinstance(tree, dict):
+        return {k: shifted(v, by) for k, v in tree.items()}
+    return tree + by
+
+
+def flat_params(eng):
+    leaves = tree_flatten(eng.full_params())[0]
+    return np.concatenate([t.detach().float().reshape(-1).numpy()
+                           for t in leaves])
+
+
+def run_job(job, world, rank, params):
+    precision = job["precision"]
+    cfg = dataclasses.replace(tgpt2.GPT2_CONFIGS["gpt2-tiny"],
+                              dtype=DTYPES[precision], hidden_dropout=0.0,
+                              attn_dropout=0.0)
+    micro = job.get("micro", MICRO)
+    ds = ds_config(precision, world, job["stage"], job.get("zero"),
+                   job.get("ds"), micro)
+    if job.get("perturb"):
+        params = shifted(params, 0.01 * rank)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt2.gpt2_loss_fn(cfg),
+        model_params={k: v for k, v in params.items()}, config=ds,
+        device="cpu", rng=0)
+    if job.get("load"):
+        assert eng.load_checkpoint(job["load"])[0] is not None
+    batches = np.load(job["batches"])
+    first = job.get("first", 0)
+    steps = job.get("steps", len(batches) - first)
+    rec = {k: [] for k in ("loss", "grad_norm", "loss_scale", "skipped",
+                           "digest")}
+    save = job.get("save")
+    for k in range(first, first + steps):
+        loss = eng.train_batch(rank_rows(batches[k], world, rank, micro))
+        m = eng.last_metrics
+        rec["loss"].append(float(loss))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["loss_scale"].append(float(m["loss_scale"]))
+        rec["skipped"].append(int(m["skipped_steps"]))
+        rec["digest"].append(hashlib.sha256(
+            flat_params(eng).tobytes()).hexdigest())
+        if save and k + 1 - first == save["after"]:
+            eng.save_checkpoint(save["dir"])
+            if eng._async_ckpt is not None:
+                eng._async_ckpt.wait()
+                dist.barrier()
+    out = {k: np.asarray(v) for k, v in rec.items()}
+    out["params"] = flat_params(eng)
+    st = eng.state.opt_state
+    for gi, (m, v) in enumerate(zip(st.m, st.v)):
+        out[f"m{gi}"] = m.numpy()
+        out[f"v{gi}"] = v.numpy()
+    out["count"] = np.asarray(int(st.count))
+    np.savez(f"{job['out']}.rank{rank}.npz", **out)
+
+
+def main():
+    spec_path, rank = sys.argv[1], int(sys.argv[2])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = int(spec["world"])
+    torch.manual_seed(0)
+    torch.set_num_threads(1)
+    store = dist.FileStore(spec["store"], world)
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo", store=store, world_size=world, rank=rank,
+        verbose=False)
+    params = load_params(spec["params"])
+    for job in spec["jobs"]:
+        run_job(job, world, rank, params)
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
