@@ -60,7 +60,16 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    wrapper's Python a call). One JSON line per shape: the kernel's, the
    plain version's and a library call's time (CUDA events), the least
    time the card could take (``bound_ms``, over the (q, k) pairs kept)
-   and the largest error.
+   and the largest error. Then the host Adam of ZeRO-Offload
+   (``check_cpu_adam``: ``csrc/cpu_adam.cpp`` built by g++ for this host,
+   at gpt2-small's 124,475,904 parameters as one span and as its 16
+   leaves, bf16 grads with the bf16 copy): masters and moments within 4
+   fp32 ulp of the plain step's, the copy bit-equal to the masters'
+   cast; its time, the plain step's, ``torch._fused_adamw_``'s and the
+   bound (28 B a parameter over the host's memory rate: the fastest rate
+   at which the same run moved those bytes, by native and torch streams,
+   the step itself or the library call), with the host's CPU and
+   cores.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
    then the same stream with ``spec_k: 3``, then with whole-prompt
@@ -139,7 +148,22 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    exactly the main path's a step and rank. Printed: each rank's step
    p50 and peak memory (gloo stages every collective through host
    memory, so those step times are the host's).
-6. The ``{"kernels": [...]}`` summary line (the sqnorm and fused_adam
+5f. ``train_offload``: ZeRO-Offload at gpt2-small under
+   ``examples/gpt2/ds_config_offload.json`` read from the file (bf16,
+   stage 2, the masters and Adam moments in host memory, AdamW 3e-3,
+   clip 1.0, 8 x 1024 a step, dropout 0.1): the device-optimizer engine
+   (the same config without ``cpu_offload``) 5 steps, then the serial
+   offload engine 10 steps, the overlapped one (``overlap_comm``) 10
+   from the same init, and 5 fp16 steps each way from
+   initial_scale_power 20. Asserted: serial and overlapped bit-equal
+   (losses, masters, moments, device params), ``overlap_fraction`` > 0,
+   fp16 skips with equal scales, the loss falls, the first loss equal
+   to the device engine's and the first 5 within 1e-2, the peak device
+   memory at least 1.4 GB below the device engine's, exact launches
+   (no K5/K6; 16 host Adam calls a taken step). Printed: step ms each
+   way, the ``offload_timings`` breakdown, the peaks.
+6. The ``{"host_kernels": [...]}`` line (the host Adam), then the
+   ``{"kernels": [...]}`` summary line (the sqnorm and fused_adam
    rows also carry their shard-local launches by dp), then the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -2262,6 +2286,459 @@ def train_zero(dev, smi):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# Phase 5f: ZeRO-Offload (the host Adam, then the offload path)
+# --------------------------------------------------------------------- #
+OFFLOAD_CONFIG = os.path.join("examples", "gpt2", "ds_config_offload.json")
+OFFLOAD_STEPS, OFFLOAD_DEVICE_STEPS, OFFLOAD_FP16_STEPS = 10, 5, 5
+# The offload step against the device-optimizer step (K5/K6 on the card)
+# from the same init and batches: the first loss bit-equal (the same
+# params and dropout draws before any update), the first 5 within this
+# relative gap (the two Adams differ by fp32 ulps each step); the device
+# engine's fp32 masters and moments (12 B a parameter, 1.494 GB at
+# gpt2-small) that offload keeps in host memory, less slack for the
+# allocator's rounding.
+OFFLOAD_LOSS_RTOL = 1e-2
+# The fp16 runs' initial loss scale: this recipe's first two steps
+# overflow at 2^20 (one skip holds the scale by the hysteresis, the next
+# halves it) and its later steps are taken.
+OFFLOAD_FP16_SCALE_POWER = 20
+OFFLOAD_PEAK_SAVING = 1.4e9
+# The host Adam's step: p, m, v read and written (24 B), bf16 grads read
+# and the bf16 copy written (4 B) a parameter.
+HOST_ADAM_BYTES = 28
+# Its hyper-parameters in check_cpu_adam: the example's AdamW lr, a
+# weight decay so the decoupled decay runs, a mid-run tick and a grad
+# scale (unscale x clip).
+CPU_ADAM_HP = dict(lr=3e-3, betas=(0.9, 0.999), eps=1e-8,
+                   weight_decay=0.01)
+CPU_ADAM_STEP, CPU_ADAM_SCALE = 10, 0.5
+# The host Adam's timed runs (each followed by one pass of each rate
+# probe).
+HOST_ADAM_REPS = 7
+
+
+def host_info():
+    """The host's CPU model, its cores and OpenMP's default team (the
+    host Adam's serial team)."""
+    from deepspeed_tpu_torch.ops import cpu_adam as ca
+    model = "unknown"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    # (where /proc/cpuinfo names no model, the target g++ -march=native
+    # resolves to says what the host kernel was built for)
+    target = subprocess.run(
+        [op_builder.find_cxx(), "-march=native", "-Q", "--help=target"],
+        capture_output=True, text=True, timeout=60).stdout
+    march = re.search(r"-march=\s+(\S+)", target)
+    return {"cpu_model": model, "march_native": march and march.group(1),
+            "cpu_count": os.cpu_count(),
+            "omp_default_threads": ca.default_threads()}
+
+
+class HostRates:
+    """The host's memory rate, bytes a second: the fastest rate at which
+    anything in ``check_cpu_adam`` moved the Adam step's bytes, or a
+    stream of their kind. ``probe()`` runs three streams once each over
+    ``n``-parameter buffers of their own: the step's traffic with an add
+    for its arithmetic (``ds_stream_adam_traffic``, 28 B a parameter, on
+    the calling thread's OpenMP team, the host Adam's), a read of one fp32
+    span (``ds_stream_read``, 4 B) and a ``torch`` copy of one (8 B). The
+    caller interleaves the probes with the kernel's runs, so both see the
+    same host, and adds the runs that move the step's own bytes (the
+    kernel's, the library's) with ``seen``. Each entry keeps its fastest
+    pass; ``best`` is the fastest entry and ``best_by`` names it. On a
+    host shared with other machines' work no stream is reliably faster
+    than the kernel (a first version bounded by the streams alone was
+    beaten by 12%), so the kernel's own fastest pass is in the maximum:
+    its median time cannot beat the bound it gives."""
+
+    def __init__(self, grad_bf16):
+        from deepspeed_tpu_torch.ops import cpu_adam as ca
+        self.lib = ca.native_lib()
+        self.n = grad_bf16.numel()
+        self.g = grad_bf16
+        self.p, self.m, self.v = (torch.zeros(self.n) for _ in range(3))
+        self.copy = torch.empty(self.n, dtype=torch.bfloat16)
+        self.rates = {"adam_traffic": 0.0, "read": 0.0, "torch_copy": 0.0}
+
+    def seen(self, name, moved, sec):
+        """Keep ``moved`` bytes in ``sec`` seconds as a pass of ``name``."""
+        self.rates[name] = max(self.rates.get(name, 0.0), moved / sec)
+
+    def probe(self):
+        n, lib = self.n, self.lib
+        t0 = time.perf_counter()
+        lib.ds_stream_adam_traffic(self.p.data_ptr(), self.g.data_ptr(),
+                                   self.m.data_ptr(), self.v.data_ptr(),
+                                   self.copy.data_ptr(), n)
+        t1 = time.perf_counter()
+        lib.ds_stream_read(self.m.data_ptr(), n)
+        t2 = time.perf_counter()
+        self.v.copy_(self.m)
+        t3 = time.perf_counter()
+        self.seen("adam_traffic", HOST_ADAM_BYTES * n, t1 - t0)
+        self.seen("read", 4 * n, t2 - t1)
+        self.seen("torch_copy", 8 * n, t3 - t2)
+
+    def result(self):
+        best_by = max(self.rates, key=self.rates.get)
+        return dict(self.rates, best=self.rates[best_by], best_by=best_by)
+
+
+def check_cpu_adam(smi):
+    """The host Adam (``ops/cpu_adam.py`` over ``csrc/cpu_adam.cpp``,
+    built by g++ for this host) at gpt2-small's 124,475,904 parameters,
+    bf16 grads with the bf16 copy (``ds_adam_step_plus_copy_bf16g``, the
+    offload path's entry point): as one flat span and as its 16 stacked
+    leaves (the largest [12, 768, 3072], 113 MB of fp32), from a mid-run
+    state. Held: masters and moments within 4 fp32 ulp of the largest
+    term of their last add against the plain step (``adam_ulp_gaps``),
+    the bf16 copy bit-equal to the masters' cast, the leaves run bit-equal
+    to the flat one, the squared norm (on the host Adam's team, as the
+    offload step runs it at its default pool width) the same bits on two
+    calls and within 1e-12 relative of the plain fp64 sum. Timed on the
+    host's clock: the step (median of HOST_ADAM_REPS after the checked
+    one), the plain step, the norm on that team and on one thread, and
+    ``torch._fused_adamw_`` on fp32 CPU tensors (no bf16 copy) where this
+    torch has it; the bound is 28 B a parameter over the host's memory
+    rate (``HostRates``: the fastest rate at which this run moved those
+    bytes, by a stream probed between the step's runs, the step itself
+    or the library call)."""
+    from deepspeed_tpu_torch.ops import cpu_adam as ca
+    sizes = gpt2_leaf_sizes(GPT2_CONFIGS["gpt2-small"])
+    n = sum(sizes)
+    g = torch.Generator().manual_seed(SEED)
+    p0 = torch.randn(n, generator=g) * 0.02
+    m0 = torch.randn(n, generator=g) * 1e-3
+    v0 = (torch.randn(n, generator=g) * 1e-3) ** 2
+    grad = (torch.randn(n, generator=g) * 1e-2).to(torch.bfloat16)
+    kw = dict(step=CPU_ADAM_STEP, grad_scale=CPU_ADAM_SCALE)
+
+    def split(buf, shapes):
+        out, off = [], 0
+        for k in shapes:
+            out.append(buf[off:off + k])
+            off += k
+        return out
+
+    rates = HostRates(grad)
+    runs = {}
+    for layout, shapes in (("flat", [n]), ("leaves", sizes)):
+        p, m, v = p0.clone(), m0.clone(), v0.clone()
+        copy = torch.empty(n, dtype=torch.bfloat16)
+        pl, gl, cl = split(p, shapes), split(grad, shapes), split(copy,
+                                                                  shapes)
+        opt = ca.DeepSpeedCPUAdam(pl, **CPU_ADAM_HP)
+        opt.exp_avg, opt.exp_avg_sq = split(m, shapes), split(v, shapes)
+        ca.reset_host_launch_counts()
+        t0 = time.perf_counter()
+        opt.step_leaves(pl, gl, range(len(shapes)), bf16_out=cl, **kw)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        calls = ca.host_launch_counts()["cpu_adam_step"]
+        runs[layout] = (p, m, v, copy, opt, pl, gl, cl, first_ms, calls)
+    p, m, v, copy, opt, pl, gl, cl, _, _ = runs["flat"]
+    for x, y in zip(runs["flat"][:4], runs["leaves"][:4]):
+        assert torch.equal(x.view(torch.int16) if x.dtype ==
+                           torch.bfloat16 else x, y.view(torch.int16)
+                           if y.dtype == torch.bfloat16 else y), \
+            "leaves != flat"
+    gaps = ca.adam_ulp_gaps(p0, grad, m0, v0, p, m, v, **kw, **CPU_ADAM_HP)
+    copy_equal = torch.equal(copy.view(torch.int16),
+                             p.to(torch.bfloat16).view(torch.int16))
+    assert max(gaps.values()) <= 4 and copy_equal, (gaps, copy_equal)
+    recs = []
+    for layout, (p, m, v, copy, opt, pl, gl, cl, first, calls) in \
+            runs.items():
+        ms = []
+        for _ in range(HOST_ADAM_REPS):
+            t0 = time.perf_counter()
+            opt.step_leaves(pl, gl, range(len(pl)), bf16_out=cl, **kw)
+            sec = time.perf_counter() - t0
+            ms.append(sec * 1e3)
+            rates.seen("kernel", HOST_ADAM_BYTES * n, sec)
+            rates.probe()
+        recs.append({"layout": layout, "leaves": len(pl),
+                     "calls_a_step": calls, "first_ms": first,
+                     "ms": float(np.median(ms)), "ms_all": ms})
+    del runs, p, m, v, copy, opt, pl, gl, cl
+    pp, mp, vp = p0.clone(), m0.clone(), v0.clone()
+    t0 = time.perf_counter()
+    ca.cpu_adam_plain(pp, grad, mp, vp, **kw, **CPU_ADAM_HP)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del pp, mp, vp
+    nopt = ca.DeepSpeedCPUAdam([torch.zeros(1)])
+    norm_ms, sqs = {}, {}
+    for team in (nopt.threads, 1):
+        t0 = time.perf_counter()
+        sqs[team] = nopt.grad_norm_sq([grad], CPU_ADAM_SCALE, threads=team)
+        norm_ms[team] = (time.perf_counter() - t0) * 1e3
+    sq = sqs[nopt.threads]
+    assert nopt.grad_norm_sq([grad], CPU_ADAM_SCALE) == sq
+    sq_plain = ca.grad_norm_sq_plain(grad, CPU_ADAM_SCALE)
+    assert abs(sq - sq_plain) <= 1e-12 * sq_plain, (sq, sq_plain)
+    library_ms, library_note = None, None
+    fused = getattr(torch, "_fused_adamw_", None)
+    if fused is not None:
+        lp, lm, lv = p0.clone(), m0.clone(), v0.clone()
+        lg = grad.float()
+        steps = torch.tensor(float(CPU_ADAM_STEP))
+        lib_ms = []
+        try:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fused([lp], [lg], [lm], [lv], [], [steps],
+                      lr=CPU_ADAM_HP["lr"], beta1=CPU_ADAM_HP["betas"][0],
+                      beta2=CPU_ADAM_HP["betas"][1],
+                      weight_decay=CPU_ADAM_HP["weight_decay"],
+                      eps=CPU_ADAM_HP["eps"], amsgrad=False, maximize=False)
+                sec = time.perf_counter() - t0
+                lib_ms.append(sec * 1e3)
+                # (fp32 grads read, p, m, v read and written: 28 B too)
+                rates.seen("library", HOST_ADAM_BYTES * n, sec)
+            library_ms = float(np.median(lib_ms))
+        except (RuntimeError, NotImplementedError) as e:
+            library_note = f"torch._fused_adamw_ on CPU tensors: {e}"[:200]
+        del lp, lm, lv, lg
+    else:
+        library_note = "this torch has no torch._fused_adamw_"
+    rates = rates.result()
+    bound_ms = HOST_ADAM_BYTES * n / rates["best"] * 1e3
+    flat = recs[0]
+    rec = {"name": "cpu_adam", "route": "host C++ (g++ " + " ".join(
+               f for f in op_builder.HOST_FLAGS if f.startswith(
+                   ("-O", "-f", "-m"))) + ")",
+           "source": "deepspeed_tpu_torch/csrc/cpu_adam.cpp",
+           "replaces": "csrc/cpu_adam.cpp:122 ds_adam_step_plus_copy_bf16g "
+                       "(the JAX package's host kernel; no TPU kernel)",
+           "shape": [n], "max_ulp": gaps, "bf16_copy_bit_equal": copy_equal,
+           "ms": flat["ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "library_ms": library_ms,
+           "bound_note": "the step's 28 B a parameter over the fastest "
+                         "rate this run moved them or a stream of their "
+                         "kind (HostRates: three streams interleaved with "
+                         "the step's runs, the step's own passes and "
+                         "torch._fused_adamw_'s; best_by names the "
+                         "fastest): a measured rate, not the host's "
+                         "stated peak",
+           "bound_set_by": rates["best_by"],
+           "library": "torch._fused_adamw_ (fp32 grads, no bf16 copy)",
+           "library_note": library_note,
+           "norm_ms": norm_ms[nopt.threads],
+           "norm_ms_one_thread": norm_ms[1],
+           "norm_threads": nopt.threads, "by_layout": recs,
+           "host_bytes_per_s": rates,
+           "bytes_per_param": HOST_ADAM_BYTES, "host": host_info(),
+           "card": smi}
+    emit({"check_cpu_adam": rec})
+    return rec
+
+
+def offload_config(precision="bf16", overlap=False, offload=True):
+    """``examples/gpt2/ds_config_offload.json`` as the file has it, with
+    ``overlap_comm`` set, ``cpu_offload`` off for the device-optimizer
+    yardstick, or fp16 (from OFFLOAD_FP16_SCALE_POWER) in place of
+    bf16."""
+    with open(OFFLOAD_CONFIG) as f:
+        ds = json.load(f)
+    zero = ds["zero_optimization"]
+    if overlap:
+        zero["overlap_comm"] = True
+    if not offload:
+        del zero["cpu_offload"]
+    if precision == "fp16":
+        del ds["bf16"]
+        ds["fp16"] = {"enabled": True,
+                      "initial_scale_power": OFFLOAD_FP16_SCALE_POWER}
+    return ds
+
+
+def offload_engine(cfg, ds):
+    dev = torch.device("cuda")
+    params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg), model_params=params, config=ds, rng=SEED)
+    return eng
+
+
+def run_offload(eng, batches):
+    """``run_path`` with the host kernel's calls and each step's
+    ``offload_timings``; the peak device memory from the engine's
+    construction on (the caller resets it before)."""
+    from deepspeed_tpu_torch.ops import cpu_adam as ca
+    ca.reset_host_launch_counts()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in batches]
+    losses, metrics, timings = [], [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b, st, en in zip(batches, starts, ends):
+        st.record()
+        losses.append(eng.train_batch(b))
+        en.record()
+        metrics.append(eng.last_metrics)
+        timings.append(dict(eng.offload_timings or {}))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    counts.update(ca.host_launch_counts())
+    return {"losses": [float(l) for l in losses], "metrics": metrics,
+            "timings": timings, "counts": counts,
+            "ms": [s.elapsed_time(e) for s, e in zip(starts, ends)],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def offload_state(eng):
+    """Host copies of the offload engine's masters, moments and device
+    params."""
+    off = eng._offload
+    return [t.clone() for t in off.masters + off.opt.exp_avg +
+            off.opt.exp_avg_sq] + [t.detach().cpu() for t in
+                                   tree_flatten(eng.state.params)[0]]
+
+
+def fresh_card():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_offload(dev, smi, host_adam):
+    """ZeRO-Offload at gpt2-small (full width and depth, seed 0, dropout
+    0.1, the train recipe's seeded Markov stream at the example's batch
+    of 8 x 1024) under ``examples/gpt2/ds_config_offload.json`` read from
+    the file: bf16, stage 2, the fp32 masters and Adam moments in host
+    memory, AdamW 3e-3, clip 1.0. First the device-optimizer engine (the
+    same config without ``cpu_offload``: K5/K6 on the card) takes 5
+    steps; then the serial offload engine 10 (path ``train_offload``),
+    the overlapped one (``overlap_comm``) the same 10 from the same init
+    (``train_offload_overlap``), and 5 fp16 steps each way from
+    initial_scale_power 20 (``train_offload_fp16``,
+    ``train_offload_fp16_overlap``). Asserted: serial and overlapped give
+    bit-equal losses, masters, moments and device params;
+    ``overlap_fraction`` > 0 at every overlapped step after the first
+    (which starts the pool); the fp16 runs skip
+    at least one step with equal scale sequences and bit-equal losses;
+    the loss falls (the last 3 of 10 below the first 3); the first loss
+    equals the device engine's and the first 5 are within
+    OFFLOAD_LOSS_RTOL of its; the peak device memory is at least
+    OFFLOAD_PEAK_SAVING below the device engine's; the launches a step
+    are exactly the main path's kernels at gas 1 with no K5/K6, and 16
+    host Adam calls (one a leaf) and 16 norm calls. Printed: step ms
+    p50 each way, the mean ``offload_timings`` breakdown (steps 2-10),
+    the peaks, and the host Adam's time in the step against its
+    bound."""
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    ds = offload_config()
+    micro = ds["train_batch_size"]
+    batches = token_stream(cfg, OFFLOAD_STEPS, seq=TRAIN_SEQ,
+                           micro=micro // TRAIN_GAS)
+    expect = {k: v // TRAIN_GAS for k, v in per_train_step(cfg).items()}
+    expect.update(sqnorm=0, fused_adam_apply=0)
+    leaves = len(gpt2_leaf_sizes(cfg))
+    counts, host_counts, runs = {}, {}, {}
+
+    fresh_card()
+    eng = offload_engine(cfg, offload_config(offload=False))
+    assert eng._offload is None
+    runs["device"] = run_offload(eng, batches[:OFFLOAD_DEVICE_STEPS])
+    del eng
+    fresh_card()
+    eng = offload_engine(cfg, ds)
+    assert eng._offload is not None and not eng._offload_overlap
+    num_buckets = eng._offload.num_buckets()
+    runs["serial"] = run_offload(eng, batches)
+    serial_state = offload_state(eng)
+    del eng
+    fresh_card()
+    eng = offload_engine(cfg, offload_config(overlap=True))
+    assert eng._offload_overlap
+    runs["overlap"] = run_offload(eng, batches)
+    for a, b in zip(serial_state, offload_state(eng)):
+        assert torch.equal(a, b), "serial and overlapped states differ"
+    del eng, serial_state
+    assert runs["serial"]["losses"] == runs["overlap"]["losses"], runs
+    fracs = [t["overlap_fraction"] for t in runs["overlap"]["timings"]]
+    assert min(fracs[1:]) > 0, fracs
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    fp16 = {}
+    for name, overlap in (("fp16", False), ("fp16_overlap", True)):
+        fresh_card()
+        eng = offload_engine(cfg16, offload_config("fp16", overlap))
+        runs[name] = run_offload(eng, batches[:OFFLOAD_FP16_STEPS])
+        fp16[name] = {"scales": [float(m["loss_scale"])
+                                 for m in runs[name]["metrics"]],
+                      "skipped": int(eng.skipped_steps),
+                      "losses": runs[name]["losses"]}
+        del eng
+    torch.cuda.empty_cache()
+    assert fp16["fp16"] == fp16["fp16_overlap"], fp16
+    assert fp16["fp16"]["skipped"] >= 1, fp16
+    assert all(math.isfinite(l) for l in fp16["fp16"]["losses"]), fp16
+
+    ser, dvc = runs["serial"], runs["device"]
+    losses = ser["losses"]
+    assert all(math.isfinite(l) for l in losses), losses
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    assert last < first, (first, last)
+    assert losses[0] == dvc["losses"][0], (losses[0], dvc["losses"][0])
+    rel = [abs(a - b) / abs(b) for a, b in zip(
+        losses[:OFFLOAD_DEVICE_STEPS], dvc["losses"])]
+    assert max(rel) <= OFFLOAD_LOSS_RTOL, rel
+    saving = dvc["peak_bytes"] - ser["peak_bytes"]
+    assert saving >= OFFLOAD_PEAK_SAVING, (dvc["peak_bytes"],
+                                           ser["peak_bytes"])
+    for name in ("serial", "overlap", "fp16", "fp16_overlap"):
+        r = runs[name]
+        steps = len(r["losses"])
+        taken = steps - (fp16[name]["skipped"] if name in fp16 else 0)
+        want = {k: steps * v for k, v in expect.items()}
+        want.update(cpu_adam_step=taken * leaves,
+                    cpu_adam_norm=steps * leaves)
+        assert r["counts"] == want, (name, r["counts"], want)
+        path = "train_offload" + ("" if name == "serial" else "_" + name)
+        counts[path] = {k: v for k, v in r["counts"].items()
+                        if not k.startswith("cpu_adam")}
+        host_counts[path] = {k: v for k, v in r["counts"].items()
+                             if k.startswith("cpu_adam")}
+    keys = ("device_step_ms", "d2h_ms", "host_norm_ms", "host_step_ms",
+            "h2d_dispatch_ms", "h2d_wait_ms", "pipeline_span_ms",
+            "pipeline_work_ms", "overlap_fraction", "wall_ms")
+
+    def breakdown(r):
+        return {k: float(np.mean([t[k] for t in r["timings"][1:]]))
+                for k in keys}
+    n_params = gpt2_num_params(cfg)
+    rec = {"config": OFFLOAD_CONFIG, "model": "gpt2-small",
+           "batch": [1, micro, TRAIN_SEQ], "dropout": cfg.hidden_dropout,
+           "steps": OFFLOAD_STEPS, "num_buckets": num_buckets,
+           "losses": losses, "loss_first3_mean": first,
+           "loss_last3_mean": last,
+           "device_optimizer_losses": dvc["losses"],
+           "first_loss_equal": True, "loss_rel_first5": rel,
+           "serial_overlap_bit_equal": True,
+           "step_ms_p50": {k: float(np.median(runs[k]["ms"][1:]))
+                           for k in ("serial", "overlap", "device")},
+           "breakdown_mean_steps_2_on": {k: breakdown(runs[k])
+                                         for k in ("serial", "overlap")},
+           "overlap_fraction_by_step": fracs,
+           "omp_threads": runs["overlap"]["timings"][-1].get("omp_threads"),
+           "peak_gb": {k: runs[k]["peak_bytes"] / 1e9
+                       for k in ("device", "serial", "overlap")},
+           "peak_saving_gb": saving / 1e9,
+           "fp16": fp16, "launches_per_step": expect,
+           "host_adam_calls_per_step": leaves,
+           "host_adam_bound_ms": HOST_ADAM_BYTES * n_params /
+           host_adam["host_bytes_per_s"]["best"] * 1e3,
+           "host_adam_kernel_ms": host_adam["ms"],
+           "host": host_adam["host"], "card": smi}
+    emit({"train_offload": rec})
+    return counts, host_counts
+
+
 def sparse_attention_fn(layout):
     """The ``attention_fn`` closure the JAX package builds from a
     SparsityConfig (``sparse_attention_utils``): ``sparse_attention``
@@ -2645,6 +3122,7 @@ def main():
     sparse = check_sparse(dev, gen)
     grouped = check_grouped_gemm(dev, gen)
     torch.cuda.synchronize()
+    host_adam = check_cpu_adam(smi)
 
     serve_counts, _ = serve_gpt2_small(dev)
     torch.cuda.synchronize()
@@ -2655,6 +3133,8 @@ def main():
     counts.update(train_moe(dev, smi))
     counts.update(train_checkpoint(dev, smi))
     counts.update(train_zero(dev, smi))
+    offload_counts, host_counts = train_offload(dev, smi, host_adam)
+    counts.update(offload_counts)
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
@@ -2746,8 +3226,16 @@ def main():
              "bound_by": r["bound_by"], "max_abs_err": r["max_err"]}
             for r in recs]
     assert len(kernels) == 16, [k["name"] for k in kernels]
+    host_adam["launches_by_path"] = {
+        path: c.get("cpu_adam_step", 0) for path, c in host_counts.items()}
+    host_adam["launches"] = sum(host_adam["launches_by_path"].values())
     emit({"smoke_wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
+    emit({"host_kernels": [{k: host_adam[k] for k in (
+        "name", "route", "source", "replaces", "launches",
+        "launches_by_path", "max_ulp", "ms", "plain_ms", "bound_ms",
+        "bound_by", "bound_note", "bound_set_by", "library_ms", "library",
+        "host")}]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

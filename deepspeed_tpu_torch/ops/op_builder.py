@@ -11,12 +11,20 @@ rebuilds and an unchanged one loads the existing library.
 No ``nvcc``, or a failed build, raises: nothing falls back to another
 implementation. Every C entry point returns ``cudaGetLastError()`` after
 its launch and ``check`` turns a non-zero code into an exception.
+
+The host kernel of ZeRO-Offload, ``csrc/cpu_adam.cpp``, is a second,
+separate library (``build_host`` / ``load_host``), built with the host's
+C++ compiler (``g++``, else ``clang++``) and the JAX package's flags, in
+the same directory, keyed by the sources, the flags and the host CPU
+(``-march=native``). It needs no ``nvcc``, so the CPU tests build and
+run it. No compiler, or a failed build, raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,6 +36,14 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+HOST_SOURCES = ("cpu_adam.cpp",)
+# The JAX package's host flags (deepspeed_tpu/ops/op_builder.py): without
+# -fno-math-errno / -fno-trapping-math g++ keeps sqrtf a libm call and
+# the Adam loop scalar. -march=native is dropped on a retry where the
+# host's compiler refuses it.
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp",
+              "-march=native", "-funroll-loops", "-fno-math-errno",
+              "-fno-trapping-math"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,6 +86,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_host_lib: Optional[ctypes.CDLL] = None
 
 
 def find_nvcc() -> str:
@@ -160,6 +177,76 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
 
 
+def find_cxx() -> str:
+    """The host C++ compiler: ``g++``, else ``clang++``, on the PATH (the
+    JAX package's choice). Raises when there is none."""
+    for name in ("g++", "clang++"):
+        found = shutil.which(name)
+        if found is not None:
+            return found
+    raise RuntimeError("no C++ compiler (g++ or clang++ on the PATH): the "
+                       "port's host kernels cannot be built")
+
+
+def _host_cpu() -> str:
+    """The host CPU's model and feature flags (what -march=native
+    compiles for), so a library built on another host is never
+    loaded."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.machine()
+    keep = [ln for ln in lines
+            if ln.startswith(("model name", "flags", "Features"))]
+    return platform.machine() + "\n" + "\n".join(sorted(set(keep)))
+
+
+def _host_library_path(flags: List[str]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(_host_cpu().encode())
+    for name in HOST_SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libdstt_host_{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile ``HOST_SOURCES`` into the host library (once per hash of
+    the sources and flags) and return its path; raises with the
+    compiler's output on failure."""
+    cxx = find_cxx()
+    out = _host_library_path(HOST_FLAGS)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    srcs = [str(CSRC_DIR / name) for name in HOST_SOURCES]
+    flags = list(HOST_FLAGS)
+    proc = subprocess.run([cxx, *flags, *srcs, "-o", str(tmp)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0 and "-march=native" in flags:
+        flags.remove("-march=native")
+        proc = subprocess.run([cxx, *flags, *srcs, "-o", str(tmp)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host build failed ({cxx}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The host kernel library, built on first use and cached per
+    process (its ctypes signatures are set by ``ops/cpu_adam.py``)."""
+    global _host_lib
+    if _host_lib is None:
+        _host_lib = ctypes.CDLL(str(build_host()))
+    return _host_lib
+
+
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device`` as a raw handle."""
     import torch
@@ -167,4 +254,4 @@ def stream_ptr(device) -> int:
 
 
 __all__ = ["find_nvcc", "sources", "build", "load", "check", "stream_ptr",
-           "BUILD_DIR", "CSRC_DIR"]
+           "find_cxx", "build_host", "load_host", "BUILD_DIR", "CSRC_DIR"]

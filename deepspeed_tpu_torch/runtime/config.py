@@ -535,8 +535,14 @@ class DeepSpeedConfig:
             (world > 1 and self.moe_config.num_experts > 0,
              "MoE at dp > 1", "slice 6: parallel axes and comm extras, "
              "queue 1 item 8"),
-            (bool(self.zero_config.cpu_offload),
-             "zero_optimization.cpu_offload", "slice 6: ZeRO-Offload"),
+            # The host partition follows each leaf's axis; stage 3's
+            # parameters are V-layout rows (runtime/zero/stage3.py).
+            (world > 1 and bool(self.zero_config.cpu_offload) and
+             self.zero_optimization_stage >= 3,
+             "zero_optimization.cpu_offload at ZeRO stage 3 with dp > 1 "
+             "(the host partition follows each leaf's axis, the stage-3 "
+             "parameters are rows of the V-interleaved layout)",
+             "queue 1: stage 3 + offload at dp > 1"),
             (bool(self.sparse_gradients_enabled), "sparse_gradients",
              "slice 6: parallel axes and comm extras"),
             (self.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER,

@@ -75,9 +75,24 @@ stage >= 1 a rank's moment rows, gathered to rank 0, which writes
 alone. A save from any dp (of the port or of JAX) loads at any dp
 dividing 8 by joining the optimizer shards and taking this rank's rows.
 
+ZeRO-Offload (``zero_optimization.cpu_offload`` at stage >= 1): the fp32
+masters and the Adam moments live in host memory, in a
+``zero/offload.ZeroOffloadOptimizer`` stepped by the host SIMD Adam
+(``ops/cpu_adam.py``); the card keeps the compute-dtype parameters and
+the fp32 grads (one flat buffer each, in leaf order) and runs no K5/K6.
+After the grad pass the grads cross to pinned host memory bucket by
+bucket (bf16 in bf16 runs, else fp32), the host runs the two-phase
+bucketed step with its own loss-scale machine, and each bucket's
+compute-dtype copy goes back; ``overlap_comm`` overlaps the copies with
+the host work (one process only). At dp > 1 each rank holds its
+partition of each leaf (its grads reduce-scattered along the leaf's
+partition axis, the params all-gathered back); stage 3 with offload at
+dp > 1 raises. The checkpoint is the JAX offload layout: ``{"offload":
+state}`` in the optimizer file and the fp32 masters as the module.
+
 What the port does not run yet raises ``NotImplementedError`` at
 construction, naming the ROADMAP slice that brings it: a dp that does
-not divide 8, MoE at dp > 1, ZeRO-Offload, the pipeline and the other
+not divide 8, MoE at dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
 parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
 remat and progressive layer drop, the ``forward/backward/step`` trio,
 client optimizer objects, optimizers other than Adam/AdamW, and the
@@ -87,8 +102,10 @@ CUDA).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -111,6 +128,7 @@ from ..ops.fused_update import (FlatGroup, FusedAdamState, ShardGroup,
                                 tree_unflatten)
 from ..parallel import comm
 from ..parallel.topology import dp_rank, dp_world_size
+from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.partition import describe_sharding, row_plan
 from .zero.stage3 import _gather, gather_tree, regather_saved
 from ..ops.optimizers import build_optimizer
@@ -166,6 +184,17 @@ def _host_copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     done = torch.cuda.Event()
     done.record()
     done.synchronize()
+    return out
+
+
+def _flat_views(buf: torch.Tensor, shapes: List[Tuple[int, ...]]
+                ) -> List[torch.Tensor]:
+    """Views of consecutive ranges of the flat ``buf``, one a shape."""
+    out, off = [], 0
+    for s in shapes:
+        n = int(np.prod(s, dtype=np.int64))
+        out.append(buf[off:off + n].view(s))
+        off += n
     return out
 
 
@@ -280,9 +309,23 @@ class DeepSpeedEngine:
                 f"{self.config.world_size}, the process group has {self.dp}")
         for feature, where in self.config.unported_features():
             raise _unported(feature, where)
+        # ZeRO-Offload (at stage >= 1, as in JAX): the host holds the
+        # masters and the moments, the card the compute-dtype params.
+        zc = self.config.zero_config
+        offload = bool(zc.cpu_offload) and \
+            self.zero_optimization_stage() >= 1
+        if zc.cpu_offload and not offload:
+            log_dist("zero_optimization.cpu_offload has no effect at ZeRO "
+                     "stage 0 (as in the JAX engine)", ranks=[0])
+        self._offload: Optional[ZeroOffloadOptimizer] = None
+        # The last offload step's breakdown (the JAX keys; None without
+        # offload).
+        self.offload_timings: Optional[Dict[str, Any]] = None
         # ZeRO across ranks (only at dp > 1: one card runs every stage as
-        # the contiguous one-card path, and stage 3 at dp 1 is stage 2).
-        stage = self.zero_optimization_stage() if self.dp > 1 else 0
+        # the contiguous one-card path, and stage 3 at dp 1 is stage 2;
+        # under offload the card holds whole params and grads).
+        stage = self.zero_optimization_stage() \
+            if self.dp > 1 and not offload else 0
         self._shard_local = stage >= 1        # K5/K6 on this rank's rows
         self._zero3 = stage >= 3              # params held as rows too
         self._rs_grads = stage >= 3 or (
@@ -329,6 +372,11 @@ class DeepSpeedEngine:
             not self._master_free
         master_dtype = torch.bfloat16 if self._master_free \
             else torch.float32
+        if self._master_free and offload:
+            raise ValueError(
+                "bf16.stochastic_rounding (master-free mode) composes with "
+                "the main train path only — onebit/offload/sparse_gradients "
+                "keep their own master-weight story")
 
         # LR schedule: a pure function of the step (a device tensor).
         opt_params = dict(self.config.optimizer_params or {})
@@ -347,7 +395,8 @@ class DeepSpeedEngine:
         if schedule_fn is None:
             schedule_fn = lambda step: base_lr  # noqa: E731
         self._schedule_fn = schedule_fn
-        self.optimizer = build_optimizer(
+        # (under offload the ZeroOffloadOptimizer, built below)
+        self.optimizer = None if offload else build_optimizer(
             self.config.optimizer_name or C.ADAM_OPTIMIZER, opt_params,
             schedule_fn)
 
@@ -363,13 +412,20 @@ class DeepSpeedEngine:
             if not t.is_floating_point():
                 raise TypeError("the port's engine trains floating-point "
                                 f"parameter trees, got a {t.dtype} leaf")
-            masters.append(t.detach().to(self.device, master_dtype))
+            masters.append(t.detach().to(
+                "cpu" if offload else self.device, master_dtype))
         if self.dp > 1:
             # Every rank starts from rank 0's parameters, as DeepSpeed's
             # engine broadcasts its model (the JAX mesh replicates one).
             for t in masters:
-                comm.broadcast(t, 0)
+                if t.device == self.device:
+                    comm.broadcast(t, 0)
+                else:
+                    t.copy_(comm.broadcast(t.to(self.device), 0))
         self._leaf_shapes = [tuple(t.shape) for t in masters]
+        sc = self._loss_scaler_config()
+        if offload:
+            self._init_offload(masters, sc)
         cast_dtype = self.compute_dtype if self._use_cast_cache else None
         self._groups: List[FlatGroup] = []
         self._shards: List[ShardGroup] = []
@@ -379,7 +435,7 @@ class DeepSpeedEngine:
         cast_views: List[Any] = [None] * n
         self._group_leaves: List[List[int]] = []
         plan = row_plan(self.dp, self.dp_rank)
-        for dt, idxs in float_groups(masters):
+        for dt, idxs in ([] if offload else float_groups(masters)):
             self._group_leaves.append(idxs)
             if self._shard_local:
                 sg = ShardGroup([self._leaf_shapes[i] for i in idxs], dt,
@@ -404,6 +460,8 @@ class DeepSpeedEngine:
                 for i, cv in zip(idxs, grp.views(grp.cast)):
                     cast_views[i] = cv
         del masters
+        if offload:
+            param_views, grad_views = self._param_views, self._grad_views
         self._grad_views = grad_views
         self._loss_leaves = [] if self._zero3 else [
             (cv if cv is not None else pv).requires_grad_(True)
@@ -413,24 +471,30 @@ class DeepSpeedEngine:
         self._opt_groups = self._shards or self._groups
         self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
 
-        sc = self._loss_scaler_config()
         self._scaler_kw = dict(
             fp16=self.config.fp16_enabled, static_scale=sc["static"],
             scale_window=sc["scale_window"], min_scale=sc["min_scale"],
             hysteresis_init=sc["hysteresis"])
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        self.state = EngineState(
-            step=torch.zeros((), **i32),
-            params=tree_unflatten(self._treedef, param_views),
-            opt_state=self.optimizer.init(self._opt_groups),
-            loss_scale=torch.tensor(sc["init_scale"], dtype=torch.float32,
-                                    device=dev),
-            growth_count=torch.zeros((), **i32),
-            hysteresis=torch.tensor(sc["hysteresis"], **i32),
-            skipped_steps=torch.zeros((), **i32),
-            cast_params=tree_unflatten(self._treedef, cast_views)
-            if self._use_cast_cache and not self._zero3 else None)
+        if offload:
+            # The loss-scale machine and the step count are the host's;
+            # the state mirrors them as CPU tensors after each step.
+            self.state = EngineState(
+                params=tree_unflatten(self._treedef, param_views),
+                opt_state=None, **self._offload_scalars())
+        else:
+            self.state = EngineState(
+                step=torch.zeros((), **i32),
+                params=tree_unflatten(self._treedef, param_views),
+                opt_state=self.optimizer.init(self._opt_groups),
+                loss_scale=torch.tensor(sc["init_scale"],
+                                        dtype=torch.float32, device=dev),
+                growth_count=torch.zeros((), **i32),
+                hysteresis=torch.tensor(sc["hysteresis"], **i32),
+                skipped_steps=torch.zeros((), **i32),
+                cast_params=tree_unflatten(self._treedef, cast_views)
+                if self._use_cast_cache and not self._zero3 else None)
 
         # Host-side counters.
         self.global_steps = 0
@@ -568,6 +632,11 @@ class DeepSpeedEngine:
         from the new parameters. ``global_steps`` follows from ``step`` and
         ``skipped_steps`` (``load_checkpoint`` takes the counters from the
         checkpoint's meta instead)."""
+        if self._offload is not None:
+            raise ValueError(
+                "set_train_state takes device optimizer state; an offload "
+                "engine's state is its host ZeroOffloadOptimizer "
+                "(load_checkpoint, or engine.optimizer.load_state_dict)")
         self._write_params(tree_flatten(params)[0])
         self._write_opt_state(opt_state, step, loss_scale, growth_count,
                               hysteresis, skipped_steps)
@@ -725,12 +794,14 @@ class DeepSpeedEngine:
             seed = fold_in(seed, self.dp_rank)
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _train_step(self, micro_batches: List[Any], step: int
-                    ) -> Dict[str, torch.Tensor]:
-        st = self.state
-        generator = self.step_generator(step)
+    def _micro_steps(self, micro_batches: List[Any],
+                     generator: torch.Generator, scale: Any
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The gas micro-steps: each one's loss (scaled by ``scale`` and
+        divided by gas), its gradients by autograd and their sum into the
+        fp32 grads (this rank's rows at ZeRO 2-3). Returns the mean loss
+        (a device tensor) and the MoE stats summed over the micro-steps."""
         gas = len(micro_batches)
-        scale = st.loss_scale
         leaves = self._loss_leaves
         params = None if self._zero3 else tree_unflatten(self._treedef,
                                                          leaves)
@@ -778,6 +849,27 @@ class DeepSpeedEngine:
             else:
                 mean_loss = (torch.zeros_like(raw) if i == 0 else
                              mean_loss) + raw / gas
+        return mean_loss, moe_sum
+
+    @staticmethod
+    def _moe_means(metrics: Dict[str, Any], moe_sum: Dict[str, Any],
+                   gas: int) -> None:
+        """The mean over the micro-batches of the MoE stats, as the JAX
+        engine's."""
+        if moe_sum:
+            for name in ("expert_tokens", "drop_fraction", "aux_loss",
+                         "z_loss"):
+                metrics[f"moe_{name}"] = moe_sum[name] / gas
+
+    def _train_step(self, micro_batches: List[Any], step: int
+                    ) -> Dict[str, torch.Tensor]:
+        if self._offload is not None:
+            return self._train_step_offload(micro_batches, step)
+        st = self.state
+        generator = self.step_generator(step)
+        scale = st.loss_scale
+        mean_loss, moe_sum = self._micro_steps(micro_batches, generator,
+                                               scale)
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
@@ -814,11 +906,7 @@ class DeepSpeedEngine:
         metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
                    "loss_scale": scale, "overflow": overflow,
                    "skipped_steps": self.state.skipped_steps}
-        if moe_sum:
-            # The mean over the micro-batches, as the JAX engine's.
-            for name in ("expert_tokens", "drop_fraction", "aux_loss",
-                         "z_loss"):
-                metrics[f"moe_{name}"] = moe_sum[name] / gas
+        self._moe_means(metrics, moe_sum, len(micro_batches))
         return metrics
 
     # ------------------------------------------------------------------ #
@@ -910,6 +998,265 @@ class DeepSpeedEngine:
                     else:
                         dst.add_(g)
         return scaled, raw, aux
+
+    # ------------------------------------------------------------------ #
+    # ZeRO-Offload (runtime/zero/offload.py)
+    # ------------------------------------------------------------------ #
+    def _init_offload(self, masters: List[torch.Tensor],
+                      scaler_cfg: Dict[str, Any]) -> None:
+        """The offload state (the JAX engine's construction,
+        ``engine.py:400-470``): the fp32 masters (CPU, full leaves, rank
+        0's at dp > 1) go to a host ``ZeroOffloadOptimizer``; the card
+        keeps the compute-dtype params and the fp32 grads, each one flat
+        buffer in leaf order, and no optimizer state. At dp > 1 each rank
+        holds its partition (``partition_rank`` = rank, ``partition_num``
+        = ``axis_divisor`` = dp) and the partitioned squared norm is
+        all-reduced."""
+        zc = self.config.zero_config
+        dev = self.device
+        cuda = dev.type == "cuda"
+        part: Dict[str, Any] = {}
+        if self.dp > 1:
+            part = dict(partition_rank=self.dp_rank, partition_num=self.dp,
+                        axis_divisor=self.dp,
+                        sumsq_allreduce=self._all_reduce_float)
+        off = ZeroOffloadOptimizer(
+            tree_unflatten(self._treedef, masters),
+            self.config.optimizer_name, dict(self.config.optimizer_params
+                                             or {}),
+            self._schedule_fn, self.compute_dtype,
+            gradient_clipping=self.gradient_clipping(),
+            fp16=self.config.fp16_enabled, scaler_cfg=scaler_cfg,
+            bucket_bytes=zc.offload_bucket_size,
+            host_threads=zc.offload_host_threads, pin_memory=cuda, **part)
+        self._offload = self.optimizer = off
+        # overlap_comm selects the overlapped pipeline (one process only,
+        # as in JAX).
+        self._offload_overlap = bool(zc.overlap_comm)
+        if self._offload_overlap and self.dp > 1:
+            log_dist("zero_optimization.overlap_comm: overlapped offload is "
+                     "single-process only for now; falling back to the "
+                     "serial offload step", ranks=[0])
+            self._offload_overlap = False
+        n = sum(int(np.prod(s, dtype=np.int64)) for s in self._leaf_shapes)
+        self._dev_params = torch.empty(n, dtype=self.compute_dtype,
+                                       device=dev)
+        self._param_views = _flat_views(self._dev_params, self._leaf_shapes)
+        grads = torch.empty(n, dtype=torch.float32, device=dev)
+        self._grad_views = _flat_views(grads, self._leaf_shapes)
+        with torch.no_grad():
+            for pv, m in zip(self._param_views, masters):
+                pv.copy_(m)
+        # This rank's partition of the grads (at dp 1 the grads
+        # themselves), and the pinned host buffer they cross into: bf16
+        # in bf16 runs, else fp32, as in JAX.
+        self._local_grads = torch.empty(off.offsets[-1], dtype=torch.float32,
+                                        device=dev) if self.dp > 1 else grads
+        self._local_grad_views = _flat_views(self._local_grads, off.shapes)
+        wire = torch.bfloat16 if self.compute_dtype == torch.bfloat16 \
+            else torch.float32
+        self._host_wire = torch.empty(off.offsets[-1], dtype=wire,
+                                      pin_memory=cuda)
+        self._host_wire_views = _flat_views(self._host_wire, off.shapes)
+        self._copy_stream = torch.cuda.Stream(dev) \
+            if self._offload_overlap and cuda else None
+
+    def _offload_scalars(self) -> Dict[str, torch.Tensor]:
+        """The host machine's counters as the state's (CPU) tensors."""
+        off = self._offload
+        i32 = dict(dtype=torch.int32)
+        return dict(step=torch.tensor(off.step_count, **i32),
+                    loss_scale=torch.tensor(off.loss_scale,
+                                            dtype=torch.float32),
+                    growth_count=torch.tensor(off.growth_count, **i32),
+                    hysteresis=torch.tensor(off.hysteresis, **i32),
+                    skipped_steps=torch.tensor(off.skipped_steps, **i32))
+
+    def _all_reduce_float(self, x: float) -> float:
+        t = torch.tensor([x], dtype=torch.float64, device=self.device)
+        return float(comm.all_reduce(t))
+
+    def _mark(self, stream=None, blocking: bool = False):
+        """A point on the device's timeline: a recorded CUDA event (on
+        ``stream``, default the current one), or the host clock on the
+        CPU. ``blocking``: a host thread that waits on it sleeps instead
+        of spinning."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True, blocking=blocking)
+        ev.record(stream)
+        return ev
+
+    def _wait(self, mark) -> None:
+        if self.device.type == "cuda":
+            mark.synchronize()
+
+    def _elapsed_ms(self, a, b) -> float:
+        if self.device.type == "cuda":
+            return float(a.elapsed_time(b))
+        return (b - a) * 1e3
+
+    def _offload_grads(self, micro_batches: List[Any], step: int
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The grad pass: the micro-steps at the host's loss scale into
+        the fp32 grads; at dp > 1 each rank's partition of their sum over
+        the ranks into ``_local_grads`` (times 1/dp, exact for dp a power
+        of two: each rank's loss is its own rows' mean) and the mean loss
+        over the ranks."""
+        generator = self.step_generator(step)
+        mean_loss, moe_sum = self._micro_steps(
+            micro_batches, generator, self._offload.loss_scale)
+        if self.dp > 1:
+            with torch.no_grad():
+                self._offload_reduce_grads()
+                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+        return mean_loss, moe_sum
+
+    def _offload_reduce_grads(self) -> None:
+        """dp > 1: each leaf's grads reduce-scattered along its partition
+        axis (all-reduced where it has none) into this rank's partition."""
+        off = self._offload
+        for g, dst, ax in zip(self._grad_views, self._local_grad_views,
+                              off._axes):
+            if ax is None:
+                dst.copy_(comm.all_reduce(g))
+                continue
+            part = comm.reduce_scatter(g.movedim(ax, 0).contiguous()
+                                       .view(-1))
+            dst.copy_(part.view(dst.movedim(ax, 0).shape).movedim(0, ax))
+        self._local_grads.mul_(1.0 / self.dp)
+
+    def _offload_upload(self, b: int, leaves=None) -> None:
+        """Bucket ``b``'s compute-dtype copy to the card (one range of the
+        pinned staging buffer, asynchronous)."""
+        a, e = self._offload.bucket_range(b)
+        self._dev_params[a:e].copy_(self._offload.staging_flat[a:e],
+                                    non_blocking=True)
+
+    def _offload_put_params(self) -> None:
+        """The device params from the host staging copy: at dp 1 one
+        copy; at dp > 1 every rank's partition all-gathered along each
+        leaf's axis."""
+        off = self._offload
+        with torch.no_grad():
+            if self.dp == 1:
+                self._dev_params.copy_(off.staging_flat, non_blocking=True)
+                return
+            local = off.staging_flat.to(self.device)
+            for pv, loc, ax in zip(self._param_views,
+                                   _flat_views(local, off.shapes),
+                                   off._axes):
+                if ax is None:
+                    pv.copy_(loc)
+                    continue
+                full = comm.all_gather(loc.movedim(ax, 0).contiguous())
+                pv.copy_(full.view(pv.movedim(ax, 0).shape).movedim(0, ax))
+
+    def _train_step_offload(self, micro_batches: List[Any], step: int
+                            ) -> Dict[str, Any]:
+        """One offload step (the JAX ``_train_batch_offload`` and
+        ``_offload_step_overlapped``): the grad pass on the card, the
+        grads to the host bucket by bucket, the host's two-phase step,
+        and each bucket's compute-dtype params back to the card.
+
+        Serial: each bucket's copy to the host is fenced on its own; the
+        uploads go on the current stream, so the next forward follows
+        them. Overlapped: every bucket's copy is enqueued on a copy
+        stream after the grad pass, an event each; this thread waits
+        bucket by bucket while the pool runs the norms, then Adam; each
+        finished bucket goes up on the copy stream, and the current
+        stream waits on the uploads' event (on the device: the host does
+        not wait). ``offload_timings`` holds the JAX keys;
+        ``device_step_ms`` is the grad pass by CUDA events."""
+        off = self._offload
+        t_pre = time.perf_counter()
+        m0 = self._mark()
+        scale = off.loss_scale
+        mean_loss, moe_sum = self._offload_grads(micro_batches, step)
+        with torch.no_grad():
+            metrics, timings, h2d_wait_ms, m1 = self._offload_host_step()
+        timings["device_step_ms"] = self._elapsed_ms(m0, m1)
+        timings["h2d_wait_ms"] = h2d_wait_ms
+        timings["wall_ms"] = (time.perf_counter() - t_pre) * 1e3
+        self.offload_timings = timings
+        self.skipped_steps = off.skipped_steps
+        self.state = self.state.replace(**self._offload_scalars())
+        out = {"loss": mean_loss, "grad_norm": metrics["grad_norm"],
+               "lr": metrics["lr"], "loss_scale": scale,
+               "overflow": metrics["overflow"],
+               "skipped_steps": off.skipped_steps,
+               "clip_coeff": metrics["clip_coeff"]}
+        self._moe_means(out, moe_sum, len(micro_batches))
+        return out
+
+    def _offload_host_step(self):
+        """The grads to the host, the bucketed host step, the params back
+        (serial or overlapped); returns the step's metrics and timings,
+        the host's ms in the uploads' fence and the grad pass's end
+        mark."""
+        off = self._offload
+        wire = self._local_grads.to(self._host_wire.dtype)
+        m1 = self._mark()
+        views = self._host_wire_views
+        cs = self._copy_stream
+        h2d_wait_ms = 0.0
+
+        def copy_down(b: int) -> None:
+            a, e = off.bucket_range(b)
+            self._host_wire[a:e].copy_(wire[a:e], non_blocking=True)
+
+        if not self._offload_overlap:
+            self._wait(m1)
+
+            def fetch(b):
+                copy_down(b)
+                self._wait(self._mark())
+                return [views[i] for i in off.buckets[b]]
+
+            metrics, timings = run_bucketed_step(
+                off, fetch, self._offload_upload if self.dp == 1 else None,
+                overlap=False)
+            if self.dp > 1 and not metrics["overflow"]:
+                self._offload_put_params()
+        else:
+            events: List[Any] = []
+            if cs is not None:
+                cs.wait_event(m1)
+                if wire is not self._local_grads:
+                    wire.record_stream(cs)
+                with torch.cuda.stream(cs):
+                    for b in range(off.num_buckets()):
+                        copy_down(b)
+                        # (blocking: the waiting thread would spin on a
+                        # core the pool's OpenMP team is using)
+                        events.append(self._mark(cs, blocking=True))
+
+            def fetch(b):
+                if cs is None:
+                    copy_down(b)
+                else:
+                    events[b].synchronize()
+                return [views[i] for i in off.buckets[b]]
+
+            def upload(b, leaves):
+                with torch.cuda.stream(cs) if cs is not None else \
+                        contextlib.nullcontext():
+                    self._offload_upload(b)
+
+            metrics, timings = run_bucketed_step(off, fetch, upload,
+                                                 overlap=True)
+            if cs is not None:
+                done = self._mark(cs)
+                t = time.perf_counter()
+                torch.cuda.current_stream(self.device).wait_event(done)
+                h2d_wait_ms = (time.perf_counter() - t) * 1e3
+        return metrics, timings, h2d_wait_ms, m1
+
+    def loss_scale(self) -> float:
+        """The current loss scale (the host machine's under offload)."""
+        if self._offload is not None:
+            return float(self._offload.loss_scale)
+        return float(self.state.loss_scale)
 
     def _maybe_log(self, metrics: Dict[str, torch.Tensor]) -> None:
         spp = self.steps_per_print()
@@ -1036,6 +1383,10 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "state_dict"):
             meta["lr_scheduler"] = self.lr_scheduler.state_dict()
+        if self._offload is not None:
+            del meta["fused_moment_layout"]
+            return self._snapshot_offload(save_dir, str(tag), save_latest,
+                                          meta)
 
         st = self.state
         opt = st.opt_state
@@ -1213,6 +1564,10 @@ class DeepSpeedEngine:
             raise _unported(f"a tensor-parallel checkpoint "
                             f"({meta['mp_shards']} mp_rank model files)",
                             "slice 6: parallel axes and comm extras")
+        if self._offload is not None:
+            return self._load_offload(path, meta, load_module_strict,
+                                      load_optimizer_states,
+                                      load_lr_scheduler_states)
         optim_file = os.path.join(path, OPTIM_FILE_FMT)
         legacy_optim = None
         if load_optimizer_states and not meta.get("optim_shards") and \
@@ -1220,8 +1575,10 @@ class DeepSpeedEngine:
             with open(optim_file, "rb") as f:
                 legacy_optim = msgpack_restore(f.read())
             if isinstance(legacy_optim, dict) and "offload" in legacy_optim:
-                raise _unported("a ZeRO-Offload checkpoint (host optimizer "
-                                "state)", "slice 6: ZeRO-Offload")
+                raise ValueError(
+                    f"{optim_file} holds ZeRO-Offload host optimizer state: "
+                    "load it into an engine with zero_optimization."
+                    "cpu_offload, or with load_optimizer_states=False")
         if load_optimizer_states and \
                 int(meta.get("fused_moment_layout", 1)) != \
                 FUSED_MOMENT_LAYOUT:
@@ -1303,6 +1660,149 @@ class DeepSpeedEngine:
                 hasattr(self.lr_scheduler, "load_state_dict"):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         log_dist(f"loaded checkpoint {path} at global_step="
+                 f"{self.global_steps}", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    # ------------------------------------------------------------------ #
+    # ZeRO-Offload checkpoints (the JAX engine's offload layout)
+    # ------------------------------------------------------------------ #
+    def _offload_full(self, leaves: List[torch.Tensor]
+                      ) -> Optional[List[torch.Tensor]]:
+        """Whole host copies of local leaves: at dp > 1 every rank's
+        partition gathered to rank 0 along the leaf's axis (collective;
+        None on the other ranks)."""
+        if self.dp == 1:
+            return [t.clone() for t in leaves]
+        out = []
+        for t, ax in zip(leaves, self._offload._axes):
+            if ax is None:
+                out.append(t.clone())
+                continue
+            parts = comm.gather(t.to(self.device).movedim(ax, 0)
+                                .contiguous())
+            if parts is not None:
+                out.append(torch.cat(parts).movedim(0, ax).to("cpu")
+                           .contiguous())
+        return out if self.dp_rank == 0 else None
+
+    def _snapshot_offload(self, save_dir: str, tag: str, save_latest: bool,
+                          meta: Dict[str, Any]) -> CheckpointSnapshot:
+        """The JAX offload layout: the fp32 masters as the module file's
+        ``{"module": tree}`` and ``{"offload": ZeroOffloadOptimizer
+        .state_dict()}`` as the optimizer file (lists as ``"0"``, ``"1"``,
+        ... maps, as flax writes them), whole leaves (what JAX's one
+        process writes and reads). Copies, so the writer serializes this
+        instant's values."""
+        off = self._offload
+        masters = self._offload_full(off.masters)
+        m = self._offload_full(off.opt.exp_avg)
+        v = self._offload_full(off.opt.exp_avg_sq)
+        self.skipped_steps = off.skipped_steps
+        meta["skipped_steps"] = self.skipped_steps
+        if self.dp_rank != 0:
+            return CheckpointSnapshot(
+                save_dir=save_dir, tag=tag, save_latest=save_latest,
+                meta=meta, blobs=[], is_writer=False, fsync=self._ckpt_fsync)
+
+        def indexed(xs):
+            return {str(i): x for i, x in enumerate(xs)}
+        state = {"optimizer": {"step": off.opt.step_count,
+                               "exp_avg": indexed(m),
+                               "exp_avg_sq": indexed(v)},
+                 "masters": indexed(masters),
+                 "loss_scale": off.loss_scale,
+                 "growth_count": off.growth_count,
+                 "hysteresis": off.hysteresis,
+                 "step_count": off.step_count,
+                 "skipped_steps": off.skipped_steps}
+        module = tree_unflatten(self._treedef, masters)
+        blobs = [(MODEL_FILE, lambda: msgpack_serialize({"module": module})),
+                 (OPTIM_FILE_FMT,
+                  lambda: msgpack_serialize({"offload": state}))]
+        return CheckpointSnapshot(
+            save_dir=save_dir, tag=tag, save_latest=save_latest, meta=meta,
+            blobs=blobs, is_writer=True, fsync=self._ckpt_fsync)
+
+    def _offload_state(self, path: str, blob: Any) -> Dict[str, Any]:
+        """A decoded optimizer file → the ``ZeroOffloadOptimizer
+        .load_state_dict`` form, checked against this model's leaves."""
+        if not (isinstance(blob, dict) and "offload" in blob):
+            raise ValueError(
+                f"checkpoint {path} has no ZeRO-Offload optimizer state "
+                "(it was saved without zero_optimization.cpu_offload); "
+                "load it with load_optimizer_states=False")
+        st = blob["offload"]
+        n = len(self._leaf_shapes)
+
+        def leaves(d, what):
+            got = [d.get(str(i)) for i in range(n)] \
+                if isinstance(d, dict) and len(d) == n else None
+            if got is None or any(
+                    x is None or tuple(x.shape) != s
+                    for x, s in zip(got, self._leaf_shapes)):
+                raise ValueError(
+                    f"checkpoint {path}: the offload {what} do not fit "
+                    "this model's leaves — the model changed since the "
+                    "save")
+            return got
+        o = st["optimizer"]
+        return {"optimizer": {"step": int(o["step"]),
+                              "exp_avg": leaves(o["exp_avg"], "moments"),
+                              "exp_avg_sq": leaves(o["exp_avg_sq"],
+                                                   "moments")},
+                "masters": leaves(st["masters"], "masters"),
+                **{k: st[k] for k in ("loss_scale", "growth_count",
+                                      "hysteresis", "step_count",
+                                      "skipped_steps") if k in st}}
+
+    def _load_offload(self, path: str, meta: Dict[str, Any], strict: bool,
+                      load_optimizer_states: bool,
+                      load_lr_scheduler_states: bool
+                      ) -> Tuple[Optional[str], Dict[str, Any]]:
+        """Load an offload checkpoint (the port's or the JAX engine's):
+        the masters from the module file through ``set_masters`` (so the
+        staging copy is re-derived, also without the optimizer state),
+        the host optimizer state, the counters and the lr schedule; then
+        the device params from the staging copy."""
+        model_file = os.path.join(path, MODEL_FILE)
+        if not os.path.isfile(model_file):
+            logger.warning(f"checkpoint {model_file} not found")
+            return None, {}
+        with open(model_file, "rb") as f:
+            probe = msgpack_restore(f.read())
+        if not (isinstance(probe, dict) and "module" in probe):
+            raise ValueError(
+                f"{model_file} is a SHARDED (mp_rank) model checkpoint but "
+                "engine_meta.json does not say so — restore the sidecar")
+        new_leaves = self._checkpoint_param_leaves(probe["module"], strict)
+        state = None
+        optim_file = os.path.join(path, OPTIM_FILE_FMT)
+        if load_optimizer_states and os.path.isfile(optim_file):
+            with open(optim_file, "rb") as f:
+                state = self._offload_state(path, msgpack_restore(f.read()))
+
+        # Every file read and checked: now the state changes.
+        off = self._offload
+        if self.device.type == "cuda":
+            # (no upload still reads the staging copy)
+            torch.cuda.synchronize(self.device)
+        off.set_masters([m if x is None else x
+                         for m, x in zip(off.masters, new_leaves)])
+        if state is not None:
+            off.load_state_dict(state)
+        self.global_steps = int(meta.get("global_steps", 0))
+        self.global_samples = int(meta.get("global_samples", 0))
+        self.skipped_steps = off.skipped_steps if state is not None \
+            else int(meta.get("skipped_steps", 0))
+        self.micro_steps = self.global_steps * \
+            self.gradient_accumulation_steps()
+        if load_lr_scheduler_states and self.lr_scheduler is not None and \
+                "lr_scheduler" in meta and \
+                hasattr(self.lr_scheduler, "load_state_dict"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        self._offload_put_params()
+        self.state = self.state.replace(**self._offload_scalars())
+        log_dist(f"loaded offload checkpoint {path} at global_step="
                  f"{self.global_steps}", ranks=[0])
         return path, meta.get("client_state", {})
 

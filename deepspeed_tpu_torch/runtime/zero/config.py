@@ -8,7 +8,12 @@ collectives (``runtime/engine.py``): ``grad_sync`` is parsed and
 validated as in JAX but the port has only the explicit schedule, and
 ``reduce_scatter: false`` keeps stage-2 grads all-reduced. The per-layer
 prefetched scan that ``prefetch_depth`` tunes is not ported (stage 3
-gathers every leaf per micro-step); ``cpu_offload`` raises.
+gathers every leaf per micro-step). ``cpu_offload`` (at stage >= 1)
+puts the masters and the moments in host memory
+(``runtime/zero/offload.py``); ``offload_bucket_size`` sizes its buckets,
+``offload_host_threads`` its pool (0: one worker, whose calls run on
+every core; JAX's 0 is a worker a core), and ``overlap_comm`` selects its
+overlapped pipeline. With dp > 1 it raises at stage 3.
 """
 from __future__ import annotations
 

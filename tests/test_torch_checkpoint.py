@@ -680,10 +680,22 @@ def test_old_moment_layout_refused_before_any_state_changes(tmp_path):
     ({"optim_shards": None, "offload": True}, "ZeRO-Offload"),
 ])
 def test_unported_checkpoint_layouts_raise(tmp_path, meta, match):
-    tag = _saved_tag(tmp_path)
     if meta.pop("offload", False):
-        (tag / "zero_pp_rank_0_mp_rank_00_optim_states.msgpack").write_bytes(
-            fm.msgpack_serialize({"offload": {"step": 1}}))
+        # ZeRO-Offload tags are ported: an offload engine's tag (host
+        # optimizer state, no shard map) loads into an offload engine
+        # (tests/test_torch_offload.py holds them against JAX's).
+        off = {"zero_optimization": {"stage": 2, "cpu_offload": True}}
+        src = _port_engine("fp32", extra=off)
+        tag = _saved_tag(tmp_path, src)
+        assert "optim_shards" not in json.loads(
+            (tag / "engine_meta.json").read_text())
+        eng = _port_engine("fp32", seed=7, extra=off)
+        path, _ = eng.load_checkpoint(str(tmp_path))
+        assert path is not None and eng.global_steps == 1
+        for a, b in zip(eng._offload.masters, src._offload.masters):
+            assert torch.equal(a, b)
+        return
+    tag = _saved_tag(tmp_path)
     _edit_meta(tag, **meta)
     eng = _port_engine("fp32", seed=7)
     with pytest.raises(NotImplementedError, match=match):

@@ -28,7 +28,9 @@ by tree path), and ``jobs``, run in order on one gloo process group:
 Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
 the loss scale the step used, the skipped-step count and a digest of
 the full parameters; after the last step the full parameters (flat,
-tree order, fp32) and this rank's optimizer moment buffers.
+tree order, fp32) and this rank's optimizer moment buffers (under
+ZeRO-Offload, ``zero: {"cpu_offload": true}``, its partition of the host
+masters and moments, ``hp{i}``/``hm{i}``/``hv{i}`` a leaf).
 """
 import dataclasses
 import hashlib
@@ -140,11 +142,22 @@ def run_job(job, world, rank, params):
                 dist.barrier()
     out = {k: np.asarray(v) for k, v in rec.items()}
     out["params"] = flat_params(eng)
-    st = eng.state.opt_state
-    for gi, (m, v) in enumerate(zip(st.m, st.v)):
-        out[f"m{gi}"] = m.numpy()
-        out[f"v{gi}"] = v.numpy()
-    out["count"] = np.asarray(int(st.count))
+    off = eng._offload
+    if off is not None:
+        # ZeRO-Offload: this rank's partition of the host masters and
+        # moments, leaf by leaf.
+        for i, (p, m, v) in enumerate(zip(off.masters, off.opt.exp_avg,
+                                          off.opt.exp_avg_sq)):
+            out[f"hp{i}"] = p.numpy()
+            out[f"hm{i}"] = m.numpy()
+            out[f"hv{i}"] = v.numpy()
+        out["count"] = np.asarray(off.opt.step_count)
+    else:
+        st = eng.state.opt_state
+        for gi, (m, v) in enumerate(zip(st.m, st.v)):
+            out[f"m{gi}"] = m.numpy()
+            out[f"v{gi}"] = v.numpy()
+        out["count"] = np.asarray(int(st.count))
     np.savez(f"{job['out']}.rank{rank}.npz", **out)
 
 
