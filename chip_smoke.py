@@ -162,6 +162,25 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    memory at least 1.4 GB below the device engine's, exact launches
    (no K5/K6; 16 host Adam calls a taken step). Printed: step ms each
    way, the ``offload_timings`` breakdown, the peaks.
+5g. ``train_remat`` (after ``train_moe``): gpt2-medium (H 1024, 16
+   heads of 64, 24 layers, FFN 4096, vocab 50304) at full width and depth
+   on the main path's recipe, 2 warm-up and 6 timed steps under each
+   ``remat_policy`` (``none``, ``full``, ``dots``, ``dots_flash``,
+   ``attn``) from the same
+   params and token stream, each its own path: losses bit-equal across
+   the policies, exactly the launches ``per_remat_step`` derives (the
+   forward kernels again in the backward), ``full``'s peak at least
+   ``REMAT_PEAK_SAVING`` under ``none``'s, 0 host syncs under ``full``;
+   printed per policy: step ms p50, peak, K1/K3f/K4f/K2c/K3b/K4b
+   launches a step, device busy ms and idle share (one profiled step).
+   Then ``train_pld`` (``PLD_BLOCK``, 10 steps): the kept layers a step
+   and micro-step (host draws), K1 launches equal to them, 0 host syncs,
+   the loss falls; then the ``train_moe`` block under ``full`` against
+   ``none`` (3 steps each: equal losses and ``moe_*`` metrics, K9 up by
+   two launches a layer and micro-step); then the checkpointing API
+   (``check_checkpoint_api``: ``cpu_checkpointing`` on CUDA tensors, the
+   held input in pinned host memory, the card's copy freed, gradients
+   bit-equal to the plain call's).
 6. The ``{"host_kernels": [...]}`` line (the host Adam), then the
    ``{"kernels": [...]}`` summary line (the sqnorm and fused_adam
    rows also carry their shard-local launches by dp), then the result
@@ -294,6 +313,26 @@ MOE_STEPS, MOE_PROFILE_STEPS, MOE_FP16_STEPS = 12, 2, 3
 # hysteresis.
 CKPT_STEPS = 3
 CKPT_FP16_SCALE_POWER = 19
+# train_remat (slice 6d): gpt2-medium at full width and depth on the main
+# path's recipe, 6 steps under each remat policy from the same params and
+# token stream; full's peak must sit at least this far under none's (the
+# held activations fall from about 0.29 GB a layer and micro-batch to the
+# block input's 16.8 MB; the floor is two thirds of that estimate's
+# 6.5 GB).
+REMAT_POLICIES = ("none", "full", "dots", "dots_flash", "attn")
+# Each policy's path: 2 steps that warm the caching allocator (a fresh
+# engine's first remat steps read 10-40% above its later ones as the
+# re-run's blocks are first allocated), then the 6 steps it is timed on.
+REMAT_WARMUP, REMAT_STEPS = 2, 6
+REMAT_PEAK_SAVING = 4.0e9
+# Progressive layer drop on the same model: theta 0.5 and gamma 0.1 take
+# the keep probability from 1 to 0.70 in 10 steps, so layers drop (at
+# gamma 0.001 the schedule keeps every layer for the first hundred steps:
+# about 0.6 drops expected in 10).
+PLD_BLOCK = {"enabled": True, "theta": 0.5, "gamma": 0.1}
+PLD_STEPS = 10
+# MoE (the train_moe block at gpt2-small) under full against none.
+REMAT_MOE_STEPS = 3
 
 
 # Kernels whose ptxas report (registers, spills, static shared memory) the
@@ -3077,6 +3116,259 @@ def train_moe(dev, smi):
     return counts
 
 
+# --------------------------------------------------------------------- #
+# Phase 5g: activation recomputation and progressive layer drop
+# --------------------------------------------------------------------- #
+def per_remat_step(cfg, policy, expect=None):
+    """Launches of one train step under ``policy``: the step's own, plus
+    the forward kernels the backward re-runs a layer and micro-batch —
+    both LayerNorms (K3f) and the GELU (K4f) under every policy but
+    ``none``, the flash forward (K1) under all but ``none`` and
+    ``dots_flash`` (models/remat.py)."""
+    c = dict(expect or per_train_step(cfg))
+    if policy != "none":
+        n = TRAIN_GAS * cfg.num_layers
+        for name in ("fused_layer_norm", "fused_residual_layer_norm",
+                     "fused_bias_gelu"):
+            c[name] += n if c[name] else 0
+        if policy != "dots_flash":
+            c["flash_attention_fwd"] += n
+    return c
+
+
+KERNEL_ALIASES = (("K1", ("flash_attention_fwd",)),
+                  ("K3f", ("fused_layer_norm", "fused_residual_layer_norm")),
+                  ("K4f", ("fused_bias_gelu",)),
+                  ("K2c", ("flash_attention_bwd_fused",)),
+                  ("K3b", ("layer_norm_backward",)),
+                  ("K4b", ("bias_gelu_backward",)),
+                  ("K9", ("grouped_matmul",)))
+
+
+def by_kernel(counts, steps):
+    return {k: sum(counts[w] for w in ws) / steps for k, ws in KERNEL_ALIASES}
+
+
+def check_checkpoint_api(dev, smi):
+    """``checkpointing.checkpoint`` with ``cpu_checkpointing`` on CUDA
+    tensors at the medium path's activation shape (8 x 1024 x 1024,
+    bf16): the held input sits in pinned host memory, the card frees it
+    once the caller drops it, and the gradients equal the plain call's
+    bit for bit (the recompute replays the CUDA generator's draws)."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ck
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    H = 1024
+    w = (torch.randn(H, H, device=dev, generator=g) * H ** -0.5).to(
+        torch.bfloat16).requires_grad_()
+    x0 = torch.randn(TRAIN_MICRO, TRAIN_SEQ, H, device=dev, generator=g).to(
+        torch.bfloat16).requires_grad_()
+
+    def fn(w, x):
+        h = torch.tanh(x @ w)
+        return (h * (torch.rand(h.shape, device=h.device) < 0.9)).float() \
+            .square().sum()
+
+    def grads(call):
+        torch.manual_seed(SEED)
+        x = x0 * 1.0
+        out = call(w, x)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        del x
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        torch.manual_seed(SEED + 1)
+        return out.detach(), torch.autograd.grad(out, (w, x0)), freed
+
+    ck.reset()
+    ck.configure(checkpoint_in_cpu=True)
+    try:
+        wrapped = ck.checkpoint_wrapper(fn)
+        out, gr, freed = grads(wrapped)
+        saved = wrapped.last_saved
+        out_p, gp, freed_p = grads(fn)
+    finally:
+        ck.reset()
+    rec = {"shape": [TRAIN_MICRO, TRAIN_SEQ, H], "dtype": "bf16",
+           "saved": saved, "card_bytes_freed_when_the_input_is_dropped":
+           freed, "plain_call_bytes_freed": freed_p,
+           "input_bytes": x0.numel() * 2,
+           "grads_bit_equal": all(torch.equal(a, b) for a, b in
+                                  zip(gr, gp)) and torch.equal(out, out_p),
+           "card": smi}
+    emit({"activation_checkpointing_api": rec})
+    assert rec["grads_bit_equal"], rec
+    assert {s[1] for s in saved} == {"cpu"} and all(s[3] for s in saved), \
+        saved
+    assert freed >= x0.numel() * 2 and freed_p == 0, rec
+
+
+def train_remat(dev, smi):
+    """gpt2-medium (H 1024, 16 heads of 64, 24 layers, FFN 4096, vocab
+    50304) through ``initialize`` → ``train_batch`` on the main path's
+    recipe (bf16, fp32 masters, AdamW, WarmupLR, clip 1.0, gas 2 x 8 x
+    1024, dropout 0.1, flash attention): 2 warm-up and 6 timed steps
+    under each of the five remat policies from the same params and token
+    stream (losses bit-equal across the policies, exact launches, full's
+    peak under none's by ``REMAT_PEAK_SAVING``, step ms, peak, device
+    busy ms from one profiled step); then ``train_pld`` (10 steps, PLD_BLOCK: K1 launches equal
+    the kept layers summed over the micro-steps, known on the host, 0
+    host syncs, the loss falls); then MoE (the train_moe block at
+    gpt2-small) under ``full`` against ``none`` (3 steps each: equal
+    losses and moe_* metrics, K9 up by the recompute's two forward
+    launches a layer and micro-batch); then the checkpointing API. Each
+    run is its own path."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    cfg = GPT2_CONFIGS["gpt2-medium"]
+    n_steps = REMAT_WARMUP + REMAT_STEPS
+    batches = token_stream(cfg, max(n_steps, PLD_STEPS) + 1)
+    tokens_per_step = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    counts, runs = {}, {}
+    for policy in REMAT_POLICIES:
+        eng = make_engine(dataclasses.replace(cfg, remat_policy=policy),
+                          "bf16")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        path = f"train_remat_{policy}"
+        losses, metrics, ms, counts[path] = run_path(eng, batches[:n_steps])
+        peak = torch.cuda.max_memory_allocated()
+        expect = per_remat_step(cfg, policy)
+        assert counts[path] == {k: n_steps * v
+                                for k, v in expect.items()}, \
+            (policy, counts[path], expect)
+        prof = profile_train_steps(eng, batches[n_steps:n_steps + 1])
+        syncs = count_host_syncs(eng, batches[:1]) if policy == "full" \
+            else None
+        step_ms = float(np.median(ms[REMAT_WARMUP:]))
+        runs[policy] = {
+            "losses": losses, "step_ms_p50": step_ms, "step_ms_all": ms,
+            "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+            "peak_memory_gb": peak / 1e9,
+            "launches_per_step": by_kernel(counts[path], n_steps),
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "idle_share_of_step_p50":
+                1 - prof["device_busy_ms_per_step"] / step_ms,
+            "device_ms_per_step_by_group":
+                prof["device_ms_per_step_by_group"]}
+        if syncs is not None:
+            runs[policy]["host_syncs"] = syncs
+            assert syncs["host_syncs"] == 0, syncs
+        del eng
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    out = {"model": "gpt2-medium", "precision": "bf16, fp32 masters",
+           "batch": [TRAIN_GAS, TRAIN_MICRO, TRAIN_SEQ],
+           "steps": n_steps, "timed_steps": REMAT_STEPS,
+           "dropout": cfg.hidden_dropout,
+           "step_ms_of": "the p50 of the steps after the warm-up",
+           "peak_memory_of": "the steps of each policy (reset before)",
+           "peak_saving_floor_gb": REMAT_PEAK_SAVING / 1e9,
+           "policies": runs, "card": smi}
+    emit({"train_remat": out})
+    for policy in REMAT_POLICIES[1:]:
+        assert runs[policy]["losses"] == runs["none"]["losses"], \
+            (policy, runs[policy]["losses"], runs["none"]["losses"])
+    assert all(math.isfinite(l) for l in runs["none"]["losses"])
+    assert runs["full"]["peak_memory_gb"] * 1e9 <= \
+        runs["none"]["peak_memory_gb"] * 1e9 - REMAT_PEAK_SAVING, runs
+
+    # Progressive layer drop: the keep draws are the host's. The model is
+    # gpt2_loss_fn behind a wrapper that reads, from the generator each
+    # call gets, the layers that call keeps (pld_keep does not advance
+    # it).
+    inner, kept = gpt2_loss_fn(cfg), []
+
+    def loss_fn(params, batch, rng=None, pld_theta=None):
+        keep = tt.pld_keep(cfg.num_layers, pld_theta, rng)
+        kept.append([i for i, k in enumerate(keep) if k])
+        return inner(params, batch, rng, pld_theta=pld_theta)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=loss_fn, model_params=gpt2_init(
+            cfg, torch.Generator(device=dev).manual_seed(SEED)),
+        config=dict(train_config("bf16", PLD_STEPS),
+                    progressive_layer_drop=PLD_BLOCK), rng=SEED)
+    assert eng._accepts_pld
+    kept_steps, k1 = [], []
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(PLD_STEPS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(PLD_STEPS)]
+    losses = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b, st, en in zip(batches[:PLD_STEPS], starts, ends):
+        kept.clear()
+        before = ops.launch_counts()["flash_attention_fwd"]
+        st.record()
+        losses.append(eng.train_batch(b))
+        en.record()
+        kept_steps.append(list(kept))
+        k1.append(ops.launch_counts()["flash_attention_fwd"] - before)
+    torch.cuda.synchronize()
+    counts["train_pld"] = ops.launch_counts()
+    losses = [float(l) for l in losses]
+    ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    syncs = count_host_syncs(eng, batches[PLD_STEPS:PLD_STEPS + 1])
+    n_kept = [sum(len(k) for k in ks) for ks in kept_steps]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[5:]))
+    pld = {"model": "gpt2-medium", "block": PLD_BLOCK, "steps": PLD_STEPS,
+           "theta_by_step": [eng.progressive_layer_drop.theta_at(t)
+                             for t in range(PLD_STEPS)],
+           "kept_layers_by_step_and_micro_step": kept_steps,
+           "kept_layers_per_step": n_kept, "k1_launches_per_step": k1,
+           "losses": losses, "loss_first5_mean": first,
+           "loss_last5_mean": last, "step_ms_p50": float(np.median(ms[1:])),
+           "step_ms_all": ms, "host_syncs": syncs, "card": smi}
+    emit({"train_pld": pld})
+    assert k1 == n_kept, (k1, n_kept)
+    assert all(len(ks) == TRAIN_GAS for ks in kept_steps), kept_steps
+    assert sum(n_kept) < PLD_STEPS * TRAIN_GAS * cfg.num_layers, n_kept
+    assert syncs["host_syncs"] == 0, syncs
+    assert all(math.isfinite(l) for l in losses) and last < first, losses
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # MoE under full against none.
+    extra = {"moe": moe_block()}
+    ds_moe = DeepSpeedConfig(dict(train_config("bf16", REMAT_MOE_STEPS),
+                                  **extra)).moe_config
+    mcfg = dataclasses.replace(GPT2_CONFIGS["gpt2-small"],
+                               moe=MoEConfig.from_ds_config(ds_moe))
+    mbatches = token_stream(mcfg, REMAT_MOE_STEPS)
+    moe = {}
+    for policy in ("none", "full"):
+        eng = make_engine(dataclasses.replace(mcfg, remat_policy=policy),
+                          "bf16", extra=extra)
+        path = f"train_remat_moe_{policy}"
+        losses, metrics, ms, counts[path] = run_path(eng, mbatches)
+        moe[policy] = {
+            "losses": losses, "step_ms_all": ms,
+            "k9_launches_per_step": counts[path]["grouped_matmul"] /
+            REMAT_MOE_STEPS,
+            "moe_metrics": [{k: (v.tolist() if v.dim() else float(v))
+                             for k, v in m.items() if k.startswith("moe_")}
+                            for m in metrics]}
+        del eng
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    emit({"train_remat_moe": dict(moe, model="gpt2-small, 8 experts top-2",
+                                  steps=REMAT_MOE_STEPS, card=smi)})
+    expect = per_moe_step(mcfg)
+    assert counts["train_remat_moe_none"] == {
+        k: REMAT_MOE_STEPS * v for k, v in expect.items()}
+    full_expect = per_remat_step(mcfg, "full", expect)
+    full_expect["grouped_matmul"] += 2 * TRAIN_GAS * mcfg.num_layers
+    assert counts["train_remat_moe_full"] == {
+        k: REMAT_MOE_STEPS * v for k, v in full_expect.items()}, \
+        (counts["train_remat_moe_full"], full_expect)
+    assert moe["full"]["losses"] == moe["none"]["losses"], moe
+    assert moe["full"]["moe_metrics"] == moe["none"]["moe_metrics"], moe
+
+    check_checkpoint_api(dev, smi)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3131,6 +3423,7 @@ def main():
     counts.update(train_gpt2_small(dev, smi))
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
+    counts.update(train_remat(dev, smi))
     counts.update(train_checkpoint(dev, smi))
     counts.update(train_zero(dev, smi))
     offload_counts, host_counts = train_offload(dev, smi, host_adam)

@@ -197,13 +197,38 @@ MOE_GROUPED_GEMM = "grouped_gemm"
 MOE_GROUPED_GEMM_DEFAULT = "auto"
 
 #############################################
-# Blocks of features the port does not run yet. They parse to the JAX
-# package's values; the engine raises NotImplementedError when one is
-# enabled (DeepSpeedConfig.unported_features).
+# Progressive layer drop (runtime/progressive_layer_drop.py)
 #############################################
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
+
+#############################################
+# Activation checkpointing (runtime/activation_checkpointing/)
+#############################################
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+ACT_CHKPT_PARTITION_ACTIVATIONS = "partition_activations"
+ACT_CHKPT_PARTITION_ACTIVATIONS_DEFAULT = False
+ACT_CHKPT_NUMBER_CHECKPOINTS = "number_checkpoints"
+ACT_CHKPT_NUMBER_CHECKPOINTS_DEFAULT = None
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION = "contiguous_memory_optimization"
+ACT_CHKPT_CONTIGUOUS_MEMORY_OPTIMIZATION_DEFAULT = False
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY = "synchronize_checkpoint_boundary"
+ACT_CHKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY_DEFAULT = False
+ACT_CHKPT_CPU_CHECKPOINTING = "cpu_checkpointing"
+ACT_CHKPT_CPU_CHECKPOINTING_DEFAULT = False
+ACT_CHKPT_PROFILE = "profile"
+ACT_CHKPT_PROFILE_DEFAULT = False
+
+#############################################
+# Blocks of features the port does not run yet. They parse to the JAX
+# package's values; the engine raises NotImplementedError when one is
+# enabled (DeepSpeedConfig.unported_features).
+#############################################
 PIPELINE = "pipeline"
 PIPELINE_STAGES = "stages"
 PIPELINE_STAGES_DEFAULT = None

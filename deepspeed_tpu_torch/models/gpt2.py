@@ -75,19 +75,22 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                 deterministic: bool = True,
                 attention_fn: Optional[Callable] = None,
                 ops: Optional[ElementwiseOps] = None,
-                with_moe_stats: bool = False):
+                with_moe_stats: bool = False,
+                pld_theta: Optional[float] = None):
     """tokens [B, S] → final hidden states [B, S, H] (post ln_f).
     ``attention_fn`` defaults to ``auto_attention`` (the flash kernels on
     a CUDA device, dense attention on the CPU); ``ops`` defaults to the
     ones ``cfg.fused_kernels`` selects. ``with_moe_stats=True`` returns
-    ``(hidden, moe_stats_or_None)``."""
+    ``(hidden, moe_stats_or_None)``. ``pld_theta``: progressive layer
+    drop's keep probability (``apply_blocks``)."""
     ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens] + \
         params["wpe"].to(cfg.dtype)[None, :S]
     out = apply_blocks(params["blocks"], x, cfg, rng=rng,
                        deterministic=deterministic,
-                       attention_fn=attention_fn, ops=ops)
+                       attention_fn=attention_fn, ops=ops,
+                       pld_theta=pld_theta)
     x, moe_stats = out if cfg.moe is not None else (out, None)
     h = ops.ln(x, params["ln_f_scale"], params["ln_f_bias"],
                cfg.layer_norm_eps)
@@ -105,7 +108,8 @@ def gpt2_apply(params: Dict[str, Any], tokens: torch.Tensor,
 
 def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
                  ops: Optional[ElementwiseOps] = None) -> Callable:
-    """Returns ``loss_fn(params, batch, rng)`` for the engine.
+    """Returns ``loss_fn(params, batch, rng=None, pld_theta=None)`` for
+    the engine.
 
     batch: tokens [B, S+1] (inputs ``[:, :-1]``, targets ``[:, 1:]``) or
     a ``(tokens, targets)`` pair; rng: a ``torch.Generator`` on the
@@ -115,7 +119,9 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
     ``auto_attention`` (the flash kernels on a CUDA device, dense
     attention on the CPU); ``ops`` defaults to the kernels. ``PLAIN_OPS``
     with ``flash_attention_plain`` gives the plain-autograd reference of
-    the same step.
+    the same step. ``cfg.remat_policy`` recomputes activations in the
+    backward pass; ``pld_theta`` (the engine passes it under a
+    ``progressive_layer_drop`` block) drops layers (``apply_blocks``).
 
     With ``cfg.moe`` the loss gains ``aux_loss_weight * aux_loss +
     z_loss_weight * z_loss`` (averaged over the MoE layers) and the fn
@@ -123,7 +129,7 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
     its ``moe_*`` metrics."""
     check_trainable(cfg)
 
-    def loss_fn(params, batch, rng=None):
+    def loss_fn(params, batch, rng=None, pld_theta=None):
         if isinstance(batch, (tuple, list)):
             tokens, targets = batch[0], batch[1]
         else:
@@ -131,7 +137,7 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
         x, moe_stats = gpt2_hidden(params, tokens, cfg, rng=rng,
                                    deterministic=False,
                                    attention_fn=attention_fn, ops=ops,
-                                   with_moe_stats=True)
+                                   with_moe_stats=True, pld_theta=pld_theta)
         B, S = tokens.shape
         loss = chunked_softmax_xent(x.reshape(B * S, -1),
                                     params["wte"].to(cfg.dtype),

@@ -5,7 +5,8 @@ Same keys, defaults and validation errors as the JAX package, so one
 ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
 scheduler, clipping, ZeRO, the ``sparse_attention`` section, the
-``moe`` block, the ``checkpoint`` block) and, for
+``moe`` block, the ``checkpoint`` block, ``progressive_layer_drop``
+and ``activation_checkpointing``) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
@@ -18,6 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 from . import config_utils
 from .zero.config import ZeroConfig
+from .activation_checkpointing.config import ActivationCheckpointingConfig
 from .. import constants as C
 from ..utils.logging import logger
 
@@ -300,6 +302,19 @@ class CheckpointConfig:
                 f"positive number, got {self.writer_timeout_s!r}")
 
 
+class ProgressiveLayerDropConfig:
+    """The ``progressive_layer_drop`` block: ``enabled``, the schedule's
+    floor ``theta`` and its decay rate ``gamma``
+    (``runtime/progressive_layer_drop.py``)."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.PROGRESSIVE_LAYER_DROP, {})
+        get = config_utils.get_scalar_param
+        self.enabled = get(d, C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)
+        self.theta = get(d, C.PLD_THETA, C.PLD_THETA_DEFAULT)
+        self.gamma = get(d, C.PLD_GAMMA, C.PLD_GAMMA_DEFAULT)
+
+
 class DeepSpeedConfig:
     """The training ds_config: a JSON path or a parsed dict.
 
@@ -429,6 +444,9 @@ class DeepSpeedConfig:
             d.get(C.SPARSE_ATTENTION))
         self.inference_config = InferenceConfig(d)
         self.moe_config = MoeConfig(d)
+        self.pld_config = ProgressiveLayerDropConfig(d)
+        self.activation_checkpointing_config = \
+            ActivationCheckpointingConfig(d)
 
         ckpt = d.get(C.CHECKPOINT, {})
         self.checkpoint_config = CheckpointConfig(d)
@@ -547,9 +565,6 @@ class DeepSpeedConfig:
              "slice 6: parallel axes and comm extras"),
             (self.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER,
              "OnebitAdam", "slice 6: parallel axes and comm extras"),
-            (bool(d.get(C.PROGRESSIVE_LAYER_DROP, {}).get(
-                C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)),
-             "progressive_layer_drop", "slice 6: remat and progressive layer drop"),
             ((d.get(C.PIPELINE, {}).get(C.PIPELINE_STAGES) or 1) > 1 or
              (mesh.get(C.MESH_PIPE_PARALLEL_SIZE) or 1) > 1,
              "pipeline parallelism", "slice 6: parallel axes and comm extras"),

@@ -61,6 +61,13 @@ folded with the rank), as the JAX engine folds the step into its base
 key, so a run resumed from a checkpoint draws what a run that never
 stopped would have drawn.
 
+Activation recomputation is the model's (``TransformerConfig.
+remat_policy``, ``models/remat.py``): the engine differentiates the loss
+as it is. A ``progressive_layer_drop`` block builds a
+``ProgressiveLayerDrop``; each step passes ``theta_at(global_steps)`` (a
+host float) as ``pld_theta`` to a loss_fn that takes it, on every path,
+and the model draws which layers to skip on the host.
+
 Checkpoints (``save_checkpoint``, ``load_checkpoint``, the
 ``checkpoint`` block's async saving, auto-save and SIGTERM save) are
 the JAX package's files, read and written in both directions: the
@@ -94,7 +101,7 @@ What the port does not run yet raises ``NotImplementedError`` at
 construction, naming the ROADMAP slice that brings it: a dp that does
 not divide 8, MoE at dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
 parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
-remat and progressive layer drop, the ``forward/backward/step`` trio,
+the ``forward/backward/step`` trio,
 client optimizer objects, optimizers other than Adam/AdamW, and the
 unfused paths
 (``optimizer.params.fused: false``, and ``fused_kernels=False`` on
@@ -103,6 +110,7 @@ CUDA).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import time
@@ -119,6 +127,7 @@ from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, update_loss_scale
 from .flax_msgpack import msgpack_restore, msgpack_serialize
 from .lr_schedules import get_lr_schedule
+from .progressive_layer_drop import ProgressiveLayerDrop
 from .. import constants as C
 from ..models import convert
 from ..models.transformer import check_trainable
@@ -230,12 +239,16 @@ class EngineState:
         return EngineState(**d)
 
 
-def _make_raw_scaled_loss(loss_fn: Callable, gas: int) -> Callable:
-    """``(params, mb, rng, scale) -> (scaled_loss, (raw_loss, aux))``:
-    the loss scaled for the fp16 backward and divided by gas, so the
-    accumulated gradients average over the micro-batches."""
-    def raw_scaled_loss(params, mb, rng, scale):
-        out = loss_fn(params, mb, rng)
+def _make_raw_scaled_loss(loss_fn: Callable, accepts_pld: bool,
+                          gas: int) -> Callable:
+    """``(params, mb, rng, scale, theta) -> (scaled_loss, (raw_loss,
+    aux))``: the loss scaled for the fp16 backward and divided by gas, so
+    the accumulated gradients average over the micro-batches; ``theta``
+    (progressive layer drop's keep probability) goes to a loss that
+    takes ``pld_theta``."""
+    def raw_scaled_loss(params, mb, rng, scale, theta):
+        out = loss_fn(params, mb, rng, pld_theta=theta) if accepts_pld \
+            else loss_fn(params, mb, rng)
         loss, aux = out if isinstance(out, tuple) else (out, None)
         return (loss.float() * scale) / gas, (loss, aux)
     return raw_scaled_loss
@@ -513,6 +526,25 @@ class DeepSpeedEngine:
             if training_data is not None else None
         self._data_iterator = None
 
+        # Progressive layer drop: theta_at(global_steps), a host float,
+        # goes to every micro-step's loss on every path (one card, dp and
+        # ZeRO 1-3, offload) when the loss_fn takes pld_theta.
+        self.progressive_layer_drop = None
+        self._accepts_pld = False
+        if self.config.pld_config.enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=self.config.pld_config.theta,
+                gamma=self.config.pld_config.gamma)
+            try:
+                self._accepts_pld = "pld_theta" in \
+                    inspect.signature(self.loss_fn).parameters
+            except (TypeError, ValueError):
+                self._accepts_pld = False
+            if not self._accepts_pld:
+                logger.warning("progressive_layer_drop enabled but the "
+                               "model's loss_fn takes no pld_theta kwarg — "
+                               "layers will not drop")
+
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(),
             start_step=2, steps_per_output=self.steps_per_print(),
@@ -762,6 +794,8 @@ class DeepSpeedEngine:
         self.tput_timer.start()
         metrics = self._train_step(micro_batches, self.global_steps)
         self.global_steps += 1
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self.micro_steps += self.gradient_accumulation_steps()
         self.global_samples += self.train_batch_size()
         if self.lr_scheduler is not None and \
@@ -795,26 +829,31 @@ class DeepSpeedEngine:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _micro_steps(self, micro_batches: List[Any],
-                     generator: torch.Generator, scale: Any
+                     generator: torch.Generator, scale: Any, step: int
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The gas micro-steps: each one's loss (scaled by ``scale`` and
-        divided by gas), its gradients by autograd and their sum into the
-        fp32 grads (this rank's rows at ZeRO 2-3). Returns the mean loss
-        (a device tensor) and the MoE stats summed over the micro-steps."""
+        """The gas micro-steps of step ``step``: each one's loss (scaled
+        by ``scale`` and divided by gas), its gradients by autograd and
+        their sum into the fp32 grads (this rank's rows at ZeRO 2-3).
+        Returns the mean loss (a device tensor) and the MoE stats summed
+        over the micro-steps."""
         gas = len(micro_batches)
         leaves = self._loss_leaves
         params = None if self._zero3 else tree_unflatten(self._treedef,
                                                          leaves)
-        scaled_loss = _make_raw_scaled_loss(self.loss_fn, gas)
+        scaled_loss = _make_raw_scaled_loss(self.loss_fn, self._accepts_pld,
+                                            gas)
+        theta = self.progressive_layer_drop.theta_at(step) \
+            if self._accepts_pld else None
         mean_loss = None
         moe_sum: Dict[str, torch.Tensor] = {}
         for i, mb in enumerate(micro_batches):
             if self._zero3:
                 scaled, raw, aux = self._zero3_micro_step(
-                    scaled_loss, mb, generator, scale, first=i == 0)
+                    scaled_loss, mb, generator, scale, theta,
+                    first=i == 0)
             else:
                 scaled, (raw, aux) = scaled_loss(params, mb, generator,
-                                                 scale)
+                                                 scale, theta)
             if self._moe_metrics:
                 if not (isinstance(aux, dict) and "moe" in aux):
                     raise ValueError(
@@ -869,7 +908,7 @@ class DeepSpeedEngine:
         generator = self.step_generator(step)
         scale = st.loss_scale
         mean_loss, moe_sum = self._micro_steps(micro_batches, generator,
-                                               scale)
+                                               scale, step)
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
@@ -959,7 +998,7 @@ class DeepSpeedEngine:
             if grp.cast is not None:
                 grp.cast.copy_(grp.param)
 
-    def _zero3_micro_step(self, scaled_loss, mb, generator, scale,
+    def _zero3_micro_step(self, scaled_loss, mb, generator, scale, theta,
                           first: bool):
         """Stage 3: one micro-step on parameters gathered from every
         rank's rows (``gather_cast``), saved for the backward pass as
@@ -981,7 +1020,8 @@ class DeepSpeedEngine:
             inputs += parts
         params = tree_unflatten(self._treedef, leaves)
         with regather_saved(regather):
-            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale)
+            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale,
+                                             theta)
         del params, leaves, regather
         grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
         with torch.no_grad():
@@ -1105,7 +1145,7 @@ class DeepSpeedEngine:
         over the ranks."""
         generator = self.step_generator(step)
         mean_loss, moe_sum = self._micro_steps(
-            micro_batches, generator, self._offload.loss_scale)
+            micro_batches, generator, self._offload.loss_scale, step)
         if self.dp > 1:
             with torch.no_grad():
                 self._offload_reduce_grads()

@@ -29,13 +29,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Callable, Dict, List, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ...parallel import comm
 
-__all__ = ["gather_cast", "gather_tree", "regather_saved", "Zero3Scan"]
+__all__ = ["gather_cast", "gather_tree", "regather_saved", "active_regather",
+           "Zero3Scan"]
 
 
 def _gather(x: torch.Tensor, shape: Tuple[int, ...],
@@ -111,8 +113,32 @@ def regather_saved(gathered: Dict[int, Tuple[Callable[[], torch.Tensor],
         # The leaf views its gathered buffer at storage offset 0.
         return base.as_strided(size, stride, offset)
 
-    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-        yield
+    _ACTIVE.hooks.append((pack, unpack))
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        _ACTIVE.hooks.pop()
+        # Autograd keeps a saved tensor's pack hook with it until the
+        # backward pass: the closure must not hold the gathered leaves.
+        by_storage.clear()
+
+
+class _Active(threading.local):
+    def __init__(self):
+        self.hooks: List[Tuple[Callable, Callable]] = []
+
+
+_ACTIVE = _Active()
+
+
+def active_regather() -> Optional[Tuple[Callable, Callable]]:
+    """The ``(pack, unpack)`` of the innermost ``regather_saved`` open on
+    this thread, or None. Saved-tensor hooks do not chain (the innermost
+    pack wins), so a recompute region opened inside one
+    (``models/remat.py``) hands its weights to these: a gathered weight
+    is saved as a re-gather there too."""
+    return _ACTIVE.hooks[-1] if _ACTIVE.hooks else None
 
 
 class Zero3Scan:

@@ -31,7 +31,9 @@ across strided, unaligned and contiguous views of the same operands;
 the grouped FFN forward and backward on the card against the CPU within
 1e-5 (fp32) or 2**-7 (bf16) of each leaf's largest magnitude; two
 gpt2-tiny fp32 MoE steps as the dense ones, with equal expert token
-counts and drop fractions.
+counts and drop fractions; two gpt2-tiny bf16 steps under each remat
+policy bit-equal to ``none``, with the forward kernels' launches
+rising as the policy says.
 """
 import dataclasses
 
@@ -599,6 +601,46 @@ def test_train_batch_on_the_card_matches_the_cpu(dev):
                       "flash_attention_bwd_dkv": 0,
                       "flash_attention_bwd_fused": 0, "grouped_matmul": 0,
                       **SPARSE_ZERO}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_flash", "attn"])
+def test_remat_train_batch_on_the_card_is_bit_equal_to_none(dev, policy):
+    """Two gpt2-tiny bf16 steps at S 128 (the flash route, dropout 0.1)
+    under each remat policy and under ``none`` from the same params,
+    batches and seed: losses and grad norms bit-equal, and the forward
+    kernels launched again in the backward as the policy says (K1 twice
+    a layer and micro-step, but once under ``dots_flash``; K3f and K4f
+    twice a layer and micro-step); the backward kernels as many times."""
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.bfloat16)
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ds = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "bf16": {"enabled": True},
+          "optimizer": {"type": "AdamW",
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    batches = np.random.default_rng(0).integers(0, 512, (2, 4, 129))
+    out = {}
+    for pol in ("none", policy):
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(dataclasses.replace(cfg, remat_policy=pol)),
+            model_params=params, config=ds, device=dev, rng=5)
+        hist = []
+        for b in batches:
+            ops.reset_launch_counts()
+            loss = eng.train_batch(b)
+            hist.append((float(loss), float(eng.last_metrics["grad_norm"]),
+                         ops.launch_counts()))
+        out[pol] = hist
+    L, gas = cfg.num_layers, 2
+    for (ln, nn, cn), (lr, nr, cr) in zip(out["none"], out[policy]):
+        assert (ln, nn) == (lr, nr)
+        assert cn["flash_attention_fwd"] == gas * L
+        again = {"flash_attention_fwd": 0 if policy == "dots_flash"
+                 else gas * L, "fused_layer_norm": gas * L,
+                 "fused_residual_layer_norm": gas * L,
+                 "fused_bias_gelu": gas * L}
+        assert cr == {k: v + again.get(k, 0) for k, v in cn.items()}, \
+            (cr, cn)
 
 
 # --------------------------------------------------------------------- #

@@ -394,13 +394,26 @@ def test_unported_config_raises(extra, match):
             0, 512, (2, 33)))
         assert np.isfinite(float(loss)) and eng._offload.step_count == 1
         return
+    if match == "progressive_layer_drop":
+        # Progressive layer drop is ported: the block builds an engine
+        # that hands theta to the loss and trains
+        # (tests/test_torch_pld.py holds it against JAX).
+        eng = _init(dict(BASE, **extra))[0]
+        assert eng.progressive_layer_drop is not None and eng._accepts_pld
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and eng.global_steps == 1
+        return
     with pytest.raises(NotImplementedError, match=match):
         _init(dict(BASE, **extra))
 
 
 def test_unported_engine_paths_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="remat"):
-        _init(cfg=dataclasses.replace(CFG, remat_policy="full"))
+    # Activation recomputation is ported: remat_policy "full" trains
+    # (tests/test_torch_remat.py holds every policy against JAX).
+    eng = _init(cfg=dataclasses.replace(CFG, remat_policy="full"))[0]
+    assert np.isfinite(float(eng.train_batch(
+        np.random.default_rng(0).integers(0, 512, (2, 33)))))
     with pytest.raises(NotImplementedError, match="client optimizer"):
         _init(optimizer=object())
     with pytest.raises(NotImplementedError, match="no CUDA path"):

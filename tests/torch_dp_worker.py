@@ -22,8 +22,10 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   (a checkpoint dir to resume from), ``save`` (``{"dir", "after"}``:
   a sync save after that many steps, ``"async": true`` for an async
   one), ``perturb`` (ranks above 0 start from parameters moved by
-  0.01 * rank: the engine must broadcast rank 0's), ``out`` (the
-  ``.npz`` prefix of the results).
+  0.01 * rank: the engine must broadcast rank 0's), ``remat`` (the
+  model's ``remat_policy``, default ``none``), ``dropout`` (the model's
+  hidden and attention dropout, default 0), ``out`` (the ``.npz``
+  prefix of the results).
 
 Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
 the loss scale the step used, the skipped-step count and a digest of
@@ -106,9 +108,11 @@ def flat_params(eng):
 
 def run_job(job, world, rank, params):
     precision = job["precision"]
+    dropout = job.get("dropout", 0.0)
     cfg = dataclasses.replace(tgpt2.GPT2_CONFIGS["gpt2-tiny"],
-                              dtype=DTYPES[precision], hidden_dropout=0.0,
-                              attn_dropout=0.0)
+                              dtype=DTYPES[precision], hidden_dropout=dropout,
+                              attn_dropout=dropout,
+                              remat_policy=job.get("remat", "none"))
     micro = job.get("micro", MICRO)
     ds = ds_config(precision, world, job["stage"], job.get("zero"),
                    job.get("ds"), micro)
