@@ -181,10 +181,27 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    (``check_checkpoint_api``: ``cpu_checkpointing`` on CUDA tensors, the
    held input in pinned host memory, the card's copy freed, gradients
    bit-equal to the plain call's).
-6. The ``{"host_kernels": [...]}`` line (the host Adam), then the
-   ``{"kernels": [...]}`` summary line (the sqnorm and fused_adam
-   rows also carry their shard-local launches by dp), then the result
-   line ``{"ok": true, "device": {...}}``.
+5h. ``train_api`` (after ``train_remat``): the reference's training API
+   at gpt2-small on the main path's recipe. ``train_api_trio`` (6 steps
+   through ``forward``/``backward``/``step``) and ``train_api_batch``
+   (6 through ``train_batch``) from the same init, interleaved step by
+   step: params, cast copy, moments, count and loss-scale machine
+   bit-equal after every step, exact launches, the step p50 and host ms
+   of each, their peaks above a step's start within 2%; then each
+   optimizer of ``MATRIX`` (Lamb, SGD with momentum, Adagrad, RMSprop,
+   Lion, unfused AdamW; plain PyTorch over the flat buffers, no TPU
+   kernel) 10 steps (``train_api_<name>``: K5 once a step, no K6, the
+   loss at step 10 below step 1), its update over gpt2-small's
+   124,475,904-parameter group against the leaf-by-leaf reference (4
+   fp32 ulp; Lamb 2^-16 of the update more), the copy bit-equal, timed
+   beside its bound and a library yardstick; then ``eval_batch`` at 8 x
+   1024 against the train path's loss at dropout 0, and its time.
+6. The ``{"host_kernels": [...]}`` line (the host Adam), the
+   ``{"optimizers": [...]}`` line (the matrix's steps: ms, bytes,
+   bound, library yardstick), then the ``{"kernels": [...]}`` summary
+   line (the sqnorm and fused_adam rows also carry their shard-local
+   launches by dp), then the result line ``{"ok": true, "device":
+   {...}}``.
 """
 import contextlib
 import dataclasses
@@ -218,6 +235,7 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import grouped_gemm as gg
+from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import sparse_flash as sf
@@ -3369,6 +3387,306 @@ def train_remat(dev, smi):
     return counts
 
 
+# train_api (slice 6e): the reference's training API at gpt2-small on the
+# main path's recipe. The trio and train_batch 6 steps each, interleaved
+# step by step from the same init; the trio's peak (above what a step
+# starts with) within this share of train_batch's.
+API_STEPS, API_PEAK_SHARE = 6, 0.02
+# The optimizer matrix: 10 steps each from the same init and token
+# stream, each with WarmupLR to its own lr (10 warm-up steps, as the
+# recipe). The ds_config default lr (1e-3) is not what these optimizers
+# train gpt2-small with; the lrs are chosen per optimizer from a sweep on
+# the card (PERF.md §6, PR 15): at Adagrad 0.3 and RMSprop 1e-4 the
+# loss climbs back by step 10.
+MATRIX_STEPS = 10
+MATRIX = (
+    ("lamb", {"type": "Lamb", "params": {"lr": 6e-3,
+                                         "weight_decay": 0.01}}),
+    ("sgd_momentum", {"type": "SGD", "params": {"lr": 0.1,
+                                                "momentum": 0.9}}),
+    ("adagrad", {"type": "Adagrad", "params": {"lr": 0.1}}),
+    ("rmsprop", {"type": "RMSprop", "params": {"lr": 3e-5}}),
+    ("lion", {"type": "Lion", "params": {"lr": 1e-4,
+                                         "weight_decay": 0.01}}),
+    ("adamw_unfused", {"type": "AdamW", "params": {
+        "lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.01,
+        "fused": False}}),
+)
+# Ideal bytes a parameter of one optimizer step (fp32 masters, fp32
+# grads, the bf16 cast copy): g, p read, p, copy written (14) and each
+# state buffer read and written (8); Lamb in two passes (the update and
+# its norms, then the ratio's apply: g, p, m, v read, m, v, u written,
+# then u, p read, p, copy written).
+OPT_BYTES = {"lamb": 42, "sgd_momentum": 22, "adagrad": 22, "rmsprop": 30,
+             "lion": 22, "adamw_unfused": 30}
+# The flat optimizers against their leaf-by-leaf reference (the same
+# update in the optax order, ops/optimizers.reference_step): 4 fp32 ulp
+# of the larger operand, and for Lamb also this share of the update (its
+# trust ratio divides two norms that the two sum in other orders:
+# tests/test_torch_cuda.py::LAMB_RATIO_REL).
+OPT_ULP, LAMB_RATIO_REL = 4.0, 2.0 ** -16
+
+
+def _fp32_ulp_excess(got, want, mag):
+    """Largest |got - want| in fp32 ulp of ``mag`` (elementwise)."""
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-38))) - 23)
+    return float(((got - want).abs() / ulp).max())
+
+
+def engine_state_bits(eng):
+    """Every tensor a step carries (the flat params, cast copy and
+    optimizer buffers, the count and the loss-scale machine), copied."""
+    st = eng.state
+    out = [g.param.clone() for g in eng._groups]
+    out += [g.cast.clone() for g in eng._groups if g.cast is not None]
+    for bufs in topt.state_buffers(st.opt_state).values():
+        out += [b.clone() for b in bufs]
+    return out + [t.clone() for t in (st.opt_state.count, st.step,
+                                      st.loss_scale, st.growth_count,
+                                      st.hysteresis, st.skipped_steps)]
+
+
+def trio_step(eng, batch):
+    """One step through forward/backward/step, a call per micro-batch."""
+    for mb in batch.chunk(TRAIN_GAS):
+        loss = eng.forward(mb)
+        eng.backward(loss)
+        eng.step()
+    return eng.last_metrics["loss"]
+
+
+def check_optimizer_update(dev, gen, cfg, name, section):
+    """One optimizer's step over gpt2-small's parameter group (its leaves
+    as one flat fp32 group with a bf16 cast copy): the second update from
+    seeded params, grads and state against ``reference_step`` on copies
+    of the same inputs (``OPT_ULP``), the copy bit-equal to the masters'
+    cast; then timed in place (``compute_norm`` off: the update alone, as
+    K6's row), beside a library call that moves the same bytes where one
+    exists (a time yardstick only: its formula differs)."""
+    lr = section["params"]["lr"]
+    opt = topt.build_optimizer(section["type"], dict(section["params"]),
+                               lambda step: lr)
+    params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    leaves = [t.float() for t in tree_flatten(params)[0]]
+    del params
+    grp = fu.FlatGroup(leaves, torch.float32, dev, torch.bfloat16)
+    del leaves
+    n = grp.numel
+    st = opt.init([grp])
+    for k in range(2):
+        grp.grad.copy_(1e-4 * torch.randn(n, device=dev, generator=gen))
+        if k == 1:
+            p0 = [v.clone() for v in grp.views(grp.param)]
+            g0 = [v.clone() for v in grp.views(grp.grad)]
+            s0 = {b: [v.clone() for v in grp.views(bufs[0])]
+                  for b, bufs in st.bufs.items()}
+            want_p, want_s = topt.reference_step(opt, p0, g0, s0, k)
+        st = opt.step([grp], st, compute_norm=False)[0]
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, want, old in zip(grp.views(grp.param), want_p, p0):
+        u = (want - old).abs()
+        mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                            torch.maximum(old.abs(), u))
+        diff = (got - want).abs()
+        if name == "lamb":
+            diff = torch.clamp_min(diff - u * LAMB_RATIO_REL, 0.0)
+        err = max(err, _fp32_ulp_excess(diff, torch.zeros_like(diff), mag))
+    for b, bufs in st.bufs.items():
+        for got, want, old in zip(grp.views(bufs[0]), want_s[b], s0[b]):
+            mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                                old.abs())
+            err = max(err, _fp32_ulp_excess(got, want, mag))
+    cast_equal = torch.equal(grp.cast, grp.param.to(torch.bfloat16))
+    del want_p, want_s, p0, g0, s0
+    torch.cuda.empty_cache()
+
+    def step():
+        opt.step([grp], st, compute_norm=False)
+    nbytes = OPT_BYTES[name] * n
+    b_ms, b_by = bound(nbytes, 0, FP32_FLOPS_PER_S)
+    lib, lib_name = None, None
+    p, g = [grp.param], [grp.grad]
+    bufs = [torch.zeros_like(grp.param) for _ in range(2)]
+    steps = [torch.tensor(3.0, device=dev)]
+    if name == "sgd_momentum":
+        lib_name = "torch._fused_sgd_"
+        lib = time_ms(lambda: torch._fused_sgd_(
+            p, g, bufs[:1], weight_decay=0.0, momentum=0.9, lr=lr,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False))
+    elif name == "adagrad":
+        lib_name = "torch._fused_adagrad_"
+        lib = time_ms(lambda: torch._fused_adagrad_(
+            p, g, bufs[:1], steps, lr=lr, lr_decay=0.0, weight_decay=0.0,
+            eps=1e-10, maximize=False))
+    elif name == "adamw_unfused":
+        lib_name = "torch._fused_adamw_"
+        lib = time_ms(lambda: torch._fused_adamw_(
+            p, g, bufs[:1], bufs[1:], [], steps, lr=lr, beta1=0.9,
+            beta2=0.95, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False))
+    rec = {"name": name, "shape": [n], "max_ulp": err,
+           "cast_copy_bit_equal": cast_equal,
+           "ms": time_ms(step, iters=20, warmup=3),
+           "device_ms": device_ms(step, n=5, reps=4),
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib,
+           "library": None if lib is None else
+           f"{lib_name} (no cast copy; a time yardstick)"}
+    del grp, st, bufs, p, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_api(dev, smi):
+    """The reference's training API at gpt2-small (full width and depth,
+    bf16 with fp32 masters, dropout 0.1, the main path's Markov stream,
+    gas 2 x 8 x 1024): ``train_api_trio`` (6 steps through forward/
+    backward/step) against ``train_api_batch`` (6 through train_batch)
+    from the same init, interleaved step by step (the order of each
+    pair alternating): every step's params,
+    cast copy, moments, count and loss-scale machine bit-equal, exact
+    launches, the step p50 of each and its peak above what the step
+    starts with (over steps 2-6, the trio's within ``API_PEAK_SHARE`` of
+    train_batch's);
+    then the optimizer matrix: each of ``MATRIX`` 10 steps from the same
+    init (path ``train_api_<name>``: exact launches, K5 once a step and
+    no K6; the loss at step 10 below step 1), its update against the
+    leaf-by-leaf reference and its step's time (``check_optimizer_
+    update``); then ``eval_batch`` at 8 x 1024 against the train path's
+    loss at dropout 0, and its time. Returns the launch counts by path
+    and the optimizer rows."""
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    batches = token_stream(cfg, max(API_STEPS, MATRIX_STEPS))
+    expect = per_train_step(cfg)
+    counts = {}
+    engines = {"batch": make_engine(cfg, "bf16"),
+               "trio": make_engine(cfg, "bf16")}
+    drive = {"batch": lambda e, b: e.train_batch(b), "trio": trio_step}
+    runs = {k: {"losses": [], "ms": [], "host_ms": [],
+                "peak_above_start": []} for k in engines}
+    per_path = {k: {c: 0 for c in expect} for k in engines}
+    equal_steps = 0
+    for k, b in enumerate(batches[:API_STEPS]):
+        bits = {}
+        # (which goes first alternates, so neither always follows the
+        # other)
+        for kind in (("batch", "trio"), ("trio", "batch"))[k % 2]:
+            eng = engines[kind]
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            st, en = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            st.record()
+            t0 = time.perf_counter()
+            loss = drive[kind](eng, b)
+            host = (time.perf_counter() - t0) * 1e3
+            en.record()
+            torch.cuda.synchronize()
+            runs[kind]["host_ms"].append(host)
+            for c, v in ops.launch_counts().items():
+                per_path[kind][c] = per_path[kind].get(c, 0) + v
+            runs[kind]["ms"].append(st.elapsed_time(en))
+            runs[kind]["losses"].append(float(loss))
+            runs[kind]["peak_above_start"].append(
+                torch.cuda.max_memory_allocated() - start)
+            bits[kind] = engine_state_bits(eng)
+        equal_steps += all(torch.equal(x, y) for x, y in
+                           zip(bits["batch"], bits["trio"]))
+    for kind in engines:
+        counts[f"train_api_{kind}"] = per_path[kind]
+        runs[kind]["step_ms_p50"] = float(np.median(runs[kind]["ms"][1:]))
+        # (the first step of the call also makes the card's one-time
+        # allocations, the GEMM library's workspaces among them)
+        runs[kind]["peak_above_start_steady"] = \
+            max(runs[kind]["peak_above_start"][1:])
+    del engines, bits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    trio = {"model": "gpt2-small", "batch": [TRAIN_GAS, TRAIN_MICRO,
+                                             TRAIN_SEQ],
+            "steps": API_STEPS, "dropout": cfg.hidden_dropout,
+            "steps_bit_equal": equal_steps, "runs": runs,
+            "step_ms_of": "CUDA events around each step, the two "
+            "interleaved step by step, the first of each pair "
+            "alternating; p50 of steps 2-6",
+            "host_ms_of": "the host's clock around the step's calls, "
+            "before the end event and the sync",
+            "card": smi}
+    emit({"train_api_trio": trio})
+    assert equal_steps == API_STEPS, trio
+    assert runs["trio"]["losses"] == runs["batch"]["losses"], trio
+    for kind in ("batch", "trio"):
+        assert counts[f"train_api_{kind}"] == {
+            c: API_STEPS * v for c, v in expect.items()}, \
+            (kind, counts[f"train_api_{kind}"])
+    pb, pt = (runs[k]["peak_above_start_steady"]
+              for k in ("batch", "trio"))
+    assert abs(pt - pb) <= API_PEAK_SHARE * pb, (pt, pb)
+
+    # The optimizer matrix.
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    no_k6 = dict(expect, fused_adam_apply=0)
+    for name, section in MATRIX:
+        lr = section["params"]["lr"]
+        extra = {"optimizer": section, "scheduler": {
+            "type": "WarmupLR", "params": {"warmup_num_steps": 10,
+                                           "warmup_max_lr": lr,
+                                           "warmup_type": "linear"}}}
+        eng = make_engine(cfg, "bf16", extra=extra)
+        assert type(eng.optimizer).__name__ != "FusedAdam", name
+        path = f"train_api_{name}"
+        losses, _, ms, counts[path] = run_path(eng,
+                                               batches[:MATRIX_STEPS])
+        del eng
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert counts[path] == {c: MATRIX_STEPS * v
+                                for c, v in no_k6.items()}, \
+            (name, counts[path])
+        rec = check_optimizer_update(dev, gen, cfg, name, section)
+        rec.update(route="plain PyTorch over the flat buffers (no TPU "
+                   "kernel: optax in JAX)",
+                   source="deepspeed_tpu_torch/ops/optimizers.py",
+                   replaces="deepspeed_tpu/ops/optimizers.py: "
+                   "build_optimizer's optax chain",
+                   section=section, losses=losses,
+                   step_ms_p50=float(np.median(ms[1:])),
+                   k5_launches=counts[path]["sqnorm"],
+                   k6_launches=counts[path]["fused_adam_apply"])
+        emit({"train_api_optimizer": rec})
+        rows.append(rec)
+        assert all(math.isfinite(l) for l in losses), rec
+        assert losses[-1] < losses[0], (name, losses)
+        assert rec["max_ulp"] <= OPT_ULP and rec["cast_copy_bit_equal"], rec
+
+    # eval_batch: the compute-dtype params, no graph, against the train
+    # path's loss at dropout 0 (the first step's loss is taken before
+    # its update, on the same params).
+    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attn_dropout=0.0)
+    eng = make_engine(cfg0, "bf16")
+    b = batches[0].to(dev)
+    evals = [eng.eval_batch(mb) for mb in b.chunk(TRAIN_GAS)]
+    eval_loss = float(sum(e.float() for e in evals) / TRAIN_GAS)
+    eval_ms = time_ms(lambda: eng.eval_batch(b[:TRAIN_MICRO]), iters=10,
+                      warmup=2)
+    train_loss = float(eng.train_batch(batches[0]))
+    ev = {"shape": [TRAIN_MICRO, TRAIN_SEQ], "eval_loss": eval_loss,
+          "train_loss": train_loss, "rel": abs(eval_loss - train_loss) /
+          abs(train_loss), "eval_ms": eval_ms, "card": smi}
+    emit({"train_api_eval": ev})
+    assert ev["rel"] <= TRAIN_LOSS_RTOL, ev
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3424,6 +3742,8 @@ def main():
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
     counts.update(train_remat(dev, smi))
+    api_counts, optimizer_rows = train_api(dev, smi)
+    counts.update(api_counts)
     counts.update(train_checkpoint(dev, smi))
     counts.update(train_zero(dev, smi))
     offload_counts, host_counts = train_offload(dev, smi, host_adam)
@@ -3529,6 +3849,11 @@ def main():
         "launches_by_path", "max_ulp", "ms", "plain_ms", "bound_ms",
         "bound_by", "bound_note", "bound_set_by", "library_ms", "library",
         "host")}]})
+    emit({"optimizers": [{k: r[k] for k in (
+        "name", "route", "source", "replaces", "section", "shape", "bytes",
+        "ms", "device_ms", "bound_ms", "bound_by", "library_ms", "library",
+        "max_ulp", "k5_launches", "k6_launches", "step_ms_p50", "losses")}
+        for r in optimizer_rows]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

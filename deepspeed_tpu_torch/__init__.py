@@ -5,12 +5,16 @@ module names so each counterpart is easy to find. What is ported so far:
 
 - serving: GPT-2 behind a paged, prefix-shared KV cache with chunked
   prefill, continuous batching and speculative verify (``inference/``);
-- training: ``initialize()`` → ``DeepSpeedEngine.train_batch`` with
-  gradient accumulation, fp16 loss scaling and overflow skip, bf16 with
-  fp32 masters or master-free stochastic rounding, clipping, LR
-  schedules and the fused one-pass Adam (``runtime/``), on one card or
-  one process per card (``init_distributed``: data parallelism and ZeRO
-  stages 0-3 over ``torch.distributed``);
+- training: ``initialize()`` → ``DeepSpeedEngine.train_batch`` or the
+  reference's ``forward`` / ``backward`` / ``step`` trio (and
+  ``eval_batch``) with gradient accumulation, fp16 loss scaling and
+  overflow skip, bf16 with fp32 masters or master-free stochastic
+  rounding, clipping, LR schedules, batch-size elasticity, the fused
+  one-pass Adam and the JAX package's other optimizers (Lamb, SGD,
+  Adagrad, RMSprop, Lion, unfused Adam, ``torch.optim`` by name or as a
+  client optimizer) (``runtime/``, ``ops/optimizers.py``), on one card
+  or one process per card (``init_distributed``: data parallelism and
+  ZeRO stages 0-3 over ``torch.distributed``);
 
 running on hand-written Hopper kernels for paged attention, LayerNorm
 and bias+GELU forward and backward, the grad norm and the fused Adam
@@ -23,6 +27,8 @@ where every kernel wrapper takes its plain PyTorch version).
 """
 from .version import __version__
 from .parallel.comm import init_distributed
+from .runtime.config import DeepSpeedConfig
+from .runtime import lr_schedules
 from .utils.logging import logger, log_dist
 
 
@@ -68,5 +74,25 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
             engine.lr_scheduler)
 
 
+def add_config_arguments(parser):
+    """Add the ``--deepspeed`` / ``--deepspeed_config`` flags (and their
+    deprecated aliases) to an ``argparse`` parser (reference
+    ``__init__.py:193``)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user scripts).")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeed json configuration.")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI; the port initializes its process "
+                       "group with init_distributed.")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help="Deprecated alias for --deepspeed.")
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help="Deprecated alias for --deepspeed_config.")
+    return parser
+
+
 __all__ = ["__version__", "logger", "log_dist", "initialize",
-           "init_distributed"]
+           "init_distributed", "add_config_arguments", "DeepSpeedConfig",
+           "lr_schedules"]

@@ -236,9 +236,6 @@ MESH = "mesh"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_PIPE_PARALLEL_SIZE = "pipe_parallel_size"
 MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
-ELASTICITY = "elasticity"
-ENABLED = "enabled"
-ENABLED_DEFAULT = False
 FLOPS_PROFILER = "flops_profiler"
 FLOPS_PROFILER_ENABLED = "enabled"
 FLOPS_PROFILER_ENABLED_DEFAULT = False
@@ -335,3 +332,27 @@ INFERENCE_SLO_AVAILABILITY = "availability"
 INFERENCE_SLO_AVAILABILITY_DEFAULT = 0.99
 INFERENCE_SLO_WINDOW_S = "window_s"
 INFERENCE_SLO_WINDOW_S_DEFAULT = 60.0
+
+#############################################
+# Elasticity (elasticity/, the DeepSpeedConfig pre-pass)
+#############################################
+ELASTICITY = "elasticity"
+ENABLED = "enabled"
+ENABLED_DEFAULT = False
+MAX_ACCEPTABLE_BATCH_SIZE = "max_train_batch_size"
+MAX_ACCEPTABLE_BATCH_SIZE_DEFAULT = 2000
+MICRO_BATCHES = "micro_batch_sizes"
+MICRO_BATCHES_DEFAULT = [2, 4, 6]
+MIN_GPUS = "min_gpus"
+MIN_GPUS_DEFAULT = 1
+MAX_GPUS = "max_gpus"
+MAX_GPUS_DEFAULT = 10000
+MIN_TIME = "min_time"
+MIN_TIME_DEFAULT = 0
+VERSION = "version"
+VERSION_DEFAULT = 0.1
+LATEST_ELASTICITY_VERSION = 0.1
+IGNORE_NON_ELASTIC_BATCH_INFO = "ignore_non_elastic_batch_info"
+IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT = False
+PREFER_LARGER_BATCH = "prefer_larger_batch"
+PREFER_LARGER_BATCH_DEFAULT = True

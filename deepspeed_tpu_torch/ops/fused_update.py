@@ -18,11 +18,12 @@ Each wrapper launches its kernel for CUDA tensors, runs its plain
 PyTorch version (``sqnorm_plain``, ``fused_adam_plain``: the same
 arithmetic) for CPU tensors, and counts its launches in ``.launches``.
 
-``FusedAdam`` is the front end (``fused_adam``/``fused_step`` of the JAX
-module): the scalar carry of ``_base_scalars`` (bias correction in
-optax's association order) and the one-pass region — norm → overflow
-vote → clip coefficient → skip select — with the step count held on
-overflow. All of it stays on the device: a step costs no host sync.
+Their front end, ``ops/optimizers.FusedAdam`` (``fused_adam``/
+``fused_step`` of the JAX module), computes the scalar carry (bias
+correction in optax's association order) and shares the one-pass
+region — norm → overflow vote → clip coefficient → skip select — with
+every optimizer of the port (``ops/optimizers.FlatOptimizer``). All of
+it stays on the device: a step costs no host sync.
 
 Layouts. Groups follow ``_float_groups``: leaves grouped by dtype,
 groups sorted by dtype name, leaves in the order ``tree_flatten`` gives
@@ -48,16 +49,12 @@ groups sorted by dtype name, leaves in the order ``tree_flatten`` gives
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, \
-    Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import op_builder
-from ..runtime.utils import clip_coefficient
-
-ScheduleOrFloat = Union[Callable, float]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _U32 = 0xFFFFFFFF
@@ -411,15 +408,22 @@ def fused_adam_plain(g, p, m, v, scalars, seed, *, b1: float, b2: float,
         m_new = torch.where(keep_old, m, m_new)
         v_new = torch.where(keep_old, v, v_new)
     cast = None if cast_dtype is None else new_p.to(cast_dtype)
-    if sr:
-        idx = (seed[1].to(torch.int64) & _U32) + torch.arange(
-            new_p.numel(), device=new_p.device, dtype=torch.int64)
-        noise = _hash_u32((idx & _U32) ^ (seed[0].to(torch.int64) & _U32)) \
-            & 0xFFFF
-        p_new = stochastic_round_bits(new_p, noise.reshape(new_p.shape))
-    else:
-        p_new = new_p.to(p.dtype)
+    p_new = stochastic_round_indexed(new_p, seed) if sr \
+        else new_p.to(p.dtype)
     return p_new, m_new, v_new, cast
+
+
+def stochastic_round_indexed(x: torch.Tensor, seed: torch.Tensor
+                             ) -> torch.Tensor:
+    """fp32 ``x`` (flat) to bf16 by stochastic rounding with K6's noise:
+    element i draws ``hash((base + i) ^ seed)``, ``seed`` = [sr seed,
+    base index] (int32), so an element's draw depends on its place in
+    the V-layout, not on the rank that holds it."""
+    idx = (seed[1].to(torch.int64) & _U32) + torch.arange(
+        x.numel(), device=x.device, dtype=torch.int64)
+    noise = _hash_u32((idx & _U32) ^ (seed[0].to(torch.int64) & _U32)) \
+        & 0xFFFF
+    return stochastic_round_bits(x, noise.reshape(x.shape))
 
 
 # --------------------------------------------------------------------- #
@@ -520,9 +524,6 @@ def fused_adam_apply(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
 fused_adam_apply.launches = 0
 
 
-# --------------------------------------------------------------------- #
-# Front end
-# --------------------------------------------------------------------- #
 class FusedAdamState(NamedTuple):
     """One flat fp32 moment buffer per dtype group, in the groups'
     layout; ``count`` is the int32 number of updates taken."""
@@ -531,113 +532,9 @@ class FusedAdamState(NamedTuple):
     v: Tuple[torch.Tensor, ...]
 
 
-class FusedAdam:
-    """Adam / AdamW as the one-pass fused step (``fused_adam`` of the JAX
-    module). ``adam_w_mode=True`` decays decoupled (``optax.adamw``);
-    False folds L2 decay into the gradient before the moments."""
-
-    def __init__(self, learning_rate: ScheduleOrFloat, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, adam_w_mode: bool = True):
-        self.learning_rate = learning_rate
-        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
-        self.weight_decay = float(weight_decay)
-        self.adam_w_mode = bool(adam_w_mode)
-
-    def init(self, groups: List[FlatGroup]) -> FusedAdamState:
-        dev = groups[0].param.device
-        zeros = lambda: tuple(torch.zeros(grp.numel, dtype=torch.float32,  # noqa: E731
-                                          device=dev) for grp in groups)
-        return FusedAdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev),
-            m=zeros(), v=zeros())
-
-    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
-        """The learning rate at ``count`` as an fp32 device tensor (a
-        Python float is filled in on the device, never copied from the
-        host, which would sync the host with the card)."""
-        lr = self.learning_rate(count) if callable(self.learning_rate) \
-            else self.learning_rate
-        if isinstance(lr, torch.Tensor):
-            return lr.to(torch.float32)
-        return torch.full((), lr, dtype=torch.float32, device=count.device)
-
-    def _base_scalars(self, count: torch.Tensor,
-                      inv_scale: Optional[torch.Tensor]) -> torch.Tensor:
-        """[neg_lr, bc1, bc2, inv]: bias correction as optax evaluates
-        it (``1 - b ** (count + 1)`` in fp32), ``neg_lr = -1 * lr``."""
-        f32 = torch.float32
-        count_inc = (count + 1).to(f32)
-        one = torch.ones((), dtype=f32, device=count.device)
-        bc1 = one - torch.pow(torch.full_like(one, self.b1), count_inc)
-        bc2 = one - torch.pow(torch.full_like(one, self.b2), count_inc)
-        neg_lr = -one * self.lr_at(count)
-        inv = one if inv_scale is None else inv_scale.to(f32)
-        return torch.stack([neg_lr, bc1, bc2, inv])
-
-    def step(self, groups: List[Union[FlatGroup, ShardGroup]],
-             state: FusedAdamState, *,
-             clip: float = 0.0, inv_scale: Optional[torch.Tensor] = None,
-             fp16: bool = False, compute_norm: bool = True,
-             sr_seed: Optional[torch.Tensor] = None,
-             norm_reduce: Optional[Callable[[torch.Tensor], Any]] = None
-             ) -> Tuple[FusedAdamState, torch.Tensor, torch.Tensor]:
-        """One-pass clipped update of every group, in place on the
-        groups' params (and cast copies) and the state's moments.
-        ``inv_scale`` unscales fp16 loss-scaled grads in the kernel;
-        ``sr_seed`` (int32 0-dim) turns on stochastic rounding for bf16
-        groups. ``ShardGroup``s run the shard-local mode: each rank's
-        rows, the sum of squares summed over the ranks by
-        ``norm_reduce`` (an in-place all-reduce), K6's noise index from
-        the group's ``base``. Returns ``(state, grad_norm, overflow)``;
-        ``grad_norm`` is -1 when not computed."""
-        dev = state.count.device
-        f32 = torch.float32
-        base = self._base_scalars(state.count, inv_scale)
-        if compute_norm:
-            nsq = torch.zeros((), dtype=f32, device=dev)
-            for grp in groups:
-                nsq = nsq + sqnorm(grp.grad)
-            if norm_reduce is not None:
-                norm_reduce(nsq)
-            # norm of the UNSCALED grads: ||g*inv|| == inv * ||g||.
-            grad_norm = torch.sqrt(nsq) * base[3]
-        else:
-            grad_norm = torch.full((), -1.0, dtype=f32, device=dev)
-        if fp16:
-            # inf/nan anywhere in the grads make the sum of squares
-            # non-finite: the norm read doubles as the overflow vote.
-            overflow = torch.logical_not(torch.isfinite(grad_norm))
-        else:
-            overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        use_coeff = bool(compute_norm and clip and clip > 0)
-        coeff = clip_coefficient(grad_norm, clip) if use_coeff \
-            else torch.ones((), dtype=f32, device=dev)
-        skip = overflow.to(f32)
-        zero = torch.zeros((), dtype=f32, device=dev)
-        scalars = torch.stack([base[0], base[1], base[2], coeff, base[3],
-                               skip, zero, zero])
-        for gi, grp in enumerate(groups):
-            sr = sr_seed is not None and grp.dtype == torch.bfloat16
-            # [sr seed, the group's first element in the V-layout] (the
-            # JAX seed row: the base as an int32 that wraps as uint32).
-            seed = torch.stack([
-                (sr_seed + gi) if sr_seed is not None else
-                torch.zeros((), dtype=torch.int32, device=dev),
-                torch.full((), _int32(grp.base), dtype=torch.int32,
-                           device=dev)]).to(torch.int32)
-            fused_adam_apply(
-                grp.grad, grp.param, state.m[gi], state.v[gi], scalars, seed,
-                b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay,
-                coupled=not self.adam_w_mode, use_inv=inv_scale is not None,
-                use_coeff=use_coeff, one_pass=True, sr=sr,
-                cast_out=None if sr else grp.cast)
-        count = state.count + torch.logical_not(overflow).to(torch.int32)
-        return FusedAdamState(count, state.m, state.v), grad_norm, overflow
-
-
-__all__ = ["FusedAdam", "FusedAdamState", "FlatGroup", "ShardGroup",
+__all__ = ["FusedAdamState", "FlatGroup", "ShardGroup",
            "virtual_shards", "group_nbytes", "leaf_moment_views",
            "float_groups",
            "tree_flatten", "tree_unflatten", "sqnorm", "sqnorm_plain",
-           "fused_adam_apply", "fused_adam_plain", "stochastic_round_bits"]
+           "fused_adam_apply", "fused_adam_plain", "stochastic_round_bits",
+           "stochastic_round_indexed"]

@@ -5,8 +5,9 @@ Same keys, defaults and validation errors as the JAX package, so one
 ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
 scheduler, clipping, ZeRO, the ``sparse_attention`` section, the
-``moe`` block, the ``checkpoint`` block, ``progressive_layer_drop``
-and ``activation_checkpointing``) and, for
+``moe`` block, the ``checkpoint`` block, ``progressive_layer_drop``,
+``activation_checkpointing`` and ``elasticity``, which rewrites the
+batch triple before the solver runs) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
@@ -332,15 +333,50 @@ class DeepSpeedConfig:
             from ..parallel.topology import dp_world_size
             world_size = dp_world_size()
         self.world_size = world_size
-        d = self._param_dict
-        if d.get(C.ELASTICITY, {}).get(C.ENABLED, C.ENABLED_DEFAULT):
-            raise NotImplementedError(
-                "elasticity is not ported yet (ROADMAP slice 6: observability "
-                "and tooling): it "
-                "rewrites the batch triple before the solver runs")
-        self._initialize_params(d)
+        self.elasticity_enabled = False
+        self._configure_elasticity()
+        self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
+
+    def _configure_elasticity(self) -> None:
+        """An enabled ``elasticity`` block takes over the batch triple
+        before the solver runs (the JAX ``_configure_elasticity``): the
+        global batch and this world size's micro-batch from
+        ``compute_elastic_config``, gas left to the solver."""
+        from ..elasticity import compute_elastic_config, elasticity_enabled
+        if not elasticity_enabled(self._param_dict):
+            return
+        from ..elasticity.config import ElasticityConfigError
+        elastic_dict = self._param_dict[C.ELASTICITY]
+        ignore_non_elastic = elastic_dict.get(
+            C.IGNORE_NON_ELASTIC_BATCH_INFO,
+            C.IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT)
+        if not ignore_non_elastic:
+            batch_params = (C.TRAIN_BATCH_SIZE,
+                            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                            C.GRADIENT_ACCUMULATION_STEPS)
+            if any(self._param_dict.get(k) is not None
+                   for k in batch_params):
+                raise ElasticityConfigError(
+                    "One or more batch related parameters were found in "
+                    f"your ds_config ({', '.join(batch_params)}). These "
+                    "parameters *will not be used* since elastic training "
+                    "is enabled, which takes control of these parameters. "
+                    "If you want to supress this error set "
+                    f"'{C.IGNORE_NON_ELASTIC_BATCH_INFO}':true in your "
+                    "elasticity config.")
+        final_batch_size, valid_gpus, micro_batch_size = \
+            compute_elastic_config(ds_config=self._param_dict,
+                                   target_deepspeed_version="0.1.0",
+                                   world_size=self.world_size)
+        self.elastic_train_batch_size = final_batch_size
+        self.elastic_valid_gpus = valid_gpus
+        self.elasticity_enabled = True
+        self._param_dict[C.TRAIN_BATCH_SIZE] = final_batch_size
+        self._param_dict[C.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = \
+            micro_batch_size
+        self._param_dict[C.GRADIENT_ACCUMULATION_STEPS] = None
 
     def _initialize_params(self, d: Dict[str, Any]) -> None:
         get = config_utils.get_scalar_param

@@ -4,10 +4,16 @@
 ``train_batch`` runs one iteration: for each of the gas micro-batches
 the loss (scaled by the fp16 loss scale and divided by gas), its
 gradients by autograd, and their sum into the fp32 flat gradient
-buffers; then the fused one-pass optimizer step
-(``ops/fused_update.FusedAdam.step``: grad norm, fp16 overflow vote,
-clip coefficient, Adam, overflow skip and the cast-copy refresh); then
-the overflow bookkeeping and the dynamic loss scale. Every quantity of
+buffers; then the optimizer step (``ops/optimizers.FlatOptimizer.step``:
+grad norm, fp16 overflow vote, clip coefficient, the update — the fused
+one-pass Adam by default, or Lamb, SGD, Adagrad, RMSprop, Lion, the
+unfused Adam chains, a ``torch.optim`` optimizer — overflow skip and
+the cast-copy refresh); then the overflow bookkeeping and the dynamic
+loss scale. The reference's ``forward`` / ``backward`` / ``step`` trio
+runs the same per-micro-batch forward and backward (``_forward_micro``,
+``_backward_micro``) and, at the accumulation boundary, the same step
+(``_apply_window``), so the two are bit-equal; ``eval_batch`` computes a
+loss on the compute-dtype params without a graph. Every quantity of
 the step stays a device tensor, so an iteration issues no host sync:
 ``train_batch`` returns the loss as a 0-dim tensor and the metrics dict
 (``last_metrics``) holds tensors. With a ``moe`` block the loss_fn's MoE
@@ -73,8 +79,10 @@ Checkpoints (``save_checkpoint``, ``load_checkpoint``, the
 the JAX package's files, read and written in both directions: the
 model file ``mp_rank_00_model_states.msgpack`` (``{"module": params}``,
 the fp32 masters, or bf16 without masters), the optimizer file
-``zero_pp_rank_0_mp_rank_00_optim_states.msgpack`` (the Adam count and
-moments in the JAX V-interleaved layout, ``models/convert.py``, and the
+``zero_pp_rank_0_mp_rank_00_optim_states.msgpack`` (the fused Adam's
+count and moments in the JAX V-interleaved layout, ``models/
+convert.py``; an optax chain's state leaves, counts and per-parameter
+buffers in tree order, whole leaves written by rank 0 at any dp; and the
 loss-scale scalars), ``engine_meta.json`` (the counters, the seal of
 the two-phase commit) and ``latest`` (runtime/async_ckpt.py). At dp > 1
 there is one optimizer file per rank (``zero_pp_rank_{d}``): at ZeRO
@@ -97,15 +105,12 @@ partition axis, the params all-gathered back); stage 3 with offload at
 dp > 1 raises. The checkpoint is the JAX offload layout: ``{"offload":
 state}`` in the optimizer file and the fp32 masters as the module.
 
-What the port does not run yet raises ``NotImplementedError`` at
-construction, naming the ROADMAP slice that brings it: a dp that does
-not divide 8, MoE at dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
-parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism (ep > 1),
-the ``forward/backward/step`` trio,
-client optimizer objects, optimizers other than Adam/AdamW, and the
-unfused paths
-(``optimizer.params.fused: false``, and ``fused_kernels=False`` on
-CUDA).
+What the port does not run yet raises ``NotImplementedError``, naming
+the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
+dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
+parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism
+(ep > 1), a ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks,
+the trio under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
 """
 from __future__ import annotations
 
@@ -140,7 +145,9 @@ from ..parallel.topology import dp_rank, dp_world_size
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.partition import describe_sharding, row_plan
 from .zero.stage3 import _gather, gather_tree, regather_saved
-from ..ops.optimizers import build_optimizer
+from ..ops.optimizers import (COUNT, FusedAdam, FlatState, TorchOptimizer,
+                              build_optimizer, client_optimizer,
+                              state_buffers)
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
@@ -154,6 +161,9 @@ FUSED_MOMENT_LAYOUT = 2
 # What the JAX engine folds into a step's key for its stochastic-
 # rounding key (0x5352, "SR").
 _SR_FOLD = 0x5352
+# What eval_batch folds into the base seed for its default generators
+# ("EV").
+_EVAL_FOLD = 0x4556
 _MASK64 = (1 << 64) - 1
 
 
@@ -214,6 +224,22 @@ def _as_tensor(x: Any) -> torch.Tensor:
         return x
     a = np.asarray(x)
     return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+class _Window:
+    """One gradient-accumulation window: the step it closes, the
+    generator its micro-batches draw from in sequence, PLD's theta, gas,
+    the micro-steps done, and the mean loss and MoE stats so far."""
+
+    def __init__(self, step: int, generator: torch.Generator,
+                 theta: Optional[float], gas: int):
+        self.step = step
+        self.generator = generator
+        self.theta = theta
+        self.gas = gas
+        self.done = 0
+        self.mean_loss: Optional[torch.Tensor] = None
+        self.moe_sum: Dict[str, torch.Tensor] = {}
 
 
 class EngineState:
@@ -347,10 +373,10 @@ class DeepSpeedEngine:
         # apart (TransformerConfig.moe); a block with no MoE stats from
         # the loss_fn behind it raises at the first step.
         self._moe_metrics = self.config.moe_config.num_experts > 0
-        if optimizer is not None:
-            raise _unported("a client optimizer object (the port builds its "
-                            "fused Adam from the ds_config)",
-                            "slice 6: the other optimizers")
+        if optimizer is not None and offload:
+            raise ValueError(
+                "a client optimizer does not compose with zero_optimization."
+                "cpu_offload: the host runs its own Adam on the masters")
 
         self.loss_fn, init_params = self._normalize_model(model,
                                                           model_params)
@@ -409,9 +435,19 @@ class DeepSpeedEngine:
             schedule_fn = lambda step: base_lr  # noqa: E731
         self._schedule_fn = schedule_fn
         # (under offload the ZeroOffloadOptimizer, built below)
-        self.optimizer = None if offload else build_optimizer(
-            self.config.optimizer_name or C.ADAM_OPTIMIZER, opt_params,
-            schedule_fn)
+        self.optimizer = None
+        if optimizer is not None:
+            self.optimizer = client_optimizer(optimizer, schedule_fn, base_lr)
+        elif not offload:
+            self.optimizer = build_optimizer(
+                self.config.optimizer_name or C.ADAM_OPTIMIZER, opt_params,
+                schedule_fn)
+        if isinstance(self.optimizer, TorchOptimizer) and self._shard_local:
+            raise NotImplementedError(
+                f"{self.optimizer.name} holds its state per parameter, so it "
+                "runs at dp 1 or at ZeRO stage 0, where every rank holds "
+                "whole parameters (ROADMAP queue 1 item 5: torch.optim at "
+                "ZeRO stages 1-3)")
 
         # Flat parameter groups; leaves in tree order view into them.
         # At ZeRO stage >= 1 across ranks each group is also held as this
@@ -514,6 +550,12 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0     # refreshed by a snapshot or a load
+        # The forward/backward/step trio's open window and its pending
+        # forward (scaled loss, inputs, the returned loss); eval_batch's
+        # count of default generators.
+        self._trio: Optional[_Window] = None
+        self._trio_pending: Optional[Tuple[Any, Any, Any]] = None
+        self._eval_count = 0
 
         # The base seed of the per-step random stream (step_generator).
         if isinstance(rng, torch.Generator):
@@ -651,19 +693,20 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ #
     # State import
     # ------------------------------------------------------------------ #
-    def set_train_state(self, params: Any, opt_state: FusedAdamState,
+    def set_train_state(self, params: Any, opt_state: Any,
                         step: int = 0, loss_scale: Optional[float] = None,
                         growth_count: int = 0,
                         hysteresis: Optional[int] = None,
                         skipped_steps: int = 0) -> None:
         """Replace the training state in place: ``params`` a tree like
-        the initial one (tensors or numpy), ``opt_state`` moments in this
-        engine's flat-group layout (``models/convert.py`` carries a JAX
-        ``FusedAdamState`` there; at ZeRO stage >= 1 across ranks, this
-        rank's rows of the V-layout). The compute-dtype copy is re-derived
-        from the new parameters. ``global_steps`` follows from ``step`` and
-        ``skipped_steps`` (``load_checkpoint`` takes the counters from the
-        checkpoint's meta instead)."""
+        the initial one (tensors or numpy), ``opt_state`` the optimizer's
+        state with its buffers in this engine's flat-group layout
+        (``models/convert.py`` carries a JAX ``FusedAdamState`` there; at
+        ZeRO stage >= 1 across ranks, this rank's rows of the V-layout;
+        an optax chain's ``FlatState`` likewise). The compute-dtype copy
+        is re-derived from the new parameters. ``global_steps`` follows
+        from ``step`` and ``skipped_steps`` (``load_checkpoint`` takes the
+        counters from the checkpoint's meta instead)."""
         if self._offload is not None:
             raise ValueError(
                 "set_train_state takes device optimizer state; an offload "
@@ -716,17 +759,16 @@ class DeepSpeedEngine:
                     out[i] = t
         return tree_unflatten(self._treedef, out)
 
-    def _write_opt_state(self, opt_state: FusedAdamState, step: int,
+    def _write_opt_state(self, opt_state: Any, step: int,
                          loss_scale: Optional[float], growth_count: int,
                          hysteresis: Optional[int],
                          skipped_steps: int) -> None:
         dev = self.device
         with torch.no_grad():
-            for gi in range(len(self._opt_groups)):
-                self.state.opt_state.m[gi].copy_(
-                    _as_tensor(opt_state.m[gi]))
-                self.state.opt_state.v[gi].copy_(
-                    _as_tensor(opt_state.v[gi]))
+            new = state_buffers(opt_state)
+            for name, bufs in state_buffers(self.state.opt_state).items():
+                for buf, src in zip(bufs, new[name]):
+                    buf.copy_(_as_tensor(src))
             sc = self._scaler_kw
             i32 = dict(dtype=torch.int32, device=dev)
             self.state = self.state.replace(
@@ -773,6 +815,10 @@ class DeepSpeedEngine:
         GPT-2, tokens [gas*micro, S+1]); without it, gas micro-batches
         come from ``data_iter`` or the engine's dataloader. Returns the
         mean loss as a 0-dim device tensor."""
+        if self._trio is not None:
+            raise RuntimeError(
+                "train_batch() inside a forward()/backward() accumulation "
+                "window: call step() at the window's boundary first")
         if batch is None:
             it = data_iter
             if it is None:
@@ -793,10 +839,17 @@ class DeepSpeedEngine:
         micro_batches = self._split_micro_batches(self._to_device(batch))
         self.tput_timer.start()
         metrics = self._train_step(micro_batches, self.global_steps)
+        self.micro_steps += self.gradient_accumulation_steps()
+        self._finish_step(metrics)
+        return metrics["loss"]
+
+    def _finish_step(self, metrics: Dict[str, Any]) -> None:
+        """After an optimizer step (``train_batch``, or ``step()`` at a
+        boundary): the counters, progressive layer drop's schedule, the
+        scheduler's iteration, the metrics, the log and the auto-save."""
         self.global_steps += 1
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
-        self.micro_steps += self.gradient_accumulation_steps()
         self.global_samples += self.train_batch_size()
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "last_batch_iteration"):
@@ -805,7 +858,6 @@ class DeepSpeedEngine:
         self.last_metrics = metrics
         self._maybe_log(metrics)
         self._maybe_auto_save()
-        return metrics["loss"]
 
     def _maybe_auto_save(self) -> None:
         """Auto-save (``checkpoint.snapshot_every``): tag global_stepN
@@ -828,67 +880,98 @@ class DeepSpeedEngine:
             seed = fold_in(seed, self.dp_rank)
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _micro_steps(self, micro_batches: List[Any],
-                     generator: torch.Generator, scale: Any, step: int
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The gas micro-steps of step ``step``: each one's loss (scaled
-        by ``scale`` and divided by gas), its gradients by autograd and
-        their sum into the fp32 grads (this rank's rows at ZeRO 2-3).
-        Returns the mean loss (a device tensor) and the MoE stats summed
-        over the micro-steps."""
-        gas = len(micro_batches)
-        leaves = self._loss_leaves
-        params = None if self._zero3 else tree_unflatten(self._treedef,
-                                                         leaves)
-        scaled_loss = _make_raw_scaled_loss(self.loss_fn, self._accepts_pld,
-                                            gas)
+    # ------------------------------------------------------------------ #
+    # Micro-steps: one forward and one backward a micro-batch, shared by
+    # train_batch and the forward/backward/step trio
+    # ------------------------------------------------------------------ #
+    def _open_window(self, step: int) -> "_Window":
+        """An accumulation window for step ``step``: its generator (the
+        micro-batches draw from it in sequence) and PLD's theta."""
         theta = self.progressive_layer_drop.theta_at(step) \
             if self._accepts_pld else None
-        mean_loss = None
-        moe_sum: Dict[str, torch.Tensor] = {}
-        for i, mb in enumerate(micro_batches):
+        return _Window(step, self.step_generator(step), theta,
+                       self.gradient_accumulation_steps())
+
+    def _forward_micro(self, win: "_Window", mb: Any, scale: Any
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  List[torch.Tensor]]:
+        """One micro-batch's loss (scaled by ``scale`` and divided by
+        gas) with its graph; at stage 3 on parameters gathered from
+        every rank's rows, saved for the backward pass as re-gathers.
+        Adds the raw loss and the MoE stats to the window. Returns
+        ``(scaled, raw, inputs)``: the tensors the backward
+        differentiates against."""
+        scaled_loss = _make_raw_scaled_loss(self.loss_fn, self._accepts_pld,
+                                            win.gas)
+        if self._zero3:
+            inputs, params, regather = self._zero3_gather()
+            with regather_saved(regather):
+                scaled, (raw, aux) = scaled_loss(params, mb, win.generator,
+                                                 scale, win.theta)
+            del params, regather
+        else:
+            inputs = self._loss_leaves
+            scaled, (raw, aux) = scaled_loss(
+                tree_unflatten(self._treedef, inputs), mb, win.generator,
+                scale, win.theta)
+        first = win.done == 0
+        if self._moe_metrics:
+            if not (isinstance(aux, dict) and "moe" in aux):
+                raise ValueError(
+                    "ds_config has a `moe` block but the model's "
+                    "loss_fn returned no moe stats — build the model "
+                    "with TransformerConfig.moe (deepspeed_tpu_torch."
+                    "moe.MoEConfig) or drop the block")
+            for name, v in aux["moe"].items():
+                v = v.detach().float()
+                win.moe_sum[name] = v if first else win.moe_sum[name] + v
+        r = raw.detach().float()
+        if win.gas == 1:
+            win.mean_loss = r
+        else:
+            win.mean_loss = (torch.zeros_like(r) if first else
+                             win.mean_loss) + r / win.gas
+        return scaled, raw, inputs
+
+    def _backward_micro(self, win: "_Window", scaled: torch.Tensor,
+                        inputs: List[torch.Tensor]) -> None:
+        """The micro-batch's gradients by autograd, added into the fp32
+        grads (the first micro-batch of the window writes them): this
+        rank's rows at stage 3, reduce-scattered rows at stage 2."""
+        first = win.done == 0
+        grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
+        with torch.no_grad():
             if self._zero3:
-                scaled, raw, aux = self._zero3_micro_step(
-                    scaled_loss, mb, generator, scale, theta,
-                    first=i == 0)
+                dsts = [dst for sg in self._shards
+                        for dst in sg.local_views(sg.grad)]
+            elif self._rs_grads:
+                self._scatter_grads(grads, first=first)
+                dsts = []
             else:
-                scaled, (raw, aux) = scaled_loss(params, mb, generator,
-                                                 scale, theta)
-            if self._moe_metrics:
-                if not (isinstance(aux, dict) and "moe" in aux):
-                    raise ValueError(
-                        "ds_config has a `moe` block but the model's "
-                        "loss_fn returned no moe stats — build the model "
-                        "with TransformerConfig.moe (deepspeed_tpu_torch."
-                        "moe.MoEConfig) or drop the block")
-                for name, v in aux["moe"].items():
-                    v = v.detach().float()
-                    moe_sum[name] = v if i == 0 else moe_sum[name] + v
-            if not self._zero3:
-                grads = torch.autograd.grad(scaled, leaves,
-                                            allow_unused=True)
-                with torch.no_grad():
-                    if self._rs_grads:
-                        self._scatter_grads(grads, first=i == 0)
-                    else:
-                        # fp32 accumulation: each micro-batch's grads (in
-                        # the compute dtype) are added into the fp32 flat
-                        # buffers.
-                        for gv, g in zip(self._grad_views, grads):
-                            if g is None:
-                                if i == 0:
-                                    gv.zero_()
-                            elif i == 0:
-                                gv.copy_(g)
-                            else:
-                                gv.add_(g)
-            raw = raw.detach().float()
-            if gas == 1:
-                mean_loss = raw
-            else:
-                mean_loss = (torch.zeros_like(raw) if i == 0 else
-                             mean_loss) + raw / gas
-        return mean_loss, moe_sum
+                # fp32 accumulation: each micro-batch's grads (in the
+                # compute dtype) are added into the fp32 flat buffers.
+                dsts = self._grad_views
+            for dst, g in zip(dsts, grads):
+                if g is None:
+                    if first:
+                        dst.zero_()
+                elif first:
+                    dst.copy_(g)
+                else:
+                    dst.add_(g)
+        win.done += 1
+
+    def _micro_steps(self, micro_batches: List[Any], win: "_Window",
+                     scale: Any
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The window's micro-steps, each a forward and a backward.
+        Returns the mean loss (a device tensor) and the MoE stats summed
+        over the micro-steps."""
+        for mb in micro_batches:
+            scaled, _, inputs = self._forward_micro(win, mb, scale)
+            self._backward_micro(win, scaled, inputs)
+            del scaled, inputs
+        return win.mean_loss, win.moe_sum
 
     @staticmethod
     def _moe_means(metrics: Dict[str, Any], moe_sum: Dict[str, Any],
@@ -904,11 +987,17 @@ class DeepSpeedEngine:
                     ) -> Dict[str, torch.Tensor]:
         if self._offload is not None:
             return self._train_step_offload(micro_batches, step)
+        win = self._open_window(step)
+        self._micro_steps(micro_batches, win, self.state.loss_scale)
+        return self._apply_window(win)
+
+    def _apply_window(self, win: "_Window") -> Dict[str, torch.Tensor]:
+        """The optimizer step closing a window: the grad reduction at
+        dp > 1, the optimizer (norm, vote, clip, update, skip, cast
+        copy), the overflow bookkeeping and the loss scale."""
         st = self.state
-        generator = self.step_generator(step)
         scale = st.loss_scale
-        mean_loss, moe_sum = self._micro_steps(micro_batches, generator,
-                                               scale, step)
+        mean_loss = win.mean_loss
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
@@ -926,7 +1015,7 @@ class DeepSpeedEngine:
                              if inv_scale is None else inv_scale) / self.dp
             # (a fill kernel, not a host-to-device copy: no host sync)
             sr_seed = torch.full(
-                (), _int32(fold_in(fold_in(self._base_seed, step),
+                (), _int32(fold_in(fold_in(self._base_seed, win.step),
                                    _SR_FOLD)),
                 dtype=torch.int32, device=self.device) \
                 if self._master_free else None
@@ -945,8 +1034,122 @@ class DeepSpeedEngine:
         metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
                    "loss_scale": scale, "overflow": overflow,
                    "skipped_steps": self.state.skipped_steps}
-        self._moe_means(metrics, moe_sum, len(micro_batches))
+        self._moe_means(metrics, win.moe_sum, win.gas)
         return metrics
+
+    # ------------------------------------------------------------------ #
+    # The reference's forward/backward/step trio, and eval
+    # ------------------------------------------------------------------ #
+    def forward(self, batch: Any) -> torch.Tensor:
+        """One micro-batch's loss, with its graph kept for ``backward``
+        (the JAX trio's ``forward``: a rank's micro-batch of ``micro``
+        rows). The first ``forward`` of an accumulation window opens it:
+        the step's generator, from which the window's micro-batches draw
+        in sequence, as ``train_batch``'s do, so a window of gas trio
+        calls updates the parameters bit for bit as ``train_batch`` on
+        the same rows. Returns the raw loss, detached."""
+        if self._offload is not None:
+            raise _unported(
+                "the forward/backward/step trio under zero_optimization."
+                "cpu_offload (the JAX trio's apply reads a device optimizer "
+                "state that offload does not keep, and runs no host step)",
+                "queue 1 item 5: the trio under offload")
+        if self._trio_pending is not None:
+            raise RuntimeError(
+                "forward() twice without backward(): the first graph would "
+                "be held beside the second; call backward() after each "
+                "forward()")
+        if self._trio is None:
+            self._trio = self._open_window(self.global_steps)
+            self.tput_timer.start()
+        scaled, raw, inputs = self._forward_micro(
+            self._trio, self._to_device(batch), self.state.loss_scale)
+        loss = raw.detach()
+        self._trio_pending = (scaled, inputs, loss)
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss: Optional[torch.Tensor] = None,
+                 allreduce_gradients: bool = True) -> Optional[torch.Tensor]:
+        """Add the gradients of the last ``forward``'s loss into the
+        window's accumulators and count a micro-step. ``loss`` is None
+        or the tensor ``forward`` returned: the trio differentiates the
+        forward's loss only, as the JAX trio does. The gradient
+        reduction across ranks runs at the boundary (``step``);
+        ``allreduce_gradients`` is accepted for the reference's
+        signature."""
+        if self._trio_pending is None:
+            raise AssertionError("call forward() before backward()")
+        scaled, inputs, returned = self._trio_pending
+        if loss is not None and loss is not returned:
+            raise ValueError(
+                "backward() takes None or the loss forward() returned: the "
+                "trio differentiates the forward's own loss, so a loss "
+                "computed from it is not supported")
+        self._trio_pending = None
+        self._backward_micro(self._trio, scaled, inputs)
+        self.micro_steps += 1
+        return loss
+
+    def step(self) -> None:
+        """At a gradient-accumulation boundary, the optimizer step over
+        the window's gradients (the tail of ``train_batch``); elsewhere a
+        no-op, as the reference gates it."""
+        if self.micro_steps % self.gradient_accumulation_steps() != 0:
+            return
+        if self._trio is None or self._trio.done == 0:
+            raise AssertionError("no gradients accumulated")
+        if self._trio_pending is not None:
+            raise RuntimeError("step() after a forward() whose backward() "
+                               "has not run")
+        win, self._trio = self._trio, None
+        self._finish_step(self._apply_window(win))
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return (self.micro_steps + 1) % \
+            self.gradient_accumulation_steps() == 0
+
+    def zero_optimization(self) -> bool:
+        return self.config.zero_enabled
+
+    def get_lr(self) -> List[float]:
+        return [float(self._schedule_fn(self.global_steps))]
+
+    def eval_batch(self, batch: Any,
+                   rng: Union[int, torch.Generator, None] = None
+                   ) -> torch.Tensor:
+        """The loss of ``batch`` (a rank's rows) on the compute-dtype
+        parameters, without gradients and without touching the training
+        state: the cast copy, the parameters themselves (fp32, master-
+        free), the stage-3 leaves gathered without autograd, or the
+        offload engine's device copy. ``rng``: an int seed or a
+        generator; by default one derived from the base seed and a count
+        of eval calls. At dp > 1 the mean over the ranks (a collective)."""
+        if isinstance(rng, torch.Generator):
+            gen = rng
+        else:
+            seed = fold_in(fold_in(self._base_seed, _EVAL_FOLD),
+                           self._eval_count) if rng is None else int(rng)
+            self._eval_count += 1
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.no_grad():
+            if self._offload is not None:
+                params = tree_unflatten(self._treedef, self._param_views)
+            elif self._zero3:
+                params = self.full_params()
+            elif self.state.cast_params is not None:
+                params = self.state.cast_params
+            else:
+                params = self.state.params
+            params = tree_unflatten(self._treedef, [
+                t.to(self.compute_dtype) if t.is_floating_point() else t
+                for t in tree_flatten(params)[0]])
+            out = self.loss_fn(params, self._to_device(batch), gen)
+            loss = (out[0] if isinstance(out, tuple) else out).detach()
+            if self.dp > 1:
+                loss = comm.all_reduce(loss.float().clone()) / self.dp
+        return loss
 
     # ------------------------------------------------------------------ #
     # Data parallelism and ZeRO (dp > 1)
@@ -998,12 +1201,12 @@ class DeepSpeedEngine:
             if grp.cast is not None:
                 grp.cast.copy_(grp.param)
 
-    def _zero3_micro_step(self, scaled_loss, mb, generator, scale, theta,
-                          first: bool):
-        """Stage 3: one micro-step on parameters gathered from every
-        rank's rows (``gather_cast``), saved for the backward pass as
-        re-gathers; the gradient comes back as this rank's fp32 rows
-        and is added to its grads."""
+    def _zero3_gather(self) -> Tuple[List[torch.Tensor], Any,
+                                     Dict[int, Any]]:
+        """Stage 3: the parameter tree gathered from every rank's rows in
+        the compute dtype (``gather_cast``); returns the local rows the
+        gradient comes back to (``inputs``), the tree, and each leaf's
+        re-gather for ``regather_saved``."""
         inputs: List[torch.Tensor] = []
         leaves: List[Any] = [None] * len(self._leaf_shapes)
         regather: Dict[int, Any] = {}
@@ -1018,26 +1221,7 @@ class DeepSpeedEngine:
                 regather[i] = ((lambda x=x, shape=shape:
                                 _gather(x.detach(), shape, dtype)), leaf)
             inputs += parts
-        params = tree_unflatten(self._treedef, leaves)
-        with regather_saved(regather):
-            scaled, (raw, aux) = scaled_loss(params, mb, generator, scale,
-                                             theta)
-        del params, leaves, regather
-        grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
-        with torch.no_grad():
-            k = 0
-            for sg in self._shards:
-                for dst in sg.local_views(sg.grad):
-                    g = grads[k]
-                    k += 1
-                    if g is None:
-                        if first:
-                            dst.zero_()
-                    elif first:
-                        dst.copy_(g)
-                    else:
-                        dst.add_(g)
-        return scaled, raw, aux
+        return inputs, tree_unflatten(self._treedef, leaves), regather
 
     # ------------------------------------------------------------------ #
     # ZeRO-Offload (runtime/zero/offload.py)
@@ -1143,9 +1327,8 @@ class DeepSpeedEngine:
         the ranks into ``_local_grads`` (times 1/dp, exact for dp a power
         of two: each rank's loss is its own rows' mean) and the mean loss
         over the ranks."""
-        generator = self.step_generator(step)
         mean_loss, moe_sum = self._micro_steps(
-            micro_batches, generator, self._offload.loss_scale, step)
+            micro_batches, self._open_window(step), self._offload.loss_scale)
         if self.dp > 1:
             with torch.no_grad():
                 self._offload_reduce_grads()
@@ -1309,15 +1492,6 @@ class DeepSpeedEngine:
                      f"skipped={int(metrics['skipped_steps'])}", ranks=[0])
 
     # ------------------------------------------------------------------ #
-    # Not ported yet
-    # ------------------------------------------------------------------ #
-    def forward(self, *args, **kwargs):
-        raise _unported("the forward/backward/step API",
-                        "slice 6: the engine's forward/backward/step trio")
-
-    backward = step = forward
-
-    # ------------------------------------------------------------------ #
     # Checkpointing (the JAX engine's files, runtime/async_ckpt.py)
     # ------------------------------------------------------------------ #
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
@@ -1428,6 +1602,10 @@ class DeepSpeedEngine:
             return self._snapshot_offload(save_dir, str(tag), save_latest,
                                           meta)
 
+        if not isinstance(self.optimizer, FusedAdam):
+            # (a torch.optim optimizer raises here: no JAX layout)
+            layout = self.optimizer.jax_layout()
+            del meta["fused_moment_layout"]
         st = self.state
         opt = st.opt_state
         scalars = torch.stack([
@@ -1436,9 +1614,14 @@ class DeepSpeedEngine:
             st.growth_count.to(torch.int32), st.hysteresis.to(torch.int32),
             st.skipped_steps.to(torch.int32)])
         G = len(self._opt_groups)
+        # The state's buffers, name by name and group by group (the fused
+        # Adam's m then v; an optax chain's in its state's order).
+        names = list(state_buffers(opt))
+        flat_bufs = [b for n in names for b in state_buffers(opt)[n]]
+        K = len(flat_bufs)
         if self._shard_local:
             # Every rank's rows on rank 0, rank order (collective).
-            rows = [comm.gather(b) for b in list(opt.m) + list(opt.v)]
+            rows = [comm.gather(b) for b in flat_bufs]
             if self._zero3:
                 rows += [comm.gather(sg.param) for sg in self._shards]
             is_writer = self.dp_rank == 0
@@ -1457,7 +1640,7 @@ class DeepSpeedEngine:
         else:
             is_writer = self.dp_rank == 0
             host = _host_copies([g.param for g in self._groups] +
-                                list(opt.m) + list(opt.v) + [scalars])
+                                flat_bufs + [scalars])
         sc = host[-1].numpy()
         count, step_v, growth_v, hyst_v, skipped_v = (
             np.array(sc[i]) for i in (0, 1, 3, 4, 5))
@@ -1470,7 +1653,7 @@ class DeepSpeedEngine:
 
         n_leaves = len(self._leaf_shapes)
         if self._zero3:
-            def host_params_fn(prow=host_rows[2 * G:]) -> Any:
+            def host_params_fn(prow=host_rows[K:]) -> Any:
                 out: List[Any] = [None] * n_leaves
                 for sg, idxs, per in zip(self._shards, self._group_leaves,
                                          prow):
@@ -1495,6 +1678,25 @@ class DeepSpeedEngine:
 
         blobs: List[Any] = [(MODEL_FILE, model_blob)]
         meta["optim_shards"] = dp
+        if not isinstance(self.optimizer, FusedAdam):
+            # An optax chain: its state's leaves whole (rank 0 writes one
+            # file at any dp, as offload does; JAX's load re-partitions).
+            host_bufs = [torch.cat(per) for per in host_rows[:K]] \
+                if self._shard_local else host[G:G + K]
+            meta["optim_shards"] = 1
+            leaf_list = self._optax_leaves(layout, names, host_bufs, count)
+            meta["optim_shard_axes"] = [None] * len(leaf_list)
+
+            def optax_blob(leaf_list=leaf_list) -> bytes:
+                blob: Dict[str, Any] = {str(i): x
+                                        for i, x in enumerate(leaf_list)}
+                blob["__scalars__"] = scalars_blob
+                return msgpack_serialize(blob)
+            blobs.append((OPTIM_SHARD_FMT.format(0), optax_blob))
+            return CheckpointSnapshot(
+                save_dir=save_dir, tag=str(tag), save_latest=save_latest,
+                meta=meta, blobs=blobs, is_writer=is_writer,
+                fsync=self._ckpt_fsync)
         if self._shard_local:
             # The moments split along their flat axis, one file a rank.
             meta["optim_shard_axes"] = [None] + [0] * (2 * G)
@@ -1531,6 +1733,39 @@ class DeepSpeedEngine:
             save_dir=save_dir, tag=str(tag), save_latest=save_latest,
             meta=meta, blobs=blobs, is_writer=is_writer,
             fsync=self._ckpt_fsync)
+
+    def _optax_leaves(self, layout: List[str], names: List[str],
+                      host_bufs: List[torch.Tensor], count: Any
+                      ) -> List[Any]:
+        """An optax chain's state as the JAX optimizer file's leaf list
+        (``tree_leaves`` of the optax state): each count entry the
+        int32 count, each buffer entry its per-parameter leaves in tree
+        order, taken from the whole host buffers (``host_bufs``, name by
+        name and group by group; V-layout rows joined at shard-local
+        ZeRO)."""
+        G = len(self._opt_groups)
+        per_name: Dict[str, List[Any]] = {}
+        for k, name in enumerate(names):
+            leaves: List[Any] = [None] * len(self._leaf_shapes)
+            for gi, idxs in enumerate(self._group_leaves):
+                buf = host_bufs[k * G + gi]
+                if self._shard_local:
+                    sg = self._shards[gi]
+                    lv = [torch.empty(self._leaf_shapes[i],
+                                      dtype=torch.float32) for i in idxs]
+                    sg.unpack(buf, lv)
+                else:
+                    lv = self._groups[gi].views(buf)
+                for i, t in zip(idxs, lv):
+                    leaves[i] = t
+            per_name[name] = leaves
+        out: List[Any] = []
+        for entry in layout:
+            if entry == COUNT:
+                out.append(np.asarray(count, np.int32))
+            else:
+                out += per_name[entry]
+        return out
 
     def preempt_save(self, reason: str = "SIGTERM") -> bool:
         """Final snapshot+commit for a dying run — the PreemptSaver's
@@ -1619,7 +1854,15 @@ class DeepSpeedEngine:
                     f"{optim_file} holds ZeRO-Offload host optimizer state: "
                     "load it into an engine with zero_optimization."
                     "cpu_offload, or with load_optimizer_states=False")
-        if load_optimizer_states and \
+        fused = isinstance(self.optimizer, FusedAdam)
+        if load_optimizer_states and isinstance(self.optimizer,
+                                                TorchOptimizer):
+            raise ValueError(
+                f"{self.optimizer.name}'s state is torch.optim's "
+                "state_dict, which the JAX checkpoint layout does not hold: "
+                "load with load_optimizer_states=False and restore it with "
+                "engine.optimizer.load_state_dict")
+        if load_optimizer_states and fused and \
                 int(meta.get("fused_moment_layout", 1)) != \
                 FUSED_MOMENT_LAYOUT:
             # Refused before any state changes: the pre-layout-2 flat
@@ -1656,37 +1899,19 @@ class DeepSpeedEngine:
             if blobs is None:
                 return None, {}
             G = len(self._opt_groups)
-            leaves = self._assemble_shards(blobs, meta["optim_shard_axes"],
-                                           1 + 2 * G)
-            shards = max(convert.JAX_VIRTUAL_SHARDS,
-                         int(meta.get("dp_world_size", 1)))
-            try:
-                if self._shard_local:
-                    # This rank's rows of the joined V-layout buffers.
-                    bufs = [convert.jax_local_rows(
-                        convert.relayout_jax_buffer(b, sg.sizes, shards,
-                                                    sg.shards),
-                        sg.sizes, sg.shards, self.dp, self.dp_rank)
-                        for b, sg in zip(leaves[1:],
-                                         self._shards + self._shards)]
-                    opt_state = FusedAdamState(
-                        count=np.int32(np.asarray(leaves[0])),
-                        m=tuple(bufs[:G]), v=tuple(bufs[G:]))
-                else:
-                    opt_state = convert.from_jax_fused_adam_state(
-                        leaves[0], leaves[1:1 + G], leaves[1 + G:],
-                        self.state.params, shards=shards)
-            except ValueError as e:
-                raise ValueError(
-                    f"checkpoint {path}: the saved moment buffers do not "
-                    "fit this engine's parameter groups — the model or "
-                    f"its precision changed since the save ({e})") from e
+            if not fused:
+                opt_state = self._optax_state(path, self._assemble_shards(
+                    blobs, meta["optim_shard_axes"],
+                    self._optax_leaf_count()))
+            else:
+                opt_state = self._fused_state(path, meta, blobs)
             sc = blobs[0]["__scalars__"]
             opt_update = (opt_state, int(sc["step"]),
                           float(sc["loss_scale"]), int(sc["growth_count"]),
                           int(sc["hysteresis"]), int(sc["skipped"]))
 
         # Every file read and checked: now the state changes.
+        self._trio = self._trio_pending = None
         self._write_params(new_leaves)
         if opt_update is not None:
             self._write_opt_state(*opt_update)
@@ -1702,6 +1927,79 @@ class DeepSpeedEngine:
         log_dist(f"loaded checkpoint {path} at global_step="
                  f"{self.global_steps}", ranks=[0])
         return path, meta.get("client_state", {})
+
+    def _fused_state(self, path: str, meta: Dict[str, Any],
+                     blobs: List[Any]) -> FusedAdamState:
+        """The fused Adam's state from the joined optimizer shards (the
+        JAX fused-moment layout), as this engine's groups hold it."""
+        G = len(self._opt_groups)
+        leaves = self._assemble_shards(blobs, meta["optim_shard_axes"],
+                                       1 + 2 * G)
+        shards = max(convert.JAX_VIRTUAL_SHARDS,
+                     int(meta.get("dp_world_size", 1)))
+        try:
+            if self._shard_local:
+                # This rank's rows of the joined V-layout buffers.
+                bufs = [convert.jax_local_rows(
+                    convert.relayout_jax_buffer(b, sg.sizes, shards,
+                                                sg.shards),
+                    sg.sizes, sg.shards, self.dp, self.dp_rank)
+                    for b, sg in zip(leaves[1:],
+                                     self._shards + self._shards)]
+                opt_state = FusedAdamState(
+                    count=np.int32(np.asarray(leaves[0])),
+                    m=tuple(bufs[:G]), v=tuple(bufs[G:]))
+            else:
+                opt_state = convert.from_jax_fused_adam_state(
+                    leaves[0], leaves[1:1 + G], leaves[1 + G:],
+                    self.state.params, shards=shards)
+        except ValueError as e:
+            raise ValueError(
+                f"checkpoint {path}: the saved moment buffers do not "
+                "fit this engine's parameter groups — the model or "
+                f"its precision changed since the save ({e})") from e
+        return opt_state
+
+    def _optax_leaf_count(self) -> int:
+        layout = self.optimizer.jax_layout()
+        return sum(1 if e == COUNT else len(self._leaf_shapes)
+                   for e in layout)
+
+    def _optax_state(self, path: str, leaves: List[Any]) -> FlatState:
+        """An optax chain's state from the JAX file's leaf list: the
+        count (the last count entry, the schedule's), and each buffer's
+        per-parameter leaves packed into this engine's groups (this
+        rank's rows of the V-layout at shard-local ZeRO)."""
+        it = iter(leaves)
+        count, per_name = None, {}
+        for entry in self.optimizer.jax_layout():
+            if entry == COUNT:
+                count = np.int32(np.asarray(next(it)))
+                continue
+            got = [_as_tensor(next(it)) for _ in self._leaf_shapes]
+            for p, x, shape in zip(_leaf_paths(self.state.params), got,
+                                   self._leaf_shapes):
+                if tuple(x.shape) != tuple(shape):
+                    raise ValueError(
+                        f"checkpoint {path}: the saved {entry} leaf {p} is "
+                        f"{tuple(x.shape)}, this model's {tuple(shape)} — "
+                        "the model changed since the save")
+            per_name[entry] = got
+        bufs = {}
+        for name, got in per_name.items():
+            per_group = []
+            for gi, idxs in enumerate(self._group_leaves):
+                dst = torch.zeros(self._opt_groups[gi].numel,
+                                  dtype=torch.float32)
+                lv = [got[i].to(torch.float32) for i in idxs]
+                if self._shard_local:
+                    self._shards[gi].pack(lv, dst)
+                else:
+                    for view, x in zip(self._groups[gi].views(dst), lv):
+                        view.copy_(x)
+                per_group.append(dst)
+            bufs[name] = tuple(per_group)
+        return FlatState(count=count, bufs=bufs)
 
     # ------------------------------------------------------------------ #
     # ZeRO-Offload checkpoints (the JAX engine's offload layout)

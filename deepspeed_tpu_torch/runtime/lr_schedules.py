@@ -227,5 +227,36 @@ def get_lr_schedule(name: str, params: Dict[str, Any],
     return SCHEDULE_CLASSES[name](optimizer=optimizer, **params)
 
 
+def add_tuning_arguments(parser):
+    """The reference's convergence-tuning flags (lr_schedules.py:54-298):
+    the schedule's name and each schedule's parameters, with the JAX
+    package's defaults."""
+    group = parser.add_argument_group("Convergence Tuning",
+                                      "Convergence tuning configurations")
+    group.add_argument("--lr_schedule", type=str, default=None,
+                       help="LR schedule for training.")
+    group.add_argument("--lr_range_test_min_lr", type=float, default=0.001)
+    group.add_argument("--lr_range_test_step_rate", type=float, default=1.0)
+    group.add_argument("--lr_range_test_step_size", type=int, default=1000)
+    group.add_argument("--lr_range_test_staircase", type=bool, default=False)
+    group.add_argument("--cycle_first_step_size", type=int, default=1000)
+    group.add_argument("--cycle_first_stair_count", type=int, default=1)
+    group.add_argument("--cycle_second_step_size", type=int, default=-1)
+    group.add_argument("--cycle_second_stair_count", type=int, default=-1)
+    group.add_argument("--decay_step_size", type=int, default=1000)
+    group.add_argument("--cycle_min_lr", type=float, default=0.01)
+    group.add_argument("--cycle_max_lr", type=float, default=0.1)
+    group.add_argument("--decay_lr_rate", type=float, default=0.0)
+    group.add_argument("--cycle_momentum", type=bool, default=False)
+    group.add_argument("--cycle_min_mom", type=float, default=0.8)
+    group.add_argument("--cycle_max_mom", type=float, default=0.9)
+    group.add_argument("--decay_mom_rate", type=float, default=0.0)
+    group.add_argument("--warmup_min_lr", type=float, default=0)
+    group.add_argument("--warmup_max_lr", type=float, default=0.001)
+    group.add_argument("--warmup_num_steps", type=int, default=1000)
+    group.add_argument("--warmup_type", type=str, default=WARMUP_LOG_RATE)
+    return parser
+
+
 __all__ = ["LRRangeTest", "OneCycle", "WarmupLR", "WarmupDecayLR",
-           "get_lr_schedule", "VALID_LR_SCHEDULES"]
+           "get_lr_schedule", "VALID_LR_SCHEDULES", "add_tuning_arguments"]

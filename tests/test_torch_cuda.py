@@ -33,7 +33,10 @@ the grouped FFN forward and backward on the card against the CPU within
 gpt2-tiny fp32 MoE steps as the dense ones, with equal expert token
 counts and drop fractions; two gpt2-tiny bf16 steps under each remat
 policy bit-equal to ``none``, with the forward kernels' launches
-rising as the policy says.
+rising as the policy says; each optimizer of the matrix (plain PyTorch
+over the flat buffers) within 4 fp32 ulp of its leaf-by-leaf reference
+step on CUDA tensors, the cast copy bit-equal; the trio bit-equal to
+``train_batch`` on gpt2-tiny bf16 with dropout 0.1.
 """
 import dataclasses
 
@@ -641,6 +644,124 @@ def test_remat_train_batch_on_the_card_is_bit_equal_to_none(dev, policy):
                  "fused_bias_gelu": gas * L}
         assert cr == {k: v + again.get(k, 0) for k, v in cn.items()}, \
             (cr, cn)
+
+
+# --------------------------------------------------------------------- #
+# The optimizer matrix (plain PyTorch over the flat buffers) and the trio
+# --------------------------------------------------------------------- #
+OPT_CASES = {
+    "lamb": ("lamb", {"lr": 1e-2, "weight_decay": 0.01}),
+    "sgd_momentum": ("sgd", {"lr": 1e-1, "momentum": 0.9}),
+    "sgd_nesterov_wd": ("sgd", {"lr": 1e-1, "momentum": 0.9,
+                                "nesterov": True, "weight_decay": 0.01}),
+    "adagrad": ("adagrad", {"lr": 1e-1}),
+    "rmsprop": ("rmsprop", {"lr": 1e-2, "momentum": 0.9}),
+    "lion": ("lion", {"lr": 1e-3, "weight_decay": 0.1}),
+    "adamw_unfused": ("adamw", {"lr": 1e-2, "weight_decay": 0.1,
+                                "fused": False}),
+    "adam_coupled_unfused": ("adam", {"lr": 1e-2, "weight_decay": 0.1,
+                                      "fused": False}),
+}
+
+
+# Lamb's trust ratio divides two per-leaf norms that the flat step and
+# the reference sum in other orders: a sum of n positive fp32 terms whose
+# order runs d additions serially, then a tree, is within (d + log2(n /
+# d)) * 2**-24 of exact; at up to about 256 serial additions over a
+# 38.6M-element leaf that is 2**-16, covering both norms' square roots.
+LAMB_RATIO_REL = 2.0 ** -16
+
+
+@pytest.mark.parametrize("name", sorted(OPT_CASES))
+def test_optimizer_update_matches_reference_on_the_card(dev, name):
+    """Three updates of a flat group of leaves (35, 4099, 1, 2048
+    elements) with a bf16 cast copy, on CUDA tensors: the masters and
+    every buffer within 4 fp32 ulp of the leaf-by-leaf
+    ``reference_step`` (from the same inputs each step) of the larger
+    operand (Lamb's masters also ``LAMB_RATIO_REL`` of the update), the
+    cast copy bit-equal to the masters' cast, and nothing left the
+    card."""
+    from deepspeed_tpu_torch.ops import optimizers as topt
+    opt_name, kw = OPT_CASES[name]
+    lr = kw["lr"]
+    opt = topt.build_optimizer(opt_name, dict(kw), lambda step: lr)
+    rng = np.random.default_rng(0)
+    shapes = [(7, 5), (4099,), (1,), (32, 64)]
+    leaves = [torch.from_numpy((rng.standard_normal(s) * 0.5).astype(
+        np.float32)).to(dev) for s in shapes]
+    grp = fu.FlatGroup(leaves, torch.float32, dev, torch.bfloat16)
+    st = opt.init([grp])
+    for k in range(3):
+        grp.grad.copy_(torch.from_numpy((rng.standard_normal(grp.numel) *
+                                         0.1).astype(np.float32)))
+        params = [v.clone() for v in grp.views(grp.param)]
+        grads = [v.clone() for v in grp.views(grp.grad)]
+        state = {n: [v.clone() for v in grp.views(b[0])]
+                 for n, b in st.bufs.items()}
+        want_p, want_s = topt.reference_step(opt, params, grads, state, k)
+        st, _, _ = opt.step([grp], st, compute_norm=False)
+        assert all(t.device.type == dev.type for b in st.bufs.values()
+                   for t in b)
+        for got, want, old in zip(grp.views(grp.param), want_p, params):
+            u = np.abs(_np(want) - _np(old))
+            mag = np.maximum.reduce([np.abs(_np(got)), np.abs(_np(want)),
+                                     np.abs(_np(old)), u])
+            err = np.abs(_np(got) - _np(want))
+            if opt_name == "lamb":
+                err = np.maximum(err - u * LAMB_RATIO_REL, 0.0)
+            assert (ulps(mag, mag + err, "fp32") <= 4).all(), (name, k)
+        for n, bufs in st.bufs.items():
+            for got, want, old in zip(grp.views(bufs[0]), want_s[n],
+                                      state[n]):
+                mag = np.maximum.reduce([np.abs(_np(got)),
+                                         np.abs(_np(want)),
+                                         np.abs(_np(old))])
+                assert (ulps(mag, mag + np.abs(_np(got) - _np(want)),
+                             "fp32") <= 4).all(), (name, k, n)
+        assert torch.equal(grp.cast, grp.param.to(torch.bfloat16))
+        assert int(st.count) == k + 1
+
+
+@pytest.mark.parametrize("opt", ["AdamW", "Lamb"])
+def test_trio_on_the_card_is_bit_equal_to_train_batch(dev, opt):
+    """gpt2-tiny bf16 at S 128 (the flash route), dropout 0.1, gas 2: two
+    steps through ``forward``/``backward``/``step`` and two through
+    ``train_batch`` from the same params, batches and seed give the same
+    losses, params, cast copy and optimizer buffers bit for bit, and
+    the same kernel launches a step."""
+    from deepspeed_tpu_torch.ops.optimizers import state_buffers
+    from deepspeed_tpu_torch.ops.fused_update import tree_flatten
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.bfloat16)
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ds = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "bf16": {"enabled": True},
+          "optimizer": {"type": opt,
+                        "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    batches = np.random.default_rng(0).integers(0, 512, (2, 4, 129))
+    engines = [deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg), model_params=params, config=ds,
+        device=dev, rng=5)[0] for _ in range(2)]
+    for b in batches:
+        ops.reset_launch_counts()
+        la = engines[0].train_batch(b)
+        ca = ops.launch_counts()
+        ops.reset_launch_counts()
+        for i in range(2):
+            loss = engines[1].forward(b[2 * i:2 * i + 2])
+            engines[1].backward(loss)
+            engines[1].step()
+        assert ops.launch_counts() == ca
+        assert torch.equal(la, engines[1].last_metrics["loss"])
+    snaps = []
+    for e in engines:
+        st = e.state
+        snaps.append([t.detach() for t in tree_flatten(st.params)[0]] +
+                     tree_flatten(st.cast_params)[0] +
+                     [b for per in state_buffers(st.opt_state).values()
+                      for b in per])
+    for x, y in zip(*snaps):
+        assert torch.equal(x, y)
 
 
 # --------------------------------------------------------------------- #

@@ -18,7 +18,8 @@ entry points.
   passes inf/nan through.
 - Guards: the training modules import no JAX; ``initialize()`` without
   CUDA and without ``device`` raises; every feature the port does not
-  run yet raises ``NotImplementedError``.
+  run yet raises ``NotImplementedError`` (the cases of features ported
+  since, each a build-and-train case now).
 """
 import dataclasses
 import json
@@ -382,9 +383,30 @@ def test_stage3_config_is_accepted():
      "fused: false"),
     ({"optimizer": {"type": "SGD", "params": {}}}, "'sgd' is not ported"),
     ({"optimizer": {"type": "Lamb", "params": {}}}, "'lamb' is not ported"),
-    ({"elasticity": {"enabled": True}}, "elasticity"),
+    ({"elasticity": {"enabled": True, "max_train_batch_size": 2,
+                     "micro_batch_sizes": [1, 2], "min_gpus": 1,
+                     "max_gpus": 1, "ignore_non_elastic_batch_info": True}},
+     "elasticity"),
 ])
 def test_unported_config_raises(extra, match):
+    if match in ("fused: false", "'sgd' is not ported",
+                 "'lamb' is not ported", "elasticity"):
+        # The unfused Adam chain, SGD, Lamb and batch-size elasticity are
+        # ported: the config builds an engine that trains
+        # (tests/test_torch_optimizers.py and tests/test_torch_
+        # elasticity.py hold them against JAX).
+        eng = _init(dict(BASE, **extra))[0]
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and eng.global_steps == 1
+        if match == "elasticity":
+            assert eng.config.elasticity_enabled
+            assert eng.train_micro_batch_size_per_gpu() == 2
+        else:
+            assert type(eng.optimizer).__name__ == {
+                "fused: false": "AdamChain", "'sgd' is not ported": "SGD",
+                "'lamb' is not ported": "Lamb"}[match]
+        return
     if match == "cpu_offload":
         # ZeRO-Offload is ported: the config builds an offload engine
         # that trains (tests/test_torch_offload.py holds it against JAX).
@@ -414,15 +436,23 @@ def test_unported_engine_paths_raise(monkeypatch):
     eng = _init(cfg=dataclasses.replace(CFG, remat_policy="full"))[0]
     assert np.isfinite(float(eng.train_batch(
         np.random.default_rng(0).integers(0, 512, (2, 33)))))
-    with pytest.raises(NotImplementedError, match="client optimizer"):
+    # Client optimizers are ported: a torch.optim class trains; any
+    # other object raises a TypeError (tests/test_torch_optimizers.py).
+    with pytest.raises(TypeError, match="optimizer must be"):
         _init(optimizer=object())
+    eng = _init(optimizer=torch.optim.SGD)[0]
+    assert np.isfinite(float(eng.train_batch(
+        np.random.default_rng(0).integers(0, 512, (2, 33)))))
     with pytest.raises(NotImplementedError, match="no CUDA path"):
         _init(cfg=dataclasses.replace(CFG, fused_kernels=False),
               device="cuda")
+    # The forward/backward/step trio is ported: one window of gas 1
+    # takes a step (tests/test_torch_engine_api.py holds it against JAX).
     eng = _init()[0]
-    for call in (eng.forward, eng.backward, eng.step):
-        with pytest.raises(NotImplementedError, match="forward/backward"):
-            call()
+    loss = eng.forward(np.random.default_rng(0).integers(0, 512, (2, 33)))
+    eng.backward(loss)
+    eng.step()
+    assert np.isfinite(float(loss)) and eng.global_steps == 1
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="call deepspeed_tpu_torch."
                        "init_distributed"):

@@ -24,15 +24,19 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   one), ``perturb`` (ranks above 0 start from parameters moved by
   0.01 * rank: the engine must broadcast rank 0's), ``remat`` (the
   model's ``remat_policy``, default ``none``), ``dropout`` (the model's
-  hidden and attention dropout, default 0), ``out`` (the ``.npz``
+  hidden and attention dropout, default 0), ``trio`` (drive each step
+  through ``forward``/``backward``/``step``, a call per micro-batch of
+  the rank's rows, instead of ``train_batch``), ``out`` (the ``.npz``
   prefix of the results).
 
 Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
 the loss scale the step used, the skipped-step count and a digest of
 the full parameters; after the last step the full parameters (flat,
-tree order, fp32) and this rank's optimizer moment buffers (under
-ZeRO-Offload, ``zero: {"cpu_offload": true}``, its partition of the host
-masters and moments, ``hp{i}``/``hm{i}``/``hv{i}`` a leaf).
+tree order, fp32) and this rank's optimizer buffers by name and group
+(the fused Adam's ``m{g}``/``v{g}``, an optax chain's ``mu{g}``,
+``trace{g}``, ...; under ZeRO-Offload, ``zero: {"cpu_offload": true}``,
+its partition of the host masters and moments, ``hp{i}``/``hm{i}``/
+``hv{i}`` a leaf).
 """
 import dataclasses
 import hashlib
@@ -50,6 +54,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten  # noqa: E402
+from deepspeed_tpu_torch.ops.optimizers import state_buffers  # noqa: E402
 
 MICRO, GAS = 2, 2
 DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
@@ -131,7 +136,14 @@ def run_job(job, world, rank, params):
                            "digest")}
     save = job.get("save")
     for k in range(first, first + steps):
-        loss = eng.train_batch(rank_rows(batches[k], world, rank, micro))
+        rows = rank_rows(batches[k], world, rank, micro)
+        if job.get("trio"):
+            for i in range(GAS):
+                eng.backward(eng.forward(rows[i * micro:(i + 1) * micro]))
+                eng.step()
+            loss = eng.last_metrics["loss"]
+        else:
+            loss = eng.train_batch(rows)
         m = eng.last_metrics
         rec["loss"].append(float(loss))
         rec["grad_norm"].append(float(m["grad_norm"]))
@@ -158,9 +170,9 @@ def run_job(job, world, rank, params):
         out["count"] = np.asarray(off.opt.step_count)
     else:
         st = eng.state.opt_state
-        for gi, (m, v) in enumerate(zip(st.m, st.v)):
-            out[f"m{gi}"] = m.numpy()
-            out[f"v{gi}"] = v.numpy()
+        for name, bufs in state_buffers(st).items():
+            for gi, b in enumerate(bufs):
+                out[f"{name}{gi}"] = b.numpy()
         out["count"] = np.asarray(int(st.count))
     np.savez(f"{job['out']}.rank{rank}.npz", **out)
 
