@@ -147,7 +147,12 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    the launch counts (paths ``train_zero_s1`` .. ``_s3``, both ranks)
    exactly the main path's a step and rank. Printed: each rank's step
    p50 and peak memory (gloo stages every collective through host
-   memory, so those step times are the host's).
+   memory, so those step times are the host's). Then dense stage 0,
+   sparse gradients and 1-bit Adam (freeze_step 2), 4 steps each (paths
+   ``train_zero_s0``, ``_sparse``, ``_onebit``): the ranks' params
+   bit-equal after every step, the sparse step's params bit-equal to
+   dense stage 0's, the ranks' worker errors different after the
+   freeze; printed: ``sparse_comm_stats`` and ``comm_bytes`` a step.
 5f. ``train_offload``: ZeRO-Offload at gpt2-small under
    ``examples/gpt2/ds_config_offload.json`` read from the file (bf16,
    stage 2, the masters and Adam moments in host memory, AdamW 3e-3,
@@ -196,9 +201,22 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    fp32 ulp; Lamb 2^-16 of the update more), the copy bit-equal, timed
    beside its bound and a library yardstick; then ``eval_batch`` at 8 x
    1024 against the train path's loss at dropout 0, and its time.
+5i. ``train_onebit`` (after ``train_api``): 1-bit Adam at gpt2-small
+   under ``examples/gpt2/ds_config_onebit.json`` read from its file
+   (1 x 8 x 1024, bf16, OneBitAdam lr 0.002, freeze_step 20): 20 warmup
+   and 20 compressed steps, each phase its own path (the model's
+   kernels, no K5/K6): the loss falls over the warmup, every loss
+   finite, the variance bit-unchanged after the freeze, no host sync in
+   a compressed step; the fused Adam's engine on the same recipe (10
+   steps) for its step time; 10 fp16 steps past freeze_step 3 (the
+   compressed phase reached); then the flat step over gpt2-small's
+   124,475,904 parameters against ``onebit_reference_step`` in both
+   phases (``ONEBIT_ULP``, the rounding-level signs counted), timed
+   beside the fused Adam's step and ``torch._fused_adamw_``, with its
+   launches and its bound.
 6. The ``{"host_kernels": [...]}`` line (the host Adam), the
-   ``{"optimizers": [...]}`` line (the matrix's steps: ms, bytes,
-   bound, library yardstick), then the ``{"kernels": [...]}`` summary
+   ``{"optimizers": [...]}`` line (the matrix's and 1-bit Adam's steps:
+   ms, bytes, bound, library yardstick), then the ``{"kernels": [...]}`` summary
    line (the sqnorm and fused_adam rows also carry their shard-local
    launches by dp), then the result line ``{"ok": true, "device":
    {...}}``.
@@ -235,6 +253,7 @@ from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import grouped_gemm as gg
+from deepspeed_tpu_torch.ops import onebit as ob
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
@@ -2184,6 +2203,16 @@ def train_checkpoint(dev, smi):
 # Phase 5e: data parallelism and ZeRO 1/2/3 (two ranks on the one card)
 # --------------------------------------------------------------------- #
 ZERO_DP, ZERO_STEPS, ZERO_STAGES = 2, 5, (1, 2, 3)
+# The two stage-0 train steps that replace the grad all-reduce, at dp 2
+# beside the dense stage-0 step they are held against: 1-bit Adam (two
+# warmup steps, two compressed) and sparse gradients (the CSR exchange of
+# wte's grads).
+ZERO_STAGE0_MODES, ZERO_STAGE0_STEPS, ZERO_ONEBIT_FREEZE = \
+    ("s0", "sparse", "onebit"), 4, 2
+# The sparse path's params against dense stage 0's after the run: at dp 2
+# every sum of two terms is the same in either order and the 1/dp is a
+# power of two, so they are held bit-equal.
+SPARSE_VS_DENSE_ATOL = 0.0
 
 
 def _zero_cfg():
@@ -2241,6 +2270,46 @@ def train_zero_rank(rank, spec_path):
                            "moments_sha256": m_digest.hexdigest()}
         del eng
         torch.cuda.empty_cache()
+    for mode in ZERO_STAGE0_MODES:
+        extra = {"train_batch_size": TRAIN_GAS * micro * ZERO_DP,
+                 "zero_optimization": {"stage": 0}}
+        if mode == "sparse":
+            extra["sparse_gradients"] = True
+        if mode == "onebit":
+            extra["optimizer"] = {"type": "OneBitAdam", "params": {
+                "lr": 6e-4, "freeze_step": ZERO_ONEBIT_FREEZE}}
+        eng = make_engine(cfg, "bf16", micro=micro, extra=extra)
+        rec = {"losses": [], "ms": [], "params_sha256": [],
+               "sparse_comm_stats": [], "comm_bytes": []}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for b in local[:ZERO_STAGE0_STEPS]:
+            t0 = time.perf_counter()
+            rec["losses"].append(float(eng.train_batch(b)))
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            digest = hashlib.sha256()
+            for t in tree_flatten(eng.state.params)[0]:
+                digest.update(t.detach().float().cpu().numpy().tobytes())
+            rec["params_sha256"].append(digest.hexdigest())
+            rec["sparse_comm_stats"].append(dict(eng.sparse_comm_stats))
+            rec["comm_bytes"].append(eng.onebit_comm_bytes)
+        torch.cuda.synchronize()
+        rec["counts"] = ops.launch_counts()
+        if mode == "onebit":
+            w = hashlib.sha256()
+            for t in eng.state.opt_state.worker_error:
+                w.update(t.cpu().numpy().tobytes())
+            rec["worker_error_sha256"] = w.hexdigest()
+            rec["worker_error_abs_max"] = max(
+                float(t.abs().max()) for t in eng.state.opt_state.worker_error)
+        if rank == 0 and mode in ("s0", "sparse"):
+            np.save(spec["params"].format(mode=mode),
+                    torch.cat([t.detach().float().reshape(-1) for t in
+                               tree_flatten(eng.state.params)[0]]
+                              ).cpu().numpy())
+        out[mode] = rec
+        del eng
+        torch.cuda.empty_cache()
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2275,7 +2344,8 @@ def train_zero(dev, smi):
                 np.stack([b.numpy() for b in batches]))
         spec = {"store": os.path.join(tmp, "store"),
                 "batches": os.path.join(tmp, "batches.npy"),
-                "out": os.path.join(tmp, "rank{rank}.json")}
+                "out": os.path.join(tmp, "rank{rank}.json"),
+                "params": os.path.join(tmp, "params_{mode}.npy")}
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
         t0 = time.perf_counter()
@@ -2303,6 +2373,8 @@ def train_zero(dev, smi):
         for r in range(ZERO_DP):
             with open(spec["out"].format(rank=r)) as f:
                 res.append(json.load(f))
+        final = {mode: np.load(spec["params"].format(mode=mode))
+                 for mode in ("s0", "sparse")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     expect = per_train_step(cfg)
@@ -2340,6 +2412,45 @@ def train_zero(dev, smi):
                 "card": smi})
     assert rel <= TRAIN_LOSS_RTOL, rec
     emit({"train_zero": rec})
+
+    # 1-bit Adam and sparse gradients at dp 2, beside dense stage 0.
+    no_adam = dict(expect, sqnorm=0, fused_adam_apply=0)
+    stage0 = {"card": smi, "dp": ZERO_DP, "steps": ZERO_STAGE0_STEPS,
+              "onebit_freeze_step": ZERO_ONEBIT_FREEZE}
+    for mode in ZERO_STAGE0_MODES:
+        st = [x[mode] for x in res]
+        assert all(x["params_sha256"] == st[0]["params_sha256"]
+                   for x in st), ("ranks differ after a step", mode)
+        assert all(math.isfinite(l) for l in st[0]["losses"]), mode
+        want = {k: ZERO_STAGE0_STEPS * v for k, v in
+                (no_adam if mode == "onebit" else expect).items()}
+        for x in st:
+            assert x["counts"] == want, (mode, x["counts"], want)
+        counts[f"train_zero_{mode}"] = {
+            k: sum(x["counts"][k] for x in st) for k in st[0]["counts"]}
+        stage0[mode] = {
+            "losses": st[0]["losses"],
+            "step_ms_p50_by_rank": [float(np.median(x["ms"][1:]))
+                                    for x in st],
+            "ranks_bit_equal_every_step": True}
+    ob = [x["onebit"] for x in res]
+    assert ob[0]["worker_error_sha256"] != ob[1]["worker_error_sha256"], \
+        "the ranks' worker errors should differ after the freeze"
+    assert all(x["worker_error_abs_max"] > 0 for x in ob)
+    stage0["onebit"]["comm_bytes_by_step"] = ob[0]["comm_bytes"]
+    stage0["onebit"]["worker_errors_differ"] = True
+    sp = res[0]["sparse"]
+    stage0["sparse"]["sparse_comm_stats_by_step"] = sp["sparse_comm_stats"]
+    diff = float(np.abs(final["sparse"] - final["s0"]).max())
+    stage0["sparse_vs_s0"] = {
+        "max_abs_param_diff": diff,
+        "bit_equal": bool(np.array_equal(final["sparse"], final["s0"])),
+        "losses_equal": sp["losses"] == res[0]["s0"]["losses"],
+        "tolerance": SPARSE_VS_DENSE_ATOL,
+        "why": "two ranks' terms add to the same bits in either order, "
+               "and the 1/dp is a power of two: bit-equal expected"}
+    emit({"train_zero_stage0": stage0})
+    assert diff <= SPARSE_VS_DENSE_ATOL, stage0["sparse_vs_s0"]
     return counts
 
 
@@ -3687,6 +3798,325 @@ def train_api(dev, smi):
     return counts, rows
 
 
+# --------------------------------------------------------------------- #
+# Phase 5i: 1-bit Adam (the example config) and its flat step
+# --------------------------------------------------------------------- #
+ONEBIT_CONFIG = os.path.join("examples", "gpt2", "ds_config_onebit.json")
+ONEBIT_STEPS, ONEBIT_FUSED_STEPS = 40, 10
+ONEBIT_FP16_FREEZE, ONEBIT_FP16_STEPS = 3, 10
+# Ideal bytes a parameter of one flat 1-bit step (fp32 masters and grads,
+# the bf16 cast copy written, 2): warmup g read, p, m, v read and written
+# (28); compressed g, v read, p, m, worker and server errors read and
+# written (40).
+ONEBIT_BYTES = {"warmup": 28 + 2, "compressed": 40 + 2}
+# The flat step against onebit_reference_step: fp32 ulp of the larger
+# operand (of the leaf's largest scale for the error buffers). Warmup 4;
+# compressed 8: the reference sums a chunk in fp32 with torch.sum, the
+# flat step as fp64 prefix sums, and wte's chunk is 38.6M elements, so
+# the reference's scale carries the rounding of a long fp32 reduction
+# (6.0 ulp on an H100 80GB HBM3). A server-side compensated value within
+# ONEBIT_TIE_ULP ulp of the scale of 0 takes its sign at rounding level:
+# such elements are counted and held within the flip bound (2 scales in
+# m and the error, 2.5 lr * scale / (sqrt(v) + eps) in p).
+ONEBIT_ULP, ONEBIT_TIE_ULP = {"warmup": 4.0, "compressed": 8.0}, 16.0
+
+
+def per_onebit_step(cfg, gas):
+    """Launches of one 1-bit train step at ``gas`` micro-batches: the
+    model's kernels (the step itself is plain PyTorch: no K5/K6)."""
+    c = per_train_step(cfg)
+    return {k: 0 if k in ("sqnorm", "fused_adam_apply") else
+            v // TRAIN_GAS * gas for k, v in c.items()}
+
+
+def kernel_launches(fn):
+    """CUDA kernels one call of ``fn`` launches (torch.profiler)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = 0
+    for evt in prof.key_averages():
+        dev_t = getattr(evt, "device_type", "")
+        if "cuda" in str(dev_t).lower():
+            n += evt.count
+    return n
+
+
+def check_onebit_step(dev, gen, cfg, phase, lr):
+    """The flat 1-bit step over gpt2-small's parameters (one fp32 group
+    with a bf16 cast copy, dp 1) against ``onebit_reference_step`` on
+    copies of the same seeded inputs, in ``phase`` (``ONEBIT_ULP``, the
+    ties counted), the copy bit-equal to the masters' cast; then timed
+    in place beside the fused Adam's step (K5 + K6) on the same group and
+    ``torch._fused_adamw_``, with its launches and its bound."""
+    compressed = phase == "compressed"
+    freeze = 20
+    opt = ob.OnebitAdam(lr, freeze_step=freeze, weight_decay=0.01)
+    params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    leaves = [t.float() for t in tree_flatten(params)[0]]
+    del params
+    grp = fu.FlatGroup(leaves, torch.float32, dev, torch.bfloat16)
+    del leaves
+    n = grp.numel
+    st = opt.init([grp], 1)
+
+    def rnd(scale):
+        return scale * torch.randn(n, device=dev, generator=gen)
+    # (the grads' norm under the clip: the coefficient is 1 on both sides)
+    grp.grad.copy_(rnd(1e-5))
+    st.m[0].copy_(rnd(1e-4))
+    st.v[0].copy_(rnd(1e-5) ** 2 + 1e-12)
+    if compressed:
+        st.worker_error[0].copy_(rnd(3e-5))
+        st.server_error[0].copy_(rnd(3e-5))
+    step = freeze if compressed else freeze - 1
+    st = st._replace(step=torch.tensor(step, dtype=torch.int32, device=dev))
+    lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+
+    def views(buf):
+        return [v.clone() for v in grp.views(buf)]
+    p0, g0 = views(grp.param), views(grp.grad)
+    ref_state = ob.OnebitState(st.step.clone(), views(st.m[0]),
+                               views(st.v[0]), views(st.worker_error[0]),
+                               views(st.server_error[0]))
+    want_p, want_s, _ = ob.onebit_reference_step(opt, p0, g0, ref_state,
+                                                 lr_t, clip=1.0)
+    st2, norm, overflow = opt.step([grp], st, lr=lr_t, compressed=compressed,
+                                   clip=1.0)
+    torch.cuda.synchronize()
+    assert not bool(overflow) and int(st2.step) == step + 1
+    err, ties = 0.0, 0
+    got_p, got_m, got_v, got_w, got_s = (
+        grp.views(b) for b in (grp.param, st2.m[0], st2.v[0],
+                               st2.worker_error[0], st2.server_error[0]))
+    for i in range(len(p0)):
+        wm = want_s.m[i]
+        scale = wm.abs().max().clamp_min(1e-30)
+        if compressed:
+            m_local = 0.9 * ref_state.m[i] + (1 - 0.9) * g0[i]
+            sent_scale = (m_local + ref_state.worker_error[i] -
+                          want_s.worker_error[i]).abs().max()
+            comp2 = wm + want_s.server_error[i]
+            ulp_s = torch.exp2(torch.floor(torch.log2(scale)) - 23)
+            tie = comp2.abs() <= ONEBIT_TIE_ULP * ulp_s
+        else:
+            sent_scale = scale
+            tie = torch.zeros_like(wm, dtype=torch.bool)
+        ties += int(tie.sum())
+        flip_p = 2.5 * lr * scale / (torch.sqrt(ref_state.v[i]) + 1e-8)
+        for got, want, old, floor, flip in (
+                (got_p[i], want_p[i], p0[i], None, flip_p),
+                (got_m[i], wm, None, None, 2 * scale),
+                (got_v[i], want_s.v[i], None, None, None),
+                (got_w[i], want_s.worker_error[i], None, sent_scale, None),
+                (got_s[i], want_s.server_error[i], None, scale, 2 * scale)):
+            mag = torch.maximum(got.abs(), want.abs())
+            if old is not None:
+                mag = torch.maximum(mag, old.abs())
+            if floor is not None:
+                mag = torch.clamp_min(mag, float(floor))
+            d = (got - want).abs()
+            if flip is not None and bool(tie.any()):
+                limit = flip[tie] if flip.dim() else flip
+                assert bool((d[tie] <= limit).all()), (phase, i)
+                d = torch.where(tie, torch.zeros_like(d), d)
+            err = max(err, _fp32_ulp_excess(d, torch.zeros_like(d), mag))
+    cast_equal = torch.equal(grp.cast, grp.param.to(torch.bfloat16))
+    del want_p, want_s, p0, g0, ref_state
+    torch.cuda.empty_cache()
+
+    state = [st2]
+
+    def onebit_step():
+        state[0] = opt.step([grp], state[0], lr=lr_t, compressed=compressed,
+                            clip=1.0)[0]
+    launches = kernel_launches(onebit_step)
+    rec = {"name": f"onebit_adam_{phase}", "shape": [n],
+           "max_ulp": err, "rounding_level_signs": ties,
+           "cast_copy_bit_equal": cast_equal,
+           "ms": time_ms(onebit_step, iters=20, warmup=3),
+           "device_ms": device_ms(onebit_step, n=5, reps=4),
+           "launches_per_step": launches}
+    nbytes = ONEBIT_BYTES[phase] * n
+    rec["bytes"] = nbytes
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 0, FP32_FLOPS_PER_S)
+    # the fused Adam (K5 + K6) on the same group, for the same clip
+    fa = topt.FusedAdam(lr, weight_decay=0.01)
+    fst = fa.init([grp])
+
+    def fused_step():
+        fa.step([grp], fst, clip=1.0, compute_norm=True)
+    rec["fused_adam_ms"] = time_ms(fused_step, iters=20, warmup=3)
+    rec["fused_adam_launches_per_step"] = kernel_launches(fused_step)
+    if compressed:
+        rec["library_ms"], rec["library"] = None, None
+    else:
+        p, g = [grp.param], [grp.grad]
+        bufs = [torch.zeros_like(grp.param) for _ in range(2)]
+        steps = [torch.tensor(3.0, device=dev)]
+        rec["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+            p, g, bufs[:1], bufs[1:], [], steps, lr=lr, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False))
+        rec["library"] = ("torch._fused_adamw_ (no clip, no cast copy; a "
+                          "time yardstick)")
+        del p, g, bufs
+    del grp, st, st2, state, fst
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def key_bias_norm(eng, cfg):
+    """The norm of the key third of qkv_bias (its grad is zero in exact
+    arithmetic)."""
+    H = cfg.hidden_size
+    return float(torch.linalg.vector_norm(
+        eng.state.params["blocks"]["qkv_bias"][..., H:2 * H].float()))
+
+
+def train_onebit(dev, smi):
+    """1-bit Adam at gpt2-small (full width and depth) under
+    ``examples/gpt2/ds_config_onebit.json`` read from its file (bf16,
+    train_batch_size 8 at gas 1 x 1024, clip 1.0, OneBitAdam lr 0.002,
+    freeze_step 20, dropout 0.1) on the main path's Markov stream: 40
+    steps, the warmup (``train_onebit_warmup``) and the compressed phase
+    (``train_onebit_compressed``) each its own path. Asserted: every loss
+    finite, the loss falls over the warmup, the variance bit-unchanged
+    across the compressed steps, the worker error nonzero, exact launches
+    (the model's kernels, no K5/K6), no host sync in a compressed step.
+    Then the fused Adam's engine on the same recipe (10 steps) for its
+    step time, and an fp16 run (dynamic scale from 2^20, freeze_step 3,
+    10 steps: the compressed phase reached). Then the flat step against
+    ``onebit_reference_step`` at 124M parameters in both phases, timed
+    beside the fused Adam's step. Returns the launch counts by path and
+    the ``optimizers`` rows."""
+    with open(ONEBIT_CONFIG) as f:
+        ds = json.load(f)
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    gas = ds.get("gradient_accumulation_steps", 1)
+    micro = ds["train_batch_size"] // gas
+    freeze = ds["optimizer"]["params"]["freeze_step"]
+    lr = ds["optimizer"]["params"]["lr"]
+    batches = token_stream(cfg, ONEBIT_STEPS + 1, seed=SEED + 7,
+                           micro=micro // TRAIN_GAS)
+    expect = per_onebit_step(cfg, gas)
+
+    def engine(config):
+        params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(cfg), model_params=params, config=config,
+            rng=SEED)
+        return eng
+
+    counts = {}
+    eng = engine(ds)
+    assert eng._onebit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lw, _, msw, counts["train_onebit_warmup"] = run_path(eng, batches[:freeze])
+    cb_warm = eng.onebit_comm_bytes
+    kb_warm = key_bias_norm(eng, cfg)
+    v_frozen = [t.clone() for t in eng.state.opt_state.v]
+    lc, mc, msc, counts["train_onebit_compressed"] = run_path(
+        eng, batches[freeze:ONEBIT_STEPS])
+    cb_comp = eng.onebit_comm_bytes
+    kb_comp = key_bias_norm(eng, cfg)
+    v_equal = all(torch.equal(a, b) for a, b in
+                  zip(eng.state.opt_state.v, v_frozen))
+    werr_max = max(float(t.abs().max())
+                   for t in eng.state.opt_state.worker_error)
+    peak = torch.cuda.max_memory_allocated()
+    syncs = count_host_syncs(eng, batches[ONEBIT_STEPS:])
+    del eng, v_frozen
+    torch.cuda.empty_cache()
+    # the fused Adam's engine on the same recipe
+    ds_adam = dict(ds, optimizer={"type": "AdamW", "params": {
+        "lr": lr, "weight_decay": 0.0}})
+    eng = engine(ds_adam)
+    la, _, msa, counts["train_onebit_fused_adam_yardstick"] = run_path(
+        eng, batches[:ONEBIT_FUSED_STEPS])
+    del eng
+    torch.cuda.empty_cache()
+    # fp16 with the dynamic scale, past a smaller freeze_step
+    ds16 = dict(ds, bf16={"enabled": False},
+                fp16={"enabled": True, "initial_scale_power": 20},
+                optimizer={"type": "OneBitAdam", "params": {
+                    "lr": lr, "freeze_step": ONEBIT_FP16_FREEZE}})
+    eng = engine(ds16)
+    l16, m16, _, counts["train_onebit_fp16"] = run_path(
+        eng, batches[:ONEBIT_FP16_STEPS])
+    taken16 = int(eng.state.opt_state.step)
+    skipped16 = int(eng.state.skipped_steps)
+    scales16 = [float(m["loss_scale"]) for m in m16]
+    del eng
+    torch.cuda.empty_cache()
+
+    rec = {"model": "gpt2-small", "config": ONEBIT_CONFIG,
+           "batch": [gas, micro, TRAIN_SEQ], "freeze_step": freeze,
+           "steps": ONEBIT_STEPS, "dropout": cfg.hidden_dropout,
+           "losses_warmup": lw, "losses_compressed": lc,
+           "warmup_first5_mean": float(np.mean(lw[:5])),
+           "warmup_last5_mean": float(np.mean(lw[-5:])),
+           "compressed_last5_mean": float(np.mean(lc[-5:])),
+           "step_ms_p50_warmup": float(np.median(msw[1:])),
+           "step_ms_p50_compressed": float(np.median(msc[1:])),
+           "step_ms_p50_fused_adam": float(np.median(msa[1:])),
+           "fused_adam_losses": la,
+           "comm_bytes_per_step": {"warmup": cb_warm,
+                                   "compressed": cb_comp},
+           "launches_per_step": expect,
+           "variance_bit_unchanged_compressed": v_equal,
+           "worker_error_abs_max": werr_max,
+           "key_bias_norm": {"after_warmup": kb_warm,
+                             "after_compressed": kb_comp},
+           "grad_norm_compressed": [float(m["grad_norm"]) for m in mc],
+           "host_syncs_compressed_step": syncs,
+           "peak_memory_gb": peak / 1e9,
+           "fp16": {"freeze_step": ONEBIT_FP16_FREEZE,
+                    "steps": ONEBIT_FP16_STEPS, "losses": l16,
+                    "loss_scales": scales16, "taken": taken16,
+                    "skipped": skipped16},
+           "card": smi}
+    emit({"train_onebit": rec})
+    assert all(math.isfinite(x) for x in lw + lc), rec
+    assert rec["warmup_last5_mean"] < rec["warmup_first5_mean"], rec
+    assert v_equal and werr_max > 0, rec
+    assert syncs["host_syncs"] == 0, syncs
+    assert cb_comp < cb_warm / 16, (cb_warm, cb_comp)
+    for path, steps in (("train_onebit_warmup", freeze),
+                        ("train_onebit_compressed", ONEBIT_STEPS - freeze),
+                        ("train_onebit_fp16", ONEBIT_FP16_STEPS)):
+        assert counts[path] == {k: steps * v for k, v in expect.items()}, \
+            (path, counts[path])
+    # (the compressed phase reached; the warmup's losses finite)
+    assert taken16 > ONEBIT_FP16_FREEZE, rec["fp16"]
+    assert all(math.isfinite(x) for x in l16[:ONEBIT_FP16_FREEZE + 1]), \
+        rec["fp16"]
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = []
+    for phase in ("warmup", "compressed"):
+        r = check_onebit_step(dev, gen, cfg, phase, lr)
+        r.update(route="plain PyTorch over the flat buffers (no TPU "
+                 "kernel: jnp in JAX)",
+                 source="deepspeed_tpu_torch/ops/onebit.py",
+                 replaces="deepspeed_tpu/ops/onebit.py: onebit_adam_update",
+                 section=ds["optimizer"],
+                 losses=lw if phase == "warmup" else lc,
+                 step_ms_p50=rec[f"step_ms_p50_{phase}"],
+                 k5_launches=0, k6_launches=0, card=smi)
+        emit({"train_onebit_step": r})
+        assert r["max_ulp"] <= ONEBIT_ULP[phase] and \
+            r["cast_copy_bit_equal"], r
+        rows.append(r)
+    return counts, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3744,6 +4174,9 @@ def main():
     counts.update(train_remat(dev, smi))
     api_counts, optimizer_rows = train_api(dev, smi)
     counts.update(api_counts)
+    onebit_counts, onebit_rows = train_onebit(dev, smi)
+    counts.update(onebit_counts)
+    optimizer_rows += onebit_rows
     counts.update(train_checkpoint(dev, smi))
     counts.update(train_zero(dev, smi))
     offload_counts, host_counts = train_offload(dev, smi, host_adam)

@@ -36,7 +36,7 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None, rng=None, device=None,
-               zero3_scan=None):
+               zero3_scan=None, sparse_grad_filter=None):
     """Build the training engine (the JAX ``initialize``, non-pipeline
     branch). ``model`` is ``loss_fn(params, batch, rng)`` (for GPT-2,
     ``models.gpt2.gpt2_loss_fn(cfg)``) and ``model_params`` its param
@@ -45,7 +45,10 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
     rounding); ``device`` defaults to CUDA. Across processes, call
     ``init_distributed`` first in each: the engine takes its dp world
     and rank from the default process group, and every rank passes the
-    same ``model_params`` and ``rng``.
+    same ``model_params`` and ``rng``. ``sparse_grad_filter(path_str,
+    leaf) -> bool`` picks the leaves whose grads travel the CSR exchange
+    under ``sparse_gradients`` (the path in ``jax.tree_util.keystr``
+    form); by default the 2-D leaves named like an embedding.
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
@@ -69,7 +72,8 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
                              lr_scheduler=lr_scheduler, mpu=mpu,
                              dist_init_required=dist_init_required,
                              collate_fn=collate_fn, config=cfg, rng=rng,
-                             device=device)
+                             device=device,
+                             sparse_grad_filter=sparse_grad_filter)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

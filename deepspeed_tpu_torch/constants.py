@@ -236,12 +236,26 @@ MESH = "mesh"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_PIPE_PARALLEL_SIZE = "pipe_parallel_size"
 MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
+# Multi-slice scale-out (ICI domains joined by DCN; parsed as the JAX
+# MeshConfig.num_slices, above 1 refused).
+MESH_NUM_SLICES = "slices"
+MESH_NUM_SLICES_DEFAULT = 1
 FLOPS_PROFILER = "flops_profiler"
 FLOPS_PROFILER_ENABLED = "enabled"
 FLOPS_PROFILER_ENABLED_DEFAULT = False
 TELEMETRY = "telemetry"
 TELEMETRY_ENABLED = "enabled"
 TELEMETRY_ENABLED_DEFAULT = False
+# The tensorboard block, an alias of telemetry as in the JAX package
+# (``telemetry.enabled`` defaults to ``tensorboard.enabled``; an explicit
+# telemetry key wins).
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
 
 #############################################
 # Checkpoint (runtime/async_ckpt.py and the engine's save/load): the

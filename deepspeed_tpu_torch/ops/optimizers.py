@@ -84,11 +84,15 @@ class FlatState(NamedTuple):
 
 def state_buffers(state: Any) -> Dict[str, Tuple[torch.Tensor, ...]]:
     """The per-group buffers of an optimizer state by name (the fused
-    Adam's ``m``/``v``)."""
+    Adam's ``m``/``v``; 1-bit Adam's ``m``, ``v``, ``worker_error``,
+    ``server_error``)."""
     if isinstance(state, FusedAdamState):
         return {"m": state.m, "v": state.v}
     if isinstance(state, FlatState):
         return state.bufs
+    from .onebit import STATE_BUFFERS, OnebitState
+    if isinstance(state, OnebitState):
+        return {name: getattr(state, name) for name in STATE_BUFFERS}
     return {}
 
 
@@ -735,9 +739,10 @@ def build_optimizer(name: str, params: Dict[str, Any],
         return cls(learning_rate, b1=betas[0], b2=betas[1], eps=eps,
                    weight_decay=weight_decay, adam_w_mode=adam_w_mode)
     if name == C.ONEBIT_ADAM_OPTIMIZER:
-        raise NotImplementedError(
-            "OnebitAdam is not ported yet (ROADMAP slice 6: parallel axes "
-            "and comm extras)")
+        from .onebit import OnebitAdam
+        return OnebitAdam(learning_rate, b1=betas[0], b2=betas[1], eps=eps,
+                          weight_decay=weight_decay,
+                          freeze_step=int(params.get("freeze_step", 100000)))
     if name == C.LAMB_OPTIMIZER:
         return Lamb(learning_rate, b1=betas[0], b2=betas[1], eps=eps,
                     weight_decay=weight_decay,

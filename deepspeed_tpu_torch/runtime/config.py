@@ -471,6 +471,28 @@ class DeepSpeedConfig:
                                         C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = get(d, C.MEMORY_BREAKDOWN,
                                     C.MEMORY_BREAKDOWN_DEFAULT)
+        # The tensorboard block is an alias of telemetry (the JAX
+        # TelemetryConfig): telemetry.enabled defaults to
+        # tensorboard.enabled, and an explicit telemetry key wins.
+        tb = d.get(C.TENSORBOARD, {})
+        self.tensorboard_enabled = get(tb, C.TENSORBOARD_ENABLED,
+                                       C.TENSORBOARD_ENABLED_DEFAULT)
+        self.tensorboard_output_path = get(
+            tb, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = get(tb, C.TENSORBOARD_JOB_NAME,
+                                        C.TENSORBOARD_JOB_NAME_DEFAULT)
+        self.telemetry_enabled = get(d.get(C.TELEMETRY, {}),
+                                     C.TELEMETRY_ENABLED,
+                                     bool(self.tensorboard_enabled))
+        # mesh.slices (the JAX MeshConfig.num_slices): ICI domains
+        # joined by DCN.
+        self.mesh_num_slices = get(d.get(C.MESH, {}), C.MESH_NUM_SLICES,
+                                   C.MESH_NUM_SLICES_DEFAULT)
+        if not isinstance(self.mesh_num_slices, int) or \
+                self.mesh_num_slices < 1:
+            raise DeepSpeedConfigError(
+                f"{C.MESH}.{C.MESH_NUM_SLICES} must be a positive int "
+                f"(ICI domains the mesh spans), got {self.mesh_num_slices!r}")
         # Mode-specific defaults filled, unknown modes and keys rejected at
         # config time, as in the JAX package; sparsity_config_from_dict()
         # turns the dict into the layout object the attention consumes.
@@ -597,10 +619,11 @@ class DeepSpeedConfig:
              "(the host partition follows each leaf's axis, the stage-3 "
              "parameters are rows of the V-interleaved layout)",
              "queue 1: stage 3 + offload at dp > 1"),
-            (bool(self.sparse_gradients_enabled), "sparse_gradients",
-             "slice 6: parallel axes and comm extras"),
-            (self.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER,
-             "OnebitAdam", "slice 6: parallel axes and comm extras"),
+            (self.mesh_num_slices > 1,
+             f"mesh.slices = {self.mesh_num_slices} (multi-slice scale-out "
+             "and its hierarchical ICI/DCN gradient sync)",
+             "slice 6: parallel axes and comm extras, queue 1 item 7: "
+             "parallel/multislice.py"),
             ((d.get(C.PIPELINE, {}).get(C.PIPELINE_STAGES) or 1) > 1 or
              (mesh.get(C.MESH_PIPE_PARALLEL_SIZE) or 1) > 1,
              "pipeline parallelism", "slice 6: parallel axes and comm extras"),
@@ -614,9 +637,10 @@ class DeepSpeedConfig:
             (bool(d.get(C.FLOPS_PROFILER, {}).get(
                 C.FLOPS_PROFILER_ENABLED, C.FLOPS_PROFILER_ENABLED_DEFAULT)),
              "flops_profiler", "slice 6: observability and tooling"),
-            (bool(d.get(C.TELEMETRY, {}).get(
-                C.TELEMETRY_ENABLED, C.TELEMETRY_ENABLED_DEFAULT)),
-             "telemetry", "slice 6: observability and tooling"),
+            (bool(self.telemetry_enabled),
+             "telemetry" + (" (enabled through the tensorboard block, its "
+                            "alias)" if C.TELEMETRY not in d else ""),
+             "slice 6: observability and tooling"),
         ]
         return [(name, where) for on, name, where in checks if on]
 

@@ -105,12 +105,30 @@ partition axis, the params all-gathered back); stage 3 with offload at
 dp > 1 raises. The checkpoint is the JAX offload layout: ``{"offload":
 state}`` in the optimizer file and the fp32 masters as the module.
 
+The two stage-0 train steps that replace the grad all-reduce (the JAX
+engine's ``_build_onebit_train_step`` and sparse-gradient step):
+
+- 1-bit Adam (``OneBitAdam``, ``ops/onebit.OnebitAdam``): the same
+  micro-steps, then no grad all-reduce: the warmup all-reduces the grads
+  (mean) inside the optimizer's step, the compression stage only the
+  compressed momentum. Whether a step compresses is known on the host
+  from an upper bound on the step count, read off the card once, when
+  the bound reaches ``freeze_step``. ``train_batch`` only, ZeRO stage 0,
+  fp32 masters; ``onebit_comm_bytes`` is the step's payload a rank in
+  the packed wire's accounting. The checkpoint is the JAX layout of its
+  ``OnebitState`` (the worker error a rank's, on a leading [dp] axis).
+- sparse gradients (``sparse_gradients``): at dp > 1 the marked
+  embedding leaves' grads skip the all-reduce and travel as CSR rows
+  (``_csr_exchange``: the row counts read on the host, the path's host
+  syncs); the dense leaves are all-reduced; then the optimizer's step.
+  At dp 1 the main path runs, as in JAX.
+
 What the port does not run yet raises ``NotImplementedError``, naming
 the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
 dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
-parallel axes, OnebitAdam and sparse gradients, MoE expert parallelism
-(ep > 1), a ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks,
-the trio under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
+parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
+``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
+under ZeRO-Offload, telemetry, and ``fused_kernels=False`` on CUDA.
 """
 from __future__ import annotations
 
@@ -128,6 +146,7 @@ from .async_ckpt import (AsyncCheckpointer, CheckpointSnapshot,
                          LATEST_FILE, META_FILE, PreemptSaver,
                          commit_snapshot, crash_point, is_complete)
 from .config import DeepSpeedConfig
+from .csr_tensor import CSRTensor, all_gather_csr
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, update_loss_scale
 from .flax_msgpack import msgpack_restore, msgpack_serialize
@@ -145,6 +164,7 @@ from ..parallel.topology import dp_rank, dp_world_size
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.partition import describe_sharding, row_plan
 from .zero.stage3 import _gather, gather_tree, regather_saved
+from ..ops.onebit import OnebitAdam, OnebitState, step_comm_bytes
 from ..ops.optimizers import (COUNT, FusedAdam, FlatState, TorchOptimizer,
                               build_optimizer, client_optimizer,
                               state_buffers)
@@ -186,6 +206,20 @@ def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
         return [p for i, t in enumerate(tree)
                 for p in _leaf_paths(t, f"{prefix}{i}/")]
     return [prefix[:-1]]
+
+
+def _keystr_paths(tree: Any, prefix: str = "") -> List[str]:
+    """The leaves' key paths in ``jax.tree_util.keystr`` form
+    (``"['blocks']['qkv_kernel']"``, a sequence index as ``[0]``), in
+    ``tree_flatten`` order: what a ``sparse_grad_filter`` receives, so
+    that one filter serves both packages."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _keystr_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _keystr_paths(t, f"{prefix}[{i}]")]
+    return [prefix]
 
 
 def _host_copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -319,7 +353,9 @@ class DeepSpeedEngine:
                  config: Union[str, Dict[str, Any], DeepSpeedConfig,
                                None] = None,
                  rng: Union[int, torch.Generator, None] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 sparse_grad_filter: Optional[Callable[[str, Any],
+                                                       bool]] = None):
         self.device = resolve_device(device)
         # One process per card: the dp world and rank are the default
         # process group's (parallel/comm.init_distributed).
@@ -411,11 +447,27 @@ class DeepSpeedEngine:
             not self._master_free
         master_dtype = torch.bfloat16 if self._master_free \
             else torch.float32
-        if self._master_free and offload:
+        # 1-bit Adam (ops/onebit.py): its own train step at ZeRO stage 0.
+        self._onebit = isinstance(optimizer, OnebitAdam) or (
+            optimizer is None and
+            self.config.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER)
+        if self._master_free and (
+                offload or self._onebit or
+                self.config.sparse_gradients_enabled):
             raise ValueError(
                 "bf16.stochastic_rounding (master-free mode) composes with "
                 "the main train path only — onebit/offload/sparse_gradients "
                 "keep their own master-weight story")
+        if self._onebit and self.zero_optimization_stage() >= 1:
+            raise ValueError(
+                "OnebitAdam composes with ZeRO stage 0 only (reference: "
+                "it is an fp16-wrapper-level optimizer, not a ZeRO one)")
+        if self.config.zero_config.dcn_compression and \
+                self.config.mesh_num_slices <= 1:
+            raise ValueError(
+                "zero_optimization.dcn_compression requires a multi-"
+                "slice mesh (mesh.slices > 1 / build_mesh(slices=...)): "
+                "there is no DCN hop to compress on a single slice")
 
         # LR schedule: a pure function of the step (a device tensor).
         opt_params = dict(self.config.optimizer_params or {})
@@ -533,10 +585,13 @@ class DeepSpeedEngine:
                 params=tree_unflatten(self._treedef, param_views),
                 opt_state=None, **self._offload_scalars())
         else:
+            # (1-bit Adam chunks its compression by dp)
+            opt_state = self.optimizer.init(self._opt_groups, self.dp) \
+                if self._onebit else self.optimizer.init(self._opt_groups)
             self.state = EngineState(
                 step=torch.zeros((), **i32),
                 params=tree_unflatten(self._treedef, param_views),
-                opt_state=self.optimizer.init(self._opt_groups),
+                opt_state=opt_state,
                 loss_scale=torch.tensor(sc["init_scale"],
                                         dtype=torch.float32, device=dev),
                 growth_count=torch.zeros((), **i32),
@@ -556,6 +611,28 @@ class DeepSpeedEngine:
         self._trio: Optional[_Window] = None
         self._trio_pending: Optional[Tuple[Any, Any, Any]] = None
         self._eval_count = 0
+        # 1-bit Adam's phase on the host: the step count last read off
+        # the card, the steps tried since (an upper bound on the count
+        # without a read), and whether the count passed freeze_step
+        # (for good: it never falls). The last step's comm_bytes.
+        self._onebit_known = 0
+        self._onebit_pending = 0
+        self._onebit_frozen = False
+        self.onebit_comm_bytes: Optional[int] = None
+        if self._onebit:
+            log_dist("OnebitAdam: uncompressed warmup uses standard Adam "
+                     f"for {self.optimizer.freeze_step} steps, then the "
+                     "error-feedback compressed momentum exchange",
+                     ranks=[0])
+
+        # Sparse (CSR) embedding gradients: at dp > 1 the marked leaves'
+        # grads travel the CSR exchange instead of the all-reduce.
+        self._sparse_idx: List[int] = []
+        self._sparse_names: List[str] = []
+        self._dense_runs: List[List[Tuple[int, int]]] = []
+        self.sparse_comm_stats: Dict[str, int] = {}
+        if self.config.sparse_gradients_enabled:
+            self._init_sparse_gradients(sparse_grad_filter)
 
         # The base seed of the per-step random stream (step_generator).
         if isinstance(rng, torch.Generator):
@@ -771,10 +848,17 @@ class DeepSpeedEngine:
                     buf.copy_(_as_tensor(src))
             sc = self._scaler_kw
             i32 = dict(dtype=torch.int32, device=dev)
+            count = torch.tensor(int(opt_state.count), **i32)
+            if self._onebit:
+                opt = self.state.opt_state._replace(step=count)
+                self._onebit_known = int(opt_state.count)
+                self._onebit_pending = 0
+                self._onebit_frozen = False
+            else:
+                opt = self.state.opt_state._replace(count=count)
             self.state = self.state.replace(
                 step=torch.tensor(int(step), **i32),
-                opt_state=self.state.opt_state._replace(
-                    count=torch.tensor(int(opt_state.count), **i32)),
+                opt_state=opt,
                 loss_scale=self.state.loss_scale if loss_scale is None
                 else torch.tensor(float(loss_scale), dtype=torch.float32,
                                   device=dev),
@@ -989,6 +1073,10 @@ class DeepSpeedEngine:
             return self._train_step_offload(micro_batches, step)
         win = self._open_window(step)
         self._micro_steps(micro_batches, win, self.state.loss_scale)
+        if self._onebit:
+            return self._apply_onebit(win)
+        if self._sparse_idx and self.dp > 1:
+            return self._apply_sparse(win)
         return self._apply_window(win)
 
     def _apply_window(self, win: "_Window") -> Dict[str, torch.Tensor]:
@@ -1038,6 +1126,192 @@ class DeepSpeedEngine:
         return metrics
 
     # ------------------------------------------------------------------ #
+    # 1-bit Adam (ZeRO stage 0; JAX _build_onebit_train_step)
+    # ------------------------------------------------------------------ #
+    def _onebit_phase(self) -> bool:
+        """Whether this step is in the compression stage. The step count
+        lives on the card and an overflow-skipped step does not advance
+        it, so the host holds an upper bound (the count last read plus
+        the steps tried since): while the bound says warmup, no read;
+        once it reaches ``freeze_step`` the count is read (one host
+        sync), and past the freeze every later step compresses."""
+        if self._onebit_frozen:
+            return True
+        freeze = self.optimizer.freeze_step
+        if self._onebit_known + self._onebit_pending + 1 <= freeze:
+            return False
+        self._onebit_known = int(self.state.opt_state.step)
+        self._onebit_pending = 0
+        self._onebit_frozen = self._onebit_known + 1 > freeze
+        return self._onebit_frozen
+
+    def _apply_onebit(self, win: "_Window") -> Dict[str, torch.Tensor]:
+        """1-bit Adam's step closing a window: the warmup all-reduces the
+        grads (mean), the compression stage only the compressed momentum
+        (``ops/onebit.OnebitAdam.step``); the loss all-reduced for the
+        report; the overflow bookkeeping and the loss scale as on the
+        main path. ``onebit_comm_bytes`` is the step's payload a rank in
+        the packed wire's accounting (the wire itself stays fp32)."""
+        st = self.state
+        scale = st.loss_scale
+        compressed = self._onebit_phase()
+        with torch.no_grad():
+            inv = (1.0 / scale) if self.config.fp16_enabled else None
+            lr = self.optimizer.lr_at(st.step)
+            opt_state, grad_norm, overflow = self.optimizer.step(
+                self._groups, st.opt_state, lr=lr, compressed=compressed,
+                clip=self.gradient_clipping(), inv_scale=inv,
+                all_reduce=comm.all_reduce if self.dp > 1 else None)
+            mean_loss = win.mean_loss
+            if self.dp > 1:
+                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+            self.state = st.replace(
+                opt_state=opt_state,
+                **_overflow_resolution(st, overflow, **self._scaler_kw))
+        self._onebit_pending += 1
+        self.onebit_comm_bytes = step_comm_bytes(
+            [int(np.prod(s, dtype=np.int64)) for s in self._leaf_shapes],
+            self.dp, compressed)
+        metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
+                   "loss_scale": scale, "overflow": overflow,
+                   "skipped_steps": self.state.skipped_steps}
+        self._moe_means(metrics, win.moe_sum, win.gas)
+        return metrics
+
+    # ------------------------------------------------------------------ #
+    # Sparse (CSR) embedding gradients (ZeRO stage 0, dp > 1)
+    # ------------------------------------------------------------------ #
+    def _init_sparse_gradients(self, sparse_grad_filter) -> None:
+        """Mark the parameter leaves whose grads travel the CSR exchange:
+        by default the 2-D leaves whose path contains "embed" or "wte";
+        ``sparse_grad_filter(path_str, leaf) -> bool`` (the path in
+        ``jax.tree_util.keystr`` form) overrides it. The exchange runs at
+        dp > 1 only; at dp 1 the main path runs, as in JAX."""
+        if self.zero_optimization_stage() >= 1:
+            raise ValueError(
+                "sparse_gradients requires ZeRO stage 0: under ZeRO grads "
+                "are born dp-sharded and the dense reduce-scatter already "
+                "ships 1/dp of every tensor")
+        if self._onebit:
+            raise ValueError(
+                "sparse_gradients does not compose with OnebitAdam (the "
+                "compressed momentum exchange replaces the grad allreduce)")
+
+        def default(path, leaf):
+            p = path.lower()
+            return getattr(leaf, "ndim", 0) == 2 and \
+                ("embed" in p or "wte" in p)
+
+        filt = sparse_grad_filter or default
+        leaves = tree_flatten(self.state.params)[0]
+        for i, (path, leaf) in enumerate(zip(
+                _keystr_paths(self.state.params), leaves)):
+            if bool(filt(path, leaf)):
+                self._sparse_idx.append(i)
+                self._sparse_names.append(path)
+        if not self._sparse_idx:
+            logger.warning("sparse_gradients enabled but no param leaf "
+                           "matched the embedding predicate — dense "
+                           "allreduce will be used for everything")
+            return
+        # Each group's runs of dense leaves (contiguous ranges of its
+        # grad buffer), all-reduced a run at a time.
+        sparse = set(self._sparse_idx)
+        for grp, idxs in zip(self._groups, self._group_leaves):
+            runs: List[Tuple[int, int]] = []
+            for i, off, n in zip(idxs, grp.offsets, grp.sizes):
+                if i in sparse:
+                    continue
+                if runs and runs[-1][0] + runs[-1][1] == off:
+                    runs[-1] = (runs[-1][0], runs[-1][1] + n)
+                else:
+                    runs.append((off, n))
+            self._dense_runs.append(runs)
+        for n in self._sparse_names:
+            log_dist(f"Will convert {n} to sparse (csr) tensor during "
+                     "training", ranks=[0])
+
+    def _apply_sparse(self, win: "_Window") -> Dict[str, torch.Tensor]:
+        """The step closing a window at dp > 1 with sparse leaves: the
+        dense leaves' grads all-reduced (mean) and unscaled, the sparse
+        leaves' through the CSR exchange (``_csr_exchange``, unscaled
+        there), then the optimizer's step with nothing left to unscale
+        (norm, fp16 vote, clip, update, skip), the overflow bookkeeping
+        and the loss scale. A non-finite value that the exchange
+        gathered makes the norm non-finite: the vote spans both kinds of
+        leaves."""
+        st = self.state
+        scale = st.loss_scale
+        fp16 = self.config.fp16_enabled
+        clip = self.gradient_clipping()
+        with torch.no_grad():
+            inv = (1.0 / scale) if fp16 else None
+            mult = torch.full((), 1.0 / self.dp, dtype=torch.float32,
+                              device=self.device)
+            if inv is not None:
+                mult = mult * inv
+            for grp, runs in zip(self._groups, self._dense_runs):
+                for off, n in runs:
+                    run = grp.grad.narrow(0, off, n)
+                    comm.all_reduce(run)
+                    run.mul_(mult)
+            shipped, dense_n = self._csr_exchange(inv)
+            mean_loss = comm.all_reduce(win.mean_loss.clone()) / self.dp
+            opt_state, grad_norm, overflow = self.optimizer.step(
+                self._opt_groups, st.opt_state, clip=clip, inv_scale=None,
+                fp16=fp16, compute_norm=bool(clip and clip > 0) or fp16)
+            lr = self.optimizer.lr_at(st.step)
+            self.state = st.replace(
+                opt_state=opt_state,
+                **_overflow_resolution(st, overflow, **self._scaler_kw))
+        self.sparse_comm_stats = {"sparse_elements": int(shipped),
+                                  "dense_elements": int(dense_n)}
+        metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
+                   "loss_scale": scale, "overflow": overflow,
+                   "skipped_steps": self.state.skipped_steps}
+        self._moe_means(metrics, win.moe_sum, win.gas)
+        return metrics
+
+    def _csr_exchange(self, inv: Optional[torch.Tensor]) -> Tuple[int, int]:
+        """Replace each sparse leaf's local grads with the dp mean of
+        every rank's, through CSR: this rank's nonzero rows, an all-gather
+        of the row counts, then of the rows' indices and values padded to
+        the largest count, the ranks' rows coalesced in rank order,
+        unscaled (fp16), densified and divided by dp (the JAX
+        ``_csr_exchange``). The counts are read on the host: the path's
+        host syncs. Returns ``(elements shipped, dense elements)``, the
+        elements over every rank."""
+        shipped = dense_n = 0
+        dev = self.device
+        for i in self._sparse_idx:
+            g = self._grad_views[i]
+            local = CSRTensor.from_dense(g)
+            n_local = local.row_indices.numel()
+            counts = comm.all_gather(torch.full((1,), n_local,
+                                                dtype=torch.int64,
+                                                device=dev)).tolist()
+            width = max(counts)
+            dense_n += g.numel()
+            if width == 0:
+                g.zero_()
+                continue
+            idx = torch.zeros(width, dtype=torch.int64, device=dev)
+            val = torch.zeros((width, g.shape[1]), dtype=g.dtype,
+                              device=dev)
+            idx[:n_local] = local.row_indices
+            val[:n_local] = local.values
+            idx_all = comm.all_gather(idx).view(self.dp, width)
+            val_all = comm.all_gather(val).view(self.dp, width, g.shape[1])
+            shards = [CSRTensor(idx_all[r, :c], val_all[r, :c],
+                                tuple(g.shape)) for r, c in enumerate(counts)]
+            shipped += sum(s.sparse_size() for s in shards)
+            merged = all_gather_csr(shards)
+            vals = merged.values if inv is None else merged.values * inv
+            g.copy_(CSRTensor(merged.row_indices, vals,
+                              merged.dense_shape).to_dense() / self.dp)
+        return shipped, dense_n
+
+    # ------------------------------------------------------------------ #
     # The reference's forward/backward/step trio, and eval
     # ------------------------------------------------------------------ #
     def forward(self, batch: Any) -> torch.Tensor:
@@ -1048,6 +1322,7 @@ class DeepSpeedEngine:
         in sequence, as ``train_batch``'s do, so a window of gas trio
         calls updates the parameters bit for bit as ``train_batch`` on
         the same rows. Returns the raw loss, detached."""
+        self._refuse_trio_onebit()
         if self._offload is not None:
             raise _unported(
                 "the forward/backward/step trio under zero_optimization."
@@ -1079,6 +1354,7 @@ class DeepSpeedEngine:
         reduction across ranks runs at the boundary (``step``);
         ``allreduce_gradients`` is accepted for the reference's
         signature."""
+        self._refuse_trio_onebit()
         if self._trio_pending is None:
             raise AssertionError("call forward() before backward()")
         scaled, inputs, returned = self._trio_pending
@@ -1096,6 +1372,7 @@ class DeepSpeedEngine:
         """At a gradient-accumulation boundary, the optimizer step over
         the window's gradients (the tail of ``train_batch``); elsewhere a
         no-op, as the reference gates it."""
+        self._refuse_trio_onebit()
         if self.micro_steps % self.gradient_accumulation_steps() != 0:
             return
         if self._trio is None or self._trio.done == 0:
@@ -1105,6 +1382,13 @@ class DeepSpeedEngine:
                                "has not run")
         win, self._trio = self._trio, None
         self._finish_step(self._apply_window(win))
+
+    def _refuse_trio_onebit(self) -> None:
+        if self._onebit:
+            raise NotImplementedError(
+                "OnebitAdam supports train_batch() only: the compressed "
+                "allreduce lives inside the fused step, which the "
+                "forward/backward/step split cannot drive")
 
     def is_gradient_accumulation_boundary(self) -> bool:
         return (self.micro_steps + 1) % \
@@ -1601,6 +1885,10 @@ class DeepSpeedEngine:
             del meta["fused_moment_layout"]
             return self._snapshot_offload(save_dir, str(tag), save_latest,
                                           meta)
+        if self._onebit:
+            del meta["fused_moment_layout"]
+            return self._snapshot_onebit(save_dir, str(tag), save_latest,
+                                         meta)
 
         if not isinstance(self.optimizer, FusedAdam):
             # (a torch.optim optimizer raises here: no JAX layout)
@@ -1899,7 +2187,9 @@ class DeepSpeedEngine:
             if blobs is None:
                 return None, {}
             G = len(self._opt_groups)
-            if not fused:
+            if self._onebit:
+                opt_state = self._onebit_state(path, meta, blobs)
+            elif not fused:
                 opt_state = self._optax_state(path, self._assemble_shards(
                     blobs, meta["optim_shard_axes"],
                     self._optax_leaf_count()))
@@ -1959,6 +2249,143 @@ class DeepSpeedEngine:
                 "fit this engine's parameter groups — the model or "
                 f"its precision changed since the save ({e})") from e
         return opt_state
+
+    # ------------------------------------------------------------------ #
+    # 1-bit Adam checkpoints (the JAX engine's OnebitState layout)
+    # ------------------------------------------------------------------ #
+    def _group_bufs_to_leaves(self, bufs: List[torch.Tensor]
+                              ) -> List[torch.Tensor]:
+        """Per-group flat buffers → their leaves in tree order (views)."""
+        out: List[Any] = [None] * len(self._leaf_shapes)
+        for grp, idxs, buf in zip(self._groups, self._group_leaves, bufs):
+            for i, view in zip(idxs, grp.views(buf)):
+                out[i] = view
+        return out
+
+    def _leaves_to_group_bufs(self, leaves: List[Any]
+                              ) -> Tuple[torch.Tensor, ...]:
+        """Leaves in tree order → fp32 per-group flat buffers (host)."""
+        out = []
+        for grp, idxs in zip(self._groups, self._group_leaves):
+            buf = torch.zeros(grp.numel, dtype=torch.float32)
+            for view, i in zip(grp.views(buf), idxs):
+                view.copy_(_as_tensor(leaves[i]).to(torch.float32))
+            out.append(buf)
+        return tuple(out)
+
+    def _snapshot_onebit(self, save_dir: str, tag: str, save_latest: bool,
+                         meta: Dict[str, Any]) -> CheckpointSnapshot:
+        """1-bit Adam's checkpoint in the JAX layout: the optimizer files
+        hold ``tree_leaves`` of the ``OnebitState`` — the step, then the
+        m, v, worker-error and server-error leaves in tree order — with
+        the worker error's leading [dp] axis split over the files (file
+        r holds rank r's ``[1, *shape]`` leaves) and the rest whole in
+        file 0. Every rank's worker error is gathered to rank 0 here
+        (collective), which writes alone."""
+        st = self.state
+        opt = st.opt_state
+        dp = self.dp
+        scalars = torch.stack([
+            opt.step.to(torch.int32), st.step.to(torch.int32),
+            st.loss_scale.to(torch.float32).view(torch.int32),
+            st.growth_count.to(torch.int32), st.hysteresis.to(torch.int32),
+            st.skipped_steps.to(torch.int32)])
+        G = len(self._groups)
+        werr = [comm.gather(b) for b in opt.worker_error] if dp > 1 \
+            else [[b] for b in opt.worker_error]
+        is_writer = self.dp_rank == 0
+        if not is_writer:
+            self.skipped_steps = int(st.skipped_steps)
+            return CheckpointSnapshot(
+                save_dir=save_dir, tag=tag, save_latest=save_latest,
+                meta=meta, blobs=[], is_writer=False,
+                fsync=self._ckpt_fsync)
+        whole = [g.param for g in self._groups] + list(opt.m) + \
+            list(opt.v) + list(opt.server_error)
+        host = _host_copies(whole + [t for per in werr for t in per] +
+                            [scalars])
+        sc = host[-1].numpy()
+        count, step_v, growth_v, hyst_v, skipped_v = (
+            np.array(sc[i]) for i in (0, 1, 3, 4, 5))
+        self.skipped_steps = int(skipped_v)
+        meta["skipped_steps"] = self.skipped_steps
+        scalars_blob = {"step": step_v,
+                        "loss_scale": np.array(sc[2:3].view(np.float32)[0]),
+                        "growth_count": growth_v, "hysteresis": hyst_v,
+                        "skipped": skipped_v}
+        params = tree_unflatten(self._treedef,
+                                self._group_bufs_to_leaves(host[:G]))
+        m, v, serr = (self._group_bufs_to_leaves(host[k * G:(k + 1) * G])
+                      for k in (1, 2, 3))
+        rows = host[4 * G:-1]
+        # (rank r's worker-error leaves, as [1, *shape])
+        werr_by_rank = [[t.unsqueeze(0) for t in self._group_bufs_to_leaves(
+            [rows[gi * dp + r] for gi in range(G)])] for r in range(dp)]
+        L = len(self._leaf_shapes)
+        meta["optim_shards"] = dp
+        meta["optim_shard_axes"] = [None] * (1 + 2 * L) + [0] * L + \
+            [None] * L
+
+        def model_blob() -> bytes:
+            return msgpack_serialize({"module": params})
+
+        def optim_blob(r: int) -> bytes:
+            blob: Dict[str, Any] = {}
+            for j, t in enumerate(werr_by_rank[r]):
+                blob[str(1 + 2 * L + j)] = t
+            if r == 0:
+                blob["0"] = np.asarray(count, np.int32)
+                for k, leaves in ((1, m), (1 + L, v), (1 + 3 * L, serr)):
+                    for j, t in enumerate(leaves):
+                        blob[str(k + j)] = t
+                blob["__scalars__"] = scalars_blob
+            return msgpack_serialize(blob)
+
+        blobs: List[Any] = [(MODEL_FILE, model_blob)]
+        blobs += [(OPTIM_SHARD_FMT.format(r), lambda r=r: optim_blob(r))
+                  for r in range(dp)]
+        return CheckpointSnapshot(
+            save_dir=save_dir, tag=tag, save_latest=save_latest, meta=meta,
+            blobs=blobs, is_writer=True, fsync=self._ckpt_fsync)
+
+    def _onebit_state(self, path: str, meta: Dict[str, Any],
+                      blobs: List[Any]) -> OnebitState:
+        """1-bit Adam's state from the joined optimizer files: this
+        rank's row of the joined worker error when the save's dp is this
+        engine's; under another dp the current (fresh) worker error is
+        kept with a warning, as the JAX engine keeps a leaf whose saved
+        shape differs."""
+        L = len(self._leaf_shapes)
+        leaves = self._assemble_shards(blobs, meta["optim_shard_axes"],
+                                       1 + 4 * L)
+        paths = _leaf_paths(self.state.params)
+        for k, name in enumerate(("m", "v")):
+            for j, (x, shape) in enumerate(zip(
+                    leaves[1 + k * L:1 + (k + 1) * L], self._leaf_shapes)):
+                if tuple(np.shape(x)) != tuple(shape):
+                    raise ValueError(
+                        f"checkpoint {path}: the saved {name} leaf "
+                        f"{paths[j]} is {tuple(np.shape(x))}, this model's "
+                        f"{tuple(shape)} — the model changed since the save")
+        werr_saved = leaves[1 + 2 * L:1 + 3 * L]
+        werr_leaves: List[Any] = []
+        cur = self._group_bufs_to_leaves(list(
+            self.state.opt_state.worker_error))
+        for j, (x, shape) in enumerate(zip(werr_saved, self._leaf_shapes)):
+            if tuple(np.shape(x)) == (self.dp,) + tuple(shape):
+                werr_leaves.append(np.asarray(x)[self.dp_rank])
+            else:
+                logger.warning(
+                    f"checkpoint leaf {1 + 2 * L + j}: saved shape "
+                    f"{tuple(np.shape(x))} != current "
+                    f"{(self.dp,) + tuple(shape)}; keeping current value")
+                werr_leaves.append(cur[j].detach().cpu())
+        return OnebitState(
+            step=np.int32(np.asarray(leaves[0])),
+            m=self._leaves_to_group_bufs(leaves[1:1 + L]),
+            v=self._leaves_to_group_bufs(leaves[1 + L:1 + 2 * L]),
+            worker_error=self._leaves_to_group_bufs(werr_leaves),
+            server_error=self._leaves_to_group_bufs(leaves[1 + 3 * L:]))
 
     def _optax_leaf_count(self) -> int:
         layout = self.optimizer.jax_layout()

@@ -36,7 +36,10 @@ policy bit-equal to ``none``, with the forward kernels' launches
 rising as the policy says; each optimizer of the matrix (plain PyTorch
 over the flat buffers) within 4 fp32 ulp of its leaf-by-leaf reference
 step on CUDA tensors, the cast copy bit-equal; the trio bit-equal to
-``train_batch`` on gpt2-tiny bf16 with dropout 0.1.
+``train_batch`` on gpt2-tiny bf16 with dropout 0.1; 1-bit Adam's flat
+step in both phases within 4 fp32 ulp of ``onebit_reference_step`` (the
+error buffers of their leaf's scale); the CSR round trip and a three-
+shard gather on CUDA tensors bit-equal to the CPU's.
 """
 import dataclasses
 
@@ -1310,3 +1313,83 @@ def test_moe_train_batch_on_the_card_matches_the_cpu(dev):
         assert sum(c[4].values()) == 0
         assert g[4]["grouped_matmul"] == 7 * L * 2
         assert g[4]["fused_bias_gelu"] == g[4]["bias_gelu_backward"] == 0
+
+
+@pytest.mark.parametrize("phase", ["warmup", "compressed"])
+def test_onebit_step_matches_reference_on_the_card(dev, phase):
+    """1-bit Adam's flat step (``ops/onebit.OnebitAdam``) over a group of
+    leaves (35, 4099, 1, 2048 elements) with a bf16 cast copy, on CUDA
+    tensors, against ``onebit_reference_step`` from the same inputs: the
+    masters, m and v within 4 fp32 ulp of the larger operand, the error
+    buffers of the leaf's scale (the chunk sums are reduced in other
+    orders: fp64 prefix sums against ``torch.sum``), the grads' norm
+    under the clip (a coefficient of 1 on both sides), the cast copy
+    bit-equal, the step count advanced, nothing off the card."""
+    from deepspeed_tpu_torch.ops import onebit as ob
+    rng = np.random.default_rng(1)
+    shapes = [(7, 5), (4099,), (1,), (32, 64)]
+
+    def leaves(scale):
+        return [torch.from_numpy((rng.standard_normal(s) * scale).astype(
+            np.float32)).to(dev) for s in shapes]
+    opt = ob.OnebitAdam(2e-3, weight_decay=0.01, freeze_step=5)
+    grp = fu.FlatGroup(leaves(0.5), torch.float32, dev, torch.bfloat16)
+    st = opt.init([grp], 1)
+    m, g = leaves(0.01), leaves(0.005)
+    v = [x * x + 1e-8 for x in leaves(0.01)]
+    w, s = leaves(0.003), leaves(0.003)
+    step = 5 if phase == "compressed" else 4
+    for buf, xs in ((grp.grad, g), (st.m[0], m), (st.v[0], v),
+                    (st.worker_error[0], w), (st.server_error[0], s)):
+        buf.copy_(torch.cat([x.reshape(-1) for x in xs]))
+    st = st._replace(step=torch.tensor(step, dtype=torch.int32, device=dev))
+    lr = torch.tensor(2e-3, device=dev)
+    p0 = [x.clone() for x in grp.views(grp.param)]
+    ref = ob.OnebitState(st.step.clone(), m, v, w, s)
+    want_p, want_s, _ = ob.onebit_reference_step(opt, p0, g, ref, lr,
+                                                 clip=1.0)
+    st2, norm, overflow = opt.step([grp], st, lr=lr,
+                                   compressed=phase == "compressed",
+                                   clip=1.0)
+    assert not bool(overflow) and int(st2.step) == step + 1
+    assert float(norm) < 1.0
+    assert all(t.device.type == dev.type for t in
+               st2.m + st2.v + st2.worker_error + st2.server_error)
+    for k, (got_buf, wants) in enumerate((
+            (grp.param, want_p), (st2.m[0], want_s.m), (st2.v[0], want_s.v),
+            (st2.worker_error[0], want_s.worker_error),
+            (st2.server_error[0], want_s.server_error))):
+        for i, (got, want) in enumerate(zip(grp.views(got_buf), wants)):
+            mag = np.maximum(np.abs(_np(got)), np.abs(_np(want)))
+            if k == 0:
+                mag = np.maximum(mag, np.abs(_np(p0[i])))
+            if k >= 3:
+                mag = np.maximum(mag, np.abs(_np(want_s.m[i])).max())
+            err = np.abs(_np(got) - _np(want))
+            assert (ulps(mag, mag + err, "fp32") <= 4).all(), (phase, k, i)
+    assert torch.equal(grp.cast, grp.param.to(torch.bfloat16))
+
+
+def test_csr_round_trip_on_the_card(dev):
+    """``runtime/csr_tensor.py`` on CUDA tensors: ``from_dense`` keeps
+    the nonzero rows (their indices and values on the card),
+    ``to_dense`` gives the tensor back bit for bit, and three shards
+    gathered and coalesced give their rows' sums in shard order, as on
+    the CPU, bit for bit."""
+    from deepspeed_tpu_torch.runtime.csr_tensor import CSRTensor, \
+        all_gather_csr
+    rng = np.random.default_rng(2)
+    dense = [torch.from_numpy((rng.standard_normal((512, 8)) *
+                               (rng.random((512, 1)) < 0.05)).astype(
+        np.float32)) for _ in range(3)]
+    on = [CSRTensor.from_dense(x.to(dev)) for x in dense]
+    off = [CSRTensor.from_dense(x) for x in dense]
+    for a, b, x in zip(on, off, dense):
+        assert a.values.device.type == dev.type
+        assert torch.equal(a.row_indices.cpu(), b.row_indices)
+        assert torch.equal(a.to_dense().cpu(), x)
+        assert a.sparse_size() == b.sparse_size()
+    g_on, g_off = all_gather_csr(on), all_gather_csr(off)
+    assert torch.equal(g_on.row_indices.cpu(), g_off.row_indices)
+    assert torch.equal(g_on.values.cpu(), g_off.values)
+    assert torch.equal(g_on.to_dense().cpu(), sum(dense[1:], dense[0]))

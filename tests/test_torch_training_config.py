@@ -19,7 +19,10 @@ entry points.
 - Guards: the training modules import no JAX; ``initialize()`` without
   CUDA and without ``device`` raises; every feature the port does not
   run yet raises ``NotImplementedError`` (the cases of features ported
-  since, each a build-and-train case now).
+  since, each a build-and-train case now); the ``tensorboard`` block is
+  telemetry's alias, ``mesh.slices`` parses, and
+  ``zero_optimization.dcn_compression`` on one slice raises JAX's
+  ``ValueError``, each as the JAX package reads it.
 """
 import dataclasses
 import json
@@ -387,6 +390,13 @@ def test_stage3_config_is_accepted():
                      "micro_batch_sizes": [1, 2], "min_gpus": 1,
                      "max_gpus": 1, "ignore_non_elastic_batch_info": True}},
      "elasticity"),
+    ({"tensorboard": {"enabled": True, "output_path": "tb"}},
+     "tensorboard block"),
+    ({"tensorboard": {"enabled": True}, "telemetry": {"enabled": False}},
+     "telemetry off wins"),
+    ({"mesh": {"slices": 2}}, "mesh.slices"),
+    ({"zero_optimization": {"stage": 2, "dcn_compression": True}},
+     "dcn_compression"),
 ])
 def test_unported_config_raises(extra, match):
     if match in ("fused: false", "'sgd' is not ported",
@@ -426,8 +436,77 @@ def test_unported_config_raises(extra, match):
             0, 512, (2, 33)))
         assert np.isfinite(float(loss)) and eng.global_steps == 1
         return
-    with pytest.raises(NotImplementedError, match=match):
+    if match == "OnebitAdam":
+        # 1-bit Adam is ported: the config builds an engine whose own
+        # train step trains (tests/test_torch_onebit.py holds it against
+        # JAX).
+        eng = _init(dict(BASE, **extra))[0]
+        assert eng._onebit and type(eng.optimizer).__name__ == "OnebitAdam"
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and \
+            int(eng.state.opt_state.step) == 1
+        return
+    if match == "sparse_gradients":
+        # Sparse gradients are ported: the config marks wte and, at dp 1,
+        # trains on the main path as JAX does (tests/test_torch_sparse_
+        # grads.py and test_torch_onebit_sparse_dp.py hold the CSR
+        # exchange at dp > 1 against JAX).
+        eng = _init(dict(BASE, **extra))[0]
+        assert eng._sparse_names == ["['wte']"]
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and eng.sparse_comm_stats == {}
+        return
+    if match == "telemetry off wins":
+        # (F1) an explicit telemetry key wins over its tensorboard alias
+        eng = _init(dict(BASE, **extra))[0]
+        assert eng.config.tensorboard_enabled and \
+            not eng.config.telemetry_enabled
+        return
+    if match == "dcn_compression":
+        # (F3) the JAX engine's refusal on a single slice
+        with pytest.raises(ValueError, match="zero_optimization."
+                           "dcn_compression requires a multi-slice mesh"):
+            _init(dict(BASE, **extra))
+        return
+    with pytest.raises(NotImplementedError, match=match) as err:
         _init(dict(BASE, **extra))
+    if match in ("telemetry", "tensorboard block"):
+        # (F1) the tensorboard block is telemetry's alias: both name the
+        # observability slice
+        assert "observability" in str(err.value)
+    if match == "mesh.slices":
+        # (F2) queue 1 item 7's multislice
+        assert "item 7" in str(err.value)
+
+
+@pytest.mark.parametrize("d", [
+    {}, {"tensorboard": {"enabled": True}},
+    {"tensorboard": {"enabled": True, "output_path": "x", "job_name": "j"}},
+    {"tensorboard": {"enabled": True}, "telemetry": {"enabled": False}},
+    {"tensorboard": {"enabled": False}, "telemetry": {"enabled": True}},
+    {"mesh": {"slices": 2}}, {"mesh": {"slices": 1}}])
+def test_telemetry_alias_and_slices_parse_as_jax(d):
+    """F1/F2: ``telemetry.enabled`` defaults to ``tensorboard.enabled``
+    (an explicit telemetry key wins) and ``mesh.slices`` parses, as the
+    JAX ``TelemetryConfig`` and ``MeshConfig`` read them."""
+    ds = dict(BASE, **d)
+    j = jconfig.DeepSpeedConfig(json.loads(json.dumps(ds)), world_size=1)
+    t = tconfig.DeepSpeedConfig(json.loads(json.dumps(ds)), world_size=1)
+    assert t.telemetry_enabled == j.telemetry_config.enabled
+    assert t.tensorboard_enabled == j.tensorboard_config.enabled
+    assert t.tensorboard_output_path == j.tensorboard_config.output_path
+    assert t.tensorboard_job_name == j.tensorboard_config.job_name
+    assert t.mesh_num_slices == j.mesh_config.num_slices
+    for bad in (0, "2"):
+        ds = dict(BASE, mesh={"slices": bad})
+        with pytest.raises(Exception) as je:
+            jconfig.DeepSpeedConfig(json.loads(json.dumps(ds)), world_size=1)
+        with pytest.raises(Exception) as te:
+            tconfig.DeepSpeedConfig(json.loads(json.dumps(ds)), world_size=1)
+        assert type(te.value).__name__ == type(je.value).__name__
+        assert str(te.value) == str(je.value)
 
 
 def test_unported_engine_paths_raise(monkeypatch):

@@ -26,12 +26,24 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   model's ``remat_policy``, default ``none``), ``dropout`` (the model's
   hidden and attention dropout, default 0), ``trio`` (drive each step
   through ``forward``/``backward``/``step``, a call per micro-batch of
-  the rank's rows, instead of ``train_batch``), ``out`` (the ``.npz``
-  prefix of the results).
+  the rank's rows, instead of ``train_batch``), ``model`` (``gpt2``, the
+  default: gpt2-tiny; ``embed``: the embedding model of the sparse-
+  gradient tests, ``embed_loss`` over ``embed_params``, its batches an
+  ``.npz`` of ``ids`` ``[steps, N, 4]`` and ``y`` ``[steps, N, 1]``),
+  ``out`` (the ``.npz`` prefix of the results).
+
+The two stage-0 train steps that replace the grad all-reduce run from
+the ``ds`` keys: ``{"optimizer": {"type": "OneBitAdam", ...}}`` (1-bit
+Adam: its state's ``m``/``v``/``worker_error``/``server_error`` are
+written like any optimizer buffers, the worker error this rank's) and
+``{"sparse_gradients": true}`` (the CSR exchange of the embedding's
+grads).
 
 Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
-the loss scale the step used, the skipped-step count and a digest of
-the full parameters; after the last step the full parameters (flat,
+the loss scale the step used, the skipped-step count, a digest of the
+full parameters, the sparse exchange's ``sparse_elements`` and
+``dense_elements`` (-1 where it did not run) and 1-bit Adam's
+``comm_bytes`` (-1 without it); after the last step the full parameters (flat,
 tree order, fp32) and this rank's optimizer buffers by name and group
 (the fused Adam's ``m{g}``/``v{g}``, an optax chain's ``mu{g}``,
 ``trace{g}``, ...; under ZeRO-Offload, ``zero: {"cpu_offload": true}``,
@@ -105,6 +117,26 @@ def shifted(tree, by):
     return tree + by
 
 
+VOCAB, HID = 512, 8
+
+
+def embed_params(seed=0):
+    """The embedding model's parameters (JAX ``tests/test_sparse_grads.py``
+    ``model_params``)."""
+    rng = np.random.default_rng(seed)
+    return {"embedding": torch.from_numpy(
+                (rng.standard_normal((VOCAB, HID)) * 0.1).astype(np.float32)),
+            "out_w": torch.from_numpy(
+                (rng.standard_normal((HID, 1)) * 0.1).astype(np.float32))}
+
+
+def embed_loss(params, batch, rng):
+    """A mean-pooled embedding lookup regressed onto ``y``."""
+    emb = params["embedding"][batch["ids"]]           # [B, L, H]
+    pred = emb.mean(dim=1) @ params["out_w"]           # [B, 1]
+    return torch.mean((pred.float() - batch["y"]) ** 2)
+
+
 def flat_params(eng):
     leaves = tree_flatten(eng.full_params())[0]
     return np.concatenate([t.detach().float().reshape(-1).numpy()
@@ -114,29 +146,39 @@ def flat_params(eng):
 def run_job(job, world, rank, params):
     precision = job["precision"]
     dropout = job.get("dropout", 0.0)
-    cfg = dataclasses.replace(tgpt2.GPT2_CONFIGS["gpt2-tiny"],
-                              dtype=DTYPES[precision], hidden_dropout=dropout,
-                              attn_dropout=dropout,
-                              remat_policy=job.get("remat", "none"))
     micro = job.get("micro", MICRO)
     ds = ds_config(precision, world, job["stage"], job.get("zero"),
                    job.get("ds"), micro)
+    if job.get("model", "gpt2") == "embed":
+        model, params = embed_loss, embed_params()
+        with np.load(job["batches"]) as z:
+            batches = [{"ids": i, "y": y} for i, y in zip(z["ids"], z["y"])]
+    else:
+        cfg = dataclasses.replace(
+            tgpt2.GPT2_CONFIGS["gpt2-tiny"], dtype=DTYPES[precision],
+            hidden_dropout=dropout, attn_dropout=dropout,
+            remat_policy=job.get("remat", "none"))
+        model = tgpt2.gpt2_loss_fn(cfg)
+        batches = np.load(job["batches"])
     if job.get("perturb"):
         params = shifted(params, 0.01 * rank)
     eng, *_ = deepspeed_tpu_torch.initialize(
-        model=tgpt2.gpt2_loss_fn(cfg),
-        model_params={k: v for k, v in params.items()}, config=ds,
-        device="cpu", rng=0)
+        model=model, model_params={k: v for k, v in params.items()},
+        config=ds, device="cpu", rng=0)
     if job.get("load"):
         assert eng.load_checkpoint(job["load"])[0] is not None
-    batches = np.load(job["batches"])
     first = job.get("first", 0)
     steps = job.get("steps", len(batches) - first)
     rec = {k: [] for k in ("loss", "grad_norm", "loss_scale", "skipped",
-                           "digest")}
+                           "digest", "sparse_elements", "dense_elements",
+                           "comm_bytes")}
     save = job.get("save")
     for k in range(first, first + steps):
-        rows = rank_rows(batches[k], world, rank, micro)
+        if isinstance(batches[k], dict):
+            rows = {n: rank_rows(x, world, rank, micro)
+                    for n, x in batches[k].items()}
+        else:
+            rows = rank_rows(batches[k], world, rank, micro)
         if job.get("trio"):
             for i in range(GAS):
                 eng.backward(eng.forward(rows[i * micro:(i + 1) * micro]))
@@ -151,6 +193,11 @@ def run_job(job, world, rank, params):
         rec["skipped"].append(int(m["skipped_steps"]))
         rec["digest"].append(hashlib.sha256(
             flat_params(eng).tobytes()).hexdigest())
+        stats = eng.sparse_comm_stats
+        rec["sparse_elements"].append(stats.get("sparse_elements", -1))
+        rec["dense_elements"].append(stats.get("dense_elements", -1))
+        rec["comm_bytes"].append(-1 if eng.onebit_comm_bytes is None
+                                 else eng.onebit_comm_bytes)
         if save and k + 1 - first == save["after"]:
             eng.save_checkpoint(save["dir"])
             if eng._async_ckpt is not None:
