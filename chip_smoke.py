@@ -81,6 +81,22 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    exact launches of one step of each attention mode, and the chunked
    and the whole-prompt engines' prefill logits against the plain
    ``gpt2_apply`` on the card.
+4b. ``serve_extras``, on the serve phase's weights, geometry and
+   stream, each serve its own path: ``inference.quantize`` none (with an
+   ``inference.slo`` block), bf16 and int8 — each mode's ``param_bytes``,
+   peak device memory over the serve, TTFT/TPOT/tokens per second, the
+   CUDA kernels of one decode step (torch.profiler) and its host syncs,
+   the exact launches of a prefill and a decode step, the prefill logits
+   against the unquantized engine's (correlation at least 0.99), every
+   stream through ``check_streams`` on the engine's own (dequantized)
+   weights, int8's bytes at most 0.55 of bf16's, and the SLO report
+   (attainment, burn) with a consistent goodput ledger; then
+   ``ReplicaRouter`` over two engines sharing the card (32 requests:
+   both replicas used, the prefix hit rate above 0, the merged
+   TTFT/TPOT, every stream checked); then the slot-major cache
+   (``block_size: 0``) with chunked and whole-prompt prefill: every
+   greedy stream equal to the paged serve's of phase 4, the whole
+   cache's bytes, K10 and K1 launches and the exact launches a step.
 5. Train gpt2-small through ``initialize`` → ``train_batch``: bf16 with
    fp32 masters, AdamW, WarmupLR, clip 1.0, gas 2 x micro-batch 8 x
    1024, dropout 0.1, on a seeded learnable token stream. First one
@@ -224,6 +240,7 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
 import contextlib
 import dataclasses
 import filecmp
+import gc
 import io
 import json
 import math
@@ -244,7 +261,7 @@ import torch.nn.functional as F
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.inference import InferenceEngine, \
-    shared_prefix_requests
+    ReplicaRouter, shared_prefix_requests
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
     gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
 from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
@@ -264,6 +281,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import \
     BigBirdSparsityConfig, SparseSelfAttention, sparse_attention
 from deepspeed_tpu_torch.runtime.async_ckpt import AsyncCheckpointer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.utils.timer import device_sync_count
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W): HBM
 # bytes/s, the bf16 rate and the fp32 rate outside the tensor cores. The
@@ -754,7 +772,7 @@ def check_paged_attention(dev, gen):
 # --------------------------------------------------------------------- #
 # Phase 4: the serving main path at gpt2-small
 # --------------------------------------------------------------------- #
-def check_streams(cfg, params, dev, requests, reports):
+def check_streams(cfg, params, dev, requests, reports, label=None):
     """Every token of every serve against the plain ``gpt2_apply``,
     teacher-forced over the request's prompt and the tokens the engine
     emitted before it: the reference's largest logit less its logit of
@@ -800,7 +818,8 @@ def check_streams(cfg, params, dev, requests, reports):
                 "ref_margins": [float(row.max() - row[base[j]]),
                                 float(row.max() - row[toks[j]])],
                 "ref_top2_gap": float(top2[0] - top2[1])})
-        rec = {"path": k, "tokens": n, "picks_at_ref_argmax": at_argmax,
+        rec = {"path": k if label is None else label, "tokens": n,
+               "picks_at_ref_argmax": at_argmax,
                "max_pick_margin": worst, "tol": PICK_MARGIN_TOL}
         if k != 0:
             rec.update({"streams_equal_chunked_spec0":
@@ -812,15 +831,48 @@ def check_streams(cfg, params, dev, requests, reports):
                    for d in diverged), rec
 
 
+SERVE_BASE = {"max_slots": 8, "max_seq_len": 1024, "block_size": 16,
+              "prefill_chunk": 32}
+
+
+def serve_requests(cfg, n=16):
+    """The serve phase's stream: ``n`` requests sharing a 64-token
+    prefix, tails of 16-48 tokens, 32 new tokens each."""
+    return shared_prefix_requests(
+        n, prefix_len=64, tail_len=(16, 48), max_new_tokens=32,
+        vocab_size=cfg.vocab_size, seed=SEED)
+
+
+def serve_prompt(cfg):
+    """A 100-token prompt from the stream's seed: its first 64 tokens
+    are the served stream's shared prefix."""
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, 100).astype(np.int32)
+
+
+def serve_step_counts(L, n, attend="paged_attention"):
+    """The serving kernels' launches of ``n`` chunks or steps: 12 layers
+    of 2 LN + 1 GELU + 1 attend each, plus ln_f."""
+    c = {name: 0 for name in ops.launch_counts()}
+    c.update({"fused_layer_norm": n * (2 * L + 1),
+              "fused_bias_gelu": n * L, attend: n * L})
+    return c
+
+
+def warm_serve(eng, cfg):
+    """A short serve that is not counted, then a fresh aggregator."""
+    eng.serve(shared_prefix_requests(
+        2, prefix_len=16, tail_len=(4, 8), max_new_tokens=4,
+        vocab_size=cfg.vocab_size, seed=SEED + 1))
+    eng.reset_serving_stats()
+
+
 def serve_gpt2_small(dev):
     cfg = GPT2_CONFIGS["gpt2-small"]                 # bf16 compute
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = gpt2_init(cfg, gen)                     # on cuda by default
-    base = {"max_slots": 8, "max_seq_len": 1024, "block_size": 16,
-            "prefill_chunk": 32}
-    reqs = lambda: shared_prefix_requests(  # noqa: E731
-        16, prefix_len=64, tail_len=(16, 48), max_new_tokens=32,
-        vocab_size=cfg.vocab_size, seed=SEED)
+    base = SERVE_BASE
+    reqs = lambda: serve_requests(cfg)  # noqa: E731
     # Paths: chunked prefill with spec_k 0 and 3, and whole-prompt
     # prefill (the flash forward, one admission at a time, no sharing).
     paths = {0: dict(spec_k=0), 3: dict(spec_k=3),
@@ -828,10 +880,7 @@ def serve_gpt2_small(dev):
     engines = {k: InferenceEngine(cfg, params, {"inference": dict(
         base, **inf)}) for k, inf in paths.items()}
     for eng in engines.values():                     # warm-up, not counted
-        eng.serve(shared_prefix_requests(
-            2, prefix_len=16, tail_len=(4, 8), max_new_tokens=4,
-            vocab_size=cfg.vocab_size, seed=SEED + 1))
-        eng.reset_serving_stats()
+        warm_serve(eng, cfg)
     torch.cuda.synchronize()
 
     # Each path is read on its own: counts zeroed just before its serve,
@@ -873,20 +922,9 @@ def serve_gpt2_small(dev):
     # served stream's shared prefix: the engine shares those 4 cached
     # blocks and prefills only the 36-token tail, in 2 chunks.
     L = cfg.num_layers
-    prompt = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, 100).astype(np.int32)
-
-    def one_step(fn):
-        ops.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, ops.launch_counts()
-
-    def per_step(n, attend="paged_attention"):
-        c = {name: 0 for name in ops.launch_counts()}
-        c.update({"fused_layer_norm": n * (2 * L + 1),
-                  "fused_bias_gelu": n * L, attend: n * L})
-        return c
+    prompt = serve_prompt(cfg)
+    per_step = lambda n, attend="paged_attention": \
+        serve_step_counts(L, n, attend)  # noqa: E731
 
     ref = gpt2_apply(engines[0]._params, torch.from_numpy(prompt).long()
                      .to(dev)[None], cfg)[0, -1].float().cpu().numpy()
@@ -931,7 +969,226 @@ def serve_gpt2_small(dev):
         assert steps[name] == per_step(n), (name, steps[name])
     assert steps["prefill_whole_prompt"] == per_step(
         1, "flash_attention_fwd"), steps["prefill_whole_prompt"]
-    return counts, reports
+    return counts, reports, params
+
+
+def one_step(fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+# --------------------------------------------------------------------- #
+# Phase 4b: the serving leftovers — quantized weights, the replica
+# router, the slot-major cache, the SLO tracker and goodput ledger
+# --------------------------------------------------------------------- #
+QUANT_MODES = ("none", "bf16", "int8")
+# The SLO block of the "none" engine: targets a bf16 gpt2-small serve of
+# the stream meets on its TTFT and mostly on its TPOT.
+SERVE_SLO = {"ttft_ms": 500.0, "tpot_ms": 10.0, "availability": 0.99,
+             "window_s": 600.0}
+QUANT_LOGIT_CORR = 0.99
+ROUTER_REQUESTS = 32
+
+
+def step_host_syncs(fn):
+    """Operations of one ``fn()`` that made the host wait for the card
+    (CUDA's sync debug mode); a decode step's own is its sampled-token
+    fetch."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def serve_path(eng, requests):
+    """One serve as its own path: counts zeroed just before, read just
+    after, the peak device memory over it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = device_sync_count()
+    ops.reset_launch_counts()
+    rep = eng.serve(requests)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert device_sync_count() == syncs, "a timer synced inside the serve"
+    assert rep["completed"] == len(requests) and rep["unfinished"] == 0, \
+        (rep["completed"], rep["unfinished"])
+    assert all(counts[name] > 0 for name in SERVE_KERNELS), counts
+    return rep, counts, torch.cuda.max_memory_allocated()
+
+
+def serve_extras(dev, params, paged_reports):
+    """``inference.quantize`` none / bf16 / int8, the replica router over
+    two engines, the slot-major cache (chunked and whole-prompt) and the
+    SLO tracker, all at gpt2-small full width and depth on the serve
+    phase's geometry, weights and stream. Returns the launch counts by
+    path."""
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    L = cfg.num_layers
+    reqs = lambda: serve_requests(cfg)  # noqa: E731
+    prompt = serve_prompt(cfg)
+    counts, quant = {}, {}
+    ref_logits = None
+
+    def on_host(tree):
+        return {k: on_host(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    # The engines are built from a host copy of the weights, as
+    # ``from_train_checkpoint`` gives them, so the build's peak is the
+    # one a serve from a checkpoint pays.
+    host_params = on_host(params)
+
+    # --- weight quantization (the "none" engine carries the SLO block) ---
+    for mode in QUANT_MODES:
+        free_card()
+        base_bytes = torch.cuda.memory_allocated()
+        inf = dict(SERVE_BASE, quantize=mode)
+        if mode == "none":
+            inf["slo"] = SERVE_SLO
+        torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine(cfg, host_params, {"inference": inf})
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated() - base_bytes
+        warm_serve(eng, cfg)
+        rep, counts[f"serve_quant_{mode}"], peak = serve_path(eng, reqs())
+        check_streams(cfg, eng._runtime_params(), dev, reqs(), {0: rep},
+                      label=f"quantize={mode}")
+        (tok, logits), pf = one_step(lambda: eng.prefill(
+            prompt, slot=0, return_logits=True, max_new_tokens=8))
+        eng.activate_slot(0, len(prompt), tok)
+        n_kernels = kernel_launches(eng.decode_once)
+        _, dec = one_step(eng.decode_once)
+        syncs = step_host_syncs(eng.decode_once)
+        eng.release_slot(0)
+        assert pf == serve_step_counts(L, 2) and \
+            dec == serve_step_counts(L, 1), (mode, pf, dec)
+        assert np.isfinite(logits).all()
+        if mode == "none":
+            ref_logits = logits
+        corr = float(np.corrcoef(logits, ref_logits)[0, 1])
+        rec = {"quantize": mode, "param_bytes": eng.param_bytes,
+               "peak_bytes": peak, "base_bytes": base_bytes,
+               "peak_above_base": peak - base_bytes,
+               "build_peak_above_base": build_peak,
+               "ttft_ms_p50": rep["ttft_ms"]["p50"],
+               "tpot_ms_p50": rep["tpot_ms"]["p50"],
+               "tokens_per_s": rep["tokens_per_s"],
+               "decode_step_ms_p50": rep["decode_step_ms"]["p50"],
+               "decode_step_cuda_kernels": n_kernels,
+               "decode_step_host_syncs": syncs,
+               "prefill_logits_max_abs_diff_vs_none": float(
+                   np.abs(logits - ref_logits).max()),
+               "prefill_logits_corr_vs_none": corr,
+               "launches": nonzero(counts[f"serve_quant_{mode}"])}
+        emit({"serve_quantize": rec})
+        assert corr >= QUANT_LOGIT_CORR, rec
+        quant[mode] = rec
+        if mode == "none":
+            slo, led = rep["slo"], rep["ledger"]
+            emit({"serve_slo": {"slo": slo, "ledger": led,
+                                "decode_step_host_syncs": syncs}})
+            assert led["consistent"] is True and slo["total"] == 16, rep
+            assert led["decode_useful_s"] > 0 and led["prefill_s"] > 0
+        del eng, rep
+    assert quant["int8"]["param_bytes"] <= \
+        0.55 * quant["bf16"]["param_bytes"], quant
+    assert len({q["decode_step_host_syncs"] for q in quant.values()}) == 1
+
+    # --- the replica router: two engines sharing the card ---
+    free_card()
+    engines = [InferenceEngine(cfg, params, {"inference": dict(
+        SERVE_BASE, replica=f"r{i}")}) for i in range(2)]
+    for eng in engines:
+        warm_serve(eng, cfg)
+    rreqs = lambda: serve_requests(cfg, ROUTER_REQUESTS)  # noqa: E731
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = ReplicaRouter(engines).serve(rreqs())
+    torch.cuda.synchronize()
+    counts["serve_router"] = ops.launch_counts()
+    check_streams(cfg, engines[0]._params, dev, rreqs(), {0: rep},
+                  label="router")
+    rec = {"replicas": 2, "requests": ROUTER_REQUESTS,
+           "completed": rep["completed"], "routed": rep["router"]["routed"],
+           "affinity_hits": rep["router"]["affinity_overrides"],
+           "prefix_hit_rate": rep["prefix"]["hit_rate"],
+           "ttft_ms_p50": rep["ttft_ms"]["p50"],
+           "tpot_ms_p50": rep["tpot_ms"]["p50"],
+           "tokens_per_s": rep["tokens_per_s"],
+           "per_replica_tpot_ms_p50": [r["tpot_ms"]["p50"]
+                                       for r in rep["replicas"]],
+           "ledgers_consistent": [r["ledger"]["consistent"]
+                                  for r in rep["replicas"]],
+           "launches": nonzero(counts["serve_router"])}
+    emit({"serve_router": rec})
+    assert rep["completed"] == ROUTER_REQUESTS and rep["unfinished"] == 0
+    assert min(rep["router"]["routed"]) > 0, rec
+    assert rep["prefix"]["hit_rate"] > 0, rec
+    assert all(counts["serve_router"][n] > 0 for n in SERVE_KERNELS), rec
+    del engines, rep
+
+    # --- the slot-major cache: chunked and whole-prompt prefill ---
+    for name, inf, paged in (
+            ("slot_major_chunked", dict(SERVE_BASE, block_size=0),
+             paged_reports[0]),
+            ("slot_major_whole", dict(SERVE_BASE, block_size=0,
+                                      prefill_chunk=0),
+             paged_reports["whole"])):
+        free_card()
+        eng = InferenceEngine(cfg, params, {"inference": inf})
+        warm_serve(eng, cfg)
+        rep, counts[f"serve_{name}"], peak = serve_path(eng, reqs())
+        c = counts[f"serve_{name}"]
+        check_streams(cfg, eng._params, dev, reqs(), {0: rep}, label=name)
+        whole = inf["prefill_chunk"] == 0
+        (tok, _), pf = one_step(lambda: eng.prefill(prompt, slot=0))
+        eng.activate_slot(0, len(prompt), tok)
+        _, dec = one_step(eng.decode_once)
+        eng.release_slot(0)
+        ours = [r["tokens"] for r in rep["requests"]]
+        theirs = [r["tokens"] for r in paged["requests"]]
+        equal = sum(a == b for a, b in zip(ours, theirs))
+        rec = {"path": name, "completed": rep["completed"],
+               "streams_equal_paged": f"{equal}/{len(ours)}",
+               "cache_bytes": rep["cache_bytes_p95"],
+               "paged_cache_bytes_p95": paged["cache_bytes_p95"],
+               "paged_attention_launches": c["paged_attention"],
+               "flash_attention_fwd_launches": c["flash_attention_fwd"],
+               "ttft_ms_p50": rep["ttft_ms"]["p50"],
+               "tpot_ms_p50": rep["tpot_ms"]["p50"],
+               "tokens_per_s": rep["tokens_per_s"], "peak_bytes": peak,
+               "launches_prefill_100": nonzero(pf),
+               "launches_decode_step": nonzero(dec)}
+        emit({"serve_slot_major": rec})
+        assert equal == len(ours), rec
+        assert rep["cache_bytes_p95"] == eng.cache_spec.nbytes(), rec
+        assert c["flash_attention_fwd"] == (16 * L if whole else 0), rec
+        assert pf == (serve_step_counts(L, 1, "flash_attention_fwd")
+                      if whole else serve_step_counts(L, 4)), rec
+        assert dec == serve_step_counts(L, 1), rec
+        del eng, rep
+    free_card()
+    return counts
 
 
 # --------------------------------------------------------------------- #
@@ -4164,10 +4421,12 @@ def main():
     torch.cuda.synchronize()
     host_adam = check_cpu_adam(smi)
 
-    serve_counts, _ = serve_gpt2_small(dev)
+    serve_counts, serve_reports, serve_params = serve_gpt2_small(dev)
     torch.cuda.synchronize()
     counts = {"whole_prompt" if k == "whole" else f"spec_k={k}": c
               for k, c in serve_counts.items()}
+    counts.update(serve_extras(dev, serve_params, serve_reports))
+    del serve_params, serve_reports
     counts.update(train_gpt2_small(dev, smi))
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))

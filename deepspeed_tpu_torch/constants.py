@@ -304,14 +304,14 @@ INFERENCE_MAX_SLOTS_DEFAULT = 8
 # KV-cache sequence capacity per slot; 0 = the model's max_seq_length.
 INFERENCE_MAX_SEQ_LEN = "max_seq_len"
 INFERENCE_MAX_SEQ_LEN_DEFAULT = 0
-# Weight quantization at engine construction. The port runs "none" only.
+# Weight quantization at engine construction: none, bf16 or int8.
 INFERENCE_QUANTIZE = "quantize"
 INFERENCE_QUANTIZE_DEFAULT = "none"
 INFERENCE_QUANTIZE_MODES = ("none", "bf16", "int8")
-# Prefill chunk length (0 = whole-prompt prefill, not ported).
+# Prefill chunk length (0 = whole-prompt prefill).
 INFERENCE_PREFILL_CHUNK = "prefill_chunk"
 INFERENCE_PREFILL_CHUNK_DEFAULT = 32
-# Paged KV cache page size in tokens (0 = slot-major layout, not ported).
+# Paged KV cache page size in tokens (0 = slot-major layout).
 INFERENCE_BLOCK_SIZE = "block_size"
 INFERENCE_BLOCK_SIZE_DEFAULT = 16
 # Pool size in blocks; 0 = full provisioning (max_slots * max_seq_len /
@@ -336,7 +336,7 @@ INFERENCE_REPLICA_DEFAULT = ""
 # whatever the knob says.
 INFERENCE_PAGED_KERNEL = "paged_kernel"
 INFERENCE_PAGED_KERNEL_DEFAULT = "auto"
-# inference.slo — parsed and validated, not acted on by the port yet.
+# inference.slo: TTFT/TPOT targets scored by the engine's SLOTracker.
 INFERENCE_SLO = "slo"
 INFERENCE_SLO_TTFT_MS = "ttft_ms"
 INFERENCE_SLO_TTFT_MS_DEFAULT = 0.0

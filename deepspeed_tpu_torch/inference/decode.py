@@ -1,6 +1,8 @@
 """Incremental GPT-2 forward paths against the paged block pool: decode,
 the speculative verify step, chunked prefill and whole-prompt prefill
-(port of the paged half of ``deepspeed_tpu/inference/decode.py``).
+(port of the paged half of ``deepspeed_tpu/inference/decode.py``; the
+slot-major cache runs these same paths through a fixed identity table,
+``inference/kv_cache.KVCacheSpec``).
 
 The incremental paths keep the JAX order in every layer: write the new
 tokens' K/V rows through the block table, then attend inclusively — each

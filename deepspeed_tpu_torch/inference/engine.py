@@ -1,36 +1,45 @@
-"""InferenceEngine — batched autoregressive serving of GPT-2 over the
-paged KV cache (port of ``deepspeed_tpu/inference/engine.py``, the paged
-and chunked-prefill path).
+"""InferenceEngine — batched autoregressive serving of GPT-2 (port of
+``deepspeed_tpu/inference/engine.py``).
 
-- Three device operations serve everything: prefill — chunked
-  (``prefill_many`` through ``decode.gpt2_prefill_chunk_paged``) or, with
-  ``prefill_chunk: 0``, whole-prompt (``prefill`` through
-  ``decode.gpt2_prefill_full_paged``, one admission at a time and no
+- Three device operations serve everything: prefill — chunked or, with
+  ``prefill_chunk: 0``, whole-prompt (one admission at a time and no
   prefix sharing, as in the JAX engine) — ``decode_once`` (one token for
   every slot) and, with ``spec_k > 0``, ``spec_decode_once``
   (draft-then-verify). All of them run the port's kernels on a CUDA
   device: paged attention (flash attention for whole-prompt prefill),
   LayerNorm, bias+GELU.
-- The block pool (``kv_cache``) is allocated once and updated in place.
-  One GPU means one pool group (dp = 1, mp = 1).
+- The KV cache is allocated once and updated in place: the paged block
+  pool (``block_size > 0``: allocator, prefix sharing, copy-on-write),
+  or the slot-major layout (``block_size: 0``: every slot reserves
+  ``max_len`` rows, stored as consecutive blocks of a pool behind a
+  fixed identity table, so the same kernels serve it). One GPU means
+  one pool group (dp = 1, mp = 1).
+- Weights (``inference.quantize``): ``bf16`` stores stochastically
+  rounded bf16 leaves; ``int8`` stores ``{"q", "scale"}`` leaves and
+  dequantizes the whole tree to the compute dtype at the top of each
+  device operation (int8 at rest, compute-dtype weights only as that
+  call's transient), as the JAX programs dequantize in-program.
 - Host-side per-slot counters (lengths, active, last token) and the
   block tables are the scheduler's state; they enter each step as small
   host tensors. The one device fetch per iteration is the sampled-token
   readback — the host must see tokens to detect EOS and feed the next
   step.
-- ``ServingAggregator`` accounts TTFT/TPOT/occupancy/tokens per second on
-  host clocks.
+- ``ServingAggregator`` accounts TTFT/TPOT/occupancy/tokens per second
+  on host clocks, with the goodput ledger always attached and the SLO
+  tracker when ``inference.slo`` sets a target (``monitor/
+  serving_slo.py``); the ledger's walls are the ones the aggregator
+  already measures, so it adds no device sync.
 
 ``from_train_checkpoint`` builds the engine from a training
 checkpoint's model file (the port's or the JAX engine's: the same
-files, runtime/flax_msgpack.py).
+files, runtime/flax_msgpack.py). ``inference/router.py`` routes one
+request stream over several engines.
 
-Not ported: the slot-major layout (``block_size: 0``), weight
-quantization, dp/mp meshes, the replica router, and telemetry and SLO
-overlays. Each of those configurations raises
-``NotImplementedError``; so do ``paged_kernel: false`` and
-``fused_kernels: False`` on a CUDA device, where the port has only its
-kernels.
+Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7)
+and telemetry (item 3): a ``telemetry`` (or ``tensorboard``) block that
+enables it raises ``NotImplementedError``. ``paged_kernel: false`` and
+``fused_kernels: False`` raise on a CUDA device, where the port has only
+its kernels.
 """
 from __future__ import annotations
 
@@ -43,10 +52,14 @@ import torch
 
 from . import decode as decode_mod
 from . import kv_cache
-from .quantize import check_quantize, resolve_kv_dtype
+from .quantize import (dequantize, is_quantized_leaf, quantize_params,
+                       quantized_bytes, resolve_kv_dtype)
 from .spec import NGramDrafter
+from .. import constants as C
 from ..models.gpt2 import GPT2Config, gpt2_init
 from ..monitor.serving import ServingAggregator
+from ..monitor.serving_slo import ServingGoodputLedger, SLOTracker
+from ..ops import paged_attention as paged_attn_ops
 from ..runtime.config import InferenceConfig
 from ..runtime.config_utils import load_config_json
 from ..runtime.flax_msgpack import msgpack_restore
@@ -62,21 +75,40 @@ _COMPUTE_DTYPE_LEAVES = ("wte", "wpe", "qkv_bias", "proj_bias",
 
 
 def prepare_params(params: Dict[str, Any], dtype: torch.dtype,
-                   device: torch.device) -> Dict[str, Any]:
-    """The serving copy of a GPT-2 param tree on ``device``, with the
-    leaves every step would cast to the compute dtype cast once (the
-    JAX programs cast them at every use; casting once gives the same
-    values and saves a copy kernel per leaf per layer per step)."""
+                   device: torch.device, cast: bool = True
+                   ) -> Dict[str, Any]:
+    """The serving copy of a GPT-2 param tree on ``device``. With
+    ``cast``, the leaves every step would cast to the compute dtype are
+    cast once (the JAX programs cast them at every use; casting once
+    gives the same values and saves a copy kernel per leaf per layer per
+    step); the leaves the kernels read in fp32 are widened once where
+    they are narrower. ``{"q", "scale"}`` leaves stay as they are."""
     def leaf(name, t):
+        if is_quantized_leaf(t):
+            return {k: torch.as_tensor(v).to(device).contiguous()
+                    for k, v in t.items()}
         t = torch.as_tensor(t).to(device)
         if name.endswith("_kernel") or name in _COMPUTE_DTYPE_LEAVES:
-            t = t.to(dtype)
+            if cast:
+                t = t.to(dtype)
+        elif t.is_floating_point() and t.element_size() < 4:
+            t = t.float()
         return t.contiguous()
 
     def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+        return {k: walk(v) if isinstance(v, dict) and
+                not is_quantized_leaf(v) else leaf(k, v)
                 for k, v in tree.items()}
     return walk(params)
+
+
+def _telemetry_enabled(config: Dict[str, Any]) -> bool:
+    """The JAX ``TelemetryConfig.enabled``: ``telemetry.enabled``,
+    defaulting to ``tensorboard.enabled`` (its alias)."""
+    tb = config.get(C.TENSORBOARD, {}) or {}
+    return bool((config.get(C.TELEMETRY, {}) or {}).get(
+        C.TELEMETRY_ENABLED, tb.get(C.TENSORBOARD_ENABLED,
+                                    C.TENSORBOARD_ENABLED_DEFAULT)))
 
 
 class InferenceEngine:
@@ -109,14 +141,12 @@ class InferenceEngine:
                 f"the cache capacity ({self.max_len}) — padded prompts "
                 "would otherwise overrun the slot")
         self.block_size = int(self.icfg.block_size)
-        if self.block_size == 0:
-            raise NotImplementedError(
-                "inference.block_size: 0 (slot-major cache) is not ported; "
-                "the port serves from the paged cache")
-        if self.max_len % self.block_size:
+        self.paged = self.block_size > 0
+        if self.paged and self.max_len % self.block_size:
             raise ValueError(
                 f"inference.block_size={self.block_size} must divide "
-                f"inference.max_seq_len ({self.max_len})")
+                f"inference.max_seq_len ({self.max_len}); set "
+                "block_size: 0 for the slot-major layout")
         if on_cuda and self.icfg.paged_kernel is False:
             raise NotImplementedError(
                 "inference.paged_kernel: false has no CUDA path in the "
@@ -125,30 +155,61 @@ class InferenceEngine:
             raise NotImplementedError(
                 "fused_kernels=False has no CUDA path in the port — the "
                 "LayerNorm and bias+GELU kernels are its only ones")
-        check_quantize(self.icfg.quantize)
+        if _telemetry_enabled(config):
+            raise NotImplementedError(
+                "telemetry (or its tensorboard alias) is not ported to the "
+                "serving engine yet (ROADMAP queue 1 item 3: telemetry, "
+                "the monitors and the flops profiler)")
         self.spec_k = int(self.icfg.spec_k)
         self.replica = str(self.icfg.replica)
         self.dp = 1
-        self.num_blocks = int(self.icfg.num_blocks) or \
-            self.max_slots * (self.max_len // self.block_size)
+        self.num_blocks = int(self.icfg.num_blocks)
+        if self.paged and self.num_blocks == 0:
+            # Full provisioning: every slot can reach max_len.
+            self.num_blocks = self.max_slots * \
+                (self.max_len // self.block_size)
 
-        self._params = prepare_params(params, model_cfg.dtype, self.device)
+        # --- weights: quantize the tree as given, leaf by leaf on the
+        # device, then the serving copy ---
+        self.quantize = self.icfg.quantize
+        self.seed = int(seed)
+        params = quantize_params(
+            params, self.quantize,
+            torch.Generator(device=self.device).manual_seed(self.seed),
+            device=self.device)
+        self._params = prepare_params(params, model_cfg.dtype, self.device,
+                                      cast=self.quantize == "none")
+        self.param_bytes = quantized_bytes(self._params)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.generator.manual_seed(self.seed)
 
-        # --- the paged KV cache ---
+        # --- the KV cache: the paged block pool, or the slot-major rows
+        # stored as a pool behind a fixed identity table ---
         kv_dtype = resolve_kv_dtype(self.icfg.kv_cache_dtype,
                                     model_cfg.dtype)
-        self.cache_spec = kv_cache.PagedKVCacheSpec(
-            num_layers=model_cfg.num_layers, num_slots=self.max_slots,
-            num_blocks=self.num_blocks, block_size=self.block_size,
-            max_len=self.max_len, num_heads=model_cfg.num_heads,
-            head_dim=model_cfg.head_dim, num_groups=self.dp, dtype=kv_dtype)
-        self.cache = kv_cache.init_paged_cache(self.cache_spec, self.device)
-        self.allocator = kv_cache.BlockAllocator(self.cache_spec)
-        self.block_tables = np.full(
-            (self.max_slots, self.cache_spec.max_blocks_per_slot),
-            kv_cache.DEAD_BLOCK, np.int32)
+        if self.paged:
+            self.cache_spec = kv_cache.PagedKVCacheSpec(
+                num_layers=model_cfg.num_layers, num_slots=self.max_slots,
+                num_blocks=self.num_blocks, block_size=self.block_size,
+                max_len=self.max_len, num_heads=model_cfg.num_heads,
+                head_dim=model_cfg.head_dim, num_groups=self.dp,
+                dtype=kv_dtype)
+            self.cache = kv_cache.init_paged_cache(self.cache_spec,
+                                                   self.device)
+            self.allocator = kv_cache.BlockAllocator(self.cache_spec)
+            self.block_tables = np.full(
+                (self.max_slots, self.cache_spec.max_blocks_per_slot),
+                kv_cache.DEAD_BLOCK, np.int32)
+            self._price_attend()
+        else:
+            self.cache_spec = kv_cache.KVCacheSpec(
+                num_layers=model_cfg.num_layers, num_slots=self.max_slots,
+                num_heads=model_cfg.num_heads, max_len=self.max_len,
+                head_dim=model_cfg.head_dim, dtype=kv_dtype)
+            self.cache = kv_cache.init_cache(self.cache_spec, self.device)
+            self.allocator = None
+            self.block_tables = None
+            self._slot_tables = self.cache_spec.slot_tables()
         self.drafter = NGramDrafter(self.spec_k, self.icfg.spec_ngram) \
             if self.spec_k > 0 else None
 
@@ -157,16 +218,31 @@ class InferenceEngine:
         self.active = np.zeros(self.max_slots, bool)
         self.last_tokens = np.zeros(self.max_slots, np.int32)
         self._held = set()               # acquired, not yet activated
-        self.serving = ServingAggregator(self.max_slots,
-                                         label=self.replica or None)
+        # Why the latest select_slot returned None: "no_slot" (every slot
+        # busy) or "reservation" (the pool cannot book the request).
+        self.last_admit_block: Optional[str] = None
+        self.reset_serving_stats()
         prefill = f"chunk {self.prefill_chunk}" if self.prefill_chunk \
             else "whole-prompt"
+        layout = (f"paged bs={self.block_size} x{self.num_blocks} blocks"
+                  if self.paged else "slot-major")
         log_dist(
             f"InferenceEngine initialized: {model_cfg.name} on "
-            f"{self.device}, slots={self.max_slots}, cache=paged "
-            f"bs={self.block_size} x{self.num_blocks} blocks "
+            f"{self.device}, slots={self.max_slots}, cache={layout} "
             f"({self.cache_spec.nbytes() / 2 ** 20:.1f} MiB K+V), prefill="
-            f"{prefill}, spec_k={self.spec_k}", ranks=[0])
+            f"{prefill}, spec_k={self.spec_k}, quantize={self.quantize}"
+            + (f", replica={self.replica}" if self.replica else ""),
+            ranks=[0])
+
+    def _runtime_params(self) -> Dict[str, Any]:
+        """The weights one device operation computes with: under int8 the
+        whole tree dequantized to the compute dtype (a transient of the
+        call), else the stored tree."""
+        if self.quantize == "int8":
+            dtype = self.model_cfg.dtype
+            return prepare_params(dequantize(self._params, dtype), dtype,
+                                  self.device)
+        return self._params
 
     # ------------------------------------------------------------------ #
     # Slot lifecycle (host counters + block accounting — no device work)
@@ -184,17 +260,18 @@ class InferenceEngine:
             self.drafter.observe(slot, [int(last_token)])
 
     def release_slot(self, slot: int) -> None:
-        """Evict: counters clear and every block reference drops —
-        private blocks return to the free list, prefix blocks whose
+        """Evict: counters clear and (paged) every block reference drops
+        — private blocks return to the free list, prefix blocks whose
         refcount hits zero are LRU-retained for future hits."""
         self.active[slot] = False
         self.lengths[slot] = 0
         self.last_tokens[slot] = 0
         self._held.discard(slot)
-        row = self.block_tables[slot]
-        self.allocator.release(
-            slot, [int(b) for b in row if b != kv_cache.DEAD_BLOCK])
-        row[:] = kv_cache.DEAD_BLOCK
+        if self.paged:
+            row = self.block_tables[slot]
+            self.allocator.release(
+                slot, [int(b) for b in row if b != kv_cache.DEAD_BLOCK])
+            row[:] = kv_cache.DEAD_BLOCK
         if self.drafter is not None:
             self.drafter.reset(slot)
 
@@ -220,27 +297,42 @@ class InferenceEngine:
             row[j] = self.allocator.alloc_block(slot)
             j += 1
 
+    def _decode_tables(self) -> np.ndarray:
+        """The [S, J] tables a decode step reads: the allocator's rows, or
+        (slot-major) each active slot's identity row and dead rows for
+        the idle slots, which then write and attend nothing."""
+        if self.paged:
+            return self.block_tables
+        return np.where(self.active[:, None], self._slot_tables,
+                        kv_cache.DEAD_BLOCK).astype(np.int32)
+
     # ------------------------------------------------------------------ #
     # Admission: slot occupancy AND pool blocks
     # ------------------------------------------------------------------ #
     def group_of(self, slot: int) -> int:
         """The pool group a slot's blocks live in."""
-        return slot // self.cache_spec.slots_per_group
+        return slot // self.cache_spec.slots_per_group if self.paged \
+            else 0
 
     def select_slot(self, prompt: Sequence[int], max_new_tokens: int = 0,
                     exclude_groups: Optional[set] = None) -> Optional[int]:
         """Pick and HOLD a free slot for this prompt, or None when the
-        engine cannot admit it now: a group must cover the request's
-        worst-case block need, and among admissible groups the one
-        holding the longest cached prefix wins (ties toward the most
-        available blocks). Whole-prompt prefill shares no prefix, so it
-        counts no match. ``activate_slot``/``release_slot`` end the
-        hold."""
+        engine cannot admit it now. Slot-major: the first free slot.
+        Paged: a group must cover the request's worst-case block need,
+        and among admissible groups the one holding the longest cached
+        prefix wins (ties toward the most available blocks); whole-prompt
+        prefill shares no prefix, so it counts no match.
+        ``activate_slot``/``release_slot`` end the hold."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.last_admit_block = None
         free = [s for s in range(self.max_slots)
                 if not self.active[s] and s not in self._held]
         if not free:
+            self.last_admit_block = "no_slot"
             return None
+        if not self.paged:
+            self._held.add(free[0])
+            return free[0]
         share = self.prefill_chunk > 0
         Sg = self.cache_spec.slots_per_group
         first_free: Dict[int, int] = {}
@@ -261,7 +353,30 @@ class InferenceEngine:
                 best, best_key = s, key
         if best is not None:
             self._held.add(best)
+        else:
+            self.last_admit_block = "reservation"
         return best
+
+    def note_admission_reject(self, rid: Any, reason: str, attempt: int,
+                              queue_depth: int = 0) -> None:
+        """Count one admission rejection (the JAX engine also writes a
+        telemetry event on a request's first; the port has no telemetry
+        yet)."""
+        self.serving.note_reject()
+
+    def prefix_match_tokens(self, prompt: Sequence[int]) -> int:
+        """Longest cached prompt prefix (tokens) resident anywhere in
+        this engine's block pool — the router's affinity signal. Host
+        hash walk only; 0 where nothing is shared (slot-major, or
+        whole-prompt prefill)."""
+        if not self.paged or self.prefill_chunk == 0:
+            return 0
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        best = 0
+        for g in range(self.dp):
+            best = max(best,
+                       len(self.allocator.match_prefix(g, prompt)[0]))
+        return best * self.block_size
 
     # ------------------------------------------------------------------ #
     # Device operations
@@ -273,6 +388,9 @@ class InferenceEngine:
         """Prefill one prompt into ``slot`` and sample its first output
         token. Returns (token, final-position fp32 logits [V] when asked).
         The caller activates the slot."""
+        if not self.paged:
+            return self._prefill_slot_major(prompt, slot, temperature,
+                                            return_logits)
         if self.prefill_chunk == 0:
             return self._prefill_whole(prompt, slot, temperature,
                                        return_logits, max_new_tokens)
@@ -290,12 +408,53 @@ class InferenceEngine:
                 f"generate in a {self.max_len}-token slot")
         return prompt
 
+    def _note_prefill(self, t0: float) -> None:
+        self.serving.ledger.note("prefill", time.perf_counter() - t0)
+
+    def _prefill_slot_major(self, prompt, slot: int, temperature: float,
+                            return_logits: bool
+                            ) -> Tuple[int, Optional[np.ndarray]]:
+        """Slot-major prefill into the slot's own rows: the whole padded
+        prompt in one causal pass (``prefill_chunk: 0``), or chunk after
+        chunk from position 0 (no prefix to share)."""
+        t0 = time.perf_counter()
+        prompt = self._check_prompt(prompt)
+        plen = int(prompt.shape[0])
+        p = self._runtime_params()
+        row = self._slot_tables[slot][None]                  # [1, J]
+        if self.prefill_chunk == 0:
+            padded = np.zeros(self.max_len, np.int32)
+            padded[:plen] = prompt
+            logits = decode_mod.gpt2_prefill_full_paged(
+                p, self.cache["k"], self.cache["v"],
+                torch.from_numpy(padded), torch.from_numpy(row), plen - 1,
+                self.model_cfg)
+        else:
+            chunk = self.prefill_chunk
+            n_chunks = -(-plen // chunk)
+            padded = np.zeros(n_chunks * chunk, np.int32)
+            padded[:plen] = prompt
+            for ci in range(n_chunks):
+                start = ci * chunk
+                last = (plen - 1 - start) if ci == n_chunks - 1 else 0
+                logits = decode_mod.gpt2_prefill_chunk_paged(
+                    p, self.cache["k"], self.cache["v"],
+                    torch.from_numpy(padded[start:start + chunk][None]),
+                    torch.from_numpy(row), torch.tensor([start]),
+                    torch.tensor([last]), torch.tensor([1]),
+                    self.model_cfg)[0]
+        tok = int(decode_mod.sample_tokens(logits, self.generator,
+                                           temperature))    # the host fetch
+        self._note_prefill(t0)
+        return tok, logits.cpu().numpy() if return_logits else None
+
     def _prefill_whole(self, prompt, slot: int, temperature: float,
                        return_logits: bool, max_new_tokens: Optional[int]
                        ) -> Tuple[int, Optional[np.ndarray]]:
         """Whole-prompt prefill (``prefill_chunk: 0``): admit through the
         allocator with no prefix sharing, then run the prompt padded to
         the slot's capacity in one causal pass."""
+        t0 = time.perf_counter()
         prompt = self._check_prompt(prompt)
         plen = int(prompt.shape[0])
         J = self.cache_spec.max_blocks_per_slot
@@ -311,7 +470,7 @@ class InferenceEngine:
         bt_rows = np.full((self.dp, J), kv_cache.DEAD_BLOCK, np.int32)
         bt_rows[group] = row
         logits = decode_mod.gpt2_prefill_full_paged(
-            self._params, self.cache["k"], self.cache["v"],
+            self._runtime_params(), self.cache["k"], self.cache["v"],
             torch.from_numpy(padded), torch.from_numpy(bt_rows), plen - 1,
             self.model_cfg)
         tok = int(decode_mod.sample_tokens(logits, self.generator,
@@ -319,6 +478,7 @@ class InferenceEngine:
         if self.drafter is not None:
             self.drafter.begin(slot, prompt)
         self.serving.note_admit(plen, 0)
+        self._note_prefill(t0)
         return tok, logits.cpu().numpy() if return_logits else None
 
     def prefill_many(self, admissions: Sequence[Tuple[int, Any, int]],
@@ -332,11 +492,12 @@ class InferenceEngine:
         re-prefills), an exactly-matched chain forks its final block
         copy-on-write, and ``max_new_tokens`` books the worst-case
         reservation. Returns [(first token, logits | None)] in admission
-        order. Chunked prefill only: a whole-prompt engine admits one
+        order. Paged chunked prefill only: other engines admit one
         prompt at a time through ``prefill``."""
-        if self.prefill_chunk == 0:
-            raise RuntimeError("prefill_many needs chunked prefill; with "
-                               "prefill_chunk: 0 admit through prefill()")
+        if not (self.paged and self.prefill_chunk > 0):
+            raise RuntimeError("prefill_many needs the paged cache and "
+                               "chunked prefill")
+        t0 = time.perf_counter()
         G = self.dp
         J = self.cache_spec.max_blocks_per_slot
         Sg = self.cache_spec.slots_per_group
@@ -373,6 +534,7 @@ class InferenceEngine:
             padded = np.zeros(n_chunks * chunk, np.int32)
             padded[:tlen] = prompt[plan.matched:]
             tails.append((padded, n_chunks, tlen))
+        p = self._runtime_params()
         held = {}                       # slot -> (chunk index, group)
         steps = []                      # per chunk: (tokens [G], logits)
         for ci in range(max(n for _, n, _ in tails)):
@@ -393,12 +555,13 @@ class InferenceEngine:
                     last_idxs[group] = tlen - 1 - ci * chunk
                     held[slot] = (ci, group)
             logits = decode_mod.gpt2_prefill_chunk_paged(
-                self._params, self.cache["k"], self.cache["v"],
+                p, self.cache["k"], self.cache["v"],
                 torch.from_numpy(toks), torch.from_numpy(bt_rows),
                 torch.from_numpy(starts), torch.from_numpy(last_idxs),
                 torch.from_numpy(act), self.model_cfg)
             steps.append((decode_mod.sample_tokens(
                 logits, self.generator, temperature), logits))
+        del p
         out = []
         for slot, group, plan, prompt, plen in plans:
             ci, g = held[slot]
@@ -409,12 +572,52 @@ class InferenceEngine:
                 self.drafter.begin(slot, prompt)
             self.serving.note_admit(plen, plan.matched)
             out.append((tok, logits))
+        self._note_prefill(t0)
         return out
 
     def _cache_accounting(self) -> Tuple[int, int]:
-        """(cache bytes held, context tokens cached): live blocks only."""
+        """(cache bytes held, context tokens cached): the live blocks of
+        the paged pool; slot-major reserves the whole cache whatever the
+        contexts hold."""
         tokens = int(self.lengths[self.active].sum())
-        return self.allocator.bytes_in_use(), tokens
+        if self.paged:
+            return self.allocator.bytes_in_use(), tokens
+        return self.cache_spec.nbytes(), tokens
+
+    def _price_attend(self) -> None:
+        """The attend cost model's terms, priced once per engine: one
+        block of keys for the kernel's live-context term, and the
+        pool-capacity (one-hot) terms."""
+        sp_ = self.cache_spec
+        kw = dict(num_layers=sp_.num_layers)
+        args = (sp_.num_heads, sp_.head_dim, sp_.block_size)
+        kvi = sp_.itemsize()
+        self._attend_block = (
+            paged_attn_ops.attend_flops_per_token(*args, context=1, **kw),
+            paged_attn_ops.attend_hbm_bytes_per_token(
+                *args, context=1, kv_itemsize=kvi, **kw))
+        self._attend_pool = (
+            paged_attn_ops.attend_flops_per_token(
+                *args, pool_blocks=sp_.blocks_per_group, **kw)
+            * self.max_slots,
+            paged_attn_ops.attend_hbm_bytes_per_token(
+                *args, pool_blocks=sp_.blocks_per_group, kv_itemsize=kvi,
+                **kw) * sp_.num_groups)
+
+    def _attend_work(self, k_rows: int) -> Tuple[int, int, int, int]:
+        """Analytic attend work of the iteration just run, priced both
+        ways: (flops_kernel, flops_onehot, bytes_kernel, bytes_onehot).
+        Kernel terms sum each live slot's ceil(ctx/bs) blocks of keys
+        (the K query rows share the block loads); one-hot terms (the JAX
+        package's plain attend) score the whole pool for every slot.
+        Host arithmetic, no device work."""
+        bs = self.block_size
+        ctxs = np.maximum(self.lengths[self.active], 1)
+        blocks = int(((ctxs + bs - 1) // bs).sum())
+        (f_blk, b_blk), (f_pool, b_pool) = self._attend_block, \
+            self._attend_pool
+        return blocks * f_blk * k_rows, f_pool * k_rows, blocks * b_blk, \
+            b_pool
 
     def decode_once(self, temperature: float = 0.0,
                     return_logits: bool = False
@@ -424,13 +627,15 @@ class InferenceEngine:
         sampled token per slot (and the [S, V] logits when asked)."""
         t0 = time.perf_counter()
         n_active = self.active_slots
-        for s in np.flatnonzero(self.active):
-            self._ensure_blocks(int(s), int(self.lengths[s]))
+        if self.paged:
+            for s in np.flatnonzero(self.active):
+                self._ensure_blocks(int(s), int(self.lengths[s]))
         logits = decode_mod.gpt2_decode_paged(
-            self._params, self.cache["k"], self.cache["v"],
+            self._runtime_params(), self.cache["k"], self.cache["v"],
             torch.from_numpy(self.last_tokens),
             torch.from_numpy(self.lengths),
-            torch.from_numpy(self.block_tables), self.model_cfg, self.dp)
+            torch.from_numpy(self._decode_tables()), self.model_cfg,
+            self.dp)
         sampled = decode_mod.sample_tokens(logits, self.generator,
                                            temperature)
         # THE serving sync: one batched [S] fetch per iteration.
@@ -445,6 +650,9 @@ class InferenceEngine:
         cache_bytes, ctx_tokens = self._cache_accounting()
         self.serving.note_iteration(n_active, wall, cache_bytes=cache_bytes,
                                     context_tokens=ctx_tokens)
+        self.serving.ledger.note("decode_useful", wall)
+        if self.paged and n_active:
+            self.serving.note_attend(*self._attend_work(1), n_active)
         out_logits = logits.cpu().numpy() if return_logits else None
         return sampled, out_logits
 
@@ -458,7 +666,8 @@ class InferenceEngine:
         decode, one host fetch. Returns (emitted [S, k+1] int32, n_new
         [S])."""
         if not self.spec_enabled:
-            raise RuntimeError("spec_decode_once needs inference.spec_k > 0")
+            raise RuntimeError("spec_decode_once needs inference.spec_k "
+                               "> 0 and the paged cache")
         if float(temperature) > 0.0:
             raise ValueError(
                 "spec_decode_once is greedy-only; use decode_once for "
@@ -476,7 +685,7 @@ class InferenceEngine:
                 s, min(int(self.lengths[s]) + k, self.max_len - 1))
         tok_t = torch.from_numpy(toks)
         logits = decode_mod.gpt2_verify_paged(
-            self._params, self.cache["k"], self.cache["v"], tok_t,
+            self._runtime_params(), self.cache["k"], self.cache["v"], tok_t,
             torch.from_numpy(self.lengths),
             torch.from_numpy(self.block_tables), self.model_cfg, self.dp)
         out = decode_mod.spec_accept(logits, tok_t.to(self.device),
@@ -497,18 +706,49 @@ class InferenceEngine:
             self.last_tokens[s] = int(emitted[s, n - 1])
             self.drafter.observe(s, emitted[s, :n])
             accepted += n - 1
+        emitted_total = int(n_new.sum())
         wall = time.perf_counter() - t0
         cache_bytes, ctx_tokens = self._cache_accounting()
         self.serving.note_iteration(n_active, wall, cache_bytes=cache_bytes,
                                     context_tokens=ctx_tokens,
-                                    emitted_tokens=int(n_new.sum()))
+                                    emitted_tokens=emitted_total)
+        # The verify wall split by row share: of the (k+1) rows per live
+        # slot, the emitted tokens are useful work, the rejected drafts
+        # wall the draft caused and the target threw away.
+        rows = (k + 1) * len(live)
+        wasted = wall * (k * len(live) - accepted) / rows if rows else 0.0
+        self.serving.ledger.note("spec_wasted", wasted)
+        self.serving.ledger.note("decode_useful", wall - wasted)
+        if n_active and emitted_total:
+            self.serving.note_attend(*self._attend_work(k + 1),
+                                     emitted_total)
         self.serving.note_spec(k * len(live), accepted)
         return emitted, n_new
 
+    # ------------------------------------------------------------------ #
+    # Serving accounting
+    # ------------------------------------------------------------------ #
+    def _attach_slo_overlays(self) -> None:
+        """Attach the goodput ledger (always — host arithmetic) and,
+        when ``inference.slo`` sets a target, the SLO tracker."""
+        self.serving.ledger = ServingGoodputLedger(
+            label=self.replica or None)
+        scfg = self.icfg.slo
+        if scfg.enabled:
+            self.serving.slo = SLOTracker(
+                ttft_ms=scfg.ttft_ms, tpot_ms=scfg.tpot_ms,
+                availability=scfg.availability, window_s=scfg.window_s)
+
     def reset_serving_stats(self) -> None:
-        """Fresh aggregator window (after a warmup pass)."""
+        """Fresh aggregator window (after a warmup pass), with its
+        overlays."""
         self.serving = ServingAggregator(self.max_slots,
                                          label=self.replica or None)
+        if self.paged:
+            # The attend that runs: the table-driven kernel (its plain
+            # version on CPU tensors computes the same function).
+            self.serving.attend_mode = "kernel"
+        self._attach_slo_overlays()
 
     def complete_request(self, rid: Any, ttft_s: float,
                          tpot_s: Optional[float], prompt_tokens: int,
@@ -516,11 +756,20 @@ class InferenceEngine:
                          queue_wait_s: Optional[float] = None,
                          service_ttft_s: Optional[float] = None,
                          admission_attempts: Optional[int] = None) -> None:
-        """Per-request accounting at completion (host clocks only)."""
+        """Per-request accounting at completion (host clocks only): the
+        aggregator and the SLO tracker."""
         self.serving.note_request(ttft_s, tpot_s, new_tokens,
                                   queue_wait_s=queue_wait_s,
                                   service_ttft_s=service_ttft_s,
                                   admission_attempts=admission_attempts)
+        if self.serving.slo is not None:
+            self.serving.slo.observe(ttft_s, tpot_s)
+
+    def abort_request(self, rid: Any, reason: str = "abort") -> None:
+        """An aborted or starved request: counts against the SLO's
+        availability."""
+        if self.serving.slo is not None:
+            self.serving.slo.observe_failure()
 
     def serve(self, requests, temperature: float = 0.0, **kwargs):
         """Drive a request list through the continuous-batching
@@ -529,6 +778,10 @@ class InferenceEngine:
         sched = ContinuousBatchingScheduler(self, temperature=temperature,
                                             **kwargs)
         return sched.serve(requests)
+
+    def close(self) -> None:
+        """The JAX engine closes its telemetry sink here; the port's
+        engine holds no sink (telemetry is not ported yet)."""
 
     # ------------------------------------------------------------------ #
     # Training-checkpoint handoff

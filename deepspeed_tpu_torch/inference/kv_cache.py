@@ -1,5 +1,5 @@
-"""Paged KV cache: the block pool, its block-table primitives and the
-host-side block allocator (port of the paged half of
+"""KV cache: the block pool, its block-table primitives, the host-side
+block allocator and the slot-major layout (port of
 ``deepspeed_tpu/inference/kv_cache.py``).
 
 The cache is a pool of fixed-size blocks,
@@ -12,6 +12,13 @@ and common prompt prefixes are shared copy-on-write across requests
 (full-block granularity, chain-hashed, refcounted by ``BlockAllocator``).
 On one GPU the ``groups`` axis has size 1.
 
+The slot-major layout (``block_size: 0``, ``KVCacheSpec``) reserves
+``max_len`` rows for every slot, with no allocator and no sharing. Its
+rows live in a pool of the same layout: slot s owns the consecutive
+blocks ``s*J .. s*J + J-1`` through a fixed identity table, so the
+paged-attention kernel and the flash forward serve it exactly as they
+serve the paged pool.
+
 PyTorch idiom: the pool is written IN PLACE. ``paged_write_rows`` and
 ``paged_copy_block`` mutate the tensors they are given (the JAX versions
 return new arrays), and rows whose block is dead are simply not indexed —
@@ -20,6 +27,7 @@ the JAX one-hot write exists only to stay GSPMD-partitionable.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -102,6 +110,79 @@ def init_paged_cache(spec: PagedKVCacheSpec, device: torch.device
     spec.validate()
     return {"k": torch.zeros(spec.shape, dtype=spec.dtype, device=device),
             "v": torch.zeros(spec.shape, dtype=spec.dtype, device=device)}
+
+
+# The pool block of the slot-major layout: the largest divisor of the
+# slot's capacity up to the paged layout's usual 16, so the paged
+# kernel splits a long context over blocks as it does for the pool.
+SLOT_MAJOR_BLOCK = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheSpec:
+    """Static geometry of the slot-major cache: every slot reserves
+    ``max_len`` rows (the JAX ``KVCacheSpec``, logical shape ``[layers,
+    slots, heads, max_len, head_dim]``). The rows are stored as the
+    pool ``pool_spec()`` describes, slot s in blocks ``slot_tables()[s]``.
+    """
+    num_layers: int
+    num_slots: int
+    num_heads: int
+    max_len: int
+    head_dim: int
+    dtype: Any = torch.bfloat16
+
+    @property
+    def shape(self) -> Tuple[int, int, int, int, int]:
+        return (self.num_layers, self.num_slots, self.num_heads,
+                self.max_len, self.head_dim)
+
+    def nbytes(self) -> int:
+        """Total K+V bytes: the whole reservation, whatever it holds."""
+        return 2 * int(np.prod(self.shape)) * \
+            torch.empty((), dtype=self.dtype).element_size()
+
+    @property
+    def pool_block(self) -> int:
+        return math.gcd(self.max_len, SLOT_MAJOR_BLOCK)
+
+    @property
+    def blocks_per_slot(self) -> int:
+        return self.max_len // self.pool_block
+
+    def pool_spec(self) -> "PagedKVCacheSpec":
+        """The block pool that stores the rows: one group, J blocks a
+        slot."""
+        return PagedKVCacheSpec(
+            num_layers=self.num_layers, num_slots=self.num_slots,
+            num_blocks=self.num_slots * self.blocks_per_slot,
+            block_size=self.pool_block, max_len=self.max_len,
+            num_heads=self.num_heads, head_dim=self.head_dim,
+            dtype=self.dtype)
+
+    def slot_tables(self) -> np.ndarray:
+        """[slots, J] int32: the fixed identity table, slot s's blocks
+        ``s*J .. s*J + J-1``."""
+        J = self.blocks_per_slot
+        return np.arange(self.num_slots * J,
+                         dtype=np.int32).reshape(self.num_slots, J)
+
+
+def init_cache(spec: KVCacheSpec, device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    """Zero-initialized slot-major K and V, in the pool layout of
+    ``spec.pool_spec()``."""
+    return init_paged_cache(spec.pool_spec(), device)
+
+
+def slot_rows(pool: torch.Tensor, spec: KVCacheSpec,
+              slot: int) -> torch.Tensor:
+    """One slot's rows of one layer's slot-major pool ([1, B, nH, bs, D])
+    as the JAX layout's ``[nH, max_len, D]``."""
+    J = spec.blocks_per_slot
+    rows = pool[0, slot * J:(slot + 1) * J]                  # [J, nH, bs, D]
+    return rows.permute(1, 0, 2, 3).reshape(
+        spec.num_heads, spec.max_len, spec.head_dim)
 
 
 # --------------------------------------------------------------------- #
@@ -408,6 +489,7 @@ class AdmitPlan:
 
 
 __all__ = ["DEAD_BLOCK", "PagedKVCacheSpec", "init_paged_cache",
+           "SLOT_MAJOR_BLOCK", "KVCacheSpec", "init_cache", "slot_rows",
            "positions_to_blocks", "WritePlan", "write_plan",
            "write_rows_planned", "paged_write_rows", "paged_copy_block",
            "chain_hash", "PoolExhausted", "BlockAllocator", "AdmitPlan"]

@@ -4,10 +4,15 @@ code).
 
 Every iteration the scheduler (1) admits arrived requests into free
 slots — prefill runs as its own device operation and splices into the
-paged cache — (2) runs ONE decode (or draft-then-verify) step for every
-live slot, and (3) evicts the slots that finished. The arrival process
-is OPEN-LOOP: requests carry arrival offsets and join the queue when the
-wall clock passes them, so TTFT includes queue wait.
+cache — (2) runs ONE decode (or draft-then-verify) step for every live
+slot, and (3) evicts the slots that finished. The arrival process is
+OPEN-LOOP: requests carry arrival offsets and join the queue when the
+wall clock passes them, so TTFT includes queue wait. Waits land in the
+engine's goodput ledger (``idle`` before an arrival,
+``admission_blocked`` while the head of the queue cannot be admitted);
+requests abandoned at ``max_wall_s`` are reported to the engine's SLO
+tracker. The JAX scheduler's request traces and ``recompiles`` key wait
+for the port's telemetry.
 """
 from __future__ import annotations
 
@@ -138,144 +143,185 @@ class ContinuousBatchingScheduler:
             service_ttft_s=req.service_ttft_s,
             admission_attempts=req.admission_attempts)
 
-    def _reject(self, req: Request) -> None:
+    def _reject(self, req: Request, queue_len: int) -> None:
         """Head-of-queue admission rejection (no slot, or the pool
-        cannot cover the request's worst case)."""
+        cannot cover the request's worst case): the request's attempt
+        count, and the engine's count of rejections."""
+        eng = self.engine
         req.admission_attempts += 1
-        self.engine.serving.note_reject()
+        eng.note_admission_reject(req.rid, eng.last_admit_block or "no_slot",
+                                  req.admission_attempts, queue_len)
+
+    def _evict_finished(self, active: Dict[int, Request]) -> None:
+        eng = self.engine
+        for slot in list(active):
+            req = active[slot]
+            if self._finished(req, eng.context_len(slot)):
+                self._complete(req)
+                eng.release_slot(slot)
+                del active[slot]
+
+    def admit(self, queue: deque, active: Dict[int, Request]) -> None:
+        """Admissions from the head of ``queue``, FCFS: when the head
+        cannot be admitted (no slot, or the pool cannot cover its worst
+        case) everything behind waits. Paged chunked prefill admits in
+        one-slot-per-group batches (``prefill_many``); the other engines
+        admit one request at a time (``prefill``). Admitted requests
+        join ``active`` (slot -> request) unless their first token
+        finished them."""
+        eng = self.engine
+        batched = eng.paged and eng.prefill_chunk > 0
+        while queue:
+            batch = []
+            used: set = set()
+            while queue:
+                req = queue[0]
+                slot = eng.select_slot(req.prompt, req.max_new_tokens,
+                                       exclude_groups=used)
+                if slot is None:
+                    # With exclusions the refusal may only be this
+                    # batch's one-slot-per-group shape.
+                    if not used:
+                        self._reject(req, len(queue))
+                    break
+                queue.popleft()
+                req.t_admit = time.perf_counter()
+                used.add(eng.group_of(slot))
+                batch.append((req, slot))
+                if not batched:
+                    break
+            if not batch:
+                break
+            if batched:
+                results = eng.prefill_many(
+                    [(slot, req.prompt, req.max_new_tokens)
+                     for req, slot in batch], self.temperature)
+            else:
+                req, slot = batch[0]
+                results = [eng.prefill(req.prompt, slot, self.temperature,
+                                       max_new_tokens=req.max_new_tokens)]
+            t_now = time.perf_counter()
+            admitted: Dict[int, Request] = {}
+            for (req, slot), (tok, _) in zip(batch, results):
+                req.slot = slot
+                req.t_first = req.t_last = t_now
+                req.out_tokens = [tok]
+                eng.activate_slot(slot, len(req.prompt), tok)
+                eng.serving.note_prefill(len(req.prompt))
+                admitted[slot] = req
+            self._evict_finished(admitted)
+            active.update(admitted)
+
+    def step(self, active: Dict[int, Request]) -> bool:
+        """One decode (or draft-then-verify) iteration for every live
+        slot, then evict the slots that finished; False when no slot is
+        live. Speculative decoding is greedy-only: sampling streams fall
+        back to plain decode."""
+        if not active:
+            return False
+        eng = self.engine
+        if eng.spec_enabled and self.temperature == 0.0:
+            emitted, n_new = eng.spec_decode_once(self.temperature)
+            t_now = time.perf_counter()
+            for slot, req in active.items():
+                budget = req.max_new_tokens - len(req.out_tokens)
+                toks = [int(t) for t in emitted[slot, :int(n_new[slot])]]
+                if self.eos_token is not None and self.eos_token in toks:
+                    toks = toks[:toks.index(self.eos_token) + 1]
+                req.out_tokens.extend(toks[:max(budget, 0)])
+                req.t_last = t_now
+        else:
+            sampled, _ = eng.decode_once(self.temperature)
+            t_now = time.perf_counter()
+            for slot, req in active.items():
+                req.out_tokens.append(int(sampled[slot]))
+                req.t_last = t_now
+        self._evict_finished(active)
+        return True
+
+    def abort(self, queue: deque, active: Dict[int, Request]) -> None:
+        """Abandon the run without leaking capacity: the slots in flight
+        abort as ``max_wall``, the queued requests as ``starved``; each
+        counts against the SLO's availability."""
+        eng = self.engine
+        for slot in list(active):
+            eng.abort_request(active[slot].rid, "max_wall")
+            eng.release_slot(slot)
+            del active[slot]
+        for req in queue:
+            eng.abort_request(req.rid, "starved")
 
     def serve(self, requests: Sequence[Request]) -> Dict[str, Any]:
         """Run the stream to completion; returns the serving report (the
         aggregator snapshot + per-request records)."""
         eng = self.engine
+        ledger = eng.serving.ledger
         t0 = time.perf_counter()
         pending = deque(sorted(requests, key=lambda r: r.arrival_s))
         queue: deque = deque()
         active: Dict[int, Request] = {}
-        # Speculative decoding is greedy-only: sampling streams fall back
-        # to plain decode.
-        spec = eng.spec_enabled and self.temperature == 0.0
-
         while pending or queue or active:
             now = time.perf_counter() - t0
             if self.max_wall_s is not None and now > self.max_wall_s:
-                # Abandon the run without leaking capacity.
-                for slot in list(active):
-                    eng.release_slot(slot)
-                    del active[slot]
+                self.abort(queue, active)
                 break
             # 1. open-loop arrivals join the queue on schedule.
             while pending and pending[0].arrival_s <= now:
                 req = pending.popleft()
                 req.t_arrival = t0 + req.arrival_s
                 queue.append(req)
-            # 2. admissions, FCFS: when the head of the queue cannot be
-            # admitted (no slot, or the pool cannot cover its worst case)
-            # everything behind waits. Chunked prefill admits in
-            # one-slot-per-group batches (``prefill_many``); whole-prompt
-            # prefill admits one request at a time (``prefill``).
-            batched = eng.prefill_chunk > 0
-            while queue:
-                batch = []
-                used: set = set()
-                while queue:
-                    req = queue[0]
-                    slot = eng.select_slot(req.prompt, req.max_new_tokens,
-                                           exclude_groups=used)
-                    if slot is None:
-                        # With exclusions the refusal may only be this
-                        # batch's one-slot-per-group shape.
-                        if not used:
-                            self._reject(req)
-                        break
-                    queue.popleft()
-                    req.t_admit = time.perf_counter()
-                    used.add(eng.group_of(slot))
-                    batch.append((req, slot))
-                    if not batched:
-                        break
-                if not batch:
-                    break
-                if batched:
-                    results = eng.prefill_many(
-                        [(slot, req.prompt, req.max_new_tokens)
-                         for req, slot in batch], self.temperature)
-                else:
-                    req, slot = batch[0]
-                    results = [eng.prefill(req.prompt, slot, self.temperature,
-                                           max_new_tokens=req.max_new_tokens)]
-                t_now = time.perf_counter()
-                for (req, slot), (tok, _) in zip(batch, results):
-                    req.slot = slot
-                    req.t_first = req.t_last = t_now
-                    req.out_tokens = [tok]
-                    eng.activate_slot(slot, len(req.prompt), tok)
-                    eng.serving.note_prefill(len(req.prompt))
-                    if self._finished(req, eng.context_len(slot)):
-                        self._complete(req)
-                        eng.release_slot(slot)
-                    else:
-                        active[slot] = req
-            # 3. one decode (or draft-then-verify) iteration for every
-            # live slot.
-            if active and spec:
-                emitted, n_new = eng.spec_decode_once(self.temperature)
-                t_now = time.perf_counter()
-                for slot in list(active):
-                    req = active[slot]
-                    budget = req.max_new_tokens - len(req.out_tokens)
-                    toks = [int(t) for t in emitted[slot, :int(n_new[slot])]]
-                    if self.eos_token is not None and \
-                            self.eos_token in toks:
-                        toks = toks[:toks.index(self.eos_token) + 1]
-                    req.out_tokens.extend(toks[:max(budget, 0)])
-                    req.t_last = t_now
-                    if self._finished(req, eng.context_len(slot)):
-                        self._complete(req)
-                        eng.release_slot(slot)
-                        del active[slot]
-            elif active:
-                sampled, _ = eng.decode_once(self.temperature)
-                t_now = time.perf_counter()
-                for slot in list(active):
-                    req = active[slot]
-                    req.out_tokens.append(int(sampled[slot]))
-                    req.t_last = t_now
-                    if self._finished(req, eng.context_len(slot)):
-                        self._complete(req)
-                        eng.release_slot(slot)
-                        del active[slot]
-            elif pending and not queue:
-                # Idle ahead of the next arrival — open-loop wait.
-                gap = pending[0].arrival_s - (time.perf_counter() - t0)
-                if gap > 0:
-                    time.sleep(min(gap, self.idle_sleep_s))
-            elif queue:
+            # 2. admissions; 3. one iteration for the live slots.
+            self.admit(queue, active)
+            if self.step(active):
+                continue
+            if queue:
                 # Queued work, no free capacity, nothing decoding: unless
                 # nothing can EVER free what the head request needs, wait.
-                if not active and not pending and not eng.active.any():
+                if not pending and not eng.active.any():
                     req = queue[0]
                     raise RuntimeError(
                         f"request {req.rid} can never be admitted: "
                         f"{len(req.prompt)} prompt + "
                         f"{req.max_new_tokens} new tokens exceeds the "
                         "block pool's per-group capacity")
+                t_sl = time.perf_counter()
                 time.sleep(self.idle_sleep_s)
+                ledger.note("admission_blocked", time.perf_counter() - t_sl)
+            elif pending:
+                # Idle ahead of the next arrival — open-loop wait.
+                gap = pending[0].arrival_s - (time.perf_counter() - t0)
+                if gap > 0:
+                    t_sl = time.perf_counter()
+                    time.sleep(min(gap, self.idle_sleep_s))
+                    ledger.note("idle", time.perf_counter() - t_sl)
 
         wall = time.perf_counter() - t0
         report = dict(eng.serving.snapshot(wall_s=wall))
         report["unfinished"] = len(pending) + len(queue) + len(active)
-        report["requests"] = [
-            {"rid": r.rid, "prompt_tokens": len(r.prompt),
-             "new_tokens": len(r.out_tokens),
-             "ttft_ms": round(r.ttft_s * 1e3, 3)
-             if r.ttft_s is not None else None,
-             "tpot_ms": round(r.tpot_s * 1e3, 3)
-             if r.tpot_s is not None else None,
-             "tokens": list(map(int, r.out_tokens))}
-            for r in sorted(requests, key=lambda r: r.rid)]
+        report["requests"] = request_records(requests)
         return report
 
 
+def request_records(requests: Sequence[Request],
+                    replica_of: Optional[Dict[Any, int]] = None
+                    ) -> List[Dict[str, Any]]:
+    """The report's per-request records by rid, each naming its replica
+    when ``replica_of`` is given."""
+    out = []
+    for r in sorted(requests, key=lambda r: r.rid):
+        rec: Dict[str, Any] = {"rid": r.rid}
+        if replica_of is not None:
+            rec["replica"] = replica_of.get(r.rid)
+        rec.update(
+            prompt_tokens=len(r.prompt), new_tokens=len(r.out_tokens),
+            ttft_ms=round(r.ttft_s * 1e3, 3)
+            if r.ttft_s is not None else None,
+            tpot_ms=round(r.tpot_s * 1e3, 3)
+            if r.tpot_s is not None else None,
+            tokens=list(map(int, r.out_tokens)))
+        out.append(rec)
+    return out
+
+
 __all__ = ["Request", "synthetic_requests", "shared_prefix_requests",
-           "ContinuousBatchingScheduler"]
+           "ContinuousBatchingScheduler", "request_records"]

@@ -40,7 +40,9 @@ _JAX_ROW_QUANTUM = 8 * 1024
 def from_jax_params(np_tree: Dict[str, Any],
                     device: Optional[Union[str, torch.device]] = "cpu"
                     ) -> Dict[str, Any]:
-    """Nested dict of numpy arrays → the same tree of torch tensors."""
+    """Nested dict of numpy arrays → the same tree of torch tensors, each
+    leaf's dtype kept: a quantized tree's ``{"q": int8, "scale": fp32}``
+    leaves (``inference/quantize.py``) come across unchanged."""
     if isinstance(np_tree, dict):
         return {k: from_jax_params(v, device) for k, v in np_tree.items()}
     return torch.from_numpy(np.array(np_tree, copy=True)).to(device)

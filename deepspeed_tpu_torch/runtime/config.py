@@ -11,8 +11,9 @@ batch triple before the solver runs) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
 ``DeepSpeedConfig.unported_features()`` names them, and the engine
-raises ``NotImplementedError`` for each. The ``inference.slo`` block
-parses and validates but the port does not act on it yet.
+raises ``NotImplementedError`` for each. The ``inference`` block,
+``slo`` included, is read by the serving engine: ``inference.slo``
+attaches an ``SLOTracker`` (``monitor/serving_slo.py``) to its report.
 """
 from __future__ import annotations
 

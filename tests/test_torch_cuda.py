@@ -39,7 +39,9 @@ step on CUDA tensors, the cast copy bit-equal; the trio bit-equal to
 ``train_batch`` on gpt2-tiny bf16 with dropout 0.1; 1-bit Adam's flat
 step in both phases within 4 fp32 ulp of ``onebit_reference_step`` (the
 error buffers of their leaf's scale); the CSR round trip and a three-
-shard gather on CUDA tensors bit-equal to the CPU's.
+shard gather on CUDA tensors bit-equal to the CPU's; int8 ``dequantize``
+on the card bit-equal to the CPU's, and the slot-major engine's greedy
+streams equal to the paged engine's on the card.
 """
 import dataclasses
 
@@ -50,7 +52,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.inference import InferenceEngine, \
-    shared_prefix_requests
+    dequantize, quantize_params, shared_prefix_requests
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_init, \
     gpt2_loss_fn
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
@@ -280,6 +282,55 @@ def test_engine_serve_streams_match_cpu(dev, spec_k):
     for device in ("cpu", dev):
         rep = _engine(params, device, spec_k=spec_k).serve(reqs())
         assert rep["completed"] == 6
+        streams.append([r["tokens"] for r in rep["requests"]])
+    assert streams[0] == streams[1]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def test_int8_dequantize_on_the_card_bit_equal_to_cpu(dev):
+    """``dequantize`` of one int8 tree on the card and on the CPU: the
+    same bits in fp32 and bf16 (the product rounds once in fp32)."""
+    params = gpt2_init(CFG32, torch.Generator().manual_seed(0), "cpu")
+    q = quantize_params(params, "int8", seed=0)
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = _tree_leaves(dequantize(q, dtype))
+        gpu = _tree_leaves(dequantize(_tree_to(q, dev), dtype))
+        assert len(cpu) == len(gpu) == 16
+        for g, c in zip(gpu, cpu):
+            assert g.device.type == "cuda" and g.dtype == c.dtype
+            assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("prefill_chunk", [8, 0])
+def test_slot_major_stream_equals_paged_on_the_card(dev, prefill_chunk):
+    """``block_size: 0`` on the card gives the paged engine's greedy
+    streams, attending through the paged kernel (chunked) or the flash
+    forward (whole-prompt, at a capacity of 128)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = gpt2_init(CFG32, torch.Generator().manual_seed(1), "cpu")
+    reqs = lambda: shared_prefix_requests(  # noqa: E731
+        6, prefix_len=16, tail_len=(0, 6), max_new_tokens=5, seed=0)
+    streams = []
+    for block_size in (8, 0):
+        ops.reset_launch_counts()
+        rep = _engine(params, dev, block_size=block_size,
+                      prefill_chunk=prefill_chunk, max_seq_len=128
+                      ).serve(reqs())
+        counts = ops.launch_counts()
+        assert rep["completed"] == 6
+        assert counts["paged_attention"] > 0
+        assert (counts["flash_attention_fwd"] > 0) == (prefill_chunk == 0)
         streams.append([r["tokens"] for r in rep["requests"]])
     assert streams[0] == streams[1]
 

@@ -140,16 +140,19 @@ def test_grouped_gemm_kernel_uses_tma_and_wgmma_and_no_wmma_or_atomics():
         assert call in kernel, call
 
 
-@pytest.mark.parametrize("inference, match", [
-    ({"block_size": 0}, "slot-major"),
-    ({"quantize": "int8"}, "not ported"),
-    ({"quantize": "bf16"}, "not ported"),
+@pytest.mark.parametrize("config", [
+    {"telemetry": {"enabled": True}},
+    {"tensorboard": {"enabled": True}},      # telemetry's alias
 ])
-def test_engine_refuses_unported_layouts(inference, match):
+def test_engine_refuses_unported_layouts(config):
+    """The serving engine refuses what it does not run yet — telemetry
+    (the slot-major layout and weight quantization, refused before
+    slice 6g, serve now: tests/test_torch_serving_extras.py)."""
     params = gpt2_init(CFG32, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        InferenceEngine(CFG32, params, config={"inference": inference},
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        InferenceEngine(CFG32, params, config=config, device="cpu")
+    explicit_off = dict(config, telemetry={"enabled": False})
+    InferenceEngine(CFG32, params, config=explicit_off, device="cpu")
 
 
 def test_engine_builds_whole_prompt_prefill():
