@@ -114,6 +114,21 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    ``train_gelu_exact`` (``gelu_exact=True``, the erf form of K4f/K4b:
    its first loss against a plain-autograd step, 5 steps, finite losses,
    exact launches), each read on its own.
+5a. ``train_telemetry`` (after the train phase): the train recipe on
+   two gpt2-small engines from seed 0, one with ``telemetry`` (report
+   every 10 steps, a Chrome trace, the grad taps, the cost model) and
+   ``flops_profiler`` at step 5, one with neither, 30 steps interleaved
+   a step at a time. Fails unless the losses are bit-equal, steps 21-29
+   make no host sync on either, the JSONL holds its meta, 30 steps, 3
+   reports, the cost model and its final record with nothing dropped
+   and no recompile, ``tools/telemetry_report.py`` reads it, every step
+   carries an MFU, the analytic state footprint counts the masters,
+   moments and copy, and the telemetry-on step p50 is within 1.10 x
+   the other's. Prints the MFU p50, the cost model's verdict, flops and
+   bytes a step (against 16384 x ``gpt2_flops_per_token``), the memory
+   sample beside ``max_memory_allocated`` and the flops table's top
+   modules; its launches (the telemetry-on engine's steps) join the
+   summary's ``launches_by_path`` as ``train_telemetry``.
 5b. Train gpt2-small at sequence 4096 (gas 2 x micro-batch 2) with the
    ds_config's block-sparse attention (Fixed unidirectional, block 128)
    as the model's ``attention_fn``: one step against a plain-autograd
@@ -266,6 +281,7 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
     gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
 from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
 from deepspeed_tpu_torch.moe import MoEConfig
+from deepspeed_tpu_torch.ops import costs
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
 from deepspeed_tpu_torch.ops import fused_update as fu
@@ -288,6 +304,7 @@ from deepspeed_tpu_torch.utils.timer import device_sync_count
 # operations term of a bound is priced at the rate of the inputs' type:
 # bf16 for the serving kernels and the LayerNorm/GELU kernels, fp32 for
 # the grad norm and the Adam step, whose inputs are fp32.
+REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 FP32_FLOPS_PER_S = 67e12
@@ -536,6 +553,9 @@ def cold_ms(fn, iters=20):
 
 
 def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over ``flops_per_s``. The kernels' counts
+    come from their declared costs (``ops/costs.py``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -606,8 +626,8 @@ def check_layer_norm(dev, gen):
                 kern = lambda: fe.fused_layer_norm(x, sc, bi)  # noqa: E731
                 plain = lambda: fe.layer_norm_plain(x, None, sc, bi)  # noqa: E731
                 lib = lambda: F.layer_norm(x, (H,), sc_t, bi_t)  # noqa: E731
-            n_io = (4 if resid else 2) * rows * H * x.element_size()
-            b_ms, b_by = bound(n_io + 2 * H * 4, 8 * rows * H)
+            c = costs.layer_norm_fwd(rows, H, x.element_size(), resid)
+            b_ms, b_by = bound(c.bytes, c.flops)
             rec = {"kernel": "layer_norm", "residual": resid,
                    "shape": [rows, H], "dtype": "bf16", **kernel_times(kern),
                    "host_ms": host_ms(kern),
@@ -640,8 +660,8 @@ def check_bias_gelu(dev, gen):
                 f"bias_gelu rows={rows} exact={exact}: {ulps} x 2 ulp"
             assert torch.equal(g, again), \
                 f"bias_gelu rows={rows} exact={exact}: not bit-equal"
-            b_ms, b_by = bound(2 * rows * Fw * y.element_size() + Fw * 4,
-                               12 * rows * Fw)
+            c = costs.bias_gelu_fwd(rows, Fw, y.element_size())
+            b_ms, b_by = bound(c.bytes, c.flops)
             rec = {"kernel": "bias_gelu", "exact": exact,
                    "shape": [rows, Fw], "dtype": "bf16",
                    **kernel_times(lambda: fe.fused_bias_gelu(y, b, exact)),
@@ -685,12 +705,12 @@ def _attn_work(q, pk, bt, pos):
     live = (bt >= 0) & (torch.arange(bt.shape[-1], device=bt.device)
                         < n[..., None])
     blocks = int(torch.unique(bt[live]).numel())
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * blocks * nH * bs * D * pk.element_size()
-              + bt.numel() * 4 + pos.numel() * 4)
     alive = (n > 0)[..., None]
     keys = int(((pos.long() + 1) * alive).sum())
-    return nbytes, 4 * D * nH * keys
+    c = costs.paged_attention_cost(q.numel(), q.element_size(), blocks, nH,
+                                   bs, D, pk.element_size(), bt.numel(),
+                                   pos.numel(), keys)
+    return c.bytes, c.flops
 
 
 def _sdpa_inputs(q, pk, pv, bt, pos):
@@ -1249,8 +1269,8 @@ def check_layer_norm_backward(dev, gen):
         assert all(torch.equal(a, b) for a, b in
                    zip((dx, dsc, dbi), again)), \
             f"layer_norm_backward residual={resid}: not bit-equal"
-        n_io = (4 if resid else 3) * TRAIN_ROWS * H * 2
-        b_ms, b_by = bound(n_io + 3 * H * 4, 12 * TRAIN_ROWS * H)
+        c = costs.layer_norm_bwd(TRAIN_ROWS, H, s.element_size(), resid)
+        b_ms, b_by = bound(c.bytes, c.flops)
         lib = {"library_ms": None} if resid else library_times(
             lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, s, [H], mean, rstd, sc_t, bi_t, [True, True, True]))
@@ -1293,8 +1313,8 @@ def check_bias_gelu_backward(dev, gen):
         assert rel <= 1e-4, f"bias_gelu_backward dbias: {rel}"
         assert torch.equal(dz, again[0]) and torch.equal(db, again[1]), \
             f"bias_gelu_backward exact={exact}: not bit-equal"
-        b_ms, b_by = bound(3 * TRAIN_ROWS * Fw * 2 + 2 * Fw * 4,
-                           20 * TRAIN_ROWS * Fw)
+        c = costs.bias_gelu_bwd(TRAIN_ROWS, Fw, y.element_size())
+        b_ms, b_by = bound(c.bytes, c.flops)
         kern = lambda: fe.bias_gelu_backward(y, b, g, exact)  # noqa: E731
         approx = "none" if exact else "tanh"
         rec = {"kernel": "bias_gelu_backward", "exact": exact,
@@ -1323,7 +1343,8 @@ def check_sqnorm(dev, gen, n):
     torch.cuda.synchronize()
     rel = abs(float(got) - float(want)) / float(want)
     assert rel <= 1e-5, f"sqnorm: relative {rel}"
-    b_ms, b_by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+    c = costs.sqnorm_cost(n)
+    b_ms, b_by = bound(c.bytes, c.flops, FP32_FLOPS_PER_S)
     rec = {"kernel": "sqnorm", "shape": [n], "dtype": "fp32",
            "kernel_ms": time_ms(lambda: fu.sqnorm(g)),
            "plain_ms": time_ms(lambda: fu.sqnorm_plain(g), iters=20),
@@ -1364,10 +1385,10 @@ def check_fused_adam(dev, gen, n):
         if sc[5] > 0:
             assert torch.equal(p, p0), name
         del ref
-        p_b = p.element_size()
-        nbytes = n * (4 + p_b + 8 + p_b + 8 +
-                      (0 if cast is None else cast.element_size()))
-        b_ms, b_by = bound(nbytes, 20 * n, FP32_FLOPS_PER_S)
+        c = costs.fused_adam_cost(
+            n, p.element_size(), 0 if cast is None else cast.element_size())
+        nbytes = c.bytes
+        b_ms, b_by = bound(c.bytes, c.flops, FP32_FLOPS_PER_S)
         lib = None
         if p_dt == torch.float32:
             steps = [torch.tensor(3.0, device=dev)]
@@ -1428,7 +1449,8 @@ def check_fused_adam_sharded(dev, gen, sizes):
                     for d in range(dp))
         rel = abs(parts - whole) / whole
         assert rel <= 1e-6, ("sqnorm shard-local", dp, rel)
-        b_ms, b_by = bound(4 * n + 4, 2 * n, FP32_FLOPS_PER_S)
+        c = costs.sqnorm_cost(n)
+        b_ms, b_by = bound(c.bytes, c.flops, FP32_FLOPS_PER_S)
         rec = {"kernel": "sqnorm", "mode": "shard_local", "dp": dp,
                "shape": [n], "dtype": "fp32",
                "kernel_ms": time_ms(lambda: fu.sqnorm(g[:n])),
@@ -1484,10 +1506,11 @@ def check_fused_adam_sharded(dev, gen, sizes):
             same = all(torch.equal(a, b) for a, b in zip(S, W)
                        if a is not None)
             assert same, ("fused_adam shard-local", name, dp)
-            p_b = p.element_size()
-            nbytes = n * (4 + p_b + 8 + p_b + 8 +
-                          (0 if c_dt is None else S[3].element_size()))
-            b_ms, b_by = bound(nbytes, 20 * n, FP32_FLOPS_PER_S)
+            c = costs.fused_adam_cost(
+                n, p.element_size(),
+                0 if c_dt is None else S[3].element_size())
+            nbytes = c.bytes
+            b_ms, b_by = bound(c.bytes, c.flops, FP32_FLOPS_PER_S)
             sr = seed_row(0)
             rec = {"kernel": "fused_adam", "mode": "shard_local",
                    "flags": name, "dp": dp, "shape": [n],
@@ -1561,8 +1584,11 @@ def check_flash(dev, gen):
         qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
         q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
         do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
-        BH, N = B * nH, B * nH * S * D
-        pairs = BH * S * (S + 1) // 2
+        pairs = costs.causal_pairs(B, nH, S)
+        fwd_c, fused_c, dq_c, dkv_c = (
+            f(B, S, nH, D, pairs) for f in (
+                costs.flash_fwd_cost, costs.flash_bwd_fused_cost,
+                costs.flash_bwd_dq_cost, costs.flash_bwd_dkv_cost))
         # The library call's inputs, laid out and built outside its timing.
         sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
@@ -1583,7 +1609,7 @@ def check_flash(dev, gen):
         with torch.no_grad():
             out.append(_flash_record(
                 "flash_attention_fwd", case, B, S, drop, (o, lse), want,
-                again, 4 * N * 2 + BH * S * 4, 4 * D * pairs, fwd,
+                again, fwd_c.bytes, fwd_c.flops, fwd,
                 lambda: fa.flash_fwd_plain(q, k, v, True, scale, drop, seed),
                 sdpa, "F.scaled_dot_product_attention(is_causal=True)",
                 cold=case == "train", lse_max_abs_err=lse_err))
@@ -1597,12 +1623,11 @@ def check_flash(dev, gen):
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, (sq, sk, sv), sdo, retain_graph=True)
         plain = lambda: fa.flash_bwd_plain(*args)  # noqa: E731
-        lse_delta = 2 * BH * S * 4
         if fa.use_fused_bwd(S, S):
             kern = lambda: fa.flash_attention_bwd_fused(*args)  # noqa: E731
             out.append(_flash_record(
                 "flash_attention_bwd_fused", case, B, S, drop, kern(), want,
-                kern(), 7 * N * 2 + lse_delta, 10 * D * pairs, kern, plain,
+                kern(), fused_c.bytes, fused_c.flops, kern, plain,
                 lib_bwd, "F.scaled_dot_product_attention backward "
                 "(torch.autograd.grad)", device=True))
         else:
@@ -1616,11 +1641,11 @@ def check_flash(dev, gen):
                     "backward (torch.autograd.grad): dq, dk and dv"}
             out.append(_flash_record(
                 "flash_attention_bwd_dq", case, B, S, drop, kq(), want[:1],
-                kq(), 5 * N * 2 + lse_delta, 6 * D * pairs, kq, plain, None,
+                kq(), dq_c.bytes, dq_c.flops, kq, plain, None,
                 None, device=True, **pair))
             out.append(_flash_record(
                 "flash_attention_bwd_dkv", case, B, S, drop, kkv(), want[1:],
-                kkv(), 6 * N * 2 + lse_delta, 8 * D * pairs, kkv, plain,
+                kkv(), dkv_c.bytes, dkv_c.flops, kkv, plain,
                 None, None, device=True, **pair))
         del want, lib_out, sq, sk, sv
         torch.cuda.empty_cache()
@@ -1672,12 +1697,15 @@ def check_sparse(dev, gen):
         qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
         q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
         do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
-        BH, N = B * nH, B * nH * S * D
+        BH = B * nH
         keep = None if lay is None else \
             fa.layout_element_mask(lay, S, causal, dev)
         pairs = B * (int(keep.sum()) if keep is not None
                      else nH * S * (S + 1) // 2)
-        lse_delta = 2 * BH * S * 4
+        fwd_c, fused_c, dq_c, dkv_c = (
+            f(B, S, nH, D, pairs) for f in (
+                costs.flash_fwd_cost, costs.flash_bwd_fused_cost,
+                costs.flash_bwd_dq_cost, costs.flash_bwd_dkv_cost))
         extra = {"layout": None if lay is None else
                  ("bigbird" if lay is bigbird else "fixed"),
                  "kept_pairs": pairs, "causal": causal}
@@ -1723,7 +1751,7 @@ def check_sparse(dev, gen):
         with torch.no_grad():
             out.append(_flash_record(
                 name, case, B, S, drop, (o, lse), want, again,
-                4 * N * 2 + BH * S * 4, 4 * D * pairs, fwd, plain, sdpa,
+                fwd_c.bytes, fwd_c.flops, fwd, plain, sdpa,
                 lib_name, lse_max_abs_err=lse_err, **extra))
         del want, again
         if case == "dense_causal_s4096":
@@ -1751,11 +1779,11 @@ def check_sparse(dev, gen):
                 "(torch.autograd.grad over a built graph): dq, dk and dv"}
         out.append(_flash_record(
             names[0], case, B, S, drop, kq(), want[:1], kq(),
-            5 * N * 2 + lse_delta, 6 * D * pairs, kq, plain_b, None, None,
+            dq_c.bytes, dq_c.flops, kq, plain_b, None, None,
             **pair, **extra))
         out.append(_flash_record(
             names[1], case, B, S, drop, kkv(), want[1:], kkv(),
-            6 * N * 2 + lse_delta, 8 * D * pairs, kkv, plain_b, None, None,
+            dkv_c.bytes, dkv_c.flops, kkv, plain_b, None, None,
             **pair, **extra))
         if case.startswith("sparse"):
             kf = lambda: sf.sparse_flash_bwd_fused(*args)  # noqa: E731
@@ -1763,7 +1791,7 @@ def check_sparse(dev, gen):
             ws = BH * plan.slots_per_head * plan.tile * D * 4
             out.append(_flash_record(
                 "sparse_flash_bwd_fused", case, B, S, drop, kf(), want, kf(),
-                7 * N * 2 + lse_delta, 10 * D * pairs, kf, plain_b, lib_bwd,
+                fused_c.bytes, fused_c.flops, kf, plain_b, lib_bwd,
                 "the library's backward alone (torch.autograd.grad over a "
                 "built graph)", dq_partials_workspace_bytes=ws, **extra))
         del want, lib_out, sq, sk, sv, keep, mask
@@ -1885,10 +1913,9 @@ def check_grouped_gemm(dev, gen):
             within = max(within, _gg_within(got, epi, name,
                                             torch.zeros_like(terms)))
         assert within <= 1.0, (case, name, within)
-        isz = a.element_size()
-        nbytes = (E * M * K + E * K * N + E * M * N) * isz + \
-            (0 if bias is None else E * N * 4)
-        flops = 2.0 * E * M * K * N
+        c = costs.grouped_gemm_cost(E, M, K, N, a.element_size(),
+                                    bias is not None)
+        nbytes, flops = c.bytes, c.flops
         b_ms, b_by = bound(nbytes, flops, FP32_FLOPS_PER_S
                            if dt == torch.float32 else BF16_FLOPS_PER_S)
         bias_dt = None if bias is None else bias.to(dt)[:, None, :]
@@ -2280,6 +2307,161 @@ def train_gpt2_small(dev, smi):
     torch.cuda.empty_cache()
     return counts
 
+
+
+# --------------------------------------------------------------------- #
+# Phase 5a: training telemetry at gpt2-small
+# --------------------------------------------------------------------- #
+TELEMETRY_STEPS = 30
+TELEMETRY_REPORT = 10
+TELEMETRY_PROFILE_STEP = 5
+# Host syncs are counted over the steps strictly between the second and
+# the third report boundaries (global steps 21-29, batch indices 20-28).
+TELEMETRY_SYNC_STEPS = range(20, 29)
+TELEMETRY_OVERHEAD = 1.10
+
+
+def train_telemetry(dev, smi, out_dir):
+    """The main training recipe at gpt2-small (bf16, fp32 masters,
+    AdamW, clip 1.0, gas 2 x 8 x 1024, dropout 0.1) on two engines from
+    seed 0, interleaved a step at a time over the Markov stream: one
+    with ``telemetry`` on (report_steps 10, a trace, the health taps, the
+    cost model) and ``flops_profiler`` at step 5, one with neither.
+    Fails unless the losses are bit-equal, the host syncs a step between
+    boundaries are equal (and 0), the stream holds its meta, 30 steps, 3
+    reports, its cost model and its final record with nothing dropped and
+    no recompile, ``tools/telemetry_report.py`` reads it, and the
+    telemetry-on step p50 is within 1.10 x the telemetry-off one. The
+    path's launch counts are the telemetry-on engine's steps'."""
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    free_card()
+    batches = token_stream(cfg, TELEMETRY_STEPS, seed=0)
+    trace = os.path.join(out_dir, "trace.json")
+    tel = {"enabled": True, "output_path": out_dir, "job_name": "train",
+           "report_steps": TELEMETRY_REPORT, "trace_path": trace,
+           "health": {"grad_taps": True}, "cost_model": True}
+    prof = {"enabled": True, "profile_step": TELEMETRY_PROFILE_STEP,
+            "top_modules": 5, "detailed": False}
+    log = io.StringIO()
+    engines = {"on": make_engine(cfg, "bf16", seed=0, extra={
+        "telemetry": tel, "flops_profiler": prof}),
+        "off": make_engine(cfg, "bf16", seed=0)}
+    torch.cuda.reset_peak_memory_stats()
+    losses = {k: [] for k in engines}
+    ms = {k: [] for k in engines}
+    syncs = {k: 0 for k in engines}
+    counts = {name: 0 for name in ops.launch_counts()}
+    for i, b in enumerate(batches):
+        for name, eng in engines.items():
+            st = torch.cuda.Event(enable_timing=True)
+            en = torch.cuda.Event(enable_timing=True)
+            if name == "on":
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+
+            def step():
+                st.record()
+                losses[name].append(eng.train_batch(b))
+                en.record()
+            if i in TELEMETRY_SYNC_STEPS:
+                syncs[name] += step_host_syncs(step)
+            elif name == "on" and i == TELEMETRY_PROFILE_STEP:
+                with contextlib.redirect_stdout(log):
+                    step()
+            else:
+                step()
+            ms[name].append((st, en))
+            if name == "on":
+                torch.cuda.synchronize()
+                for k, v in ops.launch_counts().items():
+                    counts[k] += v
+    torch.cuda.synchronize()
+    del eng, step
+    ms = {k: [a.elapsed_time(e) for a, e in v] for k, v in ms.items()}
+    losses = {k: [float(x) for x in v] for k, v in losses.items()}
+    peak = torch.cuda.max_memory_allocated()
+    on = engines["on"]
+    on.close()
+    with open(os.path.join(out_dir, "train.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    kinds = [r["kind"] for r in recs]
+    steps = [r for r in recs if r["kind"] == "step"]
+    reports = [r for r in recs if r["kind"] == "report"]
+    cm = next((r for r in recs if r["kind"] == "cost_model"), None)
+    events = [r["event"] for r in recs if r["kind"] == "event"]
+    summary_path = os.path.join(out_dir, "TELEMETRY.json")
+    tool = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "telemetry_report.py"),
+         os.path.join(out_dir, "train.jsonl"), "-o", summary_path],
+        capture_output=True, text=True, timeout=120)
+    with open(trace) as f:
+        spans = [e for e in json.load(f) if e.get("ph") == "X"]
+    p50 = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    mfu = [r["mfu"] for r in steps if "mfu" in r]
+    res = on.flops_profiler.result
+    tokens = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
+    analytic = tokens * gpt2_flops_per_token(cfg, TRAIN_SEQ)
+    mem = reports[-1].get("memory", {}) if reports else {}
+    rec = {
+        "steps": TELEMETRY_STEPS, "report_steps": TELEMETRY_REPORT,
+        "step_ms_p50_on": p50["on"], "step_ms_p50_off": p50["off"],
+        "p50_ratio": p50["on"] / p50["off"],
+        "step_ms_on": ms["on"], "step_ms_off": ms["off"],
+        "mfu_p50": float(np.median(mfu)) if mfu else None,
+        "cost_model": None if cm is None else {
+            "bound": cm["step"]["bound"],
+            "floor_ms": cm["step"]["floor_ms"],
+            "flops_per_step": cm["step"]["flops_per_step"],
+            "bytes_per_step_per_device":
+                cm["step"]["bytes_per_step_per_device"],
+            "chip": cm["chip"],
+            "paths": {k: {"flops": v.get("analytic_flops"),
+                          "bytes": v.get("hbm_bytes_per_device"),
+                          "bound": v.get("bound"),
+                          "kernels": v.get("kernels")}
+                      for k, v in cm["paths"].items()}},
+        "analytic_flops_per_step": analytic,
+        "walked_over_analytic": None if cm is None else
+        cm["step"]["flops_per_step"] / analytic,
+        "memory_sample": {k: mem.get(k) for k in (
+            "peak_bytes_in_use_max", "bytes_in_use_max", "bytes_limit_max")},
+        "max_memory_allocated": peak,
+        "analytic_state_bytes": recs[0].get("analytic_state_bytes"),
+        "flops_profiler_top": {d: [[p, f] for p, f, _ in
+                                   res.top_modules(6, depth=d)]
+                               for d in (1, 6, 8)} if res else None,
+        "flops_profiler_total": None if res is None else res.total_flops,
+        "trace_spans": len(spans), "host_syncs": syncs,
+        "kinds": {k: kinds.count(k) for k in set(kinds)},
+        "events": events, "report_tool_rc": tool.returncode,
+        "report_tool": tool.stdout.strip()[-300:],
+        "losses_bit_equal": losses["on"] == losses["off"],
+        "launches_per_step": {k: v // TELEMETRY_STEPS
+                              for k, v in nonzero(counts).items()},
+        "card": smi}
+    emit({"train_telemetry": rec})
+    del engines, on
+    free_card()
+    expect = per_train_step(cfg)
+    assert rec["losses_bit_equal"], losses
+    assert syncs["on"] == syncs["off"] == 0, syncs
+    assert kinds[0] == "meta" and kinds[-1] == "final", kinds[:3]
+    assert kinds.count("step") == TELEMETRY_STEPS and \
+        kinds.count("report") == TELEMETRY_STEPS // TELEMETRY_REPORT and \
+        kinds.count("cost_model") == 1, rec["kinds"]
+    assert all(r["dropped_records"] == 0 for r in reports), reports
+    assert "recompile" not in events and "cost_model_error" not in events, \
+        events
+    assert tool.returncode == 0, tool.stderr[-2000:]
+    assert len(mfu) == TELEMETRY_STEPS and all(m > 0 for m in mfu), mfu
+    assert res is not None and res.total_flops > 0
+    # (the fp32 masters and two moments and the bf16 copy at least)
+    assert rec["analytic_state_bytes"] >= 14 * gpt2_num_params(cfg), \
+        rec["analytic_state_bytes"]
+    assert rec["p50_ratio"] <= TELEMETRY_OVERHEAD, rec["p50_ratio"]
+    assert counts == {k: TELEMETRY_STEPS * v for k, v in expect.items()}, \
+        counts
+    return {"train_telemetry": counts}
 
 
 # --------------------------------------------------------------------- #
@@ -4428,6 +4610,8 @@ def main():
     counts.update(serve_extras(dev, serve_params, serve_reports))
     del serve_params, serve_reports
     counts.update(train_gpt2_small(dev, smi))
+    with tempfile.TemporaryDirectory() as tel_dir:
+        counts.update(train_telemetry(dev, smi, tel_dir))
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
     counts.update(train_remat(dev, smi))

@@ -240,12 +240,101 @@ MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
 # MeshConfig.num_slices, above 1 refused).
 MESH_NUM_SLICES = "slices"
 MESH_NUM_SLICES_DEFAULT = 1
+# The flops profiler (profiling/flops_profiler): one training step's
+# per-module table at global step profile_step.
 FLOPS_PROFILER = "flops_profiler"
 FLOPS_PROFILER_ENABLED = "enabled"
 FLOPS_PROFILER_ENABLED_DEFAULT = False
+FLOPS_PROFILER_PROFILE_STEP = "profile_step"
+FLOPS_PROFILER_PROFILE_STEP_DEFAULT = 1
+FLOPS_PROFILER_MODULE_DEPTH = "module_depth"
+FLOPS_PROFILER_MODULE_DEPTH_DEFAULT = -1
+FLOPS_PROFILER_TOP_MODULES = "top_modules"
+FLOPS_PROFILER_TOP_MODULES_DEFAULT = 1
+FLOPS_PROFILER_DETAILED = "detailed"
+FLOPS_PROFILER_DETAILED_DEFAULT = True
+
+# Telemetry (monitor/): the JAX package's keys and defaults. Per-step
+# records ride a ring buffer drained to JSONL at report boundaries.
 TELEMETRY = "telemetry"
 TELEMETRY_ENABLED = "enabled"
 TELEMETRY_ENABLED_DEFAULT = False
+TELEMETRY_OUTPUT_PATH = "output_path"
+TELEMETRY_OUTPUT_PATH_DEFAULT = ""
+TELEMETRY_JOB_NAME = "job_name"
+TELEMETRY_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+# Ring capacity between drains (overflow drops the oldest records and
+# the drain reports how many); drain cadence in steps (0 =
+# steps_per_print); the Chrome-trace path ("" = no spans).
+TELEMETRY_BUFFER_SIZE = "buffer_size"
+TELEMETRY_BUFFER_SIZE_DEFAULT = 1024
+TELEMETRY_REPORT_STEPS = "report_steps"
+TELEMETRY_REPORT_STEPS_DEFAULT = 0
+TELEMETRY_TRACE_PATH = "trace_path"
+TELEMETRY_TRACE_PATH_DEFAULT = ""
+# Recompile sentinel: a new argument signature on an instrumented step
+# path after its warmup calls is an event (fail_on_recompile raises).
+TELEMETRY_FAIL_ON_RECOMPILE = "fail_on_recompile"
+TELEMETRY_FAIL_ON_RECOMPILE_DEFAULT = False
+TELEMETRY_RECOMPILE_WARMUP = "recompile_warmup_calls"
+TELEMETRY_RECOMPILE_WARMUP_DEFAULT = 2
+# Device-memory watermark: peak > analytic * ratio + slack is an event.
+TELEMETRY_MEMORY_WATERMARKS = "memory_watermarks"
+TELEMETRY_MEMORY_WATERMARKS_DEFAULT = True
+TELEMETRY_WATERMARK_RATIO = "watermark_ratio"
+TELEMETRY_WATERMARK_RATIO_DEFAULT = 2.0
+TELEMETRY_WATERMARK_SLACK_BYTES = "watermark_slack_bytes"
+TELEMETRY_WATERMARK_SLACK_BYTES_DEFAULT = 256 * 2 ** 20
+# The profiler capture window: the flat keys, and the nested block that
+# wins over them (parsed and validated; arming a window is not ported).
+TELEMETRY_PROFILE_START_STEP = "profile_start_step"
+TELEMETRY_PROFILE_START_STEP_DEFAULT = -1
+TELEMETRY_PROFILE_NUM_STEPS = "profile_num_steps"
+TELEMETRY_PROFILE_NUM_STEPS_DEFAULT = 1
+TELEMETRY_PROFILE_DIR = "profile_dir"
+TELEMETRY_PROFILE_DIR_DEFAULT = ""
+TELEMETRY_PROFILE = "profile"
+TELEMETRY_PROFILE_BLOCK_START = "start_step"
+TELEMETRY_PROFILE_BLOCK_START_DEFAULT = -1
+TELEMETRY_PROFILE_BLOCK_STEPS = "window_steps"
+TELEMETRY_PROFILE_BLOCK_STEPS_DEFAULT = 2
+TELEMETRY_PROFILE_BLOCK_DIR = "out_dir"
+TELEMETRY_PROFILE_BLOCK_DIR_DEFAULT = ""
+TELEMETRY_PROFILE_THRESHOLD = "divergence_threshold"
+TELEMETRY_PROFILE_THRESHOLD_DEFAULT = 3.0
+TELEMETRY_PROFILE_HOST_FRAC = "host_frac"
+TELEMETRY_PROFILE_HOST_FRAC_DEFAULT = 0.10
+# The roofline cost model, built once at the first report boundary.
+TELEMETRY_COST_MODEL = "cost_model"
+TELEMETRY_COST_MODEL_DEFAULT = True
+# Rank K > 0 writes <job>.rankK.jsonl instead of discarding its records.
+TELEMETRY_PER_HOST = "per_host_shards"
+TELEMETRY_PER_HOST_DEFAULT = False
+# telemetry.health: the per-leaf grad tap, EWMA spike detection, the hang
+# watchdog (off by default) and the crash flight recorder.
+TELEMETRY_HEALTH = "health"
+TELEMETRY_HEALTH_ENABLED = "enabled"
+TELEMETRY_HEALTH_ENABLED_DEFAULT = True
+TELEMETRY_HEALTH_GRAD_TAPS = "grad_taps"
+TELEMETRY_HEALTH_GRAD_TAPS_DEFAULT = True
+TELEMETRY_HEALTH_Z_THRESHOLD = "z_threshold"
+TELEMETRY_HEALTH_Z_THRESHOLD_DEFAULT = 6.0
+TELEMETRY_HEALTH_EWMA_ALPHA = "ewma_alpha"
+TELEMETRY_HEALTH_EWMA_ALPHA_DEFAULT = 0.1
+TELEMETRY_HEALTH_WARMUP_STEPS = "warmup_steps"
+TELEMETRY_HEALTH_WARMUP_STEPS_DEFAULT = 20
+TELEMETRY_HEALTH_WATCHDOG = "watchdog"
+TELEMETRY_HEALTH_WATCHDOG_DEFAULT = False
+TELEMETRY_HEALTH_WATCHDOG_FACTOR = "watchdog_factor"
+TELEMETRY_HEALTH_WATCHDOG_FACTOR_DEFAULT = 10.0
+TELEMETRY_HEALTH_WATCHDOG_MIN_S = "watchdog_min_s"
+TELEMETRY_HEALTH_WATCHDOG_MIN_S_DEFAULT = 120.0
+TELEMETRY_HEALTH_FLIGHT = "flight_recorder"
+TELEMETRY_HEALTH_FLIGHT_DEFAULT = True
+TELEMETRY_HEALTH_FLIGHT_PATH = "flight_path"
+TELEMETRY_HEALTH_FLIGHT_PATH_DEFAULT = ""
+TELEMETRY_HEALTH_FLIGHT_WINDOW = "flight_window"
+TELEMETRY_HEALTH_FLIGHT_WINDOW_DEFAULT = 64
 # The tensorboard block, an alias of telemetry as in the JAX package
 # (``telemetry.enabled`` defaults to ``tensorboard.enabled``; an explicit
 # telemetry key wins).

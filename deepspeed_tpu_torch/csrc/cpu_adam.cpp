@@ -26,14 +26,14 @@
 // inline: half the gradient traffic and no host cast pass.
 //
 // Team size. Adam is elementwise, so its bits do not depend on how many
-// OpenMP threads run a call. The squared norms split the span into one
-// contiguous chunk a thread (schedule(static)'s split), sum each chunk
-// in one SIMD reduction and add the chunks' partials in thread order:
-// for a given team the same bits on every call (an OpenMP reduction
-// clause adds them in the order the threads finish), and on a team of
-// one the JAX library's loop exactly. A caller that needs the same bits
-// from two call sites fixes the calling thread's team with
-// ds_omp_set_threads.
+// OpenMP threads run a call. The squared norms sum in numpy's order for
+// a float64 `np.sum` (what the JAX module's numpy path computes): the
+// span in blocks of 8192 elements, each block summed pairwise (eight
+// accumulators over runs of at most 128, halves rounded down to a
+// multiple of 8), the blocks' sums added in index order. The order is
+// fixed by the span's length alone, so the bits depend neither on the
+// team (threads take whole blocks) nor on the host's SIMD width; each
+// square is stored before it is added, so no multiply-add contracts it.
 
 #include <cstdint>
 #include <cmath>
@@ -98,30 +98,60 @@ inline void adam_step(float* __restrict params, const G* __restrict grads,
   }
 }
 
-// Squared L2 norm of a scaled gradient span (fp64 partials), added in
-// thread order (see "Team size" above).
+// numpy's block of a reduction (its ufunc buffer size) and the run that
+// its pairwise sum adds with eight accumulators.
+constexpr int64_t kNormBlock = 8192;
+constexpr int64_t kPairwiseRun = 128;
+
+// numpy's pairwise sum of sq[0..n) (pairwise_sum_DOUBLE).
+inline double pairwise_sum(const double* sq, int64_t n) {
+  if (n < 8) {
+    double res = 0.0;
+    for (int64_t i = 0; i < n; ++i) res += sq[i];
+    return res;
+  }
+  if (n <= kPairwiseRun) {
+    double r[8];
+    for (int j = 0; j < 8; ++j) r[j] = sq[j];
+    int64_t i = 8;
+    for (; i < n - (n % 8); i += 8)
+      for (int j = 0; j < 8; ++j) r[j] += sq[i + j];
+    double res = ((r[0] + r[1]) + (r[2] + r[3])) +
+                 ((r[4] + r[5]) + (r[6] + r[7]));
+    for (; i < n; ++i) res += sq[i];
+    return res;
+  }
+  int64_t n2 = n / 2;
+  n2 -= n2 % 8;
+  return pairwise_sum(sq, n2) + pairwise_sum(sq + n2, n - n2);
+}
+
+// Squared L2 norm of a scaled gradient span: each element widened to
+// fp64 and scaled there, squared, and summed in numpy's order (see
+// "Team size" above).
 template <typename G>
 inline double norm_sq(const G* __restrict grads, int64_t n,
-                      float grad_scale) {
-  std::vector<double> partial(omp_get_max_threads(), 0.0);
-  int team = 1;
+                      double grad_scale) {
+  const int64_t blocks = (n + kNormBlock - 1) / kNormBlock;
+  std::vector<double> partial(blocks, 0.0);
 #pragma omp parallel
   {
-    const int nt = omp_get_num_threads(), t = omp_get_thread_num();
-    const int64_t q = n / nt, r = n % nt;
-    const int64_t lo = t * q + (t < r ? t : r);
-    const int64_t hi = lo + q + (t < r ? 1 : 0);
-    double acc = 0.0;
-#pragma omp simd reduction(+ : acc)
-    for (int64_t i = lo; i < hi; ++i) {
-      double g = (double)(widen(grads[i]) * grad_scale);
-      acc += g * g;
+    std::vector<double> sq(kNormBlock);
+#pragma omp for schedule(static)
+    for (int64_t b = 0; b < blocks; ++b) {
+      const int64_t lo = b * kNormBlock;
+      const int64_t len = n - lo < kNormBlock ? n - lo : kNormBlock;
+      double* __restrict out = sq.data();
+#pragma omp simd
+      for (int64_t i = 0; i < len; ++i) {
+        const double g = (double)widen(grads[lo + i]) * grad_scale;
+        out[i] = g * g;
+      }
+      partial[b] = pairwise_sum(out, len);
     }
-    partial[t] = acc;
-    if (t == 0) team = nt;
   }
   double acc = 0.0;
-  for (int t = 0; t < team; ++t) acc += partial[t];
+  for (int64_t b = 0; b < blocks; ++b) acc += partial[b];
   return acc;
 }
 
@@ -196,16 +226,16 @@ void ds_adam_step_bf16g(float* __restrict params,
                              weight_decay, adamw_mode, grad_scale);
 }
 
-// Squared L2 norm of a scaled bf16 gradient span (fp64 partials).
+// Squared L2 norm of a scaled bf16 gradient span (numpy's fp64 order).
 double ds_grad_norm_sq_bf16(const uint16_t* __restrict grads_bf16, int64_t n,
-                            float grad_scale) {
+                            double grad_scale) {
   return norm_sq(grads_bf16, n, grad_scale);
 }
 
 // Squared L2 norm of a scaled fp32 gradient span (the overflow vote and
 // the clip coefficient of an offloaded step are decided on the host).
 double ds_grad_norm_sq(const float* __restrict grads, int64_t n,
-                       float grad_scale) {
+                       double grad_scale) {
   return norm_sq(grads, n, grad_scale);
 }
 

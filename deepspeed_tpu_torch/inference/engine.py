@@ -55,12 +55,11 @@ from . import kv_cache
 from .quantize import (dequantize, is_quantized_leaf, quantize_params,
                        quantized_bytes, resolve_kv_dtype)
 from .spec import NGramDrafter
-from .. import constants as C
 from ..models.gpt2 import GPT2Config, gpt2_init
 from ..monitor.serving import ServingAggregator
 from ..monitor.serving_slo import ServingGoodputLedger, SLOTracker
 from ..ops import paged_attention as paged_attn_ops
-from ..runtime.config import InferenceConfig
+from ..runtime.config import InferenceConfig, TelemetryConfig
 from ..runtime.config_utils import load_config_json
 from ..runtime.flax_msgpack import msgpack_restore
 from ..utils.device import resolve_device
@@ -100,15 +99,6 @@ def prepare_params(params: Dict[str, Any], dtype: torch.dtype,
                 not is_quantized_leaf(v) else leaf(k, v)
                 for k, v in tree.items()}
     return walk(params)
-
-
-def _telemetry_enabled(config: Dict[str, Any]) -> bool:
-    """The JAX ``TelemetryConfig.enabled``: ``telemetry.enabled``,
-    defaulting to ``tensorboard.enabled`` (its alias)."""
-    tb = config.get(C.TENSORBOARD, {}) or {}
-    return bool((config.get(C.TELEMETRY, {}) or {}).get(
-        C.TELEMETRY_ENABLED, tb.get(C.TENSORBOARD_ENABLED,
-                                    C.TENSORBOARD_ENABLED_DEFAULT)))
 
 
 class InferenceEngine:
@@ -155,11 +145,13 @@ class InferenceEngine:
             raise NotImplementedError(
                 "fused_kernels=False has no CUDA path in the port — the "
                 "LayerNorm and bias+GELU kernels are its only ones")
-        if _telemetry_enabled(config):
+        if TelemetryConfig(config).enabled:
             raise NotImplementedError(
                 "telemetry (or its tensorboard alias) is not ported to the "
-                "serving engine yet (ROADMAP queue 1 item 3: telemetry, "
-                "the monitors and the flops profiler)")
+                "serving engine yet (ROADMAP queue 1 item 3, its serving "
+                "half: monitor/request_trace.py, the serving engine's "
+                "step telemetry and the router's and scheduler's traces; "
+                "the training engine's telemetry is ported)")
         self.spec_k = int(self.icfg.spec_k)
         self.replica = str(self.icfg.replica)
         self.dp = 1

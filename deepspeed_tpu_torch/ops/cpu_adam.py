@@ -15,7 +15,7 @@ The library is built with the host's C++ compiler at first use
 (``op_builder.load_host``). There is no fallback: a missing compiler or
 a failed build raises. ``cpu_adam_plain`` and ``grad_norm_sq_plain``
 are the same step and norm in plain torch ops (the JAX module's
-``_numpy_step``, and fp64 norm partials), for the tests and the card
+``_numpy_step``, and the fp64 norm), for the tests and the card
 smoke to hold the kernel against; the engine never calls them.
 
 Team size. Each call runs with the OpenMP team ``threads`` (default:
@@ -23,10 +23,11 @@ OpenMP's own default, read once at load; a call on a leaf of fewer than
 ``MIN_PER_THREAD`` elements a thread takes fewer threads), set on the
 calling thread for the call and restored after it (the process shares
 one OpenMP runtime with torch's CPU ops). Adam is elementwise, so its
-bits do not depend on the team. A norm's depend on the team it runs on
-and on nothing else: each thread sums one contiguous chunk and the
-chunks' partials are added in thread order, so two calls on the same
-team give the same bits, and a team of one gives the JAX library's.
+bits do not depend on the team. Nor do a norm's: it sums the fp64
+squares in numpy's order for ``np.sum`` (pairwise within blocks of 8192
+elements, the blocks in index order; threads take whole blocks), so on
+any team and any host it gives the bits of the JAX module's numpy path
+(``DeepSpeedCPUAdam.grad_norm_sq`` without its library).
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 _F = ctypes.c_float
+_D = ctypes.c_double
 _ADAM = [_P, _P, _P, _P, _I64, _I32, _F, _F, _F, _F, _F, _I32, _F]
 _ADAM_COPY = [_P, _P, _P, _P, _P, _I64, _I32, _F, _F, _F, _F, _F, _I32, _F]
 
@@ -55,8 +57,8 @@ HOST_SIGNATURES = {
     "ds_adam_step_plus_copy": (_ADAM_COPY, None),
     "ds_adam_step_plus_copy_bf16g": (_ADAM_COPY, None),
     "ds_adam_step_bf16g": (_ADAM, None),
-    "ds_grad_norm_sq_bf16": ([_P, _I64, _F], ctypes.c_double),
-    "ds_grad_norm_sq": ([_P, _I64, _F], ctypes.c_double),
+    "ds_grad_norm_sq_bf16": ([_P, _I64, _D], _D),
+    "ds_grad_norm_sq": ([_P, _I64, _D], _D),
     "ds_omp_set_threads": ([_I32], None),
     "ds_omp_max_threads": ([], _I32),
     "ds_stream_adam_traffic": ([_P, _P, _P, _P, _P, _I64], None),
@@ -411,9 +413,9 @@ def adam_ulp_gaps(p0: torch.Tensor, g: torch.Tensor, m0: torch.Tensor,
 
 
 def grad_norm_sq_plain(g: torch.Tensor, grad_scale: float = 1.0) -> float:
-    """Squared L2 norm of ``g * grad_scale`` (the product in fp32, the
-    squares summed in fp64)."""
-    gd = (g.to(torch.float32) * grad_scale).to(torch.float64)
+    """Squared L2 norm of ``g * grad_scale`` (the product and the sum of
+    the squares in fp64, torch's order)."""
+    gd = g.to(torch.float64) * grad_scale
     return float(torch.sum(gd * gd))
 
 

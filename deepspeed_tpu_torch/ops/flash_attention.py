@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from . import op_builder
+from . import costs
 
 NEG_INF = -1e30
 # The JAX package's default forward block target (DS_FLASH_BLOCK); it
@@ -323,6 +324,7 @@ def _gate(name: str, q, layout) -> tuple:
     return layout.data_ptr(), nb, S // nb
 
 
+@costs.declares("K1", costs.flash_fwd_decl)
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float, dropout: float = 0.0,
                         seed: Optional[torch.Tensor] = None,
@@ -346,6 +348,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+@costs.declares("K2a", costs.flash_bwd_dq_decl)
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
                            scale: float, dropout: float = 0.0, seed=None,
                            layout=None) -> torch.Tensor:
@@ -367,6 +370,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
     return dq
 
 
+@costs.declares("K2b", costs.flash_bwd_dkv_decl)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
                             scale: float, dropout: float = 0.0, seed=None,
                             layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -389,6 +393,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
     return dk, dv
 
 
+@costs.declares("K2c", costs.flash_bwd_fused_decl)
 def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal: bool,
                               scale: float, dropout: float = 0.0, seed=None
                               ) -> Tuple[torch.Tensor, torch.Tensor,

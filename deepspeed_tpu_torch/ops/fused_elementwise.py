@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import op_builder
+from . import costs
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 _GELU_C = 0.044715
@@ -179,6 +180,7 @@ def _vec32(v: torch.Tensor, n: int, device: torch.device,
     return v.detach().to(torch.float32).contiguous()
 
 
+@costs.declares("K3f", costs.ln_forward_decl)
 def _ln_forward(x: torch.Tensor, delta: Optional[torch.Tensor],
                 scale: torch.Tensor, bias: torch.Tensor, eps: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -209,6 +211,7 @@ def _ln_forward(x: torch.Tensor, delta: Optional[torch.Tensor],
     return s, y
 
 
+@costs.declares("K3b", costs.ln_backward_decl)
 def layer_norm_backward(s: torch.Tensor, scale: torch.Tensor,
                         dy: torch.Tensor, gs: Optional[torch.Tensor],
                         eps: float = 1e-5
@@ -251,6 +254,7 @@ def layer_norm_backward(s: torch.Tensor, scale: torch.Tensor,
 layer_norm_backward.launches = 0
 
 
+@costs.declares("K4f", costs.gelu_forward_decl)
 def _bias_gelu_forward(y: torch.Tensor, bias: torch.Tensor,
                        exact: bool = False) -> torch.Tensor:
     """K4f: ``gelu(y + bias)``, the erf form where ``exact``."""
@@ -269,6 +273,7 @@ def _bias_gelu_forward(y: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+@costs.declares("K4b", costs.gelu_backward_decl)
 def bias_gelu_backward(y: torch.Tensor, bias: torch.Tensor,
                        g: torch.Tensor, exact: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from . import op_builder
+from . import costs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _U32 = 0xFFFFFFFF
@@ -437,6 +438,7 @@ def _check(name: str, dev: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+@costs.declares("K5", costs.sqnorm_decl)
 def sqnorm(g: torch.Tensor) -> torch.Tensor:
     """K5: the sum of squares of a flat fp32 buffer (a 0-dim tensor)."""
     if g.device.type == "cpu":
@@ -460,6 +462,7 @@ def sqnorm(g: torch.Tensor) -> torch.Tensor:
 sqnorm.launches = 0
 
 
+@costs.declares("K6", costs.fused_adam_decl)
 def fused_adam_apply(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor,
                      v: torch.Tensor, scalars: torch.Tensor,
                      seed: torch.Tensor, *, b1: float, b2: float,

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from . import op_builder
+from . import costs
 from .fused_elementwise import gelu_f32
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -208,6 +209,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@costs.declares("K9", costs.grouped_gemm_decl)
 def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
                    act: Optional[str] = None,

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from . import op_builder
+from . import costs
 
 # Masking constant of the TPU kernel (deepspeed_tpu ops/flash_attention.py).
 NEG_INF = -1e30
@@ -189,6 +190,7 @@ def _check_args(q, pool_k, pool_v, block_tables, positions) -> None:
                         "be int32")
 
 
+@costs.declares("K10", costs.paged_attention_decl)
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, block_tables: torch.Tensor,
                     positions: torch.Tensor, scale: float) -> torch.Tensor:

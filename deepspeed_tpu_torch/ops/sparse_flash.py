@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import op_builder
+from . import costs
 from .flash_attention import (_TILE, _check, _common, flash_bwd_plain,
                               flash_delta, flash_fwd_plain)
 
@@ -283,6 +284,7 @@ def _launch(name: str, kind: int, q, k, v, layout, causal: bool,
     op_builder.check(rc, name)
 
 
+@costs.declares("K7", costs.sparse_fwd_decl)
 def sparse_flash_fwd(q, k, v, layout, causal: bool, scale: float,
                      dropout: float = 0.0, seed=None, widen: int = 1,
                      qwiden: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -300,6 +302,7 @@ def sparse_flash_fwd(q, k, v, layout, causal: bool, scale: float,
     return o, lse
 
 
+@costs.declares("K8b", costs.sparse_bwd_dq_decl)
 def sparse_flash_bwd_dq(q, k, v, do, lse, delta, layout, causal: bool,
                         scale: float, dropout: float = 0.0, seed=None,
                         widen: int = 1, qwiden: int = 1) -> torch.Tensor:
@@ -315,6 +318,7 @@ def sparse_flash_bwd_dq(q, k, v, do, lse, delta, layout, causal: bool,
     return dq
 
 
+@costs.declares("K8c", costs.sparse_bwd_dkv_decl)
 def sparse_flash_bwd_dkv(q, k, v, do, lse, delta, layout, causal: bool,
                          scale: float, dropout: float = 0.0, seed=None,
                          widen: int = 1, qwiden: int = 1
@@ -333,6 +337,7 @@ def sparse_flash_bwd_dkv(q, k, v, do, lse, delta, layout, causal: bool,
     return dk, dv
 
 
+@costs.declares("K8a", costs.sparse_bwd_fused_decl)
 def sparse_flash_bwd_fused(q, k, v, do, lse, delta, layout, causal: bool,
                            scale: float, dropout: float = 0.0, seed=None,
                            widen: int = 1, qwiden: int = 1

@@ -6,7 +6,8 @@ ds_config dict drives either engine. The port parses the keys of its
 one-card training path (the batch triple, precision, optimizer,
 scheduler, clipping, ZeRO, the ``sparse_attention`` section, the
 ``moe`` block, the ``checkpoint`` block, ``progressive_layer_drop``,
-``activation_checkpointing`` and ``elasticity``, which rewrites the
+``activation_checkpointing``, ``telemetry`` with its ``tensorboard``
+alias, ``flops_profiler`` and ``elasticity``, which rewrites the
 batch triple before the solver runs) and, for
 the blocks of features it does not
 run yet, just enough to tell whether they are enabled:
@@ -28,6 +29,252 @@ from ..utils.logging import logger
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+class FlopsProfilerConfig:
+    """The ``flops_profiler`` block (profiling/flops_profiler)."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.FLOPS_PROFILER, {})
+        get = config_utils.get_scalar_param
+        self.enabled = get(d, C.FLOPS_PROFILER_ENABLED, C.FLOPS_PROFILER_ENABLED_DEFAULT)
+        self.profile_step = get(d, C.FLOPS_PROFILER_PROFILE_STEP,
+                                C.FLOPS_PROFILER_PROFILE_STEP_DEFAULT)
+        self.module_depth = get(d, C.FLOPS_PROFILER_MODULE_DEPTH,
+                                C.FLOPS_PROFILER_MODULE_DEPTH_DEFAULT)
+        self.top_modules = get(d, C.FLOPS_PROFILER_TOP_MODULES,
+                               C.FLOPS_PROFILER_TOP_MODULES_DEFAULT)
+        self.detailed = get(d, C.FLOPS_PROFILER_DETAILED, C.FLOPS_PROFILER_DETAILED_DEFAULT)
+
+
+class TensorboardConfig:
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.TENSORBOARD, {})
+        get = config_utils.get_scalar_param
+        self.enabled = get(d, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT)
+        self.output_path = get(d, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.job_name = get(d, C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT)
+
+
+class TelemetryHealthConfig:
+    """The ``telemetry.health`` block (monitor/health.py + flight.py):
+    anomaly detection with NaN/Inf provenance, the hang watchdog, and
+    the crash flight recorder. Enabled by default whenever telemetry is
+    on — detection is drain-time host work; the watchdog (a daemon
+    thread) is the one opt-in."""
+
+    def __init__(self, d: Optional[Dict[str, Any]] = None):
+        d = d or {}
+        get = config_utils.get_scalar_param
+        self.enabled = get(d, C.TELEMETRY_HEALTH_ENABLED,
+                           C.TELEMETRY_HEALTH_ENABLED_DEFAULT)
+        self.grad_taps = get(d, C.TELEMETRY_HEALTH_GRAD_TAPS,
+                             C.TELEMETRY_HEALTH_GRAD_TAPS_DEFAULT)
+        self.z_threshold = get(d, C.TELEMETRY_HEALTH_Z_THRESHOLD,
+                               C.TELEMETRY_HEALTH_Z_THRESHOLD_DEFAULT)
+        self.ewma_alpha = get(d, C.TELEMETRY_HEALTH_EWMA_ALPHA,
+                              C.TELEMETRY_HEALTH_EWMA_ALPHA_DEFAULT)
+        self.warmup_steps = get(d, C.TELEMETRY_HEALTH_WARMUP_STEPS,
+                                C.TELEMETRY_HEALTH_WARMUP_STEPS_DEFAULT)
+        self.watchdog = get(d, C.TELEMETRY_HEALTH_WATCHDOG,
+                            C.TELEMETRY_HEALTH_WATCHDOG_DEFAULT)
+        self.watchdog_factor = get(
+            d, C.TELEMETRY_HEALTH_WATCHDOG_FACTOR,
+            C.TELEMETRY_HEALTH_WATCHDOG_FACTOR_DEFAULT)
+        self.watchdog_min_s = get(
+            d, C.TELEMETRY_HEALTH_WATCHDOG_MIN_S,
+            C.TELEMETRY_HEALTH_WATCHDOG_MIN_S_DEFAULT)
+        self.flight_recorder = get(d, C.TELEMETRY_HEALTH_FLIGHT,
+                                   C.TELEMETRY_HEALTH_FLIGHT_DEFAULT)
+        self.flight_path = get(d, C.TELEMETRY_HEALTH_FLIGHT_PATH,
+                               C.TELEMETRY_HEALTH_FLIGHT_PATH_DEFAULT)
+        self.flight_window = get(d, C.TELEMETRY_HEALTH_FLIGHT_WINDOW,
+                                 C.TELEMETRY_HEALTH_FLIGHT_WINDOW_DEFAULT)
+        self._validate()
+
+    def _validate(self) -> None:
+        blk = f"{C.TELEMETRY}.{C.TELEMETRY_HEALTH}"
+        for name, v in ((C.TELEMETRY_HEALTH_ENABLED, self.enabled),
+                        (C.TELEMETRY_HEALTH_GRAD_TAPS, self.grad_taps),
+                        (C.TELEMETRY_HEALTH_WATCHDOG, self.watchdog),
+                        (C.TELEMETRY_HEALTH_FLIGHT, self.flight_recorder)):
+            if not isinstance(v, bool):
+                raise DeepSpeedConfigError(
+                    f"{blk}.{name} must be a bool, got {v!r}")
+        if not isinstance(self.z_threshold, (int, float)) or \
+                isinstance(self.z_threshold, bool) or self.z_threshold <= 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_HEALTH_Z_THRESHOLD} must be a "
+                f"positive number, got {self.z_threshold!r}")
+        if not isinstance(self.ewma_alpha, (int, float)) or \
+                isinstance(self.ewma_alpha, bool) or \
+                not (0.0 < float(self.ewma_alpha) <= 1.0):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_HEALTH_EWMA_ALPHA} must be in "
+                f"(0, 1], got {self.ewma_alpha!r}")
+        if not isinstance(self.warmup_steps, int) or self.warmup_steps < 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_HEALTH_WARMUP_STEPS} must be a "
+                f"non-negative int, got {self.warmup_steps!r}")
+        for name, v in ((C.TELEMETRY_HEALTH_WATCHDOG_FACTOR,
+                         self.watchdog_factor),
+                        (C.TELEMETRY_HEALTH_WATCHDOG_MIN_S,
+                         self.watchdog_min_s)):
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or v <= 0:
+                raise DeepSpeedConfigError(
+                    f"{blk}.{name} must be a positive number, got {v!r}")
+        if not isinstance(self.flight_window, int) or \
+                self.flight_window <= 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_HEALTH_FLIGHT_WINDOW} must be a "
+                f"positive int, got {self.flight_window!r}")
+
+
+class TelemetryProfileConfig:
+    """The ``telemetry.profile`` block: the profiler capture window and
+    the measured-vs-floor reconciliation thresholds (parsed and validated
+    as in JAX; arming a window raises, ROADMAP queue 1 item 9). The flat
+    ``telemetry.profile_start_step``/``profile_num_steps``/``profile_dir``
+    keys remain as aliases; an explicit nested block wins."""
+
+    def __init__(self, d: Optional[Dict[str, Any]] = None,
+                 legacy_start: int = C.TELEMETRY_PROFILE_START_STEP_DEFAULT,
+                 legacy_steps: int = C.TELEMETRY_PROFILE_NUM_STEPS_DEFAULT,
+                 legacy_dir: str = C.TELEMETRY_PROFILE_DIR_DEFAULT):
+        d = d or {}
+        get = config_utils.get_scalar_param
+        self.start_step = get(d, C.TELEMETRY_PROFILE_BLOCK_START,
+                              legacy_start)
+        legacy_armed = isinstance(legacy_start, int) and \
+            not isinstance(legacy_start, bool) and legacy_start >= 0
+        self.window_steps = get(
+            d, C.TELEMETRY_PROFILE_BLOCK_STEPS,
+            legacy_steps if legacy_armed
+            else C.TELEMETRY_PROFILE_BLOCK_STEPS_DEFAULT)
+        self.out_dir = get(d, C.TELEMETRY_PROFILE_BLOCK_DIR, legacy_dir)
+        self.divergence_threshold = get(
+            d, C.TELEMETRY_PROFILE_THRESHOLD,
+            C.TELEMETRY_PROFILE_THRESHOLD_DEFAULT)
+        self.host_frac = get(d, C.TELEMETRY_PROFILE_HOST_FRAC,
+                             C.TELEMETRY_PROFILE_HOST_FRAC_DEFAULT)
+        self._validate()
+
+    def _validate(self) -> None:
+        blk = f"{C.TELEMETRY}.{C.TELEMETRY_PROFILE}"
+        if not isinstance(self.start_step, int) or \
+                isinstance(self.start_step, bool):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_PROFILE_BLOCK_START} must be an int "
+                f"(-1 = off), got {self.start_step!r}")
+        if not isinstance(self.window_steps, int) or \
+                isinstance(self.window_steps, bool) or \
+                self.window_steps <= 0:
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_PROFILE_BLOCK_STEPS} must be a "
+                f"positive int, got {self.window_steps!r}")
+        for name, v in ((C.TELEMETRY_PROFILE_THRESHOLD,
+                         self.divergence_threshold),
+                        (C.TELEMETRY_PROFILE_HOST_FRAC, self.host_frac)):
+            if not isinstance(v, (int, float)) or isinstance(v, bool) or \
+                    v <= 0:
+                raise DeepSpeedConfigError(
+                    f"{blk}.{name} must be a positive number, got {v!r}")
+        if not isinstance(self.out_dir, str):
+            raise DeepSpeedConfigError(
+                f"{blk}.{C.TELEMETRY_PROFILE_BLOCK_DIR} must be a string, "
+                f"got {self.out_dir!r}")
+
+
+class TelemetryConfig:
+    """The ``telemetry`` block (monitor/ subsystem).
+
+    Subsumes the ``tensorboard`` block, which stays as an alias: a config
+    with only ``tensorboard.enabled`` gets an enabled telemetry sink with
+    the tensorboard block's output_path/job_name (and the tensorboard
+    writer itself, when importable). An explicit ``telemetry`` key always
+    wins over the alias.
+    """
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None,
+                 tensorboard: Optional[TensorboardConfig] = None):
+        d = (param_dict or {}).get(C.TELEMETRY, {})
+        tb = tensorboard or TensorboardConfig(param_dict)
+        get = config_utils.get_scalar_param
+        self.enabled = get(d, C.TELEMETRY_ENABLED, bool(tb.enabled))
+        self.output_path = get(d, C.TELEMETRY_OUTPUT_PATH,
+                               tb.output_path or
+                               C.TELEMETRY_OUTPUT_PATH_DEFAULT)
+        self.job_name = get(d, C.TELEMETRY_JOB_NAME,
+                            tb.job_name if tb.enabled
+                            else C.TELEMETRY_JOB_NAME_DEFAULT)
+        self.tensorboard = bool(tb.enabled)
+        self.buffer_size = get(d, C.TELEMETRY_BUFFER_SIZE,
+                               C.TELEMETRY_BUFFER_SIZE_DEFAULT)
+        self.report_steps = get(d, C.TELEMETRY_REPORT_STEPS,
+                                C.TELEMETRY_REPORT_STEPS_DEFAULT)
+        self.trace_path = get(d, C.TELEMETRY_TRACE_PATH,
+                              C.TELEMETRY_TRACE_PATH_DEFAULT)
+        self.fail_on_recompile = get(d, C.TELEMETRY_FAIL_ON_RECOMPILE,
+                                     C.TELEMETRY_FAIL_ON_RECOMPILE_DEFAULT)
+        self.recompile_warmup_calls = get(d, C.TELEMETRY_RECOMPILE_WARMUP,
+                                          C.TELEMETRY_RECOMPILE_WARMUP_DEFAULT)
+        self.memory_watermarks = get(d, C.TELEMETRY_MEMORY_WATERMARKS,
+                                     C.TELEMETRY_MEMORY_WATERMARKS_DEFAULT)
+        self.watermark_ratio = get(d, C.TELEMETRY_WATERMARK_RATIO,
+                                   C.TELEMETRY_WATERMARK_RATIO_DEFAULT)
+        self.watermark_slack_bytes = get(
+            d, C.TELEMETRY_WATERMARK_SLACK_BYTES,
+            C.TELEMETRY_WATERMARK_SLACK_BYTES_DEFAULT)
+        legacy_start = get(d, C.TELEMETRY_PROFILE_START_STEP,
+                           C.TELEMETRY_PROFILE_START_STEP_DEFAULT)
+        legacy_steps = get(d, C.TELEMETRY_PROFILE_NUM_STEPS,
+                           C.TELEMETRY_PROFILE_NUM_STEPS_DEFAULT)
+        legacy_dir = get(d, C.TELEMETRY_PROFILE_DIR,
+                         C.TELEMETRY_PROFILE_DIR_DEFAULT)
+        self.profile = TelemetryProfileConfig(
+            d.get(C.TELEMETRY_PROFILE), legacy_start=legacy_start,
+            legacy_steps=legacy_steps, legacy_dir=legacy_dir)
+        # Flat aliases kept in sync with the resolved block (telemetry.py
+        # and older callers read these).
+        self.profile_start_step = self.profile.start_step
+        self.profile_num_steps = self.profile.window_steps
+        self.profile_dir = self.profile.out_dir
+        self.cost_model = get(d, C.TELEMETRY_COST_MODEL,
+                              C.TELEMETRY_COST_MODEL_DEFAULT)
+        self.per_host_shards = get(d, C.TELEMETRY_PER_HOST,
+                                   C.TELEMETRY_PER_HOST_DEFAULT)
+        self.health = TelemetryHealthConfig(d.get(C.TELEMETRY_HEALTH))
+        self._validate()
+
+    def _validate(self) -> None:
+        if not isinstance(self.buffer_size, int) or self.buffer_size <= 0:
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_BUFFER_SIZE} must be a "
+                f"positive int, got {self.buffer_size!r}")
+        if not isinstance(self.report_steps, int) or self.report_steps < 0:
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_REPORT_STEPS} must be a "
+                f"non-negative int (0 = follow steps_per_print), got "
+                f"{self.report_steps!r}")
+        if not isinstance(self.recompile_warmup_calls, int) or \
+                self.recompile_warmup_calls < 0:
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_RECOMPILE_WARMUP} must be a "
+                f"non-negative int, got {self.recompile_warmup_calls!r}")
+        if not isinstance(self.watermark_ratio, (int, float)) or \
+                self.watermark_ratio <= 0:
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_WATERMARK_RATIO} must be a "
+                f"positive number, got {self.watermark_ratio!r}")
+        if not isinstance(self.cost_model, bool):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_COST_MODEL} must be a bool, "
+                f"got {self.cost_model!r}")
+        if not isinstance(self.per_host_shards, bool):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_PER_HOST} must be a bool, "
+                f"got {self.per_host_shards!r}")
 
 
 class InferenceSloConfig:
@@ -475,16 +722,14 @@ class DeepSpeedConfig:
         # The tensorboard block is an alias of telemetry (the JAX
         # TelemetryConfig): telemetry.enabled defaults to
         # tensorboard.enabled, and an explicit telemetry key wins.
-        tb = d.get(C.TENSORBOARD, {})
-        self.tensorboard_enabled = get(tb, C.TENSORBOARD_ENABLED,
-                                       C.TENSORBOARD_ENABLED_DEFAULT)
-        self.tensorboard_output_path = get(
-            tb, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
-        self.tensorboard_job_name = get(tb, C.TENSORBOARD_JOB_NAME,
-                                        C.TENSORBOARD_JOB_NAME_DEFAULT)
-        self.telemetry_enabled = get(d.get(C.TELEMETRY, {}),
-                                     C.TELEMETRY_ENABLED,
-                                     bool(self.tensorboard_enabled))
+        self.tensorboard_config = TensorboardConfig(d)
+        self.tensorboard_enabled = self.tensorboard_config.enabled
+        self.tensorboard_output_path = self.tensorboard_config.output_path
+        self.tensorboard_job_name = self.tensorboard_config.job_name
+        self.telemetry_config = TelemetryConfig(
+            d, tensorboard=self.tensorboard_config)
+        self.telemetry_enabled = self.telemetry_config.enabled
+        self.flops_profiler_config = FlopsProfilerConfig(d)
         # mesh.slices (the JAX MeshConfig.num_slices): ICI domains
         # joined by DCN.
         self.mesh_num_slices = get(d.get(C.MESH, {}), C.MESH_NUM_SLICES,
@@ -635,13 +880,6 @@ class DeepSpeedConfig:
             (self.moe_config.expert_parallel_size > 1,
              "moe.expert_parallel_size > 1",
              "slice 6: parallel axes and comm extras"),
-            (bool(d.get(C.FLOPS_PROFILER, {}).get(
-                C.FLOPS_PROFILER_ENABLED, C.FLOPS_PROFILER_ENABLED_DEFAULT)),
-             "flops_profiler", "slice 6: observability and tooling"),
-            (bool(self.telemetry_enabled),
-             "telemetry" + (" (enabled through the tensorboard block, its "
-                            "alias)" if C.TELEMETRY not in d else ""),
-             "slice 6: observability and tooling"),
         ]
         return [(name, where) for on, name, where in checks if on]
 

@@ -128,7 +128,19 @@ the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
 dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
 parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
 ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
-under ZeRO-Offload, telemetry, and ``fused_kernels=False`` on CUDA.
+under ZeRO-Offload, telemetry's profiler windows, and
+``fused_kernels=False`` on CUDA.
+
+Telemetry (``telemetry`` block, monitor/): the JAX engine's spine. Each
+step path goes through the recompile sentinel (``train_step``,
+``offload_grad_step``, ``sparse_grad_step``; the trio's ``grad_step``,
+``grad_step_bwd`` and ``apply_grads``), each step's metrics (device
+tensors, with the ``health_leaf_sq`` grad tap) ride the ring to the
+drain at ``report_steps``, whose report carries the throughput, the
+goodput window and the memory sample; the cost model is built at the
+first boundary after every path of the step was walked (its first
+call), and arms the per-step ``mfu``. ``flops_profiler`` walks the step
+at ``profile_step``. Neither reads the card between boundaries.
 """
 from __future__ import annotations
 
@@ -159,8 +171,12 @@ from ..ops.grouped_gemm import check_grouped_gemm
 from ..ops.fused_update import (FlatGroup, FusedAdamState, ShardGroup,
                                 _int32, float_groups, tree_flatten,
                                 tree_unflatten)
+from ..monitor.health import TapSpec, keystr_paths, leaf_sq_taps
+from ..monitor.memory import analytic_state_bytes, device_memory_stats
+from ..monitor.telemetry import HEALTH_TAP_KEY, Telemetry
 from ..parallel import comm
 from ..parallel.topology import dp_rank, dp_world_size
+from ..parallel.wire_model import grad_sync_wire_model
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.partition import describe_sharding, row_plan
 from .zero.stage3 import _gather, gather_tree, regather_saved
@@ -206,20 +222,6 @@ def _leaf_paths(tree: Any, prefix: str = "") -> List[str]:
         return [p for i, t in enumerate(tree)
                 for p in _leaf_paths(t, f"{prefix}{i}/")]
     return [prefix[:-1]]
-
-
-def _keystr_paths(tree: Any, prefix: str = "") -> List[str]:
-    """The leaves' key paths in ``jax.tree_util.keystr`` form
-    (``"['blocks']['qkv_kernel']"``, a sequence index as ``[0]``), in
-    ``tree_flatten`` order: what a ``sparse_grad_filter`` receives, so
-    that one filter serves both packages."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in _keystr_paths(tree[k], f"{prefix}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
-        return [p for i, t in enumerate(tree)
-                for p in _keystr_paths(t, f"{prefix}[{i}]")]
-    return [prefix]
 
 
 def _host_copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -670,6 +672,15 @@ class DeepSpeedEngine:
             synchronized=self.wall_clock_breakdown())
         self.last_metrics: Optional[Dict[str, torch.Tensor]] = None
 
+        # The flops profiler: one training step's op walk at
+        # flops_profiler.profile_step (_run_flops_profiler).
+        self.flops_profiler = None
+        if self.config.flops_profiler_config.enabled:
+            from ..profiling.flops_profiler import FlopsProfiler
+            self.flops_profiler = FlopsProfiler(
+                config=self.config.flops_profiler_config)
+        self._init_telemetry()
+
         # Async / preemption-safe checkpointing (runtime/async_ckpt.py):
         # the writer thread, the auto-save cadence and the SIGTERM
         # final-save handler, all inert unless the `checkpoint` block
@@ -685,11 +696,20 @@ class DeepSpeedEngine:
         self._preempt_saver = None
         if ckcfg.async_save:
             self._async_ckpt = AsyncCheckpointer(
+                telemetry=self.telemetry,
                 writer_timeout_s=self._ckpt_writer_timeout,
-                dump_dir="./runs")
+                dump_dir=self.config.telemetry_config.output_path
+                or "./runs")
         if self._ckpt_dir and ckcfg.preempt_save:
+            # Installed AFTER the telemetry's flight recorder: on SIGTERM
+            # this handler runs first, commits the final checkpoint, then
+            # chains to the recorder's.
             self._preempt_saver = PreemptSaver(self, self._ckpt_dir)
             self._preempt_saver.install()
+        if ckcfg.async_save or self._ckpt_every > 0:
+            self.telemetry.meta.setdefault("checkpoint", {
+                "async": bool(ckcfg.async_save),
+                "snapshot_every": self._ckpt_every})
         log_dist(f"DeepSpeedEngine initialized: device={dev}, "
                  f"dtype={self.config.precision_dtype}, "
                  f"zero_stage={self.zero_optimization_stage()}, "
@@ -734,6 +754,141 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ #
     # Config getters (reference API)
     # ------------------------------------------------------------------ #
+    def _init_telemetry(self) -> None:
+        """The telemetry spine (monitor/): per-step records, spans, the
+        recompile sentinel, the memory watermark, the health tap, built
+        as the JAX engine builds them. Inert when disabled; enabled, it
+        reads the card only at report boundaries."""
+        self._grad_sync_mode = self._resolve_grad_sync()
+        self._wire_bytes, self._wire_detail = self._grad_wire_bytes()
+        self.telemetry = Telemetry(
+            self.config.telemetry_config,
+            default_report_steps=self.steps_per_print(),
+            meta=dict(
+                dp=self.dp, ep=1, slices=1,
+                zero_stage=self.zero_optimization_stage(),
+                precision=self.config.precision_dtype,
+                cpu_offload=self._offload is not None,
+                grad_sync_mode=self._grad_sync_mode,
+                wire_bytes_per_step=self._wire_bytes,
+                wire_bytes_ici=self._wire_bytes, wire_bytes_dcn=0,
+                dcn_compression=False, wire_terms=self._wire_terms(),
+                wire_detail=self._wire_detail,
+                train_batch_size=self.train_batch_size(),
+                gradient_accumulation_steps=
+                self.gradient_accumulation_steps()))
+        # A weakref: the Telemetry outlives the engine through its atexit
+        # hook, and a closure over the engine would pin its state.
+        import weakref
+        ref = weakref.ref(self)
+        self.telemetry.step_provider = lambda: (
+            ref().global_steps if ref() is not None else -1)
+        dev = self.device
+        self.telemetry.set_analytic_footprint(
+            analytic_state_bytes(self._state_tensors()),
+            sampler=lambda: device_memory_stats([dev]))
+        self._cost_model_built = False
+        self._health_taps = False
+        hcfg = self.config.telemetry_config.health
+        if self.telemetry.enabled and self.telemetry.health is not None \
+                and hcfg.grad_taps:
+            self.telemetry.set_tap_spec(TapSpec.from_tree(self.state.params))
+            self._health_taps = True
+        tl = self.telemetry
+        # Each step path through the recompile sentinel (identity when
+        # telemetry is off): the fused step of the active mode, and the
+        # trio's forward, backward and apply. The class's functions, not
+        # bound methods: an engine holding its own bound methods is a
+        # reference cycle, and a deleted engine would keep the card's
+        # memory until the next garbage collection.
+        cls = type(self)
+        self._step_path = "offload_grad_step" if self._offload is not None \
+            else "sparse_grad_step" if self._sparse_idx and self.dp > 1 \
+            else "train_step"
+        self._step_fn = tl.instrument_step_fn(self._step_path,
+                                              cls._train_step)
+        self._grad_fwd_fn = tl.instrument_step_fn("grad_step",
+                                                  cls._forward_micro)
+        self._grad_bwd_fn = tl.instrument_step_fn("grad_step_bwd",
+                                                  cls._backward_micro)
+        self._apply_grads_fn = tl.instrument_step_fn("apply_grads",
+                                                     cls._apply_window)
+        self._trio_t0: Optional[float] = None
+        self._trio_used = False
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The tensors this rank keeps on its device between steps: the
+        params (flat masters, or the offload copy), the compute-dtype
+        copy, the optimizer state, the loss-scale scalars."""
+        st = self.state
+        out = list(tree_flatten(st.params)[0])
+        if st.cast_params is not None:
+            out += tree_flatten(st.cast_params)[0]
+        out += tree_flatten(st.opt_state)[0] \
+            if st.opt_state is not None else []
+        out += [st.step, st.loss_scale, st.growth_count, st.hysteresis,
+                st.skipped_steps]
+        # (by device type: the engine's device may name no index)
+        return [t for t in out if isinstance(t, torch.Tensor) and
+                t.device.type == self.device.type]
+
+    def _resolve_grad_sync(self) -> str:
+        """The gradient-sync lowering the port runs (the JAX names):
+        ``none`` below stage 2 or at dp 1, ``allreduce`` with
+        ``reduce_scatter: false``, else ``explicit`` (the port's
+        reduce-scatter is an explicit collective)."""
+        if self.zero_optimization_stage() < 2 or self.dp <= 1:
+            return "none"
+        if not self.config.zero_config.reduce_scatter:
+            return "allreduce"
+        return "explicit"
+
+    def _grad_wire_bytes(self) -> Tuple[int, str]:
+        """(analytic wire bytes a step, detail) of the gradient sync the
+        engine runs (the JAX engine's ``_grad_wire_bytes`` at one slice
+        and ep 1)."""
+        self._wire_model = None
+        if self.dp <= 1:
+            return 0, "single replica (no gradient sync)"
+        shapes = list(self._leaf_shapes)
+        gas = self.gradient_accumulation_steps()
+        if self._sparse_idx:
+            sparse = set(self._sparse_idx)
+            model = grad_sync_wire_model(
+                [s for i, s in enumerate(shapes) if i not in sparse],
+                self.dp)
+            self._wire_model = model
+            return model["all_reduce_wire_bytes"], \
+                ("dense all-reduce over non-sparse leaves only (sparse "
+                 "embedding grads use the data-dependent CSR exchange; "
+                 "see sparse_comm_stats)")
+        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+        if self._zero3:
+            model = grad_sync_wire_model(shapes, self.dp, zero3=True,
+                                         param_bytes_per_el=itemsize,
+                                         gas=gas)
+            self._wire_model = model
+            name = str(self.compute_dtype).replace("torch.", "")
+            return model["zero3_wire_bytes"], \
+                (f"{self._grad_sync_mode} ZeRO-3: per micro-step, 2 param "
+                 f"gathers ({name} wire) + f32 grad reduce-scatter — "
+                 f"{model['param_gather_wire_bytes']:,} gather B/step")
+        model = grad_sync_wire_model(shapes, self.dp)
+        self._wire_model = model
+        if self.zero_optimization_stage() < 2:
+            return model["all_reduce_wire_bytes"], \
+                "dense all-reduce (grads replicated below ZeRO stage 2)"
+        if self._grad_sync_mode == "allreduce":
+            return model["all_reduce_wire_bytes"], \
+                "dense all-reduce (reduce_scatter: false)"
+        return model["reduce_scatter_wire_bytes"], \
+            "explicit reduce-scatter (the port's collective)"
+
+    def _wire_terms(self) -> Optional[Dict[str, Dict[str, Any]]]:
+        """The per-term split of the wire figure by tier: None on one
+        slice, as in JAX (the port runs one)."""
+        return None
+
     def train_batch_size(self) -> int:
         return self.config.train_batch_size
 
@@ -903,6 +1058,8 @@ class DeepSpeedEngine:
             raise RuntimeError(
                 "train_batch() inside a forward()/backward() accumulation "
                 "window: call step() at the window's boundary first")
+        tl = self.telemetry
+        t_wall0 = time.perf_counter()
         if batch is None:
             it = data_iter
             if it is None:
@@ -913,24 +1070,56 @@ class DeepSpeedEngine:
                     self._data_iterator = iter(
                         RepeatingLoader(self.training_dataloader))
                 it = self._data_iterator
+            # The fetch wait is the goodput ledger's data stall (host
+            # clock only).
+            t_fetch0 = time.perf_counter()
             micro = [next(it) for _ in range(
                 self.gradient_accumulation_steps())]
+            if tl.ledger is not None:
+                tl.ledger.note("data_stall", time.perf_counter() - t_fetch0)
             leaves = [tree_flatten(m)[0] for m in micro]
             spec = tree_flatten(micro[0])[1]
             batch = tree_unflatten(spec, [
                 np.concatenate([np.asarray(x) for x in xs], axis=0)
                 for xs in zip(*leaves)])
         micro_batches = self._split_micro_batches(self._to_device(batch))
+        if tl.tracer is not None:
+            tl.add_span("data_prep", t_wall0, time.perf_counter() - t_wall0)
         self.tput_timer.start()
-        metrics = self._train_step(micro_batches, self.global_steps)
+        t_dispatch = time.perf_counter()
+        if self.flops_profiler is not None and self.global_steps == \
+                self.config.flops_profiler_config.profile_step:
+            metrics = self._run_flops_profiler(micro_batches)
+        else:
+            metrics = self._step_fn(self, micro_batches, self.global_steps)
         self.micro_steps += self.gradient_accumulation_steps()
-        self._finish_step(metrics)
+        self._finish_step(metrics, t_wall0, t_dispatch)
         return metrics["loss"]
 
-    def _finish_step(self, metrics: Dict[str, Any]) -> None:
+    def _run_flops_profiler(self, micro_batches: List[Any]
+                            ) -> Dict[str, torch.Tensor]:
+        """This step, walked by the flops profiler (a real step: its
+        update is kept), and the per-module table printed on rank 0 (the
+        JAX engine's hook at flops_profiler.profile_step walks its train
+        step's jaxpr)."""
+        from ..profiling.flops_profiler.profiler import _count_params, walk
+        cfg = self.config.flops_profiler_config
+        metrics, res = walk(self._step_fn, self, micro_batches,
+                            self.global_steps)
+        res.total_params = _count_params(self.state.params)
+        self.flops_profiler.result = res
+        if self.dp_rank == 0:
+            self.flops_profiler.print_model_profile(
+                module_depth=cfg.module_depth, top_modules=cfg.top_modules,
+                detailed=cfg.detailed)
+        return metrics
+
+    def _finish_step(self, metrics: Dict[str, Any], t0: float,
+                     t_dispatch: float) -> None:
         """After an optimizer step (``train_batch``, or ``step()`` at a
         boundary): the counters, progressive layer drop's schedule, the
-        scheduler's iteration, the metrics, the log and the auto-save."""
+        scheduler's iteration, the metrics, the telemetry record, the log
+        (and the telemetry drain at its boundary) and the auto-save."""
         self.global_steps += 1
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
@@ -940,8 +1129,132 @@ class DeepSpeedEngine:
             self.lr_scheduler.last_batch_iteration = self.global_steps - 1
         self.tput_timer.stop()
         self.last_metrics = metrics
+        self._record_telemetry(metrics, t0, t_dispatch)
         self._maybe_log(metrics)
         self._maybe_auto_save()
+
+    def _record_telemetry(self, metrics: Dict[str, Any], t0: float,
+                          t_dispatch: float) -> None:
+        """Buffer this step's telemetry record — append-only, no device
+        read (the metrics' device tensors are copied at the next report
+        boundary). ``wall_ms`` is host wall from the step's entry: on the
+        card the time to queue the step's kernels (the fenced figure is
+        the throughput timer's window average in the report), on the
+        offload path, which waits on the host, the step's wall."""
+        tl = self.telemetry
+        if not tl.enabled:
+            return
+        # A deferred fail_on_recompile raises here, after the step's
+        # state was stored.
+        tl.raise_pending()
+        t_now = time.perf_counter()
+        host: Dict[str, Any] = {
+            "wall_ms": (t_now - t0) * 1e3,
+            "wire_bytes": self._wire_bytes,
+            "samples": self.train_batch_size(),
+        }
+        if self._offload is not None and self.offload_timings:
+            t = self.offload_timings
+            off = {k: round(float(t[k]), 3) for k in (
+                "device_step_ms", "d2h_ms", "host_norm_ms", "host_step_ms",
+                "h2d_dispatch_ms", "h2d_wait_ms", "wall_ms") if k in t}
+            off["overlap_fraction"] = round(
+                float(t.get("overlap_fraction", 0.0)), 4)
+            off["num_buckets"] = int(t.get("num_buckets", 1))
+            off["overlapped"] = bool(t.get("overlapped", False))
+            host["offload"] = off
+            tl.add_offload_trace(t)
+        if tl.tracer is not None:
+            name = "offload_step" if self._offload is not None \
+                else "step_dispatch"
+            tl.add_span(name, t_dispatch, t_now - t_dispatch,
+                        args={"step": self.global_steps})
+            tl.add_span("train_batch", t0, t_now - t0,
+                        args={"step": self.global_steps})
+        tl.record_step(self.global_steps, metrics, **host)
+
+    def _report_extra(self) -> Dict[str, Any]:
+        """The report record's fields, at a drain boundary only (the
+        skipped-steps read waits on the card there)."""
+        self._maybe_build_cost_model()
+        extra: Dict[str, Any] = {
+            "global_samples": self.global_samples,
+            "samples_per_sec": self.tput_timer.avg_samples_per_sec(),
+            "samples_per_sec_valid": self.tput_timer.has_samples(),
+        }
+        if self._offload is not None:
+            extra["skipped_steps"] = self._offload.skipped_steps
+        else:
+            self.skipped_steps = int(self.state.skipped_steps)
+            extra["skipped_steps"] = self.skipped_steps
+        return extra
+
+    def profile_window(self, steps: int,
+                       start_step: Optional[int] = None) -> Optional[str]:
+        """The JAX engine's profiler capture window: None with telemetry
+        off; with telemetry on it raises (not ported, ROADMAP queue 1
+        item 9)."""
+        return self.telemetry.arm_profile_window(
+            int(steps), start_step=self.global_steps + 1
+            if start_step is None else int(start_step))
+
+    def _maybe_build_cost_model(self) -> None:
+        """Build the roofline cost model once, at the first report
+        boundary after every path of the step has been walked (each
+        path's first call is); a failure is an event, never a dead
+        training loop."""
+        tl = self.telemetry
+        if self._cost_model_built or not tl.enabled or \
+                tl.sentinel is None or \
+                not self.config.telemetry_config.cost_model:
+            return
+        step_paths = self._cost_model_step_paths()
+        if not all(p in tl.sentinel.registered_paths() for p in step_paths):
+            return
+        self._cost_model_built = True
+        try:
+            from ..monitor.cost_model import build_cost_model
+            from ..monitor.peaks import chip_peaks
+            # Wire bytes are a step's: priced on the path that computes
+            # the grads, split over its calls a step.
+            comm_bytes: Dict[str, float] = {}
+            for p in ("train_step", "offload_grad_step", "sparse_grad_step",
+                      "grad_step"):
+                if p in step_paths and self._wire_bytes:
+                    comm_bytes[p] = float(self._wire_bytes) / step_paths[p]
+                    break
+            payload = build_cost_model(
+                tl.sentinel, comm_bytes_by_path=comm_bytes,
+                step_paths=step_paths, n_devices=self.dp,
+                peaks=chip_peaks(self.device))
+            tl.set_cost_model(payload,
+                              samples_per_step=self.train_batch_size())
+            step = payload["step"]
+            if step.get("bound"):
+                log_dist(
+                    f"cost model: step is {step['bound']}-bound, analytic "
+                    f"floor {step['floor_ms']:.3f} ms/step "
+                    f"({payload['chip']['name']} peaks"
+                    f"{', ASSUMED' if payload['chip']['assumed'] else ''})",
+                    ranks=[0])
+        except Exception as e:   # observability must not kill training
+            tl.event("cost_model_error",
+                     {"error": f"{type(e).__name__}: {e}"[:300]})
+
+    def _cost_model_step_paths(self) -> Dict[str, float]:
+        """{path: calls a step} of the paths one optimizer step runs in
+        the engine's mode (the trio: a forward and a backward a
+        micro-batch, one apply)."""
+        if self._trio_used:
+            gas = float(self.gradient_accumulation_steps())
+            return {"grad_step": gas, "grad_step_bwd": gas,
+                    "apply_grads": 1.0}
+        return {self._step_path: 1.0}
+
+    def close(self) -> None:
+        """End of the engine: the telemetry's terminal drain and
+        ``final`` record (atexit runs it too)."""
+        self.telemetry.close()
 
     def _maybe_auto_save(self) -> None:
         """Auto-save (``checkpoint.snapshot_every``): tag global_stepN
@@ -1101,6 +1414,7 @@ class DeepSpeedEngine:
                 inv_scale = (torch.ones((), dtype=torch.float32,
                                         device=self.device)
                              if inv_scale is None else inv_scale) / self.dp
+            tap = self._grad_tap(inv_scale)
             # (a fill kernel, not a host-to-device copy: no host sync)
             sr_seed = torch.full(
                 (), _int32(fold_in(fold_in(self._base_seed, win.step),
@@ -1122,8 +1436,32 @@ class DeepSpeedEngine:
         metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
                    "loss_scale": scale, "overflow": overflow,
                    "skipped_steps": self.state.skipped_steps}
+        if tap is not None:
+            metrics[HEALTH_TAP_KEY] = tap
         self._moe_means(metrics, win.moe_sum, win.gas)
         return metrics
+
+    def _grad_tap(self, inv_scale: Any = None) -> Optional[torch.Tensor]:
+        """The health tap (monitor/health.py), with telemetry's
+        ``health.grad_taps`` on: this step's per-leaf grad sums of
+        squares as one ``[num_leaves]`` device tensor in leaf order,
+        times ``inv_scale`` squared (the unscale and the 1/dp of the
+        summed grads), so it reports true magnitudes; a rank's rows at
+        ZeRO stages 1-3, their sums all-reduced. No host read."""
+        if not self._health_taps:
+            return None
+        if self._shard_local:
+            views: List[Any] = [None] * len(self._leaf_shapes)
+            for sg, idxs in zip(self._shards, self._group_leaves):
+                for i, v in zip(idxs, sg.local_views(sg.grad)):
+                    views[i] = v
+        else:
+            views = list(self._grad_views)
+        sq = None if inv_scale is None else inv_scale * inv_scale
+        tap = leaf_sq_taps(views, sq)
+        if self._shard_local:
+            tap = comm.all_reduce(tap)
+        return tap
 
     # ------------------------------------------------------------------ #
     # 1-bit Adam (ZeRO stage 0; JAX _build_onebit_train_step)
@@ -1205,7 +1543,7 @@ class DeepSpeedEngine:
         filt = sparse_grad_filter or default
         leaves = tree_flatten(self.state.params)[0]
         for i, (path, leaf) in enumerate(zip(
-                _keystr_paths(self.state.params), leaves)):
+                keystr_paths(self.state.params), leaves)):
             if bool(filt(path, leaf)):
                 self._sparse_idx.append(i)
                 self._sparse_names.append(path)
@@ -1255,8 +1593,10 @@ class DeepSpeedEngine:
                     run = grp.grad.narrow(0, off, n)
                     comm.all_reduce(run)
                     run.mul_(mult)
-            shipped, dense_n = self._csr_exchange(inv)
+            with self.telemetry.span("grad_sync", path="csr_exchange"):
+                shipped, dense_n = self._csr_exchange(inv)
             mean_loss = comm.all_reduce(win.mean_loss.clone()) / self.dp
+            tap = self._grad_tap()
             opt_state, grad_norm, overflow = self.optimizer.step(
                 self._opt_groups, st.opt_state, clip=clip, inv_scale=None,
                 fp16=fp16, compute_norm=bool(clip and clip > 0) or fp16)
@@ -1269,6 +1609,8 @@ class DeepSpeedEngine:
         metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
                    "loss_scale": scale, "overflow": overflow,
                    "skipped_steps": self.state.skipped_steps}
+        if tap is not None:
+            metrics[HEALTH_TAP_KEY] = tap
         self._moe_means(metrics, win.moe_sum, win.gas)
         return metrics
 
@@ -1337,8 +1679,13 @@ class DeepSpeedEngine:
         if self._trio is None:
             self._trio = self._open_window(self.global_steps)
             self.tput_timer.start()
-        scaled, raw, inputs = self._forward_micro(
-            self._trio, self._to_device(batch), self.state.loss_scale)
+            # step()'s telemetry wall_ms covers the whole window.
+            self._trio_t0 = time.perf_counter()
+        self._trio_used = True
+        with self.telemetry.span("grad_compute"):
+            scaled, raw, inputs = self._grad_fwd_fn(
+                self, self._trio, self._to_device(batch),
+                self.state.loss_scale)
         loss = raw.detach()
         self._trio_pending = (scaled, inputs, loss)
         return loss
@@ -1364,7 +1711,8 @@ class DeepSpeedEngine:
                 "trio differentiates the forward's own loss, so a loss "
                 "computed from it is not supported")
         self._trio_pending = None
-        self._backward_micro(self._trio, scaled, inputs)
+        with self.telemetry.span("grad_compute"):
+            self._grad_bwd_fn(self, self._trio, scaled, inputs)
         self.micro_steps += 1
         return loss
 
@@ -1381,7 +1729,12 @@ class DeepSpeedEngine:
             raise RuntimeError("step() after a forward() whose backward() "
                                "has not run")
         win, self._trio = self._trio, None
-        self._finish_step(self._apply_window(win))
+        t_apply = time.perf_counter()
+        t0 = self._trio_t0 if self._trio_t0 is not None else t_apply
+        self._trio_t0 = None
+        with self.telemetry.span("optimizer_apply"):
+            metrics = self._apply_grads_fn(self, win)
+        self._finish_step(metrics, t0, t_apply)
 
     def _refuse_trio_onebit(self) -> None:
         if self._onebit:
@@ -1774,6 +2127,8 @@ class DeepSpeedEngine:
                      f"lr={float(metrics['lr']):.3e} "
                      f"loss_scale={float(metrics['loss_scale'])} "
                      f"skipped={int(metrics['skipped_steps'])}", ranks=[0])
+        self.telemetry.maybe_drain(self.global_steps,
+                                   extra_fn=self._report_extra)
 
     # ------------------------------------------------------------------ #
     # Checkpointing (the JAX engine's files, runtime/async_ckpt.py)
@@ -1790,8 +2145,10 @@ class DeepSpeedEngine:
         if self._async_ckpt is not None:
             return self._save_checkpoint_async(save_dir, tag, client_state,
                                                save_latest)
-        return self._save_checkpoint(save_dir, tag, client_state,
-                                     save_latest)
+        with self.telemetry.span("checkpoint_save",
+                                 tag=str(tag) if tag is not None else "auto"):
+            return self._save_checkpoint(save_dir, tag, client_state,
+                                         save_latest)
 
     def _save_checkpoint_async(self, save_dir: str, tag: Optional[str],
                                client_state: Optional[Dict[str, Any]],
@@ -1806,19 +2163,27 @@ class DeepSpeedEngine:
                 f"({type(err).__name__}: {err}); the checkpoint it was "
                 "writing is lost (latest still names the prior one)") \
                 from err
-        # Bound host memory: each pending snapshot is a full host copy
-        # of the state. A writer still wedged after writer_timeout_s
-        # fails the save loudly rather than queueing another copy.
-        if not self._async_ckpt.wait_below(
-                self._ckpt_max_pending, timeout=self._ckpt_writer_timeout):
-            raise RuntimeError(
-                "checkpoint writer still busy after "
-                f"{self._ckpt_writer_timeout:.0f}s — refusing to queue "
-                "another full-state host snapshot past "
-                f"max_pending_snapshots={self._ckpt_max_pending} (see the "
-                "writer watchdog's stack dump)")
-        snap = self._snapshot_checkpoint(save_dir, tag, client_state,
-                                         save_latest)
+        # The exposed cost of an async save: the snapshot and any wait
+        # for room in the writer's queue (the goodput ledger's
+        # checkpoint bucket); the write itself is the writer thread's.
+        with self.telemetry.span(
+                "checkpoint_snapshot",
+                tag=str(tag) if tag is not None else "auto"):
+            # Bound host memory: each pending snapshot is a full host
+            # copy of the state. A writer still wedged after
+            # writer_timeout_s fails the save loudly rather than
+            # queueing another copy.
+            if not self._async_ckpt.wait_below(
+                    self._ckpt_max_pending,
+                    timeout=self._ckpt_writer_timeout):
+                raise RuntimeError(
+                    "checkpoint writer still busy after "
+                    f"{self._ckpt_writer_timeout:.0f}s — refusing to queue "
+                    "another full-state host snapshot past "
+                    f"max_pending_snapshots={self._ckpt_max_pending} (see "
+                    "the writer watchdog's stack dump)")
+            snap = self._snapshot_checkpoint(save_dir, tag, client_state,
+                                             save_latest)
         crash_point("after_snapshot")
         self._async_ckpt.submit(snap)
         self._note_saved(save_dir, save_latest)
@@ -2067,6 +2432,9 @@ class DeepSpeedEngine:
         awaited_ok = True
         if ck is not None and ck.in_flight:
             awaited_ok = bool(ck.wait(timeout=self._ckpt_writer_timeout))
+            self.telemetry.event("preempt_save", {
+                "reason": reason, "mode": "awaited_inflight",
+                "ok": awaited_ok})
         # _last_saved_step is stamped at SUBMIT time; trust it only when
         # the writer committed.
         write_failed = ck is not None and ck.last_error is not None
@@ -2075,12 +2443,17 @@ class DeepSpeedEngine:
             return True
         # Inline even under async: a queued write would die with the
         # process.
-        snap = self._snapshot_checkpoint(self._ckpt_dir, None, None, True)
-        commit_snapshot(snap)
+        with self.telemetry.span("checkpoint_save", tag="preempt"):
+            snap = self._snapshot_checkpoint(self._ckpt_dir, None, None,
+                                             True)
+            commit_snapshot(snap)
         if write_failed:
             # The inline commit superseded the lost write.
             ck.last_error = None
         self._last_saved_step = self.global_steps
+        self.telemetry.event("preempt_save", {
+            "reason": reason, "mode": "saved", "tag": snap.tag,
+            "step": self.global_steps})
         log_dist(f"preemption save ({reason}): committed {snap.path}",
                  ranks=[0])
         return True
@@ -2099,6 +2472,17 @@ class DeepSpeedEngine:
         dp ranks loads by joining its optimizer shards along the axes
         its meta records. ``load_module_strict=False`` loads the saved
         leaves whose path and shape match and keeps the others."""
+        with self.telemetry.span("checkpoint_load", dir=str(load_dir)):
+            return self._load_checkpoint(
+                load_dir, tag, load_module_strict=load_module_strict,
+                load_optimizer_states=load_optimizer_states,
+                load_lr_scheduler_states=load_lr_scheduler_states)
+
+    def _load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                         load_module_strict: bool = True,
+                         load_optimizer_states: bool = True,
+                         load_lr_scheduler_states: bool = True
+                         ) -> Tuple[Optional[str], Dict[str, Any]]:
         if tag is None:
             latest = os.path.join(load_dir, LATEST_FILE)
             if not os.path.isfile(latest):

@@ -5,16 +5,18 @@ and against its own plain version, on the CPU.
 - Native against JAX's native, on the same numpy inputs from a seed:
   bit-equal masters, moments and bf16 copies after 1 and after 100 steps,
   for each of the four Adam entry points (fp32 or bf16 gradients, with
-  or without the bf16 copy), AdamW and coupled Adam, and bit-equal
-  squared norms from both norm entry points. Both libraries come from
-  the same source and flags on this host; the norms run on a team of one
-  OpenMP thread on both sides (JAX's norm combines a wider team's partial
-  sums in the order its threads finish, so it is not deterministic
-  there; the two libraries share the process's OpenMP runtime, so one
-  setting holds for both).
-- The port's norm on a wider team: the same bits on every call (its
-  threads' partials are added in thread order), within 1e-12 relative
-  of the plain sum; a team of one is JAX's.
+  or without the bf16 copy), AdamW and coupled Adam. Both libraries
+  come from the same source and flags on this host.
+- The squared norms from both norm entry points bit-equal to the JAX
+  module's numpy path (``DeepSpeedCPUAdam.grad_norm_sq`` with no
+  library, called directly): the port sums in numpy's order, while the
+  JAX library's vectorized sum depends on the host's SIMD width (its
+  bits differ between -march targets) and, above one thread, on the
+  order its threads finish.
+- The port's norm on any team: the same bits on every call and every
+  team, within 1e-12 relative of the plain sum; the same bits from
+  libraries built for two CPU targets, and from processes started
+  under two ``OMP_NUM_THREADS``.
 - Native against the plain step (``adam_ulp_gaps``: the moments' half
   and, from the native moments, the parameters' half of
   ``cpu_adam_plain``) step by step over 20 steps: masters and moments
@@ -29,7 +31,13 @@ and against its own plain version, on the CPU.
 - The memory-rate probes the card smoke bounds the step with move what
   they say (the Adam step's traffic with an add; a sum of one span).
 """
+import ctypes
+import json
+import os
 import re
+import subprocess
+import sys
+import types
 from pathlib import Path
 
 import ml_dtypes
@@ -42,6 +50,12 @@ from deepspeed_tpu_torch.ops import cpu_adam as tca
 from deepspeed_tpu_torch.ops import op_builder
 
 SHAPES = [(64, 32), (1001,), (3, 5, 7)]
+# The JAX module's norm without its library: numpy's float64 sum.
+NUMPY_NORM = types.SimpleNamespace(_lib=None)
+
+
+def numpy_norm_sq(leaves, scale=1.0):
+    return jca.DeepSpeedCPUAdam.grad_norm_sq(NUMPY_NORM, leaves, scale)
 HP = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
 
 
@@ -123,12 +137,12 @@ def test_norm_entry_bit_equal_to_jax(wire):
         tg = [_bf16_t(g) for g in jg]
     else:
         jg, tg = gs, [torch.from_numpy(g) for g in gs]
-    jo = jca.DeepSpeedCPUAdam({"a": gs[0]})
     to = tca.DeepSpeedCPUAdam([torch.from_numpy(gs[0])])
     for scale in (1.0, 0.25, 1.0 / 3):
         assert to.grad_norm_sq(tg, scale, threads=1) == \
-            jo.grad_norm_sq(jg, scale)
-    assert to.grad_norm(tg, threads=1) == jo.grad_norm(jg)
+            numpy_norm_sq(jg, scale)
+    assert to.grad_norm(tg, threads=1) == \
+        float(np.sqrt(numpy_norm_sq(jg)))
 
 
 @pytest.mark.parametrize("adamw", [True, False], ids=["adamw", "coupled"])
@@ -226,8 +240,67 @@ def test_norm_bits_depend_only_on_the_team(wire):
         assert len(vals) == 1, (team, vals)
         got[team] = vals.pop()
         assert abs(got[team] - want) <= 1e-12 * want
-    jo = jca.DeepSpeedCPUAdam({"a": g[:3].copy()})
-    assert got[1] == jo.grad_norm_sq([jg], 0.5)
+    # (and not even on the team: numpy's order on every team)
+    assert got[1] == got[3] == got[4] == numpy_norm_sq([jg], 0.5)
+
+
+_NORM_PROBE = """
+import json, sys
+import numpy as np, torch
+from deepspeed_tpu_torch.ops import cpu_adam as tca
+rng = np.random.default_rng(29)
+g = torch.from_numpy(rng.standard_normal(300007).astype(np.float32) * 30)
+to = tca.DeepSpeedCPUAdam([torch.zeros(3)])
+print(json.dumps([tca.default_threads(), to.grad_norm_sq([g], 0.5).hex(),
+                  to.grad_norm_sq([g.to(torch.bfloat16)], 0.5).hex()]))
+"""
+
+
+def test_norm_bits_do_not_depend_on_the_process_team():
+    """Two processes whose default OpenMP teams differ (1 and 4 threads)
+    give the same bits for an fp32 and a bf16 norm, numpy's."""
+    root = Path(__file__).resolve().parent.parent
+    out = []
+    for threads in (1, 4):
+        env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+                   PYTHONPATH=str(root))
+        r = subprocess.run([sys.executable, "-c", _NORM_PROBE], env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-2000:]
+        out.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert [o[0] for o in out] == [1, 4]
+    assert out[0][1:] == out[1][1:]
+    rng = np.random.default_rng(29)
+    g = rng.standard_normal(300007).astype(np.float32) * 30
+    assert float.fromhex(out[0][1]) == numpy_norm_sq([g], 0.5)
+    assert float.fromhex(out[0][2]) == numpy_norm_sq(
+        [g.astype(ml_dtypes.bfloat16)], 0.5)
+
+
+def test_norm_bits_do_not_depend_on_the_cpu_target(tmp_path):
+    """The host source built for two CPU targets (the host's own, and
+    the baseline x86-64 or the compiler's default elsewhere): the same
+    norm bits, numpy's, where the SIMD widths differ."""
+    flags = [f for f in op_builder.HOST_FLAGS if f != "-march=native"]
+    src = str(op_builder.CSRC_DIR / "cpu_adam.cpp")
+    other = ["-march=x86-64"] if op_builder.platform.machine() in \
+        ("x86_64", "AMD64") else []
+    rng = np.random.default_rng(31)
+    g = rng.standard_normal(100003).astype(np.float32)
+    gb = g.astype(ml_dtypes.bfloat16)
+    want = (numpy_norm_sq([g], 0.25), numpy_norm_sq([gb], 0.25))
+    for i, march in enumerate((["-march=native"], other)):
+        so = str(tmp_path / f"norm{i}.so")
+        subprocess.run([op_builder.find_cxx()] + flags + march +
+                       [src, "-o", so], check=True, capture_output=True)
+        lib = ctypes.CDLL(so)
+        for name in ("ds_grad_norm_sq", "ds_grad_norm_sq_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = tca.HOST_SIGNATURES[name]
+        got = (lib.ds_grad_norm_sq(g.ctypes.data, g.size, 0.25),
+               lib.ds_grad_norm_sq_bf16(gb.view(np.uint16).ctypes.data,
+                                        gb.size, 0.25))
+        assert got == want, (march, got, want)
 
 
 def test_stream_probes():

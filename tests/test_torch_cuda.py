@@ -1444,3 +1444,64 @@ def test_csr_round_trip_on_the_card(dev):
     assert torch.equal(g_on.row_indices.cpu(), g_off.row_indices)
     assert torch.equal(g_on.values.cpu(), g_off.values)
     assert torch.equal(g_on.to_dense().cpu(), sum(dense[1:], dense[0]))
+
+
+def test_declared_costs_match_the_smoke_bound_inputs(dev):
+    """Each path kernel's call, walked by the flops profiler on the card
+    at chip_smoke.py's bound shapes (bf16, H 768, F 3072, the training
+    rows; fp32 over gpt2-small's parameters; flash at 8 x 12 x 1024 x
+    64), declares one call at the (flops, bytes) that the smoke's bound
+    priced inline before it read ``ops/costs.py``."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_elementwise as fe
+    from deepspeed_tpu_torch.ops import fused_update as fu
+    from deepspeed_tpu_torch.profiling.flops_profiler import profiler
+    H, Fw, rows, bf = 768, 3072, 8192, torch.bfloat16
+    x, d, s_, dy = (torch.randn(rows, H, device=dev).to(bf)
+                    for _ in range(4))
+    sc, bi = torch.ones(H, device=dev), torch.zeros(H, device=dev)
+    y, g = (torch.randn(rows, Fw, device=dev).to(bf) for _ in range(2))
+    b = torch.zeros(Fw, device=dev)
+    n = 124439808
+    gn = torch.randn(n, device=dev)
+    B, S, nH, D = 8, 1024, 12, 64
+    q, k, v, do = (torch.randn(B, S, nH, D, device=dev).to(bf)
+                   for _ in range(4))
+    N, BH = B * nH * S * D, B * nH
+    pairs = BH * S * (S + 1) // 2
+    o, lse = fa.flash_attention_fwd(q, k, v, True, D ** -0.5)
+    delta = fa.flash_delta(do, o)
+    cases = [
+        ("K3f", lambda: fe.fused_layer_norm(x, sc, bi),
+         (8 * rows * H, 2 * rows * H * 2 + 2 * H * 4)),
+        ("K3f", lambda: fe.fused_residual_layer_norm(x, d, sc, bi),
+         (8 * rows * H, 4 * rows * H * 2 + 2 * H * 4)),
+        ("K3b", lambda: fe.layer_norm_backward(s_, sc, dy, d),
+         (12 * rows * H, 4 * rows * H * 2 + 3 * H * 4)),
+        ("K4f", lambda: fe.fused_bias_gelu(y, b),
+         (12 * rows * Fw, 2 * rows * Fw * 2 + Fw * 4)),
+        ("K4b", lambda: fe.bias_gelu_backward(y, b, g),
+         (20 * rows * Fw, 3 * rows * Fw * 2 + 2 * Fw * 4)),
+        ("K5", lambda: fu.sqnorm(gn), (2 * n, 4 * n + 4)),
+        ("K1", lambda: fa.flash_attention_fwd(q, k, v, True, D ** -0.5),
+         (4 * D * pairs, 4 * N * 2 + BH * S * 4)),
+        ("K2c", lambda: fa.flash_attention_bwd_fused(
+            q, k, v, do, lse, delta, True, D ** -0.5),
+         (10 * D * pairs, 7 * N * 2 + 2 * BH * S * 4)),
+    ]
+    for kid, call, (flops, nbytes) in cases:
+        _, res = profiler.walk(call)
+        assert res.kernels == {kid: [1, float(flops), float(nbytes)]}, kid
+    del gn
+    p = torch.randn(n, device=dev)
+    m, vv = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    cast = torch.empty(n, dtype=bf, device=dev)
+    scalars = torch.tensor([1e-3, 1.0, 1.0, 0.1, 0.5, 0.0, 0.0, 0.0],
+                           device=dev)
+    seed = torch.zeros(2, dtype=torch.int32, device=dev)
+    _, res = profiler.walk(lambda: fu.fused_adam_apply(
+        torch.zeros(n, device=dev), p, m, vv, scalars, seed, b1=0.9,
+        b2=0.999, eps=1e-8, wd=0.01, coupled=False, use_inv=False,
+        use_coeff=True, one_pass=True, sr=False, cast_out=cast))
+    assert res.kernels["K6"] == [1, float(20 * n),
+                                 float(n * (4 + 4 + 8 + 4 + 8 + 2))]

@@ -5,7 +5,9 @@ signatures match the kernels' C entry points, the flash kernels and
 the grouped GEMM use neither ``nvcuda::wmma`` nor atomics (the grouped
 GEMM runs on TMA and ``wgmma``), the engine refuses configurations
 it has no CUDA path for, and the ``inference`` config parses and rejects
-exactly as the JAX package's does."""
+exactly as the JAX package's does; the serving engine refuses telemetry
+(its serving half is not ported) and the training engine a profiler
+window."""
 import ast
 import dataclasses
 import os
@@ -33,7 +35,10 @@ CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
 def test_import_pulls_in_no_jax():
     code = ("import sys, deepspeed_tpu_torch, deepspeed_tpu_torch.inference, "
             "deepspeed_tpu_torch.models.convert, deepspeed_tpu_torch.moe, "
-            "deepspeed_tpu_torch.runtime.zero.stage3\n"
+            "deepspeed_tpu_torch.runtime.zero.stage3, "
+            "deepspeed_tpu_torch.monitor, deepspeed_tpu_torch.ops.costs, "
+            "deepspeed_tpu_torch.profiling.flops_profiler, "
+            "deepspeed_tpu_torch.parallel.wire_model\n"
             "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -149,10 +154,52 @@ def test_engine_refuses_unported_layouts(config):
     (the slot-major layout and weight quantization, refused before
     slice 6g, serve now: tests/test_torch_serving_extras.py)."""
     params = gpt2_init(CFG32, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(NotImplementedError, match="telemetry") as err:
         InferenceEngine(CFG32, params, config=config, device="cpu")
+    # (the training half of ROADMAP queue 1 item 3 is ported)
+    assert "serving half" in str(err.value)
     explicit_off = dict(config, telemetry={"enabled": False})
     InferenceEngine(CFG32, params, config=explicit_off, device="cpu")
+
+
+def test_unported_features_leave_out_telemetry_and_the_flops_profiler():
+    """Training telemetry (its tensorboard alias too) and the flops
+    profiler build an engine: neither is an unported feature."""
+    for extra in ({"telemetry": {"enabled": True}},
+                  {"tensorboard": {"enabled": True}},
+                  {"flops_profiler": {"enabled": True}}):
+        c = tconfig.DeepSpeedConfig(dict({"train_batch_size": 2}, **extra),
+                                    world_size=1)
+        assert c.unported_features() == [], extra
+
+
+def test_profile_window_raises_naming_item_9(tmp_path):
+    """A telemetry.profile window (from the config or from
+    ``engine.profile_window``) raises: its trace ingest is ROADMAP queue
+    1 item 9. Telemetry off, ``profile_window`` is None, as in JAX."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn
+
+    def engine(tel):
+        return initialize(
+            model=gpt2_loss_fn(CFG32),
+            model_params=gpt2_init(CFG32, torch.Generator().manual_seed(0),
+                                   "cpu"),
+            config={"train_batch_size": 2,
+                    "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                    "telemetry": dict({"output_path": str(tmp_path)},
+                                      **tel)},
+            device="cpu")[0]
+
+    for block in ({"profile": {"start_step": 0}},
+                  {"profile_start_step": 2}):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            engine(dict({"enabled": True}, **block))
+    eng = engine({"enabled": True})
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.profile_window(2)
+    eng.close()
+    assert engine({"enabled": False}).profile_window(2) is None
 
 
 def test_engine_builds_whole_prompt_prefill():

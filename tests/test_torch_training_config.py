@@ -398,7 +398,24 @@ def test_stage3_config_is_accepted():
     ({"zero_optimization": {"stage": 2, "dcn_compression": True}},
      "dcn_compression"),
 ])
-def test_unported_config_raises(extra, match):
+def test_unported_config_raises(extra, match, tmp_path, monkeypatch):
+    if match in ("telemetry", "tensorboard block"):
+        # Training telemetry is ported (its tensorboard alias too): the
+        # block builds an engine that trains and writes its stream
+        # (tests/test_torch_telemetry*.py hold it against JAX).
+        monkeypatch.chdir(tmp_path)
+        eng = _init(dict(BASE, **extra))[0]
+        assert eng.telemetry.enabled
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and eng.global_steps == 1
+        eng.close()
+        out = tmp_path / ("tb" if match == "tensorboard block" else "runs")
+        kinds = [json.loads(line)["kind"] for line in
+                 (out / "DeepSpeedJobName.jsonl").read_text().splitlines()]
+        assert kinds[0] == "meta" and kinds[-1] == "final" and \
+            kinds.count("step") == 1
+        return
     if match in ("fused: false", "'sgd' is not ported",
                  "'lamb' is not ported", "elasticity"):
         # The unfused Adam chain, SGD, Lamb and batch-size elasticity are
@@ -472,10 +489,6 @@ def test_unported_config_raises(extra, match):
         return
     with pytest.raises(NotImplementedError, match=match) as err:
         _init(dict(BASE, **extra))
-    if match in ("telemetry", "tensorboard block"):
-        # (F1) the tensorboard block is telemetry's alias: both name the
-        # observability slice
-        assert "observability" in str(err.value)
     if match == "mesh.slices":
         # (F2) queue 1 item 7's multislice
         assert "item 7" in str(err.value)
