@@ -39,7 +39,11 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    forward and the fused backward at the training shape (8 x 1024), the
    forward and the split dq / dk-dv backward at sequence 768 and at the
    dense causal step's 2 x 4096, each with dropout 0 and 0.1, and the
-   forward at the whole-prompt prefill shape (1 x 1024), each also
+   forward at the whole-prompt prefill shape (1 x 1024), and BERT-large's
+   bidirectional attention (``bert_s512``: 8 x 512, 16 heads of 64,
+   ``causal=False``, dropout 0 and 0.1: the forward and the fused
+   backward, the forward's dropout mask read out of the kernel and held
+   bit-equal to the plain version's), each also
    launched twice and compared bit for bit (the 8 x 1024 forward also
    timed with a cold L2, the backward kernels also by the card's own
    time, graph replay, and with a cold L2); then
@@ -97,6 +101,20 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    (``block_size: 0``) with chunked and whole-prompt prefill: every
    greedy stream equal to the paged serve's of phase 4, the whole
    cache's bytes, K10 and K1 launches and the exact launches a step.
+4c. ``serve_telemetry``, on the serve phase's weights, geometry and
+   stream: two gpt2-small engines, one with ``telemetry`` (report every
+   16 iterations, a Perfetto trace, ``fail_on_recompile``), one
+   without, serving the stream in 4 rounds ordered off, on, on, off, ...
+   (each serve its own path): the greedy streams bit-equal on and off
+   and the launches equal, a decode step's host syncs equal on and off,
+   ``recompiles`` 0, the report's ``trace`` (16 completed, none
+   dropped), every ``request_trace`` event of the JSONL passing
+   ``validate_timeline``, ``tools/telemetry_report.py`` reading it (the
+   serving section, a worst-request exemplar with its spans); the
+   on/off decode-step p50 ratio is printed. Then ``ReplicaRouter`` over
+   two replicas with telemetry on and two without (32 requests): streams
+   equal, 0 recompiles, the fleet trace's 32 completed requests, every
+   replica stream's timelines valid.
 5. Train gpt2-small through ``initialize`` → ``train_batch``: bf16 with
    fp32 masters, AdamW, WarmupLR, clip 1.0, gas 2 x micro-batch 8 x
    1024, dropout 0.1, on a seeded learnable token stream. First one
@@ -129,6 +147,35 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    sample beside ``max_memory_allocated`` and the flops table's top
    modules; its launches (the telemetry-on engine's steps) join the
    summary's ``launches_by_path`` as ``train_telemetry``.
+5j. ``train_bert`` (after ``train_telemetry``): K3b as a post-LN block
+   runs it (4096 x 1024, the residual LN's sum unused: no gs) bit-equal
+   to the zero-gs launch, and the time of each and of the library's LN
+   backward; then BERT-large
+   (post-LN, 24 x 1024, 16 heads, vocab 30528, 335M parameters) on
+   ``examples/bert/train.py``'s recipe (bf16, ZeRO-1, Adam 3e-3 under
+   WarmupLR, clip 1.0) at 8 x 512, over MLM batches of the corpus's
+   bytes (``examples/data/corpus.txt``, 15% masked, a numpy seed): the
+   first loss within 2e-3 and the first grad norm within 2e-2 of a
+   plain-autograd step (``PLAIN_OPS``, the flash forward's plain
+   version), 30 steps as the path (finite, the last
+   5 below the first 5, exact launches ``per_bert_step``), two profiled
+   steps, one step under the sync debug mode (0 host syncs); then
+   bert-large-preln 10 steps (the pre-LN bidirectional block, K3b with
+   gs).
+5k. ``bert_inject``: ``module_inject`` at bert-large's widths from a
+   HF-named ``state_dict`` made on the card (``hidden_act`` "gelu", the
+   erf form; no ``transformers`` on that machine): restore ∘ extract
+   bit-equal, and a gpt2-small ``Conv1D`` round trip; the injected
+   encoder at 8 x 512 in bf16 on the kernels against the plain route
+   (each layer teacher-forced within 1e-2, the whole encoder within
+   5e-2, relative norms); then ``SparseAttentionUtils``: positions 512
+   -> 2048, 2 x 2000 tokens padded to the block, the sparse encoder
+   (Fixed bidirectional, 16 heads, block 128: K7, K8b, K8c) forward and
+   backward against the dense route with the layout as a mask (fp32
+   within 1e-4, bf16 within 3e-2 over 3 input draws: output, dx, dqkv,
+   dfc; and, as a negative control, fp32 above 1e-4 against the mask
+   with one block dropped), and K7, K8b, K8c at the swap's 2 x 2048
+   against their plain versions.
 5b. Train gpt2-small at sequence 4096 (gas 2 x micro-batch 2) with the
    ds_config's block-sparse attention (Fixed unidirectional, block 128)
    as the model's ``attention_fn``: one step against a plain-autograd
@@ -277,9 +324,14 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.inference import InferenceEngine, \
     ReplicaRouter, shared_prefix_requests
+from deepspeed_tpu_torch.models.bert import BERT_CONFIGS, bert_init, \
+    bert_mlm_loss_fn, bert_num_params
 from deepspeed_tpu_torch.models.gpt2 import GPT2_CONFIGS, gpt2_apply, \
     gpt2_flops_per_token, gpt2_init, gpt2_loss_fn, gpt2_num_params
-from deepspeed_tpu_torch.models.transformer import PLAIN_OPS
+from deepspeed_tpu_torch.models.transformer import PLAIN_OPS, apply_blocks, \
+    dense_attention
+from deepspeed_tpu_torch.module_inject import get_policy, replace_module
+from deepspeed_tpu_torch.monitor.request_trace import validate_timeline
 from deepspeed_tpu_torch.moe import MoEConfig
 from deepspeed_tpu_torch.ops import costs
 from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -294,7 +346,10 @@ from deepspeed_tpu_torch.ops import sparse_flash as sf
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten, \
     tree_unflatten
 from deepspeed_tpu_torch.ops.sparse_attention import \
-    BigBirdSparsityConfig, SparseSelfAttention, sparse_attention
+    BigBirdSparsityConfig, FixedSparsityConfig, SparseAttentionUtils, \
+    SparseSelfAttention, sparse_attention
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
+    sparse_attention_reference
 from deepspeed_tpu_torch.runtime.async_ckpt import AsyncCheckpointer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.utils.timer import device_sync_count
@@ -362,6 +417,10 @@ FLASH_CASES = (("train", TRAIN_MICRO, TRAIN_SEQ, 0.0),
                ("train_s4096", SPARSE_MICRO, SPARSE_SEQ, 0.0),
                ("train_s4096", SPARSE_MICRO, SPARSE_SEQ, 0.1),
                ("prefill", 1, 1024, 0.0))
+# BERT-large's attention (train_bert): 16 heads of 64, bidirectional, at
+# micro-batch 8 x 512; the backward is the fused kernel (S 512).
+BERT_HEADS = 16
+BERT_FLASH_CASES = (("bert_s512", 8, 512, 0.0), ("bert_s512", 8, 512, 0.1))
 SPARSE_SECTION = {"mode": "fixed", "block": 128, "num_local_blocks": 4,
                   "num_global_blocks": 1, "attention": "unidirectional"}
 SPARSE_STEPS, SPARSE_SIDE_STEPS, FLASH_S4096_STEPS = 12, 3, 5
@@ -1537,14 +1596,14 @@ def _rel_err(a, b):
 
 def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
                   kern, plain, lib, lib_name, causal=True, cold=False,
-                  device=False, **extra):
+                  device=False, heads=12, **extra):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) <= FLASH_REL_TOL, (kernel, case, drop, errs)
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     assert same, (kernel, case, drop, "two launches differ")
     b_ms, b_by = bound(nbytes, flops)
     rec = {"kernel": kernel, "case": case,
-           "shape": {"batch": B, "heads": 12, "seq": S, "head_dim": 64,
+           "shape": {"batch": B, "heads": heads, "seq": S, "head_dim": 64,
                      "causal": causal},
            "dtype": "bf16", "dropout": drop,
            "kernel_ms": time_ms(kern, iters=20, warmup=3),
@@ -1570,21 +1629,49 @@ def _flash_record(kernel, case, B, S, drop, got, want, again, nbytes, flops,
     return rec
 
 
+def kernel_dropout_mask_equal(dev, B, S, nH, D, drop, seed):
+    """K1's bidirectional dropout mask read out of the kernel and held
+    bit-equal to its plain version's (``_keep_grid``, the position hash
+    the plain forward draws): with q = k = 0 every key has probability
+    1/S, so with v one-hot over a D-key window each output column is
+    that key's kept or dropped probability. S/D forward launches."""
+    scale = D ** -0.5
+    q = torch.zeros(B, S, nH, D, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros_like(q)
+    got = torch.empty(B * nH, S, S, dtype=torch.bool, device=dev)
+    eye = torch.eye(D, device=dev, dtype=torch.bfloat16)
+    for base in range(0, S, D):
+        v = torch.zeros_like(q)
+        v[:, base:base + D] = eye[None, :, None, :]
+        o, _ = fa.flash_attention_fwd(q, k, v, False, scale, drop, seed)
+        got[:, :, base:base + D] = (o != 0).permute(0, 2, 1, 3).reshape(
+            B * nH, S, D)
+    want = fa._keep_grid(seed, B * nH, S, S, drop, dev)
+    same = bool(torch.equal(got, want))
+    assert same, ("K1's dropout mask differs from the plain version's",
+                  float(got.float().mean()), float(want.float().mean()))
+    return same
+
+
 def check_flash(dev, gen):
     """K1, K2a, K2b and K2c against their plain versions at the shapes
-    the training and whole-prompt prefill paths give them. Inputs are
-    the strided split of one [B, S, 3H] projection, as the model's. The
-    bound's operations are the matmul FLOPs over the (q, k) pairs the
-    causal rule keeps, at the bf16 rate; its bytes read each input and
-    write each output once."""
-    nH, D, dt, out = 12, 64, torch.bfloat16, []
+    the training and whole-prompt prefill paths give them (GPT-2: 12
+    heads, causal), and at BERT-large's (16 heads, ``causal=False``:
+    ``bert_s512``). Inputs are the strided split of one [B, S, 3H]
+    projection, as the model's. The bound's operations are the matmul
+    FLOPs over the (q, k) pairs the causal rule keeps (all S² pairs
+    without it), at the bf16 rate; its bytes read each input and write
+    each output once."""
+    D, dt, out = 64, torch.bfloat16, []
     scale = D ** -0.5
     seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
-    for case, B, S, drop in FLASH_CASES:
+    cases = [c + (12, True) for c in FLASH_CASES] + \
+        [c + (BERT_HEADS, False) for c in BERT_FLASH_CASES]
+    for case, B, S, drop, nH, causal in cases:
         qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
         q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
         do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
-        pairs = costs.causal_pairs(B, nH, S)
+        pairs = costs.causal_pairs(B, nH, S, causal)
         fwd_c, fused_c, dq_c, dkv_c = (
             f(B, S, nH, D, pairs) for f in (
                 costs.flash_fwd_cost, costs.flash_bwd_fused_cost,
@@ -1595,29 +1682,37 @@ def check_flash(dev, gen):
         sdo = do.transpose(1, 2).contiguous()
 
         def sdpa():
-            return F.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+            return F.scaled_dot_product_attention(sq, sk, sv,
+                                                  is_causal=causal,
                                                   dropout_p=drop)
 
-        fwd = lambda: fa.flash_attention_fwd(q, k, v, True, scale, drop,  # noqa: E731
-                                             seed)
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, scale,  # noqa: E731
+                                             drop, seed)
         o, lse = fwd()
-        want = fa.flash_fwd_plain(q, k, v, True, scale, drop, seed)
+        want = fa.flash_fwd_plain(q, k, v, causal, scale, drop, seed)
         again = fwd()
         torch.cuda.synchronize()
         lse_err = float((lse - want[1]).abs().max())
         assert lse_err <= FLASH_LSE_TOL, (case, drop, lse_err)
+        extra = {}
+        if drop > 0 and not causal:
+            extra["dropout_mask_bit_equal_to_plain"] = \
+                kernel_dropout_mask_equal(dev, B, S, nH, D, drop, seed)
+        lib_name = f"F.scaled_dot_product_attention(is_causal={causal})"
         with torch.no_grad():
             out.append(_flash_record(
                 "flash_attention_fwd", case, B, S, drop, (o, lse), want,
                 again, fwd_c.bytes, fwd_c.flops, fwd,
-                lambda: fa.flash_fwd_plain(q, k, v, True, scale, drop, seed),
-                sdpa, "F.scaled_dot_product_attention(is_causal=True)",
-                cold=case == "train", lse_max_abs_err=lse_err))
+                lambda: fa.flash_fwd_plain(q, k, v, causal, scale, drop,
+                                           seed),
+                sdpa, lib_name, causal=causal, heads=nH,
+                cold=case in ("train", "bert_s512"),
+                lse_max_abs_err=lse_err, **extra))
         del want, again
         if case == "prefill":
             continue
         delta = fa.flash_delta(do, o)
-        args = (q, k, v, do, lse, delta, True, scale, drop, seed)
+        args = (q, k, v, do, lse, delta, causal, scale, drop, seed)
         want = fa.flash_bwd_plain(*args)
         lib_out = sdpa()
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
@@ -1629,7 +1724,8 @@ def check_flash(dev, gen):
                 "flash_attention_bwd_fused", case, B, S, drop, kern(), want,
                 kern(), fused_c.bytes, fused_c.flops, kern, plain,
                 lib_bwd, "F.scaled_dot_product_attention backward "
-                "(torch.autograd.grad)", device=True))
+                "(torch.autograd.grad)", device=True, causal=causal,
+                heads=nH))
         else:
             # No library call computes dq alone or dk/dv alone: each of the
             # pair carries the library's whole backward (dq, dk and dv) as
@@ -1642,11 +1738,11 @@ def check_flash(dev, gen):
             out.append(_flash_record(
                 "flash_attention_bwd_dq", case, B, S, drop, kq(), want[:1],
                 kq(), dq_c.bytes, dq_c.flops, kq, plain, None,
-                None, device=True, **pair))
+                None, device=True, causal=causal, heads=nH, **pair))
             out.append(_flash_record(
                 "flash_attention_bwd_dkv", case, B, S, drop, kkv(), want[1:],
                 kkv(), dkv_c.bytes, dkv_c.flops, kkv, plain,
-                None, None, device=True, **pair))
+                None, None, device=True, causal=causal, heads=nH, **pair))
         del want, lib_out, sq, sk, sv
         torch.cuda.empty_cache()
     return out
@@ -1694,108 +1790,120 @@ def check_sparse(dev, gen):
              ("dense_causal_s4096", None, SPARSE_MICRO, SPARSE_SEQ, True, 0.1,
               None))
     for case, lay, B, S, causal, drop, tile in cases:
-        qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
-        q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
-        do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
-        BH = B * nH
-        keep = None if lay is None else \
-            fa.layout_element_mask(lay, S, causal, dev)
-        pairs = B * (int(keep.sum()) if keep is not None
-                     else nH * S * (S + 1) // 2)
-        fwd_c, fused_c, dq_c, dkv_c = (
-            f(B, S, nH, D, pairs) for f in (
-                costs.flash_fwd_cost, costs.flash_bwd_fused_cost,
-                costs.flash_bwd_dq_cost, costs.flash_bwd_dkv_cost))
-        extra = {"layout": None if lay is None else
-                 ("bigbird" if lay is bigbird else "fixed"),
-                 "kept_pairs": pairs, "causal": causal}
-        if tile is not None:
-            extra["tile_qwiden_widen"] = list(tile)
-        # The library call's inputs, laid out and built outside its timing.
-        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        sdo = do.transpose(1, 2).contiguous()
-        mask = None if keep is None else keep[None]
+        out += sparse_case(dev, gen, case, lay, B, S, causal, drop, tile,
+                           nH, seed, "bigbird" if lay is bigbird else "fixed")
+    return out
 
-        def sdpa():
-            if mask is None:
-                return F.scaled_dot_product_attention(
-                    sq, sk, sv, is_causal=True, dropout_p=drop)
-            return F.scaled_dot_product_attention(sq, sk, sv,
-                                                  attn_mask=mask)
-        lib_name = "F.scaled_dot_product_attention(is_causal=True)" \
-            if mask is None else ("F.scaled_dot_product_attention(attn_mask="
-                                  "layout and causal element mask), "
-                                  "dropout 0")
-        if case.startswith("sparse"):
-            qw, w = tile
-            fwd = lambda: sf.sparse_flash_fwd(q, k, v, lay, causal, scale,  # noqa: E731
-                                              drop, seed, w, qw)
-            plain = lambda: sf.sparse_fwd_plain(q, k, v, lay, causal,  # noqa: E731
-                                                scale, drop, seed)
-            name = "sparse_flash_fwd"
-        else:
-            glay = None if lay is None else \
-                torch.from_numpy(lay).to(dev, torch.int32)
-            fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, scale,  # noqa: E731
-                                                 drop, seed, glay)
-            plain = lambda: fa.flash_fwd_plain(q, k, v, causal, scale,  # noqa: E731
-                                               drop, seed, glay)
-            name = "flash_attention_fwd"
-        o, lse = fwd()
-        want = plain()
-        again = fwd()
-        torch.cuda.synchronize()
-        lse_err = float((lse - want[1]).abs().max())
-        assert lse_err <= FLASH_LSE_TOL, (case, drop, lse_err)
-        with torch.no_grad():
-            out.append(_flash_record(
-                name, case, B, S, drop, (o, lse), want, again,
-                fwd_c.bytes, fwd_c.flops, fwd, plain, sdpa,
-                lib_name, lse_max_abs_err=lse_err, **extra))
-        del want, again
-        if case == "dense_causal_s4096":
-            continue
-        delta = fa.flash_delta(do, o)
-        if case.startswith("sparse"):
-            args = (q, k, v, do, lse, delta, lay, causal, scale, drop, seed,
-                    w, qw)
-            plain_b = lambda: sf.sparse_bwd_plain(*args[:11])  # noqa: E731
-            kq = lambda: (sf.sparse_flash_bwd_dq(*args),)  # noqa: E731
-            kkv = lambda: sf.sparse_flash_bwd_dkv(*args)  # noqa: E731
-            names = ("sparse_flash_bwd_dq", "sparse_flash_bwd_dkv")
-        else:
-            args = (q, k, v, do, lse, delta, causal, scale, drop, seed, glay)
-            plain_b = lambda: fa.flash_bwd_plain(*args)  # noqa: E731
-            kq = lambda: (fa.flash_attention_bwd_dq(*args),)  # noqa: E731
-            kkv = lambda: fa.flash_attention_bwd_dkv(*args)  # noqa: E731
-            names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-        want = plain_b()
-        lib_out = sdpa()
-        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            lib_out, (sq, sk, sv), sdo, retain_graph=True)
-        pair = {"library_ms_pair": time_ms(lib_bwd, iters=20, warmup=3),
-                "library_pair": "the library's backward alone "
-                "(torch.autograd.grad over a built graph): dq, dk and dv"}
+
+def sparse_case(dev, gen, case, lay, B, S, causal, drop, tile, nH, seed,
+                layout_name, with_fused=True):
+    """One case of ``check_sparse``: the LUT kernels at super-tile
+    ``tile`` (cases named ``sparse*``; K8a too ``with_fused``) or the
+    gated and dense flash kernels, forward and backward, against their
+    plain versions; returns the records."""
+    D, dt, out = 64, torch.bfloat16, []
+    scale = D ** -0.5
+    qkv = torch.randn(B, S, 3 * nH * D, device=dev, generator=gen).to(dt)
+    q, k, v = (t.reshape(B, S, nH, D) for t in qkv.split(nH * D, -1))
+    do = torch.randn(B, S, nH, D, device=dev, generator=gen).to(dt)
+    BH = B * nH
+    keep = None if lay is None else \
+        fa.layout_element_mask(lay, S, causal, dev)
+    pairs = B * (int(keep.sum()) if keep is not None
+                 else nH * S * (S + 1) // 2)
+    fwd_c, fused_c, dq_c, dkv_c = (
+        f(B, S, nH, D, pairs) for f in (
+            costs.flash_fwd_cost, costs.flash_bwd_fused_cost,
+            costs.flash_bwd_dq_cost, costs.flash_bwd_dkv_cost))
+    extra = {"layout": None if lay is None else layout_name,
+             "kept_pairs": pairs, "causal": causal, "heads": nH}
+    if tile is not None:
+        extra["tile_qwiden_widen"] = list(tile)
+    # The library call's inputs, laid out and built outside its timing.
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdo = do.transpose(1, 2).contiguous()
+    mask = None if keep is None else keep[None]
+
+    def sdpa():
+        if mask is None:
+            return F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True, dropout_p=drop)
+        return F.scaled_dot_product_attention(sq, sk, sv,
+                                              attn_mask=mask)
+    lib_name = "F.scaled_dot_product_attention(is_causal=True)" \
+        if mask is None else ("F.scaled_dot_product_attention(attn_mask="
+                              "layout and causal element mask), "
+                              "dropout 0")
+    if case.startswith("sparse"):
+        qw, w = tile
+        fwd = lambda: sf.sparse_flash_fwd(q, k, v, lay, causal, scale,  # noqa: E731
+                                          drop, seed, w, qw)
+        plain = lambda: sf.sparse_fwd_plain(q, k, v, lay, causal,  # noqa: E731
+                                            scale, drop, seed)
+        name = "sparse_flash_fwd"
+    else:
+        glay = None if lay is None else \
+            torch.from_numpy(lay).to(dev, torch.int32)
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, scale,  # noqa: E731
+                                             drop, seed, glay)
+        plain = lambda: fa.flash_fwd_plain(q, k, v, causal, scale,  # noqa: E731
+                                           drop, seed, glay)
+        name = "flash_attention_fwd"
+    o, lse = fwd()
+    want = plain()
+    again = fwd()
+    torch.cuda.synchronize()
+    lse_err = float((lse - want[1]).abs().max())
+    assert lse_err <= FLASH_LSE_TOL, (case, drop, lse_err)
+    with torch.no_grad():
         out.append(_flash_record(
-            names[0], case, B, S, drop, kq(), want[:1], kq(),
-            dq_c.bytes, dq_c.flops, kq, plain_b, None, None,
-            **pair, **extra))
+            name, case, B, S, drop, (o, lse), want, again,
+            fwd_c.bytes, fwd_c.flops, fwd, plain, sdpa,
+            lib_name, lse_max_abs_err=lse_err, **extra))
+    del want, again
+    if case == "dense_causal_s4096":
+        return out
+    delta = fa.flash_delta(do, o)
+    if case.startswith("sparse"):
+        args = (q, k, v, do, lse, delta, lay, causal, scale, drop, seed,
+                w, qw)
+        plain_b = lambda: sf.sparse_bwd_plain(*args[:11])  # noqa: E731
+        kq = lambda: (sf.sparse_flash_bwd_dq(*args),)  # noqa: E731
+        kkv = lambda: sf.sparse_flash_bwd_dkv(*args)  # noqa: E731
+        names = ("sparse_flash_bwd_dq", "sparse_flash_bwd_dkv")
+    else:
+        args = (q, k, v, do, lse, delta, causal, scale, drop, seed, glay)
+        plain_b = lambda: fa.flash_bwd_plain(*args)  # noqa: E731
+        kq = lambda: (fa.flash_attention_bwd_dq(*args),)  # noqa: E731
+        kkv = lambda: fa.flash_attention_bwd_dkv(*args)  # noqa: E731
+        names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    want = plain_b()
+    lib_out = sdpa()
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (sq, sk, sv), sdo, retain_graph=True)
+    pair = {"library_ms_pair": time_ms(lib_bwd, iters=20, warmup=3),
+            "library_pair": "the library's backward alone "
+            "(torch.autograd.grad over a built graph): dq, dk and dv"}
+    out.append(_flash_record(
+        names[0], case, B, S, drop, kq(), want[:1], kq(),
+        dq_c.bytes, dq_c.flops, kq, plain_b, None, None,
+        **pair, **extra))
+    out.append(_flash_record(
+        names[1], case, B, S, drop, kkv(), want[1:], kkv(),
+        dkv_c.bytes, dkv_c.flops, kkv, plain_b, None, None,
+        **pair, **extra))
+    if case.startswith("sparse") and with_fused:
+        kf = lambda: sf.sparse_flash_bwd_fused(*args)  # noqa: E731
+        plan = sf.sparse_plan(lay, S, dt, causal, dev, w, qw)
+        ws = BH * plan.slots_per_head * plan.tile * D * 4
         out.append(_flash_record(
-            names[1], case, B, S, drop, kkv(), want[1:], kkv(),
-            dkv_c.bytes, dkv_c.flops, kkv, plain_b, None, None,
-            **pair, **extra))
-        if case.startswith("sparse"):
-            kf = lambda: sf.sparse_flash_bwd_fused(*args)  # noqa: E731
-            plan = sf.sparse_plan(lay, S, dt, causal, dev, w, qw)
-            ws = BH * plan.slots_per_head * plan.tile * D * 4
-            out.append(_flash_record(
-                "sparse_flash_bwd_fused", case, B, S, drop, kf(), want, kf(),
-                fused_c.bytes, fused_c.flops, kf, plain_b, lib_bwd,
-                "the library's backward alone (torch.autograd.grad over a "
-                "built graph)", dq_partials_workspace_bytes=ws, **extra))
-        del want, lib_out, sq, sk, sv, keep, mask
-        torch.cuda.empty_cache()
+            "sparse_flash_bwd_fused", case, B, S, drop, kf(), want, kf(),
+            fused_c.bytes, fused_c.flops, kf, plain_b, lib_bwd,
+            "the library's backward alone (torch.autograd.grad over a "
+            "built graph)", dq_partials_workspace_bytes=ws, **extra))
+    del want, lib_out, sq, sk, sv, keep, mask
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4556,6 +4664,682 @@ def train_onebit(dev, smi):
     return counts, rows
 
 
+# --------------------------------------------------------------------- #
+# Phase 5j: BERT-large pretraining (post-LN, then pre-LN)
+# --------------------------------------------------------------------- #
+# examples/bert/train.py's recipe: bf16, ZeRO-1 (one card: the one-card
+# path), Adam lr 3e-3 under WarmupLR (10 steps to its default peak,
+# 1e-3), clipping 1.0, micro-batch 8 x 512.
+BERT_MICRO, BERT_SEQ = 8, 512
+BERT_STEPS, BERT_PRELN_STEPS = 30, 10
+BERT_LR = 3e-3
+BERT_CORPUS = os.path.join("examples", "data", "corpus.txt")
+# Byte tokens (0-255) of the corpus; the [MASK] id sits past them.
+BERT_MASK_TOKEN, BERT_MASK_PROB = 256, 0.15
+
+
+def bert_ds_config():
+    return {"train_batch_size": BERT_MICRO,
+            "gradient_accumulation_steps": 1,
+            "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+            "gradient_clipping": 1.0,
+            "optimizer": {"type": "Adam", "params": {"lr": BERT_LR}},
+            "scheduler": {"type": "WarmupLR",
+                          "params": {"warmup_num_steps": 10}},
+            "steps_per_print": 10 ** 9}
+
+
+def corpus_mlm(steps, seed=SEED):
+    """Seeded MLM batches over the corpus's bytes: 8 windows of 512 at
+    random offsets a step, 15% of the positions masked (labels there,
+    -100 elsewhere)."""
+    with open(os.path.join(REPO, BERT_CORPUS), "rb") as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        starts = rng.integers(0, len(data) - BERT_SEQ, BERT_MICRO)
+        toks = np.stack([data[i:i + BERT_SEQ] for i in starts]).astype(
+            np.int64)
+        masked = rng.random(toks.shape) < BERT_MASK_PROB
+        labels = np.where(masked, toks, -100)
+        toks = np.where(masked, BERT_MASK_TOKEN, toks)
+        out.append((torch.from_numpy(toks), torch.from_numpy(labels)))
+    return out
+
+
+def per_bert_step(cfg):
+    """Launches of one BERT train step (one micro-batch): the embedding
+    and MLM-head LayerNorms (plain mode), per layer pre-LN's LN1 or
+    post-LN's second residual LN, the residual LN(s), the FFN's and the
+    head's bias+GELU, the flash forward and its backward."""
+    L = cfg.num_layers
+    c = {name: 0 for name in ops.launch_counts()}
+    pre = cfg.pre_layer_norm
+    c.update({"fused_layer_norm": 2 + (L if pre else 0),
+              "fused_residual_layer_norm": L if pre else 2 * L,
+              "fused_bias_gelu": L + 1,
+              "layer_norm_backward": 2 * L + 2,
+              "bias_gelu_backward": L + 1,
+              "flash_attention_fwd": L, "sqnorm": 1, "fused_adam_apply": 1})
+    bwd = ("flash_attention_bwd_fused",) if fa.use_fused_bwd(
+        BERT_SEQ, BERT_SEQ) else ("flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv")
+    c.update({name: L for name in bwd})
+    return c
+
+
+def bert_engine(cfg, dev):
+    params = bert_init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=bert_mlm_loss_fn(cfg), model_params=params,
+        config=bert_ds_config(), rng=SEED, device=dev)
+    return eng
+
+
+def plain_bert_step(eng, cfg, batch):
+    """The first step's loss and grad norm by plain autograd (plain
+    LayerNorm/GELU, the flash forward's plain version drawing the same
+    seeds) on the engine's bf16 params, batch and next generator."""
+    gen = eng.step_generator()
+    cast, spec = tree_flatten(eng.state.cast_params)
+    leaves = [t.detach().clone().requires_grad_() for t in cast]
+    loss_fn = bert_mlm_loss_fn(cfg, attention_fn=fa.flash_attention_plain,
+                               ops=PLAIN_OPS)
+    loss = loss_fn(tree_unflatten(spec, leaves),
+                   tuple(t.to(eng.device) for t in batch), gen)
+    # (the segment table gets no gradient: the MLM batches carry none)
+    grads = torch.autograd.grad(loss.float(), leaves, allow_unused=True)
+    norm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads
+                                if g is not None)))
+    return float(loss.detach()), norm
+
+
+def check_ln_backward_no_gs(dev, gen, rows, H):
+    """K3b as a post-LN block runs it (the residual LN's sum unused: no
+    gs) at BERT-large's rows, against the zero-gs launch autograd made
+    before the repair: bit-equal, and the time of each. Without gs this
+    is a plain LN backward, so the library's is timed beside it."""
+    dt = torch.bfloat16
+    s = torch.randn(rows, H, device=dev, generator=gen).to(dt)
+    sc = 1 + 0.1 * torch.randn(H, device=dev, generator=gen)
+    dy = torch.randn(rows, H, device=dev, generator=gen).to(dt)
+    zeros = torch.zeros_like(s)
+    bi = torch.zeros(H, device=dev)
+    mean, rstd = _native_ln_bwd_inputs(s, sc, bi)
+    sc_t, bi_t = sc.to(dt), bi.to(dt)
+    got = fe.layer_norm_backward(s, sc, dy, None)
+    zero = fe.layer_norm_backward(s, sc, dy, zeros)
+    want = fe.ln_backward_plain(s, sc, dy, None)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, zero))
+    ulps = bf16_ulp_excess(got[0], want[0])
+    c = costs.layer_norm_bwd(rows, H, s.element_size(), False)
+    b_ms, b_by = bound(c.bytes, c.flops)
+    rec = {"kernel": "layer_norm_backward", "case": "bert_postln_no_gs",
+           "residual": "no_gs", "shape": [rows, H], "dtype": "bf16",
+           **kernel_times(lambda: fe.layer_norm_backward(s, sc, dy, None)),
+           "zero_gs_ms": time_ms(
+               lambda: fe.layer_norm_backward(s, sc, dy, zeros)),
+           "zero_gs_device_ms": device_ms(
+               lambda: fe.layer_norm_backward(s, sc, dy, zeros)),
+           "plain_ms": time_ms(
+               lambda: fe.ln_backward_plain(s, sc, dy, None), iters=20),
+           **library_times(
+               lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, s, [H], mean, rstd, sc_t, bi_t, [True, True, True])),
+           "library": "torch.ops.aten.native_layer_norm_backward",
+           "bound_ms": b_ms, "bound_by": b_by,
+           "max_err": float((got[0].float() - want[0].float()).abs().max()),
+           "max_err_in_2ulp": ulps, "bit_equal_to_zero_gs": same}
+    emit(rec)
+    assert same, rec
+    assert ulps <= 1.0, rec
+    return rec
+
+
+def train_bert(dev, smi, gen):
+    """BERT-large (post-LN) on the example's recipe over the corpus's MLM
+    batches: a plain-autograd yardstick step, then 30 steps as the
+    path (losses finite, the last 5 below the first 5, exact launches, 0
+    host syncs a step); then bert-large-preln 10 steps. Returns the
+    launch counts by path and K3b's no-gs record."""
+    counts = {}
+    free_card()
+    ln_rec = check_ln_backward_no_gs(dev, gen, BERT_MICRO * BERT_SEQ, 1024)
+    batches = corpus_mlm(BERT_STEPS + 3)
+    cfg = BERT_CONFIGS["bert-large"]
+    eng = bert_engine(cfg, dev)
+    ref_loss, ref_norm = plain_bert_step(eng, cfg, batches[0])
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    losses, metrics, ms, counts["train_bert"] = run_path(
+        eng, batches[:BERT_STEPS])
+    k_norm = float(metrics[0]["grad_norm"])
+    check = {"loss_kernel": losses[0], "loss_plain": ref_loss,
+             "loss_rel": abs(losses[0] - ref_loss) / abs(ref_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_kernel": k_norm,
+             "grad_norm_plain": ref_norm,
+             "grad_norm_rel": abs(k_norm - ref_norm) / ref_norm,
+             "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL}
+    expect = per_bert_step(cfg)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_ms = float(np.median(ms[3:]))
+    tokens = BERT_MICRO * BERT_SEQ
+    rec = {"model": "bert-large", "post_ln": True,
+           "params": bert_num_params(cfg),
+           "precision": "bf16, fp32 masters", "zero_stage": 1,
+           "batch": [1, BERT_MICRO, BERT_SEQ], "steps": BERT_STEPS,
+           "lr": BERT_LR, "warmup_max_lr": 1e-3,
+           "dropout": cfg.hidden_dropout, "losses": losses,
+           "loss_first5_mean": first, "loss_last5_mean": last,
+           "step_vs_plain_autograd": check,
+           "grad_norm_last": float(metrics[-1]["grad_norm"]),
+           "launches_per_step": nonzero(expect),
+           "step_ms_p50": step_ms, "step_ms_all": ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": smi}
+    emit({"train_bert": rec})
+    assert check["loss_rel"] <= TRAIN_LOSS_RTOL, check
+    assert check["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL, check
+    assert all(math.isfinite(x) for x in losses), losses
+    assert last < first, (first, last)
+    assert counts["train_bert"] == {k: BERT_STEPS * v
+                                    for k, v in expect.items()}, \
+        counts["train_bert"]
+    prof = profile_train_steps(eng, batches[BERT_STEPS:BERT_STEPS + 2])
+    prof["card"] = smi
+    emit({"train_bert_profile": prof})
+    syncs = count_host_syncs(eng, batches[BERT_STEPS + 2:])
+    emit({"train_bert_host_syncs": syncs})
+    assert syncs["host_syncs"] == 0, syncs
+    del eng
+    free_card()
+
+    cfg = BERT_CONFIGS["bert-large-preln"]
+    eng = bert_engine(cfg, dev)
+    losses, _, ms, counts["train_bert_preln"] = run_path(
+        eng, batches[:BERT_PRELN_STEPS])
+    expect = per_bert_step(cfg)
+    rec = {"model": "bert-large-preln", "steps": BERT_PRELN_STEPS,
+           "losses": losses, "launches_per_step": nonzero(expect),
+           "step_ms_p50": float(np.median(ms[3:])), "card": smi}
+    emit({"train_bert_preln": rec})
+    assert all(math.isfinite(x) for x in losses), losses
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert counts["train_bert_preln"] == {
+        k: BERT_PRELN_STEPS * v for k, v in expect.items()}, \
+        counts["train_bert_preln"]
+    del eng
+    free_card()
+    return counts, ln_rec
+
+
+# --------------------------------------------------------------------- #
+# Phase 5k: module injection and the sparse-encoder swap
+# --------------------------------------------------------------------- #
+# A HF BertConfig's attributes at bert-large's widths (read by attribute:
+# this machine has no transformers). "gelu" is HF's erf form.
+HF_BERT_LARGE = dict(model_type="bert", hidden_size=1024,
+                     num_attention_heads=16, num_hidden_layers=24,
+                     intermediate_size=4096, max_position_embeddings=512,
+                     vocab_size=30522, type_vocab_size=2, hidden_act="gelu",
+                     hidden_dropout_prob=0.1,
+                     attention_probs_dropout_prob=0.1, layer_norm_eps=1e-12)
+HF_GPT2_SMALL = dict(model_type="gpt2", n_embd=768, n_head=12, n_layer=12,
+                     n_positions=1024, vocab_size=50257, resid_pdrop=0.1,
+                     attn_pdrop=0.1, layer_norm_epsilon=1e-5)
+# The injected encoder on the kernels against the plain route (bf16, 8 x
+# 512): each layer teacher-forced from the kernel route's input, and the
+# whole encoder; relative errors of the Frobenius norm.
+INJECT_LAYER_REL_TOL = 1e-2
+INJECT_ENCODER_REL_TOL = 5e-2
+# The sparse swap: positions 512 -> 2048, 2 sequences of 2000 tokens
+# padded to the block, the Fixed bidirectional layout at 16 heads.
+SWAP_POSITIONS, SWAP_B, SWAP_TOKENS = 2048, 2, 2000
+SWAP_SPARSITY = dict(num_heads=16, block=128, num_local_blocks=4,
+                     num_global_blocks=1, attention="bidirectional")
+# The swap against the dense route with the layout as a mask, forward
+# and backward through 24 layers: in fp32 (each kernel's fp32 tile
+# against fp32 softmax) the sums' order alone; in bf16 (the counted
+# path) the two routes round p and the LN/GELU outputs at other points
+# in every layer. On an H100 80GB HBM3 at 700 W, fp32 read 1.7-3.9e-6;
+# bf16 over 3 input draws 1.18e-2 on the output and 2.47-2.50e-2 on dx.
+# bf16 cannot see a layout fault (one block dropped from the reference
+# read 2.51e-2 on dx there), so fp32 holds the layout: that control
+# read 3.2e-4 to 2.2e-3 in fp32, and must read above its limit.
+SWAP_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SWAP_DRAWS = 3
+
+
+def hf_bert_state_dict(c, gen, dev):
+    """A HF ``BertModel`` state_dict's names and shapes (Linear weights
+    ``[out, in]``), fp32 values from ``gen``."""
+    H, F_, V = c.hidden_size, c.intermediate_size, c.vocab_size
+
+    def w(*shape):
+        return 0.02 * torch.randn(shape, device=dev, generator=gen)
+
+    def ln(prefix):
+        return {prefix + ".weight": 1 + 0.1 * torch.randn(
+            H, device=dev, generator=gen), prefix + ".bias": w(H) * 5}
+    sd = {"embeddings.word_embeddings.weight": w(V, H),
+          "embeddings.position_embeddings.weight":
+          w(c.max_position_embeddings, H),
+          "embeddings.token_type_embeddings.weight": w(c.type_vocab_size, H),
+          **ln("embeddings.LayerNorm")}
+    for i in range(c.num_hidden_layers):
+        p = f"encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            sd[f"{p}attention.self.{n}.weight"] = w(H, H)
+            sd[f"{p}attention.self.{n}.bias"] = w(H)
+        sd.update({f"{p}attention.output.dense.weight": w(H, H),
+                   f"{p}attention.output.dense.bias": w(H),
+                   **ln(f"{p}attention.output.LayerNorm"),
+                   f"{p}intermediate.dense.weight": w(F_, H),
+                   f"{p}intermediate.dense.bias": w(F_),
+                   f"{p}output.dense.weight": w(H, F_),
+                   f"{p}output.dense.bias": w(H),
+                   **ln(f"{p}output.LayerNorm")})
+    return sd
+
+
+def hf_gpt2_state_dict(c, gen, dev):
+    """A HF ``GPT2Model`` state_dict's names and shapes (``Conv1D``
+    weights ``[in, out]``)."""
+    H = c.n_embd
+
+    def w(*shape):
+        return 0.02 * torch.randn(shape, device=dev, generator=gen)
+    sd = {"wte.weight": w(c.vocab_size, H), "wpe.weight": w(c.n_positions, H),
+          "ln_f.weight": 1 + w(H), "ln_f.bias": w(H)}
+    for i in range(c.n_layer):
+        p = f"h.{i}."
+        sd.update({p + "ln_1.weight": 1 + w(H), p + "ln_1.bias": w(H),
+                   p + "attn.c_attn.weight": w(H, 3 * H),
+                   p + "attn.c_attn.bias": w(3 * H),
+                   p + "attn.c_proj.weight": w(H, H),
+                   p + "attn.c_proj.bias": w(H),
+                   p + "ln_2.weight": 1 + w(H), p + "ln_2.bias": w(H),
+                   p + "mlp.c_fc.weight": w(H, 4 * H),
+                   p + "mlp.c_fc.bias": w(4 * H),
+                   p + "mlp.c_proj.weight": w(4 * H, H),
+                   p + "mlp.c_proj.bias": w(H)})
+    return sd
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm((a.float() - b.float()).ravel())
+                 / torch.linalg.vector_norm(b.float().ravel()))
+
+
+def hf_embed(sd, c, ids):
+    """HF BERT's embeddings (token type 0), fp32, LN at the config's
+    eps."""
+    S = ids.shape[1]
+    x = sd["embeddings.word_embeddings.weight"][ids] + \
+        sd["embeddings.position_embeddings.weight"][None, :S] + \
+        sd["embeddings.token_type_embeddings.weight"][0]
+    return F.layer_norm(x, (c.hidden_size,),
+                        sd["embeddings.LayerNorm.weight"],
+                        sd["embeddings.LayerNorm.bias"], c.layer_norm_eps)
+
+
+def bert_inject(dev, smi, gen):
+    """``module_inject`` at bert-large's widths from a HF-named
+    state_dict (erf GELU): restore ∘ extract bit-equal (and a gpt2-small
+    Conv1D round trip); the injected encoder at 8 x 512 on the kernels
+    (flash ``causal=False``, the residual LN, erf K4f) against the plain
+    route; then ``SparseAttentionUtils``: positions 512 -> 2048, padding
+    to the block, and the sparse encoder (the LUT kernels K7/K8b/K8c),
+    forward and backward, against the dense route with the layout as a
+    mask; K7/K8b/K8c at the swap's shape against their plain versions.
+    Returns (launch counts by path, the sparse kernels' records)."""
+    from types import SimpleNamespace
+    counts = {}
+    free_card()
+    hf_cfg = SimpleNamespace(**HF_BERT_LARGE)
+    sd = hf_bert_state_dict(hf_cfg, gen, dev)
+    cfg, stacked, restore_fn = replace_module(hf_cfg, sd)
+    assert get_policy("bert").detect(hf_cfg) and cfg.gelu_exact and \
+        not cfg.pre_layer_norm and not cfg.causal, cfg
+    back = restore_fn(stacked)
+    bert_round_trip = list(back) == list(sd) and \
+        all(torch.equal(back[k], sd[k]) for k in sd)
+    g_cfg = SimpleNamespace(**HF_GPT2_SMALL)
+    gsd = hf_gpt2_state_dict(g_cfg, gen, dev)
+    gcfg, gstacked, grestore = replace_module(g_cfg, gsd)
+    gback = grestore(gstacked)
+    gpt2_round_trip = list(gback) == list(gsd) and \
+        all(torch.equal(gback[k], gsd[k]) for k in gsd)
+    H = g_cfg.n_embd
+    assert gstacked["qkv_kernel"].shape == (g_cfg.n_layer, H, 3 * H) and \
+        gcfg.causal and gcfg.pre_layer_norm
+    del gsd, gstacked, gback, back
+
+    # The encoder at 8 x 512 in bf16: kernels against the plain route.
+    bf = {k: v.to(torch.bfloat16) for k, v in stacked.items()}
+    ids = torch.randint(0, hf_cfg.vocab_size, (BERT_MICRO, BERT_SEQ),
+                        device=dev, generator=gen)
+    x = hf_embed(sd, hf_cfg, ids).to(torch.bfloat16)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out_k = apply_blocks(bf, x, cfg)
+        torch.cuda.synchronize()
+        counts["bert_inject"] = ops.launch_counts()
+        out_p = apply_blocks(bf, x, cfg, attention_fn=dense_attention,
+                             ops=PLAIN_OPS)
+        layer_rel, h = [], x
+        for i in range(cfg.num_layers):
+            one = dataclasses.replace(cfg, num_layers=1)
+            p_i = {k: v[i:i + 1] for k, v in bf.items()}
+            yk = apply_blocks(p_i, h, one)
+            yp = apply_blocks(p_i, h, one, attention_fn=dense_attention,
+                              ops=PLAIN_OPS)
+            layer_rel.append(_rel(yk, yp))
+            h = yk
+    L = cfg.num_layers
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update({"flash_attention_fwd": L, "fused_bias_gelu": L,
+                 "fused_residual_layer_norm": 2 * L})
+    enc_rel = _rel(out_k, out_p)
+    del out_k, out_p, yk, yp, h
+
+    # The sparse-encoder swap: extend, pad, run on the LUT kernels.
+    sd2 = SparseAttentionUtils.extend_position_embedding(sd, SWAP_POSITIONS)
+    sparsity = FixedSparsityConfig(**SWAP_SPARSITY)
+    enc, stacked2, cfg2 = SparseAttentionUtils.\
+        replace_model_self_attention_with_sparse_self_attention(
+            hf_cfg, sd2, sparsity, max_position=SWAP_POSITIONS)
+
+    def draw():
+        ids = torch.randint(0, hf_cfg.vocab_size, (SWAP_B, SWAP_TOKENS),
+                            device=dev, generator=gen)
+        pad_len, ids, *_ = SparseAttentionUtils.pad_to_block_size(
+            sparsity.block, ids, torch.ones_like(ids))
+        w_out = torch.randn(SWAP_B, ids.shape[1], hf_cfg.hidden_size,
+                            device=dev, generator=gen)
+        return pad_len, hf_embed(sd2, hf_cfg, ids), w_out
+
+    draws = [draw() for _ in range(SWAP_DRAWS)]
+    pad_len, S = draws[0][0], draws[0][1].shape[1]
+    assert S == SWAP_POSITIONS and pad_len == SWAP_POSITIONS - SWAP_TOKENS
+    layout = enc.sparse_self_attention.get_layout(S)
+    # The negative control: one kept off-diagonal block of head 0's
+    # middle row taken out of the reference's mask.
+    broken = np.array(layout, copy=True)
+    r = broken.shape[1] // 2
+    c = [j for j in np.flatnonzero(broken[0, r]) if j != r][0]
+    broken[0, r, c] = 0
+
+    def run(attention_fn, remat, dt, x2, w_out):
+        params = {k: v.detach().to(dt).clone().requires_grad_()
+                  for k, v in stacked2.items()}
+        xin = x2.detach().to(dt).clone().requires_grad_()
+        c2 = dataclasses.replace(cfg2, remat_policy=remat)
+        if attention_fn is None:
+            y = enc(params, xin)
+        else:
+            y = apply_blocks(params, xin, c2, attention_fn=attention_fn)
+        (y.float() * w_out).sum().backward()
+        torch.cuda.synchronize()
+        return (SparseAttentionUtils.unpad_sequence_output(pad_len, y)
+                .detach(), xin.grad, params["qkv_kernel"].grad,
+                params["fc_kernel"].grad)
+
+    def dense(mask_layout):
+        return lambda q, k, v, **kw: sparse_attention_reference(
+            q, k, v, mask_layout)
+
+    # swap_rel[dt]: one [out, dx, dqkv, dfc] list a draw (fp32: the
+    # first draw); broken_rel[dt]: the first draw against the control.
+    swap_rel, broken_rel = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        swap_rel[dt] = []
+        for i, (_, x2, w_out) in enumerate(
+                draws[:1] if dt == torch.float32 else draws):
+            ops.reset_launch_counts()
+            got = run(None, "none", dt, x2, w_out)
+            if dt == torch.bfloat16 and i == 0:
+                counts["bert_sparse_swap"] = ops.launch_counts()
+            free_card()
+            ref = run(dense(layout), "full", dt, x2, w_out)
+            swap_rel[dt].append([_rel(a, b) for a, b in zip(got, ref)])
+            assert got[0].shape == (SWAP_B, SWAP_TOKENS,
+                                    hf_cfg.hidden_size)
+            del ref
+            if i == 0:
+                free_card()
+                bad = run(dense(broken), "full", dt, x2, w_out)
+                broken_rel[dt] = [_rel(a, b) for a, b in zip(got, bad)]
+                del bad
+            del got
+            free_card()
+    want_swap = {name: 0 for name in ops.launch_counts()}
+    want_swap.update({"sparse_flash_fwd": L, "sparse_flash_bwd_dq": L,
+                      "sparse_flash_bwd_dkv": L, "fused_bias_gelu": L,
+                      "fused_residual_layer_norm": 2 * L,
+                      "layer_norm_backward": 2 * L,
+                      "bias_gelu_backward": L})
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    sparse_recs = sparse_case(
+        dev, gen, "sparse_bert_swap", layout, SWAP_B, S, False, 0.1,
+        sf.resolve_tile(layout, sparsity.block), cfg.num_heads, seed,
+        "fixed_bidirectional", with_fused=False)
+    rec = {"model": "bert-large widths from a HF-named state_dict",
+           "hidden_act": hf_cfg.hidden_act,
+           "bert_restore_extract_bit_equal": bert_round_trip,
+           "gpt2_conv1d_round_trip_bit_equal": gpt2_round_trip,
+           "encoder_batch": [BERT_MICRO, BERT_SEQ],
+           "encoder_rel_err_vs_plain": enc_rel,
+           "encoder_rel_tol": INJECT_ENCODER_REL_TOL,
+           "layer_rel_err_vs_plain_max": max(layer_rel),
+           "layer_rel_err_vs_plain": layer_rel,
+           "layer_rel_tol": INJECT_LAYER_REL_TOL,
+           "launches_encoder": nonzero(counts["bert_inject"]),
+           "swap": {"positions": SWAP_POSITIONS, "batch": SWAP_B,
+                    "tokens": SWAP_TOKENS, "pad_len": pad_len,
+                    "layout_kept_blocks": int(np.asarray(layout).sum()),
+                    "layout_blocks": int(np.asarray(layout).size),
+                    "tile": list(sf.resolve_tile(layout, sparsity.block)),
+                    "rel_err_out_dx_dqkv_dfc_vs_dense": {
+                        str(dt).replace("torch.", ""): v
+                        for dt, v in swap_rel.items()},
+                    "rel_err_vs_one_block_dropped": {
+                        "dropped": [0, int(r), int(c)],
+                        **{str(dt).replace("torch.", ""): v
+                           for dt, v in broken_rel.items()}},
+                    "rel_tol": {str(dt).replace("torch.", ""): v
+                                for dt, v in SWAP_REL_TOL.items()},
+                    "launches": nonzero(counts["bert_sparse_swap"])},
+           "card": smi}
+    emit({"bert_inject": rec})
+    assert bert_round_trip and gpt2_round_trip, rec
+    assert counts["bert_inject"] == want, counts["bert_inject"]
+    assert max(layer_rel) <= INJECT_LAYER_REL_TOL, rec
+    assert enc_rel <= INJECT_ENCODER_REL_TOL, rec
+    assert all(max(max(d) for d in v) <= SWAP_REL_TOL[dt]
+               for dt, v in swap_rel.items()), rec
+    assert min(broken_rel[torch.float32]) > SWAP_REL_TOL[torch.float32], \
+        rec
+    assert counts["bert_sparse_swap"] == want_swap, \
+        counts["bert_sparse_swap"]
+    del sd, sd2, stacked, stacked2, bf
+    free_card()
+    return counts, sparse_recs
+
+
+# --------------------------------------------------------------------- #
+# Phase 4c: serving telemetry (request traces, the serving step spine)
+# --------------------------------------------------------------------- #
+# Serves of the stream on each engine, in the order off, on, on, off,
+# ... (each engine first in half the rounds: the second of two serves
+# in a row can read slower whichever engine it is).
+SERVE_TEL_ROUNDS = 4
+
+
+def serve_tel_config(out_dir, job, replica=None):
+    inf = dict(SERVE_BASE)
+    if replica is not None:
+        inf["replica"] = replica
+    cfg = {"inference": inf}
+    if job is not None:
+        cfg["telemetry"] = {"enabled": True, "output_path": out_dir,
+                            "job_name": job, "report_steps": 16,
+                            "trace_path": os.path.join(out_dir,
+                                                       job + ".trace.json"),
+                            "fail_on_recompile": True}
+    return cfg
+
+
+def read_stream(out_dir, job):
+    with open(os.path.join(out_dir, job + ".jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def serve_telemetry(dev, smi, params, out_dir):
+    """gpt2-small through the scheduler with telemetry on and off (the
+    same stream, ``SERVE_TEL_ROUNDS`` interleaved rounds), then through a
+    2-replica router on and off. Fails unless the greedy streams are
+    bit-equal on and off, the launches equal, a decode step makes the
+    same host syncs on and off, ``recompiles`` is 0, every completed
+    request's timeline passes ``validate_timeline``, and
+    ``tools/telemetry_report.py`` reads the stream (its serving section
+    and a worst-request exemplar). Records the on/off decode-step p50
+    ratio. Returns the launch counts by path (the telemetry-on serves)."""
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    free_card()
+    reqs = lambda: serve_requests(cfg)  # noqa: E731
+    engines = {"off": InferenceEngine(cfg, params,
+                                      serve_tel_config(out_dir, None)),
+               "on": InferenceEngine(cfg, params,
+                                     serve_tel_config(out_dir, "serve"))}
+    for eng in engines.values():
+        warm_serve(eng, cfg)
+    p50, reports, by = {"on": [], "off": []}, {"on": [], "off": []}, \
+        {"on": [], "off": []}
+    for r in range(SERVE_TEL_ROUNDS):
+        for name in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            engines[name].reset_serving_stats()
+            rep, c, _ = serve_path(engines[name], reqs())
+            p50[name].append(rep["decode_step_ms"]["p50"])
+            reports[name].append(rep)
+            by[name].append(c)
+        assert [x["tokens"] for x in reports["on"][r]["requests"]] == \
+            [x["tokens"] for x in reports["off"][r]["requests"]], r
+    # telemetry launches nothing: each round's counts equal on and off
+    assert by["on"] == by["off"], by
+    counts = {"serve_telemetry": {k: sum(c[k] for c in by["on"])
+                                  for k in by["on"][0]}}
+    prompt = serve_prompt(cfg)
+    syncs = {}
+    for name, eng in engines.items():
+        tok, _ = eng.prefill(prompt, slot=0, max_new_tokens=8)
+        eng.activate_slot(0, len(prompt), tok)
+        syncs[name] = step_host_syncs(eng.decode_once)
+        eng.release_slot(0)
+    on_reps = reports["on"]
+    engines["on"].close()
+    recs = read_stream(out_dir, "serve")
+    traces = [x for x in recs if x.get("event") == "request_trace"]
+    bad = {t["rid"]: validate_timeline(t) for t in traces
+           if validate_timeline(t)}
+    summary_path = os.path.join(out_dir, "SERVE_TELEMETRY.json")
+    tool = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "telemetry_report.py"),
+         os.path.join(out_dir, "serve.jsonl"), "-o", summary_path],
+        capture_output=True, text=True, timeout=120)
+    summary = {}
+    if tool.returncode == 0:
+        with open(summary_path) as f:
+            summary = json.load(f)
+    ss = summary.get("serving_slo", {})
+    worst = (ss.get("traces") or {}).get("worst_ttft") or []
+    kinds = [x["kind"] for x in recs]
+    with open(os.path.join(out_dir, "serve.trace.json")) as f:
+        text = f.read().rstrip().rstrip(",")
+    trace_events = json.loads(text if text.endswith("]") else text + "]")
+    rec = {"requests_per_round": 16, "rounds": SERVE_TEL_ROUNDS,
+           "decode_step_ms_p50_on": p50["on"],
+           "decode_step_ms_p50_off": p50["off"],
+           "decode_step_p50_ratio_on_off":
+           float(np.median(p50["on"]) / np.median(p50["off"])),
+           "decode_step_host_syncs": syncs,
+           "recompiles": [x["recompiles"] for x in on_reps],
+           "trace": [x["trace"] for x in on_reps],
+           "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+           "request_traces": len(traces), "timeline_problems": bad,
+           "report_tool_rc": tool.returncode,
+           "serving_section": sorted(summary.get("serving", {}))[:12],
+           "worst_ttft_exemplar": worst[0] if worst else None,
+           "perfetto_request_spans": sum(
+               1 for e in trace_events if e["name"].startswith("req")
+               and e["ph"] == "X"),
+           "perfetto_flow_events": sum(
+               1 for e in trace_events if e["ph"] in ("s", "t", "f")),
+           "launches": nonzero(counts["serve_telemetry"]), "card": smi}
+    emit({"serve_telemetry": rec})
+    assert syncs["on"] == syncs["off"], syncs
+    assert all(x == 0 for x in rec["recompiles"]), rec
+    assert all(t["completed"] == 16 and t["records_dropped"] == 0
+               for t in rec["trace"]), rec
+    # (the warm-up's 2 requests drain into the same stream)
+    assert len(traces) == 2 + 16 * SERVE_TEL_ROUNDS and not bad, rec
+    assert kinds[0] == "meta" and kinds[-1] == "final", kinds[:3]
+    assert tool.returncode == 0, tool.stderr[-2000:]
+    assert summary.get("serving") and worst and worst[0].get("spans"), rec
+    del engines, on_reps, reports
+    free_card()
+
+    # The router: two replicas sharing the card, on and off.
+    rreqs = lambda: serve_requests(cfg, ROUTER_REQUESTS)  # noqa: E731
+    fleets = {}
+    for name in ("off", "on"):
+        fleets[name] = [InferenceEngine(cfg, params, serve_tel_config(
+            out_dir, None if name == "off" else f"router_r{i}", f"r{i}"))
+            for i in range(2)]
+        for eng in fleets[name]:
+            warm_serve(eng, cfg)
+    reps = {}
+    for name in ("off", "on"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        reps[name] = ReplicaRouter(fleets[name]).serve(rreqs())
+        torch.cuda.synchronize()
+        counts[f"serve_telemetry_router_{name}"] = ops.launch_counts()
+    for eng in fleets["on"]:
+        eng.close()
+    tr = [x for i in range(2) for x in read_stream(out_dir, f"router_r{i}")
+          if x.get("event") == "request_trace"]
+    bad = [(t["rid"], validate_timeline(t)) for t in tr
+           if validate_timeline(t)]
+    on, off = reps["on"], reps["off"]
+    rec = {"replicas": 2, "requests": ROUTER_REQUESTS,
+           "streams_equal_on_off": [x["tokens"] for x in on["requests"]]
+           == [x["tokens"] for x in off["requests"]],
+           "routed_on": on["router"]["routed"],
+           "routed_off": off["router"]["routed"],
+           "recompiles": on["recompiles"], "trace": on["trace"],
+           "request_traces": len(tr), "timeline_problems": bad,
+           "tpot_ms_p50_on": on["tpot_ms"]["p50"],
+           "tpot_ms_p50_off": off["tpot_ms"]["p50"], "card": smi}
+    emit({"serve_telemetry_router": rec})
+    counts.pop("serve_telemetry_router_off")
+    counts["serve_telemetry_router"] = counts.pop(
+        "serve_telemetry_router_on")
+    assert rec["streams_equal_on_off"], rec
+    assert on["recompiles"] == 0 and off["recompiles"] == 0, rec
+    assert on["trace"]["completed"] == ROUTER_REQUESTS and not bad, rec
+    assert "trace" not in off, sorted(off)
+    del fleets, reps
+    free_card()
+    return counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4608,10 +5392,16 @@ def main():
     counts = {"whole_prompt" if k == "whole" else f"spec_k={k}": c
               for k, c in serve_counts.items()}
     counts.update(serve_extras(dev, serve_params, serve_reports))
+    with tempfile.TemporaryDirectory() as st_dir:
+        counts.update(serve_telemetry(dev, smi, serve_params, st_dir))
     del serve_params, serve_reports
     counts.update(train_gpt2_small(dev, smi))
     with tempfile.TemporaryDirectory() as tel_dir:
         counts.update(train_telemetry(dev, smi, tel_dir))
+    bert_counts, bert_ln_bwd = train_bert(dev, smi, gen)
+    counts.update(bert_counts)
+    inject_counts, swap_sparse = bert_inject(dev, smi, gen)
+    counts.update(inject_counts)
     counts.update(train_sparse(dev, smi))
     counts.update(train_moe(dev, smi))
     counts.update(train_remat(dev, smi))
@@ -4656,7 +5446,8 @@ def main():
                 ("fused_layer_norm", "fused_residual_layer_norm"),
                 train_ln[0], ln),
         summary("layer_norm_bwd", fe_src, ref + "fused_elementwise.py:212",
-                ("layer_norm_backward",), ln_bwd[0], ln_bwd),
+                ("layer_norm_backward",), ln_bwd[0],
+                ln_bwd + [bert_ln_bwd]),
         summary("bias_gelu_fwd", fe_src, ref + "fused_elementwise.py:392",
                 ("fused_bias_gelu",), train_gelu[0], gelu),
         summary("bias_gelu_bwd", fe_src, ref + "fused_elementwise.py:398",
@@ -4690,7 +5481,7 @@ def main():
                           ("sparse_flash_bwd_dq", 171),
                           ("sparse_flash_bwd_dkv", 294),
                           ("sparse_flash_bwd_fused", 219)):
-        recs = [r for r in sparse if r["kernel"] == wrapper]
+        recs = [r for r in sparse + swap_sparse if r["kernel"] == wrapper]
         main_rec = [r for r in recs
                     if r["case"] == "sparse_path_supertile"][0]
         kernels.append(summary(wrapper, "deepspeed_tpu_torch/csrc/"

@@ -29,15 +29,26 @@
   tracker when ``inference.slo`` sets a target (``monitor/
   serving_slo.py``); the ledger's walls are the ones the aggregator
   already measures, so it adds no device sync.
+- Telemetry (a ``telemetry`` block, or its ``tensorboard`` alias) rides
+  the training engine's spine (``monitor/telemetry.py``): a ``meta``
+  record with the serving geometry and the analytic attend pricing, a
+  ``step`` record a decode iteration, ``report`` records carrying the
+  aggregator's snapshot, ``admission_rejected`` / ``request_complete`` /
+  ``request_abort`` events, and the scheduler's and router's
+  ``request_trace`` events (``monitor/request_trace.py``). The decode,
+  prefill, copy-block and verify steps run through the recompile
+  sentinel. None of it reads the device: a decode step makes the same
+  host syncs with telemetry on and off.
 
 ``from_train_checkpoint`` builds the engine from a training
 checkpoint's model file (the port's or the JAX engine's: the same
 files, runtime/flax_msgpack.py). ``inference/router.py`` routes one
 request stream over several engines.
 
-Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7)
-and telemetry (item 3): a ``telemetry`` (or ``tensorboard``) block that
-enables it raises ``NotImplementedError``. ``paged_kernel: false`` and
+Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7),
+the device-trace capture window (``profile_window`` raises with
+telemetry on; item 9) and ``lint_audit`` (XLA's lowering; item 9).
+``paged_kernel: false`` and
 ``fused_kernels: False`` raise on a CUDA device, where the port has only
 its kernels.
 """
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -56,14 +68,31 @@ from .quantize import (dequantize, is_quantized_leaf, quantize_params,
                        quantized_bytes, resolve_kv_dtype)
 from .spec import NGramDrafter
 from ..models.gpt2 import GPT2Config, gpt2_init
+from ..monitor.memory import analytic_state_bytes
 from ..monitor.serving import ServingAggregator
 from ..monitor.serving_slo import ServingGoodputLedger, SLOTracker
+from ..monitor.telemetry import Telemetry
 from ..ops import paged_attention as paged_attn_ops
 from ..runtime.config import InferenceConfig, TelemetryConfig
 from ..runtime.config_utils import load_config_json
 from ..runtime.flax_msgpack import msgpack_restore
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
+
+
+def _leaves(tree: Any) -> List[Any]:
+    """Every tensor of a nested dict (quantized ``{"q", "scale"}`` leaves
+    included)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _copy_blocks(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 copies: Sequence[Tuple[int, int, int]]) -> None:
+    """The copy-on-write forks of one admission batch, K and V planes."""
+    kv_cache.paged_copy_block(k_pool, copies)
+    kv_cache.paged_copy_block(v_pool, copies)
 
 
 # Leaves the serving path casts to the compute dtype at every use: the
@@ -145,13 +174,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 "fused_kernels=False has no CUDA path in the port — the "
                 "LayerNorm and bias+GELU kernels are its only ones")
-        if TelemetryConfig(config).enabled:
-            raise NotImplementedError(
-                "telemetry (or its tensorboard alias) is not ported to the "
-                "serving engine yet (ROADMAP queue 1 item 3, its serving "
-                "half: monitor/request_trace.py, the serving engine's "
-                "step telemetry and the router's and scheduler's traces; "
-                "the training engine's telemetry is ported)")
+        self.tcfg = TelemetryConfig(config)
         self.spec_k = int(self.icfg.spec_k)
         self.replica = str(self.icfg.replica)
         self.dp = 1
@@ -213,7 +236,12 @@ class InferenceEngine:
         # Why the latest select_slot returned None: "no_slot" (every slot
         # busy) or "reservation" (the pool cannot book the request).
         self.last_admit_block: Optional[str] = None
+        # Prefix-cache/CoW detail of each slot's latest admission (the
+        # request trace's prefill span).
+        self._last_admit: Dict[int, Dict[str, Any]] = {}
         self.reset_serving_stats()
+        self.iterations = 0
+        self._build_telemetry()
         prefill = f"chunk {self.prefill_chunk}" if self.prefill_chunk \
             else "whole-prompt"
         layout = (f"paged bs={self.block_size} x{self.num_blocks} blocks"
@@ -225,6 +253,66 @@ class InferenceEngine:
             f"{prefill}, spec_k={self.spec_k}, quantize={self.quantize}"
             + (f", replica={self.replica}" if self.replica else ""),
             ranks=[0])
+
+    def _build_telemetry(self) -> None:
+        """The serving telemetry on the shared spine, and the step paths
+        through its recompile sentinel (identities with telemetry off).
+        The serving engine builds no cost model (as in JAX), so its
+        sentinel walks no path through the flops profiler."""
+        cfg = self.model_cfg
+        meta = dict(mode="serving", model=cfg.name, dp=self.dp, mp=1,
+                    sp=1, max_slots=self.max_slots, max_seq_len=self.max_len,
+                    prefill_chunk=self.prefill_chunk,
+                    block_size=self.block_size,
+                    num_blocks=self.num_blocks if self.paged else 0,
+                    spec_k=self.spec_k, replica=self.replica,
+                    quantize=self.quantize,
+                    precision=str(cfg.dtype).replace("torch.", ""),
+                    param_bytes=self.param_bytes,
+                    kv_cache_bytes=self.cache_spec.nbytes())
+        if self.paged:
+            # Analytic attend pricing per generated token at the bounds:
+            # the kernel's term scales with live context (quoted at
+            # max_seq_len), the one-hot term with pool capacity.
+            sp_ = self.cache_spec
+            kw = dict(num_layers=sp_.num_layers)
+            args = (sp_.num_heads, sp_.head_dim, sp_.block_size)
+            kvi = sp_.itemsize()
+            meta["paged_kernel"] = True
+            meta["attend_flops_per_token"] = {
+                "live_ctx_max": paged_attn_ops.attend_flops_per_token(
+                    *args, context=sp_.max_len, **kw),
+                "pool_capacity": paged_attn_ops.attend_flops_per_token(
+                    *args, pool_blocks=sp_.blocks_per_group, **kw),
+                "projection": "analytic"}
+            meta["attend_hbm_bytes_per_token"] = {
+                "live_ctx_max": paged_attn_ops.attend_hbm_bytes_per_token(
+                    *args, context=sp_.max_len, kv_itemsize=kvi, **kw),
+                "pool_capacity": paged_attn_ops.attend_hbm_bytes_per_token(
+                    *args, pool_blocks=sp_.blocks_per_group,
+                    kv_itemsize=kvi, **kw),
+                "projection": "analytic"}
+        tl = Telemetry(self.tcfg, default_report_steps=50, meta=meta)
+        if tl.sentinel is not None:
+            tl.sentinel.walk_fn = None
+        ref = weakref.ref(self)
+        tl.step_provider = lambda: (ref().iterations if ref() is not None
+                                    else -1)
+        tl.set_analytic_footprint(analytic_state_bytes(
+            _leaves({"params": self._params, "cache": self.cache})))
+        self.telemetry = tl
+        # The device paths: decode and prefill always; paged engines add
+        # the copy-on-write block copy and, with spec_k > 0, the verify.
+        self._decode_fn = tl.instrument_step_fn(
+            "decode_step", decode_mod.gpt2_decode_paged)
+        self._prefill_fn = tl.instrument_step_fn(
+            "prefill_step", decode_mod.gpt2_prefill_chunk_paged
+            if self.prefill_chunk else decode_mod.gpt2_prefill_full_paged)
+        if self.paged:
+            self._copy_fn = tl.instrument_step_fn("copy_block", _copy_blocks)
+        if self.paged and self.spec_k > 0:
+            self._verify_fn = tl.instrument_step_fn(
+                "verify_step", decode_mod.gpt2_verify_paged)
 
     def _runtime_params(self) -> Dict[str, Any]:
         """The weights one device operation computes with: under int8 the
@@ -349,12 +437,23 @@ class InferenceEngine:
             self.last_admit_block = "reservation"
         return best
 
+    def last_admit_info(self, slot: int) -> Dict[str, Any]:
+        """Prefix-cache/CoW detail of the most recent admission into
+        ``slot`` (for the request trace); empty where no chunked paged
+        prefill admitted it."""
+        return self._last_admit.get(slot, {})
+
     def note_admission_reject(self, rid: Any, reason: str, attempt: int,
                               queue_depth: int = 0) -> None:
-        """Count one admission rejection (the JAX engine also writes a
-        telemetry event on a request's first; the port has no telemetry
-        yet)."""
+        """Count one admission rejection; a request's FIRST rejection
+        also writes an ``admission_rejected`` telemetry event."""
         self.serving.note_reject()
+        if attempt == 1 and self.telemetry.enabled:
+            payload = {"rid": rid, "reason": reason,
+                       "queue_depth": int(queue_depth)}
+            if self.replica:
+                payload["replica"] = self.replica
+            self.telemetry.event("admission_rejected", payload)
 
     def prefix_match_tokens(self, prompt: Sequence[int]) -> int:
         """Longest cached prompt prefix (tokens) resident anywhere in
@@ -417,7 +516,7 @@ class InferenceEngine:
         if self.prefill_chunk == 0:
             padded = np.zeros(self.max_len, np.int32)
             padded[:plen] = prompt
-            logits = decode_mod.gpt2_prefill_full_paged(
+            logits = self._prefill_fn(
                 p, self.cache["k"], self.cache["v"],
                 torch.from_numpy(padded), torch.from_numpy(row), plen - 1,
                 self.model_cfg)
@@ -429,12 +528,13 @@ class InferenceEngine:
             for ci in range(n_chunks):
                 start = ci * chunk
                 last = (plen - 1 - start) if ci == n_chunks - 1 else 0
-                logits = decode_mod.gpt2_prefill_chunk_paged(
+                logits = self._prefill_fn(
                     p, self.cache["k"], self.cache["v"],
                     torch.from_numpy(padded[start:start + chunk][None]),
                     torch.from_numpy(row), torch.tensor([start]),
                     torch.tensor([last]), torch.tensor([1]),
                     self.model_cfg)[0]
+        self.telemetry.raise_pending()
         tok = int(decode_mod.sample_tokens(logits, self.generator,
                                            temperature))    # the host fetch
         self._note_prefill(t0)
@@ -461,10 +561,11 @@ class InferenceEngine:
         padded[:plen] = prompt
         bt_rows = np.full((self.dp, J), kv_cache.DEAD_BLOCK, np.int32)
         bt_rows[group] = row
-        logits = decode_mod.gpt2_prefill_full_paged(
+        logits = self._prefill_fn(
             self._runtime_params(), self.cache["k"], self.cache["v"],
             torch.from_numpy(padded), torch.from_numpy(bt_rows), plen - 1,
             self.model_cfg)
+        self.telemetry.raise_pending()
         tok = int(decode_mod.sample_tokens(logits, self.generator,
                                            temperature))    # the host fetch
         if self.drafter is not None:
@@ -515,8 +616,7 @@ class InferenceEngine:
                 copies.append((group, plan.cow_src, plan.cow_dst))
             plans.append((slot, group, plan, prompt, plen))
         if copies:
-            kv_cache.paged_copy_block(self.cache["k"], copies)
-            kv_cache.paged_copy_block(self.cache["v"], copies)
+            self._copy_fn(self.cache["k"], self.cache["v"], copies)
         # Chunk schedule: each admission runs chunks over its unshared
         # tail; groups whose tail is done go inactive.
         tails = []
@@ -526,6 +626,9 @@ class InferenceEngine:
             padded = np.zeros(n_chunks * chunk, np.int32)
             padded[:tlen] = prompt[plan.matched:]
             tails.append((padded, n_chunks, tlen))
+            self._last_admit[slot] = {
+                "cached_tokens": int(plan.matched), "chunks": n_chunks,
+                "cow_fork": plan.cow_src is not None}
         p = self._runtime_params()
         held = {}                       # slot -> (chunk index, group)
         steps = []                      # per chunk: (tokens [G], logits)
@@ -546,7 +649,7 @@ class InferenceEngine:
                 if ci == n_chunks - 1:
                     last_idxs[group] = tlen - 1 - ci * chunk
                     held[slot] = (ci, group)
-            logits = decode_mod.gpt2_prefill_chunk_paged(
+            logits = self._prefill_fn(
                 p, self.cache["k"], self.cache["v"],
                 torch.from_numpy(toks), torch.from_numpy(bt_rows),
                 torch.from_numpy(starts), torch.from_numpy(last_idxs),
@@ -554,6 +657,7 @@ class InferenceEngine:
             steps.append((decode_mod.sample_tokens(
                 logits, self.generator, temperature), logits))
         del p
+        self.telemetry.raise_pending()
         out = []
         for slot, group, plan, prompt, plen in plans:
             ci, g = held[slot]
@@ -622,12 +726,13 @@ class InferenceEngine:
         if self.paged:
             for s in np.flatnonzero(self.active):
                 self._ensure_blocks(int(s), int(self.lengths[s]))
-        logits = decode_mod.gpt2_decode_paged(
+        logits = self._decode_fn(
             self._runtime_params(), self.cache["k"], self.cache["v"],
             torch.from_numpy(self.last_tokens),
             torch.from_numpy(self.lengths),
             torch.from_numpy(self._decode_tables()), self.model_cfg,
             self.dp)
+        self.telemetry.raise_pending()
         sampled = decode_mod.sample_tokens(logits, self.generator,
                                            temperature)
         # THE serving sync: one batched [S] fetch per iteration.
@@ -639,12 +744,14 @@ class InferenceEngine:
             for s in np.flatnonzero(adv):
                 self.drafter.observe(int(s), [int(sampled[s])])
         wall = time.perf_counter() - t0
+        self.iterations += 1
         cache_bytes, ctx_tokens = self._cache_accounting()
         self.serving.note_iteration(n_active, wall, cache_bytes=cache_bytes,
                                     context_tokens=ctx_tokens)
         self.serving.ledger.note("decode_useful", wall)
         if self.paged and n_active:
             self.serving.note_attend(*self._attend_work(1), n_active)
+        self._record_iteration(wall, n_active, n_active)
         out_logits = logits.cpu().numpy() if return_logits else None
         return sampled, out_logits
 
@@ -676,10 +783,11 @@ class InferenceEngine:
             self._ensure_blocks(
                 s, min(int(self.lengths[s]) + k, self.max_len - 1))
         tok_t = torch.from_numpy(toks)
-        logits = decode_mod.gpt2_verify_paged(
+        logits = self._verify_fn(
             self._runtime_params(), self.cache["k"], self.cache["v"], tok_t,
             torch.from_numpy(self.lengths),
             torch.from_numpy(self.block_tables), self.model_cfg, self.dp)
+        self.telemetry.raise_pending()
         out = decode_mod.spec_accept(logits, tok_t.to(self.device),
                                      self.generator, temperature)
         out = out.cpu().numpy()                     # [S, k+2], the fetch
@@ -700,6 +808,7 @@ class InferenceEngine:
             accepted += n - 1
         emitted_total = int(n_new.sum())
         wall = time.perf_counter() - t0
+        self.iterations += 1
         cache_bytes, ctx_tokens = self._cache_accounting()
         self.serving.note_iteration(n_active, wall, cache_bytes=cache_bytes,
                                     context_tokens=ctx_tokens,
@@ -715,7 +824,22 @@ class InferenceEngine:
             self.serving.note_attend(*self._attend_work(k + 1),
                                      emitted_total)
         self.serving.note_spec(k * len(live), accepted)
+        self._record_iteration(wall, n_active, emitted_total,
+                               spec_accepted=accepted)
         return emitted, n_new
+
+    def _record_iteration(self, wall: float, n_active: int, tokens: int,
+                          **extra: Any) -> None:
+        """The iteration's ``step`` record (host fields only) and, at a
+        report boundary, the drain with the aggregator's snapshot."""
+        tl = self.telemetry
+        if not tl.enabled:
+            return
+        tl.record_step(self.iterations, {}, wall_ms=wall * 1e3,
+                       active_slots=n_active,
+                       occupancy=round(n_active / self.max_slots, 4),
+                       tokens=tokens, **extra)
+        tl.maybe_drain(self.iterations, extra_fn=self._report_extra)
 
     # ------------------------------------------------------------------ #
     # Serving accounting
@@ -756,12 +880,32 @@ class InferenceEngine:
                                   admission_attempts=admission_attempts)
         if self.serving.slo is not None:
             self.serving.slo.observe(ttft_s, tpot_s)
+        if self.telemetry.enabled:
+            payload = {"rid": rid, "ttft_ms": round(ttft_s * 1e3, 3),
+                       "prompt_tokens": int(prompt_tokens),
+                       "new_tokens": int(new_tokens)}
+            if tpot_s is not None:
+                payload["tpot_ms"] = round(tpot_s * 1e3, 3)
+            if queue_wait_s is not None:
+                payload["queue_wait_ms"] = round(queue_wait_s * 1e3, 3)
+            if service_ttft_s is not None:
+                payload["service_ttft_ms"] = round(service_ttft_s * 1e3, 3)
+            if admission_attempts:
+                payload["admission_attempts"] = int(admission_attempts)
+            if self.replica:
+                payload["replica"] = self.replica
+            self.telemetry.event("request_complete", payload)
 
     def abort_request(self, rid: Any, reason: str = "abort") -> None:
         """An aborted or starved request: counts against the SLO's
-        availability."""
+        availability and writes a ``request_abort`` event."""
         if self.serving.slo is not None:
             self.serving.slo.observe_failure()
+        if self.telemetry.enabled:
+            payload = {"rid": rid, "reason": reason}
+            if self.replica:
+                payload["replica"] = self.replica
+            self.telemetry.event("request_abort", payload)
 
     def serve(self, requests, temperature: float = 0.0, **kwargs):
         """Drive a request list through the continuous-batching
@@ -771,9 +915,22 @@ class InferenceEngine:
                                             **kwargs)
         return sched.serve(requests)
 
+    def _report_extra(self) -> Dict[str, Any]:
+        return {"serving": self.serving.snapshot()}
+
+    def profile_window(self, steps: int,
+                       start_step: Optional[int] = None) -> Optional[str]:
+        """The JAX device-trace capture over ``steps`` decode iterations
+        (from the next one by default): None with telemetry off, as in
+        JAX; with telemetry on it raises ``NotImplementedError`` (ROADMAP
+        queue 1 item 9)."""
+        return self.telemetry.arm_profile_window(
+            int(steps), start_step=self.iterations + 1
+            if start_step is None else int(start_step))
+
     def close(self) -> None:
-        """The JAX engine closes its telemetry sink here; the port's
-        engine holds no sink (telemetry is not ported yet)."""
+        """Close the telemetry sink (the ``final`` record)."""
+        self.telemetry.close()
 
     # ------------------------------------------------------------------ #
     # Training-checkpoint handoff

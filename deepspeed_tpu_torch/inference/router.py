@@ -22,8 +22,13 @@ lower bound on what replicas on their own cards would do.
 
 Reports keep replicas apart: per-replica aggregator snapshots plus the
 pooled ``ServingAggregator.merged`` aggregate — never
-percentiles-of-percentiles. The JAX router's request trace and its
-``recompiles`` key wait for the port's telemetry.
+percentiles-of-percentiles — and ``recompiles``, summed over the
+replicas. When a replica has telemetry on, one ``RequestTrace``
+(``monitor/request_trace.py``) spans the fleet: each arrival's route
+decision is recorded with every candidate's scores, the replica-side
+marks land in the same record, each finished request drains into its
+replica's stream, and the report gains ``trace``. Host state only: no
+device sync is added.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ class ReplicaRouter:
         # scores by construction.
         self.decisions: List[dict] = []
         self.decision_capacity = 4096
+        self.trace = None               # RequestTrace, built in serve()
 
     # ------------------------------------------------------------------ #
     def _score_parts(self, eng, queue_len: int, req: Request) -> dict:
@@ -102,6 +108,8 @@ class ReplicaRouter:
         if len(self.decisions) < self.decision_capacity:
             self.decisions.append({"rid": req.rid, "chosen": best,
                                    "candidates": cands})
+        if self.trace is not None:
+            self.trace.route(req.rid, best, cands)
         return best
 
     # ------------------------------------------------------------------ #
@@ -113,9 +121,15 @@ class ReplicaRouter:
         ``ContinuousBatchingScheduler``."""
         t0 = time.perf_counter()
         pending = deque(sorted(requests, key=lambda r: r.arrival_s))
+        # One request trace for the fleet, built when a replica streams.
+        if self.trace is None and any(e.telemetry.enabled
+                                      for e in self.engines):
+            from ..monitor.request_trace import RequestTrace
+            self.trace = RequestTrace()
         scheds = [ContinuousBatchingScheduler(
-            eng, temperature=self.temperature, eos_token=self.eos_token)
-            for eng in self.engines]
+            eng, temperature=self.temperature, eos_token=self.eos_token,
+            trace=self.trace, label=eng.replica or f"r{i}")
+            for i, eng in enumerate(self.engines)]
         queues: List[deque] = [deque() for _ in self.engines]
         active: List[Dict[int, Request]] = [{} for _ in self.engines]
         replica_of: Dict[int, int] = {}
@@ -130,6 +144,8 @@ class ReplicaRouter:
             while pending and pending[0].arrival_s <= now:
                 req = pending.popleft()
                 req.t_arrival = t0 + req.arrival_s
+                if self.trace is not None:
+                    self.trace.enqueue(req.rid, t=req.t_arrival)
                 i = self.route(req, queues)
                 replica_of[req.rid] = i
                 queues[i].append(req)
@@ -153,6 +169,8 @@ class ReplicaRouter:
                         f"its routed replica: {len(req.prompt)} prompt "
                         f"+ {req.max_new_tokens} new tokens exceeds "
                         "the block pool's per-group capacity")
+                for eng in self.engines:
+                    eng.telemetry.heartbeat()
                 t_sl = time.perf_counter()
                 time.sleep(self.idle_sleep_s)
                 dt = time.perf_counter() - t_sl
@@ -161,11 +179,13 @@ class ReplicaRouter:
                         "admission_blocked" if queue else "idle", dt)
 
         wall = time.perf_counter() - t0
-        per_replica = [eng.serving.snapshot(wall_s=wall)
-                       for eng in self.engines]
+        # Each replica's stream drains its snapshot over the serve wall.
+        per_replica = [sched.finish(wall) for sched in scheds]
         merged = ServingAggregator.merged(
             [e.serving for e in self.engines])
         report = dict(merged.snapshot(wall_s=wall))
+        report["recompiles"] = sum(e.telemetry.recompile_count
+                                   for e in self.engines)
         report["unfinished"] = len(pending) + sum(map(len, queues)) + \
             sum(map(len, active))
         report["replicas"] = per_replica
@@ -176,6 +196,8 @@ class ReplicaRouter:
             "affinity_weight": self.affinity_weight,
             "decisions_recorded": len(self.decisions),
         }
+        if self.trace is not None:
+            report["trace"] = self.trace.summary()
         report["requests"] = request_records(requests, replica_of)
         return report
 

@@ -11,8 +11,14 @@ wall clock passes them, so TTFT includes queue wait. Waits land in the
 engine's goodput ledger (``idle`` before an arrival,
 ``admission_blocked`` while the head of the queue cannot be admitted);
 requests abandoned at ``max_wall_s`` are reported to the engine's SLO
-tracker. The JAX scheduler's request traces and ``recompiles`` key wait
-for the port's telemetry.
+tracker. With the engine's telemetry on, each request's life lands in a
+``RequestTrace`` (``monitor/request_trace.py``: enqueue, admission
+rejections, admit and prefill, one tick a decode or verify iteration,
+completion or abort) that drains into the engine's stream as a
+``request_trace`` event; prefill, decode and verify run inside host
+spans, idle waits send the watchdog a heartbeat, the run ends with a
+drain of the aggregator's snapshot, and the report gains ``trace`` and
+``recompiles``. All of it is host state: no device sync is added.
 """
 from __future__ import annotations
 
@@ -118,12 +124,22 @@ class ContinuousBatchingScheduler:
     def __init__(self, engine, temperature: float = 0.0,
                  eos_token: Optional[int] = None,
                  idle_sleep_s: float = 0.0005,
-                 max_wall_s: Optional[float] = None):
+                 max_wall_s: Optional[float] = None,
+                 trace=None, label: Optional[str] = None):
         self.engine = engine
         self.temperature = float(temperature)
         self.eos_token = eos_token
         self.idle_sleep_s = float(idle_sleep_s)
         self.max_wall_s = max_wall_s
+        # The request trace: the router passes its shared one (and the
+        # replica's label), so a request's route decision and its
+        # replica-side spans land in one record; a standalone serve
+        # builds its own when telemetry is on.
+        if trace is None and engine.telemetry.enabled:
+            from ..monitor.request_trace import RequestTrace
+            trace = RequestTrace()
+        self.trace = trace
+        self.label = label if label is not None else (engine.replica or None)
 
     def _finished(self, req: Request, slot_len: int) -> bool:
         if len(req.out_tokens) >= req.max_new_tokens:
@@ -142,6 +158,9 @@ class ContinuousBatchingScheduler:
             queue_wait_s=req.queue_wait_s,
             service_ttft_s=req.service_ttft_s,
             admission_attempts=req.admission_attempts)
+        if self.trace is not None:
+            self.trace.complete(req.rid, t=req.t_last,
+                                telemetry=self.engine.telemetry)
 
     def _reject(self, req: Request, queue_len: int) -> None:
         """Head-of-queue admission rejection (no slot, or the pool
@@ -149,8 +168,26 @@ class ContinuousBatchingScheduler:
         count, and the engine's count of rejections."""
         eng = self.engine
         req.admission_attempts += 1
-        eng.note_admission_reject(req.rid, eng.last_admit_block or "no_slot",
-                                  req.admission_attempts, queue_len)
+        reason = eng.last_admit_block or "no_slot"
+        if self.trace is not None:
+            self.trace.admit_reject(req.rid, reason=reason)
+        eng.note_admission_reject(req.rid, reason, req.admission_attempts,
+                                  queue_len)
+
+    def _admit_trace(self, req: Request, slot: int) -> None:
+        """The admission's marks: admit, the prefill span (chunks and
+        cached tokens from the engine's ``last_admit_info``), first
+        token."""
+        if self.trace is None:
+            return
+        self.trace.admit(req.rid, slot, t=req.t_admit, replica=self.label)
+        info = self.engine.last_admit_info(slot)
+        self.trace.prefill(req.rid, req.t_first - req.t_admit,
+                           tokens=len(req.prompt),
+                           chunks=info.get("chunks", 1),
+                           cached_tokens=info.get("cached_tokens", 0),
+                           cow_fork=info.get("cow_fork", False))
+        self.trace.first_token(req.rid, t=req.t_first)
 
     def _evict_finished(self, active: Dict[int, Request]) -> None:
         eng = self.engine
@@ -193,13 +230,19 @@ class ContinuousBatchingScheduler:
             if not batch:
                 break
             if batched:
-                results = eng.prefill_many(
-                    [(slot, req.prompt, req.max_new_tokens)
-                     for req, slot in batch], self.temperature)
+                with eng.telemetry.span(
+                        "prefill", slots=len(batch),
+                        tokens=sum(len(r.prompt) for r, _ in batch)):
+                    results = eng.prefill_many(
+                        [(slot, req.prompt, req.max_new_tokens)
+                         for req, slot in batch], self.temperature)
             else:
                 req, slot = batch[0]
-                results = [eng.prefill(req.prompt, slot, self.temperature,
-                                       max_new_tokens=req.max_new_tokens)]
+                with eng.telemetry.span("prefill", slot=slot,
+                                        tokens=len(req.prompt)):
+                    results = [eng.prefill(
+                        req.prompt, slot, self.temperature,
+                        max_new_tokens=req.max_new_tokens)]
             t_now = time.perf_counter()
             admitted: Dict[int, Request] = {}
             for (req, slot), (tok, _) in zip(batch, results):
@@ -208,6 +251,7 @@ class ContinuousBatchingScheduler:
                 req.out_tokens = [tok]
                 eng.activate_slot(slot, len(req.prompt), tok)
                 eng.serving.note_prefill(len(req.prompt))
+                self._admit_trace(req, slot)
                 admitted[slot] = req
             self._evict_finished(admitted)
             active.update(admitted)
@@ -220,22 +264,32 @@ class ContinuousBatchingScheduler:
         if not active:
             return False
         eng = self.engine
+        trace = self.trace
+        occ = len(active)
         if eng.spec_enabled and self.temperature == 0.0:
-            emitted, n_new = eng.spec_decode_once(self.temperature)
+            with eng.telemetry.span("verify", slots=occ):
+                emitted, n_new = eng.spec_decode_once(self.temperature)
             t_now = time.perf_counter()
             for slot, req in active.items():
                 budget = req.max_new_tokens - len(req.out_tokens)
-                toks = [int(t) for t in emitted[slot, :int(n_new[slot])]]
+                n = int(n_new[slot])
+                toks = [int(t) for t in emitted[slot, :n]]
                 if self.eos_token is not None and self.eos_token in toks:
                     toks = toks[:toks.index(self.eos_token) + 1]
                 req.out_tokens.extend(toks[:max(budget, 0)])
                 req.t_last = t_now
+                if trace is not None:
+                    trace.tick(req.rid, occ, n, t=t_now, proposed=eng.spec_k,
+                               accepted=max(n - 1, 0))
         else:
-            sampled, _ = eng.decode_once(self.temperature)
+            with eng.telemetry.span("decode", slots=occ):
+                sampled, _ = eng.decode_once(self.temperature)
             t_now = time.perf_counter()
             for slot, req in active.items():
                 req.out_tokens.append(int(sampled[slot]))
                 req.t_last = t_now
+                if trace is not None:
+                    trace.tick(req.rid, occ, 1, t=t_now)
         self._evict_finished(active)
         return True
 
@@ -244,12 +298,39 @@ class ContinuousBatchingScheduler:
         abort as ``max_wall``, the queued requests as ``starved``; each
         counts against the SLO's availability."""
         eng = self.engine
+        t_ab = time.perf_counter()
         for slot in list(active):
+            if self.trace is not None:
+                self.trace.abort(active[slot].rid, "max_wall", t=t_ab,
+                                 telemetry=eng.telemetry)
             eng.abort_request(active[slot].rid, "max_wall")
             eng.release_slot(slot)
             del active[slot]
         for req in queue:
+            # Enqueued but never admitted: starved, not served.
+            if self.trace is not None:
+                self.trace.abort(req.rid, "starved", t=t_ab,
+                                 telemetry=eng.telemetry)
             eng.abort_request(req.rid, "starved")
+
+    def enqueue(self, req: Request, queue: deque, t0: float) -> None:
+        """An arrival joins ``queue`` (and the trace) at its absolute
+        arrival time."""
+        req.t_arrival = t0 + req.arrival_s
+        if self.trace is not None:
+            self.trace.enqueue(req.rid, t=req.t_arrival)
+        queue.append(req)
+
+    def finish(self, wall: float) -> Dict[str, Any]:
+        """The end of a serve: with telemetry on, a drain of the
+        aggregator's snapshot over the serve wall (a run shorter than
+        ``report_steps`` iterations would otherwise write none); returns
+        that snapshot."""
+        eng = self.engine
+        snap = eng.serving.snapshot(wall_s=wall)
+        if eng.telemetry.enabled:
+            eng.telemetry.drain({"serving": snap})
+        return snap
 
     def serve(self, requests: Sequence[Request]) -> Dict[str, Any]:
         """Run the stream to completion; returns the serving report (the
@@ -267,9 +348,7 @@ class ContinuousBatchingScheduler:
                 break
             # 1. open-loop arrivals join the queue on schedule.
             while pending and pending[0].arrival_s <= now:
-                req = pending.popleft()
-                req.t_arrival = t0 + req.arrival_s
-                queue.append(req)
+                self.enqueue(pending.popleft(), queue, t0)
             # 2. admissions; 3. one iteration for the live slots.
             self.admit(queue, active)
             if self.step(active):
@@ -284,11 +363,14 @@ class ContinuousBatchingScheduler:
                         f"{len(req.prompt)} prompt + "
                         f"{req.max_new_tokens} new tokens exceeds the "
                         "block pool's per-group capacity")
+                eng.telemetry.heartbeat()
                 t_sl = time.perf_counter()
                 time.sleep(self.idle_sleep_s)
                 ledger.note("admission_blocked", time.perf_counter() - t_sl)
             elif pending:
-                # Idle ahead of the next arrival — open-loop wait.
+                # Idle ahead of the next arrival — open-loop wait. The
+                # heartbeat tells the watchdog "idle, not hung".
+                eng.telemetry.heartbeat()
                 gap = pending[0].arrival_s - (time.perf_counter() - t0)
                 if gap > 0:
                     t_sl = time.perf_counter()
@@ -296,8 +378,11 @@ class ContinuousBatchingScheduler:
                     ledger.note("idle", time.perf_counter() - t_sl)
 
         wall = time.perf_counter() - t0
-        report = dict(eng.serving.snapshot(wall_s=wall))
+        report = dict(self.finish(wall))
+        report["recompiles"] = eng.telemetry.recompile_count
         report["unfinished"] = len(pending) + len(queue) + len(active)
+        if self.trace is not None:
+            report["trace"] = self.trace.summary()
         report["requests"] = request_records(requests)
         return report
 

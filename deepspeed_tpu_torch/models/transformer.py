@@ -1,9 +1,11 @@
 """Transformer building blocks (port of
 ``deepspeed_tpu/models/transformer.py``: the serving ops and the
-training block, whose attention defaults to ``auto_attention`` — the
-flash kernels on a CUDA device, ``dense_attention`` on the CPU — and
-whose FFN is dense, or with ``TransformerConfig.moe`` the MoE FFN of
-``moe/layer.py`` on every ``moe_layer_freq``-th block).
+training block — pre-LN (GPT-2) or post-LN (BERT), causal or
+bidirectional, with an optional additive mask — whose attention defaults
+to ``auto_attention`` — the flash kernels on a CUDA device,
+``dense_attention`` on the CPU — and whose FFN is dense, or with
+``TransformerConfig.moe`` the MoE FFN of ``moe/layer.py`` on every
+``moe_layer_freq``-th block).
 
 Params are plain dicts of tensors; per-layer tensors are STACKED on a
 leading layer axis ``[L, ...]`` and matmul kernels are stored ``[in,
@@ -44,8 +46,9 @@ from .remat import GeneratorReplay, Op, Recompute, remat_policy, run_program
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Shared transformer hyperparameters (the JAX config's subset; the
-    scan and segment-embedding knobs are not ported: the layers run as
-    the JAX ``scan_layers=False`` program)."""
+    scan knob is not ported: the layers run as the JAX
+    ``scan_layers=False`` program; segment embeddings are
+    ``models/bert.BertConfig``'s)."""
     hidden_size: int = 768
     num_heads: int = 12
     num_layers: int = 12
@@ -86,11 +89,9 @@ class TransformerConfig:
 
 def check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the model knobs the port's training path does not run
-    (and ``ValueError`` for an unknown ``remat_policy``)."""
+    (and ``ValueError`` for an unknown ``remat_policy``). The block runs
+    pre-LN and post-LN, causal and bidirectional, as in JAX."""
     remat_policy(cfg.remat_policy)
-    if not (cfg.pre_layer_norm and cfg.causal):
-        raise NotImplementedError("the port implements the GPT-2 block "
-                                  "(pre-LN, causal)")
     if cfg.moe is not None and cfg.moe.expert_parallel_size > 1:
         raise NotImplementedError(EP_UNPORTED)
 
@@ -318,45 +319,63 @@ def layer_slice(stacked: Dict[str, torch.Tensor], i: int
 
 
 def _attention_route(attention_fn: Callable, device: torch.device,
-                     S: int) -> str:
+                     S: int, masked: bool = False) -> str:
     """``"dense"`` where the attention is ``dense_attention`` (the
     default's route for CPU tensors, and the flash function's for a
-    sequence that is not a multiple of 128), ``"flash"`` where it is
-    the flash kernels, else ``"custom"`` (an opaque ``attention_fn``,
-    such as a sparse closure)."""
+    sequence that is not a multiple of 128 or an additive mask, as in
+    JAX), ``"flash"`` where it is the flash kernels, else ``"custom"``
+    (an opaque ``attention_fn``, such as a sparse closure)."""
     if attention_fn is dense_attention:
         return "dense"
     if attention_fn is auto_attention or attention_fn is flash_attention:
-        if S % 128 != 0 or (attention_fn is auto_attention and
-                            device.type != "cuda"):
+        if masked or S % 128 != 0 or (attention_fn is auto_attention and
+                                      device.type != "cuda"):
             return "dense"
         return "flash"
     return "custom"
+
+
+def additive_mask(attention_mask: Optional[torch.Tensor]
+                  ) -> Optional[torch.Tensor]:
+    """A ``[B, S]`` keep mask (1 = attend) as JAX's additive ``[B, 1, 1,
+    S]`` fp32 form, ``(1 - m) * -1e9``; None stays None."""
+    if attention_mask is None:
+        return None
+    return (1.0 - attention_mask.to(torch.float32))[:, None, None, :] * -1e9
 
 
 def block_program(cfg: TransformerConfig, shape, device: torch.device,
                   dtype: torch.dtype, deterministic: bool = True,
                   attention_fn: Optional[Callable] = None,
                   ops: Optional[ElementwiseOps] = None,
-                  moe: bool = False) -> List[Op]:
-    """One pre-LN block as a program of named steps (``models/remat.py``)
-    over an input ``x`` of ``shape`` [B, S, H] and ``dtype`` on
-    ``device``: the one definition of the
-    block, which ``transformer_block`` runs plainly and ``apply_blocks``
-    runs under a ``remat_policy``. Its values: ``h1`` (LN1), ``qkv``
-    (a product), the attention's ``a`` [B, S, H], ``pr`` (a product),
-    the dropout masks ``m1``/``m2`` (drawn from the shape alone),
-    ``d1``, ``s``/``h2`` (the fused residual + LN2), then ``z`` (the FC
+                  moe: bool = False,
+                  mask: Optional[torch.Tensor] = None) -> List[Op]:
+    """One block as a program of named steps (``models/remat.py``) over
+    an input ``x`` of ``shape`` [B, S, H] and ``dtype`` on ``device``:
+    the one definition of the block, which ``transformer_block`` runs
+    plainly and ``apply_blocks`` runs under a ``remat_policy``.
+
+    Pre-LN (``cfg.pre_layer_norm``, GPT-2): ``h1`` (LN1), ``qkv`` (a
+    product), the attention's ``a`` [B, S, H], ``pr`` (a product), the
+    dropout masks ``m1``/``m2`` (drawn from the shape alone), ``d1``,
+    ``s``/``h2`` (the fused residual + LN2), then ``z`` (the FC
     product), ``f`` (bias + GELU), ``o2`` (the FC-out product), or the
-    MoE FFN's ``o2`` and ``moe_stats``; ``d2`` and the output ``y``.
+    MoE FFN's ``o2`` and ``moe_stats``; ``d2`` and the output ``y = s +
+    d2``. Post-LN (original BERT): no ``h1`` (the QKV product reads
+    ``x``); ``res_ln1`` gives ``s1``/``h2`` with LN1's params and
+    ``res_ln2`` gives ``s2``/``y`` from ``h2 + d2`` with LN2's: the
+    normalised value is the residual stream and the sums ``s1``/``s2``
+    go unused (their cotangent is None, so K3b runs without gs).
+
     The attention is one step on the flash route (kind ``"flash"``) or
     of an opaque ``attention_fn``; on the dense route its steps are the
     head-major copies, QKᵀ and PV (kind ``"dot_batch"``), the softmax,
-    its dropout mask and the merge of the heads."""
-    if not (cfg.pre_layer_norm and cfg.causal):
-        raise NotImplementedError("the port implements the GPT-2 block "
-                                  "(pre-LN, causal)")
+    its dropout mask and the merge of the heads. ``cfg.causal`` reaches
+    the attention either way. ``mask`` (additive, broadcast to [B, nH,
+    S, S]; ``additive_mask``) is a constant of the program: with it the
+    flash route runs dense, as JAX's flash function does."""
     ops = ops or elementwise_ops(cfg, device)
+    pre = cfg.pre_layer_norm
     attention_fn = attention_fn or auto_attention
     eps = cfg.layer_norm_eps
     B, S, H = shape
@@ -376,10 +395,11 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     prog = [
         Op("ln1", ("x",), ("h1",), lambda p, g, x: (
             ops.ln(x, p["ln1_scale"], p["ln1_bias"], eps),)),
-        Op("qkv", ("h1",), ("qkv",), lambda p, g, h: (
-            dense(h, p["qkv_kernel"], p["qkv_bias"]),), kind="dot"),
-    ]
-    route = _attention_route(attention_fn, device, S)
+    ] if pre else []
+    prog.append(Op("qkv", ("h1" if pre else "x",), ("qkv",),
+                   lambda p, g, h: (dense(h, p["qkv_kernel"],
+                                          p["qkv_bias"]),), kind="dot"))
+    route = _attention_route(attention_fn, device, S, mask is not None)
     if route == "dense":
         def k_v(qkv):
             q, k, v = qkv_split(qkv)
@@ -390,7 +410,7 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
             Op("qk", ("qh", "kt"), ("sc",), lambda p, g, q, k: (
                 torch.bmm(q, k).view(B, nH, S, S),), kind="dot_batch"),
             Op("probs", ("sc",), ("w",), lambda p, g, sc: (
-                attention_probs(sc, dH, cfg.causal),)),
+                attention_probs(sc, dH, cfg.causal, mask),)),
             mask_op("am", ad, (B, nH, S, S)),
             Op("adrop", ("w", "am"), ("wd",), lambda p, g, w, m: (
                 apply_dropout(w, m, ad).to(dtype),)),
@@ -402,7 +422,7 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     else:
         def attend(p, g, qkv):
             q, k, v = qkv_split(qkv)
-            return (attention_fn(q, k, v, mask=None, causal=cfg.causal,
+            return (attention_fn(q, k, v, mask=mask, causal=cfg.causal,
                                  attn_dropout=cfg.attn_dropout, rng=g,
                                  deterministic=deterministic
                                  ).reshape(B, S, H),)
@@ -415,11 +435,18 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
         mask_op("m1", hd, (B, S, H)),
         Op("drop1", ("pr", "m1"), ("d1",), lambda p, g, v, m: (
             apply_dropout(v, m, hd),)),
+    ]
+    if pre:
         # Fused residual-add + the FFN's LN: s continues the residual
         # stream, h2 feeds the FFN.
-        Op("res_ln", ("x", "d1"), ("s", "h2"), lambda p, g, x, d: tuple(
-            ops.res_ln(x, d, p["ln2_scale"], p["ln2_bias"], eps))),
-    ]
+        prog.append(Op("res_ln", ("x", "d1"), ("s", "h2"),
+                       lambda p, g, x, d: tuple(ops.res_ln(
+                           x, d, p["ln2_scale"], p["ln2_bias"], eps))))
+    else:
+        # Post-LN: the normalised value is the residual stream.
+        prog.append(Op("res_ln1", ("x", "d1"), ("s1", "h2"),
+                       lambda p, g, x, d: tuple(ops.res_ln(
+                           x, d, p["ln1_scale"], p["ln1_bias"], eps))))
     if moe:
         prog.append(Op("moe", ("h2",), ("o2", "moe_stats"),
                        lambda p, g, h: tuple(moe_ffn(
@@ -438,8 +465,14 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
         mask_op("m2", hd, (B, S, H)),
         Op("drop2", ("o2", "m2"), ("d2",), lambda p, g, v, m: (
             apply_dropout(v, m, hd),)),
-        Op("out", ("s", "d2"), ("y",), lambda p, g, s, d: (s + d,)),
     ]
+    if pre:
+        prog.append(Op("out", ("s", "d2"), ("y",),
+                       lambda p, g, s, d: (s + d,)))
+    else:
+        prog.append(Op("res_ln2", ("h2", "d2"), ("s2", "y"),
+                       lambda p, g, h, d: tuple(ops.res_ln(
+                           h, d, p["ln2_scale"], p["ln2_bias"], eps))))
     return prog
 
 
@@ -448,10 +481,12 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                       rng: Optional[torch.Generator] = None,
                       deterministic: bool = True,
                       attention_fn: Optional[Callable] = None,
-                      ops: Optional[ElementwiseOps] = None):
-    """One pre-LN block (params WITHOUT the layer axis): x [B, S, H] →
-    [B, S, H] (``block_program`` run plainly). The attention residual is
-    fused into ln2 (``res_ln``), as in the JAX block. ``rng`` drives the
+                      ops: Optional[ElementwiseOps] = None,
+                      mask: Optional[torch.Tensor] = None):
+    """One block, pre-LN or post-LN (params WITHOUT the layer axis): x
+    [B, S, H] → [B, S, H] (``block_program`` run plainly). The residual
+    adds are fused into the LayerNorms (``res_ln``), as in the JAX
+    block; ``mask`` is additive. ``rng`` drives the
     attention and hidden dropout (ignored when deterministic);
     ``attention_fn`` defaults to ``auto_attention``; ``ops`` defaults to
     the ones ``cfg.fused_kernels`` selects. With ``cfg.moe`` the FFN is
@@ -459,7 +494,8 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     returns ``(x, moe_stats_or_None)``."""
     moe = "moe_fc_kernel" in p
     env = run_program(block_program(cfg, x.shape, x.device, x.dtype,
-                                    deterministic, attention_fn, ops, moe),
+                                    deterministic, attention_fn, ops, moe,
+                                    mask),
                       p, {"x": x}, rng)
     if cfg.moe is not None:
         return env["y"], env.get("moe_stats")
@@ -503,7 +539,8 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                  attention_fn: Optional[Callable] = None,
                  ops: Optional[ElementwiseOps] = None,
                  pld_theta: Optional[float] = None,
-                 layer_valid: Optional[Sequence] = None):
+                 layer_valid: Optional[Sequence] = None,
+                 mask: Optional[torch.Tensor] = None):
     """All L layers as a Python loop over the stacked leading axis (the
     JAX ``scan_layers=False`` program). Each stacked tensor is unbound
     once, so its gradient comes back as one stack, not as L scatters.
@@ -521,7 +558,8 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     layer is skipped outright (no launch; its params' grads are zero).
     ``layer_valid`` ([L] 0/1 host data): identity-skip slots, as the
     JAX pipeline's padded stages use them. Neither composes with MoE
-    (as in JAX)."""
+    (as in JAX). ``mask``: the additive attention mask of every block
+    (``additive_mask``)."""
     L = stacked["ln1_scale"].shape[0]
     kinds = remat_policy(cfg.remat_policy)
     moe_layers = [] if cfg.moe is None else \
@@ -571,7 +609,7 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
         if moe not in programs:
             programs[moe] = block_program(cfg, x.shape, x.device, x.dtype,
                                           deterministic, attention_fn, ops,
-                                          moe)
+                                          moe, mask)
         if kinds is None:
             env = run_program(programs[moe], p_i, {"x": x}, rng)
         else:
@@ -585,7 +623,8 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
 
 __all__ = ["TransformerConfig", "check_trainable", "layer_norm", "dense",
            "gelu", "dropout_mask", "apply_dropout", "dropout", "heads",
-           "heads_t", "attention_probs", "dense_attention", "ElementwiseOps",
+           "heads_t", "attention_probs", "dense_attention", "additive_mask",
+           "ElementwiseOps",
            "KERNEL_OPS", "PLAIN_OPS", "elementwise_ops", "layer_norm_fn",
            "gelu_dense_fn", "init_block_params", "layer_slice",
            "block_program", "transformer_block", "pld_keep",

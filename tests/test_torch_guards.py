@@ -5,9 +5,9 @@ signatures match the kernels' C entry points, the flash kernels and
 the grouped GEMM use neither ``nvcuda::wmma`` nor atomics (the grouped
 GEMM runs on TMA and ``wgmma``), the engine refuses configurations
 it has no CUDA path for, and the ``inference`` config parses and rejects
-exactly as the JAX package's does; the serving engine refuses telemetry
-(its serving half is not ported) and the training engine a profiler
-window."""
+exactly as the JAX package's does; the serving engine serves with
+telemetry (or its tensorboard alias) on, and both engines refuse a
+profiler window."""
 import ast
 import dataclasses
 import os
@@ -28,7 +28,7 @@ from deepspeed_tpu_torch.runtime import config as tconfig
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deepspeed_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "deepspeed_tpu")
+             "deepspeed_tpu", "transformers")
 CFG32 = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.float32)
 
 
@@ -38,7 +38,12 @@ def test_import_pulls_in_no_jax():
             "deepspeed_tpu_torch.runtime.zero.stage3, "
             "deepspeed_tpu_torch.monitor, deepspeed_tpu_torch.ops.costs, "
             "deepspeed_tpu_torch.profiling.flops_profiler, "
-            "deepspeed_tpu_torch.parallel.wire_model\n"
+            "deepspeed_tpu_torch.parallel.wire_model, "
+            "deepspeed_tpu_torch.models.bert, "
+            "deepspeed_tpu_torch.module_inject, "
+            "deepspeed_tpu_torch.monitor.request_trace, "
+            "deepspeed_tpu_torch.ops.sparse_attention."
+            "sparse_attention_utils\n"
             "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -50,7 +55,9 @@ def test_import_pulls_in_no_jax():
 
 def test_no_module_imports_jax():
     """No module of the package, not chip_smoke.py and not the dp
-    tests' worker imports JAX or the JAX package."""
+    tests' worker imports JAX, the JAX package or ``transformers``
+    (the card's machine has none: ``module_inject`` takes configs by
+    attribute and weights as tensors)."""
     offenders = []
     for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
                  REPO / "tests" / "torch_dp_worker.py"]:
@@ -149,17 +156,37 @@ def test_grouped_gemm_kernel_uses_tma_and_wgmma_and_no_wmma_or_atomics():
     {"telemetry": {"enabled": True}},
     {"tensorboard": {"enabled": True}},      # telemetry's alias
 ])
-def test_engine_refuses_unported_layouts(config):
-    """The serving engine refuses what it does not run yet — telemetry
-    (the slot-major layout and weight quantization, refused before
-    slice 6g, serve now: tests/test_torch_serving_extras.py)."""
+def test_engine_refuses_unported_layouts(config, tmp_path):
+    """The serving engine refused telemetry and its tensorboard alias
+    before slice 6i (as it refused the slot-major layout and weight
+    quantization before slice 6g); both now build and serve with a
+    stream: request traces, the report's ``trace`` key, a ``final``
+    record at close. An explicit ``enabled: false`` writes nothing."""
+    import json
+
+    from deepspeed_tpu_torch.inference.scheduler import synthetic_requests
     params = gpt2_init(CFG32, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="telemetry") as err:
-        InferenceEngine(CFG32, params, config=config, device="cpu")
-    # (the training half of ROADMAP queue 1 item 3 is ported)
-    assert "serving half" in str(err.value)
-    explicit_off = dict(config, telemetry={"enabled": False})
-    InferenceEngine(CFG32, params, config=explicit_off, device="cpu")
+    block = next(iter(config))
+    config = {block: dict(config[block], output_path=str(tmp_path / "on"))}
+    eng = InferenceEngine(CFG32, params, config=config, device="cpu")
+    rep = eng.serve(synthetic_requests(3, prompt_len=(4, 8),
+                                       max_new_tokens=3, vocab_size=512))
+    eng.close()
+    assert rep["completed"] == 3 and rep["trace"]["completed"] == 3
+    streams = list((tmp_path / "on").glob("*.jsonl"))
+    assert len(streams) == 1
+    recs = [json.loads(line) for line in streams[0].read_text().split("\n")
+            if line]
+    assert recs[0]["kind"] == "meta" and recs[0]["mode"] == "serving"
+    assert recs[-1]["kind"] == "final"
+    assert sum(r.get("event") == "request_trace" for r in recs) == 3
+    explicit_off = {"telemetry": {"enabled": False,
+                                  "output_path": str(tmp_path / "off")}}
+    eng = InferenceEngine(CFG32, params, config=explicit_off, device="cpu")
+    assert "trace" not in eng.serve(synthetic_requests(
+        2, prompt_len=(4, 8), max_new_tokens=2, vocab_size=512))
+    eng.close()
+    assert not (tmp_path / "off").exists()
 
 
 def test_unported_features_leave_out_telemetry_and_the_flops_profiler():
