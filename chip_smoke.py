@@ -50,8 +50,9 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    the block-sparse kernels (``check_sparse``): K7, K8b, K8c and K8a at
    the sparse path's shape (2 x 4096, 12 heads of 64, bf16, the Fixed
    layout, causal) at tile (1, 1) with dropout 0 and 0.1 and at the
-   JAX-picked super-tile (2, 8), and on a BigBird layout (bidirectional,
-   random blocks, a layout per head) at 2 x 2048; the layout-gated K1,
+   path's super-tile (the resolver's, (2, 8) on an H100), and on a
+   BigBird layout (bidirectional, random blocks, a layout per head) at
+   2 x 2048; the layout-gated K1,
    K2a, K2b at the path's shape, and the dense causal K1 at 2 x 4096;
    then the grouped GEMM (K9, ``check_grouped_gemm``) at the seven
    shapes of one MoE layer and micro-batch on the MoE path (8 experts,
@@ -74,6 +75,24 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    at which the same run moved those bytes, by native and torch streams,
    the step itself or the library call), with the host's CPU and
    cores.
+3b. ``autotune`` (after the flash kernels' checks): the tile resolver
+   (``ops/autotune.py``) on a fresh registry (``DS_AUTOTUNE_REGISTRY``
+   points into this run's temporary directory for the whole run, child
+   processes included, so each path resolves its tiles on this card and
+   outside its counted window). K9 at the MoE path's seven launches (the
+   expert FFN forward and backward, bf16 and fp16) and K7 at
+   ``train_sparse``'s shape (2 x 4096, the Fixed layout, causal; K8b and
+   K8c take its tile): the first resolve of each key searches (4 launches
+   a candidate), the second hits with no candidate launch, the winner's
+   outputs and gradients bit-equal to the heuristic's, ``DS_AUTOTUNE=0``
+   today's tiles (``_gg_tile``, ``pick_tile``). Printed: each key's
+   candidate times, winner, heuristic and speedup, and the search's wall
+   time. K10 at ``check_paged_attention``'s four shapes at every split
+   count from 1 to the table width: which counts change the bits (the
+   split stays ``paged_splits``'), and each count's time. Every counted
+   path asserts that no search ran inside it (``run_path``); the
+   sparse-encoder swap of ``bert_inject`` resolves its tile in a warm-up
+   draw.
 4. Serve gpt2-small (full width and depth, random bf16 weights from a
    seed) through ``InferenceEngine.serve``: 16 shared-prefix requests,
    then the same stream with ``spec_k: 3``, then with whole-prompt
@@ -292,6 +311,23 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    phases (``ONEBIT_ULP``, the rounding-level signs counted), timed
    beside the fused Adam's step and ``torch._fused_adamw_``, with its
    launches and its bound.
+5l. ``launch`` (the port's front door, each part in its own processes
+   from the checkout's root): ``bin/deepspeed_torch --num_gpus 1
+   examples/gpt2/train_torch.py --config ds_config_zero2.json --model
+   gpt2-small --data examples/data/corpus.txt --steps 20`` (bf16, ZeRO-2,
+   8 x 1024 a step, full width and depth): the child exits 0 on
+   ``cuda``, its loss falls (the last quarter's mean under 0.97 of the
+   first's), and its launches, read from its JSON line, are exactly the
+   main path's at gas 1 (the path ``launch_gpt2_small`` of the summary);
+   two ranks through the launcher on the one card (``--procs_per_node
+   2``, gloo, ZeRO-2, gpt2-small's widths at 2 layers, 3 steps): both on
+   ``cuda:0`` with ``CUDA_VISIBLE_DEVICES=0``, params bit-equal; a child
+   exiting 3 takes its sleeping sibling down, the launch exiting non-zero
+   within 10 s of the failure; ``bin/ds_report_torch`` names the card
+   and shows every kernel source's library built, loadable and current;
+   ``tools/crashkill_torch.py run --quick`` on the card (SIGTERM and
+   SIGKILL kills, a loadable latest after each, the resumed run
+   bit-identical).
 6. The ``{"host_kernels": [...]}`` line (the host Adam), the
    ``{"optimizers": [...]}`` line (the matrix's and 1-bit Adam's steps:
    ms, bytes, bound, library yardstick), then the ``{"kernels": [...]}`` summary
@@ -333,6 +369,7 @@ from deepspeed_tpu_torch.models.transformer import PLAIN_OPS, apply_blocks, \
 from deepspeed_tpu_torch.module_inject import get_policy, replace_module
 from deepspeed_tpu_torch.monitor.request_trace import validate_timeline
 from deepspeed_tpu_torch.moe import MoEConfig
+from deepspeed_tpu_torch.ops import autotune
 from deepspeed_tpu_torch.ops import costs
 from deepspeed_tpu_torch.ops import flash_attention as fa
 from deepspeed_tpu_torch.ops import fused_elementwise as fe
@@ -1760,8 +1797,8 @@ def check_sparse(dev, gen):
     """K7, K8b, K8c and K8a against their plain versions (the flash plain
     versions over the layout's element mask): at the sparse path's shape
     (2 x 4096, the Fixed layout, causal) at tile (1, 1) with dropout 0
-    and 0.1 and at the JAX-picked super-tile with dropout 0.1, and on a
-    BigBird layout (bidirectional, random blocks, a layout per head) at
+    and 0.1 and at the path's super-tile (the resolver's) with dropout
+    0.1, and on a BigBird layout (bidirectional, random blocks, a layout per head) at
     2 x 2048; then the layout-gated K1, K2a, K2b (the Fixed layout as a
     CUDA tensor) at the path's shape, and the dense causal K1 at 2 x
     4096 beside them. Each launched twice and compared bit for bit. The
@@ -1776,7 +1813,7 @@ def check_sparse(dev, gen):
     bigbird = BigBirdSparsityConfig(
         num_heads=nH, block=128, num_random_blocks=1,
         different_layout_per_head=True).make_layout(BIGBIRD_SEQ)
-    pick = sf.pick_tile(fixed)
+    pick = sparse_path_tile(fixed, SPARSE_MICRO, SPARSE_SEQ, nH, True, dev)
     cases = (("sparse_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.0,
               (1, 1)),
              ("sparse_path", fixed, SPARSE_MICRO, SPARSE_SEQ, True, 0.1,
@@ -2003,7 +2040,7 @@ def check_grouped_gemm(dev, gen):
                 torch.float32: "fp32"}[dt]
         E, M, K = a.shape
         N = b.shape[2]
-        plan = gg._gg_plan(a, b, act, sms)
+        plan = gg._gg_plan(a, b, act, sms, bias)
         ops.reset_launch_counts()
         got = gg.grouped_matmul(a, b, bias, act)
         again = gg.grouped_matmul(a, b, bias, act)
@@ -2065,6 +2102,262 @@ def check_grouped_gemm(dev, gen):
 
 
 # --------------------------------------------------------------------- #
+# Phase 3b: the tile resolver (ops/autotune.py)
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def env_set(**kw):
+    """Environment variables set for the block (None: unset)."""
+    old = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def registry_entries(prefix):
+    """The registry's entries whose key starts with ``prefix``."""
+    with open(autotune.registry_path()) as f:
+        reg = json.load(f)
+    return {k: v for k, v in reg.items() if k.startswith(prefix)}
+
+
+def resolve_runs(run, launches):
+    """``run()`` three times: under ``DS_AUTOTUNE=0`` (the heuristic
+    tiles), then twice through the resolver (the first resolve of each
+    new key searches, the second hits). Returns the three outputs and,
+    for the two resolver runs, the counters' and ``launches()``'s deltas
+    and the wall seconds (synchronized)."""
+    with env_set(DS_AUTOTUNE="0"):
+        ref = run()
+    rec = []
+    outs = []
+    for _ in range(2):
+        c0, l0 = dict(autotune.counters), launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        rec.append({"wall_s": time.perf_counter() - t0,
+                    "counters": {k: autotune.counters[k] - c0[k]
+                                 for k in c0},
+                    "launches": {k: v - l0[k]
+                                 for k, v in launches().items()}})
+    return ref, outs, rec
+
+
+def moe_ffn_operands(dev, gen, dt):
+    """The MoE path's expert FFN operands at its shapes (8 experts,
+    capacity 2560, 768 x 3072) in ``dt``, and an output gradient."""
+    small = GPT2_CONFIGS["gpt2-small"]
+    E, C, H, Fw = MOE_EXPERTS, MOE_CAPACITY, small.hidden_size, \
+        small.ffn_size
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev,
+                                    generator=gen)).to(dt)
+    return (r(E, C, H), r(E, H, Fw, scale=H ** -0.5), r(E, Fw, scale=0.1),
+            r(E, Fw, H, scale=Fw ** -0.5), r(E, H, scale=0.1), r(E, C, H))
+
+
+def autotune_k9(dev, gen, sms):
+    """K9 through the resolver at the MoE path's seven launches (the
+    expert FFN forward and backward, ``grouped_ffn``), bf16 and fp16 as
+    ``train_moe`` and ``train_moe_fp16`` run them."""
+    out = []
+    for dt in (torch.bfloat16, torch.float16):
+        x, w1, b1, w2, b2, dy = moe_ffn_operands(dev, gen, dt)
+        calls = []
+
+        def run():
+            xs = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+            y = gg.grouped_ffn(*xs)
+            y.backward(dy)
+            return [y.detach()] + [t.grad for t in xs]
+
+        real = gg._gg_plan     # each launch plans once: record them
+
+        def plan(a, b, act=None, sms=gg.H100_SMS, bias=None, tile=None):
+            calls.append((a, b, bias, act))
+            return real(a, b, act, sms, bias, tile)
+        gg._gg_plan = plan
+        try:
+            with env_set(DS_AUTOTUNE="0"):
+                run()
+        finally:
+            gg._gg_plan = real
+        assert len(calls) == 7, len(calls)
+        with env_set(DS_AUTOTUNE="0"):
+            today = [gg._gg_plan(a, b, act, sms, bias).tile[1]
+                     for a, b, bias, act in calls]
+        heur = [gg._gg_tile(a.shape[0], a.shape[1], b.shape[2], act, sms)
+                for a, b, bias, act in calls]
+        del calls
+        ref, outs, rec = resolve_runs(
+            run, lambda: {"K9": gg.grouped_matmul.launches})
+        name = autotune.dtype_name(dt)
+        entries = registry_entries(f"grouped_gemm|{name}[")
+        first, second = rec
+        res = {"kernel": "K9", "dtype": name, "keys": len(entries),
+               "first": first, "second": second,
+               "search_wall_s": first["wall_s"] - second["wall_s"],
+               "disabled_tiles": today, "gg_tile": heur,
+               "bit_equal_to_heuristic": all(
+                   torch.equal(a, b) for o in outs for a, b in zip(o, ref)),
+               "entries": entries}
+        emit({"autotune": res})
+        out.append(res)
+        assert today == heur, res
+        assert first["counters"]["search"] == len(entries) >= 1, res
+        assert first["launches"]["K9"] == 7 + sum(
+            4 * len(e["timings_s"]) for e in entries.values()), res
+        assert second["counters"] == {"search": 0, "hit": 7,
+                                      "heuristic": 0}, res
+        assert second["launches"]["K9"] == 7, res
+        assert res["bit_equal_to_heuristic"], res
+        del x, w1, b1, w2, b2, dy, ref, outs
+    return out
+
+
+def autotune_sparse(dev, gen):
+    """K7 (and K8b/K8c, which take its tile) through the resolver at
+    ``train_sparse``'s shape: 2 x 4096, 12 heads of 64, the Fixed layout,
+    causal, bf16, dropout 0.1, forward and backward."""
+    nH, D = 12, 64
+    lay = sparse_layout(nH, SPARSE_SEQ) != 0
+    shape = (SPARSE_MICRO, SPARSE_SEQ, nH, D)
+    q, k, v, do = (torch.randn(*shape, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    heur = sf.pick_tile(lay, block=SPARSE_SEQ // lay.shape[2])
+
+    def run(tile=(0, 0)):
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = sf.sparse_flash_attention(*xs, lay, causal=True, scale=D ** -0.5,
+                                      seed=seed, dropout=0.1,
+                                      qwiden=tile[0], widen=tile[1])
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in xs]
+
+    kernels = ("sparse_flash_fwd", "sparse_flash_bwd_dq",
+               "sparse_flash_bwd_dkv")
+    ref, outs, rec = resolve_runs(
+        run, lambda: {k: ops.launch_counts()[k] for k in kernels})
+    entries = registry_entries("sparse_flash|bfloat16[")
+    assert len(entries) == 1, entries
+    ent = next(iter(entries.values()))
+    pinned = run(tuple(ent["tile"]))
+    with env_set(DS_AUTOTUNE="0"):
+        today = sf.resolve_tile(lay, SPARSE_SEQ // lay.shape[2],
+                                q=q, causal=True)
+    first, second = rec
+    res = {"kernel": "K7/K8b/K8c", "dtype": "bfloat16",
+           "shape": list(shape), "layout": "fixed, causal",
+           "first": first, "second": second,
+           "search_wall_s": first["wall_s"] - second["wall_s"],
+           "disabled_tile": list(today), "pick_tile": list(heur),
+           "bit_equal_to_heuristic": all(
+               torch.equal(a, b) for o in outs + [pinned]
+               for a, b in zip(o, ref)),
+           "entries": entries}
+    emit({"autotune": res})
+    assert today == heur, res
+    assert tuple(ent["heuristic"]) == heur, res
+    assert first["counters"]["search"] == 1, res
+    assert first["launches"]["sparse_flash_fwd"] == \
+        1 + 4 * len(ent["timings_s"]), res
+    assert second["counters"] == {"search": 0, "hit": 1, "heuristic": 0}, \
+        res
+    assert second["launches"] == {k: 1 for k in kernels}, res
+    assert res["bit_equal_to_heuristic"], res
+    return res
+
+
+def autotune_k10(dev, gen):
+    """K10's split count, not behind the resolver: at check_paged_attention's
+    four shapes, the output at every split count from 1 to the table
+    width against ``paged_splits``' (bits and best-of-3 times)."""
+    out = []
+    cases = {"decode": dict(contexts=[1024, 700, 333, 129, 64, 17, 1, 0],
+                            K=1),
+             "verify": dict(contexts=[1021, 650, 300, 100, 48, 16, 5, 0],
+                            K=4),
+             "prefill": dict(contexts=[993], K=32),
+             "serve_decode": dict(contexts=[128, 131, 126, 140, 120, 133,
+                                            129, 127], K=1)}
+    for name, spec in cases.items():
+        q, pk, pv, bt, pos, scale = _attn_case(dev, gen, **spec)
+        G, Q, K = pos.shape
+        J = bt.shape[-1]
+        heur = pa.paged_splits(G * Q, 12, J, K)
+
+        def runner(n):
+            return pa.paged_attention(q, pk, pv, bt, pos, scale, _splits=n)
+        ref = runner(heur)
+        measure = autotune.measure_from_runner(runner)
+        times, differ = {}, []
+        for n in range(1, J + 1):
+            if not torch.equal(runner(n), ref):
+                differ.append(n)
+            times[n] = measure(n)
+        best = min(times, key=times.get)
+        res = {"kernel": "K10", "case": name, "paged_splits": heur,
+               "splits_tried": J, "splits_with_other_bits": differ,
+               "best_split": best, "best_ms": times[best] * 1e3,
+               "paged_splits_ms": times[heur] * 1e3,
+               "ms_by_split": {n: t * 1e3 for n, t in times.items()}}
+        emit({"autotune": res})
+        out.append(res)
+    return out
+
+
+def autotune_phase(dev, smi):
+    """The tile resolver on a fresh registry (``DS_AUTOTUNE_REGISTRY`` in
+    this run's temporary directory): K9 and K7/K8 search once a key, then
+    hit with no candidate launch, the winner bit-equal to the heuristic,
+    ``DS_AUTOTUNE=0`` today's tiles; K10's split counts read for bits."""
+    assert not os.path.exists(autotune.registry_path())
+    autotune.reset()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t0 = time.perf_counter()
+    k9 = autotune_k9(dev, gen, sms)
+    sparse = autotune_sparse(dev, gen)
+    k10 = autotune_k10(dev, gen)
+    free_card()
+    emit({"autotune_phase": {
+        "registry": autotune.registry_path(), "counters": autotune.counters,
+        "k9_search_wall_s": [r["search_wall_s"] for r in k9],
+        "sparse_search_wall_s": sparse["search_wall_s"],
+        "k10_bit_equal_across_splits": all(
+            not r["splits_with_other_bits"] for r in k10),
+        "phase_wall_s": time.perf_counter() - t0, "card": smi}})
+    return k9, sparse, k10
+
+
+def sparse_path_tile(layout, B, S, nH, causal, dev):
+    """The super-tile a sparse path at ``[B, S, nH, 64]`` bf16 runs: the
+    resolver's, a registry hit once the path (or the autotune phase) has
+    resolved it."""
+    searches = autotune.counters["search"]
+    tile = sf.resolve_tile(np.asarray(layout) != 0,
+                           S // np.asarray(layout).shape[2],
+                           q=torch.empty(B, S, nH, 64, dtype=torch.bfloat16,
+                                         device=dev), causal=causal)
+    assert autotune.counters["search"] == searches, \
+        "the path's tile was not resolved yet"
+    return tile
+
+
+# --------------------------------------------------------------------- #
 # Phase 5: the training main path at gpt2-small
 # --------------------------------------------------------------------- #
 def token_stream(cfg, steps, seed=SEED, seq=TRAIN_SEQ, micro=TRAIN_MICRO):
@@ -2105,22 +2398,22 @@ def train_config(precision, steps, micro=TRAIN_MICRO):
     return ds
 
 
-def per_train_step(cfg, seq=TRAIN_SEQ):
+def per_train_step(cfg, seq=TRAIN_SEQ, gas=TRAIN_GAS):
     """Launches of one train step: per micro-batch and layer one flash
     forward and, by the JAX rule, the fused backward (S = 1024) or the
     dq + dk/dv pair (S = 768)."""
     L = cfg.num_layers
     c = {name: 0 for name in ops.launch_counts()}
-    c.update({"fused_layer_norm": TRAIN_GAS * (L + 1),
-              "fused_residual_layer_norm": TRAIN_GAS * L,
-              "fused_bias_gelu": TRAIN_GAS * L,
-              "layer_norm_backward": TRAIN_GAS * (2 * L + 1),
-              "bias_gelu_backward": TRAIN_GAS * L,
+    c.update({"fused_layer_norm": gas * (L + 1),
+              "fused_residual_layer_norm": gas * L,
+              "fused_bias_gelu": gas * L,
+              "layer_norm_backward": gas * (2 * L + 1),
+              "bias_gelu_backward": gas * L,
               "sqnorm": 1, "fused_adam_apply": 1,
-              "flash_attention_fwd": TRAIN_GAS * L})
+              "flash_attention_fwd": gas * L})
     bwd = ("flash_attention_bwd_fused",) if fa.use_fused_bwd(seq, seq) \
         else ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-    c.update({name: TRAIN_GAS * L for name in bwd})
+    c.update({name: gas * L for name in bwd})
     return c
 
 
@@ -2269,6 +2562,7 @@ def run_path(eng, batches):
     ends = [torch.cuda.Event(enable_timing=True) for _ in batches]
     losses, metrics = [], []
     torch.cuda.synchronize()
+    searches = autotune.counters["search"]
     ops.reset_launch_counts()
     for b, st, en in zip(batches, starts, ends):
         st.record()
@@ -2277,6 +2571,9 @@ def run_path(eng, batches):
         metrics.append(eng.last_metrics)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    # a tile search inside the path would add its candidates' launches
+    assert autotune.counters["search"] == searches, \
+        "a tile search inside a counted path: resolve it in a warm-up"
     ms = [s.elapsed_time(e) for s, e in zip(starts, ends)]
     return [float(l) for l in losses], metrics, ms, counts
 
@@ -3572,7 +3869,8 @@ def train_sparse(dev, smi):
         "model": "gpt2-small, max_seq_length 4096",
         "sparse_attention": eng.config.sparse_attention,
         "layout_live_blocks_per_head": int((layout[0] != 0).sum()),
-        "tile_qwiden_widen": list(sf.pick_tile(layout)),
+        "tile_qwiden_widen": list(sparse_path_tile(
+            layout, SPARSE_MICRO, SPARSE_SEQ, cfg.num_heads, True, dev)),
         "precision": "bf16, fp32 masters",
         "batch": [TRAIN_GAS, SPARSE_MICRO, SPARSE_SEQ],
         "steps": SPARSE_STEPS, "dropout": cfg.hidden_dropout,
@@ -5101,6 +5399,11 @@ def bert_inject(dev, smi, gen):
         swap_rel[dt] = []
         for i, (_, x2, w_out) in enumerate(
                 draws[:1] if dt == torch.float32 else draws):
+            if dt == torch.bfloat16 and i == 0:
+                # warm-up: the counted path's tile resolved (a search on
+                # a fresh registry) outside its count
+                run(None, "none", dt, x2, w_out)
+                free_card()
             ops.reset_launch_counts()
             got = run(None, "none", dt, x2, w_out)
             if dt == torch.bfloat16 and i == 0:
@@ -5125,10 +5428,12 @@ def bert_inject(dev, smi, gen):
                       "layer_norm_backward": 2 * L,
                       "bias_gelu_backward": L})
     seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    swap_tile = sparse_path_tile(layout, SWAP_B, S, cfg.num_heads, False,
+                                 dev)
     sparse_recs = sparse_case(
         dev, gen, "sparse_bert_swap", layout, SWAP_B, S, False, 0.1,
-        sf.resolve_tile(layout, sparsity.block), cfg.num_heads, seed,
-        "fixed_bidirectional", with_fused=False)
+        swap_tile, cfg.num_heads, seed, "fixed_bidirectional",
+        with_fused=False)
     rec = {"model": "bert-large widths from a HF-named state_dict",
            "hidden_act": hf_cfg.hidden_act,
            "bert_restore_extract_bit_equal": bert_round_trip,
@@ -5144,7 +5449,7 @@ def bert_inject(dev, smi, gen):
                     "tokens": SWAP_TOKENS, "pad_len": pad_len,
                     "layout_kept_blocks": int(np.asarray(layout).sum()),
                     "layout_blocks": int(np.asarray(layout).size),
-                    "tile": list(sf.resolve_tile(layout, sparsity.block)),
+                    "tile": list(swap_tile),
                     "rel_err_out_dx_dqkv_dfc_vs_dense": {
                         str(dt).replace("torch.", ""): v
                         for dt, v in swap_rel.items()},
@@ -5340,6 +5645,231 @@ def serve_telemetry(dev, smi, params, out_dir):
 
 
 
+# --------------------------------------------------------------------- #
+# Phase 7: the front door (bin/, the example trainer, ds_report, the
+# crash-kill harness), each in its own processes
+# --------------------------------------------------------------------- #
+LAUNCH_STEPS = 20
+# The two gloo ranks' depth (gpt2-small's widths): gloo stages every
+# collective through host memory, so the full depth would cost seconds a
+# step (PERF.md, PR 12).
+LAUNCH_ZERO_LAYERS, LAUNCH_ZERO_STEPS = 2, 3
+LAUNCH_KILL_S = 10.0
+
+TWO_RANKS_SCRIPT = """\
+import argparse, dataclasses, json, os
+import numpy as np
+import torch
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models.gpt2 import (GPT2_CONFIGS, gpt2_init,
+                                             gpt2_loss_fn)
+from deepspeed_tpu_torch.ops.fused_update import tree_flatten
+
+ap = argparse.ArgumentParser()
+ap.add_argument("--local_rank", type=int)
+ap.add_argument("--out")
+ap.add_argument("--config")
+ap.add_argument("--layers", type=int)
+ap.add_argument("--steps", type=int)
+a = ap.parse_args()
+deepspeed_tpu_torch.init_distributed(dist_backend="gloo")
+cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-small"], num_layers=a.layers)
+with open(a.config) as f:
+    ds = json.load(f)
+gen = torch.Generator(device="cuda").manual_seed(0)
+eng, *_ = deepspeed_tpu_torch.initialize(
+    model=gpt2_loss_fn(cfg), model_params=gpt2_init(cfg, gen, "cuda"),
+    config=ds, device="cuda")
+rng = np.random.default_rng(0)
+losses = []
+for _ in range(a.steps):
+    tokens = rng.integers(0, 256, size=(ds["train_batch_size"],
+                                        cfg.max_seq_length + 1))
+    losses.append(float(eng.train_batch(tokens.astype(np.int32))))
+flat = torch.cat([t.detach().float().reshape(-1)
+                  for t in tree_flatten(eng.state.params)[0]]).cpu()
+torch.save({"params": flat, "losses": losses, "dp": eng.dp,
+            "rank": eng.dp_rank, "local_rank": a.local_rank,
+            "device": str(eng.device),
+            "current_device": torch.cuda.current_device(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")},
+           f"{a.out}.rank{eng.dp_rank}.pt")
+"""
+
+FAILING_CHILD_SCRIPT = """\
+import os, sys, time
+if os.environ["LOCAL_RANK"] == "1":
+    with open(sys.argv[-1], "w") as f:
+        f.write(repr(time.time()))
+    sys.exit(3)
+time.sleep(300)   # only the launcher's kill ends it
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_command(cmd, timeout):
+    """``cmd`` from the checkout's root: (completed process, wall s)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def deepspeed_cmd(*args):
+    return [sys.executable, os.path.join(REPO, "bin", "deepspeed_torch"),
+            "--master_port", str(_free_port()), *args]
+
+
+def launch_gpt2(smi):
+    """``bin/deepspeed_torch --num_gpus 1`` on the gpt2 example at
+    gpt2-small on ``ds_config_zero2.json`` over the corpus: the child
+    trains on the card's kernels, its loss falls, and its launches are
+    exactly the main path's a micro-batch (gas 1)."""
+    res, wall = run_command(deepspeed_cmd(
+        "--num_gpus", "1", "examples/gpt2/train_torch.py", "--config",
+        "ds_config_zero2.json", "--model", "gpt2-small", "--data",
+        "examples/data/corpus.txt", "--steps", str(LAUNCH_STEPS)), 900)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    losses = [float(x) for x in re.search(
+        r"^losses:\s*(.*)$", res.stdout, re.M).group(1).split()]
+    final = float(re.search(r"^final loss:\s*(\S+)$", res.stdout,
+                            re.M).group(1))
+    rec = json.loads([ln for ln in res.stdout.splitlines()
+                      if ln.startswith('{"example"')][-1])
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    want = {k: LAUNCH_STEPS * v
+            for k, v in per_train_step(cfg, gas=1).items()}
+    k = max(1, len(losses) // 4)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    out = {"command": "bin/deepspeed_torch --num_gpus 1 "
+                      "examples/gpt2/train_torch.py --config "
+                      "ds_config_zero2.json --model gpt2-small --data "
+                      "examples/data/corpus.txt --steps 20",
+           "device": rec["device"], "device_name": rec["device_name"],
+           "losses": losses, "final_loss": final,
+           "loss_first_quarter_mean": first, "loss_last_quarter_mean": last,
+           "step_ms_p50": float(np.median(rec["step_ms"][3:])),
+           "step_ms_all": rec["step_ms"], "launches": nonzero(
+               rec["launches"]), "launch_wall_s": wall, "card": smi}
+    emit({"launch_gpt2_small": out})
+    assert rec["device"].startswith("cuda"), rec
+    assert rec["device_name"] == torch.cuda.get_device_name(0), rec
+    assert last < 0.97 * first, out
+    assert rec["launches"] == want, (rec["launches"], want)
+    return rec["launches"], out
+
+
+def launch_two_ranks(smi, tmp):
+    """Two ranks on the one card through the launcher (``--procs_per_node
+    2``), gloo, ZeRO-2: both take ``cuda:0`` (LOCAL_RANK % 1) and end
+    with bit-equal params."""
+    script = os.path.join(tmp, "two_ranks.py")
+    with open(script, "w") as f:
+        f.write(TWO_RANKS_SCRIPT)
+    base = os.path.join(tmp, "two_ranks")
+    res, wall = run_command(deepspeed_cmd(
+        "--num_gpus", "1", "--procs_per_node", "2", script, "--out", base,
+        "--config", os.path.join(REPO, "examples", "gpt2",
+                                 "ds_config_zero2.json"),
+        "--layers", str(LAUNCH_ZERO_LAYERS), "--steps",
+        str(LAUNCH_ZERO_STEPS)), 900)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    ranks = [torch.load(f"{base}.rank{r}.pt") for r in (0, 1)]
+    out = {"layers": LAUNCH_ZERO_LAYERS, "steps": LAUNCH_ZERO_STEPS,
+           "ranks": [{k: r[k] for k in ("rank", "local_rank", "dp",
+                                         "device", "current_device",
+                                         "visible", "losses")}
+                     for r in ranks],
+           "params_bit_equal": torch.equal(ranks[0]["params"],
+                                           ranks[1]["params"]),
+           "launch_wall_s": wall, "card": smi}
+    emit({"launch_two_ranks": out})
+    assert out["params_bit_equal"], out
+    assert [(r["rank"], r["local_rank"], r["dp"], r["current_device"],
+             r["visible"]) for r in ranks] == [(0, 0, 2, 0, "0"),
+                                               (1, 1, 2, 0, "0")], out
+    return out
+
+
+def launch_failing_child(smi, tmp):
+    """A child that exits 3 takes its sibling (asleep for 300 s) down:
+    the launch exits non-zero within ``LAUNCH_KILL_S`` of the failure."""
+    script = os.path.join(tmp, "failing.py")
+    with open(script, "w") as f:
+        f.write(FAILING_CHILD_SCRIPT)
+    stamp = os.path.join(tmp, "failed_at")
+    res, wall = run_command(deepspeed_cmd(
+        "--num_gpus", "1", "--procs_per_node", "2", script, stamp), 120)
+    t_end = time.time()
+    with open(stamp) as f:
+        after = t_end - float(f.read())
+    out = {"returncode": res.returncode, "s_from_failure_to_exit": after,
+           "limit_s": LAUNCH_KILL_S, "launch_wall_s": wall, "card": smi}
+    emit({"launch_failing_child": out})
+    assert res.returncode != 0 and after <= LAUNCH_KILL_S, out
+    return out
+
+
+def launch_ds_report(smi):
+    """``bin/ds_report_torch`` names the card and shows every kernel
+    source's library built, loadable and current."""
+    res, wall = run_command([sys.executable, os.path.join(
+        REPO, "bin", "ds_report_torch")], 300)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    text = re.sub(r"\x1b\[[0-9;]*m", "", res.stdout)
+    rows = {p.name: ln.split()[1:] for p in [*op_builder.sources(),
+                                              op_builder.CSRC_DIR /
+                                              "cpu_adam.cpp"]
+            for ln in text.splitlines() if ln.startswith(p.name + " ")}
+    out = {"names_card": smi.split(",")[0] in text, "rows": rows,
+           "report": text.splitlines(), "wall_s": wall, "card": smi}
+    emit({"launch_ds_report": out})
+    assert out["names_card"], out
+    assert len(rows) == len(op_builder.sources()) + 1 and all(
+        v == ["[OKAY]"] * 3 for v in rows.values()), out
+    return out
+
+
+def launch_crashkill(smi, tmp):
+    """``tools/crashkill_torch.py run --quick`` on the card: SIGTERM and
+    SIGKILL kills, a loadable latest after each, the resumed run
+    bit-identical to an uninterrupted one."""
+    res, wall = run_command([sys.executable, os.path.join(
+        REPO, "tools", "crashkill_torch.py"), "run", "--quick",
+        "--workdir", os.path.join(tmp, "crashkill")], 900)
+    out = {"returncode": res.returncode, "log": res.stdout.splitlines(),
+           "wall_s": wall, "card": smi}
+    emit({"launch_crashkill": out})
+    assert res.returncode == 0 and "BIT-IDENTICAL" in res.stdout, \
+        res.stdout[-4000:] + res.stderr[-4000:]
+    return out
+
+
+def launch_phase(smi):
+    """The port's front door, each part in its own processes from the
+    checkout's root: the gpt2 trainer through ``bin/deepspeed_torch``,
+    two gloo ranks through the launcher, a failing child, ``ds_report``
+    and the crash-kill harness. Returns the trainer's launch counts (the
+    path ``launch_gpt2_small``)."""
+    free_card()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        counts, gpt2 = launch_gpt2(smi)
+        launch_two_ranks(smi, tmp)
+        launch_failing_child(smi, tmp)
+        launch_ds_report(smi)
+        launch_crashkill(smi, tmp)
+    emit({"launch_phase": {"wall_s": time.perf_counter() - t0,
+                           "card": smi}})
+    return {"launch_gpt2_small": counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5359,6 +5889,11 @@ def main():
                          "fp32_flops_per_s": FP32_FLOPS_PER_S}})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The tile resolver's registry, fresh for this run (children too):
+    # one left by an earlier run would change what this run times.
+    reg_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["DS_AUTOTUNE_REGISTRY"] = os.path.join(reg_dir.name,
+                                                      "autotune.json")
 
     t_start = t0 = time.perf_counter()
     log = io.StringIO()
@@ -5382,6 +5917,7 @@ def main():
     sq_shard, adam_shard = check_fused_adam_sharded(
         dev, gen, gpt2_leaf_sizes(GPT2_CONFIGS["gpt2-small"]))
     flash = check_flash(dev, gen)
+    autotune_phase(dev, smi)
     sparse = check_sparse(dev, gen)
     grouped = check_grouped_gemm(dev, gen)
     torch.cuda.synchronize()
@@ -5414,6 +5950,8 @@ def main():
     counts.update(train_zero(dev, smi))
     offload_counts, host_counts = train_offload(dev, smi, host_adam)
     counts.update(offload_counts)
+    counts.update(launch_phase(smi))
+    reg_dir.cleanup()
 
     def summary(name, source, replaces, wrappers, rec, recs):
         by_path = {path: sum(c[w] for w in wrappers)
@@ -5476,7 +6014,7 @@ def main():
         kernels.append(summary(wrapper, fl_src,
                                ref + f"flash_attention.py:{line}",
                                (wrapper,), main_rec, recs))
-    # Sparse rows: the path's record (JAX-picked super-tile, dropout 0.1).
+    # Sparse rows: the path's record (its super-tile, dropout 0.1).
     for wrapper, line in (("sparse_flash_fwd", 114),
                           ("sparse_flash_bwd_dq", 171),
                           ("sparse_flash_bwd_dkv", 294),

@@ -25,11 +25,29 @@ module of ``deepspeed_tpu``. Entry points run on ``torch.device("cuda")``
 unless the caller passes another device (the CPU tests pass ``"cpu"``,
 where every kernel wrapper takes its plain PyTorch version).
 """
+import importlib
+
 from .version import __version__
-from .parallel.comm import init_distributed
-from .runtime.config import DeepSpeedConfig
-from .runtime import lr_schedules
 from .utils.logging import logger, log_dist
+
+# Names whose modules import torch load at first use, so that the
+# launcher's own processes (``launcher/runner.py``, ``launcher/launch.py``)
+# start without importing torch: name -> (module, attribute or None).
+_LAZY = {"init_distributed": (".parallel.comm", "init_distributed"),
+         "DeepSpeedConfig": (".runtime.config", "DeepSpeedConfig"),
+         "lr_schedules": (".runtime.lr_schedules", None)}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    module, attr = _LAZY[name]
+    value = importlib.import_module(module, __name__)
+    if attr is not None:
+        value = getattr(value, attr)
+    globals()[name] = value
+    return value
 
 
 def initialize(args=None, model=None, optimizer=None, model_params=None,

@@ -12,7 +12,8 @@ bound and design.
   ``grouped_matmul_plain``, the same arithmetic in PyTorch. bf16/fp16
   take the TMA + wgmma kernel: ``_gg_plan`` reads which dimension of
   each operand has stride 1 (so the backward's transposed views need no
-  copy) and picks the tile; an operand TMA cannot describe (no unit
+  copy) and picks the tile (BN through ``ops/autotune.resolve``, with
+  ``_gg_tile`` as its heuristic); an operand TMA cannot describe (no unit
   stride, an unaligned base, a stride not a multiple of 16 bytes) is
   copied into a contiguous buffer first, counted in
   ``grouped_matmul.staged``. fp32 takes a SIMT kernel that reads any
@@ -42,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import autotune
 from . import op_builder
 from . import costs
 from .fused_elementwise import gelu_f32
@@ -136,6 +138,7 @@ def _tma_ok(t: torch.Tensor, fast: int) -> bool:
                for d in range(3) if d != fast)
 
 
+@functools.lru_cache(maxsize=None)
 def _gg_tile(E: int, M: int, N: int, act: Optional[str] = None,
              sms: int = H100_SMS) -> int:
     """BN of the wgmma tile for an [E, M, N] output. With an activation,
@@ -159,13 +162,42 @@ def _gg_tile(E: int, M: int, N: int, act: Optional[str] = None,
     return 256 if useful(256) >= useful(128) else 128
 
 
+def _gg_resolve(a: torch.Tensor, b: torch.Tensor,
+                bias: Optional[torch.Tensor], act: Optional[str],
+                a_major: str, b_major: str, sms: int) -> int:
+    """BN through the tile resolver: the candidates ``GG_TILES`` (every
+    one gives the same bits), ``_gg_tile`` the heuristic, the key the
+    output's dims, the activation and the operands' majors. On the card
+    a search times ``grouped_matmul`` at each BN on zeros laid out as
+    ``a``, ``b`` and ``bias``."""
+    E, M, K = a.shape
+    N = b.shape[2]
+    measure = None
+    if a.device.type == "cuda" and autotune.search_allowed():
+        zeros = []
+
+        def runner(bn):
+            if not zeros:
+                zeros.extend([torch.zeros_like(a), torch.zeros_like(b),
+                              None if bias is None
+                              else torch.zeros_like(bias)])
+            return grouped_matmul(*zeros, act, _tile=bn)
+        measure = autotune.measure_from_runner(runner)
+    return autotune.resolve(
+        "grouped_gemm", (E, M, K, N, _ACT_CODES[act], int(a_major == "M"),
+                         int(b_major == "K")), a.dtype,
+        _gg_tile(E, M, N, act, sms), GG_TILES, measure)
+
+
 def _gg_plan(a: torch.Tensor, b: torch.Tensor, act: Optional[str] = None,
-             sms: int = H100_SMS) -> GGPlan:
+             sms: int = H100_SMS, bias: Optional[torch.Tensor] = None,
+             tile: Optional[int] = None) -> GGPlan:
     """The route, majors, tile and staged operands of ``grouped_matmul(a,
-    b, act=act)`` on a CUDA device; reads shapes, strides, dtypes and
-    base addresses only (meta or CPU tensors answer too). A K-major
-    ``a`` and an N-major ``b`` are taken where both majors are
-    possible."""
+    b, bias, act)`` on a CUDA device; reads shapes, strides, dtypes and
+    base addresses only (meta or CPU tensors answer too, where the tile
+    is the resolver's without a search). A K-major ``a`` and an N-major
+    ``b`` are taken where both majors are possible. ``tile`` pins BN
+    (no resolve)."""
     E, M, K = a.shape
     N = b.shape[2]
     if a.dtype == torch.float32:
@@ -188,8 +220,9 @@ def _gg_plan(a: torch.Tensor, b: torch.Tensor, act: Optional[str] = None,
     else:
         b_major = "N"
         staged.append("b")
-    return GGPlan("wgmma", a_major, b_major,
-                  (GG_BM, _gg_tile(E, M, N, act, sms)), tuple(staged))
+    if tile is None:
+        tile = _gg_resolve(a, b, bias, act, a_major, b_major, sms)
+    return GGPlan("wgmma", a_major, b_major, (GG_BM, tile), tuple(staged))
 
 
 def _stage(t: torch.Tensor) -> torch.Tensor:
@@ -219,9 +252,10 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
     ``a`` [E, M, K] and ``b`` [E, K, N] of one dtype (fp32, bf16 or
     fp16), any strides; ``bias`` [E, N] (read as fp32) or None; ``act``
     None, "gelu_tanh" or "gelu_exact". The output is contiguous, in
-    ``a.dtype``. ``_tile`` (bf16/fp16 on the card: 128 or 256) overrides
-    the plan's BN, for tests and probes (as the JAX ``_grouped_matmul``'s
-    ``_tile``); the bits do not depend on it."""
+    ``a.dtype``. ``_tile`` (bf16/fp16 on the card: 128 or 256) pins BN
+    past the resolver, for tests, probes and the resolver's own search
+    (as the JAX ``_grouped_matmul``'s ``_tile``); the bits do not depend
+    on it."""
     if a.device.type == "cpu":
         return grouped_matmul_plain(a, b, bias, act)
     _check_shapes(a, b, bias, act)
@@ -254,7 +288,7 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
     else:
         plan = _gg_plan(a, b, act, _sm_count(
             dev.index if dev.index is not None
-            else torch.cuda.current_device()))
+            else torch.cuda.current_device()), bias, _tile)
         if "a" in plan.staged:
             a = _stage(a)
         if "b" in plan.staged:
@@ -264,8 +298,7 @@ def grouped_matmul(a: torch.Tensor, b: torch.Tensor,
             a.data_ptr(), a.stride(0), a.stride(2 if a_mn else 1), int(a_mn),
             b.data_ptr(), b.stride(0), b.stride(2 if b_k else 1), int(b_k),
             bias_ptr, out.data_ptr(), E, M, K, N, _ACT_CODES[act],
-            _DTYPE_CODES[a.dtype], plan.tile[1] if _tile is None else _tile,
-            stream)
+            _DTYPE_CODES[a.dtype], plan.tile[1], stream)
     op_builder.check(rc, "grouped_matmul")
     grouped_matmul.launches += 1
     return out

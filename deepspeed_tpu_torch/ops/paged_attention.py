@@ -193,7 +193,8 @@ def _check_args(q, pool_k, pool_v, block_tables, positions) -> None:
 @costs.declares("K10", costs.paged_attention_decl)
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, block_tables: torch.Tensor,
-                    positions: torch.Tensor, scale: float) -> torch.Tensor:
+                    positions: torch.Tensor, scale: float,
+                    _splits: Optional[int] = None) -> torch.Tensor:
     """Table-driven paged attention over one layer's block pool.
 
     q:            [G, Q, K, nH, D] — Q streams per group, K query rows per
@@ -201,6 +202,11 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     pool_k/v:     [G, B, nH, bs, D].
     block_tables: [G, Q, J] int32 group-local block ids (< 0 = dead).
     positions:    [G, Q, K] int32 inclusive last attendable position.
+
+    ``_splits`` pins the split count (1 to the table width) in place of
+    ``paged_splits``, for tests and probes. The split count is not a tile
+    of the resolver (``ops/autotune.py``): the merge adds the splits'
+    partials in another order at each count, so the bits depend on it.
 
     Returns [G, Q, K, nH, D] in q's dtype."""
     if q.device.type == "cpu":
@@ -211,7 +217,10 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     B, bs = pool_k.shape[1], pool_k.shape[3]
     J = block_tables.shape[-1]
     out = torch.empty_like(q)
-    nsplit = paged_splits(G * Q, nH, J, K)
+    nsplit = paged_splits(G * Q, nH, J, K) if _splits is None else _splits
+    if not 1 <= nsplit <= J:
+        raise ValueError(f"paged_attention: _splits must be in [1, {J}], "
+                         f"got {nsplit}")
     # Partials of the splits: m and l per (split, stream, head, row), then
     # the fp32 accumulator rows.
     ws = None if nsplit == 1 else torch.empty(

@@ -11,9 +11,10 @@ are CUDA C++ in ``csrc/sparse_flash.cu``, replacing the Pallas
 q row); the note at the top of that file gives their bound and design.
 They read the LUTs in row-offset (CSR) form and walk the live blocks at
 their own tile (64 rows, 32 in fp32), so every legal (qwiden, widen)
-computes the same function; the super-tile pick (``pick_tile``, a cost
-model fitted to the TPU) is kept for the API and the JAX package's
-``DS_SPARSE_WIDEN`` / ``DS_SPARSE_QWIDEN`` overrides.
+computes the same function; the super-tile (``resolve_tile``) goes
+through the tile resolver (``ops/autotune.py``) with the JAX package's
+``pick_tile`` cost model as its heuristic, and the JAX package's
+``DS_SPARSE_WIDEN`` / ``DS_SPARSE_QWIDEN`` overrides pin it.
 
 Layouts as in ``ops/flash_attention.py``: q, k, v ``[B, S, nH, D]``
 (read through strides), o and the gradients contiguous, lse and delta
@@ -36,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from . import autotune
 from . import op_builder
 from . import costs
 from .flash_attention import (_TILE, _check, _common, flash_bwd_plain,
@@ -405,20 +407,28 @@ class _SparseFlash(torch.autograd.Function):
 
 
 def resolve_tile(layout: np.ndarray, block: int, widen: int = 0,
-                 qwiden: int = 0) -> Tuple[int, int]:
+                 qwiden: int = 0, q: Optional[torch.Tensor] = None,
+                 causal: bool = False) -> Tuple[int, int]:
     """(qwiden, widen) as the JAX ``sparse_flash_attention`` resolves
-    them: 0 = auto (``DS_SPARSE_WIDEN`` / ``DS_SPARSE_QWIDEN``, else
-    ``pick_tile`` at the layout's block; the JAX package's on-chip
-    autotune is not ported); pinning one factor leaves the other at 1; a
-    factor that does not divide the layout or passes the 31-bit mask
-    falls back to 1 with a warning."""
+    them: 0 = auto (``DS_SPARSE_WIDEN`` / ``DS_SPARSE_QWIDEN``, else the
+    tile resolver over JAX's grid, ``qwiden`` in {1, 2} by ``widen`` in
+    {1, 2, 4, 8}, divisors of the layout only, product at most 31, with
+    ``pick_tile`` at the layout's block as the heuristic; keyed by ``q``'s
+    ``[B, S, nH, D]`` and dtype, the layout's shape and live blocks and
+    ``causal``; without ``q``, ``pick_tile``); pinning one factor leaves
+    the other at 1; a factor that does not divide the layout or passes
+    the 31-bit mask falls back to 1 with a warning. On the card the
+    search times the forward (K7) on zeros; the backward kernels take
+    the forward's tile."""
     lay = np.asarray(layout)
     if widen == 0:
         widen = int(os.environ.get("DS_SPARSE_WIDEN", "0"))
     if qwiden == 0:
         qwiden = int(os.environ.get("DS_SPARSE_QWIDEN", "0"))
     if widen == 0 and qwiden == 0:
-        qwiden, widen = pick_tile(lay, block=block)
+        heur = pick_tile(lay, block=block)
+        qwiden, widen = heur if q is None else \
+            _resolve_auto(lay != 0, heur, q, causal)
     widen = widen or 1
     qwiden = qwiden or 1
     req = (qwiden, widen)
@@ -433,6 +443,29 @@ def resolve_tile(layout: np.ndarray, block: int, widen: int = 0,
             f"{req[1]} does not fit this layout (divisibility or the "
             f"31-bit mask cap); running q{qwiden}xk{widen}")
     return qwiden, widen
+
+
+def _resolve_auto(lay: np.ndarray, heur: Tuple[int, int], q: torch.Tensor,
+                  causal: bool) -> Tuple[int, int]:
+    nH, nQ, nK = lay.shape
+    B, S, _, D = q.shape
+    cands = [(qw, kw) for qw in (1, 2) for kw in (1, 2, 4, 8)
+             if nQ % qw == 0 and nK % kw == 0 and qw * kw <= 31]
+    measure = None
+    if q.device.type == "cuda" and autotune.search_allowed():
+        zeros = []
+
+        def runner(tile):
+            if not zeros:
+                zeros.append(torch.zeros(q.shape, dtype=q.dtype,
+                                         device=q.device))
+            z = zeros[0]
+            return sparse_flash_fwd(z, z, z, lay, causal, D ** -0.5,
+                                    widen=tile[1], qwiden=tile[0])
+        measure = autotune.measure_from_runner(runner)
+    return autotune.resolve(
+        "sparse_flash", (B * nH, S, D, nH, nQ, nK, int(lay.sum()),
+                         int(causal)), q.dtype, heur, cands, measure)
 
 
 def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -450,7 +483,8 @@ def sparse_flash_attention(q: torch.Tensor, k: torch.Tensor,
     if k.shape[1] != S or lay.shape[1] != lay.shape[2]:
         raise ValueError("sparse_flash_attention: self-attention with "
                          "square layout blocks only")
-    qwiden, widen = resolve_tile(lay, S // lay.shape[2], widen, qwiden)
+    qwiden, widen = resolve_tile(lay, S // lay.shape[2], widen, qwiden,
+                                 q=q, causal=causal)
     if q.device.type == "cpu":
         if build_flat_luts(lay, widen, qwiden) is None:
             raise ValueError("layout has an empty q-block row or k-block "

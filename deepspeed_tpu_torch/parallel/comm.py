@@ -11,10 +11,15 @@ Backend. NCCL for CUDA tensors, gloo for CPU tensors, unless the caller
 names one (the CPU tests run N gloo processes). Rendezvous: the caller's
 ``init_method`` (``tcp://host:port``, ``file:///path``), else the
 launcher's environment (``MASTER_ADDR``/``MASTER_PORT``, ``RANK``,
-``WORLD_SIZE``), as ``torch.distributed`` reads it.
+``WORLD_SIZE``), as ``torch.distributed`` reads it. The card: the
+launcher (``launcher/launch.py``) starts one process per card slot with
+every slot of the node visible, so a process with ``LOCAL_RANK`` takes
+``cuda:LOCAL_RANK % device_count`` as its device before the group comes
+up (ranks beyond the cards share them, as two gloo ranks share one card
+in the tests on the card).
 
-Not ported here (ROADMAP queue 1 item 8): the ``shard_map`` shim, the
-all-to-all and the sparse (CSR) all-reduce.
+Not ported here: the ``shard_map`` shim and the all-to-all (ROADMAP
+queue 1 item 7). The sparse (CSR) exchange is ``runtime/csr_tensor.py``.
 """
 from __future__ import annotations
 
@@ -37,16 +42,25 @@ def init_distributed(dist_backend: Optional[str] = None,
                      world_size: Optional[int] = None,
                      rank: Optional[int] = None,
                      store: Optional["dist.Store"] = None,
-                     verbose: bool = True) -> None:
+                     verbose: bool = True,
+                     distributed_port: Optional[int] = None) -> None:
     """Bring up the default process group (no-op when one is up).
 
     ``world_size``/``rank`` default to ``WORLD_SIZE``/``RANK`` in the
     environment (1 and 0 without them); ``init_method`` to
     ``env://`` when ``MASTER_ADDR`` is set, else an in-process store
     for a world of one. ``store`` (a ``torch.distributed``
-    store, e.g. a ``FileStore``) replaces ``init_method``."""
+    store, e.g. a ``FileStore``) replaces ``init_method``.
+    ``distributed_port`` is ``MASTER_PORT`` where ``MASTER_ADDR`` is set
+    and ``MASTER_PORT`` is not (the reference's keyword). With a card and
+    ``LOCAL_RANK`` set, the process's device becomes ``cuda:LOCAL_RANK %
+    device_count`` first."""
     if is_initialized():
         return
+    set_local_device()
+    if distributed_port is not None and "MASTER_ADDR" in os.environ and \
+            "MASTER_PORT" not in os.environ:
+        os.environ["MASTER_PORT"] = str(int(distributed_port))
     world = int(world_size if world_size is not None
                 else os.environ.get("WORLD_SIZE", "1"))
     rk = int(rank if rank is not None else os.environ.get("RANK", "0"))
@@ -69,6 +83,18 @@ def init_distributed(dist_backend: Optional[str] = None,
         logger.info(f"Initializing torch.distributed: backend={backend} "
                     f"world_size={world} rank={rk}")
     dist.init_process_group(**kw)
+
+
+def set_local_device() -> Optional[int]:
+    """With a card and ``LOCAL_RANK`` in the environment, make
+    ``cuda:LOCAL_RANK % device_count`` this process's device and return
+    its index; None otherwise."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is None or not torch.cuda.is_available():
+        return None
+    index = int(local) % torch.cuda.device_count()
+    torch.cuda.set_device(index)
+    return index
 
 
 def is_initialized() -> bool:
@@ -133,7 +159,7 @@ def barrier() -> None:
         dist.barrier()
 
 
-__all__ = ["init_distributed", "is_initialized", "get_world_size",
-           "get_rank", "all_reduce", "reduce_scatter",
+__all__ = ["init_distributed", "set_local_device", "is_initialized",
+           "get_world_size", "get_rank", "all_reduce", "reduce_scatter",
            "all_gather", "gather", "broadcast", "barrier",
            "default_backend"]

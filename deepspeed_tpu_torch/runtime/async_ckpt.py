@@ -433,6 +433,8 @@ class PreemptSaver:
         self._installed = False
         self._prev: Dict[int, Any] = {}
         self._chain_prev: Dict[int, Any] = {}
+        # (signum, frame) of a SIGTERM that arrived inside a step
+        self._held: Optional[Tuple[int, Any]] = None
 
     def install(self) -> None:
         if self._installed:
@@ -469,10 +471,29 @@ class PreemptSaver:
                 self._chain_prev.get(int(signum), signal.SIG_DFL),
                 signum, frame, self._on_signal)
             return
+        eng = self._ref()
+        if eng is not None and eng._in_step:
+            # Inside a step the state is part old, part new: handled at
+            # the step's end (fire_held), where global_steps names it.
+            self._held = (signum, frame)
+            return
+        self._fire(signum, frame, save=True)
+
+    def fire_held(self, save: bool = True) -> None:
+        """Handle a SIGTERM held during a step (the engine calls this at
+        the step's end; ``save=False`` after a step that raised, whose
+        state is not one step's)."""
+        if self._held is not None:
+            signum, frame = self._held
+            self._held = None
+            self._fire(signum, frame, save=save)
+
+    def _fire(self, signum, frame, save: bool) -> None:
+        from ..monitor.flight import dispatch_prev_handler
         self.fired = True
         prev = self._prev.get(int(signum), signal.SIG_DFL)
         eng = self._ref()
-        if eng is not None:
+        if eng is not None and save:
             try:
                 eng.preempt_save(reason="SIGTERM")
             except Exception as e:

@@ -694,6 +694,11 @@ class DeepSpeedEngine:
         self._last_saved_step = -1
         self._async_ckpt = None
         self._preempt_saver = None
+        # True while a step changes the state (train_batch's step, the
+        # trio's step()): a SIGTERM then waits for the step's end
+        # (``_state_changing``), or the preemption save would commit the
+        # new params under the old step's tag.
+        self._in_step = False
         if ckcfg.async_save:
             self._async_ckpt = AsyncCheckpointer(
                 telemetry=self.telemetry,
@@ -1087,14 +1092,32 @@ class DeepSpeedEngine:
             tl.add_span("data_prep", t_wall0, time.perf_counter() - t_wall0)
         self.tput_timer.start()
         t_dispatch = time.perf_counter()
-        if self.flops_profiler is not None and self.global_steps == \
-                self.config.flops_profiler_config.profile_step:
-            metrics = self._run_flops_profiler(micro_batches)
-        else:
-            metrics = self._step_fn(self, micro_batches, self.global_steps)
-        self.micro_steps += self.gradient_accumulation_steps()
-        self._finish_step(metrics, t_wall0, t_dispatch)
+        with self._state_changing():
+            if self.flops_profiler is not None and self.global_steps == \
+                    self.config.flops_profiler_config.profile_step:
+                metrics = self._run_flops_profiler(micro_batches)
+            else:
+                metrics = self._step_fn(self, micro_batches,
+                                        self.global_steps)
+            self.micro_steps += self.gradient_accumulation_steps()
+            self._finish_step(metrics, t_wall0, t_dispatch)
         return metrics["loss"]
+
+    @contextlib.contextmanager
+    def _state_changing(self):
+        """A step that changes the state: a SIGTERM arriving inside it is
+        held by the preemption saver and handled at its end, once
+        ``global_steps`` names the state (after a step that raised: the
+        signal without the save)."""
+        self._in_step = True
+        ok = False
+        try:
+            yield
+            ok = True
+        finally:
+            self._in_step = False
+            if self._preempt_saver is not None:
+                self._preempt_saver.fire_held(save=ok)
 
     def _run_flops_profiler(self, micro_batches: List[Any]
                             ) -> Dict[str, torch.Tensor]:
@@ -1732,9 +1755,10 @@ class DeepSpeedEngine:
         t_apply = time.perf_counter()
         t0 = self._trio_t0 if self._trio_t0 is not None else t_apply
         self._trio_t0 = None
-        with self.telemetry.span("optimizer_apply"):
-            metrics = self._apply_grads_fn(self, win)
-        self._finish_step(metrics, t0, t_apply)
+        with self._state_changing():
+            with self.telemetry.span("optimizer_apply"):
+                metrics = self._apply_grads_fn(self, win)
+            self._finish_step(metrics, t0, t_apply)
 
     def _refuse_trio_onebit(self) -> None:
         if self._onebit:

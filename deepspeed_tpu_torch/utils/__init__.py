@@ -1,4 +1,1 @@
-from .device import resolve_device
 from .logging import logger, log_dist
-
-__all__ = ["resolve_device", "logger", "log_dist"]

@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
             "deepspeed_tpu_torch.module_inject, "
             "deepspeed_tpu_torch.monitor.request_trace, "
             "deepspeed_tpu_torch.ops.sparse_attention."
-            "sparse_attention_utils\n"
+            "sparse_attention_utils, deepspeed_tpu_torch.ops.autotune, "
+            "deepspeed_tpu_torch.launcher.launch, "
+            "deepspeed_tpu_torch.launcher.multinode_runner, "
+            "deepspeed_tpu_torch.env_report\n"
             "sys.path.insert(0, 'tests'); import torch_dp_worker\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -54,13 +57,19 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_module_imports_jax():
-    """No module of the package, not chip_smoke.py and not the dp
-    tests' worker imports JAX, the JAX package or ``transformers``
-    (the card's machine has none: ``module_inject`` takes configs by
-    attribute and weights as tensors)."""
+    """No module of the package, not chip_smoke.py, not the dp tests'
+    worker, and not the port's example trainers, crash-kill harness or
+    ``bin/*_torch`` entry points imports JAX, the JAX package or
+    ``transformers`` (the card's machine has none: ``module_inject``
+    takes configs by attribute and weights as tensors)."""
     offenders = []
+    front_door = [*REPO.glob("examples/*/train_torch.py"),
+                  REPO / "examples" / "torch_example_common.py",
+                  REPO / "tools" / "crashkill_torch.py",
+                  *REPO.glob("bin/*_torch")]
+    assert len(front_door) == 9, front_door
     for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
-                 REPO / "tests" / "torch_dp_worker.py"]:
+                 REPO / "tests" / "torch_dp_worker.py", *front_door]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
