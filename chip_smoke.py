@@ -377,6 +377,7 @@ from deepspeed_tpu_torch.ops import fused_update as fu
 from deepspeed_tpu_torch.ops import grouped_gemm as gg
 from deepspeed_tpu_torch.ops import onebit as ob
 from deepspeed_tpu_torch.ops import optimizers as topt
+from deepspeed_tpu_torch.monitor import profile_ingest
 from deepspeed_tpu_torch.ops import op_builder
 from deepspeed_tpu_torch.ops import paged_attention as pa
 from deepspeed_tpu_torch.ops import sparse_flash as sf
@@ -2724,27 +2725,186 @@ TELEMETRY_PROFILE_STEP = 5
 # the third report boundaries (global steps 21-29, batch indices 20-28).
 TELEMETRY_SYNC_STEPS = range(20, 29)
 TELEMETRY_OVERHEAD = 1.10
+# The telemetry.profile window: global steps 12 and 13 (batch indices 12
+# and 13; the stop and the export at the start of index 14); ingested
+# at the boundary after it (index 19).
+TELEMETRY_WINDOW = (12, 2)
+# The window's trace against its own measures: the decomposition's
+# buckets + idle within 5% of the window's wall (tools/
+# profile_check.py's), and its busy time a step within 10% of
+# profile_train_steps' on the same recipe.
+WINDOW_SUM_TOL = 0.05
+WINDOW_BUSY_RTOL = 0.10
+# The main path's kernels in a device trace: each call of a wrapper
+# launches its entry once (the column-sum kernels of K3b/K4b ride along).
+TRACE_ENTRIES = {
+    "K1": ("flash_fwd_kernel", ("flash_attention_fwd",)),
+    "K2c": ("flash_bwd_fused_kernel", ("flash_attention_bwd_fused",)),
+    "K3f": ("ln_fwd_kernel", ("fused_layer_norm",
+                              "fused_residual_layer_norm")),
+    "K3b": ("ln_bwd_kernel", ("layer_norm_backward",)),
+    "K4f": ("bias_gelu_kernel", ("fused_bias_gelu",)),
+    "K4b": ("bias_gelu_bwd_kernel", ("bias_gelu_backward",)),
+    "K5": ("sqnorm_kernel", ("sqnorm",)),
+    "K6": ("fused_adam_kernel", ("fused_adam_apply",)),
+}
+
+
+def trace_kernel_counts(capture_dir):
+    """Launches of each port kernel entry in a window's trace (the
+    stream events of ``cat`` kernel, by the entry's name), and each
+    entry's family as the ingest files it."""
+    path = profile_ingest.find_trace_files(capture_dir)[0]
+    names = [str(e.get("name", "")) for e in
+             profile_ingest.load_trace_events(path)
+             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    counts, families = {}, {}
+    for fam, entries in profile_ingest.CUDA_KERNEL_NAMES.items():
+        for entry in entries:
+            hits = [n for n in names if re.search(rf"\b{entry}\b", n)]
+            if hits:
+                counts[entry] = len(hits)
+                families[entry] = sorted({
+                    str(profile_ingest.classify_op(n)) for n in hits})
+                assert families[entry] == [str(("pallas", fam))], \
+                    (entry, families[entry])
+    return counts, len(names), os.path.getsize(path)
+
+
+def window_view(ev):
+    """The ``profile`` event's decomposition as the smoke prints it."""
+    d = ev["decomposition"]
+    r = ev.get("reconciliation") or {}
+    return {"per_step_ms": d.get("per_step_ms"),
+            "per_step_wall_ms": d.get("per_step_wall_ms"),
+            "pallas_families_ms": d.get("pallas_families_ms"),
+            "top_ops": [[o["bucket"], o["op"][:90], o["total_ms"]]
+                        for o in d.get("top_ops", [])],
+            "sum_check": d.get("sum_check"),
+            "n_device_ops": d.get("n_device_ops"),
+            "n_device_lanes": d.get("n_device_lanes"),
+            "bucket_op_counts": d.get("bucket_op_counts"),
+            "verdict": r.get("verdict"),
+            "dominant_bucket": r.get("dominant_bucket"),
+            "predicted_bound": r.get("predicted_bound"),
+            "path_verdicts": {k: v.get("verdict")
+                              for k, v in (r.get("paths") or {}).items()},
+            "components": r.get("components"),
+            "error": d.get("error") or ev.get("error")}
+
+
+def train_window_checks(prof_ev, windows, cm, summary_path, counts, yard,
+                        step_syncs, smi):
+    """What ``train_telemetry``'s capture window saw, beside the path's
+    launches a step, ``profile_train_steps``' busy time (``yard``) and
+    the twin's host syncs a step; emitted on a line of its own."""
+    rec = {"window": list(TELEMETRY_WINDOW),
+           "windows": [{k: w.get(k) for k in (
+               "phase", "ok", "reason", "start_step", "stop_step",
+               "armed_at_step") if k in w} for w in windows],
+           "profile_events": len(prof_ev),
+           "cost_model_paths": sorted((cm or {}).get("paths") or {}),
+           "card": smi}
+    if prof_ev:
+        ev = prof_ev[0]
+        rec.update(window_view(ev))
+        d = ev["decomposition"]
+        if not d.get("error"):
+            per = d["per_step_ms"]
+            busy = sum(v for k, v in per.items() if k != "idle")
+            ref = yard["device_busy_ms_per_step"]
+            rec.update({
+                "busy_ms_per_step": busy,
+                "profile_train_steps_busy_ms_per_step": ref,
+                "profile_train_steps_wall_ms_per_step":
+                yard["wall_ms_per_step_profiled"],
+                "busy_rel": abs(busy - ref) / ref,
+                "idle_share": per["idle"] / d["per_step_wall_ms"]})
+            kc, n_kernels, nbytes = trace_kernel_counts(ev["window"]["path"])
+            n = TELEMETRY_WINDOW[1]
+            rec.update({
+                "trace_kernel_launches": kc, "trace_kernels": n_kernels,
+                "trace_bytes": nbytes,
+                "kernel_check": {kid: {
+                    "entry": e, "trace": kc.get(e, 0),
+                    "expect": n * sum(counts[w] for w in ws)
+                    // TELEMETRY_STEPS} for kid, (e, ws)
+                    in TRACE_ENTRIES.items()}})
+    summary = {}
+    if os.path.exists(summary_path):
+        with open(summary_path) as f:
+            summary = json.load(f)
+    prof = summary.get("profile") or {}
+    rec["report_profile"] = {k: prof.get(k) for k in (
+        "available", "steps", "per_step_wall_ms", "n_device_ops")}
+    boundary = {i for i in range(TELEMETRY_STEPS)
+                if (i + 1) % TELEMETRY_REPORT == 0}
+    window = set(range(TELEMETRY_WINDOW[0], sum(TELEMETRY_WINDOW) + 1))
+    compared = [i for i in range(TELEMETRY_STEPS)
+                if i not in boundary | window]
+    rec["host_syncs_per_step"] = step_syncs
+    rec["sync_steps_compared"] = compared
+    rec["sync_steps_differing"] = [
+        i for i in compared if step_syncs["on"][i] != step_syncs["off"][i]]
+    emit({"train_profile_window": rec})
+    return rec
+
+
+def window_asserts(w):
+    assert w["profile_events"] == 1 and not w.get("error"), w
+    assert [x["phase"] for x in w["windows"]] == ["start", "stop"] and \
+        all(x["ok"] for x in w["windows"]), w["windows"]
+    assert w["n_device_lanes"] >= 1, w
+    for kid, k in w["kernel_check"].items():
+        assert k["trace"] == k["expect"] > 0, (kid, k)
+    assert w["per_step_ms"]["gemm"] > 0, w["per_step_ms"]
+    assert abs(w["sum_check"]["explained_frac"] - 1.0) <= WINDOW_SUM_TOL, \
+        w["sum_check"]
+    assert w["cost_model_paths"] and \
+        set(w["cost_model_paths"]) <= set(w["path_verdicts"]) and \
+        all(v in ("match", "mismatch", "indeterminate", "unavailable")
+            for v in w["path_verdicts"].values()), w["path_verdicts"]
+    assert w["busy_rel"] <= WINDOW_BUSY_RTOL, w["busy_rel"]
+    assert not w["sync_steps_differing"], w["host_syncs_per_step"]
+    assert w["report_profile"]["available"] is True, w["report_profile"]
 
 
 def train_telemetry(dev, smi, out_dir):
     """The main training recipe at gpt2-small (bf16, fp32 masters,
     AdamW, clip 1.0, gas 2 x 8 x 1024, dropout 0.1) on two engines from
-    seed 0, interleaved a step at a time over the Markov stream: one
+    seed 0, interleaved a step at a time over the Markov stream (the
+    twin's window steps ahead of the window, which records the whole
+    process): one
     with ``telemetry`` on (report_steps 10, a trace, the health taps, the
     cost model) and ``flops_profiler`` at step 5, one with neither.
     Fails unless the losses are bit-equal, the host syncs a step between
     boundaries are equal (and 0), the stream holds its meta, 30 steps, 3
     reports, its cost model and its final record with nothing dropped and
     no recompile, ``tools/telemetry_report.py`` reads it, and the
-    telemetry-on step p50 is within 1.10 x the telemetry-off one. The
-    path's launch counts are the telemetry-on engine's steps'."""
+    telemetry-on step p50 is within 1.10 x the telemetry-off one (the
+    steps outside the capture window). The path's launch counts are the
+    telemetry-on engine's steps'.
+
+    The telemetry-on engine also arms a ``telemetry.profile`` window
+    (``TELEMETRY_WINDOW``: a torch.profiler capture of 2 steps), which
+    fails the phase unless it stops cleanly, its ``profile`` event is in
+    the stream with a device lane, K1, K2c, K3f, K3b, K4f, K4b, K5 and
+    K6 in the trace at 2 x their launches a step under their families,
+    GEMMs seen, buckets + idle within 5% of the window's wall, a verdict
+    for every cost-model path, its busy time a step within 10% of
+    ``profile_train_steps`` on the telemetry-off engine, and the host
+    syncs of every step outside the window (and its stop) and the report
+    boundaries (whose drains read the card by design) equal to the
+    twin's; the report tool's ``profile`` section reads it."""
     cfg = GPT2_CONFIGS["gpt2-small"]
     free_card()
-    batches = token_stream(cfg, TELEMETRY_STEPS, seed=0)
+    batches = token_stream(cfg, TELEMETRY_STEPS + 2, seed=0)
     trace = os.path.join(out_dir, "trace.json")
     tel = {"enabled": True, "output_path": out_dir, "job_name": "train",
            "report_steps": TELEMETRY_REPORT, "trace_path": trace,
-           "health": {"grad_taps": True}, "cost_model": True}
+           "health": {"grad_taps": True}, "cost_model": True,
+           "profile": {"start_step": TELEMETRY_WINDOW[0],
+                       "window_steps": TELEMETRY_WINDOW[1]}}
     prof = {"enabled": True, "profile_step": TELEMETRY_PROFILE_STEP,
             "top_modules": 5, "detailed": False}
     log = io.StringIO()
@@ -2754,39 +2914,53 @@ def train_telemetry(dev, smi, out_dir):
     torch.cuda.reset_peak_memory_stats()
     losses = {k: [] for k in engines}
     ms = {k: [] for k in engines}
-    syncs = {k: 0 for k in engines}
+    step_syncs = {k: [] for k in engines}
     counts = {name: 0 for name in ops.launch_counts()}
-    for i, b in enumerate(batches):
-        for name, eng in engines.items():
-            st = torch.cuda.Event(enable_timing=True)
-            en = torch.cuda.Event(enable_timing=True)
-            if name == "on":
-                torch.cuda.synchronize()
-                ops.reset_launch_counts()
+    # torch.profiler records the whole process: the twin takes its window
+    # steps before the window opens, so the window holds the telemetry-on
+    # engine's steps alone (each engine's results do not depend on the
+    # order: each draws from its own generator).
+    w0, w1 = TELEMETRY_WINDOW[0], sum(TELEMETRY_WINDOW)
+    order = []
+    for i in range(TELEMETRY_STEPS):
+        if i == w0:
+            order += [(j, "off") for j in range(w0, w1)]
+        order.append((i, "on"))
+        if not w0 <= i < w1:
+            order.append((i, "off"))
+    for i, name in order:
+        b, eng = batches[i], engines[name]
+        st = torch.cuda.Event(enable_timing=True)
+        en = torch.cuda.Event(enable_timing=True)
+        if name == "on":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
 
-            def step():
-                st.record()
-                losses[name].append(eng.train_batch(b))
-                en.record()
-            if i in TELEMETRY_SYNC_STEPS:
-                syncs[name] += step_host_syncs(step)
-            elif name == "on" and i == TELEMETRY_PROFILE_STEP:
-                with contextlib.redirect_stdout(log):
-                    step()
-            else:
-                step()
-            ms[name].append((st, en))
-            if name == "on":
-                torch.cuda.synchronize()
-                for k, v in ops.launch_counts().items():
-                    counts[k] += v
+        def step():
+            st.record()
+            losses[name].append(eng.train_batch(b))
+            en.record()
+        with contextlib.redirect_stdout(log) \
+                if name == "on" and i == TELEMETRY_PROFILE_STEP \
+                else contextlib.nullcontext():
+            step_syncs[name].append(step_host_syncs(step))
+        ms[name].append((st, en))
+        if name == "on":
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                counts[k] += v
     torch.cuda.synchronize()
     del eng, step
     ms = {k: [a.elapsed_time(e) for a, e in v] for k, v in ms.items()}
     losses = {k: [float(x) for x in v] for k, v in losses.items()}
     peak = torch.cuda.max_memory_allocated()
+    syncs = {k: sum(v[i] for i in TELEMETRY_SYNC_STEPS)
+             for k, v in step_syncs.items()}
     on = engines["on"]
     on.close()
+    # The yardstick of the window's busy time: the same recipe's steps
+    # under profile_train_steps (the telemetry-off twin, its next batches).
+    yard = profile_train_steps(engines["off"], batches[TELEMETRY_STEPS:])
     with open(os.path.join(out_dir, "train.jsonl")) as f:
         recs = [json.loads(line) for line in f if line.strip()]
     kinds = [r["kind"] for r in recs]
@@ -2801,8 +2975,17 @@ def train_telemetry(dev, smi, out_dir):
         capture_output=True, text=True, timeout=120)
     with open(trace) as f:
         spans = [e for e in json.load(f) if e.get("ph") == "X"]
-    p50 = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    # Telemetry's overhead is read outside the capture window (its steps
+    # and its stop run the profiler, which the twin never does).
+    timed = [i for i in range(1, TELEMETRY_STEPS)
+             if not TELEMETRY_WINDOW[0] <= i <= sum(TELEMETRY_WINDOW)]
+    p50 = {k: float(np.median([v[i] for i in timed]))
+           for k, v in ms.items()}
     mfu = [r["mfu"] for r in steps if "mfu" in r]
+    windows = [r for r in recs if r.get("event") == "profile_window"]
+    prof_ev = [r for r in recs if r.get("event") == "profile"]
+    window = train_window_checks(prof_ev, windows, cm, summary_path,
+                                 counts, yard, step_syncs, smi)
     res = on.flops_profiler.result
     tokens = TRAIN_GAS * TRAIN_MICRO * TRAIN_SEQ
     analytic = tokens * gpt2_flops_per_token(cfg, TRAIN_SEQ)
@@ -2850,6 +3033,7 @@ def train_telemetry(dev, smi, out_dir):
     expect = per_train_step(cfg)
     assert rec["losses_bit_equal"], losses
     assert syncs["on"] == syncs["off"] == 0, syncs
+    window_asserts(window)
     assert kinds[0] == "meta" and kinds[-1] == "final", kinds[:3]
     assert kinds.count("step") == TELEMETRY_STEPS and \
         kinds.count("report") == TELEMETRY_STEPS // TELEMETRY_REPORT and \
@@ -5484,6 +5668,8 @@ def bert_inject(dev, smi, gen):
 # ... (each engine first in half the rounds: the second of two serves
 # in a row can read slower whichever engine it is).
 SERVE_TEL_ROUNDS = 4
+# The serving engine's capture window: decode iterations.
+SERVE_WINDOW = 3
 
 
 def serve_tel_config(out_dir, job, replica=None):
@@ -5500,6 +5686,33 @@ def serve_tel_config(out_dir, job, replica=None):
     return cfg
 
 
+def serve_window_view(recs, cap, smi, fences):
+    """What the serving engine's capture window saw (``fences``: the
+    serve's timer fences, the window's stop); emitted on a line of its
+    own."""
+    windows = [r for r in recs if r.get("event") == "profile_window"]
+    prof_ev = [r for r in recs if r.get("event") == "profile"]
+    rec = {"decode_iterations": SERVE_WINDOW, "capture_dir_returned":
+           cap is not None and os.path.basename(cap),
+           "windows": [{k: w.get(k) for k in (
+               "phase", "ok", "reason", "start_step", "stop_step")
+               if k in w} for w in windows],
+           "profile_events": len(prof_ev), "window_fences": fences,
+           "card": smi}
+    if prof_ev:
+        rec.update(window_view(prof_ev[0]))
+        d = prof_ev[0]["decomposition"]
+        if not d.get("error"):
+            rec["idle_share"] = d["per_step_ms"]["idle"] / \
+                d["per_step_wall_ms"]
+            kc, n_kernels, nbytes = trace_kernel_counts(
+                prof_ev[0]["window"]["path"])
+            rec.update({"trace_kernel_launches": kc,
+                        "trace_kernels": n_kernels, "trace_bytes": nbytes})
+    emit({"serve_profile_window": rec})
+    return rec
+
+
 def read_stream(out_dir, job):
     with open(os.path.join(out_dir, job + ".jsonl")) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -5514,7 +5727,11 @@ def serve_telemetry(dev, smi, params, out_dir):
     request's timeline passes ``validate_timeline``, and
     ``tools/telemetry_report.py`` reads the stream (its serving section
     and a worst-request exemplar). Records the on/off decode-step p50
-    ratio. Returns the launch counts by path (the telemetry-on serves)."""
+    ratio. Then ``profile_window(SERVE_WINDOW)`` on the telemetry-on
+    engine over one more serve: fails unless its ``profile`` event has a
+    device lane, K10 under ``paged_attention`` and K3f and K4f under
+    theirs, and buckets + idle within 5% of the window's wall. Returns
+    the launch counts by path (the telemetry-on serves)."""
     cfg = GPT2_CONFIGS["gpt2-small"]
     free_card()
     reqs = lambda: serve_requests(cfg)  # noqa: E731
@@ -5539,6 +5756,18 @@ def serve_telemetry(dev, smi, params, out_dir):
     assert by["on"] == by["off"], by
     counts = {"serve_telemetry": {k: sum(c[k] for c in by["on"])
                                   for k in by["on"][0]}}
+    # The capture window: the next SERVE_WINDOW decode iterations of one
+    # more serve (its launches are the window path's, not counted above).
+    # Its stop fences the card once, inside the window: not a serve_path.
+    cap = engines["on"].profile_window(SERVE_WINDOW)
+    engines["on"].reset_serving_stats()
+    torch.cuda.synchronize()
+    fences = device_sync_count()
+    ops.reset_launch_counts()
+    wrep = engines["on"].serve(reqs())
+    torch.cuda.synchronize()
+    counts["serve_telemetry_window"] = ops.launch_counts()
+    fences = device_sync_count() - fences
     prompt = serve_prompt(cfg)
     syncs = {}
     for name, eng in engines.items():
@@ -5587,12 +5816,30 @@ def serve_telemetry(dev, smi, params, out_dir):
                1 for e in trace_events if e["ph"] in ("s", "t", "f")),
            "launches": nonzero(counts["serve_telemetry"]), "card": smi}
     emit({"serve_telemetry": rec})
+    win = serve_window_view(recs, cap, smi, fences)
     assert syncs["on"] == syncs["off"], syncs
     assert all(x == 0 for x in rec["recompiles"]), rec
     assert all(t["completed"] == 16 and t["records_dropped"] == 0
                for t in rec["trace"]), rec
-    # (the warm-up's 2 requests drain into the same stream)
-    assert len(traces) == 2 + 16 * SERVE_TEL_ROUNDS and not bad, rec
+    # (the warm-up's 2 requests and the window's serve drain into the
+    # same stream)
+    assert len(traces) == 2 + 16 * (SERVE_TEL_ROUNDS + 1) and not bad, rec
+    assert wrep["completed"] == 16 and wrep["unfinished"] == 0, \
+        (wrep["completed"], wrep["unfinished"])
+    assert win["window_fences"] == 1, win["window_fences"]
+    assert win["profile_events"] == 1 and not win.get("error"), win
+    assert [x["phase"] for x in win["windows"]] == ["start", "stop"] and \
+        all(x["ok"] for x in win["windows"]), win["windows"]
+    assert win["n_device_lanes"] >= 1, win
+    assert {"paged_attention", "fused_ln", "fused_gelu"} <= \
+        set(win["pallas_families_ms"]), win["pallas_families_ms"]
+    assert all(win["trace_kernel_launches"].get(e) for e in (
+        "ln_fwd_kernel", "bias_gelu_kernel")), win["trace_kernel_launches"]
+    assert any(win["trace_kernel_launches"].get(e) for e in (
+        "paged_attn_mma_kernel", "paged_attn_fma_kernel")), \
+        win["trace_kernel_launches"]
+    assert abs(win["sum_check"]["explained_frac"] - 1.0) <= \
+        WINDOW_SUM_TOL, win["sum_check"]
     assert kinds[0] == "meta" and kinds[-1] == "final", kinds[:3]
     assert tool.returncode == 0, tool.stderr[-2000:]
     assert summary.get("serving") and worst and worst[0].get("spans"), rec

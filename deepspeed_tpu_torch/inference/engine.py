@@ -45,9 +45,14 @@ checkpoint's model file (the port's or the JAX engine's: the same
 files, runtime/flax_msgpack.py). ``inference/router.py`` routes one
 request stream over several engines.
 
-Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7),
-the device-trace capture window (``profile_window`` raises with
-telemetry on; item 9) and ``lint_audit`` (XLA's lowering; item 9).
+``profile_window`` arms a ``torch.profiler`` capture of the next decode
+iterations (``decode_once`` and ``spec_decode_once`` tick it first), and
+the report boundary ingests it into the ``profile`` event
+(monitor/profile_ingest.py).
+
+Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7).
+Not planned: ``lint_audit``, which lints XLA's jaxpr and optimized HLO;
+the port has neither.
 ``paged_kernel: false`` and
 ``fused_kernels: False`` raise on a CUDA device, where the port has only
 its kernels.
@@ -292,7 +297,8 @@ class InferenceEngine:
                     *args, pool_blocks=sp_.blocks_per_group,
                     kv_itemsize=kvi, **kw),
                 "projection": "analytic"}
-        tl = Telemetry(self.tcfg, default_report_steps=50, meta=meta)
+        tl = Telemetry(self.tcfg, default_report_steps=50, meta=meta,
+                       device=self.device)
         if tl.sentinel is not None:
             tl.sentinel.walk_fn = None
         ref = weakref.ref(self)
@@ -722,6 +728,7 @@ class InferenceEngine:
         too, on dead tables; their counters do not advance). Returns the
         sampled token per slot (and the [S, V] logits when asked)."""
         t0 = time.perf_counter()
+        self.telemetry.profiler_tick(self.iterations)
         n_active = self.active_slots
         if self.paged:
             for s in np.flatnonzero(self.active):
@@ -772,6 +779,7 @@ class InferenceEngine:
                 "spec_decode_once is greedy-only; use decode_once for "
                 "temperature > 0 — the scheduler falls back automatically")
         t0 = time.perf_counter()
+        self.telemetry.profiler_tick(self.iterations)
         k = self.spec_k
         n_active = self.active_slots
         toks = np.zeros((self.max_slots, k + 1), np.int32)
@@ -920,10 +928,12 @@ class InferenceEngine:
 
     def profile_window(self, steps: int,
                        start_step: Optional[int] = None) -> Optional[str]:
-        """The JAX device-trace capture over ``steps`` decode iterations
-        (from the next one by default): None with telemetry off, as in
-        JAX; with telemetry on it raises ``NotImplementedError`` (ROADMAP
-        queue 1 item 9)."""
+        """Arm a ``torch.profiler`` capture over ``steps`` decode
+        iterations (default: starting at the next iteration). The trace
+        is ingested at the next telemetry drain (``telemetry.profile``
+        block); with telemetry off this is a no-op returning None.
+        Returns the capture dir. No host sync is added outside the
+        window."""
         return self.telemetry.arm_profile_window(
             int(steps), start_step=self.iterations + 1
             if start_step is None else int(start_step))

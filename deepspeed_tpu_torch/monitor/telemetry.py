@@ -33,6 +33,13 @@ The JSONL stream is line records tagged by ``kind``:
 - ``cost_model`` — once per run (first report boundary): per-path
   roofline verdicts from the flops profiler's op walk of each path +
   the wire model (see monitor/cost_model.py).
+- ``event`` ``profile`` — one per completed ``telemetry.profile`` capture
+  window (``monitor/trace.py::ProfilerWindow``, a ``torch.profiler``
+  trace), at the next report boundary: the per-step bucket
+  decomposition of the window (monitor/profile_ingest.py) and, with the
+  cost model armed, its reconciliation against the floors
+  (monitor/reconcile.py), plus a ``reconcile_divergence`` event for
+  each component past its threshold.
 - ``final``  — the terminal drain marker ``close()`` writes. A run
   segment that ends WITHOUT one was truncated (crash, kill -9, lost
   machine) and ``tools/telemetry_report.py`` says so instead of
@@ -68,8 +75,10 @@ from .health import HangWatchdog, HealthMonitor
 from .hostinfo import resolve_writer, shard_path
 from .memory import MemoryWatermark, analytic_state_bytes, device_memory_stats
 from .peaks import ChipPeaks
+from .profile_ingest import ingest
 from .recompile import RecompileSentinel
-from .trace import PROFILE_WINDOW_UNPORTED, TraceWriter
+from .reconcile import divergence_events, reconcile
+from .trace import ProfilerWindow, TraceWriter
 from ..utils.logging import log_dist, logger
 
 # The metrics key the engine's grad tap rides under; popped from the
@@ -200,8 +209,12 @@ class Telemetry:
 
     def __init__(self, cfg, default_report_steps: int = 10,
                  meta: Optional[Dict[str, Any]] = None,
-                 is_writer: Optional[bool] = None):
+                 is_writer: Optional[bool] = None,
+                 device: Optional[torch.device] = None):
         self.cfg = cfg
+        # The engine's device: a capture window on a CUDA device records
+        # the card's kernels too.
+        self.device = device
         self.enabled = bool(getattr(cfg, "enabled", False))
         self.meta: Dict[str, Any] = dict(meta or {})
         self.step_provider: Callable[[], int] = lambda: -1
@@ -213,6 +226,7 @@ class Telemetry:
         self.health: Optional[HealthMonitor] = None
         self.watchdog: Optional[HangWatchdog] = None
         self.flight: Optional[FlightRecorder] = None
+        self.profiler: Optional[ProfilerWindow] = None
         self.cost_model_payload: Optional[Dict[str, Any]] = None
         self._mfu_arm: Optional[Dict[str, Any]] = None
         self._compile_wall_seen = 0.0
@@ -222,9 +236,6 @@ class Telemetry:
         self._closed = False
         if not self.enabled:
             return
-        if int(cfg.profile_start_step) >= 0:
-            # (before any file, thread or signal handler exists)
-            raise NotImplementedError(PROFILE_WINDOW_UNPORTED)
         # Goodput ledger: the first window opens NOW (engine init time
         # lands in its "other" bucket — honest, not hidden).
         self.ledger = GoodputLedger()
@@ -301,6 +312,15 @@ class Telemetry:
                                              if self.watchdog else 0)
                 fl.install(close_cb=self.close)
                 self.meta.setdefault("flight_path", fpath)
+        self._profile_out = cfg.profile_dir or os.path.join(
+            cfg.output_path or "./runs", "torch_trace")
+        self._profile_done: List[Dict[str, Any]] = []
+        if int(cfg.profile_start_step) >= 0:
+            self.profiler = ProfilerWindow(cfg.profile_start_step,
+                                           cfg.profile_num_steps,
+                                           self._profile_out,
+                                           on_event=self._profiler_event,
+                                           device=device)
         self._meta_written = False
         atexit.register(self.close)
 
@@ -340,14 +360,76 @@ class Telemetry:
         if self.health is not None:
             self.health.spec = spec
 
+    def profiler_tick(self, step: int) -> None:
+        if self.profiler is not None:
+            self.profiler.tick(step)
+
+    def _profiler_event(self, kind: str, payload: Dict[str, Any]) -> None:
+        """ProfilerWindow outcome callback: every start/stop lands in the
+        JSONL as a structured ``profile_window`` event (host IO only —
+        no device access); a successful stop queues the capture for
+        ingestion at the next report boundary."""
+        self.event(kind, payload)
+        if payload.get("phase") == "stop" and payload.get("ok"):
+            self._profile_done.append(dict(payload))
+
     def arm_profile_window(self, num_steps: int,
                            start_step: Optional[int] = None
                            ) -> Optional[str]:
-        """The JAX capture window: not ported (None with telemetry
-        off, as in JAX; else raises)."""
+        """Arm a ``torch.profiler`` capture window over ``num_steps`` hot
+        steps starting at ``start_step`` (default: the next step).
+        Returns the capture dir, or None when refused (telemetry off, or
+        a previously armed window hasn't finished — windows never
+        clobber each other)."""
         if not self.enabled:
             return None
-        raise NotImplementedError(PROFILE_WINDOW_UNPORTED)
+        p = self.profiler
+        if p is not None and not p.failed and \
+                (p._active or self.step_provider() < p.stop_step):
+            logger.warning("telemetry: profile window already armed for "
+                           f"steps [{p.start_step}, {p.stop_step}); "
+                           "refusing to replace it")
+            return None
+        start = int(self.step_provider() + 1 if start_step is None
+                    else start_step)
+        self.profiler = ProfilerWindow(start, int(num_steps),
+                                       self._profile_out,
+                                       on_event=self._profiler_event,
+                                       device=self.device)
+        return self.profiler.capture_dir
+
+    def _drain_profiles(self) -> None:
+        """Report-boundary ingestion of completed capture windows: parse
+        the trace, decompose the step wall into buckets, reconcile
+        against the cost model when one is armed, and write one
+        ``profile`` event (+ any ``reconcile_divergence`` events) per
+        window. Pure host-side parsing — no device access."""
+        done, self._profile_done = self._profile_done, []
+        for win in done:
+            n_steps = max(1, int(win.get("stop_step", 1))
+                          - int(win.get("start_step", 0)))
+            try:
+                decomp = ingest(win["path"], n_steps=n_steps)
+            except Exception as e:
+                self.event("profile", {
+                    "window": win,
+                    "error": f"ingest failed ({type(e).__name__}: {e})"})
+                continue
+            payload: Dict[str, Any] = {"window": win,
+                                       "decomposition": decomp}
+            if self.cost_model_payload is not None and \
+                    "error" not in decomp:
+                pc = getattr(self.cfg, "profile", None)
+                recon = reconcile(
+                    decomp, self.cost_model_payload,
+                    threshold=getattr(pc, "divergence_threshold", 3.0),
+                    host_frac=getattr(pc, "host_frac", 0.10))
+                payload["reconciliation"] = recon
+                self.event("profile", payload)
+                for d in divergence_events(recon):
+                    self.event("reconcile_divergence", d)
+            else:
+                self.event("profile", payload)
 
     def span(self, name: str, **args):
         """Host-span context manager. Feeds the trace writer (when a
@@ -647,6 +729,8 @@ class Telemetry:
                     "look exactly like this")
                 self.event("memory_watermark", wm_event)
         self._write(report)
+        if self._profile_done:
+            self._drain_profiles()
         if self.flight is not None:
             self.flight.note_report(report)
         if self.tracer is not None:
@@ -691,6 +775,10 @@ class Telemetry:
         self._closed = True
         if self.watchdog is not None:
             self.watchdog.stop()
+        # Stop a still-open capture window BEFORE the terminal drain so
+        # its trace is ingested into this run's JSONL, not lost.
+        if self.profiler is not None:
+            self.profiler.stop()
         if self._ring or (self.ledger is not None
                           and self.ledger.has_pending()):
             # Drain buffered steps AND settle any trailing attributed
@@ -699,6 +787,10 @@ class Telemetry:
             self.drain()
         else:
             self._ensure_meta()
+        if self._profile_done:
+            # A capture that completed after the last boundary (or whose
+            # run had no further drain) still lands in the JSONL.
+            self._drain_profiles()
         # Terminal drain marker: its absence is how the report tool
         # recognizes a truncated segment.
         self._write({"kind": "final", "step": int(self.step_provider()),

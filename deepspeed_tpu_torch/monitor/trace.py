@@ -9,18 +9,22 @@ the card (CUDA events or a profiler read that).
 
 The output is the Chrome Trace Event format ("traceEvents" array of
 complete/instant events), loadable in Perfetto (ui.perfetto.dev) or
-chrome://tracing. ``ProfilerWindow`` (a device-trace capture window,
-ingested into a per-step decomposition in JAX) is not ported: arming
-one raises (ROADMAP queue 1 item 9).
+chrome://tracing. The device-side view is ``ProfilerWindow``: a
+``torch.profiler`` capture of N configured steps (the card's kernels on
+their streams, with CUDA and CPU activities), which
+``monitor/profile_ingest.py`` decomposes into per-step buckets.
 """
 from __future__ import annotations
 
 import json
 import os
+import socket
 import threading
 import time
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
+
+from ..utils.logging import logger
 
 # Stable lane (tid) assignment so related spans stack in one row each in
 # the Perfetto UI; unknown span names land in lane 0.
@@ -31,12 +35,6 @@ _LANES = {
     "offload_adam": 5, "offload_h2d": 6,
     "checkpoint_save": 7, "checkpoint_load": 7,
 }
-
-PROFILE_WINDOW_UNPORTED = (
-    "telemetry.profile windows (a device-trace capture ingested into the "
-    "per-step decomposition and reconciled with the cost model) are not "
-    "ported yet (ROADMAP queue 1 item 9: monitor/profile_ingest.py and "
-    "reconcile.py)")
 
 
 class TraceWriter:
@@ -158,10 +156,130 @@ class TraceWriter:
 
 
 class ProfilerWindow:
-    """The JAX capture window's place: building one raises."""
+    """Capture a ``torch.profiler`` device trace for ``num_steps`` steps
+    starting at ``start_step`` — the device-side complement to the host
+    spans. ``tick(step)`` is two int compares on the hot path.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(PROFILE_WINDOW_UNPORTED)
+    Each window captures into its own ``step_<start>_<stop>`` suffix of
+    ``out_dir`` (the trace is ``<host>.<pid>.trace.json`` there) so two
+    windows in one run can never silently overwrite each other — a
+    reused range is refused, not clobbered. Outcomes are surfaced as
+    structured ``profile_window`` events through the ``on_event(kind,
+    payload)`` callback (the telemetry JSONL), so downstream ingestion
+    (monitor/profile_ingest.py) can locate the capture — or learn
+    exactly why there isn't one — from the JSONL alone; log lines are a
+    courtesy copy, not the record.
+
+    ``device`` is the engine's: on a CUDA device the capture records CPU
+    and CUDA activities, and ``stop`` waits for the card once (inside
+    the window) so the last window step's kernels are in the trace; on
+    the CPU it records CPU activities only. The profiler records the
+    whole process: another engine's work inside the window is in the
+    trace too.
+    """
+
+    # Capture dirs claimed by any window in this process — the
+    # same-out_dir uniqueness assert for satellite windows.
+    _claimed_dirs: set = set()
+
+    def __init__(self, start_step: int, num_steps: int, out_dir: str,
+                 on_event=None, device=None):
+        self.start_step = int(start_step)
+        self.stop_step = int(start_step) + max(1, int(num_steps))
+        self.out_dir = out_dir
+        # Step-range suffix: the actual capture destination.
+        self.capture_dir = os.path.join(
+            out_dir, f"step_{self.start_step}_{self.stop_step}")
+        self.trace_file = os.path.join(
+            self.capture_dir,
+            f"{socket.gethostname()}.{os.getpid()}.trace.json")
+        self.device = device
+        self._on_event = on_event
+        self._prof = None
+        self._active = False
+        self.failed = False
+
+    def _on_cuda(self) -> bool:
+        return getattr(self.device, "type", None) == "cuda"
+
+    def _emit(self, phase: str, ok: bool, reason: Optional[str] = None,
+              **extra) -> None:
+        payload = {"phase": phase, "path": self.capture_dir,
+                   "start_step": self.start_step,
+                   "stop_step": self.stop_step, "ok": bool(ok)}
+        if reason is not None:
+            payload["reason"] = reason
+        payload.update(extra)
+        if self._on_event is not None:
+            try:
+                self._on_event("profile_window", payload)
+            except Exception as e:  # never take down the step loop
+                logger.warning(f"telemetry: profile_window event emit "
+                               f"failed ({type(e).__name__}: {e})")
+
+    def _claim_dir(self) -> None:
+        """Refuse a capture dir another window already used (in-process
+        set) or that already holds a capture on disk (cross-process) —
+        the silent-overwrite hazard."""
+        if self.capture_dir in ProfilerWindow._claimed_dirs:
+            raise RuntimeError(
+                f"duplicate profile capture dir {self.capture_dir!r} "
+                f"(a window for this step range already ran)")
+        if os.path.isdir(self.capture_dir) and os.listdir(self.capture_dir):
+            raise RuntimeError(
+                f"profile capture dir {self.capture_dir!r} is not empty "
+                f"(refusing to overwrite an existing capture)")
+        ProfilerWindow._claimed_dirs.add(self.capture_dir)
+
+    def tick(self, step: int) -> None:
+        if self.failed:
+            return
+        # Range check, not equality: a run resumed from a checkpoint past
+        # start_step (the first tick arrives mid-window or later) must
+        # still capture whatever remains of the window instead of
+        # silently never profiling.
+        if not self._active and self.start_step <= step < self.stop_step:
+            try:
+                import torch.profiler as tp
+                self._claim_dir()
+                os.makedirs(self.capture_dir, exist_ok=True)
+                acts = [tp.ProfilerActivity.CPU]
+                if self._on_cuda():
+                    acts.append(tp.ProfilerActivity.CUDA)
+                prof = tp.profile(activities=acts)
+                prof.start()
+                self._prof = prof
+                self._active = True
+                self._emit("start", ok=True, armed_at_step=int(step))
+            except Exception as e:
+                self.failed = True
+                reason = f"{type(e).__name__}: {e}"
+                self._emit("start", ok=False, reason=reason)
+                logger.warning(f"telemetry: torch.profiler trace failed to "
+                               f"start ({reason})")
+        elif self._active and step >= self.stop_step:
+            self.stop()
+
+    def stop(self) -> None:
+        if not self._active:
+            return
+        self._active = False
+        prof, self._prof = self._prof, None
+        try:
+            if self._on_cuda():
+                from ..utils.timer import _device_sync
+                _device_sync(self.device)
+            prof.stop()
+            prof.export_chrome_trace(self.trace_file)
+            self._emit("stop", ok=True)
+            logger.info(f"telemetry: torch.profiler trace written to "
+                        f"{self.trace_file}")
+        except Exception as e:
+            self.failed = True
+            reason = f"{type(e).__name__}: {e}"
+            self._emit("stop", ok=False, reason=reason)
+            logger.warning(f"telemetry: torch.profiler trace failed to "
+                           f"stop ({reason})")
 
 
-__all__ = ["TraceWriter", "ProfilerWindow", "PROFILE_WINDOW_UNPORTED"]
+__all__ = ["TraceWriter", "ProfilerWindow"]

@@ -652,8 +652,8 @@ class TorchOptimizer(FlatOptimizer):
                 raise NotImplementedError(
                     f"{self.name} holds its state per parameter, so it runs "
                     "where the engine holds whole parameters: dp 1, or ZeRO "
-                    "stage 0 (ROADMAP queue 1 item 5: torch.optim at ZeRO "
-                    "stages 1-3)")
+                    "stage 0 (ROADMAP queue 1 item 6, what dp and ZeRO left: "
+                    "torch.optim at ZeRO stages 1-3)")
             if grp.dtype != torch.float32:
                 raise ValueError(
                     f"{self.name} updates fp32 master parameters; bf16."

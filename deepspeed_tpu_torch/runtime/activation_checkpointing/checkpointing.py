@@ -21,7 +21,7 @@ plain call's bit for bit.
   ranks; at a model-parallel size of 1 (the port's only one) it is the
   identity. A model-parallel size above 1 raises here (an ``mpu`` saying
   so) and in the engine (the ds_config ``mesh``): it waits for tensor
-  parallelism (ROADMAP queue 1 item 8).
+  parallelism (ROADMAP queue 1 item 7, parallel axes and comm extras).
 - ``contiguous_checkpointing``, ``synchronize`` and ``profile`` are
   accepted for call-site parity: the caching allocator packs the
   residuals, and nothing runs on a stream of its own.
@@ -56,7 +56,8 @@ def configure(mpu=None, deepspeed_config=None,
             int(mpu.get_model_parallel_world_size()) > 1:
         raise NotImplementedError(
             "partition_activations over a model-parallel size above 1 is "
-            "not ported yet (ROADMAP queue 1 item 8: tensor parallelism)")
+            "not ported yet (ROADMAP queue 1 item 7, parallel axes and "
+            "comm extras: tensor parallelism)")
     ac = getattr(deepspeed_config, "activation_checkpointing_config", None)
     if ac is not None:
         _config["partition_activations"] = bool(ac.partition_activations)

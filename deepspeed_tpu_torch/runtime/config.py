@@ -134,7 +134,11 @@ class TelemetryHealthConfig:
 class TelemetryProfileConfig:
     """The ``telemetry.profile`` block: the profiler capture window and
     the measured-vs-floor reconciliation thresholds (parsed and validated
-    as in JAX; arming a window raises, ROADMAP queue 1 item 9). The flat
+    as in JAX). ``start_step`` >= 0 arms a ``torch.profiler`` window over
+    ``window_steps`` steps (``out_dir``, default
+    ``<output_path>/torch_trace``); ``divergence_threshold`` and
+    ``host_frac`` set when the reconciliation writes a
+    ``reconcile_divergence`` event. The flat
     ``telemetry.profile_start_step``/``profile_num_steps``/``profile_dir``
     keys remain as aliases; an explicit nested block wins."""
 
@@ -855,8 +859,8 @@ class DeepSpeedConfig:
              "checkpoint.preempt_save to false)",
              "queue 1: a collective preemption save"),
             (world > 1 and self.moe_config.num_experts > 0,
-             "MoE at dp > 1", "slice 6: parallel axes and comm extras, "
-             "queue 1 item 8"),
+             "MoE at dp > 1", "queue 1 item 6, what dp and ZeRO left: MoE "
+             "at dp > 1"),
             # The host partition follows each leaf's axis; stage 3's
             # parameters are V-layout rows (runtime/zero/stage3.py).
             (world > 1 and bool(self.zero_config.cpu_offload) and

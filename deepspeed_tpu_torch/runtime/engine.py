@@ -128,8 +128,7 @@ the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
 dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
 parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
 ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
-under ZeRO-Offload, telemetry's profiler windows, and
-``fused_kernels=False`` on CUDA.
+under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
 
 Telemetry (``telemetry`` block, monitor/): the JAX engine's spine. Each
 step path goes through the recompile sentinel (``train_step``,
@@ -140,7 +139,10 @@ drain at ``report_steps``, whose report carries the throughput, the
 goodput window and the memory sample; the cost model is built at the
 first boundary after every path of the step was walked (its first
 call), and arms the per-step ``mfu``. ``flops_profiler`` walks the step
-at ``profile_step``. Neither reads the card between boundaries.
+at ``profile_step``. Neither reads the card between boundaries. A
+``telemetry.profile`` window (or ``profile_window``) captures a
+``torch.profiler`` trace of its steps (``train_batch`` ticks it first),
+ingested and reconciled with the cost model at the next boundary.
 """
 from __future__ import annotations
 
@@ -500,8 +502,8 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 f"{self.optimizer.name} holds its state per parameter, so it "
                 "runs at dp 1 or at ZeRO stage 0, where every rank holds "
-                "whole parameters (ROADMAP queue 1 item 5: torch.optim at "
-                "ZeRO stages 1-3)")
+                "whole parameters (ROADMAP queue 1 item 6, what dp and ZeRO "
+                "left: torch.optim at ZeRO stages 1-3)")
 
         # Flat parameter groups; leaves in tree order view into them.
         # At ZeRO stage >= 1 across ranks each group is also held as this
@@ -769,6 +771,7 @@ class DeepSpeedEngine:
         self.telemetry = Telemetry(
             self.config.telemetry_config,
             default_report_steps=self.steps_per_print(),
+            device=self.device,
             meta=dict(
                 dp=self.dp, ep=1, slices=1,
                 zero_stage=self.zero_optimization_stage(),
@@ -1065,6 +1068,7 @@ class DeepSpeedEngine:
                 "window: call step() at the window's boundary first")
         tl = self.telemetry
         t_wall0 = time.perf_counter()
+        tl.profiler_tick(self.global_steps)
         if batch is None:
             it = data_iter
             if it is None:
@@ -1214,9 +1218,13 @@ class DeepSpeedEngine:
 
     def profile_window(self, steps: int,
                        start_step: Optional[int] = None) -> Optional[str]:
-        """The JAX engine's profiler capture window: None with telemetry
-        off; with telemetry on it raises (not ported, ROADMAP queue 1
-        item 9)."""
+        """Arm a ``torch.profiler`` capture over ``steps`` hot training
+        steps (default: starting at the next ``train_batch``). The trace
+        is ingested into the per-step wall decomposition and reconciled
+        against the roofline cost model at the next telemetry drain
+        (``telemetry.profile`` block); with telemetry off this is a no-op
+        returning None. Returns the capture dir. No host sync is added
+        outside the window."""
         return self.telemetry.arm_profile_window(
             int(steps), start_step=self.global_steps + 1
             if start_step is None else int(start_step))
@@ -1693,7 +1701,8 @@ class DeepSpeedEngine:
                 "the forward/backward/step trio under zero_optimization."
                 "cpu_offload (the JAX trio's apply reads a device optimizer "
                 "state that offload does not keep, and runs no host step)",
-                "queue 1 item 5: the trio under offload")
+                "queue 1 item 6, what dp and ZeRO left: the trio under "
+                "offload")
         if self._trio_pending is not None:
             raise RuntimeError(
                 "forward() twice without backward(): the first graph would "

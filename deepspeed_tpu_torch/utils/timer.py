@@ -26,13 +26,14 @@ def device_sync_count() -> int:
     return _SYNC_COUNT
 
 
-def _device_sync() -> None:
-    """Block until all work queued on the card is complete (nothing to
-    wait for without CUDA; the fence is counted either way)."""
+def _device_sync(device=None) -> None:
+    """Block until all work queued on the card (``device``, else the
+    current one) is complete (nothing to wait for without CUDA; the
+    fence is counted either way)."""
     global _SYNC_COUNT
     _SYNC_COUNT += 1
     if torch.cuda.is_available():
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
 
 
 class SynchronizedWallClockTimer:

@@ -81,7 +81,7 @@ def test_partitioned_checkpoint_is_the_identity_at_mp1():
     class MP2:
         def get_model_parallel_world_size(self):
             return 2
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ck.configure(mpu=MP2(), partition_activations=True)
 
 

@@ -41,7 +41,10 @@ step in both phases within 4 fp32 ulp of ``onebit_reference_step`` (the
 error buffers of their leaf's scale); the CSR round trip and a three-
 shard gather on CUDA tensors bit-equal to the CPU's; int8 ``dequantize``
 on the card bit-equal to the CPU's, and the slot-major engine's greedy
-streams equal to the paged engine's on the card.
+streams equal to the paged engine's on the card; a 2-step
+``telemetry.profile`` window over gpt2-tiny train steps whose trace
+holds ``fused_ln``, ``flash_attention`` and ``fused_update`` kernels on
+a device lane.
 """
 import dataclasses
 
@@ -1505,3 +1508,48 @@ def test_declared_costs_match_the_smoke_bound_inputs(dev):
         use_coeff=True, one_pass=True, sr=False, cast_out=cast))
     assert res.kernels["K6"] == [1, float(20 * n),
                                  float(n * (4 + 4 + 8 + 4 + 8 + 2))]
+
+
+def test_profile_window_sees_the_kernels_on_a_device_lane(dev, tmp_path):
+    """A 2-step ``telemetry.profile`` window over gpt2-tiny bf16 train
+    steps at S 128 (the flash route) on the card: the ``profile`` event's
+    decomposition has device lanes, and ``fused_ln``, ``flash_attention``
+    and ``fused_update`` each own kernels on one of them."""
+    import json
+
+    from deepspeed_tpu_torch.monitor import profile_ingest as pi
+    cfg = dataclasses.replace(GPT2_CONFIGS["gpt2-tiny"], dtype=torch.bfloat16)
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ds = {"train_batch_size": 4, "gradient_accumulation_steps": 2,
+          "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
+          "bf16": {"enabled": True},
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+          "telemetry": {"enabled": True, "output_path": str(tmp_path),
+                        "job_name": "run", "report_steps": 4,
+                        "profile": {"start_step": 1, "window_steps": 2}}}
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg), model_params=params, config=ds,
+        device=dev)
+    for b in np.random.default_rng(0).integers(0, 512, (4, 4, 129)):
+        eng.train_batch(b)
+    eng.close()
+    with open(tmp_path / "run.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    prof = [r for r in recs if r.get("event") == "profile"]
+    assert len(prof) == 1 and "error" not in prof[0]["decomposition"]
+    d = prof[0]["decomposition"]
+    assert d["n_device_lanes"] >= 1 and d["steps"] == 2
+    assert d["per_step_ms"]["gemm"] > 0
+    events = pi.load_trace_events(pi.find_trace_files(
+        prof[0]["window"]["path"])[0])
+    lanes = {(e.get("pid"), e.get("tid")) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "kernel"}
+    seen = set()
+    for e in events:
+        if e.get("ph") == "X" and (e.get("pid"), e.get("tid")) in lanes:
+            bucket, fam = pi.classify_op(str(e.get("name", "")))
+            if bucket == "pallas":
+                seen.add(fam)
+    assert {"fused_ln", "flash_attention", "fused_update"} <= seen, seen
+    assert {"fused_ln", "flash_attention", "fused_update"} <= \
+        set(d["pallas_families_ms"])

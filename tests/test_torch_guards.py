@@ -42,6 +42,8 @@ def test_import_pulls_in_no_jax():
             "deepspeed_tpu_torch.models.bert, "
             "deepspeed_tpu_torch.module_inject, "
             "deepspeed_tpu_torch.monitor.request_trace, "
+            "deepspeed_tpu_torch.monitor.profile_ingest, "
+            "deepspeed_tpu_torch.monitor.reconcile, "
             "deepspeed_tpu_torch.ops.sparse_attention."
             "sparse_attention_utils, deepspeed_tpu_torch.ops.autotune, "
             "deepspeed_tpu_torch.launcher.launch, "
@@ -58,16 +60,18 @@ def test_import_pulls_in_no_jax():
 
 def test_no_module_imports_jax():
     """No module of the package, not chip_smoke.py, not the dp tests'
-    worker, and not the port's example trainers, crash-kill harness or
-    ``bin/*_torch`` entry points imports JAX, the JAX package or
+    worker, and not the port's example trainers, crash-kill harness,
+    self-checks (``tools/*_check_torch.py``) or ``bin/*_torch`` entry
+    points imports JAX, the JAX package or
     ``transformers`` (the card's machine has none: ``module_inject``
     takes configs by attribute and weights as tensors)."""
     offenders = []
     front_door = [*REPO.glob("examples/*/train_torch.py"),
                   REPO / "examples" / "torch_example_common.py",
                   REPO / "tools" / "crashkill_torch.py",
+                  *REPO.glob("tools/*_check_torch.py"),
                   *REPO.glob("bin/*_torch")]
-    assert len(front_door) == 9, front_door
+    assert len(front_door) == 12, front_door
     for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py",
                  REPO / "tests" / "torch_dp_worker.py", *front_door]:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -210,9 +214,11 @@ def test_unported_features_leave_out_telemetry_and_the_flops_profiler():
 
 
 def test_profile_window_raises_naming_item_9(tmp_path):
-    """A telemetry.profile window (from the config or from
-    ``engine.profile_window``) raises: its trace ingest is ROADMAP queue
-    1 item 9. Telemetry off, ``profile_window`` is None, as in JAX."""
+    """A telemetry.profile window (from the config, its flat alias, or
+    ``engine.profile_window``) arms a ``torch.profiler`` capture under
+    ``<output_path>/torch_trace/step_<start>_<stop>`` (it raised, naming
+    ROADMAP queue 1 item 9, until the window was ported). Telemetry off,
+    ``profile_window`` is None, as in JAX."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt2 import gpt2_loss_fn
 
@@ -227,13 +233,17 @@ def test_profile_window_raises_naming_item_9(tmp_path):
                                       **tel)},
             device="cpu")[0]
 
-    for block in ({"profile": {"start_step": 0}},
-                  {"profile_start_step": 2}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            engine(dict({"enabled": True}, **block))
+    trace_dir = tmp_path / "torch_trace"
+    for block, rng in (({"profile": {"start_step": 0}}, "step_0_2"),
+                       ({"profile_start_step": 2}, "step_2_3")):
+        eng = engine(dict({"enabled": True}, **block))
+        assert eng.telemetry.profiler.capture_dir == str(trace_dir / rng)
+        assert eng.telemetry.profiler.device == torch.device("cpu")
+        eng.close()
     eng = engine({"enabled": True})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.profile_window(2)
+    assert eng.profile_window(2) == str(trace_dir / "step_1_3")
+    # An armed window is not replaced (None), as in JAX.
+    assert eng.profile_window(2) is None
     eng.close()
     assert engine({"enabled": False}).profile_window(2) is None
 

@@ -19,7 +19,8 @@ router's traces), on gpt2-tiny in fp32 with the same weights.
   off; on the port, telemetry adds no host read (``device_sync_count``
   and the dispatched ``_local_scalar_dense`` reads equal on and off).
 - F8: ``InferenceEngine.profile_window`` is None with telemetry off and
-  raises naming ROADMAP item 9 with telemetry on.
+  arms a capture window over the same step range as JAX's with
+  telemetry on.
 
 The JAX engines run on a one-device mesh with ``paged_kernel: false``
 (ROADMAP R2)."""
@@ -472,8 +473,10 @@ def test_report_tool_reads_the_serving_stream(sched_runs):
 
 def test_profile_window_f8(params_np, tmp_path):
     """F8: the port's serving engine has ``profile_window``: None with
-    telemetry off (as in JAX), and with telemetry on it raises naming
-    ROADMAP queue 1 item 9 (the capture window is not ported)."""
+    telemetry off (as in JAX), and with telemetry on it arms a window
+    over the next decode iterations and returns its capture dir, the
+    same step range as JAX's (it raised, naming ROADMAP queue 1 item 9,
+    until the window was ported)."""
     off = _engine("port", params_np, _config(tmp_path, "f8", telemetry=False))
     assert off.profile_window(3) is None
     assert off.profile_window(2, start_step=5) is None
@@ -481,7 +484,11 @@ def test_profile_window_f8(params_np, tmp_path):
                                              telemetry=False))
     assert jeng.profile_window(3) is None
     on = _engine("port", params_np, _config(tmp_path, "f8on"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        on.profile_window(3)
+    jon = _engine("jax", params_np, _config(tmp_path, "f8jon"))
+    got, want = on.profile_window(3), jon.profile_window(3)
+    assert os.path.basename(got) == os.path.basename(want) == "step_1_4"
+    assert got == str(tmp_path / "torch_trace" / "step_1_4")
+    assert on.profile_window(3) is None and jon.profile_window(3) is None
+    jon.close()
     on.close()
     assert os.path.exists(tmp_path / "f8on.jsonl")

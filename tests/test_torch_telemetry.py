@@ -17,8 +17,9 @@ engine's wiring) against the JAX package's, on the CPU.
   the port's losses bit-equal to a telemetry-off engine's.
 - Lifecycle: ring overflow reported, a disabled block inert, the
   sentinel catching an induced shape change, ``fail_on_recompile``
-  raising after the step's state was stored, a profile window refused
-  (ROADMAP queue 1 item 9), one batched host copy a drain.
+  raising after the step's state was stored, a profile window armed
+  over JAX's step range and ingested into a ``profile`` event, one
+  batched host copy a drain.
 - Goodput: a slow dataset, fp16 overflow skips and a trailing checkpoint
   land in the same goodput buckets as JAX's (a two-layer MLP on both
   sides), each window summing to its wall within 1%.
@@ -441,12 +442,33 @@ def test_fail_on_recompile_raises_after_the_state_is_stored(tmp_path):
 
 
 def test_profile_window_is_refused(tmp_path):
-    eng = port_mlp(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.profile_window(2)
+    """``profile_window`` arms a window (it was refused, naming ROADMAP
+    queue 1 item 9, until the window was ported): the same step range
+    as JAX's for the same call, a second arm refused (None) on both,
+    and the captured steps land in the JSONL as a ``profile`` event
+    whose buckets and idle sum to the window's wall. A config window
+    builds too; telemetry off, None."""
+    eng = port_mlp(tmp_path / "port")
+    jeng = jax_mlp(tmp_path / "jax")
+    for e in (eng, jeng):
+        e.train_batch(mlp_batch())
+    got, want = eng.profile_window(2), jeng.profile_window(2)
+    assert os.path.basename(got) == os.path.basename(want) == "step_2_4"
+    assert got == str(tmp_path / "port" / "torch_trace" / "step_2_4")
+    assert eng.profile_window(2) is None and jeng.profile_window(2) is None
+    jeng.telemetry.close()
+    for _ in range(4):
+        eng.train_batch(mlp_batch())
     eng.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_mlp(tmp_path, {"profile": {"start_step": 1}})
+    recs = read_jsonl(tmp_path / "port")
+    prof = [r for r in recs if r.get("event") == "profile"]
+    assert len(prof) == 1 and "error" not in prof[0]
+    assert prof[0]["window"]["path"] == got
+    assert prof[0]["decomposition"]["sum_check"]["explained_frac"] == \
+        pytest.approx(1.0, abs=0.05)
+    cfg = port_mlp(tmp_path / "cfg", {"profile": {"start_step": 1}})
+    assert cfg.telemetry.profiler.start_step == 1
+    cfg.close()
     off = port_mlp(tmp_path, {"enabled": False})
     assert off.profile_window(2) is None
 
