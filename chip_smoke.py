@@ -244,7 +244,18 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    the launch counts (paths ``train_zero_s1`` .. ``_s3``, both ranks)
    exactly the main path's a step and rank. Printed: each rank's step
    p50 and peak memory (gloo stages every collective through host
-   memory, so those step times are the host's). Then dense stage 0,
+   memory, so those step times are the host's). Then stage 3 with the
+   per-layer prefetched scan (``Zero3Scan``) at depths 0 and 1, 5 steps
+   each (paths ``train_zero_s3_scan_p0``, ``_p1``): ranks and depths
+   bit-equal, the losses within 2e-3 of stage 2's (bit-equality
+   printed), the ``full`` remat policy's launches a step and rank (the
+   backward re-runs K1, both K3f and K4f a layer), and each rank's
+   peak under the generic stage 3's by at least 0.9 x the
+   compute-dtype bytes of L - depth - 1 layers; and stage 3 with
+   ZeRO-Offload, 3 serial steps (``train_zero_s3_offload``): ranks
+   bit-equal, finite losses, the first within 2e-3 of the world-1
+   step, the main path's device launches less K5/K6 and the host
+   Adam's. Then dense stage 0,
    sparse gradients and 1-bit Adam (freeze_step 2), 4 steps each (paths
    ``train_zero_s0``, ``_sparse``, ``_onebit``): the ranks' params
    bit-equal after every step, the sparse step's params bit-equal to
@@ -390,6 +401,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
     sparse_attention_reference
 from deepspeed_tpu_torch.runtime.async_ckpt import AsyncCheckpointer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.zero.stage3 import Zero3Scan
 from deepspeed_tpu_torch.utils.timer import device_sync_count
 
 # Published peaks of the H100 SXM (NVIDIA data sheet, dense, 700 W): HBM
@@ -2419,16 +2431,18 @@ def per_train_step(cfg, seq=TRAIN_SEQ, gas=TRAIN_GAS):
 
 
 def make_engine(cfg, precision, seed=SEED, attention_fn=None,
-                micro=TRAIN_MICRO, extra=None, rng=None):
+                micro=TRAIN_MICRO, extra=None, rng=None, zero3=None):
     """An engine with params from ``seed``; its random stream's base
-    seed is ``rng`` (default: ``seed``)."""
+    seed is ``rng`` (default: ``seed``); ``zero3`` a ``Zero3Scan`` for
+    the model and the engine."""
     dev = torch.device("cuda")
     params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(seed))
     eng, *_ = deepspeed_tpu_torch.initialize(
-        model=gpt2_loss_fn(cfg, attention_fn=attention_fn),
+        model=gpt2_loss_fn(cfg, attention_fn=attention_fn, zero3=zero3),
         model_params=params,
         config=dict(train_config(precision, TRAIN_STEPS, micro),
-                    **(extra or {})), rng=seed if rng is None else rng)
+                    **(extra or {})), rng=seed if rng is None else rng,
+        zero3_scan=zero3)
     return eng
 
 
@@ -3231,6 +3245,14 @@ def train_checkpoint(dev, smi):
 # Phase 5e: data parallelism and ZeRO 1/2/3 (two ranks on the one card)
 # --------------------------------------------------------------------- #
 ZERO_DP, ZERO_STEPS, ZERO_STAGES = 2, 5, (1, 2, 3)
+# Stage 3 with the per-layer prefetched scan (paths train_zero_s3_scan_p0
+# and _p1, ZERO_STEPS each), and stage 3 with ZeRO-Offload (serial, 3
+# steps). The scan holds prefetch_depth + 1 gathered layers where the
+# generic stage 3 holds the whole compute-dtype tree through the forward
+# (and, with no recompute, every layer's activations): a rank's peak must
+# sit below the generic path's by ZERO_SCAN_PEAK_SLACK of the bytes of
+# L - depth - 1 layers.
+ZERO_SCAN_DEPTHS, ZERO_OFFLOAD_STEPS, ZERO_SCAN_PEAK_SLACK = (0, 1), 3, 0.9
 # The two stage-0 train steps that replace the grad all-reduce, at dp 2
 # beside the dense stage-0 step they are held against: 1-bit Adam (two
 # warmup steps, two compressed) and sparse gradients (the CSR exchange of
@@ -3260,9 +3282,39 @@ def _zero_rank_rows(batch, micro):
                       for i in range(TRAIN_GAS)])
 
 
+def _zero_record(eng, local, offload=False):
+    """Drive ``eng`` over ``local`` as one path from a reset peak; the
+    record a rank writes: losses, step ms, launches, peak bytes, the
+    params' and the optimizer state's digests."""
+    import hashlib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if offload:
+        r = run_offload(eng, local)
+        losses, ms, counts = r["losses"], r["ms"], r["counts"]
+    else:
+        losses, _, ms, counts = run_path(eng, local)
+    peak = torch.cuda.max_memory_allocated()
+    digest = hashlib.sha256()
+    for t in tree_flatten(eng.full_params())[0]:
+        digest.update(t.detach().float().cpu().numpy().tobytes())
+    m_digest = hashlib.sha256()
+    state = [t for t in eng._offload.opt.exp_avg + eng._offload.opt.exp_avg_sq
+             ] if offload else list(eng.state.opt_state.m) + \
+        list(eng.state.opt_state.v)
+    for t in state:
+        m_digest.update(t.cpu().numpy().tobytes())
+    return {"losses": losses, "ms": ms, "counts": counts,
+            "peak_bytes": peak, "params_sha256": digest.hexdigest(),
+            "moments_sha256": m_digest.hexdigest()}
+
+
 def train_zero_rank(rank, spec_path):
     """One rank of ``train_zero`` (a child process): gloo on the shared
-    card, the train recipe at each ZeRO stage, results to a JSON file."""
+    card, the train recipe at each ZeRO stage, then stage 3 with the
+    layer scan at each depth and stage 3 with offload, results to a
+    JSON file."""
     import hashlib
     import torch.distributed as dist
     with open(spec_path) as f:
@@ -3277,27 +3329,34 @@ def train_zero_rank(rank, spec_path):
     batches = [torch.from_numpy(b) for b in np.load(spec["batches"])]
     local = [_zero_rank_rows(b, micro) for b in batches]
     out = {}
-    for stage in ZERO_STAGES:
-        eng = make_engine(cfg, "bf16", micro=micro, extra={
+
+    def zero_engine(zero, scan=None):
+        return make_engine(cfg, "bf16", micro=micro, zero3=scan, extra={
             "train_batch_size": TRAIN_GAS * micro * ZERO_DP,
-            "zero_optimization": {"stage": stage}})
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        losses, _, ms, counts = run_path(eng, local)
-        peak = torch.cuda.max_memory_allocated()
-        digest = hashlib.sha256()
-        for t in tree_flatten(eng.full_params())[0]:
-            digest.update(t.detach().float().cpu().numpy().tobytes())
-        m_digest = hashlib.sha256()
-        for t in list(eng.state.opt_state.m) + list(eng.state.opt_state.v):
-            m_digest.update(t.cpu().numpy().tobytes())
-        out[str(stage)] = {"losses": losses, "ms": ms, "counts": counts,
-                           "peak_bytes": peak,
-                           "params_sha256": digest.hexdigest(),
-                           "moments_sha256": m_digest.hexdigest()}
+            "zero_optimization": zero})
+    for stage in ZERO_STAGES:
+        eng = zero_engine({"stage": stage})
+        out[str(stage)] = _zero_record(eng, local)
         del eng
         torch.cuda.empty_cache()
+    for depth in ZERO_SCAN_DEPTHS:
+        scan = Zero3Scan(prefetch_depth=depth)
+        eng = zero_engine({"stage": 3}, scan)
+        assert scan.bound and scan.prefetch_depth == depth, scan.mode
+        out[f"scan_p{depth}"] = dict(
+            _zero_record(eng, local),
+            gather_working_set_bytes=eng.telemetry.meta[
+                "zero3_gather_working_set_bytes"])
+        del eng, scan
+        torch.cuda.empty_cache()
+    eng = zero_engine({"stage": 3, "cpu_offload": True})
+    out["s3_offload"] = dict(
+        _zero_record(eng, local[:ZERO_OFFLOAD_STEPS], offload=True),
+        device_param_bytes=eng._dev_params.numel() *
+        eng._dev_params.element_size(),
+        host_leaves=len(eng._offload.masters))
+    del eng
+    torch.cuda.empty_cache()
     for mode in ZERO_STAGE0_MODES:
         extra = {"train_batch_size": TRAIN_GAS * micro * ZERO_DP,
                  "zero_optimization": {"stage": 0}}
@@ -3357,7 +3416,9 @@ def train_zero(dev, smi):
     global batch; every launch count is exactly the main path's a step
     and rank. Printed: each rank's step p50 and peak memory — the step
     times include gloo's staging of every collective through the host,
-    so they are the host's, not what NCCL across cards would give."""
+    so they are the host's, not what NCCL across cards would give. The
+    stage-3 scan and stage-3 offload paths: ``train_zero_scan_checks``.
+    Returns the paths' launches and the offload path's host counts."""
     cfg = _zero_cfg()
     batches = token_stream(cfg, ZERO_STEPS, seed=SEED + 5, seq=TRAIN_SEQ,
                            micro=TRAIN_MICRO)
@@ -3426,6 +3487,8 @@ def train_zero(dev, smi):
     for x in res:
         for key in ("losses", "params_sha256", "moments_sha256"):
             assert x["2"][key] == x["3"][key], ("stage 3 != stage 2", key)
+    scan_rec, scan_host = train_zero_scan_checks(cfg, res, expect, ref_loss,
+                                                 counts, smi)
     rel = abs(res[0]["1"]["losses"][0] - ref_loss) / abs(ref_loss)
     rec.update({"first_loss_world1": ref_loss, "first_loss_rel": rel,
                 "first_loss_rtol": TRAIN_LOSS_RTOL,
@@ -3440,6 +3503,7 @@ def train_zero(dev, smi):
                 "card": smi})
     assert rel <= TRAIN_LOSS_RTOL, rec
     emit({"train_zero": rec})
+    emit({"train_zero_s3_scan": scan_rec})
 
     # 1-bit Adam and sparse gradients at dp 2, beside dense stage 0.
     no_adam = dict(expect, sqnorm=0, fused_adam_apply=0)
@@ -3479,7 +3543,101 @@ def train_zero(dev, smi):
                "and the 1/dp is a power of two: bit-equal expected"}
     emit({"train_zero_stage0": stage0})
     assert diff <= SPARSE_VS_DENSE_ATOL, stage0["sparse_vs_s0"]
-    return counts
+    return counts, scan_host
+
+
+def train_zero_scan_checks(cfg, res, expect, ref_loss, counts, smi):
+    """``train_zero``'s stage-3 scan and stage-3 offload paths, from the
+    ranks' records ``res``: the ranks bit-equal; depth 0 equal to depth
+    1 bit for bit; the losses within TRAIN_LOSS_RTOL of stage 2's (and
+    whether they are the same bits); the launches exactly the ``full``
+    remat policy's a step and rank (the backward re-runs K1, both K3f
+    and K4f a layer); a rank's peak at depth d under the generic stage
+    3's by ZERO_SCAN_PEAK_SLACK of L - d - 1 layers' compute-dtype bytes.
+    Offload: ranks bit-equal, finite losses, the first within
+    TRAIN_LOSS_RTOL of the world-1 step, the device launches the main
+    path's less K5/K6, the host Adam's a leaf a step. Fills ``counts``;
+    returns the record and the offload path's host counts."""
+    L, H = cfg.num_layers, cfg.hidden_size
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    per_layer = (gpt2_num_params(cfg) - cfg.vocab_size * H -
+                 cfg.max_seq_length * H - 2 * H) // L
+    layer_bytes = itemsize * per_layer
+    full = per_remat_step(cfg, "full", expect)
+    rec = {"model": "gpt2-small", "dp": ZERO_DP, "card": smi,
+           "precision": "bf16, fp32 masters",
+           "per_rank_batch": f"{TRAIN_GAS} x {TRAIN_MICRO // ZERO_DP} x "
+                             f"{TRAIN_SEQ}",
+           "layer_params": per_layer, "layer_bytes": layer_bytes,
+           "note": "two ranks share one card through gloo, which stages "
+                   "every collective through host memory: the step times "
+                   "are the host's, not NCCL's across cards"}
+    generic = [x["3"] for x in res]
+    s2 = res[0]["2"]["losses"]
+    for depth in ZERO_SCAN_DEPTHS:
+        key = f"scan_p{depth}"
+        st = [x[key] for x in res]
+        assert all(x["params_sha256"] == st[0]["params_sha256"] and
+                   x["losses"] == st[0]["losses"] for x in st), \
+            ("ranks differ", key)
+        rel = [abs(a - b) / abs(b) for a, b in zip(st[0]["losses"], s2)]
+        assert max(rel) <= TRAIN_LOSS_RTOL, (key, rel)
+        want = {k: ZERO_STEPS * v for k, v in full.items()}
+        for x in st:
+            assert x["counts"] == want, (key, x["counts"], want)
+        counts[f"train_zero_s3_{key}"] = {
+            k: sum(x["counts"][k] for x in st) for k in st[0]["counts"]}
+        saving = [g["peak_bytes"] - x["peak_bytes"]
+                  for g, x in zip(generic, st)]
+        need = ZERO_SCAN_PEAK_SLACK * (L - depth - 1) * layer_bytes
+        rec[key] = {
+            "losses": st[0]["losses"],
+            "losses_bit_equal_stage2": st[0]["losses"] == s2,
+            "max_loss_rel_to_stage2": max(rel),
+            "step_ms_p50_by_rank": [float(np.median(x["ms"][1:]))
+                                    for x in st],
+            "peak_gb_by_rank": [x["peak_bytes"] / 1e9 for x in st],
+            "generic_s3_peak_gb_by_rank": [g["peak_bytes"] / 1e9
+                                           for g in generic],
+            "peak_saving_gb_by_rank": [v / 1e9 for v in saving],
+            "peak_saving_floor_gb": need / 1e9,
+            "gather_working_set_bytes": st[0]["gather_working_set_bytes"],
+            "generic_s3_step_ms_p50_by_rank": [
+                float(np.median(g["ms"][1:])) for g in generic]}
+        assert min(saving) >= need, rec[key]
+    for x in res:
+        for k in ("losses", "params_sha256", "moments_sha256"):
+            assert x["scan_p0"][k] == x["scan_p1"][k], ("depths differ", k)
+    rec["depths_bit_equal"] = True
+    rec["ranks_bit_equal"] = True
+    off = [x["s3_offload"] for x in res]
+    assert all(x["params_sha256"] == off[0]["params_sha256"] and
+               x["losses"] == off[0]["losses"] for x in off), \
+        "offload ranks differ"
+    assert all(math.isfinite(v) for v in off[0]["losses"]), off[0]
+    rel = abs(off[0]["losses"][0] - ref_loss) / abs(ref_loss)
+    assert rel <= TRAIN_LOSS_RTOL, (off[0]["losses"], ref_loss)
+    leaves = off[0]["host_leaves"]
+    want = {k: ZERO_OFFLOAD_STEPS * v for k, v in
+            dict(expect, sqnorm=0, fused_adam_apply=0).items()}
+    want.update(cpu_adam_step=ZERO_OFFLOAD_STEPS * leaves,
+                cpu_adam_norm=ZERO_OFFLOAD_STEPS * leaves)
+    for x in off:
+        assert x["counts"] == want, ("s3_offload", x["counts"], want)
+    counts["train_zero_s3_offload"] = {
+        k: sum(x["counts"][k] for x in off) for k in off[0]["counts"]
+        if not k.startswith("cpu_adam")}
+    host = {"train_zero_s3_offload": {
+        k: sum(x["counts"][k] for x in off) for k in off[0]["counts"]
+        if k.startswith("cpu_adam")}}
+    rec["s3_offload"] = {
+        "losses": off[0]["losses"], "first_loss_world1": ref_loss,
+        "first_loss_rel": rel, "serial": True,
+        "step_ms_p50_by_rank": [float(np.median(x["ms"][1:])) for x in off],
+        "peak_gb_by_rank": [x["peak_bytes"] / 1e9 for x in off],
+        "device_param_bytes_by_rank": [x["device_param_bytes"]
+                                       for x in off]}
+    return rec, host
 
 
 # --------------------------------------------------------------------- #
@@ -6194,9 +6352,11 @@ def main():
     counts.update(onebit_counts)
     optimizer_rows += onebit_rows
     counts.update(train_checkpoint(dev, smi))
-    counts.update(train_zero(dev, smi))
+    zero_counts, zero_host_counts = train_zero(dev, smi)
+    counts.update(zero_counts)
     offload_counts, host_counts = train_offload(dev, smi, host_adam)
     counts.update(offload_counts)
+    host_counts.update(zero_host_counts)
     counts.update(launch_phase(smi))
     reg_dir.cleanup()
 

@@ -14,7 +14,8 @@ module names so each counterpart is easy to find. What is ported so far:
   Adagrad, RMSprop, Lion, unfused Adam, ``torch.optim`` by name or as a
   client optimizer) (``runtime/``, ``ops/optimizers.py``), on one card
   or one process per card (``init_distributed``: data parallelism and
-  ZeRO stages 0-3 over ``torch.distributed``);
+  ZeRO stages 0-3 over ``torch.distributed``, stage 3 with the per-layer
+  prefetched scan, ``Zero3Scan``);
 
 running on hand-written Hopper kernels for paged attention, LayerNorm
 and bias+GELU forward and backward, the grad norm and the fused Adam
@@ -67,16 +68,14 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
     leaf) -> bool`` picks the leaves whose grads travel the CSR exchange
     under ``sparse_gradients`` (the path in ``jax.tree_util.keystr``
     form); by default the 2-D leaves named like an embedding.
+    ``zero3_scan``: a ``runtime.zero.stage3.Zero3Scan``, the same one the
+    model's loss was built with (``gpt2_loss_fn(cfg, zero3=spec)``); a
+    stage-3 engine at dp > 1 binds it, and the model's layers then run
+    as the per-layer prefetched scan.
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from .runtime.engine import DeepSpeedEngine
-
-    if zero3_scan is not None:
-        raise NotImplementedError(
-            "zero3_scan (the per-layer prefetched stage-3 scan) is not "
-            "ported yet (ROADMAP queue 1: the per-layer Zero3Scan with "
-            "prefetch); stage 3 gathers every leaf per micro-step")
 
     cfg = config if config is not None else config_params
     if cfg is None and args is not None:
@@ -91,7 +90,8 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
                              dist_init_required=dist_init_required,
                              collate_fn=collate_fn, config=cfg, rng=rng,
                              device=device,
-                             sparse_grad_filter=sparse_grad_filter)
+                             sparse_grad_filter=sparse_grad_filter,
+                             zero3_scan=zero3_scan)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

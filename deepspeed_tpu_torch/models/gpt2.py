@@ -76,13 +76,15 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                 attention_fn: Optional[Callable] = None,
                 ops: Optional[ElementwiseOps] = None,
                 with_moe_stats: bool = False,
-                pld_theta: Optional[float] = None):
+                pld_theta: Optional[float] = None, zero3: Any = None):
     """tokens [B, S] → final hidden states [B, S, H] (post ln_f).
     ``attention_fn`` defaults to ``auto_attention`` (the flash kernels on
     a CUDA device, dense attention on the CPU); ``ops`` defaults to the
     ones ``cfg.fused_kernels`` selects. ``with_moe_stats=True`` returns
     ``(hidden, moe_stats_or_None)``. ``pld_theta``: progressive layer
-    drop's keep probability (``apply_blocks``)."""
+    drop's keep probability (``apply_blocks``). ``zero3``: a
+    ``Zero3Scan``; bound, the stacked block params arrive as this rank's
+    parts and the layers run as the ZeRO-3 scan (``apply_blocks``)."""
     ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens] + \
@@ -90,7 +92,7 @@ def gpt2_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     out = apply_blocks(params["blocks"], x, cfg, rng=rng,
                        deterministic=deterministic,
                        attention_fn=attention_fn, ops=ops,
-                       pld_theta=pld_theta)
+                       pld_theta=pld_theta, zero3=zero3)
     x, moe_stats = out if cfg.moe is not None else (out, None)
     h = ops.ln(x, params["ln_f_scale"], params["ln_f_bias"],
                cfg.layer_norm_eps)
@@ -107,7 +109,8 @@ def gpt2_apply(params: Dict[str, Any], tokens: torch.Tensor,
 
 
 def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
-                 ops: Optional[ElementwiseOps] = None) -> Callable:
+                 ops: Optional[ElementwiseOps] = None,
+                 zero3: Any = None) -> Callable:
     """Returns ``loss_fn(params, batch, rng=None, pld_theta=None)`` for
     the engine.
 
@@ -126,7 +129,12 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
     With ``cfg.moe`` the loss gains ``aux_loss_weight * aux_loss +
     z_loss_weight * z_loss`` (averaged over the MoE layers) and the fn
     returns ``(loss, {"moe": stats})``; the engine turns the stats into
-    its ``moe_*`` metrics."""
+    its ``moe_*`` metrics.
+
+    ``zero3``: pass the SAME ``runtime/zero/stage3.Zero3Scan`` here and
+    to ``deepspeed_tpu_torch.initialize(..., zero3_scan=...)``; a
+    stage-3 engine at dp > 1 binds it, and the layers then run as the
+    ZeRO-3 prefetched scan. Unbound it changes nothing."""
     check_trainable(cfg)
 
     def loss_fn(params, batch, rng=None, pld_theta=None):
@@ -137,7 +145,8 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
         x, moe_stats = gpt2_hidden(params, tokens, cfg, rng=rng,
                                    deterministic=False,
                                    attention_fn=attention_fn, ops=ops,
-                                   with_moe_stats=True, pld_theta=pld_theta)
+                                   with_moe_stats=True, pld_theta=pld_theta,
+                                   zero3=zero3)
         B, S = tokens.shape
         loss = chunked_softmax_xent(x.reshape(B * S, -1),
                                     params["wte"].to(cfg.dtype),
@@ -149,6 +158,7 @@ def gpt2_loss_fn(cfg: GPT2Config, attention_fn: Optional[Callable] = None,
             + moe.z_loss_weight * moe_stats["z_loss"]
         return loss, {"moe": moe_stats}
     loss_fn.cfg = cfg
+    loss_fn.zero3 = zero3
     return loss_fn
 
 

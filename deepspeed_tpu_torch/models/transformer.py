@@ -540,7 +540,7 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                  ops: Optional[ElementwiseOps] = None,
                  pld_theta: Optional[float] = None,
                  layer_valid: Optional[Sequence] = None,
-                 mask: Optional[torch.Tensor] = None):
+                 mask: Optional[torch.Tensor] = None, zero3: Any = None):
     """All L layers as a Python loop over the stacked leading axis (the
     JAX ``scan_layers=False`` program). Each stacked tensor is unbound
     once, so its gradient comes back as one stack, not as L scatters.
@@ -559,11 +559,21 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     ``layer_valid`` ([L] 0/1 host data): identity-skip slots, as the
     JAX pipeline's padded stages use them. Neither composes with MoE
     (as in JAX). ``mask``: the additive attention mask of every block
-    (``additive_mask``)."""
+    (``additive_mask``).
+
+    ``zero3`` (a bound ``runtime/zero/stage3.Zero3Scan``) reroutes the
+    loop through the ZeRO-3 scan (``zero3_block_scan``): the stacked
+    params arrive as this rank's parts, each layer is gathered
+    ``prefetch_depth`` layers ahead of use and dropped after it, and the
+    backward re-gathers it, recomputes it (``remat_policy`` is subsumed:
+    the ``full`` policy's region) and reduce-scatters its grads. It does
+    not compose with MoE, progressive layer drop or ``layer_valid`` (as
+    in JAX). An unbound spec runs the normal loop."""
     L = stacked["ln1_scale"].shape[0]
     kinds = remat_policy(cfg.remat_policy)
     moe_layers = [] if cfg.moe is None else \
         moe_layer_indices(L, cfg.moe_layer_freq)
+    scan = zero3 is not None and getattr(zero3, "bound", False)
     if cfg.moe is not None:
         if not moe_layers:
             raise ValueError(
@@ -574,6 +584,21 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                 "moe blocks do not compose with progressive layer drop "
                 "or padded layer_valid slots (a skipped layer has no "
                 "fixed-shape expert stats)")
+        if scan:
+            raise ValueError(
+                "moe blocks do not compose with the zero3 layer scan — "
+                "use the generic stage-3 leaf-at-use gather (no "
+                "zero3_scan)")
+    if scan:
+        if pld_theta is not None or layer_valid is not None:
+            raise ValueError(
+                "zero3 layer scan does not compose with progressive "
+                "layer drop or padded layer_valid slots")
+        from ..runtime.zero.stage3 import zero3_block_scan
+        program = block_program(cfg, x.shape, x.device, x.dtype,
+                                deterministic, attention_fn, ops, False,
+                                mask)
+        return zero3_block_scan(program, stacked, x, zero3, rng=rng)
     run = [True] * L
     if layer_valid is not None:
         run = [bool(v) for v in _host_data(layer_valid, "layer_valid")]

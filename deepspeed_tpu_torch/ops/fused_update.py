@@ -46,6 +46,18 @@ groups sorted by dtype name, leaves in the order ``tree_flatten`` gives
   over the ranks, and K6's stochastic-rounding index starts at the
   rank's first element in the V-layout, so every element draws the
   noise the JAX kernel draws for it.
+- A stage-3 engine with a bound ``Zero3Scan`` holds its groups in the
+  per-layer form of that layout (``ShardGroup(..., layers=)``): each
+  stacked ``[L, ...]`` leaf the scan covers enters as its L layer
+  slices, each padded to V and laid ``[V, r]`` like a leaf of its own,
+  the covered leaves' slices of one layer side by side in a block of
+  ``R`` columns and the L blocks one after another, ahead of the other
+  leaves. A rank's rows then hold ``1/dp`` of every layer, so one
+  layer's gather is an equal-size all-gather of a ``[V/dp, R]`` block.
+  K5 and K6 run over the rows as they do over any group; an element's
+  stochastic-rounding index is its place in this layout, not in the
+  JAX one (ROADMAP §3). Checkpoints carry the moments in the JAX layout
+  (``to_jax_rows``, ``local_rows_from_jax``).
 """
 from __future__ import annotations
 
@@ -302,18 +314,37 @@ class ShardGroup:
     the dtype of the group: fp32 masters or bf16 master-free) and of the
     fp32 gradients (``grad``), each ``[V/dp * Lpad]`` flat. ``base`` is
     the rank's first element in the whole ``[V * Lpad]`` buffer: K6's
-    stochastic-rounding index starts there."""
+    stochastic-rounding index starts there.
+
+    ``layers``: per leaf, 0 (the leaf is one column range) or its number
+    of layer slices L (a stacked ``[L, ...]`` leaf in the per-layer form
+    of the layout, the module docstring's last item; every such leaf of
+    the group has the same L). ``columns`` gives each leaf's
+    ``(column offset, r)`` (of its layer 0 for a layered leaf) and
+    ``strides`` the column distance between a layered leaf's slices
+    (0 for the others)."""
 
     cast = None
 
     def __init__(self, shapes: List[Tuple[int, ...]], dtype: torch.dtype,
-                 device: torch.device, plan: Any):
+                 device: torch.device, plan: Any,
+                 layers: Optional[List[int]] = None):
         self.dtype = dtype
         self.shapes = [tuple(s) for s in shapes]
         self.sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
         self.shards = plan.shards
-        self.Lpad = _group_row_len(self.sizes, self.shards)
-        self.columns = _leaf_columns(self.sizes, self.shards)
+        self.plan = plan
+        self.layers = [int(n) for n in (layers or [0] * len(shapes))]
+        self.layered = any(self.layers)
+        if self.layered:
+            self.columns, self.strides, end = _layered_columns(
+                self.sizes, self.layers, self.shards)
+            self.Lpad = max(_ROW_QUANTUM, -(-end // _ROW_QUANTUM)
+                            * _ROW_QUANTUM)
+        else:
+            self.columns = _leaf_columns(self.sizes, self.shards)
+            self.strides = [0] * len(self.sizes)
+            self.Lpad = _group_row_len(self.sizes, self.shards)
         self.rows_per_rank = plan.rows_per_rank
         self.rows = (plan.row0, plan.row1)
         self.numel = self.rows_per_rank * self.Lpad
@@ -326,25 +357,129 @@ class ShardGroup:
     def full_numel(self) -> int:
         return self.shards * self.Lpad
 
+    def _slices(self, buf2: torch.Tensor, j: int) -> torch.Tensor:
+        """Layered leaf ``j``'s ``[L, rows, r]`` view of a 2-D buffer of
+        this layout's rows (``buf2``: ``[rows, Lpad]``, contiguous)."""
+        off, r = self.columns[j]
+        return buf2.as_strided((self.layers[j], buf2.shape[0], r),
+                               (self.strides[j], self.Lpad, 1),
+                               buf2.storage_offset() + off)
+
     def local_views(self, buf: torch.Tensor) -> List[torch.Tensor]:
-        """Each leaf's ``[V/dp, r_leaf]`` block of a local-rows buffer
-        (strided views)."""
+        """Each leaf's block of a local-rows buffer (strided views):
+        ``[V/dp, r_leaf]``, or ``[L, V/dp, r]`` for a layered leaf (layer
+        l's part at ``[l]``)."""
         b2 = buf.view(self.rows_per_rank, self.Lpad)
-        return [b2[:, off:off + r] for off, r in self.columns]
+        return [self._slices(b2, j) if n else b2[:, off:off + r]
+                for j, (n, (off, r)) in enumerate(zip(self.layers,
+                                                      self.columns))]
+
+    def segments(self) -> List[List[Tuple[int, int]]]:
+        """Each leaf's column ranges ``[(offset, length)]``: one, or one
+        a layer slice."""
+        return [[(off + k * st, r) for k in range(max(n, 1))]
+                for n, st, (off, r) in zip(self.layers, self.strides,
+                                           self.columns)]
 
     def pack(self, leaves: List[Optional[torch.Tensor]],
              out: torch.Tensor, rows: Optional[Tuple[int, int]] = None
              ) -> torch.Tensor:
         """Leaves (None: zeros) → ``out``, rows ``rows`` (default this
-        rank's) of the V-layout; ``out`` is flat or 2-D."""
+        rank's) of the layout; ``out`` is flat or 2-D."""
         r0, r1 = self.rows if rows is None else rows
-        _pack_rows(leaves, self.columns, r0, out.view(r1 - r0, self.Lpad))
+        out2 = out.view(r1 - r0, self.Lpad)
+        if not self.layered:
+            _pack_rows(leaves, self.columns, r0, out2)
+            return out
+        out2.zero_()
+        V = self.shards
+        for j, (leaf, n, (off, r)) in enumerate(zip(leaves, self.layers,
+                                                    self.columns)):
+            if leaf is None:
+                continue
+            if not n:
+                _pack_leaf(leaf, out2[:, off:off + r], r0, r)
+                continue
+            m = self.sizes[j] // n
+            src = leaf.reshape(n, m)
+            if V * r != m:
+                src = torch.nn.functional.pad(src, (0, V * r - m))
+            self._slices(out2, j).copy_(src.view(n, V, r)[:, r0:r1])
         return out
 
     def unpack(self, buf: torch.Tensor, outs: List[torch.Tensor]) -> None:
-        """The whole V-layout buffer → each leaf, in place into the
+        """The whole layout's buffer → each leaf, in place into the
         leaf-shaped ``outs``."""
-        _unflatten_group(buf, outs, self.shards)
+        if not self.layered:
+            _unflatten_group(buf, outs, self.shards)
+            return
+        V = self.shards
+        b2 = buf.view(V, self.Lpad)
+        for j, (dst, n, (off, r)) in enumerate(zip(outs, self.layers,
+                                                   self.columns)):
+            if not n:
+                _unflatten_group(b2[:, off:off + r].contiguous(), [dst], V)
+                continue
+            m = self.sizes[j] // n
+            dst.view(n, m).copy_(self._slices(b2, j).reshape(n, V * r)
+                                 [:, :m])
+
+    def _jax_twin(self) -> "ShardGroup":
+        return ShardGroup(self.shapes, self.dtype, torch.device("meta"),
+                          self.plan)
+
+    def to_jax_rows(self, full: torch.Tensor) -> torch.Tensor:
+        """A whole buffer of this layout (host) → the same values in the
+        JAX V-layout of whole leaves."""
+        leaves = [torch.empty(s, dtype=full.dtype) for s in self.shapes]
+        self.unpack(full, leaves)
+        twin = self._jax_twin()
+        out = torch.empty(twin.full_numel, dtype=full.dtype)
+        twin.pack(leaves, out, rows=(0, self.shards))
+        return out
+
+    def local_rows_from_jax(self, full: Any) -> Any:
+        """A whole JAX V-layout buffer of this group's leaves (numpy or
+        a host tensor) → this rank's rows of this layout."""
+        full = torch.as_tensor(np.asarray(full)).reshape(-1)
+        twin = self._jax_twin()
+        leaves = [torch.empty(s, dtype=full.dtype) for s in self.shapes]
+        twin.unpack(full, leaves)
+        out = torch.empty(self.numel, dtype=full.dtype)
+        return self.pack(leaves, out)
+
+
+def _layered_columns(sizes: List[int], layers: List[int], shards: int
+                     ) -> Tuple[List[Tuple[int, int]], List[int], int]:
+    """The per-layer form of the layout: ``(columns, strides, end)``.
+    The layered leaves' slices of layer l fill block l (``R`` columns,
+    the slices' ``r`` side by side), the L blocks first; the other
+    leaves follow as in ``_leaf_columns``."""
+    Ls = {n for n in layers if n}
+    if len(Ls) != 1:
+        raise ValueError(f"the layered leaves of a group must have one "
+                         f"layer count, got {sorted(Ls)}")
+    L = Ls.pop()
+    cols: List[Tuple[int, int]] = [(0, 0)] * len(sizes)
+    strides = [0] * len(sizes)
+    R = 0
+    for j, (n, size) in enumerate(zip(layers, sizes)):
+        if n:
+            if size % n:
+                raise ValueError(f"a leaf of {size} elements does not "
+                                 f"split into {n} layers")
+            r = _leaf_rows(size // n, shards)
+            cols[j] = (R, r)
+            R += r
+    end = L * R
+    for j, (n, size) in enumerate(zip(layers, sizes)):
+        if n:
+            strides[j] = R
+        else:
+            r = _leaf_rows(size, shards)
+            cols[j] = (end, r)
+            end += r
+    return cols, strides, end
 
 
 # --------------------------------------------------------------------- #

@@ -416,34 +416,46 @@ class Lamb(AdamChain):
         return ctx.neg_lr * _leaf_scale_(u, ratio, ctx.grp), new
 
 
-def _leaf_segments(grp: Group) -> Tuple[List[Tuple[int, int]], int, int]:
-    """``([(offset, length)] a leaf, rows, row length)``: a ``FlatGroup``
-    is one row of contiguous leaves; a ``ShardGroup`` ``rows_per_rank``
-    rows of ``Lpad`` columns, each leaf a column range."""
+def _leaf_segments(grp: Group
+                   ) -> Tuple[List[List[Tuple[int, int]]], int, int]:
+    """``([[(offset, length)] a leaf], rows, row length)``: a
+    ``FlatGroup`` is one row of contiguous leaves; a ``ShardGroup``
+    ``rows_per_rank`` rows of ``Lpad`` columns, each leaf a column range
+    (a range a layer slice in the per-layer form)."""
     if isinstance(grp, ShardGroup):
-        return list(grp.columns), grp.rows_per_rank, grp.Lpad
-    return list(zip(grp.offsets, grp.sizes)), 1, grp.numel
+        return grp.segments(), grp.rows_per_rank, grp.Lpad
+    return [[seg] for seg in zip(grp.offsets, grp.sizes)], 1, grp.numel
 
 
 def _leaf_sums(sq: torch.Tensor, grp: Group) -> torch.Tensor:
     """Each leaf's sum of the (non-negative) flat ``sq``, fp32
     ``[leaves]``: one multi-tensor reduction over the leaves' ranges
-    (of the column sums, for rows)."""
+    (of the column sums, for rows); a leaf of several ranges adds their
+    sums in order."""
     segs, rows, width = _leaf_segments(grp)
     x = sq.view(rows, width).sum(0) if rows > 1 else sq
-    return torch.stack(torch._foreach_norm(
-        [x.narrow(0, off, n) for off, n in segs], 1))
+    sums = torch._foreach_norm([x.narrow(0, off, n) for leaf in segs
+                                for off, n in leaf], 1)
+    out, k = [], 0
+    for leaf in segs:
+        acc = sums[k]
+        for extra in sums[k + 1:k + len(leaf)]:
+            acc = acc + extra
+        out.append(acc)
+        k += len(leaf)
+    return torch.stack(out)
 
 
 def _leaf_scale_(u: torch.Tensor, per_leaf: torch.Tensor,
                  grp: Group) -> torch.Tensor:
     """``u`` (flat, the group's layout) times each leaf's value of
-    ``per_leaf`` on that leaf's elements, in place: one multiply a leaf
-    (the padding, where ``u`` is 0, is left as it is)."""
+    ``per_leaf`` on that leaf's elements, in place: one multiply a
+    range (the padding, where ``u`` is 0, is left as it is)."""
     segs, rows, width = _leaf_segments(grp)
     u2 = u.view(rows, width)
-    for (off, n), r in zip(segs, per_leaf.unbind()):
-        u2.narrow(1, off, n).mul_(r)
+    for leaf, r in zip(segs, per_leaf.unbind()):
+        for off, n in leaf:
+            u2.narrow(1, off, n).mul_(r)
     return u
 
 

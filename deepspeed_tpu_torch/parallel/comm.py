@@ -138,6 +138,12 @@ def all_gather(x: torch.Tensor,
     return out
 
 
+def all_gather_start(x: torch.Tensor, out: torch.Tensor):
+    """Start ``all_gather(x, out)`` (``x`` flat and contiguous; both must
+    live until it ends); returns the work whose ``wait()`` ends it."""
+    return dist.all_gather_into_tensor(out, x, async_op=True)
+
+
 def gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
     """Every rank's ``x`` on rank ``dst`` (in rank order); None
     elsewhere."""
@@ -161,5 +167,6 @@ def barrier() -> None:
 
 __all__ = ["init_distributed", "set_local_device", "is_initialized",
            "get_world_size", "get_rank", "all_reduce", "reduce_scatter",
-           "all_gather", "gather", "broadcast", "barrier",
+           "all_gather", "all_gather_start", "gather", "broadcast",
+           "barrier",
            "default_backend"]

@@ -861,14 +861,6 @@ class DeepSpeedConfig:
             (world > 1 and self.moe_config.num_experts > 0,
              "MoE at dp > 1", "queue 1 item 6, what dp and ZeRO left: MoE "
              "at dp > 1"),
-            # The host partition follows each leaf's axis; stage 3's
-            # parameters are V-layout rows (runtime/zero/stage3.py).
-            (world > 1 and bool(self.zero_config.cpu_offload) and
-             self.zero_optimization_stage >= 3,
-             "zero_optimization.cpu_offload at ZeRO stage 3 with dp > 1 "
-             "(the host partition follows each leaf's axis, the stage-3 "
-             "parameters are rows of the V-interleaved layout)",
-             "queue 1: stage 3 + offload at dp > 1"),
             (self.mesh_num_slices > 1,
              f"mesh.slices = {self.mesh_num_slices} (multi-slice scale-out "
              "and its hierarchical ICI/DCN gradient sync)",

@@ -50,6 +50,13 @@ with explicit collectives (the JAX engine's explicit schedule,
   micro-step gathers the leaves in the compute dtype
   (``zero/stage3.gather_cast``), saved for the backward pass as
   re-gathers, and the fp32 reduce-scatter is the gather's backward.
+  With ``initialize(..., zero3_scan=spec)`` (the spec the model was
+  built with) the engine binds it (``_bind_zero3_scan``) and holds the
+  groups in the per-layer form of the rows: the leaves the spec covers
+  go to the model as this rank's ``[L, V/dp, r]`` parts, and the
+  model's layer loop gathers them a layer at a time, ``prefetch_depth``
+  layers ahead (``zero/stage3.zero3_block_scan``); the others keep the
+  gather at use.
 
 At stages 1-2 the updated rows are all-gathered into the natural
 buffers the model views and the compute-dtype copy is re-cast from
@@ -101,9 +108,12 @@ bucketed step with its own loss-scale machine, and each bucket's
 compute-dtype copy goes back; ``overlap_comm`` overlaps the copies with
 the host work (one process only). At dp > 1 each rank holds its
 partition of each leaf (its grads reduce-scattered along the leaf's
-partition axis, the params all-gathered back); stage 3 with offload at
-dp > 1 raises. The checkpoint is the JAX offload layout: ``{"offload":
-state}`` in the optimizer file and the fp32 masters as the module.
+partition axis, the params all-gathered back). At stage 3 the card
+holds each leaf's shard along that axis (JAX's stage-3 rule), gathered
+at use (or a layer at a time under a bound scan), and the fp32 grads
+are reduce-scattered straight into the rank's partition. The
+checkpoint is the JAX offload layout: ``{"offload": state}`` in the
+optimizer file and the fp32 masters as the module.
 
 The two stage-0 train steps that replace the grad all-reduce (the JAX
 engine's ``_build_onebit_train_step`` and sparse-gradient step):
@@ -125,7 +135,7 @@ engine's ``_build_onebit_train_step`` and sparse-gradient step):
 
 What the port does not run yet raises ``NotImplementedError``, naming
 the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
-dp > 1, stage 3 with offload at dp > 1, the pipeline and the other
+dp > 1, the pipeline and the other
 parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
 ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
 under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
@@ -180,8 +190,10 @@ from ..parallel import comm
 from ..parallel.topology import dp_rank, dp_world_size
 from ..parallel.wire_model import grad_sync_wire_model
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
-from .zero.partition import describe_sharding, row_plan
-from .zero.stage3 import _gather, gather_tree, regather_saved
+from .zero.partition import covered_leaves, describe_sharding, row_plan
+from .zero.stage3 import (DimPart, RowPart, Zero3Scan, _Gathering,
+                          gather_parts, gather_working_set_bytes,
+                          regather_saved)
 from ..ops.onebit import OnebitAdam, OnebitState, step_comm_bytes
 from ..ops.optimizers import (COUNT, FusedAdam, FlatState, TorchOptimizer,
                               build_optimizer, client_optimizer,
@@ -359,7 +371,8 @@ class DeepSpeedEngine:
                  rng: Union[int, torch.Generator, None] = None,
                  device: Union[str, torch.device, None] = None,
                  sparse_grad_filter: Optional[Callable[[str, Any],
-                                                       bool]] = None):
+                                                       bool]] = None,
+                 zero3_scan: Any = None):
         self.device = resolve_device(device)
         # One process per card: the dp world and rank are the default
         # process group's (parallel/comm.init_distributed).
@@ -407,6 +420,10 @@ class DeepSpeedEngine:
             if self.dp > 1 and not offload else 0
         self._shard_local = stage >= 1        # K5/K6 on this rank's rows
         self._zero3 = stage >= 3              # params held as rows too
+        # Stage 3 under offload at dp > 1: the card holds this rank's
+        # shards of the compute-dtype params (the host partition's).
+        self._offload_z3 = offload and self.dp > 1 and \
+            self.zero_optimization_stage() >= 3
         self._rs_grads = stage >= 3 or (
             stage == 2 and bool(self.config.zero_config.reduce_scatter))
         # The `moe` block promises the moe_* metrics. The model is built
@@ -421,6 +438,16 @@ class DeepSpeedEngine:
         self.loss_fn, init_params = self._normalize_model(model,
                                                           model_params)
         self.module = model
+        # The per-layer prefetched stage-3 scan: bound below when this
+        # engine runs stage 3 across ranks, else the model's normal loop.
+        self._zero3_scan = zero3_scan
+        if zero3_scan is not None and hasattr(self.loss_fn, "zero3") and \
+                self.loss_fn.zero3 is not zero3_scan:
+            raise ValueError(
+                "initialize(zero3_scan=spec) needs the SAME Zero3Scan the "
+                "model's loss was built with (gpt2_loss_fn(cfg, zero3="
+                "spec)): the engine binds the one the model reads")
+        self._prefetch_depth = int(self.config.zero_config.prefetch_depth)
         cfg = getattr(self.loss_fn, "cfg", None)
         if cfg is not None:
             check_trainable(cfg)
@@ -528,6 +555,10 @@ class DeepSpeedEngine:
                 else:
                     t.copy_(comm.broadcast(t.to(self.device), 0))
         self._leaf_shapes = [tuple(t.shape) for t in masters]
+        # The leaves a bound scan gathers itself (stage 3 across ranks).
+        scan = zero3_scan is not None and (self._zero3 or self._offload_z3)
+        self._covered = covered_leaves(init_params, zero3_scan.covers) \
+            if scan else [False] * len(masters)
         sc = self._loss_scaler_config()
         if offload:
             self._init_offload(masters, sc)
@@ -543,8 +574,12 @@ class DeepSpeedEngine:
         for dt, idxs in ([] if offload else float_groups(masters)):
             self._group_leaves.append(idxs)
             if self._shard_local:
+                # (under a bound scan, the per-layer form of the layout)
                 sg = ShardGroup([self._leaf_shapes[i] for i in idxs], dt,
-                                self.device, plan)
+                                self.device, plan,
+                                layers=[self._leaf_shapes[i][0]
+                                        if self._covered[i] else 0
+                                        for i in idxs])
                 sg.pack([masters[i] for i in idxs], sg.param)
                 self._shards.append(sg)
             if self._zero3:
@@ -575,6 +610,8 @@ class DeepSpeedEngine:
         # buffers (by group and dtype) for packing and gathering.
         self._opt_groups = self._shards or self._groups
         self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
+        if scan:
+            self._bind_zero3_scan(zero3_scan)
 
         self._scaler_kw = dict(
             fp16=self.config.fp16_enabled, static_scale=sc["static"],
@@ -723,12 +760,70 @@ class DeepSpeedEngine:
                  f"dp={self.dp}", ranks=[0])
         if self.dp > 1:
             log_dist(describe_sharding(init_params, self.dp,
-                                       self.zero_optimization_stage()),
+                                       self.zero_optimization_stage(),
+                                       self._layout_name()),
                      ranks=[0])
 
     # ------------------------------------------------------------------ #
     # Construction helpers
     # ------------------------------------------------------------------ #
+    def _layout_name(self) -> str:
+        """How this rank holds its share of the state (the sharding
+        report's last field)."""
+        if self._offload is not None:
+            held = "the compute-dtype params split along each leaf's " \
+                   "first dim dp divides" if self._offload_z3 else \
+                   "the compute-dtype params whole"
+            return f"host partition along each leaf's axis; card: {held}"
+        if not self._shard_local:
+            return "replicated flat groups"
+        if any(sg.layered for sg in self._shards):
+            return "per-layer V-interleaved rows (Zero3Scan)"
+        return "V-interleaved rows"
+
+    def _bind_zero3_scan(self, spec: Zero3Scan) -> None:
+        """Bind the model's ``Zero3Scan`` to this engine's stage-3 layout
+        (the JAX ``_bind_zero3_scan``): each covered leaf's layer part
+        (``RowPart`` of its layer slice in the per-layer rows, or under
+        offload ``DimPart`` along its host partition's axis less the
+        layer axis), the compute dtype and the prefetch depth: the
+        spec's own, else ``zero_optimization.prefetch_depth``, clamped
+        to L - 1; the engine adopts the effective depth (the working
+        set it reports)."""
+        paths = _leaf_paths(tree_unflatten(
+            self._treedef, list(range(len(self._leaf_shapes)))))
+        layer_info: Dict[str, Any] = {}
+        layers = set()
+        for i, cov in enumerate(self._covered):
+            if not cov:
+                continue
+            name = paths[i].rsplit("/", 1)[-1]
+            if name in layer_info:
+                raise ValueError(f"Zero3Scan scope {spec.scope!r} covers two "
+                                 f"leaves named {name!r}: the names inside "
+                                 "the scope must be unique")
+            shape = self._leaf_shapes[i]
+            layers.add(shape[0])
+            if self._offload_z3:
+                d = self._offload._axes[i]
+                layer_info[name] = DimPart(shape[1:],
+                                           None if d is None else d - 1)
+            else:
+                layer_info[name] = RowPart(shape[1:])
+        spec.bind(compute_dtype=self.compute_dtype,
+                  prefetch_depth=self._prefetch_depth,
+                  layer_info=layer_info)
+        if layers:
+            if len(layers) != 1:
+                raise ValueError(f"the leaves Zero3Scan covers must share "
+                                 f"one layer count, got {sorted(layers)}")
+            spec.prefetch_depth = max(
+                0, min(int(spec.prefetch_depth), layers.pop() - 1))
+        self._prefetch_depth = int(spec.prefetch_depth)
+        log_dist(f"ZeRO-3 layer scan bound: mode={spec.mode}, "
+                 f"prefetch_depth={spec.prefetch_depth}, "
+                 f"{len(layer_info)} scanned leaves", ranks=[0])
+
     @staticmethod
     def _normalize_model(model, model_params) -> Tuple[Callable, Any]:
         if model is None:
@@ -792,8 +887,26 @@ class DeepSpeedEngine:
         self.telemetry.step_provider = lambda: (
             ref().global_steps if ref() is not None else -1)
         dev = self.device
+        # Stage 3 holds a bounded gather working set on top of its state:
+        # prefetch_depth + 1 layers under the scan, each other leaf whole
+        # at its use (the JAX engine's count).
+        gather_ws = 0
+        if self._zero3 or self._offload_z3:
+            spec = self._zero3_scan
+            gather_ws = gather_working_set_bytes(
+                tree_unflatten(self._treedef, [
+                    torch.empty(s, device="meta")
+                    for s in self._leaf_shapes]),
+                self.dp, torch.empty((), dtype=self.compute_dtype)
+                .element_size(), prefetch_depth=self._prefetch_depth,
+                scan_paths=spec.covers if spec is not None else None)
+            self.telemetry.meta["zero3_prefetch_depth"] = \
+                self._prefetch_depth
+            self.telemetry.meta["zero3_gather_working_set_bytes"] = \
+                int(gather_ws)
         self.telemetry.set_analytic_footprint(
-            analytic_state_bytes(self._state_tensors()),
+            analytic_state_bytes(self._state_tensors(),
+                                 gather_working_set=gather_ws),
             sampler=lambda: device_memory_stats([dev]))
         self._cost_model_built = False
         self._health_taps = False
@@ -986,6 +1099,13 @@ class DeepSpeedEngine:
         ZeRO stage 3 across ranks, where each rank holds its rows and
         this gathers the leaves (a collective: call it on every
         rank)."""
+        if self._offload_z3:
+            with torch.no_grad():
+                return tree_unflatten(self._treedef, _Gathering(
+                    self._param_views,
+                    [DimPart(s, ax) for s, ax in zip(self._leaf_shapes,
+                                                     self._offload._axes)],
+                    self.compute_dtype).wait())
         if not self._zero3:
             return self.state.params
         out: List[Any] = [None] * len(self._leaf_shapes)
@@ -1331,7 +1451,7 @@ class DeepSpeedEngine:
         differentiates against."""
         scaled_loss = _make_raw_scaled_loss(self.loss_fn, self._accepts_pld,
                                             win.gas)
-        if self._zero3:
+        if self._zero3 or self._offload_z3:
             inputs, params, regather = self._zero3_gather()
             with regather_saved(regather):
                 scaled, (raw, aux) = scaled_loss(params, mb, win.generator,
@@ -1804,10 +1924,10 @@ class DeepSpeedEngine:
             self._eval_count += 1
             gen = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():
-            if self._offload is not None:
-                params = tree_unflatten(self._treedef, self._param_views)
-            elif self._zero3:
+            if self._offload_z3 or self._zero3:
                 params = self.full_params()
+            elif self._offload is not None:
+                params = tree_unflatten(self._treedef, self._param_views)
             elif self.state.cast_params is not None:
                 params = self.state.cast_params
             else:
@@ -1873,23 +1993,37 @@ class DeepSpeedEngine:
 
     def _zero3_gather(self) -> Tuple[List[torch.Tensor], Any,
                                      Dict[int, Any]]:
-        """Stage 3: the parameter tree gathered from every rank's rows in
-        the compute dtype (``gather_cast``); returns the local rows the
-        gradient comes back to (``inputs``), the tree, and each leaf's
-        re-gather for ``regather_saved``."""
+        """Stage 3: the parameter tree gathered from every rank's part in
+        the compute dtype; returns the local parts the gradient comes
+        back to (``inputs``), the tree, and each gathered leaf's
+        re-gather for ``regather_saved`` (``gather_parts``: a
+        ``RowPart`` of the V-layout rows, or under offload a ``DimPart``
+        of the leaf's shard along its axis). A leaf a bound scan covers is
+        handed to the model as its part (``[L, ...]``): the scan gathers
+        it layer by layer."""
         inputs: List[torch.Tensor] = []
         leaves: List[Any] = [None] * len(self._leaf_shapes)
         regather: Dict[int, Any] = {}
         dtype = self.compute_dtype
-        for sg, idxs in zip(self._shards, self._group_leaves):
-            parts = [v.detach().requires_grad_(True)
-                     for v in sg.local_views(sg.param)]
-            shapes = [self._leaf_shapes[i] for i in idxs]
-            for i, x, shape, leaf in zip(idxs, parts, shapes,
-                                         gather_tree(parts, shapes, dtype)):
-                leaves[i] = leaf
-                regather[i] = ((lambda x=x, shape=shape:
-                                _gather(x.detach(), shape, dtype)), leaf)
+        if self._offload_z3:
+            # (widened: the grads come back to the parts in fp32)
+            groups = [(None, list(range(len(self._leaf_shapes))),
+                       [v.float() for v in self._param_views])]
+        else:
+            groups = [(sg, idxs, sg.local_views(sg.param))
+                      for sg, idxs in zip(self._shards, self._group_leaves)]
+        for sg, idxs, views in groups:
+            parts = [v.detach().requires_grad_(True) for v in views]
+            for i, x in zip(idxs, parts):
+                if self._covered[i]:
+                    leaves[i] = x
+                    continue
+                shape = self._leaf_shapes[i]
+                part = RowPart(shape) if sg is not None else \
+                    DimPart(shape, self._offload._axes[i])
+                leaves[i] = gather_parts([x], [part], dtype)[0]
+                regather[i] = ((lambda x=x, part=part: _Gathering(
+                    [x.detach()], [part], dtype).wait()[0]), leaves[i])
             inputs += parts
         return inputs, tree_unflatten(self._treedef, leaves), regather
 
@@ -1911,9 +2045,12 @@ class DeepSpeedEngine:
         cuda = dev.type == "cuda"
         part: Dict[str, Any] = {}
         if self.dp > 1:
+            # (stage 3: a leaf a bound scan covers splits past its layer
+            # axis, JAX's stage3_param_specs rule)
             part = dict(partition_rank=self.dp_rank, partition_num=self.dp,
                         axis_divisor=self.dp,
-                        sumsq_allreduce=self._all_reduce_float)
+                        sumsq_allreduce=self._all_reduce_float,
+                        axis_starts=[int(c) for c in self._covered])
         off = ZeroOffloadOptimizer(
             tree_unflatten(self._treedef, masters),
             self.config.optimizer_name, dict(self.config.optimizer_params
@@ -1933,20 +2070,35 @@ class DeepSpeedEngine:
                      "serial offload step", ranks=[0])
             self._offload_overlap = False
         n = sum(int(np.prod(s, dtype=np.int64)) for s in self._leaf_shapes)
-        self._dev_params = torch.empty(n, dtype=self.compute_dtype,
-                                       device=dev)
-        self._param_views = _flat_views(self._dev_params, self._leaf_shapes)
-        grads = torch.empty(n, dtype=torch.float32, device=dev)
-        self._grad_views = _flat_views(grads, self._leaf_shapes)
-        with torch.no_grad():
-            for pv, m in zip(self._param_views, masters):
-                pv.copy_(m)
+        if self._offload_z3:
+            # Stage 3: the card holds this rank's shard of each leaf (the
+            # host partition's), gathered at use; its grads come back
+            # reduce-scattered, straight into the rank's partition.
+            self._dev_params = torch.empty(off.offsets[-1],
+                                           dtype=self.compute_dtype,
+                                           device=dev)
+            self._param_views = _flat_views(self._dev_params, off.shapes)
+            with torch.no_grad():
+                self._dev_params.copy_(off.staging_flat)
+        else:
+            self._dev_params = torch.empty(n, dtype=self.compute_dtype,
+                                           device=dev)
+            self._param_views = _flat_views(self._dev_params,
+                                            self._leaf_shapes)
+            with torch.no_grad():
+                for pv, m in zip(self._param_views, masters):
+                    pv.copy_(m)
+        grads = None if self._offload_z3 else \
+            torch.empty(n, dtype=torch.float32, device=dev)
         # This rank's partition of the grads (at dp 1 the grads
-        # themselves), and the pinned host buffer they cross into: bf16
-        # in bf16 runs, else fp32, as in JAX.
+        # themselves; at stage 3 the backward writes it directly), and
+        # the pinned host buffer they cross into: bf16 in bf16 runs, else
+        # fp32, as in JAX.
         self._local_grads = torch.empty(off.offsets[-1], dtype=torch.float32,
                                         device=dev) if self.dp > 1 else grads
         self._local_grad_views = _flat_views(self._local_grads, off.shapes)
+        self._grad_views = self._local_grad_views if grads is None else \
+            _flat_views(grads, self._leaf_shapes)
         wire = torch.bfloat16 if self.compute_dtype == torch.bfloat16 \
             else torch.float32
         self._host_wire = torch.empty(off.offsets[-1], dtype=wire,
@@ -2007,8 +2159,13 @@ class DeepSpeedEngine:
 
     def _offload_reduce_grads(self) -> None:
         """dp > 1: each leaf's grads reduce-scattered along its partition
-        axis (all-reduced where it has none) into this rank's partition."""
+        axis (all-reduced where it has none) into this rank's partition;
+        at stage 3 the micro-steps' gathers already did (their
+        backward)."""
         off = self._offload
+        if self._offload_z3:
+            self._local_grads.mul_(1.0 / self.dp)
+            return
         for g, dst, ax in zip(self._grad_views, self._local_grad_views,
                               off._axes):
             if ax is None:
@@ -2027,12 +2184,13 @@ class DeepSpeedEngine:
                                     non_blocking=True)
 
     def _offload_put_params(self) -> None:
-        """The device params from the host staging copy: at dp 1 one
-        copy; at dp > 1 every rank's partition all-gathered along each
-        leaf's axis."""
+        """The device params from the host staging copy: at dp 1 (and at
+        stage 3, where the card holds the rank's shards) one copy; at
+        dp > 1 every rank's partition all-gathered along each leaf's
+        axis."""
         off = self._offload
         with torch.no_grad():
-            if self.dp == 1:
+            if self.dp == 1 or self._offload_z3:
                 self._dev_params.copy_(off.staging_flat, non_blocking=True)
                 return
             local = off.staging_flat.to(self.device)
@@ -2384,15 +2542,27 @@ class DeepSpeedEngine:
                 meta=meta, blobs=blobs, is_writer=is_writer,
                 fsync=self._ckpt_fsync)
         if self._shard_local:
-            # The moments split along their flat axis, one file a rank.
+            # The moments split along their flat axis, one file a rank:
+            # rank r's rows of the JAX layout (the per-layer form's
+            # buffers are laid out as JAX's first).
             meta["optim_shard_axes"] = [None] + [0] * (2 * G)
+            jax_rows: Dict[int, List[torch.Tensor]] = {}
 
-            def optim_blob(r: int, hr=host_rows) -> bytes:
+            def rows_of(k: int, hr=host_rows) -> List[torch.Tensor]:
+                sg = self._shards[k % G]
+                if not sg.layered:
+                    return hr[k]
+                if k not in jax_rows:
+                    jax_rows[k] = sg.to_jax_rows(torch.cat(hr[k])) \
+                        .chunk(dp)
+                return jax_rows[k]
+
+            def optim_blob(r: int) -> bytes:
                 blob: Dict[str, Any] = {}
                 if r == 0:
                     blob["0"] = np.asarray(count)
                 for k in range(2 * G):
-                    blob[str(k + 1)] = hr[k][r].numpy()
+                    blob[str(k + 1)] = rows_of(k)[r].numpy()
                 if r == 0:
                     blob["__scalars__"] = scalars_blob
                 return msgpack_serialize(blob)
@@ -2646,13 +2816,16 @@ class DeepSpeedEngine:
                      int(meta.get("dp_world_size", 1)))
         try:
             if self._shard_local:
-                # This rank's rows of the joined V-layout buffers.
-                bufs = [convert.jax_local_rows(
-                    convert.relayout_jax_buffer(b, sg.sizes, shards,
-                                                sg.shards),
-                    sg.sizes, sg.shards, self.dp, self.dp_rank)
-                    for b, sg in zip(leaves[1:],
-                                     self._shards + self._shards)]
+                # This rank's rows of the joined V-layout buffers (of
+                # their per-layer form under a bound scan).
+                bufs = []
+                for b, sg in zip(leaves[1:], self._shards + self._shards):
+                    full = convert.relayout_jax_buffer(b, sg.sizes, shards,
+                                                       sg.shards)
+                    bufs.append(sg.local_rows_from_jax(full) if sg.layered
+                                else convert.jax_local_rows(
+                                    full, sg.sizes, sg.shards, self.dp,
+                                    self.dp_rank))
                 opt_state = FusedAdamState(
                     count=np.int32(np.asarray(leaves[0])),
                     m=tuple(bufs[:G]), v=tuple(bufs[G:]))

@@ -6,14 +6,18 @@ both. On one card stages 0-3 are the same arithmetic (there is nothing
 to partition). Across ranks the engine runs each stage with explicit
 collectives (``runtime/engine.py``): ``grad_sync`` is parsed and
 validated as in JAX but the port has only the explicit schedule, and
-``reduce_scatter: false`` keeps stage-2 grads all-reduced. The per-layer
-prefetched scan that ``prefetch_depth`` tunes is not ported (stage 3
-gathers every leaf per micro-step). ``cpu_offload`` (at stage >= 1)
+``reduce_scatter: false`` keeps stage-2 grads all-reduced.
+``prefetch_depth`` is the number of layers the stage-3 scan
+(``runtime/zero/stage3.Zero3Scan``, bound by a stage-3 engine at dp > 1)
+gathers ahead of use, unless the spec sets its own; without a scan
+stage 3 gathers each leaf at its use. ``cpu_offload`` (at stage >= 1)
 puts the masters and the moments in host memory
 (``runtime/zero/offload.py``); ``offload_bucket_size`` sizes its buckets,
 ``offload_host_threads`` its pool (0: one worker, whose calls run on
 every core; JAX's 0 is a worker a core), and ``overlap_comm`` selects its
-overlapped pipeline. With dp > 1 it raises at stage 3.
+overlapped pipeline (one process only: at dp > 1 the serial step runs).
+At stage 3 with dp > 1 the card holds each leaf's shard along the host
+partition's axis.
 """
 from __future__ import annotations
 

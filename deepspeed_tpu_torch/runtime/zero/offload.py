@@ -38,9 +38,11 @@ of the copies to and from the card with the host work, not of two host
 calls with each other.
 
 Across dp ranks each rank holds its partition: each leaf is sliced along
-its first axis that ``axis_divisor`` divides (``_partition_axis``); a
-leaf with no such axis is held whole by every rank, and every rank
-applies the same update to it. The partitioned leaves' squared norms are
+its first axis that ``axis_divisor`` divides (``_partition_axis``; past
+the layer axis for a stacked leaf a bound ``Zero3Scan`` covers, JAX's
+``stage3_param_specs`` rule); a leaf with no such axis is held whole by
+every rank, and every rank applies the same update to it. At ZeRO stage
+3 the card holds the same split of the compute-dtype parameters. The partitioned leaves' squared norms are
 summed over the ranks by ``sumsq_allreduce``.
 """
 from __future__ import annotations
@@ -61,9 +63,11 @@ from ...utils.logging import log_dist
 SUPPORTED = (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER)
 
 
-def _partition_axis(shape, num: int) -> Optional[int]:
-    """The first axis of ``shape`` that ``num`` divides (None if none)."""
-    for i, d in enumerate(shape):
+def _partition_axis(shape, num: int, start: int = 0) -> Optional[int]:
+    """The first axis of ``shape`` from ``start`` on that ``num`` divides
+    (None if none)."""
+    for i in range(start, len(shape)):
+        d = shape[i]
         if d >= num and d % num == 0:
             return i
     return None
@@ -106,7 +110,8 @@ class ZeroOffloadOptimizer:
                  axis_divisor: Optional[int] = None,
                  sumsq_allreduce: Optional[Callable[[float], float]] = None,
                  bucket_bytes: int = 0, host_threads: int = 0,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False,
+                 axis_starts: Optional[List[int]] = None):
         """``axis_divisor``: the divisibility that picks each leaf's
         partition axis (default ``partition_num``). ``sumsq_allreduce``:
         the sum over the ranks of the partitioned leaves' squared norm,
@@ -115,7 +120,9 @@ class ZeroOffloadOptimizer:
         64 MiB default). ``host_threads``: the overlapped pipeline's
         pool width (0: one worker; see "Teams" above). ``pin_memory``:
         allocate the staging copy in page-locked memory (a CUDA run's
-        uploads)."""
+        uploads). ``axis_starts``: per leaf, the first axis its partition
+        axis may be (1 for a stacked leaf a bound ``Zero3Scan`` gathers
+        layer by layer; default 0)."""
         name = (opt_name or C.ADAM_OPTIMIZER).lower()
         if name not in SUPPORTED:
             raise ValueError(
@@ -133,9 +140,10 @@ class ZeroOffloadOptimizer:
                              f"partition_num {self.partition_num}")
         leaves, self.spec = tree_flatten(master_params)
         self.full_shapes = [tuple(l.shape) for l in leaves]
-        self._axes = [_partition_axis(s, divisor)
+        starts = axis_starts or [0] * len(self.full_shapes)
+        self._axes = [_partition_axis(s, divisor, a)
                       if self.partition_num > 1 else None
-                      for s in self.full_shapes]
+                      for s, a in zip(self.full_shapes, starts)]
         self.masters = [_f32_copy(self.slice_leaf(i, l))
                         for i, l in enumerate(leaves)]
         self.shapes = [tuple(m.shape) for m in self.masters]

@@ -44,7 +44,8 @@ on the card bit-equal to the CPU's, and the slot-major engine's greedy
 streams equal to the paged engine's on the card; a 2-step
 ``telemetry.profile`` window over gpt2-tiny train steps whose trace
 holds ``fused_ln``, ``flash_attention`` and ``fused_update`` kernels on
-a device lane.
+a device lane; ZeRO-3's per-layer gather on CUDA tensors (one-rank gloo
+group) bit-equal to the CPU's, forward and backward.
 """
 import dataclasses
 
@@ -1447,6 +1448,54 @@ def test_csr_round_trip_on_the_card(dev):
     assert torch.equal(g_on.row_indices.cpu(), g_off.row_indices)
     assert torch.equal(g_on.values.cpu(), g_off.values)
     assert torch.equal(g_on.to_dense().cpu(), sum(dense[1:], dense[0]))
+
+
+def test_zero3_layer_gather_on_the_card(dev):
+    """ZeRO-3's per-layer gather (``Zero3Scan.gather_layer``: one
+    all-gather of a layer's ``[V/dp, r]`` blocks of the per-layer rows,
+    started asynchronously, cast to the compute dtype) on CUDA tensors
+    over a one-rank gloo group: the gathered leaves bit-equal to the
+    layer's slices cast to bf16, and the backward's fp32 reduce-scatter
+    gives the parts the CPU's grads bit for bit."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.runtime.zero import partition, stage3
+    shapes = {"w": (3, 24, 40), "b": (3, 40), "s": (3, 7)}
+    names = sorted(shapes)
+    rng = np.random.default_rng(5)
+    leaves = {n: torch.from_numpy(rng.standard_normal(shapes[n]).astype(
+        np.float32)) for n in names}
+    cot = {n: torch.from_numpy(rng.standard_normal(shapes[n][1:]).astype(
+        np.float32)) for n in names}
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        got = {}
+        for device in (torch.device("cpu"), dev):
+            sg = fu.ShardGroup([shapes[n] for n in names], torch.float32,
+                               device, partition.row_plan(1, 0),
+                               layers=[3] * len(names))
+            sg.pack([leaves[n].to(device) for n in names], sg.param)
+            views = dict(zip(names, sg.local_views(sg.param)))
+            spec = stage3.Zero3Scan()
+            spec.bind(compute_dtype=torch.bfloat16, prefetch_depth=1,
+                      layer_info={n: stage3.RowPart(shapes[n][1:])
+                                  for n in names})
+            parts = {n: views[n][1].detach().requires_grad_(True)
+                     for n in names}
+            out = spec.gather_layer(parts)
+            for n in names:
+                assert out[n].device.type == device.type
+                assert torch.equal(out[n].cpu(),
+                                   leaves[n][1].to(torch.bfloat16))
+            loss = sum((out[n].float() * cot[n].to(device)).sum()
+                       for n in names)
+            grads = torch.autograd.grad(loss, [parts[n] for n in names])
+            got[device.type] = [g.cpu() for g in grads]
+        for a, b in zip(got["cpu"], got["cuda"]):
+            assert a.dtype == torch.float32
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_declared_costs_match_the_smoke_bound_inputs(dev):

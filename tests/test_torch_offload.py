@@ -32,8 +32,8 @@ offload path) against the JAX package's, on the CPU.
   an offload engine that trains; ``overlap_comm`` selects the overlapped
   pipeline; ``offload_timings`` carries the JAX keys; master-free bf16
   with offload raises JAX's ``ValueError``; stage 0 ignores
-  ``cpu_offload`` as JAX does; stage 3 with offload at dp > 1 is
-  refused at configuration (at dp 1 it is stage 2).
+  ``cpu_offload`` as JAX does; stage 3 with offload configures at any
+  dp (at dp 1 it is stage 2).
 
 The JAX engines run on a one-device mesh with dense attention and
 ``fused_kernels=False`` (the JAX package documents both settings as the
@@ -415,18 +415,16 @@ def test_offload_optimizer_names_as_jax(params_np):
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_stage3_offload_at_dp_raises(world):
-    """Stage 3 with offload: at dp 1 it is stage 2's offload; above, the
-    config names its ROADMAP item (the host partition follows each
-    leaf's axis, the stage-3 params are V-layout rows)."""
+    """Stage 3 with offload: at dp 1 it is stage 2's offload; above, it
+    is ported (the card holds each leaf's shard along the host
+    partition's axis; tests/test_torch_zero3_offload.py trains it), so
+    the config names no unported feature at any dp."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     names = [f for f, _ in DeepSpeedConfig(
         {"train_batch_size": 8 * world,
          "zero_optimization": {"stage": 3, "cpu_offload": True}},
         world_size=world).unported_features()]
-    if world == 1:
-        assert names == []
-    else:
-        assert len(names) == 1 and "stage 3 with dp > 1" in names[0]
+    assert names == []
     for stage in (1, 2):
         assert DeepSpeedConfig(
             {"train_batch_size": 8 * world,

@@ -30,6 +30,10 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   default: gpt2-tiny; ``embed``: the embedding model of the sparse-
   gradient tests, ``embed_loss`` over ``embed_params``, its batches an
   ``.npz`` of ``ids`` ``[steps, N, 4]`` and ``y`` ``[steps, N, 1]``),
+  ``layers`` (gpt2-tiny's layer count, default 2), ``scan`` (a
+  ``Zero3Scan`` for the model and ``initialize``: ``{"depth": d}``, d
+  None for the config's ``prefetch_depth``), ``wait_for`` (a file the
+  job waits for first, as a checkpoint another world writes),
   ``out`` (the ``.npz`` prefix of the results).
 
 The two stage-0 train steps that replace the grad all-reduce run from
@@ -41,20 +45,23 @@ grads).
 
 Each rank writes ``{out}.rank{r}.npz``: per step the loss, grad norm,
 the loss scale the step used, the skipped-step count, a digest of the
-full parameters, the sparse exchange's ``sparse_elements`` and
+full parameters (and once: ``ws``, the telemetry meta's stage-3 gather
+working set, -1 without one; ``depth``, a bound scan's depth, else -1), the sparse exchange's ``sparse_elements`` and
 ``dense_elements`` (-1 where it did not run) and 1-bit Adam's
 ``comm_bytes`` (-1 without it); after the last step the full parameters (flat,
 tree order, fp32) and this rank's optimizer buffers by name and group
 (the fused Adam's ``m{g}``/``v{g}``, an optax chain's ``mu{g}``,
 ``trace{g}``, ...; under ZeRO-Offload, ``zero: {"cpu_offload": true}``,
 its partition of the host masters and moments, ``hp{i}``/``hm{i}``/
-``hv{i}`` a leaf).
+``hv{i}`` a leaf, and ``dev_param_elems``, the card's compute-dtype
+parameter elements).
 """
 import dataclasses
 import hashlib
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -67,6 +74,7 @@ import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten  # noqa: E402
 from deepspeed_tpu_torch.ops.optimizers import state_buffers  # noqa: E402
+from deepspeed_tpu_torch.runtime.zero.stage3 import Zero3Scan  # noqa: E402
 
 MICRO, GAS = 2, 2
 DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
@@ -149,6 +157,13 @@ def run_job(job, world, rank, params):
     micro = job.get("micro", MICRO)
     ds = ds_config(precision, world, job["stage"], job.get("zero"),
                    job.get("ds"), micro)
+    if job.get("wait_for"):
+        t0 = time.monotonic()
+        while not os.path.exists(job["wait_for"]):
+            assert time.monotonic() - t0 < 240, job["wait_for"]
+            time.sleep(0.1)
+    spec = None if job.get("scan") is None else \
+        Zero3Scan(prefetch_depth=job["scan"].get("depth"))
     if job.get("model", "gpt2") == "embed":
         model, params = embed_loss, embed_params()
         with np.load(job["batches"]) as z:
@@ -157,14 +172,15 @@ def run_job(job, world, rank, params):
         cfg = dataclasses.replace(
             tgpt2.GPT2_CONFIGS["gpt2-tiny"], dtype=DTYPES[precision],
             hidden_dropout=dropout, attn_dropout=dropout,
-            remat_policy=job.get("remat", "none"))
-        model = tgpt2.gpt2_loss_fn(cfg)
+            remat_policy=job.get("remat", "none"),
+            num_layers=job.get("layers", 2))
+        model = tgpt2.gpt2_loss_fn(cfg, zero3=spec)
         batches = np.load(job["batches"])
     if job.get("perturb"):
         params = shifted(params, 0.01 * rank)
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=model, model_params={k: v for k, v in params.items()},
-        config=ds, device="cpu", rng=0)
+        config=ds, device="cpu", rng=0, zero3_scan=spec)
     if job.get("load"):
         assert eng.load_checkpoint(job["load"])[0] is not None
     first = job.get("first", 0)
@@ -205,6 +221,10 @@ def run_job(job, world, rank, params):
                 dist.barrier()
     out = {k: np.asarray(v) for k, v in rec.items()}
     out["params"] = flat_params(eng)
+    out["ws"] = np.asarray(eng.telemetry.meta.get(
+        "zero3_gather_working_set_bytes", -1))
+    out["depth"] = np.asarray(spec.prefetch_depth if spec is not None and
+                              spec.bound else -1)
     off = eng._offload
     if off is not None:
         # ZeRO-Offload: this rank's partition of the host masters and
@@ -215,6 +235,7 @@ def run_job(job, world, rank, params):
             out[f"hm{i}"] = m.numpy()
             out[f"hv{i}"] = v.numpy()
         out["count"] = np.asarray(off.opt.step_count)
+        out["dev_param_elems"] = np.asarray(eng._dev_params.numel())
     else:
         st = eng.state.opt_state
         for name, bufs in state_buffers(st).items():
