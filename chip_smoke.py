@@ -58,7 +58,8 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    shapes of one MoE layer and micro-batch on the MoE path (8 experts,
    capacity 2560, 768 x 3072, bf16: the forward's up- and down-projection,
    the backward's recompute and its four products on transposed views),
-   and the up-projection in fp32 and fp16, each launched twice and
+   and the up-projection in fp32 and fp16, and the seven bf16 launches
+   again at the MoE dp paths' 1280 and 640 slots, each launched twice and
    compared bit for bit, with its route (``_gg_plan``: the operands'
    majors, the tile, no staged copy) and also timed by the card's own
    time (graph replay), with a cold L2 and on the host's clock (the
@@ -261,6 +262,25 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    bit-equal after every step, the sparse step's params bit-equal to
    dense stage 0's, the ranks' worker errors different after the
    freeze; printed: ``sparse_comm_stats`` and ``comm_bytes`` a step.
+   Then ``train_zero_overlap_s2``: stage 2 with ``overlap_comm``
+   (buckets of 25M elements), without, and without but with the
+   preemption saver armed (a ``save_dir``), interleaved a step at a
+   time, 5 steps each, bit-equal to each other and to
+   ``train_zero_s2``, a bucket started before the backward's last grad;
+   printed: the three p50s and the saver's agreement's time a call.
+   Then MoE at dp 2 (``train_zero_moe_s1``,
+   ``_s2``: 3 steps each after a plain yardstick step of the same dp
+   step, ``_s3``: one step; gpt2-small with ``train_moe``'s block at 2 x
+   2 x 1024 a rank): ranks bit-equal, exactly 168 K9 launches a step and
+   rank (K9's tiles at the path's slot counts resolved first, outside
+   the paths), no staged K9 operand, the first loss and grad norm within
+   2e-3 and 2e-2 of the plain step; printed: step p50, peak a rank and
+   the ``moe_*`` stats. Then ``train_zero_preempt`` (two more pairs of
+   children, ``--train-zero-preempt-rank R SPEC``): stage 2 with
+   ``checkpoint.preempt_save``, SIGTERM to rank 1 alone; both ranks save
+   the same tag through the per-rank writers and exit by the signal, and
+   the resumed pair ends bit-equal to ``train_zero_s2``; printed: each
+   rank's save ms.
 5f. ``train_offload``: ZeRO-Offload at gpt2-small under
    ``examples/gpt2/ds_config_offload.json`` read from the file (bf16,
    stage 2, the masters and Adam moments in host memory, AdamW 3e-3,
@@ -338,7 +358,10 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    and shows every kernel source's library built, loadable and current;
    ``tools/crashkill_torch.py run --quick`` on the card (SIGTERM and
    SIGKILL kills, a loadable latest after each, the resumed run
-   bit-identical).
+   bit-identical), then its elastic tier over gloo worlds 2 -> 1 -> 2
+   (within max(10 x the dp-1 floor run's delta, 1e-6) of the dp-2
+   reference, and within ELASTIC_MAX), and the job's first step at dp 1
+   against dp 2.
 6. The ``{"host_kernels": [...]}`` line (the host Adam), the
    ``{"optimizers": [...]}`` line (the matrix's and 1-bit Adam's steps:
    ms, bytes, bound, library yardstick), then the ``{"kernels": [...]}`` summary
@@ -357,6 +380,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1978,17 +2002,28 @@ def _gg_within(a, b, dtype_name, terms):
     return float(((a - b).abs() / tol).max())
 
 
-def _gg_cases(dev, gen):
-    """K9's seven launches in one MoE layer and micro-batch at the path's
-    shapes (8 experts, capacity 2560, hidden 768, FFN 3072), as (case, a,
-    b, bias, act): the forward's two, then the backward's recompute of
-    the pre-activation and its four products on swapped operands (views,
-    no copies). bf16, and the up-projection also in fp32 and fp16."""
+def zero_moe_slots():
+    """K9's slots an expert on the MoE dp paths (``train_zero_moe_*``):
+    the global routing's (stage 1: min(the capacity of every rank's
+    tokens, a rank's tokens)) and a rank's own routing's (stages 2-3)."""
+    tokens = ZERO_MOE_MICRO * TRAIN_SEQ
+    return (min(tokens, expert_capacity_of(tokens * ZERO_DP)),
+            expert_capacity_of(tokens))
+
+
+def _gg_cases(dev, gen, C=MOE_CAPACITY, bf16_only=False):
+    """K9's seven launches in one MoE layer and micro-batch at a path's
+    shapes (8 experts, ``C`` slots an expert: ``train_moe``'s 2560 by
+    default, hidden 768, FFN 3072), as (case, a, b, bias, act): the
+    forward's two, then the backward's recompute of the pre-activation
+    and its four products on swapped operands (views, no copies). bf16,
+    and (unless ``bf16_only``) the up-projection also in fp32 and
+    fp16."""
     small = GPT2_CONFIGS["gpt2-small"]
-    E, C, H, Fw = MOE_EXPERTS, MOE_CAPACITY, small.hidden_size, \
-        small.ffn_size
+    E, H, Fw = MOE_EXPERTS, small.hidden_size, small.ffn_size
     cases = []
-    for dt in (torch.bfloat16, torch.float32, torch.float16):
+    for dt in ((torch.bfloat16,) if bf16_only else
+               (torch.bfloat16, torch.float32, torch.float16)):
         def r(*shape, scale=1.0):
             return (scale * torch.randn(*shape, device=dev,
                                         generator=gen)).to(dt)
@@ -2044,10 +2079,14 @@ def check_grouped_gemm(dev, gen):
     plan and the tensor maps' encoding included).
     The library yardstick is ``torch.bmm``, ``torch.baddbmm`` with the
     bias, and for the up-projection ``torch.baddbmm`` then ``F.gelu``
-    (two calls)."""
+    (two calls). At ``train_moe``'s 2560 slots an expert, and the seven
+    bf16 launches also at the MoE dp paths' slot counts
+    (``zero_moe_slots``), each record carrying its ``slots``."""
     out = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for case, a, b, bias, act in _gg_cases(dev, gen):
+    for C, case, a, b, bias, act in [
+            (C, *c) for C in (MOE_CAPACITY,) + zero_moe_slots()
+            for c in _gg_cases(dev, gen, C, C != MOE_CAPACITY)]:
         dt = a.dtype
         name = {torch.bfloat16: "bf16", torch.float16: "fp16",
                 torch.float32: "fp32"}[dt]
@@ -2090,6 +2129,7 @@ def check_grouped_gemm(dev, gen):
             lib_name = "torch.bmm"
         kern = lambda: gg.grouped_matmul(a, b, bias, act)  # noqa: E731
         rec = {"kernel": "grouped_gemm", "case": case, "dtype": name,
+               "slots": C,
                "shape": [E, M, K, N], "act": act, "bias": bias is not None,
                "strides": {"a": list(a.stride()), "b": list(b.stride())},
                "route": plan.route, "majors": [plan.a_major, plan.b_major],
@@ -3263,6 +3303,22 @@ ZERO_STAGE0_MODES, ZERO_STAGE0_STEPS, ZERO_ONEBIT_FREEZE = \
 # every sum of two terms is the same in either order and the 1/dp is a
 # power of two, so they are held bit-equal.
 SPARSE_VS_DENSE_ATOL = 0.0
+# overlap_comm at stage 2 (path train_zero_overlap_s2): on and off (and
+# off with the preemption saver armed), interleaved a step at a time,
+# ZERO_STEPS each, bit-equal; buckets of at most this many elements
+# (gpt2-small's 124.4M params in several buckets a step).
+ZERO_OVERLAP_BUCKET = 25_000_000
+ZERO_AGREE_CALLS = 200         # timed calls of the preemption agreement
+# MoE at dp 2 (paths train_zero_moe_s1, _s2, _s3): gpt2-small with
+# train_moe's block (8 experts top-2 in every block), bf16, gas 2 x 2 x
+# 1024 a rank; stages 1 and 2 ZERO_MOE_STEPS steps each after a plain
+# yardstick step, stage 3 one step.
+ZERO_MOE_MICRO, ZERO_MOE_STEPS, ZERO_MOE_S3_STEPS = 2, 3, 1
+ZERO_DEVICE = "cuda"           # the rank children's (both on the one card)
+# The collective preemption save (train_zero_preempt): rank 1 signals
+# itself before this step (0-based) of the stage-2 run; the ranks agree
+# at that step's end and save global_step{ZERO_PREEMPT_AT + 1}.
+ZERO_PREEMPT_AT = 1
 
 
 def _zero_cfg():
@@ -3282,20 +3338,67 @@ def _zero_rank_rows(batch, micro):
                       for i in range(TRAIN_GAS)])
 
 
-def _zero_record(eng, local, offload=False):
-    """Drive ``eng`` over ``local`` as one path from a reset peak; the
-    record a rank writes: losses, step ms, launches, peak bytes, the
-    params' and the optimizer state's digests."""
+def run_paths_interleaved(engines, batches):
+    """Drive each engine of ``engines`` (name: engine) over ``batches``
+    a step at a time in turn, the order rotated each round, so that the
+    host's drift falls on every engine alike; each step's counts zeroed
+    just before it and read just after, summed by engine. Returns
+    ``run_path``'s tuple by name."""
+    names = list(engines)
+    res = {n: ([], [], [], {}) for n in names}
+    searches = autotune.counters["search"]
+    for i, b in enumerate(batches):
+        for n in names[i % len(names):] + names[:i % len(names)]:
+            losses, metrics, ms, counts = res[n]
+            st = torch.cuda.Event(enable_timing=True)
+            en = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            st.record()
+            losses.append(engines[n].train_batch(b))
+            en.record()
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            metrics.append(engines[n].last_metrics)
+            ms.append(st.elapsed_time(en))
+    assert autotune.counters["search"] == searches, \
+        "a tile search inside a counted path: resolve it in a warm-up"
+    return {n: ([float(x) for x in r[0]],) + r[1:] for n, r in res.items()}
+
+
+def _zero_record(eng, local, offload=False, ran=None):
+    """Drive ``eng`` over ``local`` as one path from a reset peak (or
+    take ``ran``, ``run_paths_interleaved``'s tuple for it); the record
+    a rank writes: losses, step ms, launches, peak bytes, the params'
+    and the optimizer state's digests."""
     import hashlib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    if offload:
+    if ran is None:
+        torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    if ran is not None:
+        losses, metrics, ms, counts = ran
+    elif offload:
         r = run_offload(eng, local)
         losses, ms, counts = r["losses"], r["ms"], r["counts"]
     else:
-        losses, _, ms, counts = run_path(eng, local)
+        losses, metrics, ms, counts = run_path(eng, local)
     peak = torch.cuda.max_memory_allocated()
+    extra = {}
+    if metrics and "moe_drop_fraction" in metrics[0]:
+        extra = {"grad_norms": [float(m["grad_norm"]) for m in metrics],
+                 "moe_drop_fraction": [float(m["moe_drop_fraction"])
+                                       for m in metrics],
+                 "moe_aux_loss": [float(m["moe_aux_loss"]) for m in metrics],
+                 "moe_z_loss": [float(m["moe_z_loss"]) for m in metrics],
+                 "moe_expert_tokens_last": metrics[-1][
+                     "moe_expert_tokens"].tolist(),
+                 "k9_staged": int(gg.grouped_matmul.staged)}
+    if eng._buckets is not None:
+        extra["overlap_early_last"] = eng._buckets.early
+        extra["overlap_buckets"] = eng._buckets.launched
     digest = hashlib.sha256()
     for t in tree_flatten(eng.full_params())[0]:
         digest.update(t.detach().float().cpu().numpy().tobytes())
@@ -3305,9 +3408,54 @@ def _zero_record(eng, local, offload=False):
         list(eng.state.opt_state.v)
     for t in state:
         m_digest.update(t.cpu().numpy().tobytes())
-    return {"losses": losses, "ms": ms, "counts": counts,
-            "peak_bytes": peak, "params_sha256": digest.hexdigest(),
-            "moments_sha256": m_digest.hexdigest()}
+    return dict({"losses": losses, "ms": ms, "counts": counts,
+                 "peak_bytes": peak, "params_sha256": digest.hexdigest(),
+                 "moments_sha256": m_digest.hexdigest()}, **extra)
+
+
+def expert_capacity_of(tokens):
+    """The MoE block's slots an expert for ``tokens`` routed tokens."""
+    from deepspeed_tpu_torch.moe.layer import expert_capacity
+    return expert_capacity(tokens, MOE_EXPERTS, MOE_TOP_K, MOE_CF)
+
+
+def _zero_moe_cfg():
+    return dataclasses.replace(
+        _zero_cfg(), moe=MoEConfig(num_experts=MOE_EXPERTS, top_k=MOE_TOP_K,
+                                   capacity_factor=MOE_CF))
+
+
+def plain_reference_step_dp(eng, cfg, local):
+    """``plain_reference_step`` of a dp engine at ZeRO 1-2 (collective):
+    this rank's rows by plain autograd (plain LayerNorm/GELU, attention
+    and grouped FFN) under the engine's MoE routing, the loss and the
+    grads averaged over the ranks; returns (mean loss, grad norm)."""
+    from deepspeed_tpu_torch.moe.layer import routing_across
+    from deepspeed_tpu_torch.parallel import comm
+    gen = eng.step_generator()
+    cast, spec = tree_flatten(eng.state.cast_params)
+    leaves = [t.detach().clone().requires_grad_() for t in cast]
+    tree = tree_unflatten(spec, leaves)
+    loss_fn = gpt2_loss_fn(cfg, attention_fn=fa.flash_attention_plain,
+                           ops=PLAIN_OPS)
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+           for t in leaves]
+    mean = torch.zeros(1, dtype=torch.float32, device=eng.device)
+    with routing_across(eng._moe_span):
+        for mb in local.to(eng.device).chunk(TRAIN_GAS):
+            loss = loss_fn(tree, mb, gen)
+            if isinstance(loss, tuple):
+                loss = loss[0]
+            grads = torch.autograd.grad(loss.float() / TRAIN_GAS, leaves)
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            mean += loss.detach().float() / TRAIN_GAS
+            del loss, grads
+    for a in acc:
+        comm.all_reduce(a).div_(ZERO_DP)
+    mean = float(comm.all_reduce(mean)) / ZERO_DP
+    norm = float(torch.sqrt(sum(torch.sum(a * a) for a in acc)))
+    return mean, norm
 
 
 def train_zero_rank(rank, spec_path):
@@ -3397,8 +3545,133 @@ def train_zero_rank(rank, spec_path):
         out[mode] = rec
         del eng
         torch.cuda.empty_cache()
+    # Stage 2 three ways, interleaved a step at a time: overlap_comm on,
+    # off, and off with a save_dir (the preemption saver armed, no
+    # auto-save: every step's end agrees on a held signal)
+    engines = {
+        "overlap_on": zero_engine({"stage": 2, "overlap_comm": True,
+                                   "reduce_bucket_size":
+                                   ZERO_OVERLAP_BUCKET}),
+        "overlap_off": zero_engine({"stage": 2}),
+        "preempt_armed": make_engine(cfg, "bf16", micro=micro, extra={
+            "train_batch_size": TRAIN_GAS * micro * ZERO_DP,
+            "zero_optimization": {"stage": 2},
+            "checkpoint": {"save_dir": os.path.join(os.path.dirname(
+                spec_path), f"armed_r{rank}")}})}
+    saver = engines["preempt_armed"]._preempt_saver
+    assert saver is not None
+    # the host time of each step end's agreement, inside the armed steps
+    agree_ms, fire_held = [], saver.fire_held
+
+    def timed_fire_held(save=True):
+        t0 = time.perf_counter()
+        try:
+            fire_held(save)
+        finally:
+            agree_ms.append((time.perf_counter() - t0) * 1e3)
+    saver.fire_held = timed_fire_held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ran = run_paths_interleaved(engines, local)
+    for mode, eng in engines.items():
+        out[mode] = _zero_record(eng, local, ran=ran[mode])
+    out["preempt_armed"]["agree_ms"] = agree_ms
+    del engines, eng, saver
+    torch.cuda.empty_cache()
+    # the agreement alone: one host all-reduce of two ints a call
+    from deepspeed_tpu_torch.parallel import comm as pcomm
+    pcomm.any_ranks(False, False)
+    t0 = time.perf_counter()
+    for _ in range(ZERO_AGREE_CALLS):
+        pcomm.any_ranks(False, False)
+    out["agree_us"] = (time.perf_counter() - t0) * 1e6 / ZERO_AGREE_CALLS
+    # MoE at dp 2: stages 1 and 2 after a plain yardstick step, stage 3
+    mcfg = _zero_moe_cfg()
+    mbatches = token_stream(mcfg, ZERO_MOE_STEPS, seed=SEED + 7,
+                            seq=TRAIN_SEQ, micro=ZERO_MOE_MICRO * ZERO_DP)
+    mlocal = [_zero_rank_rows(b, ZERO_MOE_MICRO) for b in mbatches]
+    for slots in zero_moe_slots():
+        # K9's tiles at this path's slot counts (the global routing's and
+        # a rank's own), resolved outside the counted paths
+        H, Fw = mcfg.hidden_size, mcfg.ffn_size
+        xs = [torch.zeros(shape, dtype=torch.bfloat16, device=ZERO_DEVICE,
+                          requires_grad=True)
+              for shape in ((MOE_EXPERTS, slots, H), (MOE_EXPERTS, H, Fw),
+                            (MOE_EXPERTS, Fw), (MOE_EXPERTS, Fw, H),
+                            (MOE_EXPERTS, H))]
+        y = gg.grouped_ffn(*xs)
+        y.backward(torch.zeros_like(y))
+        del xs, y
+    for stage, steps in ((1, ZERO_MOE_STEPS), (2, ZERO_MOE_STEPS),
+                         (3, ZERO_MOE_S3_STEPS)):
+        eng = make_engine(mcfg, "bf16", micro=ZERO_MOE_MICRO, extra={
+            "train_batch_size": TRAIN_GAS * ZERO_MOE_MICRO * ZERO_DP,
+            "zero_optimization": {"stage": stage}, "moe": moe_block()})
+        plain = plain_reference_step_dp(eng, mcfg, mlocal[0]) \
+            if stage < 3 else None
+        torch.cuda.empty_cache()
+        out[f"moe_s{stage}"] = dict(_zero_record(eng, mlocal[:steps]),
+                                    plain=plain)
+        del eng
+        torch.cuda.empty_cache()
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_zero_preempt_rank(rank, spec_path):
+    """One rank of ``train_zero_preempt`` (a child process): the stage-2
+    recipe of ``train_zero`` with ``checkpoint.preempt_save`` on.
+    ``preempt``: rank 1 sends itself SIGTERM before step
+    ZERO_PREEMPT_AT; each rank times its save and exits by the signal.
+    ``resume``: load the tag and run to the end; the final params'
+    digest and the resumed losses to a JSON file."""
+    import hashlib
+    import torch.distributed as dist
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo", store=dist.FileStore(spec["store"], ZERO_DP),
+        world_size=ZERO_DP, rank=rank, verbose=False)
+    op_builder.load()
+    cfg = _zero_cfg()
+    micro = TRAIN_MICRO // ZERO_DP
+    local = [_zero_rank_rows(torch.from_numpy(b), micro)
+             for b in np.load(spec["batches"])]
+    eng = make_engine(cfg, "bf16", micro=micro, extra={
+        "train_batch_size": TRAIN_GAS * micro * ZERO_DP,
+        "zero_optimization": {"stage": 2},
+        "checkpoint": {"save_dir": spec["ckpt"], "preempt_save": True}})
+    out = spec["out"].format(rank=rank)
+    if spec["mode"] == "preempt":
+        save = eng.preempt_save
+
+        def timed_save(reason="SIGTERM"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = save(reason)
+            with open(out, "w") as f:
+                json.dump({"save_ms": (time.perf_counter() - t0) * 1e3,
+                           "step": eng.global_steps, "ok": ok}, f)
+            return ok
+        eng.preempt_save = timed_save
+        for k, b in enumerate(local):
+            if rank == 1 and k == ZERO_PREEMPT_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            eng.train_batch(b)
+        raise SystemExit("the preemption save did not end the run")
+    path, _ = eng.load_checkpoint(spec["ckpt"])
+    assert path is not None
+    start = eng.global_steps
+    losses = [float(eng.train_batch(b)) for b in local[start:]]
+    digest = hashlib.sha256()
+    for t in tree_flatten(eng.full_params())[0]:
+        digest.update(t.detach().float().cpu().numpy().tobytes())
+    with open(out, "w") as f:
+        json.dump({"start": start, "losses": losses,
+                   "params_sha256": digest.hexdigest()}, f)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -3464,6 +3737,7 @@ def train_zero(dev, smi):
                 res.append(json.load(f))
         final = {mode: np.load(spec["params"].format(mode=mode))
                  for mode in ("s0", "sparse")}
+        preempt = train_zero_preempt(tmp, spec["batches"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     expect = per_train_step(cfg)
@@ -3543,7 +3817,197 @@ def train_zero(dev, smi):
                "and the 1/dp is a power of two: bit-equal expected"}
     emit({"train_zero_stage0": stage0})
     assert diff <= SPARSE_VS_DENSE_ATOL, stage0["sparse_vs_s0"]
+    train_zero_overlap_checks(res, expect, counts, smi)
+    train_zero_moe_checks(res, counts, smi)
+    train_zero_preempt_checks(res, preempt, smi)
     return counts, scan_host
+
+
+def _rank_children(flag, spec_path, tmp, name, timeout=600):
+    """This script again as ZERO_DP children ``flag R spec_path``;
+    returns their exit codes and logs."""
+    logs = [open(os.path.join(tmp, f"{name}{r}.log"), "w+")
+            for r in range(ZERO_DP)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
+         spec_path], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(ZERO_DP)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for lg in logs:
+        lg.seek(0)
+        texts.append(lg.read())
+        lg.close()
+    return rcs, texts
+
+
+def train_zero_preempt(tmp, batches_path):
+    """The collective preemption save at dp 2 (``train_zero_preempt``):
+    two ranks on ``train_zero``'s stage-2 recipe and batches with
+    ``checkpoint.preempt_save`` on; rank 1 alone gets SIGTERM, both save
+    the same tag through the per-rank writers at the next step boundary
+    and exit by the signal; then two ranks resume from the tag to the
+    end. Returns the children's records."""
+    ck = os.path.join(tmp, "preempt_ckpt")
+    recs = {}
+    t0 = time.perf_counter()
+    for mode, want in (("preempt", -signal.SIGTERM), ("resume", 0)):
+        spec = {"store": os.path.join(tmp, f"store_{mode}"), "mode": mode,
+                "batches": batches_path, "ckpt": ck,
+                "out": os.path.join(tmp, f"{mode}{{rank}}.json")}
+        path = os.path.join(tmp, f"spec_{mode}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        rcs, texts = _rank_children("--train-zero-preempt-rank", path, tmp,
+                                    mode)
+        assert rcs == [want] * ZERO_DP, (mode, rcs, texts[0][-4000:],
+                                         texts[1][-4000:])
+        recs[mode] = []
+        for r in range(ZERO_DP):
+            with open(spec["out"].format(rank=r)) as f:
+                recs[mode].append(json.load(f))
+        if mode == "preempt":
+            with open(os.path.join(ck, "latest")) as f:
+                recs["latest"] = f.read()
+            recs["tag_files"] = sorted(os.listdir(os.path.join(
+                ck, recs["latest"])))
+    recs["wall_s"] = time.perf_counter() - t0
+    return recs
+
+
+def train_zero_preempt_checks(res, recs, smi):
+    """Both ranks saved the same step, the tag ``latest`` names holds
+    every rank's optimizer file, and the resumed run ends bit-equal to
+    ``train_zero``'s uninterrupted stage-2 run (params and the resumed
+    steps' losses)."""
+    n = ZERO_PREEMPT_AT + 1
+    saves = recs["preempt"]
+    assert all(x["ok"] and x["step"] == n for x in saves), saves
+    assert recs["latest"] == f"global_step{n}", recs["latest"]
+    assert {f"zero_pp_rank_{r}_mp_rank_00_optim_states.msgpack"
+            for r in range(ZERO_DP)} <= set(recs["tag_files"]), recs
+    for r, x in enumerate(recs["resume"]):
+        ref = res[r]["2"]
+        assert x["start"] == n, x
+        assert x["params_sha256"] == ref["params_sha256"], (r, x)
+        assert x["losses"] == ref["losses"][n:], (r, x, ref["losses"])
+    emit({"train_zero_preempt": {
+        "signal": "SIGTERM to rank 1 alone, before step "
+                  f"{ZERO_PREEMPT_AT}", "tag": recs["latest"],
+        "tag_files": recs["tag_files"],
+        "save_ms_by_rank": [x["save_ms"] for x in saves],
+        "resume_bit_equal_to_uninterrupted": True,
+        "wall_s": recs["wall_s"], "card": smi}})
+
+
+def train_zero_overlap_checks(res, expect, counts, smi):
+    """``overlap_comm`` at stage 2 (path ``train_zero_overlap_s2``):
+    on bit-equal to off and to ``train_zero``'s stage 2 (losses, params,
+    moments) on both ranks, a bucket's collective started from the grad
+    hooks before the backward's last grad was in, the main path's
+    launches a step and rank. Also stage 2 with the preemption saver
+    armed (a ``save_dir``): bit-equal, its step p50 beside the unarmed
+    one's and the agreement's own time a call."""
+    on = [x["overlap_on"] for x in res]
+    off = [x["overlap_off"] for x in res]
+    armed = [x["preempt_armed"] for x in res]
+    for a, b, c, s2 in zip(on, off, armed, [x["2"] for x in res]):
+        for key in ("losses", "params_sha256", "moments_sha256"):
+            assert a[key] == b[key] == c[key] == s2[key], ("overlap", key)
+        assert a["overlap_early_last"] > 0, a
+        want = {k: ZERO_STEPS * v for k, v in expect.items()}
+        assert a["counts"] == want and b["counts"] == want, a["counts"]
+        assert c["counts"] == want, c["counts"]
+    emit({"train_zero_preempt_armed": {
+        "step_ms_p50_armed_by_rank": [float(np.median(x["ms"][1:]))
+                                      for x in armed],
+        "step_ms_p50_unarmed_by_rank": [float(np.median(x["ms"][1:]))
+                                        for x in off],
+        "agree_us_by_rank": [x["agree_us"] for x in res],
+        "agree_ms_in_steps_by_rank": [x["agree_ms"] for x in armed],
+        "agree_ms_in_steps_p50_by_rank": [float(np.median(x["agree_ms"]))
+                                          for x in armed],
+        "order": "interleaved a step at a time with overlap on and off",
+        "bit_equal": True, "card": smi}})
+    counts["train_zero_overlap_s2"] = {
+        k: sum(x["counts"][k] for x in on) for k in on[0]["counts"]}
+    emit({"train_zero_overlap_s2": {
+        "bucket_elements": ZERO_OVERLAP_BUCKET,
+        "buckets": on[0]["overlap_buckets"],
+        "buckets_started_before_the_last_grad":
+            on[0]["overlap_early_last"],
+        "step_ms_p50_on_by_rank": [float(np.median(x["ms"][1:]))
+                                   for x in on],
+        "step_ms_p50_off_by_rank": [float(np.median(x["ms"][1:]))
+                                    for x in off],
+        "bit_equal_on_off": True,
+        "order": "interleaved a step at a time (and with the armed saver)",
+        "note": "gloo stages every collective through the host on one "
+                "card: the host's figures, not a multi-card one",
+        "card": smi}})
+
+
+def train_zero_moe_checks(res, counts, smi):
+    """MoE at dp 2 (paths ``train_zero_moe_s1``, ``_s2``, ``_s3``): the
+    ranks bit-equal (params, losses, moe stats), finite losses, exactly
+    ``per_moe_step``'s launches a step and rank (168 K9), no staged K9
+    operand, and at stages 1-2 the first step's loss and grad norm within
+    ``train_moe``'s limits of the same step through the plain versions.
+    Printed: step p50 and peak memory a rank and the ``moe_*`` stats."""
+    expect = per_moe_step(_zero_moe_cfg())
+    rec = {"model": "gpt2-small, 8 experts top-2 in every block, "
+                    "capacity factor 1.25", "dp": ZERO_DP,
+           "per_rank_batch": f"{TRAIN_GAS} x {ZERO_MOE_MICRO} x "
+                             f"{TRAIN_SEQ}", "precision": "bf16, fp32 "
+                                                          "masters",
+           "routing": {"1": "global token list (JAX's GSPMD program)",
+                       "2": "each rank's tokens", "3": "each rank's "
+                                                       "tokens"},
+           "card": smi}
+    for stage, steps in ((1, ZERO_MOE_STEPS), (2, ZERO_MOE_STEPS),
+                         (3, ZERO_MOE_S3_STEPS)):
+        st = [x[f"moe_s{stage}"] for x in res]
+        for key in ("params_sha256", "losses", "moe_drop_fraction",
+                    "moe_aux_loss", "moe_z_loss", "grad_norms"):
+            assert all(x[key] == st[0][key] for x in st), (stage, key)
+        assert all(math.isfinite(l) for l in st[0]["losses"]), stage
+        want = {k: steps * v for k, v in expect.items()}
+        for x in st:
+            assert x["counts"] == want, (stage, x["counts"], want)
+            assert x["k9_staged"] == 0, x["k9_staged"]
+        counts[f"train_zero_moe_s{stage}"] = {
+            k: sum(x["counts"][k] for x in st) for k in st[0]["counts"]}
+        r = {"steps": steps, "losses": st[0]["losses"],
+             "grad_norms": st[0]["grad_norms"],
+             "step_ms_p50_by_rank": [float(np.median(
+                 x["ms"][1:] if len(x["ms"]) > 1 else x["ms"]))
+                 for x in st],
+             "peak_gb_by_rank": [x["peak_bytes"] / 1e9 for x in st],
+             "moe_drop_fraction": st[0]["moe_drop_fraction"],
+             "moe_aux_loss": st[0]["moe_aux_loss"],
+             "moe_z_loss": st[0]["moe_z_loss"],
+             "moe_expert_tokens_last": st[0]["moe_expert_tokens_last"],
+             "k9_launches_per_step_rank": expect["grouped_matmul"]}
+        if st[0]["plain"] is not None:
+            ref_loss, ref_norm = st[0]["plain"]
+            r.update(loss_plain=ref_loss, grad_norm_plain=ref_norm,
+                     loss_rel=abs(st[0]["losses"][0] - ref_loss) /
+                     abs(ref_loss),
+                     grad_norm_rel=abs(st[0]["grad_norms"][0] - ref_norm) /
+                     ref_norm, loss_rtol=TRAIN_LOSS_RTOL,
+                     grad_norm_rtol=TRAIN_GRAD_NORM_RTOL)
+        rec[f"stage{stage}"] = r
+    emit({"train_zero_moe": rec})
+    for stage in (1, 2):
+        r = rec[f"stage{stage}"]
+        assert r["loss_rel"] <= TRAIN_LOSS_RTOL, (stage, r)
+        assert r["grad_norm_rel"] <= TRAIN_GRAD_NORM_RTOL, (stage, r)
 
 
 def train_zero_scan_checks(cfg, res, expect, ref_loss, counts, smi):
@@ -6241,18 +6705,71 @@ def launch_ds_report(smi):
     return out
 
 
+# The elastic delta's fixed bound: 10 x the reduction-order floor of
+# tests/test_torch_crashkill_elastic.py's dp-4 reference against its dp-2
+# floor run on the CPU (1.23e-5). The card's own floor (dp 2 against
+# dp 1) includes a first Adam step taken at another dp, whose parting on
+# grads that cancel to near eps no kill/resume cycle repeats.
+ELASTIC_MAX = 1.23e-4
+
+
+def crashkill_first_step(tmp):
+    """The harness's job, one step from its initial state at dp 1 and at
+    dp 2 (gloo ranks sharing the card): where the two part (the elements
+    moved by over 1e-6, the worst delta and its leaf)."""
+    tool = os.path.join(REPO, "tools", "crashkill_torch.py")
+    outs, procs = {}, []
+    for world in (1, 2):
+        d = os.path.join(tmp, f"first_step_dp{world}")
+        outs[world] = d + ".npz"
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, tool, "child", "--dir", d, "--steps", "1",
+                 "--snapshot-every", "0", "--world", str(world), "--rank",
+                 str(rank), "--store", d + ".store", "--out", outs[world]],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+    for p in procs:
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log[-3000:]
+    a, b = np.load(outs[1]), np.load(outs[2])
+    deltas = [np.abs(a[k].astype(np.float64) - b[k]) for k in a.files]
+    worst = int(np.argmax([float(d.max()) for d in deltas]))
+    return {"max_abs_delta": float(deltas[worst].max()),
+            "worst_leaf": a.files[worst],
+            "elements_parted_over_1e-6": int(sum(int((d > 1e-6).sum())
+                                                 for d in deltas))}
+
+
 def launch_crashkill(smi, tmp):
-    """``tools/crashkill_torch.py run --quick`` on the card: SIGTERM and
-    SIGKILL kills, a loadable latest after each, the resumed run
-    bit-identical to an uninterrupted one."""
+    """``tools/crashkill_torch.py run --quick`` on the card: the same-dp
+    tier (SIGTERM and SIGKILL kills, a loadable latest after each, the
+    resumed run bit-identical to an uninterrupted one), then the elastic
+    tier on gloo ranks sharing the card, worlds 2 -> 1 -> 2 (a floor run
+    at dp 1 against the dp-2 reference; a SIGTERM to one rank, saved by
+    both; the resumed run within max(10 x floor, 1e-6) of the reference
+    and within ELASTIC_MAX), and the job's first step at dp 1 against
+    dp 2 (``crashkill_first_step``: where the floor run parts)."""
     res, wall = run_command([sys.executable, os.path.join(
         REPO, "tools", "crashkill_torch.py"), "run", "--quick",
+        "--worlds", "2,1,2", "--elastic-max", str(ELASTIC_MAX),
         "--workdir", os.path.join(tmp, "crashkill")], 900)
     out = {"returncode": res.returncode, "log": res.stdout.splitlines(),
            "wall_s": wall, "card": smi}
-    emit({"launch_crashkill": out})
-    assert res.returncode == 0 and "BIT-IDENTICAL" in res.stdout, \
+    assert res.returncode == 0 and \
+        "same-dp trajectory: BIT-IDENTICAL" in res.stdout and \
+        "elastic trajectory" in res.stdout and \
+        "crashkill: PASS" in res.stdout, \
         res.stdout[-4000:] + res.stderr[-4000:]
+    m = re.search(r"elastic trajectory: (BIT-IDENTICAL|max \|delta\| = "
+                  r"([0-9.e+-]+))", res.stdout)
+    out["elastic_delta"] = float(m.group(2)) if m.group(2) else 0.0
+    out["elastic_floor"] = float(re.search(
+        r"no kills\): ([0-9.e+-]+)", res.stdout).group(1))
+    out["elastic_max"] = ELASTIC_MAX
+    assert out["elastic_delta"] <= ELASTIC_MAX, out
+    out["first_step_dp1_vs_dp2"] = crashkill_first_step(tmp)
+    emit({"launch_crashkill": out})
     return out
 
 
@@ -6436,12 +6953,17 @@ def main():
     # K9: the up-projection (bias + GELU, bf16) as the row's record; the
     # seven path shapes, fp32 and fp16 join ms_by_shape.
     main_gg = [r for r in grouped if r["case"] == "fwd_up" and
-               r["dtype"] == "bf16"][0]
+               r["dtype"] == "bf16" and r["slots"] == MOE_CAPACITY][0]
     row = summary("grouped_gemm", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
                   ref + "grouped_gemm.py:132", ("grouped_matmul",), main_gg,
                   grouped)
     row["ms_per_moe_layer_and_micro_batch"] = sum(
-        r["kernel_ms"] for r in grouped if r["dtype"] == "bf16")
+        r["kernel_ms"] for r in grouped
+        if r["dtype"] == "bf16" and r["slots"] == MOE_CAPACITY)
+    row["ms_per_moe_layer_and_micro_batch_by_slots"] = {
+        C: sum(r["kernel_ms"] for r in grouped
+               if r["dtype"] == "bf16" and r["slots"] == C)
+        for C in (MOE_CAPACITY,) + zero_moe_slots()}
     kernels.append(row)
     # The shard-local mode's local launches (a rank's rows) by dp.
     for row, recs in ((kernels[4], sq_shard), (kernels[5], adam_shard)):
@@ -6475,5 +6997,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--train-zero-rank":
         train_zero_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--train-zero-preempt-rank":
+        train_zero_preempt_rank(int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -26,9 +26,29 @@ The layer replaces a transformer block's dense FFN (every
 The scatter, the gather back, the router matmul and the combine are
 plain PyTorch, as the JAX package leaves them to XLA. Expert parallelism
 (ep > 1: the all-to-all dispatch) is not ported yet and raises.
+
+**Across data-parallel ranks** (ep = 1) each rank routes its own tokens
+through the replicated experts. Which token list a routing decision
+spans follows the JAX engine's program: where its gradient sync runs
+under ``shard_map`` (ZeRO 2-3 with the explicit reduce-scatter) each
+device routes its own tokens, with a capacity from its own token count;
+elsewhere (ZeRO 0-1, ``reduce_scatter: false``, the declarative sync,
+eval) the program is the global one, GSPMD-partitioned, so one decision
+spans every rank's tokens: the capacity comes from the global count and
+the priority order runs over the global token list (rank after rank
+within each choice). The engine opens ``routing_across`` for the second
+kind: the ranks' per-(expert, choice) counts are all-gathered (one small
+collective a MoE layer), each token's global position in its expert
+follows from them, and each rank fills only its own tokens' slots (a
+local buffer of ``min(C, T)`` slots an expert: a token picks an expert at
+most once). The stats are then this rank's share of the global ones:
+the engine sums ``expert_tokens`` and averages the rest over the ranks,
+and the aux loss takes the global routed fractions, so its mean over the
+ranks is the global aux loss.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -139,20 +159,95 @@ def _dispatch_plan(idx: torch.Tensor, num_experts: int, capacity: int
     return dest, keep, torch.sum(oh, dim=1).to(torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutingSpan:
+    """The ranks one routing decision spans: ``world`` ranks with equal
+    token counts, this one ``rank``; ``gather`` all-gathers a flat
+    tensor in rank order (``[n]`` → ``[world * n]``)."""
+    world: int
+    rank: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+_SPAN: Optional[RoutingSpan] = None
+
+
+@contextlib.contextmanager
+def routing_across(span: Optional[RoutingSpan]):
+    """Route every MoE layer run inside (its forward, and a backward's
+    re-run of it) over ``span``'s global token list; None routes each
+    rank's tokens alone."""
+    global _SPAN
+    prev, _SPAN = _SPAN, span
+    try:
+        yield
+    finally:
+        _SPAN = prev
+
+
+def _dispatch_plan_across(idx: torch.Tensor, num_experts: int,
+                          capacity: int, slots: int, span: RoutingSpan
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """``_dispatch_plan`` over the global token list of ``span``'s ranks
+    (rank-major within each choice, as the JAX engine's batch is laid
+    out), for this rank's tokens. Returns ``(dest [k*T] in [0, E*slots]
+    (E*slots = dropped), keep, this rank's routed counts [E] fp32, the
+    global counts [E] fp32)``.
+
+    A token's global position in its expert is the choices before its
+    own (every rank's), plus its own choice's counts on the ranks before
+    this one, plus its position among this rank's tokens of that choice.
+    Along this rank's j-major order the global positions of one expert
+    rise, so the kept tokens of an expert are a prefix of them and the
+    local running count is a slot below ``min(capacity, T)``."""
+    T, k = idx.shape
+    E = num_experts
+    idx_j = idx.t().reshape(-1)                                  # [k*T]
+    oh = F.one_hot(idx_j, E).t().contiguous()                    # [E, k*T]
+    prior = torch.cumsum(oh, dim=1) - oh
+    local_pos = torch.sum(prior * oh, dim=0)
+    per_choice = oh.view(E, k, T)
+    cnt = per_choice.sum(dim=2)                                  # [E, k]
+    every = span.gather(cnt.reshape(-1)).view(span.world, E, k)
+    per_j = every.sum(dim=0)                                     # [E, k]
+    base = torch.cumsum(per_j, dim=1) - per_j + \
+        every[:span.rank].sum(dim=0)
+    within = (torch.cumsum(per_choice, dim=2) - per_choice).view(E, k * T)
+    base_jt = base[:, :, None].expand(E, k, T).reshape(E, k * T)
+    global_pos = torch.sum((base_jt + within) * oh, dim=0)
+    keep = global_pos < capacity
+    dest = torch.where(keep, idx_j * slots + local_pos,
+                       torch.full_like(idx_j, E * slots))
+    return dest, keep, cnt.sum(dim=1).to(torch.float32), \
+        per_j.sum(dim=1).to(torch.float32)
+
+
 def _moe_tokens(params: Dict[str, torch.Tensor], xt: torch.Tensor,
                 moe: MoEConfig, gelu_approx: bool,
-                expert_ffn: Optional[Callable] = None
+                expert_ffn: Optional[Callable] = None,
+                span: Optional[RoutingSpan] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The token path: route → bucket → expert FFN → weighted combine.
     ``xt``: [T, H] tokens in the compute dtype. ``expert_ffn`` is the
-    grouped FFN (default ``grouped_ffn``). Returns (y [T, H], stats)."""
+    grouped FFN (default ``grouped_ffn``); ``span`` the ranks whose
+    tokens one routing decision spans (None: these tokens alone).
+    Returns (y [T, H], stats)."""
     check_grouped_gemm(moe.grouped_gemm, xt.device)
     T, H = xt.shape
     E, k = moe.num_experts, moe.top_k
-    C = expert_capacity(T, E, k, moe.capacity_factor)
     gates, idx, probs, logits = router_topk(
         xt.to(torch.float32), params["router_kernel"], k)
-    dest, keep, counts = _dispatch_plan(idx, E, C)
+    if span is None:
+        C = expert_capacity(T, E, k, moe.capacity_factor)
+        dest, keep, counts = _dispatch_plan(idx, E, C)
+        frac = counts.detach() / (k * T)
+    else:
+        cap = expert_capacity(span.world * T, E, k, moe.capacity_factor)
+        C = min(cap, T)               # this rank's slots an expert
+        dest, keep, counts, total = _dispatch_plan_across(idx, E, cap, C,
+                                                          span)
+        frac = total / (k * T * span.world)
 
     # Scatter into the [E, C, H] dispatch buffer; row E*C is the drop
     # bin (kept (e, pos) slots are unique by construction, so the
@@ -174,7 +269,6 @@ def _moe_tokens(params: Dict[str, torch.Tensor], xt: torch.Tensor,
     gk = gates.t().reshape(-1).to(yf.dtype)
     out = torch.sum((yk * gk[:, None]).reshape(k, T, H), dim=0)
 
-    frac = counts.detach() / (k * T)
     stats = {
         "expert_tokens": counts,                                 # [E] fp32
         "drop_fraction":
@@ -198,7 +292,7 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         raise NotImplementedError(EP_UNPORTED)
     B, S, H = x.shape
     y, stats = _moe_tokens(params, x.reshape(B * S, H), moe,
-                           not cfg.gelu_exact, expert_ffn)
+                           not cfg.gelu_exact, expert_ffn, _SPAN)
     return y.reshape(B, S, H), stats
 
 
@@ -211,6 +305,6 @@ def aggregate_moe_stats(per_layer: List[Dict[str, torch.Tensor]]
             for name in per_layer[0]}
 
 
-__all__ = ["MOE_PARAM_KEYS", "MoEConfig", "expert_capacity",
-           "moe_layer_indices", "router_topk", "moe_ffn",
+__all__ = ["MOE_PARAM_KEYS", "MoEConfig", "RoutingSpan", "expert_capacity",
+           "moe_layer_indices", "router_topk", "routing_across", "moe_ffn",
            "aggregate_moe_stats"]

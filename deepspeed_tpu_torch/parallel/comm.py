@@ -165,8 +165,33 @@ def barrier() -> None:
         dist.barrier()
 
 
+_HOST_GROUP = None
+
+
+def host_group():
+    """A group over every rank whose collectives take CPU tensors: the
+    default group when its backend is gloo, else a gloo group made at
+    the first call (every rank makes that call at the same point)."""
+    global _HOST_GROUP
+    if _HOST_GROUP is None:
+        _HOST_GROUP = dist.group.WORLD \
+            if dist.get_backend() == dist.Backend.GLOO \
+            else dist.new_group(backend="gloo")
+    return _HOST_GROUP
+
+
+def any_ranks(*flags: bool) -> List[bool]:
+    """Each flag True on every rank when it is True on any: one
+    host-side all-reduce (max) of CPU ints, with no device work and no
+    read from a card."""
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+    return [bool(v) for v in t.tolist()]
+
+
 __all__ = ["init_distributed", "set_local_device", "is_initialized",
            "get_world_size", "get_rank", "all_reduce", "reduce_scatter",
            "all_gather", "all_gather_start", "gather", "broadcast",
+           "host_group", "any_ranks",
            "barrier",
            "default_backend"]

@@ -22,6 +22,16 @@ keeps its own copy so that it imports nothing of the JAX package).
    the previous or the new checkpoint fully loadable — never a torn
    one.
 
+**Per-rank writers** (dp > 1): every rank commits its own blobs (its
+optimizer file) into one staging dir that all ranks name alike,
+``<tag>.tmp.<token>`` (the token starts with the sealing rank's pid),
+each file written under a private name and renamed into place whole.
+The sealing rank (rank 0) writes its blobs, waits until every other
+rank's file is there, then seals, publishes and flips ``latest`` as
+above: a tag is committed only after every rank's file is on disk, and
+a rank killed mid-write leaves an unsealed staging dir (swept once its
+pid is dead) and the previous tag loadable.
+
 Preemption-safety end to end: :class:`PreemptSaver` hooks SIGTERM
 (chaining with whatever handler preceded it, as monitor/flight.py's
 ``dispatch_prev_handler`` does) and asks the engine for a final
@@ -53,6 +63,7 @@ import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+from ..parallel.comm import any_ranks as comm_any_ranks
 from ..utils.logging import log_dist, logger
 
 LATEST_FILE = "latest"
@@ -90,6 +101,12 @@ class CheckpointSnapshot:
     is_writer: bool = True
     fsync: bool = False
     created_ts: float = field(default_factory=time.time)
+    # Per-rank writers: the staging token every rank's commit shares
+    # (None: this process stages alone), the other ranks' files the
+    # sealing rank waits for, and how long it waits.
+    shared: Optional[str] = None
+    await_files: Tuple[str, ...] = ()
+    await_timeout_s: float = 300.0
 
     @property
     def path(self) -> str:
@@ -181,13 +198,34 @@ def write_latest(save_dir: str, tag: str, fsync: bool = False) -> None:
         _fsync_dir(save_dir)
 
 
+def _await_files(tmp_dir: str, names: Tuple[str, ...],
+                 timeout_s: float) -> None:
+    """Wait until every file of ``names`` is in ``tmp_dir`` (each lands by
+    a rename, so present means whole); OSError after ``timeout_s``."""
+    t0 = time.monotonic()
+    missing = list(names)
+    while missing:
+        missing = [n for n in missing
+                   if not os.path.isfile(os.path.join(tmp_dir, n))]
+        if not missing:
+            return
+        if time.monotonic() - t0 > timeout_s:
+            raise OSError(f"checkpoint {tmp_dir}: the other ranks' files "
+                          f"{missing} did not land within {timeout_s:.0f} s;"
+                          " the tag is not committed")
+        time.sleep(0.01)
+
+
 def commit_snapshot(snap: CheckpointSnapshot) -> str:
     """Serialize and commit a snapshot with the two-phase protocol.
     Host-only — safe to run on the writer thread or inline (the sync
     path and the async path share this byte-for-byte, which is what the
-    async-vs-sync artifact bit-identity test checks)."""
+    async-vs-sync artifact bit-identity test checks). With per-rank
+    writers (``snap.shared``) a rank that does not seal writes its blobs
+    into the shared staging dir and returns."""
     final = snap.path
-    if not snap.is_writer:
+    shared = snap.shared is not None
+    if not snap.is_writer and not shared:
         # Non-writer SPMD processes participated in the snapshot fetch
         # (the device_get is collective-shaped) but write nothing.
         return final
@@ -196,21 +234,39 @@ def commit_snapshot(snap: CheckpointSnapshot) -> str:
     # wedged background writer on the SAME tag must not share (and
     # rmtree-stomp) the writer's staging dir — each commit stages in
     # its own dir, each rename publishes an internally-complete dir,
-    # and the last rename wins whole.
-    tmp_dir = f"{final}{TMP_SUFFIX}.{os.getpid()}.{threading.get_ident()}"
-    for stale in glob.glob(final + TMP_SUFFIX + "*"):
-        # Stale tmp dirs (a killed writer's — never renamed, garbage by
-        # construction) are cleared; a LIVE process's staging dir is
-        # left alone. Legacy/unparsable names count as stale.
-        pid = _tmp_pid(stale)
-        if stale == tmp_dir or pid is None or not _pid_alive(pid):
-            shutil.rmtree(stale, ignore_errors=True)
-    os.makedirs(tmp_dir)
+    # and the last rename wins whole. Per-rank writers share one dir,
+    # named by a token that starts with the sealing rank's pid.
+    tmp_dir = f"{final}{TMP_SUFFIX}.{snap.shared}" if shared else \
+        f"{final}{TMP_SUFFIX}.{os.getpid()}.{threading.get_ident()}"
+    if snap.is_writer:
+        for stale in glob.glob(final + TMP_SUFFIX + "*"):
+            # Stale tmp dirs (a killed writer's — never renamed, garbage
+            # by construction) are cleared; a LIVE process's staging dir
+            # is left alone, and so is the shared dir the other ranks
+            # may be writing into. Legacy/unparsable names count as
+            # stale.
+            pid = _tmp_pid(stale)
+            if stale == tmp_dir:
+                if not shared:
+                    shutil.rmtree(stale, ignore_errors=True)
+            elif pid is None or not _pid_alive(pid):
+                shutil.rmtree(stale, ignore_errors=True)
+    os.makedirs(tmp_dir, exist_ok=shared)
     for fname, builder in snap.blobs:
         data = builder() if callable(builder) else builder
-        _write_blob(os.path.join(tmp_dir, fname), data, snap.fsync)
+        if shared:
+            # (published whole by the rename: the sealing rank waits
+            # for the name)
+            part = os.path.join(tmp_dir, f".{fname}.part.{os.getpid()}")
+            _write_blob(part, data, snap.fsync)
+            os.replace(part, os.path.join(tmp_dir, fname))
+        else:
+            _write_blob(os.path.join(tmp_dir, fname), data, snap.fsync)
         if delay > 0:
             time.sleep(delay)
+    if not snap.is_writer:
+        return final
+    _await_files(tmp_dir, snap.await_files, snap.await_timeout_s)
     crash_point("pre_seal")
     # The seal: meta is written LAST, so its presence certifies every
     # blob above it landed whole (within this tmp dir).
@@ -417,6 +473,19 @@ class AsyncCheckpointer:
 class PreemptSaver:
     """SIGTERM → final snapshot+commit, then chain.
 
+    Across ranks (``engine.dp > 1``) the save is collective, and a
+    signal reaches the ranks at different moments (or one rank only), so
+    the handler only records it. At every collective boundary (the end
+    of a step or of ``eval_batch``: ``fire_held``) the ranks agree on
+    the flag, and on whether any rank's step raised, by one host-side
+    all-reduce (max; ``parallel/comm.any_ranks``: no device read); when
+    any rank holds one, every rank saves the same tag through the
+    per-rank writers (no rank saves after a step that raised on any)
+    and exits as the one-rank path does (a rank that got no signal
+    exits by SIGTERM too). A signal still held when the process reaches
+    ``engine.close()`` or exits (``release``) is not swallowed: the
+    rank exits by it without a save, which one rank alone cannot make.
+
     Installed AFTER the engine's Telemetry builds its flight recorder,
     so on a preemption this handler runs FIRST (last installed wins the
     dispatch), saves the final checkpoint, and then chains to the flight
@@ -440,6 +509,7 @@ class PreemptSaver:
         if self._installed:
             return
         self._installed = True
+        atexit.register(self.release)
         signum = getattr(signal, "SIGTERM", None)
         if signum is None:
             return
@@ -454,6 +524,7 @@ class PreemptSaver:
         if not self._installed:
             return
         self._installed = False
+        atexit.unregister(self.release)
         self._chain_prev.update(self._prev)
         for signum, prev in self._prev.items():
             try:
@@ -472,9 +543,10 @@ class PreemptSaver:
                 signum, frame, self._on_signal)
             return
         eng = self._ref()
-        if eng is not None and eng._in_step:
+        if eng is not None and (eng._in_step or eng.dp > 1):
             # Inside a step the state is part old, part new: handled at
             # the step's end (fire_held), where global_steps names it.
+            # Across ranks, always there: the save is collective.
             self._held = (signum, frame)
             return
         self._fire(signum, frame, save=True)
@@ -482,11 +554,32 @@ class PreemptSaver:
     def fire_held(self, save: bool = True) -> None:
         """Handle a SIGTERM held during a step (the engine calls this at
         the step's end; ``save=False`` after a step that raised, whose
-        state is not one step's)."""
+        state is not one step's). Across ranks every rank calls this at
+        every collective boundary: the ranks agree whether any holds a
+        signal and whether any step raised."""
+        eng = self._ref()
+        if eng is not None and eng.dp > 1 and self._installed:
+            held_any, raised_any = comm_any_ranks(self._held is not None,
+                                                  not save)
+            if not held_any:
+                return
+            held = self._held or (int(signal.SIGTERM), None)
+            self._held = None
+            self._fire(*held, save=not raised_any)
+            return
         if self._held is not None:
             signum, frame = self._held
             self._held = None
             self._fire(signum, frame, save=save)
+
+    def release(self) -> None:
+        """A held SIGTERM with no boundary left to take it up (the
+        engine's ``close``, the interpreter's exit): exit by it, without
+        a save (local: no collective)."""
+        if self._held is not None and self._installed:
+            signum, frame = self._held
+            self._held = None
+            self._fire(signum, frame, save=False)
 
     def _fire(self, signum, frame, save: bool) -> None:
         from ..monitor.flight import dispatch_prev_handler

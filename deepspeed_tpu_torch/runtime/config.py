@@ -848,19 +848,6 @@ class DeepSpeedConfig:
              "dp to divide its 8 virtual shards; JAX widens V to dp above "
              "8, outside its own test envelope)",
              "queue 1: dp > 8"),
-            # The SIGTERM handler runs between any two bytecodes of the
-            # main thread, and the signal reaches the ranks at different
-            # moments: the save's gathers would pair with another rank's
-            # step collectives.
-            (world > 1 and bool(self.checkpoint_config.save_dir) and
-             bool(self.checkpoint_config.preempt_save),
-             "checkpoint.preempt_save at dp > 1 (the SIGTERM handler "
-             "cannot run the save's collectives safely; set "
-             "checkpoint.preempt_save to false)",
-             "queue 1: a collective preemption save"),
-            (world > 1 and self.moe_config.num_experts > 0,
-             "MoE at dp > 1", "queue 1 item 6, what dp and ZeRO left: MoE "
-             "at dp > 1"),
             (self.mesh_num_slices > 1,
              f"mesh.slices = {self.mesh_num_slices} (multi-slice scale-out "
              "and its hierarchical ICI/DCN gradient sync)",

@@ -19,7 +19,10 @@ the step stays a device tensor, so an iteration issues no host sync:
 (``last_metrics``) holds tensors. With a ``moe`` block the loss_fn's MoE
 stats, averaged over the micro-batches, join the metrics as
 ``moe_expert_tokens``, ``moe_drop_fraction``, ``moe_aux_loss`` and
-``moe_z_loss``.
+``moe_z_loss``; at dp > 1 they are the global ones (the token counts
+summed over the ranks, the rest averaged, in the loss's all-reduce), and
+the routing spans what the JAX engine's program spans (``_moe_span``:
+every rank's tokens at ZeRO 0-1, each rank's own at ZeRO 2-3).
 
 State. The parameters live in one contiguous flat buffer per dtype
 group (fp32 masters, or bf16 with ``bf16.stochastic_rounding``), each
@@ -46,6 +49,10 @@ with explicit collectives (the JAX engine's explicit schedule,
   squares all-reduced, K6's noise index from the rank's base);
 - stage 2: each micro-step's grads packed into the V-layout in fp32 and
   reduce-scattered, each rank accumulating its rows;
+- at stages 1-2 with ``overlap_comm``, the same collectives bucket by
+  bucket (``reduce_bucket_size`` elements, reverse leaf order), each
+  started from the grad hooks as soon as its grads are in
+  (``zero/overlap.GradBuckets``);
 - stage 3: each rank holds only its rows of the masters; every
   micro-step gathers the leaves in the compute dtype
   (``zero/stage3.gather_cast``), saved for the backward pass as
@@ -92,10 +99,15 @@ convert.py``; an optax chain's state leaves, counts and per-parameter
 buffers in tree order, whole leaves written by rank 0 at any dp; and the
 loss-scale scalars), ``engine_meta.json`` (the counters, the seal of
 the two-phase commit) and ``latest`` (runtime/async_ckpt.py). At dp > 1
-there is one optimizer file per rank (``zero_pp_rank_{d}``): at ZeRO
-stage >= 1 a rank's moment rows, gathered to rank 0, which writes
-alone. A save from any dp (of the port or of JAX) loads at any dp
-dividing 8 by joining the optimizer shards and taking this rank's rows.
+there is one optimizer file per rank (``zero_pp_rank_{d}``), each
+written by its rank (at ZeRO stage >= 1 its moment rows); rank 0 writes
+the model file and the meta and commits the tag once every rank's file
+is on disk (``_per_rank_snapshot``; 1-bit Adam, the optax chains and
+offload gather to rank 0, which writes alone). A SIGTERM at dp > 1 is
+held and agreed at the next step boundary (``PreemptSaver``), where
+every rank saves the same tag. A save from any dp (of the port or of
+JAX) loads at any dp dividing 8 by joining the optimizer shards and
+taking this rank's rows.
 
 ZeRO-Offload (``zero_optimization.cpu_offload`` at stage >= 1): the fp32
 masters and the Adam moments live in host memory, in a
@@ -134,8 +146,8 @@ engine's ``_build_onebit_train_step`` and sparse-gradient step):
   At dp 1 the main path runs, as in JAX.
 
 What the port does not run yet raises ``NotImplementedError``, naming
-the ROADMAP slice that brings it: a dp that does not divide 8, MoE at
-dp > 1, the pipeline and the other
+the ROADMAP slice that brings it: a dp that does not divide 8, the
+pipeline and the other
 parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
 ``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
 under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
@@ -179,6 +191,7 @@ from .progressive_layer_drop import ProgressiveLayerDrop
 from .. import constants as C
 from ..models import convert
 from ..models.transformer import check_trainable
+from ..moe.layer import RoutingSpan, routing_across
 from ..ops.grouped_gemm import check_grouped_gemm
 from ..ops.fused_update import (FlatGroup, FusedAdamState, ShardGroup,
                                 _int32, float_groups, tree_flatten,
@@ -190,6 +203,7 @@ from ..parallel import comm
 from ..parallel.topology import dp_rank, dp_world_size
 from ..parallel.wire_model import grad_sync_wire_model
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
+from .zero.overlap import GradBuckets
 from .zero.partition import covered_leaves, describe_sharding, row_plan
 from .zero.stage3 import (DimPart, RowPart, Zero3Scan, _Gathering,
                           gather_parts, gather_working_set_bytes,
@@ -214,6 +228,9 @@ _SR_FOLD = 0x5352
 # What eval_batch folds into the base seed for its default generators
 # ("EV").
 _EVAL_FOLD = 0x4556
+# The MoE stats a step reports (``moe_<name>``), in the order the loss's
+# all-reduce carries them.
+MOE_STATS = ("expert_tokens", "drop_fraction", "aux_loss", "z_loss")
 _MASK64 = (1 << 64) - 1
 
 
@@ -612,6 +629,19 @@ class DeepSpeedEngine:
         self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
         if scan:
             self._bind_zero3_scan(zero3_scan)
+        # overlap_comm at ZeRO 1-2 across ranks: each bucket's collective
+        # starts from the grad hooks as soon as its grads are in
+        # (runtime/zero/overlap.py). Under offload overlap_comm is the
+        # host pipeline's (below).
+        self._buckets: Optional[GradBuckets] = None
+        if self._shard_local and not self._zero3 and zc.overlap_comm:
+            self._buckets = GradBuckets(
+                self._group_leaves,
+                [int(np.prod(s, dtype=np.int64)) for s in self._leaf_shapes],
+                int(zc.reduce_bucket_size), self._rs_grads, self._shards,
+                self._groups, self._grad_views)
+            for i, leaf in enumerate(self._loss_leaves):
+                leaf.register_hook(self._buckets.hook(i))
 
         self._scaler_kw = dict(
             fp16=self.config.fp16_enabled, static_scale=sc["static"],
@@ -675,6 +705,21 @@ class DeepSpeedEngine:
         if self.config.sparse_gradients_enabled:
             self._init_sparse_gradients(sparse_grad_filter)
 
+        # MoE at dp > 1 (ep 1): the token list a routing decision spans
+        # (moe/layer.py). The JAX engine computes the grads under
+        # shard_map, each device routing its own tokens, where its sync
+        # resolves to the explicit reduce-scatter (ZeRO 2-3); elsewhere
+        # its program is the global one, and so is its routing (the
+        # step's, and eval's at any stage).
+        self._moe_span: Optional[RoutingSpan] = None
+        self._eval_span: Optional[RoutingSpan] = None
+        if self._moe_metrics and self.dp > 1:
+            self._eval_span = RoutingSpan(self.dp, self.dp_rank,
+                                          comm.all_gather)
+            if not (self.zero_optimization_stage() >= 2 and
+                    zc.reduce_scatter and zc.grad_sync != "declarative"):
+                self._moe_span = self._eval_span
+
         # The base seed of the per-step random stream (step_generator).
         if isinstance(rng, torch.Generator):
             self._base_seed = int(rng.initial_seed())
@@ -731,6 +776,13 @@ class DeepSpeedEngine:
         self._ckpt_writer_timeout = float(ckcfg.writer_timeout_s)
         self._ckpt_fsync = bool(ckcfg.fsync)
         self._last_saved_step = -1
+        # Per-rank writers' staging token: rank 0's pid (broadcast at the
+        # first save) and the count of saves.
+        self._ckpt_token_pid: Optional[int] = None
+        self._ckpt_seq = 0
+        # (False: rank 0 writes every rank's file from gathered rows, the
+        # writer the per-rank one replaced; kept as the tests' reference)
+        self._per_rank_writers = True
         self._async_ckpt = None
         self._preempt_saver = None
         # True while a step changes the state (train_batch's step, the
@@ -750,6 +802,8 @@ class DeepSpeedEngine:
             # chains to the recorder's.
             self._preempt_saver = PreemptSaver(self, self._ckpt_dir)
             self._preempt_saver.install()
+            if self.dp > 1:
+                comm.host_group()   # (its agreement's; made collectively)
         if ckcfg.async_save or self._ckpt_every > 0:
             self.telemetry.meta.setdefault("checkpoint", {
                 "async": bool(ckcfg.async_save),
@@ -1404,8 +1458,12 @@ class DeepSpeedEngine:
 
     def close(self) -> None:
         """End of the engine: the telemetry's terminal drain and
-        ``final`` record (atexit runs it too)."""
+        ``final`` record (atexit runs it too). A SIGTERM the preemption
+        saver still holds (dp > 1: no step boundary took it up) exits the
+        process, without a save."""
         self.telemetry.close()
+        if self._preempt_saver is not None:
+            self._preempt_saver.release()
 
     def _maybe_auto_save(self) -> None:
         """Auto-save (``checkpoint.snapshot_every``): tag global_stepN
@@ -1460,8 +1518,8 @@ class DeepSpeedEngine:
         else:
             inputs = self._loss_leaves
             scaled, (raw, aux) = scaled_loss(
-                tree_unflatten(self._treedef, inputs), mb, win.generator,
-                scale, win.theta)
+                tree_unflatten(self._treedef, inputs), mb,
+                win.generator, scale, win.theta)
         first = win.done == 0
         if self._moe_metrics:
             if not (isinstance(aux, dict) and "moe" in aux):
@@ -1487,9 +1545,15 @@ class DeepSpeedEngine:
         grads (the first micro-batch of the window writes them): this
         rank's rows at stage 3, reduce-scattered rows at stage 2."""
         first = win.done == 0
+        ov = self._buckets
+        if ov is not None:
+            ov.open(first, last=win.done == win.gas - 1)
         grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
         with torch.no_grad():
-            if self._zero3:
+            if ov is not None:
+                ov.close(list(grads))        # the hooks took the grads
+                dsts = []
+            elif self._zero3:
                 dsts = [dst for sg in self._shards
                         for dst in sg.local_views(sg.grad)]
             elif self._rs_grads:
@@ -1514,12 +1578,34 @@ class DeepSpeedEngine:
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The window's micro-steps, each a forward and a backward.
         Returns the mean loss (a device tensor) and the MoE stats summed
-        over the micro-steps."""
-        for mb in micro_batches:
-            scaled, _, inputs = self._forward_micro(win, mb, scale)
-            self._backward_micro(win, scaled, inputs)
-            del scaled, inputs
+        over the micro-steps. The MoE routing spans ``_moe_span`` for the
+        whole window (a remat region re-runs its routing in the backward
+        pass), as in the trio's ``forward`` and ``backward``."""
+        with routing_across(self._moe_span):
+            for mb in micro_batches:
+                scaled, _, inputs = self._forward_micro(win, mb, scale)
+                self._backward_micro(win, scaled, inputs)
+                del scaled, inputs
         return win.mean_loss, win.moe_sum
+
+    def _ranks_mean(self, mean_loss: torch.Tensor,
+                    moe_sum: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """At dp > 1: the loss's mean over the ranks and the MoE stats
+        reduced as the JAX engine reduces them (``expert_tokens`` summed
+        over the ranks, the rest averaged), in the loss's one all-reduce
+        (no collective or host read of their own)."""
+        if not moe_sum:
+            return comm.all_reduce(mean_loss.clone()) / self.dp, moe_sum
+        parts = [mean_loss.reshape(1)] + [moe_sum[n].reshape(-1)
+                                          for n in MOE_STATS]
+        buf = comm.all_reduce(torch.cat(parts))
+        out, off = {}, 1
+        for n, p in zip(MOE_STATS, parts[1:]):
+            v = buf[off:off + p.numel()].view(moe_sum[n].shape)
+            out[n] = v if n == "expert_tokens" else v / self.dp
+            off += p.numel()
+        return buf[0] / self.dp, out
 
     @staticmethod
     def _moe_means(metrics: Dict[str, Any], moe_sum: Dict[str, Any],
@@ -1527,8 +1613,7 @@ class DeepSpeedEngine:
         """The mean over the micro-batches of the MoE stats, as the JAX
         engine's."""
         if moe_sum:
-            for name in ("expert_tokens", "drop_fraction", "aux_loss",
-                         "z_loss"):
+            for name in MOE_STATS:
                 metrics[f"moe_{name}"] = moe_sum[name] / gas
 
     def _train_step(self, micro_batches: List[Any], step: int
@@ -1549,14 +1634,14 @@ class DeepSpeedEngine:
         copy), the overflow bookkeeping and the loss scale."""
         st = self.state
         scale = st.loss_scale
-        mean_loss = win.mean_loss
+        mean_loss, moe_sum = win.mean_loss, win.moe_sum
         fp16 = self.config.fp16_enabled
         clip = self.gradient_clipping()
         with torch.no_grad():
             inv_scale = (1.0 / scale) if fp16 else None
             if self.dp > 1:
                 self._reduce_grads()
-                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+                mean_loss, moe_sum = self._ranks_mean(mean_loss, moe_sum)
                 # Each rank's loss is its own micro-batches' mean, so the
                 # summed grads are dp x the global mean's: the kernel
                 # multiplies by 1/dp with the unscale (exact for
@@ -1589,7 +1674,7 @@ class DeepSpeedEngine:
                    "skipped_steps": self.state.skipped_steps}
         if tap is not None:
             metrics[HEALTH_TAP_KEY] = tap
-        self._moe_means(metrics, win.moe_sum, win.gas)
+        self._moe_means(metrics, moe_sum, win.gas)
         return metrics
 
     def _grad_tap(self, inv_scale: Any = None) -> Optional[torch.Tensor]:
@@ -1651,9 +1736,9 @@ class DeepSpeedEngine:
                 self._groups, st.opt_state, lr=lr, compressed=compressed,
                 clip=self.gradient_clipping(), inv_scale=inv,
                 all_reduce=comm.all_reduce if self.dp > 1 else None)
-            mean_loss = win.mean_loss
+            mean_loss, moe_sum = win.mean_loss, win.moe_sum
             if self.dp > 1:
-                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+                mean_loss, moe_sum = self._ranks_mean(mean_loss, moe_sum)
             self.state = st.replace(
                 opt_state=opt_state,
                 **_overflow_resolution(st, overflow, **self._scaler_kw))
@@ -1664,7 +1749,7 @@ class DeepSpeedEngine:
         metrics = {"loss": mean_loss, "grad_norm": grad_norm, "lr": lr,
                    "loss_scale": scale, "overflow": overflow,
                    "skipped_steps": self.state.skipped_steps}
-        self._moe_means(metrics, win.moe_sum, win.gas)
+        self._moe_means(metrics, moe_sum, win.gas)
         return metrics
 
     # ------------------------------------------------------------------ #
@@ -1746,7 +1831,8 @@ class DeepSpeedEngine:
                     run.mul_(mult)
             with self.telemetry.span("grad_sync", path="csr_exchange"):
                 shipped, dense_n = self._csr_exchange(inv)
-            mean_loss = comm.all_reduce(win.mean_loss.clone()) / self.dp
+            mean_loss, moe_sum = self._ranks_mean(win.mean_loss,
+                                                  win.moe_sum)
             tap = self._grad_tap()
             opt_state, grad_norm, overflow = self.optimizer.step(
                 self._opt_groups, st.opt_state, clip=clip, inv_scale=None,
@@ -1762,7 +1848,7 @@ class DeepSpeedEngine:
                    "skipped_steps": self.state.skipped_steps}
         if tap is not None:
             metrics[HEALTH_TAP_KEY] = tap
-        self._moe_means(metrics, win.moe_sum, win.gas)
+        self._moe_means(metrics, moe_sum, win.gas)
         return metrics
 
     def _csr_exchange(self, inv: Optional[torch.Tensor]) -> Tuple[int, int]:
@@ -1834,7 +1920,8 @@ class DeepSpeedEngine:
             # step()'s telemetry wall_ms covers the whole window.
             self._trio_t0 = time.perf_counter()
         self._trio_used = True
-        with self.telemetry.span("grad_compute"):
+        with self.telemetry.span("grad_compute"), \
+                routing_across(self._moe_span):
             scaled, raw, inputs = self._grad_fwd_fn(
                 self, self._trio, self._to_device(batch),
                 self.state.loss_scale)
@@ -1863,7 +1950,8 @@ class DeepSpeedEngine:
                 "trio differentiates the forward's own loss, so a loss "
                 "computed from it is not supported")
         self._trio_pending = None
-        with self.telemetry.span("grad_compute"):
+        with self.telemetry.span("grad_compute"), \
+                routing_across(self._moe_span):
             self._grad_bwd_fn(self, self._trio, scaled, inputs)
         self.micro_steps += 1
         return loss
@@ -1935,10 +2023,15 @@ class DeepSpeedEngine:
             params = tree_unflatten(self._treedef, [
                 t.to(self.compute_dtype) if t.is_floating_point() else t
                 for t in tree_flatten(params)[0]])
-            out = self.loss_fn(params, self._to_device(batch), gen)
+            with routing_across(self._eval_span):
+                out = self.loss_fn(params, self._to_device(batch), gen)
             loss = (out[0] if isinstance(out, tuple) else out).detach()
             if self.dp > 1:
                 loss = comm.all_reduce(loss.float().clone()) / self.dp
+        if self._preempt_saver is not None and self.dp > 1:
+            # (eval is a collective boundary too: a SIGTERM held since
+            # the last step is taken up here)
+            self._preempt_saver.fire_held()
         return loss
 
     # ------------------------------------------------------------------ #
@@ -1974,8 +2067,11 @@ class DeepSpeedEngine:
         reduced rows."""
         if self._rs_grads:
             return
+        if self._buckets is not None:
+            self._buckets.wait()     # (the buckets' all-reduces)
         for gi, grp in enumerate(self._groups):
-            comm.all_reduce(grp.grad)
+            if self._buckets is None:
+                comm.all_reduce(grp.grad)
             if self._shard_local:
                 self._shards[gi].pack(grp.views(grp.grad),
                                       self._shards[gi].grad)
@@ -2154,7 +2250,7 @@ class DeepSpeedEngine:
         if self.dp > 1:
             with torch.no_grad():
                 self._offload_reduce_grads()
-                mean_loss = comm.all_reduce(mean_loss.clone()) / self.dp
+                mean_loss, moe_sum = self._ranks_mean(mean_loss, moe_sum)
         return mean_loss, moe_sum
 
     def _offload_reduce_grads(self) -> None:
@@ -2414,13 +2510,18 @@ class DeepSpeedEngine:
         encoding run in the lazy blob builders, so the async writer pays
         for them.
 
-        Across dp ranks every rank calls this (it is collective): at
-        ZeRO stage >= 1 each rank's moment rows (and, at stage 3, its
-        parameter rows) are gathered to rank 0 here, on the calling
-        thread — never on the writer thread, where a collective would
-        interleave with the step's — and rank 0 alone writes. A rank's
-        rows of a moment buffer are the JAX engine's shard of it (the
-        flat axis split in dp parts), so they are written as they are."""
+        Across dp ranks every rank calls this (it is collective), and
+        every rank writes its own optimizer file (``_per_rank_snapshot``): at
+        ZeRO stage >= 1 its rows of the moment buffers, which are the JAX
+        engine's shard of them (the flat axis split in dp parts), so they
+        are written as they are (a per-layer group's rows are exchanged
+        first: its rows are not JAX's); rank 0 writes the model file and
+        the meta and commits the tag once every rank's file is on disk
+        (``async_ckpt.commit_snapshot``). Stage 3's model file needs the
+        whole parameters: their rows are gathered to rank 0. Collectives
+        run here, on the calling thread — never on the writer thread,
+        where one would interleave with the step's. An optax chain's
+        state is one file of whole leaves, gathered to rank 0."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._checkpoint_tag_validation(tag)
@@ -2463,12 +2564,30 @@ class DeepSpeedEngine:
         names = list(state_buffers(opt))
         flat_bufs = [b for n in names for b in state_buffers(opt)[n]]
         K = len(flat_bufs)
-        if self._shard_local:
+        is_writer = self.dp_rank == 0
+        per_rank = self._per_rank_writers and dp > 1 and \
+            isinstance(self.optimizer, FusedAdam)
+        if self._shard_local and per_rank:
+            # This rank's rows (a per-layer group's: every rank's, for the
+            # conversion to JAX's rows); stage 3's parameter rows on
+            # rank 0 (collectives, in the same order on every rank).
+            own = [comm.all_gather(b) if self._shards[k % G].layered
+                   else b for k, b in enumerate(flat_bufs)]
+            prows = [comm.gather(sg.param) for sg in self._shards] \
+                if self._zero3 else []
+            natural = [] if self._zero3 or not is_writer else \
+                [g.param for g in self._groups]
+            flat_p = [t for per in prows if per is not None for t in per]
+            host = _host_copies(natural + own + flat_p + [scalars])
+            host_own = host[len(natural):len(natural) + K]
+            host_rows = [host[len(natural) + K + k * dp:
+                              len(natural) + K + (k + 1) * dp]
+                         for k in range(len(flat_p) // dp)]
+        elif self._shard_local:
             # Every rank's rows on rank 0, rank order (collective).
             rows = [comm.gather(b) for b in flat_bufs]
             if self._zero3:
                 rows += [comm.gather(sg.param) for sg in self._shards]
-            is_writer = self.dp_rank == 0
             if not is_writer:
                 self.skipped_steps = int(st.skipped_steps)
                 return CheckpointSnapshot(
@@ -2482,7 +2601,6 @@ class DeepSpeedEngine:
                               len(natural) + (k + 1) * dp]
                          for k in range(len(rows))]
         else:
-            is_writer = self.dp_rank == 0
             host = _host_copies([g.param for g in self._groups] +
                                 flat_bufs + [scalars])
         sc = host[-1].numpy()
@@ -2496,8 +2614,10 @@ class DeepSpeedEngine:
                         "skipped": skipped_v}
 
         n_leaves = len(self._leaf_shapes)
-        if self._zero3:
-            def host_params_fn(prow=host_rows[K:]) -> Any:
+        if per_rank and not is_writer:
+            host_params_fn = None          # (rank 0 writes the model)
+        elif self._zero3:
+            def host_params_fn(prow=host_rows[-G:]) -> Any:
                 out: List[Any] = [None] * n_leaves
                 for sg, idxs, per in zip(self._shards, self._group_leaves,
                                          prow):
@@ -2546,23 +2666,23 @@ class DeepSpeedEngine:
             # rank r's rows of the JAX layout (the per-layer form's
             # buffers are laid out as JAX's first).
             meta["optim_shard_axes"] = [None] + [0] * (2 * G)
-            jax_rows: Dict[int, List[torch.Tensor]] = {}
 
-            def rows_of(k: int, hr=host_rows) -> List[torch.Tensor]:
+            def rows_of(k: int, r: int) -> torch.Tensor:
                 sg = self._shards[k % G]
+                if per_rank:
+                    # (a per-layer group's: every rank's rows, gathered)
+                    return sg.to_jax_rows(host_own[k]).chunk(dp)[r] \
+                        if sg.layered else host_own[k]
                 if not sg.layered:
-                    return hr[k]
-                if k not in jax_rows:
-                    jax_rows[k] = sg.to_jax_rows(torch.cat(hr[k])) \
-                        .chunk(dp)
-                return jax_rows[k]
+                    return host_rows[k][r]
+                return sg.to_jax_rows(torch.cat(host_rows[k])).chunk(dp)[r]
 
             def optim_blob(r: int) -> bytes:
                 blob: Dict[str, Any] = {}
                 if r == 0:
                     blob["0"] = np.asarray(count)
                 for k in range(2 * G):
-                    blob[str(k + 1)] = rows_of(k)[r].numpy()
+                    blob[str(k + 1)] = rows_of(k, r).numpy()
                 if r == 0:
                     blob["__scalars__"] = scalars_blob
                 return msgpack_serialize(blob)
@@ -2583,12 +2703,43 @@ class DeepSpeedEngine:
                     blob[str(i + 1)] = buf
                 blob["__scalars__"] = scalars_blob
                 return msgpack_serialize(blob)
+        if per_rank:
+            return self._per_rank_snapshot(
+                save_dir, str(tag), save_latest, meta,
+                blobs if is_writer else [],
+                lambda r=self.dp_rank: optim_blob(r))
         blobs += [(OPTIM_SHARD_FMT.format(r), lambda r=r: optim_blob(r))
                   for r in range(dp)]
         return CheckpointSnapshot(
             save_dir=save_dir, tag=str(tag), save_latest=save_latest,
             meta=meta, blobs=blobs, is_writer=is_writer,
             fsync=self._ckpt_fsync)
+
+    def _per_rank_snapshot(self, save_dir: str, tag: str, save_latest: bool,
+                           meta: Dict[str, Any], blobs: List[Any],
+                           own_optim: Callable[[], bytes]
+                           ) -> CheckpointSnapshot:
+        """A snapshot whose optimizer files each rank writes itself
+        (``own_optim``: this rank's ``zero_pp_rank_{d}`` blob), after
+        ``blobs`` (rank 0's model file): every rank stages into the dir
+        of one token (rank 0's pid, broadcast at the first save, and the
+        save's sequence number, which every rank advances alike), and
+        rank 0 seals the tag once the other ranks' files are there."""
+        if self._ckpt_token_pid is None:
+            pid = torch.tensor([os.getpid()], dtype=torch.int64,
+                               device=self.device)
+            self._ckpt_token_pid = int(comm.broadcast(pid, 0).item())
+        self._ckpt_seq += 1
+        rank = self.dp_rank
+        return CheckpointSnapshot(
+            save_dir=save_dir, tag=tag, save_latest=save_latest, meta=meta,
+            blobs=blobs + [(OPTIM_SHARD_FMT.format(rank), own_optim)],
+            is_writer=rank == 0, fsync=self._ckpt_fsync,
+            shared=f"{self._ckpt_token_pid}.r{self._ckpt_seq}",
+            await_files=tuple(OPTIM_SHARD_FMT.format(r)
+                              for r in range(1, self.dp)) if rank == 0
+            else (),
+            await_timeout_s=self._ckpt_writer_timeout)
 
     def _optax_leaves(self, layout: List[str], names: List[str],
                       host_bufs: List[torch.Tensor], count: Any
@@ -2641,8 +2792,13 @@ class DeepSpeedEngine:
         # _last_saved_step is stamped at SUBMIT time; trust it only when
         # the writer committed.
         write_failed = ck is not None and ck.last_error is not None
-        if awaited_ok and not write_failed and \
-                self._last_saved_step == self.global_steps:
+        saved = awaited_ok and not write_failed and \
+            self._last_saved_step == self.global_steps
+        if self.dp > 1:
+            # (the save is collective: skipped only where every rank's
+            # last write of this step committed)
+            saved = not comm.any_ranks(not saved)[0]
+        if saved:
             return True
         # Inline even under async: a queued write would die with the
         # process.
@@ -2650,6 +2806,8 @@ class DeepSpeedEngine:
             snap = self._snapshot_checkpoint(self._ckpt_dir, None, None,
                                              True)
             commit_snapshot(snap)
+            if self.dp > 1:
+                comm.barrier()   # no rank exits before rank 0 commits
         if write_failed:
             # The inline commit superseded the lost write.
             ck.last_error = None

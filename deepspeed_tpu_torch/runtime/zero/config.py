@@ -16,6 +16,9 @@ puts the masters and the moments in host memory
 ``offload_host_threads`` its pool (0: one worker, whose calls run on
 every core; JAX's 0 is a worker a core), and ``overlap_comm`` selects its
 overlapped pipeline (one process only: at dp > 1 the serial step runs).
+Without offload, ``overlap_comm`` at ZeRO 1-2 across ranks starts each
+bucket's grad collective (at most ``reduce_bucket_size`` elements a
+bucket) from the grad hooks (``runtime/zero/overlap.py``).
 At stage 3 with dp > 1 the card holds each leaf's shard along the host
 partition's axis.
 """

@@ -64,6 +64,7 @@ from deepspeed_tpu_torch.runtime.async_ckpt import (AsyncCheckpointer,
                                                     CheckpointSnapshot,
                                                     commit_snapshot,
                                                     is_complete)
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = {"fp32": 1e-5, "fp16": 1e-3, "bf16": 1e-2}

@@ -48,6 +48,7 @@ import torch
 from deepspeed_tpu.ops import cpu_adam as jca
 from deepspeed_tpu_torch.ops import cpu_adam as tca
 from deepspeed_tpu_torch.ops import op_builder
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 SHAPES = [(64, 32), (1001,), (3, 5, 7)]
 # The JAX module's norm without its library: numpy's float64 sum.
@@ -96,6 +97,25 @@ def _pair(adamw, seed=0):
     to = tca.DeepSpeedCPUAdam(tm, adamw_mode=adamw, **HP)
     assert jo.native
     return rng, jm, tm, jo, to
+
+
+def test_jax_native_under_racing_workers_f11(tmp_path):
+    """F11: processes that start at once on an empty build cache each
+    get JAX's native host Adam (``tests/torch_jax_native.py`` builds it
+    under the cache's lock; without it, a worker whose build or rename
+    lost the race ran the numpy path for its whole process)."""
+    env = dict(os.environ, DS_BUILD_CACHE=str(tmp_path / "cache"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    here = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable,
+                               str(here / "torch_jax_native.py")],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=240)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "NATIVE_OK" in out, out[-2000:]
+    assert len(list((tmp_path / "cache").glob("cpu_adam_*.so"))) == 1
 
 
 @pytest.mark.parametrize("steps", [1, 100])

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 from test_torch_optimizers import (assert_params, engine_batches,
                                    engine_cfgs, engine_ds, jax_engine,

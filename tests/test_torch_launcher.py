@@ -349,8 +349,8 @@ def test_init_distributed_keeps_its_keyword_callers(fake_group, tmp_path):
 def test_crashkill_quick_same_dp_bit_exact(tmp_path):
     res = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "crashkill_torch.py"),
-         "run", "--quick", "--device", "cpu", "--workdir",
-         str(tmp_path / "work")],
+         "run", "--quick", "--device", "cpu", "--no-elastic",
+         "--workdir", str(tmp_path / "work")],
         capture_output=True, text=True, timeout=400, cwd=REPO,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]

@@ -61,6 +61,7 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops import cpu_adam as tca
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten
 from deepspeed_tpu_torch.runtime.zero import offload as toff
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = {"fp32": 1e-5, "fp16": 1e-3, "bf16": 1e-2}
@@ -198,6 +199,8 @@ def test_host_step_matches_jax(case):
     jo = joff.ZeroOffloadOptimizer(
         jax.tree_util.tree_map(np.copy, tree), "AdamW", opt_params, sched,
         jdt, **kw)
+    # (the masters' bits are the native step's: tests/torch_jax_native.py)
+    assert jo.opt.native
     numpy_path = types.SimpleNamespace(_lib=None)
     jo.opt.grad_norm_sq = lambda leaves, scale=1.0: \
         type(jo.opt).grad_norm_sq(numpy_path, leaves, scale)

@@ -25,6 +25,7 @@ import torch
 from flax import serialization as flax_ser
 
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 from test_torch_offload import (PRECISIONS, _batches, _check_hist, _ds,
                                 _jax_engine, _port_engine, _step,
                                 params_np, team_of_one)  # noqa: F401

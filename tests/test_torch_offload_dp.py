@@ -31,6 +31,7 @@ from test_torch_dp import (jax_engine, jax_flat_params, jax_steps, load,
                            make_batches, params_np, save_params, spawn,
                            wait)
 from deepspeed_tpu_torch.runtime.zero.offload import _partition_axis
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 from test_torch_offload import team_of_one  # noqa: F401 (the JAX side's)
 
 OFFLOAD = {"cpu_offload": True}

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.runtime import config as tconfig
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop as TPLD
 from deepspeed_tpu_torch.utils.logging import logger
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 TCFG = dataclasses.replace(tgpt2.GPT2_CONFIGS["gpt2-tiny"],
                            dtype=torch.float32)

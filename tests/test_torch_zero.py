@@ -373,25 +373,28 @@ def test_config_refuses_dp_not_dividing_8_and_moe_at_dp():
                                      "zero_optimization": {"stage": 3}},
                                     world_size=world)
         assert c.unported_features() == []
+    # MoE at dp > 1 (ep 1) is accepted since its port
+    # (tests/test_torch_moe_dp.py); ep > 1 is still refused.
     c = tconfig.DeepSpeedConfig({"train_batch_size": 16,
                                  "moe": {"num_experts": 4}}, world_size=2)
-    assert [f for f, _ in c.unported_features()] == ["MoE at dp > 1"]
+    assert c.unported_features() == []
+    c = tconfig.DeepSpeedConfig({"train_batch_size": 16, "moe": {
+        "num_experts": 4, "expert_parallel_size": 2}}, world_size=2)
+    assert [f for f, _ in c.unported_features()] == \
+        ["moe.expert_parallel_size > 1"]
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_config_refuses_preempt_save_at_dp(world):
-    """The SIGTERM save runs collectives inside the signal handler, so
-    at dp > 1 it is refused; with it off, or with no save_dir (no
-    handler), the block is accepted at any dp."""
+    """The preemption save is accepted at any dp since the collective
+    save (the handler records the signal; the ranks agree and save at
+    the next step boundary: tests/test_torch_ckpt_writers.py), as are
+    the block with it off and with no save_dir (no handler)."""
     def names(ck):
         c = tconfig.DeepSpeedConfig({"train_batch_size": 8 * world,
                                      "checkpoint": ck}, world_size=world)
         return [f for f, _ in c.unported_features()]
-    on = names({"save_dir": "ckpt"})             # preempt_save defaults on
-    if world > 1:
-        assert len(on) == 1 and "preempt_save at dp > 1" in on[0], on
-    else:
-        assert on == []
+    assert names({"save_dir": "ckpt"}) == []     # preempt_save defaults on
     assert names({"save_dir": "ckpt", "preempt_save": False}) == []
     assert names({"preempt_save": True}) == []
 

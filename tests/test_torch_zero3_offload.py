@@ -43,6 +43,7 @@ from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.runtime.zero import offload as toff
 from deepspeed_tpu_torch.runtime.zero.partition import covered_leaves
 from deepspeed_tpu_torch.runtime.zero import stage3 as tz3
+from torch_jax_native import jax_native  # noqa: F401 (autouse)
 
 import torch_dp_worker as W
 from test_torch_dp import jax_flat_params, load, save_params, spawn, wait

@@ -13,7 +13,8 @@ cannot collide), ``params`` (an ``.npz`` of the initial parameters keyed
 by tree path), and ``jobs``, run in order on one gloo process group:
 
 - ``name``, ``precision`` (fp32, fp16, bf16, master_free), ``stage``,
-  optional ``micro`` (rows a rank's micro-step, default 2),
+  optional ``micro`` (rows a rank's micro-step, default 2) and ``gas``
+  (micro-steps a step, default 2),
   ``batches`` (an ``.npy`` of global batches ``[steps, gas*micro*world,
   S+1]``; the rank takes its rows as the JAX engine shards them: micro
   step i, rank d → rows ``i*micro*world + d*micro`` onward), optional
@@ -30,11 +31,20 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   default: gpt2-tiny; ``embed``: the embedding model of the sparse-
   gradient tests, ``embed_loss`` over ``embed_params``, its batches an
   ``.npz`` of ``ids`` ``[steps, N, 4]`` and ``y`` ``[steps, N, 1]``),
-  ``layers`` (gpt2-tiny's layer count, default 2), ``scan`` (a
+  ``layers`` (gpt2-tiny's layer count, default 2), ``moe`` (the
+  ds_config ``moe`` block: gpt2-tiny with that MoE FFN in every block,
+  its params' expert leaves in the ``.npz``), ``scan`` (a
   ``Zero3Scan`` for the model and ``initialize``: ``{"depth": d}``, d
   None for the config's ``prefetch_depth``), ``wait_for`` (a file the
   job waits for first, as a checkpoint another world writes),
-  ``out`` (the ``.npz`` prefix of the results).
+  ``out`` (the ``.npz`` prefix of the results). ``save`` may also name
+  ``gathered``: a second save of the same step through the rank-0
+  writer (every rank's rows gathered to rank 0), the per-rank writers'
+  reference. ``crash`` (``{"rank", "point", "after", "dir"}``): after
+  that many steps a save in which rank ``rank`` kills itself at the
+  ``async_ckpt`` crash point ``point``; each surviving rank writes
+  ``{out}.rank{r}.crash`` (the save's error, or ``saved``) and exits
+  at once (the job must be the last: no collective follows).
 
 The two stage-0 train steps that replace the grad all-reduce run from
 the ``ds`` keys: ``{"optimizer": {"type": "OneBitAdam", ...}}`` (1-bit
@@ -48,8 +58,13 @@ the loss scale the step used, the skipped-step count, a digest of the
 full parameters (and once: ``ws``, the telemetry meta's stage-3 gather
 working set, -1 without one; ``depth``, a bound scan's depth, else -1), the sparse exchange's ``sparse_elements`` and
 ``dense_elements`` (-1 where it did not run) and 1-bit Adam's
-``comm_bytes`` (-1 without it); after the last step the full parameters (flat,
-tree order, fp32) and this rank's optimizer buffers by name and group
+``comm_bytes`` (-1 without it), and with ``moe`` the step's
+``moe_expert_tokens`` (``[steps, E]``), ``moe_drop_fraction``,
+``moe_aux_loss`` and ``moe_z_loss``; ``overlap_early`` (with
+``overlap_comm``: the buckets the last micro-step started from its
+grad hooks before the backward's last grad was in; -1 without); after
+the last step the
+full parameters (flat, tree order, fp32) and this rank's optimizer buffers by name and group
 (the fused Adam's ``m{g}``/``v{g}``, an optax chain's ``mu{g}``,
 ``trace{g}``, ...; under ZeRO-Offload, ``zero: {"cpu_offload": true}``,
 its partition of the host masters and moments, ``hp{i}``/``hm{i}``/
@@ -72,6 +87,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
+from deepspeed_tpu_torch.moe.layer import MoEConfig  # noqa: E402
 from deepspeed_tpu_torch.ops.fused_update import tree_flatten  # noqa: E402
 from deepspeed_tpu_torch.ops.optimizers import state_buffers  # noqa: E402
 from deepspeed_tpu_torch.runtime.zero.stage3 import Zero3Scan  # noqa: E402
@@ -81,10 +97,11 @@ DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
           "bf16": torch.bfloat16, "master_free": torch.bfloat16}
 
 
-def ds_config(precision, world, stage, zero=None, extra=None, micro=MICRO):
+def ds_config(precision, world, stage, zero=None, extra=None, micro=MICRO,
+              gas=GAS):
     """The ds_config of the dp tests (the JAX side builds the same)."""
-    ds = {"train_batch_size": micro * GAS * world,
-          "gradient_accumulation_steps": GAS,
+    ds = {"train_batch_size": micro * gas * world,
+          "gradient_accumulation_steps": gas,
           "gradient_clipping": 1.0, "steps_per_print": 10 ** 9,
           "optimizer": {"type": "AdamW",
                         "params": {"lr": 1e-4, "weight_decay": 0.01}},
@@ -100,11 +117,11 @@ def ds_config(precision, world, stage, zero=None, extra=None, micro=MICRO):
     return ds
 
 
-def rank_rows(batch, world, rank, micro=MICRO):
+def rank_rows(batch, world, rank, micro=MICRO, gas=GAS):
     """Rank ``rank``'s rows of a global batch, micro-step by micro-step."""
     return np.concatenate([
         batch[i * micro * world + rank * micro:
-              i * micro * world + (rank + 1) * micro] for i in range(GAS)])
+              i * micro * world + (rank + 1) * micro] for i in range(gas)])
 
 
 def load_params(path):
@@ -155,8 +172,12 @@ def run_job(job, world, rank, params):
     precision = job["precision"]
     dropout = job.get("dropout", 0.0)
     micro = job.get("micro", MICRO)
+    gas = job.get("gas", GAS)
+    extra = dict(job.get("ds") or {})
+    if job.get("moe"):
+        extra["moe"] = job["moe"]
     ds = ds_config(precision, world, job["stage"], job.get("zero"),
-                   job.get("ds"), micro)
+                   extra, micro, gas)
     if job.get("wait_for"):
         t0 = time.monotonic()
         while not os.path.exists(job["wait_for"]):
@@ -173,7 +194,8 @@ def run_job(job, world, rank, params):
             tgpt2.GPT2_CONFIGS["gpt2-tiny"], dtype=DTYPES[precision],
             hidden_dropout=dropout, attn_dropout=dropout,
             remat_policy=job.get("remat", "none"),
-            num_layers=job.get("layers", 2))
+            num_layers=job.get("layers", 2),
+            moe=MoEConfig(**job["moe"]) if job.get("moe") else None)
         model = tgpt2.gpt2_loss_fn(cfg, zero3=spec)
         batches = np.load(job["batches"])
     if job.get("perturb"):
@@ -187,16 +209,19 @@ def run_job(job, world, rank, params):
     steps = job.get("steps", len(batches) - first)
     rec = {k: [] for k in ("loss", "grad_norm", "loss_scale", "skipped",
                            "digest", "sparse_elements", "dense_elements",
-                           "comm_bytes")}
+                           "comm_bytes", "overlap_early",
+                           "moe_expert_tokens",
+                           "moe_drop_fraction", "moe_aux_loss",
+                           "moe_z_loss")}
     save = job.get("save")
     for k in range(first, first + steps):
         if isinstance(batches[k], dict):
-            rows = {n: rank_rows(x, world, rank, micro)
+            rows = {n: rank_rows(x, world, rank, micro, gas)
                     for n, x in batches[k].items()}
         else:
-            rows = rank_rows(batches[k], world, rank, micro)
+            rows = rank_rows(batches[k], world, rank, micro, gas)
         if job.get("trio"):
-            for i in range(GAS):
+            for i in range(gas):
                 eng.backward(eng.forward(rows[i * micro:(i + 1) * micro]))
                 eng.step()
             loss = eng.last_metrics["loss"]
@@ -214,11 +239,40 @@ def run_job(job, world, rank, params):
         rec["dense_elements"].append(stats.get("dense_elements", -1))
         rec["comm_bytes"].append(-1 if eng.onebit_comm_bytes is None
                                  else eng.onebit_comm_bytes)
+        rec["overlap_early"].append(
+            -1 if eng._buckets is None else eng._buckets.early)
+        for name in ("moe_expert_tokens", "moe_drop_fraction",
+                     "moe_aux_loss", "moe_z_loss"):
+            if name in m:
+                rec[name].append(m[name].numpy())
         if save and k + 1 - first == save["after"]:
             eng.save_checkpoint(save["dir"])
             if eng._async_ckpt is not None:
                 eng._async_ckpt.wait()
                 dist.barrier()
+            if save.get("gathered"):
+                # the same step through the rank-0 writer the per-rank
+                # writers replaced (every rank's rows gathered to rank 0)
+                eng._per_rank_writers = False
+                eng.save_checkpoint(save["gathered"])
+                if eng._async_ckpt is not None:
+                    eng._async_ckpt.wait()
+                    dist.barrier()
+                eng._per_rank_writers = True
+        crash = job.get("crash")
+        if crash and k + 1 - first == crash["after"]:
+            # One rank dies at a crash point of its commit; the sealing
+            # rank's wait for its file times out. No collective follows.
+            if rank == crash["rank"]:
+                os.environ["DS_CKPT_CRASH_POINT"] = crash["point"]
+            try:
+                eng.save_checkpoint(crash["dir"])
+                err = ""
+            except OSError as e:
+                err = str(e)
+            with open(f"{job['out']}.rank{rank}.crash", "w") as f:
+                f.write(err or "saved")
+            os._exit(0)
     out = {k: np.asarray(v) for k, v in rec.items()}
     out["params"] = flat_params(eng)
     out["ws"] = np.asarray(eng.telemetry.meta.get(
