@@ -73,9 +73,17 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
     stage-3 engine at dp > 1 binds it, and the model's layers then run
     as the per-layer prefetched scan.
 
+    A ``models.gpt2_pipe.PipeSpec`` or a ``runtime.pipe.module.
+    PipelineModule`` builds the ``PipelineEngine`` (the JAX dispatch):
+    a PipeSpec pipelines over ``mesh.pipe_parallel_size`` stage
+    processes (the process group's ranks, stage by stage), a
+    PipelineModule runs composed at pp 1.
+
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from .runtime.engine import DeepSpeedEngine
+    from .models.gpt2_pipe import PipeSpec
+    from .runtime.pipe.module import PipelineModule
 
     cfg = config if config is not None else config_params
     if cfg is None and args is not None:
@@ -83,6 +91,23 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
     if cfg is None:
         raise ValueError("DeepSpeed requires a config via `config=`, "
                          "`config_params=`, or args.deepspeed_config")
+    if isinstance(model, (PipeSpec, PipelineModule)):
+        from .runtime.pipe.engine import PipelineEngine
+        if zero3_scan is not None or sparse_grad_filter is not None:
+            raise ValueError("zero3_scan and sparse_grad_filter do not "
+                             "compose with the pipeline engine")
+        pipe_mpu = mpu
+        if pipe_mpu is None and isinstance(model, PipelineModule):
+            pipe_mpu = model.mpu()
+        engine = PipelineEngine(args=args, model=model, optimizer=optimizer,
+                                model_params=model_params,
+                                training_data=training_data,
+                                lr_scheduler=lr_scheduler, mpu=pipe_mpu,
+                                dist_init_required=dist_init_required,
+                                collate_fn=collate_fn, config=cfg, rng=rng,
+                                device=device)
+        return (engine, engine.optimizer, engine.training_dataloader,
+                engine.lr_scheduler)
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_params=model_params,
                              training_data=training_data,

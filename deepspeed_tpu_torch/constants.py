@@ -225,13 +225,22 @@ ACT_CHKPT_PROFILE = "profile"
 ACT_CHKPT_PROFILE_DEFAULT = False
 
 #############################################
-# Blocks of features the port does not run yet. They parse to the JAX
-# package's values; the engine raises NotImplementedError when one is
-# enabled (DeepSpeedConfig.unported_features).
+# The pipeline block (runtime/pipe/, the JAX PipelineConfig's keys and
+# defaults) and the mesh block. The mesh's other axes parse to the JAX
+# package's values; the engine raises NotImplementedError when one the
+# port does not run yet is enabled (DeepSpeedConfig.unported_features).
 #############################################
 PIPELINE = "pipeline"
 PIPELINE_STAGES = "stages"
 PIPELINE_STAGES_DEFAULT = None
+PIPELINE_PARTITION = "partition"
+PIPELINE_PARTITION_DEFAULT = "best"
+PIPELINE_SEED_LAYERS = "seed_layers"
+PIPELINE_SEED_LAYERS_DEFAULT = False
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL = "activation_checkpoint_interval"
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT = None
+PIPELINE_SCHEDULE = "schedule"
+PIPELINE_SCHEDULE_DEFAULT = "gpipe"
 MESH = "mesh"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_PIPE_PARALLEL_SIZE = "pipe_parallel_size"

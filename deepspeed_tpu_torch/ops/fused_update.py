@@ -45,7 +45,12 @@ groups sorted by dtype name, leaves in the order ``tree_flatten`` gives
   on them (the shard-local mode): the sum of squares is all-reduced
   over the ranks, and K6's stochastic-rounding index starts at the
   rank's first element in the V-layout, so every element draws the
-  noise the JAX kernel draws for it.
+  noise the JAX kernel draws for it. Where dp does not divide V (dp 3,
+  5, 6, 7) a rank holds a range of the flat buffer instead: the d-th of
+  dp equal parts, or the whole buffer where dp does not divide its
+  length (JAX's placement of it, ``runtime/zero/partition.RowPlan``);
+  K5 and K6 run over the range the same way (``ranged``,
+  ``replicated``).
 - A stage-3 engine with a bound ``Zero3Scan`` holds its groups in the
   per-layer form of that layout (``ShardGroup(..., layers=)``): each
   stacked ``[L, ...]`` leaf the scan covers enters as its L layer
@@ -347,8 +352,20 @@ class ShardGroup:
             self.Lpad = _group_row_len(self.sizes, self.shards)
         self.rows_per_rank = plan.rows_per_rank
         self.rows = (plan.row0, plan.row1)
-        self.numel = self.rows_per_rank * self.Lpad
-        self.base = plan.row0 * self.Lpad
+        # dp not dividing V: a range of the flat buffer (``ranged``),
+        # the whole buffer on every rank when dp does not divide it
+        # (``replicated``).
+        self.ranged = not plan.rows
+        self.elements = plan.elements(self.Lpad)
+        self.replicated = self.ranged and \
+            self.elements == (0, self.shards * self.Lpad) and plan.dp > 1
+        if self.ranged and self.layered:
+            raise NotImplementedError(
+                "the per-layer form of the V-layout (a bound Zero3Scan) at "
+                f"a dp of {plan.dp}, which does not divide V = "
+                f"{self.shards}: run stage 3 without zero3_scan there")
+        self.numel = self.elements[1] - self.elements[0]
+        self.base = self.elements[0]
         self.param = torch.zeros(self.numel, dtype=dtype, device=device)
         self.grad = torch.zeros(self.numel, dtype=torch.float32,
                                 device=device)
@@ -368,11 +385,22 @@ class ShardGroup:
     def local_views(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """Each leaf's block of a local-rows buffer (strided views):
         ``[V/dp, r_leaf]``, or ``[L, V/dp, r]`` for a layered leaf (layer
-        l's part at ``[l]``)."""
+        l's part at ``[l]``). A ranged group's part is no block of each
+        leaf: its one view is the whole local buffer."""
+        if self.ranged:
+            return [buf.view(-1)]
         b2 = buf.view(self.rows_per_rank, self.Lpad)
         return [self._slices(b2, j) if n else b2[:, off:off + r]
                 for j, (n, (off, r)) in enumerate(zip(self.layers,
                                                       self.columns))]
+
+    def leaf_slices(self, full: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf of a whole buffer of this (unlayered) layout, by
+        differentiable slicing (a stage-3 gather of a ranged group)."""
+        b2 = full.view(self.shards, self.Lpad)
+        return [b2[:, off:off + r].reshape(-1)[:n].view(shape)
+                for (off, r), n, shape in zip(self.columns, self.sizes,
+                                              self.shapes)]
 
     def segments(self) -> List[List[Tuple[int, int]]]:
         """Each leaf's column ranges ``[(offset, length)]``: one, or one
@@ -386,6 +414,12 @@ class ShardGroup:
              ) -> torch.Tensor:
         """Leaves (None: zeros) → ``out``, rows ``rows`` (default this
         rank's) of the layout; ``out`` is flat or 2-D."""
+        if rows is None and self.ranged:
+            full = torch.empty(self.full_numel, dtype=out.dtype,
+                               device=out.device)
+            self.pack(leaves, full, rows=(0, self.shards))
+            out.view(-1).copy_(full[self.elements[0]:self.elements[1]])
+            return out
         r0, r1 = self.rows if rows is None else rows
         out2 = out.view(r1 - r0, self.Lpad)
         if not self.layered:
@@ -442,6 +476,8 @@ class ShardGroup:
         """A whole JAX V-layout buffer of this group's leaves (numpy or
         a host tensor) → this rank's rows of this layout."""
         full = torch.as_tensor(np.asarray(full)).reshape(-1)
+        if self.ranged:
+            return full[self.elements[0]:self.elements[1]].clone()
         twin = self._jax_twin()
         leaves = [torch.empty(s, dtype=full.dtype) for s in self.shapes]
         twin.unpack(full, leaves)

@@ -34,9 +34,10 @@ The optimizers:
   gives it, one fp32 buffer per group in the groups' layout;
 - ``TorchOptimizer``: a ``torch.optim`` optimizer over the fp32 master
   leaves (the ds_config name fall-through, and client optimizers of the
-  reference's form). Its state is per parameter, so it runs only where
-  the groups hold whole parameters (dp 1, or ZeRO stage 0); its
-  checkpoint is ``torch.optim``'s ``state_dict``.
+  reference's form). At ZeRO 1-3 across ranks it steps this rank's
+  part of each leaf, which the elementwise classes allow
+  (``ELEMENTWISE_TORCH_OPTIM``); its checkpoint is ``torch.optim``'s
+  ``state_dict``, one a rank.
 
 The count is the optax chain's: it feeds the schedule (optax's
 ``ScaleByScheduleState.count``) and the bias correction, and an
@@ -129,7 +130,9 @@ class FlatOptimizer:
              inv_scale: Optional[torch.Tensor] = None, fp16: bool = False,
              compute_norm: bool = True,
              sr_seed: Optional[torch.Tensor] = None,
-             norm_reduce: Optional[Callable[[torch.Tensor], Any]] = None
+             norm_reduce: Optional[Callable[[torch.Tensor], Any]] = None,
+             norm_mask: Optional[List[bool]] = None,
+             norm_cross: Optional[Callable[[torch.Tensor], Any]] = None
              ) -> Tuple[Any, torch.Tensor, torch.Tensor]:
         """One clipped update of every group, in place on the groups'
         params (and cast copies) and the state's buffers.
@@ -137,17 +140,23 @@ class FlatOptimizer:
         and 1/dp across ranks); ``sr_seed`` (int32 0-dim) rounds bf16
         groups stochastically (master-free). ``ShardGroup``s are a
         rank's rows: ``norm_reduce`` (an in-place all-reduce) sums what
-        a norm needs over the ranks. Returns ``(state, grad_norm,
+        a norm needs over the ranks. ``norm_mask`` (one flag a group):
+        the groups the norm counts (a pipeline stage leaves out the tied
+        leaves another stage counts); ``norm_cross`` then sums the
+        norm's square over the pipeline stages. Returns ``(state, grad_norm,
         overflow)``; ``grad_norm`` is -1 when not computed."""
         dev = state.count.device
         f32 = torch.float32
         inv = None if inv_scale is None else inv_scale.to(f32)
         if compute_norm:
             nsq = torch.zeros((), dtype=f32, device=dev)
-            for grp in groups:
-                nsq = nsq + sqnorm(grp.grad)
+            for gi, grp in enumerate(groups):
+                if norm_mask is None or norm_mask[gi]:
+                    nsq = nsq + sqnorm(grp.grad)
             if norm_reduce is not None:
                 norm_reduce(nsq)
+            if norm_cross is not None:
+                norm_cross(nsq)
             # the norm of the UNSCALED grads: ||g*inv|| == inv * ||g||.
             grad_norm = torch.sqrt(nsq) * (inv if inv is not None else 1.0)
         else:
@@ -423,6 +432,11 @@ def _leaf_segments(grp: Group
     ``rows_per_rank`` rows of ``Lpad`` columns, each leaf a column range
     (a range a layer slice in the per-layer form)."""
     if isinstance(grp, ShardGroup):
+        if grp.ranged:
+            raise NotImplementedError(
+                "Lamb's per-leaf trust ratio at a dp that does not divide "
+                f"V = {grp.shards} (a rank's range cuts leaves across rows) "
+                "is not ported yet (ROADMAP queue 1 item 6's leftovers)")
         return grp.segments(), grp.rows_per_rank, grp.Lpad
     return [[seg] for seg in zip(grp.offsets, grp.sizes)], 1, grp.numel
 
@@ -639,15 +653,38 @@ def reference_step(opt: OptaxChain, params: List[torch.Tensor],
 # --------------------------------------------------------------------- #
 # torch.optim optimizers (the name fall-through and client optimizers)
 # --------------------------------------------------------------------- #
+# The torch.optim classes whose step is elementwise: an element's update
+# reads only that element's grad, parameter and state, so each rank can
+# step its own part of each leaf (ZeRO 1-3) and get the bits of the
+# whole-leaf step. The others depend on a parameter's shape or whole
+# norm, or take a closure, and run only where the groups hold whole
+# parameters.
+ELEMENTWISE_TORCH_OPTIM = frozenset({
+    "SGD", "Adam", "AdamW", "Adagrad", "Adadelta", "Adamax", "ASGD",
+    "NAdam", "RAdam", "RMSprop", "Rprop"})
+_NOT_ELEMENTWISE = {
+    "Adafactor": "factors its second moment over a parameter's rows and "
+                 "columns",
+    "LBFGS": "takes a closure and searches along the whole flat "
+             "parameter",
+    "SparseAdam": "takes sparse gradients of whole embedding rows",
+    "Muon": "orthogonalizes each whole weight matrix",
+}
+
+
 class TorchOptimizer(FlatOptimizer):
     """A ``torch.optim`` optimizer over the fp32 master leaves (views of
     the flat groups): ``factory(params)`` builds it at ``init``; each
     step hands it the unscaled, clipped grads as the leaves' ``.grad``
     and sets every param group's ``lr`` from the schedule at the count.
-    Its state is per parameter, so the groups must hold whole parameters
-    (``FlatGroup``). An fp16 step reads the overflow vote on the host
-    (one sync) and skips ``step()`` on overflow; the count is kept on
-    the host too, so the schedule is evaluated at a Python int."""
+    At ZeRO 1-3 across ranks (``ShardGroup``s) its parameters are this
+    rank's part of each leaf, one tensor a leaf slice (a ``[V/dp, r]``
+    block of the rows; the group's range where dp does not divide V),
+    which is exact for the elementwise classes
+    (``ELEMENTWISE_TORCH_OPTIM``); another class raises there. An fp16
+    step reads the overflow vote on the host (one sync) and skips
+    ``step()`` on overflow; the count is kept on the host too, so the
+    schedule is evaluated at a Python int."""
 
     def __init__(self, factory: Callable[[List[torch.Tensor]], Any],
                  learning_rate: ScheduleOrFloat, name: str):
@@ -660,24 +697,32 @@ class TorchOptimizer(FlatOptimizer):
 
     def init(self, groups: List[Group]) -> FlatState:
         for grp in groups:
-            if not isinstance(grp, FlatGroup):
-                raise NotImplementedError(
-                    f"{self.name} holds its state per parameter, so it runs "
-                    "where the engine holds whole parameters: dp 1, or ZeRO "
-                    "stage 0 (ROADMAP queue 1 item 6, what dp and ZeRO left: "
-                    "torch.optim at ZeRO stages 1-3)")
             if grp.dtype != torch.float32:
                 raise ValueError(
                     f"{self.name} updates fp32 master parameters; bf16."
                     "stochastic_rounding (master-free bf16) has none")
+        sharded = any(isinstance(grp, ShardGroup) for grp in groups)
         self._leaves = [(p, g) for grp in groups
-                        for p, g in zip(grp.views(grp.param),
-                                        grp.views(grp.grad))]
+                        for p, g in zip(*(
+                            (grp.local_views(grp.param),
+                             grp.local_views(grp.grad))
+                            if isinstance(grp, ShardGroup) else
+                            (grp.views(grp.param), grp.views(grp.grad))))]
         self.opt = self.factory([p for p, _ in self._leaves])
         if not isinstance(self.opt, torch.optim.Optimizer):
             raise TypeError(f"the optimizer factory returned a "
                             f"{type(self.opt).__name__}, not a "
                             "torch.optim.Optimizer")
+        cls = type(self.opt).__name__
+        if sharded and cls not in ELEMENTWISE_TORCH_OPTIM:
+            why = _NOT_ELEMENTWISE.get(
+                cls, "its step is not known to be elementwise (it may "
+                "read a parameter's shape or whole norm)")
+            raise NotImplementedError(
+                f"{self.name} at ZeRO stages 1-3 across ranks: each rank "
+                f"steps only its part of each leaf, and {cls} {why}; run it "
+                "at ZeRO stage 0 or dp 1, where the groups hold whole "
+                "parameters")
         return FlatState(torch.zeros((), dtype=torch.int32,
                                      device=groups[0].param.device), {})
 
@@ -825,4 +870,4 @@ __all__ = ["FlatOptimizer", "FlatState", "FusedAdam", "AdamChain", "Lamb",
            "SGD", "Adagrad", "RMSprop", "Lion", "TorchOptimizer",
            "OptaxChain", "build_optimizer", "client_optimizer",
            "state_buffers", "bias_corrections", "torch_optim_class",
-           "reference_step", "COUNT"]
+           "reference_step", "COUNT", "ELEMENTWISE_TORCH_OPTIM"]

@@ -1,1 +1,2 @@
-"""Process groups, collectives and the data-parallel topology."""
+"""Process groups, collectives, point-to-point sends and the process
+topology (pipe x data, with its groups)."""

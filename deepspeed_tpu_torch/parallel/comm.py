@@ -18,6 +18,18 @@ every slot of the node visible, so a process with ``LOCAL_RANK`` takes
 up (ranks beyond the cards share them, as two gloo ranks share one card
 in the tests on the card).
 
+Groups. Every collective here runs over the default group unless its
+caller names one (``group=``): an engine passes its data-parallel
+group, which is a pipeline stage's dp ranks in a pipeline
+(``runtime/pipe/engine.py``, ``topology.PipelineParallelGrid``) and the
+default group otherwise; the collectives that cross stages name the
+pipe or the tied group. Ranks (``src``, ``dst``) are the group's.
+
+Point to point (``isend``, ``recv``): the activations and
+grads that flow between neighbouring pipeline stages. Gloo moves CPU
+tensors only, so over gloo a CUDA tensor is staged through host memory
+(its copy sent, a host buffer received and copied to the card).
+
 Not ported here: the ``shard_map`` shim and the all-to-all (ROADMAP
 queue 1 item 7). The sparse (CSR) exchange is ``runtime/csr_tensor.py``.
 """
@@ -101,68 +113,132 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def get_world_size() -> int:
-    return dist.get_world_size() if is_initialized() else 1
+def _global(group, rank: int) -> int:
+    """The global rank of ``group``'s rank ``rank``."""
+    return rank if group is None else dist.get_global_rank(group, rank)
 
 
-def get_rank() -> int:
+def new_group(ranks: List[int]):
+    """A group over the global ``ranks`` (a collective of the default
+    group: every process calls it, in the same order, for every group
+    made)."""
+    return dist.new_group(ranks=list(ranks))
+
+
+def get_world_size(group=None) -> int:
+    if not is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+def get_rank(group=None) -> int:
+    if not is_initialized():
+        return 0
+    return dist.get_rank(group)
+
+
+def global_rank() -> int:
+    """This process's rank in the default group."""
     return dist.get_rank() if is_initialized() else 0
 
 
-def all_reduce(x: torch.Tensor) -> torch.Tensor:
+def global_world_size() -> int:
+    return dist.get_world_size() if is_initialized() else 1
+
+
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over the ranks, in place on ``x``; returns it."""
     # (a 0-dim tensor goes as a 1-element view of itself)
-    dist.all_reduce(x.view(1) if x.dim() == 0 else x)
+    dist.all_reduce(x.view(1) if x.dim() == 0 else x, group=group)
     return x
 
 
-def reduce_scatter(x: torch.Tensor,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                   group=None) -> torch.Tensor:
     """Sum ``x`` (flat, ``world`` equal parts) over the ranks; rank d
     receives part d."""
-    world = get_world_size()
+    world = get_world_size(group)
     if out is None:
         out = torch.empty(x.numel() // world, dtype=x.dtype,
                           device=x.device)
-    dist.reduce_scatter_tensor(out, x)
+    dist.reduce_scatter_tensor(out, x, group=group)
     return out
 
 
-def all_gather(x: torch.Tensor,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def all_gather(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+               group=None) -> torch.Tensor:
     """Every rank's flat ``x`` concatenated in rank order."""
-    world = get_world_size()
+    world = get_world_size(group)
     if out is None:
         out = torch.empty(x.numel() * world, dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.reshape(-1))
+    dist.all_gather_into_tensor(out, x.reshape(-1), group=group)
     return out
 
 
-def all_gather_start(x: torch.Tensor, out: torch.Tensor):
+def all_gather_start(x: torch.Tensor, out: torch.Tensor, group=None):
     """Start ``all_gather(x, out)`` (``x`` flat and contiguous; both must
     live until it ends); returns the work whose ``wait()`` ends it."""
-    return dist.all_gather_into_tensor(out, x, async_op=True)
+    return dist.all_gather_into_tensor(out, x, async_op=True, group=group)
 
 
-def gather(x: torch.Tensor, dst: int = 0) -> Optional[List[torch.Tensor]]:
+def gather(x: torch.Tensor, dst: int = 0,
+           group=None) -> Optional[List[torch.Tensor]]:
     """Every rank's ``x`` on rank ``dst`` (in rank order); None
     elsewhere."""
-    world = get_world_size()
+    world = get_world_size(group)
     out = [torch.empty_like(x) for _ in range(world)] \
-        if get_rank() == dst else None
-    dist.gather(x, out, dst=dst)
+        if get_rank(group) == dst else None
+    dist.gather(x, out, dst=_global(group, dst), group=group)
     return out
 
 
-def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``x`` on every rank, in place; returns it."""
-    dist.broadcast(x, src)
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src`` (of ``group``)'s ``x`` on every rank, in place;
+    returns it."""
+    dist.broadcast(x, _global(group, src), group=group)
     return x
 
 
 def barrier() -> None:
     if is_initialized():
         dist.barrier()
+
+
+def _host(x: torch.Tensor, group=None) -> bool:
+    """Whether ``x`` crosses ``group`` through host memory (gloo moves
+    CPU tensors only)."""
+    return x.device.type != "cpu" and \
+        dist.get_backend(group) == dist.Backend.GLOO
+
+
+class _Send:
+    """A send in flight: its work and the tensor it reads (the host
+    copy, over gloo), which must live until ``wait()``."""
+
+    def __init__(self, work, tensor: torch.Tensor):
+        self.work, self.tensor = work, tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.tensor = None
+
+
+def isend(x: torch.Tensor, dst: int) -> _Send:
+    """Start sending ``x`` to global rank ``dst``; returns the send
+    (``wait()`` ends it; ``x`` may be reused once it returns)."""
+    x = x.detach().to("cpu") if _host(x) else x.detach().contiguous()
+    return _Send(dist.isend(x, dst), x)
+
+
+def recv(shape, dtype: torch.dtype, device: torch.device,
+         src: int) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from global rank ``src``, on
+    ``device``."""
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if device.type != "cpu" and
+                      dist.get_backend() == dist.Backend.GLOO else device)
+    dist.recv(buf, src)
+    return buf.to(device, non_blocking=False)
 
 
 _HOST_GROUP = None
@@ -190,7 +266,8 @@ def any_ranks(*flags: bool) -> List[bool]:
 
 
 __all__ = ["init_distributed", "set_local_device", "is_initialized",
-           "get_world_size", "get_rank", "all_reduce", "reduce_scatter",
+           "get_world_size", "get_rank", "global_rank", "global_world_size",
+           "new_group", "isend", "recv", "all_reduce", "reduce_scatter",
            "all_gather", "all_gather_start", "gather", "broadcast",
            "host_group", "any_ranks",
            "barrier",

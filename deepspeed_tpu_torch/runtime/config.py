@@ -555,6 +555,46 @@ class CheckpointConfig:
                 f"positive number, got {self.writer_timeout_s!r}")
 
 
+class PipelineConfig:
+    """The ``pipeline`` block (the JAX ``PipelineConfig``: its keys and
+    defaults, except ``activation_checkpoint_interval``: None when the
+    key is absent, which the JAX pipeline engine reads as the stage
+    remat on). A block that is not a dict is refused here."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.PIPELINE, {})
+        if not isinstance(d, dict):
+            raise DeepSpeedConfigError(
+                f"{C.PIPELINE} must be a dict of pipeline settings, got "
+                f"{type(d).__name__} {d!r}")
+        get = config_utils.get_scalar_param
+        self.stages = get(d, C.PIPELINE_STAGES, C.PIPELINE_STAGES_DEFAULT)
+        self.partition = get(d, C.PIPELINE_PARTITION,
+                             C.PIPELINE_PARTITION_DEFAULT)
+        self.seed_layers = get(d, C.PIPELINE_SEED_LAYERS,
+                               C.PIPELINE_SEED_LAYERS_DEFAULT)
+        self.activation_checkpoint_interval = get(
+            d, C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL,
+            C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT)
+        self.schedule = get(d, C.PIPELINE_SCHEDULE,
+                            C.PIPELINE_SCHEDULE_DEFAULT)
+
+
+def pipe_parallel_size(param_dict: Dict[str, Any]) -> int:
+    """The pipeline's stage count of a ds_config dict:
+    ``mesh.pipe_parallel_size`` (the JAX engine's mesh axis), else
+    ``pipeline.stages``, else 1; the two must agree when both are
+    given."""
+    mesh = (param_dict or {}).get(C.MESH, {}) or {}
+    pp = mesh.get(C.MESH_PIPE_PARALLEL_SIZE)
+    stages = PipelineConfig(param_dict).stages
+    if pp and stages and int(pp) != int(stages):
+        raise DeepSpeedConfigError(
+            f"{C.MESH}.{C.MESH_PIPE_PARALLEL_SIZE}={pp} and "
+            f"{C.PIPELINE}.{C.PIPELINE_STAGES}={stages} disagree")
+    return int(pp or stages or 1)
+
+
 class ProgressiveLayerDropConfig:
     """The ``progressive_layer_drop`` block: ``enabled``, the schedule's
     floor ``theta`` and its decay rate ``gamma``
@@ -752,6 +792,7 @@ class DeepSpeedConfig:
             d.get(C.SPARSE_ATTENTION))
         self.inference_config = InferenceConfig(d)
         self.moe_config = MoeConfig(d)
+        self.pipe_parallel_size = pipe_parallel_size(d)
         self.pld_config = ProgressiveLayerDropConfig(d)
         self.activation_checkpointing_config = \
             ActivationCheckpointingConfig(d)
@@ -840,22 +881,17 @@ class DeepSpeedConfig:
         mesh = d.get(C.MESH, {})
         world = int(self.world_size)
         checks = [
-            # The fused optimizer's V-layout has 8 virtual shards; a dp
-            # that does not divide 8 (above 8 the JAX package widens V to
-            # dp, outside its own test envelope) has no port yet.
-            (world > 1 and 8 % world != 0,
-             f"a dp world of {world} (the fused optimizer's V-layout needs "
-             "dp to divide its 8 virtual shards; JAX widens V to dp above "
-             "8, outside its own test envelope)",
+            # Above 8 the JAX package widens the fused optimizer's V to
+            # dp, outside its own test envelope.
+            (world > 8,
+             f"a dp world of {world} (above 8 JAX widens the fused "
+             "optimizer's V-layout to dp, outside its own test envelope)",
              "queue 1: dp > 8"),
             (self.mesh_num_slices > 1,
              f"mesh.slices = {self.mesh_num_slices} (multi-slice scale-out "
              "and its hierarchical ICI/DCN gradient sync)",
              "slice 6: parallel axes and comm extras, queue 1 item 7: "
              "parallel/multislice.py"),
-            ((d.get(C.PIPELINE, {}).get(C.PIPELINE_STAGES) or 1) > 1 or
-             (mesh.get(C.MESH_PIPE_PARALLEL_SIZE) or 1) > 1,
-             "pipeline parallelism", "slice 6: parallel axes and comm extras"),
             ((mesh.get(C.MESH_MODEL_PARALLEL_SIZE) or 1) > 1 or
              (mesh.get(C.MESH_SEQUENCE_PARALLEL_SIZE) or 1) > 1,
              "tensor/sequence parallelism",

@@ -106,7 +106,7 @@ is on disk (``_per_rank_snapshot``; 1-bit Adam, the optax chains and
 offload gather to rank 0, which writes alone). A SIGTERM at dp > 1 is
 held and agreed at the next step boundary (``PreemptSaver``), where
 every rank saves the same tag. A save from any dp (of the port or of
-JAX) loads at any dp dividing 8 by joining the optimizer shards and
+JAX) loads at any dp up to 8 by joining the optimizer shards and
 taking this rank's rows.
 
 ZeRO-Offload (``zero_optimization.cpu_offload`` at stage >= 1): the fp32
@@ -146,11 +146,17 @@ engine's ``_build_onebit_train_step`` and sparse-gradient step):
   At dp 1 the main path runs, as in JAX.
 
 What the port does not run yet raises ``NotImplementedError``, naming
-the ROADMAP slice that brings it: a dp that does not divide 8, the
-pipeline and the other
-parallel axes, multi-slice meshes, MoE expert parallelism (ep > 1), a
-``torch.optim`` optimizer at ZeRO stages 1-3 across ranks, the trio
-under ZeRO-Offload, and ``fused_kernels=False`` on CUDA.
+the ROADMAP slice that brings it: a dp above 8, tensor and sequence
+parallelism, multi-slice meshes, MoE expert parallelism (ep > 1), and
+``fused_kernels=False`` on CUDA; the trio under ZeRO-Offload raises as
+not planned (the JAX trio fails there). A dp that does not divide 8
+holds JAX's placement of the V-layout buffers (a range of each, or the
+whole buffer where dp does not divide its length; ``ranged``,
+``replicated``); a ``torch.optim`` optimizer of an elementwise class
+steps a rank's part at ZeRO 1-3. The pipeline is
+``runtime/pipe/engine.PipelineEngine``, a subclass that runs one stage
+of it per process (the hooks ``_leaf_groups``, ``_cross_stage``,
+``_norm_cross``).
 
 Telemetry (``telemetry`` block, monitor/): the JAX engine's spine. Each
 step path goes through the recompile sentinel (``train_step``,
@@ -169,6 +175,7 @@ ingested and reconciled with the cost model at the next boundary.
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import json
 import os
@@ -205,7 +212,8 @@ from ..parallel.wire_model import grad_sync_wire_model
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.overlap import GradBuckets
 from .zero.partition import covered_leaves, describe_sharding, row_plan
-from .zero.stage3 import (DimPart, RowPart, Zero3Scan, _Gathering,
+from .zero.stage3 import (DimPart, FlatPart, RowPart, Zero3Scan,
+                          _Gathering,
                           gather_parts, gather_working_set_bytes,
                           regather_saved)
 from ..ops.onebit import OnebitAdam, OnebitState, step_comm_bytes
@@ -392,9 +400,12 @@ class DeepSpeedEngine:
                  zero3_scan: Any = None):
         self.device = resolve_device(device)
         # One process per card: the dp world and rank are the default
-        # process group's (parallel/comm.init_distributed).
+        # process group's (parallel/comm.init_distributed), or a
+        # pipeline stage's dp group (``_dp_group``, which every
+        # collective of the engine names).
         if comm.is_initialized():
-            self.dp, self.dp_rank = dp_world_size(), dp_rank()
+            self.dp = dp_world_size(self._dp_group)
+            self.dp_rank = dp_rank(self._dp_group)
         else:
             env_world = int(os.environ.get("WORLD_SIZE", "1"))
             if env_world > 1:
@@ -418,6 +429,13 @@ class DeepSpeedEngine:
                 f"{self.config.world_size}, the process group has {self.dp}")
         for feature, where in self.config.unported_features():
             raise _unported(feature, where)
+        if self.config.pipe_parallel_size > 1 and \
+                not getattr(self, "_pipe_spec", None):
+            raise ValueError(
+                f"pipeline parallelism (pp={self.config.pipe_parallel_size})"
+                " needs a pipelined model: initialize(model=PipeSpec) "
+                "(models/gpt2_pipe.py, runtime/pipe/hetero.py) builds the "
+                "PipelineEngine")
         # ZeRO-Offload (at stage >= 1, as in JAX): the host holds the
         # masters and the moments, the card the compute-dtype params.
         zc = self.config.zero_config
@@ -542,12 +560,6 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer(
                 self.config.optimizer_name or C.ADAM_OPTIMIZER, opt_params,
                 schedule_fn)
-        if isinstance(self.optimizer, TorchOptimizer) and self._shard_local:
-            raise NotImplementedError(
-                f"{self.optimizer.name} holds its state per parameter, so it "
-                "runs at dp 1 or at ZeRO stage 0, where every rank holds "
-                "whole parameters (ROADMAP queue 1 item 6, what dp and ZeRO "
-                "left: torch.optim at ZeRO stages 1-3)")
 
         # Flat parameter groups; leaves in tree order view into them.
         # At ZeRO stage >= 1 across ranks each group is also held as this
@@ -568,9 +580,10 @@ class DeepSpeedEngine:
             # engine broadcasts its model (the JAX mesh replicates one).
             for t in masters:
                 if t.device == self.device:
-                    comm.broadcast(t, 0)
+                    comm.broadcast(t, 0, group=self._dp_group)
                 else:
-                    t.copy_(comm.broadcast(t.to(self.device), 0))
+                    t.copy_(comm.broadcast(t.to(self.device), 0,
+                                           group=self._dp_group))
         self._leaf_shapes = [tuple(t.shape) for t in masters]
         # The leaves a bound scan gathers itself (stage 3 across ranks).
         scan = zero3_scan is not None and (self._zero3 or self._offload_z3)
@@ -588,7 +601,7 @@ class DeepSpeedEngine:
         cast_views: List[Any] = [None] * n
         self._group_leaves: List[List[int]] = []
         plan = row_plan(self.dp, self.dp_rank)
-        for dt, idxs in ([] if offload else float_groups(masters)):
+        for dt, idxs in ([] if offload else self._leaf_groups(masters)):
             self._group_leaves.append(idxs)
             if self._shard_local:
                 # (under a bound scan, the per-layer form of the layout)
@@ -600,6 +613,13 @@ class DeepSpeedEngine:
                 sg.pack([masters[i] for i in idxs], sg.param)
                 self._shards.append(sg)
             if self._zero3:
+                if sg.ranged:
+                    # (a ranged group's part is its flat range, the
+                    # first leaf's view; the others hold none)
+                    for i in idxs:
+                        param_views[i] = sg.param if i == idxs[0] \
+                            else sg.param[:0]
+                    continue
                 for i, pv in zip(idxs, sg.local_views(sg.param)):
                     param_views[i] = pv
                 continue
@@ -626,6 +646,10 @@ class DeepSpeedEngine:
         # The groups the fused step updates, and V-layout scratch
         # buffers (by group and dtype) for packing and gathering.
         self._opt_groups = self._shards or self._groups
+        # A replicated group (dp dividing neither V nor its buffer) is
+        # whole on every rank: its norm counts on rank 0 only.
+        if any(sg.replicated for sg in self._shards) and self.dp_rank:
+            self._norm_mask = [not sg.replicated for sg in self._shards]
         self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
         if scan:
             self._bind_zero3_scan(zero3_scan)
@@ -634,12 +658,18 @@ class DeepSpeedEngine:
         # (runtime/zero/overlap.py). Under offload overlap_comm is the
         # host pipeline's (below).
         self._buckets: Optional[GradBuckets] = None
+        if self._shard_local and zc.overlap_comm and \
+                any(sg.ranged for sg in self._shards):
+            raise _unported(
+                f"zero_optimization.overlap_comm at dp {self.dp} (its "
+                "buckets reduce-scatter V-layout rows; dp does not divide "
+                "V = 8)", "queue 1 item 6's leftovers")
         if self._shard_local and not self._zero3 and zc.overlap_comm:
             self._buckets = GradBuckets(
                 self._group_leaves,
                 [int(np.prod(s, dtype=np.int64)) for s in self._leaf_shapes],
                 int(zc.reduce_bucket_size), self._rs_grads, self._shards,
-                self._groups, self._grad_views)
+                self._groups, self._grad_views, group=self._dp_group)
             for i, leaf in enumerate(self._loss_leaves):
                 leaf.register_hook(self._buckets.hook(i))
 
@@ -714,8 +744,9 @@ class DeepSpeedEngine:
         self._moe_span: Optional[RoutingSpan] = None
         self._eval_span: Optional[RoutingSpan] = None
         if self._moe_metrics and self.dp > 1:
-            self._eval_span = RoutingSpan(self.dp, self.dp_rank,
-                                          comm.all_gather)
+            self._eval_span = RoutingSpan(
+                self.dp, self.dp_rank,
+                functools.partial(comm.all_gather, group=self._dp_group))
             if not (self.zero_optimization_stage() >= 2 and
                     zc.reduce_scatter and zc.grad_sync != "declarative"):
                 self._moe_span = self._eval_span
@@ -1165,7 +1196,7 @@ class DeepSpeedEngine:
         out: List[Any] = [None] * len(self._leaf_shapes)
         with torch.no_grad():
             for sg, idxs in zip(self._shards, self._group_leaves):
-                full = comm.all_gather(sg.param)
+                full = self._whole(sg, sg.param)
                 leaves = [torch.empty(self._leaf_shapes[i], dtype=sg.dtype,
                                       device=self.device) for i in idxs]
                 sg.unpack(full, leaves)
@@ -1432,6 +1463,7 @@ class DeepSpeedEngine:
                 tl.sentinel, comm_bytes_by_path=comm_bytes,
                 step_paths=step_paths, n_devices=self.dp,
                 peaks=chip_peaks(self.device))
+            payload.update(self._cost_model_extras(payload))
             tl.set_cost_model(payload,
                               samples_per_step=self.train_batch_size())
             step = payload["step"]
@@ -1445,6 +1477,12 @@ class DeepSpeedEngine:
         except Exception as e:   # observability must not kill training
             tl.event("cost_model_error",
                      {"error": f"{type(e).__name__}: {e}"[:300]})
+
+    def _cost_model_extras(self, payload: Dict[str, Any]
+                           ) -> Dict[str, Any]:
+        """Sections an engine adds to the cost-model payload (the
+        pipeline's per-stage attribution)."""
+        return {}
 
     def _cost_model_step_paths(self) -> Dict[str, float]:
         """{path: calls a step} of the paths one optimizer step runs in
@@ -1540,15 +1578,25 @@ class DeepSpeedEngine:
         return scaled, raw, inputs
 
     def _backward_micro(self, win: "_Window", scaled: torch.Tensor,
-                        inputs: List[torch.Tensor]) -> None:
+                        inputs: List[torch.Tensor],
+                        grad_output: Optional[torch.Tensor] = None,
+                        extra: Tuple[torch.Tensor, ...] = ()
+                        ) -> Tuple[Optional[torch.Tensor], ...]:
         """The micro-batch's gradients by autograd, added into the fp32
         grads (the first micro-batch of the window writes them): this
-        rank's rows at stage 3, reduce-scattered rows at stage 2."""
+        rank's rows at stage 3, reduce-scattered rows at stage 2.
+        ``grad_output`` seeds a non-scalar ``scaled`` (a pipeline stage's
+        output, with the next stage's grad); the grads of ``extra`` (a
+        stage's input) are returned."""
         first = win.done == 0
         ov = self._buckets
         if ov is not None:
             ov.open(first, last=win.done == win.gas - 1)
-        grads = torch.autograd.grad(scaled, inputs, allow_unused=True)
+        grads = torch.autograd.grad(scaled, list(inputs) + list(extra),
+                                    grad_outputs=grad_output,
+                                    allow_unused=True)
+        extra_grads = grads[len(inputs):]
+        grads = grads[:len(inputs)]
         with torch.no_grad():
             if ov is not None:
                 ov.close(list(grads))        # the hooks took the grads
@@ -1572,6 +1620,7 @@ class DeepSpeedEngine:
                 else:
                     dst.add_(g)
         win.done += 1
+        return extra_grads
 
     def _micro_steps(self, micro_batches: List[Any], win: "_Window",
                      scale: Any
@@ -1596,10 +1645,11 @@ class DeepSpeedEngine:
         over the ranks, the rest averaged), in the loss's one all-reduce
         (no collective or host read of their own)."""
         if not moe_sum:
-            return comm.all_reduce(mean_loss.clone()) / self.dp, moe_sum
+            return comm.all_reduce(mean_loss.clone(),
+                                   group=self._dp_group) / self.dp, moe_sum
         parts = [mean_loss.reshape(1)] + [moe_sum[n].reshape(-1)
                                           for n in MOE_STATS]
-        buf = comm.all_reduce(torch.cat(parts))
+        buf = comm.all_reduce(torch.cat(parts), group=self._dp_group)
         out, off = {}, 1
         for n, p in zip(MOE_STATS, parts[1:]):
             v = buf[off:off + p.numel()].view(moe_sum[n].shape)
@@ -1650,6 +1700,7 @@ class DeepSpeedEngine:
                 inv_scale = (torch.ones((), dtype=torch.float32,
                                         device=self.device)
                              if inv_scale is None else inv_scale) / self.dp
+            mean_loss = self._cross_stage(mean_loss)
             tap = self._grad_tap(inv_scale)
             # (a fill kernel, not a host-to-device copy: no host sync)
             sr_seed = torch.full(
@@ -1661,8 +1712,8 @@ class DeepSpeedEngine:
                 self._opt_groups, st.opt_state, clip=clip,
                 inv_scale=inv_scale, fp16=fp16,
                 compute_norm=bool(clip and clip > 0) or fp16,
-                sr_seed=sr_seed,
-                norm_reduce=comm.all_reduce if self._shard_local else None)
+                sr_seed=sr_seed, norm_reduce=self._norm_reduce(),
+                norm_mask=self._norm_mask, norm_cross=self._norm_cross())
             if self._shard_local and not self._zero3:
                 self._gather_params()
             lr = self.optimizer.lr_at(st.step)
@@ -1677,6 +1728,34 @@ class DeepSpeedEngine:
         self._moe_means(metrics, moe_sum, win.gas)
         return metrics
 
+    # The hooks a pipeline stage (runtime/pipe/engine.py) overrides.
+    _norm_mask: Optional[List[bool]] = None
+    # The data-parallel group every collective of the engine names
+    # (None: the default group; a pipeline stage's dp ranks).
+    _dp_group = None
+
+    def _leaf_groups(self, masters: List[torch.Tensor]
+                     ) -> List[Tuple[torch.dtype, List[int]]]:
+        """The flat groups of the leaves: one a dtype (JAX's
+        ``_float_groups``)."""
+        return float_groups(masters)
+
+    def _cross_stage(self, mean_loss: torch.Tensor) -> torch.Tensor:
+        """After the grads' reduction over the dp ranks: what crosses
+        pipeline stages (none without a pipeline)."""
+        return mean_loss
+
+    def _norm_reduce(self) -> Optional[Callable[[torch.Tensor], Any]]:
+        """The in-place sum of the grad norm's square over the ranks
+        that hold parts of it (the dp ranks at shard-local ZeRO)."""
+        return functools.partial(comm.all_reduce, group=self._dp_group) \
+            if self._shard_local else None
+
+    def _norm_cross(self) -> Optional[Callable[[torch.Tensor], Any]]:
+        """The in-place sum of the global norm's square over the
+        pipeline stages (none without a pipeline)."""
+        return None
+
     def _grad_tap(self, inv_scale: Any = None) -> Optional[torch.Tensor]:
         """The health tap (monitor/health.py), with telemetry's
         ``health.grad_taps`` on: this step's per-leaf grad sums of
@@ -1689,14 +1768,22 @@ class DeepSpeedEngine:
         if self._shard_local:
             views: List[Any] = [None] * len(self._leaf_shapes)
             for sg, idxs in zip(self._shards, self._group_leaves):
-                for i, v in zip(idxs, sg.local_views(sg.grad)):
+                if sg.ranged:
+                    # (the whole group's grads, counted on rank 0)
+                    full = self._whole(sg, sg.grad)
+                    lv = sg.leaf_slices(full)
+                    if self.dp_rank:
+                        lv = [torch.zeros_like(t) for t in lv]
+                else:
+                    lv = sg.local_views(sg.grad)
+                for i, v in zip(idxs, lv):
                     views[i] = v
         else:
             views = list(self._grad_views)
         sq = None if inv_scale is None else inv_scale * inv_scale
         tap = leaf_sq_taps(views, sq)
         if self._shard_local:
-            tap = comm.all_reduce(tap)
+            tap = comm.all_reduce(tap, group=self._dp_group)
         return tap
 
     # ------------------------------------------------------------------ #
@@ -1735,7 +1822,9 @@ class DeepSpeedEngine:
             opt_state, grad_norm, overflow = self.optimizer.step(
                 self._groups, st.opt_state, lr=lr, compressed=compressed,
                 clip=self.gradient_clipping(), inv_scale=inv,
-                all_reduce=comm.all_reduce if self.dp > 1 else None)
+                all_reduce=functools.partial(comm.all_reduce,
+                                             group=self._dp_group)
+                if self.dp > 1 else None)
             mean_loss, moe_sum = win.mean_loss, win.moe_sum
             if self.dp > 1:
                 mean_loss, moe_sum = self._ranks_mean(mean_loss, moe_sum)
@@ -1827,7 +1916,7 @@ class DeepSpeedEngine:
             for grp, runs in zip(self._groups, self._dense_runs):
                 for off, n in runs:
                     run = grp.grad.narrow(0, off, n)
-                    comm.all_reduce(run)
+                    comm.all_reduce(run, group=self._dp_group)
                     run.mul_(mult)
             with self.telemetry.span("grad_sync", path="csr_exchange"):
                 shipped, dense_n = self._csr_exchange(inv)
@@ -1866,9 +1955,9 @@ class DeepSpeedEngine:
             g = self._grad_views[i]
             local = CSRTensor.from_dense(g)
             n_local = local.row_indices.numel()
-            counts = comm.all_gather(torch.full((1,), n_local,
-                                                dtype=torch.int64,
-                                                device=dev)).tolist()
+            counts = comm.all_gather(
+                torch.full((1,), n_local, dtype=torch.int64, device=dev),
+                group=self._dp_group).tolist()
             width = max(counts)
             dense_n += g.numel()
             if width == 0:
@@ -1879,8 +1968,10 @@ class DeepSpeedEngine:
                               device=dev)
             idx[:n_local] = local.row_indices
             val[:n_local] = local.values
-            idx_all = comm.all_gather(idx).view(self.dp, width)
-            val_all = comm.all_gather(val).view(self.dp, width, g.shape[1])
+            idx_all = comm.all_gather(idx, group=self._dp_group).view(
+                self.dp, width)
+            val_all = comm.all_gather(val, group=self._dp_group).view(
+                self.dp, width, g.shape[1])
             shards = [CSRTensor(idx_all[r, :c], val_all[r, :c],
                                 tuple(g.shape)) for r, c in enumerate(counts)]
             shipped += sum(s.sparse_size() for s in shards)
@@ -1903,12 +1994,13 @@ class DeepSpeedEngine:
         the same rows. Returns the raw loss, detached."""
         self._refuse_trio_onebit()
         if self._offload is not None:
-            raise _unported(
+            raise NotImplementedError(
                 "the forward/backward/step trio under zero_optimization."
-                "cpu_offload (the JAX trio's apply reads a device optimizer "
-                "state that offload does not keep, and runs no host step)",
-                "queue 1 item 6, what dp and ZeRO left: the trio under "
-                "offload")
+                "cpu_offload: the JAX reference does not run it (its "
+                "trio's apply reads a device optimizer state that offload "
+                "does not keep, and fails with a TypeError), so the trio "
+                "under offload is not planned (ROADMAP); train with "
+                "train_batch()")
         if self._trio_pending is not None:
             raise RuntimeError(
                 "forward() twice without backward(): the first graph would "
@@ -2027,7 +2119,8 @@ class DeepSpeedEngine:
                 out = self.loss_fn(params, self._to_device(batch), gen)
             loss = (out[0] if isinstance(out, tuple) else out).detach()
             if self.dp > 1:
-                loss = comm.all_reduce(loss.float().clone()) / self.dp
+                loss = comm.all_reduce(loss.float().clone(),
+                                       group=self._dp_group) / self.dp
         if self._preempt_saver is not None and self.dp > 1:
             # (eval is a collective boundary too: a SIGTERM held since
             # the last step is taken up here)
@@ -2055,10 +2148,16 @@ class DeepSpeedEngine:
                                             self._group_leaves)):
             full = self._scratch_buffer(gi, torch.float32)
             sg.pack([grads[i] for i in idxs], full, rows=(0, sg.shards))
-            if first:
-                comm.reduce_scatter(full, out=sg.grad)
+            if sg.replicated:
+                comm.all_reduce(full, group=self._dp_group)
+                if first:
+                    sg.grad.copy_(full)
+                else:
+                    sg.grad.add_(full)
+            elif first:
+                comm.reduce_scatter(full, out=sg.grad, group=self._dp_group)
             else:
-                sg.grad.add_(comm.reduce_scatter(full))
+                sg.grad.add_(comm.reduce_scatter(full, group=self._dp_group))
 
     def _reduce_grads(self) -> None:
         """After the micro-steps: stage 0 all-reduces the natural grads;
@@ -2071,18 +2170,26 @@ class DeepSpeedEngine:
             self._buckets.wait()     # (the buckets' all-reduces)
         for gi, grp in enumerate(self._groups):
             if self._buckets is None:
-                comm.all_reduce(grp.grad)
+                comm.all_reduce(grp.grad, group=self._dp_group)
             if self._shard_local:
                 self._shards[gi].pack(grp.views(grp.grad),
                                       self._shards[gi].grad)
+
+    def _whole(self, sg: ShardGroup, buf: torch.Tensor,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A rank's part ``buf`` of ``sg``'s layout made whole: ``buf``
+        itself where the group is replicated, else every dp rank's part
+        gathered in rank order (a collective)."""
+        return buf if sg.replicated else comm.all_gather(
+            buf, out=out, group=self._dp_group)
 
     def _gather_params(self) -> None:
         """Stages 1-2: every rank's updated rows → the natural buffers
         the model views, and the compute-dtype copy re-cast from them
         (bit-equal to the kernel's cast of the same fp32 values)."""
         for gi, (grp, sg) in enumerate(zip(self._groups, self._shards)):
-            full = comm.all_gather(sg.param,
-                                   out=self._scratch_buffer(gi, sg.dtype))
+            full = self._whole(sg, sg.param,
+                               out=self._scratch_buffer(gi, sg.dtype))
             sg.unpack(full, grp.views(grp.param))
             if grp.cast is not None:
                 grp.cast.copy_(grp.param)
@@ -2110,6 +2217,16 @@ class DeepSpeedEngine:
                       for sg, idxs in zip(self._shards, self._group_leaves)]
         for sg, idxs, views in groups:
             parts = [v.detach().requires_grad_(True) for v in views]
+            if sg is not None and sg.ranged:
+                # The group's flat range, gathered whole (re-gathered
+                # for the backward by autograd's saved slices).
+                full = gather_parts(parts, [FlatPart(sg.full_numel,
+                                                     sg.replicated)],
+                                    dtype)[0]
+                for i, t in zip(idxs, sg.leaf_slices(full)):
+                    leaves[i] = t
+                inputs += parts
+                continue
             for i, x in zip(idxs, parts):
                 if self._covered[i]:
                     leaves[i] = x
@@ -2216,7 +2333,7 @@ class DeepSpeedEngine:
 
     def _all_reduce_float(self, x: float) -> float:
         t = torch.tensor([x], dtype=torch.float64, device=self.device)
-        return float(comm.all_reduce(t))
+        return float(comm.all_reduce(t, group=self._dp_group))
 
     def _mark(self, stream=None, blocking: bool = False):
         """A point on the device's timeline: a recorded CUDA event (on
@@ -2265,10 +2382,10 @@ class DeepSpeedEngine:
         for g, dst, ax in zip(self._grad_views, self._local_grad_views,
                               off._axes):
             if ax is None:
-                dst.copy_(comm.all_reduce(g))
+                dst.copy_(comm.all_reduce(g, group=self._dp_group))
                 continue
             part = comm.reduce_scatter(g.movedim(ax, 0).contiguous()
-                                       .view(-1))
+                                       .view(-1), group=self._dp_group)
             dst.copy_(part.view(dst.movedim(ax, 0).shape).movedim(0, ax))
         self._local_grads.mul_(1.0 / self.dp)
 
@@ -2296,7 +2413,8 @@ class DeepSpeedEngine:
                 if ax is None:
                     pv.copy_(loc)
                     continue
-                full = comm.all_gather(loc.movedim(ax, 0).contiguous())
+                full = comm.all_gather(loc.movedim(ax, 0).contiguous(),
+                                       group=self._dp_group)
                 pv.copy_(full.view(pv.movedim(ax, 0).shape).movedim(0, ax))
 
     def _train_step_offload(self, micro_batches: List[Any], step: int
@@ -2571,10 +2689,11 @@ class DeepSpeedEngine:
             # This rank's rows (a per-layer group's: every rank's, for the
             # conversion to JAX's rows); stage 3's parameter rows on
             # rank 0 (collectives, in the same order on every rank).
-            own = [comm.all_gather(b) if self._shards[k % G].layered
-                   else b for k, b in enumerate(flat_bufs)]
-            prows = [comm.gather(sg.param) for sg in self._shards] \
-                if self._zero3 else []
+            own = [comm.all_gather(b, group=self._dp_group)
+                   if self._shards[k % G].layered else b
+                   for k, b in enumerate(flat_bufs)]
+            prows = [comm.gather(sg.param, group=self._dp_group)
+                     for sg in self._shards] if self._zero3 else []
             natural = [] if self._zero3 or not is_writer else \
                 [g.param for g in self._groups]
             flat_p = [t for per in prows if per is not None for t in per]
@@ -2585,9 +2704,10 @@ class DeepSpeedEngine:
                          for k in range(len(flat_p) // dp)]
         elif self._shard_local:
             # Every rank's rows on rank 0, rank order (collective).
-            rows = [comm.gather(b) for b in flat_bufs]
+            rows = [comm.gather(b, group=self._dp_group) for b in flat_bufs]
             if self._zero3:
-                rows += [comm.gather(sg.param) for sg in self._shards]
+                rows += [comm.gather(sg.param, group=self._dp_group)
+                         for sg in self._shards]
             if not is_writer:
                 self.skipped_steps = int(st.skipped_steps)
                 return CheckpointSnapshot(
@@ -2623,7 +2743,8 @@ class DeepSpeedEngine:
                                          prow):
                     lv = [torch.empty(self._leaf_shapes[i], dtype=sg.dtype)
                           for i in idxs]
-                    sg.unpack(torch.cat(per), lv)
+                    sg.unpack(per[0] if sg.replicated else torch.cat(per),
+                              lv)
                     for i, t in zip(idxs, lv):
                         out[i] = t
                 return tree_unflatten(self._treedef, out)
@@ -2645,7 +2766,9 @@ class DeepSpeedEngine:
         if not isinstance(self.optimizer, FusedAdam):
             # An optax chain: its state's leaves whole (rank 0 writes one
             # file at any dp, as offload does; JAX's load re-partitions).
-            host_bufs = [torch.cat(per) for per in host_rows[:K]] \
+            host_bufs = [per[0] if self._shards[k % G].replicated
+                         else torch.cat(per)
+                         for k, per in enumerate(host_rows[:K])] \
                 if self._shard_local else host[G:G + K]
             meta["optim_shards"] = 1
             leaf_list = self._optax_leaves(layout, names, host_bufs, count)
@@ -2665,7 +2788,10 @@ class DeepSpeedEngine:
             # The moments split along their flat axis, one file a rank:
             # rank r's rows of the JAX layout (the per-layer form's
             # buffers are laid out as JAX's first).
-            meta["optim_shard_axes"] = [None] + [0] * (2 * G)
+            # (a replicated group's buffer whole, in shard 0)
+            meta["optim_shard_axes"] = [None] + [
+                None if self._shards[k % G].replicated else 0
+                for k in range(2 * G)]
 
             def rows_of(k: int, r: int) -> torch.Tensor:
                 sg = self._shards[k % G]
@@ -2682,6 +2808,8 @@ class DeepSpeedEngine:
                 if r == 0:
                     blob["0"] = np.asarray(count)
                 for k in range(2 * G):
+                    if r and self._shards[k % G].replicated:
+                        continue
                     blob[str(k + 1)] = rows_of(k, r).numpy()
                 if r == 0:
                     blob["__scalars__"] = scalars_blob
@@ -2728,7 +2856,8 @@ class DeepSpeedEngine:
         if self._ckpt_token_pid is None:
             pid = torch.tensor([os.getpid()], dtype=torch.int64,
                                device=self.device)
-            self._ckpt_token_pid = int(comm.broadcast(pid, 0).item())
+            self._ckpt_token_pid = int(comm.broadcast(
+                pid, 0, group=self._dp_group).item())
         self._ckpt_seq += 1
         rank = self.dp_rank
         return CheckpointSnapshot(
@@ -2865,9 +2994,6 @@ class DeepSpeedEngine:
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
 
-        if meta.get("pipeline_layer_files"):
-            raise _unported("a checkpoint with pipeline per-layer files",
-                            "slice 6: parallel axes and comm extras")
         if meta.get("mp_shards"):
             raise _unported(f"a tensor-parallel checkpoint "
                             f"({meta['mp_shards']} mp_rank model files)",
@@ -2912,16 +3038,37 @@ class DeepSpeedEngine:
                 "(optim_shards) — restore the sidecar, or load with "
                 "load_optimizer_states=False")
 
-        model_file = os.path.join(path, MODEL_FILE)
-        if not os.path.isfile(model_file):
-            logger.warning(f"checkpoint {model_file} not found")
-            return None, {}
-        with open(model_file, "rb") as f:
-            probe = msgpack_restore(f.read())
-        if not (isinstance(probe, dict) and "module" in probe):
-            raise ValueError(
-                f"{model_file} is a SHARDED (mp_rank) model checkpoint but "
-                "engine_meta.json does not say so — restore the sidecar")
+        layer_files = meta.get("pipeline_layer_files")
+        if layer_files and not getattr(self, "pipeline_module", None):
+            raise NotImplementedError(
+                f"checkpoint {path} holds a PipelineModule's per-layer "
+                "pipeline files: load it into that module's engine "
+                "(initialize(model=PipelineModule(...)))")
+        if layer_files:
+            # A PipelineModule's checkpoint: one file a layer (the JAX
+            # pipeline engine's layout), tied parameters in one.
+            module = {}
+            for key, fname in layer_files.items():
+                fp = os.path.join(path, fname)
+                if not os.path.isfile(fp):
+                    logger.warning(f"pipeline layer checkpoint {fp} "
+                                   "missing")
+                    return None, {}
+                with open(fp, "rb") as f:
+                    module[key] = msgpack_restore(f.read())
+            probe = {"module": module}
+        else:
+            model_file = os.path.join(path, MODEL_FILE)
+            if not os.path.isfile(model_file):
+                logger.warning(f"checkpoint {model_file} not found")
+                return None, {}
+            with open(model_file, "rb") as f:
+                probe = msgpack_restore(f.read())
+            if not (isinstance(probe, dict) and "module" in probe):
+                raise ValueError(
+                    f"{model_file} is a SHARDED (mp_rank) model checkpoint "
+                    "but engine_meta.json does not say so — restore the "
+                    "sidecar")
         new_leaves = self._checkpoint_param_leaves(probe["module"],
                                                    load_module_strict)
 
@@ -2980,10 +3127,9 @@ class DeepSpeedEngine:
                 for b, sg in zip(leaves[1:], self._shards + self._shards):
                     full = convert.relayout_jax_buffer(b, sg.sizes, shards,
                                                        sg.shards)
+                    e0, e1 = sg.elements
                     bufs.append(sg.local_rows_from_jax(full) if sg.layered
-                                else convert.jax_local_rows(
-                                    full, sg.sizes, sg.shards, self.dp,
-                                    self.dp_rank))
+                                else np.asarray(full).reshape(-1)[e0:e1])
                 opt_state = FusedAdamState(
                     count=np.int32(np.asarray(leaves[0])),
                     m=tuple(bufs[:G]), v=tuple(bufs[G:]))
@@ -3039,7 +3185,8 @@ class DeepSpeedEngine:
             st.growth_count.to(torch.int32), st.hysteresis.to(torch.int32),
             st.skipped_steps.to(torch.int32)])
         G = len(self._groups)
-        werr = [comm.gather(b) for b in opt.worker_error] if dp > 1 \
+        werr = [comm.gather(b, group=self._dp_group)
+                for b in opt.worker_error] if dp > 1 \
             else [[b] for b in opt.worker_error]
         is_writer = self.dp_rank == 0
         if not is_writer:
@@ -3192,7 +3339,7 @@ class DeepSpeedEngine:
                 out.append(t.clone())
                 continue
             parts = comm.gather(t.to(self.device).movedim(ax, 0)
-                                .contiguous())
+                                .contiguous(), group=self._dp_group)
             if parts is not None:
                 out.append(torch.cat(parts).movedim(0, ax).to("cpu")
                            .contiguous())

@@ -52,13 +52,16 @@ class GradBuckets:
     ``group_leaves``: each group's leaf indices (tree order);
     ``reduce_scatter``: stage 2's mode (``shards``: the ShardGroups) or
     the all-reduce mode (``groups``: the FlatGroups, ``grad_views``: each
-    leaf's view of its group's fp32 grads)."""
+    leaf's view of its group's fp32 grads); ``group``: the data-parallel
+    process group the collectives run on (None: the default group)."""
 
     def __init__(self, group_leaves: List[List[int]], sizes: List[int],
                  bucket_elems: int, reduce_scatter: bool,
                  shards: List[Any], groups: List[Any],
-                 grad_views: List[Any]):
+                 grad_views: List[Any], group: Any = None):
         self.reduce_scatter = reduce_scatter
+        # (the keyword only where a group is named)
+        self._group = {} if group is None else {"group": group}
         self.shards, self.groups = shards, groups
         self.grad_views = grad_views
         self.sizes = sizes
@@ -137,7 +140,8 @@ class GradBuckets:
             if not self.reduce_scatter:
                 span, packed = self._flat_span(gi, leaves)
                 self.works.append((leaves, dist.all_reduce(
-                    span, async_op=True), span if packed else None))
+                    span, async_op=True, **self._group),
+                    span if packed else None))
                 return
             sg = self.shards[gi]
             w = sum(sg.columns[self._where[leaf][1]][1] for leaf in leaves)
@@ -150,7 +154,8 @@ class GradBuckets:
                 pos += r
             out = torch.empty((sg.rows_per_rank, w), dtype=torch.float32,
                               device=full.device)
-            work = dist.reduce_scatter_tensor(out, full, async_op=True)
+            work = dist.reduce_scatter_tensor(out, full, async_op=True,
+                                               **self._group)
             # (the send buffer lives until the wait)
             self.works.append((leaves, work, (out, full)))
 

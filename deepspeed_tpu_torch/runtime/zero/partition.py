@@ -8,7 +8,10 @@ places the state itself, in the fused optimizer's V-interleaved layout
 (d+1)*V/dp)`` of every group buffer (``row_plan``), which is a
 contiguous 1/dp of the buffer and, in each leaf's flattened order, one
 contiguous range of the padded leaf. Grads (stage 2), moments (stages
-1-3) and parameters (stage 3) are held as those rows.
+1-3) and parameters (stage 3) are held as those rows. Where dp does not
+divide V (dp 3, 5, 6, 7 at V = 8) a rank owns what JAX's ``_leaf_spec``
+gives its device of the flat ``[V * Lpad]`` buffer: the d-th of dp
+equal ranges when dp divides it, else the whole buffer (replicated).
 
 Stage 3 with a bound ``Zero3Scan`` holds the groups in the per-layer
 form of that layout (``ShardGroup(..., layers=)``): each stacked leaf
@@ -32,24 +35,43 @@ from ...ops.fused_update import float_groups, tree_flatten, virtual_shards
 
 
 class RowPlan(NamedTuple):
-    """Rank ``rank``'s part of a V-interleaved group buffer."""
+    """Rank ``rank``'s part of a V-interleaved group buffer. Where dp
+    divides V: rows ``[row0, row1)``. Elsewhere (``rows`` False) the
+    part is a range of the flat buffer, which depends on the group's
+    row length (``elements``)."""
     shards: int          # V
-    rows_per_rank: int   # V / dp
+    rows_per_rank: int   # V / dp (0 when dp does not divide V)
     row0: int            # first owned row
     row1: int            # one past the last owned row
+    dp: int = 1
+    rank: int = 0
+
+    @property
+    def rows(self) -> bool:
+        return self.shards % self.dp == 0
 
     def elements(self, Lpad: int) -> Tuple[int, int]:
-        """The owned range of the flat ``[V * Lpad]`` buffer."""
-        return self.row0 * Lpad, self.row1 * Lpad
+        """The owned range of the flat ``[V * Lpad]`` buffer: the rows';
+        where dp does not divide V, JAX's placement of the flat buffer
+        (``_leaf_spec``: split in dp equal parts along its one dim when
+        dp divides it, else replicated, the whole buffer)."""
+        if self.rows:
+            return self.row0 * Lpad, self.row1 * Lpad
+        n = self.shards * Lpad
+        if n % self.dp:
+            return 0, n
+        return self.rank * n // self.dp, (self.rank + 1) * n // self.dp
 
 
 def row_plan(dp: int, rank: int) -> RowPlan:
-    """Which V-layout rows rank ``rank`` of ``dp`` owns (the one source
-    of a ShardGroup's rows and base). dp divides V: the configuration
-    refuses any other dp (``DeepSpeedConfig.unported_features``)."""
+    """Which part of the V-layout rank ``rank`` of ``dp`` owns (the one
+    source of a ShardGroup's rows and base): rows where dp divides V,
+    else a range of each group's flat buffer (``RowPlan.elements``)."""
     shards = virtual_shards(dp)
+    if shards % dp:
+        return RowPlan(shards, 0, 0, 0, dp, rank)
     per = shards // dp
-    return RowPlan(shards, per, rank * per, (rank + 1) * per)
+    return RowPlan(shards, per, rank * per, (rank + 1) * per, dp, rank)
 
 
 def split_dim(shape: Tuple[int, ...], dp: int,

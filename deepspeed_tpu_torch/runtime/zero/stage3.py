@@ -7,7 +7,9 @@ master-free):
 
 - by default, its rows of the fused optimizer's V-interleaved layout
   (``ops/fused_update.ShardGroup``): a leaf's part is one range of its
-  padded flattened values, a ``[V/dp, r]`` block (``RowPart``);
+  padded flattened values, a ``[V/dp, r]`` block (``RowPart``); at a
+  dp that does not divide V, its range of each group's flat buffer
+  (``FlatPart``), gathered a group at a time;
 - with a bound ``Zero3Scan``, the per-layer form of that layout: each
   stacked ``[L, ...]`` leaf the scan covers enters the group as its L
   layer slices, each padded to V and laid ``[V, r]`` like a leaf of its
@@ -73,7 +75,7 @@ from ...parallel import comm
 from .partition import covered_leaves, stage3_dims
 
 __all__ = ["gather_cast", "gather_parts", "regather_saved",
-           "active_regather", "RowPart", "DimPart", "Zero3Scan",
+           "active_regather", "RowPart", "DimPart", "FlatPart", "Zero3Scan",
            "zero3_block_scan", "gather_working_set_bytes"]
 
 
@@ -103,6 +105,31 @@ class RowPart:
         if world * k != self.n:
             flat = torch.nn.functional.pad(flat, (0, world * k - self.n))
         return flat.view(world, k)
+
+    def part(self, flat: torch.Tensor, shape: Tuple[int, ...]
+             ) -> torch.Tensor:
+        return flat.view(shape)
+
+
+class FlatPart:
+    """A ranged group's part (``ShardGroup.ranged``: dp does not divide
+    V): its range of the group's flat ``[n]`` buffer, the ranks' ranges
+    equal and in rank order; ``whole`` when the group is replicated
+    (gathered by a cast, its grad all-reduced)."""
+
+    def __init__(self, n: int, whole: bool):
+        self.shape = (int(n),)
+        self.n = int(n)
+        self.whole = bool(whole)
+
+    def put(self, part: torch.Tensor, dst: torch.Tensor) -> None:
+        dst.copy_(part.reshape(-1))
+
+    def leaf(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows.reshape(-1)
+
+    def rows(self, g: torch.Tensor, world: int, k: int) -> torch.Tensor:
+        return g.reshape(-1).float().view(world, k)
 
     def part(self, flat: torch.Tensor, shape: Tuple[int, ...]
              ) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """GPT-2 training example on the PyTorch port (``deepspeed_tpu_torch``):
 ``train.py``'s flags, data and stdout contract on the card's kernels.
 
-Pick a ds_config from this directory (ZeRO-2, ZeRO-Offload, 1-bit Adam)
-or pass your own (``--config`` or ``--deepspeed_config``). Data defaults
+Pick a ds_config from this directory (ZeRO-2, ZeRO-Offload, 1-bit Adam,
+the pipeline with ``--pipeline``) or pass your own (``--config`` or ``--deepspeed_config``). Data defaults
 to the synthetic Markov token stream; ``--data`` takes an .npy file of
 int32 [N, S+1] token windows, or a .txt file (e.g. the vendored
 examples/data/corpus.txt), byte-level tokenized into next-byte windows.
 
     python examples/gpt2/train_torch.py --config ds_config_zero2.json
+    bin/deepspeed_torch --num_gpus 8 examples/gpt2/train_torch.py \\
+        --pipeline --deepspeed_config examples/gpt2/ds_config_pipeline.json
     bin/deepspeed_torch --num_gpus 8 examples/gpt2/train_torch.py \\
         --deepspeed_config examples/gpt2/ds_config_zero2.json
 
@@ -77,10 +79,6 @@ def main(argv=None):
     ap.add_argument("--checkpoint_dir", default=None)
     add_arguments(ap)
     args = ap.parse_args(argv)
-    if args.pipeline:
-        raise NotImplementedError(
-            "--pipeline: pipeline parallelism is not ported yet (ROADMAP "
-            "queue 1 item 7, the parallel axes)")
 
     cfg_path = args.deepspeed_config or args.config
     if not os.path.isabs(cfg_path) and not os.path.isfile(cfg_path):
@@ -91,9 +89,18 @@ def main(argv=None):
     dev = setup_device(args.device)
     cfg = GPT2_CONFIGS[args.model]
     gen = torch.Generator(device=dev).manual_seed(0)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=gpt2_loss_fn(cfg), model_params=gpt2_init(cfg, gen, dev),
-        config=ds_config, device=dev)
+    if args.pipeline:
+        # The pipeline engine: mesh.pipe_parallel_size stage processes
+        # (the launcher's ranks, stage by stage), each rank training on
+        # its dp rank's rows of every micro-batch.
+        from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipe_spec
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2_pipe_spec(cfg, gen, device=dev), config=ds_config,
+            device=dev)
+    else:
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=gpt2_loss_fn(cfg), model_params=gpt2_init(cfg, gen, dev),
+            config=ds_config, device=dev)
 
     bs = ds_config["train_batch_size"]
     tokens = token_windows(cfg, bs, args.data)
@@ -103,12 +110,25 @@ def main(argv=None):
 
     def batches(step):
         lo = (step * bs) % n_windows
-        return tokens[lo:lo + bs]
+        rows = tokens[lo:lo + bs]
+        if not args.pipeline:
+            return rows
+        # micro-batch i, dp rank d: rows i*micro*dp + d*micro onward
+        micro, dp = engine.train_micro_batch_size_per_gpu(), engine.dp
+        return np.concatenate([
+            rows[i * micro * dp + engine.dp_rank * micro:][:micro]
+            for i in range(engine.gradient_accumulation_steps())])
 
     losses, step_ms = train(engine, batches, args.steps)
     report("gpt2", engine, losses, step_ms)
     if args.checkpoint_dir:
         engine.save_checkpoint(args.checkpoint_dir)
+    if args.pipeline and torch.distributed.is_initialized():
+        # Every rank leaves together, and the stage groups go down before
+        # the interpreter does (gloo aborts a process whose groups are
+        # torn down at exit while a peer still talks to it).
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

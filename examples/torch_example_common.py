@@ -54,7 +54,8 @@ def report(example: str, engine, losses, step_ms,
     """The stdout contract on rank 0: the curve, the final loss, and a
     JSON line with the device, the kernels' launches and the step
     times."""
-    if engine.dp_rank != 0:
+    from deepspeed_tpu_torch.parallel import comm
+    if comm.global_rank() != 0:
         return
     print("losses:", " ".join(f"{l:.6f}" for l in losses))
     print(f"{final}: {losses[-1]:.4f}")

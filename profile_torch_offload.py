@@ -3,6 +3,7 @@
 one card, in one process.
 
     python3 profile_torch_offload.py [--steps N]
+    python3 profile_torch_offload.py --after-gloo [--runs R]
 
 gpt2-small under ``examples/gpt2/ds_config_offload.json`` (bf16, stage
 2, the fp32 masters and Adam moments in host memory) — chip_smoke.py's
@@ -17,11 +18,22 @@ first two steps (CUDA events around ``train_batch``) and the means of
 ``offload_timings`` over the same steps. The losses of the three must
 be the same bits. One JSON line, ``{"overlap_ab": ...}``. Needs a CUDA
 device.
+
+``--after-gloo``: whether the gloo phases of chip_smoke.py
+(``train_pipe``, ``train_zero_dp3``: stage and rank processes that
+share the card through host memory) leave a load behind that takes the
+overlapped pipeline's ``overlap_fraction`` to 0. The overlapped engine
+as ``train_offload`` builds it takes 10 steps, R times before those
+phases and R times after them. Per run: each step's ``overlap_fraction``,
+its span and work (ms), and the host's runnable tasks
+(``procs_running`` of ``/proc/stat``) and this process's live children
+before each step. One JSON line, ``{"overlap_after_gloo": ...}``.
 """
 import argparse
 import contextlib
 import io
 import json
+import os
 import subprocess
 
 import numpy as np
@@ -36,9 +48,59 @@ KEYS = ("device_step_ms", "d2h_ms", "host_norm_ms", "host_step_ms",
 SKIP = 2
 
 
+def _host_load():
+    """The host's runnable tasks and this process's live children."""
+    with open("/proc/stat") as f:
+        running = next(int(line.split()[1]) for line in f
+                       if line.startswith("procs_running"))
+    me, kids = str(os.getpid()), 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                kids += f.read().rsplit(")", 1)[1].split()[1] == me
+        except OSError:
+            pass
+    return running, kids
+
+
+def after_gloo(smi, runs):
+    cfg = cs.GPT2_CONFIGS["gpt2-small"]
+    micro = cs.offload_config()["train_batch_size"]
+    batches = cs.token_stream(cfg, cs.OFFLOAD_STEPS, seq=cs.TRAIN_SEQ,
+                              micro=micro // cs.TRAIN_GAS)
+
+    def overlapped():
+        cs.fresh_card()
+        eng = cs.offload_engine(cfg, cs.offload_config(overlap=True))
+        rec = {"fraction": [], "span_ms": [], "work_ms": [],
+               "procs_running": [], "children": []}
+        for b in batches:
+            running, kids = _host_load()
+            rec["procs_running"].append(running)
+            rec["children"].append(kids)
+            eng.train_batch(b)
+            t = eng.offload_timings
+            rec["fraction"].append(t["overlap_fraction"])
+            rec["span_ms"].append(t["pipeline_span_ms"])
+            rec["work_ms"].append(t["pipeline_work_ms"])
+        torch.cuda.synchronize()
+        del eng
+        return rec
+    dev = torch.device("cuda")
+    out = {"card": smi, "steps": cs.OFFLOAD_STEPS,
+           "before": [overlapped() for _ in range(runs)]}
+    with contextlib.redirect_stdout(io.StringIO()):
+        cs.train_pipe(dev, smi)
+        cs.train_zero_dp3(dev, smi)
+    out["after"] = [overlapped() for _ in range(runs)]
+    print(json.dumps({"overlap_after_gloo": out}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=14)
+    ap.add_argument("--after-gloo", action="store_true")
+    ap.add_argument("--runs", type=int, default=3)
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -46,6 +108,8 @@ def main():
     print(smi, flush=True)
     with contextlib.redirect_stdout(io.StringIO()):
         op_builder.load()
+    if args.after_gloo:
+        return after_gloo(smi, args.runs)
     cfg = cs.GPT2_CONFIGS["gpt2-small"]
     micro = cs.offload_config()["train_batch_size"]
     batches = cs.token_stream(cfg, args.steps, seq=cs.TRAIN_SEQ,

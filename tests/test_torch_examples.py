@@ -11,12 +11,15 @@ bert-tiny.
   ``assert_decreasing`` rule, with ``--device cpu``.
 - The CIFAR net, given the JAX example's ``init_params`` as numpy, gives
   its ``loss_fn`` value within 1e-5 (fp32).
-- ``--pipeline`` raises, naming ROADMAP queue 1 item 7.
+- ``--pipeline`` trains ``ds_config_pipeline.json`` (pp 2 x dp 4) at
+  gpt2-tiny under ``bin/deepspeed_torch``.
 """
 import importlib.util
 import json
 import os
 import re
+import socket
+import subprocess
 import sys
 
 import numpy as np
@@ -156,9 +159,32 @@ def test_cifar_loss_matches_jax():
     assert abs(got - want) <= 1e-5, (got, want)
 
 
-def test_gpt2_pipeline_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load_example("gpt2", True).main(["--pipeline", "--device", "cpu"])
+def test_gpt2_pipeline_raises(tmp_path):
+    """``--pipeline`` (no longer refused) trains ``ds_config_pipeline.json``
+    (pp 2 x dp 4, bf16, ``1f1b``) at gpt2-tiny for 2 steps: 8 gloo
+    processes under ``bin/deepspeed_torch``, rank 0 printing the stdout
+    contract."""
+    hostfile = tmp_path / "hostfile"
+    hostfile.write_text("localhost slots=8\n")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bin", "deepspeed_torch"),
+         "--hostfile", str(hostfile), "--master_port", str(port),
+         os.path.join(REPO, "examples", "gpt2", "train_torch.py"),
+         "--pipeline", "--device", "cpu", "--steps", "2",
+         "--config", "ds_config_pipeline.json"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=240)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    losses = [float(x) for x in re.search(r"^losses: (.*)$", res.stdout,
+                                          re.M).group(1).split()]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert rec["world_size"] == 4 and rec["device"] == "cpu"
+    assert res.stdout.count("final loss:") == 1
 
 
 def test_cuda_run_without_a_card_raises(monkeypatch):

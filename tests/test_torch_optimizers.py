@@ -24,7 +24,8 @@ against the JAX package's ``build_optimizer`` (optax 0.2.6 chains).
   gradient is zero in exact arithmetic, and under Lion a few signs of
   rounding-level arguments, within 2 * steps * lr.
 - The name fall-through takes the ``torch.optim`` class of that name;
-  a ``torch.optim`` optimizer refuses a rank's V-layout rows and
+  over a rank's V-layout rows only an elementwise class builds, and
+  a ``torch.optim`` optimizer refuses
   master-free bf16;
   a client ``torch.optim.SGD`` trains as JAX's ``optax.sgd(1e-2)``
   client within 1e-5; the K5 norm runs under every optimizer.
@@ -511,14 +512,20 @@ def test_name_fall_through_takes_torch_optim(params_np):
 
 
 def test_torch_optim_needs_whole_fp32_params():
-    """A torch.optim optimizer holds per-parameter state: it refuses a
-    rank's V-layout rows (ZeRO 1-3 across ranks, where the engine raises
-    at construction) and bf16 params without masters."""
+    """A torch.optim optimizer holds per-parameter state: over a rank's
+    V-layout rows (ZeRO 1-3 across ranks) only an elementwise class
+    steps its part of each leaf (Adamax builds; Adafactor, whose step
+    reads a leaf's rows and columns, refuses, naming ZeRO stage 0); bf16
+    params without masters are refused (tests/test_torch_optim_zero.py
+    trains the elementwise classes at ZeRO 1-3)."""
     from deepspeed_tpu_torch.ops.fused_update import ShardGroup
     from deepspeed_tpu_torch.runtime.zero.partition import row_plan
     opt = topt.build_optimizer("adamax", {"lr": 1e-3}, None)
     sg = ShardGroup([(7, 5), (13,)], torch.float32, torch.device("cpu"),
                     row_plan(2, 1))
+    opt.init([sg])
+    assert type(opt.opt) is torch.optim.Adamax and len(opt._leaves) == 2
+    opt = topt.build_optimizer("adafactor", {"lr": 1e-3}, None)
     with pytest.raises(NotImplementedError, match="ZeRO stage 0"):
         opt.init([sg])
     bf16 = _port_group({"w": np.ones(4, np.float32)}, torch.bfloat16)

@@ -481,6 +481,29 @@ def test_unported_config_raises(extra, match, tmp_path, monkeypatch):
         assert eng.config.tensorboard_enabled and \
             not eng.config.telemetry_enabled
         return
+    if match == "pipeline":
+        # The pipeline is ported (tests/test_torch_pipe*.py hold it
+        # against JAX): a plain loss_fn model under a pipeline of 2
+        # stages is refused, naming the pipelined model it needs; a
+        # PipeSpec builds the PipelineEngine, which trains; a pipeline
+        # block that is not a dict is refused at parse time.
+        with pytest.raises(ValueError, match="pipeline parallelism"):
+            _init(dict(BASE, **extra))
+        from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipe_spec
+        spec = gpt2_pipe_spec(CFG, torch.Generator().manual_seed(0),
+                              device="cpu")
+        eng = deepspeed_tpu_torch.initialize(
+            model=spec, config=dict(BASE, pipeline={"schedule": "1f1b"}),
+            device="cpu")[0]
+        assert type(eng).__name__ == "PipelineEngine"
+        loss = eng.train_batch(np.random.default_rng(0).integers(
+            0, 512, (2, 33)))
+        assert np.isfinite(float(loss)) and eng.global_steps == 1
+        from deepspeed_tpu_torch.runtime.config import (
+            DeepSpeedConfig, DeepSpeedConfigError)
+        with pytest.raises(DeepSpeedConfigError, match="dict"):
+            DeepSpeedConfig(dict(BASE, pipeline=2), world_size=1)
+        return
     if match == "dcn_compression":
         # (F3) the JAX engine's refusal on a single slice
         with pytest.raises(ValueError, match="zero_optimization."

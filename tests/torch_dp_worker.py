@@ -6,6 +6,11 @@ It imports torch, numpy and the port only — never JAX, which a spawned
 child re-importing a test module would pull in. Usage::
 
     python tests/torch_dp_worker.py SPEC.json RANK
+    python tests/torch_dp_worker.py SPEC.json all
+
+``all``: one process imports once and forks the other ranks (rank 0
+stays; it exits non-zero when any rank failed), what ``spawn_forked``
+starts: a world's imports cost one process's CPU, not ``world``.
 
 ``SPEC.json`` holds ``world``, ``store`` (the path of a
 ``torch.distributed.FileStore``: no TCP port, so parallel test workers
@@ -21,23 +26,29 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   ``first``/``steps`` (which batches), ``zero`` (extra
   ``zero_optimization`` keys), ``ds`` (extra top-level keys), ``load``
   (a checkpoint dir to resume from), ``save`` (``{"dir", "after"}``:
-  a sync save after that many steps, ``"async": true`` for an async
-  one), ``perturb`` (ranks above 0 start from parameters moved by
-  0.01 * rank: the engine must broadcast rank 0's), ``remat`` (the
-  model's ``remat_policy``, default ``none``), ``dropout`` (the model's
+  a sync save after that many steps, 0: before the first;
+  ``"async": true`` for an async one), ``perturb`` (ranks above 0
+  start from parameters moved by 0.01 * rank: the engine must
+  broadcast rank 0's), ``remat`` (the model's ``remat_policy``,
+  default ``none``), ``dropout`` (the model's
   hidden and attention dropout, default 0), ``trio`` (drive each step
   through ``forward``/``backward``/``step``, a call per micro-batch of
   the rank's rows, instead of ``train_batch``), ``model`` (``gpt2``, the
   default: gpt2-tiny; ``embed``: the embedding model of the sparse-
   gradient tests, ``embed_loss`` over ``embed_params``, its batches an
   ``.npz`` of ``ids`` ``[steps, N, 4]`` and ``y`` ``[steps, N, 1]``),
-  ``layers`` (gpt2-tiny's layer count, default 2), ``moe`` (the
+  ``layers`` (gpt2-tiny's layer count, default 2), ``vocab`` (its
+  vocabulary, default 512), ``torch_optim`` (a client ``torch.optim``
+  optimizer: ``{"name": class name, "kw": keyword arguments}``, built
+  by a factory over the engine's parameters), ``moe`` (the
   ds_config ``moe`` block: gpt2-tiny with that MoE FFN in every block,
   its params' expert leaves in the ``.npz``), ``scan`` (a
   ``Zero3Scan`` for the model and ``initialize``: ``{"depth": d}``, d
   None for the config's ``prefetch_depth``), ``wait_for`` (a file the
   job waits for first, as a checkpoint another world writes),
-  ``out`` (the ``.npz`` prefix of the results). ``save`` may also name
+  ``params`` (the job's own ``.npz`` of initial parameters in place of
+  the spec's), ``out`` (the ``.npz`` prefix of the results). ``save``
+  may also name
   ``gathered``: a second save of the same step through the rank-0
   writer (every rank's rows gathered to rank 0), the per-rank writers'
   reference. ``crash`` (``{"rank", "point", "after", "dir"}``): after
@@ -45,6 +56,18 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   ``async_ckpt`` crash point ``point``; each surviving rank writes
   ``{out}.rank{r}.crash`` (the save's error, or ``saved``) and exits
   at once (the job must be the last: no collective follows).
+
+``pipe`` runs the pipeline engine on gpt2-tiny (``initialize(model=
+PipeSpec)``): ``{"stages": P, "schedule": "gpipe" | "1f1b", "remat":
+the pipeline's activation_checkpoint_interval (absent: the key left
+out), "stage_layers": non-uniform cuts, "hetero": true}`` (``hetero``:
+the two-program ``hetero_pipe_spec`` of ``hetero_parts``); the world is
+P stages of world/P dp ranks, rank = stage * dp + d, and each rank takes
+its dp rank's rows. It records, besides the above, ``live`` (1F1B's
+most live stage inputs), ``p2p`` (the bytes the rank sent a step),
+``stage_params`` (this rank's own leaves, flat) and the whole tree's
+params on rank 0 only (``params``; the digests are of the whole tree).
+``save``/``load`` are the pipeline's checkpoints.
 
 The two stage-0 train steps that replace the grad all-reduce run from
 the ``ds`` keys: ``{"optimizer": {"type": "OneBitAdam", ...}}`` (1-bit
@@ -75,8 +98,10 @@ import dataclasses
 import hashlib
 import json
 import os
+import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -163,9 +188,47 @@ def embed_loss(params, batch, rng):
 
 
 def flat_params(eng):
-    leaves = tree_flatten(eng.full_params())[0]
+    if getattr(eng, "_pipe_spec", None) is not None:
+        tree = eng.whole_params()       # (a collective; rank 0 only)
+        if tree is None:
+            return np.zeros(0, np.float32)
+        leaves = tree_flatten(tree)[0]
+    else:
+        leaves = tree_flatten(eng.full_params())[0]
     return np.concatenate([t.detach().float().reshape(-1).numpy()
                            for t in leaves])
+
+
+def hetero_parts(H=16, P=2, seed=0):
+    """The two-program pipeline of the hetero tests: a tanh stem on
+    stage 0, a residual ReLU layer on the others; the embedding and the
+    head are a lookup and a squared error. Returns ``(embed, head,
+    programs, stage_programs, stage_params, shared)``."""
+    rng = np.random.default_rng(seed)
+
+    def stem(p, x, rng_):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def body(p, x, rng_):
+        return x + torch.relu(x @ p["w"])
+
+    def t(*shape):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * 0.3).astype(np.float32))
+
+    stage_params = [{"w": t(H, H), "b": t(H)}] + \
+        [{"w": t(H, H)} for _ in range(P - 1)]
+    shared = {"emb": t(64, H), "out": t(H, 1)}
+
+    def embed(sh, tokens, rng_):
+        return sh["emb"][tokens[:, 0] % 64]
+
+    def head(sh, x, targets, rng_):
+        pred = x @ sh["out"]
+        return torch.mean((pred[:, 0] - targets[:, 0].float() / 64) ** 2)
+
+    return embed, head, [stem, body], [0] + [1] * (P - 1), stage_params, \
+        shared
 
 
 def run_job(job, world, rank, params):
@@ -176,7 +239,17 @@ def run_job(job, world, rank, params):
     extra = dict(job.get("ds") or {})
     if job.get("moe"):
         extra["moe"] = job["moe"]
-    ds = ds_config(precision, world, job["stage"], job.get("zero"),
+    pipe = job.get("pipe")
+    dp, dp_rank = world, rank
+    if pipe:
+        dp, dp_rank = world // pipe["stages"], rank % (
+            world // pipe["stages"])
+        extra["mesh"] = {"pipe_parallel_size": pipe["stages"]}
+        extra["pipeline"] = {"schedule": pipe.get("schedule", "gpipe")}
+        if "remat" in pipe:
+            extra["pipeline"]["activation_checkpoint_interval"] = \
+                pipe["remat"]
+    ds = ds_config(precision, dp, job["stage"], job.get("zero"),
                    extra, micro, gas)
     if job.get("wait_for"):
         t0 = time.monotonic()
@@ -195,14 +268,40 @@ def run_job(job, world, rank, params):
             hidden_dropout=dropout, attn_dropout=dropout,
             remat_policy=job.get("remat", "none"),
             num_layers=job.get("layers", 2),
+            vocab_size=job.get("vocab", 512),
             moe=MoEConfig(**job["moe"]) if job.get("moe") else None)
         model = tgpt2.gpt2_loss_fn(cfg, zero3=spec)
         batches = np.load(job["batches"])
+        if pipe and pipe.get("hetero"):
+            from deepspeed_tpu_torch.runtime.pipe.hetero import \
+                hetero_pipe_spec
+            e, h, progs, sp, stp, sh = hetero_parts(P=pipe["stages"])
+            model = hetero_pipe_spec(e, h, progs, sp, stp, sh)
+        elif pipe:
+            from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipe_spec
+            model = gpt2_pipe_spec(cfg, params=params,
+                                   stage_layers=pipe.get("stage_layers"))
     if job.get("perturb"):
         params = shifted(params, 0.01 * rank)
-    eng, *_ = deepspeed_tpu_torch.initialize(
-        model=model, model_params={k: v for k, v in params.items()},
-        config=ds, device="cpu", rng=0, zero3_scan=spec)
+    client = None
+    if job.get("torch_optim"):
+        # a client torch.optim optimizer: {"name": class, "kw": kwargs}
+        cls = getattr(torch.optim, job["torch_optim"]["name"])
+        kw = job["torch_optim"].get("kw", {})
+
+        def client(params):
+            return cls(params, **kw)
+    if pipe:
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model, config=ds, device="cpu", rng=0)
+    elif client is not None:
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model, model_params={k: v for k, v in params.items()},
+            config=ds, device="cpu", rng=0, optimizer=client)
+    else:
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model, model_params={k: v for k, v in params.items()},
+            config=ds, device="cpu", rng=0, zero3_scan=spec)
     if job.get("load"):
         assert eng.load_checkpoint(job["load"])[0] is not None
     first = job.get("first", 0)
@@ -212,14 +311,16 @@ def run_job(job, world, rank, params):
                            "comm_bytes", "overlap_early",
                            "moe_expert_tokens",
                            "moe_drop_fraction", "moe_aux_loss",
-                           "moe_z_loss")}
+                           "moe_z_loss", "live", "p2p")}
     save = job.get("save")
+    if save and save["after"] == 0:
+        eng.save_checkpoint(save["dir"])      # (the state as built/loaded)
     for k in range(first, first + steps):
         if isinstance(batches[k], dict):
             rows = {n: rank_rows(x, world, rank, micro, gas)
                     for n, x in batches[k].items()}
         else:
-            rows = rank_rows(batches[k], world, rank, micro, gas)
+            rows = rank_rows(batches[k], dp, dp_rank, micro, gas)
         if job.get("trio"):
             for i in range(gas):
                 eng.backward(eng.forward(rows[i * micro:(i + 1) * micro]))
@@ -241,6 +342,9 @@ def run_job(job, world, rank, params):
                                  else eng.onebit_comm_bytes)
         rec["overlap_early"].append(
             -1 if eng._buckets is None else eng._buckets.early)
+        if pipe:
+            rec["live"].append(eng.pipe_stats.get("max_live_buffers", -1))
+            rec["p2p"].append(eng.pipe_stats.get("p2p_bytes", -1))
         for name in ("moe_expert_tokens", "moe_drop_fraction",
                      "moe_aux_loss", "moe_z_loss"):
             if name in m:
@@ -275,6 +379,10 @@ def run_job(job, world, rank, params):
             os._exit(0)
     out = {k: np.asarray(v) for k, v in rec.items()}
     out["params"] = flat_params(eng)
+    if pipe:
+        out["stage_params"] = np.concatenate([
+            t.detach().float().reshape(-1).numpy()
+            for t in tree_flatten(eng.full_params())[0]])
     out["ws"] = np.asarray(eng.telemetry.meta.get(
         "zero3_gather_working_set_bytes", -1))
     out["depth"] = np.asarray(spec.prefetch_depth if spec is not None and
@@ -290,6 +398,8 @@ def run_job(job, world, rank, params):
             out[f"hv{i}"] = v.numpy()
         out["count"] = np.asarray(off.opt.step_count)
         out["dev_param_elems"] = np.asarray(eng._dev_params.numel())
+    elif client is not None:
+        out["count"] = np.asarray(eng.optimizer._count)
     else:
         st = eng.state.opt_state
         for name, bufs in state_buffers(st).items():
@@ -299,20 +409,74 @@ def run_job(job, world, rank, params):
     np.savez(f"{job['out']}.rank{rank}.npz", **out)
 
 
+def spawn_forked(d, world, jobs, tag, params_path):
+    """``tests/test_torch_dp.py``'s ``spawn`` as one process whose ranks
+    are forked after the imports (``all``); returns ``[Popen]`` for its
+    ``wait``."""
+    store = os.path.join(str(d), f"store_{tag}")
+    spec = os.path.join(str(d), f"spec_{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(dict(world=world, store=store, params=params_path,
+                       jobs=jobs), f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), spec, "all"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)]
+
+
+def _fork_ranks(world):
+    """Fork ranks 1 .. world-1 off this process; returns this process's
+    rank and (rank 0) the children's pids."""
+    # (what the jobs import later, imported once here)
+    import torch.fx.experimental.symbolic_shapes  # noqa: F401
+    from deepspeed_tpu_torch.models import gpt2_pipe  # noqa: F401
+    from deepspeed_tpu_torch.runtime.pipe import engine  # noqa: F401
+    sys.stdout.flush()
+    pids = []
+    for r in range(1, world):
+        pid = os.fork()
+        if pid == 0:
+            return r, []
+        pids.append(pid)
+    return 0, pids
+
+
 def main():
-    spec_path, rank = sys.argv[1], int(sys.argv[2])
+    spec_path = sys.argv[1]
     with open(spec_path) as f:
         spec = json.load(f)
     world = int(spec["world"])
     torch.manual_seed(0)
     torch.set_num_threads(1)
+    if sys.argv[2] != "all":
+        return run_rank(spec, world, int(sys.argv[2]))
+    rank, pids = _fork_ranks(world)
+    try:
+        run_rank(spec, world, rank)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        if rank:
+            os._exit(1)
+        for pid in pids:
+            os.kill(pid, 9)
+        raise
+    if rank:
+        sys.stdout.flush()
+        os._exit(0)
+    failed = [pid for pid in pids if os.waitpid(pid, 0)[1] != 0]
+    assert not failed, f"{len(failed)} forked rank(s) failed"
+
+
+def run_rank(spec, world, rank):
     store = dist.FileStore(spec["store"], world)
     deepspeed_tpu_torch.init_distributed(
         dist_backend="gloo", store=store, world_size=world, rank=rank,
         verbose=False)
     params = load_params(spec["params"])
     for job in spec["jobs"]:
-        run_job(job, world, rank, params)
+        run_job(job, world, rank, load_params(job["params"])
+                if job.get("params") else params)
         dist.barrier()
     dist.destroy_process_group()
 
