@@ -363,6 +363,39 @@ Phases, in order; any failure exits non-zero (no phase's error is caught):
    (within max(10 x the dp-1 floor run's delta, 1e-6) of the dp-2
    reference, and within ELASTIC_MAX), and the job's first step at dp 1
    against dp 2.
+5m. ``train_parallel`` (after ``train_offload``, before ``launch``):
+   tensor and sequence parallelism on gpt2-small at full width, bf16,
+   two gloo ranks on the one card (``--parallel-rank R SPEC``, every
+   collective staged through host memory: the times are the host's).
+   The other kernels' new shapes join phase 3's checks at their limits
+   (K3f/K3b at train_tp's 4096 rows and a whole-prompt prefill's 1024,
+   K4f at F / 2 = 1536 columns for serve_tp's decode and prefill chunk
+   and train_tp's rows and at 1024 x 3072, K4b at 4096 x 1536, K10 on a
+   model rank's 6 heads at serve_tp's decode step and prefill chunk, K5
+   at a model rank's two groups, whose sizes the ranks' engines report
+   and the phase asserts). Here first the flash kernels at the new
+   shapes (``check_parallel_flash``): the ring's chunks (12 heads: K1
+   and K2c at train_sp's 2 x 512, K1 at serve_sp's prefill, 1 x 512; on
+   the diagonal causal, off it bidirectional) and train_tp's 4 x 1024
+   with dropout 0.1 (the 12-head launch and a model rank's 6 heads with
+   ``heads=(6, 12)``) against their plain versions, twice bit for bit;
+   the rank's K1 output and K2c grads bit-equal to those heads of the
+   12-head launch (mp 2 draws the masks of mp 1). Then in
+   the two ranks: ``train_tp`` (mp 2 x dp 1, 6 heads a rank, 12 layers,
+   micro-batch 4 x 1024, gas 2, dropout 0.1, 3 steps, the unfused Adam
+   JAX picks under ``param_shardings``), ``train_sp`` (sp 2, micro-batch
+   2 x 1024 in chunks of 512, dropout 0, 3 steps), ``serve_tp`` (mp 2:
+   8 requests, paged, block 16, chunked prefill 32, greedy) and
+   ``serve_sp`` (sp 2: the same 8 with whole-prompt prefill through the
+   ring). Asserted: step 1's loss and grad norm within the train path's
+   limits of the one-process engine on the same card, weights and batch;
+   both ranks' losses equal, their replicated leaves bit-equal; every
+   launch count at ``per_tp_step`` / ``per_sp_step`` /
+   ``serve_step_counts`` (written in PERF.md before the first run); the
+   served prefill and decode logits within LOGIT_TOL of the one-process
+   engine's, every pick within PICK_MARGIN_TOL of ``gpt2_apply``'s
+   argmax (``check_streams``). Printed: step p50, peak a rank,
+   all-reduce and ring bytes a step, TTFT and TPOT.
 6. The ``{"host_kernels": [...]}`` line (the host Adam), the
    ``{"optimizers": [...]}`` line (the matrix's and 1-bit Adam's steps:
    ms, bytes, bound, library yardstick), then the ``{"kernels": [...]}`` summary
@@ -459,6 +492,15 @@ TRAIN_ROWS = TRAIN_MICRO * TRAIN_SEQ
 # The pipeline path (train_pipe): a stage's micro-batch of 2 x 1024.
 PIPE_MICRO = 2
 PIPE_ROWS = PIPE_MICRO * TRAIN_SEQ
+# The parallel paths (train_parallel): two ranks; train_tp's micro-batch
+# of 4 x 1024 rows over a rank's F / 2 = 1536 FFN columns, train_sp's of
+# 2 x 1024 (PIPE_ROWS). A whole-prompt prefill (serve_sp's too) runs
+# max_seq_len = 1024 rows.
+PAR_WORLD, PAR_STEPS = 2, 3
+TP_MICRO, SP_MICRO = 4, 2
+TP_ROWS = TP_MICRO * TRAIN_SEQ
+TP_FFN = 3072 // PAR_WORLD
+PREFILL_ROWS = 1024
 TRAIN_STEPS = 30
 # The kernel-path training step against the plain-autograd step on the
 # card (bf16 compute, fp32 masters, same params, batch and dropout
@@ -727,13 +769,13 @@ def library_times(fn):
 
 
 def check_layer_norm(dev, gen):
-    """K3f without and with the residual at a decode step's 8 rows, 32,
-    the training path's 8192 and a pipeline stage's 2048 (H 768, bf16):
-    within 2 bf16 ulp of its
-    plain version, ``s`` bit-equal to ``x + d``, bit-equal across two
-    launches."""
+    """K3f without and with the residual at a decode step's 8 rows, a
+    prefill chunk's 32, the training path's 8192, a pipeline stage's and
+    train_sp's 2048, train_tp's 4096 and a whole-prompt prefill's 1024
+    (H 768, bf16): within 2 bf16 ulp of its plain version, ``s``
+    bit-equal to ``x + d``, bit-equal across two launches."""
     H, dt, out = 768, torch.bfloat16, []
-    for rows in (8, 32, TRAIN_ROWS, PIPE_ROWS):
+    for rows in (8, 32, TRAIN_ROWS, PIPE_ROWS, TP_ROWS, PREFILL_ROWS):
         x = torch.randn(rows, H, device=dev, generator=gen).to(dt)
         d = torch.randn(rows, H, device=dev, generator=gen).to(dt)
         sc = 1 + 0.1 * torch.randn(H, device=dev, generator=gen)
@@ -781,12 +823,21 @@ def check_layer_norm(dev, gen):
     return out
 
 
+# K4f's (rows, columns): decode, a prefill chunk, training, a pipeline
+# stage (and train_sp), a whole-prompt prefill at F 3072; a tensor-
+# parallel rank's F / 2 at serve_tp's decode and prefill chunk and at
+# train_tp's rows.
+GELU_SHAPES = ((8, 3072), (32, 3072), (TRAIN_ROWS, 3072), (PIPE_ROWS, 3072),
+               (PREFILL_ROWS, 3072), (8, TP_FFN), (32, TP_FFN),
+               (TP_ROWS, TP_FFN))
+
+
 def check_bias_gelu(dev, gen):
-    """K4f in the tanh form (the main path's first) and the erf form:
-    within 2 bf16 ulp of its plain version and bit-equal across two
-    launches."""
-    Fw, dt, out = 3072, torch.bfloat16, []
-    for rows in (8, 32, TRAIN_ROWS, PIPE_ROWS):
+    """K4f in the tanh form (the main path's first) and the erf form at
+    ``GELU_SHAPES``: within 2 bf16 ulp of its plain version and
+    bit-equal across two launches."""
+    dt, out = torch.bfloat16, []
+    for rows, Fw in GELU_SHAPES:
         y = (3 * torch.randn(rows, Fw, device=dev, generator=gen)).to(dt)
         b = torch.randn(Fw, device=dev, generator=gen)
         for exact in (False, True):
@@ -868,7 +919,9 @@ def _sdpa_inputs(q, pk, pv, bt, pos):
 
 def check_paged_attention(dev, gen):
     """K10 at decode, verify and chunked-prefill shapes and at the serving
-    smoke's own decode step (8 slots near context 128, J = 64). Times:
+    smoke's own decode step (8 slots near context 128, J = 64), 12 heads;
+    then serve_tp's decode step and prefill chunk on a model rank's 6
+    heads. Times:
     ``kernel_ms`` CUDA events around the Python loop of wrapper calls (as
     every kernel here; below the host's issue time it reads the host),
     ``device_ms`` the card's time per call (graph replay), ``cold_ms``
@@ -881,9 +934,13 @@ def check_paged_attention(dev, gen):
         "prefill": dict(contexts=[993], K=32),
         "serve_decode": dict(contexts=[128, 131, 126, 140, 120, 133, 129,
                                        127], K=1),
+        "tp_serve_decode": dict(contexts=[128, 131, 126, 140, 120, 133,
+                                          129, 127], K=1, nH=6),
+        "tp_prefill": dict(contexts=[65], K=32, nH=6),
     }
     out = []
     for name, spec in cases.items():
+        nH = spec.get("nH", 12)
         q, pk, pv, bt, pos, scale = _attn_case(dev, gen, **spec)
         o = pa.paged_attention(q, pk, pv, bt, pos, scale)
         ref = pa.paged_attention_plain(q, pk, pv, bt, pos, scale)
@@ -907,10 +964,10 @@ def check_paged_attention(dev, gen):
         G, Q, K = pos.shape
         rec = {"kernel": "paged_attention", "case": name,
                "shape": {"streams": len(spec["contexts"]), "K": spec["K"],
-                         "heads": 12, "head_dim": 64, "block_size": 16,
+                         "heads": nH, "head_dim": 64, "block_size": 16,
                          "contexts": spec["contexts"]},
                "dtype": "bf16",
-               "splits": pa.paged_splits(G * Q, 12, bt.shape[-1], K),
+               "splits": pa.paged_splits(G * Q, nH, bt.shape[-1], K),
                "kernel_ms": time_ms(kern),
                "device_ms": device_ms(kern), "cold_ms": cold_ms(kern),
                "plain_ms": time_ms(lambda: pa.paged_attention_plain(
@@ -1431,19 +1488,20 @@ def _check_layer_norm_backward_at(dev, gen, rows):
 
 
 def check_layer_norm_backward(dev, gen):
-    """K3b at the training path's rows, then the pipeline stages' (one
-    micro-batch of 2 x 1024): ``_check_layer_norm_backward_at``."""
-    return [r for rows in (TRAIN_ROWS, PIPE_ROWS)
+    """K3b at the training path's rows, then the pipeline stages' and
+    train_sp's (one micro-batch of 2 x 1024), then train_tp's (4 x
+    1024): ``_check_layer_norm_backward_at``."""
+    return [r for rows in (TRAIN_ROWS, PIPE_ROWS, TP_ROWS)
             for r in _check_layer_norm_backward_at(dev, gen, rows)]
 
 
-def _check_bias_gelu_backward_at(dev, gen, rows):
+def _check_bias_gelu_backward_at(dev, gen, rows, Fw=3072):
     """K4b in the tanh form (the main path's, first) and the erf form:
     dz within 2 bf16 ulp of its plain version, dbias within 1e-4
     relative, both bit-equal across two launches. The yardstick
     ``aten.gelu_backward`` computes dz alone (no dbias) from a z = y + b
     made outside its timing."""
-    Fw, dt, out = 3072, torch.bfloat16, []
+    dt, out = torch.bfloat16, []
     y = (3 * torch.randn(rows, Fw, device=dev, generator=gen)).to(dt)
     b = torch.randn(Fw, device=dev, generator=gen)
     g = torch.randn(rows, Fw, device=dev, generator=gen).to(dt)
@@ -1484,10 +1542,12 @@ def _check_bias_gelu_backward_at(dev, gen, rows):
 
 
 def check_bias_gelu_backward(dev, gen):
-    """K4b at the training path's rows, then the pipeline stages'
+    """K4b at the training path's rows, then the pipeline stages' and
+    train_sp's, then train_tp's over a rank's F / 2 columns
     (``_check_bias_gelu_backward_at``)."""
-    return [r for rows in (TRAIN_ROWS, PIPE_ROWS)
-            for r in _check_bias_gelu_backward_at(dev, gen, rows)]
+    return [r for rows, Fw in ((TRAIN_ROWS, 3072), (PIPE_ROWS, 3072),
+                               (TP_ROWS, TP_FFN))
+            for r in _check_bias_gelu_backward_at(dev, gen, rows, Fw)]
 
 
 def check_sqnorm(dev, gen, n):
@@ -1579,6 +1639,21 @@ def gpt2_leaf_sizes(cfg):
     master group), from an init on the meta device."""
     params = gpt2_init(cfg, torch.Generator().manual_seed(0), "meta")
     return [t.numel() for t in tree_flatten(params)[0]]
+
+
+def tp_group_sizes(cfg):
+    """train_tp's two K5 groups on a model rank (the engine's flat
+    groups at mp 2): its parts of the leaves ``gpt2_param_shardings``
+    splits, and the leaves whole on every rank."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_param_shardings
+    from deepspeed_tpu_torch.parallel import tensor_parallel as tpm
+    params = gpt2_init(cfg, torch.Generator().manual_seed(0), "meta")
+    shapes = [tuple(t.shape) for t in tree_flatten(params)[0]]
+    axes = tpm.shard_axes(shapes, tpm.spec_leaves(
+        gpt2_param_shardings(cfg), params), PAR_WORLD)
+    split = sum(math.prod(x) for x, a in zip(shapes, axes) if a is not None)
+    whole = sum(math.prod(x) for x, a in zip(shapes, axes) if a is None)
+    return [split // PAR_WORLD, whole]
 
 
 def check_fused_adam_sharded(dev, gen, sizes):
@@ -7014,6 +7089,440 @@ time.sleep(300)   # only the launcher's kill ends it
 """
 
 
+# --------------------------------------------------------------------- #
+# Tensor and sequence parallelism (train_tp, train_sp, serve_tp/sp)
+# --------------------------------------------------------------------- #
+PAR_REQUESTS = 8
+RING_CHUNK = TRAIN_SEQ // PAR_WORLD
+
+
+def tp_config(micro):
+    """The train path's recipe with the unfused Adam (what JAX steps
+    under ``param_shardings``)."""
+    ds = train_config("bf16", PAR_STEPS, micro=micro)
+    ds["optimizer"]["params"]["fused"] = False
+    return ds
+
+
+def per_tp_step(cfg, rank, gas=TRAIN_GAS):
+    """Launches of one mp-2 train step on model rank ``rank``: the one-
+    card step's model kernels on the rank's heads and columns, K5 once
+    for the split group and on rank 0 once more for the whole one (the
+    norm counts a group whole on every rank once), no K6 (the unfused
+    Adam)."""
+    c = per_train_step(cfg, TRAIN_SEQ, gas)
+    c.update(sqnorm=1 + int(rank == 0), fused_adam_apply=0)
+    return c
+
+
+def per_sp_step(cfg, rank, gas=TRAIN_GAS):
+    """Launches of one sp-2 train step on sequence rank ``rank``: each
+    ring call runs K1 and K2c on the chunks at or before the rank's
+    (``ring_launches``); the rest of the block is the one-card step's."""
+    from deepspeed_tpu_torch.ops.ring_attention import ring_launches
+    L, hops = cfg.num_layers, ring_launches(PAR_WORLD, True)[rank]
+    c = per_train_step(cfg, TRAIN_SEQ, gas)
+    c.update(flash_attention_fwd=gas * L * hops,
+             flash_attention_bwd_fused=gas * L * hops)
+    return c
+
+
+def check_parallel_flash(dev, gen):
+    """K1 and K2c at the parallel paths' shapes (module docstring,
+    5m): the ring's chunks (train_sp's 2 x 512, forward and backward;
+    serve_sp's whole-prompt prefill, 1 x 512, forward) against the plain
+    chunk functions; train_tp's 4 x 1024 with dropout 0.1, the whole 12
+    heads and a model rank's 6 (the hash at their global index) against
+    the plain functions, and the rank's launch bit-equal to the whole
+    launch's at its heads."""
+    D, dt, out = 64, torch.bfloat16, []
+    scale = D ** -0.5
+    seed = torch.tensor(FLASH_SEED, dtype=torch.int32, device=dev)
+    nH = 12
+    for case, B, causal, backward in (
+            ("ring_diagonal", SP_MICRO, True, True),
+            ("ring_off_diagonal", SP_MICRO, False, True),
+            ("ring_prefill_diagonal", 1, True, False),
+            ("ring_prefill_off_diagonal", 1, False, False)):
+        S = RING_CHUNK
+        q, k, v, do = (torch.randn(B, S, nH, D, device=dev, generator=gen)
+                       .to(dt) for _ in range(4))
+        pairs = costs.causal_pairs(B, nH, S, causal)
+        fwd_c = costs.flash_fwd_cost(B, S, nH, D, pairs)
+        bwd_c = costs.flash_bwd_fused_cost(B, S, nH, D, pairs)
+        fwd = lambda: fa.flash_attention_fwd(q, k, v, causal,  # noqa: E731
+                                             scale)
+        o, lse = fwd()
+        with torch.no_grad():
+            out.append(_flash_record(
+                "flash_attention_fwd", case, B, S, 0.0, (o, lse),
+                fa.flash_fwd_plain(q, k, v, causal, scale), fwd(),
+                fwd_c.bytes, fwd_c.flops, fwd,
+                lambda: fa.flash_fwd_plain(q, k, v, causal, scale), None,
+                None, causal=causal))
+        if not backward:
+            continue
+        delta = fa.flash_delta(do, o)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        kern = lambda: fa.flash_attention_bwd_fused(*args)  # noqa: E731
+        out.append(_flash_record(
+            "flash_attention_bwd_fused", case, B, S, 0.0, kern(),
+            fa.flash_bwd_plain(*args), kern(), bwd_c.bytes, bwd_c.flops,
+            kern, lambda: fa.flash_bwd_plain(*args), None, None,
+            causal=causal, device=True))
+    # train_tp's attention: the whole launch and a model rank's 6 of 12
+    # heads, dropout 0.1, the hash at their global index.
+    B, S, drop = TP_MICRO, TRAIN_SEQ, 0.1
+    q, k, v, do = (torch.randn(B, S, nH, D, device=dev, generator=gen)
+                   .to(dt) for _ in range(4))
+    h = slice(6, 12)
+    part = [t[:, :, h].contiguous() for t in (q, k, v, do)]
+    launches = {}
+    for case, (tq, tk, tv, tdo), heads in (
+            ("train_tp_whole", (q, k, v, do), None),
+            ("train_tp_rank", part, (6, 12))):
+        n = tq.shape[2]
+        pairs = costs.causal_pairs(B, n, S, True)
+        fwd_c = costs.flash_fwd_cost(B, S, n, D, pairs)
+        bwd_c = costs.flash_bwd_fused_cost(B, S, n, D, pairs)
+        fwd = lambda: fa.flash_attention_fwd(  # noqa: E731
+            tq, tk, tv, True, scale, drop, seed, heads=heads)
+        fwd_plain = lambda: fa.flash_fwd_plain(  # noqa: E731
+            tq, tk, tv, True, scale, drop, seed, heads=heads)
+        o, lse = fwd()
+        with torch.no_grad():
+            out.append(_flash_record(
+                "flash_attention_fwd", case, B, S, drop, (o, lse),
+                fwd_plain(), fwd(), fwd_c.bytes, fwd_c.flops, fwd,
+                fwd_plain, None, None, heads=n,
+                hash_heads=None if heads is None else list(heads)))
+        args = (tq, tk, tv, tdo, lse, fa.flash_delta(tdo, o), True, scale,
+                drop, seed)
+        kern = lambda: fa.flash_attention_bwd_fused(  # noqa: E731
+            *args, heads=heads)
+        plain = lambda: fa.flash_bwd_plain(*args, heads=heads)  # noqa: E731
+        grads = kern()
+        out.append(_flash_record(
+            "flash_attention_bwd_fused", case, B, S, drop, grads, plain(),
+            kern(), bwd_c.bytes, bwd_c.flops, kern, plain, None, None,
+            device=True, heads=n,
+            hash_heads=None if heads is None else list(heads)))
+        launches[case] = (o, grads)
+    (o, whole), (op, gp) = launches["train_tp_whole"], \
+        launches["train_tp_rank"]
+    same = torch.equal(op, o[:, :, h]) and all(
+        torch.equal(a, b[:, :, h]) for a, b in zip(gp, whole))
+    assert same, "a model rank's heads differ from a whole launch's"
+    emit({"tp_heads_hash": {"shape": [B, S, 6, D], "of_heads": nH,
+                            "dropout": drop,
+                            "bit_equal_to_whole_launch": same}})
+    return out
+
+
+def _count_all_reduce():
+    """Count the bytes ``comm.all_reduce`` moves (the TP operators', the
+    vocab head's and the norm's all-reduces): returns the counter."""
+    from deepspeed_tpu_torch.parallel import comm
+    counter = {"bytes": 0}
+    inner = comm.all_reduce
+
+    def counted(x, group=None, op="sum"):
+        counter["bytes"] += x.numel() * x.element_size()
+        return inner(x, group=group, op=op)
+    comm.all_reduce = counted
+    return counter
+
+
+def _count_ring():
+    """Count the bytes the ring's hops send (``comm.ring_exchange``)."""
+    from deepspeed_tpu_torch.parallel import comm
+    counter = {"bytes": 0}
+    inner = comm.ring_exchange
+
+    def counted(tensors, group):
+        counter["bytes"] += sum(t.numel() * t.element_size()
+                                for t in tensors)
+        return inner(tensors, group)
+    comm.ring_exchange = counted
+    return counter
+
+
+def _par_train(eng, batches, counter):
+    """One parallel training path: launches, step ms, peak, bytes a
+    step, and the digest of the rank's leaves whole on every model
+    rank."""
+    import hashlib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counter["bytes"] = 0
+    losses, metrics, ms, counts = run_path(eng, batches)
+    moved = counter["bytes"]
+    digest = hashlib.sha256()
+    axes = eng._tp_axes or [None] * len(eng._leaf_shapes)
+    for t, a in zip(tree_flatten(eng.state.params)[0], axes):
+        if a is None:
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+    return {"losses": losses, "ms": ms, "counts": counts,
+            "group_sizes": [g.param.numel() for g in eng._groups],
+            "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "bytes_per_step": moved / len(batches),
+            "replicated_sha256": digest.hexdigest()}
+
+
+def _par_serve(eng, cfg, tmp, name, rank):
+    """One parallel serve: the 8 requests (counts around it), then the
+    100-token prompt's prefill logits and one decode step's (saved)."""
+    warm_serve(eng, cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = eng.serve(serve_requests(cfg, PAR_REQUESTS))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    prompt = serve_prompt(cfg)
+    (tok, logits), prefill = one_step(lambda: eng.prefill(
+        prompt, slot=0, return_logits=True, max_new_tokens=4))
+    eng.activate_slot(0, len(prompt), tok)
+    (_, dlog), decode = one_step(lambda: eng.decode_once(
+        return_logits=True))
+    eng.release_slot(0)
+    np.save(os.path.join(tmp, f"{name}_logits{rank}.npy"),
+            np.stack([logits, np.asarray(dlog)[0]]))
+    return {"counts": counts, "prefill_counts": prefill,
+            "decode_counts": decode, "completed": rep["completed"],
+            "ttft_ms_p50": rep["ttft_ms"]["p50"],
+            "tpot_ms_p50": rep["tpot_ms"]["p50"],
+            "tokens_per_s": rep["tokens_per_s"],
+            "tokens": [r["tokens"] for r in rep["requests"]]}
+
+
+def parallel_rank(rank, spec_path):
+    """One rank of ``train_parallel``: gloo on the shared card, the four
+    paths in turn (each on its own grid), results to a JSON file."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_param_shardings
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention_fn
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    deepspeed_tpu_torch.init_distributed(
+        dist_backend="gloo", store=dist.FileStore(spec["store"], PAR_WORLD),
+        world_size=PAR_WORLD, rank=rank, verbose=False)
+    op_builder.load()
+    reduced, ringed = _count_all_reduce(), _count_ring()
+    out = {}
+    dev = torch.device("cuda")
+
+    def params_of(cfg):
+        return gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+
+    cfg = GPT2_CONFIGS["gpt2-small"]          # dropout 0.1
+    grid = build_mesh(mp=PAR_WORLD)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg), model_params=params_of(cfg),
+        config=tp_config(TP_MICRO), rng=SEED, mesh=grid,
+        param_shardings=gpt2_param_shardings(cfg))
+    batches = [torch.from_numpy(b) for b in np.load(spec["tp_batches"])]
+    out["train_tp"] = _par_train(eng, batches, reduced)
+    del eng
+    free_card()
+    cfg = _zero_cfg()                          # (the ring: dropout 0)
+    grid = build_mesh(sp=PAR_WORLD)
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2_loss_fn(cfg, attention_fn=ring_attention_fn(grid)),
+        model_params=params_of(cfg),
+        config=train_config("bf16", PAR_STEPS, micro=SP_MICRO), rng=SEED,
+        mesh=grid)
+    batches = [torch.from_numpy(b) for b in np.load(spec["sp_batches"])]
+    out["train_sp"] = _par_train(eng, batches, ringed)
+    del eng
+    free_card()
+    cfg = GPT2_CONFIGS["gpt2-small"]
+    params = params_of(cfg)
+    eng = InferenceEngine(cfg, params, {"inference": SERVE_BASE},
+                          mesh=build_mesh(mp=PAR_WORLD),
+                          param_shardings=gpt2_param_shardings(cfg))
+    out["serve_tp"] = _par_serve(eng, cfg, spec["tmp"], "serve_tp", rank)
+    del eng
+    free_card()
+    eng = InferenceEngine(cfg, params, {"inference": dict(
+        SERVE_BASE, prefill_chunk=0)}, mesh=build_mesh(sp=PAR_WORLD))
+    out["serve_sp"] = _par_serve(eng, cfg, spec["tmp"], "serve_sp", rank)
+    del eng, params
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_parallel(dev, smi, gen):
+    """Tensor and sequence parallelism on the card (module docstring,
+    5m). Returns the launch counts by path and the kernel records."""
+    recs = check_parallel_flash(dev, gen)
+    tp_cfg, sp_cfg = GPT2_CONFIGS["gpt2-small"], _zero_cfg()
+    tp_batches = token_stream(tp_cfg, PAR_STEPS, seed=SEED + 21,
+                              micro=TP_MICRO)
+    sp_batches = token_stream(sp_cfg, PAR_STEPS, seed=SEED + 23,
+                              micro=SP_MICRO)
+    # The one-process references on the same card, weights and batch.
+    free_card()
+    ref = {}
+    for name, cfg, micro, b, fused in (
+            ("train_tp", tp_cfg, TP_MICRO, tp_batches, False),
+            ("train_sp", sp_cfg, SP_MICRO, sp_batches, True)):
+        opt = train_config("bf16", PAR_STEPS, micro)["optimizer"]
+        opt["params"]["fused"] = fused
+        eng = make_engine(cfg, "bf16", micro=micro,
+                          extra={"optimizer": opt})
+        ref[name] = (float(eng.train_batch(b[0])),
+                     float(eng.last_metrics["grad_norm"]))
+        del eng
+        free_card()
+    cfg = tp_cfg
+    params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    ref_reports, ref_logits = {}, {}
+    for name, inf in (("serve_tp", SERVE_BASE),
+                      ("serve_sp", dict(SERVE_BASE, prefill_chunk=0))):
+        eng = InferenceEngine(cfg, params, {"inference": inf})
+        warm_serve(eng, cfg)
+        ref_reports[name] = eng.serve(serve_requests(cfg, PAR_REQUESTS))
+        prompt = serve_prompt(cfg)
+        tok, logits = eng.prefill(prompt, slot=0, return_logits=True,
+                                  max_new_tokens=4)
+        eng.activate_slot(0, len(prompt), tok)
+        _, dlog = eng.decode_once(return_logits=True)
+        ref_logits[name] = np.stack([logits, np.asarray(dlog)[0]])
+        del eng
+        free_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        spec = {"store": os.path.join(tmp, "store"), "tmp": tmp,
+                "tp_batches": os.path.join(tmp, "tp.npy"),
+                "sp_batches": os.path.join(tmp, "sp.npy"),
+                "out": os.path.join(tmp, "rank{rank}.json")}
+        np.save(spec["tp_batches"], np.stack([b.numpy()
+                                              for b in tp_batches]))
+        np.save(spec["sp_batches"], np.stack([b.numpy()
+                                              for b in sp_batches]))
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        rcs, texts = _children("--parallel-rank", PAR_WORLD, spec_path,
+                               tmp, "rank")
+        wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(zip(rcs, texts)):
+            assert rc == 0, f"train_parallel rank {r} failed:\n" + \
+                text[-6000:]
+        res = []
+        for r in range(PAR_WORLD):
+            with open(spec["out"].format(rank=r)) as f:
+                res.append(json.load(f))
+        logits = {name: [np.load(os.path.join(tmp, f"{name}_logits{r}.npy"))
+                         for r in range(PAR_WORLD)]
+                  for name in ("serve_tp", "serve_sp")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    note = ("two ranks share one card through gloo, which stages every "
+            "collective and ring hop through host memory: the step times "
+            "are the host's, not NVLink's")
+    counts = {}
+    for name, per in (("train_tp", per_tp_step), ("train_sp", per_sp_step)):
+        st = [x[name] for x in res]
+        cfg, micro = (tp_cfg, TP_MICRO) if name == "train_tp" else \
+            (sp_cfg, SP_MICRO)
+        assert st[0]["losses"] == st[1]["losses"], name
+        assert all(math.isfinite(l) for l in st[0]["losses"]), name
+        assert st[0]["replicated_sha256"] == st[1]["replicated_sha256"], \
+            (name, "the ranks' replicated leaves differ")
+        loss0, norm0 = ref[name]
+        rel = abs(st[0]["losses"][0] - loss0) / abs(loss0)
+        nrel = abs(st[0]["grad_norms"][0] - norm0) / abs(norm0)
+        assert rel <= TRAIN_LOSS_RTOL, (name, rel)
+        assert nrel <= TRAIN_GRAD_NORM_RTOL, (name, nrel)
+        ranks = []
+        for r, x in enumerate(st):
+            want = {k: PAR_STEPS * v for k, v in per(cfg, r).items()}
+            assert x["counts"] == want, (name, r, x["counts"], want)
+            if name == "train_tp":
+                # (K5 ran at the group sizes check_sqnorm held)
+                assert x["group_sizes"] == tp_group_sizes(cfg), \
+                    (r, x["group_sizes"], tp_group_sizes(cfg))
+            counts[f"{name}_r{r}"] = x["counts"]
+            ranks.append({"rank": r,
+                          "step_ms_p50": float(np.median(x["ms"][1:])),
+                          "step_ms": x["ms"], "peak_gb": x["peak_bytes"] / 1e9,
+                          ("all_reduce_bytes_per_step" if name == "train_tp"
+                           else "ring_bytes_per_step"): x["bytes_per_step"],
+                          "launches_per_step": {
+                              k: v // PAR_STEPS for k, v in
+                              x["counts"].items() if v}})
+        emit({name: {"card": smi, "model": "gpt2-small", "world": PAR_WORLD,
+                     "mp" if name == "train_tp" else "sp": PAR_WORLD,
+                     "micro_batch": f"{micro} x {TRAIN_SEQ}",
+                     "gas": TRAIN_GAS, "steps": PAR_STEPS,
+                     "dropout": cfg.hidden_dropout,
+                     "losses": st[0]["losses"],
+                     "grad_norms": st[0]["grad_norms"],
+                     "first_loss_world1": loss0,
+                     "first_grad_norm_world1": norm0,
+                     "first_loss_rel": rel, "first_grad_norm_rel": nrel,
+                     "loss_rtol": TRAIN_LOSS_RTOL,
+                     "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
+                     "replicated_bit_equal": True, "ranks": ranks,
+                     "wall_s": wall, "note": note}})
+    L = tp_cfg.num_layers
+    for name in ("serve_tp", "serve_sp"):
+        st = [x[name] for x in res]
+        ring = name == "serve_sp"
+        for r, x in enumerate(st):
+            assert x["completed"] == PAR_REQUESTS, (name, r)
+            # a whole-prompt prefill: K1 over the chunks at or before
+            # the rank's, a layer
+            want_prefill = serve_step_counts(L, 1, "flash_attention_fwd") \
+                if ring else serve_step_counts(L, 2)
+            if ring:
+                want_prefill["flash_attention_fwd"] = L * (r + 1)
+            assert x["prefill_counts"] == want_prefill, \
+                (name, r, x["prefill_counts"], want_prefill)
+            assert x["decode_counts"] == serve_step_counts(L, 1), \
+                (name, r, x["decode_counts"])
+            assert all(x["counts"][k] > 0 for k in SERVE_KERNELS), \
+                (name, r, x["counts"])
+            counts[f"{name}_r{r}"] = x["counts"]
+            err = float(np.abs(logits[name][r] - ref_logits[name]).max())
+            assert err <= LOGIT_TOL, (name, r, err)
+        assert st[0]["tokens"] == st[1]["tokens"], name
+        reqs = serve_requests(tp_cfg, PAR_REQUESTS)
+        rep = {"requests": [{"rid": q.rid, "tokens": t} for q, t in
+                            zip(reqs, st[0]["tokens"])]}
+        check_streams(tp_cfg, params, dev, reqs,
+                      {0: ref_reports[name], name: rep}, label=name)
+        equal = sum(a["tokens"] == b for a, b in
+                    zip(ref_reports[name]["requests"], st[0]["tokens"]))
+        emit({name: {"card": smi, "model": "gpt2-small", "world": PAR_WORLD,
+                     "requests": PAR_REQUESTS,
+                     "streams_equal_one_process": f"{equal}/{PAR_REQUESTS}",
+                     "logits_max_abs_err": [float(np.abs(
+                         lg - ref_logits[name]).max()) for lg in
+                         logits[name]],
+                     "logit_tol": LOGIT_TOL,
+                     "ranks": [{"rank": r, "ttft_ms_p50": x["ttft_ms_p50"],
+                                "tpot_ms_p50": x["tpot_ms_p50"],
+                                "tokens_per_s": x["tokens_per_s"],
+                                "launches": x["counts"]}
+                               for r, x in enumerate(st)],
+                     "one_process": {
+                         "ttft_ms_p50": ref_reports[name]["ttft_ms"]["p50"],
+                         "tpot_ms_p50": ref_reports[name]["tpot_ms"]["p50"]},
+                     "note": note}})
+    del params
+    free_card()
+    return counts, recs
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -7274,6 +7783,8 @@ def main():
     ln_bwd = check_layer_norm_backward(dev, gen)
     gelu_bwd = check_bias_gelu_backward(dev, gen)
     sq = check_sqnorm(dev, gen, n_params)
+    sq += [r for n in tp_group_sizes(GPT2_CONFIGS["gpt2-small"])
+           for r in check_sqnorm(dev, gen, n)]
     adam = check_fused_adam(dev, gen, n_params)
     sq_shard, adam_shard = check_fused_adam_sharded(
         dev, gen, gpt2_leaf_sizes(GPT2_CONFIGS["gpt2-small"]))
@@ -7316,6 +7827,9 @@ def main():
     offload_counts, host_counts = train_offload(dev, smi, host_adam)
     counts.update(offload_counts)
     host_counts.update(zero_host_counts)
+    par_counts, par_flash = train_parallel(dev, smi, gen)
+    counts.update(par_counts)
+    flash += par_flash
     counts.update(launch_phase(smi))
     reg_dir.cleanup()
 
@@ -7450,6 +7964,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--train-pipe-rank":
         train_pipe_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        parallel_rank(int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "--train-dp3-rank":
         train_zero_dp3_rank(int(sys.argv[2]), sys.argv[3])

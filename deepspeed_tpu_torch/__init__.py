@@ -55,7 +55,8 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None, rng=None, device=None,
-               zero3_scan=None, sparse_grad_filter=None):
+               zero3_scan=None, sparse_grad_filter=None,
+               param_shardings=None, mesh=None):
     """Build the training engine (the JAX ``initialize``, non-pipeline
     branch). ``model`` is ``loss_fn(params, batch, rng)`` (for GPT-2,
     ``models.gpt2.gpt2_loss_fn(cfg)``) and ``model_params`` its param
@@ -72,6 +73,16 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
     model's loss was built with (``gpt2_loss_fn(cfg, zero3=spec)``); a
     stage-3 engine at dp > 1 binds it, and the model's layers then run
     as the per-layer prefetched scan.
+
+    Tensor and sequence parallelism (as in JAX): ``mesh`` is a grid of
+    ``parallel.topology.build_mesh(mp=, sp=)`` (every rank builds it),
+    else the ds_config's ``mesh`` block builds one; the world splits as
+    dp x sp x mp. ``param_shardings`` (a tree of ``parallel.topology.P``
+    specs, e.g. ``models.gpt2.gpt2_param_shardings(cfg)``) places each
+    leaf: each rank holds its part of the leaves split over the model
+    axis. Sequence parallelism runs through the model's attention:
+    ``gpt2_loss_fn(cfg, attention_fn=ops.ring_attention.
+    ring_attention_fn(mesh))``.
 
     A ``models.gpt2_pipe.PipeSpec`` or a ``runtime.pipe.module.
     PipelineModule`` builds the ``PipelineEngine`` (the JAX dispatch):
@@ -96,6 +107,9 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
         if zero3_scan is not None or sparse_grad_filter is not None:
             raise ValueError("zero3_scan and sparse_grad_filter do not "
                              "compose with the pipeline engine")
+        if param_shardings is not None or mesh is not None:
+            from .parallel.topology import PP_MP_UNPORTED
+            raise NotImplementedError(PP_MP_UNPORTED)
         pipe_mpu = mpu
         if pipe_mpu is None and isinstance(model, PipelineModule):
             pipe_mpu = model.mpu()
@@ -116,7 +130,8 @@ def initialize(args=None, model=None, optimizer=None, model_params=None,
                              collate_fn=collate_fn, config=cfg, rng=rng,
                              device=device,
                              sparse_grad_filter=sparse_grad_filter,
-                             zero3_scan=zero3_scan)
+                             zero3_scan=zero3_scan,
+                             param_shardings=param_shardings, mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

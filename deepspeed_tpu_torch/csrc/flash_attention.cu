@@ -18,7 +18,9 @@
 // (b, s, n, d) sits at b*sB + s*sS + n*sH + d; all three share the
 // strides. o, dout, dq, dk, dv are contiguous [B, S, nH, D]; lse and
 // delta are fp32 [B*nH, S]. The dropout hash's head index is
-// bh = b*nH + n, the JAX package's _to_bh order.
+// bh = b*nH + n, the JAX package's _to_bh order; under tensor
+// parallelism a rank's heads hash at their index among all heads
+// (hash_nH heads, the rank's first at hash_h0).
 //
 // Bound on an H100. The work is the two (forward) or five (fused
 // backward) matrix products over the (q, k) pairs the causal rule keeps,
@@ -259,10 +261,12 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* seed,
                               const void* layout, int lay_nb, int lay_block,
                               int B, int nH, int S, int D, float scale, float rate,
-                              float inv_keep, int causal, int dtype,
-                              void* stream) {
+                              float inv_keep, int causal, int hash_nH,
+                              int hash_h0, int dtype, void* stream) {
   Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
                      nH, S, D, scale, rate, inv_keep, causal);
+  a.hash_nH = hash_nH;
+  a.hash_h0 = hash_h0;
   a.o = o;
   a.lse = static_cast<float*>(lse);
   return dispatch(kFwd, a, B, dtype, stream);
@@ -276,10 +280,12 @@ extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int lay_nb, int lay_block, int B, int nH,
                                  int S,
                                  int D, float scale, float rate,
-                                 float inv_keep, int causal, int dtype,
-                                 void* stream) {
+                                 float inv_keep, int causal, int hash_nH,
+                                 int hash_h0, int dtype, void* stream) {
   Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
                      nH, S, D, scale, rate, inv_keep, causal);
+  a.hash_nH = hash_nH;
+  a.hash_h0 = hash_h0;
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);
@@ -295,9 +301,12 @@ extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k,
                                   const void* layout, int lay_nb,
                                   int lay_block, int B, int nH, int S, int D, float scale,
                                   float rate, float inv_keep, int causal,
-                                  int dtype, void* stream) {
+                                  int hash_nH, int hash_h0, int dtype,
+                                  void* stream) {
   Args a = make_args(q, k, v, sB, sS, sH, seed, layout, lay_nb, lay_block,
                      nH, S, D, scale, rate, inv_keep, causal);
+  a.hash_nH = hash_nH;
+  a.hash_h0 = hash_h0;
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);
@@ -314,9 +323,12 @@ extern "C" int dstt_flash_bwd_fused(const void* q, const void* k,
                                     void* dv, const void* seed,
                                     int B, int nH, int S, int D, float scale,
                                     float rate, float inv_keep, int causal,
-                                    int dtype, void* stream) {
+                                    int hash_nH, int hash_h0, int dtype,
+                                    void* stream) {
   Args a = make_args(q, k, v, sB, sS, sH, seed, nullptr, 0, 0, nH, S, D,
                      scale, rate, inv_keep, causal);
+  a.hash_nH = hash_nH;
+  a.hash_h0 = hash_h0;
   a.dout = dout;
   a.lse = const_cast<float*>(static_cast<const float*>(lse));
   a.delta = static_cast<const float*>(delta);

@@ -190,6 +190,10 @@ struct Args {
   int nH, S, D;
   float scale, rate, inv_keep;
   int causal;
+  // The dropout hash's head count and first head (tensor parallelism: a
+  // rank's heads hash at their index among all heads); hash_nH 0 = this
+  // launch's heads, bh = b*nH + n.
+  int hash_nH, hash_h0;
 };
 
 // Offsets of one (b, n) head: strided q/k/v, contiguous [B, S, nH, D].
@@ -229,7 +233,9 @@ struct HeadPtrs {
     lse = a.lse + static_cast<long long>(bh) * a.S;
     delta = a.delta ? a.delta + static_cast<long long>(bh) * a.S : nullptr;
     drop = a.rate > 0.f;
-    stream = hash_stream(a.seed, bh, drop);
+    const int hb = a.hash_nH > 0
+        ? (bh / a.nH) * a.hash_nH + a.hash_h0 + bh % a.nH : bh;
+    stream = hash_stream(a.seed, hb, drop);
     keep_min = keep_threshold(a.rate);
   }
 };

@@ -50,7 +50,20 @@ iterations (``decode_once`` and ``spec_decode_once`` tick it first), and
 the report boundary ingests it into the ``profile`` event
 (monitor/profile_ingest.py).
 
-Not ported: dp/mp serving meshes and TP-sharded tags (queue 1 item 7).
+Tensor and sequence parallelism (``mesh=`` a ``parallel.topology.
+build_mesh`` grid, or the config's ``mesh`` block; ``param_shardings``,
+e.g. ``gpt2_param_shardings(cfg)``): at mp N x dp 1 each of N processes
+holds its parts of the weights and its heads' K/V pools
+(``inference/decode.py``); every rank runs the same scheduler on the
+same request stream, the host deciding admission, blocks and sampling
+(the ranks' generators draw in step), so the ranks stay in step and rank
+0 reports. At sp > 1 the whole-prompt prefill (``prefill_chunk: 0``)
+runs the ring (``ops/ring_attention.py``) and decode stays replicated
+over sp.
+
+Not ported: dp > 1 serving meshes (ROADMAP queue 1 item 7). Not
+planned: serving a tensor-parallel training tag through
+``from_train_checkpoint`` (the JAX engine refuses it too).
 Not planned: ``lint_audit``, which lints XLA's jaxpr and optimized HLO;
 the port has neither.
 ``paged_kernel: false`` and
@@ -59,6 +72,8 @@ its kernels.
 """
 from __future__ import annotations
 
+import functools
+import json
 import os
 import time
 import weakref
@@ -72,13 +87,17 @@ from . import kv_cache
 from .quantize import (dequantize, is_quantized_leaf, quantize_params,
                        quantized_bytes, resolve_kv_dtype)
 from .spec import NGramDrafter
-from ..models.gpt2 import GPT2Config, gpt2_init
+from ..models.gpt2 import (VOCAB_LEAVES, GPT2Config, gpt2_init,
+                           gpt2_param_shardings)
+from ..models.transformer import QKV_LEAVES
 from ..monitor.memory import analytic_state_bytes
 from ..monitor.serving import ServingAggregator
 from ..monitor.serving_slo import ServingGoodputLedger, SLOTracker
 from ..monitor.telemetry import Telemetry
 from ..ops import paged_attention as paged_attn_ops
-from ..runtime.config import InferenceConfig, TelemetryConfig
+from ..parallel import tensor_parallel as tpm
+from ..parallel.topology import build_mesh
+from ..runtime.config import InferenceConfig, MeshConfig, TelemetryConfig
 from ..runtime.config_utils import load_config_json
 from ..runtime.flax_msgpack import msgpack_restore
 from ..utils.device import resolve_device
@@ -136,12 +155,14 @@ def prepare_params(params: Dict[str, Any], dtype: torch.dtype,
 
 
 class InferenceEngine:
-    """Batched autoregressive serving on one device."""
+    """Batched autoregressive serving on one device, or one process a
+    rank of a tensor/sequence-parallel grid."""
 
     def __init__(self, model_cfg: GPT2Config, params: Dict[str, Any],
                  config: Union[None, str, Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 17):
+                 seed: int = 17, param_shardings: Any = None,
+                 mesh: Any = None):
         if isinstance(config, str):
             config = load_config_json(config)
         config = dict(config or {})
@@ -149,6 +170,19 @@ class InferenceEngine:
         self.icfg = InferenceConfig(config)
         self.device = resolve_device(device)
         on_cuda = self.device.type == "cuda"
+        self.grid = mesh
+        if mesh is None:
+            mc = MeshConfig(config)
+            if mc.model_parallel_size > 1 or mc.sequence_parallel_size > 1:
+                self.grid = build_mesh(mp=mc.model_parallel_size,
+                                       sp=mc.sequence_parallel_size)
+        self.sp = 1 if self.grid is None else \
+            int(self.grid.seq_parallel_size)
+        if self.grid is not None and self.grid.data_parallel_size > 1:
+            raise NotImplementedError(
+                f"a serving mesh with dp {self.grid.data_parallel_size} > "
+                "1 (slot groups spread over dp processes under one "
+                "scheduler) is not ported yet (ROADMAP queue 1 item 7)")
 
         # --- static serving geometry ---
         self.max_slots = int(self.icfg.max_slots)
@@ -164,6 +198,11 @@ class InferenceEngine:
                 f"inference.prefill_chunk={self.prefill_chunk} must divide "
                 f"the cache capacity ({self.max_len}) — padded prompts "
                 "would otherwise overrun the slot")
+        if self.prefill_chunk == 0 and self.sp > 1 \
+                and self.max_len % self.sp:
+            raise ValueError(
+                f"whole-prompt prefill with a seq axis needs max_seq_len "
+                f"({self.max_len}) divisible by sp={self.sp}")
         self.block_size = int(self.icfg.block_size)
         self.paged = self.block_size > 0
         if self.paged and self.max_len % self.block_size:
@@ -193,6 +232,19 @@ class InferenceEngine:
         # device, then the serving copy ---
         self.quantize = self.icfg.quantize
         self.seed = int(seed)
+        if self.quantize != "none" and param_shardings is not None:
+            raise NotImplementedError(
+                "inference.quantize does not compose with tensor-parallel "
+                "param_shardings yet (quantized leaves change the tree "
+                "structure the specs address)")
+        self._tp = None
+        if self.grid is not None and param_shardings is not None and \
+                self.grid.model_parallel_size > 1:
+            # (this rank's parts: the decode program's GPT-2 placement)
+            params, self._tp, _, _ = tpm.shard_params(
+                params, param_shardings, self.grid,
+                vocab_leaves=VOCAB_LEAVES, qkv_leaves=QKV_LEAVES,
+                own=gpt2_param_shardings(model_cfg))
         params = quantize_params(
             params, self.quantize,
             torch.Generator(device=self.device).manual_seed(self.seed),
@@ -207,11 +259,14 @@ class InferenceEngine:
         # stored as a pool behind a fixed identity table ---
         kv_dtype = resolve_kv_dtype(self.icfg.kv_cache_dtype,
                                     model_cfg.dtype)
+        # (under tensor parallelism a rank's pools hold its heads)
+        heads = model_cfg.num_heads if self._tp is None else \
+            self._tp.local(model_cfg.num_heads, "num_heads")
         if self.paged:
             self.cache_spec = kv_cache.PagedKVCacheSpec(
                 num_layers=model_cfg.num_layers, num_slots=self.max_slots,
                 num_blocks=self.num_blocks, block_size=self.block_size,
-                max_len=self.max_len, num_heads=model_cfg.num_heads,
+                max_len=self.max_len, num_heads=heads,
                 head_dim=model_cfg.head_dim, num_groups=self.dp,
                 dtype=kv_dtype)
             self.cache = kv_cache.init_paged_cache(self.cache_spec,
@@ -224,7 +279,7 @@ class InferenceEngine:
         else:
             self.cache_spec = kv_cache.KVCacheSpec(
                 num_layers=model_cfg.num_layers, num_slots=self.max_slots,
-                num_heads=model_cfg.num_heads, max_len=self.max_len,
+                num_heads=heads, max_len=self.max_len,
                 head_dim=model_cfg.head_dim, dtype=kv_dtype)
             self.cache = kv_cache.init_cache(self.cache_spec, self.device)
             self.allocator = None
@@ -309,16 +364,27 @@ class InferenceEngine:
         self.telemetry = tl
         # The device paths: decode and prefill always; paged engines add
         # the copy-on-write block copy and, with spec_k > 0, the verify.
+        # (the rank's tensor-parallel program; the ring for a whole-prompt
+        # prefill at sp > 1)
+        bind = functools.partial
         self._decode_fn = tl.instrument_step_fn(
-            "decode_step", decode_mod.gpt2_decode_paged)
-        self._prefill_fn = tl.instrument_step_fn(
-            "prefill_step", decode_mod.gpt2_prefill_chunk_paged
-            if self.prefill_chunk else decode_mod.gpt2_prefill_full_paged)
+            "decode_step", bind(decode_mod.gpt2_decode_paged, tp=self._tp))
+        if self.prefill_chunk:
+            prefill = bind(decode_mod.gpt2_prefill_chunk_paged, tp=self._tp)
+        else:
+            ring = None
+            if self.sp > 1:
+                from ..ops.ring_attention import ring_attention_fn
+                ring = ring_attention_fn(self.grid)
+            prefill = bind(decode_mod.gpt2_prefill_full_paged,
+                         attention_fn=ring, tp=self._tp)
+        self._prefill_fn = tl.instrument_step_fn("prefill_step", prefill)
         if self.paged:
             self._copy_fn = tl.instrument_step_fn("copy_block", _copy_blocks)
         if self.paged and self.spec_k > 0:
             self._verify_fn = tl.instrument_step_fn(
-                "verify_step", decode_mod.gpt2_verify_paged)
+                "verify_step",
+                bind(decode_mod.gpt2_verify_paged, tp=self._tp))
 
     def _runtime_params(self) -> Dict[str, Any]:
         """The weights one device operation computes with: under int8 the
@@ -965,12 +1031,17 @@ class InferenceEngine:
                 tag = f.read().strip()
         path = os.path.join(load_dir, str(tag))
         model_file = os.path.join(path, "mp_rank_00_model_states.msgpack")
-        if not os.path.isfile(model_file):
+        meta_file = os.path.join(path, "engine_meta.json")
+        sharded = False
+        if os.path.isfile(meta_file):
+            with open(meta_file) as f:
+                sharded = bool(json.load(f).get("mp_shards"))
+        if sharded or not os.path.isfile(model_file):
+            # (not planned: the JAX engine refuses these tags too)
             raise NotImplementedError(
-                f"{model_file} not found — TP-sharded (mp_rank_XX) "
-                "checkpoints need assembly (ROADMAP slice 6: parallel axes "
-                "and comm extras); load them through the training engine "
-                "and pass raw params instead")
+                f"{path} holds TP-sharded (mp_rank_XX) model files, which "
+                "need assembly: load them through the training engine and "
+                "pass raw params instead (the JAX engine refuses them too)")
         with open(model_file, "rb") as f:
             blob = msgpack_restore(f.read())
         if not (isinstance(blob, dict) and "module" in blob):

@@ -10,6 +10,15 @@ transformer.py``'s program, so on a CUDA device they run the flash
 kernels with ``causal=False`` (an ``attention_mask`` routes dense, as
 in JAX), the residual LayerNorm kernel and the bias+GELU kernels; the
 embedding and MLM LayerNorms run the LayerNorm kernel's plain mode.
+
+Tensor parallelism (``bert_param_shardings``, JAX's: ``wte`` and
+``decoder_bias`` split by vocab range, the blocks' Megatron specs): the
+blocks run the tensor-parallel block, the embedding sums the ranks'
+vocab ranges and the MLM head's logits are gathered over them; a
+vocabulary the model axis does not divide keeps ``wte`` and
+``decoder_bias`` whole on every rank and the head computes the whole
+vocabulary there (GSPMD's padded shard computes the same numbers). The
+engine binds ``tp`` to ``bert_mlm_loss_fn``'s loss (``loss_fn.tp``).
 """
 from __future__ import annotations
 
@@ -18,10 +27,14 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from ..parallel import comm
+from ..parallel.topology import P
 from ..utils.device import resolve_device
-from .transformer import (ElementwiseOps, TransformerConfig, additive_mask,
-                          apply_blocks, check_trainable, elementwise_ops,
-                          init_block_params)
+from .gpt2 import embed
+from .transformer import (QKV_LEAVES, ElementwiseOps, TransformerConfig,
+                          additive_mask, apply_blocks,
+                          block_param_shardings, check_trainable,
+                          elementwise_ops, init_block_params)
 
 MOE_REFUSED = ("MoE blocks are wired for the GPT-2 training path only "
                "(models/gpt2.py threads the stats tuple); BERT keeps the "
@@ -89,14 +102,39 @@ def bert_init(cfg: BertConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+# The leaves split by vocabulary range under tensor parallelism: the
+# tied embedding and the head's bias, split (or kept whole) together.
+VOCAB_LEAVES = ("wte", "decoder_bias")
+
+
+def bert_param_shardings(cfg: BertConfig, mp_axis: str = "model"
+                         ) -> Dict[str, Any]:
+    """The ``PartitionSpec`` tree of ``bert_init``'s (JAX
+    ``bert_param_shardings``)."""
+    sh = {
+        "wte": P(mp_axis, None),
+        "wpe": P(None, None),
+        "emb_ln_scale": P(None), "emb_ln_bias": P(None),
+        "blocks": block_param_shardings(mp_axis),
+        "mlm_kernel": P(None, None), "mlm_bias": P(None),
+        "mlm_ln_scale": P(None), "mlm_ln_bias": P(None),
+        "decoder_bias": P(mp_axis),
+    }
+    if cfg.type_vocab_size:
+        sh["wse"] = P(None, None)
+    return sh
+
+
 def bert_apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: BertConfig,
                segment_ids: Optional[torch.Tensor] = None,
                attention_mask: Optional[torch.Tensor] = None,
                rng: Optional[torch.Generator] = None,
                deterministic: bool = True,
                attention_fn: Optional[Callable] = None,
-               ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
-    """tokens [B, S] → final hidden states [B, S, H].
+               ops: Optional[ElementwiseOps] = None,
+               tp: Any = None) -> torch.Tensor:
+    """tokens [B, S] → final hidden states [B, S, H] (``tp``: this
+    rank's parts of the tensor-parallel leaves).
 
     ``attention_mask`` [B, S] with 1 = attend becomes the additive [B, 1,
     1, S] form (``transformer.additive_mask``). ``attention_fn`` defaults
@@ -107,7 +145,7 @@ def bert_apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: BertConfig,
         raise NotImplementedError(MOE_REFUSED)
     ops = ops or elementwise_ops(cfg, tokens.device)
     S = tokens.shape[1]
-    x = params["wte"].to(cfg.dtype)[tokens] + \
+    x = embed(params["wte"].to(cfg.dtype), tokens, tp) + \
         params["wpe"].to(cfg.dtype)[None, :S]
     if cfg.type_vocab_size and segment_ids is not None:
         x = x + params["wse"].to(cfg.dtype)[segment_ids]
@@ -116,21 +154,27 @@ def bert_apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: BertConfig,
     return apply_blocks(params["blocks"], x, cfg, rng=rng,
                         deterministic=deterministic,
                         attention_fn=attention_fn, ops=ops,
-                        mask=additive_mask(attention_mask))
+                        mask=additive_mask(attention_mask), tp=tp)
 
 
 def bert_mlm_logits(params: Dict[str, Any], hidden: torch.Tensor,
                     cfg: BertConfig,
-                    ops: Optional[ElementwiseOps] = None) -> torch.Tensor:
+                    ops: Optional[ElementwiseOps] = None,
+                    tp: Any = None) -> torch.Tensor:
     """The MLM head: tanh GELU of the dense layer, LN, then the tied
     embeddings plus ``decoder_bias`` → logits [B, S, V] in the compute
-    dtype."""
+    dtype (a vocab-split ``tp`` gathers the ranks' ranges)."""
     ops = ops or elementwise_ops(cfg, hidden.device)
     h = ops.gelu_up(hidden, params["mlm_kernel"], params["mlm_bias"], False)
     h = ops.ln(h, params["mlm_ln_scale"], params["mlm_ln_bias"],
                cfg.layer_norm_eps)
-    return torch.matmul(h, params["wte"].to(h.dtype).T) + \
+    if tp is not None and tp.vocab:
+        h = tp.copy_in(h)
+    logits = torch.matmul(h, params["wte"].to(h.dtype).T) + \
         params["decoder_bias"].to(h.dtype)
+    if tp is not None and tp.vocab:
+        logits = comm.gather_from_group(logits, -1, tp.group)
+    return logits
 
 
 def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -150,17 +194,23 @@ def bert_mlm_loss_fn(cfg: BertConfig, attention_fn: Optional[Callable] = None,
     """Returns ``loss_fn(params, batch, rng=None)`` for the engine; batch
     = ``(tokens, labels[, attention_mask])`` with labels -100 at the
     unmasked positions. ``cfg.remat_policy`` recomputes the blocks in
-    the backward pass, as for GPT-2."""
+    the backward pass, as for GPT-2. ``loss_fn.param_shardings``,
+    ``vocab_leaves``, ``qkv_leaves`` and ``tp``: as ``gpt2_loss_fn``'s."""
     check_trainable(cfg)
 
     def loss_fn(params, batch, rng=None):
+        tp = loss_fn.tp
         tokens, labels = batch[0], batch[1]
         attn_mask = batch[2] if len(batch) > 2 else None
         hidden = bert_apply(params, tokens, cfg, attention_mask=attn_mask,
                             rng=rng, deterministic=False,
-                            attention_fn=attention_fn, ops=ops)
-        return mlm_loss(bert_mlm_logits(params, hidden, cfg, ops), labels)
+                            attention_fn=attention_fn, ops=ops, tp=tp)
+        return mlm_loss(bert_mlm_logits(params, hidden, cfg, ops, tp),
+                        labels)
     loss_fn.cfg = cfg
+    loss_fn.param_shardings = bert_param_shardings(cfg)
+    loss_fn.vocab_leaves, loss_fn.qkv_leaves = VOCAB_LEAVES, QKV_LEAVES
+    loss_fn.tp = None
     return loss_fn
 
 
@@ -173,6 +223,7 @@ def bert_num_params(cfg: BertConfig) -> int:
             + H * H + 3 * H + V)
 
 
-__all__ = ["BertConfig", "BERT_CONFIGS", "bert_init", "bert_apply",
+__all__ = ["BertConfig", "BERT_CONFIGS", "VOCAB_LEAVES", "bert_init",
+           "bert_param_shardings", "bert_apply",
            "bert_mlm_logits", "mlm_loss", "bert_mlm_loss_fn",
            "bert_num_params", "MOE_REFUSED"]

@@ -17,6 +17,14 @@ ranks at ZeRO stage >= 1 the port itself holds the V-layout, a rank its
 rows (``jax_local_rows``): a JAX shard file's moment buffers are those
 rows as they are.
 
+Tensor parallelism. JAX splits the fused QKV projection's last axis
+(``qkv_kernel [L, H, 3H]``, ``qkv_bias [L, 3H]``, q|k|v) into mp
+contiguous ranges; the port's rank holds its heads of each third side
+by side. ``qkv_to_mp_order`` carries the last axis into the mp-major
+order ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]`` (rank r's part is then its
+r-th contiguous range) and ``qkv_from_mp_order`` back; at mp 1 both are
+the identity.
+
 The JAX side is given and returned as numpy arrays (``jax.device_get``
 of the tree), which keeps this module free of JAX. Round trips are
 exact: values, dtypes and shapes, the JAX buffers' zero padding
@@ -53,6 +61,22 @@ def to_jax_params(state: Dict[str, Any]) -> Dict[str, Any]:
     if isinstance(state, dict):
         return {k: to_jax_params(v) for k, v in state.items()}
     return state.detach().cpu().numpy().copy()
+
+
+def qkv_to_mp_order(x: torch.Tensor, mp: int) -> torch.Tensor:
+    """A q|k|v last axis in the mp-major order (module docstring)."""
+    *lead, three_h = x.shape
+    h = three_h // 3
+    return x.reshape(*lead, 3, mp, h // mp).transpose(-3, -2) \
+        .reshape(*lead, three_h)
+
+
+def qkv_from_mp_order(x: torch.Tensor, mp: int) -> torch.Tensor:
+    """The inverse of ``qkv_to_mp_order``."""
+    *lead, three_h = x.shape
+    h = three_h // 3
+    return x.reshape(*lead, mp, 3, h // mp).transpose(-3, -2) \
+        .reshape(*lead, three_h)
 
 
 def _group_sizes(params: Any) -> List[List[int]]:
@@ -166,6 +190,7 @@ def to_jax_fused_adam_state(state: FusedAdamState, np_params: Any,
                   for b, s in zip(state.v, sizes)))
 
 
-__all__ = ["from_jax_params", "to_jax_params", "from_jax_fused_adam_state",
+__all__ = ["qkv_to_mp_order", "qkv_from_mp_order", "from_jax_params",
+           "to_jax_params", "from_jax_fused_adam_state",
            "to_jax_fused_adam_state", "jax_local_rows",
            "relayout_jax_buffer"]

@@ -198,14 +198,18 @@ class Recompute:
     ``rng``: a replay (``GeneratorReplay``) for the ops that draw, or
     None. ``offload``: hold the saved inputs in host memory (pinned for
     CUDA tensors), copied back to the device when the backward pass
-    needs them."""
+    needs them; or, given ``hold`` (a function of a tensor returning an
+    object whose ``restore()`` gives it back), hold them through
+    ``hold``."""
 
     def __init__(self, program: Sequence[Op], kinds: FrozenSet[str],
-                 rng: Any = None, offload: bool = False):
+                 rng: Any = None, offload: bool = False,
+                 hold: Optional[Callable[[torch.Tensor], Any]] = None):
         self.program = list(program)
         self.kinds = kinds
         self.rng = rng
-        self.offload = offload
+        self.offload = offload or hold is not None
+        self._hold = hold or _HostSpan
         self._ops = {op.name: op for op in self.program}
         self._producer = {n: op for op in self.program for n in op.outputs}
 
@@ -304,7 +308,7 @@ class Recompute:
         for n in held:
             v = env[n]
             if isinstance(v, torch.Tensor):
-                v = _HostSpan(v.detach()) if self.offload and n in inputs \
+                v = self._hold(v.detach()) if self.offload and n in inputs \
                     else v.detach()
             self._held[n] = v
 
@@ -331,7 +335,7 @@ class Recompute:
         """Held value ``name`` on its device (an offloaded input copied
         back from its host span)."""
         v = self._held[name]
-        if isinstance(v, _HostSpan):
+        if not isinstance(v, torch.Tensor) and hasattr(v, "restore"):
             v = v.restore()
         return v
 

@@ -312,6 +312,27 @@ def init_block_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+# The block's fused q|k|v leaves: a tensor-parallel rank holds its heads
+# of each third (parallel/tensor_parallel.py).
+QKV_LEAVES = ("qkv_kernel", "qkv_bias")
+
+
+def block_param_shardings(mp_axis: str = "model") -> Dict[str, Any]:
+    """Megatron column→row tensor parallelism over the stacked block
+    params (JAX ``block_param_shardings``): the QKV and FFN-in kernels
+    and their biases split on their output features, proj and FFN-out on
+    their input features, the rest replicated."""
+    from ..parallel.topology import P
+    return {
+        "ln1_scale": P(None, None), "ln1_bias": P(None, None),
+        "qkv_kernel": P(None, None, mp_axis), "qkv_bias": P(None, mp_axis),
+        "proj_kernel": P(None, mp_axis, None), "proj_bias": P(None, None),
+        "ln2_scale": P(None, None), "ln2_bias": P(None, None),
+        "fc_kernel": P(None, None, mp_axis), "fc_bias": P(None, mp_axis),
+        "fc_out_kernel": P(None, mp_axis, None), "fc_out_bias": P(None, None),
+    }
+
+
 def layer_slice(stacked: Dict[str, torch.Tensor], i: int
                 ) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s params (views of the stacked tensors)."""
@@ -349,7 +370,8 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
                   attention_fn: Optional[Callable] = None,
                   ops: Optional[ElementwiseOps] = None,
                   moe: bool = False,
-                  mask: Optional[torch.Tensor] = None) -> List[Op]:
+                  mask: Optional[torch.Tensor] = None,
+                  tp: Any = None) -> List[Op]:
     """One block as a program of named steps (``models/remat.py``) over
     an input ``x`` of ``shape`` [B, S, H] and ``dtype`` on ``device``:
     the one definition of the block, which ``transformer_block`` runs
@@ -373,7 +395,20 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     its dropout mask and the merge of the heads. ``cfg.causal`` reaches
     the attention either way. ``mask`` (additive, broadcast to [B, nH,
     S, S]; ``additive_mask``) is a constant of the program: with it the
-    flash route runs dense, as JAX's flash function does."""
+    flash route runs dense, as JAX's flash function does.
+
+    ``tp`` (a ``parallel/tensor_parallel.ModelParallel``): the Megatron
+    block over the rank's part of each leaf (``block_param_shardings``):
+    its ``num_heads / mp`` heads of q, k and v (``qkv`` in the mp-major
+    order of ``models/convert.qkv_to_mp_order``), ``F / mp`` columns of
+    ``fc`` and the matching rows of ``proj`` and ``fc_out``. The
+    column-parallel products read the replicated stream through
+    ``copy_in`` (its grad summed over the group), the row-parallel
+    products' partial outputs are summed by one all-reduce a sublayer
+    (``tp.row_dense``) and their bias is added once, after the sum. The
+    dropout masks are drawn whole on every rank from the same generator
+    (an attention mask then sliced to the rank's heads), so the ranks'
+    generators stay in step and mp draws the masks of mp 1."""
     ops = ops or elementwise_ops(cfg, device)
     pre = cfg.pre_layer_norm
     attention_fn = attention_fn or auto_attention
@@ -382,22 +417,43 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     nH, dH = cfg.num_heads, cfg.head_dim
     hd = 0.0 if deterministic else cfg.hidden_dropout
     ad = 0.0 if deterministic else cfg.attn_dropout
+    if tp is not None:
+        if moe:
+            raise NotImplementedError(
+                "MoE blocks under tensor parallelism are not ported yet "
+                "(ROADMAP queue 1 item 7: MoE at ep > 1)")
+        nH = tp.local(nH, "num_heads")
+        H = nH * dH
+        h0 = tp.rank * nH
+        copy_in, row_dense = tp.copy_in, tp.row_dense
+    else:
+        h0 = 0
+        copy_in, row_dense = None, dense
 
-    def mask_op(name, rate, mshape):
+    def mask_op(name, rate, mshape, heads_of=None):
         def fn(p, g):
-            return (None if g is None else
-                    dropout_mask(mshape, rate, g, device),)
+            if g is None:
+                return (None,)
+            if heads_of is None:
+                return (dropout_mask(mshape, rate, g, device),)
+            # (drawn over every head, kept for the rank's)
+            whole = (mshape[0], heads_of) + tuple(mshape[2:])
+            return (dropout_mask(whole, rate, g, device)
+                    [:, h0:h0 + mshape[1]],)
         return Op(name, (), (name,), fn, draws=rate > 0.0)
 
     def qkv_split(qkv):
         return [t.reshape(B, S, nH, dH) for t in qkv.split(H, dim=-1)]
+
+    def col_in(h):
+        return h if copy_in is None else copy_in(h)
 
     prog = [
         Op("ln1", ("x",), ("h1",), lambda p, g, x: (
             ops.ln(x, p["ln1_scale"], p["ln1_bias"], eps),)),
     ] if pre else []
     prog.append(Op("qkv", ("h1" if pre else "x",), ("qkv",),
-                   lambda p, g, h: (dense(h, p["qkv_kernel"],
+                   lambda p, g, h: (dense(col_in(h), p["qkv_kernel"],
                                           p["qkv_bias"]),), kind="dot"))
     route = _attention_route(attention_fn, device, S, mask is not None)
     if route == "dense":
@@ -411,7 +467,8 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
                 torch.bmm(q, k).view(B, nH, S, S),), kind="dot_batch"),
             Op("probs", ("sc",), ("w",), lambda p, g, sc: (
                 attention_probs(sc, dH, cfg.causal, mask),)),
-            mask_op("am", ad, (B, nH, S, S)),
+            mask_op("am", ad, (B, nH, S, S),
+                    None if tp is None else cfg.num_heads),
             Op("adrop", ("w", "am"), ("wd",), lambda p, g, w, m: (
                 apply_dropout(w, m, ad).to(dtype),)),
             Op("pv", ("wd", "vh"), ("o",), lambda p, g, w, v: (
@@ -422,17 +479,19 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     else:
         def attend(p, g, qkv):
             q, k, v = qkv_split(qkv)
+            kw = {"heads": (h0, cfg.num_heads)} \
+                if tp is not None and route == "flash" else {}
             return (attention_fn(q, k, v, mask=mask, causal=cfg.causal,
                                  attn_dropout=cfg.attn_dropout, rng=g,
-                                 deterministic=deterministic
+                                 deterministic=deterministic, **kw
                                  ).reshape(B, S, H),)
         prog.append(Op("attn", ("qkv",), ("a",), attend,
                        kind="flash" if route == "flash" else None,
                        draws=True))
     prog += [
         Op("proj", ("a",), ("pr",), lambda p, g, a: (
-            dense(a, p["proj_kernel"], p["proj_bias"]),), kind="dot"),
-        mask_op("m1", hd, (B, S, H)),
+            row_dense(a, p["proj_kernel"], p["proj_bias"]),), kind="dot"),
+        mask_op("m1", hd, shape),
         Op("drop1", ("pr", "m1"), ("d1",), lambda p, g, v, m: (
             apply_dropout(v, m, hd),)),
     ]
@@ -454,15 +513,16 @@ def block_program(cfg: TransformerConfig, shape, device: torch.device,
     else:
         prog += [
             Op("fc", ("h2",), ("z",), lambda p, g, h: (
-                torch.matmul(h, p["fc_kernel"].to(h.dtype)),), kind="dot"),
+                torch.matmul(col_in(h), p["fc_kernel"].to(h.dtype)),),
+               kind="dot"),
             Op("gelu", ("z",), ("f",), lambda p, g, z: (
                 ops.bias_gelu(z, p["fc_bias"], cfg.gelu_exact),)),
             Op("fc_out", ("f",), ("o2",), lambda p, g, f: (
-                dense(f, p["fc_out_kernel"], p["fc_out_bias"]),),
+                row_dense(f, p["fc_out_kernel"], p["fc_out_bias"]),),
                kind="dot"),
         ]
     prog += [
-        mask_op("m2", hd, (B, S, H)),
+        mask_op("m2", hd, shape),
         Op("drop2", ("o2", "m2"), ("d2",), lambda p, g, v, m: (
             apply_dropout(v, m, hd),)),
     ]
@@ -482,7 +542,7 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
                       deterministic: bool = True,
                       attention_fn: Optional[Callable] = None,
                       ops: Optional[ElementwiseOps] = None,
-                      mask: Optional[torch.Tensor] = None):
+                      mask: Optional[torch.Tensor] = None, tp: Any = None):
     """One block, pre-LN or post-LN (params WITHOUT the layer axis): x
     [B, S, H] → [B, S, H] (``block_program`` run plainly). The residual
     adds are fused into the LayerNorms (``res_ln``), as in the JAX
@@ -491,11 +551,12 @@ def transformer_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``attention_fn`` defaults to ``auto_attention``; ``ops`` defaults to
     the ones ``cfg.fused_kernels`` selects. With ``cfg.moe`` the FFN is
     the MoE FFN wherever ``p`` carries the expert tensors, and the block
-    returns ``(x, moe_stats_or_None)``."""
+    returns ``(x, moe_stats_or_None)``. ``tp``: the tensor-parallel
+    block over the rank's parts (``block_program``)."""
     moe = "moe_fc_kernel" in p
     env = run_program(block_program(cfg, x.shape, x.device, x.dtype,
                                     deterministic, attention_fn, ops, moe,
-                                    mask),
+                                    mask, tp),
                       p, {"x": x}, rng)
     if cfg.moe is not None:
         return env["y"], env.get("moe_stats")
@@ -540,7 +601,8 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                  ops: Optional[ElementwiseOps] = None,
                  pld_theta: Optional[float] = None,
                  layer_valid: Optional[Sequence] = None,
-                 mask: Optional[torch.Tensor] = None, zero3: Any = None):
+                 mask: Optional[torch.Tensor] = None, zero3: Any = None,
+                 tp: Any = None):
     """All L layers as a Python loop over the stacked leading axis (the
     JAX ``scan_layers=False`` program). Each stacked tensor is unbound
     once, so its gradient comes back as one stack, not as L scatters.
@@ -568,7 +630,12 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     backward re-gathers it, recomputes it (``remat_policy`` is subsumed:
     the ``full`` policy's region) and reduce-scatters its grads. It does
     not compose with MoE, progressive layer drop or ``layer_valid`` (as
-    in JAX). An unbound spec runs the normal loop."""
+    in JAX). An unbound spec runs the normal loop.
+
+    ``tp`` (a ``parallel/tensor_parallel.ModelParallel``): each block is
+    the tensor-parallel block over this rank's parts of the stacked
+    leaves (``block_program``); it does not compose with the ZeRO-3
+    scan."""
     L = stacked["ln1_scale"].shape[0]
     kinds = remat_policy(cfg.remat_policy)
     moe_layers = [] if cfg.moe is None else \
@@ -589,6 +656,10 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                 "moe blocks do not compose with the zero3 layer scan — "
                 "use the generic stage-3 leaf-at-use gather (no "
                 "zero3_scan)")
+    if scan and tp is not None:
+        raise NotImplementedError(
+            "the zero3 layer scan under tensor parallelism is not ported "
+            "yet (ROADMAP queue 1 item 7)")
     if scan:
         if pld_theta is not None or layer_valid is not None:
             raise ValueError(
@@ -634,7 +705,7 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
         if moe not in programs:
             programs[moe] = block_program(cfg, x.shape, x.device, x.dtype,
                                           deterministic, attention_fn, ops,
-                                          moe, mask)
+                                          moe, mask, tp)
         if kinds is None:
             env = run_program(programs[moe], p_i, {"x": x}, rng)
         else:
@@ -646,10 +717,10 @@ def apply_blocks(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     return x if cfg.moe is None else (x, aggregate_moe_stats(stats))
 
 
-__all__ = ["TransformerConfig", "check_trainable", "layer_norm", "dense",
+__all__ = ["QKV_LEAVES", "TransformerConfig", "check_trainable", "layer_norm", "dense",
            "gelu", "dropout_mask", "apply_dropout", "dropout", "heads",
            "heads_t", "attention_probs", "dense_attention", "additive_mask",
-           "ElementwiseOps",
+           "ElementwiseOps", "block_param_shardings",
            "KERNEL_OPS", "PLAIN_OPS", "elementwise_ops", "layer_norm_fn",
            "gelu_dense_fn", "init_block_params", "layer_slice",
            "block_program", "transformer_block", "pld_keep",

@@ -66,7 +66,7 @@ MOE_PARAM_KEYS = frozenset({
 })
 
 EP_UNPORTED = ("moe expert_parallel_size > 1 is not ported yet (ROADMAP "
-               "slice 6: parallel axes and comm extras)")
+               "queue 1 item 7: MoE at ep > 1)")
 
 
 @dataclasses.dataclass(frozen=True)

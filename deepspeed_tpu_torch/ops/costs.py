@@ -215,28 +215,30 @@ def _flash_pairs(q, causal: bool, layout: Optional[Any]) -> int:
 
 
 def flash_fwd_decl(q, k, v, causal, scale, dropout=0.0, seed=None,
-                   layout=None) -> Cost:
+                   layout=None, heads=None) -> Cost:
     B, S, nH, D = q.shape
     return flash_fwd_cost(B, S, nH, D, _flash_pairs(q, causal, layout),
                           q.element_size())
 
 
 def flash_bwd_dq_decl(q, k, v, do, lse, delta, causal, scale,
-                      dropout=0.0, seed=None, layout=None) -> Cost:
+                      dropout=0.0, seed=None, layout=None,
+                      heads=None) -> Cost:
     B, S, nH, D = q.shape
     return flash_bwd_dq_cost(B, S, nH, D, _flash_pairs(q, causal, layout),
                              q.element_size())
 
 
 def flash_bwd_dkv_decl(q, k, v, do, lse, delta, causal, scale,
-                       dropout=0.0, seed=None, layout=None) -> Cost:
+                       dropout=0.0, seed=None, layout=None,
+                       heads=None) -> Cost:
     B, S, nH, D = q.shape
     return flash_bwd_dkv_cost(B, S, nH, D, _flash_pairs(q, causal, layout),
                               q.element_size())
 
 
 def flash_bwd_fused_decl(q, k, v, do, lse, delta, causal, scale,
-                         dropout=0.0, seed=None) -> Cost:
+                         dropout=0.0, seed=None, heads=None) -> Cost:
     B, S, nH, D = q.shape
     return flash_bwd_fused_cost(B, S, nH, D, causal_pairs(B, nH, S, causal),
                                 q.element_size())

@@ -20,7 +20,10 @@ Layouts: the public functions take q, k, v as ``[B, S, nH, D]`` (the
 JAX layout); the kernels read them through strides, so the split of
 the fused QKV projection goes in without a transpose. lse and delta are
 fp32 ``[B*nH, S]``, rows in the JAX ``_to_bh`` order ``bh = b*nH + n``,
-which is also the dropout hash's head index.
+which is also the dropout hash's head index. Under tensor parallelism a
+rank holds heads ``h0 .. h0+nH-1`` of ``nH_all``: ``heads=(h0,
+nH_all)`` makes the hash index ``b*nH_all + h0 + n``, so the rank draws
+the masks those heads draw on one card.
 
 Each kernel wrapper (``flash_attention_fwd``, ``flash_attention_bwd_dq``,
 ``flash_attention_bwd_dkv``, ``flash_attention_bwd_fused``) launches its
@@ -116,12 +119,17 @@ def dropout_keep(seed, bh, qi: int, kj: int, bq: int, bk: int, rate: float,
 
 
 def _keep_grid(seed, BH: int, S: int, Sk: int, rate: float,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, heads=None, nH: int = 1
+               ) -> torch.Tensor:
     """Bool ``[BH, S, Sk]`` keep mask over the whole grid, computed a few
-    heads at a time to bound the int64 temporaries."""
+    heads at a time to bound the int64 temporaries; ``heads=(h0,
+    nH_all)`` hashes the ``nH`` heads of each batch row at their index
+    among all heads (module docstring)."""
     out = []
     for b0 in range(0, BH, 8):
         bh = torch.arange(b0, min(b0 + 8, BH), device=device)[:, None, None]
+        if heads is not None:
+            bh = (bh // nH) * heads[1] + heads[0] + bh % nH
         out.append(dropout_keep(seed, bh, 0, 0, S, Sk, rate, device=device))
     return torch.cat(out)
 
@@ -192,7 +200,7 @@ def _zero_masked(p: torch.Tensor, keep) -> torch.Tensor:
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, scale: float, dropout: float = 0.0,
-                    seed=None, layout=None
+                    seed=None, layout=None, heads=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward in plain PyTorch, as the TPU kernel's ``single_k``
     formula over whole rows: ``(o [B, S, nH, D], lse [B*nH, S] fp32)``.
@@ -208,7 +216,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = _zero_masked(torch.exp(s - m), keep)
     l = p.sum(-1, keepdim=True)
     if dropout > 0.0:
-        keep = _keep_grid(seed, B * nH, S, k.shape[1], dropout, q.device)
+        keep = _keep_grid(seed, B * nH, S, k.shape[1], dropout, q.device,
+                          heads, nH)
         p = torch.where(keep, p * _inv_keep(dropout), 0.0)
     pv = torch.matmul(p.to(v.dtype).float(), vt)
     l_safe = torch.where(l == 0.0, 1.0, l)
@@ -227,7 +236,7 @@ def flash_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                     causal: bool, scale: float, dropout: float = 0.0,
-                    seed=None, layout=None
+                    seed=None, layout=None, heads=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward in plain PyTorch, as the TPU ``_bwd_fused_kernel``
     formula over the whole sequence: ``(dq, dk, dv)`` in ``[B, S, nH,
@@ -242,7 +251,8 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dp = torch.matmul(dot, vt.transpose(1, 2))
     p_drop = p
     if dropout > 0.0:
-        keep = _keep_grid(seed, B * nH, S, k.shape[1], dropout, q.device)
+        keep = _keep_grid(seed, B * nH, S, k.shape[1], dropout, q.device,
+                          heads, nH)
         inv = _inv_keep(dropout)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -305,6 +315,14 @@ def _common(q, seed, dropout: float, causal: bool, scale: float):
              _DTYPE_CODES[q.dtype], op_builder.stream_ptr(q.device)))
 
 
+def _with_heads(tail: tuple, heads) -> tuple:
+    """``_common``'s tail with the flash entry points' hash heads
+    (``hash_nH``, ``hash_h0``) after ``causal``: (0, 0) for the launch's
+    own heads."""
+    hashed = (0, 0) if heads is None else (int(heads[1]), int(heads[0]))
+    return tail[:8] + hashed + tail[8:]
+
+
 def _gate(name: str, q, layout) -> tuple:
     """(layout pointer, blocks a side, block) of the gated mode's C entry
     points; (None, 0, 0) ungated. The layout is an int32 ``[nH, nb, nb]``
@@ -328,12 +346,14 @@ def _gate(name: str, q, layout) -> tuple:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float, dropout: float = 0.0,
                         seed: Optional[torch.Tensor] = None,
-                        layout: Optional[torch.Tensor] = None
+                        layout: Optional[torch.Tensor] = None, heads=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: ``(o [B, S, nH, D] contiguous, lse [B*nH, S] fp32)``; with a
-    ``layout``, the gated mode."""
+    ``layout``, the gated mode; ``heads``: the dropout hash's (first
+    head, all heads) under tensor parallelism."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, scale, dropout, seed, layout)
+        return flash_fwd_plain(q, k, v, causal, scale, dropout, seed, layout,
+                               heads)
     _check("flash_attention_fwd", q, k, v, seed, dropout)
     gate = _gate("flash_attention_fwd", q, layout)
     B, S, nH, D = q.shape
@@ -342,7 +362,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides, seed_p, tail = _common(q, seed, dropout, causal, scale)
     rc = op_builder.load().dstt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, o.data_ptr(),
-        lse.data_ptr(), seed_p, *gate, *tail)
+        lse.data_ptr(), seed_p, *gate, *_with_heads(tail, heads))
     op_builder.check(rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return o, lse
@@ -351,12 +371,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @costs.declares("K2a", costs.flash_bwd_dq_decl)
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
                            scale: float, dropout: float = 0.0, seed=None,
-                           layout=None) -> torch.Tensor:
+                           layout=None, heads=None) -> torch.Tensor:
     """K2a: dq ``[B, S, nH, D]`` over q rows; with a ``layout``, the
     gated mode."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale,
-                               dropout, seed, layout)[0]
+                               dropout, seed, layout, heads)[0]
     _check("flash_attention_bwd_dq", q, k, v, seed, dropout, do, lse, delta)
     gate = _gate("flash_attention_bwd_dq", q, layout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -364,7 +384,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
     rc = op_builder.load().dstt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), seed_p, *gate,
-        *tail)
+        *_with_heads(tail, heads))
     op_builder.check(rc, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -373,12 +393,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
 @costs.declares("K2b", costs.flash_bwd_dkv_decl)
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
                             scale: float, dropout: float = 0.0, seed=None,
-                            layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                            layout=None, heads=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2b: (dk, dv) ``[B, S, nH, D]`` over k columns; with a ``layout``,
     the gated mode."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale,
-                               dropout, seed, layout)[1:]
+                               dropout, seed, layout, heads)[1:]
     _check("flash_attention_bwd_dkv", q, k, v, seed, dropout, do, lse, delta)
     gate = _gate("flash_attention_bwd_dkv", q, layout)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -387,7 +408,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
     rc = op_builder.load().dstt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        seed_p, *gate, *tail)
+        seed_p, *gate, *_with_heads(tail, heads))
     op_builder.check(rc, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -395,14 +416,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
 
 @costs.declares("K2c", costs.flash_bwd_fused_decl)
 def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal: bool,
-                              scale: float, dropout: float = 0.0, seed=None
+                              scale: float, dropout: float = 0.0, seed=None,
+                              heads=None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """K2c: (dq, dk, dv) in one launch, with a block per k-tile for dk,
     dv and a block per q-tile for dq (no workspace)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, lse, delta, causal, scale,
-                               dropout, seed)
+                               dropout, seed, None, heads)
     _check("flash_attention_bwd_fused", q, k, v, seed, dropout, do, lse,
            delta)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -411,7 +433,7 @@ def flash_attention_bwd_fused(q, k, v, do, lse, delta, causal: bool,
     rc = op_builder.load().dstt_flash_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), seed_p, *tail)
+        dv.data_ptr(), seed_p, *_with_heads(tail, heads))
     op_builder.check(rc, "flash_attention_bwd_fused")
     flash_attention_bwd_fused.launches += 1
     return dq, dk, dv
@@ -432,35 +454,36 @@ class _Flash(torch.autograd.Function):
     layout, as in the JAX package)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, scale, causal, dropout, layout):
+    def forward(ctx, q, k, v, seed, scale, causal, dropout, layout,
+                heads=None):
         o, lse = flash_attention_fwd(q, k, v, causal, scale, dropout, seed,
-                                     layout)
+                                     layout, heads)
         ctx.save_for_backward(q, k, v, seed, o, lse)
-        ctx.cfg = (scale, causal, dropout, layout)
+        ctx.cfg = (scale, causal, dropout, layout, heads)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, seed, o, lse = ctx.saved_tensors
-        scale, causal, dropout, layout = ctx.cfg
+        scale, causal, dropout, layout, heads = ctx.cfg
         do = do.contiguous()
         delta = flash_delta(do, o)
         args = (q, k, v, do, lse, delta, causal, scale, dropout, seed)
         if layout is None and use_fused_bwd(q.shape[1], k.shape[1]):
-            dq, dk, dv = flash_attention_bwd_fused(*args)
+            dq, dk, dv = flash_attention_bwd_fused(*args, heads=heads)
         else:
-            dq = flash_attention_bwd_dq(*args, layout)
-            dk, dv = flash_attention_bwd_dkv(*args, layout)
-        return dq, dk, dv, None, None, None, None, None
+            dq = flash_attention_bwd_dq(*args, layout, heads)
+            dk, dv = flash_attention_bwd_dkv(*args, layout, heads)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           seed: torch.Tensor, scale: float, causal: bool,
-          dropout: float = 0.0) -> torch.Tensor:
+          dropout: float = 0.0, heads=None) -> torch.Tensor:
     """Differentiable flash attention on ``[B, S, nH, D]`` with an int32
     dropout seed (the JAX ``_flash`` with the layout transposes folded
-    in)."""
-    return _Flash.apply(q, k, v, seed, scale, causal, dropout, None)
+    in); ``heads``: the dropout hash's (first head, all heads)."""
+    return _Flash.apply(q, k, v, seed, scale, causal, dropout, None, heads)
 
 
 def flash_sparse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -543,12 +566,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attn_dropout: float = 0.0,
                     rng: Optional[torch.Generator] = None,
                     deterministic: bool = True,
-                    layout=None) -> torch.Tensor:
+                    layout=None, heads=None) -> torch.Tensor:
     """Drop-in for ``models.transformer.dense_attention``: q, k, v
     ``[B, S, nH, D]`` → ``[B, S, nH, D]``. Attention dropout runs in the
     kernels from an int32 seed drawn from ``rng`` on the device.
     ``layout`` (``[nH, S//block, S//block]``) selects block-sparse
-    attention, routed as the module docstring says."""
+    attention, routed as the module docstring says. ``heads=(h0,
+    nH_all)``: q holds heads ``h0..`` of ``nH_all`` (tensor
+    parallelism), which the dropout hash indexes."""
     dense = _dense_fallback(q, k, v, mask, causal, attn_dropout, rng,
                             deterministic, layout)
     if dense is not None:
@@ -558,7 +583,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.zeros((), dtype=torch.int32, device=q.device)
     scale = 1.0 / math.sqrt(q.shape[-1])
     if layout is None:
-        return flash(q, k, v, seed, scale, causal, dropout)
+        return flash(q, k, v, seed, scale, causal, dropout, heads)
     if _on_host(layout) and _lut_fits_smem(np.asarray(layout)):
         from .sparse_flash import sparse_flash_attention
         return sparse_flash_attention(q, k, v, np.asarray(layout),
@@ -573,7 +598,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False, attn_dropout: float = 0.0,
                           rng: Optional[torch.Generator] = None,
                           deterministic: bool = True,
-                          layout=None) -> torch.Tensor:
+                          layout=None, heads=None) -> torch.Tensor:
     """``flash_attention`` with the same routing and the same seed draws,
     computed by ``flash_fwd_plain`` and differentiated by autograd — the
     plain reference for a training step through the kernels."""
@@ -584,17 +609,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout = _dropout_rate(attn_dropout, rng, deterministic)
     seed = draw_seed(rng, q.device) if dropout > 0.0 else None
     return flash_fwd_plain(q, k, v, causal, 1.0 / math.sqrt(q.shape[-1]),
-                           dropout, seed, layout)[0]
+                           dropout, seed, layout, heads)[0]
 
 
 def auto_attention(q, k, v, mask=None, causal=False, attn_dropout=0.0,
-                   rng=None, deterministic=True):
+                   rng=None, deterministic=True, heads=None):
     """The flash kernels for CUDA tensors, plain dense attention for CPU
     tensors (the JAX function's per-backend choice)."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v, mask=mask, causal=causal,
                                attn_dropout=attn_dropout, rng=rng,
-                               deterministic=deterministic)
+                               deterministic=deterministic, heads=heads)
     from ..models.transformer import dense_attention
     return dense_attention(q, k, v, mask=mask, causal=causal,
                            attn_dropout=attn_dropout, rng=rng,

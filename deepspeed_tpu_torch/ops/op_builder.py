@@ -68,13 +68,13 @@ _SIGNATURES = {
     "dstt_paged_attention": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _I, _P],
                              _I),
     "dstt_flash_fwd": ([_P] * 3 + [_L] * 3 + [_P] * 3 + [_P, _I, _I] +
-                       [_I] * 4 + [_F] * 3 + [_I, _I, _P], _I),
+                       [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P], _I),
     "dstt_flash_bwd_dq": ([_P] * 3 + [_L] * 3 + [_P] * 5 + [_P, _I, _I] +
-                          [_I] * 4 + [_F] * 3 + [_I, _I, _P], _I),
+                          [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P], _I),
     "dstt_flash_bwd_dkv": ([_P] * 3 + [_L] * 3 + [_P] * 6 + [_P, _I, _I] +
-                           [_I] * 4 + [_F] * 3 + [_I, _I, _P], _I),
+                           [_I] * 4 + [_F] * 3 + [_I] * 4 + [_P], _I),
     "dstt_flash_bwd_fused": ([_P] * 3 + [_L] * 3 + [_P] * 7 + [_I] * 4 +
-                             [_F] * 3 + [_I, _I, _P], _I),
+                             [_F] * 3 + [_I] * 4 + [_P], _I),
     "dstt_sparse_flash": ([_I] + [_P] * 3 + [_L] * 3 + [_P] * 12 + [_I] +
                           [_P] * 3 + [_I] + [_P] * 3 + [_I] * 9 + [_F] * 3 +
                           [_I, _I, _P], _I),

@@ -30,6 +30,20 @@ grads that flow between neighbouring pipeline stages. Gloo moves CPU
 tensors only, so over gloo a CUDA tensor is staged through host memory
 (its copy sent, a host buffer received and copied to the card).
 
+Tensor and sequence parallelism (Megatron's operators, written by hand
+where the JAX package lets GSPMD partition): ``copy_to_group`` (the
+identity forward, an all-reduce of the grad backward) feeds a
+column-parallel product from the replicated stream;
+``reduce_from_group`` (an all-reduce forward, the identity backward)
+sums a row-parallel product's partial outputs; ``gather_from_group``
+(an all-gather along a dim forward, this rank's slice of the grad
+backward) makes a split value whole where every rank goes on with the
+same replicated computation; ``vocab_parallel_embedding`` looks up the
+rows of a vocab range and sums the ranges. ``ring_exchange`` sends
+tensors to the next rank of a ring and receives the previous rank's,
+each hop's receives posted before its sends (a gloo send with no
+receive posted would wait for ever) and waited at the hop's end.
+
 Not ported here: the ``shard_map`` shim and the all-to-all (ROADMAP
 queue 1 item 7). The sparse (CSR) exchange is ``runtime/csr_tensor.py``.
 """
@@ -146,10 +160,14 @@ def global_world_size() -> int:
     return dist.get_world_size() if is_initialized() else 1
 
 
-def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum over the ranks, in place on ``x``; returns it."""
+def all_reduce(x: torch.Tensor, group=None, op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (``op="max"``: the maximum) over the ranks, in place on
+    ``x``; returns it."""
     # (a 0-dim tensor goes as a 1-element view of itself)
-    dist.all_reduce(x.view(1) if x.dim() == 0 else x, group=group)
+    dist.all_reduce(x.view(1) if x.dim() == 0 else x, group=group,
+                    op=dist.ReduceOp.MAX if op == "max" else
+                    dist.ReduceOp.SUM)
     return x
 
 
@@ -241,6 +259,107 @@ def recv(shape, dtype: torch.dtype, device: torch.device,
     return buf.to(device, non_blocking=False)
 
 
+def ring_exchange(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """One hop of a ring over ``group``: each of ``tensors`` goes to the
+    group's next rank (rank + 1 mod n), and the previous rank's come
+    back, in the same shapes, on the same device. The receives are
+    posted first, then the sends, and all of them end before it
+    returns. Over gloo a CUDA tensor crosses through host memory."""
+    n = get_world_size(group)
+    me = get_rank(group)
+    nxt, prv = _global(group, (me + 1) % n), _global(group, (me - 1) % n)
+    host = bool(tensors) and _host(tensors[0], group)
+    bufs = [torch.empty(t.shape, dtype=t.dtype,
+                        device="cpu" if host else t.device)
+            for t in tensors]
+    works = [dist.irecv(b, prv, group=group) for b in bufs]
+    sends = [(t.detach().to("cpu") if host else t.detach().contiguous())
+             for t in tensors]
+    works += [dist.isend(t, nxt, group=group) for t in sends]
+    for w in works:
+        w.wait()
+    return [b.to(t.device) if host else b for b, t in zip(bufs, tensors)]
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank of ``group``'s ``x`` concatenated along ``dim``, in
+    rank order (not differentiable: ``gather_from_group`` is)."""
+    n = get_world_size(group)
+    if n == 1:
+        return x
+    flat = all_gather(x.contiguous(), group=group)
+    parts = flat.view(n, *x.shape).unbind(0)
+    return torch.cat(parts, dim=dim)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(), group=ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), \
+            None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: the identity forward; the grad all-reduced over
+    ``group`` backward (a replicated value entering a column-parallel
+    product)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over ``group`` forward; the grad
+    passes unchanged backward (a row-parallel product's partial
+    outputs)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` gathered along ``dim`` over ``group`` (rank order); backward
+    this rank's slice of the grad, which every rank computes whole from
+    the same replicated computation."""
+    return _GatherFromGroup.apply(x, dim, group)
+
+
+def vocab_parallel_embedding(wte: torch.Tensor, tokens: torch.Tensor,
+                             start: int, group) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding split by vocab range: this rank
+    holds rows ``[start, start + wte.shape[0])``; it looks up the tokens
+    in its range, writes zeros for the others, and the ranges are summed
+    over ``group`` (the grad of ``wte`` stays with its range)."""
+    local = tokens - start
+    inside = (local >= 0) & (local < wte.shape[0])
+    rows = wte[torch.where(inside, local, torch.zeros_like(local))]
+    rows = rows * inside.unsqueeze(-1).to(rows.dtype)
+    return reduce_from_group(rows, group)
+
+
 _HOST_GROUP = None
 
 
@@ -269,6 +388,8 @@ __all__ = ["init_distributed", "set_local_device", "is_initialized",
            "get_world_size", "get_rank", "global_rank", "global_world_size",
            "new_group", "isend", "recv", "all_reduce", "reduce_scatter",
            "all_gather", "all_gather_start", "gather", "broadcast",
-           "host_group", "any_ranks",
+           "host_group", "any_ranks", "ring_exchange", "all_gather_dim",
+           "copy_to_group", "reduce_from_group", "gather_from_group",
+           "vocab_parallel_embedding",
            "barrier",
            "default_backend"]

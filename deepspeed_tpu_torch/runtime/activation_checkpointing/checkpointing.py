@@ -18,10 +18,13 @@ plain call's bit for bit.
   sync, for CUDA tensors) and copies them back when the backward pass
   needs them.
 - ``partition_activations`` shards the residuals over the model-parallel
-  ranks; at a model-parallel size of 1 (the port's only one) it is the
-  identity. A model-parallel size above 1 raises here (an ``mpu`` saying
-  so) and in the engine (the ds_config ``mesh``): it waits for tensor
-  parallelism (ROADMAP queue 1 item 7, parallel axes and comm extras).
+  ranks of the ``mpu`` given to ``configure`` (a ``parallel/topology.
+  PipelineParallelGrid``, e.g. ``build_mesh(mp=2)``): each rank holds
+  its 1/mp slice of each residual along JAX's ``_default_spec`` dim
+  (dim 1 of a ``[B, S, ...]`` activation, dim 0 of a 1-D or 2-D tensor)
+  and the whole is all-gathered over the model group before the re-run;
+  a residual that dim does not split evenly (or that is not contiguous)
+  is held whole. At a model-parallel size of 1 it is the identity.
 - ``contiguous_checkpointing``, ``synchronize`` and ``profile`` are
   accepted for call-site parity: the caching allocator packs the
   residuals, and nothing runs on a stream of its own.
@@ -41,6 +44,7 @@ _config = {
     "partition_activations": False,
     "cpu_checkpointing": False,
     "configured": False,
+    "mp": None,          # (group, size, rank) of the model-parallel ranks
 }
 
 
@@ -51,13 +55,14 @@ def configure(mpu=None, deepspeed_config=None,
               synchronize: Optional[bool] = None,
               profile: Optional[bool] = None) -> None:
     """Reads the ``activation_checkpointing`` section of a
-    ``DeepSpeedConfig`` and/or explicit flags (the flags win)."""
-    if mpu is not None and \
-            int(mpu.get_model_parallel_world_size()) > 1:
-        raise NotImplementedError(
-            "partition_activations over a model-parallel size above 1 is "
-            "not ported yet (ROADMAP queue 1 item 7, parallel axes and "
-            "comm extras: tensor parallelism)")
+    ``DeepSpeedConfig`` and/or explicit flags (the flags win); ``mpu``
+    names the model-parallel ranks ``partition_activations`` splits
+    over."""
+    if mpu is not None:
+        size = int(mpu.get_model_parallel_world_size())
+        _config["mp"] = None if size <= 1 else (
+            mpu.get_model_parallel_group(), size,
+            int(mpu.get_model_parallel_rank()))
     ac = getattr(deepspeed_config, "activation_checkpointing_config", None)
     if ac is not None:
         _config["partition_activations"] = bool(ac.partition_activations)
@@ -71,6 +76,57 @@ def configure(mpu=None, deepspeed_config=None,
 
 def is_configured() -> bool:
     return bool(_config["configured"])
+
+
+def _default_dim(ndim: int) -> int:
+    """JAX ``_default_spec``'s split dim: the sequence dim of a ``[B, S,
+    ...]`` activation, else dim 0."""
+    return 1 if ndim >= 3 else 0
+
+
+class _MpSlice:
+    """A residual held as this rank's slice along ``_default_dim``;
+    ``restore()`` all-gathers the whole over the model group (a
+    collective: every rank's backward pass makes it, in the same
+    order). ``inner``: how the slice itself is held (host memory under
+    ``cpu_checkpointing``)."""
+    __slots__ = ("part", "dim", "mp")
+
+    def __init__(self, v: torch.Tensor, mp, inner=None):
+        group, size, rank = mp
+        self.dim, self.mp = _default_dim(v.dim()), mp
+        c = v.shape[self.dim] // size
+        part = v.narrow(self.dim, rank * c, c).contiguous()
+        self.part = part if inner is None else inner(part)
+
+    @property
+    def span(self) -> torch.Tensor:
+        p = self.part
+        return p if isinstance(p, torch.Tensor) else p.span
+
+    def restore(self) -> torch.Tensor:
+        from ...parallel import comm
+        p = self.part if isinstance(self.part, torch.Tensor) else \
+            self.part.restore()
+        return comm.all_gather_dim(p, self.dim, self.mp[0])
+
+
+def _holder(part: bool, cpu: bool):
+    """How a checkpointed call holds its residuals: whole (None: the
+    region's default, in host memory under ``cpu``), or as this rank's
+    slice where ``part`` and a model-parallel size above 1."""
+    mp = _config["mp"]
+    if not part or mp is None:
+        return None
+    from ...models.remat import _HostSpan
+    inner = _HostSpan if cpu else None
+
+    def hold(v: torch.Tensor):
+        d = _default_dim(v.dim())
+        if v.dim() == 0 or not v.is_contiguous() or v.shape[d] % mp[1]:
+            return v if inner is None else inner(v)
+        return _MpSlice(v, mp, inner)
+    return hold
 
 
 class _RngReplay:
@@ -115,7 +171,9 @@ def checkpoint_wrapper(fn: Callable,
     pinned)`` a residual."""
     cpu = _config["cpu_checkpointing"] if cpu_checkpointing is None \
         else bool(cpu_checkpointing)
-    # (partition_activations: the identity at a model-parallel size of 1)
+    part = _config["partition_activations"] if partition_activations is \
+        None else bool(partition_activations)
+    hold = _holder(part, cpu)
 
     def wrapped(*args):
         floats = [i for i, a in enumerate(args)
@@ -140,7 +198,7 @@ def checkpoint_wrapper(fn: Callable,
         region = Recompute([Op("fn", names, ("out",), call, draws=True)],
                            frozenset(), _RngReplay(
                                [args[i] for i in gens], devices),
-                           offload=cpu)
+                           offload=cpu, hold=hold)
         out = region.forward({}, {n: args[i] for n, i in zip(names,
                                                              floats)})["out"]
         wrapped.last_saved = [(int(n[3:]),) + _describe(v)
@@ -154,9 +212,14 @@ def checkpoint_wrapper(fn: Callable,
 
 def _describe(v: Any):
     """``(device, shape, pinned)`` of a held residual (a host span's
-    device is the host's)."""
-    t, shape = (v, v.shape) if isinstance(v, torch.Tensor) else \
-        (v.span, v.size)
+    device is the host's; a slice's shape is the slice's)."""
+    if isinstance(v, _MpSlice):
+        t = v.span
+        shape = t.shape if isinstance(v.part, torch.Tensor) else \
+            v.part.size
+    else:
+        t, shape = (v, v.shape) if isinstance(v, torch.Tensor) else \
+            (v.span, v.size)
     pinned = t.device.type == "cpu" and torch.cuda.is_available() and \
         t.is_pinned()
     return str(t.device), tuple(shape), bool(pinned)
@@ -174,7 +237,7 @@ def checkpoint(function: Callable, *args) -> Any:
 def reset() -> None:
     """Restore the defaults (a test hook)."""
     _config.update(partition_activations=False, cpu_checkpointing=False,
-                   configured=False)
+                   configured=False, mp=None)
 
 
 __all__ = ["configure", "is_configured", "checkpoint_wrapper", "checkpoint",

@@ -595,6 +595,23 @@ def pipe_parallel_size(param_dict: Dict[str, Any]) -> int:
     return int(pp or stages or 1)
 
 
+class MeshConfig:
+    """The ``mesh`` block's model (tensor) and sequence parallel sizes
+    (JAX ``MeshConfig``'s; the world's dp is what they leave)."""
+
+    def __init__(self, param_dict: Optional[Dict[str, Any]] = None):
+        d = (param_dict or {}).get(C.MESH, {}) or {}
+        get = config_utils.get_scalar_param
+        self.model_parallel_size = get(d, C.MESH_MODEL_PARALLEL_SIZE, 1) or 1
+        self.sequence_parallel_size = \
+            get(d, C.MESH_SEQUENCE_PARALLEL_SIZE, 1) or 1
+        for name in ("model_parallel_size", "sequence_parallel_size"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or v < 1:
+                raise DeepSpeedConfigError(
+                    f"{C.MESH}.{name} must be a positive int, got {v!r}")
+
+
 class ProgressiveLayerDropConfig:
     """The ``progressive_layer_drop`` block: ``enabled``, the schedule's
     floor ``theta`` and its decay rate ``gamma``
@@ -778,6 +795,7 @@ class DeepSpeedConfig:
         # joined by DCN.
         self.mesh_num_slices = get(d.get(C.MESH, {}), C.MESH_NUM_SLICES,
                                    C.MESH_NUM_SLICES_DEFAULT)
+        self.mesh_config = MeshConfig(d)
         if not isinstance(self.mesh_num_slices, int) or \
                 self.mesh_num_slices < 1:
             raise DeepSpeedConfigError(
@@ -877,8 +895,6 @@ class DeepSpeedConfig:
     def unported_features(self) -> List[Tuple[str, str]]:
         """``(feature, the ROADMAP slice that brings it)`` for every
         enabled block the port does not run yet."""
-        d = self._param_dict
-        mesh = d.get(C.MESH, {})
         world = int(self.world_size)
         checks = [
             # Above 8 the JAX package widens the fused optimizer's V to
@@ -890,15 +906,10 @@ class DeepSpeedConfig:
             (self.mesh_num_slices > 1,
              f"mesh.slices = {self.mesh_num_slices} (multi-slice scale-out "
              "and its hierarchical ICI/DCN gradient sync)",
-             "slice 6: parallel axes and comm extras, queue 1 item 7: "
-             "parallel/multislice.py"),
-            ((mesh.get(C.MESH_MODEL_PARALLEL_SIZE) or 1) > 1 or
-             (mesh.get(C.MESH_SEQUENCE_PARALLEL_SIZE) or 1) > 1,
-             "tensor/sequence parallelism",
-             "slice 6: parallel axes and comm extras"),
+             "queue 1 item 7: parallel/multislice.py"),
             (self.moe_config.expert_parallel_size > 1,
              "moe.expert_parallel_size > 1",
-             "slice 6: parallel axes and comm extras"),
+             "queue 1 item 7: MoE at ep > 1"),
         ]
         return [(name, where) for on, name, where in checks if on]
 

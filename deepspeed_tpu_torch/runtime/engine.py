@@ -188,7 +188,7 @@ import torch
 from .async_ckpt import (AsyncCheckpointer, CheckpointSnapshot,
                          LATEST_FILE, META_FILE, PreemptSaver,
                          commit_snapshot, crash_point, is_complete)
-from .config import DeepSpeedConfig
+from .config import DeepSpeedConfig, MeshConfig
 from .csr_tensor import CSRTensor, all_gather_csr
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import LossScaleState, update_loss_scale
@@ -207,7 +207,8 @@ from ..monitor.health import TapSpec, keystr_paths, leaf_sq_taps
 from ..monitor.memory import analytic_state_bytes, device_memory_stats
 from ..monitor.telemetry import HEALTH_TAP_KEY, Telemetry
 from ..parallel import comm
-from ..parallel.topology import dp_rank, dp_world_size
+from ..parallel import tensor_parallel as tpm
+from ..parallel.topology import build_mesh, dp_rank, dp_world_size
 from ..parallel.wire_model import grad_sync_wire_model
 from .zero.offload import ZeroOffloadOptimizer, run_bucketed_step
 from .zero.overlap import GradBuckets
@@ -226,6 +227,7 @@ from ..utils.timer import ThroughputTimer
 
 
 MODEL_FILE = "mp_rank_00_model_states.msgpack"
+MODEL_FILE_FMT = "mp_rank_{:02d}_model_states.msgpack"
 OPTIM_FILE_FMT = "zero_pp_rank_0_mp_rank_00_optim_states.msgpack"
 OPTIM_SHARD_FMT = "zero_pp_rank_{}_mp_rank_00_optim_states.msgpack"
 # engine_meta.json's marker of the V-interleaved moment layout.
@@ -379,6 +381,26 @@ def _overflow_resolution(state: EngineState, overflow: torch.Tensor, *,
     return fields
 
 
+def _gathering_loss(loss_fn: Callable, treedef: Any,
+                    axes: List[Optional[int]], tp: Any) -> Callable:
+    """``loss_fn`` over the whole leaves of a rank's parts: each split
+    leaf gathered over the model group (differentiably) before the
+    call (a loss without a tensor-parallel program declares no QKV
+    leaves: its parts are JAX's contiguous ranges)."""
+    def gathered(params, *args, **kwargs):
+        whole = []
+        for x, a in zip(tree_flatten(params)[0], axes):
+            if a is not None:
+                x = comm.gather_from_group(x, a, tp.group)
+            whole.append(x)
+        return loss_fn(tree_unflatten(treedef, whole), *args, **kwargs)
+    try:
+        gathered.__signature__ = inspect.signature(loss_fn)
+    except (TypeError, ValueError):
+        pass
+    return gathered
+
+
 def _unported(feature: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{feature} is not ported yet (ROADMAP "
                                f"{where})")
@@ -397,8 +419,17 @@ class DeepSpeedEngine:
                  device: Union[str, torch.device, None] = None,
                  sparse_grad_filter: Optional[Callable[[str, Any],
                                                        bool]] = None,
-                 zero3_scan: Any = None):
+                 zero3_scan: Any = None, param_shardings: Any = None,
+                 mesh: Any = None):
         self.device = resolve_device(device)
+        # Tensor and sequence parallelism: the grid (``mesh=``, else the
+        # ds_config's mesh block, as JAX's _build_mesh reads it), whose
+        # dp group (a column of fixed seq and model coordinates) every
+        # collective of the engine names.
+        grid = self._build_grid(config, mesh)
+        if grid is not None:
+            self.grid = grid
+            self._dp_group = grid.dp_group
         # One process per card: the dp world and rank are the default
         # process group's (parallel/comm.init_distributed), or a
         # pipeline stage's dp group (``_dp_group``, which every
@@ -473,6 +504,17 @@ class DeepSpeedEngine:
         self.loss_fn, init_params = self._normalize_model(model,
                                                           model_params)
         self.module = model
+        # This rank's part of each leaf a spec splits over the model axis
+        # (parallel/tensor_parallel.py); None without tensor parallelism.
+        self._tp = None
+        self._tp_axes: Optional[List[Optional[int]]] = None
+        self._tp_qkv: List[bool] = []
+        # (a mesh with a model axis but no param_shardings replicates
+        # every leaf, as GSPMD places unspecified leaves)
+        if self.grid is not None and self.grid.model_parallel_size > 1 \
+                and param_shardings is not None:
+            init_params = self._init_tensor_parallel(
+                init_params, param_shardings, offload, zero3_scan)
         # The per-layer prefetched stage-3 scan: bound below when this
         # engine runs stage 3 across ranks, else the model's normal loop.
         self._zero3_scan = zero3_scan
@@ -528,6 +570,12 @@ class DeepSpeedEngine:
             raise ValueError(
                 "OnebitAdam composes with ZeRO stage 0 only (reference: "
                 "it is an fp16-wrapper-level optimizer, not a ZeRO one)")
+        if self._onebit and param_shardings is not None:
+            raise NotImplementedError(
+                "OnebitAdam + tensor-parallel param_shardings: the "
+                "compressed step runs params replicated over dp; "
+                "combining with a TP layout would silently all-gather "
+                "every step")
         if self.config.zero_config.dcn_compression and \
                 self.config.mesh_num_slices <= 1:
             raise ValueError(
@@ -557,6 +605,17 @@ class DeepSpeedEngine:
         if optimizer is not None:
             self.optimizer = client_optimizer(optimizer, schedule_fn, base_lr)
         elif not offload:
+            name = (self.config.optimizer_name or C.ADAM_OPTIMIZER).lower()
+            if param_shardings is not None and name in (
+                    C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER) and \
+                    opt_params.get(C.OPTIMIZER_FUSED, True):
+                # (the JAX engine's fallback: its fused apply flattens
+                # leaves into chunk buffers)
+                logger.info("optimizer.params.fused: disabled under tensor-"
+                            "parallel param_shardings (flattened chunks do "
+                            "not compose with TP layouts); using the optax "
+                            "apply")
+                opt_params[C.OPTIMIZER_FUSED] = False
             self.optimizer = build_optimizer(
                 self.config.optimizer_name or C.ADAM_OPTIMIZER, opt_params,
                 schedule_fn)
@@ -650,6 +709,14 @@ class DeepSpeedEngine:
         # whole on every rank: its norm counts on rank 0 only.
         if any(sg.replicated for sg in self._shards) and self.dp_rank:
             self._norm_mask = [not sg.replicated for sg in self._shards]
+        # Under tensor parallelism a group of leaves whole on every model
+        # rank counts on model rank 0 only; the split groups' squares
+        # are summed over the model group (_norm_cross).
+        if self._tp is not None and self._tp.rank:
+            base = self._norm_mask or [True] * len(self._group_leaves)
+            self._norm_mask = [ok and self._tp_axes[idxs[0]] is not None
+                               for ok, idxs in zip(base,
+                                                   self._group_leaves)]
         self._scratch: Dict[Tuple[int, torch.dtype], torch.Tensor] = {}
         if scan:
             self._bind_zero3_scan(zero3_scan)
@@ -921,6 +988,64 @@ class DeepSpeedEngine:
                              "model")
         return model, model_params
 
+    @staticmethod
+    def _build_grid(config: Any, mesh: Any) -> Any:
+        """The grid of ``mesh=`` or of the ds_config's mesh block (JAX
+        ``_build_mesh``): None without one and with mp = sp = 1."""
+        if mesh is not None:
+            return mesh
+        if isinstance(config, DeepSpeedConfig):
+            mc = config.mesh_config
+        else:
+            raw = config
+            if isinstance(config, str):
+                from .config_utils import load_config_json
+                raw = load_config_json(config)
+            mc = MeshConfig(raw if isinstance(raw, dict) else {})
+        if mc.model_parallel_size == 1 and mc.sequence_parallel_size == 1:
+            return None
+        return build_mesh(mp=mc.model_parallel_size,
+                          sp=mc.sequence_parallel_size)
+
+    def _init_tensor_parallel(self, init_params: Any, param_shardings: Any,
+                              offload: bool, zero3_scan: Any) -> Any:
+        """Bind the model axis: this rank's parts of the leaves its spec
+        splits (JAX ``param_shardings``); a model that runs its own
+        tensor-parallel program (``loss_fn.tp``: gpt2, BERT, which declare
+        the placement it takes and their vocabulary and QKV leaves) gets
+        them as they are, any other loss the split leaves gathered whole
+        for its forward (``comm.gather_from_group``: each rank computes
+        the replicated function, and its grad comes back sliced)."""
+        where = "ROADMAP queue 1 item 7"
+        blocked = [(offload, "zero_optimization.cpu_offload"),
+                   (self.config.sparse_gradients_enabled,
+                    "sparse_gradients"),
+                   (zero3_scan is not None, "the zero3 layer scan"),
+                   (self._moe_metrics, "a moe block")]
+        for on, name in blocked:
+            if on:
+                raise NotImplementedError(
+                    f"{name} under tensor parallelism is not ported yet "
+                    f"({where})")
+        grid, fn = self.grid, self.loss_fn
+        program = hasattr(fn, "tp")
+        local, self._tp, axes, self._tp_qkv = tpm.shard_params(
+            init_params, param_shardings, grid,
+            vocab_leaves=getattr(fn, "vocab_leaves", ()) if program else (),
+            qkv_leaves=getattr(fn, "qkv_leaves", ()) if program else (),
+            own=getattr(fn, "param_shardings", None) if program else None)
+        self._tp_axes = axes
+        if program:
+            fn.tp = self._tp
+        elif any(a is not None for a in axes):
+            self.loss_fn = _gathering_loss(fn, tree_flatten(local)[1], axes,
+                                           self._tp)
+        log_dist(f"tensor parallelism: mp={grid.model_parallel_size} x sp="
+                 f"{grid.seq_parallel_size} x dp={grid.data_parallel_size}, "
+                 f"{sum(a is not None for a in axes)} of {len(axes)} leaves "
+                 "split over the model axis", ranks=[0])
+        return local
+
     def _loss_scaler_config(self) -> Dict[str, Any]:
         cfg = self.config
         if cfg.fp16_enabled:
@@ -1150,7 +1275,8 @@ class DeepSpeedEngine:
                 "set_train_state takes device optimizer state; an offload "
                 "engine's state is its host ZeroOffloadOptimizer "
                 "(load_checkpoint, or engine.optimizer.load_state_dict)")
-        self._write_params(tree_flatten(params)[0])
+        leaves = tree_flatten(params)[0]
+        self._write_params(self._tp_local_leaves(leaves))
         self._write_opt_state(opt_state, step, loss_scale, growth_count,
                               hysteresis, skipped_steps)
         self.global_steps = int(step) + int(skipped_steps)
@@ -1163,7 +1289,7 @@ class DeepSpeedEngine:
         with torch.no_grad():
             if self._zero3:
                 if any(x is None for x in leaves):
-                    cur = tree_flatten(self.full_params())[0]
+                    cur = tree_flatten(self._dp_full_params())[0]
                     leaves = [c if x is None else x
                               for c, x in zip(cur, leaves)]
                 for sg, idxs in zip(self._shards, self._group_leaves):
@@ -1182,15 +1308,26 @@ class DeepSpeedEngine:
     def full_params(self) -> Any:
         """The whole parameter tree: ``state.params`` itself, except at
         ZeRO stage 3 across ranks, where each rank holds its rows and
-        this gathers the leaves (a collective: call it on every
+        this gathers the leaves, and under tensor parallelism, where it
+        gathers the model ranks' parts (a collective: call it on every
         rank)."""
+        tree = self._dp_full_params()
+        if self._tp is None:
+            return tree
+        with torch.no_grad():
+            return tree_unflatten(self._treedef, [
+                tpm.whole_leaf(x, q, a, self._tp) for x, q, a in zip(
+                    tree_flatten(tree)[0], self._tp_qkv, self._tp_axes)])
+
+    def _dp_full_params(self) -> Any:
+        """This rank's parameter tree, whole over the dp ranks."""
         if self._offload_z3:
             with torch.no_grad():
                 return tree_unflatten(self._treedef, _Gathering(
                     self._param_views,
                     [DimPart(s, ax) for s, ax in zip(self._leaf_shapes,
                                                      self._offload._axes)],
-                    self.compute_dtype).wait())
+                    self.compute_dtype, self._dp_group).wait())
         if not self._zero3:
             return self.state.params
         out: List[Any] = [None] * len(self._leaf_shapes)
@@ -1731,14 +1868,27 @@ class DeepSpeedEngine:
     # The hooks a pipeline stage (runtime/pipe/engine.py) overrides.
     _norm_mask: Optional[List[bool]] = None
     # The data-parallel group every collective of the engine names
-    # (None: the default group; a pipeline stage's dp ranks).
+    # (None: the default group; a pipeline stage's dp ranks, or a
+    # tensor/sequence-parallel column's), and the grid it comes from.
     _dp_group = None
+    grid = None
 
     def _leaf_groups(self, masters: List[torch.Tensor]
                      ) -> List[Tuple[torch.dtype, List[int]]]:
         """The flat groups of the leaves: one a dtype (JAX's
-        ``_float_groups``)."""
-        return float_groups(masters)
+        ``_float_groups``); under tensor parallelism each splits in the
+        leaves the model axis splits and the leaves whole on every model
+        rank (which the norm counts once)."""
+        groups = float_groups(masters)
+        if self._tp_axes is None:
+            return groups
+        out = []
+        for dt, idxs in groups:
+            for part in ([i for i in idxs if self._tp_axes[i] is not None],
+                         [i for i in idxs if self._tp_axes[i] is None]):
+                if part:
+                    out.append((dt, part))
+        return out
 
     def _cross_stage(self, mean_loss: torch.Tensor) -> torch.Tensor:
         """After the grads' reduction over the dp ranks: what crosses
@@ -1753,8 +1903,12 @@ class DeepSpeedEngine:
 
     def _norm_cross(self) -> Optional[Callable[[torch.Tensor], Any]]:
         """The in-place sum of the global norm's square over the
-        pipeline stages (none without a pipeline)."""
-        return None
+        pipeline stages, or over the model group under tensor
+        parallelism (none otherwise)."""
+        if self._tp is None:
+            return None
+        group = self._tp.group
+        return lambda nsq: comm.all_reduce(nsq, group=group)
 
     def _grad_tap(self, inv_scale: Any = None) -> Optional[torch.Tensor]:
         """The health tap (monitor/health.py), with telemetry's
@@ -2105,7 +2259,7 @@ class DeepSpeedEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         with torch.no_grad():
             if self._offload_z3 or self._zero3:
-                params = self.full_params()
+                params = self._dp_full_params()
             elif self._offload is not None:
                 params = tree_unflatten(self._treedef, self._param_views)
             elif self.state.cast_params is not None:
@@ -2222,7 +2376,7 @@ class DeepSpeedEngine:
                 # for the backward by autograd's saved slices).
                 full = gather_parts(parts, [FlatPart(sg.full_numel,
                                                      sg.replicated)],
-                                    dtype)[0]
+                                    dtype, self._dp_group)[0]
                 for i, t in zip(idxs, sg.leaf_slices(full)):
                     leaves[i] = t
                 inputs += parts
@@ -2234,9 +2388,11 @@ class DeepSpeedEngine:
                 shape = self._leaf_shapes[i]
                 part = RowPart(shape) if sg is not None else \
                     DimPart(shape, self._offload._axes[i])
-                leaves[i] = gather_parts([x], [part], dtype)[0]
+                leaves[i] = gather_parts([x], [part], dtype,
+                                         self._dp_group)[0]
                 regather[i] = ((lambda x=x, part=part: _Gathering(
-                    [x.detach()], [part], dtype).wait()[0]), leaves[i])
+                    [x.detach()], [part], dtype, self._dp_group).wait()[0]),
+                    leaves[i])
             inputs += parts
         return inputs, tree_unflatten(self._treedef, leaves), regather
 
@@ -2603,7 +2759,7 @@ class DeepSpeedEngine:
         snap = self._snapshot_checkpoint(save_dir, tag, client_state,
                                          save_latest)
         path = commit_snapshot(snap)
-        if self.dp > 1:
+        if comm.global_world_size() > 1:
             comm.barrier()       # the other ranks wait for rank 0's commit
         self._note_saved(save_dir, save_latest)
         log_dist(f"saved checkpoint {path}", ranks=[0])
@@ -2682,7 +2838,10 @@ class DeepSpeedEngine:
         names = list(state_buffers(opt))
         flat_bufs = [b for n in names for b in state_buffers(opt)[n]]
         K = len(flat_bufs)
-        is_writer = self.dp_rank == 0
+        # (under tensor parallelism the files hold whole leaves, which
+        # global rank 0 writes)
+        is_writer = self.dp_rank == 0 if self._tp is None else \
+            comm.global_rank() == 0
         per_rank = self._per_rank_writers and dp > 1 and \
             isinstance(self.optimizer, FusedAdam)
         if self._shard_local and per_rank:
@@ -2708,7 +2867,9 @@ class DeepSpeedEngine:
             if self._zero3:
                 rows += [comm.gather(sg.param, group=self._dp_group)
                          for sg in self._shards]
-            if not is_writer:
+            # (under tensor parallelism every column's dp rank 0 goes on:
+            # the model ranks gather their parts below)
+            if self.dp_rank != 0:
                 self.skipped_steps = int(st.skipped_steps)
                 return CheckpointSnapshot(
                     save_dir=save_dir, tag=str(tag),
@@ -2762,6 +2923,8 @@ class DeepSpeedEngine:
             return msgpack_serialize({"module": host_params_fn()})
 
         blobs: List[Any] = [(MODEL_FILE, model_blob)]
+        if self._tp is not None:
+            blobs = self._tp_model_blobs(meta, host_params_fn())
         meta["optim_shards"] = dp
         if not isinstance(self.optimizer, FusedAdam):
             # An optax chain: its state's leaves whole (rank 0 writes one
@@ -2894,7 +3057,8 @@ class DeepSpeedEngine:
                     lv = self._groups[gi].views(buf)
                 for i, t in zip(idxs, lv):
                     leaves[i] = t
-            per_name[name] = leaves
+            per_name[name] = leaves if self._tp is None else \
+                self._tp_whole(leaves)
         out: List[Any] = []
         for entry in layout:
             if entry == COUNT:
@@ -2902,6 +3066,55 @@ class DeepSpeedEngine:
             else:
                 out += per_name[entry]
         return out
+
+    def _tp_whole(self, leaves: List[Any]) -> List[torch.Tensor]:
+        """Host leaves (tree order) whole over the model ranks: each
+        rank's parts gathered, the QKV leaves back in JAX's order (a
+        collective of the model group)."""
+        return [tpm.whole_leaf(_as_tensor(x).to(self.device), q, a,
+                               self._tp).cpu()
+                for x, q, a in zip(leaves, self._tp_qkv, self._tp_axes)]
+
+    def _tp_model_blobs(self, meta: Dict[str, Any], local: Any
+                        ) -> List[Any]:
+        """The model files of a tensor-parallel engine (JAX
+        ``_snapshot_model_blobs``): one ``mp_rank_XX`` file a model rank,
+        each holding JAX's contiguous slice of each split leaf on its
+        spec's dim (keys: the leaf's index in tree order), a leaf that
+        does not split evenly whole in shard 0; ``mp_shards`` and
+        ``param_shard_axes`` in the meta. The leaves are gathered whole
+        here (a collective), the slicing and encoding run in the lazy
+        builders."""
+        whole = [x.numpy() for x in self._tp_whole(tree_flatten(local)[0])]
+        mp, axes = self._tp.size, self._tp_axes
+        if not any(a is not None for a in axes):
+            tree = tree_unflatten(self._treedef, whole)
+            return [(MODEL_FILE, lambda: msgpack_serialize({"module": tree}))]
+        meta["mp_shards"] = mp
+        meta["param_shard_axes"] = list(axes)
+
+        def build(r: int) -> bytes:
+            blob: Dict[str, Any] = {}
+            for i, (leaf, ax) in enumerate(zip(whole, axes)):
+                if ax is None:
+                    if r == 0:
+                        blob[str(i)] = np.asarray(leaf)
+                    continue
+                c = leaf.shape[ax] // mp
+                sl = [slice(None)] * leaf.ndim
+                sl[ax] = slice(r * c, (r + 1) * c)
+                blob[str(i)] = np.ascontiguousarray(leaf[tuple(sl)])
+            return msgpack_serialize(blob)
+        return [(MODEL_FILE_FMT.format(r), lambda r=r: build(r))
+                for r in range(mp)]
+
+    def _tp_local_leaves(self, leaves: List[Any]) -> List[Any]:
+        """Whole leaves (tree order; None kept) as this rank's parts."""
+        if self._tp is None:
+            return leaves
+        return [None if x is None else tpm.to_local(
+            _as_tensor(x), q, a, self._tp.size, self._tp.rank)
+            for x, q, a in zip(leaves, self._tp_qkv, self._tp_axes)]
 
     def preempt_save(self, reason: str = "SIGTERM") -> bool:
         """Final snapshot+commit for a dying run — the PreemptSaver's
@@ -2994,10 +3207,12 @@ class DeepSpeedEngine:
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
 
-        if meta.get("mp_shards"):
+        if meta.get("mp_shards") and (self._offload is not None or
+                                      self._onebit):
             raise _unported(f"a tensor-parallel checkpoint "
-                            f"({meta['mp_shards']} mp_rank model files)",
-                            "slice 6: parallel axes and comm extras")
+                            f"({meta['mp_shards']} mp_rank model files) "
+                            "under ZeRO-Offload or 1-bit Adam",
+                            "ROADMAP queue 1 item 7")
         if self._offload is not None:
             return self._load_offload(path, meta, load_module_strict,
                                       load_optimizer_states,
@@ -3057,6 +3272,17 @@ class DeepSpeedEngine:
                 with open(fp, "rb") as f:
                     module[key] = msgpack_restore(f.read())
             probe = {"module": module}
+        elif meta.get("mp_shards"):
+            # A tensor-parallel tag (JAX's mp_rank files): the leaves
+            # assembled whole (JAX ``_assemble_shards``).
+            blobs = self._read_shard_blobs(path, MODEL_FILE_FMT,
+                                           int(meta["mp_shards"]))
+            if blobs is None:
+                return None, {}
+            probe = {"module": tree_unflatten(
+                self._treedef, self._assemble_shards(
+                    blobs, meta["param_shard_axes"],
+                    len(self._leaf_shapes)))}
         else:
             model_file = os.path.join(path, MODEL_FILE)
             if not os.path.isfile(model_file):
@@ -3069,6 +3295,10 @@ class DeepSpeedEngine:
                     f"{model_file} is a SHARDED (mp_rank) model checkpoint "
                     "but engine_meta.json does not say so — restore the "
                     "sidecar")
+        if self._tp is not None:
+            probe["module"] = tree_unflatten(
+                self._treedef, self._tp_local_leaves(
+                    tree_flatten(probe["module"])[0]))
         new_leaves = self._checkpoint_param_leaves(probe["module"],
                                                    load_module_strict)
 
@@ -3298,7 +3528,8 @@ class DeepSpeedEngine:
             if entry == COUNT:
                 count = np.int32(np.asarray(next(it)))
                 continue
-            got = [_as_tensor(next(it)) for _ in self._leaf_shapes]
+            got = self._tp_local_leaves(
+                [_as_tensor(next(it)) for _ in self._leaf_shapes])
             for p, x, shape in zip(_leaf_paths(self.state.params), got,
                                    self._leaf_shapes):
                 if tuple(x.shape) != tuple(shape):

@@ -773,15 +773,6 @@ class PipelineEngine(DeepSpeedEngine):
             meta=meta, blobs=blobs, is_writer=comm.global_rank() == 0,
             fsync=self._ckpt_fsync)
 
-    def _save_checkpoint(self, save_dir, tag=None, client_state=None,
-                         save_latest=True):
-        out = super()._save_checkpoint(save_dir, tag, client_state,
-                                       save_latest)
-        if self.grid is not None and self.num_stages > 1:
-            # (rank 0 commits; every rank returns after the commit)
-            torch.distributed.barrier()
-        return out
-
     def _load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                          load_optimizer_states=True,
                          load_lr_scheduler_states=True):

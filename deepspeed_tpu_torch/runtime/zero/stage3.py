@@ -173,8 +173,8 @@ class _Gathering:
     leaves. Holds nothing of the parts once started."""
 
     def __init__(self, parts: List[torch.Tensor], codecs: List[Any],
-                 dtype: torch.dtype):
-        self.codecs = codecs
+                 dtype: torch.dtype, group=None):
+        self.codecs, self.group = codecs, group
         self.whole = [p.detach().to(dtype).clone() if c.whole else None
                       for p, c in zip(parts, codecs)]
         self.sizes = [0 if c.whole else p.numel()
@@ -189,9 +189,10 @@ class _Gathering:
                 if k:
                     c.put(p.detach(), self.send[off:off + k])
                     off += k
-            self.out = torch.empty(comm.get_world_size() * K, dtype=dtype,
-                                   device=dev)
-            self.work = comm.all_gather_start(self.send, self.out)
+            self.out = torch.empty(comm.get_world_size(group) * K,
+                                   dtype=dtype, device=dev)
+            self.work = comm.all_gather_start(self.send, self.out,
+                                              group=group)
 
     def wait(self) -> List[torch.Tensor]:
         if self.work is not None:
@@ -199,7 +200,7 @@ class _Gathering:
             self.work = None
         leaves: List[torch.Tensor] = []
         rows = None if self.out is None else \
-            self.out.view(comm.get_world_size(), -1)
+            self.out.view(comm.get_world_size(self.group), -1)
         one = sum(1 for k in self.sizes if k) == 1
         off = 0
         for c, k, w in zip(self.codecs, self.sizes, self.whole):
@@ -215,18 +216,18 @@ class _Gathering:
 
 def _scatter_grads(grads: Tuple[Optional[torch.Tensor], ...],
                    codecs: List[Any], shapes: List[Tuple[int, ...]],
-                   device: torch.device) -> List[torch.Tensor]:
+                   device: torch.device, group=None) -> List[torch.Tensor]:
     """The parts' grads of the leaves' grads (None: zero): each widened
     to fp32, one reduce-scatter for the split leaves, an all-reduce for
-    each whole one."""
-    world = comm.get_world_size()
+    each whole one (over ``group``, the dp ranks)."""
+    world = comm.get_world_size(group)
     out: List[Any] = [None] * len(codecs)
     blocks, order = [], []
     for i, (g, c, shape) in enumerate(zip(grads, codecs, shapes)):
         if g is None:
             g = torch.zeros(c.shape, dtype=torch.float32, device=device)
         if c.whole:
-            out[i] = comm.all_reduce(g.float().clone())
+            out[i] = comm.all_reduce(g.float().clone(), group=group)
             continue
         k = math.prod(shape)
         blocks.append(c.rows(g, world, k))
@@ -234,7 +235,7 @@ def _scatter_grads(grads: Tuple[Optional[torch.Tensor], ...],
     if blocks:
         full = torch.cat(blocks, dim=1) if len(blocks) > 1 \
             else blocks[0].contiguous()
-        red = comm.reduce_scatter(full.view(-1))
+        red = comm.reduce_scatter(full.view(-1), group=group)
         off = 0
         for i, k in order:
             out[i] = codecs[i].part(red[off:off + k], shapes[i])
@@ -250,7 +251,7 @@ class _Gathered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gathering, *parts):
-        ctx.codecs = gathering.codecs
+        ctx.codecs, ctx.group = gathering.codecs, gathering.group
         ctx.parts = [(tuple(p.shape), p.dtype) for p in parts]
         ctx.device = parts[0].device
         return tuple(gathering.wait())
@@ -258,17 +259,19 @@ class _Gathered(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         out = _scatter_grads(grads, ctx.codecs, [s for s, _ in ctx.parts],
-                             ctx.device)
+                             ctx.device, ctx.group)
         return (None,) + tuple(g.to(dt) for g, (_, dt) in
                                zip(out, ctx.parts))
 
 
 def gather_parts(parts: List[torch.Tensor], codecs: List[Any],
-                 dtype: torch.dtype) -> List[torch.Tensor]:
+                 dtype: torch.dtype, group=None) -> List[torch.Tensor]:
     """The leaves, in ``dtype``, of every rank's ``parts`` (``codecs``
-    say how each is laid), in one collective; their gradient with
-    respect to the parts is the fp32 reduce-scatter of the leaves'."""
-    return list(_Gathered.apply(_Gathering(parts, codecs, dtype), *parts))
+    say how each is laid), in one collective over ``group`` (the dp
+    ranks; None: the default group); their gradient with respect to the
+    parts is the fp32 reduce-scatter of the leaves'."""
+    return list(_Gathered.apply(_Gathering(parts, codecs, dtype, group),
+                                *parts))
 
 
 def gather_cast(x: torch.Tensor, shape: Tuple[int, ...],

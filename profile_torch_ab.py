@@ -12,6 +12,10 @@ each turn its own process with that checkout's kernels built.
 - ``--phase moe``: ``train_moe`` (gpt2-small, 8 experts top-2, 12 bf16
   steps): its step p50; a checkout with the tile resolver resolves its
   K9 keys first, as ``chip_smoke.py`` does.
+- ``--phase telemetry``: ``train_telemetry`` (the main recipe on two
+  engines interleaved a step at a time, telemetry on and off): the step
+  p50 of each and their ratio (the phase's own 1.10 limit lifted, so a
+  turn reports it instead of failing).
 
     python3 profile_torch_ab.py --turns a:PATH_A,b:PATH_B,b:PATH_B,a:PATH_A
 
@@ -65,9 +69,22 @@ if hasattr(cs, "autotune_k9"):
                        torch.cuda.get_device_properties(dev)
                        .multi_processor_count)
 cs.train_moe(dev, smi)
+""",
+    "telemetry": """
+import contextlib, io, subprocess, tempfile, torch
+import chip_smoke as cs
+cs.TELEMETRY_OVERHEAD = float("inf")
+with contextlib.redirect_stdout(io.StringIO()):
+    cs.op_builder.load(verbose=True)
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True).stdout.strip()
+with tempfile.TemporaryDirectory() as d:
+    cs.train_telemetry(torch.device("cuda"), smi, d)
 """}
 SERVE_FIELDS = ("ttft_ms_p50", "tpot_ms_p50", "tokens_per_s",
                 "decode_step_ms_p50")
+TELEMETRY_FIELDS = ("step_ms_p50_on", "step_ms_p50_off", "p50_ratio")
 # the training paths' records and the field read from each
 TRAIN_RECORDS = ("train_path", "train_fp16_path", "train_master_free_path",
                  "train_s768_path", "train_gelu_exact_path",
@@ -85,6 +102,9 @@ def rows(phase, line):
     if phase == "serve" and "serve" in rec:
         r = rec["serve"]
         return str(r["path"]), {f: r[f] for f in SERVE_FIELDS}
+    if phase == "telemetry" and "train_telemetry" in rec:
+        r = rec["train_telemetry"]
+        return "train_telemetry", {f: r[f] for f in TELEMETRY_FIELDS}
     if phase in ("train", "moe"):
         for name in TRAIN_RECORDS:
             if name in rec and "step_ms_p50" in rec[name]:

@@ -4,7 +4,9 @@ package's ``tests/test_activation_checkpointing.py`` checks its own:
 the checkpointed call's gradients against the plain call's (here bit
 for bit: the backward pass is autograd's graph of the same forward),
 the random draws replayed, ``partition_activations`` (the identity at a
-model-parallel size of 1), ``cpu_checkpointing`` holding the residuals
+model-parallel size of 1; at 2 each rank holds its slices, whose
+backward across two ranks is in tests/test_torch_tp_checkpoint.py),
+``cpu_checkpointing`` holding the residuals
 on the host, and ``configure``/``is_configured``/``reset``; the config
 section against the JAX package's.
 """
@@ -81,8 +83,22 @@ def test_partitioned_checkpoint_is_the_identity_at_mp1():
     class MP2:
         def get_model_parallel_world_size(self):
             return 2
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ck.configure(mpu=MP2(), partition_activations=True)
+
+        def get_model_parallel_rank(self):
+            return 1
+
+        def get_model_parallel_group(self):
+            return None
+    # At mp 2 the path runs: the forward holds rank 1's halves along JAX's
+    # _default_spec dim (the sequence dim of x, dim 0 of w).
+    ck.configure(mpu=MP2(), partition_activations=True)
+    wrapped = ck.checkpoint_wrapper(_fn)
+    torch.manual_seed(3)
+    out = wrapped(w, x, torch.Generator().manual_seed(3))
+    torch.manual_seed(3)
+    assert torch.equal(out, _fn(w, x, torch.Generator().manual_seed(3)))
+    assert {r[0]: r[2] for r in wrapped.last_saved} == {0: (8, 16),
+                                                        1: (8, 2, 16)}
 
 
 def test_cpu_offload_checkpoint():

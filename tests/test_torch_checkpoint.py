@@ -57,6 +57,7 @@ from deepspeed_tpu.runtime import config as jconfig
 from deepspeed_tpu_torch.inference import InferenceEngine as TEngine
 from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
+from deepspeed_tpu_torch.ops.fused_update import tree_flatten
 from deepspeed_tpu_torch.runtime import async_ckpt
 from deepspeed_tpu_torch.runtime import config as tconfig
 from deepspeed_tpu_torch.runtime import flax_msgpack as fm
@@ -694,6 +695,33 @@ def test_unported_checkpoint_layouts_raise(tmp_path, meta, match):
         path, _ = eng.load_checkpoint(str(tmp_path))
         assert path is not None and eng.global_steps == 1
         for a, b in zip(eng._offload.masters, src._offload.masters):
+            assert torch.equal(a, b)
+        return
+    if meta.get("mp_shards"):
+        # Tensor-parallel tags are ported: JAX's mp_rank files (a split
+        # leaf's contiguous slices, the others whole in shard 0) load,
+        # assembled, into an engine at any model-parallel size (across
+        # ranks: tests/test_torch_tp_checkpoint.py holds them against
+        # JAX's files). Here the port's tag is rewritten as two shards,
+        # wte split by rows.
+        src = _port_engine("fp32")
+        tag = _saved_tag(tmp_path, src)
+        model = tag / "mp_rank_00_model_states.msgpack"
+        leaves = tree_flatten(fm.msgpack_restore(model.read_bytes())
+                              ["module"])[0]
+        axes = [0 if x.shape == (512, 128) else None for x in leaves]
+        for r in range(2):
+            blob = {str(i): (x[r * 256:(r + 1) * 256] if ax == 0 else x)
+                    for i, (x, ax) in enumerate(zip(leaves, axes))
+                    if ax == 0 or r == 0}
+            (tag / f"mp_rank_{r:02d}_model_states.msgpack").write_bytes(
+                fm.msgpack_serialize(blob))
+        _edit_meta(tag, mp_shards=2, param_shard_axes=axes)
+        eng = _port_engine("fp32", seed=7)
+        path, _ = eng.load_checkpoint(str(tmp_path))
+        assert path is not None and eng.global_steps == 1
+        for a, b in zip(tree_flatten(eng.state.params)[0],
+                        tree_flatten(src.state.params)[0]):
             assert torch.equal(a, b)
         return
     tag = _saved_tag(tmp_path)

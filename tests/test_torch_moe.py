@@ -486,15 +486,16 @@ def test_moe_raises_where_the_port_has_no_path():
     tcfg, _ = _cfgs()
     params = tgpt2.gpt2_init(tcfg, torch.Generator().manual_seed(0), "cpu")
     # expert parallelism: the ds_config block, the model, the layer
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # (ROADMAP queue 1 item 7: MoE at ep > 1)
+    with pytest.raises(NotImplementedError, match="item 7"):
         deepspeed_tpu_torch.initialize(
             model=tgpt2.gpt2_loss_fn(tcfg), model_params=params,
             config=_ds(expert_parallel_size=2), device="cpu")
     ep2 = dataclasses.replace(tcfg, moe=_moe(tmoe, expert_parallel_size=2))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tgpt2.gpt2_loss_fn(ep2)
     x = torch.zeros(1, 4, tcfg.hidden_size)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tlayer.moe_ffn({}, x, ep2)
     # grouped_gemm False has no CUDA path (checked before anything
     # touches the device, so it runs anywhere)

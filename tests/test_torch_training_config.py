@@ -504,6 +504,32 @@ def test_unported_config_raises(extra, match, tmp_path, monkeypatch):
         with pytest.raises(DeepSpeedConfigError, match="dict"):
             DeepSpeedConfig(dict(BASE, pipeline=2), world_size=1)
         return
+    if match == "tensor/sequence":
+        # Tensor and sequence parallelism are ported: the mesh block no
+        # longer names an unported feature; a world of one refuses mp 2
+        # with JAX's mesh error; a world of two trains a step through it
+        # (tests/test_torch_tensor_parallel.py holds it against JAX).
+        from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+        ds = dict(BASE, **extra)
+        assert DeepSpeedConfig(ds, world_size=1).unported_features() == []
+        with pytest.raises(ValueError, match="not divisible by mp"):
+            _init(ds)
+        import torch_dp_worker as W
+        from test_torch_dp import load, save_params, wait
+        save_params({k: v.numpy() if not isinstance(v, dict) else
+                     {n: t.numpy() for n, t in v.items()}
+                     for k, v in gpt2_init(
+                         CFG, torch.Generator().manual_seed(0),
+                         "cpu").items()}, str(tmp_path / "p.npz"))
+        np.save(tmp_path / "b.npy", np.random.default_rng(0).integers(
+            0, 512, (1, 4, 33)).astype(np.int32))
+        wait(W.spawn_forked(tmp_path, 2, [dict(
+            name="mp2", precision="fp32", stage=0, mesh={"mp": 2},
+            batches=str(tmp_path / "b.npy"),
+            out=str(tmp_path / "mp2"))], "w2", str(tmp_path / "p.npz")))
+        for r in load(str(tmp_path / "mp2"), 2):
+            assert np.isfinite(r["loss"]).all() and len(r["loss"]) == 1
+        return
     if match == "dcn_compression":
         # (F3) the JAX engine's refusal on a single slice
         with pytest.raises(ValueError, match="zero_optimization."

@@ -57,6 +57,49 @@ by tree path), and ``jobs``, run in order on one gloo process group:
   ``{out}.rank{r}.crash`` (the save's error, or ``saved``) and exits
   at once (the job must be the last: no collective follows).
 
+``mesh`` (``{"mp": M, "sp": S}``) runs tensor and sequence parallelism
+on gpt2-tiny: the world is dp x sp x mp (rank = (d * sp + s) * mp + m,
+JAX ``build_mesh``'s order), every rank builds the grid
+(``topology.build_mesh``) and passes it to ``initialize`` with
+``gpt2_param_shardings(cfg)`` (mp > 1), the model's attention the ring
+(``ring_attention_fn``, sp > 1); each rank takes its dp rank's rows.
+``model: "mpfile"`` is the plain loss of JAX's
+``test_mp_sharded_model_files`` (``w [64, 8]`` split on its rows, ``b``;
+batches an ``.npz`` of ``x`` and ``y``). The full parameters recorded
+are the whole leaves (``engine.full_params`` gathers the model ranks'
+parts). ``apply: true`` trains nothing: it writes gpt2-tiny's
+``gpt2_apply`` logits on the first batch's inputs (``logits``), the
+loss of ``gpt2_loss_fn`` on its rows and that loss's grads (whole,
+flat, tree order: ``grads``), each rank holding its parts; and the
+same for bert-tiny's MLM loss on the ``bert_inputs`` ``.npz``
+(``tokens``, ``labels``) with each ``[vocab, params path]`` of
+``bert`` (``bert<vocab>_loss``, ``bert<vocab>_grads``; a vocabulary
+of 510 does not split at mp 4, so ``wte`` and ``decoder_bias`` stay
+whole), and the largest difference of each from the whole model's in
+this process (``bert_diff``).
+
+``ring`` (the ``.npz`` of ``q``, ``k``, ``v``, ``probe``, a block
+input ``x`` and the stacked params of a 2-layer block, ``blocks/...``)
+trains nothing: on a ``build_mesh(sp=world)`` grid it writes
+``ring_attention``'s output and the grads of ``sum(o * probe)``, causal
+and not (``o1``, ``dq1``, ... / ``o0``, ...), and ``apply_blocks``'s
+output with ``ring_attention_fn`` as the attention (``y``).
+
+``serve`` (the ``inference`` block) trains nothing: gpt2-tiny (fp32)
+served by ``InferenceEngine`` on a ``build_mesh(mp=, sp=)`` grid with
+``gpt2_param_shardings`` (the ``mesh`` key): two prompts prefilled
+(lengths 11 and 17), six decode steps (``logits``: ``[8, ...]`` rows,
+``toks``), then ``serve()`` of six synthetic requests arriving at once,
+greedy and at temperature 0.8 (``streams``: six rows each, the tokens
+padded with -1).
+
+``partition: true`` trains nothing: on a ``build_mesh(mp=world)`` grid
+it runs a checkpointed tanh layer (``activation_checkpointing.
+checkpoint_wrapper`` under ``configure(mpu=grid,
+partition_activations=True)``) and the plain one on the same inputs,
+writing both grads (``plain``, ``remat``) and the shapes held
+(``held``).
+
 ``pipe`` runs the pipeline engine on gpt2-tiny (``initialize(model=
 PipeSpec)``): ``{"stages": P, "schedule": "gpipe" | "1f1b", "remat":
 the pipeline's activation_checkpoint_interval (absent: the key left
@@ -113,7 +156,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import deepspeed_tpu_torch  # noqa: E402
 from deepspeed_tpu_torch.models import gpt2 as tgpt2  # noqa: E402
 from deepspeed_tpu_torch.moe.layer import MoEConfig  # noqa: E402
-from deepspeed_tpu_torch.ops.fused_update import tree_flatten  # noqa: E402
+from deepspeed_tpu_torch.ops.fused_update import (  # noqa: E402
+    tree_flatten, tree_unflatten)
 from deepspeed_tpu_torch.ops.optimizers import state_buffers  # noqa: E402
 from deepspeed_tpu_torch.runtime.zero.stage3 import Zero3Scan  # noqa: E402
 
@@ -187,6 +231,19 @@ def embed_loss(params, batch, rng):
     return torch.mean((pred.float() - batch["y"]) ** 2)
 
 
+def mpfile_params():
+    """JAX ``test_mp_sharded_model_files``'s parameters."""
+    return {"w": torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8),
+            "b": torch.zeros(8)}
+
+
+def mpfile_loss(params, batch, rng):
+    """JAX ``test_mp_sharded_model_files``'s loss."""
+    x, y = batch
+    h = x @ params["w"][:x.shape[-1], :]
+    return torch.mean((h.sum(-1) - y) ** 2)
+
+
 def flat_params(eng):
     if getattr(eng, "_pipe_spec", None) is not None:
         tree = eng.whole_params()       # (a collective; rank 0 only)
@@ -231,7 +288,106 @@ def hetero_parts(H=16, P=2, seed=0):
         shared
 
 
+def ring_job(job, world, rank):
+    """The ``ring`` job (the module docstring)."""
+    from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                        apply_blocks)
+    from deepspeed_tpu_torch.ops.ring_attention import (ring_attention,
+                                                        ring_attention_fn)
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    grid = build_mesh(sp=world)
+    z = load_params(job["ring"])
+    out = {}
+    for causal in (0, 1):
+        qkv = [z[n].clone().requires_grad_(True) for n in "qkv"]
+        o = ring_attention(*qkv, grid, causal=bool(causal))
+        grads = torch.autograd.grad((o * z["probe"]).sum(), qkv)
+        out[f"o{causal}"] = o.detach().numpy()
+        for n, g in zip("qkv", grads):
+            out[f"d{n}{causal}"] = g.numpy()
+    cfg = TransformerConfig(hidden_size=32, num_heads=2, num_layers=2,
+                            max_seq_length=32, hidden_dropout=0.0,
+                            attn_dropout=0.0, causal=True,
+                            dtype=torch.float32)
+    y = apply_blocks(z["blocks"], z["x"], cfg, deterministic=True,
+                     attention_fn=ring_attention_fn(grid))
+    out["y"] = y.detach().numpy()
+    np.savez(f"{job['out']}.rank{rank}.npz", **out)
+
+
+def serve_job(job, world, rank, params):
+    """The ``serve`` job (the module docstring)."""
+    from deepspeed_tpu_torch.inference import InferenceEngine, scheduler
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    mesh = job.get("mesh", {})
+    grid = build_mesh(mp=mesh.get("mp", 1), sp=mesh.get("sp", 1))
+    cfg = dataclasses.replace(tgpt2.GPT2_CONFIGS["gpt2-tiny"],
+                              dtype=torch.float32)
+    eng = InferenceEngine(cfg, params, config={"inference": job["serve"]},
+                          device="cpu", mesh=grid,
+                          param_shardings=tgpt2.gpt2_param_shardings(cfg))
+    logits, toks = [], []
+    for s, n in ((0, 11), (1, 17)):
+        prompt = np.random.default_rng(s).integers(0, 512, n) \
+            .astype(np.int32)
+        tok, lg = eng.prefill(prompt, slot=s, return_logits=True)
+        eng.activate_slot(s, n, tok)
+        logits.append(np.asarray(lg)[None])
+        toks.append([int(tok), -1])
+    for _ in range(6):
+        tok, lg = eng.decode_once(return_logits=True)
+        logits.append(np.asarray(lg)[:2])
+        toks.append([int(t) for t in np.asarray(tok)[:2]])
+    for s in (0, 1):
+        eng.release_slot(s)
+    eng.reset_serving_stats()
+    streams = np.full((12, 8), -1, np.int64)
+    for k, temperature in enumerate((0.0, 0.8)):
+        eng.reset_serving_stats()
+        rep = eng.serve(scheduler.synthetic_requests(
+            6, prompt_len=(5, 20), max_new_tokens=6, vocab_size=512,
+            seed=1), temperature=temperature)
+        for i, r in enumerate(rep["requests"]):
+            streams[6 * k + i, :len(r["tokens"])] = r["tokens"]
+    eng.close()
+    np.savez(f"{job['out']}.rank{rank}.npz",
+             logits=np.concatenate([np.pad(x, ((0, 2 - len(x)), (0, 0)))
+                                    for x in logits]),
+             toks=np.asarray(toks), streams=streams)
+
+
+def partition_job(job, world, rank):
+    """The ``partition`` job (the module docstring)."""
+    from deepspeed_tpu_torch.parallel.topology import build_mesh
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ck
+    grid = build_mesh(mp=world)
+    ck.configure(mpu=grid, partition_activations=True)
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(16, 16, generator=g)
+    x = torch.randn(8, 4, 16, generator=g)
+
+    def fn(w, x):
+        return torch.sum(torch.tanh(x @ w) ** 2)
+    out = {}
+    for name, call in (("plain", fn), ("remat", ck.checkpoint_wrapper(fn))):
+        a, b = w.clone().requires_grad_(), x.clone().requires_grad_()
+        grads = torch.autograd.grad(call(a, b), (a, b))
+        out[name] = np.concatenate([t.reshape(-1).numpy() for t in grads])
+        if name == "remat":
+            out["held"] = np.asarray(sorted(str(r[2])
+                                            for r in call.last_saved))
+    ck.reset()
+    np.savez(f"{job['out']}.rank{rank}.npz", **out)
+
+
 def run_job(job, world, rank, params):
+    if job.get("partition"):
+        return partition_job(job, world, rank)
+    if job.get("ring"):
+        return ring_job(job, world, rank)
+    if job.get("serve"):
+        return serve_job(job, world, rank, params)
     precision = job["precision"]
     dropout = job.get("dropout", 0.0)
     micro = job.get("micro", MICRO)
@@ -241,6 +397,13 @@ def run_job(job, world, rank, params):
         extra["moe"] = job["moe"]
     pipe = job.get("pipe")
     dp, dp_rank = world, rank
+    mesh = job.get("mesh")
+    grid = shardings = None
+    if mesh:
+        from deepspeed_tpu_torch.parallel.topology import build_mesh
+        inner = mesh.get("mp", 1) * mesh.get("sp", 1)
+        dp, dp_rank = world // inner, rank // inner
+        grid = build_mesh(mp=mesh.get("mp", 1), sp=mesh.get("sp", 1))
     if pipe:
         dp, dp_rank = world // pipe["stages"], rank % (
             world // pipe["stages"])
@@ -262,6 +425,12 @@ def run_job(job, world, rank, params):
         model, params = embed_loss, embed_params()
         with np.load(job["batches"]) as z:
             batches = [{"ids": i, "y": y} for i, y in zip(z["ids"], z["y"])]
+    elif job.get("model") == "mpfile":
+        from deepspeed_tpu_torch.parallel.topology import P
+        model, params = mpfile_loss, mpfile_params()
+        shardings = {"w": P("model", None), "b": P(None)}
+        with np.load(job["batches"]) as z:
+            batches = [(x, y) for x, y in zip(z["x"], z["y"])]
     else:
         cfg = dataclasses.replace(
             tgpt2.GPT2_CONFIGS["gpt2-tiny"], dtype=DTYPES[precision],
@@ -270,7 +439,14 @@ def run_job(job, world, rank, params):
             num_layers=job.get("layers", 2),
             vocab_size=job.get("vocab", 512),
             moe=MoEConfig(**job["moe"]) if job.get("moe") else None)
-        model = tgpt2.gpt2_loss_fn(cfg, zero3=spec)
+        attn = None
+        if grid is not None and grid.seq_parallel_size > 1:
+            from deepspeed_tpu_torch.ops.ring_attention import \
+                ring_attention_fn
+            attn = ring_attention_fn(grid)
+        model = tgpt2.gpt2_loss_fn(cfg, attention_fn=attn, zero3=spec)
+        if grid is not None and grid.model_parallel_size > 1:
+            shardings = tgpt2.gpt2_param_shardings(cfg)
         batches = np.load(job["batches"])
         if pipe and pipe.get("hetero"):
             from deepspeed_tpu_torch.runtime.pipe.hetero import \
@@ -281,6 +457,9 @@ def run_job(job, world, rank, params):
             from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipe_spec
             model = gpt2_pipe_spec(cfg, params=params,
                                    stage_layers=pipe.get("stage_layers"))
+    if job.get("apply"):
+        return apply_job(job, cfg, model, shardings, grid, params,
+                         batches[0], rank)
     if job.get("perturb"):
         params = shifted(params, 0.01 * rank)
     client = None
@@ -301,7 +480,8 @@ def run_job(job, world, rank, params):
     else:
         eng, *_ = deepspeed_tpu_torch.initialize(
             model=model, model_params={k: v for k, v in params.items()},
-            config=ds, device="cpu", rng=0, zero3_scan=spec)
+            config=ds, device="cpu", rng=0, zero3_scan=spec, mesh=grid,
+            param_shardings=shardings)
     if job.get("load"):
         assert eng.load_checkpoint(job["load"])[0] is not None
     first = job.get("first", 0)
@@ -319,6 +499,10 @@ def run_job(job, world, rank, params):
         if isinstance(batches[k], dict):
             rows = {n: rank_rows(x, world, rank, micro, gas)
                     for n, x in batches[k].items()}
+        elif isinstance(batches[k], tuple):
+            rows = tuple(torch.from_numpy(rank_rows(x, dp, dp_rank, micro,
+                                                    gas))
+                         for x in batches[k])
         else:
             rows = rank_rows(batches[k], dp, dp_rank, micro, gas)
         if job.get("trio"):
@@ -407,6 +591,76 @@ def run_job(job, world, rank, params):
                 out[f"{name}{gi}"] = b.numpy()
         out["count"] = np.asarray(int(st.count))
     np.savez(f"{job['out']}.rank{rank}.npz", **out)
+
+
+def apply_job(job, cfg, model, shardings, grid, params, batch, rank):
+    """The ``apply`` job: logits, loss and grads through the model's
+    tensor-parallel program, on this rank's parts; then bert-tiny's MLM
+    loss and grads likewise, at each of the job's ``bert`` vocabularies
+    (``bert_tp``)."""
+    tp, local, whole = tp_grads(model, params, shardings, grid)
+    tokens = torch.from_numpy(batch).long()
+    logits = tgpt2.gpt2_apply(local, tokens[:, :-1], cfg, tp=tp)
+    loss, grads = whole(tokens)
+    out = dict(logits=logits.detach().numpy(), loss=loss, grads=grads)
+    with np.load(job["bert_inputs"]) as z:
+        bert_batch = (torch.from_numpy(z["tokens"]).long(),
+                      torch.from_numpy(z["labels"]).long())
+    diffs = []
+    for vocab, path in job["bert"]:
+        (out[f"bert{vocab}_loss"], out[f"bert{vocab}_grads"]), diff = \
+            bert_tp(grid, load_params(path), bert_batch)
+        diffs.append(diff)
+    np.savez(f"{job['out']}.rank{rank}.npz", bert_diff=np.asarray(diffs),
+             **out)
+
+
+def tp_grads(model, params, shardings, grid):
+    """This rank's parts of ``params`` under ``shardings`` (the model's
+    declared leaves), and a function of the batch that returns the
+    model's loss and its grads, gathered whole and flattened."""
+    from deepspeed_tpu_torch.parallel import tensor_parallel as tpm
+    local, tp, axes, qkv = tpm.shard_params(
+        params, shardings, grid, vocab_leaves=model.vocab_leaves,
+        qkv_leaves=model.qkv_leaves, own=model.param_shardings)
+    leaves, td = tree_flatten(local)
+    leaves = [x.requires_grad_(True) for x in leaves]
+    model.tp = tp
+
+    def whole(batch):
+        loss = model(tree_unflatten(td, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [tpm.whole_leaf(torch.zeros_like(x) if g is None else g,
+                                q, a, tp)
+                 for x, g, q, a in zip(leaves, grads, qkv, axes)]
+        return float(loss), np.concatenate(
+            [g.reshape(-1).numpy() for g in grads])
+    return tp, tree_unflatten(td, leaves), whole
+
+
+def bert_tp(grid, params, batch):
+    """bert-tiny's MLM loss and whole grads through its tensor-parallel
+    program under ``bert_param_shardings`` (a vocabulary mp does not
+    divide whole on every rank), and their largest difference from the
+    whole model's."""
+    from deepspeed_tpu_torch.models import bert as tbert
+    cfg = dataclasses.replace(tbert.BERT_CONFIGS["bert-tiny"],
+                              dtype=torch.float32,
+                              vocab_size=params["wte"].shape[0],
+                              hidden_dropout=0.0, attn_dropout=0.0)
+    model = tbert.bert_mlm_loss_fn(cfg)
+    loss, grads = tp_grads(model, params, tbert.bert_param_shardings(cfg),
+                           grid)[2](batch)
+    model.tp = None
+    leaves, td = tree_flatten(params)
+    leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+    ref = model(tree_unflatten(td, leaves), batch)
+    ref_grads = torch.autograd.grad(ref, leaves, allow_unused=True)
+    ref_flat = np.concatenate([
+        (torch.zeros_like(x) if g is None else g).reshape(-1).numpy()
+        for x, g in zip(leaves, ref_grads)])
+    diff = max(abs(loss - float(ref)), float(np.abs(grads - ref_flat).max()))
+    return (loss, grads), diff
 
 
 def spawn_forked(d, world, jobs, tag, params_path):

@@ -109,7 +109,7 @@ def forward(lib, q, k, v, causal, scale, drop, seed, lay=None):
     rc = lib.dstt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *q.stride()[:3],
         o.data_ptr(), lse.data_ptr(), seed.data_ptr() if drop > 0 else None,
-        *gate, *tail(q, drop, causal, scale))
+        *gate, *fa._with_heads(tail(q, drop, causal, scale), None))
     assert rc == 0, rc
     return o, lse
 
@@ -123,7 +123,7 @@ def dense(lib, kind, q, k, v, do, lse, delta, causal, scale, drop, seed,
     gate = (None, 0, 0) if lay is None else \
         (lay.data_ptr(), lay.shape[-1], q.shape[1] // lay.shape[-1])
     dq, dk, dv = e(), e(), e()
-    t = tail(q, drop, causal, scale)
+    t = fa._with_heads(tail(q, drop, causal, scale), None)
     if kind == "fused":
         rcs = [lib.dstt_flash_bwd_fused(*ptrs, *st, *bwd, dq.data_ptr(),
                                         dk.data_ptr(), dv.data_ptr(), sp,
